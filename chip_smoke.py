@@ -5,22 +5,42 @@
 
 Phases, one JSON line each:
   1. device: the card (nvidia-smi name and power limit), torch and CUDA;
-  2. build: both CUDA kernels compiled from `umfa_tpu_torch/csrc/`;
-  3. kernels against their plain PyTorch versions on the card at the
-     serving head geometry (Hq 16 / Hkv 8, D 64, Sk 4096, batch 2), with
-     the stated tolerances; then each kernel timed at the prefill shape of
-     the serving run (batch 8, 4032 causal queries against 4096 keys)
-     beside its plain version, its bound and, for the dense kernel, torch's
-     scaled_dot_product_attention (a yardstick only; the port never calls
-     it);
-  4. serving at full width (vocab 32768, dim 1024, 16/8 heads, D 64, depth
+  2. build: the four CUDA kernel libraries compiled from
+     `umfa_tpu_torch/csrc/`, one nvcc each, all at once;
+  3. forward kernels against their plain PyTorch versions on the card at
+     the serving head geometry (Hq 16 / Hkv 8, D 64, Sk 4096, batch 2),
+     with the stated tolerances; then each kernel timed at the prefill
+     shape of the serving run (batch 8, 4032 causal queries against 4096
+     keys) beside its plain version, its bound and, for the dense kernel,
+     torch's scaled_dot_product_attention (a yardstick only; the port never
+     calls it);
+  4. backward kernels (dQ, dK/dV, dbias) against their plain versions at
+     the training head geometry (batch 2, causal 1024, odd 777 x 1000,
+     window (128, 0), full and shared biases, fully masked rows, a nonzero
+     dlse, D 32/64/128, fp32 and bf16); then each timed at the training
+     shape (batch 8, causal 4096, D 64, bf16) beside its plain version,
+     its bound and the SDPA backward (flash for dQ + dK/dV, memory-efficient
+     with a bias gradient for dbias; yardsticks only);
+  5. serving at full width (vocab 32768, dim 1024, 16/8 heads, D 64, depth
      8, max_seq 4096, bf16, batch 8) for the dense and the INT8 KV cache:
      prefill of 4032 tokens, a 16-token continuation with chunk_start, a
      24-token continuation through the bias route, 16 greedy decode steps,
-     once to warm up and once timed, with the launch counts set to 0 just
-     before the timed run and read just after; plus a small model checked
+     once to warm up and once timed; plus a small model checked against
+     the plain path on the CPU;
+  6. training at full width (the same model, batch 8 rows of 4097 tokens,
+     the next-token cross-entropy in fp32, `.backward()`, plain SGD with
+     lr TRAIN_LR): one warm-up step and three timed steps on one batch,
+     each with a finite loss below the step before's and exactly
+     8 flash_fwd, 8 flash_bwd_dq, 8 flash_bwd_dkv and 0 flash_dbias
+     launches; plus a small model's loss and every gradient on the card
      against the plain path on the CPU;
-  5. a `kernels` line; the nvidia-smi line; the result line.
+  7. the public `attention()` on the card with gradients (a float bias with
+     bias_grad=True, a bool mask, a float bias with bias_grad=False)
+     against the CPU path, through the fused route only;
+  8. a `kernels` line; the nvidia-smi line; the result line.
+Every path (each serving run, the timed training steps, the attention()
+phase) is driven with the launch counts set to 0 just before it and read
+just after; a kernel's `launches` in the kernels line is its sum over them.
 
 Any failed check raises, so the script exits non-zero. Without a CUDA
 device, or without the rest of the repository beside it, it exits non-zero
@@ -29,8 +49,10 @@ and prints no result. fp32 checks run with TF32 disabled
 Details go to chiprun_out/chip_smoke.json.
 """
 
+import collections
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -45,6 +67,8 @@ H100_HBM_BYTES = 3.35e12   # HBM3 bytes/s
 
 B_CHECK, B_SERVE = 2, 8
 HQ, HKV, D, SK, PROMPT = 16, 8, 64, 4096, 4032
+B_TRAIN, S_TRAIN = 8, 4096
+TRAIN_LR = 10.0  # plain SGD on the bf16 parameters; see PERF.md
 
 
 def emit(obj):
@@ -324,7 +348,7 @@ def phase_serving(record):
     emit({"phase": "serving_greedy_agreement", "int8_vs_dense": agree,
           "note": "random weights; information only"})
     record["greedy_agreement"] = agree
-    return {k: launches[kind].get(k, 0) for kind, k in kernel_of.items()}
+    return list(launches.values())
 
 
 def phase_small_reference(record):
@@ -363,6 +387,338 @@ def phase_small_reference(record):
     record["small_model_max_abs"] = worst
 
 
+def phase_bwd_kernels(record):
+    """Rows 2-4 against their plain versions, then timed at the training
+    shape. The forward kernel (checked in phase 3) gives out and lse."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from umfa_tpu_torch.ops import flash_bwd as fb
+    from umfa_tpu_torch.ops.flash_fwd import flash_attention_forward
+    from umfa_tpu_torch.utils.testing import rel_err
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(4)
+
+    def randn(shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen).to(dev, dtype)
+
+    def inputs(b, sq, sk, d, dtype, bias_shape=None, dlse=False, **kw):
+        q, k, v = randn((b, HQ, sq, d), dtype), randn((b, HKV, sk, d), dtype), randn((b, HKV, sk, d), dtype)
+        bias = None
+        if bias_shape is not None:
+            bias = randn({"bhqk": (b, HQ, sq, sk), "11qk": (1, 1, sq, sk)}[bias_shape])
+            bias = torch.where(bias > 2.0, torch.full_like(bias, -1e30), bias)
+        out, lse = flash_attention_forward(q, k, v, bias, **kw)
+        do = randn(out.shape, out.dtype)
+        return (q, k, v, out, lse, do, bias, randn(lse.shape) if dlse else None)
+
+    cases = [  # name, sq, sk, d, kwargs
+        ("causal_1024", 1024, 1024, 64, dict(causal=True)),
+        ("odd_777x1000_dlse", 777, 1000, 64, dict(causal=True, dlse=True)),
+        ("window_128_0", 1024, 1024, 64, dict(window=(128, 0))),
+        ("bias_bhqk_512", 512, 512, 64, dict(bias_shape="bhqk")),
+        ("bias_11qk_causal", 1024, 1024, 64, dict(causal=True, bias_shape="11qk")),
+        ("masked_rows_1088x1024", 1088, 1024, 64, dict(window=(0, -1))),
+        ("d32_causal", 1024, 1024, 32, dict(causal=True)),
+        ("d128_causal", 1024, 1024, 128, dict(causal=True)),
+    ]
+    # fp32: 1e-4 (tests/test_flash_backward.py:32); bf16-emitted: 2e-2
+    # (TOL["bf16"]); dbias (fp32 out): 1e-4.
+    tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+    worst = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0, "flash_dbias": 0.0}
+    results = []
+    for name, sq, sk, d, kw in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = inputs(B_CHECK, sq, sk, d, dtype, **kw)
+            mask_kw = dict(causal=kw.get("causal", False), window=kw.get("window"))
+            gdt = torch.bfloat16 if dtype == torch.bfloat16 else None
+            got = fb.flash_attention_backward(*args, grad_dtype=gdt, **mask_kw)
+            torch.cuda.synchronize()
+            want = fb.flash_attention_backward_plain(*args, grad_dtype=gdt, **mask_kw)
+            empty = args[4] <= -1e29
+            res = {"case": f"flash_bwd/{str(dtype)[6:]}/{name}", "tol": tol[dtype],
+                   "empty_rows": int(empty.sum()),
+                   "empty_rows_exact": bool((got[0][empty] == 0).all() and (want[0][empty] == 0).all())}
+            for kernel, grad, g, w in zip(("flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dkv"),
+                                          ("dq", "dk", "dv"), got, want):
+                res[f"relerr_{grad}"] = rel_err(g, w)
+                res[f"max_abs_{grad}"] = float((g.float() - w.float()).abs().max())
+                res[f"finite_{grad}"] = torch_isfinite(g.float())
+                worst[kernel] = max(worst[kernel], res[f"max_abs_{grad}"])
+            res["ok"] = (res["empty_rows_exact"]
+                         and all(res[f"relerr_{g}"] <= tol[dtype] and res[f"finite_{g}"]
+                                 for g in ("dq", "dk", "dv")))
+            results.append(res)
+            emit({"phase": "kernel_check", **res})
+            bias = args[6]
+            if bias is not None:
+                q, k, v, out, lse, do = args[:6]
+                got = fb.flash_attention_bias_grad(q, k, v, out, lse, do, bias, **mask_kw)
+                torch.cuda.synchronize()
+                want = fb.flash_attention_bias_grad_plain(q, k, v, out, lse, do, bias, **mask_kw)
+                res = {"case": f"flash_dbias/{str(dtype)[6:]}/{name}", "tol": 1e-4,
+                       "relerr": rel_err(got, want),
+                       "max_abs": float((got - want).abs().max()),
+                       "shape_ok": tuple(got.shape) == tuple(bias.shape),
+                       "finite": torch_isfinite(got)}
+                res["ok"] = res["relerr"] <= 1e-4 and res["shape_ok"] and res["finite"]
+                worst["flash_dbias"] = max(worst["flash_dbias"], res["max_abs"])
+                results.append(res)
+                emit({"phase": "kernel_check", **res})
+            del args, got, want
+    record["bwd_kernel_checks"] = results
+    bad = [r["case"] for r in results if not r["ok"]]
+    if bad:
+        raise AssertionError(f"backward kernels disagree with their plain versions: {bad}")
+
+    # Timing at the training shape: B8 Hq16 Hkv8 Sq = Sk = 4096 D64 causal bf16.
+    torch.cuda.empty_cache()
+    b, s = B_TRAIN, S_TRAIN
+    shape = f"B{b} Hq{HQ} Hkv{HKV} Sq{s} Sk{s} D{D} causal bf16"
+    q, k, v = randn((b, HQ, s, D), torch.bfloat16), randn((b, HKV, s, D), torch.bfloat16), randn((b, HKV, s, D), torch.bfloat16)
+    out, lse = flash_attention_forward(q, k, v, causal=True)
+    do = randn(out.shape, torch.bfloat16)
+    p = fb._prepare(q, k, v, out, lse, do, None, None, True, None, None)
+    pairs = b * HQ * visible_pairs(s, s, -1, 0)
+    reads = 2 * (q.numel() + k.numel() + v.numel() + do.numel()) + 4 * 2 * lse.numel()  # + lse, delta
+    timing = {}
+    passes = {  # kernel: (launch, plain, products, bytes written, grads)
+        "flash_bwd_dq": (lambda: (fb._launch_dq(p, torch.bfloat16),), lambda: (fb._plain_dq(p),),
+                         3, 2 * q.numel(), ("dq",)),
+        "flash_bwd_dkv": (lambda: fb._launch_dkv(p, torch.bfloat16), lambda: fb._plain_dkv(p),
+                          4, 2 * 2 * k.numel(), ("dk", "dv")),
+    }
+    for name, (kern, plain, products, written, grads) in passes.items():
+        got, want = kern(), plain()
+        check = {g: rel_err(x, y) for g, x, y in zip(grads, got, want)}
+        worst[name] = max(worst[name], *(float((x.float() - y.float()).abs().max())
+                                         for x, y in zip(got, want)))
+        del got, want
+        flops = 2 * D * products * pairs
+        nbytes = reads + written
+        timing[name] = dict(ms=cuda_ms(kern), plain_ms=cuda_ms(plain, iters=3, warmup=1),
+                            flops=flops, bytes=nbytes, ops_ms=flops / H100_BF16_FLOPS * 1e3,
+                            bytes_ms=nbytes / H100_HBM_BYTES * 1e3, check=check,
+                            ok=all(e <= 2e-2 for e in check.values()))
+        torch.cuda.empty_cache()
+
+    # Yardstick: the flash SDPA backward at the same shape (dQ, dK, dV in one call).
+    qg = q.detach().requires_grad_(True)
+    try:
+        kg, vg = k.detach().requires_grad_(True), v.detach().requires_grad_(True)
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=True)
+        sdpa_gqa = "enable_gqa"
+    except (RuntimeError, TypeError):
+        kg = k.repeat_interleave(HQ // HKV, 1).requires_grad_(True)
+        vg = v.repeat_interleave(HQ // HKV, 1).requires_grad_(True)
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        sdpa_gqa = "K and V expanded to 16 heads (this torch refused enable_gqa)"
+    sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(o, (qg, kg, vg), do, retain_graph=True))
+    for name in passes:
+        timing[name].update(library_ms=sdpa_bwd_ms,
+                            library="flash SDPA backward (dQ, dK and dV in one call), " + sdpa_gqa)
+    del qg, kg, vg, o
+    torch.cuda.empty_cache()
+
+    # dbias with a (1, Hq, S, S) bias, summed over the batch in the kernel.
+    bias = torch.randn((1, HQ, s, s), device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(8))
+    out_b, lse_b = flash_attention_forward(q, k, v, bias, causal=True)
+    pb = fb._prepare(q, k, v, out_b, lse_b, do, bias, None, True, None, None)
+    kern = lambda: fb._launch_dbias(pb, tuple(bias.shape))  # noqa: E731
+    plain = lambda: fb._plain_dbias(pb, tuple(bias.shape))  # noqa: E731
+    got, want = kern(), plain()
+    check = {"dbias": rel_err(got, want)}
+    worst["flash_dbias"] = max(worst["flash_dbias"], float((got - want).abs().max()))
+    del got, want
+    torch.cuda.empty_cache()
+    flops = 2 * D * 2 * pairs
+    nbytes = reads + 4 * HQ * visible_pairs(s, s, -1, 0) + 4 * bias.numel()  # visible bias read, dbias written
+    timing["flash_dbias"] = dict(ms=cuda_ms(kern), plain_ms=cuda_ms(plain, iters=3, warmup=1),
+                                 flops=flops, bytes=nbytes, ops_ms=flops / H100_BF16_FLOPS * 1e3,
+                                 bytes_ms=nbytes / H100_HBM_BYTES * 1e3, check=check,
+                                 ok=check["dbias"] <= 1e-4)
+    torch.cuda.empty_cache()
+    # Yardstick: the memory-efficient SDPA backward with a bias that requires
+    # grad (causal folded into the bf16 bias; it also computes dQ, dK, dV).
+    vis = torch.ones((s, s), dtype=torch.bool, device=dev).tril()
+    mask = torch.where(vis, bias, float("-inf")).to(torch.bfloat16).requires_grad_(True)
+    qg = q.detach().requires_grad_(True)
+    kx = k.repeat_interleave(HQ // HKV, 1).requires_grad_(True)
+    vx = v.repeat_interleave(HQ // HKV, 1).requires_grad_(True)
+    try:
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            o = F.scaled_dot_product_attention(qg, kx, vx, attn_mask=mask)
+        timing["flash_dbias"]["library_ms"] = cuda_ms(
+            lambda: torch.autograd.grad(o, (mask,), do, retain_graph=True))
+        timing["flash_dbias"]["library"] = ("memory-efficient SDPA backward with a (1, 16, S, S) "
+                                             "bf16 bias gradient; also computes dQ, dK, dV")
+        del o
+    except RuntimeError as e:
+        timing["flash_dbias"]["library_ms"] = None
+        timing["flash_dbias"]["library"] = f"none: this torch refused the bias gradient ({e})"[:300]
+    del qg, kx, vx, mask, bias, pb, p, q, k, v, do, out, lse, out_b, lse_b
+    torch.cuda.empty_cache()
+
+    for name, t in timing.items():
+        if not t["ok"]:
+            raise AssertionError(f"{name} disagrees with its plain version at the training shape: {t['check']}")
+        t["bound_ms"] = max(t["ops_ms"], t["bytes_ms"])
+        t["bound_by"] = "operations" if t["ops_ms"] >= t["bytes_ms"] else "bytes"
+        emit({"phase": "kernel_timing", "kernel": name, "shape": shape, **t})
+    record["bwd_kernel_timing"] = timing
+    return timing, worst
+
+
+def loss_fn(model, tokens):
+    """Next-token cross-entropy in fp32 (tests/test_gpt.py:31-37)."""
+    import torch
+
+    logits = model(tokens[:, :-1]).float()
+    lp = torch.log_softmax(logits, dim=-1)
+    return -lp.gather(-1, tokens[:, 1:, None]).mean()
+
+
+def phase_training(record):
+    """The full-width model trains: loss, .backward(), plain SGD."""
+    import torch
+
+    from umfa_tpu_torch import _kernels
+    from umfa_tpu_torch.models import gpt
+
+    dev = torch.device("cuda")
+    cfg = gpt.GPTConfig(vocab=32768, dim=1024, num_heads=HQ, num_kv_heads=HKV, depth=8,
+                        max_seq=SK, dtype="bfloat16")
+    model = gpt.init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    tokens = torch.randint(0, cfg.vocab, (B_TRAIN, S_TRAIN + 1),
+                           generator=torch.Generator().manual_seed(5)).to(dev)
+    want = {"flash_fwd": cfg.depth, "flash_bwd_dq": cfg.depth, "flash_bwd_dkv": cfg.depth,
+            "flash_dbias": 0, "quant_attn_fwd": 0}
+    steps, path_counts = [], []
+    for i in range(4):  # one warm-up step, then three timed ones
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss = loss_fn(model, tokens)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        with torch.no_grad():
+            for prm in model.parameters():
+                prm -= TRAIN_LR * prm.grad
+                prm.grad = None
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        counts = dict(_kernels.launches)
+        step = {"phase": "training", "step": i, "warmup": i == 0, "loss": loss.item(),
+                "fwd_ms": (t1 - t0) * 1e3, "bwd_ms": (t2 - t1) * 1e3, "sgd_ms": (t3 - t2) * 1e3,
+                "step_ms": (t3 - t0) * 1e3,
+                "tokens_per_s": B_TRAIN * S_TRAIN / (t3 - t0),
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": counts}
+        del loss
+        emit(step)
+        steps.append(step)
+        if i > 0:
+            path_counts.append(counts)
+        if not math.isfinite(step["loss"]) or (i > 0 and not step["loss"] < steps[i - 1]["loss"]):
+            raise AssertionError(f"training step {i}: loss {step['loss']} is not finite and "
+                                 f"below the step before's")
+        if {k: counts.get(k, 0) for k in want} != want:
+            raise AssertionError(f"training step {i}: launches {counts}, expected {want}")
+    record["training"] = {"config": dataclasses.asdict(cfg),
+                          "batch": B_TRAIN, "seq": S_TRAIN, "lr": TRAIN_LR, "steps": steps}
+    del model, tokens
+    torch.cuda.empty_cache()
+    return path_counts
+
+
+def phase_small_training(record):
+    """A small fp32 model's loss and every gradient, on the card against the
+    plain path on the CPU (the CPU path is held against the JAX package by
+    tests/test_torch_gpt_train.py)."""
+    import torch
+
+    from umfa_tpu_torch.models import gpt
+    from umfa_tpu_torch.utils.testing import rel_err
+
+    cfg = gpt.GPTConfig(vocab=64, dim=128, num_heads=4, num_kv_heads=2, depth=2, max_seq=96)
+    tokens = torch.randint(0, 64, (2, 97), generator=torch.Generator().manual_seed(6))
+    res = {}
+    for dev in ("cuda", "cpu"):
+        model = gpt.init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+        loss = loss_fn(model, tokens.to(dev))
+        loss.backward()
+        res[dev] = (loss.item(), {n: prm.grad.cpu() for n, prm in model.named_parameters()})
+    errs = {n: rel_err(res["cuda"][1][n], g) for n, g in res["cpu"][1].items()}
+    out = {"phase": "small_training_vs_cpu", "loss_cuda": res["cuda"][0], "loss_cpu": res["cpu"][0],
+           "grads": len(errs), "worst_grad_relerr": max(errs.values()), "tol": 1e-4}
+    emit(out)
+    record["small_training"] = out | {"grad_relerr": errs}
+    if not (abs(out["loss_cuda"] - out["loss_cpu"]) <= 1e-4 and out["worst_grad_relerr"] <= 1e-4):
+        raise AssertionError(f"small training on the card differs from the CPU path: {out}")
+
+
+def phase_attention_api(record):
+    """attention() with gradients on the card against the CPU path."""
+    import torch
+
+    import umfa_tpu_torch as ut
+    from umfa_tpu_torch import _kernels
+    from umfa_tpu_torch.utils.testing import rel_err
+
+    gen = torch.Generator().manual_seed(7)
+    b, s = B_CHECK, 1024
+    q, k, v = (torch.randn(shape, generator=gen) for shape in
+               ((b, HQ, s, D), (b, HKV, s, D), (b, HKV, s, D)))
+    bias = torch.randn((1, HQ, s, s), generator=gen)
+    bool_mask = torch.rand((1, 1, s, s), generator=gen) > 0.2
+    w = torch.randn((b, HQ, s, D), generator=gen)
+    calls = [  # name, mask, bias_grad
+        ("float_bias_grad", bias, True),
+        ("bool_mask", bool_mask, False),
+        ("float_bias_no_grad", bias, False),
+    ]
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        ut.reset_dispatch_stats()
+        _kernels.reset_launch_counts()
+        for name, mask, bias_grad in calls:
+            # Fresh leaves per call (copy=True: .to() would hand back the
+            # CPU tensors themselves, whose .grad would then accumulate).
+            t = [x.to(dev, copy=True).requires_grad_(True) for x in (q, k, v)]
+            m = mask.to(dev, copy=True).requires_grad_(mask.is_floating_point())
+            out = ut.attention(*t, m, bias_grad=bias_grad)
+            (out * w.to(dev)).sum().backward()
+            grads[dev, name] = [x.grad.cpu() for x in t] + ([m.grad.cpu()] if m.requires_grad else [])
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            counts, stats = dict(_kernels.launches), ut.get_dispatch_stats()
+    checks = {}
+    for name, _, _ in calls:
+        for g, a, c in zip(("dq", "dk", "dv", "dbias"), grads["cuda", name], grads["cpu", name]):
+            checks[f"{name}/{g}"] = rel_err(a, c)
+    zeros_ok = bool((grads["cuda", "float_bias_no_grad"][3] == 0).all())
+    out = {"phase": "attention_api", "shape": f"B{b} Hq{HQ} Hkv{HKV} S{s} D{D} fp32",
+           "relerr": checks, "tol": 1e-4, "bias_grad_false_zeros": zeros_ok,
+           "launches": counts, "dispatch": stats}
+    emit(out)
+    record["attention_api"] = out
+    if not (all(e <= 1e-4 for e in checks.values()) and zeros_ok):
+        raise AssertionError(f"attention() on the card differs from the CPU path: {checks}")
+    if stats["fused_autograd"] != len(calls) or stats["naive_fallback"] != 0:
+        raise AssertionError(f"attention() took another route than fused_autograd: {stats}")
+    if counts.get("flash_dbias", 0) < 1 or counts.get("flash_bwd_dq", 0) != len(calls):
+        raise AssertionError(f"attention() did not go through the backward kernels: {counts}")
+    return counts
+
+
 def main():
     import torch
 
@@ -392,20 +748,35 @@ def main():
     record["build"] = build
 
     timing, worst = phase_kernels(record)
-    path_launches = phase_serving(record)
+    bwd_timing, bwd_worst = phase_bwd_kernels(record)
+    timing.update(bwd_timing)
+    worst.update(bwd_worst)
+    path_counts = phase_serving(record)
     phase_small_reference(record)
+    path_counts.append(phase_attention_api(record))
+    phase_small_training(record)
+    path_counts += phase_training(record)
+    launches = collections.Counter()
+    for counts in path_counts:
+        launches.update(counts)
 
     src = {"flash_fwd": ("umfa_tpu_torch/csrc/flash_fwd.cu", "umfa_tpu/ops/flash_fwd.py:296"),
            "quant_attn_fwd": ("umfa_tpu_torch/csrc/quant_attn_fwd.cu",
-                              "umfa_tpu/ops/quant_attention.py:74")}
+                              "umfa_tpu/ops/quant_attention.py:74"),
+           "flash_bwd_dq": ("umfa_tpu_torch/csrc/flash_bwd.cu", "umfa_tpu/ops/flash_bwd.py:84"),
+           "flash_bwd_dkv": ("umfa_tpu_torch/csrc/flash_bwd.cu", "umfa_tpu/ops/flash_bwd.py:336"),
+           "flash_dbias": ("umfa_tpu_torch/csrc/flash_dbias.cu", "umfa_tpu/ops/flash_bwd.py:628")}
     kernels = [
         {"name": name, "route": "cuda", "source": src[name][0], "replaces": src[name][1],
-         "launches": path_launches[name], "max_abs_err": worst[name],
+         "launches": launches[name], "max_abs_err": worst[name],
          "ms": timing[name]["ms"], "plain_ms": timing[name]["plain_ms"],
          "bound_ms": timing[name]["bound_ms"], "bound_by": timing[name]["bound_by"],
          "library_ms": timing[name]["library_ms"]}
-        for name in ("flash_fwd", "quant_attn_fwd")
+        for name in src
     ]
+    missing = [k["name"] for k in kernels if k["launches"] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the driven paths: {missing}")
     record["kernels"] = kernels
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:

@@ -1,4 +1,5 @@
-"""Port parity: the GPT model's serving path, and its numerical traps.
+"""Port parity: the GPT model's forward and serving paths, and their
+numerical traps (training: tests/test_torch_gpt_train.py).
 
 JAX weights (init_params with PRNGKey(0)) are carried into the port with
 `params_from_jax`; token ids come from numpy. The JAX model runs its
@@ -80,7 +81,7 @@ def test_forward_logits_match_jax(jparams):
     model = _port(jparams)
     got = model(torch.from_numpy(tokens))
     assert got.shape == (2, 40, CFG.vocab)
-    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=0)
+    np.testing.assert_allclose(got.detach().numpy(), want, atol=1e-4, rtol=0)
 
 
 @pytest.mark.parametrize("kind", ["dtype", "int8"])
@@ -136,9 +137,9 @@ def test_init_params_scales_and_quantized_forward_refused():
     assert model.blocks[0].wq.shape == (256, 4, 64)
     assert model.blocks[0].wkv.shape == (256, 2, 2, 64)
     assert model.blocks[0].wo.shape == (4, 64, 256)
-    assert not any(p.requires_grad for p in model.parameters())
-    assert float(model.embed.std()) == pytest.approx(256**-0.5, rel=0.02)
-    assert float(model.blocks[1].w2.std()) == pytest.approx(1024**-0.5, rel=0.02)
+    assert all(p.requires_grad for p in model.parameters())  # trainable
+    assert model.embed.std().item() == pytest.approx(256**-0.5, rel=0.02)
+    assert model.blocks[1].w2.std().item() == pytest.approx(1024**-0.5, rel=0.02)
     again = gpt.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     assert torch.equal(again.unembed, model.unembed)
     qcfg = dataclasses.replace(CFG, quantization=QuantizationConfig())

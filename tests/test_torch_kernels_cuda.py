@@ -12,6 +12,13 @@ fp16 relerr 1e-2 / LSE 1e-3 (both round P to bf16, relative to different
 running maxima, and sum in another order); INT8 relerr 1e-3 / LSE 1e-4
 (same int8 inputs and bf16 rounding points, only the summation order
 differs). Fully-masked rows must be exact: out 0, LSE -1e30.
+
+Backward kernels (dQ, dK/dV, dbias) against `flash_attention_backward_plain`
+and `flash_attention_bias_grad_plain` on the same inputs: fp32 and fp16
+(computed as fp32) relerr 1e-4, the backward bound of
+tests/test_flash_backward.py:32; bf16 (bf16 gradients emitted, dS and P
+rounded to bf16 at the same points, fp32 sums in another order) relerr
+2e-2, TOL["bf16"]. Rows with no visible key have gradients of exactly 0.
 """
 
 import pytest
@@ -19,6 +26,13 @@ import torch
 
 from umfa_tpu_torch import _kernels
 from umfa_tpu_torch.engine.config import QuantMode
+from umfa_tpu_torch.ops.attention import flash_attention
+from umfa_tpu_torch.ops.flash_bwd import (
+    flash_attention_backward,
+    flash_attention_backward_plain,
+    flash_attention_bias_grad,
+    flash_attention_bias_grad_plain,
+)
 from umfa_tpu_torch.ops.flash_fwd import (
     flash_attention_forward,
     flash_attention_forward_plain,
@@ -147,3 +161,92 @@ def test_quant_attn_fwd_kernel_matches_plain(dev, case):
         qt_q, qt_k, qt_v, bias, causal=causal, window=window)
     assert out.dtype == torch.float32
     _check(out, lse, want, want_lse, 1e-3, 1e-4)
+
+
+BWD_TOLS = {torch.float32: 1e-4, torch.float16: 1e-4, torch.bfloat16: 2e-2}
+BWD_CASES = [
+    # (b, hq, hkv, sq, sk, d, causal, window, bias_shape, dlse)
+    (2, 4, 2, 200, 200, 64, True, None, None, False),
+    (1, 2, 2, 130, 257, 32, True, None, None, True),       # Sq != Sk, KV tail, D 32
+    (1, 4, 2, 300, 300, 128, False, (50, 0), None, False),  # sliding window, D 128
+    (2, 2, 1, 96, 160, 80, False, (20, 10), "b11k", True),  # D not a power of 2
+    (2, 4, 2, 77, 100, 64, False, None, "bhqk", False),
+    (1, 4, 4, 64, 128, 64, True, None, "11qk", True),
+    (2, 2, 2, 100, 60, 64, False, (0, -1), None, False),     # rows >= 60 fully masked
+]
+
+
+def _bias(shape_kind, b, hq, sq, sk, dev, seed=1):
+    shape = {"b11k": (b, 1, 1, sk), "bhqk": (b, hq, sq, sk), "11qk": (1, 1, sq, sk)}[shape_kind]
+    bias = torch.randn(shape, generator=torch.Generator().manual_seed(seed)).to(dev)
+    return torch.where(bias > 1.5, torch.full_like(bias, -1e30), bias)
+
+
+def _bwd_inputs(case, dtype, dev):
+    b, hq, hkv, sq, sk, d, causal, window, bias_shape, dlse = case
+    q, k, v = _qkv(b, hq, hkv, sq, sk, d, dtype, dev)
+    bias = None if bias_shape is None else _bias(bias_shape, b, hq, sq, sk, dev)
+    out, lse = flash_attention_forward_plain(q, k, v, bias, causal=causal, window=window)
+    g = torch.Generator().manual_seed(2)
+    do = torch.randn(out.shape, generator=g).to(dev, out.dtype)
+    g_lse = torch.randn(lse.shape, generator=g).to(dev) if dlse else None
+    return (q, k, v, out, lse, do, bias, g_lse), dict(causal=causal, window=window)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_flash_bwd_kernels_match_plain(dev, dtype, case):
+    args, kw = _bwd_inputs(case, dtype, dev)
+    gdt = torch.bfloat16 if dtype == torch.bfloat16 else None
+    n_dq, n_dkv = _kernels.launches["flash_bwd_dq"], _kernels.launches["flash_bwd_dkv"]
+    got = flash_attention_backward(*args, grad_dtype=gdt, **kw)
+    torch.cuda.synchronize()
+    assert _kernels.launches["flash_bwd_dq"] == n_dq + 1
+    assert _kernels.launches["flash_bwd_dkv"] == n_dkv + 1
+    want = flash_attention_backward_plain(*args, grad_dtype=gdt, **kw)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert g.dtype == w.dtype == (gdt or torch.float32), name
+        assert torch.isfinite(g.float()).all(), name
+        assert rel_err(g, w) <= BWD_TOLS[dtype], name
+    empty = args[4] <= -1e29  # rows with no visible key
+    if empty.any():
+        assert (got[0][empty] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [c for c in BWD_CASES if c[8] is not None] + [
+    (2, 4, 2, 150, 150, 64, True, (40, 0), "bhqk", False)])
+def test_flash_dbias_kernel_matches_plain(dev, dtype, case):
+    (q, k, v, out, lse, do, bias, _), kw = _bwd_inputs(case, dtype, dev)
+    if bias.shape[2] == 1:
+        bias = bias.expand(*bias.shape[:2], q.shape[2], bias.shape[3])
+    n0 = _kernels.launches["flash_dbias"]
+    got = flash_attention_bias_grad(q, k, v, out, lse, do, bias, **kw)
+    torch.cuda.synchronize()
+    assert _kernels.launches["flash_dbias"] == n0 + 1
+    want = flash_attention_bias_grad_plain(q, k, v, out, lse, do, bias, **kw)
+    assert got.shape == want.shape == bias.shape and got.dtype == torch.float32
+    assert rel_err(got, want) <= 1e-4
+
+
+def test_flash_attention_autograd_on_the_card_matches_the_cpu(dev):
+    g = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(s, generator=g) for s in ((2, 4, 96, 64), (2, 2, 96, 64), (2, 2, 96, 64)))
+    bias = torch.randn((1, 4, 96, 96), generator=g)
+    grads = {}
+    for where in ("cuda", "cpu"):
+        t = [x.to(where).requires_grad_(True) for x in (q, k, v, bias)]
+        out = flash_attention(*t[:3], t[3], causal=True, bias_grad=True)
+        out.square().sum().backward()
+        grads[where] = [x.grad.cpu() for x in t]
+    for a, b, name in zip(grads["cuda"], grads["cpu"], ("dq", "dk", "dv", "dbias")):
+        assert rel_err(a, b) <= 1e-4, name
+
+
+def test_flash_bwd_kernels_refuse_what_they_do_not_take(dev):
+    args, kw = _bwd_inputs((1, 2, 2, 64, 64, 192, False, None, None, False), torch.float32, dev)
+    with pytest.raises(ValueError):
+        flash_attention_backward(*args, **kw)
+    args, kw = _bwd_inputs((1, 2, 2, 64, 64, 64, False, None, None, False), torch.float32, dev)
+    with pytest.raises(ValueError):
+        flash_attention_backward(args[0], args[1].cpu(), *args[2:], **kw)

@@ -8,5 +8,46 @@ tensors it is given lie on the CPU.
 
 Ported so far: the serving path of the GPT model (`models/gpt.py`) with the
 dense and the INT8 KV cache, through `ops/flash_fwd.py` and
-`ops/quant_attention.py`.
+`ops/quant_attention.py`; the dense training path: the public
+`attention()` (`api.py`) and `flash_attention` (`ops/attention.py`) with
+gradients through `ops/flash_bwd.py`, and `GPT.forward` under autograd.
+
+    import umfa_tpu_torch
+    out = umfa_tpu_torch.attention(q, k, v, is_causal=True)
+    out.sum().backward()
 """
+
+from umfa_tpu_torch.api import (
+    attention,
+    attention_with_lse,
+    clear_quantization_mode,
+    get_quantization_mode,
+    set_quantization_mode,
+    use_quantization,
+)
+from umfa_tpu_torch.engine.config import (
+    BlockSizeConfig,
+    Precision,
+    QuantizationConfig,
+    QuantMode,
+    QuantStrategy,
+)
+from umfa_tpu_torch.engine.stats import get_dispatch_stats, reset_dispatch_stats
+from umfa_tpu_torch.ops.attention import flash_attention
+
+__all__ = [
+    "attention",
+    "attention_with_lse",
+    "flash_attention",
+    "set_quantization_mode",
+    "get_quantization_mode",
+    "clear_quantization_mode",
+    "use_quantization",
+    "QuantizationConfig",
+    "BlockSizeConfig",
+    "Precision",
+    "QuantMode",
+    "QuantStrategy",
+    "get_dispatch_stats",
+    "reset_dispatch_stats",
+]

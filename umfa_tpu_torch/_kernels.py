@@ -25,13 +25,14 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent
 _SRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("flash_fwd", "quant_attn_fwd")
+KERNELS = ("flash_fwd", "quant_attn_fwd", "flash_bwd", "flash_dbias")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# Launches per kernel, counted by each wrapper right after its kernel was
+# Launches per kernel (not per library: `flash_bwd` holds `flash_bwd_dq` and
+# `flash_bwd_dkv`), counted by each wrapper right after its kernel was
 # launched (and nowhere else).
 launches: collections.Counter = collections.Counter()
 
@@ -119,9 +120,10 @@ def function(name: str, symbol: str, argtypes):
     return _fns[key]
 
 
-def check(name: str, err: int) -> None:
-    """Raise if a launch returned a CUDA error; else count the launch."""
+def check(name: str, err: int, kernel: str | None = None) -> None:
+    """Raise if a launch from library `name` returned a CUDA error; else
+    count one launch of `kernel` (default: the library's own name)."""
     if err != 0:
         msg = _lib(name).umfa_cuda_error_string(err).decode()
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} ({msg})")
-    launches[name] += 1
+        raise RuntimeError(f"{kernel or name} kernel launch failed: CUDA error {err} ({msg})")
+    launches[kernel or name] += 1

@@ -67,10 +67,67 @@ __device__ __forceinline__ void visible_keys(int q0, int q_last, int sk, int lef
   *hi = right >= 0 ? min(sk - 1, q_last + right) : sk - 1;
 }
 
+// The transpose of `visible_keys`: query index range [lo, hi] that can see
+// some key of [k0, k_last]. lo > hi when none can.
+__device__ __forceinline__ void visible_queries(int k0, int k_last, int sq, int left,
+                                                int right, int* lo, int* hi) {
+  *lo = right >= 0 ? max(0, k0 - right) : 0;
+  *hi = left >= 0 ? min(sq - 1, k_last + left) : sq - 1;
+}
+
 __device__ __forceinline__ bool key_visible(int row, int col, int sq, int sk, int left,
                                             int right) {
   return row < sq && col < sk && (left < 0 || col >= row - left) &&
          (right < 0 || col <= row + right);
+}
+
+// The backward kernels (flash_bwd.cu, flash_dbias.cu) run NTB threads as a
+// 16 x 16 grid: thread (ty, tx) = (t / 16, t % 16) owns rows 4*ty..+3 of a
+// 64 x 64 score tile and its columns tx + 16*j, j < 4, and rows 4*ty..+3 of
+// a 64 x D gradient tile with its columns tx + 16*c, c < D/16.
+constexpr int NTB = 256;
+
+// Stage rows [r0, r0 + 64) of a (rows, D) matrix into shared memory as fp32,
+// row stride DP + 1 (row-strided reads then hit distinct banks); rows past
+// `nrows` and columns past D are zero. SCALED: each element becomes
+// round_T(x * scale), the reference's scaled Q operand.
+template <typename T, int DP, bool SCALED = false>
+__device__ __forceinline__ void stage_rows(float* dst, const T* src, int r0, int nrows, int D,
+                                           float scale = 1.f) {
+  for (int e = threadIdx.x; e < 64 * DP; e += blockDim.x) {
+    const int r = e / DP, c = e - r * DP;
+    float x = 0.f;
+    if (r0 + r < nrows && c < D) {
+      x = Elem<T>::load(src, (long long)(r0 + r) * D + c);
+      if (SCALED) x = Elem<T>::round(x * scale);
+    }
+    dst[r * (DP + 1) + c] = x;
+  }
+}
+
+// s[i][j] += a[4*ty + i] . b[tx + 16*j] over the DP columns of two staged
+// tiles: one 4 x 4 patch of a 64 x 64 product A·Bᵀ. SCALED: each b element
+// is taken as round_T(b * scale), the scaled Q operand formed on the fly
+// exactly as stage_rows<T, DP, true> forms it.
+template <typename T, int DP, bool SCALED = false>
+__device__ __forceinline__ void patch_abt(float (&s)[4][4], const float* a, const float* b,
+                                          int ty, int tx, float scale = 1.f) {
+  constexpr int S = DP + 1;
+#pragma unroll 8
+  for (int d = 0; d < DP; ++d) {
+    float x[4], y[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) x[i] = a[(ty * 4 + i) * S + d];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      y[j] = b[(tx + 16 * j) * S + d];
+      if (SCALED) y[j] = Elem<T>::round(y[j] * scale);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(x[i], y[j], s[i][j]);
+  }
 }
 
 }  // namespace umfa

@@ -1,4 +1,5 @@
-"""Configuration objects and env flags (copy of umfa_tpu/engine/config.py).
+"""Configuration objects and env flags (copy of umfa_tpu/engine/config.py,
+without UMFA_INTERPRET).
 
 A copy, not an import: importing anything under `umfa_tpu` runs that
 package's `__init__`, which imports JAX.
@@ -112,3 +113,13 @@ def env_flag(name: str, default: bool = False) -> bool:
     if val is None:
         return default
     return val.strip().lower() not in ("", "0", "false", "no")
+
+
+# Debug and routing flags of the reference (umfa_tpu/engine/config.py:
+# 143-146), read once at import as there. UMFA_INTERPRET has no counterpart:
+# the port has no interpret mode, and no flag sends CUDA tensors to a plain
+# version; UMFA_DISABLE_FUSED and UMFA_NAN_CHECK select api.py's opt-in
+# naive routes, counted as `naive_fallback`.
+DEBUG = env_flag("UMFA_DEBUG")
+NAN_CHECK = env_flag("UMFA_NAN_CHECK")
+DISABLE_FUSED = env_flag("UMFA_DISABLE_FUSED")  # route attention() to the naive path

@@ -1,11 +1,15 @@
-"""Decoder-only causal LM (GPT-style) for serving (port of
+"""Decoder-only causal LM (GPT-style) for training and serving (port of
 umfa_tpu/models/gpt.py).
 
 Pre-LN transformer with interleaved RoPE and GQA. Parameters keep the JAX
 layouts (wq (dim, H, D), wkv (dim, 2, Hkv, D), wo (H, D, dim), w1, w2,
 embed, unembed) so `params_from_jax` carries a JAX checkpoint over as is.
-Inference only: parameters do not require grad and every entry point runs
-under `torch.no_grad()`. Caches are updated in place (serving/kv_cache.py).
+Parameters require grad: `GPT.forward` (the training forward) runs under
+autograd through the differentiable `flash_attention`, so a loss on its
+logits takes `.backward()`. The package has no optimizer or trainer, as the
+reference has none. The serving entry points (`forward_with_cache`,
+`generate`) run under `torch.no_grad()`; caches are updated in place
+(serving/kv_cache.py).
 
 Numerics held to the reference: LayerNorm without affine, eps 1e-6,
 population variance, in fp32 and cast back; GELU with the tanh
@@ -62,35 +66,32 @@ class GPTConfig:
         return getattr(torch, self.dtype)
 
 
-def _param(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
-
-
 class Block(nn.Module):
     def __init__(self, wq, wkv, wo, w1, w2):
         super().__init__()
-        self.wq, self.wkv, self.wo = _param(wq), _param(wkv), _param(wo)
-        self.w1, self.w2 = _param(w1), _param(w2)
+        self.wq, self.wkv, self.wo = nn.Parameter(wq), nn.Parameter(wkv), nn.Parameter(wo)
+        self.w1, self.w2 = nn.Parameter(w1), nn.Parameter(w2)
 
 
 class GPT(nn.Module):
     """Parameters in the JAX layouts; `forward(tokens)` is the full-sequence
-    inference forward (tokens (B, S) → logits (B, S, vocab))."""
+    training forward (tokens (B, S) → logits (B, S, vocab)), differentiable
+    in every parameter."""
 
     def __init__(self, cfg: GPTConfig, embed, unembed, blocks):
         super().__init__()
         self.cfg = cfg
-        self.embed = _param(embed)
-        self.unembed = _param(unembed)
+        self.embed = nn.Parameter(embed)
+        self.unembed = nn.Parameter(unembed)
         self.blocks = nn.ModuleList(Block(**b) for b in blocks)
 
-    @torch.no_grad()
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         if cfg.quantization is not None:
             raise NotImplementedError(
                 "GPT.forward with cfg.quantization needs the fused "
-                "quantize-attend kernel, which is not ported yet"
+                "quantize-attend kernel and the STE backward, which arrive "
+                "with ROADMAP slice 3 (quantized training)"
             )
         _, s = tokens.shape
         x = self.embed[tokens]
@@ -132,8 +133,8 @@ def init_params(cfg: GPTConfig, generator: Optional[torch.Generator] = None,
 
 def params_from_jax(params_np: dict, cfg: GPTConfig, device=None) -> GPT:
     """Carry JAX parameters (the nested dict after
-    `jax.tree_util.tree_map(np.asarray, params)`) into the port, in the
-    config's dtype."""
+    `jax.tree_util.tree_map(np.asarray, params)`) into the port as trainable
+    parameters, in the config's dtype."""
     device = default_device(device)
 
     def t(a):

@@ -1,11 +1,15 @@
-"""Flash attention entry point and the CPU oracle (port of
+"""Differentiable flash attention and the CPU oracle (port of
 umfa_tpu/ops/attention.py).
 
-`flash_attention` is forward-only in this slice: it refuses inputs that
-require grad (the backward kernels arrive with the training slice). The
-reference's `window=` auto-tiling (`maybe_window_block_mask`) is TPU tile
-scheduling; the port computes the same values with the kernel's index
-math.
+`flash_attention` ties the forward (`ops/flash_fwd.py`) and the backward
+(`ops/flash_bwd.py`) into one `torch.autograd.Function` returning
+(out, lse), both differentiable: a cotangent on LSE folds into the
+backward's δ. The forward saves (q, k, v, bias, out, lse) and the backward
+recomputes P from LSE (the reference's `_flash` custom_vjp,
+attention.py:40-108). The reference's `window=` auto-tiling
+(`maybe_window_block_mask`) is TPU tile scheduling; the port's kernels
+compute the same values with their index math. Block-sparse `block_mask`
+is not ported yet.
 """
 
 from __future__ import annotations
@@ -13,8 +17,55 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.autograd.function import once_differentiable
 
+from umfa_tpu_torch.ops.flash_bwd import flash_attention_backward, flash_attention_bias_grad
 from umfa_tpu_torch.ops.flash_fwd import flash_attention_forward
+
+
+class _Flash(torch.autograd.Function):
+    """(q, k, v, bias) → (out, lse) with the FA2 backward kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, causal, window, scale, out_dtype, bias_grad):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        out, lse = flash_attention_forward(q, k, v, bias, causal=causal, window=window,
+                                           scale=scale, out_dtype=out_dtype)
+        ctx.save_for_backward(q, k, v, bias, out, lse)
+        ctx.attn = dict(causal=causal, window=window, scale=scale)
+        ctx.bias_grad = bias_grad
+        ctx.set_materialize_grads(False)
+        return out, lse
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_out, g_lse):
+        q, k, v, bias, out, lse = ctx.saved_tensors
+        if g_out is None and g_lse is None:
+            return (None,) * 9
+        if g_out is None:
+            g_out = torch.zeros_like(out)
+        # bf16 inputs: the kernels emit bf16 gradients (the consumer casts
+        # anyway, attention.py:67-70); fp32 and fp16 get fp32 emission.
+        gdt = torch.bfloat16 if q.dtype == torch.bfloat16 else None
+        dq, dk, dv = flash_attention_backward(q, k, v, out, lse, g_out, bias, g_lse,
+                                              grad_dtype=gdt, **ctx.attn)
+        dbias = None
+        if bias is not None and ctx.needs_input_grad[3]:
+            if ctx.bias_grad:
+                # A q-broadcast bias is expanded and its gradient summed
+                # back over the queries (attention.py:85-98).
+                full = bias.expand(*bias.shape[:-2], q.shape[2], bias.shape[-1])
+                dbias = flash_attention_bias_grad(q, k, v, out, lse, g_out, full, **ctx.attn)
+                if bias.shape[-2] != q.shape[2]:
+                    dbias = dbias.sum(dim=2, keepdim=True)
+                dbias = dbias.reshape(bias.shape).to(bias.dtype)
+            else:
+                # Masks are usually constants: zeros unless asked (the
+                # reference's AttnConfig.bias_grad, attention.py:34-37).
+                dbias = torch.zeros_like(bias)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias,
+                None, None, None, None, None)
 
 
 def flash_attention(
@@ -28,14 +79,16 @@ def flash_attention(
     scale: Optional[float] = None,
     out_dtype: Optional[torch.dtype] = None,
     return_lse: bool = False,
+    bias_grad: bool = False,
 ):
-    """Fused flash attention. q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D)
-    with Hq % Hkv == 0 (GQA); bias: additive, broadcastable. Returns out,
-    or (out, lse) with return_lse=True."""
-    out, lse = flash_attention_forward(
-        q, k, v, bias, causal=causal, window=window, scale=scale,
-        out_dtype=out_dtype,
-    )
+    """Differentiable fused flash attention. q: (B, Hq, Sq, D); k, v:
+    (B, Hkv, Sk, D) with Hq % Hkv == 0 (GQA); bias: additive, broadcastable
+    to (B, Hq, Sq, Sk). Returns out, or (out, lse) with return_lse=True.
+
+    Gradients reach q, k, v through the backward kernels (fp32
+    accumulation, cast back to the input types); bias_grad=True computes
+    the real bias gradient, else the bias gets zeros."""
+    out, lse = _Flash.apply(q, k, v, bias, causal, window, scale, out_dtype, bias_grad)
     return (out, lse) if return_lse else out
 
 

@@ -35,14 +35,13 @@ _ARGTYPES = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _L, _L,
              ctypes.c_float, _I, _I, _I, _I, _P)
 
 
-def check_no_grad(name: str, *tensors) -> None:
-    """Serving needs no gradients; the backward kernels arrive with the
-    training slice. Refuse rather than return wrong gradients."""
-    if any(t is not None and t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{name} has no backward yet (it arrives with the training "
-            "slice of the port); pass tensors that do not require grad"
-        )
+def check_no_grad(name: str, *tensors, hint: str) -> None:
+    """Refuse tensors that require grad while grad mode is on: the kernel
+    wrappers build no autograd graph, so their results would carry no
+    gradient on the card (and a plain-PyTorch one on the CPU). `hint` says
+    where gradients come from."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(f"{name} builds no autograd graph: {hint}")
 
 
 def fold_mask(causal: bool, window) -> tuple:
@@ -157,7 +156,8 @@ def flash_attention_forward(
 
     Returns (out (B, Hq, Sq, D) in out_dtype (default q.dtype),
     lse (B, Hq, Sq) float32)."""
-    check_no_grad("flash_attention_forward", q, k, v, bias)
+    check_no_grad("flash_attention_forward", q, k, v, bias,
+                  hint="call ops.attention.flash_attention for gradients")
     p = _prepare(q, k, v, bias, causal, window, scale, out_dtype)
     if p.q.device.type == "cpu":
         out, lse = _plain(p)

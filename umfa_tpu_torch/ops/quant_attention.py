@@ -117,7 +117,9 @@ def quantized_attention_forward(
     """Quantized attention on pre-quantized operands. Returns
     (out (B, Hq, Sq, D) in out_dtype, lse (B, Hq, Sq) float32)."""
     check_no_grad("quantized_attention_forward", qt_q.values, qt_q.scales,
-                  qt_k.values, qt_k.scales, qt_v.values, qt_v.scales, bias)
+                  qt_k.values, qt_k.scales, qt_v.values, qt_v.scales, bias,
+                  hint="its STE backward arrives with the quantized training "
+                       "slice of the port (ROADMAP, slice 3)")
     p = _prepare(qt_q, qt_k, qt_v, bias, score_corr, block_map, fetch_ids,
                  causal, window, scale, out_dtype, pv_int8)
     if p.q.device.type == "cpu":
