@@ -5,7 +5,7 @@
 
 Phases, one JSON line each:
   1. device: the card (nvidia-smi name and power limit), torch and CUDA;
-  2. build: the four CUDA kernel libraries compiled from
+  2. build: the seven CUDA kernel libraries compiled from
      `umfa_tpu_torch/csrc/`, one nvcc each, all at once;
   3. forward kernels against their plain PyTorch versions on the card at
      the serving head geometry (Hq 16 / Hkv 8, D 64, Sk 4096, batch 2),
@@ -37,7 +37,27 @@ Phases, one JSON line each:
   7. the public `attention()` on the card with gradients (a float bias with
      bias_grad=True, a bool mask, a float bias with bias_grad=False)
      against the CPU path, through the fused route only;
-  8. a `kernels` line; the nvidia-smi line; the result line.
+  8. the quantized training kernels (quant_rows, fused_qattn, quant_bwd_dq,
+     quant_bwd_dkv) against their plain versions at B2 Hq16 Hkv8 (causal
+     1024, odd 777, window (128, 0), a shared bias, a left-only window with
+     rows that see no key, D 32/64/128, fp32 and bf16, the int8 and int4
+     recipes, smoothing off, a dense Q; the backward with 64 masked rows
+     and a nonzero dlse); then each timed at the training shape (B8, causal
+     4096, D 64, bf16, int8 recipe; fused_qattn also under int4) beside its
+     plain version, its bound and, for the backward, the flash SDPA
+     backward on the dequantized operands (a yardstick only);
+  9. quantized training at full width (the same model and batch, lr
+     TRAIN_LR): the int8 recipe for a warm-up and three SGD steps, int4 for
+     a warm-up and one, int8-qdense for one; each step with a finite loss
+     below the step before's and exactly 8 fused_qattn launches and 8 of
+     each backward kernel of its route (quant_bwd_dq/dkv, or flash_bwd_dq/
+     dkv for the dense Q), none of the others;
+ 10. `attention()` under int8 through the two-pass route (quant_rows three
+     times, quant_attn_fwd once, then the backward kernels) with
+     UMFA_DISABLE_FUSED_QUANT=1 and with causal Sq 512 against Sk 1024, a
+     small quantized model's loss and gradients, and quantized `attention()`
+     with a bias gradient, each on the card against the CPU path;
+ 11. a `kernels` line; the nvidia-smi line; the result line.
 Every path (each serving run, the timed training steps, the attention()
 phase) is driven with the launch counts set to 0 just before it and read
 just after; a kernel's `launches` in the kernels line is its sum over them.
@@ -719,6 +739,479 @@ def phase_attention_api(record):
     return counts
 
 
+QRECIPES = ("int8", "int4", "int8_nosmooth", "qdense")
+
+
+def recipe_kwargs(name):
+    """fused_quantize_attend's switches for a recipe (the reference's
+    QuantizationConfig.from_mode_string, and smoothing off)."""
+    from umfa_tpu_torch.engine.config import Precision
+
+    i8, i4, bf = Precision.INT8, Precision.INT4, Precision.BF16
+    return {
+        "int8": dict(q_precision=i8, k_precision=i8, v_precision=i8, smooth=True, smooth_q=False),
+        "int4": dict(q_precision=i4, k_precision=i4, v_precision=i8, smooth=True, smooth_q=True,
+                     hadamard=True),
+        "int8_nosmooth": dict(q_precision=i8, k_precision=i8, v_precision=i8, smooth=False),
+        "qdense": dict(q_precision=bf, k_precision=i8, v_precision=i8, smooth=True),
+    }[name]
+
+
+def codes_close(a, b):
+    """Residual codes at most one apart and >= 99.9 % equal."""
+    from umfa_tpu_torch.engine.config import Precision
+    from umfa_tpu_torch.ops.quant import unpack_int4
+
+    def codes(qt):
+        return (unpack_int4(qt.values) if qt.precision == Precision.INT4 else qt.values).int()
+
+    diff = (codes(a) - codes(b)).abs()
+    return int(diff.max()) <= 1 and float((diff == 0).float().mean()) >= 0.999
+
+
+def phase_quant_kernels(record):
+    """Rows 6-9 against their plain versions at B2 Hq16 Hkv8, then timed at
+    the training shape beside their plain versions, bounds and (rows 8-9)
+    the flash SDPA backward on the dequantized operands."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from umfa_tpu_torch.engine.config import Precision
+    from umfa_tpu_torch.ops import quant_bwd as qb
+    from umfa_tpu_torch.ops.quant import dequantize
+    from umfa_tpu_torch.ops.quant_attention import _corr_from_quantized
+    from umfa_tpu_torch.ops.quant_fused import quantize_rows_fused, quantize_rows_fused_plain
+    from umfa_tpu_torch.ops.quant_fused_attn import (
+        fused_quantize_attend, fused_quantize_attend_plain,
+    )
+    from umfa_tpu_torch.utils.testing import rel_err
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(9)
+
+    def randn(shape, dtype=torch.float32, offset=0.0):
+        return (torch.randn(shape, generator=gen) + offset).to(dev, dtype)
+
+    worst = {"quant_rows": 0.0, "fused_qattn": 0.0, "quant_bwd_dq": 0.0, "quant_bwd_dkv": 0.0}
+    results = []
+
+    # Row 6: codes and scales exact without the rotation; with it codes at
+    # most one apart (>= 99.9 % equal) and scales relerr <= 1e-6.
+    for d in (32, 64, 128):
+        for prec in (Precision.INT8, Precision.INT4):
+            for had in (False, True):
+                for dtype in (torch.float32, torch.bfloat16):
+                    x = randn((B_CHECK, HQ, 1000, d), dtype, 0.3)
+                    mean = x.float().mean(dim=2, keepdim=True)
+                    got = quantize_rows_fused(x, mean, precision=prec, hadamard=had)
+                    torch.cuda.synchronize()
+                    want = quantize_rows_fused_plain(x, mean, precision=prec, hadamard=had)
+                    exact = (torch.equal(got.values, want.values)
+                             and torch.equal(got.scales, want.scales))
+                    res = {"case": f"quant_rows/{prec.value}/{'hadamard' if had else 'plain'}/"
+                                   f"{str(dtype)[6:]}/d{d}",
+                           "exact": exact, "codes_close": codes_close(got, want),
+                           "relerr_scales": rel_err(got.scales, want.scales)}
+                    res["ok"] = exact if not had else (res["codes_close"]
+                                                       and res["relerr_scales"] <= 1e-6)
+                    worst["quant_rows"] = max(worst["quant_rows"],
+                                              float((got.scales - want.scales).abs().max()))
+                    results.append(res)
+                    emit({"phase": "kernel_check", **res})
+
+    # Rows 7-9 at the check shapes.
+    cases = [  # name, sq, sk, d, recipe, kwargs
+        ("int8_causal_1024", 1024, 1024, 64, "int8", dict(causal=True)),
+        ("int4_causal_1024", 1024, 1024, 64, "int4", dict(causal=True)),
+        ("int8_777_noncausal", 777, 777, 64, "int8", {}),
+        ("int8_window_128_0", 1024, 1024, 64, "int8", dict(window=(128, 0))),
+        ("int8_nosmooth_bias_11qk", 512, 512, 64, "int8_nosmooth", dict(bias=True)),
+        ("int4_left_window_1024x256", 1024, 256, 64, "int4", dict(window=(64, -1))),
+        ("int8_d32_causal", 1024, 1024, 32, "int8", dict(causal=True)),
+        ("int4_d128_causal", 1024, 1024, 128, "int4", dict(causal=True)),
+        ("qdense_causal_1024", 1024, 1024, 64, "qdense", dict(causal=True)),
+    ]
+    bwd_tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+    for name, sq, sk, d, recipe, kw in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = randn((B_CHECK, HQ, sq, d), dtype)
+            k, v = randn((B_CHECK, HKV, sk, d), dtype, 0.5), randn((B_CHECK, HKV, sk, d), dtype, 0.3)
+            fkw = dict(recipe_kwargs(recipe), causal=kw.get("causal", False), window=kw.get("window"))
+            if kw.get("bias"):
+                fkw["bias"] = randn((1, 1, sq, sk))
+            got = fused_quantize_attend(q, k, v, **fkw)
+            torch.cuda.synchronize()
+            want = fused_quantize_attend_plain(q, k, v, **fkw)
+            lse, w_lse = got[1], want[1]
+            vis = w_lse > -1e29
+            res = {"case": f"fused_qattn/{recipe}/{str(dtype)[6:]}/{name}",
+                   "relerr_out": rel_err(got[0], want[0]),
+                   "max_abs_out": float((got[0].float() - want[0].float()).abs().max()),
+                   "max_abs_lse": float((lse[vis] - w_lse[vis]).abs().max()) if vis.any() else 0.0,
+                   "empty_rows": int((~vis).sum()),
+                   "empty_rows_exact": bool((got[0][~vis] == 0).all() and (lse[~vis] == -1e30).all()),
+                   "codes_close": all(codes_close(a, b) for a, b in zip(got[2:5], want[2:5])
+                                      if a is not None),
+                   "relerr_means": max([rel_err(a, b) for a, b in zip(got[5:], want[5:])
+                                        if a is not None] + [0.0]),
+                   "finite": torch_isfinite(got[0].float()) and torch_isfinite(lse)}
+            res["ok"] = (res["relerr_out"] <= 1e-3 and res["max_abs_lse"] <= 1e-4
+                         and res["empty_rows_exact"] and res["codes_close"]
+                         and res["relerr_means"] <= 1e-6 and res["finite"])
+            worst["fused_qattn"] = max(worst["fused_qattn"], res["max_abs_out"])
+            results.append(res)
+            emit({"phase": "kernel_check", **res})
+            if recipe == "qdense":
+                continue
+            # The STE backward on the kernel's residuals, with 64 rows of
+            # LSE -1e30 (no visible key) and a nonzero dlse.
+            out, lse, qt_q, qt_k, qt_v, qm, vm = got
+            lse = lse.clone()
+            lse[:, :, :64] = -1e30
+            do, dlse = randn(out.shape, out.dtype), randn(lse.shape)
+            corr = None if qm is None else _corr_from_quantized(qm, qt_k)
+            args = (qt_q, qt_k, qt_v, out, lse, do, qm, vm, corr, fkw.get("bias"), dlse)
+            mask = dict(causal=fkw["causal"], window=fkw["window"])
+            gdt = torch.bfloat16 if dtype == torch.bfloat16 else None
+            gb = qb.quantized_attention_backward(*args, grad_dtype=gdt, **mask)
+            torch.cuda.synchronize()
+            wb = qb.quantized_attention_backward_plain(*args, grad_dtype=gdt, **mask)
+            res = {"case": f"quant_bwd/{recipe}/{str(dtype)[6:]}/{name}", "tol": bwd_tol[dtype],
+                   "masked_rows_exact": bool((gb[0][:, :, :64] == 0).all())}
+            for kernel, grad, g_, w in zip(("quant_bwd_dq", "quant_bwd_dkv", "quant_bwd_dkv"),
+                                           ("dq", "dk", "dv"), gb, wb):
+                res[f"relerr_{grad}"] = rel_err(g_, w)
+                res[f"finite_{grad}"] = torch_isfinite(g_.float())
+                worst[kernel] = max(worst[kernel], float((g_.float() - w.float()).abs().max()))
+            res["ok"] = res["masked_rows_exact"] and all(
+                res[f"relerr_{g_}"] <= bwd_tol[dtype] and res[f"finite_{g_}"]
+                for g_ in ("dq", "dk", "dv"))
+            results.append(res)
+            emit({"phase": "kernel_check", **res})
+            del got, want, gb, wb, args
+    record["quant_kernel_checks"] = results
+    bad = [r["case"] for r in results if not r["ok"]]
+    if bad:
+        raise AssertionError(f"quantized kernels disagree with their plain versions: {bad}")
+    torch.cuda.empty_cache()
+
+    # Timing at the training shape: B8 Hq16 Hkv8 S4096 D64 causal bf16.
+    b, s = B_TRAIN, S_TRAIN
+    shape = f"B{b} Hq{HQ} Hkv{HKV} Sq{s} Sk{s} D{D} causal bf16"
+    pairs = b * HQ * visible_pairs(s, s, -1, 0)
+    q, k, v = (randn((b, HQ, s, D), torch.bfloat16), randn((b, HKV, s, D), torch.bfloat16, 0.5),
+               randn((b, HKV, s, D), torch.bfloat16, 0.3))
+    timing = {}
+    in_bytes = 2 * (q.numel() + k.numel() + v.numel())
+
+    def fused_timing(recipe):
+        kw = dict(recipe_kwargs(recipe), causal=True)
+        fk = lambda: fused_quantize_attend(q, k, v, **kw)  # noqa: E731
+        fp = lambda: fused_quantize_attend_plain(q, k, v, **kw)  # noqa: E731
+        got, want = fk(), fp()
+        check = {"out": rel_err(got[0], want[0]),
+                 "lse": float((got[1] - want[1]).abs().max()),
+                 "codes_close": all(codes_close(a, b_) for a, b_ in zip(got[2:5], want[2:5]))}
+        worst["fused_qattn"] = max(worst["fused_qattn"],
+                                   float((got[0].float() - want[0].float()).abs().max()))
+        res_bytes = sum(t.values.numel() + 4 * t.scales.numel() for t in got[2:5])
+        res_bytes += sum(4 * t.numel() for t in got[5:] if t is not None)
+        del got, want
+        torch.cuda.empty_cache()
+        # QKᵀ and P·V over the visible pairs; with the rotation, x·H on each
+        # Q and K row (2·D² each); the per-element quantize work is O(S·D).
+        flops = 4 * D * pairs
+        if kw.get("hadamard"):
+            flops += 2 * D * D * (q.numel() + k.numel()) // D
+        nbytes = in_bytes + q.numel() * 2 + 4 * b * HQ * s + res_bytes  # + out, lse, residuals
+        return dict(ms=cuda_ms(fk), plain_ms=cuda_ms(fp, iters=3, warmup=1), flops=flops,
+                    bytes=nbytes, ops_ms=flops / H100_BF16_FLOPS * 1e3,
+                    bytes_ms=nbytes / H100_HBM_BYTES * 1e3, check=check,
+                    ok=check["out"] <= 1e-3 and check["lse"] <= 1e-4 and check["codes_close"],
+                    library_ms=None,
+                    library="none: no single PyTorch call quantizes and attends")
+
+    timing["fused_qattn"] = fused_timing("int8")
+    timing["fused_qattn_int4"] = fused_timing("int4")
+
+    # quant_rows on Q (bytes-bound: bf16 in, int8 codes and fp32 scales out).
+    mean = q.float().mean(dim=2, keepdim=True)
+    rk = lambda: quantize_rows_fused(q, mean)  # noqa: E731
+    rp = lambda: quantize_rows_fused_plain(q, mean)  # noqa: E731
+    got, want = rk(), rp()
+    exact = torch.equal(got.values, want.values) and torch.equal(got.scales, want.scales)
+    nbytes = 2 * q.numel() + q.numel() + 4 * b * HQ * s + 4 * mean.numel()
+    flops = 4 * q.numel()  # subtract, |x|, divide, round per element
+    timing["quant_rows"] = dict(ms=cuda_ms(rk), plain_ms=cuda_ms(rp, iters=3, warmup=1),
+                                flops=flops, bytes=nbytes, ops_ms=flops / H100_BF16_FLOPS * 1e3,
+                                bytes_ms=nbytes / H100_HBM_BYTES * 1e3, check={"exact": exact},
+                                ok=exact, library_ms=None,
+                                library="none: no single PyTorch call row-quantizes to int8")
+    del got, want, mean
+
+    # The backward kernels on the int8 recipe's residuals.
+    out, lse, qt_q, qt_k, qt_v, qm, vm = fused_quantize_attend(q, k, v, causal=True,
+                                                               **recipe_kwargs("int8"))
+    do = randn(out.shape, torch.bfloat16)
+    p = qb._prepare(qt_q, qt_k, qt_v, out, lse, do, qm, vm, None, None, None, True, None, None)
+    reads = (sum(t.values.numel() + 4 * t.scales.numel() for t in (qt_q, qt_k, qt_v))
+             + 2 * do.numel() + 4 * 2 * lse.numel() + 4 * vm.numel())
+    passes = {
+        "quant_bwd_dq": (lambda: (qb._launch_dq(p, torch.bfloat16),),
+                         lambda: (qb._plain_dq(p),), 3, 2 * q.numel(), ("dq",)),
+        "quant_bwd_dkv": (lambda: qb._launch_dkv(p, torch.bfloat16),
+                          lambda: qb._plain_dkv(p), 4, 2 * 2 * k.numel(), ("dk", "dv")),
+    }
+    for name, (kern, plain, products, written, grads) in passes.items():
+        got, want = kern(), plain()
+        check = {g_: rel_err(x, y) for g_, x, y in zip(grads, got, want)}
+        worst[name] = max(worst[name], *(float((x.float() - y.float()).abs().max())
+                                         for x, y in zip(got, want)))
+        del got, want
+        flops = 2 * D * products * pairs
+        nbytes = reads + written
+        timing[name] = dict(ms=cuda_ms(kern), plain_ms=cuda_ms(plain, iters=3, warmup=1),
+                            flops=flops, bytes=nbytes, ops_ms=flops / H100_BF16_FLOPS * 1e3,
+                            bytes_ms=nbytes / H100_HBM_BYTES * 1e3, check=check,
+                            ok=all(e <= 2e-2 for e in check.values()))
+        torch.cuda.empty_cache()
+    # Yardstick: the flash SDPA backward on the dequantized operands (the
+    # same function to bf16 grade), dQ, dK and dV in one call.
+    qd = dequantize(qt_q, torch.bfloat16).requires_grad_(True)
+    kd = dequantize(qt_k, torch.bfloat16).requires_grad_(True)
+    vd = (dequantize(qt_v, torch.float32) + vm).to(torch.bfloat16).requires_grad_(True)
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        o = F.scaled_dot_product_attention(qd, kd, vd, is_causal=True, enable_gqa=True)
+    sdpa_ms = cuda_ms(lambda: torch.autograd.grad(o, (qd, kd, vd), do, retain_graph=True))
+    for name in passes:
+        timing[name].update(library_ms=sdpa_ms,
+                            library="flash SDPA backward on the dequantized operands "
+                                    "(dQ, dK and dV in one call), enable_gqa")
+    del qd, kd, vd, o, p, q, k, v, out, lse, qt_q, qt_k, qt_v, qm, vm, do
+    torch.cuda.empty_cache()
+
+    for name, t in timing.items():
+        if not t["ok"]:
+            raise AssertionError(f"{name} disagrees with its plain version at the training shape: "
+                                 f"{t['check']}")
+        t["bound_ms"] = max(t["ops_ms"], t["bytes_ms"])
+        t["bound_by"] = "operations" if t["ops_ms"] >= t["bytes_ms"] else "bytes"
+        emit({"phase": "kernel_timing", "kernel": name,
+              "shape": shape if name != "fused_qattn_int4" else shape + " int4 recipe", **t})
+    record["quant_kernel_timing"] = timing
+    return timing, worst
+
+
+def quant_step_want(recipe, depth):
+    """Launches per quantized training step: one forward kernel and the two
+    backward kernels per layer, and nothing of the other routes."""
+    zero = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "quant_bwd_dq", "quant_bwd_dkv",
+            "quant_rows", "quant_attn_fwd")
+    bwd = ("flash_bwd_dq", "flash_bwd_dkv") if recipe == "int8-qdense" else (
+        "quant_bwd_dq", "quant_bwd_dkv")
+    return {k: depth if k in bwd else 0 for k in zero} | {"fused_qattn": depth}
+
+
+def phase_quant_training(record):
+    """The full-width model trains with cfg.quantization: int8 (a warm-up and
+    three timed SGD steps), int4 (a warm-up and one), int8-qdense (one)."""
+    import torch
+
+    from umfa_tpu_torch import _kernels
+    from umfa_tpu_torch.engine.config import QuantizationConfig
+    from umfa_tpu_torch.models import gpt
+
+    dev = torch.device("cuda")
+    tokens = torch.randint(0, 32768, (B_TRAIN, S_TRAIN + 1),
+                           generator=torch.Generator().manual_seed(5)).to(dev)
+    out, path_counts = {}, []
+    for recipe, n_steps in (("int8", 4), ("int4", 2), ("int8-qdense", 1)):
+        cfg = gpt.GPTConfig(vocab=32768, dim=1024, num_heads=HQ, num_kv_heads=HKV, depth=8,
+                            max_seq=SK, dtype="bfloat16",
+                            quantization=QuantizationConfig.from_mode_string(recipe))
+        model = gpt.init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+        want = quant_step_want(recipe, cfg.depth)
+        steps = []
+        for i in range(n_steps):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            loss = loss_fn(model, tokens)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            loss.backward()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            with torch.no_grad():
+                for prm in model.parameters():
+                    prm -= TRAIN_LR * prm.grad
+                    prm.grad = None
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            counts = dict(_kernels.launches)
+            step = {"phase": "quant_training", "recipe": recipe, "step": i,
+                    "warmup": i == 0 and n_steps > 1, "loss": loss.item(),
+                    "fwd_ms": (t1 - t0) * 1e3, "bwd_ms": (t2 - t1) * 1e3,
+                    "sgd_ms": (t3 - t2) * 1e3, "step_ms": (t3 - t0) * 1e3,
+                    "tokens_per_s": B_TRAIN * S_TRAIN / (t3 - t0),
+                    "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": counts}
+            del loss
+            emit(step)
+            steps.append(step)
+            if not step["warmup"]:
+                path_counts.append(counts)
+            if not math.isfinite(step["loss"]) or (i > 0 and not step["loss"] < steps[i - 1]["loss"]):
+                raise AssertionError(f"{recipe} training step {i}: loss {step['loss']} is not "
+                                     f"finite and below the step before's")
+            if {k: counts.get(k, 0) for k in want} != want:
+                raise AssertionError(f"{recipe} training step {i}: launches {counts}, "
+                                     f"expected {want}")
+        out[recipe] = steps
+        del model
+        torch.cuda.empty_cache()
+    record["quant_training"] = {"batch": B_TRAIN, "seq": S_TRAIN, "lr": TRAIN_LR, "steps": out}
+    del tokens
+    torch.cuda.empty_cache()
+    return path_counts
+
+
+def phase_two_pass(record):
+    """attention() under int8 through the two-pass route (quant_rows three
+    times, quant_attn_fwd once, then the STE backward kernels), on the card
+    against the CPU path: with UMFA_DISABLE_FUSED_QUANT=1, and causal with
+    Sq 512 against Sk 1024."""
+    import torch
+
+    import umfa_tpu_torch as ut
+    from umfa_tpu_torch import _kernels
+    from umfa_tpu_torch.utils.testing import rel_err
+
+    gen = torch.Generator().manual_seed(10)
+    b = B_CHECK
+    calls = [("disable_fused_quant", 1024, {"UMFA_DISABLE_FUSED_QUANT": "1"}),
+             ("causal_sq512_sk1024", 512, {})]
+    want_counts = {"quant_rows": 3, "quant_attn_fwd": 1, "quant_bwd_dq": 1, "quant_bwd_dkv": 1,
+                   "fused_qattn": 0}
+    results, path_counts = [], []
+    for name, sq, env in calls:
+        q = torch.randn((b, HQ, sq, D), generator=gen)
+        k, v = torch.randn((b, HKV, 1024, D), generator=gen), torch.randn((b, HKV, 1024, D), generator=gen)
+        w = torch.randn(q.shape, generator=gen)
+        got = {}
+        os.environ.update(env)
+        try:
+            for dev in ("cuda", "cpu"):
+                t = [x.to(dev, copy=True).requires_grad_(True) for x in (q, k, v)]
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                    _kernels.reset_launch_counts()
+                with ut.use_quantization("int8"):
+                    o = ut.attention(*t, is_causal=True)
+                (o * w.to(dev)).sum().backward()
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                    counts = dict(_kernels.launches)
+                got[dev] = [o.detach().cpu()] + [x.grad.cpu() for x in t]
+        finally:
+            for key in env:
+                os.environ.pop(key)
+        errs = {n: rel_err(a, c) for n, a, c in zip(("out", "dq", "dk", "dv"), got["cuda"],
+                                                     got["cpu"])}
+        res = {"phase": "two_pass_route", "case": name, "shape": f"B{b} Hq{HQ} Hkv{HKV} "
+               f"Sq{sq} Sk1024 D{D} causal fp32 int8", "relerr": errs, "tol": 1e-2,
+               "launches": counts}
+        emit(res)
+        results.append(res)
+        path_counts.append(counts)
+        if not all(e <= 1e-2 for e in errs.values()):
+            raise AssertionError(f"two-pass route on the card differs from the CPU: {errs}")
+        if {k_: counts.get(k_, 0) for k_ in want_counts} != want_counts:
+            raise AssertionError(f"two-pass route launches {counts}, expected {want_counts}")
+    record["two_pass"] = results
+    return path_counts
+
+
+def phase_small_quant_training(record):
+    """A small fp32 model with cfg.quantization (int8, then int4): the loss
+    and every gradient on the card against the plain path on the CPU."""
+    import torch
+
+    from umfa_tpu_torch.engine.config import QuantizationConfig
+    from umfa_tpu_torch.models import gpt
+    from umfa_tpu_torch.utils.testing import rel_err
+
+    tokens = torch.randint(0, 64, (2, 97), generator=torch.Generator().manual_seed(11))
+    out = {}
+    for recipe in ("int8", "int4"):
+        cfg = gpt.GPTConfig(vocab=64, dim=128, num_heads=4, num_kv_heads=2, depth=2, max_seq=96,
+                            quantization=QuantizationConfig.from_mode_string(recipe))
+        res = {}
+        for dev in ("cuda", "cpu"):
+            model = gpt.init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+            loss = loss_fn(model, tokens.to(dev))
+            loss.backward()
+            res[dev] = (loss.item(), {n: prm.grad.cpu() for n, prm in model.named_parameters()})
+        errs = {n: rel_err(res["cuda"][1][n], g) for n, g in res["cpu"][1].items()}
+        r = {"phase": "small_quant_training_vs_cpu", "recipe": recipe, "loss_cuda": res["cuda"][0],
+             "loss_cpu": res["cpu"][0],
+             "loss_relerr": abs(res["cuda"][0] - res["cpu"][0]) / abs(res["cpu"][0]),
+             "grads": len(errs), "worst_grad_relerr": max(errs.values()), "tol_loss": 1e-3,
+             "tol_grad": 1e-2}
+        emit(r)
+        out[recipe] = r | {"grad_relerr": errs}
+        if not (r["loss_relerr"] <= 1e-3 and r["worst_grad_relerr"] <= 1e-2):
+            raise AssertionError(f"small quantized training on the card differs from the CPU: {r}")
+    record["small_quant_training"] = out
+
+
+def phase_quant_attention_api(record):
+    """attention() under int8 and int4 on the card with a float bias that
+    requires grad and bias_grad=True, against the CPU path."""
+    import torch
+
+    import umfa_tpu_torch as ut
+    from umfa_tpu_torch import _kernels
+    from umfa_tpu_torch.utils.testing import rel_err
+
+    gen = torch.Generator().manual_seed(12)
+    b, s = B_CHECK, 1024
+    q, k, v = (torch.randn(shape, generator=gen) for shape in
+               ((b, HQ, s, D), (b, HKV, s, D), (b, HKV, s, D)))
+    bias = torch.randn((1, HQ, s, s), generator=gen)
+    w = torch.randn((b, HQ, s, D), generator=gen)
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        ut.reset_dispatch_stats()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            _kernels.reset_launch_counts()
+        for recipe in ("int8", "int4"):
+            t = [x.to(dev, copy=True).requires_grad_(True) for x in (q, k, v, bias)]
+            with ut.use_quantization(recipe):
+                out = ut.attention(*t[:3], t[3], is_causal=True, bias_grad=True)
+            (out * w.to(dev)).sum().backward()
+            grads[dev, recipe] = [x.grad.cpu() for x in t]
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            counts, stats = dict(_kernels.launches), ut.get_dispatch_stats()
+    checks = {f"{r}/{g}": rel_err(a, c)
+              for r in ("int8", "int4")
+              for g, a, c in zip(("dq", "dk", "dv", "dbias"), grads["cuda", r], grads["cpu", r])}
+    out = {"phase": "quant_attention_api", "shape": f"B{b} Hq{HQ} Hkv{HKV} S{s} D{D} fp32",
+           "relerr": checks, "tol": 1e-2, "launches": counts, "dispatch": stats}
+    emit(out)
+    record["quant_attention_api"] = out
+    if not all(e <= 1e-2 for e in checks.values()):
+        raise AssertionError(f"quantized attention() on the card differs from the CPU: {checks}")
+    if stats["quantized_autograd"] != 2 or stats["naive_fallback"] != 0:
+        raise AssertionError(f"quantized attention() took another route: {stats}")
+    if counts.get("flash_dbias", 0) != 2 or counts.get("fused_qattn", 0) != 2:
+        raise AssertionError(f"quantized attention() did not go through the kernels: {counts}")
+    return counts
+
+
 def main():
     import torch
 
@@ -756,6 +1249,13 @@ def main():
     path_counts.append(phase_attention_api(record))
     phase_small_training(record)
     path_counts += phase_training(record)
+    q_timing, q_worst = phase_quant_kernels(record)
+    timing.update(q_timing)
+    worst.update(q_worst)
+    path_counts += phase_quant_training(record)
+    path_counts += phase_two_pass(record)
+    phase_small_quant_training(record)
+    path_counts.append(phase_quant_attention_api(record))
     launches = collections.Counter()
     for counts in path_counts:
         launches.update(counts)
@@ -765,7 +1265,12 @@ def main():
                               "umfa_tpu/ops/quant_attention.py:74"),
            "flash_bwd_dq": ("umfa_tpu_torch/csrc/flash_bwd.cu", "umfa_tpu/ops/flash_bwd.py:84"),
            "flash_bwd_dkv": ("umfa_tpu_torch/csrc/flash_bwd.cu", "umfa_tpu/ops/flash_bwd.py:336"),
-           "flash_dbias": ("umfa_tpu_torch/csrc/flash_dbias.cu", "umfa_tpu/ops/flash_bwd.py:628")}
+           "flash_dbias": ("umfa_tpu_torch/csrc/flash_dbias.cu", "umfa_tpu/ops/flash_bwd.py:628"),
+           "quant_rows": ("umfa_tpu_torch/csrc/quant_rows.cu", "umfa_tpu/ops/quant_fused.py:40"),
+           "fused_qattn": ("umfa_tpu_torch/csrc/fused_qattn.cu",
+                           "umfa_tpu/ops/quant_fused_attn.py:206"),
+           "quant_bwd_dq": ("umfa_tpu_torch/csrc/quant_bwd.cu", "umfa_tpu/ops/quant_bwd.py:101"),
+           "quant_bwd_dkv": ("umfa_tpu_torch/csrc/quant_bwd.cu", "umfa_tpu/ops/quant_bwd.py:339")}
     kernels = [
         {"name": name, "route": "cuda", "source": src[name][0], "replaces": src[name][1],
          "launches": launches[name], "max_abs_err": worst[name],

@@ -191,14 +191,16 @@ def test_dropout_route_statistics():
 
 def test_unported_routes_raise():
     q, k, v = (torch.from_numpy(x) for x in _qkv(9, (1, 2, 64, 32)))
+    # The int8 and int4 modes now take the quantized route (slice 3), as
+    # the reference does; the values are held by test_torch_quant_training.
     umfa_tpu_torch.set_quantization_mode("int8", "row")
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        umfa_tpu_torch.attention(q, k, v)
+    out = umfa_tpu_torch.attention(q, k, v)
+    assert out.shape == q.shape and torch.isfinite(out).all()
     umfa_tpu_torch.clear_quantization_mode()
     with umfa_tpu_torch.use_quantization("int4"):
-        with pytest.raises(NotImplementedError, match="slice 3"):
-            umfa_tpu_torch.attention(q, k, v)
+        umfa_tpu_torch.attention(q, k, v)
     assert umfa_tpu_torch.get_quantization_mode() is None
+    assert umfa_tpu_torch.get_dispatch_stats()["quantized_autograd"] == 2
     # int8-qdense keeps Q dense: the dense route, as in the reference.
     with umfa_tpu_torch.use_quantization("int8-qdense"):
         umfa_tpu_torch.attention(q, k, v)

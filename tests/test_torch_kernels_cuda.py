@@ -250,3 +250,185 @@ def test_flash_bwd_kernels_refuse_what_they_do_not_take(dev):
     args, kw = _bwd_inputs((1, 2, 2, 64, 64, 64, False, None, None, False), torch.float32, dev)
     with pytest.raises(ValueError):
         flash_attention_backward(args[0], args[1].cpu(), *args[2:], **kw)
+
+
+# ---- Quantized training kernels (quant_rows, fused_qattn, quant_bwd) ----
+#
+# Gates, kernel against plain version on the same inputs (both on the card):
+#   * quant_rows: codes and scales exactly equal without the rotation (the
+#     same fp32 subtraction, exact divisions and rintf); with it codes at most
+#     one apart, >= 99.9 % equal, scales relerr <= 1e-6 (both round a
+#     float64 x·H to fp32 once, summed in other orders);
+#   * fused_qattn: out relerr 1e-3, LSE abs 1e-4 (row 5's INT8 gates: both
+#     sum the scores, the cc row and the means in double and round once, so
+#     they exponentiate the same fp32 scores and round P to bf16 at the same
+#     points; only l and P·V are summed in another order), residual codes
+#     at most one apart and >= 99.9 % equal, qm/vm relerr 1e-6, rows with no
+#     visible key exactly 0 with LSE -1e30;
+#   * quant_bwd: fp32-emitted relerr 1e-4, bf16-emitted 2e-2 (BWD_TOLS),
+#     rows with no visible key exactly 0.
+
+from umfa_tpu_torch.engine.config import Precision, QuantizationConfig  # noqa: E402
+from umfa_tpu_torch.ops.quant import unpack_int4  # noqa: E402
+from umfa_tpu_torch.ops.quant_attention import (  # noqa: E402
+    _corr_from_quantized,
+    quantized_flash_attention,
+)
+from umfa_tpu_torch.ops.quant_bwd import (  # noqa: E402
+    quantized_attention_backward,
+    quantized_attention_backward_plain,
+)
+from umfa_tpu_torch.ops.quant_fused import (  # noqa: E402
+    quantize_rows_fused,
+    quantize_rows_fused_plain,
+)
+from umfa_tpu_torch.ops.quant_fused_attn import (  # noqa: E402
+    fused_quantize_attend,
+    fused_quantize_attend_plain,
+)
+
+RECIPES = {
+    "int8": dict(q_precision=Precision.INT8, k_precision=Precision.INT8,
+                 v_precision=Precision.INT8, smooth=True, smooth_q=False),
+    "int4": dict(q_precision=Precision.INT4, k_precision=Precision.INT4,
+                 v_precision=Precision.INT8, smooth=True, smooth_q=True, hadamard=True),
+    "int8_nosmooth": dict(q_precision=Precision.INT8, k_precision=Precision.INT8,
+                          v_precision=Precision.INT8, smooth=False),
+    "qdense": dict(q_precision=Precision.BF16, k_precision=Precision.INT8,
+                   v_precision=Precision.INT8, smooth=True),
+}
+
+
+def _codes(qt):
+    return (unpack_int4(qt.values) if qt.precision == Precision.INT4 else qt.values).int()
+
+
+def _codes_close(a, b):
+    diff = (_codes(a) - _codes(b)).abs()
+    return diff.max().item() <= 1 and (diff == 0).float().mean().item() >= 0.999
+
+
+@pytest.mark.parametrize("precision", [Precision.INT8, Precision.INT4])
+@pytest.mark.parametrize("hadamard", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_quant_rows_kernel_matches_plain(dev, precision, hadamard, dtype, d):
+    g = torch.Generator().manual_seed(4)
+    x = (torch.randn((2, 3, 333, d), generator=g) + 0.3).to(dev, dtype)
+    mean = x.float().mean(dim=2, keepdim=True)
+    n0 = _kernels.launches["quant_rows"]
+    got = quantize_rows_fused(x, mean, precision=precision, hadamard=hadamard)
+    torch.cuda.synchronize()
+    assert _kernels.launches["quant_rows"] == n0 + 1
+    want = quantize_rows_fused_plain(x, mean, precision=precision, hadamard=hadamard)
+    assert got.values.shape == want.values.shape and got.scales.shape == want.scales.shape
+    if hadamard:
+        assert _codes_close(got, want)
+        assert rel_err(got.scales, want.scales) <= 1e-6
+    else:
+        assert torch.equal(got.values, want.values) and torch.equal(got.scales, want.scales)
+
+
+FUSED_KERNEL_CASES = [
+    # (b, hq, hkv, sq, sk, d, recipe, kwargs)
+    (2, 4, 2, 320, 320, 64, "int8", dict(causal=True)),
+    (2, 4, 2, 320, 320, 64, "int4", dict(causal=True)),
+    (1, 4, 2, 777, 777, 32, "int8", {}),                    # odd length, D 32
+    (1, 4, 4, 300, 300, 128, "int4", dict(window=(128, 0))),  # D 128: fp32 row sum
+    (2, 2, 1, 200, 200, 64, "int8_nosmooth", dict(bias="11qk")),
+    (1, 4, 2, 256, 256, 64, "qdense", dict(causal=True)),
+    (1, 4, 2, 512, 128, 64, "int8", dict(window=(64, -1))),  # rows past 192 see no key
+]
+
+
+def _fused_inputs(case, dtype, dev):
+    b, hq, hkv, sq, sk, d, recipe, kw = case
+    q, k, v = _qkv(b, hq, hkv, sq, sk, d, dtype, dev, seed=5)
+    kw = dict(kw)
+    if kw.pop("bias", None):
+        g = torch.Generator().manual_seed(6)
+        kw["bias"] = torch.randn((1, 1, sq, sk), generator=g).to(dev)
+    return (q, k + 0.5, v + 0.3), dict(kw, **RECIPES[recipe])
+
+
+def _check_fused(got, want, check_out=True):
+    out, lse = got[0].float(), got[1]
+    w_out, w_lse = want[0].float(), want[1]
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    if check_out:
+        assert rel_err(out, w_out) <= 1e-3
+        vis = w_lse > -1e29
+        if vis.any():
+            assert (lse[vis] - w_lse[vis]).abs().max().item() <= 1e-4
+        assert (lse[~vis] == -1e30).all() and (out[~vis] == 0).all()
+    for a, b_ in zip(got[2:5], want[2:5]):
+        assert (a is None) == (b_ is None)
+        if a is not None:
+            assert _codes_close(a, b_) and rel_err(a.scales, b_.scales) <= 1e-5
+    for a, b_ in zip(got[5:], want[5:]):
+        assert (a is None) == (b_ is None)
+        if a is not None:
+            assert rel_err(a, b_) <= 1e-6
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FUSED_KERNEL_CASES)
+def test_fused_qattn_kernel_matches_plain(dev, dtype, case):
+    (q, k, v), kw = _fused_inputs(case, dtype, dev)
+    n0 = _kernels.launches["fused_qattn"]
+    got = fused_quantize_attend(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert _kernels.launches["fused_qattn"] == n0 + 1
+    want = fused_quantize_attend_plain(q, k, v, **kw)
+    assert got[0].dtype == dtype
+    _check_fused(got, want)
+    bare = fused_quantize_attend(q, k, v, emit_residuals=False, **kw)
+    assert bare[2:] == (None,) * 5 and torch.equal(bare[0], got[0])
+
+
+def _qbwd_inputs(case, dtype, dev):
+    (q, k, v), kw = _fused_inputs(case, dtype, dev)
+    out, lse, qt_q, qt_k, qt_v, qm, vm = fused_quantize_attend_plain(q, k, v, **kw)
+    g = torch.Generator().manual_seed(7)
+    do = torch.randn(out.shape, generator=g).to(dev, out.dtype)
+    dlse = torch.randn(lse.shape, generator=g).to(dev)
+    corr = None if qm is None else _corr_from_quantized(qm, qt_k)
+    mask = dict(causal=kw.get("causal", False), window=kw.get("window"))
+    return (qt_q, qt_k, qt_v, out, lse, do, qm, vm, corr, kw.get("bias"), dlse), mask
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [c for c in FUSED_KERNEL_CASES if c[6] != "qdense"])
+def test_quant_bwd_kernels_match_plain(dev, dtype, case):
+    args, mask = _qbwd_inputs(case, dtype, dev)
+    gdt = torch.bfloat16 if dtype == torch.bfloat16 else None
+    n_dq, n_dkv = _kernels.launches["quant_bwd_dq"], _kernels.launches["quant_bwd_dkv"]
+    got = quantized_attention_backward(*args, grad_dtype=gdt, **mask)
+    torch.cuda.synchronize()
+    assert _kernels.launches["quant_bwd_dq"] == n_dq + 1
+    assert _kernels.launches["quant_bwd_dkv"] == n_dkv + 1
+    want = quantized_attention_backward_plain(*args, grad_dtype=gdt, **mask)
+    for g_, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert g_.dtype == w.dtype == (gdt or torch.float32), name
+        assert torch.isfinite(g_.float()).all(), name
+        assert rel_err(g_, w) <= BWD_TOLS[dtype], name
+    empty = args[4] <= -1e29
+    if empty.any():
+        assert (got[0][empty] == 0).all()
+
+
+def test_quantized_training_on_the_card_matches_the_cpu(dev):
+    g = torch.Generator().manual_seed(8)
+    q, k, v = (torch.randn(s, generator=g) for s in ((2, 4, 160, 64), (2, 2, 160, 64),
+                                                    (2, 2, 160, 64)))
+    bias = torch.randn((1, 4, 160, 160), generator=g)
+    for recipe in ("int8", "int4"):
+        cfg = QuantizationConfig.from_mode_string(recipe)
+        grads = {}
+        for where in ("cuda", "cpu"):
+            t = [x.to(where, copy=True).requires_grad_(True) for x in (q, k, v, bias)]
+            out = quantized_flash_attention(*t[:3], t[3], config=cfg, causal=True, bias_grad=True)
+            out.square().sum().backward()
+            grads[where] = [x.grad.cpu() for x in t]
+        for a, b_, name in zip(grads["cuda"], grads["cpu"], ("dq", "dk", "dv", "dbias")):
+            assert rel_err(a, b_) <= 1e-2, (recipe, name)

@@ -10,11 +10,17 @@ Ported so far: the serving path of the GPT model (`models/gpt.py`) with the
 dense and the INT8 KV cache, through `ops/flash_fwd.py` and
 `ops/quant_attention.py`; the dense training path: the public
 `attention()` (`api.py`) and `flash_attention` (`ops/attention.py`) with
-gradients through `ops/flash_bwd.py`, and `GPT.forward` under autograd.
+gradients through `ops/flash_bwd.py`, and `GPT.forward` under autograd; the
+quantized training path: `attention()` under an INT8/INT4 quantization
+mode and `quantized_flash_attention` (`ops/quant_attention.py`) with STE
+gradients, through `ops/quant_fused_attn.py`, `ops/quant_bwd.py` and
+`ops/quant_fused.py`, and `GPT.forward` with `cfg.quantization`.
 
     import umfa_tpu_torch
     out = umfa_tpu_torch.attention(q, k, v, is_causal=True)
     out.sum().backward()
+    with umfa_tpu_torch.use_quantization("int8"):
+        umfa_tpu_torch.attention(q, k, v, is_causal=True).sum().backward()
 """
 
 from umfa_tpu_torch.api import (
@@ -34,11 +40,15 @@ from umfa_tpu_torch.engine.config import (
 )
 from umfa_tpu_torch.engine.stats import get_dispatch_stats, reset_dispatch_stats
 from umfa_tpu_torch.ops.attention import flash_attention
+from umfa_tpu_torch.ops.hadamard import hadamard_rotate
+from umfa_tpu_torch.ops.quant_attention import quantized_flash_attention
 
 __all__ = [
     "attention",
     "attention_with_lse",
     "flash_attention",
+    "quantized_flash_attention",
+    "hadamard_rotate",
     "set_quantization_mode",
     "get_quantization_mode",
     "clear_quantization_mode",

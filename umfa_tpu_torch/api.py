@@ -6,14 +6,14 @@ and routes the call, recording the route in the dispatch stats
 (engine/stats.py):
   * `fused_autograd` / `fused_fwd` (return_lse): the differentiable flash
     attention of ops/attention.py, through the port's kernels;
+  * `quantized_autograd`: a quantization mode with an integer Q precision,
+    the STE route `quantized_flash_attention` of ops/quant_attention.py;
   * `naive_fallback`: the reference's explicit, opt-in plain routes, which
     are attention dropout (dropout_p > 0, with a `torch.Generator` where the
     reference takes a JAX key: the random bits differ), UMFA_DISABLE_FUSED=1
     and the UMFA_NAN_CHECK=1 recompute of an output holding NaN.
 Not ported yet (raise NotImplementedError): a BlockMask or mask_mod callable
-(ROADMAP, Open items, modules still to port: ops/block_mask.py) and a
-quantization mode with an integer Q precision (ROADMAP slice 3: quantized
-training). The
+(ROADMAP, Open items, modules still to port: ops/block_mask.py). The
 reference's window auto-tiling is TPU tile scheduling and has no
 counterpart: the kernels' index math computes the same values.
 """
@@ -32,6 +32,7 @@ from umfa_tpu_torch.engine.stats import record_dispatch
 from umfa_tpu_torch.ops import masks as masks_lib
 from umfa_tpu_torch.ops.attention import flash_attention, reference_attention
 from umfa_tpu_torch.ops.flash_fwd import DEFAULT_MASK_VALUE, fold_mask, visible_mask
+from umfa_tpu_torch.ops.quant_attention import quantized_flash_attention
 
 _state = threading.local()
 _global_quant_config: Optional[QuantizationConfig] = None
@@ -162,11 +163,11 @@ def attention(
         record_dispatch("naive_fallback")
         out = reference_attention(q4, k4, v4, bias, causal=is_causal, window=window, scale=scale)
     elif quant is not None and quant.q_precision.is_integer:
-        raise NotImplementedError(
-            "attention() under an integer quantization mode needs the fused "
-            "quantize-attend kernel and the STE backward, which arrive with "
-            "ROADMAP slice 3 (quantized training)"
-        )
+        # A dense Q (int8-qdense) keeps the dense route, as in the reference.
+        record_dispatch("quantized_autograd")
+        out, lse = quantized_flash_attention(q4, k4, v4, bias, config=quant, causal=is_causal,
+                                             window=window, scale=scale, out_dtype=out_dtype,
+                                             return_lse=True, bias_grad=bias_grad)
     else:
         record_dispatch("fused_fwd" if return_lse else "fused_autograd")
         out, lse = flash_attention(q4, k4, v4, bias, causal=is_causal, window=window,

@@ -5,8 +5,9 @@ Pre-LN transformer with interleaved RoPE and GQA. Parameters keep the JAX
 layouts (wq (dim, H, D), wkv (dim, 2, Hkv, D), wo (H, D, dim), w1, w2,
 embed, unembed) so `params_from_jax` carries a JAX checkpoint over as is.
 Parameters require grad: `GPT.forward` (the training forward) runs under
-autograd through the differentiable `flash_attention`, so a loss on its
-logits takes `.backward()`. The package has no optimizer or trainer, as the
+autograd through the differentiable `flash_attention`, or with
+`cfg.quantization` through `quantized_flash_attention` (STE gradients), so
+a loss on its logits takes `.backward()`. The package has no optimizer or trainer, as the
 reference has none. The serving entry points (`forward_with_cache`,
 `generate`) run under `torch.no_grad()`; caches are updated in place
 (serving/kv_cache.py).
@@ -30,6 +31,7 @@ from torch import nn
 
 from umfa_tpu_torch.engine.config import QuantizationConfig
 from umfa_tpu_torch.ops.attention import flash_attention
+from umfa_tpu_torch.ops.quant_attention import quantized_flash_attention
 from umfa_tpu_torch.ops.rope import apply_rope
 from umfa_tpu_torch.serving.decode import decode_attention
 from umfa_tpu_torch.serving.kv_cache import (
@@ -87,18 +89,15 @@ class GPT(nn.Module):
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        if cfg.quantization is not None:
-            raise NotImplementedError(
-                "GPT.forward with cfg.quantization needs the fused "
-                "quantize-attend kernel and the STE backward, which arrive "
-                "with ROADMAP slice 3 (quantized training)"
-            )
         _, s = tokens.shape
         x = self.embed[tokens]
         positions = torch.arange(s, device=x.device)
         for block in self.blocks:
             q, k, v = _qkv(block, x, cfg, positions)
-            attn = flash_attention(q, k, v, causal=True)
+            if cfg.quantization is not None:
+                attn = quantized_flash_attention(q, k, v, config=cfg.quantization, causal=True)
+            else:
+                attn = flash_attention(q, k, v, causal=True)
             x = _block_tail(block, x, attn)
         return torch.einsum("bsd,dv->bsv", _ln(x), self.unembed)
 

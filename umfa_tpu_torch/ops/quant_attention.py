@@ -17,20 +17,32 @@ the parity tests, that is the same point). Masking semantics are those of
 ops/flash_fwd.py.
 
 Supported: symmetric INT8 with per-row (ROW/BLOCK) or per-tensor scales,
-bias, causal/window, GQA. Not ported yet (raise NotImplementedError):
-INT4 operands, ASYMMETRIC, `score_corr`, `pv_int8`, `block_map`/`fetch_ids`.
-The STE/fused route `quantized_flash_attention` is not in this slice.
+bias, causal/window, GQA. Not ported yet (raise NotImplementedError, ROADMAP,
+Queue 2: row 5's unported variants): INT4 operands, ASYMMETRIC,
+`score_corr`, `pv_int8`, `block_map`/`fetch_ids`.
+
+`quantized_flash_attention` is the differentiable STE route (port of
+quant_attention.py:597-1095): runtime quantization and attention in one
+launch (`ops/quant_fused_attn.py`) where the reference's rules allow it,
+else the two-pass route (`_quantize_operands`, then the kernel above, then
+the V-mean restore); the backward runs on the quantized residuals
+(`ops/quant_bwd.py`), or for a dense Q on the dequantized K/V through the
+dense backward (`ops/flash_bwd.py`). The reference's window auto-tiling
+(quant_attention.py:1037-1056) is TPU tile scheduling and is left out.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import NamedTuple, Optional
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from umfa_tpu_torch import _kernels
-from umfa_tpu_torch.engine.config import Precision, QuantStrategy
+from umfa_tpu_torch.engine.config import Precision, QuantizationConfig, QuantMode, QuantStrategy
+from umfa_tpu_torch.ops.flash_bwd import flash_attention_backward, flash_attention_bias_grad
 from umfa_tpu_torch.ops.flash_fwd import (
     DEFAULT_MASK_VALUE,
     bias_strides,
@@ -39,9 +51,24 @@ from umfa_tpu_torch.ops.flash_fwd import (
     fold_mask,
     visible_mask,
 )
-from umfa_tpu_torch.ops.quant import QuantizedTensor
+from umfa_tpu_torch.ops.hadamard import hadamard_rotate
+from umfa_tpu_torch.ops.quant import (
+    QuantizedTensor,
+    choose_mode,
+    dequantize,
+    quantize,
+    unpack_int4,
+)
+from umfa_tpu_torch.ops.quant_bwd import quantized_attention_backward
+from umfa_tpu_torch.ops.quant_fused import quantize_rows_fused
+from umfa_tpu_torch.ops.quant_fused_attn import (
+    fused_path_supported,
+    fused_quantize_attend,
+    require_ported,
+)
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ROW5 = "(ROADMAP, Queue 2: row 5's unported variants)"
 _ARGTYPES = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
              _I, _I, _I, _L, _L, _L, _L, _I, _I, _P)
 
@@ -69,15 +96,15 @@ def _prepare(qt_q, qt_k, qt_v, bias, score_corr, block_map, fetch_ids,
              causal, window, scale, out_dtype, pv_int8) -> _Prepared:
     for qt in (qt_q, qt_k, qt_v):
         if qt.precision != Precision.INT8:
-            raise NotImplementedError("INT4 operands are not ported yet")
+            raise NotImplementedError(f"INT4 operands are not ported yet {_ROW5}")
         if qt.strategy != QuantStrategy.SYMMETRIC:
-            raise NotImplementedError("ASYMMETRIC quantization is not ported yet")
+            raise NotImplementedError(f"ASYMMETRIC quantization is not ported yet {_ROW5}")
     if score_corr is not None:
-        raise NotImplementedError("score_corr (Q-mean smoothing) is not ported yet")
+        raise NotImplementedError(f"score_corr (Q-mean smoothing) is not ported yet {_ROW5}")
     if pv_int8:
-        raise NotImplementedError("pv_int8 (integer P·V) is not ported yet")
+        raise NotImplementedError(f"pv_int8 (integer P·V) is not ported yet {_ROW5}")
     if block_map is not None or fetch_ids is not None:
-        raise NotImplementedError("block-sparse block_map/fetch_ids are not ported yet")
+        raise NotImplementedError(f"block-sparse block_map/fetch_ids are not ported yet {_ROW5}")
     b, hq, sq, _ = qt_q.orig_shape
     _, hkv, sk, d = qt_k.orig_shape
     q, k, v = qt_q.values, qt_k.values, qt_v.values
@@ -118,8 +145,8 @@ def quantized_attention_forward(
     (out (B, Hq, Sq, D) in out_dtype, lse (B, Hq, Sq) float32)."""
     check_no_grad("quantized_attention_forward", qt_q.values, qt_q.scales,
                   qt_k.values, qt_k.scales, qt_v.values, qt_v.scales, bias,
-                  hint="its STE backward arrives with the quantized training "
-                       "slice of the port (ROADMAP, slice 3)")
+                  hint="call quantized_flash_attention for the STE gradients of "
+                       "quantized training")
     p = _prepare(qt_q, qt_k, qt_v, bias, score_corr, block_map, fetch_ids,
                  causal, window, scale, out_dtype, pv_int8)
     if p.q.device.type == "cpu":
@@ -209,3 +236,226 @@ def _launch(p: _Prepared):
         )
     _kernels.check("quant_attn_fwd", err)
     return out, lse
+
+
+# ---- The STE route: quantized_flash_attention (quant_attention.py:597-1095) ----
+
+
+def _corr_from_quantized(qm: torch.Tensor, qt_k: QuantizedTensor) -> torch.Tensor:
+    """The Q-mean score row from the quantized K, corr_j = sk_j (qm ·
+    code_k_j), (B, Hq, 1, Sk) in raw dot units (quant_attention.py:597-618).
+    Computed in float64 and rounded once, so no TF32 setting reaches it."""
+    k_i8 = qt_k.values
+    if qt_k.precision == Precision.INT4:
+        k_i8 = unpack_int4(k_i8)
+    b, hq, _, d = qm.shape
+    hkv, sk = qt_k.orig_shape[1], qt_k.orig_shape[2]
+    cint = torch.matmul(qm.reshape(b, hkv, hq // hkv, d).double(),
+                        k_i8.double().transpose(-1, -2)).float()
+    return (cint * qt_k.scales.float().transpose(-1, -2)).reshape(b, hq, 1, sk)
+
+
+def _quantize_operands(q, k, v, config: QuantizationConfig):
+    """Runtime quantization with exact mean-smoothing compensation, for the
+    two-pass route (quant_attention.py:621-742): true sequence means; ROW
+    symmetric goes through the row quantizer (`ops/quant_fused.py`, the
+    rotation and the mean subtraction inside it), other modes through
+    `ops/quant.quantize` on fp32-smoothed operands. Returns (qt_q, qt_k,
+    qt_v, qm, vm, corr); qm/vm/corr are None without smoothing."""
+    use_fused = config.strategy == QuantStrategy.SYMMETRIC and config.mode == QuantMode.ROW
+    if config.hadamard and not use_fused:
+        q, k = hadamard_rotate(q), hadamard_rotate(k)
+    orig_dtypes = (q.dtype, k.dtype, v.dtype)
+    qm = vm = km = corr = None
+    if config.smooth:
+        if config.effective_smooth_q():
+            qm = q.float().mean(dim=2, keepdim=True)
+        km = k.float().mean(dim=2, keepdim=True)
+        vm = v.float().mean(dim=2, keepdim=True)
+    if use_fused:
+        if config.hadamard and config.smooth:
+            # mean(x·H) = mean(x)·H: the means enter the quantizer after its
+            # rotation (quant_attention.py:673-679).
+            qm = None if qm is None else hadamard_rotate(qm)
+            km = hadamard_rotate(km)
+        qt_q = quantize_rows_fused(q, qm, precision=config.q_precision, hadamard=config.hadamard)
+        qt_k = quantize_rows_fused(k, km, precision=config.k_precision, hadamard=config.hadamard)
+        qt_v = quantize_rows_fused(v, vm, precision=config.v_precision)
+        if qm is not None:
+            corr = _corr_from_quantized(qm, qt_k)
+        return qt_q, qt_k, qt_v, qm, vm, corr
+    if config.smooth:
+        # fp32 smoothed operands: rounding x − mean back to bf16 would add a
+        # second rounding on top of quantization.
+        k, v = k.float() - km, v.float() - vm
+        if qm is not None:
+            q = q.float() - qm
+            b, hq, _, d = qm.shape
+            hkv = k.shape[1]
+            corr = torch.matmul(qm.reshape(b, hkv, hq // hkv, d).double(),
+                                k.double().transpose(-1, -2)).float().reshape(b, hq, 1, k.shape[2])
+    bs = config.block_sizes
+    qt_q = quantize(q, config.q_precision, config.mode, config.strategy, bs.q)
+    qt_k = quantize(k, config.k_precision, config.mode, config.strategy, bs.k)
+    qt_v = quantize(v, config.v_precision, config.mode, config.strategy, bs.v)
+    qt_q.orig_dtype, qt_k.orig_dtype, qt_v.orig_dtype = orig_dtypes
+    return qt_q, qt_k, qt_v, qm, vm, corr
+
+
+def _try_fused_single_launch(q, k, v, bias, config, causal, window, scale, out_dtype,
+                             emit_residuals: bool):
+    """The single-launch kernel where the reference's rules allow it
+    (`fused_path_supported`); None sends the call to the two-pass route."""
+    if not fused_path_supported(config, k.shape[2], k.shape[3], causal=causal, window=window,
+                                seq_q=q.shape[2]):
+        return None
+    return fused_quantize_attend(
+        q, k, v, bias, causal=causal, window=window, scale=scale, smooth=config.smooth,
+        smooth_q=config.effective_smooth_q(), hadamard=config.hadamard,
+        emit_residuals=emit_residuals, q_precision=config.q_precision,
+        k_precision=config.k_precision, v_precision=config.v_precision,
+        out_dtype=out_dtype or q.dtype)
+
+
+def _require_integer_q(config) -> None:
+    """A dense Q exists only in the single-launch kernel (the two-pass
+    quantizer has no passthrough stream): fail loudly rather than quantize Q."""
+    if not config.q_precision.is_integer:
+        raise ValueError(
+            f"q_precision={config.q_precision.value} (dense-Q) requires the fused "
+            "single-launch path, but this call goes to the two-pass kernels "
+            "(see fused_path_supported). Use an integer q_precision here.")
+
+
+def _two_pass(q, k, v, bias, config, causal, window, scale, out_dtype):
+    """Quantize, attend on the quantized operands, restore the V mean
+    (quant_attention.py:845-880)."""
+    _require_integer_q(config)
+    qt_q, qt_k, qt_v, qm, vm, corr = _quantize_operands(q, k, v, config)
+    out, lse = quantized_attention_forward(qt_q, qt_k, qt_v, bias, corr, causal=causal,
+                                           window=window, scale=scale,
+                                           out_dtype=out_dtype or q.dtype)
+    if vm is not None:
+        # out = P·v' + vm (softmax rows sum to 1), except rows with no
+        # visible key, which keep their exact 0.
+        vm_q = vm.repeat_interleave(out.shape[1] // vm.shape[1], dim=1)
+        live = (lse > DEFAULT_MASK_VALUE * 0.5)[..., None]
+        out = torch.where(live, out.float() + vm_q, 0.0).to(out.dtype)
+    return out, lse, (qt_q, qt_k, qt_v, qm, vm)
+
+
+def _forward(q, k, v, bias, config, causal, window, scale, out_dtype, emit_residuals):
+    fused = _try_fused_single_launch(q, k, v, bias, config, causal, window, scale, out_dtype,
+                                     emit_residuals)
+    if fused is not None:
+        out, lse, *res = fused
+        return out, lse, tuple(res)
+    return _two_pass(q, k, v, bias, config, causal, window, scale, out_dtype)
+
+
+class _QFlash(torch.autograd.Function):
+    """(q, k, v, bias) → (out, lse) with the STE backward. Saves only the
+    residuals: int8/int4 values with their scales, qm, vm, bias, out and
+    lse, plus the raw Q for a dense Q; never the raw q, k and v (the
+    training-memory point of the reference, quant_attention.py:875-876)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, config, causal, window, scale, out_dtype, bias_grad):
+        out, lse, res = _forward(q, k, v, bias, config, causal, window, scale, out_dtype, True)
+        qt_q, qt_k, qt_v, qm, vm = res
+        dense_q = q if qt_q is None else None
+        ctx.save_for_backward(dense_q, bias, out, lse)
+        ctx.res = (qt_q, qt_k, qt_v, qm, vm)
+        ctx.attn = dict(causal=causal, window=window, scale=scale)
+        ctx.config, ctx.bias_grad = config, bias_grad
+        ctx.in_dtypes = (q.dtype, k.dtype, v.dtype)
+        ctx.set_materialize_grads(False)
+        return out, lse
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_out, g_lse):
+        dense_q, bias, out, lse = ctx.saved_tensors
+        qt_q, qt_k, qt_v, qm, vm = ctx.res
+        if g_out is None and g_lse is None:
+            return (None,) * 10
+        if g_out is None:
+            g_out = torch.zeros_like(out)
+        f32 = torch.float32
+        if dense_q is not None:
+            # The dense backward on (q, deq k', deq v' + vm) with the
+            # quantized forward's out and lse: the function the forward
+            # computed (the K mean is softmax-invariant). As in the
+            # reference, Q enters unrotated.
+            q_dq = dense_q.float()
+            k_dq = dequantize(qt_k, f32)
+            v_dq = dequantize(qt_v, f32)
+            if vm is not None:
+                v_dq = v_dq + vm
+            dq, dk, dv = flash_attention_backward(q_dq, k_dq, v_dq, out.float(), lse,
+                                                  g_out.float(), bias, g_lse, **ctx.attn)
+        else:
+            corr = None if qm is None else _corr_from_quantized(qm, qt_k)
+            gdt = torch.bfloat16 if qt_q.orig_dtype == torch.bfloat16 else None
+            dq, dk, dv = quantized_attention_backward(qt_q, qt_k, qt_v, out, lse, g_out, qm, vm,
+                                                      corr, bias, g_lse, grad_dtype=gdt,
+                                                      **ctx.attn)
+        if ctx.config.hadamard:
+            # Gradients in the rotated space rotate back (self-inverse).
+            dq, dk = hadamard_rotate(dq), hadamard_rotate(dk)
+        dbias = None
+        if bias is not None and ctx.needs_input_grad[3]:
+            if ctx.bias_grad:
+                if dense_q is None:
+                    q_dq = dequantize(qt_q, f32)
+                    if qm is not None:
+                        q_dq = q_dq + qm
+                    k_dq = dequantize(qt_k, f32)
+                    v_dq = dequantize(qt_v, f32)
+                    if vm is not None:
+                        v_dq = v_dq + vm
+                b4 = bias
+                while b4.dim() < 4:
+                    b4 = b4[None]
+                full = b4.expand(*b4.shape[:2], q_dq.shape[2], b4.shape[3])
+                dbias = flash_attention_bias_grad(q_dq, k_dq, v_dq, out.float(), lse,
+                                                  g_out.float(), full, **ctx.attn)
+                if b4.shape[2] != q_dq.shape[2]:
+                    dbias = dbias.sum(dim=2, keepdim=True)
+                dbias = dbias.reshape(bias.shape).to(bias.dtype)
+            else:
+                dbias = torch.zeros_like(bias)
+        qd, kd, vd = ctx.in_dtypes
+        return (dq.to(qd), dk.to(kd), dv.to(vd), dbias) + (None,) * 6
+
+
+def quantized_flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    *,
+    config: QuantizationConfig = QuantizationConfig(),
+    causal: bool = False,
+    window: Optional[tuple] = None,
+    scale: Optional[float] = None,
+    out_dtype: Optional[torch.dtype] = None,
+    return_lse: bool = False,
+    bias_grad: bool = False,
+):
+    """Runtime-quantized attention, differentiable through the STE backward.
+    q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D); bias additive, broadcastable
+    to (B, Hq, Sq, Sk). Returns out (out_dtype, default q.dtype), or
+    (out, lse) with return_lse=True. Gradients reach q, k, v and, with
+    bias_grad=True, the bias (else it gets zeros). HYBRID mode is resolved
+    from q's data; BLOCK, ASYMMETRIC and pv_int8 raise NotImplementedError."""
+    if config.mode == QuantMode.HYBRID:
+        config = dataclasses.replace(config, mode=choose_mode(q))
+    require_ported(config)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (q, k, v, bias)):
+        out, lse = _QFlash.apply(q, k, v, bias, config, causal, window, scale, out_dtype,
+                                 bias_grad)
+    else:
+        # No gradient needed: the kernel writes no residuals.
+        out, lse, _ = _forward(q, k, v, bias, config, causal, window, scale, out_dtype, False)
+    return (out, lse) if return_lse else out

@@ -1,0 +1,441 @@
+"""Single-launch runtime-quantized attention (port of
+umfa_tpu/ops/quant_fused_attn.py `fused_quantize_attend`).
+
+`fused_quantize_attend` launches the CUDA kernel `csrc/fused_qattn.cu` on
+CUDA tensors and runs `fused_quantize_attend_plain`, the same arithmetic in
+plain PyTorch, on CPU tensors; no fallback between them.
+
+Arithmetic, at the TPU kernel's rounding points (quant_fused_attn.py:100-828):
+  * Q and K are rotated by x·H in fp32 when `hadamard` (V never is);
+  * smoothing means are the reference's in-kernel estimates, not the true
+    sequence means: the sum of the first min(T, S) rows over T, T being the
+    reference's own first tile (`default_mean_rows`); km and vm per KV
+    head, qm per query head; qm only with `smooth_q` and an integer Q;
+  * a row quantizes as x − mean, absmax = max(|x|, 1e-12), scale =
+    absmax / qmax, code = round_half_even(x · (qmax / absmax)), no clip;
+  * dequantized operands are bf16: bf16(code_q·sq·scale) (softmax scale
+    folded in), bf16(code_k·sk), bf16(code_v·sv); a dense Q is
+    bf16(q_rot·scale);
+  * with `smooth_q` the score row gets cc = (bf16(qm)·k_bf)·scale, then the
+    bias; index masking (causal, window, KV tail) sets −1e30;
+  * the means, q_bf·k_bf and the cc row are summed in float64 and rounded
+    once to fp32 (the kernel does the same), so kernel and plain version
+    see the same fp32 values;
+  * P = exp(S − m) against the row max, P·V on bf16(P); the row sum l adds
+    bf16(P) at D < 128 (the reference's ones column) and the fp32 P at
+    D ≥ 128;
+  * out = acc / l + vm, except rows with l == 0: exactly 0, LSE −1e30.
+The reference walks KV tiles with an online softmax and so rounds P
+against a running max where it walks more than one tile; this port (kernel
+and plain version) rounds against the final row max (ROADMAP §3).
+
+Supported: symmetric ROW quantization, INT8 or INT4 per operand, a dense Q,
+smoothing, Hadamard, bias, causal/window, GQA, D ≤ 128, fp32/bf16/fp16
+inputs. BLOCK, ASYMMETRIC, `pv_int8` and block-sparse walks raise
+NotImplementedError (ROADMAP, Queue 2: row 7's unported variants).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+from typing import NamedTuple, Optional
+
+import torch
+
+from umfa_tpu_torch import _kernels
+from umfa_tpu_torch.engine.config import Precision, QuantMode, QuantStrategy
+from umfa_tpu_torch.ops.flash_fwd import (
+    DEFAULT_MASK_VALUE,
+    _DTYPE_CODE,
+    bias_strides,
+    broadcast_bias,
+    fold_mask,
+    visible_mask,
+)
+from umfa_tpu_torch.ops.quant import QuantizedTensor, _qmax, pack_int4
+from umfa_tpu_torch.ops.quant_fused import rotate
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# q k v bias out lse | qv qs kv ks vv vs qm km vm | B Hq Hkv Sq Sk D |
+# bsb bsh bsq bsk | scale left right | flags qmax_q qmax_k qmax_v Tq Tkv |
+# in out | stream
+_ARGTYPES = (*(_P,) * 15, *(_I,) * 6, *(_L,) * 4, ctypes.c_float, _I, _I,
+             *(_I,) * 6, _I, _I, _P)
+
+# Flag bits of the C entry point.
+_F_HADAMARD, _F_SMOOTH, _F_SMOOTH_Q, _F_Q_DENSE = 1, 2, 4, 8
+_Q_INT4, _K_INT4, _V_INT4 = 32, 64, 128
+
+_NOT_PORTED = "(ROADMAP, Queue 2: row 7's unported variants)"
+
+
+def require_ported(config) -> None:
+    """Raise NotImplementedError for the configs whose fused kernels are
+    not ported yet. The reference runs BLOCK (segment-max scales),
+    ASYMMETRIC (affine quantizer, zero-point residuals, dense backward) and
+    pv_int8 (integer P·V); the port does not yet."""
+    if config.strategy == QuantStrategy.ASYMMETRIC:
+        raise NotImplementedError(f"ASYMMETRIC quantized attention is not ported yet {_NOT_PORTED}")
+    if config.mode == QuantMode.BLOCK:
+        raise NotImplementedError(f"BLOCK-mode quantized attention is not ported yet {_NOT_PORTED}")
+    if config.pv_int8:
+        raise NotImplementedError(f"pv_int8 (integer P·V) is not ported yet {_NOT_PORTED}")
+
+
+def fused_path_supported(config, seq_k: int, head_dim: int, *, causal: bool, window,
+                         seq_q: int) -> bool:
+    """Whether the single-launch route serves this call, by the reference's
+    rules (quant_fused_attn.py:1374-1440). `UMFA_DISABLE_FUSED_QUANT=1`
+    (read on each call) sends the call to the two-pass route. BLOCK,
+    ASYMMETRIC and pv_int8 raise NotImplementedError here (not ported yet)."""
+    if os.environ.get("UMFA_DISABLE_FUSED_QUANT", "0") == "1":
+        return False
+    if config.mode not in (QuantMode.ROW, QuantMode.BLOCK):
+        return False
+    require_ported(config)
+    if not (config.k_precision.is_integer and config.v_precision.is_integer):
+        return False
+    if Precision.INT4 in (config.q_precision, config.k_precision,
+                          config.v_precision) and head_dim % 2:
+        return False
+    # On the TPU this is the VMEM budget of the K/V caches (long KV, about
+    # Sk > 10240 at D <= 128, goes two-pass), and the fill schedule assumes
+    # self-attention geometry when the right side is bounded. The card has
+    # neither limit; the rules stay because the two routes compute different
+    # values (estimated tile-0 means and per-tile rounding here, true means
+    # there), so the route decides which numbers a call gets.
+    lanes = max(head_dim, 128)
+    s_pad = ((seq_k + 2047) // 2048) * 2048
+    if s_pad * lanes * 4 + 2 * 8 * s_pad * 4 > 6 * 2**20:  # the reference's VMEM budget
+        return False
+    if _right_bound(causal, window) is not None and seq_q != seq_k:
+        return False
+    return True
+
+
+def _right_bound(causal: bool, window) -> Optional[int]:
+    r = 0 if causal else None
+    if window is not None and window[1] >= 0:
+        r = window[1] if r is None else min(r, window[1])
+    return r
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def _choose_block(requested: int, seq: int, head_dim: int, vmem_cap_elems: int = 2**18) -> int:
+    """The reference's tile choice (umfa_tpu/ops/flash_fwd.py:91-111), kept
+    only to reproduce its mean estimate."""
+    cap = min(requested, _round_up(max(seq, 1), 128))
+    while cap > 128 and cap * head_dim > vmem_cap_elems:
+        cap //= 2
+    if seq <= cap:
+        return cap
+    b = cap
+    while b >= 256:
+        if (_round_up(seq, b) - seq) / seq <= 0.07:
+            return b
+        b -= 128
+        if b < cap // 2:
+            break
+    return cap
+
+
+def default_mean_rows(seq_q: int, seq_k: int, head_dim: int, *, causal: bool, window,
+                      has_bias: bool) -> tuple:
+    """(T_q, T_kv): the reference's first Q and K/V tiles at its default
+    BlockSizes (quant_fused_attn.py:918-946), over which it estimates the
+    smoothing means (tile zero-padded: sum of min(T, S) rows, over T).
+    Causal at S = 4096, D = 64 gives (2048, 1024); S = 256 gives (256, 256)."""
+    masked = causal or window is not None
+    block_k = _choose_block(1024 if masked else 2048, seq_k, head_dim)
+    block_q = _choose_block(1024 if masked else 2048, seq_q, head_dim)
+    # Rectangular causal mode (flash_fwd.py:262-281): plain causal, no bias,
+    # aligned KV tail, Sq divisible by the doubled q tile.
+    if (causal and window is None and not has_bias and seq_k % block_k == 0
+            and seq_q % (2 * block_k) == 0):
+        block_q = 2 * block_k
+    return block_q, block_k
+
+
+class _Prepared(NamedTuple):
+    q: torch.Tensor     # (B, Hq, Sq, D) fp32 or bf16, contiguous
+    k: torch.Tensor     # (B, Hkv, Sk, D), q's dtype
+    v: torch.Tensor
+    bias: Optional[torch.Tensor]  # fp32 view expanded to (B, Hq, Sq, Sk)
+    scale: float
+    left: int
+    right: int
+    smooth: bool
+    smooth_q: bool
+    hadamard: bool
+    emit: bool
+    q_precision: Precision
+    k_precision: Precision
+    v_precision: Precision
+    t_q: int
+    t_kv: int
+    out_dtype: torch.dtype   # what the kernel writes (fp32 or bf16)
+    final_dtype: torch.dtype  # what the caller gets (fp16 cast last)
+    orig_dtypes: tuple
+
+
+def _prepare(q, k, v, bias, causal, window, scale, smooth, smooth_q, hadamard, emit,
+             q_precision, k_precision, v_precision, out_dtype, mean_rows) -> _Prepared:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q, k, v must be (B, H, S, D)")
+    b, hq, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do not match q {tuple(q.shape)}")
+    if hkv == 0 or hq % hkv:
+        raise ValueError(f"q heads {hq} must be a multiple of kv heads {hkv}")
+    for name, p in (("k", k_precision), ("v", v_precision)):
+        if not p.is_integer:
+            raise ValueError(f"{name}_precision must be INT8 or INT4, got {p}")
+    if Precision.INT4 in (q_precision, k_precision, v_precision) and d % 2:
+        raise ValueError("INT4 operands need an even head_dim")
+    if hadamard and d & (d - 1):
+        raise ValueError(f"the Hadamard rotation needs a power-of-two head_dim, got {d}")
+    orig_dtypes = (q.dtype, k.dtype, v.dtype)
+    # fp16 is storage-only: read as fp32 (the TPU kernel's f32 tiles).
+    q, k, v = (x.float() if x.dtype == torch.float16 else x for x in (q, k, v))
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"unsupported dtypes q={q.dtype} k={k.dtype} v={v.dtype}")
+    final = out_dtype or orig_dtypes[0]
+    kernel_out = torch.float32 if final == torch.float16 else final
+    if kernel_out not in _DTYPE_CODE:
+        raise ValueError(f"unsupported out_dtype {out_dtype}")
+    q_dense = not q_precision.is_integer
+    smooth_q = bool(smooth_q) and smooth and not q_dense
+    if bias is not None:
+        while bias.dim() < 4:
+            bias = bias[None]
+        bias = broadcast_bias(bias, b, hq, sq, sk)
+    left, right = fold_mask(causal, window)
+    if mean_rows is None:
+        mean_rows = default_mean_rows(sq, sk, d, causal=causal, window=window,
+                                      has_bias=bias is not None)
+    t_q, t_kv = (int(t) for t in mean_rows)
+    if t_q < 1 or t_kv < 1:
+        raise ValueError(f"mean_rows must be positive, got {mean_rows}")
+    return _Prepared(q.contiguous(), k.contiguous(), v.contiguous(), bias,
+                     float(d**-0.5 if scale is None else scale), left, right, bool(smooth),
+                     smooth_q, bool(hadamard), bool(emit), q_precision, k_precision,
+                     v_precision, t_q, t_kv, kernel_out, final, orig_dtypes)
+
+
+def fused_quantize_attend(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    *,
+    causal: bool = False,
+    window: Optional[tuple] = None,
+    scale: Optional[float] = None,
+    smooth: bool = True,
+    smooth_q: Optional[bool] = None,
+    hadamard: bool = False,
+    emit_residuals: bool = True,
+    q_precision: Precision = Precision.INT8,
+    k_precision: Precision = Precision.INT8,
+    v_precision: Precision = Precision.INT8,
+    out_dtype: Optional[torch.dtype] = None,
+    mean_rows: Optional[tuple] = None,
+):
+    """Runtime INT8/INT4 quantization and attention in one kernel launch.
+    q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D); bias additive, broadcastable
+    to (B, Hq, Sq, Sk). `mean_rows` = (T_q, T_kv) overrides the rows the
+    smoothing means are estimated over (default: `default_mean_rows`).
+
+    Returns (out (B, Hq, Sq, D) in out_dtype (default q.dtype), lse
+    (B, Hq, Sq) fp32, qt_q, qt_k, qt_v, qm, vm): ROW-symmetric residuals
+    (qt_q None for a dense Q; all None without `emit_residuals`), qm
+    (B, Hq, 1, D) with `smooth_q`, vm (B, Hkv, 1, D) with `smooth`, fp32."""
+    p = _prepare(q, k, v, bias, causal, window, scale, smooth, smooth_q, hadamard,
+                 emit_residuals, q_precision, k_precision, v_precision, out_dtype, mean_rows)
+    if p.q.device.type == "cpu":
+        res = _plain(p)
+    else:
+        res = _launch(p)
+    return _finish(p, *res)
+
+
+def fused_quantize_attend_plain(
+    q, k, v, bias=None, *, causal=False, window=None, scale=None, smooth=True, smooth_q=None,
+    hadamard=False, emit_residuals=True, q_precision=Precision.INT8, k_precision=Precision.INT8,
+    v_precision=Precision.INT8, out_dtype=None, mean_rows=None,
+):
+    """The kernel's arithmetic in plain PyTorch, on any device. Same
+    arguments and results as `fused_quantize_attend`."""
+    p = _prepare(q, k, v, bias, causal, window, scale, smooth, smooth_q, hadamard,
+                 emit_residuals, q_precision, k_precision, v_precision, out_dtype, mean_rows)
+    return _finish(p, *_plain(p))
+
+
+def _qt(vals, scales, shape, dtype, precision) -> QuantizedTensor:
+    return QuantizedTensor(values=vals, scales=scales, zero_points=None, row_sums=None,
+                           precision=precision, mode=QuantMode.ROW,
+                           strategy=QuantStrategy.SYMMETRIC, block_size=0,
+                           orig_shape=tuple(shape), orig_dtype=dtype)
+
+
+def _finish(p: _Prepared, out, lse, res):
+    if p.final_dtype == torch.float16:
+        out = out.half()
+    if not p.emit:
+        return out, lse, None, None, None, None, None
+    qv, qs, kv, ks, vv, vs, qm, vm = res
+    b, hq, sq, d = p.q.shape
+    kshape = p.k.shape
+    qt_q = None if qv is None else _qt(qv, qs, (b, hq, sq, d), p.orig_dtypes[0], p.q_precision)
+    qt_k = _qt(kv, ks, kshape, p.orig_dtypes[1], p.k_precision)
+    qt_v = _qt(vv, vs, kshape, p.orig_dtypes[2], p.v_precision)
+    return out, lse, qt_q, qt_k, qt_v, qm, vm
+
+
+def _tile_mean(x: torch.Tensor, t: int) -> torch.Tensor:
+    """The reference's estimate: the sum of the first min(T, S) rows of the
+    zero-padded first tile, over T."""
+    # Summed in float64 and rounded once, as the kernel does (exact for
+    # these magnitudes, so the order of the sum does not matter).
+    return x[:, :, :t].double().sum(dim=2, keepdim=True).float() / x.new_tensor(float(t))
+
+
+def _quantize_rows(x: torch.Tensor, mean, precision: Precision):
+    """Register-space quantization of the TPU kernel (quant_fused_attn.py:
+    156-168): reciprocal multiply, no clip. Returns (codes as fp32, scales)."""
+    if mean is not None:
+        x = x - mean
+    absmax = x.abs().amax(dim=-1, keepdim=True).clamp_min(1e-12)
+    # 0-dim tensor operands: `c / t` in PyTorch is reciprocal(t) * c, and
+    # `t / c` on CUDA multiplies by 1/c; the kernel divides exactly.
+    qmax = absmax.new_tensor(float(_qmax(precision)))
+    return torch.round(x * (qmax / absmax)), absmax / qmax
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).float()
+
+
+def _codes(codes_f: torch.Tensor, precision: Precision) -> torch.Tensor:
+    codes = codes_f.to(torch.int8)
+    return pack_int4(codes) if precision == Precision.INT4 else codes
+
+
+def _plain(p: _Prepared):
+    b, hq, sq, d = p.q.shape
+    _, hkv, sk, _ = p.k.shape
+    g = hq // hkv
+    q32, k32, v32 = p.q.float(), p.k.float(), p.v.float()
+    if p.hadamard:
+        q32, k32 = rotate(q32), rotate(k32)
+    km = _tile_mean(k32, p.t_kv) if p.smooth else None
+    vm = _tile_mean(v32, p.t_kv) if p.smooth else None
+    qm = _tile_mean(q32, p.t_q) if p.smooth_q else None
+
+    k_f, sk_ = _quantize_rows(k32, km, p.k_precision)
+    v_f, sv_ = _quantize_rows(v32, vm, p.v_precision)
+    k_bf, v_bf = _bf16(k_f * sk_), _bf16(v_f * sv_)
+    q_dense = not p.q_precision.is_integer
+    if q_dense:
+        q_bf, q_f, sq_ = _bf16(q32 * p.scale), None, None
+    else:
+        q_f, sq_ = _quantize_rows(q32, qm, p.q_precision)
+        q_bf = _bf16((q_f * sq_) * p.scale)
+
+    # GQA: fold the group into the query rows (h = hk * g + gi). The dots of
+    # bf16 values are exact in float64 and rounded once, as in the kernel.
+    s = torch.matmul(q_bf.reshape(b, hkv, g * sq, d).double(),
+                     k_bf.double().transpose(-1, -2)).float()
+    s = s.reshape(b, hq, sq, sk)
+    if qm is not None:
+        cc = torch.matmul(_bf16(qm).reshape(b, hkv, g, d).double(),
+                          k_bf.double().transpose(-1, -2)).float()
+        s += (cc * p.scale).reshape(b, hq, 1, sk)
+    if p.bias is not None:
+        s += p.bias
+    hidden = ~visible_mask(sq, sk, p.left, p.right, s.device)
+    s.masked_fill_(hidden, DEFAULT_MASK_VALUE)
+    m = s.amax(dim=-1, keepdim=True).clamp_min(DEFAULT_MASK_VALUE)
+    s.sub_(m).exp_().masked_fill_(hidden, 0.0)
+    pb = _bf16(s)
+    # Row sum: the bf16 P at D < 128 (it rides P·V as a ones column in the
+    # reference), the fp32 P at D >= 128 (quant_fused_attn.py:612-618).
+    l = (pb if d < 128 else s).sum(dim=-1)
+    del s
+    pv = torch.matmul(pb.reshape(b, hkv, g * sq, sk), v_bf).reshape(b, hq, sq, d)
+    del pb
+    empty = l == 0
+    l_safe = torch.where(empty, torch.ones_like(l), l)
+    out = pv / l_safe[..., None]
+    if vm is not None:
+        out = torch.where(empty[..., None], 0.0, out + vm.repeat_interleave(g, dim=1))
+    lse = torch.where(empty, torch.full_like(l, DEFAULT_MASK_VALUE), m[..., 0] + torch.log(l_safe))
+    res = None
+    if p.emit:
+        res = (None if q_dense else _codes(q_f, p.q_precision), sq_,
+               _codes(k_f, p.k_precision), sk_, _codes(v_f, p.v_precision), sv_, qm, vm)
+    return out.to(p.out_dtype), lse, res
+
+
+def _launch(p: _Prepared):
+    dev = p.q.device
+    if dev.type != "cuda" or p.k.device != dev or p.v.device != dev:
+        raise ValueError(f"fused_qattn kernel needs q, k, v on one CUDA device, got "
+                         f"{p.q.device}/{p.k.device}/{p.v.device}")
+    if p.bias is not None and p.bias.device != dev:
+        raise ValueError(f"bias on {p.bias.device}, q on {dev}")
+    b, hq, sq, d = p.q.shape
+    _, hkv, sk, _ = p.k.shape
+    if d > 128:
+        raise ValueError(f"fused_qattn kernel takes head_dim <= 128, got {d}")
+    q_dense = not p.q_precision.is_integer
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = torch.empty((b, hq, sq, d), dtype=p.out_dtype, device=dev)
+    lse = torch.empty((b, hq, sq), **f32)
+    # Means: computed by the kernel's first pass into these buffers (km is
+    # scratch; qm and vm are also residuals).
+    qm = torch.empty((b, hq, 1, d), **f32) if p.smooth_q else None
+    km = torch.empty((b, hkv, 1, d), **f32) if p.smooth else None
+    vm = torch.empty((b, hkv, 1, d), **f32) if p.smooth else None
+
+    def width(prec):
+        return d // 2 if prec == Precision.INT4 else d
+
+    # The K/V codes and scales are written by the kernel's quantize pass
+    # whether or not residuals are asked for (the attention reads them).
+    res = [None, None,
+           torch.empty((b, hkv, sk, width(p.k_precision)), dtype=torch.int8, device=dev),
+           torch.empty((b, hkv, sk, 1), **f32),
+           torch.empty((b, hkv, sk, width(p.v_precision)), dtype=torch.int8, device=dev),
+           torch.empty((b, hkv, sk, 1), **f32)]
+    if p.emit and not q_dense:
+        res[0] = torch.empty((b, hq, sq, width(p.q_precision)), dtype=torch.int8, device=dev)
+        res[1] = torch.empty((b, hq, sq, 1), **f32)
+    flags = ((_F_HADAMARD if p.hadamard else 0) | (_F_SMOOTH if p.smooth else 0)
+             | (_F_SMOOTH_Q if p.smooth_q else 0) | (_F_Q_DENSE if q_dense else 0)
+             | (_Q_INT4 if p.q_precision == Precision.INT4 else 0)
+             | (_K_INT4 if p.k_precision == Precision.INT4 else 0)
+             | (_V_INT4 if p.v_precision == Precision.INT4 else 0))
+    if out.numel():
+        def ptr(t):
+            return None if t is None else t.data_ptr()
+        fn = _kernels.function("fused_qattn", "umfa_fused_qattn", _ARGTYPES)
+        bsb, bsh, bsq, bsk = bias_strides(p.bias)
+        with torch.cuda.device(dev):
+            err = fn(
+                p.q.data_ptr(), p.k.data_ptr(), p.v.data_ptr(), ptr(p.bias),
+                out.data_ptr(), lse.data_ptr(), *(ptr(t) for t in res),
+                ptr(qm), ptr(km), ptr(vm),
+                b, hq, hkv, sq, sk, d, bsb, bsh, bsq, bsk, p.scale, p.left, p.right,
+                flags, _qmax(p.q_precision) if not q_dense else 0,
+                _qmax(p.k_precision), _qmax(p.v_precision), p.t_q, p.t_kv,
+                _DTYPE_CODE[p.q.dtype], _DTYPE_CODE[p.out_dtype],
+                torch.cuda.current_stream(dev).cuda_stream,
+            )
+        _kernels.check("fused_qattn", err)
+    return out, lse, (*res, qm, vm) if p.emit else None
