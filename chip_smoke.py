@@ -5,7 +5,7 @@
 
 Phases, one JSON line each:
   1. device: the card (nvidia-smi name and power limit), torch and CUDA;
-  2. build: the seven CUDA kernel libraries compiled from
+  2. build: the eight CUDA kernel libraries compiled from
      `umfa_tpu_torch/csrc/`, one nvcc each, all at once;
   3. forward kernels against their plain PyTorch versions on the card at
      the serving head geometry (Hq 16 / Hkv 8, D 64, Sk 4096, batch 2),
@@ -27,6 +27,25 @@ Phases, one JSON line each:
      24-token continuation through the bias route, 16 greedy decode steps,
      once to warm up and once timed; plus a small model checked against
      the plain path on the CPU;
+  5a. the flash-decode kernel (`flash_decode` and its merge kernel
+     `flash_decode_merge`) against its plain tile walk at Hq 16 / Hkv 8 and
+     Hq = Hkv 8, Tq 1/4/16, D 64/128, fp32 and bf16, S_max 4096 (block 2048)
+     and 768 (block 256), slot lengths S_max, 1, 0 and S_max/3 + 5 with
+     the causal bias of Tq > 1 (fp32 relerr 2e-5, bf16 1e-2, finite); then
+     timed at the serving decode geometry (B8 Hq16 Hkv8 S4096 D64 bf16,
+     Tq 1 and 16, full cache, L2 evicted by reads before each timing)
+     beside the plain walk, the default gemv route and the bound;
+  5b. continuous batching at full width: the serving model with the INT8
+     cache, 8 slots, 24 seeded requests (prompts 256-3584 tokens, 8-64 new
+     tokens, teacher-forced), each admission prefilled into its slot, one
+     ragged decode round for all slots, retired slots reset after the
+     round; a warm-up run, then runs with UMFA_ENABLE_DECODE_KERNEL=1 and
+     without it: every request completes, cache lengths follow the
+     schedule, exact launch counts (depth x rounds `flash_decode` and
+     merge with the switch, depth x admissions `quant_attn_fwd`, nothing
+     else), and the two runs' logits agree (bf16 relerr 2e-2 each round);
+  5c. a small model's continuous-batching loop with the switch on, on the
+     card against the CPU (INT8 cache max abs 1e-2, dense 1e-4);
   6. training at full width (the same model, batch 8 rows of 4097 tokens,
      the next-token cross-entropy in fp32, `.backward()`, plain SGD with
      lr TRAIN_LR): one warm-up step and three timed steps on one batch,
@@ -57,9 +76,11 @@ Phases, one JSON line each:
      UMFA_DISABLE_FUSED_QUANT=1 and with causal Sq 512 against Sk 1024, a
      small quantized model's loss and gradients, and quantized `attention()`
      with a bias gradient, each on the card against the CPU path;
- 11. a `kernels` line; the nvidia-smi line; the result line.
-Every path (each serving run, the timed training steps, the attention()
-phase) is driven with the launch counts set to 0 just before it and read
+ 11. the wall seconds of each phase; a `kernels` line; the nvidia-smi
+     line; the result line.
+Every path (each serving run, both timed continuous-batching runs, the
+timed training steps, the attention() phase) is driven with the launch
+counts set to 0 just before it and read
 just after; a kernel's `launches` in the kernels line is its sum over them.
 
 Any failed check raises, so the script exits non-zero. Without a CUDA
@@ -89,14 +110,18 @@ B_CHECK, B_SERVE = 2, 8
 HQ, HKV, D, SK, PROMPT = 16, 8, 64, 4096, 4032
 B_TRAIN, S_TRAIN = 8, 4096
 TRAIN_LR = 10.0  # plain SGD on the bf16 parameters; see PERF.md
+N_REQUESTS, SLOTS = 24, 8  # continuous batching at full width
+PROMPT_RANGE, NEW_RANGE = (256, 3584), (8, 64)
+DECODE_SWITCH = "UMFA_ENABLE_DECODE_KERNEL"
 
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def cuda_ms(fn, iters=10, warmup=2):
-    """Median of `iters` CUDA-event timings of fn(), in ms."""
+def cuda_ms(fn, iters=10, warmup=2, before=None):
+    """Median of `iters` CUDA-event timings of fn(), in ms. `before()` runs
+    ahead of each timing, outside it (an L2 flush, say)."""
     import torch
 
     for _ in range(warmup):
@@ -104,6 +129,8 @@ def cuda_ms(fn, iters=10, warmup=2):
     torch.cuda.synchronize()
     times = []
     for _ in range(iters):
+        if before is not None:
+            before()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -405,6 +432,333 @@ def phase_small_reference(record):
         if not err <= tol:
             raise AssertionError(f"small model on the card differs from the CPU path by {err}")
     record["small_model_max_abs"] = worst
+
+
+def decode_inputs(b, hq, hkv, tq, d, s_max, dtype, lengths, seed):
+    """On the card: an INT8 cache of random codes and scales with the given
+    slot lengths, queries, and the decode route's length-and-causal bias
+    (query t sits at length - Tq + t)."""
+    import torch
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    k = torch.randint(-128, 128, (b, hkv, s_max, d), generator=g, dtype=torch.int8, device=dev)
+    v = torch.randint(-128, 128, (b, hkv, s_max, d), generator=g, dtype=torch.int8, device=dev)
+    ks = torch.rand((b, hkv, s_max, 1), generator=g, device=dev) * 0.05 + 1e-3
+    vs = torch.rand((b, hkv, s_max, 1), generator=g, device=dev) * 0.05 + 1e-3
+    lengths = torch.tensor(lengths, device=dev)
+    pos = torch.arange(s_max, device=dev)
+    qpos = lengths[:, None] - tq + torch.arange(tq, device=dev)
+    masked = (pos[None, None] > qpos[:, :, None]) | (pos[None, None] >= lengths[:, None, None])
+    bias = torch.where(masked, -1e30, 0.0)[:, None]
+    q = torch.randn((b, hq, tq, d), generator=g, device=dev).to(dtype)
+    return q, k, ks, v, vs, bias, lengths.int()
+
+
+def phase_decode_kernel(record):
+    """Row 10 (`flash_decode` and its merge) against the plain tile walk,
+    then timed at the serving decode geometry beside the plain walk, the
+    gemv route and the bound."""
+    import torch
+
+    from umfa_tpu_torch.serving import decode_kernel as dk
+    from umfa_tpu_torch.serving.decode import _gemv_decode
+    from umfa_tpu_torch.serving.kv_cache import QuantizedKVCache
+    from umfa_tpu_torch.utils.testing import rel_err
+
+    results = []
+    for hq, hkv in ((HQ, HKV), (HKV, HKV)):
+        for s_max, bk in ((SK, 2048), (768, 256)):
+            for d in (64, 128):
+                for tq in (1, 4, 16):
+                    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 1e-2)):
+                        q, k, ks, v, vs, bias, _ = decode_inputs(
+                            4, hq, hkv, tq, d, s_max, dtype, (s_max, 1, 0, s_max // 3 + 5),
+                            seed=len(results))
+                        got = dk.quantized_flash_decode(q, k, ks, v, vs, bias, block_k=bk)
+                        torch.cuda.synchronize()
+                        want = dk.quantized_flash_decode_plain(q, k, ks, v, vs, bias, block_k=bk)
+                        res = {"case": f"Hq{hq} Hkv{hkv} S{s_max} bk{bk} D{d} Tq{tq} "
+                                       f"{str(dtype)[6:]}",
+                               "relerr": rel_err(got, want),
+                               "max_abs": float((got - want).abs().max()),
+                               "finite": torch_isfinite(got), "tol": tol}
+                        res["ok"] = res["finite"] and res["relerr"] <= tol
+                        results.append(res)
+    worst = {"flash_decode": max(r["max_abs"] for r in results)}
+    summary = {"phase": "decode_kernel_check", "cases": len(results),
+               "lengths": "S_max, 1, 0, S_max/3 + 5",
+               "worst_relerr_fp32": max(r["relerr"] for r in results if "float32" in r["case"]),
+               "worst_relerr_bf16": max(r["relerr"] for r in results if "bfloat16" in r["case"]),
+               "worst_max_abs": worst["flash_decode"],
+               "failed": [r["case"] for r in results if not r["ok"]]}
+    emit(summary)
+    record["decode_kernel_checks"] = results
+    if summary["failed"]:
+        raise AssertionError(f"flash_decode disagrees with its plain version: {summary['failed']}")
+
+    # Timing at the serving geometry, full cache, bf16. Before each timing
+    # the 50 MB L2 is evicted by reading 256 MB (clean lines, as a decode
+    # step leaves it after reading the previous layer's cache), and the card
+    # then spins while the host enqueues the timed call, so that the events
+    # time the device and not the Python wrapper.
+    flush_buf = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+
+    def flush():
+        flush_buf.sum()
+        torch.cuda._sleep(1_000_000)
+
+    timing = {}
+    for tq in (1, 16):
+        q, k, ks, v, vs, bias, lengths = decode_inputs(
+            B_SERVE, HQ, HKV, tq, D, SK, torch.bfloat16, (SK,) * B_SERVE, seed=1000 + tq)
+        args = (q, k, ks, v, vs, bias)
+        p = dk._prepare(*args, None, 2048)
+        got = dk.quantized_flash_decode(*args, block_k=2048)
+        want = dk.quantized_flash_decode_plain(*args, block_k=2048)
+        part_o, part_ml = dk._launch_partials(p)
+        out = dk._launch_merge(part_o, part_ml)
+        merge_want = dk._merge_plain(part_o, part_ml)
+        cache = QuantizedKVCache(k, ks, v, vs, lengths)
+        nbytes = (k.numel() + v.numel() + 4 * (ks.numel() + vs.numel() + bias.numel())
+                  + 2 * q.numel() + 4 * got.numel())
+        flops = 4 * B_SERVE * HQ * tq * SK * D  # QKᵀ and P·V
+        merge_bytes = 4 * (part_o.numel() + part_ml.numel() + out.numel())
+        t = {
+            "shape": f"B{B_SERVE} Hq{HQ} Hkv{HKV} Tq{tq} S{SK} D{D} bf16, full cache",
+            "ms": cuda_ms(lambda: dk._launch_partials(p), before=flush),
+            "merge_ms": cuda_ms(lambda: dk._launch_merge(part_o, part_ml), before=flush),
+            "call_ms": cuda_ms(lambda: dk.quantized_flash_decode(*args, block_k=2048),
+                               before=flush),
+            "plain_ms": cuda_ms(lambda: dk.quantized_flash_decode_plain(*args, block_k=2048),
+                                iters=3, warmup=1, before=flush),
+            "merge_plain_ms": cuda_ms(lambda: dk._merge_plain(part_o, part_ml), before=flush),
+            "gemv_ms": cuda_ms(lambda: _gemv_decode(q, cache, bias, None), before=flush),
+            "library_ms": None,  # no single PyTorch call computes INT8-cache decode attention
+            "bytes": nbytes, "flops": flops,
+            "bytes_ms": nbytes / H100_HBM_BYTES * 1e3, "ops_ms": flops / H100_BF16_FLOPS * 1e3,
+            "merge_bytes": merge_bytes, "merge_bound_ms": merge_bytes / H100_HBM_BYTES * 1e3,
+            "relerr": rel_err(got, want), "merge_relerr": rel_err(out, merge_want),
+            "merge_max_abs": float((out - merge_want).abs().max()),
+            "nsplit": part_o.shape[3],
+            "blocks": part_o.shape[3] * B_SERVE * HKV,
+        }
+        t["bound_ms"] = max(t["bytes_ms"], t["ops_ms"])
+        t["bound_by"] = "bytes" if t["bytes_ms"] >= t["ops_ms"] else "operations"
+        emit({"phase": "kernel_timing", "kernel": "flash_decode", **t})
+        timing[tq] = t
+        if not (t["relerr"] <= 1e-2 and t["merge_relerr"] <= 1e-5):
+            raise AssertionError(f"flash_decode at the serving shape: relerr {t['relerr']}, "
+                                 f"merge relerr {t['merge_relerr']}")
+        del args, p, got, want, out, part_o, part_ml, cache, q, k, ks, v, vs, bias
+    del flush_buf
+    torch.cuda.empty_cache()
+    record["decode_kernel_timing"] = timing
+    t1 = timing[1]
+    out_timing = {
+        "flash_decode": {k2: t1[k2] for k2 in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                "library_ms")},
+        "flash_decode_merge": {"ms": t1["merge_ms"], "plain_ms": t1["merge_plain_ms"],
+                               "bound_ms": t1["merge_bound_ms"], "bound_by": "bytes",
+                               "library_ms": None},
+    }
+    worst["flash_decode_merge"] = max(timing[tq]["merge_max_abs"] for tq in timing)
+    return out_timing, worst
+
+
+def one_slot(cache, slot):
+    """A one-slot view of a batch cache, starting empty: a prefill through
+    it writes from row 0, in place into the batch buffers."""
+    import torch
+
+    fields = {f.name: getattr(cache, f.name)[slot:slot + 1] for f in dataclasses.fields(cache)
+              if f.name != "length"}
+    return type(cache)(**fields, length=torch.zeros((1,), dtype=torch.int32,
+                                                    device=cache.length.device))
+
+
+def run_batching(model, prompts, new_tokens, step_tokens, slots, dev):
+    """Serve the requests (prompt i: prompts[i] (1, L_i), max_new_tokens
+    new_tokens[i]) through a ContinuousBatcher with `slots` decode lanes:
+    each admission prefills its slot, each round decodes the teacher-forced
+    tokens step_tokens[round] (slots, 1) for every slot at ragged lengths
+    (uniform_pos=False), and slots retired in a round are reset after its
+    device step. Raises if a cache length is off; returns the run."""
+    import torch
+
+    from umfa_tpu_torch.models import gpt
+    from umfa_tpu_torch.serving.scheduler import ContinuousBatcher, reset_slot
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    caches = gpt.init_caches(model.cfg, slots, device=dev)
+    batcher = ContinuousBatcher(slots)
+    for prompt, n in zip(prompts, new_tokens):
+        batcher.submit(prompt.shape[1], n)
+    owner, retired, prefill_ms, prefill_logits = {}, [], [], []
+
+    def on_admit(slot, req):
+        sync()
+        t0 = time.perf_counter()
+        logits, _ = gpt.forward_with_cache(model, prompts[req.uid].to(dev),
+                                           [one_slot(c, slot) for c in caches], prefill=True)
+        for c in caches:
+            c.length[slot] = req.prompt_len
+        sync()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        prefill_logits.append(logits[0, -1].float().cpu())
+        owner[slot] = req
+
+    round_ms, round_logits, finite = [], [], True
+    t_start = time.perf_counter()
+    while not batcher.idle:
+        retired.clear()
+        mask = batcher.step(on_admit, lambda slot, req: retired.append(slot))
+        tokens = step_tokens[len(round_ms)].to(dev)
+        sync()
+        t0 = time.perf_counter()
+        logits, _ = gpt.forward_with_cache(model, tokens, caches, uniform_pos=False)
+        sync()
+        round_ms.append((time.perf_counter() - t0) * 1e3)
+        lengths = caches[0].length.tolist()
+        for slot in range(slots):
+            if mask[slot] and lengths[slot] != owner[slot].prompt_len + owner[slot].generated:
+                raise AssertionError(
+                    f"round {len(round_ms)}: slot {slot} holds {lengths[slot]} rows, expected "
+                    f"{owner[slot].prompt_len} + {owner[slot].generated}")
+        last = logits[:, -1].float()
+        finite = finite and torch_isfinite(last)
+        round_logits.append(last[torch.from_numpy(mask).to(dev)].cpu())
+        for slot in retired:
+            for c in caches:
+                reset_slot(c, slot)
+    wall_s = time.perf_counter() - t_start
+    stats = batcher.stats
+    generated = sum(new_tokens)
+    return {
+        "requests": len(prompts), "slots": slots, "admitted": stats.admitted,
+        "completed": stats.completed, "rounds": len(round_ms),
+        "mean_occupancy": stats.mean_occupancy,
+        "decode_round_ms_median": statistics.median(round_ms),
+        "decode_round_ms_sum": sum(round_ms),
+        "generated_tokens": generated,
+        "generated_tokens_per_s": generated / sum(round_ms) * 1e3,
+        "prefill_tokens": sum(p.shape[1] for p in prompts),
+        "prefill_ms_per_admission": statistics.mean(prefill_ms),
+        "wall_s": wall_s, "logits_finite": finite,
+        "round_logits": round_logits, "prefill_logits": prefill_logits,
+    }
+
+
+def batching_requests(n, prompt_range, new_range, slots, vocab, seed):
+    """Seeded requests: prompts (1, L) with L in prompt_range, max_new_tokens
+    in new_range, and a teacher-forced (slots, 1) token table per round."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    lens = torch.randint(prompt_range[0], prompt_range[1] + 1, (n,), generator=g).tolist()
+    new = torch.randint(new_range[0], new_range[1] + 1, (n,), generator=g).tolist()
+    prompts = [torch.randint(0, vocab, (1, ln), generator=g) for ln in lens]
+    steps = torch.randint(0, vocab, (sum(new), slots, 1), generator=g)
+    return prompts, new, steps
+
+
+def phase_continuous_batching(record):
+    """The full-width model with the INT8 cache serves 24 requests of
+    different prompt lengths through 8 continuously refilled slots, with
+    the flash-decode switch on and off (after a warm-up run)."""
+    import torch
+
+    from umfa_tpu_torch import _kernels
+    from umfa_tpu_torch.models import gpt
+    from umfa_tpu_torch.utils.testing import rel_err
+
+    dev = torch.device("cuda")
+    cfg = gpt.GPTConfig(vocab=32768, dim=1024, num_heads=HQ, num_kv_heads=HKV, depth=8,
+                        max_seq=SK, dtype="bfloat16", kv_cache="int8")
+    model = gpt.init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    prompts, new, steps = batching_requests(N_REQUESTS, PROMPT_RANGE, NEW_RANGE, SLOTS,
+                                            cfg.vocab, seed=21)
+    runs, path_counts = {}, []
+    for name, switch in (("warmup", "1"), ("on", "1"), ("off", None)):
+        if switch:
+            os.environ[DECODE_SWITCH] = switch
+        try:
+            torch.cuda.synchronize()
+            _kernels.reset_launch_counts()
+            r = run_batching(model, prompts, new, steps, SLOTS, dev)
+            torch.cuda.synchronize()
+            counts = dict(_kernels.launches)
+        finally:
+            os.environ.pop(DECODE_SWITCH, None)
+        runs[name] = r
+        want = {"quant_attn_fwd": cfg.depth * r["admitted"]}
+        if switch:
+            want.update(flash_decode=cfg.depth * r["rounds"],
+                        flash_decode_merge=cfg.depth * r["rounds"])
+        res = {"phase": "continuous_batching", "run": name, "switch": DECODE_SWITCH + "=1"
+               if switch else "unset", "kv_cache": "int8",
+               **{k2: v2 for k2, v2 in r.items() if not k2.endswith("logits")},
+               "launches": counts}
+        emit(res)
+        record.setdefault("continuous_batching", []).append(res)
+        if not (r["completed"] == r["admitted"] == N_REQUESTS and r["logits_finite"]):
+            raise AssertionError(f"continuous batching ({name}): {r['completed']} of "
+                                 f"{N_REQUESTS} completed, finite logits {r['logits_finite']}")
+        if {k2: v2 for k2, v2 in counts.items() if v2} != want:
+            raise AssertionError(f"continuous batching ({name}): launches {counts}, "
+                                 f"expected {want}")
+        if name != "warmup":
+            path_counts.append(counts)
+    on, off = runs["on"], runs["off"]
+    if on["rounds"] != off["rounds"]:
+        raise AssertionError(f"the two runs took {on['rounds']} and {off['rounds']} rounds")
+    errs = [rel_err(a, b) for a, b in zip(on["round_logits"], off["round_logits"])]
+    agree = {"phase": "continuous_batching_agreement", "rounds": len(errs),
+             "worst_round_relerr": max(errs), "median_round_relerr": statistics.median(errs),
+             "tol": 2e-2, "compared": "last-position logits of the active slots, switch on vs off"}
+    emit(agree)
+    record["continuous_batching_agreement"] = agree
+    if not max(errs) <= 2e-2:
+        raise AssertionError(f"switch on and off disagree: worst round relerr {max(errs)}")
+    del model, runs
+    torch.cuda.empty_cache()
+    return path_counts
+
+
+def phase_small_batching(record):
+    """A small model's continuous-batching loop (4 slots, 8 requests, the
+    switch on) on the card against the same loop on the CPU (plain path),
+    for the INT8 cache (the flash-decode route, block_k 256: three tiles)
+    and the dense cache (the gemv route)."""
+    import torch
+
+    from umfa_tpu_torch.models import gpt
+
+    prompts, new, steps = batching_requests(8, (16, 256), (4, 16), 4, 512, seed=22)
+    out = {}
+    os.environ[DECODE_SWITCH] = "1"
+    try:
+        for kind, tol in (("int8", 1e-2), ("dtype", 1e-4)):
+            cfg = gpt.GPTConfig(vocab=512, dim=256, num_heads=4, num_kv_heads=2, depth=2,
+                                max_seq=768, kv_cache=kind)
+            runs = {}
+            for dev in ("cuda", "cpu"):
+                model = gpt.init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+                runs[dev] = run_batching(model, prompts, new, steps, 4, torch.device(dev))
+            pairs = (list(zip(runs["cuda"]["round_logits"], runs["cpu"]["round_logits"]))
+                     + list(zip(runs["cuda"]["prefill_logits"], runs["cpu"]["prefill_logits"])))
+            err = max(float((a - b).abs().max()) for a, b in pairs)
+            r = {"phase": "small_batching_vs_cpu", "kv_cache": kind,
+                 "rounds": runs["cuda"]["rounds"], "completed": runs["cuda"]["completed"],
+                 "max_abs_logits": err, "tol": tol}
+            emit(r)
+            out[kind] = r
+            if runs["cuda"]["rounds"] != runs["cpu"]["rounds"] or not err <= tol:
+                raise AssertionError(f"small continuous batching on the card differs from the "
+                                     f"CPU: {r}")
+    finally:
+        os.environ.pop(DECODE_SWITCH, None)
+    record["small_batching"] = out
 
 
 def phase_bwd_kernels(record):
@@ -1240,22 +1594,37 @@ def main():
     emit({"phase": "build", **build})
     record["build"] = build
 
-    timing, worst = phase_kernels(record)
-    bwd_timing, bwd_worst = phase_bwd_kernels(record)
+    seconds = {}
+
+    def run(phase):
+        t = time.perf_counter()
+        out = phase(record)
+        seconds[phase.__name__] = time.perf_counter() - t
+        return out
+
+    timing, worst = run(phase_kernels)
+    bwd_timing, bwd_worst = run(phase_bwd_kernels)
     timing.update(bwd_timing)
     worst.update(bwd_worst)
-    path_counts = phase_serving(record)
-    phase_small_reference(record)
-    path_counts.append(phase_attention_api(record))
-    phase_small_training(record)
-    path_counts += phase_training(record)
-    q_timing, q_worst = phase_quant_kernels(record)
+    path_counts = run(phase_serving)
+    run(phase_small_reference)
+    d_timing, d_worst = run(phase_decode_kernel)
+    timing.update(d_timing)
+    worst.update(d_worst)
+    path_counts += run(phase_continuous_batching)
+    run(phase_small_batching)
+    path_counts.append(run(phase_attention_api))
+    run(phase_small_training)
+    path_counts += run(phase_training)
+    q_timing, q_worst = run(phase_quant_kernels)
     timing.update(q_timing)
     worst.update(q_worst)
-    path_counts += phase_quant_training(record)
-    path_counts += phase_two_pass(record)
-    phase_small_quant_training(record)
-    path_counts.append(phase_quant_attention_api(record))
+    path_counts += run(phase_quant_training)
+    path_counts += run(phase_two_pass)
+    run(phase_small_quant_training)
+    path_counts.append(run(phase_quant_attention_api))
+    emit({"phase": "seconds", "build": build["seconds"], **seconds})
+    record["phase_seconds"] = seconds
     launches = collections.Counter()
     for counts in path_counts:
         launches.update(counts)
@@ -1270,7 +1639,11 @@ def main():
            "fused_qattn": ("umfa_tpu_torch/csrc/fused_qattn.cu",
                            "umfa_tpu/ops/quant_fused_attn.py:206"),
            "quant_bwd_dq": ("umfa_tpu_torch/csrc/quant_bwd.cu", "umfa_tpu/ops/quant_bwd.py:101"),
-           "quant_bwd_dkv": ("umfa_tpu_torch/csrc/quant_bwd.cu", "umfa_tpu/ops/quant_bwd.py:339")}
+           "quant_bwd_dkv": ("umfa_tpu_torch/csrc/quant_bwd.cu", "umfa_tpu/ops/quant_bwd.py:339"),
+           "flash_decode": ("umfa_tpu_torch/csrc/flash_decode.cu",
+                            "umfa_tpu/serving/decode_kernel.py:38"),
+           "flash_decode_merge": ("umfa_tpu_torch/csrc/flash_decode.cu",
+                                  "umfa_tpu/serving/decode_kernel.py:38")}
     kernels = [
         {"name": name, "route": "cuda", "source": src[name][0], "replaces": src[name][1],
          "launches": launches[name], "max_abs_err": worst[name],

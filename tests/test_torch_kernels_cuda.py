@@ -432,3 +432,99 @@ def test_quantized_training_on_the_card_matches_the_cpu(dev):
             grads[where] = [x.grad.cpu() for x in t]
         for a, b_, name in zip(grads["cuda"], grads["cpu"], ("dq", "dk", "dv", "dbias")):
             assert rel_err(a, b_) <= 1e-2, (recipe, name)
+
+
+# Row 10: flash-decode over the INT8 cache (csrc/flash_decode.cu), against
+# its plain tile walk. fp32 relerr 2e-5 (same arithmetic, other summation
+# order); bf16 relerr 1e-2 (the kernel rounds bf16(p·vs) against its chunk's
+# own maximum, the plain walk against its running one).
+
+import os  # noqa: E402
+
+from umfa_tpu_torch.serving import decode_kernel as dk  # noqa: E402
+from umfa_tpu_torch.serving.decode import decode_attention  # noqa: E402
+from umfa_tpu_torch.serving.kv_cache import QuantizedKVCache  # noqa: E402
+
+DECODE_TOLS = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+DECODE_CASES = [  # (hq, hkv, tq, d, s_max, block_k)
+    (hq, hkv, tq, d, s_max, bk)
+    for hq, hkv in ((16, 8), (8, 8))
+    for tq in (1, 4, 16)
+    for d in (64, 128)
+    for s_max, bk in ((4096, 2048), (768, 256))
+]
+
+
+def _decode_inputs(hq, hkv, tq, d, s_max, dtype, dev, seed=0):
+    """A 4-slot INT8 cache at lengths S_max, 1, 0 and S_max/3 + 5, and the
+    decode route's length-and-causal bias (query t at length - Tq + t)."""
+    g = torch.Generator().manual_seed(seed)
+    b = 4
+    k = torch.randint(-128, 128, (b, hkv, s_max, d), generator=g, dtype=torch.int8)
+    v = torch.randint(-128, 128, (b, hkv, s_max, d), generator=g, dtype=torch.int8)
+    ks = torch.rand((b, hkv, s_max, 1), generator=g) * 0.05 + 1e-3
+    vs = torch.rand((b, hkv, s_max, 1), generator=g) * 0.05 + 1e-3
+    lengths = torch.tensor([s_max, 1, 0, s_max // 3 + 5])
+    pos = torch.arange(s_max)
+    qpos = lengths[:, None] - tq + torch.arange(tq)
+    masked = (pos > qpos[:, :, None]) | (pos >= lengths[:, None, None])
+    bias = torch.where(masked, -1e30, 0.0)[:, None]
+    q = torch.randn((b, hq, tq, d), generator=g)
+    return (q.to(dev, dtype), *(x.to(dev) for x in (k, ks, v, vs, bias)), lengths.to(dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", DECODE_CASES)
+def test_flash_decode_kernel_matches_plain(dev, dtype, case):
+    hq, hkv, tq, d, s_max, bk = case
+    q, k, ks, v, vs, bias, _ = _decode_inputs(hq, hkv, tq, d, s_max, dtype, dev)
+    n0, m0 = _kernels.launches["flash_decode"], _kernels.launches["flash_decode_merge"]
+    out = dk.quantized_flash_decode(q, k, ks, v, vs, bias, block_k=bk)
+    torch.cuda.synchronize()
+    assert _kernels.launches["flash_decode"] == n0 + 1
+    assert _kernels.launches["flash_decode_merge"] == m0 + 1
+    want = dk.quantized_flash_decode_plain(q, k, ks, v, vs, bias, block_k=bk)
+    assert out.dtype == torch.float32 and out.shape == (4, hq, tq, d)
+    assert torch.isfinite(out).all()
+    assert rel_err(out, want) <= DECODE_TOLS[dtype]
+
+
+def test_flash_decode_kernel_broadcast_bias_and_odd_length(dev):
+    # A (B, 1, 1, S) bias broadcast over Tq 4, S_max 1000 (not a multiple of
+    # the kernel's 256-row chunks), D 32 and 80.
+    for d in (32, 80):
+        q, k, ks, v, vs, bias, _ = _decode_inputs(4, 2, 4, d, 1000, torch.float32, dev, seed=1)
+        bias = bias[:, :, -1:]
+        out = dk.quantized_flash_decode(q, k, ks, v, vs, bias, block_k=1000)
+        want = dk.quantized_flash_decode_plain(q, k, ks, v, vs, bias, block_k=1000)
+        assert torch.isfinite(out).all() and rel_err(out, want) <= 2e-5
+
+
+def test_decode_attention_switch_launches_the_kernel(dev):
+    q, k, ks, v, vs, _, lengths = _decode_inputs(16, 8, 1, 64, 768, torch.bfloat16, dev)
+    cache = QuantizedKVCache(k, ks, v, vs, lengths.int())
+    n0 = _kernels.launches["flash_decode"]
+    os.environ["UMFA_ENABLE_DECODE_KERNEL"] = "1"
+    try:
+        out = decode_attention(q, cache)
+    finally:
+        del os.environ["UMFA_ENABLE_DECODE_KERNEL"]
+    gemv = decode_attention(q, cache)
+    torch.cuda.synchronize()
+    assert _kernels.launches["flash_decode"] == n0 + 1
+    assert out.dtype == torch.bfloat16 and rel_err(out, gemv) <= 1e-2
+
+
+def test_flash_decode_kernel_refuses_what_it_does_not_take(dev):
+    q, k, ks, v, vs, bias, _ = _decode_inputs(4, 2, 1, 64, 768, torch.float32, dev)
+    with pytest.raises(ValueError):  # a non-int8 cache
+        dk.quantized_flash_decode(q, k.float(), ks, v.float(), vs, bias)
+    with pytest.raises(ValueError):  # CPU tensors beside CUDA ones
+        dk.quantized_flash_decode(q, k.cpu(), ks, v, vs, bias)
+    q17, _, _, _, _, bias17, _ = _decode_inputs(4, 2, 17, 64, 768, torch.float32, dev)
+    with pytest.raises(ValueError):  # more than 16 new queries
+        dk.quantized_flash_decode(q17, k, ks, v, vs, bias17)
+    for d in (192, 72):  # head_dim over 128, or not a multiple of 16
+        q2, k2, ks2, v2, vs2, bias2, _ = _decode_inputs(4, 2, 1, d, 768, torch.float32, dev)
+        with pytest.raises(ValueError):
+            dk.quantized_flash_decode(q2, k2, ks2, v2, vs2, bias2)

@@ -14,7 +14,10 @@ gradients through `ops/flash_bwd.py`, and `GPT.forward` under autograd; the
 quantized training path: `attention()` under an INT8/INT4 quantization
 mode and `quantized_flash_attention` (`ops/quant_attention.py`) with STE
 gradients, through `ops/quant_fused_attn.py`, `ops/quant_bwd.py` and
-`ops/quant_fused.py`, and `GPT.forward` with `cfg.quantization`.
+`ops/quant_fused.py`, and `GPT.forward` with `cfg.quantization`;
+continuous-batching decode: the scheduler (`serving/scheduler.py`) and,
+with UMFA_ENABLE_DECODE_KERNEL=1 and the INT8 cache, the flash-decode
+kernel of `serving/decode_kernel.py` at Tq <= 16.
 
     import umfa_tpu_torch
     out = umfa_tpu_torch.attention(q, k, v, is_causal=True)

@@ -1,5 +1,5 @@
 """Incremental decode attention over KV caches (port of
-umfa_tpu/serving/decode.py, default routes).
+umfa_tpu/serving/decode.py).
 
 Routes, as in the reference:
   * `prefill=True` / `chunk_start=c`: every sequence sat at cache row c
@@ -8,8 +8,11 @@ Routes, as in the reference:
   * generic Tq > 16: a (B, 1, Tq, S_max) length-and-causal bias through the
     fused kernel, with the queries chunked when that bias would exceed
     `_BIAS_BUDGET_BYTES`;
-  * Tq <= 16: `_gemv_decode`, plain matmuls (the reference leaves this to
-    XLA; the Pallas decode kernel is opt-in there and not ported yet).
+  * Tq <= 16 (token-by-token decode at ragged lengths): with
+    UMFA_ENABLE_DECODE_KERNEL=1 (read on every call), an INT8 cache and
+    S_max divisible by the reference's block rule, the flash-decode kernel
+    of `serving/decode_kernel.py`; otherwise `_gemv_decode`, plain matmuls
+    (the reference's default, left to XLA there).
 The dense cache uses `ops/flash_fwd.py`, the INT8 cache
 `ops/quant_attention.py` on the cached INT8 rows (Q quantized row-wise).
 """
@@ -17,6 +20,7 @@ The dense cache uses `ops/flash_fwd.py`, the INT8 cache
 from __future__ import annotations
 
 import dataclasses
+import os
 import warnings
 from typing import Optional, Union
 
@@ -26,6 +30,7 @@ from umfa_tpu_torch.engine.config import Precision, QuantMode, QuantStrategy
 from umfa_tpu_torch.ops.attention import flash_attention
 from umfa_tpu_torch.ops.quant import QuantizedTensor, quantize
 from umfa_tpu_torch.ops.quant_attention import quantized_attention_forward
+from umfa_tpu_torch.serving.decode_kernel import quantized_flash_decode
 from umfa_tpu_torch.serving.kv_cache import KVCache, QuantizedKVCache
 
 # Generic-Tq>16 intra-chunk bias budget: above it the call chunks Tq (with a
@@ -124,6 +129,19 @@ def decode_attention(
         bias = bias.expand(batch, 1, tq, cache.max_len)
 
     if tq <= 16:
+        # The reference's route rule (umfa_tpu/serving/decode.py:163-186):
+        # the flash-decode kernel is opt-in, and its block_k must divide
+        # S_max (the largest power-of-two divisor <= 2048, not below 256).
+        bk = 2048
+        while bk >= 512 and cache.max_len % bk:
+            bk //= 2
+        if (quantized and cache.max_len % bk == 0
+                and os.environ.get("UMFA_ENABLE_DECODE_KERNEL") == "1"):
+            out = quantized_flash_decode(
+                q, cache.k_values, cache.k_scales, cache.v_values, cache.v_scales, bias,
+                scale=scale, block_k=min(bk, cache.max_len),
+            )
+            return out.to(q.dtype)
         return _gemv_decode(q, cache, bias, scale)
 
     if quantized:
