@@ -5,7 +5,7 @@
 
 Phases, one JSON line each:
   1. device: the card (nvidia-smi name and power limit), torch and CUDA;
-  2. build: the eight CUDA kernel libraries compiled from
+  2. build: the ten CUDA kernel libraries compiled from
      `umfa_tpu_torch/csrc/`, one nvcc each, all at once;
   3. forward kernels against their plain PyTorch versions on the card at
      the serving head geometry (Hq 16 / Hkv 8, D 64, Sk 4096, batch 2),
@@ -76,12 +76,38 @@ Phases, one JSON line each:
      UMFA_DISABLE_FUSED_QUANT=1 and with causal Sq 512 against Sk 1024, a
      small quantized model's loss and gradients, and quantized `attention()`
      with a bias gradient, each on the card against the CPU path;
- 11. the wall seconds of each phase; a `kernels` line; the nvidia-smi
+ 11. the ring kernels (`ring_fwd_step`, `ring_bwd_dkv`, `ring_bwd_dq`): the
+     ring over LocalRing with its kernels against the same ring with their
+     plain versions at B2, Hq16/Hkv8 and Hq = Hkv = 8, S 1024 over 4 and 2
+     ranks, D 64/128, fp32 and bf16, contiguous causal, zigzag causal and
+     non-causal, the backward with a nonzero dlse (forward fp32 2e-5 / LSE
+     1e-5, bf16 1e-2 / 1e-3; backward fp32 1e-4, bf16 2e-2); the kernel
+     backward against the UMFA_RING_BWD=jnp route (fp32 2e-5);
+ 12. the one-device self-loop checks at the reference's defaults (B1 H2
+     S1024 D128 bf16; n_steps 4 causal and 3 non-causal), each with one
+     launch of each ring kernel and n_steps - 1 hops per buffer;
+ 13. the ring at full width (B8 Hq16 Hkv8 S4096 D64 bf16 over
+     LocalRing(4), contiguous causal and zigzag causal): forward and
+     `.backward()` of sum(out · cos out) plus a term on LSE, against
+     single-device `flash_attention` on the unsharded sequence (out 1e-2,
+     gradients 2e-2), with exact launch counts (10 / 16 of each ring
+     kernel, no other kernel) and hops (forward 6 / 12; backward 12 K/V,
+     12 dK/dV, 4 homing); each ring kernel timed on one rank's chunk beside
+     its plain version and its bound; the whole ring beside the port's
+     flash kernels and SDPA on the unsharded sequence (yardsticks only);
+     one hop's copy time, and from a torch.profiler trace how much of the
+     hops' copy time ran under ring kernels;
+ 14. the tensor-core probe `mma_probe` at the five shapes of
+     scripts/d64_ab.py against its plain version at reps 8 (fp32 1e-5),
+     then at reps 1024 with its TFLOP/s beside 989 and one cuBLAS product
+     of each shape (a yardstick only);
+ 15. the wall seconds of each phase; a `kernels` line; the nvidia-smi
      line; the result line.
 Every path (each serving run, both timed continuous-batching runs, the
-timed training steps, the attention() phase) is driven with the launch
-counts set to 0 just before it and read
-just after; a kernel's `launches` in the kernels line is its sum over them.
+timed training steps, the attention() phase, the two full-width ring runs,
+the probe's five reps-1024 calls) is driven with the launch counts set to 0
+just before it and read just after; a kernel's `launches` in the kernels
+line is its sum over them.
 
 Any failed check raises, so the script exits non-zero. Without a CUDA
 device, or without the rest of the repository beside it, it exits non-zero
@@ -1566,6 +1592,420 @@ def phase_quant_attention_api(record):
     return counts
 
 
+RING_N, RING_S = 4, 4096  # the full-width ring: B_TRAIN x S 4096 over LocalRing(4)
+RING_LAYOUTS = {"causal": (True, False), "zigzag": (True, True), "full": (False, False)}
+# Per layout of the full-width ring: launches of each ring kernel, and hops.
+RING_EXPECTED = {
+    "causal": (10, {"fwd_kv": 6, "bwd_kv": 12, "bwd_dkv": 12, "bwd_home": 4}),
+    "zigzag": (16, {"fwd_kv": 12, "bwd_kv": 12, "bwd_dkv": 12, "bwd_home": 4}),
+}
+PROBE_REPS = 1024
+
+
+def ring_loss(out, lse, w):
+    """The ring phases' loss: sum(out · cos out) (tests/test_parallel.py:180-185)
+    plus a term on LSE, so that the backward also takes an LSE cotangent."""
+    import torch
+
+    o = out.float()
+    return (o * torch.cos(o)).sum() + (lse * w).sum()
+
+
+def phase_ring_kernels(record):
+    """Rows 11-12: the ring with its kernels (`ring_fwd_step`,
+    `ring_bwd_dkv`, `ring_bwd_dq`) against the same ring with their plain
+    versions, both on the card over LocalRing, at B2, Hq16/Hkv8 and Hq =
+    Hkv = 8, S 1024 over 4 and 2 ranks, D 64 and 128, fp32 and bf16,
+    contiguous causal, zigzag causal and non-causal, the backward with a
+    nonzero dlse; then the two backward routes against each other."""
+    import torch
+
+    from umfa_tpu_torch.parallel import LocalRing, ring_flash_attention_pallas
+    from umfa_tpu_torch.parallel import ring_pallas as rp
+    from umfa_tpu_torch.utils.testing import rel_err
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(11)
+    fwd_tol = {torch.float32: (2e-5, 1e-5), torch.bfloat16: (1e-2, 1e-3)}
+    bwd_tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+    worst = {"ring_fwd_step": 0.0, "ring_bwd_dkv": 0.0, "ring_bwd_dq": 0.0}
+    results = []
+    for hq, hkv in ((HQ, HKV), (HKV, HKV)):
+        for n in (4, 2):
+            for d in (64, 128):
+                for layout, (causal, zigzag) in RING_LAYOUTS.items():
+                    for dtype in (torch.float32, torch.bfloat16):
+                        shapes = ((B_CHECK, hq, 1024, d), (B_CHECK, hkv, 1024, d),
+                                  (B_CHECK, hkv, 1024, d), (B_CHECK, hq, 1024, d))
+                        q, k, v, do = (torch.randn(s, generator=gen).to(dev, dtype)
+                                       for s in shapes)
+                        dlse = torch.randn((B_CHECK, hq, 1024), generator=gen).to(dev)
+                        cfg = rp._config(1024 // n, causal, zigzag, d**-0.5, None)
+                        out, lse = rp._ring_fwd(q, k, v, LocalRing(n), cfg)
+                        grads = rp._ring_bwd(q, k, v, out, lse, do, dlse, LocalRing(n), cfg)
+                        torch.cuda.synchronize()
+                        want, want_lse = rp._ring_fwd(q, k, v, LocalRing(n), cfg, plain=True)
+                        want_grads = rp._ring_bwd(q, k, v, out, lse, do, dlse, LocalRing(n), cfg,
+                                                  plain=True)
+                        res = {"case": f"Hq{hq} Hkv{hkv} n{n} D{d} {layout} {str(dtype)[6:]}",
+                               "relerr_out": rel_err(out, want),
+                               "max_abs_lse": float((lse - want_lse).abs().max()),
+                               "finite": all(torch_isfinite(t) for t in (out, lse, *grads))}
+                        for g, x, y in zip(("dq", "dk", "dv"), grads, want_grads):
+                            res[f"relerr_{g}"] = rel_err(x, y)
+                        rtol, ltol = fwd_tol[dtype]
+                        res["ok"] = (res["finite"] and res["relerr_out"] <= rtol
+                                     and res["max_abs_lse"] <= ltol
+                                     and all(res[f"relerr_{g}"] <= bwd_tol[dtype]
+                                             for g in ("dq", "dk", "dv")))
+                        abs_err = [float((x.float() - y.float()).abs().max())
+                                   for x, y in zip((out, *grads), (want, *want_grads))]
+                        worst["ring_fwd_step"] = max(worst["ring_fwd_step"], abs_err[0])
+                        worst["ring_bwd_dq"] = max(worst["ring_bwd_dq"], abs_err[1])
+                        worst["ring_bwd_dkv"] = max(worst["ring_bwd_dkv"], *abs_err[2:])
+                        results.append(res)
+    record["ring_kernel_checks"] = results
+    summary = {"phase": "ring_kernel_check", "cases": len(results),
+               "gates": "fwd fp32 2e-5 (LSE 1e-5), bf16 1e-2 (LSE 1e-3); bwd fp32 1e-4, bf16 2e-2",
+               "failed": [r["case"] for r in results if not r["ok"]]}
+    for dt in ("float32", "bfloat16"):
+        rows = [r for r in results if r["case"].endswith(dt)]
+        summary[f"worst_{dt}"] = {key: max(r[key] for r in rows) for key in
+                                  ("relerr_out", "max_abs_lse", "relerr_dq", "relerr_dk",
+                                   "relerr_dv")}
+    emit(summary)
+    if summary["failed"]:
+        raise AssertionError(f"ring kernels disagree with their plain versions: {summary['failed']}")
+
+    # The kernel backward against the reference's A/B route (UMFA_RING_BWD=jnp:
+    # a ring of the dense backward kernels), fp32, through autograd.
+    routes = {}
+    for layout in ("causal", "zigzag"):
+        zigzag = RING_LAYOUTS[layout][1]
+        q = torch.randn((B_CHECK, HQ, 1024, D), generator=gen).to(dev)
+        k, v = (torch.randn((B_CHECK, HKV, 1024, D), generator=gen).to(dev) for _ in range(2))
+        w = torch.randn((B_CHECK, HQ, 1024), generator=gen).to(dev)
+        grads = {}
+        for route in ("pallas", "jnp"):
+            os.environ["UMFA_RING_BWD"] = route
+            try:
+                leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+                out, lse = ring_flash_attention_pallas(*leaves, ring=LocalRing(4), causal=True,
+                                                       zigzag=zigzag, return_lse=True)
+                ring_loss(out, lse, w).backward()
+                grads[route] = [x.grad for x in leaves]
+            finally:
+                del os.environ["UMFA_RING_BWD"]
+        routes[layout] = max(rel_err(a, b) for a, b in zip(grads["pallas"], grads["jnp"]))
+    emit({"phase": "ring_backward_routes", "relerr_fp32": routes, "gate": 2e-5})
+    record["ring_backward_routes"] = routes
+    if max(routes.values()) > 2e-5:
+        raise AssertionError(f"the two ring backward routes disagree: {routes}")
+    return worst
+
+
+def phase_ring_selfloop(record):
+    """The reference's one-device protocol checks at their defaults (B1 H2
+    S1024 D128 bf16): one rank sends its own chunk to itself for n_steps;
+    only step 0 computes. Each check asserts its hops (n_steps - 1 per
+    buffer); here each ring kernel must launch exactly once."""
+    from umfa_tpu_torch import _kernels
+    from umfa_tpu_torch.parallel import ring_pallas as rp
+
+    out = []
+    for n_steps, causal in ((4, True), (3, False)):
+        before = collections.Counter(_kernels.launches)
+        rel, _, _ = rp.ring_pallas_selfloop_check(n_steps=n_steps, causal=causal)
+        mid = collections.Counter(_kernels.launches)
+        rel_bwd = rp.ring_pallas_selfloop_bwd_check(n_steps=n_steps, causal=causal)
+        after = collections.Counter(_kernels.launches)
+        launches = {"ring_fwd_step": (mid - before)["ring_fwd_step"],
+                    "ring_bwd_dkv": (after - mid)["ring_bwd_dkv"],
+                    "ring_bwd_dq": (after - mid)["ring_bwd_dq"]}
+        res = {"phase": "ring_selfloop", "n_steps": n_steps, "causal": causal,
+               "relerr_fwd": rel, "gate_fwd": 5e-3, "relerr_bwd": rel_bwd, "gate_bwd": 2e-2,
+               "hops_per_buffer": n_steps - 1, "launches": launches}
+        emit(res)
+        out.append(res)
+        if set(launches.values()) != {1}:
+            raise AssertionError(f"self-loop ring launched {launches}, expected one of each")
+    record["ring_selfloop"] = out
+
+
+def cuda_trace_overlap(fn, path):
+    """Device copies of `fn` on other streams than its ring kernels, and how
+    much of their time ran while a ring kernel ran (torch.profiler trace,
+    written to `path`). None where the trace shows no ring kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    kernels = [e for e in events if e.get("cat") == "kernel" and "ring_" in e.get("name", "")]
+    if not kernels:
+        return None
+    streams = {e.get("args", {}).get("stream") for e in kernels}
+    copies = [(e["ts"], e["ts"] + e["dur"]) for e in events if e.get("cat") == "gpu_memcpy"
+              and e.get("args", {}).get("stream") not in streams]
+    busy = []
+    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in kernels):
+        if busy and a <= busy[-1][1]:
+            busy[-1][1] = max(busy[-1][1], b)
+        else:
+            busy.append([a, b])
+    overlap = sum(max(0.0, min(b, y) - max(a, x)) for a, b in copies for x, y in busy)
+    copy_us = sum(b - a for a, b in copies)
+    return {"side_stream_copies": len(copies), "copy_ms": copy_us / 1e3,
+            "overlapped_ms": overlap / 1e3,
+            "overlapped_share": overlap / copy_us if copy_us else None,
+            "ring_kernel_ms": sum(e["dur"] for e in kernels) / 1e3}
+
+
+def phase_ring_full(record):
+    """The ring at full width: B8 Hq16 Hkv8 S4096 D64 bf16 over LocalRing(4),
+    contiguous causal and zigzag causal, forward and `.backward()` of
+    `ring_loss`, against single-device `flash_attention` (rows 1-3) on the
+    unsharded sequence; exact launch and hop counts around the ring's own
+    run; each ring kernel timed at this shape; the whole ring beside the
+    port's flash kernels and SDPA on the unsharded sequence; the hops' copy
+    time and their overlap with the ring kernels."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from umfa_tpu_torch import _kernels
+    from umfa_tpu_torch.ops.attention import flash_attention
+    from umfa_tpu_torch.ops.flash_bwd import flash_attention_backward
+    from umfa_tpu_torch.ops.flash_fwd import flash_attention_forward
+    from umfa_tpu_torch.parallel import LocalRing, ring_flash_attention_pallas, zigzag_shard
+    from umfa_tpu_torch.parallel import ring_pallas as rp
+    from umfa_tpu_torch.utils.testing import rel_err
+
+    dev = torch.device("cuda")
+    b, s, n = B_TRAIN, RING_S, RING_N
+    s_loc, scale = s // n, D**-0.5
+    gen = torch.Generator().manual_seed(12)
+    q = torch.randn((b, HQ, s, D), generator=gen).to(dev, torch.bfloat16)
+    k, v = (torch.randn((b, HKV, s, D), generator=gen).to(dev, torch.bfloat16) for _ in range(2))
+    w = torch.randn((b, HQ, s), generator=gen).to(dev)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    ref_out, ref_lse = flash_attention(*leaves, causal=True, return_lse=True)
+    ring_loss(ref_out, ref_lse, w).backward()
+    ref = {"out": ref_out.detach(), "lse": ref_lse.detach(),
+           **{g: x.grad for g, x in zip(("dq", "dk", "dv"), leaves)}}
+    del leaves, ref_out, ref_lse
+
+    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    path_counts, runs, traces = [], {}, {}
+    for layout, (launches_want, hops_want) in RING_EXPECTED.items():
+        zigzag = RING_LAYOUTS[layout][1]
+        lay = (lambda x: zigzag_shard(x, n)) if zigzag else (lambda x: x)
+        lq, lk, lv, lw = (lay(x) for x in (q, k, v, w))
+
+        def drive(ring, lq=lq, lk=lk, lv=lv, lw=lw, zigzag=zigzag):
+            leaves = [x.clone().requires_grad_(True) for x in (lq, lk, lv)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, lse = ring_flash_attention_pallas(*leaves, ring=ring, causal=True, zigzag=zigzag,
+                                                   return_lse=True)
+            loss = ring_loss(out, lse, lw)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            loss.backward()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            return (out.detach(), lse.detach(), [x.grad for x in leaves],
+                    (t1 - t0) * 1e3, (t2 - t1) * 1e3)
+
+        drive(LocalRing(n))  # warm-up: one-time CUDA set-up stays out of the times
+        ring = LocalRing(n)
+        _kernels.reset_launch_counts()
+        out, lse, grads, fwd_ms, bwd_ms = drive(ring)
+        counts = dict(_kernels.launches)
+        path_counts.append(counts)
+        res = {"phase": "ring_full_width", "layout": layout,
+               "shape": f"B{b} Hq{HQ} Hkv{HKV} S{s} D{D} bf16, LocalRing({n}), causal",
+               "forward_ms": fwd_ms, "backward_ms": bwd_ms,
+               "relerr_out": rel_err(out, lay(ref["out"])),
+               "max_abs_lse": float((lse - lay(ref["lse"])).abs().max()),
+               **{f"relerr_{g}": rel_err(x, lay(ref[g])) for g, x in zip(("dq", "dk", "dv"), grads)},
+               "finite": all(torch_isfinite(t) for t in (out, lse, *grads)),
+               "launches": counts, "hops": dict(ring.hops)}
+        traces[layout] = cuda_trace_overlap(
+            lambda: drive(LocalRing(n)),
+            os.path.join(REPO, "chiprun_out", f"ring_trace_{layout}.json"))
+        res["hop_overlap"] = traces[layout]
+        emit(res)
+        runs[layout] = res
+        del out, lse, grads
+        torch.cuda.empty_cache()
+        want_counts = {name: launches_want for name in ("ring_fwd_step", "ring_bwd_dkv",
+                                                        "ring_bwd_dq")}
+        if counts != want_counts:
+            raise AssertionError(f"{layout} ring launched {counts}, expected {want_counts}")
+        if dict(ring.hops) != hops_want:
+            raise AssertionError(f"{layout} ring made hops {dict(ring.hops)}, expected {hops_want}")
+        if not (res["finite"] and res["relerr_out"] <= 1e-2
+                and all(res[f"relerr_{g}"] <= 2e-2 for g in ("dq", "dk", "dv"))):
+            raise AssertionError(f"{layout} ring disagrees with flash_attention: {res}")
+    record["ring_full_width"] = runs
+
+    # Each kernel at this shape, on rank 3's chunk: against chunk 2 (every
+    # pair visible) and against its own chunk (the causal diagonal).
+    cfg = rp._config(s_loc, True, False, scale, None)
+    chunk = lambda x, i: x.chunk(n, dim=2)[i].contiguous()  # noqa: E731
+    q3, k2, v2, k3, v3 = chunk(q, 3), chunk(k, 2), chunk(v, 2), chunk(k, 3), chunk(v, 3)
+    do3 = torch.randn(q3.shape, generator=gen).to(dev, torch.bfloat16)
+    lse3 = chunk(ref["lse"], 3)
+    delta3 = rp._delta(chunk(ref["out"], 3), do3, chunk(w, 3))
+    full = rp._Step(n, 3, 2, False, True, False, scale, cfg.block_k)
+    diag = rp._Step(n, 3, 3, True, True, False, scale, cfg.block_k)
+    o3, l3 = torch.empty_like(q3), torch.empty(lse3.shape, device=dev)
+    rp.ring_fwd_step(q3, k3, v3, o3, l3, diag)
+    dk, dv, dq = (torch.zeros(x.shape, device=dev) for x in (k2, v2, q3))
+    pairs_full = b * HQ * s_loc * s_loc
+    pairs_diag = b * HQ * s_loc * (s_loc + 1) // 2
+    qkv_bytes = 2 * (q3.numel() + k2.numel() + v2.numel())
+    bwd_reads = qkv_bytes + 2 * do3.numel() + 4 * (lse3.numel() + delta3.numel())
+    kernels = {  # name: (kernel, plain, flops, bytes, outputs to compare, bf16 gate)
+        "ring_fwd_step": (lambda: rp.ring_fwd_step(q3, k2, v2, o3, l3, full),
+                          lambda: rp._fwd_step_plain(q3, k2, v2, o3, l3, full),
+                          4 * D * pairs_full, qkv_bytes + 2 * 2 * o3.numel() + 2 * 4 * l3.numel(),
+                          (o3, l3), 1e-2),
+        "ring_fwd_step_diagonal": (lambda: rp.ring_fwd_step(q3, k3, v3, o3, l3, diag),
+                                   lambda: rp._fwd_step_plain(q3, k3, v3, o3, l3, diag),
+                                   4 * D * pairs_diag, qkv_bytes + 2 * o3.numel() + 4 * l3.numel(),
+                                   (o3, l3), 1e-2),
+        "ring_bwd_dkv": (lambda: rp.ring_bwd_dkv(q3, do3, lse3, delta3, k2, v2, dk, dv, full),
+                         lambda: rp._dkv_plain(q3, do3, lse3, delta3, k2, v2, dk, dv, full),
+                         8 * D * pairs_full, bwd_reads + 2 * 4 * (dk.numel() + dv.numel()),
+                         (dk, dv), 2e-2),
+        "ring_bwd_dq": (lambda: rp.ring_bwd_dq(q3, do3, lse3, delta3, k2, v2, dq, full),
+                        lambda: rp._dq_plain(q3, do3, lse3, delta3, k2, v2, dq, full),
+                        6 * D * pairs_full, bwd_reads + 2 * 4 * dq.numel(), (dq,), 2e-2),
+    }
+    timing = {}
+    for name, (kern, plain, flops, nbytes, outs, gate) in kernels.items():
+        start = [x.clone() for x in outs]
+        kern()
+        got = [x.clone() for x in outs]
+        for x, y in zip(outs, start):
+            x.copy_(y)
+        plain()
+        check = max(rel_err(x, y) for x, y in zip(got, outs))
+        t = dict(ms=cuda_ms(kern), plain_ms=cuda_ms(plain, iters=3, warmup=1),
+                 flops=flops, bytes=nbytes, ops_ms=flops / H100_BF16_FLOPS * 1e3,
+                 bytes_ms=nbytes / H100_HBM_BYTES * 1e3, relerr_vs_plain=check, gate=gate,
+                 library_ms=None,
+                 library=("none: no single PyTorch call attends one chunk by global "
+                          "positions and merges into (o, lse)"))
+        t["bound_ms"] = max(t["ops_ms"], t["bytes_ms"])
+        t["bound_by"] = "operations" if t["ops_ms"] >= t["bytes_ms"] else "bytes"
+        emit({"phase": "kernel_timing", "kernel": name,
+              "shape": f"B{b} Hq{HQ} Hkv{HKV} S_loc{s_loc} D{D} bf16, rank 3 of {n}", **t})
+        timing[name] = t
+        if check > gate:
+            raise AssertionError(f"{name} disagrees with its plain version at full width: {check}")
+        del start, got
+    torch.cuda.empty_cache()
+
+    # The whole ring beside single-device attention on the unsharded sequence.
+    do = torch.randn(q.shape, generator=gen).to(dev, torch.bfloat16)
+    ring_out, ring_lse = rp._ring_fwd(q, k, v, LocalRing(n), cfg)
+    whole = {
+        "ring_forward_ms": cuda_ms(lambda: rp._ring_fwd(q, k, v, LocalRing(n), cfg), iters=5),
+        "ring_backward_ms": cuda_ms(lambda: rp._ring_bwd(q, k, v, ring_out, ring_lse, do, w,
+                                                         LocalRing(n), cfg), iters=5),
+        "flash_fwd_ms": cuda_ms(lambda: flash_attention_forward(q, k, v, causal=True), iters=5),
+        "flash_bwd_dq_dkv_ms": cuda_ms(lambda: flash_attention_backward(
+            q, k, v, ref["out"], ref["lse"], do, None, w, causal=True, grad_dtype=torch.bfloat16),
+            iters=5),
+    }
+    try:
+        qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            whole["sdpa_forward_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True))
+            o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, enable_gqa=True)
+        whole["sdpa_backward_ms"] = cuda_ms(
+            lambda: torch.autograd.grad(o, (qg, kg, vg), do, retain_graph=True))
+        del qg, kg, vg, o
+    except (RuntimeError, TypeError) as e:
+        whole["sdpa"] = f"not measured: this torch refused GQA flash SDPA ({e})"[:300]
+    # One hop: a (2, B, Hkv, S_loc, D) bf16 slot copied on the card.
+    slot = torch.empty((2, b, HKV, s_loc, D), dtype=torch.bfloat16, device=dev)
+    slot2 = torch.empty_like(slot)
+    whole["hop_ms"] = cuda_ms(lambda: slot2.copy_(slot))
+    whole["hop_bytes"] = slot.numel() * 2
+    whole["hop_overlap"] = traces
+    emit({"phase": "ring_whole", "shape": f"B{b} Hq{HQ} Hkv{HKV} S{s} D{D} bf16, causal", **whole})
+    record["ring_whole"] = whole
+    del ring_out, ring_lse, do, slot, slot2, ref
+    torch.cuda.empty_cache()
+    return timing, path_counts
+
+
+def phase_mma_probe(record):
+    """Row 13: the tensor-core probe at the five shapes of scripts/d64_ab.py,
+    against its plain version at reps 8 (fp32 relerr 1e-5), then at reps
+    1024 with its TFLOP/s beside the 989 TFLOP/s datasheet peak and one
+    cuBLAS product of the same shape (a yardstick only)."""
+    import torch
+
+    from umfa_tpu_torch import _kernels
+    from umfa_tpu_torch.utils import mma_probe as mp
+    from umfa_tpu_torch.utils.testing import rel_err
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(13)
+    operands, rows, worst = {}, {}, 0.0
+    for name, (m, k, n) in mp.SHAPES.items():
+        a = torch.randn((m, k), generator=gen).to(dev, torch.bfloat16)
+        b = (torch.randn((k, n), generator=gen) * 1e-3).to(dev, torch.bfloat16)
+        operands[name] = (a, b)
+        got, want = mp.mma_probe(a, b, 8), mp.mma_probe_plain(a, b, 8)
+        worst = max(worst, float((got - want).abs().max()))
+        flops = 2 * m * k * n * PROBE_REPS
+        ms = cuda_ms(lambda: mp.mma_probe(a, b, PROBE_REPS), iters=5, warmup=1)
+        cublas_ms = cuda_ms(lambda: torch.mm(a, b))
+        rows[name] = {"shape": f"M{m} K{k} N{n}", "relerr_reps8": rel_err(got, want),
+                      "blocks": (m // mp.TILE) * (n // mp.TILE), "ms": ms,
+                      "tflops": flops / ms / 1e9, "share_of_989": flops / ms / 1e9 / 989,
+                      "cublas_ms_one_product": cublas_ms,
+                      "cublas_tflops": 2 * m * k * n / cublas_ms / 1e9}
+        emit({"phase": "mma_probe", "name": name, "reps": PROBE_REPS, **rows[name]})
+        if rows[name]["relerr_reps8"] > 1e-5:
+            raise AssertionError(f"mma_probe disagrees with its plain version at {name}")
+    record["mma_probe"] = rows
+
+    # The probe's own path: each shape once at reps 1024.
+    _kernels.reset_launch_counts()
+    for a, b in operands.values():
+        mp.mma_probe(a, b, PROBE_REPS)
+    torch.cuda.synchronize()
+    counts = dict(_kernels.launches)
+
+    m, k, n = mp.SHAPES["mxu_deep"]
+    a, b = operands["mxu_deep"]
+    flops = 2 * m * k * n * PROBE_REPS
+    nbytes = 2 * (a.numel() + b.numel()) + 4 * m * n
+    t = dict(ms=rows["mxu_deep"]["ms"],
+             plain_ms=cuda_ms(lambda: mp.mma_probe_plain(a, b, PROBE_REPS), iters=3, warmup=1),
+             ops_ms=flops / H100_BF16_FLOPS * 1e3, bytes_ms=nbytes / H100_HBM_BYTES * 1e3,
+             library_ms=None,
+             library=("none: no single PyTorch call computes the reps loop; one cuBLAS product "
+                      "per shape is in the mma_probe lines"))
+    t["bound_ms"] = max(t["ops_ms"], t["bytes_ms"])
+    t["bound_by"] = "operations" if t["ops_ms"] >= t["bytes_ms"] else "bytes"
+    emit({"phase": "kernel_timing", "kernel": "mma_probe",
+          "shape": f"mxu_deep M{m} K{k} N{n}, reps {PROBE_REPS}", **t})
+    return {"mma_probe": t}, {"mma_probe": worst}, counts
+
+
 def main():
     import torch
 
@@ -1623,6 +2063,15 @@ def main():
     path_counts += run(phase_two_pass)
     run(phase_small_quant_training)
     path_counts.append(run(phase_quant_attention_api))
+    worst.update(run(phase_ring_kernels))
+    run(phase_ring_selfloop)
+    r_timing, r_counts = run(phase_ring_full)
+    timing.update(r_timing)
+    path_counts += r_counts
+    p_timing, p_worst, p_counts = run(phase_mma_probe)
+    timing.update(p_timing)
+    worst.update(p_worst)
+    path_counts.append(p_counts)
     emit({"phase": "seconds", "build": build["seconds"], **seconds})
     record["phase_seconds"] = seconds
     launches = collections.Counter()
@@ -1643,7 +2092,14 @@ def main():
            "flash_decode": ("umfa_tpu_torch/csrc/flash_decode.cu",
                             "umfa_tpu/serving/decode_kernel.py:38"),
            "flash_decode_merge": ("umfa_tpu_torch/csrc/flash_decode.cu",
-                                  "umfa_tpu/serving/decode_kernel.py:38")}
+                                  "umfa_tpu/serving/decode_kernel.py:38"),
+           "ring_fwd_step": ("umfa_tpu_torch/csrc/ring_attn.cu",
+                             "umfa_tpu/parallel/ring_pallas.py:99"),
+           "ring_bwd_dkv": ("umfa_tpu_torch/csrc/ring_attn.cu",
+                            "umfa_tpu/parallel/ring_pallas.py:529"),
+           "ring_bwd_dq": ("umfa_tpu_torch/csrc/ring_attn.cu",
+                           "umfa_tpu/parallel/ring_pallas.py:529"),
+           "mma_probe": ("umfa_tpu_torch/csrc/mma_probe.cu", "scripts/d64_ab.py:64")}
     kernels = [
         {"name": name, "route": "cuda", "source": src[name][0], "replaces": src[name][1],
          "launches": launches[name], "max_abs_err": worst[name],

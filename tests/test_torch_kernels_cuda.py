@@ -528,3 +528,163 @@ def test_flash_decode_kernel_refuses_what_it_does_not_take(dev):
         q2, k2, ks2, v2, vs2, bias2, _ = _decode_inputs(4, 2, 1, d, 768, torch.float32, dev)
         with pytest.raises(ValueError):
             dk.quantized_flash_decode(q2, k2, ks2, v2, vs2, bias2)
+
+
+# ---- ring attention (csrc/ring_attn.cu) and the tensor-core probe ----------
+#
+# The whole ring with its kernels (`ring_fwd_step`, `ring_bwd_dkv`,
+# `ring_bwd_dq`) against the same ring with their plain versions, both on
+# the card over LocalRing: forward fp32 relerr 2e-5 / LSE 1e-5, bf16 1e-2 /
+# 1e-3 (both round P against the same block_k max and o after every step;
+# fp32 sums in another order); backward fp32 1e-4, bf16 2e-2 (the fp32
+# gradients of bf16 operands, rounded at the same points).
+
+from umfa_tpu_torch.parallel import LocalRing  # noqa: E402
+from umfa_tpu_torch.parallel import ring_pallas as rp  # noqa: E402
+from umfa_tpu_torch.utils import mma_probe as mp  # noqa: E402
+
+RING_FWD_TOLS = {torch.float32: (2e-5, 1e-5), torch.bfloat16: (1e-2, 1e-3)}
+RING_BWD_TOLS = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+RING_LAYOUTS = {"causal": (True, False), "zigzag": (True, True), "full": (False, False)}
+RING_CASES = [  # (hq, hkv, n, d, layout); S 1024, batch 2
+    (hq, hkv, n, d, layout)
+    for hq, hkv in ((16, 8), (8, 8))
+    for n in (4, 2)
+    for d in (64, 128)
+    for layout in RING_LAYOUTS
+]
+
+
+def _ring_inputs(hq, hkv, d, dtype, dev, seq=1024, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    shapes = ((2, hq, seq, d), (2, hkv, seq, d), (2, hkv, seq, d), (2, hq, seq, d), (2, hq, seq))
+    q, k, v, do, dlse = (torch.randn(s, generator=g) for s in shapes)
+    return [x.to(dev, dtype) for x in (q, k, v, do)] + [dlse.to(dev)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", RING_CASES)
+def test_ring_kernels_match_plain(dev, dtype, case):
+    hq, hkv, n, d, layout = case
+    causal, zigzag = RING_LAYOUTS[layout]
+    q, k, v, do, dlse = _ring_inputs(hq, hkv, d, dtype, dev)
+    cfg = rp._config(1024 // n, causal, zigzag, d**-0.5, None)
+    before = dict(_kernels.launches)
+    out, lse = rp._ring_fwd(q, k, v, LocalRing(n), cfg)
+    grads = rp._ring_bwd(q, k, v, out, lse, do, dlse, LocalRing(n), cfg)
+    torch.cuda.synchronize()
+    steps = n * (n + 1) // 2 if layout == "causal" else n * n
+    for name in ("ring_fwd_step", "ring_bwd_dkv", "ring_bwd_dq"):
+        assert _kernels.launches[name] == before.get(name, 0) + steps
+    want, want_lse = rp._ring_fwd(q, k, v, LocalRing(n), cfg, plain=True)
+    rtol, ltol = RING_FWD_TOLS[dtype]
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    assert rel_err(out, want) <= rtol
+    assert (lse - want_lse).abs().max().item() <= ltol
+    want_grads = rp._ring_bwd(q, k, v, out, lse, do, dlse, LocalRing(n), cfg, plain=True)
+    for got, ref in zip(grads, want_grads):
+        assert torch.isfinite(got).all() and rel_err(got, ref) <= RING_BWD_TOLS[dtype]
+
+
+def test_ring_backward_routes_agree(dev, monkeypatch):
+    q, k, v, do, dlse = _ring_inputs(16, 8, 64, torch.float32, dev)
+    leaves = [[x.clone().requires_grad_(True) for x in (q, k, v)] for _ in range(2)]
+    for i, route in enumerate(("pallas", "jnp")):
+        monkeypatch.setenv("UMFA_RING_BWD", route)
+        out, lse = rp.ring_flash_attention_pallas(*leaves[i], ring=LocalRing(4), causal=True,
+                                                  return_lse=True)
+        ((out * do).sum() + (lse * dlse).sum()).backward()
+    for a, b in zip(*leaves):
+        assert rel_err(a.grad, b.grad) <= 2e-5
+
+
+SLEEP_CYCLES = 20_000_000  # ~10 ms at the H100's clock
+
+
+class _SlowCopies(LocalRing):
+    """Every hop waits on the side stream behind a sleep kernel."""
+
+    def send(self, bufs, cur, nxt, senders, tag):
+        with torch.cuda.stream(self._side):
+            torch.cuda._sleep(SLEEP_CYCLES)
+        super().send(bufs, cur, nxt, senders, tag)
+
+
+class _Unordered(LocalRing):
+    """Hops on the side stream with no events: the double buffer's hazards."""
+
+    def send(self, bufs, cur, nxt, senders, tag):
+        for r in self.ranks:
+            if r in senders:
+                with torch.cuda.stream(self._side):
+                    bufs[self.right(r)][nxt].copy_(bufs[r][cur])
+
+    def wait(self, i, slot):
+        pass
+
+
+def test_ring_events_order_the_double_buffer(dev, monkeypatch):
+    q, k, v, _, _ = _ring_inputs(8, 8, 64, torch.float32, dev, seq=512)
+    cfg = rp._config(128, False, False, 64**-0.5, None)
+    want, _ = rp._ring_fwd(q, k, v, LocalRing(4), cfg, plain=True)
+    # Copies that land late: each step must wait for the arrival in its slot.
+    out, _ = rp._ring_fwd(q, k, v, _SlowCopies(4), cfg)
+    assert rel_err(out, want) <= 2e-5
+    # Kernels that read late: a copy into a slot must wait for its last read.
+    fast_step = rp.ring_fwd_step
+
+    def slow_step(*args):
+        torch.cuda._sleep(SLEEP_CYCLES)
+        fast_step(*args)
+
+    monkeypatch.setattr(rp, "ring_fwd_step", slow_step)
+    out, _ = rp._ring_fwd(q, k, v, LocalRing(4), cfg)
+    assert rel_err(out, want) <= 2e-5
+    # Without the events the same schedule overwrites slots before they are read.
+    out, _ = rp._ring_fwd(q, k, v, _Unordered(4), cfg)
+    torch.cuda.synchronize()
+    assert rel_err(out, want) > 1e-3
+
+
+@pytest.mark.parametrize("n_steps,causal", [(4, True), (3, False)])
+def test_ring_selfloop_checks_on_the_card(dev, n_steps, causal):
+    before = dict(_kernels.launches)
+    rel, out, _ = rp.ring_pallas_selfloop_check(n_steps=n_steps, causal=causal)
+    assert out.is_cuda and rel < 5e-3
+    assert _kernels.launches["ring_fwd_step"] == before.get("ring_fwd_step", 0) + 1
+    before = dict(_kernels.launches)
+    assert rp.ring_pallas_selfloop_bwd_check(n_steps=n_steps, causal=causal) < 2e-2
+    for name in ("ring_bwd_dkv", "ring_bwd_dq"):
+        assert _kernels.launches[name] == before.get(name, 0) + 1
+
+
+def test_ring_kernels_refuse_what_they_do_not_take(dev):
+    with pytest.raises(ValueError, match="head_dim <= 128"):
+        q, k, v, _, _ = _ring_inputs(2, 2, 160, torch.float32, dev, seq=512)
+        rp.ring_flash_attention_pallas(q, k, v, ring=LocalRing(4))
+    q, k, v, _, _ = _ring_inputs(2, 2, 64, torch.float32, dev, seq=384)
+    with pytest.raises(ValueError, match="multiple of 64"):  # S_loc 96
+        rp.ring_flash_attention_pallas(q, k, v, ring=LocalRing(4))
+    q, k, v, _, _ = _ring_inputs(2, 2, 64, torch.float32, dev, seq=256)
+    with pytest.raises(ValueError, match="multiple of 128"):  # zigzag halves of 32 rows
+        rp.ring_flash_attention_pallas(q, k, v, ring=LocalRing(4), causal=True, zigzag=True)
+    c = rp._Step(4, 0, 0, True, True, False, 0.125, 64)
+    o, lse = torch.empty_like(q[:, :, :64]), torch.empty(q.shape[:2] + (64,), device=dev)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        rp.ring_fwd_step(q[:, :, :64].contiguous(), k[:, :, :64].cpu(), v[:, :, :64].contiguous(),
+                         o, lse, c)
+
+
+@pytest.mark.parametrize("name", sorted(mp.SHAPES))
+def test_mma_probe_kernel_matches_plain(dev, name):
+    m, k, n = mp.SHAPES[name]
+    g = torch.Generator().manual_seed(0)
+    a = torch.randn((m, k), generator=g).to(dev, torch.bfloat16)
+    b = (torch.randn((k, n), generator=g) * 1e-3).to(dev, torch.bfloat16)
+    n0 = _kernels.launches["mma_probe"]
+    got = mp.mma_probe(a, b, 8)
+    torch.cuda.synchronize()
+    assert _kernels.launches["mma_probe"] == n0 + 1
+    assert got.dtype == torch.float32 and rel_err(got, mp.mma_probe_plain(a, b, 8)) <= 1e-5
+    with pytest.raises(ValueError):
+        mp.mma_probe(a[:100], b, 8)  # M not a multiple of 64

@@ -17,13 +17,19 @@ gradients, through `ops/quant_fused_attn.py`, `ops/quant_bwd.py` and
 `ops/quant_fused.py`, and `GPT.forward` with `cfg.quantization`;
 continuous-batching decode: the scheduler (`serving/scheduler.py`) and,
 with UMFA_ENABLE_DECODE_KERNEL=1 and the INT8 cache, the flash-decode
-kernel of `serving/decode_kernel.py` at Tq <= 16.
+kernel of `serving/decode_kernel.py` at Tq <= 16; ring attention
+(`parallel/`): `ring_flash_attention_pallas` forward and backward through
+the ring kernels, and `ring_flash_attention`, over a `LocalRing` of
+virtual ranks on one card or a `DistRing` of processes; and the
+tensor-core probe `utils/mma_probe.py`.
 
     import umfa_tpu_torch
     out = umfa_tpu_torch.attention(q, k, v, is_causal=True)
     out.sum().backward()
     with umfa_tpu_torch.use_quantization("int8"):
         umfa_tpu_torch.attention(q, k, v, is_causal=True).sum().backward()
+    from umfa_tpu_torch.parallel import LocalRing, ring_flash_attention_pallas
+    ring_flash_attention_pallas(q, k, v, ring=LocalRing(4), causal=True).sum().backward()
 """
 
 from umfa_tpu_torch.api import (

@@ -26,7 +26,7 @@ _PKG = Path(__file__).resolve().parent
 _SRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 KERNELS = ("flash_fwd", "quant_attn_fwd", "flash_bwd", "flash_dbias", "quant_rows",
-           "fused_qattn", "quant_bwd", "flash_decode")
+           "fused_qattn", "quant_bwd", "flash_decode", "ring_attn", "mma_probe")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -34,7 +34,8 @@ NVCC_FLAGS = (
 
 # Launches per kernel (not per library: `flash_bwd` holds `flash_bwd_dq` and
 # `flash_bwd_dkv`, `quant_bwd` holds `quant_bwd_dq` and `quant_bwd_dkv`,
-# `flash_decode` holds `flash_decode` and `flash_decode_merge`),
+# `flash_decode` holds `flash_decode` and `flash_decode_merge`, `ring_attn`
+# holds `ring_fwd_step`, `ring_bwd_dkv` and `ring_bwd_dq`),
 # counted by each wrapper right after its kernel was launched (and nowhere
 # else).
 launches: collections.Counter = collections.Counter()

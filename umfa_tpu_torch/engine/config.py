@@ -123,3 +123,11 @@ def env_flag(name: str, default: bool = False) -> bool:
 DEBUG = env_flag("UMFA_DEBUG")
 NAN_CHECK = env_flag("UMFA_NAN_CHECK")
 DISABLE_FUSED = env_flag("UMFA_DISABLE_FUSED")  # route attention() to the naive path
+
+
+def ring_bwd_route() -> str:
+    """UMFA_RING_BWD, read on every call as the reference reads it
+    (umfa_tpu/parallel/ring_pallas.py:1117): "pallas" (the default) runs
+    the ring backward kernels, any other value the ring of the dense
+    backward (its A/B route, not a fallback)."""
+    return os.environ.get("UMFA_RING_BWD", "pallas")
