@@ -6,14 +6,20 @@
 Phases, one JSON line each:
   1. device: the card (nvidia-smi name and power limit), torch and CUDA;
   2. build: the ten CUDA kernel libraries compiled from
-     `umfa_tpu_torch/csrc/`, one nvcc each, all at once;
+     `umfa_tpu_torch/csrc/`, one nvcc each, all at once; then the
+     tensor-core kernels (`flash_fwd`'s bf16 kernel, `quant_bwd_dkv`):
+     their HMMA instructions counted in the SASS (cuobjdump; none fails
+     the run), their registers and spills (ptxas) and dynamic shared
+     memory;
   3. forward kernels against their plain PyTorch versions on the card at
      the serving head geometry (Hq 16 / Hkv 8, D 64, Sk 4096, batch 2),
-     with the stated tolerances; then each kernel timed at the prefill
-     shape of the serving run (batch 8, 4032 causal queries against 4096
-     keys) beside its plain version, its bound and, for the dense kernel,
-     torch's scaled_dot_product_attention (a yardstick only; the port never
-     calls it);
+     with the stated tolerances, and the bf16 `flash_fwd` also at D 128 and
+     256; then each kernel timed at the prefill shape of the serving run
+     (batch 8, 4032 causal queries against 4096 keys; median, min and max
+     of 10) beside its plain version, its bound, its TFLOP/s and share of
+     the bound, the fp32 inputs' CUDA-core `flash_fwd` and, for the dense
+     kernel, torch's scaled_dot_product_attention (a yardstick only; the
+     port never calls it);
   4. backward kernels (dQ, dK/dV, dbias) against their plain versions at
      the training head geometry (batch 2, causal 1024, odd 777 x 1000,
      window (128, 0), full and shared biases, fully masked rows, a nonzero
@@ -62,9 +68,10 @@ Phases, one JSON line each:
      rows that see no key, D 32/64/128, fp32 and bf16, the int8 and int4
      recipes, smoothing off, a dense Q; the backward with 64 masked rows
      and a nonzero dlse); then each timed at the training shape (B8, causal
-     4096, D 64, bf16, int8 recipe; fused_qattn also under int4) beside its
-     plain version, its bound and, for the backward, the flash SDPA
-     backward on the dequantized operands (a yardstick only);
+     4096, D 64, bf16, int8 recipe; fused_qattn also under int4; median,
+     min and max of 10) beside its plain version, its bound, TFLOP/s and
+     share of the bound and, for the backward, the flash SDPA backward on
+     the dequantized operands (a yardstick only);
   9. quantized training at full width (the same model and batch, lr
      TRAIN_LR): the int8 recipe for a warm-up and three SGD steps, int4 for
      a warm-up and one, int8-qdense for one; each step with a finite loss
@@ -101,8 +108,9 @@ Phases, one JSON line each:
      scripts/d64_ab.py against its plain version at reps 8 (fp32 1e-5),
      then at reps 1024 with its TFLOP/s beside 989 and one cuBLAS product
      of each shape (a yardstick only);
- 15. the wall seconds of each phase; a `kernels` line; the nvidia-smi
-     line; the result line.
+ 15. the wall seconds of each phase; a `kernels` line (each kernel with
+     its `design`: tensor cores or CUDA cores); the nvidia-smi line; the
+     result line.
 Every path (each serving run, both timed continuous-batching runs, the
 timed training steps, the attention() phase, the two full-width ring runs,
 the probe's five reps-1024 calls) is driven with the launch counts set to 0
@@ -148,6 +156,12 @@ def emit(obj):
 def cuda_ms(fn, iters=10, warmup=2, before=None):
     """Median of `iters` CUDA-event timings of fn(), in ms. `before()` runs
     ahead of each timing, outside it (an L2 flush, say)."""
+    return cuda_stats(fn, iters, warmup, before)["ms"]
+
+
+def cuda_stats(fn, iters=10, warmup=2, before=None):
+    """Median, min and max of `iters` CUDA-event timings of fn(), in ms:
+    {"ms", "ms_min", "ms_max"}."""
     import torch
 
     for _ in range(warmup):
@@ -164,7 +178,7 @@ def cuda_ms(fn, iters=10, warmup=2, before=None):
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    return {"ms": statistics.median(times), "ms_min": min(times), "ms_max": max(times)}
 
 
 def compare(name, got, want, rtol, ltol):
@@ -189,6 +203,17 @@ def compare(name, got, want, rtol, ltol):
     res["ok"] = (res["relerr_out"] <= rtol and res["max_abs_lse"] <= ltol
                  and res["empty_rows_exact"] and res["finite"])
     return res
+
+
+def bound(t):
+    """Add a timing's bound (the larger of its operation and byte times),
+    what bounds it, its rate in TFLOP/s where it counts flops, and its
+    share of the bound."""
+    t["bound_ms"] = max(t["ops_ms"], t["bytes_ms"])
+    t["bound_by"] = "operations" if t["ops_ms"] >= t["bytes_ms"] else "bytes"
+    t["share_of_bound"] = t["bound_ms"] / t["ms"]
+    if "flops" in t:
+        t["tflops"] = t["flops"] / t["ms"] / 1e9
 
 
 def torch_isfinite(t):
@@ -223,10 +248,10 @@ def phase_kernels(record):
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
 
-    def qkv(b, sq, sk, dtype):
-        q = torch.randn((b, HQ, sq, D), generator=gen)
-        k = torch.randn((b, HKV, sk, D), generator=gen)
-        v = torch.randn((b, HKV, sk, D), generator=gen)
+    def qkv(b, sq, sk, dtype, d=D):
+        q = torch.randn((b, HQ, sq, d), generator=gen)
+        k = torch.randn((b, HKV, sk, d), generator=gen)
+        v = torch.randn((b, HKV, sk, d), generator=gen)
         return [x.to(dev, dtype) for x in (q, k, v)]
 
     def path_bias(b, tq, sk, length):
@@ -277,6 +302,27 @@ def phase_kernels(record):
         emit({"phase": "kernel_check", **res})
         worst["quant_attn_fwd"] = max(worst["quant_attn_fwd"], res["max_abs_out"])
         del got, want, qt
+    # The tensor-core kernel (bf16) at the wider head dims it takes.
+    for name, sq, sk, kw, d in (("causal_prefill_d128", PROMPT, SK, dict(causal=True), 128),
+                                ("masked_rows_d128", SK + 64, SK, dict(window=(0, -1)), 128),
+                                ("causal_prefill_d256", PROMPT, SK, dict(causal=True), 256),
+                                ("bias_tq24_d256", 24, SK, dict(bias=True), 256)):
+        bias = path_bias(B_CHECK, sq, sk, 4072) if kw.get("bias") else None
+        causal, window = kw.get("causal", False), kw.get("window")
+        q, k, v = qkv(B_CHECK, sq, sk, torch.bfloat16, d)
+
+        def run(q=q, k=k, v=v):
+            return flash_attention_forward(q, k, v, bias, causal=causal, window=window)
+
+        got = run()
+        torch.cuda.synchronize()
+        want = flash_attention_forward_plain(q, k, v, bias, causal=causal, window=window)
+        res = compare(f"flash_fwd/bfloat16/{name}", got, want, 1e-2, 1e-3)
+        res["ms"] = cuda_ms(run)
+        results.append(res)
+        emit({"phase": "kernel_check", **res})
+        worst["flash_fwd"] = max(worst["flash_fwd"], res["max_abs_out"])
+        del got, want, q, k, v
     record["kernel_checks"] = results
     bad = [r["case"] for r in results if not r["ok"]]
     if bad:
@@ -295,10 +341,15 @@ def phase_kernels(record):
     flops = 4 * D * pairs
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + b * HQ * sq * 4  # q, k, v, out; lse
     timing["flash_fwd"] = dict(
-        ms=cuda_ms(fk), plain_ms=cuda_ms(fp, iters=3, warmup=1),
+        **cuda_stats(fk), plain_ms=cuda_ms(fp, iters=3, warmup=1),
         flops=flops, bytes=nbytes,
         ops_ms=flops / H100_BF16_FLOPS * 1e3, bytes_ms=nbytes / H100_HBM_BYTES * 1e3,
     )
+    # fp32 inputs take the CUDA-core kernel: its time at the same shape.
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    timing["flash_fwd"]["fp32_simt_ms"] = cuda_ms(
+        lambda: flash_attention_forward(qf, kf, vf, causal=True), iters=3, warmup=1)
+    del qf, kf, vf
     try:
         F.scaled_dot_product_attention(q[:1, :, :64], k[:1, :, :64], v[:1, :, :64],
                                        is_causal=True, enable_gqa=True)
@@ -332,9 +383,9 @@ def phase_kernels(record):
     torch.cuda.empty_cache()
     for name, t in timing.items():
         if not t["check"]["ok"]:
-            raise AssertionError(f"{name} disagrees with its plain version at the prefill shape")
-        t["bound_ms"] = max(t["ops_ms"], t["bytes_ms"])
-        t["bound_by"] = "operations" if t["ops_ms"] >= t["bytes_ms"] else "bytes"
+            raise AssertionError(f"{name} disagrees with its plain version at the prefill shape: "
+                                 f"{t['check']}")
+        bound(t)
         emit({"phase": "kernel_timing", "kernel": name, "shape": f"B{b} Hq{HQ} Hkv{HKV} Sq{sq} Sk{sk} D{D} causal",
               **{k2: v2 for k2, v2 in t.items() if k2 != "check"}})
     record["kernel_timing"] = timing
@@ -569,8 +620,7 @@ def phase_decode_kernel(record):
             "nsplit": part_o.shape[3],
             "blocks": part_o.shape[3] * B_SERVE * HKV,
         }
-        t["bound_ms"] = max(t["bytes_ms"], t["ops_ms"])
-        t["bound_by"] = "bytes" if t["bytes_ms"] >= t["ops_ms"] else "operations"
+        bound(t)
         emit({"phase": "kernel_timing", "kernel": "flash_decode", **t})
         timing[tq] = t
         if not (t["relerr"] <= 1e-2 and t["merge_relerr"] <= 1e-5):
@@ -898,7 +948,7 @@ def phase_bwd_kernels(record):
         del got, want
         flops = 2 * D * products * pairs
         nbytes = reads + written
-        timing[name] = dict(ms=cuda_ms(kern), plain_ms=cuda_ms(plain, iters=3, warmup=1),
+        timing[name] = dict(**cuda_stats(kern), plain_ms=cuda_ms(plain, iters=3, warmup=1),
                             flops=flops, bytes=nbytes, ops_ms=flops / H100_BF16_FLOPS * 1e3,
                             bytes_ms=nbytes / H100_HBM_BYTES * 1e3, check=check,
                             ok=all(e <= 2e-2 for e in check.values()))
@@ -967,8 +1017,7 @@ def phase_bwd_kernels(record):
     for name, t in timing.items():
         if not t["ok"]:
             raise AssertionError(f"{name} disagrees with its plain version at the training shape: {t['check']}")
-        t["bound_ms"] = max(t["ops_ms"], t["bytes_ms"])
-        t["bound_by"] = "operations" if t["ops_ms"] >= t["bytes_ms"] else "bytes"
+        bound(t)
         emit({"phase": "kernel_timing", "kernel": name, "shape": shape, **t})
     record["bwd_kernel_timing"] = timing
     return timing, worst
@@ -1351,7 +1400,7 @@ def phase_quant_kernels(record):
         del got, want
         flops = 2 * D * products * pairs
         nbytes = reads + written
-        timing[name] = dict(ms=cuda_ms(kern), plain_ms=cuda_ms(plain, iters=3, warmup=1),
+        timing[name] = dict(**cuda_stats(kern), plain_ms=cuda_ms(plain, iters=3, warmup=1),
                             flops=flops, bytes=nbytes, ops_ms=flops / H100_BF16_FLOPS * 1e3,
                             bytes_ms=nbytes / H100_HBM_BYTES * 1e3, check=check,
                             ok=all(e <= 2e-2 for e in check.values()))
@@ -1375,8 +1424,7 @@ def phase_quant_kernels(record):
         if not t["ok"]:
             raise AssertionError(f"{name} disagrees with its plain version at the training shape: "
                                  f"{t['check']}")
-        t["bound_ms"] = max(t["ops_ms"], t["bytes_ms"])
-        t["bound_by"] = "operations" if t["ops_ms"] >= t["bytes_ms"] else "bytes"
+        bound(t)
         emit({"phase": "kernel_timing", "kernel": name,
               "shape": shape if name != "fused_qattn_int4" else shape + " int4 recipe", **t})
     record["quant_kernel_timing"] = timing
@@ -1903,8 +1951,7 @@ def phase_ring_full(record):
                  library_ms=None,
                  library=("none: no single PyTorch call attends one chunk by global "
                           "positions and merges into (o, lse)"))
-        t["bound_ms"] = max(t["ops_ms"], t["bytes_ms"])
-        t["bound_by"] = "operations" if t["ops_ms"] >= t["bytes_ms"] else "bytes"
+        bound(t)
         emit({"phase": "kernel_timing", "kernel": name,
               "shape": f"B{b} Hq{HQ} Hkv{HKV} S_loc{s_loc} D{D} bf16, rank 3 of {n}", **t})
         timing[name] = t
@@ -1999,11 +2046,95 @@ def phase_mma_probe(record):
              library_ms=None,
              library=("none: no single PyTorch call computes the reps loop; one cuBLAS product "
                       "per shape is in the mma_probe lines"))
-    t["bound_ms"] = max(t["ops_ms"], t["bytes_ms"])
-    t["bound_by"] = "operations" if t["ops_ms"] >= t["bytes_ms"] else "bytes"
+    bound(t)
     emit({"phase": "kernel_timing", "kernel": "mma_probe",
           "shape": f"mxu_deep M{m} K{k} N{n}, reps {PROBE_REPS}", **t})
     return {"mma_probe": t}, {"mma_probe": worst}, counts
+
+
+# The tensor-core kernels: library -> the stem of their function names.
+TC_KERNELS = {"flash_fwd": "flash_fwd_tc_kernel", "quant_bwd": "dkv_tc_kernel"}
+
+
+def ptxas_resources(log):
+    """{entry function: registers, spill stores and loads} from ptxas -v."""
+    import re
+
+    res, fn = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            fn = m.group(1)
+            res[fn] = {}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if fn and m:
+            res[fn]["spill_stores"], res[fn]["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if fn and m:
+            res[fn]["registers"] = int(m.group(1))
+    return res
+
+
+def phase_sass(record, report):
+    """Count the HMMA (tensor-core) instructions of each tensor-core kernel
+    in its library's SASS (cuobjdump -sass); raise if a kernel has none.
+    With each kernel its registers and spills (ptxas -v, when this run built
+    the library) and the dynamic shared memory it launches with."""
+    import ctypes
+    import re
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    from umfa_tpu_torch import _kernels
+
+    kernels, smem = {}, {}
+    for lib, stem in TC_KERNELS.items():
+        sass = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass",
+                               str(_kernels._lib_path(lib))],
+                              capture_output=True, text=True, check=True, timeout=300).stdout
+        fn = None
+        for ln in sass.splitlines():
+            m = re.search(r"Function : (\S+)", ln)
+            if m:
+                fn = m.group(1) if stem in m.group(1) else None
+                if fn:
+                    kernels[fn] = {"library": lib, "hmma": 0}
+            elif fn and "HMMA" in ln:
+                kernels[fn]["hmma"] += 1
+        found = [f for f in kernels if kernels[f]["library"] == lib]
+        if not found or any(kernels[f]["hmma"] == 0 for f in found):
+            raise AssertionError(f"no HMMA in the SASS of {lib}'s {stem}: "
+                                 f"{ {f: kernels[f]['hmma'] for f in found} }")
+        if lib in report:
+            for f, r in ptxas_resources(report[lib]["ptxas"]).items():
+                if f in kernels:
+                    kernels[f].update(r)
+    fwd = _kernels.function("flash_fwd", "umfa_flash_fwd_smem_bytes", (ctypes.c_int, ctypes.c_int))
+    dkv = _kernels.function("quant_bwd", "umfa_quant_bwd_dkv_smem_bytes", (ctypes.c_int,))
+    for d in (64, 128, 256):
+        smem[f"flash_fwd bf16 D{d}"] = fwd(d, 1)
+        smem[f"flash_fwd fp32 D{d}"] = fwd(d, 0)
+    for d in (64, 128):
+        smem[f"quant_bwd_dkv D{d}"] = dkv(d)
+    out = {"kernels": kernels, "dynamic_smem_bytes": smem}
+    emit({"phase": "sass", **out})
+    record["sass"] = out
+
+
+DESIGN = {
+    "flash_fwd": "bf16 inputs: tensor cores, mma.sync m16n8k16 bf16->fp32 (4 warps x 16 query "
+                 "rows, Q fragments in registers, K/V 64-key tiles double-buffered by cp.async, "
+                 "P from the S accumulators); fp32/fp16 inputs: CUDA cores, FP32 FMAs",
+    "quant_bwd_dkv": "tensor cores, mma.sync m16n8k16 bf16->fp32 (4 warps x 16 keys, K/V "
+                     "dequantized once, raw int8/int4 Q and dO tiles double-buffered by cp.async "
+                     "and dequantized to bf16 in shared memory, Pᵀ and dSᵀ fed from the "
+                     "accumulators)",
+    "quant_attn_fwd": "CUDA cores: exact int8 QKᵀ by __dp4a, P·V as FP32 FMAs",
+    "fused_qattn": "CUDA cores: scores summed in double, P·V as FP32 FMAs",
+    "quant_rows": "CUDA cores: one warp a row, elementwise",
+    "mma_probe": "tensor cores, mma.sync m16n8k16 bf16->fp32",
+}
 
 
 def main():
@@ -2033,6 +2164,7 @@ def main():
                       for n, r in report.items()}
     emit({"phase": "build", **build})
     record["build"] = build
+    phase_sass(record, report)
 
     seconds = {}
 
@@ -2105,7 +2237,8 @@ def main():
          "launches": launches[name], "max_abs_err": worst[name],
          "ms": timing[name]["ms"], "plain_ms": timing[name]["plain_ms"],
          "bound_ms": timing[name]["bound_ms"], "bound_by": timing[name]["bound_by"],
-         "library_ms": timing[name]["library_ms"]}
+         "library_ms": timing[name]["library_ms"],
+         "design": DESIGN.get(name, "CUDA cores, FP32 FMAs")}
         for name in src
     ]
     missing = [k["name"] for k in kernels if k["launches"] <= 0]

@@ -90,9 +90,17 @@ FLASH_CASES = [
     (2, 4, 2, 24, 256, 64, False, None, "b1qk"),        # decode bias route
     (1, 4, 2, 64, 128, 64, True, None, "hqk"),
     (2, 2, 2, 100, 60, 64, False, (0, -1), None),       # rows >= 60 fully masked
+    (1, 4, 1, 130, 257, 48, True, None, "bq"),          # D 48, GQA 4, KV tail
+    (2, 4, 2, 70, 300, 128, False, (-1, 100), "b1qk"),  # D 128, chunk window, bias
+    (1, 4, 2, 130, 257, 256, True, None, None),         # D 256, KV tail
+    (2, 2, 1, 70, 300, 256, False, (40, 8), "hqk"),     # D 256, window, bias, GQA 2
+    (1, 4, 4, 100, 60, 128, False, (0, -1), None),      # D 128, rows >= 60 fully masked
+    (1, 2, 2, 100, 60, 256, False, (0, -1), "bq"),      # D 256, masked rows and a bias
 ]
 
 
+# bf16 runs the tensor-core kernel, fp32 and fp16 the CUDA-core one; both
+# count as one `flash_fwd` launch.
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("case", FLASH_CASES)
 def test_flash_fwd_kernel_matches_plain(dev, dtype, case):
@@ -114,8 +122,9 @@ def test_flash_fwd_kernel_matches_plain(dev, dtype, case):
     _check(out.float(), lse, want.float(), want_lse, *TOLS[dtype])
 
 
-def test_flash_fwd_kernel_bf16_in_fp32_out(dev):
-    q, k, v = _qkv(2, 4, 2, 150, 150, 64, torch.bfloat16, dev)
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_fwd_kernel_bf16_in_fp32_out(dev, d):
+    q, k, v = _qkv(2, 4, 2, 150, 150, d, torch.bfloat16, dev)
     out, lse = flash_attention_forward(q, k, v, causal=True, out_dtype=torch.float32)
     want, want_lse = flash_attention_forward_plain(q, k, v, causal=True, out_dtype=torch.float32)
     assert out.dtype == torch.float32
@@ -128,9 +137,10 @@ def test_flash_fwd_kernel_refuses_what_it_does_not_take(dev):
         flash_attention_forward(q.transpose(2, 3), k, v)
     with pytest.raises(ValueError):
         flash_attention_forward(q, k.cpu(), v)
-    q2, k2, v2 = _qkv(1, 2, 2, 64, 64, 192, torch.float32, dev)
-    with pytest.raises(ValueError):
-        flash_attention_forward(q2, k2, v2)
+    for dtype in (torch.float32, torch.bfloat16):
+        q2, k2, v2 = _qkv(1, 2, 2, 64, 64, 320, dtype, dev)
+        with pytest.raises(ValueError):
+            flash_attention_forward(q2, k2, v2)
 
 
 QUANT_CASES = [
@@ -415,6 +425,51 @@ def test_quant_bwd_kernels_match_plain(dev, dtype, case):
     empty = args[4] <= -1e29
     if empty.any():
         assert (got[0][empty] == 0).all()
+
+
+# The tensor-core dK/dV kernel at D 32/64/128 under both recipes (int4: Q
+# and K codes packed, the Q mean qm and its score row corr; int8: the V mean
+# vm), with 64 rows of LSE -1e30 (gradients exactly 0), a nonzero dlse and
+# fp32 or bf16 dO. Sq 257 and 130 leave tiles ragged; Sq 257 (not a
+# multiple of 4) takes the kernel's plain loads instead of cp.async.
+# Gates: bf16 2e-2 (BWD_TOLS); fp32 dV 1e-4 and dQ, dK 3e-4. bf16(dS) is
+# rounded from dS = P∘(dP − δ), whose cancellation turns the last-bit
+# differences of two fp32 summation orders into elements rounded the other
+# way, relerr of the order of 1e-4: on one of these cases the CUDA-core dQ
+# kernel, whose arithmetic this PR leaves alone, misses 1e-4 against the
+# plain version, as does the tensor-core dK on another.
+QBWD_DKV_FP32 = {"dq": 3e-4, "dk": 3e-4, "dv": 1e-4}
+QBWD_DKV_CASES = [  # (sq, sk, d, recipe, kwargs)
+    (200, 200, 32, "int8", dict(causal=True)),
+    (200, 200, 64, "int4", dict(causal=True)),
+    (130, 257, 128, "int8", dict(causal=True)),
+    (257, 130, 64, "int8", dict(window=(40, 8))),
+    (256, 256, 128, "int4", dict(window=(128, 0))),
+    (96, 320, 32, "int4", {}),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", QBWD_DKV_CASES)
+def test_quant_bwd_dkv_kernel_masked_rows_and_means(dev, dtype, case):
+    sq, sk, d, recipe, kw = case
+    args, mask = _qbwd_inputs((1, 4, 2, sq, sk, d, recipe, kw), dtype, dev)
+    lse = args[4].clone()
+    lse[:, :, :64] = -1e30
+    args = args[:4] + (lse,) + args[5:]
+    gdt = torch.bfloat16 if dtype == torch.bfloat16 else None
+    n_dq, n_dkv = _kernels.launches["quant_bwd_dq"], _kernels.launches["quant_bwd_dkv"]
+    got = quantized_attention_backward(*args, grad_dtype=gdt, **mask)
+    torch.cuda.synchronize()
+    assert _kernels.launches["quant_bwd_dq"] == n_dq + 1
+    assert _kernels.launches["quant_bwd_dkv"] == n_dkv + 1
+    want = quantized_attention_backward_plain(*args, grad_dtype=gdt, **mask)
+    for g_, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert g_.dtype == w.dtype == (gdt or torch.float32), name
+        assert torch.isfinite(g_.float()).all(), name
+        tol = QBWD_DKV_FP32[name] if dtype == torch.float32 else BWD_TOLS[dtype]
+        assert rel_err(g_, w) <= tol, name
+    assert (got[0][:, :, :64] == 0).all()
 
 
 def test_quantized_training_on_the_card_matches_the_cpu(dev):

@@ -77,3 +77,12 @@ def test_error_metrics_take_numpy_and_torch():
     assert cosine(a, torch.tensor([6.0, 8.0])) == pytest.approx(1.0)
     assert cosine(np.zeros(2), np.zeros(2)) == 1.0 and cosine(a, np.zeros(2)) == 0.0
     assert INT8_REL_ERR == 0.02
+
+
+@pytest.mark.parametrize("name", ["quantize", "dequantize", "QuantizedTensor", "apply_rope"])
+def test_top_level_exports_follow_the_reference(name):
+    import umfa_tpu
+    import umfa_tpu_torch
+
+    assert name in umfa_tpu.__all__ and name in umfa_tpu_torch.__all__
+    assert getattr(umfa_tpu_torch, name).__name__ == getattr(umfa_tpu, name).__name__

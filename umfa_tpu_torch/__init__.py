@@ -50,7 +50,9 @@ from umfa_tpu_torch.engine.config import (
 from umfa_tpu_torch.engine.stats import get_dispatch_stats, reset_dispatch_stats
 from umfa_tpu_torch.ops.attention import flash_attention
 from umfa_tpu_torch.ops.hadamard import hadamard_rotate
+from umfa_tpu_torch.ops.quant import QuantizedTensor, dequantize, quantize
 from umfa_tpu_torch.ops.quant_attention import quantized_flash_attention
+from umfa_tpu_torch.ops.rope import apply_rope
 
 __all__ = [
     "attention",
@@ -69,4 +71,8 @@ __all__ = [
     "QuantStrategy",
     "get_dispatch_stats",
     "reset_dispatch_stats",
+    "quantize",
+    "dequantize",
+    "QuantizedTensor",
+    "apply_rope",
 ]

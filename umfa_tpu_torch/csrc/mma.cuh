@@ -1,0 +1,130 @@
+// Tensor-core building blocks for Hopper, sm_90a: `mma.sync` m16n8k16 bf16
+// -> fp32, `ldmatrix` (plain and transposed), 16-byte `cp.async`, and the
+// fragment layouts the attention kernels rely on.
+//
+// Fragment layout of m16n8k16 (lane l, g = l / 4, t = l % 4):
+//   A (16 x 16, row-major): a[0] = A[g][2t..2t+1], a[1] = A[g+8][2t..],
+//                           a[2] = A[g][2t+8..],   a[3] = A[g+8][2t+8..];
+//   B (16 x 8):             b[0] = B[2t..2t+1][g], b[1] = B[2t+8..2t+9][g];
+//   C (16 x 8, fp32):       c[0..1] = C[g][2t..2t+1], c[2..3] = C[g+8][2t..].
+// Each 32-bit register holds two bf16, the lower column (or k) index in
+// the low half. The C fragments of two neighbouring 8-column tiles,
+// rounded to bf16 pairs, are the A fragment of the 16-deep step over those
+// 16 columns (`pack_a`): a product's output feeds the next product without
+// a trip through shared memory.
+//
+// Shared-memory tiles are bf16, row-major, with rows padded to a stride of
+// (width + 8) elements: 16 bytes past a multiple of 128, so the eight
+// 16-byte rows that one `ldmatrix` phase reads fall in distinct banks.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace umfa {
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Four 8 x 8 bf16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8 and receives its share of each in r[0..3].
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// The same, each matrix transposed on the way: lane l receives elements
+// (2(l%4), l/4) and (2(l%4)+1, l/4) of each.
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// A fragment of rows [r0, r0 + 16) and columns [k0, k0 + 16) of a
+// row-major tile with row stride ld.
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const __nv_bfloat16* s, int ld, int r0,
+                                       int k0, int lane) {
+  ldsm_x4(a, s + (r0 + (lane & 15)) * ld + k0 + (lane >> 4) * 8);
+}
+
+// B fragments of two 8-column tiles (columns n0..n0+15) over k0..k0+15,
+// from a tile stored [n][k] (k contiguous): B = sᵀ.
+__device__ __forceinline__ void load_b_nk(uint32_t (&b0)[2], uint32_t (&b1)[2],
+                                          const __nv_bfloat16* s, int ld, int n0, int k0,
+                                          int lane) {
+  uint32_t r[4];
+  ldsm_x4(r, s + (n0 + (lane >> 4) * 8 + (lane & 7)) * ld + k0 + ((lane >> 3) & 1) * 8);
+  b0[0] = r[0];
+  b0[1] = r[1];
+  b1[0] = r[2];
+  b1[1] = r[3];
+}
+
+// B fragments of two 8-column tiles (columns n0..n0+15) over k0..k0+15,
+// from a tile stored [k][n] (n contiguous), through ldmatrix.trans.
+__device__ __forceinline__ void load_b_kn(uint32_t (&b0)[2], uint32_t (&b1)[2],
+                                          const __nv_bfloat16* s, int ld, int k0, int n0,
+                                          int lane) {
+  uint32_t r[4];
+  ldsm_x4_t(r, s + (k0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * ld + n0 + (lane >> 4) * 8);
+  b0[0] = r[0];
+  b0[1] = r[1];
+  b1[0] = r[2];
+  b1[1] = r[3];
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The A fragment of the 16-deep step over the columns of C tiles c0 (the
+// lower 8) and c1, each value rounded to bf16.
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&c0)[4],
+                                       const float (&c1)[4]) {
+  a[0] = pack_bf16x2(c0[0], c0[1]);
+  a[1] = pack_bf16x2(c0[2], c0[3]);
+  a[2] = pack_bf16x2(c1[0], c1[1]);
+  a[3] = pack_bf16x2(c1[2], c1[3]);
+}
+
+// 16-byte asynchronous copy global -> shared; the first `src_bytes` (0..16)
+// are read, the rest of the 16 are zero-filled. Both addresses 16-aligned.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most N committed groups of this thread are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Reductions over the four lanes (t = l % 4) that share a fragment row.
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+}  // namespace umfa

@@ -27,28 +27,14 @@
 // a data dependence of the same kind, which leaves b unchanged as the
 // reference's does.
 #include "common.cuh"
+#include "mma.cuh"
+
+using namespace umfa;
 
 namespace {
 
 constexpr int PT = 64;   // block output tile
 constexpr int PAD = 8;   // bf16 padding per shared-memory row
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Four 8 x 8 bf16 matrices from shared memory; lane l gives the address of
-// row l % 8 of matrix l / 8 and receives its share of each in r[0..3].
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
 
 __device__ __forceinline__ uint32_t add_bf16x2(uint32_t x, __nv_bfloat162 y) {
   __nv_bfloat162 v = __hadd2(*reinterpret_cast<__nv_bfloat162*>(&x), y);
@@ -67,16 +53,9 @@ struct Frags {
 __device__ __forceinline__ void load_frags(Frags& f, const __nv_bfloat16* sA,
                                            const __nv_bfloat16* sB, int ld, int k0, int lane) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) ldsm_x4(f.a[i], sA + (i * 16 + (lane & 15)) * ld + k0 + (lane >> 4) * 8);
+  for (int i = 0; i < 2; ++i) load_a(f.a[i], sA, ld, i * 16, k0, lane);
 #pragma unroll
-  for (int jj = 0; jj < 2; ++jj) {
-    uint32_t r[4];
-    ldsm_x4(r, sB + (jj * 16 + (lane >> 4) * 8 + (lane & 7)) * ld + k0 + ((lane >> 3) & 1) * 8);
-    f.b[2 * jj][0] = r[0];
-    f.b[2 * jj][1] = r[1];
-    f.b[2 * jj + 1][0] = r[2];
-    f.b[2 * jj + 1][1] = r[3];
-  }
+  for (int jj = 0; jj < 2; ++jj) load_b_nk(f.b[2 * jj], f.b[2 * jj + 1], sB, ld, jj * 16, k0, lane);
 }
 
 __device__ __forceinline__ void mma_step(float (&acc)[2][4][4], const Frags& f,

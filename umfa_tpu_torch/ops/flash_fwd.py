@@ -1,9 +1,11 @@
 """Dense flash-attention forward with LSE (port of umfa_tpu/ops/flash_fwd.py).
 
-`flash_attention_forward` launches the CUDA kernel `csrc/flash_fwd.cu` on
-CUDA tensors and runs `flash_attention_forward_plain`, the same arithmetic
-in plain PyTorch, on CPU tensors. There is no fallback between the two: a
-CUDA tensor the kernel does not take raises.
+`flash_attention_forward` launches a CUDA kernel of `csrc/flash_fwd.cu` on
+CUDA tensors (bf16 inputs: the tensor-core kernel; fp32 and fp16 inputs:
+the CUDA-core kernel; head_dim <= 256) and runs
+`flash_attention_forward_plain`, the same arithmetic in plain PyTorch, on
+CPU tensors. There is no fallback between them: a CUDA tensor the kernel
+does not take raises.
 
 Semantics (the reference's, flash_fwd.py:41-175 and :469-737):
   * causal and window are top-left aligned when Sq != Sk: key j is visible
@@ -13,7 +15,9 @@ Semantics (the reference's, flash_fwd.py:41-175 and :469-737):
     not an index mask (a row masked by bias alone averages uniformly);
   * a row with no visible key outputs exactly 0 and LSE -1e30;
   * the softmax scale is folded into Q, rounded back to the input type;
-    bf16 inputs round P to bf16 before P·V and sum the rounded P;
+    bf16 inputs round P to bf16 before P·V; the row sum adds the rounded P
+    at D < 128 (the reference's ones column) and the fp32 P at D >= 128
+    (its VPU row sum: no ones column there, flash_fwd.py:499, :523);
   * fp16 is storage-only: computed as fp32 and cast back.
 Not ported yet: block-sparse `block_map`/`fetch_ids` and in-kernel RoPE.
 """
@@ -191,8 +195,8 @@ def _plain(p: _Prepared):
     m = s.amax(dim=-1, keepdim=True).clamp_min(DEFAULT_MASK_VALUE)
     s.sub_(m).exp_().masked_fill_(hidden, 0.0)
     pr = s.to(p.q.dtype)  # P rounded to the input type before P·V
+    l = (pr if d < 128 else s).sum(dim=-1, dtype=torch.float32)
     del s
-    l = pr.sum(dim=-1, dtype=torch.float32)
     pv = torch.matmul(pr.float().reshape(b, hkv, g * sq, sk), p.v.float())
     pv = pv.reshape(b, hq, sq, d)
     empty = l == 0
@@ -214,8 +218,8 @@ def _launch(p: _Prepared):
             raise ValueError(f"flash_fwd kernel needs a contiguous {name}")
     b, hq, sq, d = q.shape
     _, hkv, sk, _ = k.shape
-    if d > 128:
-        raise ValueError(f"flash_fwd kernel takes head_dim <= 128, got {d}")
+    if d > 256:
+        raise ValueError(f"flash_fwd kernels take head_dim <= 256, got {d}")
     out = torch.empty((b, hq, sq, d), dtype=p.out_dtype, device=q.device)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
