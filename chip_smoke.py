@@ -7,10 +7,10 @@ Phases, one JSON line each:
   1. device: the card (nvidia-smi name and power limit), torch and CUDA;
   2. build: the ten CUDA kernel libraries compiled from
      `umfa_tpu_torch/csrc/`, one nvcc each, all at once; then the
-     tensor-core kernels (`flash_fwd`'s bf16 kernel, `quant_bwd_dkv`):
-     their HMMA instructions counted in the SASS (cuobjdump; none fails
-     the run), their registers and spills (ptxas) and dynamic shared
-     memory;
+     tensor-core kernels (`flash_fwd`'s and `flash_bwd_dkv`'s bf16
+     kernels, `quant_bwd_dq`, `quant_bwd_dkv`): their HMMA instructions
+     counted in the SASS (cuobjdump; none fails the run), their registers
+     and spills (ptxas) and dynamic shared memory at D 64/128/256;
   3. forward kernels against their plain PyTorch versions on the card at
      the serving head geometry (Hq 16 / Hkv 8, D 64, Sk 4096, batch 2),
      with the stated tolerances, and the bf16 `flash_fwd` also at D 128 and
@@ -23,7 +23,9 @@ Phases, one JSON line each:
   4. backward kernels (dQ, dK/dV, dbias) against their plain versions at
      the training head geometry (batch 2, causal 1024, odd 777 x 1000,
      window (128, 0), full and shared biases, fully masked rows, a nonzero
-     dlse, D 32/64/128, fp32 and bf16); then each timed at the training
+     dlse, D 32/64/128, fp32 and bf16; bf16 inputs with fp32 gradients at
+     D 128 and 80, gate 5e-4, where a dK from the scaled Q would show);
+     then each timed at the training
      shape (batch 8, causal 4096, D 64, bf16) beside its plain version,
      its bound and the SDPA backward (flash for dQ + dK/dV, memory-efficient
      with a bias gradient for dbias; yardsticks only);
@@ -67,7 +69,9 @@ Phases, one JSON line each:
      1024, odd 777, window (128, 0), a shared bias, a left-only window with
      rows that see no key, D 32/64/128, fp32 and bf16, the int8 and int4
      recipes, smoothing off, a dense Q; the backward with 64 masked rows
-     and a nonzero dlse); then each timed at the training shape (B8, causal
+     and a nonzero dlse, also at D 256 on the residuals of fused_qattn's
+     plain version, the kernel taking D <= 128); then each timed at the
+     training shape (B8, causal
      4096, D 64, bf16, int8 recipe; fused_qattn also under int4; median,
      min and max of 10) beside its plain version, its bound, TFLOP/s and
      share of the bound and, for the backward, the flash SDPA backward on
@@ -875,49 +879,56 @@ def phase_bwd_kernels(record):
         ("d128_causal", 1024, 1024, 128, dict(causal=True)),
     ]
     # fp32: 1e-4 (tests/test_flash_backward.py:32); bf16-emitted: 2e-2
-    # (TOL["bf16"]); dbias (fp32 out): 1e-4.
+    # (TOL["bf16"]); dbias (fp32 out): 1e-4. bf16 inputs with fp32
+    # gradients: 5e-4, at head dims whose softmax scale is not a power of
+    # two, where Sᵀ takes bf16(q·scale) and dK the raw Q (a dK from the
+    # scaled Q sits at ~1.7e-3; the two sides otherwise differ only by bf16
+    # rounding flips of P and dS, ~1e-4).
     tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+    runs = [(name, sq, sk, d, kw, dtype, torch.bfloat16 if dtype == torch.bfloat16 else None,
+             tol[dtype]) for name, sq, sk, d, kw in cases for dtype in (torch.float32, torch.bfloat16)]
+    runs += [("fp32_grads_d128_causal", 1024, 1024, 128, dict(causal=True), torch.bfloat16, None, 5e-4),
+             ("fp32_grads_d80_odd_777x1000_window_dlse", 777, 1000, 80,
+              dict(window=(128, 0), dlse=True), torch.bfloat16, None, 5e-4)]
     worst = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0, "flash_dbias": 0.0}
     results = []
-    for name, sq, sk, d, kw in cases:
-        for dtype in (torch.float32, torch.bfloat16):
-            args = inputs(B_CHECK, sq, sk, d, dtype, **kw)
-            mask_kw = dict(causal=kw.get("causal", False), window=kw.get("window"))
-            gdt = torch.bfloat16 if dtype == torch.bfloat16 else None
-            got = fb.flash_attention_backward(*args, grad_dtype=gdt, **mask_kw)
+    for name, sq, sk, d, kw, dtype, gdt, gate in runs:
+        args = inputs(B_CHECK, sq, sk, d, dtype, **kw)
+        mask_kw = dict(causal=kw.get("causal", False), window=kw.get("window"))
+        got = fb.flash_attention_backward(*args, grad_dtype=gdt, **mask_kw)
+        torch.cuda.synchronize()
+        want = fb.flash_attention_backward_plain(*args, grad_dtype=gdt, **mask_kw)
+        empty = args[4] <= -1e29
+        res = {"case": f"flash_bwd/{str(dtype)[6:]}/{name}", "tol": gate,
+               "empty_rows": int(empty.sum()),
+               "empty_rows_exact": bool((got[0][empty] == 0).all() and (want[0][empty] == 0).all())}
+        for kernel, grad, g, w in zip(("flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dkv"),
+                                      ("dq", "dk", "dv"), got, want):
+            res[f"relerr_{grad}"] = rel_err(g, w)
+            res[f"max_abs_{grad}"] = float((g.float() - w.float()).abs().max())
+            res[f"finite_{grad}"] = torch_isfinite(g.float())
+            worst[kernel] = max(worst[kernel], res[f"max_abs_{grad}"])
+        res["ok"] = (res["empty_rows_exact"]
+                     and all(res[f"relerr_{g}"] <= gate and res[f"finite_{g}"]
+                             for g in ("dq", "dk", "dv")))
+        results.append(res)
+        emit({"phase": "kernel_check", **res})
+        bias = args[6]
+        if bias is not None:
+            q, k, v, out, lse, do = args[:6]
+            got = fb.flash_attention_bias_grad(q, k, v, out, lse, do, bias, **mask_kw)
             torch.cuda.synchronize()
-            want = fb.flash_attention_backward_plain(*args, grad_dtype=gdt, **mask_kw)
-            empty = args[4] <= -1e29
-            res = {"case": f"flash_bwd/{str(dtype)[6:]}/{name}", "tol": tol[dtype],
-                   "empty_rows": int(empty.sum()),
-                   "empty_rows_exact": bool((got[0][empty] == 0).all() and (want[0][empty] == 0).all())}
-            for kernel, grad, g, w in zip(("flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dkv"),
-                                          ("dq", "dk", "dv"), got, want):
-                res[f"relerr_{grad}"] = rel_err(g, w)
-                res[f"max_abs_{grad}"] = float((g.float() - w.float()).abs().max())
-                res[f"finite_{grad}"] = torch_isfinite(g.float())
-                worst[kernel] = max(worst[kernel], res[f"max_abs_{grad}"])
-            res["ok"] = (res["empty_rows_exact"]
-                         and all(res[f"relerr_{g}"] <= tol[dtype] and res[f"finite_{g}"]
-                                 for g in ("dq", "dk", "dv")))
+            want = fb.flash_attention_bias_grad_plain(q, k, v, out, lse, do, bias, **mask_kw)
+            res = {"case": f"flash_dbias/{str(dtype)[6:]}/{name}", "tol": 1e-4,
+                   "relerr": rel_err(got, want),
+                   "max_abs": float((got - want).abs().max()),
+                   "shape_ok": tuple(got.shape) == tuple(bias.shape),
+                   "finite": torch_isfinite(got)}
+            res["ok"] = res["relerr"] <= 1e-4 and res["shape_ok"] and res["finite"]
+            worst["flash_dbias"] = max(worst["flash_dbias"], res["max_abs"])
             results.append(res)
             emit({"phase": "kernel_check", **res})
-            bias = args[6]
-            if bias is not None:
-                q, k, v, out, lse, do = args[:6]
-                got = fb.flash_attention_bias_grad(q, k, v, out, lse, do, bias, **mask_kw)
-                torch.cuda.synchronize()
-                want = fb.flash_attention_bias_grad_plain(q, k, v, out, lse, do, bias, **mask_kw)
-                res = {"case": f"flash_dbias/{str(dtype)[6:]}/{name}", "tol": 1e-4,
-                       "relerr": rel_err(got, want),
-                       "max_abs": float((got - want).abs().max()),
-                       "shape_ok": tuple(got.shape) == tuple(bias.shape),
-                       "finite": torch_isfinite(got)}
-                res["ok"] = res["relerr"] <= 1e-4 and res["shape_ok"] and res["finite"]
-                worst["flash_dbias"] = max(worst["flash_dbias"], res["max_abs"])
-                results.append(res)
-                emit({"phase": "kernel_check", **res})
-            del args, got, want
+        del args, got, want
     record["bwd_kernel_checks"] = results
     bad = [r["case"] for r in results if not r["ok"]]
     if bad:
@@ -1260,6 +1271,8 @@ def phase_quant_kernels(record):
         ("int8_d32_causal", 1024, 1024, 32, "int8", dict(causal=True)),
         ("int4_d128_causal", 1024, 1024, 128, "int4", dict(causal=True)),
         ("qdense_causal_1024", 1024, 1024, 64, "qdense", dict(causal=True)),
+        ("int8_d256_causal", 1024, 1024, 256, "int8", dict(causal=True)),
+        ("int4_d256_window_128_0", 777, 777, 256, "int4", dict(window=(128, 0))),
     ]
     bwd_tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
     for name, sq, sk, d, recipe, kw in cases:
@@ -1269,28 +1282,34 @@ def phase_quant_kernels(record):
             fkw = dict(recipe_kwargs(recipe), causal=kw.get("causal", False), window=kw.get("window"))
             if kw.get("bias"):
                 fkw["bias"] = randn((1, 1, sq, sk))
-            got = fused_quantize_attend(q, k, v, **fkw)
-            torch.cuda.synchronize()
-            want = fused_quantize_attend_plain(q, k, v, **fkw)
-            lse, w_lse = got[1], want[1]
-            vis = w_lse > -1e29
-            res = {"case": f"fused_qattn/{recipe}/{str(dtype)[6:]}/{name}",
-                   "relerr_out": rel_err(got[0], want[0]),
-                   "max_abs_out": float((got[0].float() - want[0].float()).abs().max()),
-                   "max_abs_lse": float((lse[vis] - w_lse[vis]).abs().max()) if vis.any() else 0.0,
-                   "empty_rows": int((~vis).sum()),
-                   "empty_rows_exact": bool((got[0][~vis] == 0).all() and (lse[~vis] == -1e30).all()),
-                   "codes_close": all(codes_close(a, b) for a, b in zip(got[2:5], want[2:5])
-                                      if a is not None),
-                   "relerr_means": max([rel_err(a, b) for a, b in zip(got[5:], want[5:])
-                                        if a is not None] + [0.0]),
-                   "finite": torch_isfinite(got[0].float()) and torch_isfinite(lse)}
-            res["ok"] = (res["relerr_out"] <= 1e-3 and res["max_abs_lse"] <= 1e-4
-                         and res["empty_rows_exact"] and res["codes_close"]
-                         and res["relerr_means"] <= 1e-6 and res["finite"])
-            worst["fused_qattn"] = max(worst["fused_qattn"], res["max_abs_out"])
-            results.append(res)
-            emit({"phase": "kernel_check", **res})
+            if d > 128:
+                # fused_qattn takes head_dim <= 128: the backward kernels'
+                # residuals come from its plain version.
+                got = want = fused_quantize_attend_plain(q, k, v, **fkw)
+            else:
+                got = fused_quantize_attend(q, k, v, **fkw)
+                torch.cuda.synchronize()
+                want = fused_quantize_attend_plain(q, k, v, **fkw)
+                lse, w_lse = got[1], want[1]
+                vis = w_lse > -1e29
+                res = {"case": f"fused_qattn/{recipe}/{str(dtype)[6:]}/{name}",
+                       "relerr_out": rel_err(got[0], want[0]),
+                       "max_abs_out": float((got[0].float() - want[0].float()).abs().max()),
+                       "max_abs_lse": float((lse[vis] - w_lse[vis]).abs().max()) if vis.any() else 0.0,
+                       "empty_rows": int((~vis).sum()),
+                       "empty_rows_exact": bool((got[0][~vis] == 0).all()
+                                                and (lse[~vis] == -1e30).all()),
+                       "codes_close": all(codes_close(a, b) for a, b in zip(got[2:5], want[2:5])
+                                          if a is not None),
+                       "relerr_means": max([rel_err(a, b) for a, b in zip(got[5:], want[5:])
+                                            if a is not None] + [0.0]),
+                       "finite": torch_isfinite(got[0].float()) and torch_isfinite(lse)}
+                res["ok"] = (res["relerr_out"] <= 1e-3 and res["max_abs_lse"] <= 1e-4
+                             and res["empty_rows_exact"] and res["codes_close"]
+                             and res["relerr_means"] <= 1e-6 and res["finite"])
+                worst["fused_qattn"] = max(worst["fused_qattn"], res["max_abs_out"])
+                results.append(res)
+                emit({"phase": "kernel_check", **res})
             if recipe == "qdense":
                 continue
             # The STE backward on the kernel's residuals, with 64 rows of
@@ -2052,8 +2071,9 @@ def phase_mma_probe(record):
     return {"mma_probe": t}, {"mma_probe": worst}, counts
 
 
-# The tensor-core kernels: library -> the stem of their function names.
-TC_KERNELS = {"flash_fwd": "flash_fwd_tc_kernel", "quant_bwd": "dkv_tc_kernel"}
+# The tensor-core kernels: library -> the stems of their function names.
+TC_KERNELS = {"flash_fwd": ("flash_fwd_tc_kernel",), "flash_bwd": ("dkv_tc_kernel",),
+              "quant_bwd": ("dq_tc_kernel", "dkv_tc_kernel")}
 
 
 def ptxas_resources(log):
@@ -2089,7 +2109,7 @@ def phase_sass(record, report):
     from umfa_tpu_torch import _kernels
 
     kernels, smem = {}, {}
-    for lib, stem in TC_KERNELS.items():
+    for lib, stems in TC_KERNELS.items():
         sass = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass",
                                str(_kernels._lib_path(lib))],
                               capture_output=True, text=True, check=True, timeout=300).stdout
@@ -2097,26 +2117,30 @@ def phase_sass(record, report):
         for ln in sass.splitlines():
             m = re.search(r"Function : (\S+)", ln)
             if m:
-                fn = m.group(1) if stem in m.group(1) else None
+                stem = next((st for st in stems if st in m.group(1)), None)
+                fn = f"{lib}:{m.group(1)}" if stem else None
                 if fn:
-                    kernels[fn] = {"library": lib, "hmma": 0}
+                    kernels[fn] = {"library": lib, "stem": stem, "hmma": 0}
             elif fn and "HMMA" in ln:
                 kernels[fn]["hmma"] += 1
-        found = [f for f in kernels if kernels[f]["library"] == lib]
-        if not found or any(kernels[f]["hmma"] == 0 for f in found):
-            raise AssertionError(f"no HMMA in the SASS of {lib}'s {stem}: "
-                                 f"{ {f: kernels[f]['hmma'] for f in found} }")
+        for stem in stems:
+            found = [f for f in kernels if kernels[f]["library"] == lib and kernels[f]["stem"] == stem]
+            if not found or any(kernels[f]["hmma"] == 0 for f in found):
+                raise AssertionError(f"no HMMA in the SASS of {lib}'s {stem}: "
+                                     f"{ {f: kernels[f]['hmma'] for f in found} }")
         if lib in report:
             for f, r in ptxas_resources(report[lib]["ptxas"]).items():
-                if f in kernels:
-                    kernels[f].update(r)
+                if f"{lib}:{f}" in kernels:
+                    kernels[f"{lib}:{f}"].update(r)
     fwd = _kernels.function("flash_fwd", "umfa_flash_fwd_smem_bytes", (ctypes.c_int, ctypes.c_int))
-    dkv = _kernels.function("quant_bwd", "umfa_quant_bwd_dkv_smem_bytes", (ctypes.c_int,))
+    fdkv = _kernels.function("flash_bwd", "umfa_flash_bwd_dkv_smem_bytes", (ctypes.c_int,))
+    qbwd = _kernels.function("quant_bwd", "umfa_quant_bwd_smem_bytes", (ctypes.c_int, ctypes.c_int))
     for d in (64, 128, 256):
         smem[f"flash_fwd bf16 D{d}"] = fwd(d, 1)
         smem[f"flash_fwd fp32 D{d}"] = fwd(d, 0)
-    for d in (64, 128):
-        smem[f"quant_bwd_dkv D{d}"] = dkv(d)
+        smem[f"flash_bwd_dkv bf16 D{d}"] = fdkv(d)
+        smem[f"quant_bwd_dq D{d}"] = qbwd(d, 0)
+        smem[f"quant_bwd_dkv D{d}"] = qbwd(d, 1)
     out = {"kernels": kernels, "dynamic_smem_bytes": smem}
     emit({"phase": "sass", **out})
     record["sass"] = out
@@ -2126,7 +2150,17 @@ DESIGN = {
     "flash_fwd": "bf16 inputs: tensor cores, mma.sync m16n8k16 bf16->fp32 (4 warps x 16 query "
                  "rows, Q fragments in registers, K/V 64-key tiles double-buffered by cp.async, "
                  "P from the S accumulators); fp32/fp16 inputs: CUDA cores, FP32 FMAs",
-    "quant_bwd_dkv": "tensor cores, mma.sync m16n8k16 bf16->fp32 (4 warps x 16 keys, K/V "
+    "flash_bwd_dkv": "bf16 inputs: tensor cores, mma.sync m16n8k16 bf16->fp32, the dK/dV body "
+                     "of quant_bwd_dkv (csrc/bwd_tc.cuh) with a bf16 load stage (4 warps x 16 "
+                     "keys, K/V staged once, Q and dO 32-row tiles double-buffered by cp.async, "
+                     "bf16(q·scale) for Sᵀ and the raw Q for dK); fp32/fp16 inputs: CUDA cores, "
+                     "FP32 FMAs",
+    "quant_bwd_dq": "tensor cores, mma.sync m16n8k16 bf16->fp32 (csrc/bwd_tc.cuh dq_tc_kernel: "
+                    "4 warps x 16 query rows, Q and dO dequantized once, raw int8/int4 K/V key "
+                    "tiles double-buffered by cp.async and dequantized to bf16 in shared memory, "
+                    "dS fed from the accumulators)",
+    "quant_bwd_dkv": "tensor cores, mma.sync m16n8k16 bf16->fp32 (csrc/bwd_tc.cuh dkv_tc_kernel: "
+                     "4 warps x 16 keys, 8 warps at D 256 each owning half the columns, K/V "
                      "dequantized once, raw int8/int4 Q and dO tiles double-buffered by cp.async "
                      "and dequantized to bf16 in shared memory, Pᵀ and dSᵀ fed from the "
                      "accumulators)",

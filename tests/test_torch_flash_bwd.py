@@ -32,7 +32,7 @@ from umfa_tpu_torch.ops.flash_bwd import (
     flash_attention_backward_plain,
     flash_attention_bias_grad,
 )
-from umfa_tpu_torch.utils.testing import TOL
+from umfa_tpu_torch.utils.testing import TOL, rel_err
 
 B, HQ, HKV, D = 2, 4, 2, 64
 FP32 = dict(atol=1e-4, rtol=1e-4)
@@ -58,11 +58,13 @@ def _t(a, dtype):
     return torch.from_numpy(np.asarray(a, np.float32).copy()).to(dtype)
 
 
-def _direct(sq, sk, dtype="fp32", bias_kind=None, dlse=False, heads=(HQ, HKV), **kw):
-    """JAX's and the port's backward on the same (q, k, v, out, lse, dO)."""
+def _direct(sq, sk, dtype="fp32", bias_kind=None, dlse=False, heads=(HQ, HKV), d=D,
+            fp32_grads=False, **kw):
+    """JAX's and the port's backward on the same (q, k, v, out, lse, dO);
+    bf16 inputs emit bf16 gradients unless fp32_grads."""
     hq, hkv = heads
-    q, k, v = _normal(0, B, hq, sq, D), _normal(1, B, hkv, sk, D), _normal(2, B, hkv, sk, D)
-    do, g_lse = _normal(3, B, hq, sq, D), _normal(4, B, hq, sq)
+    q, k, v = _normal(0, B, hq, sq, d), _normal(1, B, hkv, sk, d), _normal(2, B, hkv, sk, d)
+    do, g_lse = _normal(3, B, hq, sq, d), _normal(4, B, hq, sq)
     bias = _bias(bias_kind, sq, sk)
     jdt, tdt = JDT[dtype], TDT[dtype]
     jq, jk, jv = (jnp.asarray(x, jdt) for x in (q, k, v))
@@ -70,14 +72,14 @@ def _direct(sq, sk, dtype="fp32", bias_kind=None, dlse=False, heads=(HQ, HKV), *
     j_out, j_lse = jax_flash_forward(jq, jk, jv, jb, interpret=True, **kw)
     jdo = jnp.asarray(do, j_out.dtype)
     jdlse = jnp.asarray(g_lse) if dlse else None
-    gdt = jnp.bfloat16 if dtype == "bf16" else None
+    bf16_grads = dtype == "bf16" and not fp32_grads
     want = jax_flash_backward(jq, jk, jv, j_out, j_lse, jdo, jb, jdlse, interpret=True,
-                              grad_dtype=gdt, **kw)
+                              grad_dtype=jnp.bfloat16 if bf16_grads else None, **kw)
     got = flash_attention_backward(
         *(_t(x, tdt) for x in (jq, jk, jv, j_out)), _t(j_lse, torch.float32),
         _t(jdo, tdt), None if bias is None else torch.from_numpy(bias),
         torch.from_numpy(g_lse) if dlse else None,
-        grad_dtype=torch.bfloat16 if dtype == "bf16" else None, **kw)
+        grad_dtype=torch.bfloat16 if bf16_grads else None, **kw)
     return [np.asarray(w, np.float32) for w in want], got, j_lse
 
 
@@ -118,6 +120,22 @@ def test_flash_backward_bf16_fp16_match_jax(dtype):
         # bf16 inputs emit bf16 gradients; fp16 ones fp32 (storage-only).
         assert g.dtype == (torch.bfloat16 if dtype == "bf16" else torch.float32)
         np.testing.assert_allclose(g.float().numpy(), w, err_msg=n, **tol)
+
+
+# bf16 inputs with fp32 gradients at head dims whose softmax scale is not a
+# power of two: Sᵀ takes bf16(q·scale) and dK the raw Q with scale on its
+# sum (flash_bwd.py:52, :451-456). Relerr 5e-4: both sides round P and dS
+# to bf16 at the same points and differ only where an fp32 summation order
+# moves an element across a rounding boundary (~7e-5 here); dK from the
+# rounded scaled Q would sit at ~1.7e-3.
+@pytest.mark.parametrize("d", [80, 128])
+@pytest.mark.parametrize("kw", [dict(causal=True, dlse=True), dict(window=(40, 8), bias_kind="b1qk")],
+                         ids=["causal", "window_bias"])
+def test_flash_backward_bf16_inputs_fp32_grads_match_jax(d, kw):
+    want, got, _ = _direct(100, 130, dtype="bf16", d=d, fp32_grads=True, **kw)
+    for w, g, n in zip(want, got, ("dq", "dk", "dv")):
+        assert g.dtype == torch.float32, n
+        assert rel_err(g, w) <= 5e-4, n
 
 
 def test_flash_backward_plain_is_the_cpu_path():

@@ -253,6 +253,35 @@ def test_flash_attention_autograd_on_the_card_matches_the_cpu(dev):
         assert rel_err(a, b) <= 1e-4, name
 
 
+# bf16 inputs with fp32 gradients: dK/dV runs on the tensor cores
+# (dkv_tc_kernel with the dense load stage), dQ on the CUDA cores. Gate
+# 5e-4: both sides round Q·scale, P and dS to bf16 at the same points and
+# differ where an fp32 summation order moves an element across a rounding
+# boundary; at D 80 and 128 (scale not a power of two) a dK taken from the
+# rounded scaled Q instead of the raw Q sits at ~1.7e-3, which the bf16-out
+# gate of 2e-2 cannot see.
+@pytest.mark.parametrize("case", [
+    (2, 4, 2, 200, 200, 80, True, None, None, True),
+    (1, 4, 2, 130, 257, 128, True, None, None, False),       # Sq != Sk, KV tail
+    (2, 2, 1, 96, 160, 80, False, (20, 10), "b11k", True),  # window, bias, GQA 2
+    (1, 4, 4, 100, 60, 128, False, (0, -1), None, False),    # rows >= 60 fully masked
+])
+def test_flash_bwd_dkv_tc_bf16_in_fp32_out(dev, case):
+    args, kw = _bwd_inputs(case, torch.bfloat16, dev)
+    n_dkv = _kernels.launches["flash_bwd_dkv"]
+    got = flash_attention_backward(*args, **kw)
+    torch.cuda.synchronize()
+    assert _kernels.launches["flash_bwd_dkv"] == n_dkv + 1
+    want = flash_attention_backward_plain(*args, **kw)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert g.dtype == w.dtype == torch.float32, name
+        assert torch.isfinite(g).all(), name
+        assert rel_err(g, w) <= 5e-4, name
+    empty = args[4] <= -1e29
+    if empty.any():
+        assert (got[0][empty] == 0).all()
+
+
 def test_flash_bwd_kernels_refuse_what_they_do_not_take(dev):
     args, kw = _bwd_inputs((1, 2, 2, 64, 64, 192, False, None, None, False), torch.float32, dev)
     with pytest.raises(ValueError):
@@ -427,17 +456,19 @@ def test_quant_bwd_kernels_match_plain(dev, dtype, case):
         assert (got[0][empty] == 0).all()
 
 
-# The tensor-core dK/dV kernel at D 32/64/128 under both recipes (int4: Q
-# and K codes packed, the Q mean qm and its score row corr; int8: the V mean
-# vm), with 64 rows of LSE -1e30 (gradients exactly 0), a nonzero dlse and
-# fp32 or bf16 dO. Sq 257 and 130 leave tiles ragged; Sq 257 (not a
-# multiple of 4) takes the kernel's plain loads instead of cp.async.
+# The tensor-core dQ and dK/dV kernels at D 32/64/128/256 under both
+# recipes (int4: Q and K codes packed, the Q mean qm and its score row corr;
+# int8: the V mean vm), with 64 rows of LSE -1e30 (gradients exactly 0), a
+# nonzero dlse and fp32 or bf16 dO. Sq 257 and 130 leave tiles ragged; Sq
+# 257 (not a multiple of 4) takes the dK/dV kernel's plain loads instead of
+# cp.async, Sk 257 the dQ kernel's. D 256 runs the dK/dV body with two warps
+# per key group (each owning half of dK's and dV's columns).
 # Gates: bf16 2e-2 (BWD_TOLS); fp32 dV 1e-4 and dQ, dK 3e-4. bf16(dS) is
 # rounded from dS = P∘(dP − δ), whose cancellation turns the last-bit
 # differences of two fp32 summation orders into elements rounded the other
-# way, relerr of the order of 1e-4: on one of these cases the CUDA-core dQ
-# kernel, whose arithmetic this PR leaves alone, misses 1e-4 against the
-# plain version, as does the tensor-core dK on another.
+# way, relerr of the order of 1e-4 (on one of these cases the CUDA-core dQ
+# kernel this one replaced missed 1e-4 against the plain version, as does
+# the tensor-core dK on another).
 QBWD_DKV_FP32 = {"dq": 3e-4, "dk": 3e-4, "dv": 1e-4}
 QBWD_DKV_CASES = [  # (sq, sk, d, recipe, kwargs)
     (200, 200, 32, "int8", dict(causal=True)),
@@ -446,6 +477,8 @@ QBWD_DKV_CASES = [  # (sq, sk, d, recipe, kwargs)
     (257, 130, 64, "int8", dict(window=(40, 8))),
     (256, 256, 128, "int4", dict(window=(128, 0))),
     (96, 320, 32, "int4", {}),
+    (200, 200, 256, "int8", dict(causal=True)),
+    (130, 257, 256, "int4", dict(window=(40, 8))),
 ]
 
 
@@ -470,6 +503,13 @@ def test_quant_bwd_dkv_kernel_masked_rows_and_means(dev, dtype, case):
         tol = QBWD_DKV_FP32[name] if dtype == torch.float32 else BWD_TOLS[dtype]
         assert rel_err(g_, w) <= tol, name
     assert (got[0][:, :, :64] == 0).all()
+
+
+def test_quant_bwd_kernels_refuse_head_dim_over_256(dev):
+    args, mask = _qbwd_inputs((1, 2, 1, 64, 64, 320, "int8", dict(causal=True)),
+                              torch.float32, dev)
+    with pytest.raises(ValueError, match="head_dim <= 256"):
+        quantized_attention_backward(*args, **mask)
 
 
 def test_quantized_training_on_the_card_matches_the_cpu(dev):

@@ -59,6 +59,8 @@ CASES = [
     ("int4_causal_dlse", (2, 4, 2, 256, 64), True, dict(causal=True), False, True),
     ("int8_window_bias_dlse", (1, 4, 4, 160, 32), False, dict(window=(40, 8)), True, True),
     ("int4_bias_gqa", (1, 4, 2, 128, 64), True, {}, True, False),
+    ("int8_d128_causal_dlse", (1, 4, 2, 128, 128), False, dict(causal=True), False, True),
+    ("int4_d256_window_bias", (1, 2, 1, 128, 256), True, dict(window=(40, 8)), True, False),
 ]
 
 

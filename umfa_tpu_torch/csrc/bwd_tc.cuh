@@ -1,0 +1,539 @@
+// Tensor-core bodies of the attention backward for Hopper, sm_90a: dK/dV
+// (`dkv_tc_kernel`) and dQ (`dq_tc_kernel`), mma.sync m16n8k16 bf16 -> fp32.
+//
+// Each body takes its load stage as a template parameter. The stage brings
+// a tile's raw operands into a staging buffer (cp.async, two steps ahead)
+// and turns them into the bf16 tiles the products read (one step ahead), so
+// one barrier a step orders everything. `csrc/quant_bwd.cu` gives both
+// bodies stages that dequantize int8/int4 codes; `csrc/flash_bwd.cu` gives
+// dK/dV a stage that reads bf16 Q and dO. The arithmetic the bodies hold to
+// (the reference's rounding points) is in each including file's header.
+//
+// Both keep one owner per output tile, no atomics, and a deterministic
+// result: the dK/dV block sums its GQA group in registers, the dQ block
+// walks its key tiles in order.
+#pragma once
+
+#include <initializer_list>
+
+#include "common.cuh"
+#include "mma.cuh"
+
+namespace umfa {
+
+// The arguments of the backward kernels (dense and quantized). Dense
+// kernels read q, k, v and dout in the input type and leave the
+// quantized-only fields null or 0.
+struct BwdParams {
+  const void* q;  // dense: (B, Hq, Sq, D); quantized: int8 codes (D, or D/2 packed INT4)
+  const void* k;  // (B, Hkv, Sk, D | D/2)
+  const void* v;
+  const float* qs;  // quantized: scales (B, H, S | 1), Q's with the softmax scale folded in
+  const float* ks;
+  const float* vs;
+  const void* dout;
+  const float* lse;
+  const float* delta;
+  const float* qm;    // quantized: (B, Hq, D) or null
+  const float* vm;    // quantized: (B, Hkv, D) or null
+  const float* corr;  // quantized: (B, Hq, Sk), times scale, or null
+  const float* bias;
+  void* out0;  // dQ, or dK
+  void* out1;  // unused, or dV
+  int B, Hq, Hkv, Sq, Sk, D;
+  int qs_rows, ks_rows, vs_rows;
+  long long bsb, bsh, bsq, bsk;
+  float scale;
+  int left, right;
+  int int4;  // bit 0: Q, bit 1: K, bit 2: V
+  int wide;  // set by the launcher: rows of q, k, v, dout (and vm) may be read from
+             // global memory by vector loads (D and the pointers' alignment allow it)
+};
+
+// Whether every pointer is a multiple of `bytes` (null counts as aligned):
+// the launchers' test for cp.async and vector loads.
+inline bool aligned(std::initializer_list<const void*> ptrs, uintptr_t bytes) {
+  uintptr_t bits = 0;
+  for (const void* q : ptrs) bits |= reinterpret_cast<uintptr_t>(q);
+  return bits % bytes == 0;
+}
+
+// n bytes from global src to shared dst: by 16-byte cp.async (the last
+// piece zero-filled past n; both addresses 16-aligned) when vec, else by
+// plain byte copies.
+__device__ __forceinline__ void copy_bytes(unsigned char* dst, const unsigned char* src, int n,
+                                           bool vec) {
+  if (vec) {
+    for (int off = threadIdx.x * 16; off < n; off += blockDim.x * 16)
+      cp_async16(dst + off, src + off, min(16, n - off));
+  } else {
+    for (int off = threadIdx.x; off < n; off += blockDim.x) dst[off] = src[off];
+  }
+}
+
+// Four consecutive values as fp32 (16-byte aligned fp32, 8-byte aligned bf16).
+__device__ __forceinline__ void load4(const float* p, float (&x)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  x[0] = v.x;
+  x[1] = v.y;
+  x[2] = v.z;
+  x[3] = v.w;
+}
+
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&x)[4]) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  x[0] = __uint_as_float(v.x << 16);
+  x[1] = __uint_as_float(v.x & 0xffff0000u);
+  x[2] = __uint_as_float(v.y << 16);
+  x[3] = __uint_as_float(v.y & 0xffff0000u);
+}
+
+// Four values as bf16 pairs at dst (8-byte aligned), each rounded once.
+__device__ __forceinline__ void store4_bf16(__nv_bfloat16* dst, const float (&x)[4]) {
+  uint2 w;
+  w.x = pack_bf16x2(x[0], x[1]);
+  w.y = pack_bf16x2(x[2], x[3]);
+  *reinterpret_cast<uint2*>(dst) = w;
+}
+
+// ---- dK/dV ---------------------------------------------------------------
+//
+// One block of 4 · SPLIT warps per (64-key tile, kv head, batch). Warp w
+// owns keys 16(w % 4)..+15 of the tile and columns [(w / 4)·DW, +DW) of
+// their dK and dV (DW = DP / SPLIT), in fp32 mma accumulators for the whole
+// walk over the GQA group's query heads and their visible query tiles (QT
+// rows each). Per query tile, with keys as the rows of every product:
+//   Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ   (A: K, V; B: Q, dO via ldmatrix)
+//   Pᵀ, dSᵀ on the fragments; colsum(dS) in fp32 registers
+//   dV += bf16(Pᵀ)·dO, dK += bf16(dSᵀ)·Q   (A straight from the Pᵀ and dSᵀ
+//   accumulators, B via ldmatrix.trans)
+// At D 256 one warp's dK and dV (16 keys × 256 columns, two fp32 tiles)
+// would take 256 registers a thread, over the limit of 255: SPLIT = 2 puts
+// two warps on each key group, each recomputing Sᵀ and dPᵀ and owning half
+// the columns.
+//
+// Tiles and occupancy as measured best at the training shape (B8 Hq16 Hkv8
+// S4096 D64; 32-query tiles with the K/V fragments from shared memory and
+// three blocks an SM beat 64-query tiles, fragments held in registers, and
+// two or four blocks an SM).
+template <int DP>
+struct DkvTile {
+  static constexpr int QT = 32;                  // query rows per tile
+  static constexpr int LD = DP + 8;              // bf16 row stride in shared memory
+  static constexpr int SPLIT = DP > 128 ? 2 : 1;  // warps on one key group
+  static constexpr int NTHR = 128 * SPLIT;
+  static constexpr int MINB = DP <= 64 ? 3 : DP <= 128 ? 2 : 1;  // blocks an SM holds
+  static constexpr int KV_BYTES = 2 * 64 * LD * 2 + DP * 4;      // K, V (bf16), vm (fp32)
+};
+
+// A converted query tile in shared memory: bf16 tiles (QT x LD) and fp32
+// rows. TWO_Q: Sᵀ and dK take different Q operands (the dense backward's
+// scaled and raw Q); else both read `q`.
+template <int DP, bool TWO_Q>
+struct QTile {
+  static constexpr int QT = DkvTile<DP>::QT, LD = DkvTile<DP>::LD;
+  static constexpr int BYTES = (TWO_Q ? 3 : 2) * QT * LD * 2 + 3 * QT * 4;
+  __nv_bfloat16* q;   // the Q operand of Sᵀ
+  __nv_bfloat16* qk;  // the Q operand of dK
+  __nv_bfloat16* o;   // bf16(dO)
+  float* vt;          // a per-row term added to dP (0 for the dense backward)
+  float* lse;
+  float* delta;
+  __device__ __forceinline__ explicit QTile(unsigned char* base) {
+    q = reinterpret_cast<__nv_bfloat16*>(base);
+    qk = TWO_Q ? q + QT * LD : q;
+    o = q + (TWO_Q ? 2 : 1) * QT * LD;
+    vt = reinterpret_cast<float*>(o + QT * LD);
+    lse = vt + QT;
+    delta = lse + QT;
+  }
+};
+
+// The load stage `Load` of dkv_tc_kernel provides:
+//   Tile, RAW_BYTES            the converted tile type and the staging size;
+//   dk_scale(p)                the factor on dK at the store;
+//   stage_kv(sK, sV, sVm, ..)  K, V of the block's 64 keys (bf16, LD) and vm;
+//   issue(raw, p, qbh, q0, vec)  the copies of a query tile's raw operands;
+//   stage(raw, t, sVm, p, qbh, q0)  raw -> the converted tile t.
+template <class Load, int DP>
+constexpr int dkv_smem_bytes() {
+  return DkvTile<DP>::KV_BYTES + 2 * (Load::Tile::BYTES + Load::RAW_BYTES);
+}
+
+template <class Load, typename Tout, int DP>
+__global__ void __launch_bounds__(DkvTile<DP>::NTHR, DkvTile<DP>::MINB)
+    dkv_tc_kernel(const BwdParams p, const int vec) {
+  using G = DkvTile<DP>;
+  using Tile = typename Load::Tile;
+  constexpr int QT = G::QT, LD = G::LD;
+  constexpr int KS = DP / 16;          // 16-deep steps over d
+  constexpr int NQ = QT / 8;           // 8-query tiles of Sᵀ and dPᵀ
+  constexpr int DW = DP / G::SPLIT;    // columns of dK and dV a warp owns
+  constexpr int NA = DW / 8;           // their 8-column tiles
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* sV = sK + 64 * LD;
+  float* sVm = reinterpret_cast<float*>(sV + 64 * LD);
+  unsigned char* tiles = reinterpret_cast<unsigned char*>(sVm + DP);  // [2][Tile::BYTES]
+  unsigned char* raw = tiles + 2 * Tile::BYTES;                       // [2][RAW_BYTES]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int kr = (G::SPLIT > 1 ? warp & 3 : warp) * 16;  // the warp's first key row in the tile
+  const int c0 = G::SPLIT > 1 ? (warp >> 2) * DW : 0;    // its first column of dK and dV
+  const int k0 = blockIdx.x * 64, hk = blockIdx.y, b = blockIdx.z;
+  const int group = p.Hq / p.Hkv;
+  const long long kbh = (long long)b * p.Hkv + hk;
+  const int key0 = k0 + kr + g, key1 = key0 + 8;  // this thread's two key rows
+
+  int q_lo, q_hi;
+  visible_queries(k0, min(k0 + 64, p.Sk) - 1, p.Sq, p.left, p.right, &q_lo, &q_hi);
+  const int t_lo = q_lo / QT;
+  const int n_t = q_hi >= q_lo ? q_hi / QT - t_lo + 1 : 0;
+  const int total = group * n_t;  // (head, query tile) steps, head-major
+  auto head_of = [&](int i) { return (long long)b * p.Hq + hk * group + i / n_t; };
+  auto q0_of = [&](int i) { return (t_lo + i % n_t) * QT; };
+
+  // Pipeline: step i's raw operands are copied two steps ahead and
+  // converted one step ahead, so one barrier a step orders everything.
+  if (total > 0) Load::issue(raw, p, head_of(0), q0_of(0), vec);
+  cp_async_commit();
+  if (total > 1) Load::issue(raw + Load::RAW_BYTES, p, head_of(1), q0_of(1), vec);
+  cp_async_commit();
+  Load::stage_kv(sK, sV, sVm, p, kbh, k0);
+  cp_async_wait<1>();
+  __syncthreads();
+  if (total > 0) Load::stage(raw, Tile(tiles), sVm, p, head_of(0), q0_of(0));
+
+  float dk[NA][4], dv[NA][4];
+#pragma unroll
+  for (int n = 0; n < NA; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+  float cs[2] = {0.f, 0.f};  // this thread's part of colsum(dS), per key row
+  float corr[2] = {0.f, 0.f};
+
+  for (int i = 0; i < total; ++i) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile i converted, raw i + 1 landed, step i - 1 done
+    if (i + 2 < total)
+      Load::issue(raw + (i & 1) * Load::RAW_BYTES, p, head_of(i + 2), q0_of(i + 2), vec);
+    cp_async_commit();
+    if (i + 1 < total)
+      Load::stage(raw + ((i + 1) & 1) * Load::RAW_BYTES, Tile(tiles + ((i + 1) & 1) * Tile::BYTES),
+                  sVm, p, head_of(i + 1), q0_of(i + 1));
+
+    const long long qbh = head_of(i);
+    const int q0 = q0_of(i);
+    const Tile t(tiles + (i & 1) * Tile::BYTES);
+    if (i % n_t == 0 && p.corr) {
+      const float* cr = p.corr + qbh * p.Sk;
+      corr[0] = key0 < p.Sk ? cr[key0] : 0.f;
+      corr[1] = key1 < p.Sk ? cr[key1] : 0.f;
+    }
+
+    // This warp's keys [kw, kw + 15] against queries [q0, q0 + QT).
+    const int kw = k0 + kr, qe = q0 + QT - 1;
+    const bool none = kw >= p.Sk || q0 >= p.Sq || (p.right >= 0 && kw > qe + p.right) ||
+                      (p.left >= 0 && kw + 15 < q0 - p.left);
+    const bool all = kw + 15 < p.Sk && qe < p.Sq && (p.right < 0 || kw + 15 <= q0 + p.right) &&
+                     (p.left < 0 || kw >= qe - p.left);
+    if (!none) {
+      float s[NQ][4], dp[NQ][4];
+#pragma unroll
+      for (int j = 0; j < NQ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t ak[4], av[4];
+        load_a(ak, sK, LD, kr, ks * 16, lane);
+        load_a(av, sV, LD, kr, ks * 16, lane);
+#pragma unroll
+        for (int jj = 0; jj < QT / 16; ++jj) {
+          uint32_t b0[2], b1[2];
+          load_b_nk(b0, b1, t.q, LD, jj * 16, ks * 16, lane);
+          mma_bf16(s[2 * jj], ak, b0);
+          mma_bf16(s[2 * jj + 1], ak, b1);
+          load_b_nk(b0, b1, t.o, LD, jj * 16, ks * 16, lane);
+          mma_bf16(dp[2 * jj], av, b0);
+          mma_bf16(dp[2 * jj + 1], av, b1);
+        }
+      }
+
+      // Element (j, e): key e < 2 ? key0 : key1, query q0 + 8j + 2tq + (e & 1).
+      const float* bias =
+          p.bias ? p.bias + b * p.bsb + (qbh - (long long)b * p.Hq) * p.bsh : nullptr;
+#pragma unroll
+      for (int j = 0; j < NQ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = e < 2 ? key0 : key1, qi = 8 * j + 2 * tq + (e & 1), row = q0 + qi;
+          float pr = 0.f, ds = 0.f;
+          if (all || key_visible(row, key, p.Sq, p.Sk, p.left, p.right)) {
+            float x = s[j][e];
+            if (p.corr) x = __fadd_rn(x, corr[e >> 1]);
+            if (bias) x = __fadd_rn(x, bias[row * p.bsq + key * p.bsk]);
+            pr = expf(x - t.lse[qi]);
+            ds = __fmul_rn(pr, __fadd_rn(dp[j][e], t.vt[qi]) - t.delta[qi]);
+          }
+          cs[e >> 1] += ds;
+          s[j][e] = pr;
+          dp[j][e] = ds;
+        }
+
+#pragma unroll
+      for (int kk = 0; kk < QT / 16; ++kk) {
+        uint32_t ap[4], as[4];
+        pack_a(ap, s[2 * kk], s[2 * kk + 1]);
+        pack_a(as, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+        for (int dn = 0; dn < DW / 16; ++dn) {
+          uint32_t b0[2], b1[2];
+          load_b_kn(b0, b1, t.o, LD, kk * 16, c0 + dn * 16, lane);
+          mma_bf16(dv[2 * dn], ap, b0);
+          mma_bf16(dv[2 * dn + 1], ap, b1);
+          load_b_kn(b0, b1, t.qk, LD, kk * 16, c0 + dn * 16, lane);
+          mma_bf16(dk[2 * dn], as, b0);
+          mma_bf16(dk[2 * dn + 1], as, b1);
+        }
+      }
+    }
+
+    if (i % n_t == n_t - 1) {
+      // The head's last tile: dK += scale · colsum(dS)ᵀ · qm of this head.
+      if (p.qm) {
+        const float* qm = p.qm + qbh * p.D;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float sc = p.scale * quad_sum(cs[r]);
+#pragma unroll
+          for (int n = 0; n < NA; ++n) {
+            const int col = c0 + 8 * n + 2 * tq;
+            if (col < p.D) dk[n][2 * r] = fmaf(sc, qm[col], dk[n][2 * r]);
+            if (col + 1 < p.D) dk[n][2 * r + 1] = fmaf(sc, qm[col + 1], dk[n][2 * r + 1]);
+          }
+        }
+      }
+      cs[0] = cs[1] = 0.f;
+    }
+  }
+
+  const float dks = Load::dk_scale(p);
+  Tout* dkp = static_cast<Tout*>(p.out0) + kbh * p.Sk * p.D;
+  Tout* dvp = static_cast<Tout*>(p.out1) + kbh * p.Sk * p.D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = r ? key1 : key0;
+    if (key >= p.Sk) continue;
+#pragma unroll
+    for (int n = 0; n < NA; ++n)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = c0 + 8 * n + 2 * tq + c;
+        if (col < p.D) {
+          Elem<Tout>::store(dkp, (long long)key * p.D + col, dks * dk[n][2 * r + c]);
+          Elem<Tout>::store(dvp, (long long)key * p.D + col, dv[n][2 * r + c]);
+        }
+      }
+  }
+}
+
+template <class Load, typename Tout, int DP>
+cudaError_t launch_dkv_tc(const BwdParams& p, int vec, cudaStream_t stream) {
+  constexpr int smem = dkv_smem_bytes<Load, DP>();
+  cudaError_t err = cudaFuncSetAttribute(dkv_tc_kernel<Load, Tout, DP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.Sk + 63) / 64, p.Hkv, p.B);
+  dkv_tc_kernel<Load, Tout, DP><<<grid, DkvTile<DP>::NTHR, smem, stream>>>(p, vec);
+  return cudaGetLastError();
+}
+
+// ---- dQ ------------------------------------------------------------------
+//
+// One block of 4 warps per (64-row query tile, q head, batch), the last
+// query tiles (which see the most keys under a causal mask) first; warp w
+// owns query rows 16w..16w+15 and their dQ in fp32 mma accumulators. Q and
+// dO are staged once as bf16 tiles with the per-row LSE, δ and dP term. Per
+// visible key tile of KT keys:
+//   S = Q·Kᵀ and dP = dO·Vᵀ   (A: Q, dO via ldmatrix; B: K, V stored
+//   [key][d], via ldmatrix)
+//   P, dS on the fragments
+//   dQ += bf16(dS)·K   (A straight from the dS accumulators, B via
+//   ldmatrix.trans)
+// At D > 64 the key tile is 32 keys, so two blocks an SM fit at D 128 and
+// one at D 256 (where dQ alone holds 128 fp32 registers a thread).
+template <int DP>
+struct DqTile {
+  static constexpr int KT = DP <= 64 ? 64 : 32;  // keys a step
+  static constexpr int LD = DP + 8;
+  static constexpr int MINB = DP <= 64 ? 3 : DP <= 128 ? 2 : 1;
+  static constexpr int KV_BYTES = 2 * KT * LD * 2 + KT * 4;  // K, V (bf16), a per-key score term
+};
+
+// The load stage `Load` of dq_tc_kernel provides:
+//   RAW_BYTES                 the staging size of a key tile;
+//   stage_q(sQ, sO, sRow, p, qbh, kbh, q0)  Q and dO of the block's 64
+//       rows (bf16, LD) and per row the dP term, LSE and δ (sRow[0..63],
+//       [64..127], [128..191]);
+//   issue(raw, p, qbh, kbh, k0, vec)   the copies of a key tile's raw operands;
+//   stage(raw, kv, p, kbh, k0)         raw -> K, V and the per-key score term.
+template <class Load, int DP>
+constexpr int dq_smem_bytes() {
+  return 2 * 64 * (DP + 8) * 2 + 3 * 64 * 4 + 2 * (DqTile<DP>::KV_BYTES + Load::RAW_BYTES);
+}
+
+template <class Load, typename Tout, int DP>
+__global__ void __launch_bounds__(NT, DqTile<DP>::MINB) dq_tc_kernel(const BwdParams p,
+                                                                     const int vec) {
+  using G = DqTile<DP>;
+  constexpr int KT = G::KT, LD = G::LD;
+  constexpr int KS = DP / 16;  // 16-deep steps over d
+  constexpr int NS = KT / 8;   // 8-key tiles of S and dP
+  constexpr int NA = DP / 8;   // 8-column tiles of dQ
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* sO = sQ + 64 * LD;
+  float* sRow = reinterpret_cast<float*>(sO + 64 * LD);               // dP term, LSE, δ
+  unsigned char* kvb = reinterpret_cast<unsigned char*>(sRow + 3 * 64);  // [2][KV_BYTES]
+  unsigned char* raw = kvb + 2 * G::KV_BYTES;                            // [2][RAW_BYTES]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * 64, h = blockIdx.y, b = blockIdx.z;
+  const long long qbh = (long long)b * p.Hq + h;
+  const long long kbh = (long long)b * p.Hkv + h / (p.Hq / p.Hkv);
+
+  int k_lo, k_hi;
+  visible_keys(q0, min(q0 + 64, p.Sq) - 1, p.Sk, p.left, p.right, &k_lo, &k_hi);
+  const int t_lo = k_lo / KT;
+  const int n_t = k_hi >= k_lo ? k_hi / KT - t_lo + 1 : 0;
+
+  // Pipeline as in dkv_tc_kernel: key tile i copied two steps ahead,
+  // converted one step ahead, one barrier a step.
+  if (n_t > 0) Load::issue(raw, p, qbh, kbh, t_lo * KT, vec);
+  cp_async_commit();
+  if (n_t > 1) Load::issue(raw + Load::RAW_BYTES, p, qbh, kbh, (t_lo + 1) * KT, vec);
+  cp_async_commit();
+  Load::stage_q(sQ, sO, sRow, p, qbh, kbh, q0);
+  cp_async_wait<1>();
+  __syncthreads();
+  if (n_t > 0) Load::stage(raw, kvb, p, kbh, t_lo * KT);
+
+  const int rw = warp * 16;                       // the warp's first row in the tile
+  const int row0 = q0 + rw + g, row1 = row0 + 8;  // this thread's two rows
+  const float vt[2] = {sRow[rw + g], sRow[rw + g + 8]};
+  const float lse[2] = {sRow[64 + rw + g], sRow[64 + rw + g + 8]};
+  const float dlt[2] = {sRow[128 + rw + g], sRow[128 + rw + g + 8]};
+  const float* bias = p.bias ? p.bias + b * p.bsb + h * p.bsh : nullptr;
+
+  float acc[NA][4];
+#pragma unroll
+  for (int n = 0; n < NA; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int i = 0; i < n_t; ++i) {
+    cp_async_wait<0>();
+    __syncthreads();  // key tile i converted, raw i + 1 landed, step i - 1 done
+    if (i + 2 < n_t)
+      Load::issue(raw + (i & 1) * Load::RAW_BYTES, p, qbh, kbh, (t_lo + i + 2) * KT, vec);
+    cp_async_commit();
+    if (i + 1 < n_t)
+      Load::stage(raw + ((i + 1) & 1) * Load::RAW_BYTES, kvb + ((i + 1) & 1) * G::KV_BYTES, p, kbh,
+                  (t_lo + i + 1) * KT);
+
+    const int k0 = (t_lo + i) * KT;
+    const __nv_bfloat16* cK = reinterpret_cast<const __nv_bfloat16*>(kvb + (i & 1) * G::KV_BYTES);
+    const __nv_bfloat16* cV = cK + KT * LD;
+    const float* cC = reinterpret_cast<const float*>(cV + KT * LD);
+
+    // This warp's rows [r_lo, r_lo + 15] against keys [k0, k0 + KT).
+    const int r_lo = q0 + rw, r_hi = r_lo + 15, ke = k0 + KT - 1;
+    const bool none = r_lo >= p.Sq || k0 >= p.Sk || (p.right >= 0 && k0 > r_hi + p.right) ||
+                      (p.left >= 0 && ke < r_lo - p.left);
+    const bool all = r_hi < p.Sq && ke < p.Sk && (p.right < 0 || ke <= r_lo + p.right) &&
+                     (p.left < 0 || k0 >= r_hi - p.left);
+    if (none) continue;
+
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t aq[4], ao[4];
+      load_a(aq, sQ, LD, rw, ks * 16, lane);
+      load_a(ao, sO, LD, rw, ks * 16, lane);
+#pragma unroll
+      for (int jj = 0; jj < KT / 16; ++jj) {
+        uint32_t b0[2], b1[2];
+        load_b_nk(b0, b1, cK, LD, jj * 16, ks * 16, lane);
+        mma_bf16(s[2 * jj], aq, b0);
+        mma_bf16(s[2 * jj + 1], aq, b1);
+        load_b_nk(b0, b1, cV, LD, jj * 16, ks * 16, lane);
+        mma_bf16(dp[2 * jj], ao, b0);
+        mma_bf16(dp[2 * jj + 1], ao, b1);
+      }
+    }
+
+    // Element (j, e): row e < 2 ? row0 : row1, key k0 + 8j + 2tq + (e & 1).
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1, row = r ? row1 : row0, kj = 8 * j + 2 * tq + (e & 1), key = k0 + kj;
+        float ds = 0.f;
+        if (all || key_visible(row, key, p.Sq, p.Sk, p.left, p.right)) {
+          float x = __fadd_rn(s[j][e], cC[kj]);
+          if (bias) x = __fadd_rn(x, bias[row * p.bsq + key * p.bsk]);
+          const float pr = expf(x - lse[r]);
+          ds = __fmul_rn(pr, __fadd_rn(dp[j][e], vt[r]) - dlt[r]);
+        }
+        dp[j][e] = ds;
+      }
+
+#pragma unroll
+    for (int kk = 0; kk < KT / 16; ++kk) {
+      uint32_t a[4];
+      pack_a(a, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+      for (int dn = 0; dn < DP / 16; ++dn) {
+        uint32_t b0[2], b1[2];
+        load_b_kn(b0, b1, cK, LD, kk * 16, dn * 16, lane);
+        mma_bf16(acc[2 * dn], a, b0);
+        mma_bf16(acc[2 * dn + 1], a, b1);
+      }
+    }
+  }
+
+  Tout* dq = static_cast<Tout*>(p.out0) + qbh * p.Sq * p.D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r ? row1 : row0;
+    if (row >= p.Sq) continue;
+#pragma unroll
+    for (int n = 0; n < NA; ++n)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = 8 * n + 2 * tq + c;
+        if (col < p.D)
+          Elem<Tout>::store(dq, (long long)row * p.D + col, p.scale * acc[n][2 * r + c]);
+      }
+  }
+}
+
+template <class Load, typename Tout, int DP>
+cudaError_t launch_dq_tc(const BwdParams& p, int vec, cudaStream_t stream) {
+  constexpr int smem = dq_smem_bytes<Load, DP>();
+  cudaError_t err = cudaFuncSetAttribute(dq_tc_kernel<Load, Tout, DP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.Sq + 63) / 64, p.Hq, p.B);
+  dq_tc_kernel<Load, Tout, DP><<<grid, NT, smem, stream>>>(p, vec);
+  return cudaGetLastError();
+}
+
+}  // namespace umfa

@@ -1,7 +1,8 @@
 """Dense flash-attention backward (port of umfa_tpu/ops/flash_bwd.py).
 
 `flash_attention_backward` launches the CUDA kernels `csrc/flash_bwd.cu`
-(dQ, then dK/dV) on CUDA tensors and `flash_attention_bias_grad` the kernel
+(dQ, then dK/dV: bf16 inputs on the tensor cores, fp32 on the CUDA cores;
+head_dim <= 128) on CUDA tensors and `flash_attention_bias_grad` the kernel
 `csrc/flash_dbias.cu`; on CPU tensors each runs its `*_plain` twin, the
 same arithmetic in plain PyTorch. There is no fallback between the two: a
 CUDA tensor the kernels do not take raises.

@@ -2,9 +2,9 @@
 `quantized_attention_backward`).
 
 `quantized_attention_backward` launches the CUDA kernels `csrc/quant_bwd.cu`
-(`quant_bwd_dq`, then `quant_bwd_dkv`) on CUDA tensors and runs
-`quantized_attention_backward_plain`, the same arithmetic in plain PyTorch,
-on CPU tensors; no fallback between them.
+(`quant_bwd_dq`, then `quant_bwd_dkv`, both on the tensor cores; head_dim
+<= 256) on CUDA tensors and runs `quantized_attention_backward_plain`, the
+same arithmetic in plain PyTorch, on CPU tensors; no fallback between them.
 
 What the TPU kernels compute (quant_bwd.py:65-98, :205-251, :448-495), the
 gradients of the fake-quantized forward on the int8/int4 residuals:
@@ -248,8 +248,8 @@ def _launch(p: _Prepared, store_dtype: torch.dtype):
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError(f"quant_bwd kernels need every operand on one CUDA device, "
                          f"got {sorted({str(t.device) for t in tensors})}")
-    if d > 128:
-        raise ValueError(f"quant_bwd kernels take head_dim <= 128, got {d}")
+    if d > 256:
+        raise ValueError(f"quant_bwd kernels take head_dim <= 256, got {d}")
     return (_launch_dq(p, store_dtype), *_launch_dkv(p, store_dtype))
 
 
