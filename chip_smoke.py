@@ -7,10 +7,11 @@ Phases, one JSON line each:
   1. device: the card (nvidia-smi name and power limit), torch and CUDA;
   2. build: the ten CUDA kernel libraries compiled from
      `umfa_tpu_torch/csrc/`, one nvcc each, all at once; then the
-     tensor-core kernels (`flash_fwd`'s and `flash_bwd_dkv`'s bf16
-     kernels, `quant_bwd_dq`, `quant_bwd_dkv`): their HMMA instructions
-     counted in the SASS (cuobjdump; none fails the run), their registers
-     and spills (ptxas) and dynamic shared memory at D 64/128/256;
+     tensor-core kernels (the bf16 kernels of `flash_fwd`, `flash_bwd_dq`,
+     `flash_bwd_dkv` and `flash_dbias`; `quant_bwd_dq`, `quant_bwd_dkv`):
+     their HMMA instructions counted in the SASS (cuobjdump; none fails the
+     run), their registers and spills (ptxas) and dynamic shared memory at
+     D 64/128/256;
   3. forward kernels against their plain PyTorch versions on the card at
      the serving head geometry (Hq 16 / Hkv 8, D 64, Sk 4096, batch 2),
      with the stated tolerances, and the bf16 `flash_fwd` also at D 128 and
@@ -23,12 +24,13 @@ Phases, one JSON line each:
   4. backward kernels (dQ, dK/dV, dbias) against their plain versions at
      the training head geometry (batch 2, causal 1024, odd 777 x 1000,
      window (128, 0), full and shared biases, fully masked rows, a nonzero
-     dlse, D 32/64/128, fp32 and bf16; bf16 inputs with fp32 gradients at
-     D 128 and 80, gate 5e-4, where a dK from the scaled Q would show);
-     then each timed at the training
-     shape (batch 8, causal 4096, D 64, bf16) beside its plain version,
-     its bound and the SDPA backward (flash for dQ + dK/dV, memory-efficient
-     with a bias gradient for dbias; yardsticks only);
+     dlse, D 32/64/128, fp32 and bf16; bf16 also at D 256, with a shared
+     bias and a window; bf16 inputs with fp32 gradients at D 128, 80 and
+     256, gate 5e-4, where a dK from the scaled Q would show); then each
+     timed at the training shape (batch 8, causal 4096, D 64, bf16; median,
+     min and max of 10) beside its plain version, its bound and the SDPA
+     backward (flash for dQ + dK/dV, memory-efficient with a bias gradient
+     for dbias; yardsticks only);
   5. serving at full width (vocab 32768, dim 1024, 16/8 heads, D 64, depth
      8, max_seq 4096, bf16, batch 8) for the dense and the INT8 KV cache:
      prefill of 4032 tokens, a 16-token continuation with chunk_start, a
@@ -889,7 +891,13 @@ def phase_bwd_kernels(record):
              tol[dtype]) for name, sq, sk, d, kw in cases for dtype in (torch.float32, torch.bfloat16)]
     runs += [("fp32_grads_d128_causal", 1024, 1024, 128, dict(causal=True), torch.bfloat16, None, 5e-4),
              ("fp32_grads_d80_odd_777x1000_window_dlse", 777, 1000, 80,
-              dict(window=(128, 0), dlse=True), torch.bfloat16, None, 5e-4)]
+              dict(window=(128, 0), dlse=True), torch.bfloat16, None, 5e-4),
+             # D 256: bf16 inputs only (fp32 stops at 128).
+             ("d256_causal_dlse", 1024, 1024, 256, dict(causal=True, dlse=True), torch.bfloat16,
+              torch.bfloat16, tol[torch.bfloat16]),
+             ("d256_bias_11qk_window_128_0", 777, 1000, 256, dict(window=(128, 0), bias_shape="11qk"),
+              torch.bfloat16, torch.bfloat16, tol[torch.bfloat16]),
+             ("fp32_grads_d256_causal", 1024, 1024, 256, dict(causal=True), torch.bfloat16, None, 5e-4)]
     worst = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0, "flash_dbias": 0.0}
     results = []
     for name, sq, sk, d, kw, dtype, gdt, gate in runs:
@@ -999,7 +1007,7 @@ def phase_bwd_kernels(record):
     torch.cuda.empty_cache()
     flops = 2 * D * 2 * pairs
     nbytes = reads + 4 * HQ * visible_pairs(s, s, -1, 0) + 4 * bias.numel()  # visible bias read, dbias written
-    timing["flash_dbias"] = dict(ms=cuda_ms(kern), plain_ms=cuda_ms(plain, iters=3, warmup=1),
+    timing["flash_dbias"] = dict(**cuda_stats(kern), plain_ms=cuda_ms(plain, iters=3, warmup=1),
                                  flops=flops, bytes=nbytes, ops_ms=flops / H100_BF16_FLOPS * 1e3,
                                  bytes_ms=nbytes / H100_HBM_BYTES * 1e3, check=check,
                                  ok=check["dbias"] <= 1e-4)
@@ -2072,8 +2080,8 @@ def phase_mma_probe(record):
 
 
 # The tensor-core kernels: library -> the stems of their function names.
-TC_KERNELS = {"flash_fwd": ("flash_fwd_tc_kernel",), "flash_bwd": ("dkv_tc_kernel",),
-              "quant_bwd": ("dq_tc_kernel", "dkv_tc_kernel")}
+TC_KERNELS = {"flash_fwd": ("flash_fwd_tc_kernel",), "flash_bwd": ("dq_tc_kernel", "dkv_tc_kernel"),
+              "flash_dbias": ("dbias_tc_kernel",), "quant_bwd": ("dq_tc_kernel", "dkv_tc_kernel")}
 
 
 def ptxas_resources(log):
@@ -2133,12 +2141,15 @@ def phase_sass(record, report):
                 if f"{lib}:{f}" in kernels:
                     kernels[f"{lib}:{f}"].update(r)
     fwd = _kernels.function("flash_fwd", "umfa_flash_fwd_smem_bytes", (ctypes.c_int, ctypes.c_int))
-    fdkv = _kernels.function("flash_bwd", "umfa_flash_bwd_dkv_smem_bytes", (ctypes.c_int,))
+    fbwd = _kernels.function("flash_bwd", "umfa_flash_bwd_smem_bytes", (ctypes.c_int, ctypes.c_int))
+    fdb = _kernels.function("flash_dbias", "umfa_flash_dbias_smem_bytes", (ctypes.c_int,))
     qbwd = _kernels.function("quant_bwd", "umfa_quant_bwd_smem_bytes", (ctypes.c_int, ctypes.c_int))
     for d in (64, 128, 256):
         smem[f"flash_fwd bf16 D{d}"] = fwd(d, 1)
         smem[f"flash_fwd fp32 D{d}"] = fwd(d, 0)
-        smem[f"flash_bwd_dkv bf16 D{d}"] = fdkv(d)
+        smem[f"flash_bwd_dq bf16 D{d}"] = fbwd(d, 0)
+        smem[f"flash_bwd_dkv bf16 D{d}"] = fbwd(d, 1)
+        smem[f"flash_dbias bf16 D{d}"] = fdb(d)
         smem[f"quant_bwd_dq D{d}"] = qbwd(d, 0)
         smem[f"quant_bwd_dkv D{d}"] = qbwd(d, 1)
     out = {"kernels": kernels, "dynamic_smem_bytes": smem}
@@ -2150,11 +2161,23 @@ DESIGN = {
     "flash_fwd": "bf16 inputs: tensor cores, mma.sync m16n8k16 bf16->fp32 (4 warps x 16 query "
                  "rows, Q fragments in registers, K/V 64-key tiles double-buffered by cp.async, "
                  "P from the S accumulators); fp32/fp16 inputs: CUDA cores, FP32 FMAs",
+    "flash_bwd_dq": "bf16 inputs: tensor cores, mma.sync m16n8k16 bf16->fp32, the dQ body of "
+                    "quant_bwd_dq (csrc/bwd_tc.cuh dq_tc_kernel) with a bf16 load stage (4 warps x "
+                    "16 query rows, bf16(q·scale) and dO staged once, K/V key tiles copied by "
+                    "cp.async two steps ahead into three padded buffers read in place); "
+                    "fp32/fp16 inputs: CUDA cores, FP32 FMAs",
     "flash_bwd_dkv": "bf16 inputs: tensor cores, mma.sync m16n8k16 bf16->fp32, the dK/dV body "
                      "of quant_bwd_dkv (csrc/bwd_tc.cuh) with a bf16 load stage (4 warps x 16 "
-                     "keys, K/V staged once, Q and dO 32-row tiles double-buffered by cp.async, "
-                     "bf16(q·scale) for Sᵀ and the raw Q for dK); fp32/fp16 inputs: CUDA cores, "
-                     "FP32 FMAs",
+                     "keys, 8 at D 256; K/V staged once, Q and dO 32-row tiles copied by cp.async "
+                     "two steps ahead into three padded buffers, the raw Q read in place for dK, "
+                     "bf16(q·scale) for Sᵀ converted one step ahead); fp32/fp16 inputs: CUDA "
+                     "cores, FP32 FMAs",
+    "flash_dbias": "bf16 inputs: tensor cores, mma.sync m16n8k16 bf16->fp32 (dbias_tc_kernel: 8 "
+                   "warps on a 64-query x 128-key output tile, the dS sum over the bias's "
+                   "broadcast batch and heads in registers, the bias tile in shared memory "
+                   "once, Q/dO/K/V in 32-column chunks double-buffered by cp.async, "
+                   "bf16(q·scale) formed on the A fragments); fp32/fp16 inputs: CUDA cores, "
+                   "FP32 FMAs",
     "quant_bwd_dq": "tensor cores, mma.sync m16n8k16 bf16->fp32 (csrc/bwd_tc.cuh dq_tc_kernel: "
                     "4 warps x 16 query rows, Q and dO dequantized once, raw int8/int4 K/V key "
                     "tiles double-buffered by cp.async and dequantized to bf16 in shared memory, "

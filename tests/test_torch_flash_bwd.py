@@ -59,12 +59,13 @@ def _t(a, dtype):
 
 
 def _direct(sq, sk, dtype="fp32", bias_kind=None, dlse=False, heads=(HQ, HKV), d=D,
-            fp32_grads=False, **kw):
+            fp32_grads=False, batch=B, **kw):
     """JAX's and the port's backward on the same (q, k, v, out, lse, dO);
     bf16 inputs emit bf16 gradients unless fp32_grads."""
     hq, hkv = heads
-    q, k, v = _normal(0, B, hq, sq, d), _normal(1, B, hkv, sk, d), _normal(2, B, hkv, sk, d)
-    do, g_lse = _normal(3, B, hq, sq, d), _normal(4, B, hq, sq)
+    q, k, v = (_normal(0, batch, hq, sq, d), _normal(1, batch, hkv, sk, d),
+               _normal(2, batch, hkv, sk, d))
+    do, g_lse = _normal(3, batch, hq, sq, d), _normal(4, batch, hq, sq)
     bias = _bias(bias_kind, sq, sk)
     jdt, tdt = JDT[dtype], TDT[dtype]
     jq, jk, jv = (jnp.asarray(x, jdt) for x in (q, k, v))
@@ -127,12 +128,22 @@ def test_flash_backward_bf16_fp16_match_jax(dtype):
 # sum (flash_bwd.py:52, :451-456). Relerr 5e-4: both sides round P and dS
 # to bf16 at the same points and differ only where an fp32 summation order
 # moves an element across a rounding boundary (~7e-5 here); dK from the
-# rounded scaled Q would sit at ~1.7e-3.
-@pytest.mark.parametrize("d", [80, 128])
-@pytest.mark.parametrize("kw", [dict(causal=True, dlse=True), dict(window=(40, 8), bias_kind="b1qk")],
-                         ids=["causal", "window_bias"])
-def test_flash_backward_bf16_inputs_fp32_grads_match_jax(d, kw):
-    want, got, _ = _direct(100, 130, dtype="bf16", d=d, fp32_grads=True, **kw)
+# rounded scaled Q would sit at ~1.7e-3. D 256, the widest head the bf16
+# kernels take, at a smaller shape (B1 H2 S128).
+BF16_FP32_GRAD_CASES = [
+    # id, d, sq, sk, kwargs
+    ("causal-80", 80, 100, 130, dict(causal=True, dlse=True)),
+    ("causal-128", 128, 100, 130, dict(causal=True, dlse=True)),
+    ("window_bias-80", 80, 100, 130, dict(window=(40, 8), bias_kind="b1qk")),
+    ("window_bias-128", 128, 100, 130, dict(window=(40, 8), bias_kind="b1qk")),
+    ("causal-256", 256, 128, 128, dict(causal=True, dlse=True, batch=1, heads=(2, 2))),
+]
+
+
+@pytest.mark.parametrize("case", BF16_FP32_GRAD_CASES, ids=[c[0] for c in BF16_FP32_GRAD_CASES])
+def test_flash_backward_bf16_inputs_fp32_grads_match_jax(case):
+    _, d, sq, sk, kw = case
+    want, got, _ = _direct(sq, sk, dtype="bf16", d=d, fp32_grads=True, **kw)
     for w, g, n in zip(want, got, ("dq", "dk", "dv")):
         assert g.dtype == torch.float32, n
         assert rel_err(g, w) <= 5e-4, n
@@ -161,6 +172,28 @@ def test_bias_grad_matches_jax(kind):
                                     torch.from_numpy(bias), causal=True)
     assert got.shape == bias.shape and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, **FP32)
+
+
+# bf16 inputs at D 128 (scale not a power of two): both sides take
+# S = bf16(q·scale)·Kᵀ and dP = dO·Vᵀ as exact bf16 products summed in
+# fp32, and dbias = P∘(dP − δ) in fp32 with no rounding, so only summation
+# orders differ: the fp32 gate, relerr 1e-4.
+@pytest.mark.parametrize("kind", ["11qk", "bhqk"])
+def test_bias_grad_bf16_d128_matches_jax(kind):
+    sq, sk, d = 96, 120, 128
+    q, k, v = _normal(0, B, HQ, sq, d), _normal(1, B, HKV, sk, d), _normal(2, B, HKV, sk, d)
+    bias = _bias(kind, sq, sk)
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    jb = jnp.asarray(bias)
+    j_out, j_lse = jax_flash_forward(jq, jk, jv, jb, causal=True, interpret=True)
+    do = jnp.asarray(_normal(3, B, HQ, sq, d), jnp.bfloat16)
+    want = np.asarray(jax_bias_grad(jq, jk, jv, j_out, j_lse, do, jb, causal=True,
+                                    interpret=True))
+    got = flash_attention_bias_grad(*(_t(x, torch.bfloat16) for x in (jq, jk, jv, j_out)),
+                                    _t(j_lse, torch.float32), _t(do, torch.bfloat16),
+                                    torch.from_numpy(bias), causal=True)
+    assert got.shape == bias.shape and got.dtype == torch.float32
+    assert rel_err(got, want) <= 1e-4
 
 
 AUTOGRAD_CASES = [

@@ -203,11 +203,8 @@ def _bwd_inputs(case, dtype, dev):
     return (q, k, v, out, lse, do, bias, g_lse), dict(causal=causal, window=window)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("case", BWD_CASES)
-def test_flash_bwd_kernels_match_plain(dev, dtype, case):
-    args, kw = _bwd_inputs(case, dtype, dev)
-    gdt = torch.bfloat16 if dtype == torch.bfloat16 else None
+def _check_bwd(args, kw, gdt, tol):
+    """Both backward kernels once each, against the plain version."""
     n_dq, n_dkv = _kernels.launches["flash_bwd_dq"], _kernels.launches["flash_bwd_dkv"]
     got = flash_attention_backward(*args, grad_dtype=gdt, **kw)
     torch.cuda.synchronize()
@@ -217,16 +214,37 @@ def test_flash_bwd_kernels_match_plain(dev, dtype, case):
     for g, w, name in zip(got, want, ("dq", "dk", "dv")):
         assert g.dtype == w.dtype == (gdt or torch.float32), name
         assert torch.isfinite(g.float()).all(), name
-        assert rel_err(g, w) <= BWD_TOLS[dtype], name
+        assert rel_err(g, w) <= tol, name
     empty = args[4] <= -1e29  # rows with no visible key
     if empty.any():
         assert (got[0][empty] == 0).all()
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", [c for c in BWD_CASES if c[8] is not None] + [
-    (2, 4, 2, 150, 150, 64, True, (40, 0), "bhqk", False)])
-def test_flash_dbias_kernel_matches_plain(dev, dtype, case):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_flash_bwd_kernels_match_plain(dev, dtype, case):
+    args, kw = _bwd_inputs(case, dtype, dev)
+    _check_bwd(args, kw, torch.bfloat16 if dtype == torch.bfloat16 else None, BWD_TOLS[dtype])
+
+
+# bf16 inputs at head dims over 128, which only the tensor-core kernels take
+# (their 256 template; D 192 zero-padded to it): bf16 gradients, 2e-2.
+BWD_WIDE_CASES = [
+    (1, 4, 2, 130, 257, 192, True, None, None, True),        # D 192, Sq != Sk, KV tail, dlse
+    (2, 4, 1, 200, 200, 256, True, None, None, False),       # GQA 4
+    (1, 2, 2, 100, 60, 256, False, (0, -1), None, False),    # rows >= 60 fully masked
+    (2, 2, 1, 96, 160, 256, False, (20, 10), "b11k", True),  # window, bias, GQA 2, dlse
+]
+
+
+@pytest.mark.parametrize("case", BWD_WIDE_CASES)
+def test_flash_bwd_kernels_bf16_wide_heads_match_plain(dev, case):
+    args, kw = _bwd_inputs(case, torch.bfloat16, dev)
+    _check_bwd(args, kw, torch.bfloat16, BWD_TOLS[torch.bfloat16])
+
+
+def _check_dbias(case, dtype, dev):
+    """The dbias kernel once, against the plain version: fp32 out, 1e-4."""
     (q, k, v, out, lse, do, bias, _), kw = _bwd_inputs(case, dtype, dev)
     if bias.shape[2] == 1:
         bias = bias.expand(*bias.shape[:2], q.shape[2], bias.shape[3])
@@ -236,6 +254,47 @@ def test_flash_dbias_kernel_matches_plain(dev, dtype, case):
     assert _kernels.launches["flash_dbias"] == n0 + 1
     want = flash_attention_bias_grad_plain(q, k, v, out, lse, do, bias, **kw)
     assert got.shape == want.shape == bias.shape and got.dtype == torch.float32
+    assert torch.isfinite(got).all()
+    assert rel_err(got, want) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [c for c in BWD_CASES if c[8] is not None] + [
+    (2, 4, 2, 150, 150, 64, True, (40, 0), "bhqk", False)])
+def test_flash_dbias_kernel_matches_plain(dev, dtype, case):
+    _check_dbias(case, dtype, dev)
+
+
+# The tensor-core dbias kernel (bf16 inputs) at the fp32-out gate, 1e-4:
+# both sides sum exact bf16 products in fp32 and round nowhere after.
+DBIAS_TC_CASES = [
+    (2, 4, 2, 200, 200, 64, True, None, "11qk", False),       # summed over batch and heads
+    (2, 4, 2, 150, 170, 128, False, None, "bhqk", False),     # per (batch, head)
+    (2, 4, 2, 300, 300, 64, False, (40, 0), "11qk", False),   # window: hidden tiles are zeros
+    (1, 4, 1, 130, 257, 256, True, None, "bhqk", False),      # D 256, GQA 4, KV tail
+    (2, 2, 2, 77, 100, 80, False, (20, 10), "11qk", False),   # D 80: two column chunks
+]
+
+
+@pytest.mark.parametrize("case", DBIAS_TC_CASES)
+def test_flash_dbias_tc_bf16_matches_plain(dev, case):
+    _check_dbias(case, torch.bfloat16, dev)
+
+
+def test_flash_dbias_tc_row_masked_by_bias_alone(dev):
+    # Rows 5 and 40 see keys by the index rule, but a -1e30 bias hides
+    # every one: LSE -1e30, P = exp(S + bias + 1e30) = 1 on them, and their
+    # dbias is not zero (the reference's arithmetic).
+    q, k, v = _qkv(2, 4, 2, 96, 96, 64, torch.bfloat16, dev)
+    bias = torch.randn((1, 4, 96, 96), generator=torch.Generator().manual_seed(5)).to(dev)
+    bias[:, :, (5, 40)] = -1e30
+    out, lse = flash_attention_forward_plain(q, k, v, bias)
+    assert (lse[:, :, (5, 40)] == -1e30).all()
+    do = torch.randn(out.shape, generator=torch.Generator().manual_seed(6)).to(dev, out.dtype)
+    got = flash_attention_bias_grad(q, k, v, out, lse, do, bias)
+    want = flash_attention_bias_grad_plain(q, k, v, out, lse, do, bias)
+    assert (want[:, :, (5, 40)] != 0).any()
+    assert torch.isfinite(got).all()
     assert rel_err(got, want) <= 1e-4
 
 
@@ -253,8 +312,8 @@ def test_flash_attention_autograd_on_the_card_matches_the_cpu(dev):
         assert rel_err(a, b) <= 1e-4, name
 
 
-# bf16 inputs with fp32 gradients: dK/dV runs on the tensor cores
-# (dkv_tc_kernel with the dense load stage), dQ on the CUDA cores. Gate
+# bf16 inputs with fp32 gradients: dQ and dK/dV both run on the tensor
+# cores (dq_tc_kernel and dkv_tc_kernel with the dense load stages). Gate
 # 5e-4: both sides round Q·scale, P and dS to bf16 at the same points and
 # differ where an fp32 summation order moves an element across a rounding
 # boundary; at D 80 and 128 (scale not a power of two) a dK taken from the
@@ -265,21 +324,12 @@ def test_flash_attention_autograd_on_the_card_matches_the_cpu(dev):
     (1, 4, 2, 130, 257, 128, True, None, None, False),       # Sq != Sk, KV tail
     (2, 2, 1, 96, 160, 80, False, (20, 10), "b11k", True),  # window, bias, GQA 2
     (1, 4, 4, 100, 60, 128, False, (0, -1), None, False),    # rows >= 60 fully masked
+    (1, 4, 2, 130, 257, 256, True, None, None, True),        # D 256, KV tail, dlse
+    (1, 4, 1, 100, 60, 256, False, (0, -1), None, False),    # D 256, GQA 4, masked rows
 ])
 def test_flash_bwd_dkv_tc_bf16_in_fp32_out(dev, case):
     args, kw = _bwd_inputs(case, torch.bfloat16, dev)
-    n_dkv = _kernels.launches["flash_bwd_dkv"]
-    got = flash_attention_backward(*args, **kw)
-    torch.cuda.synchronize()
-    assert _kernels.launches["flash_bwd_dkv"] == n_dkv + 1
-    want = flash_attention_backward_plain(*args, **kw)
-    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
-        assert g.dtype == w.dtype == torch.float32, name
-        assert torch.isfinite(g).all(), name
-        assert rel_err(g, w) <= 5e-4, name
-    empty = args[4] <= -1e29
-    if empty.any():
-        assert (got[0][empty] == 0).all()
+    _check_bwd(args, kw, None, 5e-4)
 
 
 def test_flash_bwd_kernels_refuse_what_they_do_not_take(dev):
@@ -289,6 +339,20 @@ def test_flash_bwd_kernels_refuse_what_they_do_not_take(dev):
     args, kw = _bwd_inputs((1, 2, 2, 64, 64, 64, False, None, None, False), torch.float32, dev)
     with pytest.raises(ValueError):
         flash_attention_backward(args[0], args[1].cpu(), *args[2:], **kw)
+
+
+def test_flash_bwd_kernels_refuse_head_dims_over_their_limits(dev):
+    # bf16: head_dim <= 256 (dQ, dK/dV, dbias); fp32: <= 128, dbias too.
+    (q, k, v, out, lse, do, bias, _), kw = _bwd_inputs(
+        (1, 2, 2, 64, 64, 320, False, None, "bhqk", False), torch.bfloat16, dev)
+    with pytest.raises(ValueError, match="head_dim <= 256"):
+        flash_attention_backward(q, k, v, out, lse, do, bias, **kw)
+    with pytest.raises(ValueError, match="head_dim <= 256"):
+        flash_attention_bias_grad(q, k, v, out, lse, do, bias, **kw)
+    (q, k, v, out, lse, do, bias, _), kw = _bwd_inputs(
+        (1, 2, 2, 64, 64, 192, False, None, "bhqk", False), torch.float32, dev)
+    with pytest.raises(ValueError, match="head_dim <= 128"):
+        flash_attention_bias_grad(q, k, v, out, lse, do, bias, **kw)
 
 
 # ---- Quantized training kernels (quant_rows, fused_qattn, quant_bwd) ----

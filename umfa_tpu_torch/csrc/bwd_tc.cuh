@@ -1,13 +1,16 @@
 // Tensor-core bodies of the attention backward for Hopper, sm_90a: dK/dV
 // (`dkv_tc_kernel`) and dQ (`dq_tc_kernel`), mma.sync m16n8k16 bf16 -> fp32.
 //
-// Each body takes its load stage as a template parameter. The stage brings
+// Each body takes its load stage as a template parameter. The stage copies
 // a tile's raw operands into a staging buffer (cp.async, two steps ahead)
 // and turns them into the bf16 tiles the products read (one step ahead), so
 // one barrier a step orders everything. `csrc/quant_bwd.cu` gives both
-// bodies stages that dequantize int8/int4 codes; `csrc/flash_bwd.cu` gives
-// dK/dV a stage that reads bf16 Q and dO. The arithmetic the bodies hold to
-// (the reference's rounding points) is in each including file's header.
+// bodies stages that dequantize int8/int4 codes into converted tiles (two
+// staging buffers); `csrc/flash_bwd.cu` gives both stages that copy bf16
+// rows straight into padded tiles, which the products read where they
+// landed (three staging buffers: one being read, one landing, one being
+// filled). The arithmetic the bodies hold to (the reference's rounding
+// points) is in each including file's header.
 //
 // Both keep one owner per output tile, no atomics, and a deterministic
 // result: the dK/dV block sums its GQA group in registers, the dQ block
@@ -96,6 +99,46 @@ __device__ __forceinline__ void store4_bf16(__nv_bfloat16* dst, const float (&x)
   *reinterpret_cast<uint2*>(dst) = w;
 }
 
+// A bf16 pair (lower index in the low half) times s, each value rounded to
+// bf16 once: the reference's bf16(q·scale), on a register of a tile or of
+// an A fragment.
+__device__ __forceinline__ uint32_t scale_bf16x2(uint32_t w, float s) {
+  return pack_bf16x2(__fmul_rn(__uint_as_float(w << 16), s),
+                     __fmul_rn(__uint_as_float(w & 0xffff0000u), s));
+}
+
+// Rows [0, ROWS) and columns [c0, c0 + W) of a bf16 matrix with rows of D
+// elements (src: its first row) into a tile of row stride LD; rows at or
+// past n and columns at or past D are 0. vec (D and c0 multiples of 8, src
+// 16-byte aligned): by 16-byte cp.async with zero fill, else by plain loads
+// and stores. n >= 1.
+template <int ROWS, int W, int LD>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src, int n,
+                                          int D, int c0, bool vec) {
+  constexpr int CH = W / 8;  // 16-byte pieces a row
+  for (int e = threadIdx.x; e < ROWS * CH; e += blockDim.x) {
+    const int r = e / CH, c = (e - r * CH) * 8;
+    __nv_bfloat16* d = dst + r * LD + c;
+    const int col = c0 + c;
+    if (vec) {
+      const int live = r < n ? max(0, min(8, D - col)) : 0;
+      cp_async16(d, live ? src + (long long)r * D + col : src, 2 * live);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        d[i] = r < n && col + i < D ? src[(long long)r * D + col + i] : __float2bfloat16_rn(0.f);
+    }
+  }
+}
+
+// Rows [0, ROWS) of an fp32 vector (src: its first row) by 4-byte cp.async;
+// rows at or past n are 0. n >= 1.
+template <int ROWS>
+__device__ __forceinline__ void load_rows_f32(float* dst, const float* src, int n) {
+  for (int r = threadIdx.x; r < ROWS; r += blockDim.x)
+    cp_async4(dst + r, r < n ? src + r : src, r < n ? 4 : 0);
+}
+
 // ---- dK/dV ---------------------------------------------------------------
 //
 // One block of 4 · SPLIT warps per (64-key tile, kv head, batch). Warp w
@@ -126,38 +169,20 @@ struct DkvTile {
   static constexpr int KV_BYTES = 2 * 64 * LD * 2 + DP * 4;      // K, V (bf16), vm (fp32)
 };
 
-// A converted query tile in shared memory: bf16 tiles (QT x LD) and fp32
-// rows. TWO_Q: Sᵀ and dK take different Q operands (the dense backward's
-// scaled and raw Q); else both read `q`.
-template <int DP, bool TWO_Q>
-struct QTile {
-  static constexpr int QT = DkvTile<DP>::QT, LD = DkvTile<DP>::LD;
-  static constexpr int BYTES = (TWO_Q ? 3 : 2) * QT * LD * 2 + 3 * QT * 4;
-  __nv_bfloat16* q;   // the Q operand of Sᵀ
-  __nv_bfloat16* qk;  // the Q operand of dK
-  __nv_bfloat16* o;   // bf16(dO)
-  float* vt;          // a per-row term added to dP (0 for the dense backward)
-  float* lse;
-  float* delta;
-  __device__ __forceinline__ explicit QTile(unsigned char* base) {
-    q = reinterpret_cast<__nv_bfloat16*>(base);
-    qk = TWO_Q ? q + QT * LD : q;
-    o = q + (TWO_Q ? 2 : 1) * QT * LD;
-    vt = reinterpret_cast<float*>(o + QT * LD);
-    lse = vt + QT;
-    delta = lse + QT;
-  }
-};
-
 // The load stage `Load` of dkv_tc_kernel provides:
-//   Tile, RAW_BYTES            the converted tile type and the staging size;
+//   Tile                       the query tile the products read, built from
+//       a converted buffer (Tile::BYTES) and a staging buffer: bf16 tiles
+//       q (the Q operand of Sᵀ), qk (that of dK), o (dO), row stride LD,
+//       and per row vt (a term added to dP), lse, delta;
+//   NRAW, RAW_BYTES            the staging buffers (2, or 3 when the Tile
+//       reads its staging buffer) and their size;
 //   dk_scale(p)                the factor on dK at the store;
 //   stage_kv(sK, sV, sVm, ..)  K, V of the block's 64 keys (bf16, LD) and vm;
 //   issue(raw, p, qbh, q0, vec)  the copies of a query tile's raw operands;
-//   stage(raw, t, sVm, p, qbh, q0)  raw -> the converted tile t.
+//   stage(raw, t, sVm, p, qbh, q0)  raw -> the converted part of tile t.
 template <class Load, int DP>
 constexpr int dkv_smem_bytes() {
-  return DkvTile<DP>::KV_BYTES + 2 * (Load::Tile::BYTES + Load::RAW_BYTES);
+  return DkvTile<DP>::KV_BYTES + 2 * Load::Tile::BYTES + Load::NRAW * Load::RAW_BYTES;
 }
 
 template <class Load, typename Tout, int DP>
@@ -175,7 +200,9 @@ __global__ void __launch_bounds__(DkvTile<DP>::NTHR, DkvTile<DP>::MINB)
   __nv_bfloat16* sV = sK + 64 * LD;
   float* sVm = reinterpret_cast<float*>(sV + 64 * LD);
   unsigned char* tiles = reinterpret_cast<unsigned char*>(sVm + DP);  // [2][Tile::BYTES]
-  unsigned char* raw = tiles + 2 * Tile::BYTES;                       // [2][RAW_BYTES]
+  unsigned char* raw = tiles + 2 * Tile::BYTES;                       // [NRAW][RAW_BYTES]
+  auto raw_of = [&](int i) { return raw + (i % Load::NRAW) * Load::RAW_BYTES; };
+  auto tile_of = [&](int i) { return Tile(tiles + (i & 1) * Tile::BYTES, raw_of(i)); };
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tq = lane & 3;
@@ -196,14 +223,14 @@ __global__ void __launch_bounds__(DkvTile<DP>::NTHR, DkvTile<DP>::MINB)
 
   // Pipeline: step i's raw operands are copied two steps ahead and
   // converted one step ahead, so one barrier a step orders everything.
-  if (total > 0) Load::issue(raw, p, head_of(0), q0_of(0), vec);
+  if (total > 0) Load::issue(raw_of(0), p, head_of(0), q0_of(0), vec);
   cp_async_commit();
-  if (total > 1) Load::issue(raw + Load::RAW_BYTES, p, head_of(1), q0_of(1), vec);
+  if (total > 1) Load::issue(raw_of(1), p, head_of(1), q0_of(1), vec);
   cp_async_commit();
   Load::stage_kv(sK, sV, sVm, p, kbh, k0);
   cp_async_wait<1>();
   __syncthreads();
-  if (total > 0) Load::stage(raw, Tile(tiles), sVm, p, head_of(0), q0_of(0));
+  if (total > 0) Load::stage(raw_of(0), tile_of(0), sVm, p, head_of(0), q0_of(0));
 
   float dk[NA][4], dv[NA][4];
 #pragma unroll
@@ -216,16 +243,14 @@ __global__ void __launch_bounds__(DkvTile<DP>::NTHR, DkvTile<DP>::MINB)
   for (int i = 0; i < total; ++i) {
     cp_async_wait<0>();
     __syncthreads();  // tile i converted, raw i + 1 landed, step i - 1 done
-    if (i + 2 < total)
-      Load::issue(raw + (i & 1) * Load::RAW_BYTES, p, head_of(i + 2), q0_of(i + 2), vec);
+    if (i + 2 < total) Load::issue(raw_of(i + 2), p, head_of(i + 2), q0_of(i + 2), vec);
     cp_async_commit();
     if (i + 1 < total)
-      Load::stage(raw + ((i + 1) & 1) * Load::RAW_BYTES, Tile(tiles + ((i + 1) & 1) * Tile::BYTES),
-                  sVm, p, head_of(i + 1), q0_of(i + 1));
+      Load::stage(raw_of(i + 1), tile_of(i + 1), sVm, p, head_of(i + 1), q0_of(i + 1));
 
     const long long qbh = head_of(i);
     const int q0 = q0_of(i);
-    const Tile t(tiles + (i & 1) * Tile::BYTES);
+    const Tile t = tile_of(i);
     if (i % n_t == 0 && p.corr) {
       const float* cr = p.corr + qbh * p.Sk;
       corr[0] = key0 < p.Sk ? cr[key0] : 0.f;
@@ -369,25 +394,33 @@ struct DqTile {
   static constexpr int KT = DP <= 64 ? 64 : 32;  // keys a step
   static constexpr int LD = DP + 8;
   static constexpr int MINB = DP <= 64 ? 3 : DP <= 128 ? 2 : 1;
-  static constexpr int KV_BYTES = 2 * KT * LD * 2 + KT * 4;  // K, V (bf16), a per-key score term
 };
 
 // The load stage `Load` of dq_tc_kernel provides:
-//   RAW_BYTES                 the staging size of a key tile;
+//   Kv                        the key tile the products read, built from a
+//       converted buffer (Kv::BYTES) and a staging buffer: bf16 tiles k, v
+//       (row stride LD) and score(x, kj), the score x of key kj plus the
+//       stage's per-key term (or x itself);
+//   NRAW, RAW_BYTES           the staging buffers (2, or 3 when Kv reads its
+//       staging buffer) and their size;
+//   IN_FLIGHT                 the copies that may still be in flight at a
+//       step's barrier: 0 when `stage` converts the next tile, which must
+//       have landed by then, 1 when it does not;
 //   stage_q(sQ, sO, sRow, p, qbh, kbh, q0)  Q and dO of the block's 64
 //       rows (bf16, LD) and per row the dP term, LSE and δ (sRow[0..63],
 //       [64..127], [128..191]);
 //   issue(raw, p, qbh, kbh, k0, vec)   the copies of a key tile's raw operands;
-//   stage(raw, kv, p, kbh, k0)         raw -> K, V and the per-key score term.
+//   stage(raw, kv, p, kbh, k0)         raw -> the converted part of kv.
 template <class Load, int DP>
 constexpr int dq_smem_bytes() {
-  return 2 * 64 * (DP + 8) * 2 + 3 * 64 * 4 + 2 * (DqTile<DP>::KV_BYTES + Load::RAW_BYTES);
+  return 2 * 64 * (DP + 8) * 2 + 3 * 64 * 4 + 2 * Load::Kv::BYTES + Load::NRAW * Load::RAW_BYTES;
 }
 
 template <class Load, typename Tout, int DP>
 __global__ void __launch_bounds__(NT, DqTile<DP>::MINB) dq_tc_kernel(const BwdParams p,
                                                                      const int vec) {
   using G = DqTile<DP>;
+  using Kv = typename Load::Kv;
   constexpr int KT = G::KT, LD = G::LD;
   constexpr int KS = DP / 16;  // 16-deep steps over d
   constexpr int NS = KT / 8;   // 8-key tiles of S and dP
@@ -396,8 +429,10 @@ __global__ void __launch_bounds__(NT, DqTile<DP>::MINB) dq_tc_kernel(const BwdPa
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* sO = sQ + 64 * LD;
   float* sRow = reinterpret_cast<float*>(sO + 64 * LD);               // dP term, LSE, δ
-  unsigned char* kvb = reinterpret_cast<unsigned char*>(sRow + 3 * 64);  // [2][KV_BYTES]
-  unsigned char* raw = kvb + 2 * G::KV_BYTES;                            // [2][RAW_BYTES]
+  unsigned char* kvb = reinterpret_cast<unsigned char*>(sRow + 3 * 64);  // [2][Kv::BYTES]
+  unsigned char* raw = kvb + 2 * Kv::BYTES;                              // [NRAW][RAW_BYTES]
+  auto raw_of = [&](int i) { return raw + (i % Load::NRAW) * Load::RAW_BYTES; };
+  auto kv_of = [&](int i) { return Kv(kvb + (i & 1) * Kv::BYTES, raw_of(i)); };
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tq = lane & 3;
@@ -412,14 +447,14 @@ __global__ void __launch_bounds__(NT, DqTile<DP>::MINB) dq_tc_kernel(const BwdPa
 
   // Pipeline as in dkv_tc_kernel: key tile i copied two steps ahead,
   // converted one step ahead, one barrier a step.
-  if (n_t > 0) Load::issue(raw, p, qbh, kbh, t_lo * KT, vec);
+  if (n_t > 0) Load::issue(raw_of(0), p, qbh, kbh, t_lo * KT, vec);
   cp_async_commit();
-  if (n_t > 1) Load::issue(raw + Load::RAW_BYTES, p, qbh, kbh, (t_lo + 1) * KT, vec);
+  if (n_t > 1) Load::issue(raw_of(1), p, qbh, kbh, (t_lo + 1) * KT, vec);
   cp_async_commit();
   Load::stage_q(sQ, sO, sRow, p, qbh, kbh, q0);
   cp_async_wait<1>();
   __syncthreads();
-  if (n_t > 0) Load::stage(raw, kvb, p, kbh, t_lo * KT);
+  if (n_t > 0) Load::stage(raw_of(0), kv_of(0), p, kbh, t_lo * KT);
 
   const int rw = warp * 16;                       // the warp's first row in the tile
   const int row0 = q0 + rw + g, row1 = row0 + 8;  // this thread's two rows
@@ -435,19 +470,14 @@ __global__ void __launch_bounds__(NT, DqTile<DP>::MINB) dq_tc_kernel(const BwdPa
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
   for (int i = 0; i < n_t; ++i) {
-    cp_async_wait<0>();
-    __syncthreads();  // key tile i converted, raw i + 1 landed, step i - 1 done
-    if (i + 2 < n_t)
-      Load::issue(raw + (i & 1) * Load::RAW_BYTES, p, qbh, kbh, (t_lo + i + 2) * KT, vec);
+    cp_async_wait<Load::IN_FLIGHT>();
+    __syncthreads();  // key tile i landed and converted, step i - 1 done
+    if (i + 2 < n_t) Load::issue(raw_of(i + 2), p, qbh, kbh, (t_lo + i + 2) * KT, vec);
     cp_async_commit();
-    if (i + 1 < n_t)
-      Load::stage(raw + ((i + 1) & 1) * Load::RAW_BYTES, kvb + ((i + 1) & 1) * G::KV_BYTES, p, kbh,
-                  (t_lo + i + 1) * KT);
+    if (i + 1 < n_t) Load::stage(raw_of(i + 1), kv_of(i + 1), p, kbh, (t_lo + i + 1) * KT);
 
     const int k0 = (t_lo + i) * KT;
-    const __nv_bfloat16* cK = reinterpret_cast<const __nv_bfloat16*>(kvb + (i & 1) * G::KV_BYTES);
-    const __nv_bfloat16* cV = cK + KT * LD;
-    const float* cC = reinterpret_cast<const float*>(cV + KT * LD);
+    const Kv kv = kv_of(i);
 
     // This warp's rows [r_lo, r_lo + 15] against keys [k0, k0 + KT).
     const int r_lo = q0 + rw, r_hi = r_lo + 15, ke = k0 + KT - 1;
@@ -470,10 +500,10 @@ __global__ void __launch_bounds__(NT, DqTile<DP>::MINB) dq_tc_kernel(const BwdPa
 #pragma unroll
       for (int jj = 0; jj < KT / 16; ++jj) {
         uint32_t b0[2], b1[2];
-        load_b_nk(b0, b1, cK, LD, jj * 16, ks * 16, lane);
+        load_b_nk(b0, b1, kv.k, LD, jj * 16, ks * 16, lane);
         mma_bf16(s[2 * jj], aq, b0);
         mma_bf16(s[2 * jj + 1], aq, b1);
-        load_b_nk(b0, b1, cV, LD, jj * 16, ks * 16, lane);
+        load_b_nk(b0, b1, kv.v, LD, jj * 16, ks * 16, lane);
         mma_bf16(dp[2 * jj], ao, b0);
         mma_bf16(dp[2 * jj + 1], ao, b1);
       }
@@ -487,7 +517,7 @@ __global__ void __launch_bounds__(NT, DqTile<DP>::MINB) dq_tc_kernel(const BwdPa
         const int r = e >> 1, row = r ? row1 : row0, kj = 8 * j + 2 * tq + (e & 1), key = k0 + kj;
         float ds = 0.f;
         if (all || key_visible(row, key, p.Sq, p.Sk, p.left, p.right)) {
-          float x = __fadd_rn(s[j][e], cC[kj]);
+          float x = kv.score(s[j][e], kj);
           if (bias) x = __fadd_rn(x, bias[row * p.bsq + key * p.bsk]);
           const float pr = expf(x - lse[r]);
           ds = __fmul_rn(pr, __fadd_rn(dp[j][e], vt[r]) - dlt[r]);
@@ -502,7 +532,7 @@ __global__ void __launch_bounds__(NT, DqTile<DP>::MINB) dq_tc_kernel(const BwdPa
 #pragma unroll
       for (int dn = 0; dn < DP / 16; ++dn) {
         uint32_t b0[2], b1[2];
-        load_b_kn(b0, b1, cK, LD, kk * 16, dn * 16, lane);
+        load_b_kn(b0, b1, kv.k, LD, kk * 16, dn * 16, lane);
         mma_bf16(acc[2 * dn], a, b0);
         mma_bf16(acc[2 * dn + 1], a, b1);
       }

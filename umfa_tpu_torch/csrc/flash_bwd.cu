@@ -16,32 +16,39 @@
 //
 // What the design does about it. Every output tile has one owner and
 // nothing is summed with atomics, so both passes are deterministic:
-//   * dK/dV, bf16 inputs: `dkv_tc_kernel<DenseLoad>`, the tensor-core body
-//     of bwd_tc.cuh (mma.sync m16n8k16 bf16 -> fp32) that the quantized
-//     backward shares: one block of 4 warps per (64-key tile, kv head,
-//     batch) keeps K and V in shared memory and walks the query heads of
-//     its GQA group and their visible 32-row query tiles, copying each
-//     tile's Q, dO, LSE and δ by cp.async two steps ahead and converting
-//     them one step ahead; the group sum stays in registers, so no
-//     per-query-head dK/dV reaches HBM (flash_bwd.py:1144-1170);
-//   * dK/dV, fp32 inputs (fp16 arrives as fp32): `flash_bwd_dkv_kernel`,
-//     FP32 FMAs on the CUDA cores, the same walk with one block of 256
-//     threads; TF32 would miss the fp32 gate of 1e-4, and the reference
-//     forces HIGHEST precision for fp32 (flash_bwd.py:36-42);
-//   * dQ (both dtypes): `flash_bwd_dq_kernel`, FP32 FMAs on the CUDA cores
-//     (exact for bf16 operands), one block of 256 threads per (64-row query
-//     tile, q head, batch) walking the key tiles the causal/window rule
-//     leaves visible, with Q·scale and dO staged once and K, V per tile.
-// The CUDA-core kernels stage fp32 tiles in dynamic shared memory (83-165
-// KB a block); each thread holds a 4 x 4 patch of the 64 x 64 score tile
-// and 4 rows x D/16 columns of each gradient accumulator; their own
-// ceiling is the 67 TFLOP/s FP32 rate. Head dims up to 128. wgmma, TMA,
-// warp specialisation and dQ on the tensor cores are later work.
+//   * bf16 inputs: the tensor-core bodies of bwd_tc.cuh (mma.sync m16n8k16
+//     bf16 -> fp32) that the quantized backward shares, with load stages
+//     that copy bf16 rows by cp.async straight into padded shared-memory
+//     tiles, two steps ahead into one of three staging buffers, where the
+//     products read them:
+//     - dQ (`dq_tc_kernel<DenseDqLoad>`): one block of 4 warps per (64-row
+//       query tile, q head, batch); bf16(q·scale), dO, LSE and δ staged
+//       once, then the visible key tiles (64 keys at D 64, 32 above) in
+//       order, nothing converted;
+//     - dK/dV (`dkv_tc_kernel<DenseLoad>`): one block of 4 warps (8 at
+//       D 256) per (64-key tile, kv head, batch) keeps K and V in shared
+//       memory and walks the query heads of its GQA group and their visible
+//       32-row query tiles; dK reads each tile's raw Q where it landed, and
+//       only bf16(q·scale) for Sᵀ is converted, one step ahead; the group
+//       sum stays in registers, so no per-query-head dK/dV reaches HBM
+//       (flash_bwd.py:1144-1170).
+//     Head dims up to 256 (templates 64, 128, 256; a smaller D is
+//     zero-padded to the template width). Reading the staging buffers in
+//     place is what fits dK/dV at D 256: 204,800 bytes of shared memory,
+//     where a staging buffer beside converted Q, raw Q and dO tiles would
+//     need 236,800 (a block may have 232,448).
+//   * fp32 inputs (fp16 arrives as fp32): `flash_bwd_dq_kernel` and
+//     `flash_bwd_dkv_kernel`, FP32 FMAs on the CUDA cores, one block of 256
+//     threads per 64-row tile, fp32 tiles in dynamic shared memory (83-165
+//     KB a block; each thread a 4 x 4 patch of the score tile); TF32 would
+//     miss the fp32 gate of 1e-4, and the reference forces HIGHEST precision
+//     for fp32 (flash_bwd.py:36-42). Head dims up to 128: at 256 their
+//     tiles would need 279,808 (dQ) and 296,448 (dK/dV) bytes.
+// wgmma, TMA and warp specialisation are later work.
 //
 // Rounding points held to the reference (bf16 inputs; fp32 rounds nowhere):
 //   * Q·scale is rounded to the input type before S (flash_bwd.py:52), and
-//     dK takes the raw Q with scale on its accumulator (:451-456): the
-//     tensor-core load stage converts each Q tile twice;
+//     dK takes the raw Q with scale on its accumulator (:451-456);
 //   * dO arrives in V's type (the wrapper casts it) for dP and dV
 //     (:168, :437);
 //   * P is rounded to V's type for dV (:437); dS to K's type for dQ (:175)
@@ -51,15 +58,13 @@
 // Masking: index-hidden pairs (causal, window, KV tail, padded rows) have
 // P = 0; a -1e30 bias is not an index mask. Bias: fp32, any broadcast
 // shape, four element strides (0 = broadcast dimension, q-broadcast too).
-#include <type_traits>
-
 #include "bwd_tc.cuh"
 
 using namespace umfa;
 
 namespace {
 
-// Dynamic shared memory of the CUDA-core kernels.
+// Dynamic shared memory of the CUDA-core kernels (fp32 inputs).
 template <int DP>
 constexpr int simt_dq_smem_bytes() {
   return (4 * 64 * (DP + 1) + 64 * (BK + 1)) * (int)sizeof(float);
@@ -70,30 +75,31 @@ constexpr int simt_dkv_smem_bytes() {
   return (4 * 64 * (DP + 1) + 2 * 64 * (BQ + 1)) * (int)sizeof(float);
 }
 
-template <typename Tin, typename Tout, int DP>
+// fp32 inputs only (bf16 takes dq_tc_kernel<DenseDqLoad>).
+template <typename Tout, int DP>
 __global__ void __launch_bounds__(NTB) flash_bwd_dq_kernel(const BwdParams p) {
   constexpr int S = DP + 1;
   constexpr int PS = BK + 1;
   constexpr int NC = DP / 16;
   extern __shared__ float smem[];
-  float* sQ = smem;       // round(q · scale)
+  float* sQ = smem;         // q · scale
   float* sO = sQ + BQ * S;  // dO
   float* sK = sO + BQ * S;
   float* sV = sK + BK * S;
-  float* sS = sV + BK * S;  // round(dS), BQ x PS
+  float* sS = sV + BK * S;  // dS, BQ x PS
 
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (p.Hq / p.Hkv);
   const long long qrow = ((long long)b * p.Hq + h) * p.Sq;
   const long long krow = ((long long)b * p.Hkv + hk) * p.Sk;
-  const Tin* k = static_cast<const Tin*>(p.k) + krow * p.D;
-  const Tin* v = static_cast<const Tin*>(p.v) + krow * p.D;
+  const float* k = static_cast<const float*>(p.k) + krow * p.D;
+  const float* v = static_cast<const float*>(p.v) + krow * p.D;
   const float* bias = p.bias ? p.bias + b * p.bsb + h * p.bsh : nullptr;
 
-  stage_rows<Tin, DP, true>(sQ, static_cast<const Tin*>(p.q) + qrow * p.D, q0, p.Sq, p.D,
-                            p.scale);
-  stage_rows<Tin, DP>(sO, static_cast<const Tin*>(p.dout) + qrow * p.D, q0, p.Sq, p.D);
+  stage_rows<float, DP, true>(sQ, static_cast<const float*>(p.q) + qrow * p.D, q0, p.Sq, p.D,
+                              p.scale);
+  stage_rows<float, DP>(sO, static_cast<const float*>(p.dout) + qrow * p.D, q0, p.Sq, p.D);
   float lse[4], dlt[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -116,13 +122,13 @@ __global__ void __launch_bounds__(NTB) flash_bwd_dq_kernel(const BwdParams p) {
   for (int t = t_lo; t <= t_hi; ++t) {
     const int k0 = t * BK;
     __syncthreads();  // sQ/sO staged; the previous tile's sK/sV/sS consumed
-    stage_rows<Tin, DP>(sK, k, k0, p.Sk, p.D);
-    stage_rows<Tin, DP>(sV, v, k0, p.Sk, p.D);
+    stage_rows<float, DP>(sK, k, k0, p.Sk, p.D);
+    stage_rows<float, DP>(sV, v, k0, p.Sk, p.D);
     __syncthreads();
 
     float s[4][4] = {}, dp[4][4] = {};
-    patch_abt<Tin, DP>(s, sQ, sK, ty, tx);
-    patch_abt<Tin, DP>(dp, sO, sV, ty, tx);
+    patch_abt<float, DP>(s, sQ, sK, ty, tx);
+    patch_abt<float, DP>(dp, sO, sV, ty, tx);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = q0 + ty * 4 + i;
@@ -135,7 +141,7 @@ __global__ void __launch_bounds__(NTB) flash_bwd_dq_kernel(const BwdParams p) {
           if (bias) x += bias[row * p.bsq + col * p.bsk];
           ds = expf(x - lse[i]) * (dp[i][j] - dlt[i]);
         }
-        sS[(ty * 4 + i) * PS + tx + 16 * j] = Elem<Tin>::round(ds);
+        sS[(ty * 4 + i) * PS + tx + 16 * j] = ds;
       }
     }
     __syncthreads();
@@ -281,170 +287,231 @@ __global__ void __launch_bounds__(NTB) flash_bwd_dkv_kernel(const BwdParams p) {
   }
 }
 
-// ---- dK/dV, bf16 inputs: the load stage of dkv_tc_kernel -------------------
-//
-// Q and dO arrive as bf16 (dO in V's type). Each query tile is converted
-// twice: bf16(q·scale) for Sᵀ (flash_bwd.py:52) and the raw Q for dK, whose
-// accumulator takes the scale at the store (:451-456). At D 64 the scale
-// 1/8 is exact and the two agree; at D 80 or 128 dK from the scaled Q
-// would be off by relerr ~1e-3.
+// ---- bf16 inputs: the load stages of the tensor-core bodies ----------------
+
+// Rows [0, 64) of a bf16 matrix with rows of D elements (src: its first
+// row; n live rows) into a tile of row stride DP + 8, each value times
+// `scale` and rounded to bf16 once when SCALED (bf16(q·scale),
+// flash_bwd.py:52); rows at or past n and columns past D are 0. wide: four
+// values at a time (D % 4 == 0, src 8-byte aligned).
+template <int DP, bool SCALED>
+__device__ __forceinline__ void stage_rows_bf16(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                                int n, int D, bool wide, float scale) {
+  constexpr int C4 = DP / 4;
+  for (int e = threadIdx.x; e < 64 * C4; e += blockDim.x) {
+    const int r = e / C4, c = (e - r * C4) * 4;
+    const __nv_bfloat16* row = src + (long long)r * D;
+    float x[4] = {0.f, 0.f, 0.f, 0.f};
+    if (r < n) {
+      if (wide) {
+        if (c < D) load4(row + c, x);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) x[i] = c + i < D ? __bfloat162float(row[c + i]) : 0.f;
+      }
+    }
+    if (SCALED) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) x[i] = __fmul_rn(x[i], scale);
+    }
+    store4_bf16(dst + r * (DP + 8) + c, x);  // bf16 values (unscaled): exact
+  }
+}
+
+// dQ: Q and dO staged once; each key tile's K and V copied by cp.async
+// straight into padded tiles, which the products read where they landed
+// (three staging buffers, copies two steps ahead, nothing converted, no
+// per-key score term).
+template <int DP>
+struct DenseDqLoad {
+  static constexpr int KT = DqTile<DP>::KT, LD = DqTile<DP>::LD;
+  static constexpr int NRAW = 3, IN_FLIGHT = 1;
+  static constexpr int RAW_BYTES = 2 * KT * LD * 2;  // K, V (bf16, row stride LD)
+  struct Kv {
+    static constexpr int BYTES = 0;
+    __nv_bfloat16* k;
+    __nv_bfloat16* v;
+    __device__ __forceinline__ Kv(unsigned char*, unsigned char* raw) {
+      k = reinterpret_cast<__nv_bfloat16*>(raw);
+      v = k + KT * LD;
+    }
+    __device__ __forceinline__ float score(float x, int) const { return x; }
+  };
+
+  // bf16(q·scale), dO, LSE and δ of query rows [q0, q0 + 64); no dP term.
+  static __device__ __forceinline__ void stage_q(__nv_bfloat16* sQ, __nv_bfloat16* sO, float* sRow,
+                                                 const BwdParams& p, long long qbh, long long,
+                                                 int q0) {
+    const int n = min(64, p.Sq - q0);
+    const long long r0 = qbh * p.Sq + q0;
+    stage_rows_bf16<DP, true>(sQ, static_cast<const __nv_bfloat16*>(p.q) + r0 * p.D, n, p.D,
+                              p.wide, p.scale);
+    stage_rows_bf16<DP, false>(sO, static_cast<const __nv_bfloat16*>(p.dout) + r0 * p.D, n, p.D,
+                               p.wide, 1.f);
+    for (int r = threadIdx.x; r < 64; r += blockDim.x) {
+      sRow[r] = 0.f;
+      sRow[64 + r] = r < n ? p.lse[r0 + r] : 0.f;
+      sRow[128 + r] = r < n ? p.delta[r0 + r] : 0.f;
+    }
+  }
+
+  // The copies of key rows [k0, k0 + KT) into `raw`, as the products read them.
+  static __device__ __forceinline__ void issue(unsigned char* raw, const BwdParams& p, long long,
+                                               long long kbh, int k0, bool vec) {
+    const int n = min(KT, p.Sk - k0);
+    const long long off = (kbh * p.Sk + k0) * p.D;
+    __nv_bfloat16* k = reinterpret_cast<__nv_bfloat16*>(raw);
+    load_tile<KT, DP, LD>(k, static_cast<const __nv_bfloat16*>(p.k) + off, n, p.D, 0, vec);
+    load_tile<KT, DP, LD>(k + KT * LD, static_cast<const __nv_bfloat16*>(p.v) + off, n, p.D, 0, vec);
+  }
+
+  static __device__ __forceinline__ void stage(const unsigned char*, const Kv&, const BwdParams&,
+                                               long long, int) {}
+};
+
+// dK/dV: a query tile as the products read it. Its staging buffer (three
+// of them, copied two steps ahead) holds the raw Q (dK's operand,
+// flash_bwd.py:451-456), dO, LSE and δ as they landed; its converted buffer
+// bf16(q·scale) (Sᵀ's operand, flash_bwd.py:52) and the dP term vt = 0. At
+// D 64 the scale 1/8 is exact and the two Q operands agree; at D 80 or 128
+// dK from the scaled Q would be off by relerr ~1e-3.
+template <int DP>
+struct DenseQTile {
+  static constexpr int QT = DkvTile<DP>::QT, LD = DkvTile<DP>::LD;
+  static constexpr int BYTES = QT * LD * 2 + QT * 4;  // bf16(q·scale), vt
+  static constexpr int RAW_O = QT * LD * 2;
+  static constexpr int RAW_L = 2 * QT * LD * 2;
+  static constexpr int RAW_D = RAW_L + QT * 4;
+  static constexpr int RAW_BYTES = RAW_D + QT * 4;  // Q, dO (bf16, LD), LSE, δ
+  __nv_bfloat16* q;
+  __nv_bfloat16* qk;
+  __nv_bfloat16* o;
+  float* vt;
+  float* lse;
+  float* delta;
+  __device__ __forceinline__ DenseQTile(unsigned char* conv, unsigned char* raw) {
+    q = reinterpret_cast<__nv_bfloat16*>(conv);
+    vt = reinterpret_cast<float*>(q + QT * LD);
+    qk = reinterpret_cast<__nv_bfloat16*>(raw);
+    o = reinterpret_cast<__nv_bfloat16*>(raw + RAW_O);
+    lse = reinterpret_cast<float*>(raw + RAW_L);
+    delta = reinterpret_cast<float*>(raw + RAW_D);
+  }
+};
+
 template <int DP>
 struct DenseLoad {
   using G = DkvTile<DP>;
-  using Tile = QTile<DP, true>;
-  // Staging buffer: Q, dO (bf16, packed rows of D), LSE, δ.
-  static constexpr int RAW_Q = 0;
-  static constexpr int RAW_O = G::QT * DP * 2;
-  static constexpr int RAW_L = RAW_O + G::QT * DP * 2;
-  static constexpr int RAW_D = RAW_L + G::QT * 4;
-  static constexpr int RAW_BYTES = RAW_D + G::QT * 4;
+  using Tile = DenseQTile<DP>;
+  static constexpr int NRAW = 3, RAW_BYTES = Tile::RAW_BYTES;
 
   static __device__ __forceinline__ float dk_scale(const BwdParams& p) { return p.scale; }
-
-  // Rows [r0, r0 + 64) of a bf16 (nrows, D) matrix into a tile of row
-  // stride DP + 8; rows past nrows and columns past D are 0. wide: four
-  // values at a time (D % 4 == 0, src 8-byte aligned).
-  static __device__ __forceinline__ void copy_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                                   int r0, int nrows, int D, bool wide) {
-    constexpr int C4 = DP / 4;
-    for (int e = threadIdx.x; e < 64 * C4; e += blockDim.x) {
-      const int r = e / C4, c = (e - r * C4) * 4;
-      const __nv_bfloat16* row = src + (long long)(r0 + r) * D;
-      float x[4] = {0.f, 0.f, 0.f, 0.f};
-      if (r0 + r < nrows) {
-        if (wide) {
-          if (c < D) load4(row + c, x);
-        } else {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) x[i] = c + i < D ? __bfloat162float(row[c + i]) : 0.f;
-        }
-      }
-      store4_bf16(dst + r * (DP + 8) + c, x);  // bf16 values: exact
-    }
-  }
 
   // K and V of key rows [k0, k0 + 64); the dense backward has no V mean.
   static __device__ __forceinline__ void stage_kv(__nv_bfloat16* sK, __nv_bfloat16* sV,
                                                   float* sVm, const BwdParams& p, long long kbh,
                                                   int k0) {
-    const long long off = kbh * p.Sk * p.D;
-    copy_rows(sK, static_cast<const __nv_bfloat16*>(p.k) + off, k0, p.Sk, p.D, p.wide);
-    copy_rows(sV, static_cast<const __nv_bfloat16*>(p.v) + off, k0, p.Sk, p.D, p.wide);
+    const int n = min(64, p.Sk - k0);
+    const long long off = (kbh * p.Sk + k0) * p.D;
+    stage_rows_bf16<DP, false>(sK, static_cast<const __nv_bfloat16*>(p.k) + off, n, p.D, p.wide,
+                               1.f);
+    stage_rows_bf16<DP, false>(sV, static_cast<const __nv_bfloat16*>(p.v) + off, n, p.D, p.wide,
+                               1.f);
     for (int c = threadIdx.x; c < DP; c += blockDim.x) sVm[c] = 0.f;
   }
 
-  // Issue the copies of query rows [q0, q0 + QT) of head qbh into `raw`.
+  // The copies of query rows [q0, q0 + QT) of head qbh into `raw`, as the
+  // products read them.
   static __device__ __forceinline__ void issue(unsigned char* raw, const BwdParams& p,
                                                long long qbh, int q0, bool vec) {
     const int n = min(G::QT, p.Sq - q0);
     const long long r0 = qbh * p.Sq + q0;
-    copy_bytes(raw + RAW_Q, static_cast<const unsigned char*>(p.q) + r0 * p.D * 2, n * p.D * 2, vec);
-    copy_bytes(raw + RAW_O, static_cast<const unsigned char*>(p.dout) + r0 * p.D * 2, n * p.D * 2,
-               vec);
-    copy_bytes(raw + RAW_L, reinterpret_cast<const unsigned char*>(p.lse + r0), n * 4, vec);
-    copy_bytes(raw + RAW_D, reinterpret_cast<const unsigned char*>(p.delta + r0), n * 4, vec);
+    load_tile<G::QT, DP, G::LD>(reinterpret_cast<__nv_bfloat16*>(raw),
+                                static_cast<const __nv_bfloat16*>(p.q) + r0 * p.D, n, p.D, 0, vec);
+    load_tile<G::QT, DP, G::LD>(reinterpret_cast<__nv_bfloat16*>(raw + Tile::RAW_O),
+                                static_cast<const __nv_bfloat16*>(p.dout) + r0 * p.D, n, p.D, 0,
+                                vec);
+    load_rows_f32<G::QT>(reinterpret_cast<float*>(raw + Tile::RAW_L), p.lse + r0, n);
+    load_rows_f32<G::QT>(reinterpret_cast<float*>(raw + Tile::RAW_D), p.delta + r0, n);
   }
 
-  // bf16(q·scale), q and dO, LSE and δ from `raw` into tile `t` (rows past
-  // Sq and columns past D zero); four columns a thread.
-  static __device__ __forceinline__ void stage(const unsigned char* raw, const Tile& t,
-                                               const float*, const BwdParams& p, long long,
-                                               int q0) {
-    constexpr int C4 = DP / 4;
-    const int n = min(G::QT, p.Sq - q0), D = p.D;
-    const __nv_bfloat16* rq = reinterpret_cast<const __nv_bfloat16*>(raw + RAW_Q);
-    const __nv_bfloat16* ro = reinterpret_cast<const __nv_bfloat16*>(raw + RAW_O);
-    for (int e = threadIdx.x; e < G::QT * C4; e += blockDim.x) {
-      const int r = e / C4, c = (e - r * C4) * 4;
-      float xq[4] = {0.f, 0.f, 0.f, 0.f}, xo[4] = {0.f, 0.f, 0.f, 0.f}, xs[4];
-      if (r < n) {
-        if (D % 4 == 0) {
-          if (c < D) {
-            load4(rq + r * D + c, xq);
-            load4(ro + r * D + c, xo);
-          }
-        } else {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            xq[i] = c + i < D ? __bfloat162float(rq[r * D + c + i]) : 0.f;
-            xo[i] = c + i < D ? __bfloat162float(ro[r * D + c + i]) : 0.f;
-          }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) xs[i] = __fmul_rn(xq[i], p.scale);
-      store4_bf16(t.q + r * G::LD + c, xs);
-      store4_bf16(t.qk + r * G::LD + c, xq);
-      store4_bf16(t.o + r * G::LD + c, xo);
+  // bf16(q·scale) from the raw Q of tile t (zero where it is), eight
+  // columns a thread; vt = 0.
+  static __device__ __forceinline__ void stage(const unsigned char*, const Tile& t, const float*,
+                                               const BwdParams& p, long long, int) {
+    constexpr int C8 = DP / 8;
+    for (int e = threadIdx.x; e < G::QT * C8; e += blockDim.x) {
+      const int r = e / C8, c = (e - r * C8) * 8;
+      uint4 w = *reinterpret_cast<const uint4*>(t.qk + r * G::LD + c);
+      w.x = scale_bf16x2(w.x, p.scale);
+      w.y = scale_bf16x2(w.y, p.scale);
+      w.z = scale_bf16x2(w.z, p.scale);
+      w.w = scale_bf16x2(w.w, p.scale);
+      *reinterpret_cast<uint4*>(t.q + r * G::LD + c) = w;
     }
-    const float* rl = reinterpret_cast<const float*>(raw + RAW_L);
-    const float* rd = reinterpret_cast<const float*>(raw + RAW_D);
-    for (int r = threadIdx.x; r < G::QT; r += blockDim.x) {
-      t.vt[r] = 0.f;
-      t.lse[r] = r < n ? rl[r] : 0.f;
-      t.delta[r] = r < n ? rd[r] : 0.f;
-    }
+    for (int r = threadIdx.x; r < G::QT; r += blockDim.x) t.vt[r] = 0.f;
   }
 };
 
-template <typename Tin, typename Tout, int DP>
-cudaError_t launch_dq(const BwdParams& p, cudaStream_t stream) {
-  constexpr int smem = simt_dq_smem_bytes<DP>();
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<Tin, Tout, DP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.Sq + BQ - 1) / BQ, p.Hq, p.B);
-  flash_bwd_dq_kernel<Tin, Tout, DP><<<grid, NTB, smem, stream>>>(p);
-  return cudaGetLastError();
+template <typename Tout, int DP>
+cudaError_t launch_tc(BwdParams p, bool dkv, cudaStream_t stream) {
+  // Rows by 16-byte cp.async when every row of q, k, v and dO starts
+  // 16-byte aligned.
+  const int vec = p.D % 8 == 0 && aligned({p.q, p.k, p.v, p.dout}, 16);
+  if (dkv) {
+    p.wide = p.D % 4 == 0 && aligned({p.k, p.v}, 8);
+    return launch_dkv_tc<DenseLoad<DP>, Tout, DP>(p, vec, stream);
+  }
+  p.wide = p.D % 4 == 0 && aligned({p.q, p.dout}, 8);
+  return launch_dq_tc<DenseDqLoad<DP>, Tout, DP>(p, vec, stream);
 }
 
-template <typename Tin, typename Tout, int DP>
-cudaError_t launch_dkv(BwdParams p, cudaStream_t stream) {
-  if constexpr (std::is_same<Tin, __nv_bfloat16>::value) {
-    p.wide = p.D % 4 == 0 && aligned({p.k, p.v}, 8);
-    // Query tiles by cp.async when every tile's rows start 16-byte aligned.
-    const int vec = aligned({p.q, p.dout, p.lse, p.delta}, 16) && p.Sq % 4 == 0 &&
-                    p.Sq * (long long)p.D % 8 == 0;
-    return launch_dkv_tc<DenseLoad<DP>, Tout, DP>(p, vec, stream);
-  } else {
+template <typename Tout, int DP>
+cudaError_t launch_simt(const BwdParams& p, bool dkv, cudaStream_t stream) {
+  const dim3 grid(((dkv ? p.Sk : p.Sq) + BQ - 1) / BQ, dkv ? p.Hkv : p.Hq, p.B);
+  if (dkv) {
     constexpr int smem = simt_dkv_smem_bytes<DP>();
     cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<Tout, DP>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    const dim3 grid((p.Sk + BK - 1) / BK, p.Hkv, p.B);
     flash_bwd_dkv_kernel<Tout, DP><<<grid, NTB, smem, stream>>>(p);
-    return cudaGetLastError();
+  } else {
+    constexpr int smem = simt_dq_smem_bytes<DP>();
+    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<Tout, DP>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dq_kernel<Tout, DP><<<grid, NTB, smem, stream>>>(p);
   }
+  return cudaGetLastError();
 }
 
-template <typename Tin, typename Tout>
-cudaError_t launch_d(const BwdParams& p, bool dkv, cudaStream_t stream) {
-  if (dkv)
-    return p.D <= 64 ? launch_dkv<Tin, Tout, 64>(p, stream) : launch_dkv<Tin, Tout, 128>(p, stream);
-  return p.D <= 64 ? launch_dq<Tin, Tout, 64>(p, stream) : launch_dq<Tin, Tout, 128>(p, stream);
+template <typename Tout>
+cudaError_t launch_d(const BwdParams& p, bool dkv, bool bf16, cudaStream_t stream) {
+  if (!bf16)
+    return p.D <= 64 ? launch_simt<Tout, 64>(p, dkv, stream) : launch_simt<Tout, 128>(p, dkv, stream);
+  if (p.D <= 64) return launch_tc<Tout, 64>(p, dkv, stream);
+  if (p.D <= 128) return launch_tc<Tout, 128>(p, dkv, stream);
+  return launch_tc<Tout, 256>(p, dkv, stream);
 }
 
 int dispatch(const BwdParams& p, bool dkv, int in_dtype, int out_dtype, void* stream) {
-  if (p.D < 1 || p.D > 128 || p.Hkv < 1 || p.Hq % p.Hkv != 0 || in_dtype < 0 || in_dtype > 1 ||
-      out_dtype < 0 || out_dtype > 1)
+  if (in_dtype < 0 || in_dtype > 1 || out_dtype < 0 || out_dtype > 1 || p.D < 1 ||
+      p.D > (in_dtype == 1 ? 256 : 128) || p.Hkv < 1 || p.Hq % p.Hkv != 0)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (in_dtype == 0)
-    return out_dtype == 0 ? launch_d<float, float>(p, dkv, st)
-                          : launch_d<float, __nv_bfloat16>(p, dkv, st);
-  return out_dtype == 0 ? launch_d<__nv_bfloat16, float>(p, dkv, st)
-                        : launch_d<__nv_bfloat16, __nv_bfloat16>(p, dkv, st);
+  return out_dtype == 0 ? launch_d<float>(p, dkv, in_dtype == 1, st)
+                        : launch_d<__nv_bfloat16>(p, dkv, in_dtype == 1, st);
 }
 
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16. q/dout (B, Hq, Sq, D) and k/v
-// (B, Hkv, Sk, D) contiguous in in_dtype, D <= 128; lse, delta (B, Hq, Sq)
+// (B, Hkv, Sk, D) contiguous in in_dtype, D <= 256 for bfloat16 (tensor
+// cores) and <= 128 for float32 (CUDA cores); lse, delta (B, Hq, Sq)
 // float32; bias float32 with element strides (or null). umfa_flash_bwd_dq
 // writes out0 = dQ (B, Hq, Sq, D); umfa_flash_bwd_dkv writes out0 = dK and
-// out1 = dV (B, Hkv, Sk, D) (bfloat16 inputs on the tensor cores, float32 on
-// the CUDA cores); both in out_dtype. Each returns the cudaError_t of its
-// launch.
+// out1 = dV (B, Hkv, Sk, D); both in out_dtype. Each returns the
+// cudaError_t of its launch.
 #define UMFA_BWD_ARGS                                                                        \
   const void *q, const void *k, const void *v, const void *dout, const void *lse,           \
       const void *delta, const void *bias, void *out0, void *out1, int B, int Hq, int Hkv, \
@@ -466,9 +533,15 @@ extern "C" int umfa_flash_bwd_dkv(UMFA_BWD_ARGS) {
   return dispatch(UMFA_BWD_PARAMS, true, in_dtype, out_dtype, stream);
 }
 
-// Dynamic shared memory of the tensor-core dK/dV kernel (bfloat16 inputs)
-// for head dim D, in bytes (0 if it does not take D).
-extern "C" int umfa_flash_bwd_dkv_smem_bytes(int D) {
-  if (D < 1 || D > 128) return 0;
-  return D <= 64 ? dkv_smem_bytes<DenseLoad<64>, 64>() : dkv_smem_bytes<DenseLoad<128>, 128>();
+// Dynamic shared memory of the tensor-core dQ (dkv = 0) or dK/dV (dkv = 1)
+// kernel (bfloat16 inputs) for head dim D, in bytes (0 if it does not take D).
+extern "C" int umfa_flash_bwd_smem_bytes(int D, int dkv) {
+  if (D < 1 || D > 256) return 0;
+  if (dkv)
+    return D <= 64    ? dkv_smem_bytes<DenseLoad<64>, 64>()
+           : D <= 128 ? dkv_smem_bytes<DenseLoad<128>, 128>()
+                      : dkv_smem_bytes<DenseLoad<256>, 256>();
+  return D <= 64    ? dq_smem_bytes<DenseDqLoad<64>, 64>()
+         : D <= 128 ? dq_smem_bytes<DenseDqLoad<128>, 128>()
+                    : dq_smem_bytes<DenseDqLoad<256>, 256>();
 }

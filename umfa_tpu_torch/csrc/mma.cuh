@@ -106,6 +106,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_b
                "l"(src), "r"(src_bytes));
 }
 
+// The same for 4 bytes (through L1): `src_bytes` is 4 or 0 (zero-filled).
+// Both addresses 4-aligned.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(src_bytes));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }

@@ -157,10 +157,32 @@ __device__ __forceinline__ void deq_q_rows(__nv_bfloat16* tq, __nv_bfloat16* to,
 
 // ---- dK/dV: the dequantizing load stage of dkv_tc_kernel ------------------
 
+// A dequantized query tile: bf16 tiles (QT x LD) and fp32 rows, all in the
+// converted buffer; Sᵀ and dK both read Q̃.
+template <int DP>
+struct QTile {
+  static constexpr int QT = DkvTile<DP>::QT, LD = DkvTile<DP>::LD;
+  static constexpr int BYTES = 2 * QT * LD * 2 + 3 * QT * 4;
+  __nv_bfloat16* q;
+  __nv_bfloat16* qk;
+  __nv_bfloat16* o;
+  float* vt;
+  float* lse;
+  float* delta;
+  __device__ __forceinline__ QTile(unsigned char* base, unsigned char*) {
+    q = qk = reinterpret_cast<__nv_bfloat16*>(base);
+    o = q + QT * LD;
+    vt = reinterpret_cast<float*>(o + QT * LD);
+    lse = vt + QT;
+    delta = lse + QT;
+  }
+};
+
 template <typename Tdo, int DP>
 struct QuantLoad {
   using G = DkvTile<DP>;
-  using Tile = QTile<DP, false>;
+  using Tile = QTile<DP>;
+  static constexpr int NRAW = 2;
   // Staging buffer: Q codes, dO (up to fp32), LSE, δ, Q's row scales.
   static constexpr int RAW_Q = 0;
   static constexpr int RAW_O = G::QT * DP;
@@ -229,6 +251,21 @@ struct QuantLoad {
 template <typename Tdo, int DP>
 struct QuantDqLoad {
   static constexpr int KT = DqTile<DP>::KT, LD = DqTile<DP>::LD;
+  static constexpr int NRAW = 2, IN_FLIGHT = 0;
+  // The dequantized key tile: K̃, Ṽ (bf16) and the corr row (its per-key
+  // score term) in the converted buffer.
+  struct Kv {
+    static constexpr int BYTES = 2 * KT * LD * 2 + KT * 4;
+    __nv_bfloat16* k;
+    __nv_bfloat16* v;
+    float* c;
+    __device__ __forceinline__ Kv(unsigned char* base, unsigned char*) {
+      k = reinterpret_cast<__nv_bfloat16*>(base);
+      v = k + KT * LD;
+      c = reinterpret_cast<float*>(v + KT * LD);
+    }
+    __device__ __forceinline__ float score(float x, int kj) const { return __fadd_rn(x, c[kj]); }
+  };
   // Staging buffer of a key tile: K codes, V codes, K's and V's row
   // scales, the corr row.
   static constexpr int RAW_K = 0;
@@ -273,20 +310,17 @@ struct QuantDqLoad {
   }
 
   // K̃, Ṽ and the corr row (0 without it) from `raw` into `kv`.
-  static __device__ __forceinline__ void stage(const unsigned char* raw, unsigned char* kv,
+  static __device__ __forceinline__ void stage(const unsigned char* raw, const Kv& kv,
                                                const BwdParams& p, long long kbh, int k0) {
     const int n = min(KT, p.Sk - k0);
-    __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(kv);
-    __nv_bfloat16* sV = sK + KT * LD;
-    float* sC = reinterpret_cast<float*>(sV + KT * LD);
-    deq_rows<DP, KT>(sK, reinterpret_cast<const int8_t*>(raw + RAW_K),
+    deq_rows<DP, KT>(kv.k, reinterpret_cast<const int8_t*>(raw + RAW_K),
                      p.ks_rows ? reinterpret_cast<const float*>(raw + RAW_KS) : nullptr,
                      p.ks_rows ? 0.f : p.ks[kbh], n, p.D, p.int4 & 2, p.D % 8 == 0);
-    deq_rows<DP, KT>(sV, reinterpret_cast<const int8_t*>(raw + RAW_V),
+    deq_rows<DP, KT>(kv.v, reinterpret_cast<const int8_t*>(raw + RAW_V),
                      p.vs_rows ? reinterpret_cast<const float*>(raw + RAW_VS) : nullptr,
                      p.vs_rows ? 0.f : p.vs[kbh], n, p.D, p.int4 & 4, p.D % 8 == 0);
     const float* rc = reinterpret_cast<const float*>(raw + RAW_C);
-    for (int r = threadIdx.x; r < KT; r += blockDim.x) sC[r] = p.corr && r < n ? rc[r] : 0.f;
+    for (int r = threadIdx.x; r < KT; r += blockDim.x) kv.c[r] = p.corr && r < n ? rc[r] : 0.f;
   }
 };
 

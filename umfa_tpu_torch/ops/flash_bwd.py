@@ -1,11 +1,13 @@
 """Dense flash-attention backward (port of umfa_tpu/ops/flash_bwd.py).
 
 `flash_attention_backward` launches the CUDA kernels `csrc/flash_bwd.cu`
-(dQ, then dK/dV: bf16 inputs on the tensor cores, fp32 on the CUDA cores;
-head_dim <= 128) on CUDA tensors and `flash_attention_bias_grad` the kernel
-`csrc/flash_dbias.cu`; on CPU tensors each runs its `*_plain` twin, the
-same arithmetic in plain PyTorch. There is no fallback between the two: a
-CUDA tensor the kernels do not take raises.
+(dQ, then dK/dV) on CUDA tensors and `flash_attention_bias_grad` the kernel
+`csrc/flash_dbias.cu`: bf16 inputs on the tensor cores, head_dim <= 256;
+fp32 inputs (and fp16, computed as fp32) on the CUDA cores, head_dim <= 128,
+since their fp32 tiles do not fit a block's shared memory at 256. On CPU
+tensors each runs its `*_plain` twin, the same arithmetic in plain PyTorch.
+There is no fallback between the two: a CUDA tensor the kernels do not take
+raises.
 
 Semantics (the reference's, flash_bwd.py:45-69, :699-701, :825-1274):
   * P is recomputed from the saved LSE, P = exp(Q·scale·Kᵀ + bias − LSE),
@@ -219,8 +221,12 @@ def _check_device(p: _Prepared, name: str) -> None:
     if p.q.device.type != "cuda" or any(t.device != p.q.device for t in tensors):
         raise ValueError(f"{name} kernel needs every operand on one CUDA device, "
                          f"got {sorted({str(t.device) for t in tensors})}")
-    if p.q.shape[3] > 128:
-        raise ValueError(f"{name} kernel takes head_dim <= 128, got {p.q.shape[3]}")
+    d = p.q.shape[3]
+    if d > 256:
+        raise ValueError(f"{name} kernel takes head_dim <= 256, got {d}")
+    if d > 128 and p.q.dtype != torch.bfloat16:
+        raise ValueError(f"{name} kernel takes head_dim <= 128 for float32 and float16 inputs "
+                         f"(<= 256 for bfloat16), got {d}")
 
 
 def _launch(p: _Prepared, store_dtype: torch.dtype):

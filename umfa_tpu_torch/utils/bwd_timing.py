@@ -1,0 +1,128 @@
+"""Time the backward kernels of a source tree on the card.
+
+    python umfa_tpu_torch/utils/bwd_timing.py [--tree DIR] [--label NAME] [--wide]
+
+Imports `umfa_tpu_torch` from DIR (default: the tree this file is in), so
+another tree, such as a parent commit unpacked with `git archive`, can be
+timed beside this one: run parent, change, change, parent, each in its own
+process, one after another on the same card (each tree builds its kernels
+into its own `_build/`). At the training shape (B8 Hq16 Hkv8 S4096 causal bf16) it
+times `flash_bwd_dq`, `flash_bwd_dkv` and `flash_dbias` (a (1, 16, S, S)
+bias summed over the batch) at D 64 and 128 (and 256 with --wide), and
+`quant_bwd_dq` and `quant_bwd_dkv` on the int8 recipe's residuals at D 64:
+median, min and max of 10 CUDA-event timings after 2 warm-up calls, and at
+D 64 each dense kernel's relerr against its plain version. Prints one JSON
+line per timing, then the card's name and power limit as nvidia-smi gives
+them. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+B, HQ, HKV, S = 8, 16, 8, 4096
+
+
+def _stats(fn, iters=10, warmup=2):
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return {"ms": statistics.median(times), "ms_min": min(times), "ms_max": max(times)}
+
+
+def main(argv=None) -> int:
+    here = os.path.dirname(os.path.abspath(__file__))
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(here)))
+    ap.add_argument("--label", default="tree")
+    ap.add_argument("--wide", action="store_true", help="also time D 256")
+    args = ap.parse_args(argv)
+    tree = os.path.abspath(args.tree)
+    if sys.path and os.path.abspath(sys.path[0]) == here:
+        sys.path.pop(0)  # run as a script: its own directory would shadow top-level names
+    sys.path.insert(0, tree)
+
+    import torch
+
+    from umfa_tpu_torch import _kernels
+    from umfa_tpu_torch.engine.config import Precision
+    from umfa_tpu_torch.ops import flash_bwd as fb
+    from umfa_tpu_torch.ops import quant_bwd as qb
+    from umfa_tpu_torch.ops.flash_fwd import flash_attention_forward
+    from umfa_tpu_torch.ops.quant_fused_attn import fused_quantize_attend
+    from umfa_tpu_torch.utils.testing import rel_err
+
+    if not torch.cuda.is_available():
+        print("bwd_timing: no CUDA device", file=sys.stderr)
+        return 2
+    if not _kernels.__file__.startswith(tree + os.sep):
+        raise RuntimeError(f"imported {_kernels.__file__}, not the tree {tree}")
+    _kernels.build_all(("flash_fwd", "flash_bwd", "flash_dbias", "quant_bwd", "fused_qattn"))
+
+    def emit(**kw):
+        print(json.dumps({"tree": args.label, **kw}), flush=True)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(4)
+
+    def randn(shape):
+        return torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+
+    for d in (64, 128, 256) if args.wide else (64, 128):
+        q, k, v = randn((B, HQ, S, d)), randn((B, HKV, S, d)), randn((B, HKV, S, d))
+        out, lse = flash_attention_forward(q, k, v, causal=True)
+        do = randn(out.shape)
+        p = fb._prepare(q, k, v, out, lse, do, None, None, True, None, None)
+        bias = torch.randn((1, HQ, S, S), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(8))
+        out_b, lse_b = flash_attention_forward(q, k, v, bias, causal=True)
+        pb = fb._prepare(q, k, v, out_b, lse_b, do, bias, None, True, None, None)
+        runs = {
+            "flash_bwd_dq": (lambda: (fb._launch_dq(p, torch.bfloat16),),
+                             lambda: (fb._plain_dq(p),)),
+            "flash_bwd_dkv": (lambda: fb._launch_dkv(p, torch.bfloat16),
+                              lambda: fb._plain_dkv(p)),
+            "flash_dbias": (lambda: (fb._launch_dbias(pb, tuple(bias.shape)),),
+                            lambda: (fb._plain_dbias(pb, tuple(bias.shape)),)),
+        }
+        for name, (kern, plain) in runs.items():
+            err = None
+            if d == 64:
+                err = max(rel_err(x, y) for x, y in zip(kern(), plain()))
+                torch.cuda.empty_cache()
+            emit(kernel=name, D=d, **_stats(kern), relerr=err)
+        del q, k, v, out, lse, do, p, bias, out_b, lse_b, pb, runs
+        torch.cuda.empty_cache()
+
+    q, k, v = randn((B, HQ, S, 64)), randn((B, HKV, S, 64)), randn((B, HKV, S, 64))
+    i8 = Precision.INT8
+    out, lse, qt_q, qt_k, qt_v, qm, vm = fused_quantize_attend(
+        q, k, v, causal=True, q_precision=i8, k_precision=i8, v_precision=i8, smooth=True,
+        smooth_q=False)
+    do = randn(out.shape)
+    p = qb._prepare(qt_q, qt_k, qt_v, out, lse, do, qm, vm, None, None, None, True, None, None)
+    emit(kernel="quant_bwd_dq", D=64, **_stats(lambda: qb._launch_dq(p, torch.bfloat16)))
+    emit(kernel="quant_bwd_dkv", D=64, **_stats(lambda: qb._launch_dkv(p, torch.bfloat16)))
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True,
+                         timeout=60).stdout.strip().splitlines()[0], flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
