@@ -8,17 +8,20 @@ Phases, one JSON line each:
   2. build: the ten CUDA kernel libraries compiled from
      `umfa_tpu_torch/csrc/`, one nvcc each, all at once; then the
      tensor-core kernels (the bf16 kernels of `flash_fwd`, `flash_bwd_dq`,
-     `flash_bwd_dkv` and `flash_dbias`; `quant_bwd_dq`, `quant_bwd_dkv`):
-     their HMMA instructions counted in the SASS (cuobjdump; none fails the
-     run), their registers and spills (ptxas) and dynamic shared memory at
-     D 64/128/256;
+     `flash_bwd_dkv` and `flash_dbias`; `quant_attn_fwd`, `quant_bwd_dq`,
+     `quant_bwd_dkv`): their HMMA instructions, and for `quant_attn_fwd`
+     also its IMMA (int8) ones, counted in the SASS (cuobjdump; none fails
+     the run), their registers and spills (ptxas) and dynamic shared
+     memory at D 64/128/256;
   3. forward kernels against their plain PyTorch versions on the card at
      the serving head geometry (Hq 16 / Hkv 8, D 64, Sk 4096, batch 2),
-     with the stated tolerances, and the bf16 `flash_fwd` also at D 128 and
-     256; then each kernel timed at the prefill shape of the serving run
-     (batch 8, 4032 causal queries against 4096 keys; median, min and max
-     of 10) beside its plain version, its bound, its TFLOP/s and share of
-     the bound, the fp32 inputs' CUDA-core `flash_fwd` and, for the dense
+     with the stated tolerances, and the bf16 `flash_fwd` and the int8
+     `quant_attn_fwd` also at D 128 and 256; then each kernel timed at the
+     prefill shape of the serving run (batch 8, 4032 causal queries against
+     4096 keys; median, min and max of 10) beside its plain version, its
+     bound, its TFLOP/s (for `quant_attn_fwd`, int8 ops and bf16 flops
+     together) and share of the bound, `quant_attn_fwd`'s worst abs error
+     there held to 1e-5, the fp32 inputs' CUDA-core `flash_fwd` and, for the dense
      kernel, torch's scaled_dot_product_attention (a yardstick only; the
      port never calls it);
   4. backward kernels (dQ, dK/dV, dbias) against their plain versions at
@@ -153,6 +156,9 @@ TRAIN_LR = 10.0  # plain SGD on the bf16 parameters; see PERF.md
 N_REQUESTS, SLOTS = 24, 8  # continuous batching at full width
 PROMPT_RANGE, NEW_RANGE = (256, 3584), (8, 64)
 DECODE_SWITCH = "UMFA_ENABLE_DECODE_KERNEL"
+# quant_attn_fwd against its plain version at the prefill shape: the same
+# scores and bf16(P), only the order of the fp32 sums differs.
+QUANT_PREFILL_MAX_ABS = 1e-5
 
 
 def emit(obj):
@@ -308,10 +314,12 @@ def phase_kernels(record):
         emit({"phase": "kernel_check", **res})
         worst["quant_attn_fwd"] = max(worst["quant_attn_fwd"], res["max_abs_out"])
         del got, want, qt
-    # The tensor-core kernel (bf16) at the wider head dims it takes.
+    # The tensor-core kernels (bf16 flash_fwd, int8 quant_attn_fwd) at the
+    # wider head dims they take.
     for name, sq, sk, kw, d in (("causal_prefill_d128", PROMPT, SK, dict(causal=True), 128),
                                 ("masked_rows_d128", SK + 64, SK, dict(window=(0, -1)), 128),
                                 ("causal_prefill_d256", PROMPT, SK, dict(causal=True), 256),
+                                ("masked_rows_d256", SK + 64, SK, dict(window=(0, -1)), 256),
                                 ("bias_tq24_d256", 24, SK, dict(bias=True), 256)):
         bias = path_bias(B_CHECK, sq, sk, 4072) if kw.get("bias") else None
         causal, window = kw.get("causal", False), kw.get("window")
@@ -328,7 +336,22 @@ def phase_kernels(record):
         results.append(res)
         emit({"phase": "kernel_check", **res})
         worst["flash_fwd"] = max(worst["flash_fwd"], res["max_abs_out"])
-        del got, want, q, k, v
+        del got, want
+        qt = [quantize(x, mode=QuantMode.ROW) for x in (q, k, v)]
+        del q, k, v
+
+        def runq(qt=qt):
+            return quantized_attention_forward(*qt, bias, causal=causal, window=window)
+
+        got = runq()
+        torch.cuda.synchronize()
+        want = quantized_attention_forward_plain(*qt, bias, causal=causal, window=window)
+        res = compare(f"quant_attn_fwd/int8/{name}", got, want, 1e-3, 1e-4)
+        res["ms"] = cuda_ms(runq)
+        results.append(res)
+        emit({"phase": "kernel_check", **res})
+        worst["quant_attn_fwd"] = max(worst["quant_attn_fwd"], res["max_abs_out"])
+        del got, want, qt
     record["kernel_checks"] = results
     bad = [r["case"] for r in results if not r["ok"]]
     if bad:
@@ -374,11 +397,15 @@ def phase_kernels(record):
     qp = lambda: quantized_attention_forward_plain(*qt, causal=True)  # noqa: E731
     res = compare("quant_attn_fwd/int8/prefill_b8", qk(), qp(), 1e-3, 1e-4)
     worst["quant_attn_fwd"] = max(worst["quant_attn_fwd"], res["max_abs_out"])
+    if res["max_abs_out"] > QUANT_PREFILL_MAX_ABS:
+        raise AssertionError(f"quant_attn_fwd at the prefill shape: max abs error "
+                             f"{res['max_abs_out']} > {QUANT_PREFILL_MAX_ABS}")
     int_ops = bf16_flops = 2 * D * pairs
     nbytes = (sum(t.values.numel() + t.scales.numel() * 4 for t in qt)
               + b * HQ * sq * D * 4 + b * HQ * sq * 4)
     timing["quant_attn_fwd"] = dict(
-        ms=cuda_ms(qk), plain_ms=cuda_ms(qp, iters=3, warmup=1),
+        **cuda_stats(qk), plain_ms=cuda_ms(qp, iters=3, warmup=1),
+        flops=int_ops + bf16_flops,  # int8 ops and bf16 flops together
         int8_ops=int_ops, bf16_flops=bf16_flops, bytes=nbytes,
         ops_ms=(int_ops / H100_INT8_OPS + bf16_flops / H100_BF16_FLOPS) * 1e3,
         bytes_ms=nbytes / H100_HBM_BYTES * 1e3,
@@ -2081,7 +2108,11 @@ def phase_mma_probe(record):
 
 # The tensor-core kernels: library -> the stems of their function names.
 TC_KERNELS = {"flash_fwd": ("flash_fwd_tc_kernel",), "flash_bwd": ("dq_tc_kernel", "dkv_tc_kernel"),
-              "flash_dbias": ("dbias_tc_kernel",), "quant_bwd": ("dq_tc_kernel", "dkv_tc_kernel")}
+              "flash_dbias": ("dbias_tc_kernel",), "quant_bwd": ("dq_tc_kernel", "dkv_tc_kernel"),
+              "quant_attn_fwd": ("quant_attn_fwd_tc_kernel",)}
+# The tensor-core instructions (SASS mnemonics) each library's kernels must
+# hold: HMMA for bf16 mma.sync, IMMA for int8.
+TC_OPS = {"quant_attn_fwd": ("HMMA", "IMMA")}
 
 
 def ptxas_resources(log):
@@ -2105,8 +2136,9 @@ def ptxas_resources(log):
 
 
 def phase_sass(record, report):
-    """Count the HMMA (tensor-core) instructions of each tensor-core kernel
-    in its library's SASS (cuobjdump -sass); raise if a kernel has none.
+    """Count the HMMA (and, per TC_OPS, IMMA) tensor-core instructions of
+    each tensor-core kernel in its library's SASS (cuobjdump -sass); raise
+    if a kernel has none of one of them.
     With each kernel its registers and spills (ptxas -v, when this run built
     the library) and the dynamic shared memory it launches with."""
     import ctypes
@@ -2121,6 +2153,7 @@ def phase_sass(record, report):
         sass = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass",
                                str(_kernels._lib_path(lib))],
                               capture_output=True, text=True, check=True, timeout=300).stdout
+        ops = TC_OPS.get(lib, ("HMMA",))
         fn = None
         for ln in sass.splitlines():
             m = re.search(r"Function : (\S+)", ln)
@@ -2128,14 +2161,17 @@ def phase_sass(record, report):
                 stem = next((st for st in stems if st in m.group(1)), None)
                 fn = f"{lib}:{m.group(1)}" if stem else None
                 if fn:
-                    kernels[fn] = {"library": lib, "stem": stem, "hmma": 0}
-            elif fn and "HMMA" in ln:
-                kernels[fn]["hmma"] += 1
+                    kernels[fn] = {"library": lib, "stem": stem, **{op.lower(): 0 for op in ops}}
+            elif fn:
+                for op in ops:
+                    if op in ln:
+                        kernels[fn][op.lower()] += 1
         for stem in stems:
             found = [f for f in kernels if kernels[f]["library"] == lib and kernels[f]["stem"] == stem]
-            if not found or any(kernels[f]["hmma"] == 0 for f in found):
-                raise AssertionError(f"no HMMA in the SASS of {lib}'s {stem}: "
-                                     f"{ {f: kernels[f]['hmma'] for f in found} }")
+            for op in ops:
+                if not found or any(kernels[f][op.lower()] == 0 for f in found):
+                    raise AssertionError(f"no {op} in the SASS of {lib}'s {stem}: "
+                                         f"{ {f: kernels[f][op.lower()] for f in found} }")
         if lib in report:
             for f, r in ptxas_resources(report[lib]["ptxas"]).items():
                 if f"{lib}:{f}" in kernels:
@@ -2144,6 +2180,7 @@ def phase_sass(record, report):
     fbwd = _kernels.function("flash_bwd", "umfa_flash_bwd_smem_bytes", (ctypes.c_int, ctypes.c_int))
     fdb = _kernels.function("flash_dbias", "umfa_flash_dbias_smem_bytes", (ctypes.c_int,))
     qbwd = _kernels.function("quant_bwd", "umfa_quant_bwd_smem_bytes", (ctypes.c_int, ctypes.c_int))
+    qfwd = _kernels.function("quant_attn_fwd", "umfa_quant_attn_fwd_smem_bytes", (ctypes.c_int,))
     for d in (64, 128, 256):
         smem[f"flash_fwd bf16 D{d}"] = fwd(d, 1)
         smem[f"flash_fwd fp32 D{d}"] = fwd(d, 0)
@@ -2152,6 +2189,7 @@ def phase_sass(record, report):
         smem[f"flash_dbias bf16 D{d}"] = fdb(d)
         smem[f"quant_bwd_dq D{d}"] = qbwd(d, 0)
         smem[f"quant_bwd_dkv D{d}"] = qbwd(d, 1)
+        smem[f"quant_attn_fwd D{d}"] = qfwd(d)
     out = {"kernels": kernels, "dynamic_smem_bytes": smem}
     emit({"phase": "sass", **out})
     record["sass"] = out
@@ -2187,7 +2225,12 @@ DESIGN = {
                      "dequantized once, raw int8/int4 Q and dO tiles double-buffered by cp.async "
                      "and dequantized to bf16 in shared memory, Pᵀ and dSᵀ fed from the "
                      "accumulators)",
-    "quant_attn_fwd": "CUDA cores: exact int8 QKᵀ by __dp4a, P·V as FP32 FMAs",
+    "quant_attn_fwd": "tensor cores: QKᵀ by mma.sync m16n8k32 s8->s32 (exact), P·V by mma.sync "
+                      "m16n8k16 bf16->fp32 (8 warps x 16 query rows, Q fragments in registers at "
+                      "D <= 128, int8 K/V 64-key tiles and scales in three cp.async buffers two "
+                      "tiles ahead, each V tile dequantized once a block a step ahead into one of "
+                      "two padded bf16 tiles, P from the score accumulators in 16-key chunks; two "
+                      "passes: QKᵀ alone for the exact row max, then P·V)",
     "fused_qattn": "CUDA cores: scores summed in double, P·V as FP32 FMAs",
     "quant_rows": "CUDA cores: one warp a row, elementwise",
     "mma_probe": "tensor cores, mma.sync m16n8k16 bf16->fp32",

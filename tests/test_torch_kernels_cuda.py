@@ -151,6 +151,11 @@ QUANT_CASES = [
     (1, 2, 1, 130, 257, 128, True, None, False, QuantMode.TENSOR, QuantMode.BLOCK),
     (2, 2, 2, 100, 60, 32, False, (0, -1), False, QuantMode.ROW, QuantMode.TENSOR),
     (1, 4, 4, 120, 120, 48, False, (30, 5), True, QuantMode.BLOCK, QuantMode.ROW),
+    (1, 4, 1, 300, 257, 256, False, (0, -1), False, QuantMode.ROW, QuantMode.ROW),  # GQA 4, tail, masked rows
+    (2, 2, 1, 70, 300, 256, False, (40, 8), True, QuantMode.ROW, QuantMode.ROW),   # -1e30 bias entries
+    (1, 4, 2, 130, 257, 192, True, None, False, QuantMode.ROW, QuantMode.BLOCK),   # D 192 padded to 256
+    (2, 4, 2, 100, 150, 36, True, None, True, QuantMode.ROW, QuantMode.ROW),       # 4-byte copies
+    (2, 4, 2, 16, 300, 128, False, (-1, 284), False, QuantMode.ROW, QuantMode.ROW),  # Tq 16 chunk
 ]
 
 
@@ -330,6 +335,31 @@ def test_flash_attention_autograd_on_the_card_matches_the_cpu(dev):
 def test_flash_bwd_dkv_tc_bf16_in_fp32_out(dev, case):
     args, kw = _bwd_inputs(case, torch.bfloat16, dev)
     _check_bwd(args, kw, None, 5e-4)
+
+
+def test_quant_attn_fwd_kernel_word_copies_for_unaligned_operands(dev):
+    # int8 operands 4 bytes past a 16-byte boundary: 4-byte copies at D 64.
+    q, k, v = _qkv(1, 4, 2, 130, 200, 64, torch.float32, dev)
+    qt = [quantize(x) for x in (q, k, v)]
+    for t in qt:
+        buf = torch.empty(t.values.numel() + 16, dtype=torch.int8, device=dev)
+        t.values = buf[4:4 + t.values.numel()].view(t.values.shape).copy_(t.values)
+        assert t.values.data_ptr() % 16 == 4
+    n0 = _kernels.launches["quant_attn_fwd"]
+    out, lse = quantized_attention_forward(*qt, causal=True)
+    torch.cuda.synchronize()
+    assert _kernels.launches["quant_attn_fwd"] == n0 + 1
+    _check(out, lse, *quantized_attention_forward_plain(*qt, causal=True), 1e-3, 1e-4)
+
+
+@pytest.mark.parametrize("d", [260, 320])
+def test_quant_attn_fwd_kernel_refuses_head_dim_over_256(dev, d):
+    q, k, v = _qkv(1, 2, 1, 64, 64, d, torch.float32, dev)
+    qt = [quantize(x) for x in (q, k, v)]
+    n0 = _kernels.launches["quant_attn_fwd"]
+    with pytest.raises(ValueError, match="head_dim <= 256"):
+        quantized_attention_forward(*qt, causal=True)
+    assert _kernels.launches["quant_attn_fwd"] == n0
 
 
 def test_flash_bwd_kernels_refuse_what_they_do_not_take(dev):
@@ -591,6 +621,28 @@ def test_quantized_training_on_the_card_matches_the_cpu(dev):
             grads[where] = [x.grad.cpu() for x in t]
         for a, b_, name in zip(grads["cuda"], grads["cpu"], ("dq", "dk", "dv", "dbias")):
             assert rel_err(a, b_) <= 1e-2, (recipe, name)
+
+
+def test_quantized_attention_two_pass_at_head_dim_256_on_the_card(dev, monkeypatch):
+    # fused_qattn takes head_dim <= 128; the two-pass route (quant_rows,
+    # quant_attn_fwd, then the quantized backward) takes 256.
+    g = torch.Generator().manual_seed(9)
+    q, k, v = (torch.randn(s, generator=g) for s in ((1, 4, 130, 256), (1, 2, 130, 256),
+                                                    (1, 2, 130, 256)))
+    cfg = QuantizationConfig.from_mode_string("int8")
+    with pytest.raises(ValueError, match="head_dim <= 128"):
+        quantized_flash_attention(q.to(dev), k.to(dev), v.to(dev), config=cfg, causal=True)
+    monkeypatch.setenv("UMFA_DISABLE_FUSED_QUANT", "1")
+    got = {}
+    for where in ("cuda", "cpu"):
+        t = [x.to(where, copy=True).requires_grad_(True) for x in (q, k, v)]
+        n0 = _kernels.launches["quant_attn_fwd"]
+        out = quantized_flash_attention(*t, config=cfg, causal=True)
+        assert _kernels.launches["quant_attn_fwd"] == n0 + (where == "cuda")
+        out.square().sum().backward()
+        got[where] = [out.detach().cpu()] + [x.grad.cpu() for x in t]
+    for a, b_, name in zip(got["cuda"], got["cpu"], ("out", "dq", "dk", "dv")):
+        assert rel_err(a, b_) <= 1e-2, name
 
 
 # Row 10: flash-decode over the INT8 cache (csrc/flash_decode.cu), against

@@ -101,28 +101,33 @@ def test_env_flag(monkeypatch):
     assert env_flag("UMFA_TEST_FLAG", True)
 
 
-def _decode_bias(sq, sk, length):
+def _decode_bias(sq, sk, length, b=B):
     pos = np.arange(sk)[None, :]
     qpos = (length - sq + np.arange(sq))[:, None]
     bias = np.where((pos > qpos) | (pos >= length), -1e30, 0.0).astype(np.float32)
-    return np.broadcast_to(bias, (B, 1, sq, sk)).copy()
+    return np.broadcast_to(bias, (b, 1, sq, sk)).copy()
 
 
+WIDE = (1, 2, 1)  # b, hq, hkv of the wide-head cases
 QCASES = [
-    # id, sq, sk, kwargs, bias, kv mode
+    # id, sq, sk, kwargs, bias, kv mode[, (b, hq, hkv, d)]
     ("causal_sq_ne_sk", 160, 192, dict(causal=True), False, QuantMode.ROW),
     ("window_chunk_start", 16, 192, dict(window=(-1, 176)), False, QuantMode.ROW),
     ("bias_decode_route", 24, 192, {}, True, QuantMode.ROW),
     ("tensor_scales_window", 128, 128, dict(window=(32, 0)), False, QuantMode.TENSOR),
     ("fully_masked_rows", 200, 136, dict(window=(0, -1)), False, QuantMode.ROW),
+    ("causal_d128", 96, 160, dict(causal=True), False, QuantMode.ROW, (*WIDE, 128)),
+    ("causal_d256", 96, 160, dict(causal=True), False, QuantMode.ROW, (*WIDE, 256)),
+    ("window_bias_d256", 24, 160, dict(window=(64, 0)), True, QuantMode.ROW, (*WIDE, 256)),
 ]
 
 
 @pytest.mark.parametrize("case", QCASES, ids=[c[0] for c in QCASES])
 def test_quantized_attention_forward_matches_jax(case):
-    _, sq, sk, kw, use_bias, kv_mode = case
-    q, k, v = _x(4, (B, HQ, sq, D)), _x(5, (B, HKV, sk, D)), _x(6, (B, HKV, sk, D))
-    bias = _decode_bias(sq, sk, sk - 4) if use_bias else None
+    _, sq, sk, kw, use_bias, kv_mode = case[:6]
+    b, hq, hkv, d = case[6] if len(case) > 6 else (B, HQ, HKV, D)
+    q, k, v = _x(4, (b, hq, sq, d)), _x(5, (b, hkv, sk, d)), _x(6, (b, hkv, sk, d))
+    bias = _decode_bias(sq, sk, sk - 4, b) if use_bias else None
     jm = _jenum(kv_mode, JQuantMode)
     j_out, j_lse = jax_qattn(
         jquant.quantize(jnp.asarray(q)), jquant.quantize(jnp.asarray(k), mode=jm),
@@ -139,7 +144,7 @@ def test_quantized_attention_forward_matches_jax(case):
     np.testing.assert_allclose(t_lse.numpy()[vis], j_lse[vis], atol=1e-5, rtol=0)
     np.testing.assert_array_equal(t_lse.numpy()[~vis], j_lse[~vis])
     if case[0] == "fully_masked_rows":
-        assert (~vis).sum() == B * HQ * (sq - sk)
+        assert (~vis).sum() == b * hq * (sq - sk)
         np.testing.assert_array_equal(t_out.numpy()[~vis], 0.0)
 
 

@@ -1,6 +1,6 @@
 // Tensor-core building blocks for Hopper, sm_90a: `mma.sync` m16n8k16 bf16
-// -> fp32, `ldmatrix` (plain and transposed), 16-byte `cp.async`, and the
-// fragment layouts the attention kernels rely on.
+// -> fp32 and m16n8k32 int8 -> int32, `ldmatrix` (plain and transposed),
+// `cp.async`, and the fragment layouts the attention kernels rely on.
 //
 // Fragment layout of m16n8k16 (lane l, g = l / 4, t = l % 4):
 //   A (16 x 16, row-major): a[0] = A[g][2t..2t+1], a[1] = A[g+8][2t..],
@@ -13,9 +13,21 @@
 // 16 columns (`pack_a`): a product's output feeds the next product without
 // a trip through shared memory.
 //
+// Fragment layout of m16n8k32 s8 -> s32 (`mma_s8`), each register four
+// int8, the lowest k in the low byte:
+//   A (16 x 32, row-major): a[0] = A[g][4t..4t+3], a[1] = A[g+8][4t..],
+//                           a[2] = A[g][4t+16..],  a[3] = A[g+8][4t+16..];
+//   B (32 x 8):             b[0] = B[4t..4t+3][g], b[1] = B[4t+16..4t+19][g];
+//   C (16 x 8, s32):        as the fp32 C of m16n8k16.
+// Bytes 4t..4t+3 of an int8 row are its 16-bit words 2t..2t+1, so with an
+// int8 tile viewed as 16-bit words (k0 and the row stride halved), the
+// bf16 loaders `load_a` and `load_b_nk` return the int8 fragments of the
+// 32-deep step over bytes [2 k0, 2 k0 + 32).
+//
 // Shared-memory tiles are bf16, row-major, with rows padded to a stride of
 // (width + 8) elements: 16 bytes past a multiple of 128, so the eight
 // 16-byte rows that one `ldmatrix` phase reads fall in distinct banks.
+// Int8 tiles are padded the same way, to (width + 16) bytes.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -28,6 +40,16 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
   asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Exact integer product: the s32 sums of int8 products do not wrap for
+// the depths used here (|sum| <= 256 * 128 * 128 = 2^22).
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                                       const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 

@@ -1,36 +1,68 @@
 // Quantized (INT8) attention forward on pre-quantized operands, for
-// Hopper, sm_90a.
+// Hopper, sm_90a, on the tensor cores.
 //
 // Replaces umfa_tpu/ops/quant_attention.py:74 `_quant_fwd_kernel` (host
 // `quantized_attention_forward`, quant_attention.py:295) for symmetric INT8
-// operands with per-row or per-tensor scales, bias, causal/window and GQA.
-// INT4 operands, asymmetric zero points, the Q-mean correction row, integer
-// P·V and block-sparse walks are not ported yet.
+// operands with per-row or per-tensor scales, bias, causal/window and GQA,
+// head dims up to 256 (D % 4 == 0; templates 64, 128, 256, a smaller D
+// zero-padded to the template width, where int8 zeros add nothing to the
+// dot). INT4 operands, asymmetric zero points, the Q-mean correction row,
+// integer P·V and block-sparse walks are not ported yet.
 //
-// What bounds it on this card: at the serving shapes (D = 64, causal
-// prefill of 4032 queries against the 4096-row INT8 cache) it is
-// compute-bound, like the dense kernel: 2*D integer ops per visible pair for
-// QKᵀ (1,979 TOP/s int8 peak) plus 2*D bf16 flops for P·V (989 TFLOP/s),
-// against one byte per element of Q/K/V.
+// What bounds it on this card: at the serving prefill (B8 Hq16 Hkv8, 4032
+// causal queries against the 4096-row INT8 cache, D 64) the work is
+// operation-bound: 2·D int8 ops per visible (query, key) pair for QKᵀ
+// (1,979 TOP/s) plus 2·D bf16 flops for P·V (989 TFLOP/s), against one
+// byte per element of Q/K/V and four per element of the fp32 output. What
+// holds this mma.sync design far above that bound is the per-pair work
+// around the products: two exactly rounded scale multiplies and the mask
+// in each pass, then the accurate expf, the l sum and the bf16 rounding of
+// P in the second, on 16 warps an SM.
 //
-// What this design does about it: simple and exact first. QKᵀ is an exact
-// int8 x int8 -> int32 dot with __dp4a (four products per instruction on the
-// CUDA cores); P·V runs as FP32 FMAs on bf16-rounded operands. Same tiling
-// as flash_fwd.cu: one block of 128 threads per (64-row query tile, q head,
-// batch), 64-key tiles in shared memory, invisible key tiles skipped. Two
-// passes over the visible keys: the first computes only QKᵀ and the exact
-// row max, the second exponentiates against that final max, so P is rounded
-// to bf16 where the plain version rounds it (a one-pass online softmax
-// rounds relative to a running max and lands ~1e-3 away). The first pass
-// costs one more int8 QKᵀ, the cheap half of the work here. Tensor-core
-// int8 mma is later work.
+// What this design does about it (`quant_attn_fwd_tc_kernel`, the shape of
+// flash_fwd.cu's `flash_fwd_tc_kernel`):
+//   * one block of 8 warps per (128-row query tile, q head, batch), issued
+//     heaviest first; each warp owns 16 whole query rows, so row maxima and
+//     sums need only quad shuffles; two blocks an SM at D <= 128;
+//   * QKᵀ by mma.sync m16n8k32 s8 x s8 -> s32: exact, like the __dp4a it
+//     replaces. Int8 tiles are padded to DP + 16 bytes a row and read by
+//     the bf16 ldmatrix loaders viewing each row as 16-bit words (mma.cuh).
+//     Q's int8 tile is staged once; at D <= 128 its A fragments stay in
+//     registers for the whole walk, at D 256 they are read from shared
+//     memory;
+//   * the int8 K and V tiles of 64 keys and their scales arrive by cp.async
+//     into three buffers, two tiles ahead (16-byte copies when D % 16 == 0
+//     and the operands are 16-byte aligned, 4-byte copies otherwise); rows
+//     past Sk and columns past D are zero-filled by the copy. Key tiles
+//     hidden from the whole block are never loaded, a warp skips a tile its
+//     rows cannot see, and masks and bias are applied only on tiles that
+//     cross a mask edge or carry a bias;
+//   * each V tile is dequantized once per block, a step ahead, into one of
+//     two padded bf16 tiles, bf16(bf16(v) · bf16(v_scale)), so a step needs
+//     one barrier; the scores of each 16-key chunk go straight from the
+//     s32 accumulators through the softmax into the A fragment of P·V,
+//     mma.sync m16n8k16 bf16 -> fp32, with V's B fragments through
+//     ldmatrix.trans.
+//
+// Two passes over the visible keys, kept on purpose: the first runs QKᵀ
+// alone for the exact row max m (it copies no V), the second forms
+// P = expf(s - m) against that final max. P is then rounded to bf16 where
+// the plain version and the reference round it; a one-pass online softmax
+// rounds against a running max and put this kernel's LSE ~1e-3 from the
+// plain version's, over its 1e-4 gate. The first pass costs one more int8
+// QKᵀ and its scaling for every visible tile.
 //
 // Arithmetic held to the reference (quant_attention.py:166-256):
-//   s = float(int32 dot) * q_scale * k_scale, with the softmax scale
-//   already folded into q_scale by the host; + bias; index mask -> -1e30;
-//   l sums the FP32 P; P·V uses bf16(P) and the dequantized V tile
-//   bf16(bf16(v_i8) * bf16(v_scale)), accumulated in FP32; output FP32.
+//   s = float(int32 dot) * q_scale * k_scale, two rounded multiplies with
+//   the softmax scale already folded into q_scale by the host, then a
+//   rounded add of the bias (never contracted, so both passes get the same
+//   bits); index mask (causal, window, KV tail) -> -1e30 and P = 0 (a
+//   -1e30 bias is not an index mask); l sums the fp32 P; P·V takes bf16(P)
+//   and the dequantized V tile, accumulated in fp32; output fp32; a row
+//   with no visible key writes out = 0 and LSE -1e30; q head h reads kv
+//   head h / (Hq / Hkv).
 #include "common.cuh"
+#include "mma.cuh"
 
 using namespace umfa;
 
@@ -50,172 +82,284 @@ struct QParams {
   int qs_rows, ks_rows, vs_rows;  // 1 = one scale per row, 0 = one per (b, h)
   long long bsb, bsh, bsq, bsk;
   int left, right;
+  int vec;  // D % 16 == 0 and q/k/v 16-byte aligned: 16-byte copies
 };
 
+// Tile geometry: 8 warps of 16 query rows each, BQ = 128 query rows a
+// block, 64-key tiles in three buffers (tile i computed, tile i + 1 landed
+// and its V dequantized, tile i + 2 in flight) and the dequantized V in
+// two. At D <= 128 two blocks an SM (registers capped at 128).
 template <int DP>
-constexpr int quant_smem_bytes() {
-  return (BQ * (DP / 4 + 1) + BK * (DP / 4 + 1)) * (int)sizeof(int) +
-         (BK * DP + BQ * (BK + 1) + BK) * (int)sizeof(float);
+struct Cfg {
+  static constexpr int NW = 8;
+  static constexpr int NTH = 32 * NW;
+  static constexpr int BQ = 16 * NW;
+  static constexpr int MINB = DP <= 128 ? 2 : 1;
+  static constexpr int LD8 = DP + 16;  // bytes per int8 row
+  static constexpr int LDV = DP + 8;   // bf16 elements per dequantized V row
+  // Shared memory, in bytes: the Q tile, the int8 K and V tiles, the
+  // dequantized bf16 V tiles, the K and V scales. Each part a multiple of 16.
+  static constexpr int Q = 0;
+  static constexpr int K = Q + BQ * LD8;            // [3][BK][LD8]
+  static constexpr int V = K + 3 * BK * LD8;        // [3][BK][LD8]
+  static constexpr int VB = V + 3 * BK * LD8;       // [2][BK][LDV] bf16
+  static constexpr int KS = VB + 2 * BK * LDV * 2;  // [3][BK] fp32
+  static constexpr int VS = KS + 3 * BK * 4;        // [3][BK] fp32
+  static constexpr int BYTES = VS + 3 * BK * 4;
+};
+
+// Rows [r0, r0 + R) of an int8 (n, D) matrix into a tile of row stride
+// DP + 16 bytes by cp.async from NTH threads (the caller commits); rows
+// past n and columns past D are zero-filled. vec: 16-byte copies, else
+// 4-byte ones.
+template <int DP, int R, int NTH>
+__device__ __forceinline__ void copy_tile(int8_t* dst, const int8_t* src, int r0, int n, int D,
+                                          bool vec) {
+  constexpr int LD = DP + 16;
+  if (vec) {
+    constexpr int CH = DP / 16;
+    static_assert(R * CH % NTH == 0, "whole sweeps");
+#pragma unroll
+    for (int it = 0; it < R * CH / NTH; ++it) {
+      const int e = threadIdx.x + it * NTH, r = e / CH, c = (e % CH) * 16;
+      const bool ok = r0 + r < n && c < D;
+      cp_async16(dst + r * LD + c, ok ? src + (long long)(r0 + r) * D + c : src, ok ? 16 : 0);
+    }
+  } else {
+    constexpr int CW = DP / 4;
+    static_assert(R * CW % NTH == 0, "whole sweeps");
+#pragma unroll 4
+    for (int it = 0; it < R * CW / NTH; ++it) {
+      const int e = threadIdx.x + it * NTH, r = e / CW, c = (e % CW) * 4;
+      const bool ok = r0 + r < n && c < D;
+      cp_async4(dst + r * LD + c, ok ? src + (long long)(r0 + r) * D + c : src, ok ? 4 : 0);
+    }
+  }
+}
+
+// The scale of row r0 + i (one per row, or the one of the (b, h)) into
+// dst[i], for the calling thread's i < 64; 0 past n.
+__device__ __forceinline__ void copy_scale(float* dst, const float* src, int per_row, int r0,
+                                           int i, int n) {
+  const bool ok = r0 + i < n;
+  cp_async4(dst + i, src + (per_row && ok ? r0 + i : 0), ok ? 4 : 0);
 }
 
 template <int DP>
-__global__ void __launch_bounds__(NT) quant_attn_fwd_kernel(const QParams p) {
-  constexpr int W = DP / 4;  // int8x4 words per row
-  constexpr int WS = W + 1;
-  constexpr int PS = BK + 1;
-  constexpr int NC = DP / 8;
-  extern __shared__ int smem_i[];
-  int* sQ = smem_i;
-  int* sK = sQ + BQ * WS;
-  float* sV = reinterpret_cast<float*>(sK + BK * WS);
-  float* sP = sV + BK * DP;
-  float* sKs = sP + BQ * PS;
+__global__ void __launch_bounds__(Cfg<DP>::NTH, Cfg<DP>::MINB)
+    quant_attn_fwd_tc_kernel(const QParams p) {
+  using L = Cfg<DP>;
+  constexpr int NTH = L::NTH, BQ_ = L::BQ;
+  constexpr int LDW = L::LD8 / 2;   // int8 row stride in 16-bit words
+  constexpr int KS = DP / 32;       // 32-deep steps of QKᵀ
+  constexpr int NA = DP / 8;        // 8-column accumulator tiles of out
+  constexpr bool QREG = DP <= 128;  // Q's A fragments held in registers
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  int8_t* sQ = reinterpret_cast<int8_t*>(smem_raw + L::Q);
+  int8_t* sK = reinterpret_cast<int8_t*>(smem_raw + L::K);
+  int8_t* sV = reinterpret_cast<int8_t*>(smem_raw + L::V);
+  __nv_bfloat16* sVb = reinterpret_cast<__nv_bfloat16*>(smem_raw + L::VB);
+  float* sKs = reinterpret_cast<float*>(smem_raw + L::KS);
+  float* sVs = reinterpret_cast<float*>(smem_raw + L::VS);
+  const __nv_bfloat16* wQ = reinterpret_cast<const __nv_bfloat16*>(sQ);
 
-  const int tid = threadIdx.x, tx = tid & 7, ty = tid >> 3;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ_, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (p.Hq / p.Hkv);
-  const int wd = p.D / 4;
-  const int* q = reinterpret_cast<const int*>(p.q + ((long long)b * p.Hq + h) * p.Sq * p.D);
-  const int* k = reinterpret_cast<const int*>(p.k + ((long long)b * p.Hkv + hk) * p.Sk * p.D);
+  const int8_t* q = p.q + ((long long)b * p.Hq + h) * p.Sq * p.D;
+  const int8_t* k = p.k + ((long long)b * p.Hkv + hk) * p.Sk * p.D;
   const int8_t* v = p.v + ((long long)b * p.Hkv + hk) * p.Sk * p.D;
   const float* qs = p.qs + ((long long)b * p.Hq + h) * (p.qs_rows ? p.Sq : 1);
   const float* ks = p.ks + ((long long)b * p.Hkv + hk) * (p.ks_rows ? p.Sk : 1);
   const float* vs = p.vs + ((long long)b * p.Hkv + hk) * (p.vs_rows ? p.Sk : 1);
   const float* bias = p.bias ? p.bias + b * p.bsb + h * p.bsh : nullptr;
 
-  for (int e = tid; e < BQ * W; e += NT) {
-    const int r = e / W, w = e - r * W;
-    sQ[r * WS + w] = (q0 + r < p.Sq && w < wd) ? q[(long long)(q0 + r) * wd + w] : 0;
-  }
-  float qsc[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    qsc[i] = row < p.Sq ? qs[p.qs_rows ? row : 0] : 0.f;
-  }
-
   int k_lo, k_hi;
-  visible_keys(q0, min(q0 + BQ, p.Sq) - 1, p.Sk, p.left, p.right, &k_lo, &k_hi);
+  visible_keys(q0, min(q0 + BQ_, p.Sq) - 1, p.Sk, p.left, p.right, &k_lo, &k_hi);
   const int t_lo = k_lo / BK;
-  const int t_hi = k_hi >= k_lo ? k_hi / BK : t_lo - 1;
-
-  // K tile (int8x4 words) and its scales into shared memory.
-  auto load_k = [&](int k0) {
-    for (int e = tid; e < BK * W; e += NT) {
-      const int r = e / W, w = e - r * W;
-      sK[r * WS + w] = (k0 + r < p.Sk && w < wd) ? k[(long long)(k0 + r) * wd + w] : 0;
+  const int n_t = k_hi >= k_lo ? k_hi / BK - t_lo + 1 : 0;
+  // Steps [0, n_t) are pass 1 (QKᵀ and the row max, K only), steps
+  // [n_t, 2 n_t) pass 2 (P against the final max, P·V), over the same
+  // tiles. Step i reads buffer i % 3; tile i + 2 is copied meanwhile.
+  const int steps = 2 * n_t;
+  auto k0_of = [&](int i) { return (t_lo + (i < n_t ? i : i - n_t)) * BK; };
+  auto issue = [&](int i) {
+    if (i < steps) {
+      const int buf = i % 3, k0 = k0_of(i);
+      const bool with_v = i >= n_t;
+      copy_tile<DP, BK, NTH>(sK + buf * BK * L::LD8, k, k0, p.Sk, p.D, p.vec);
+      if (with_v) copy_tile<DP, BK, NTH>(sV + buf * BK * L::LD8, v, k0, p.Sk, p.D, p.vec);
+      if (tid < BK)
+        copy_scale(sKs + buf * BK, ks, p.ks_rows, k0, tid, p.Sk);
+      else if (with_v && tid < 2 * BK)
+        copy_scale(sVs + buf * BK, vs, p.vs_rows, k0, tid - BK, p.Sk);
     }
-    if (tid < BK) sKs[tid] = k0 + tid < p.Sk ? ks[p.ks_rows ? k0 + tid : 0] : 0.f;
+    cp_async_commit();  // empty groups keep the count of groups uniform
   };
-  // This thread's 4x8 scores of the tile at k0; returns the bits of the
-  // index-visible ones (the others are MASK_VALUE). Explicitly rounded
-  // multiplies and add (never contracted): both passes get the same bits.
-  auto scores = [&](int k0, float (&s)[4][8]) -> unsigned {
-    int si[4][8];
+  if (steps > 0) copy_tile<DP, BQ_, NTH>(sQ, q, q0, p.Sq, p.D, p.vec);  // lands with tile 0
+  issue(0);
+  issue(1);
+
+  // The V tile of step i, bf16(bf16(v) · bf16(vs)), into dequantized
+  // buffer i & 1: four codes a thread a row, the same column of each row.
+  auto dequant = [&](int i) {
+    constexpr int W = DP / 4;
+    static_assert(BK * W % NTH == 0, "whole sweeps");
+    const int8_t* cV = sV + (i % 3) * BK * L::LD8;
+    const float* cVs = sVs + (i % 3) * BK;
+    __nv_bfloat16* dst = sVb + (i & 1) * BK * L::LDV;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) si[i][j] = 0;
-#pragma unroll 8
-    for (int w = 0; w < W; ++w) {
-      int a[4], kb[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = sQ[(ty * 4 + i) * WS + w];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) kb[j] = sK[(tx + 8 * j) * WS + w];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) si[i][j] = __dp4a(a[i], kb[j], si[i][j]);
+    for (int it = 0; it < BK * W / NTH; ++it) {
+      const int e = tid + it * NTH, r = e / W, c = (e % W) * 4;
+      const char4 x = *reinterpret_cast<const char4*>(cV + r * L::LD8 + c);
+      const float sc = round_bf16(cVs[r]);
+      uint2 y;
+      y.x = pack_bf16x2(__fmul_rn((float)x.x, sc), __fmul_rn((float)x.y, sc));
+      y.y = pack_bf16x2(__fmul_rn((float)x.z, sc), __fmul_rn((float)x.w, sc));
+      *reinterpret_cast<uint2*>(dst + r * L::LDV + c) = y;
     }
-    unsigned vis = 0u;
+  };
+
+  const int rw = warp * 16;                       // the warp's first row in the tile
+  const int row0 = q0 + rw + g, row1 = row0 + 8;  // this thread's two rows
+  const float qsc[2] = {row0 < p.Sq ? qs[p.qs_rows ? row0 : 0] : 0.f,
+                        row1 < p.Sq ? qs[p.qs_rows ? row1 : 0] : 0.f};
+  uint32_t qf[QREG ? KS : 1][4];
+
+  // This thread's scores of keys k0 + 16 c + [0, 16) of the K tile wK:
+  // s = fl(fl(dot · q_scale) · k_scale), + bias, index-masked to
+  // MASK_VALUE; element (jj, e) is row e < 2 ? row0 : row1, key
+  // k0 + 16 c + 8 jj + 2 tq + (e & 1). With `edge` (the tile crosses a
+  // mask edge or carries a bias) returns the bits 4 jj + e of the visible.
+  auto chunk = [&](const int8_t* cK, const float* cKs, int k0, int c, bool edge,
+                   float (&s)[2][4]) -> unsigned {
+    const __nv_bfloat16* wK = reinterpret_cast<const __nv_bfloat16*>(cK);
+    int si[2][4] = {{0, 0, 0, 0}, {0, 0, 0, 0}};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
+    for (int kc = 0; kc < KS; ++kc) {
+      uint32_t a[4];
+      if (QREG) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = k0 + tx + 8 * j;
-        if (key_visible(row, col, p.Sq, p.Sk, p.left, p.right)) {
-          float x = __fmul_rn(__fmul_rn((float)si[i][j], qsc[i]), sKs[tx + 8 * j]);
-          if (bias) x = __fadd_rn(x, bias[row * p.bsq + col * p.bsk]);
-          s[i][j] = x;
-          vis |= 1u << (i * 8 + j);
-        } else {
-          s[i][j] = MASK_VALUE;
-        }
+        for (int e = 0; e < 4; ++e) a[e] = qf[QREG ? kc : 0][e];
+      } else {
+        load_a(a, wQ, LDW, rw, kc * 16, lane);
       }
+      uint32_t b0[2], b1[2];
+      load_b_nk(b0, b1, wK, LDW, c * 16, kc * 16, lane);
+      mma_s8(si[0], a, b0);
+      mma_s8(si[1], a, b1);
+    }
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      const float2 kq = *reinterpret_cast<const float2*>(cKs + 16 * c + 8 * jj + 2 * tq);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[jj][e] = __fmul_rn(__fmul_rn((float)si[jj][e], qsc[e >> 1]), e & 1 ? kq.y : kq.x);
+    }
+    unsigned vis = 0xffu;
+    if (edge) {
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = e < 2 ? row0 : row1, col = k0 + 16 * c + 8 * jj + 2 * tq + (e & 1);
+          if (key_visible(row, col, p.Sq, p.Sk, p.left, p.right)) {
+            if (bias) s[jj][e] = __fadd_rn(s[jj][e], bias[row * p.bsq + col * p.bsk]);
+          } else {
+            s[jj][e] = MASK_VALUE;
+            vis &= ~(1u << (4 * jj + e));
+          }
+        }
     }
     return vis;
   };
 
-  // Pass 1: the exact row max over every visible key (QKᵀ only), so that
-  // pass 2 rounds P to bf16 relative to the final max, as the plain version
-  // does, instead of relative to a running max.
-  float m[4];
+  float m[2] = {MASK_VALUE, MASK_VALUE}, l[2] = {0.f, 0.f};
+  float acc[NA][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) m[i] = MASK_VALUE;
-  for (int t = t_lo; t <= t_hi; ++t) {
-    __syncthreads();  // sQ written; the previous tile's sK/sKs consumed
-    load_k(t * BK);
-    __syncthreads();
-    float s[4][8];
-    scores(t * BK, s);
+  for (int n = 0; n < NA; ++n)
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) m[i] = fmaxf(m[i], s[i][j]);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) m[i] = row_max8(m[i]);
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
-  // Pass 2: P = exp(s - m) with the final m (no rescaling), l sums the
-  // FP32 P, P·V on bf16(P) and the dequantized bf16 V tile.
-  float l[4], acc[4][NC];
+  for (int i = 0; i < steps; ++i) {
+    // The next pass-2 step's V is dequantized a step ahead (one barrier a
+    // step), so then tile i + 1 must have landed too; else only tile i.
+    const bool deq = i + 1 >= n_t && i + 1 < steps;
+    if (deq)
+      cp_async_wait<0>();
+    else
+      cp_async_wait<1>();
+    __syncthreads();  // those tiles landed; every warp is done with step i - 1
+    issue(i + 2);     // into the buffer step i - 1 read
+    if (QREG && i == 0) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-  }
-  for (int t = t_lo; t <= t_hi; ++t) {
-    const int k0 = t * BK;
-    __syncthreads();  // the previous tile's sK/sV/sP/sKs consumed
-    load_k(k0);
-    for (int e = tid; e < BK * DP; e += NT) {
-      const int r = e / DP, c = e - r * DP;
-      float x = 0.f;
-      if (k0 + r < p.Sk && c < p.D) {
-        const float vsc = round_bf16(vs[p.vs_rows ? k0 + r : 0]);
-        x = round_bf16((float)v[(long long)(k0 + r) * p.D + c] * vsc);
-      }
-      sV[r * DP + c] = x;
+      for (int kc = 0; kc < (QREG ? KS : 1); ++kc) load_a(qf[kc], wQ, LDW, rw, kc * 16, lane);
     }
-    __syncthreads();
-    float s[4][8];
-    const unsigned vis = scores(k0, s);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float pj = (vis >> (i * 8 + j)) & 1u ? expf(s[i][j] - m[i]) : 0.f;
-        rs += pj;
-        sP[(ty * 4 + i) * PS + tx + 8 * j] = round_bf16(pj);
-      }
-      l[i] += row_sum8(rs);
+    if (deq) dequant(i + 1);
+    if (i == n_t) {
+      m[0] = quad_max(m[0]);
+      m[1] = quad_max(m[1]);
     }
-    __syncthreads();
 
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float pp[4];
+    // Rows rw..rw+15 of the tile against keys k0..k0+63: none visible, all
+    // visible (and all rows real), or an edge.
+    const int k0 = k0_of(i), r_lo = q0 + rw, r_hi = r_lo + 15;
+    const bool none = k0 >= p.Sk || (p.right >= 0 && k0 > r_hi + p.right) ||
+                      (p.left >= 0 && k0 + BK - 1 < r_lo - p.left);
+    if (none) continue;
+    const bool all = k0 + BK <= p.Sk && r_hi < p.Sq &&
+                     (p.right < 0 || k0 + BK - 1 <= r_lo + p.right) &&
+                     (p.left < 0 || k0 >= r_hi - p.left);
+    const bool edge = !all || bias;
+    const int8_t* cK = sK + (i % 3) * BK * L::LD8;
+    const float* cKs = sKs + (i % 3) * BK;
+    if (i < n_t) {
+      // Pass 1: the exact row max over every visible key, QKᵀ alone.
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pp[i] = sP[(ty * 4 + i) * PS + kk];
+      for (int c = 0; c < BK / 16; ++c) {
+        float s[2][4];
+        chunk(cK, cKs, k0, c, edge, s);
 #pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const float vv = sV[kk * DP + tx + 8 * c];
+        for (int jj = 0; jj < 2; ++jj) {
+          m[0] = fmaxf(m[0], fmaxf(s[jj][0], s[jj][1]));
+          m[1] = fmaxf(m[1], fmaxf(s[jj][2], s[jj][3]));
+        }
+      }
+    } else {
+      // Pass 2: P = expf(s - m) against the final max; l sums the fp32 P,
+      // P·V takes bf16(P) and the dequantized V tile.
+      const __nv_bfloat16* cVb = sVb + (i & 1) * BK * L::LDV;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(pp[i], vv, acc[i][c]);
+      for (int c = 0; c < BK / 16; ++c) {
+        float s[2][4];
+        const unsigned vis = chunk(cK, cKs, k0, c, edge, s);
+        if (edge) {
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              s[jj][e] = (vis >> (4 * jj + e)) & 1u ? expf(s[jj][e] - m[e >> 1]) : 0.f;
+        } else {
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[jj][e] = expf(s[jj][e] - m[e >> 1]);
+        }
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          l[0] += s[jj][0] + s[jj][1];
+          l[1] += s[jj][2] + s[jj][3];
+        }
+        uint32_t a[4];
+        pack_a(a, s[0], s[1]);
+#pragma unroll
+        for (int dn = 0; dn < DP / 16; ++dn) {
+          uint32_t b0[2], b1[2];
+          load_b_kn(b0, b1, cVb, L::LDV, c * 16, dn * 16, lane);
+          mma_bf16(acc[2 * dn], a, b0);
+          mma_bf16(acc[2 * dn + 1], a, b1);
+        }
       }
     }
   }
@@ -223,43 +367,51 @@ __global__ void __launch_bounds__(NT) quant_attn_fwd_kernel(const QParams p) {
   float* out = p.out + ((long long)b * p.Hq + h) * p.Sq * p.D;
   float* lse = p.lse + ((long long)b * p.Hq + h) * p.Sq;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
+  for (int i = 0; i < 2; ++i) {
+    const int row = i ? row1 : row0;
+    const float lsum = quad_sum(l[i]);
     if (row >= p.Sq) continue;
-    const bool empty = l[i] == 0.f;
-    const float l_safe = empty ? 1.f : l[i];
+    const bool empty = lsum == 0.f;
+    const float l_safe = empty ? 1.f : lsum;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int col = tx + 8 * c;
-      if (col < p.D) out[(long long)row * p.D + col] = acc[i][c] / l_safe;
+    for (int n = 0; n < NA; ++n) {
+      const int col = 8 * n + 2 * tq;  // D % 4 == 0: col < D means col + 1 < D
+      if (col < p.D)
+        *reinterpret_cast<float2*>(out + (long long)row * p.D + col) =
+            make_float2(acc[n][2 * i] / l_safe, acc[n][2 * i + 1] / l_safe);
     }
-    if (tx == 0) lse[row] = empty ? MASK_VALUE : m[i] + logf(l_safe);
+    if (tq == 0) lse[row] = empty ? MASK_VALUE : m[i] + logf(l_safe);
   }
 }
 
 template <int DP>
 cudaError_t launch(const QParams& p, cudaStream_t stream) {
-  constexpr int smem = quant_smem_bytes<DP>();
-  cudaError_t err = cudaFuncSetAttribute(quant_attn_fwd_kernel<DP>,
+  constexpr int smem = Cfg<DP>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(quant_attn_fwd_tc_kernel<DP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.Sq + BQ - 1) / BQ, p.Hq, p.B);
-  quant_attn_fwd_kernel<DP><<<grid, NT, smem, stream>>>(p);
+  constexpr int bq = Cfg<DP>::BQ, nth = Cfg<DP>::NTH;
+  const dim3 grid((p.Sq + bq - 1) / bq, p.Hq, p.B);
+  quant_attn_fwd_tc_kernel<DP><<<grid, nth, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
+bool takes(int D) { return D >= 4 && D <= 256 && D % 4 == 0; }
+
 }  // namespace
 
-// q (B, Hq, Sq, D), k/v (B, Hkv, Sk, D): contiguous int8, D % 4 == 0, 4-byte
-// aligned. Scales contiguous float32. out (B, Hq, Sq, D) and lse (B, Hq, Sq)
-// float32. Returns the cudaError_t of the launch.
+// q (B, Hq, Sq, D), k/v (B, Hkv, Sk, D): contiguous int8, D <= 256 and
+// D % 4 == 0, 4-byte aligned. Scales contiguous float32. out (B, Hq, Sq, D)
+// and lse (B, Hq, Sq) float32. Returns the cudaError_t of the launch.
 extern "C" int umfa_quant_attn_fwd(const void* q, const void* k, const void* v, const void* qs,
                                    const void* ks, const void* vs, const void* bias, void* out,
                                    void* lse, int B, int Hq, int Hkv, int Sq, int Sk, int D,
                                    int qs_rows, int ks_rows, int vs_rows, long long bsb,
                                    long long bsh, long long bsq, long long bsk, int left,
                                    int right, void* stream) {
-  if (D < 4 || D > 128 || D % 4 != 0 || Hkv < 1 || Hq % Hkv != 0) return cudaErrorInvalidValue;
+  if (!takes(D) || Hkv < 1 || Hq % Hkv != 0) return cudaErrorInvalidValue;
+  const int vec = D % 16 == 0 && ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                                   reinterpret_cast<uintptr_t>(v)) & 15) == 0;
   const QParams p{static_cast<const int8_t*>(q),
                   static_cast<const int8_t*>(k),
                   static_cast<const int8_t*>(v),
@@ -272,8 +424,16 @@ extern "C" int umfa_quant_attn_fwd(const void* q, const void* k, const void* v, 
                   B, Hq, Hkv, Sq, Sk, D,
                   qs_rows, ks_rows, vs_rows,
                   bsb, bsh, bsq, bsk,
-                  left, right};
+                  left, right, vec};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D <= 64) return launch<64>(p, st);
-  return launch<128>(p, st);
+  if (D <= 128) return launch<128>(p, st);
+  return launch<256>(p, st);
+}
+
+// Dynamic shared memory of the kernel that umfa_quant_attn_fwd launches for
+// head dim D, in bytes (0 if it does not take D).
+extern "C" int umfa_quant_attn_fwd_smem_bytes(int D) {
+  if (!takes(D)) return 0;
+  return D <= 64 ? Cfg<64>::BYTES : D <= 128 ? Cfg<128>::BYTES : Cfg<256>::BYTES;
 }

@@ -2,7 +2,8 @@
 umfa_tpu/ops/quant_attention.py:295 `quantized_attention_forward`).
 
 `quantized_attention_forward` launches the CUDA kernel
-`csrc/quant_attn_fwd.cu` on CUDA tensors and runs
+`csrc/quant_attn_fwd.cu` (int8 tensor cores for QKᵀ, bf16 for P·V; head_dim
+<= 256, a multiple of 4) on CUDA tensors and runs
 `quantized_attention_forward_plain`, the same arithmetic in plain PyTorch,
 on CPU tensors; no fallback between them.
 
@@ -214,8 +215,8 @@ def _launch(p: _Prepared):
         raise ValueError(f"bias on {p.bias.device}, q on {dev}")
     b, hq, sq, d = p.q.shape
     _, hkv, sk, _ = p.k.shape
-    if d > 128 or d % 4:
-        raise ValueError(f"quant_attn_fwd kernel takes head_dim <= 128 and a multiple of 4, got {d}")
+    if d > 256 or d % 4:
+        raise ValueError(f"quant_attn_fwd kernel takes head_dim <= 256 and a multiple of 4, got {d}")
     out = torch.empty((b, hq, sq, d), dtype=torch.float32, device=dev)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
     if out.numel() == 0:
