@@ -8,11 +8,12 @@ Phases, one JSON line each:
   2. build: the ten CUDA kernel libraries compiled from
      `umfa_tpu_torch/csrc/`, one nvcc each, all at once; then the
      tensor-core kernels (the bf16 kernels of `flash_fwd`, `flash_bwd_dq`,
-     `flash_bwd_dkv` and `flash_dbias`; `quant_attn_fwd`, `quant_bwd_dq`,
-     `quant_bwd_dkv`): their HMMA instructions, and for `quant_attn_fwd`
-     also its IMMA (int8) ones, counted in the SASS (cuobjdump; none fails
-     the run), their registers and spills (ptxas) and dynamic shared
-     memory at D 64/128/256;
+     `flash_bwd_dkv` and `flash_dbias`; `quant_attn_fwd`, `fused_qattn`,
+     `quant_bwd_dq`, `quant_bwd_dkv`): their HMMA instructions, and for
+     `quant_attn_fwd` also its IMMA (int8) ones, for `fused_qattn` its
+     DMMA (f64) ones, counted in the SASS (cuobjdump; none fails the run),
+     their registers and spills (ptxas) and dynamic shared memory at
+     D 64/128/256;
   3. forward kernels against their plain PyTorch versions on the card at
      the serving head geometry (Hq 16 / Hkv 8, D 64, Sk 4096, batch 2),
      with the stated tolerances, and the bf16 `flash_fwd` and the int8
@@ -33,7 +34,9 @@ Phases, one JSON line each:
      timed at the training shape (batch 8, causal 4096, D 64, bf16; median,
      min and max of 10) beside its plain version, its bound and the SDPA
      backward (flash for dQ + dK/dV, memory-efficient with a bias gradient
-     for dbias; yardsticks only);
+     for dbias; yardsticks only); dQ and dK/dV also with fp32 inputs (the
+     CUDA-core kernels int8-qdense runs) beside the memory-efficient SDPA
+     backward on the same fp32 inputs;
   5. serving at full width (vocab 32768, dim 1024, 16/8 heads, D 64, depth
      8, max_seq 4096, bf16, batch 8) for the dense and the INT8 KV cache:
      prefill of 4032 tokens, a 16-token continuation with chunk_start, a
@@ -79,8 +82,10 @@ Phases, one JSON line each:
      training shape (B8, causal
      4096, D 64, bf16, int8 recipe; fused_qattn also under int4; median,
      min and max of 10) beside its plain version, its bound, TFLOP/s and
-     share of the bound and, for the backward, the flash SDPA backward on
-     the dequantized operands (a yardstick only);
+     share of the bound (fused_qattn also its FP64 floor, both passes'
+     QKᵀ in double at the FP64 tensor rate, and its worst LSE abs error,
+     held to 1e-5: the scores keep their bits) and, for the backward, the
+     flash SDPA backward on the dequantized operands (a yardstick only);
   9. quantized training at full width (the same model and batch, lr
      TRAIN_LR): the int8 recipe for a warm-up and three SGD steps, int4 for
      a warm-up and one, int8-qdense for one; each step with a finite loss
@@ -146,6 +151,8 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 H100_BF16_FLOPS = 989e12   # dense tensor-core peak, bf16
+H100_FP32_FLOPS = 67e12    # float32 outside the tensor cores
+H100_FP64_TC_FLOPS = 67e12  # FP64 tensor cores (mma.sync f64)
 H100_INT8_OPS = 1979e12    # dense tensor-core peak, int8
 H100_HBM_BYTES = 3.35e12   # HBM3 bytes/s
 
@@ -1020,6 +1027,57 @@ def phase_bwd_kernels(record):
     del qg, kg, vg, o
     torch.cuda.empty_cache()
 
+    # The fp32 dense backward (the int8-qdense recipe runs it): the same
+    # kernels on fp32 inputs, on the CUDA cores, against the
+    # memory-efficient SDPA backward on the same fp32 inputs.
+    q32, k32, v32, do32 = q.float(), k.float(), v.float(), do.float()
+    out32, lse32 = flash_attention_forward(q32, k32, v32, causal=True)
+    p32 = fb._prepare(q32, k32, v32, out32, lse32, do32, None, None, True, None, None)
+    reads32 = 4 * (q.numel() + k.numel() + v.numel() + do.numel()) + 4 * 2 * lse.numel()
+    passes32 = {
+        "flash_bwd_dq_fp32": (lambda: (fb._launch_dq(p32, torch.float32),),
+                              lambda: (fb._plain_dq(p32),), 3, 4 * q.numel(), ("dq",)),
+        "flash_bwd_dkv_fp32": (lambda: fb._launch_dkv(p32, torch.float32),
+                               lambda: fb._plain_dkv(p32), 4, 2 * 4 * k.numel(), ("dk", "dv")),
+    }
+    for name, (kern, plain, products, written, grads) in passes32.items():
+        got, want = kern(), plain()
+        check = {g: rel_err(x, y) for g, x, y in zip(grads, got, want)}
+        kernel = name.removesuffix("_fp32")
+        worst[kernel] = max(worst[kernel], *(float((x - y).abs().max()) for x, y in zip(got, want)))
+        del got, want
+        flops = 2 * D * products * pairs
+        nbytes = reads32 + written
+        timing[name] = dict(**cuda_stats(kern), plain_ms=cuda_ms(plain, iters=3, warmup=1),
+                            flops=flops, bytes=nbytes, ops_ms=flops / H100_FP32_FLOPS * 1e3,
+                            bytes_ms=nbytes / H100_HBM_BYTES * 1e3, check=check,
+                            ok=all(e <= 1e-4 for e in check.values()))
+        torch.cuda.empty_cache()
+    qg = q32.detach().requires_grad_(True)
+
+    def sdpa32_grads(kg, vg, **kw):
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, **kw)
+        torch.autograd.grad(o, (qg, kg, vg), do32, retain_graph=True)
+        return lambda: torch.autograd.grad(o, (qg, kg, vg), do32, retain_graph=True)
+
+    try:
+        kg, vg = k32.detach().requires_grad_(True), v32.detach().requires_grad_(True)
+        grads32 = sdpa32_grads(kg, vg, enable_gqa=True)
+        sdpa_gqa = "enable_gqa"
+    except (RuntimeError, TypeError):
+        kg = k32.repeat_interleave(HQ // HKV, 1).requires_grad_(True)
+        vg = v32.repeat_interleave(HQ // HKV, 1).requires_grad_(True)
+        grads32 = sdpa32_grads(kg, vg)
+        sdpa_gqa = "K and V expanded to 16 heads outside the timing (enable_gqa refused)"
+    sdpa32_ms = cuda_ms(grads32)
+    for name in passes32:
+        timing[name].update(library_ms=sdpa32_ms,
+                            library="memory-efficient SDPA backward on the fp32 inputs (dQ, dK "
+                                    "and dV in one call), " + sdpa_gqa)
+    del qg, kg, vg, grads32, p32, q32, k32, v32, do32, out32, lse32
+    torch.cuda.empty_cache()
+
     # dbias with a (1, Hq, S, S) bias, summed over the batch in the kernel.
     bias = torch.randn((1, HQ, s, s), device=dev,
                        generator=torch.Generator(device=dev).manual_seed(8))
@@ -1064,7 +1122,8 @@ def phase_bwd_kernels(record):
         if not t["ok"]:
             raise AssertionError(f"{name} disagrees with its plain version at the training shape: {t['check']}")
         bound(t)
-        emit({"phase": "kernel_timing", "kernel": name, "shape": shape, **t})
+        emit({"phase": "kernel_timing", "kernel": name,
+              "shape": shape.replace("bf16", "fp32") if name.endswith("_fp32") else shape, **t})
     record["bwd_kernel_timing"] = timing
     return timing, worst
 
@@ -1394,7 +1453,7 @@ def phase_quant_kernels(record):
         fp = lambda: fused_quantize_attend_plain(q, k, v, **kw)  # noqa: E731
         got, want = fk(), fp()
         check = {"out": rel_err(got[0], want[0]),
-                 "lse": float((got[1] - want[1]).abs().max()),
+                 "max_abs_lse": float((got[1] - want[1]).abs().max()),
                  "codes_close": all(codes_close(a, b_) for a, b_ in zip(got[2:5], want[2:5]))}
         worst["fused_qattn"] = max(worst["fused_qattn"],
                                    float((got[0].float() - want[0].float()).abs().max()))
@@ -1408,12 +1467,19 @@ def phase_quant_kernels(record):
         if kw.get("hadamard"):
             flops += 2 * D * D * (q.numel() + k.numel()) // D
         nbytes = in_bytes + q.numel() * 2 + 4 * b * HQ * s + res_bytes  # + out, lse, residuals
-        return dict(ms=cuda_ms(fk), plain_ms=cuda_ms(fp, iters=3, warmup=1), flops=flops,
-                    bytes=nbytes, ops_ms=flops / H100_BF16_FLOPS * 1e3,
-                    bytes_ms=nbytes / H100_HBM_BYTES * 1e3, check=check,
-                    ok=check["out"] <= 1e-3 and check["lse"] <= 1e-4 and check["codes_close"],
-                    library_ms=None,
-                    library="none: no single PyTorch call quantizes and attends")
+        t = dict(**cuda_stats(fk), plain_ms=cuda_ms(fp, iters=3, warmup=1), flops=flops,
+                 bytes=nbytes, ops_ms=flops / H100_BF16_FLOPS * 1e3,
+                 bytes_ms=nbytes / H100_HBM_BYTES * 1e3, check=check,
+                 ok=(check["out"] <= 1e-3 and check["max_abs_lse"] <= 1e-5
+                     and check["codes_close"]),
+                 library_ms=None,
+                 library="none: no single PyTorch call quantizes and attends")
+        # The floor of the exact score contract: both passes' QKᵀ in double
+        # on the FP64 tensor cores, over the visible pairs.
+        t["fp64_flops"] = 2 * 2 * D * pairs
+        t["fp64_floor_ms"] = t["fp64_flops"] / H100_FP64_TC_FLOPS * 1e3
+        t["share_of_fp64_floor"] = t["fp64_floor_ms"] / t["ms"]
+        return t
 
     timing["fused_qattn"] = fused_timing("int8")
     timing["fused_qattn_int4"] = fused_timing("int4")
@@ -2109,10 +2175,11 @@ def phase_mma_probe(record):
 # The tensor-core kernels: library -> the stems of their function names.
 TC_KERNELS = {"flash_fwd": ("flash_fwd_tc_kernel",), "flash_bwd": ("dq_tc_kernel", "dkv_tc_kernel"),
               "flash_dbias": ("dbias_tc_kernel",), "quant_bwd": ("dq_tc_kernel", "dkv_tc_kernel"),
-              "quant_attn_fwd": ("quant_attn_fwd_tc_kernel",)}
+              "quant_attn_fwd": ("quant_attn_fwd_tc_kernel",),
+              "fused_qattn": ("fused_qattn_tc_kernel",)}
 # The tensor-core instructions (SASS mnemonics) each library's kernels must
-# hold: HMMA for bf16 mma.sync, IMMA for int8.
-TC_OPS = {"quant_attn_fwd": ("HMMA", "IMMA")}
+# hold: HMMA for bf16 mma.sync, IMMA for int8, DMMA for f64.
+TC_OPS = {"quant_attn_fwd": ("HMMA", "IMMA"), "fused_qattn": ("DMMA", "HMMA")}
 
 
 def ptxas_resources(log):
@@ -2136,7 +2203,7 @@ def ptxas_resources(log):
 
 
 def phase_sass(record, report):
-    """Count the HMMA (and, per TC_OPS, IMMA) tensor-core instructions of
+    """Count the HMMA (or, per TC_OPS, IMMA and DMMA) tensor-core instructions of
     each tensor-core kernel in its library's SASS (cuobjdump -sass); raise
     if a kernel has none of one of them.
     With each kernel its registers and spills (ptxas -v, when this run built
@@ -2181,6 +2248,7 @@ def phase_sass(record, report):
     fdb = _kernels.function("flash_dbias", "umfa_flash_dbias_smem_bytes", (ctypes.c_int,))
     qbwd = _kernels.function("quant_bwd", "umfa_quant_bwd_smem_bytes", (ctypes.c_int, ctypes.c_int))
     qfwd = _kernels.function("quant_attn_fwd", "umfa_quant_attn_fwd_smem_bytes", (ctypes.c_int,))
+    fq = _kernels.function("fused_qattn", "umfa_fused_qattn_smem_bytes", (ctypes.c_int,))
     for d in (64, 128, 256):
         smem[f"flash_fwd bf16 D{d}"] = fwd(d, 1)
         smem[f"flash_fwd fp32 D{d}"] = fwd(d, 0)
@@ -2190,6 +2258,8 @@ def phase_sass(record, report):
         smem[f"quant_bwd_dq D{d}"] = qbwd(d, 0)
         smem[f"quant_bwd_dkv D{d}"] = qbwd(d, 1)
         smem[f"quant_attn_fwd D{d}"] = qfwd(d)
+        if d <= 128:
+            smem[f"fused_qattn D{d}"] = fq(d)
     out = {"kernels": kernels, "dynamic_smem_bytes": smem}
     emit({"phase": "sass", **out})
     record["sass"] = out
@@ -2231,7 +2301,13 @@ DESIGN = {
                       "tiles ahead, each V tile dequantized once a block a step ahead into one of "
                       "two padded bf16 tiles, P from the score accumulators in 16-key chunks; two "
                       "passes: QKᵀ alone for the exact row max, then P·V)",
-    "fused_qattn": "CUDA cores: scores summed in double, P·V as FP32 FMAs",
+    "fused_qattn": "tensor cores: QKᵀ by mma.sync m16n8k8 f64 (DMMA; each score an exact double "
+                   "sum of bf16 products rounded once, as the plain version), P·V by mma.sync "
+                   "m16n8k16 bf16->fp32 (8 warps x 16 query rows, Q quantized in the block, its A "
+                   "fragments as double in registers at D 64; int8/int4 K/V code tiles, scales "
+                   "and the cc row in two cp.async buffers, each tile dequantized once a block a "
+                   "step ahead, K to fp32, V to bf16; two passes: QKᵀ alone for the exact row "
+                   "max, then P·V); the means, K/V quantize and cc-row kernels on the CUDA cores",
     "quant_rows": "CUDA cores: one warp a row, elementwise",
     "mma_probe": "tensor cores, mma.sync m16n8k16 bf16->fp32",
 }

@@ -427,6 +427,8 @@ RECIPES = {
                  v_precision=Precision.INT8, smooth=True, smooth_q=True, hadamard=True),
     "int8_nosmooth": dict(q_precision=Precision.INT8, k_precision=Precision.INT8,
                           v_precision=Precision.INT8, smooth=False),
+    "int8_smooth_q": dict(q_precision=Precision.INT8, k_precision=Precision.INT8,
+                          v_precision=Precision.INT8, smooth=True, smooth_q=True),
     "qdense": dict(q_precision=Precision.BF16, k_precision=Precision.INT8,
                    v_precision=Precision.INT8, smooth=True),
 }
@@ -471,6 +473,18 @@ FUSED_KERNEL_CASES = [
     (2, 2, 1, 200, 200, 64, "int8_nosmooth", dict(bias="11qk")),
     (1, 4, 2, 256, 256, 64, "qdense", dict(causal=True)),
     (1, 4, 2, 512, 128, 64, "int8", dict(window=(64, -1))),  # rows past 192 see no key
+    (1, 4, 2, 300, 300, 128, "int8_smooth_q", dict(causal=True, bias="11qk")),  # the cc row, D 128
+    (1, 8, 2, 333, 333, 48, "int8", dict(causal=True)),       # D 48 padded to 64, GQA 4
+    (1, 4, 2, 200, 257, 64, "int8", {}),                      # a KV tail: Sk 257
+    (1, 4, 2, 256, 256, 128, "int8_nosmooth", dict(causal=True)),
+]
+
+
+# K̃/Ṽ rows the attention cannot copy in 16-byte pieces: an odd D (element
+# loads) and D % 8 == 4 (4-byte copies), the latter with the cc row.
+FUSED_COPY_CASES = [
+    (1, 4, 2, 200, 200, 33, "int8", dict(causal=True)),
+    (1, 4, 2, 150, 150, 36, "int8_smooth_q", {}),
 ]
 
 
@@ -505,7 +519,7 @@ def _check_fused(got, want, check_out=True):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", FUSED_KERNEL_CASES)
+@pytest.mark.parametrize("case", FUSED_KERNEL_CASES + FUSED_COPY_CASES)
 def test_fused_qattn_kernel_matches_plain(dev, dtype, case):
     (q, k, v), kw = _fused_inputs(case, dtype, dev)
     n0 = _kernels.launches["fused_qattn"]
@@ -517,6 +531,27 @@ def test_fused_qattn_kernel_matches_plain(dev, dtype, case):
     _check_fused(got, want)
     bare = fused_quantize_attend(q, k, v, emit_residuals=False, **kw)
     assert bare[2:] == (None,) * 5 and torch.equal(bare[0], got[0])
+
+
+@pytest.mark.parametrize("recipe", ["int8", "int4"])
+def test_fused_qattn_kernel_keeps_the_score_bits(dev, recipe):
+    # Causal S 1024 with q ~ N(0, 3): short causal rows where fp32 score
+    # sums in another order flipped bf16(P) elements (LSE ~1e-3 off). The
+    # kernel's scores are the plain version's exact double sums rounded
+    # once, so the LSE stays ten times under the 1e-4 gate.
+    g = torch.Generator().manual_seed(11)
+    q = (3 * torch.randn((2, 4, 1024, 64), generator=g)).to(dev, torch.bfloat16)
+    k, v = (torch.randn((2, 2, 1024, 64), generator=g).to(dev, torch.bfloat16) for _ in "kv")
+    kw = dict(causal=True, **RECIPES[recipe])
+    n0 = _kernels.launches["fused_qattn"]
+    got = fused_quantize_attend(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert _kernels.launches["fused_qattn"] == n0 + 1
+    want = fused_quantize_attend_plain(q, k, v, **kw)
+    vis = want[1] > -1e29
+    assert vis.all()
+    assert (got[1] - want[1]).abs().max().item() <= 1e-5
+    _check_fused(got, want)
 
 
 def _qbwd_inputs(case, dtype, dev):

@@ -129,11 +129,16 @@ FUSED_CASES = [
      dict(window=(48, 0), smooth=True, smooth_q=True, hadamard=True), (128, 256)),
     ("int8_left_window_empty_rows", (1, 4, 2, 256, 64, 64), "float32", INT8,
      dict(window=(64, -1), smooth=True, smooth_q=False), None),
+    # D 128: the CUDA kernel's second template width (fp32 row sum).
+    ("int8_smooth_q_bias_d128", (1, 4, 2, 160, 160, 128), "float32", INT8,
+     dict(causal=True, smooth=True, smooth_q=True, bias="11qk"), None),
+    ("int4_recipe_d128", (1, 4, 2, 160, 160, 128), "float32", INT4,
+     dict(causal=True, smooth=True, smooth_q=True, hadamard=True), None),
 ]
 
 
 def _bias(kind, b, hq, sq, sk):
-    shape = {"1hqk": (1, hq, sq, sk)}[kind]
+    shape = {"1hqk": (1, hq, sq, sk), "11qk": (1, 1, sq, sk)}[kind]
     return _x(9, shape)
 
 

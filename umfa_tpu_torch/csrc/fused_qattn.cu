@@ -5,35 +5,81 @@
 // V, quantize them per row (INT8 or INT4, mean smoothing, optional Hadamard
 // rotation of Q and K, or a dense Q), attend on the dequantized bf16
 // values, restore the V mean, and write the quantized residuals the STE
-// backward consumes. Symmetric ROW only; BLOCK, ASYMMETRIC, pv_int8 and
-// block-sparse walks are not ported yet.
+// backward consumes. Symmetric ROW only, head_dim <= 128; BLOCK,
+// ASYMMETRIC, pv_int8 and block-sparse walks are not ported yet.
 //
-// What bounds it on this card: at the training shape (B8 Hq16 Hkv8, causal
-// S 4096, D 64) it is compute-bound like the dense forward: 4·D flops per
-// visible (query, key) pair (QKᵀ and P·V on bf16 values) against reading
-// Q, K, V once and writing out and the int8 residuals: ~0.28 ms of bf16
-// tensor-core time against ~0.08 ms of HBM time.
+// The score contract, and what bounds the kernel under it. The kernel and
+// its plain version form each score as one double sum of products of bf16
+// values, rounded once to fp32, so both exponentiate the same fp32 scores
+// and round P to bf16 at the same points (an fp32 QKᵀ in another order
+// flips bf16(P) in short causal rows, LSE ~1e-3 off against a 1e-4 gate).
+// The sum is exact in any order: a bf16 product has at most 16 significant
+// bits, the products of one dot span about 14 binades (codes 1..127 on each
+// side, one scale per row), so a sum of <= 128 of them needs about 37 bits,
+// under double's 53. (A dense Q has free exponents: there exactness rests
+// on the data, as it did in the CUDA-core kernel this one replaces.) So
+// QKᵀ runs on the FP64 tensor cores (mma.sync m16n8k8 f64, DMMA in the
+// SASS), and their rate is the bound that matters: at the training shape
+// (B8 Hq16 Hkv8, causal S 4096, D 64) two passes of QKᵀ in double,
+// 2 x 1.37e11 flop, take ~4.1 ms at the datasheet's 67 TFLOP/s, against
+// ~0.28 ms of bf16 tensor-core time for QKᵀ and P·V and ~0.08 ms of HBM
+// time.
 //
-// What this simple design does about it: exact first, fast later. One call
-// runs three kernels on the stream:
-//   1. means: the smoothing means, one block per (b, h), so every block of a
-//      (b, h) reads the same bits;
+// One call runs up to four kernels on the stream:
+//   1. means: the smoothing means, one block per (b, h), so every block of
+//      a (b, h) reads the same bits;
 //   2. K/V quantize: one warp per K or V row writes its int8 codes (INT4
 //      packed) and scale, once. On the TPU the kernel quantizes each K/V
 //      tile on first touch into a VMEM cache that later q-blocks reuse;
 //      blocks on this card share nothing, so the rows are quantized once
-//      into HBM instead, as int8 (fewer bytes than the bf16 K/V the
-//      attention would read otherwise). These are the K/V residuals, each
-//      row written by exactly one warp; without residuals they go to
-//      scratch;
-//   3. attention: quant_attn_fwd.cu's layout, one block of 128 threads per
-//      (64-row query tile, q head, batch), 64-key tiles, a 4 x 8 score patch
-//      per thread, FMAs on the CUDA cores, invisible key tiles skipped, two
-//      passes over the visible keys (the first finds the exact row max, the
-//      second rounds P to bf16 against it, as the plain version does). The
-//      block quantizes its own Q tile (one warp per row, absmax by
-//      shuffles; its codes are the Q residual) and dequantizes K and V on
-//      load from the codes of kernel 2.
+//      into HBM instead. These are the K/V residuals, each row written by
+//      exactly one warp; without residuals they go to scratch. The warp
+//      also writes its row dequantized, K̃ = bf16(code·sk) and
+//      Ṽ = bf16(code·sv) (stage_deq's rounding of the same code and
+//      scale), to bf16 scratch, so that the attention copies tiles ready
+//      for the tensor cores instead of dequantizing every tile again in
+//      every block;
+//   3. with smooth_q, the cc row: cc_j = (Σ_d bf16(qm_d)·k̃_jd in double)
+//      · scale depends only on (b, q head, key), so it is formed once a
+//      call into a (B, Hq, Sk) fp32 scratch, with the same sequential
+//      double sum, instead of once a key tile in every block (64 serial
+//      threads and a barrier a tile); the attention reads it with each key
+//      tile, like a bias row. Its bits are those of the in-block sum;
+//   4. attention, `fused_qattn_tc_kernel`, in the shape of row 5's
+//      quant_attn_fwd_tc_kernel: one block per (query tile, q head, batch),
+//      issued heaviest first, 12 warps at D 64 and 8 at D 128 (FCfg); each
+//      warp owns 16 whole query rows, so row maxima and sums need only
+//      quad shuffles.
+//      * The block quantizes its Q tile (one warp a row, absmax by
+//        shuffles; the codes are the Q residual) into a padded fp32 tile
+//        of the dequantized bf16 values; rotated rows come from each raw
+//        row converted to double once in shared memory, four columns a
+//        thread. At D 64 each warp converts its A fragments to double once
+//        and keeps them in registers; at D 128 it converts them from the
+//        tile at each use.
+//      * The K̃ and Ṽ tiles of 64 keys and the cc row arrive by cp.async in
+//        rings of three buffers, two tiles ahead (16- or 4-byte copies
+//        where rows and operands are aligned, element loads for odd D;
+//        rows past Sk zero). At D 64 each K̃ tile is converted to double
+//        once a block, a step ahead (conversions to double run at a
+//        fraction of the fp32 rate, and converting every B fragment in
+//        every warp held the products back); at D 128 the B fragments are
+//        converted from the ring at the load. Ṽ feeds P·V from the ring. A step needs one
+//        barrier. Key tiles hidden from the whole block are never loaded,
+//        and a warp skips a tile its rows cannot see.
+//      * QKᵀ by mma_f64 into double accumulators, 16 keys at a time; each
+//        score is then formed as the plain version forms it: (float) of
+//        the exact double, __fadd_rn of the cc term, __fadd_rn of the
+//        bias, then the index mask (causal, window, KV tail) to -1e30,
+//        never contracted, so both passes compute the same bits.
+//      * Two passes over the visible keys, kept on purpose: the first runs
+//        QKᵀ alone for the exact row max (it copies no Ṽ), the second
+//        forms P = expf(s - m) against the final max and rounds it to bf16
+//        where the plain version does; a one-pass online softmax rounds
+//        against a running max and misses the 1e-4 LSE gate.
+//      * P·V by mma.sync m16n8k16 bf16 -> fp32: a 16-key chunk's bf16(P)
+//        goes from the score registers into the A fragment (`pack_a`), V's
+//        B fragments come through ldmatrix.trans.
 //
 // Means, as the TPU kernel estimates them (from its zero-padded first
 // tile): the sum of the first min(T, S) rows over T, T from the host
@@ -53,18 +99,16 @@
 //     fp32 P at D ≥ 128; out = acc / l + vm, rows with l == 0 exactly 0 and
 //     LSE −1e30.
 // Exactness against the plain version: Q·K, the cc row and the means are
-// summed in double (products of bf16 values are exact, and so are these
-// sums for the magnitudes attention sees) and rounded once to fp32, as the
-// plain version's float64 sums are, so both quantize and exponentiate the
-// same fp32 values and round P to bf16 at the same points; only the fp32
-// sums of l and P·V run in another order (row 5's INT8 gates hold). The
-// double FMAs of QKᵀ run at half the fp32 rate; the dequantized Q and K
-// tiles are kept as double in shared memory, so the inner loop converts
-// nothing. Shared memory (103 KB a block at D 64, two blocks per SM; 188 KB
-// at D 128) is set above 48 KB through cudaFuncSetAttribute.
+// summed in double and rounded once to fp32, as the plain version's
+// float64 sums are, so both quantize and exponentiate the same fp32 values
+// and round P to bf16 at the same points; only the fp32 sums of l and P·V
+// run in another order (the tensor cores', in 16-key pieces), as in row 5.
+// Shared memory (191,488 bytes a block at D 64, 190,720 at D 128, one
+// block an SM) is set above 48 KB through cudaFuncSetAttribute.
 #include <math.h>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 using namespace umfa;
 
@@ -96,12 +140,16 @@ struct FQParams {
   float* qm;  // (B, Hq, D), with F_SMOOTH_Q
   float* km;  // (B, Hkv, D), with F_SMOOTH
   float* vm;
+  float* cc;  // (B, Hq, Sk) scratch, with F_SMOOTH_Q
+  __nv_bfloat16* kb;  // (B, Hkv, Sk, D) scratch: the dequantized K̃ = bf16(code·sk)
+  __nv_bfloat16* vb;  // and Ṽ = bf16(code·sv)
   int B, Hq, Hkv, Sq, Sk, D;
   long long bsb, bsh, bsq, bsk;
   float scale;
   int left, right;
   int flags, qmax_q, qmax_k, qmax_v, Tq, Tkv;
   float hval;
+  int kvmode;  // how the K̃ and Ṽ rows are copied (`copy_rows`)
 };
 
 constexpr int NTM = 256;  // means kernel threads
@@ -169,7 +217,9 @@ __global__ void __launch_bounds__(NTM) fused_means_kernel(const FQParams p) {
 
 // One warp per row of K (rows [0, n)) or V (rows [n, 2n)): rotate K, subtract
 // the mean, quantize (reciprocal multiply, no clip), write the codes (INT4
-// packed split-halves) and the scale.
+// packed split-halves) and the scale, and the dequantized row bf16(code ·
+// scale) that the attention reads (stage_deq's rounding of the same code
+// and scale).
 template <typename Tin>
 __global__ void __launch_bounds__(KV_WARPS * 32) fused_kv_quant_kernel(const FQParams p) {
   __shared__ float s_raw[KV_WARPS][MAXD];
@@ -210,11 +260,13 @@ __global__ void __launch_bounds__(KV_WARPS * 32) fused_kv_quant_kernel(const FQP
   amax = fmaxf(amax, 1e-12f);
   const float sc = __fdiv_rn(amax, fq), rcp = __fdiv_rn(fq, amax);
   int8_t* vals = is_v ? p.vv : p.kv;
+  __nv_bfloat16* deq = (is_v ? p.vb : p.kb) + r * D;
 #pragma unroll
   for (int i = 0; i < MAXD / 32; ++i) {
     const int c = lane + 32 * i;
     if (c >= D) continue;
     const int qc = (int)rintf(__fmul_rn(y[i], rcp));
+    deq[c] = __float2bfloat16_rn(__fmul_rn((float)qc, sc));
     if (int4)
       code[c] = qc;
     else
@@ -229,253 +281,448 @@ __global__ void __launch_bounds__(KV_WARPS * 32) fused_kv_quant_kernel(const FQP
   if (lane == 0) (is_v ? p.vs : p.ks)[r] = sc;
 }
 
+// The cc row, cc[b, h, j] = fl(fl(Σ_d bf16(qm[b, h, d]) · k̃[j, d]) · scale),
+// k̃ = bf16(code · sk), the products summed in double in order of d (exact:
+// products of bf16 values): one block per (64-key tile, kv head, batch),
+// one thread per key and q head of the group.
 template <int DP>
-constexpr int fq_smem_bytes() {
-  return 2 * 64 * (DP + 1) * (int)sizeof(double) +
-         (64 * (DP + 1) + BQ * (BK + 1) + 3 * DP + BK + 64) * (int)sizeof(float) + 64 * DP;
+__global__ void __launch_bounds__(NTM) fused_cc_kernel(const FQParams p) {
+  __shared__ float sK[BK * (DP + 1)];
+  const int k0 = blockIdx.x * BK, hk = blockIdx.y, b = blockIdx.z;
+  const int D = p.D, G = p.Hq / p.Hkv;
+  const bool k4 = p.flags & F_K_INT4;
+  const long long krow = ((long long)b * p.Hkv + hk) * p.Sk;
+  stage_deq<DP>(sK, p.kv + krow * (k4 ? D / 2 : D), p.ks + krow, 1, k0, p.Sk, D, k4);
+  __syncthreads();
+  const int j = threadIdx.x % BK;
+  if (k0 + j >= p.Sk) return;
+  for (int gi = threadIdx.x / BK; gi < G; gi += NTM / BK) {
+    const long long bh = (long long)b * p.Hq + hk * G + gi;
+    const float* qm = p.qm + bh * D;
+    double acc = 0.0;
+    for (int d = 0; d < D; ++d)
+      acc = fma((double)round_bf16(qm[d]), (double)sK[j * (DP + 1) + d], acc);
+    p.cc[bh * p.Sk + k0 + j] = __fmul_rn((float)acc, p.scale);
+  }
+}
+
+// Tile geometry of the attention kernel: warps of 16 query rows, 12 at
+// D 64 (BQ = 192 query rows a block; 8 and 10 warps were slower, 14 and 16
+// spilled under their register caps) and 8 at D 128 (BQ = 128, as many as
+// its shared memory holds), 64-key tiles, one block an SM. Shared memory,
+// in bytes, each part a multiple of 16: the Q tile (fp32, the dequantized
+// bf16 values); at D 64 two K tiles as double (the tile of step i in
+// i & 1); rings of three K̃ and Ṽ tiles (bf16) and cc rows (fp32), the
+// tile of step i in i % 3, copied two steps ahead; qm, vm, the Q tile's
+// row scales and its codes. With the rotation, the raw Q rows (as double)
+// live in the K tiles and the rings before the first copy.
+//
+// At D 64 each K tile is converted to double once a block, a step ahead,
+// not once a warp at each use: conversions to and from double run at a
+// fraction of the fp32 rate. At D 128 two double tiles do not fit beside
+// the Q tile; the B fragments are converted from the bf16 ring at the load.
+template <int DP>
+struct FCfg {
+  static constexpr int NW = DP <= 64 ? 12 : 8;
+  static constexpr int NTH = 32 * NW;
+  static constexpr int BQ = 16 * NW;
+  static constexpr bool QREG = DP <= 64;  // Q's A fragments held in registers, as double
+  static constexpr bool KD = DP <= 64;    // K tiles as double
+  // fp32 rows of stride 4 mod 32 words, double rows of stride 4 mod 16
+  // double words: the eight rows and four columns of a (g, t) fragment
+  // read fall in distinct banks. bf16 rows padded as mma.cuh says.
+  static constexpr int LDQ = DP + 4;
+  static constexpr int LDK = DP + 4;
+  static constexpr int LDR = DP + 8;
+  static constexpr int Q = 0;                              // [BQ][LDQ] fp32
+  static constexpr int KD_ = Q + BQ * LDQ * 4;             // [2][BK][LDK] double, at D 64
+  static constexpr int KR = KD_ + (KD ? 2 * BK * LDK * 8 : 0);  // [3][BK][LDR] bf16
+  static constexpr int VR = KR + 3 * BK * LDR * 2;         // [3][BK][LDR] bf16
+  static constexpr int CC = VR + 3 * BK * LDR * 2;         // [3][BK] fp32
+  static constexpr int QM = CC + 3 * BK * 4;               // [DP] fp32
+  static constexpr int VM = QM + DP * 4;                   // [DP] fp32
+  static constexpr int RS = VM + DP * 4;                   // [BQ] fp32
+  static constexpr int CODE = RS + BQ * 4;                 // [BQ][DP] int8
+  static constexpr int BYTES = CODE + BQ * DP;
+  // Raw Q rows staged for the rotation, RAW rows at a time, in [KD_, CC).
+  static constexpr int RAW = (CC - KD_) / (DP * 8) >= BQ ? BQ : BQ / 2;
+  static_assert(RAW * DP * 8 <= CC - KD_, "raw Q rows fit in the K tiles and rings");
+  static_assert(BYTES <= 232448, "one block fits in an SM's shared memory");
+};
+
+// Rows [r0, r0 + 64) of an (n, D) bf16 matrix into a ring buffer of row
+// stride DP + 8; rows past n and columns past D are zero. mode 2: 16-byte
+// cp.async (D % 8 == 0, src 16-byte aligned), 1: 4-byte cp.async (D even,
+// 4-aligned), 0: element loads, stored at once (odd D).
+template <int DP, int NTH>
+__device__ __forceinline__ void copy_rows(__nv_bfloat16* dst, const __nv_bfloat16* src, int r0,
+                                          int n, int D, int mode) {
+  constexpr int LD = DP + 8;
+  if (mode == 2) {
+    constexpr int CH = DP / 8;
+#pragma unroll
+    for (int e = threadIdx.x; e < BK * CH; e += NTH) {
+      const int r = e / CH, c = (e % CH) * 8;
+      const bool ok = r0 + r < n && c < D;
+      cp_async16(dst + r * LD + c, ok ? src + (long long)(r0 + r) * D + c : src, ok ? 16 : 0);
+    }
+  } else if (mode == 1) {
+    constexpr int CW = DP / 2;
+#pragma unroll 4
+    for (int e = threadIdx.x; e < BK * CW; e += NTH) {
+      const int r = e / CW, c = (e % CW) * 2;
+      const bool ok = r0 + r < n && c < D;
+      cp_async4(dst + r * LD + c, ok ? src + (long long)(r0 + r) * D + c : src, ok ? 4 : 0);
+    }
+  } else {
+    for (int e = threadIdx.x; e < BK * DP; e += NTH) {
+      const int r = e / DP, c = e - r * DP;
+      dst[r * LD + c] =
+          r0 + r < n && c < D ? src[(long long)(r0 + r) * D + c] : __float2bfloat16_rn(0.f);
+    }
+  }
+}
+
+// Columns c + k·DP/4 (k < 4) of the rotated row x·H: each rotate_elem's
+// sum, the four chains interleaved so that they overlap.
+template <int DP, typename Load>
+__device__ __forceinline__ void rotate4(Load x, int c, int D, float hval, float (&y)[4]) {
+  double acc[4] = {0.0, 0.0, 0.0, 0.0};
+  for (int j = 0; j < D; ++j) {
+    const double xj = x(j);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      acc[k] = fma(xj, (__popc(j & (c + k * (DP / 4))) & 1) ? -(double)hval : (double)hval,
+                   acc[k]);
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) y[k] = (float)acc[k];
 }
 
 template <typename Tin, typename Tout, int DP>
-__global__ void __launch_bounds__(NT) fused_qattn_kernel(const FQParams p) {
-  constexpr int S = DP + 1;  // row stride of the staged tiles
-  constexpr int PS = BK + 1;
-  constexpr int NC = DP / 8;
-  constexpr int NE = DP / 32;
-  extern __shared__ double smem[];
-  double* sQd = smem;          // dequantized Q, softmax scale folded in
-  double* sKd = sQd + 64 * S;  // dequantized K tile
-  float* sV = reinterpret_cast<float*>(sKd + 64 * S);  // staged Q rows; the dequantized V tile
-  float* sP = sV + 64 * S;    // bf16(P)
-  float* sQm = sP + BQ * PS;  // qm (fp32), subtracted from Q
-  float* sQmb = sQm + DP;     // bf16(qm), for the cc row
-  float* sVm = sQmb + DP;
-  float* sCC = sVm + DP;      // the cc row of the current K tile
-  float* sRs = sCC + BK;      // per-row scales of the Q tile
-  int8_t* sCode = reinterpret_cast<int8_t*>(sRs + 64);  // its codes, 64 x DP
+__global__ void __launch_bounds__(FCfg<DP>::NTH, 1) fused_qattn_tc_kernel(const FQParams p) {
+  using L = FCfg<DP>;
+  constexpr int NTH = L::NTH, NW = L::NW, BQ_ = L::BQ;
+  constexpr int KST = DP / 8;  // 8-deep steps of QKᵀ
+  constexpr int NA = DP / 8;   // 8-column accumulator tiles of out
+  constexpr int NE = DP / 32;  // elements of a Q row per lane
+  constexpr bool QREG = L::QREG, KD = L::KD;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sQ = reinterpret_cast<float*>(smem_raw + L::Q);
+  double* sKd = reinterpret_cast<double*>(smem_raw + L::KD_);
+  __nv_bfloat16* sKR = reinterpret_cast<__nv_bfloat16*>(smem_raw + L::KR);
+  __nv_bfloat16* sVR = reinterpret_cast<__nv_bfloat16*>(smem_raw + L::VR);
+  float* sCC = reinterpret_cast<float*>(smem_raw + L::CC);
+  float* sQm = reinterpret_cast<float*>(smem_raw + L::QM);
+  float* sVm = reinterpret_cast<float*>(smem_raw + L::VM);
+  float* sRs = reinterpret_cast<float*>(smem_raw + L::RS);
+  int8_t* sCode = reinterpret_cast<int8_t*>(smem_raw + L::CODE);
 
-  const int tid = threadIdx.x, tx = tid & 7, ty = tid >> 3;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int group = p.Hq / p.Hkv, hk = h / group;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ_, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (p.Hq / p.Hkv);
   const int D = p.D;
   const bool smooth = p.flags & F_SMOOTH, smooth_q = p.flags & F_SMOOTH_Q;
-  const bool q_dense = p.flags & F_Q_DENSE;
-  const bool k4 = p.flags & F_K_INT4, v4 = p.flags & F_V_INT4;
-  const long long qrow = ((long long)b * p.Hq + h) * p.Sq;
+  const long long bh = (long long)b * p.Hq + h;
+  const long long qrow = bh * p.Sq;
   const long long krow = ((long long)b * p.Hkv + hk) * p.Sk;
-  const int kw = k4 ? D / 2 : D, vw = v4 ? D / 2 : D;
-  const int8_t* kcodes = p.kv + krow * kw;
-  const int8_t* vcodes = p.vv + krow * vw;
-  const float* kscales = p.ks + krow;
-  const float* vscales = p.vs + krow;
+  const __nv_bfloat16* kbf = p.kb + krow * D;
+  const __nv_bfloat16* vbf = p.vb + krow * D;
+  const float* ccrow = smooth_q ? p.cc + bh * p.Sk : nullptr;
   const float* bias = p.bias ? p.bias + b * p.bsb + h * p.bsh : nullptr;
 
-  for (int c = tid; c < DP; c += NT) {
+  int k_lo, k_hi;
+  visible_keys(q0, min(q0 + BQ_, p.Sq) - 1, p.Sk, p.left, p.right, &k_lo, &k_hi);
+  const int t_lo = k_lo / BK;
+  const int n_t = k_hi >= k_lo ? k_hi / BK - t_lo + 1 : 0;
+  // Steps [0, n_t) are pass 1 (QKᵀ and the row max, K̃ only), steps
+  // [n_t, 2 n_t) pass 2 (P against the final max, P·V), over the same
+  // tiles. Step i reads ring buffer i % 3; tile i + 2 is copied meanwhile.
+  const int steps = 2 * n_t;
+  auto k0_of = [&](int i) { return (t_lo + (i < n_t ? i : i - n_t)) * BK; };
+  auto issue = [&](int i) {
+    if (i < steps) {
+      const int buf = i % 3, k0 = k0_of(i);
+      copy_rows<DP, NTH>(sKR + buf * BK * L::LDR, kbf, k0, p.Sk, D, p.kvmode);
+      if (i >= n_t) copy_rows<DP, NTH>(sVR + buf * BK * L::LDR, vbf, k0, p.Sk, D, p.kvmode);
+      if (smooth_q && tid < BK) copy_scale(sCC + buf * BK, ccrow, 1, k0, tid, p.Sk);
+    }
+    cp_async_commit();  // empty groups keep the count of groups uniform
+  };
+
+  for (int c = tid; c < DP; c += NTH) {
     const bool in = c < D;
-    sQm[c] = in && smooth_q ? p.qm[((long long)b * p.Hq + h) * D + c] : 0.f;
-    sQmb[c] = round_bf16(sQm[c]);
+    sQm[c] = in && smooth_q ? p.qm[bh * D + c] : 0.f;
     sVm[c] = in && smooth ? p.vm[((long long)b * p.Hkv + hk) * D + c] : 0.f;
   }
 
-  // The Q tile: staged (rotated: each output reads its raw row from global
-  // memory), then quantized, its dequantized values with the softmax scale
-  // folded in, or, dense, rounded as bf16(q_rot · scale).
+  // The Q tile: staged as fp32, rotated (each raw row converted to double
+  // once, then rotated from shared memory, RAW rows at a time), then
+  // quantized in place to its dequantized values with the softmax scale
+  // folded in, or, dense, rounded as bf16(q_rot · scale). Rows past Sq and
+  // columns past D stay 0.
+  const int nvalid = min(BQ_, p.Sq - q0);
   {
-    const Tin* q = static_cast<const Tin*>(p.q) + qrow * D;
-    const int nvalid = min(BQ, p.Sq - q0);
+    const Tin* q = static_cast<const Tin*>(p.q) + (qrow + q0) * D;
     if (p.flags & F_HADAMARD) {
-      for (int e = tid; e < 64 * DP; e += NT) {
-        const int r = e / DP, c = e - r * DP;
-        float y = 0.f;
-        if (r < nvalid && c < D) {
-          const Tin* xr = q + (long long)(q0 + r) * D;
-          y = rotate_elem([&](int j) { return Elem<Tin>::load(xr, j); }, c, D, p.hval);
-        }
-        sV[r * S + c] = y;
-      }
-    } else {
-      stage_rows<Tin, DP>(sV, q, q0, p.Sq, D);
-    }
-    __syncthreads();
-    if (q_dense) {
-      for (int e = tid; e < 64 * DP; e += NT) {
-        const int r = e / DP, c = e - r * DP;
-        sQd[r * S + c] = r < nvalid && c < D ? round_bf16(__fmul_rn(sV[r * S + c], p.scale)) : 0.f;
-      }
-    } else {
-      const float fq = (float)p.qmax_q;
-      for (int r = warp; r < 64; r += NT / 32) {  // one warp per row
-        const float* tr = sV + r * S;
-        double* dr = sQd + r * S;
-        if (r >= nvalid) {
-          for (int c = lane; c < DP; c += 32) dr[c] = 0.0;
-          continue;
-        }
-        float y[NE];
-        float amax = 0.f;
-#pragma unroll
-        for (int i = 0; i < NE; ++i) {
-          const int c = lane + 32 * i;
-          float x = 0.f;
-          if (c < D) {
-            x = tr[c];
-            if (smooth_q) x = __fsub_rn(x, sQm[c]);
-            amax = fmaxf(amax, fabsf(x));
-          }
-          y[i] = x;
-        }
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-        amax = fmaxf(amax, 1e-12f);
-        const float sc = __fdiv_rn(amax, fq), rcp = __fdiv_rn(fq, amax);
-#pragma unroll
-        for (int i = 0; i < NE; ++i) {
-          const int c = lane + 32 * i;
-          float deq = 0.f;
-          if (c < D) {
-            const float qf = rintf(__fmul_rn(y[i], rcp));
-            sCode[r * DP + c] = (int8_t)(int)qf;
-            deq = round_bf16(__fmul_rn(__fmul_rn(qf, sc), p.scale));
-          }
-          dr[c] = deq;
-        }
-        if (lane == 0) sRs[r] = sc;
-      }
-      if (p.qv) {  // the Q residual: codes (INT4 packed) and scales
+      double* raw = reinterpret_cast<double*>(smem_raw + L::KD_);
+      constexpr int C4 = DP / 4;
+      for (int r0 = 0; r0 < BQ_; r0 += L::RAW) {
+        for (int e = tid; e < L::RAW * D; e += NTH)
+          raw[e] = r0 + e / D < nvalid ? (double)Elem<Tin>::load(q, (long long)r0 * D + e) : 0.0;
         __syncthreads();
-        const bool q4 = p.flags & F_Q_INT4;
-        const int w = q4 ? D / 2 : D;
-        for (int e = tid; e < nvalid * w; e += NT) {
-          const int r = e / w, c = e - r * w;
-          int code = sCode[r * DP + c];
-          if (q4) code = (code & 0xF) | ((sCode[r * DP + c + w] & 0xF) << 4);
-          p.qv[(qrow + q0 + r) * w + c] = (int8_t)(unsigned char)code;
+        for (int e = tid; e < L::RAW * C4; e += NTH) {
+          const int r = e / C4, c = e - r * C4;
+          float y[4] = {0.f, 0.f, 0.f, 0.f};
+          if (r0 + r < nvalid) {
+            const double* xr = raw + r * D;
+            rotate4<DP>([&](int j) { return xr[j]; }, c, D, p.hval, y);
+          }
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            sQ[(r0 + r) * L::LDQ + c + k * C4] = c + k * C4 < D ? y[k] : 0.f;
         }
-        for (int r = tid; r < nvalid; r += NT) p.qs[qrow + q0 + r] = sRs[r];
+        __syncthreads();
       }
+    } else {
+      for (int e = tid; e < BQ_ * DP; e += NTH) {
+        const int r = e / DP, c = e - r * DP;
+        sQ[r * L::LDQ + c] = r < nvalid && c < D ? Elem<Tin>::load(q, (long long)r * D + c) : 0.f;
+      }
+      __syncthreads();
     }
   }
-
-  // The K tile at k0 dequantized on load into sKd, and its cc row.
-  auto load_k = [&](int k0) {
-    stage_deq<DP>(sKd, kcodes, kscales, 1, k0, p.Sk, D, k4);
-    if (smooth_q) {
-      __syncthreads();
-      if (tid < BK) {
-        double acc = 0.0;  // exact: products of bf16 values
-        for (int d = 0; d < D; ++d) acc = fma((double)sQmb[d], sKd[tid * S + d], acc);
-        sCC[tid] = __fmul_rn((float)acc, p.scale);
+  if (p.flags & F_Q_DENSE) {
+    for (int e = tid; e < nvalid * DP; e += NTH) {
+      const int r = e / DP, c = e - r * DP;
+      float* x = sQ + r * L::LDQ + c;
+      *x = round_bf16(__fmul_rn(*x, p.scale));
+    }
+  } else {
+    const float fq = (float)p.qmax_q;
+    for (int r = warp; r < nvalid; r += NW) {  // one warp per row
+      float* tr = sQ + r * L::LDQ;
+      float y[NE];
+      float amax = 0.f;
+#pragma unroll
+      for (int i = 0; i < NE; ++i) {
+        const int c = lane + 32 * i;
+        float x = 0.f;
+        if (c < D) {
+          x = tr[c];
+          if (smooth_q) x = __fsub_rn(x, sQm[c]);
+          amax = fmaxf(amax, fabsf(x));
+        }
+        y[i] = x;
       }
-    }
-  };
-
-  int k_lo, k_hi;
-  visible_keys(q0, min(q0 + BQ, p.Sq) - 1, p.Sk, p.left, p.right, &k_lo, &k_hi);
-  const int t_lo = k_lo / BK;
-  const int t_hi = k_hi >= k_lo ? k_hi / BK : t_lo - 1;
-
-  // This thread's 4 x 8 scores of the key tile at k0; returns the bits of
-  // the index-visible ones (the others are MASK_VALUE). The dot of bf16
-  // values is exact in double and rounded once (as the plain version's
-  // float64 product); explicitly rounded adds: both passes, and the plain
-  // version, compute the same bits.
-  auto scores = [&](int k0, float (&s)[4][8]) -> unsigned {
-    double sd[4][8];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+      amax = fmaxf(amax, 1e-12f);
+      const float sc = __fdiv_rn(amax, fq), rcp = __fdiv_rn(fq, amax);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) sd[i][j] = 0.0;
-#pragma unroll 4
-    for (int d = 0; d < DP; ++d) {
-      double a[4], kb[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = sQd[(ty * 4 + i) * S + d];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) kb[j] = sKd[(tx + 8 * j) * S + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) sd[i][j] = fma(a[i], kb[j], sd[i][j]);
-    }
-    unsigned vis = 0u;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = k0 + tx + 8 * j;
-        if (key_visible(row, col, p.Sq, p.Sk, p.left, p.right)) {
-          float x = (float)sd[i][j];
-          if (smooth_q) x = __fadd_rn(x, sCC[tx + 8 * j]);
-          if (bias) x = __fadd_rn(x, bias[row * p.bsq + col * p.bsk]);
-          s[i][j] = x;
-          vis |= 1u << (i * 8 + j);
-        } else {
-          s[i][j] = MASK_VALUE;
+      for (int i = 0; i < NE; ++i) {
+        const int c = lane + 32 * i;
+        if (c < D) {
+          const float qf = rintf(__fmul_rn(y[i], rcp));
+          sCode[r * DP + c] = (int8_t)(int)qf;
+          tr[c] = round_bf16(__fmul_rn(__fmul_rn(qf, sc), p.scale));
         }
       }
+      if (lane == 0) sRs[r] = sc;
+    }
+    if (p.qv) {  // the Q residual: codes (INT4 packed) and scales
+      __syncthreads();
+      const bool q4 = p.flags & F_Q_INT4;
+      const int w = q4 ? D / 2 : D;
+      for (int e = tid; e < nvalid * w; e += NTH) {
+        const int r = e / w, c = e - r * w;
+        int code = sCode[r * DP + c];
+        if (q4) code = (code & 0xF) | ((sCode[r * DP + c + w] & 0xF) << 4);
+        p.qv[(qrow + q0 + r) * w + c] = (int8_t)(unsigned char)code;
+      }
+      for (int r = tid; r < nvalid; r += NTH) p.qs[qrow + q0 + r] = sRs[r];
+    }
+  }
+  __syncthreads();
+
+  const int rw = warp * 16;                       // the warp's first row in the tile
+  const int row0 = q0 + rw + g, row1 = row0 + 8;  // this thread's two rows
+  // Q's A fragments, as double: a[0] = Q[g][8 ks + t], a[1] = Q[g + 8][..],
+  // a[2], a[3] four columns on (mma.cuh).
+  double qf[QREG ? KST : 1][4];
+  auto q_frag = [&](int ks, double (&a)[4]) {
+    const float* qa = sQ + (rw + g) * L::LDQ + 8 * ks + tq;
+    a[0] = qa[0];
+    a[1] = qa[8 * L::LDQ];
+    a[2] = qa[4];
+    a[3] = qa[8 * L::LDQ + 4];
+  };
+  if constexpr (QREG) {
+#pragma unroll
+    for (int ks = 0; ks < KST; ++ks) q_frag(ks, qf[ks]);
+  }
+
+  // The K̃ tile of step i as double, two columns a thread at a time.
+  auto convert_k = [&](int i) {
+    const __nv_bfloat16* src = sKR + (i % 3) * BK * L::LDR;
+    double* dst = sKd + (i & 1) * BK * L::LDK;
+#pragma unroll 4
+    for (int e = tid; e < BK * DP / 2; e += NTH) {
+      const int r = e / (DP / 2), c = 2 * (e % (DP / 2));
+      const float2 x =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(src + r * L::LDR + c));
+      *reinterpret_cast<double2*>(dst + r * L::LDK + c) = make_double2(x.x, x.y);
+    }
+  };
+  issue(0);
+  issue(1);
+  if (KD && steps > 0) {
+    cp_async_wait<1>();
+    __syncthreads();
+    convert_k(0);
+  }
+
+  // This thread's scores of keys k0 + 16 c + [0, 16) of step i's K tile:
+  // the exact double dot rounded once, + cc, + bias, index-masked to
+  // MASK_VALUE; element (jj, e) is row e < 2 ? row0 : row1, key
+  // k0 + 16 c + 8 jj + 2 tq + (e & 1). With `edge` (the tile crosses a mask
+  // edge or carries a bias) returns the bits 4 jj + e of the visible.
+  auto chunk = [&](int i, int k0, int c, bool edge, float (&s)[2][4]) -> unsigned {
+    const double* cKd = sKd + (i & 1) * BK * L::LDK;
+    const __nv_bfloat16* cKR = sKR + (i % 3) * BK * L::LDR;
+    double sd[2][4];
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sd[jj][e] = 0.0;
+#pragma unroll
+    for (int ks = 0; ks < KST; ++ks) {
+      double a[4];
+      if constexpr (QREG) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = qf[ks][e];
+      } else {
+        q_frag(ks, a);
+      }
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int kr = 16 * c + 8 * jj + g, kc = 8 * ks + tq;
+        double bf[2];
+        if constexpr (KD) {
+          bf[0] = cKd[kr * L::LDK + kc];
+          bf[1] = cKd[kr * L::LDK + kc + 4];
+        } else {
+          bf[0] = __bfloat162float(cKR[kr * L::LDR + kc]);
+          bf[1] = __bfloat162float(cKR[kr * L::LDR + kc + 4]);
+        }
+        mma_f64(sd[jj], a, bf);
+      }
+    }
+    const float* cCC = sCC + (i % 3) * BK + 16 * c;
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      float2 cc = make_float2(0.f, 0.f);
+      if (smooth_q) cc = *reinterpret_cast<const float2*>(cCC + 8 * jj + 2 * tq);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = (float)sd[jj][e];
+        s[jj][e] = smooth_q ? __fadd_rn(x, e & 1 ? cc.y : cc.x) : x;
+      }
+    }
+    unsigned vis = 0xffu;
+    if (edge) {
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = e < 2 ? row0 : row1, col = k0 + 16 * c + 8 * jj + 2 * tq + (e & 1);
+          if (key_visible(row, col, p.Sq, p.Sk, p.left, p.right)) {
+            if (bias) s[jj][e] = __fadd_rn(s[jj][e], bias[row * p.bsq + col * p.bsk]);
+          } else {
+            s[jj][e] = MASK_VALUE;
+            vis &= ~(1u << (4 * jj + e));
+          }
+        }
     }
     return vis;
   };
 
-  // Pass 1: the exact row max over every visible key.
-  float m[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) m[i] = MASK_VALUE;
-  for (int t = t_lo; t <= t_hi; ++t) {
-    __syncthreads();  // sQd written; the previous tile's sKd/sCC consumed
-    load_k(t * BK);
-    __syncthreads();
-    float s[4][8];
-    scores(t * BK, s);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) m[i] = fmaxf(m[i], s[i][j]);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) m[i] = row_max8(m[i]);
-
-  // Pass 2: P against the final max, l, and P·V on bf16(P).
   const bool sum_rounded = D < 128;
-  float l[4], acc[4][NC];
+  float m[2] = {MASK_VALUE, MASK_VALUE}, l[2] = {0.f, 0.f};
+  float acc[NA][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    l[i] = 0.f;
+  for (int n = 0; n < NA; ++n)
 #pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-  }
-  for (int t = t_lo; t <= t_hi; ++t) {
-    const int k0 = t * BK;
-    __syncthreads();  // the previous tile's sKd/sV/sP/sCC consumed
-    stage_deq<DP>(sV, vcodes, vscales, 1, k0, p.Sk, D, v4);
-    load_k(k0);
-    __syncthreads();
-    float s[4][8];
-    const unsigned vis = scores(k0, s);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float pj = (vis >> (i * 8 + j)) & 1u ? expf(s[i][j] - m[i]) : 0.f;
-        const float pb = round_bf16(pj);
-        rs += sum_rounded ? pb : pj;
-        sP[(ty * 4 + i) * PS + tx + 8 * j] = pb;
-      }
-      l[i] += row_sum8(rs);
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int i = 0; i < steps; ++i) {
+    // At D 64 the next tile is converted a step ahead, so it must have
+    // landed too; else only tile i.
+    if (KD)
+      cp_async_wait<0>();
+    else
+      cp_async_wait<1>();
+    __syncthreads();  // those tiles landed; every warp is done with step i - 1
+    issue(i + 2);     // into the buffers step i - 1 read
+    if (KD && i + 1 < steps) convert_k(i + 1);
+    if (i == n_t) {
+      m[0] = quad_max(m[0]);
+      m[1] = quad_max(m[1]);
     }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float pp[4];
+
+    // Rows rw..rw+15 of the tile against keys k0..k0+63: none visible, all
+    // visible (and all rows real), or an edge.
+    const int k0 = k0_of(i), r_lo = q0 + rw, r_hi = r_lo + 15;
+    const bool none = r_lo >= p.Sq || k0 >= p.Sk || (p.right >= 0 && k0 > r_hi + p.right) ||
+                      (p.left >= 0 && k0 + BK - 1 < r_lo - p.left);
+    if (none) continue;
+    const bool all = k0 + BK <= p.Sk && r_hi < p.Sq &&
+                     (p.right < 0 || k0 + BK - 1 <= r_lo + p.right) &&
+                     (p.left < 0 || k0 >= r_hi - p.left);
+    const bool edge = !all || bias;
+    if (i < n_t) {
+      // Pass 1: the exact row max over every visible key, QKᵀ alone.
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pp[i] = sP[(ty * 4 + i) * PS + kk];
+      for (int c = 0; c < BK / 16; ++c) {
+        float s[2][4];
+        chunk(i, k0, c, edge, s);
 #pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const float vv = sV[kk * S + tx + 8 * c];
+        for (int jj = 0; jj < 2; ++jj) {
+          m[0] = fmaxf(m[0], fmaxf(s[jj][0], s[jj][1]));
+          m[1] = fmaxf(m[1], fmaxf(s[jj][2], s[jj][3]));
+        }
+      }
+    } else {
+      // Pass 2: P = expf(s - m) against the final max; l sums bf16(P) at
+      // D < 128 (read back from the packed A fragment) and the fp32 P at
+      // D 128; P·V takes bf16(P) and the Ṽ tile.
+      const __nv_bfloat16* cV = sVR + (i % 3) * BK * L::LDR;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(pp[i], vv, acc[i][c]);
+      for (int c = 0; c < BK / 16; ++c) {
+        float s[2][4];
+        const unsigned vis = chunk(i, k0, c, edge, s);
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool seen = !edge || ((vis >> (4 * jj + e)) & 1u);
+            s[jj][e] = seen ? expf(s[jj][e] - m[e >> 1]) : 0.f;
+          }
+        uint32_t a[4];
+        pack_a(a, s[0], s[1]);
+#pragma unroll
+        for (int r = 0; r < 4; ++r)  // a[r]: row r & 1 ? row1 : row0
+          l[r & 1] += sum_rounded
+                          ? __uint_as_float(a[r] << 16) + __uint_as_float(a[r] & 0xffff0000u)
+                          : s[r >> 1][2 * (r & 1)] + s[r >> 1][2 * (r & 1) + 1];
+#pragma unroll
+        for (int dn = 0; dn < DP / 16; ++dn) {
+          uint32_t b0[2], b1[2];
+          load_b_kn(b0, b1, cV, L::LDR, c * 16, dn * 16, lane);
+          mma_bf16(acc[2 * dn], a, b0);
+          mma_bf16(acc[2 * dn + 1], a, b1);
+        }
       }
     }
   }
@@ -483,21 +730,24 @@ __global__ void __launch_bounds__(NT) fused_qattn_kernel(const FQParams p) {
   Tout* out = static_cast<Tout*>(p.out) + qrow * D;
   float* lse = p.lse + qrow;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
+  for (int i = 0; i < 2; ++i) {
+    const int row = i ? row1 : row0;
+    const float lsum = quad_sum(l[i]);
     if (row >= p.Sq) continue;
-    const bool empty = l[i] == 0.f;
-    const float l_safe = empty ? 1.f : l[i];
+    const bool empty = lsum == 0.f;
+    const float l_safe = empty ? 1.f : lsum;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int col = tx + 8 * c;
-      if (col >= D) continue;
-      float o = acc[i][c] / l_safe;
-      // The V-mean restore; rows with no visible key keep their exact 0.
-      if (smooth) o = empty ? 0.f : __fadd_rn(o, sVm[col]);
-      Elem<Tout>::store(out, (long long)row * D + col, o);
-    }
-    if (tx == 0) lse[row] = empty ? MASK_VALUE : m[i] + logf(l_safe);
+    for (int n = 0; n < NA; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * n + 2 * tq + e;
+        if (col >= D) continue;
+        float o = acc[n][2 * i + e] / l_safe;
+        // The V-mean restore; rows with no visible key keep their exact 0.
+        if (smooth) o = empty ? 0.f : __fadd_rn(o, sVm[col]);
+        Elem<Tout>::store(out, (long long)row * D + col, o);
+      }
+    if (tq == 0) lse[row] = empty ? MASK_VALUE : m[i] + logf(l_safe);
   }
 }
 
@@ -514,12 +764,17 @@ cudaError_t launch(const FQParams& p, cudaStream_t stream) {
         <<<(unsigned)((kv_rows + KV_WARPS - 1) / KV_WARPS), KV_WARPS * 32, 0, stream>>>(p);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
-  constexpr int smem = fq_smem_bytes<DP>();
-  err = cudaFuncSetAttribute(fused_qattn_kernel<Tin, Tout, DP>,
+  if ((p.flags & F_SMOOTH_Q) && p.Sk > 0) {
+    const dim3 cc_grid((p.Sk + BK - 1) / BK, p.Hkv, p.B);
+    fused_cc_kernel<DP><<<cc_grid, NTM, 0, stream>>>(p);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  constexpr int smem = FCfg<DP>::BYTES, bq = FCfg<DP>::BQ, nth = FCfg<DP>::NTH;
+  err = cudaFuncSetAttribute(fused_qattn_tc_kernel<Tin, Tout, DP>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.Sq + BQ - 1) / BQ, p.Hq, p.B);
-  fused_qattn_kernel<Tin, Tout, DP><<<grid, NT, smem, stream>>>(p);
+  const dim3 grid((p.Sq + bq - 1) / bq, p.Hq, p.B);
+  fused_qattn_tc_kernel<Tin, Tout, DP><<<grid, nth, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -529,41 +784,60 @@ cudaError_t launch_d(const FQParams& p, cudaStream_t stream) {
   return launch<Tin, Tout, 128>(p, stream);
 }
 
+// How bf16 rows of D elements starting at ptr are copied (`copy_rows`).
+int copy_mode(const void* ptr, int D) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(ptr);
+  return D % 8 == 0 && a % 16 == 0 ? 2 : D % 2 == 0 && a % 4 == 0 ? 1 : 0;
+}
+
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16. q (B, Hq, Sq, D), k/v
-// (B, Hkv, Sk, D) contiguous in in_dtype; bias float32 with element strides
-// (or null); out (B, Hq, Sq, D) in out_dtype, lse (B, Hq, Sq) float32.
-// K/V codes kv/vv (B, Hkv, Sk, D), or (B, Hkv, Sk, D/2) packed INT4, and
-// float32 scales ks/vs (B, Hkv, Sk): always written (the residuals, or
-// scratch). The Q residual qv/qs likewise for an integer Q, or null. Means
-// (float32): qm (B, Hq, D) with SMOOTH_Q, km and vm (B, Hkv, D) with SMOOTH,
-// written by this call. Returns the cudaError_t of the launches.
+// (B, Hkv, Sk, D) contiguous in in_dtype, D <= 128; bias float32 with
+// element strides (or null); out (B, Hq, Sq, D) in out_dtype, lse
+// (B, Hq, Sq) float32. K/V codes kv/vv (B, Hkv, Sk, D), or (B, Hkv, Sk,
+// D/2) packed INT4, and float32 scales ks/vs (B, Hkv, Sk): always written
+// (the residuals, or scratch). The Q residual qv/qs likewise for an integer
+// Q, or null. Means (float32): qm (B, Hq, D) with SMOOTH_Q, km and vm
+// (B, Hkv, D) with SMOOTH, written by this call; cc (B, Hq, Sk) float32
+// scratch with SMOOTH_Q; kb and vb (B, Hkv, Sk, D) bfloat16 scratch.
+// Returns the cudaError_t of the launches.
 extern "C" int umfa_fused_qattn(const void* q, const void* k, const void* v, const void* bias,
                                 void* out, void* lse, void* qv, void* qs, void* kv, void* ks,
-                                void* vv, void* vs, void* qm, void* km, void* vm, int B, int Hq,
-                                int Hkv, int Sq, int Sk, int D, long long bsb, long long bsh,
-                                long long bsq, long long bsk, float scale, int left, int right,
-                                int flags, int qmax_q, int qmax_k, int qmax_v, int Tq, int Tkv,
-                                int in_dtype, int out_dtype, void* stream) {
+                                void* vv, void* vs, void* qm, void* km, void* vm, void* cc,
+                                void* kb, void* vb, int B,
+                                int Hq, int Hkv, int Sq, int Sk, int D, long long bsb,
+                                long long bsh, long long bsq, long long bsk, float scale, int left,
+                                int right, int flags, int qmax_q, int qmax_k, int qmax_v, int Tq,
+                                int Tkv, int in_dtype, int out_dtype, void* stream) {
   const bool int4 = flags & (F_Q_INT4 | F_K_INT4 | F_V_INT4);
   if (D < 1 || D > MAXD || Hkv < 1 || Hq % Hkv != 0 || in_dtype < 0 || in_dtype > 1 ||
       out_dtype < 0 || out_dtype > 1 || (int4 && D % 2) ||
       ((flags & F_HADAMARD) && (D & (D - 1))) || Tq < 1 || Tkv < 1 ||
-      ((flags & F_SMOOTH) && (!km || !vm)) || ((flags & F_SMOOTH_Q) && !qm) || !kv || !ks ||
-      !vv || !vs || (!qv != !qs))
+      ((flags & F_SMOOTH) && (!km || !vm)) || ((flags & F_SMOOTH_Q) && (!qm || !cc)) || !kv ||
+      !ks || !vv || !vs || !kb || !vb || (!qv != !qs))
     return cudaErrorInvalidValue;
   const FQParams p{q, k, v, static_cast<const float*>(bias), out, static_cast<float*>(lse),
                    static_cast<int8_t*>(qv), static_cast<float*>(qs), static_cast<int8_t*>(kv),
                    static_cast<float*>(ks), static_cast<int8_t*>(vv), static_cast<float*>(vs),
                    static_cast<float*>(qm), static_cast<float*>(km), static_cast<float*>(vm),
+                   static_cast<float*>(cc), static_cast<__nv_bfloat16*>(kb),
+                   static_cast<__nv_bfloat16*>(vb),
                    B, Hq, Hkv, Sq, Sk, D, bsb, bsh, bsq, bsk, scale, left, right,
                    flags, qmax_q, qmax_k, qmax_v, Tq, Tkv,
                    // The rotation's entries: fp32(D^-1/2), as the host's hadamard_matrix.
-                   (float)pow((double)D, -0.5)};
+                   (float)pow((double)D, -0.5),
+                   copy_mode(kb, D) < copy_mode(vb, D) ? copy_mode(kb, D) : copy_mode(vb, D)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (in_dtype == 0)
     return out_dtype == 0 ? launch_d<float, float>(p, st) : launch_d<float, __nv_bfloat16>(p, st);
   return out_dtype == 0 ? launch_d<__nv_bfloat16, float>(p, st)
                         : launch_d<__nv_bfloat16, __nv_bfloat16>(p, st);
+}
+
+// Dynamic shared memory of the attention kernel that umfa_fused_qattn
+// launches for head dim D, in bytes (0 if it does not take D).
+extern "C" int umfa_fused_qattn_smem_bytes(int D) {
+  if (D < 1 || D > MAXD) return 0;
+  return D <= 64 ? FCfg<64>::BYTES : FCfg<128>::BYTES;
 }

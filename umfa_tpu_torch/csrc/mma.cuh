@@ -1,6 +1,7 @@
 // Tensor-core building blocks for Hopper, sm_90a: `mma.sync` m16n8k16 bf16
-// -> fp32 and m16n8k32 int8 -> int32, `ldmatrix` (plain and transposed),
-// `cp.async`, and the fragment layouts the attention kernels rely on.
+// -> fp32, m16n8k32 int8 -> int32 and m16n8k8 f64 -> f64, `ldmatrix`
+// (plain and transposed), `cp.async`, and the fragment layouts the
+// attention kernels rely on.
 //
 // Fragment layout of m16n8k16 (lane l, g = l / 4, t = l % 4):
 //   A (16 x 16, row-major): a[0] = A[g][2t..2t+1], a[1] = A[g+8][2t..],
@@ -23,6 +24,17 @@
 // int8 tile viewed as 16-bit words (k0 and the row stride halved), the
 // bf16 loaders `load_a` and `load_b_nk` return the int8 fragments of the
 // 32-deep step over bytes [2 k0, 2 k0 + 32).
+//
+// Fragment layout of m16n8k8 f64 -> f64 (`mma_f64`, the FP64 tensor cores,
+// DMMA in the SASS), one double a register pair:
+//   A (16 x 8, row-major): a[0] = A[g][t],   a[1] = A[g+8][t],
+//                           a[2] = A[g][t+4], a[3] = A[g+8][t+4];
+//   B (8 x 8):             b[0] = B[t][g],   b[1] = B[t+4][g];
+//   C (16 x 8, f64):       as the fp32 C of m16n8k16, so the C fragments of
+//                           two neighbouring 8-column tiles, rounded, feed
+//                           `pack_a` as the bf16 ones do.
+// (Checked on the card against a host product, with m16n8k4 and m16n8k16,
+// which extend A and B the same way in k.)
 //
 // Shared-memory tiles are bf16, row-major, with rows padded to a stride of
 // (width + 8) elements: 16 bytes past a multiple of 128, so the eight
@@ -51,6 +63,17 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Double product on the FP64 tensor cores, accumulated in double: a sum
+// that is exact in double (as the attention scores of bf16 values are, see
+// fused_qattn.cu) comes out the same in any order.
+__device__ __forceinline__ void mma_f64(double (&c)[4], const double (&a)[4],
+                                       const double (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -133,6 +156,14 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_b
 __device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
                "r"(src_bytes));
+}
+
+// The fp32 value of row r0 + i (one per row, or the one of the (b, h) when
+// per_row is 0) into dst[i] by a 4-byte cp.async; 0 past n.
+__device__ __forceinline__ void copy_scale(float* dst, const float* src, int per_row, int r0,
+                                           int i, int n) {
+  const bool ok = r0 + i < n;
+  cp_async4(dst + i, src + (per_row && ok ? r0 + i : 0), ok ? 4 : 0);
 }
 
 __device__ __forceinline__ void cp_async_commit() {

@@ -137,14 +137,6 @@ __device__ __forceinline__ void copy_tile(int8_t* dst, const int8_t* src, int r0
   }
 }
 
-// The scale of row r0 + i (one per row, or the one of the (b, h)) into
-// dst[i], for the calling thread's i < 64; 0 past n.
-__device__ __forceinline__ void copy_scale(float* dst, const float* src, int per_row, int r0,
-                                           int i, int n) {
-  const bool ok = r0 + i < n;
-  cp_async4(dst + i, src + (per_row && ok ? r0 + i : 0), ok ? 4 : 0);
-}
-
 template <int DP>
 __global__ void __launch_bounds__(Cfg<DP>::NTH, Cfg<DP>::MINB)
     quant_attn_fwd_tc_kernel(const QParams p) {

@@ -57,10 +57,10 @@ from umfa_tpu_torch.ops.quant import QuantizedTensor, _qmax, pack_int4
 from umfa_tpu_torch.ops.quant_fused import rotate
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# q k v bias out lse | qv qs kv ks vv vs qm km vm | B Hq Hkv Sq Sk D |
+# q k v bias out lse | qv qs kv ks vv vs qm km vm cc kb vb | B Hq Hkv Sq Sk D |
 # bsb bsh bsq bsk | scale left right | flags qmax_q qmax_k qmax_v Tq Tkv |
 # in out | stream
-_ARGTYPES = (*(_P,) * 15, *(_I,) * 6, *(_L,) * 4, ctypes.c_float, _I, _I,
+_ARGTYPES = (*(_P,) * 18, *(_I,) * 6, *(_L,) * 4, ctypes.c_float, _I, _I,
              *(_I,) * 6, _I, _I, _P)
 
 # Flag bits of the C entry point.
@@ -402,12 +402,18 @@ def _launch(p: _Prepared):
     qm = torch.empty((b, hq, 1, d), **f32) if p.smooth_q else None
     km = torch.empty((b, hkv, 1, d), **f32) if p.smooth else None
     vm = torch.empty((b, hkv, 1, d), **f32) if p.smooth else None
+    # The cc row (bf16(qm)·k̃)·scale of every (b, q head, key): scratch the
+    # kernel fills once and the attention reads with each key tile.
+    cc = torch.empty((b, hq, sk), **f32) if p.smooth_q else None
+    # The dequantized K̃ and Ṽ, bf16(code·scale), written by the quantize pass
+    # beside the codes: the attention copies these tiles as they are.
+    kb, vb = (torch.empty((b, hkv, sk, d), dtype=torch.bfloat16, device=dev) for _ in "kv")
 
     def width(prec):
         return d // 2 if prec == Precision.INT4 else d
 
     # The K/V codes and scales are written by the kernel's quantize pass
-    # whether or not residuals are asked for (the attention reads them).
+    # whether or not residuals are asked for (the cc row reads the K codes).
     res = [None, None,
            torch.empty((b, hkv, sk, width(p.k_precision)), dtype=torch.int8, device=dev),
            torch.empty((b, hkv, sk, 1), **f32),
@@ -430,7 +436,7 @@ def _launch(p: _Prepared):
             err = fn(
                 p.q.data_ptr(), p.k.data_ptr(), p.v.data_ptr(), ptr(p.bias),
                 out.data_ptr(), lse.data_ptr(), *(ptr(t) for t in res),
-                ptr(qm), ptr(km), ptr(vm),
+                ptr(qm), ptr(km), ptr(vm), ptr(cc), kb.data_ptr(), vb.data_ptr(),
                 b, hq, hkv, sq, sk, d, bsb, bsh, bsq, bsk, p.scale, p.left, p.right,
                 flags, _qmax(p.q_precision) if not q_dense else 0,
                 _qmax(p.k_precision), _qmax(p.v_precision), p.t_q, p.t_kv,
