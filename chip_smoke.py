@@ -34,9 +34,9 @@ Phases, one JSON line each:
      timed at the training shape (batch 8, causal 4096, D 64, bf16; median,
      min and max of 10) beside its plain version, its bound and the SDPA
      backward (flash for dQ + dK/dV, memory-efficient with a bias gradient
-     for dbias; yardsticks only); dQ and dK/dV also with fp32 inputs (the
-     CUDA-core kernels int8-qdense runs) beside the memory-efficient SDPA
-     backward on the same fp32 inputs;
+     for dbias; yardsticks only); dQ and dK/dV also with fp32 inputs (3xTF32
+     on the tensor cores, as int8-qdense runs them) beside their 3xTF32
+     floor and the memory-efficient SDPA backward on the same fp32 inputs;
   5. serving at full width (vocab 32768, dim 1024, 16/8 heads, D 64, depth
      8, max_seq 4096, bf16, batch 8) for the dense and the INT8 KV cache:
      prefill of 4032 tokens, a 16-token continuation with chunk_start, a
@@ -152,6 +152,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 
 H100_BF16_FLOPS = 989e12   # dense tensor-core peak, bf16
 H100_FP32_FLOPS = 67e12    # float32 outside the tensor cores
+H100_TF32_FLOPS = 495e12   # dense tensor-core peak, TF32
 H100_FP64_TC_FLOPS = 67e12  # FP64 tensor cores (mma.sync f64)
 H100_INT8_OPS = 1979e12    # dense tensor-core peak, int8
 H100_HBM_BYTES = 3.35e12   # HBM3 bytes/s
@@ -894,8 +895,10 @@ def phase_bwd_kernels(record):
     def randn(shape, dtype=torch.float32):
         return torch.randn(shape, generator=gen).to(dev, dtype)
 
-    def inputs(b, sq, sk, d, dtype, bias_shape=None, dlse=False, **kw):
+    def inputs(b, sq, sk, d, dtype, bias_shape=None, dlse=False, q_sd=1.0, **kw):
         q, k, v = randn((b, HQ, sq, d), dtype), randn((b, HKV, sk, d), dtype), randn((b, HKV, sk, d), dtype)
+        if q_sd != 1.0:
+            q = q * q_sd
         bias = None
         if bias_shape is not None:
             bias = randn({"bhqk": (b, HQ, sq, sk), "11qk": (1, 1, sq, sk)}[bias_shape])
@@ -971,6 +974,26 @@ def phase_bwd_kernels(record):
             results.append(res)
             emit({"phase": "kernel_check", **res})
         del args, got, want
+    # The fp32 dQ and dK/dV (3xTF32) against a float64 evaluation of the
+    # same function, beside their plain version, at causal S 1024 with
+    # q ~ N(0, 3): within 5e-6 of the plain version, as
+    # tests/test_torch_kernels_cuda.py test_flash_bwd_fp32_keeps_highest_accuracy.
+    for d in (64, 128):
+        q, k, v, out, lse, do, _, _ = inputs(B_CHECK, 1024, 1024, d, torch.float32, causal=True,
+                                             q_sd=3.0)
+        got = fb.flash_attention_backward(q, k, v, out, lse, do, causal=True)
+        torch.cuda.synchronize()
+        want = fb.flash_attention_backward_plain(q, k, v, out, lse, do, causal=True)
+        ref = f64_backward(fb._prepare(q, k, v, out, lse, do, None, None, True, None, None))
+        res = {"case": f"flash_bwd/float32/highest_accuracy_d{d}", "tol": 5e-6}
+        for grad, g, w, r in zip(("dq", "dk", "dv"), got, want, ref):
+            res[f"relerr_{grad}"] = rel_err(g, w)
+            res[f"kernel_vs_f64_{grad}"] = rel_err(g, r)
+            res[f"plain_vs_f64_{grad}"] = rel_err(w, r)
+        res["ok"] = all(res[f"relerr_{g}"] <= 5e-6 for g in ("dq", "dk", "dv"))
+        results.append(res)
+        emit({"phase": "kernel_check", **res})
+        del q, k, v, out, lse, do, got, want, ref
     record["bwd_kernel_checks"] = results
     bad = [r["case"] for r in results if not r["ok"]]
     if bad:
@@ -1028,8 +1051,10 @@ def phase_bwd_kernels(record):
     torch.cuda.empty_cache()
 
     # The fp32 dense backward (the int8-qdense recipe runs it): the same
-    # kernels on fp32 inputs, on the CUDA cores, against the
-    # memory-efficient SDPA backward on the same fp32 inputs.
+    # kernels on fp32 inputs, 3xTF32 on the tensor cores, against the
+    # memory-efficient SDPA backward on the same fp32 inputs. Bound: the
+    # 3xTF32 floor (three TF32 products for each fp32 one at the TF32 peak),
+    # with the fp32 CUDA-core time of the same flop beside it.
     q32, k32, v32, do32 = q.float(), k.float(), v.float(), do.float()
     out32, lse32 = flash_attention_forward(q32, k32, v32, causal=True)
     p32 = fb._prepare(q32, k32, v32, out32, lse32, do32, None, None, True, None, None)
@@ -1048,10 +1073,14 @@ def phase_bwd_kernels(record):
         del got, want
         flops = 2 * D * products * pairs
         nbytes = reads32 + written
-        timing[name] = dict(**cuda_stats(kern), plain_ms=cuda_ms(plain, iters=3, warmup=1),
-                            flops=flops, bytes=nbytes, ops_ms=flops / H100_FP32_FLOPS * 1e3,
-                            bytes_ms=nbytes / H100_HBM_BYTES * 1e3, check=check,
-                            ok=all(e <= 1e-4 for e in check.values()))
+        t = dict(**cuda_stats(kern), plain_ms=cuda_ms(plain, iters=3, warmup=1),
+                 flops=flops, bytes=nbytes, ops_ms=3 * flops / H100_TF32_FLOPS * 1e3,
+                 bytes_ms=nbytes / H100_HBM_BYTES * 1e3, check=check,
+                 ok=all(e <= 1e-4 for e in check.values()))
+        t["tf32x3_floor_ms"] = t["ops_ms"]
+        t["share_of_tf32x3_floor"] = t["tf32x3_floor_ms"] / t["ms"]
+        t["fp32_cuda_core_ms"] = flops / H100_FP32_FLOPS * 1e3
+        timing[name] = t
         torch.cuda.empty_cache()
     qg = q32.detach().requires_grad_(True)
 
@@ -1126,6 +1155,28 @@ def phase_bwd_kernels(record):
               "shape": shape.replace("bf16", "fp32") if name.endswith("_fp32") else shape, **t})
     record["bwd_kernel_timing"] = timing
     return timing, worst
+
+
+def f64_backward(p):
+    """dQ, dK, dV of a prepared fp32 backward (ops/flash_bwd.py `_Prepared`,
+    causal, no bias) evaluated in float64: the same function as the
+    kernels and their plain version, rounded nowhere."""
+    import torch
+
+    from umfa_tpu_torch.ops.flash_bwd import _kernel_lse
+
+    b, hq, sq, d = p.q.shape
+    _, hkv, sk, _ = p.k.shape
+    g = hq // hkv
+    q, do = p.q.double(), p.do.double()
+    k, v = (x.double().repeat_interleave(g, 1) for x in (p.k, p.v))
+    hidden = torch.ones((sq, sk), dtype=torch.bool, device=q.device).tril().logical_not()
+    pm = torch.exp((q * p.scale) @ k.transpose(-1, -2) - _kernel_lse(p.lse).double()[..., None])
+    pm = pm.masked_fill(hidden, 0.0)
+    ds = pm * (do @ v.transpose(-1, -2) - p.delta.double()[..., None])
+    dk = (p.scale * ds.transpose(-1, -2) @ q).reshape(b, hkv, g, sk, d).sum(2)
+    dv = (pm.transpose(-1, -2) @ do).reshape(b, hkv, g, sk, d).sum(2)
+    return p.scale * ds @ k, dk, dv
 
 
 def loss_fn(model, tokens):
@@ -2178,8 +2229,13 @@ TC_KERNELS = {"flash_fwd": ("flash_fwd_tc_kernel",), "flash_bwd": ("dq_tc_kernel
               "quant_attn_fwd": ("quant_attn_fwd_tc_kernel",),
               "fused_qattn": ("fused_qattn_tc_kernel",)}
 # The tensor-core instructions (SASS mnemonics) each library's kernels must
-# hold: HMMA for bf16 mma.sync, IMMA for int8, DMMA for f64.
+# hold: HMMA for bf16 (and tf32) mma.sync, IMMA for int8, DMMA for f64.
 TC_OPS = {"quant_attn_fwd": ("HMMA", "IMMA"), "fused_qattn": ("DMMA", "HMMA")}
+# The fp32 dense backward: its 3xTF32 instantiations (product policy
+# Tf32x3Mma) must hold TF32 HMMA, and the CUDA-core kernels they replaced
+# must be gone.
+TF32_POLICY, TF32_HMMA = "Tf32x3Mma", "HMMA.1688.F32.TF32"
+SIMT_BWD_GONE = ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
 
 
 def ptxas_resources(log):
@@ -2205,7 +2261,9 @@ def ptxas_resources(log):
 def phase_sass(record, report):
     """Count the HMMA (or, per TC_OPS, IMMA and DMMA) tensor-core instructions of
     each tensor-core kernel in its library's SASS (cuobjdump -sass); raise
-    if a kernel has none of one of them.
+    if a kernel has none of one of them, if an fp32 (3xTF32) instantiation
+    of the dense backward has no TF32 HMMA, or if a CUDA-core dense
+    backward kernel is left.
     With each kernel its registers and spills (ptxas -v, when this run built
     the library) and the dynamic shared memory it launches with."""
     import ctypes
@@ -2225,26 +2283,40 @@ def phase_sass(record, report):
         for ln in sass.splitlines():
             m = re.search(r"Function : (\S+)", ln)
             if m:
+                left = [k for k in SIMT_BWD_GONE if lib == "flash_bwd" and k in m.group(1)]
+                if left:
+                    raise AssertionError(f"{lib} still holds the CUDA-core {left[0]}")
                 stem = next((st for st in stems if st in m.group(1)), None)
                 fn = f"{lib}:{m.group(1)}" if stem else None
                 if fn:
                     kernels[fn] = {"library": lib, "stem": stem, **{op.lower(): 0 for op in ops}}
+                    if TF32_POLICY in fn:
+                        kernels[fn]["hmma_tf32"] = 0
             elif fn:
                 for op in ops:
                     if op in ln:
                         kernels[fn][op.lower()] += 1
+                if TF32_HMMA in ln and "hmma_tf32" in kernels[fn]:
+                    kernels[fn]["hmma_tf32"] += 1
         for stem in stems:
             found = [f for f in kernels if kernels[f]["library"] == lib and kernels[f]["stem"] == stem]
             for op in ops:
                 if not found or any(kernels[f][op.lower()] == 0 for f in found):
                     raise AssertionError(f"no {op} in the SASS of {lib}'s {stem}: "
                                          f"{ {f: kernels[f][op.lower()] for f in found} }")
+        if lib == "flash_bwd":
+            for stem in stems:
+                found = [f for f in kernels if kernels[f]["stem"] == stem and "hmma_tf32" in kernels[f]]
+                if not found or any(kernels[f]["hmma_tf32"] == 0 for f in found):
+                    raise AssertionError(f"no {TF32_HMMA} in the fp32 {stem} of {lib}: "
+                                         f"{ {f: kernels[f].get('hmma_tf32') for f in found} }")
         if lib in report:
             for f, r in ptxas_resources(report[lib]["ptxas"]).items():
                 if f"{lib}:{f}" in kernels:
                     kernels[f"{lib}:{f}"].update(r)
     fwd = _kernels.function("flash_fwd", "umfa_flash_fwd_smem_bytes", (ctypes.c_int, ctypes.c_int))
-    fbwd = _kernels.function("flash_bwd", "umfa_flash_bwd_smem_bytes", (ctypes.c_int, ctypes.c_int))
+    fbwd = _kernels.function("flash_bwd", "umfa_flash_bwd_smem_bytes",
+                             (ctypes.c_int, ctypes.c_int, ctypes.c_int))
     fdb = _kernels.function("flash_dbias", "umfa_flash_dbias_smem_bytes", (ctypes.c_int,))
     qbwd = _kernels.function("quant_bwd", "umfa_quant_bwd_smem_bytes", (ctypes.c_int, ctypes.c_int))
     qfwd = _kernels.function("quant_attn_fwd", "umfa_quant_attn_fwd_smem_bytes", (ctypes.c_int,))
@@ -2252,13 +2324,15 @@ def phase_sass(record, report):
     for d in (64, 128, 256):
         smem[f"flash_fwd bf16 D{d}"] = fwd(d, 1)
         smem[f"flash_fwd fp32 D{d}"] = fwd(d, 0)
-        smem[f"flash_bwd_dq bf16 D{d}"] = fbwd(d, 0)
-        smem[f"flash_bwd_dkv bf16 D{d}"] = fbwd(d, 1)
+        smem[f"flash_bwd_dq bf16 D{d}"] = fbwd(d, 0, 1)
+        smem[f"flash_bwd_dkv bf16 D{d}"] = fbwd(d, 1, 1)
         smem[f"flash_dbias bf16 D{d}"] = fdb(d)
         smem[f"quant_bwd_dq D{d}"] = qbwd(d, 0)
         smem[f"quant_bwd_dkv D{d}"] = qbwd(d, 1)
         smem[f"quant_attn_fwd D{d}"] = qfwd(d)
         if d <= 128:
+            smem[f"flash_bwd_dq fp32 D{d}"] = fbwd(d, 0, 0)
+            smem[f"flash_bwd_dkv fp32 D{d}"] = fbwd(d, 1, 0)
             smem[f"fused_qattn D{d}"] = fq(d)
     out = {"kernels": kernels, "dynamic_smem_bytes": smem}
     emit({"phase": "sass", **out})
@@ -2269,17 +2343,21 @@ DESIGN = {
     "flash_fwd": "bf16 inputs: tensor cores, mma.sync m16n8k16 bf16->fp32 (4 warps x 16 query "
                  "rows, Q fragments in registers, K/V 64-key tiles double-buffered by cp.async, "
                  "P from the S accumulators); fp32/fp16 inputs: CUDA cores, FP32 FMAs",
-    "flash_bwd_dq": "bf16 inputs: tensor cores, mma.sync m16n8k16 bf16->fp32, the dQ body of "
-                    "quant_bwd_dq (csrc/bwd_tc.cuh dq_tc_kernel) with a bf16 load stage (4 warps x "
-                    "16 query rows, bf16(q·scale) and dO staged once, K/V key tiles copied by "
-                    "cp.async two steps ahead into three padded buffers read in place); "
-                    "fp32/fp16 inputs: CUDA cores, FP32 FMAs",
-    "flash_bwd_dkv": "bf16 inputs: tensor cores, mma.sync m16n8k16 bf16->fp32, the dK/dV body "
-                     "of quant_bwd_dkv (csrc/bwd_tc.cuh) with a bf16 load stage (4 warps x 16 "
-                     "keys, 8 at D 256; K/V staged once, Q and dO 32-row tiles copied by cp.async "
-                     "two steps ahead into three padded buffers, the raw Q read in place for dK, "
-                     "bf16(q·scale) for Sᵀ converted one step ahead); fp32/fp16 inputs: CUDA "
-                     "cores, FP32 FMAs",
+    "flash_bwd_dq": "tensor cores, the dQ body of quant_bwd_dq (csrc/bwd_tc.cuh dq_tc_kernel) "
+                    "with a dense load stage (4 warps x 16 query rows, q·scale and dO staged "
+                    "once, K/V key tiles copied by cp.async two steps ahead into three padded "
+                    "buffers read in place); bf16 inputs: mma.sync m16n8k16 bf16->fp32, 64-key "
+                    "tiles at D 64; fp32/fp16 inputs: 3xTF32 (each operand split into tf32 big "
+                    "and small parts, three mma.sync m16n8k8 tf32->fp32 a product, big·big and "
+                    "the small products in separate accumulators, each 32-key tile's dQ product "
+                    "added to the running sum by an fp32 add), 32-key fp32 tiles",
+    "flash_bwd_dkv": "tensor cores, the dK/dV body of quant_bwd_dkv (csrc/bwd_tc.cuh "
+                     "dkv_tc_kernel) with a dense load stage (4 warps x 16 keys, 8 at D 256; K/V "
+                     "staged once, Q and dO 32-row tiles copied by cp.async two steps ahead into "
+                     "three padded buffers, the raw Q read in place for dK, q·scale for Sᵀ "
+                     "converted one step ahead); bf16 inputs: mma.sync m16n8k16 bf16->fp32; "
+                     "fp32/fp16 inputs: 3xTF32 as flash_bwd_dq, each query tile's dK and dV "
+                     "products added to the running sums by fp32 adds, fp32 tiles",
     "flash_dbias": "bf16 inputs: tensor cores, mma.sync m16n8k16 bf16->fp32 (dbias_tc_kernel: 8 "
                    "warps on a 64-query x 128-key output tile, the dS sum over the bias's "
                    "broadcast batch and heads in registers, the bias tile in shared memory "

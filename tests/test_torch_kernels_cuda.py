@@ -19,6 +19,8 @@ and `flash_attention_bias_grad_plain` on the same inputs: fp32 and fp16
 tests/test_flash_backward.py:32; bf16 (bf16 gradients emitted, dS and P
 rounded to bf16 at the same points, fp32 sums in another order) relerr
 2e-2, TOL["bf16"]. Rows with no visible key have gradients of exactly 0.
+The fp32 dQ and dK/dV (3xTF32 on the tensor cores) are also held to 5e-6,
+a twentieth of their gate, where one TF32 pass would sit near 1e-3.
 """
 
 import pytest
@@ -197,9 +199,11 @@ def _bias(shape_kind, b, hq, sq, sk, dev, seed=1):
     return torch.where(bias > 1.5, torch.full_like(bias, -1e30), bias)
 
 
-def _bwd_inputs(case, dtype, dev):
+def _bwd_inputs(case, dtype, dev, q_sd=1.0):
     b, hq, hkv, sq, sk, d, causal, window, bias_shape, dlse = case
     q, k, v = _qkv(b, hq, hkv, sq, sk, d, dtype, dev)
+    if q_sd != 1.0:
+        q = q * q_sd
     bias = None if bias_shape is None else _bias(bias_shape, b, hq, sq, sk, dev)
     out, lse = flash_attention_forward_plain(q, k, v, bias, causal=causal, window=window)
     g = torch.Generator().manual_seed(2)
@@ -335,6 +339,39 @@ def test_flash_attention_autograd_on_the_card_matches_the_cpu(dev):
 def test_flash_bwd_dkv_tc_bf16_in_fp32_out(dev, case):
     args, kw = _bwd_inputs(case, torch.bfloat16, dev)
     _check_bwd(args, kw, None, 5e-4)
+
+
+# fp32 inputs: dQ and dK/dV on the tensor cores in 3xTF32 (dq_tc_kernel and
+# dkv_tc_kernel with fp32 load stages), at head dims that are not multiples
+# of 16 (zero-padded to the 64 template), a KV tail, GQA 4, fully masked
+# rows and a long causal row with larger scores; gate 1e-4 (BWD_TOLS).
+BWD_FP32_CASES = [
+    # (case as in BWD_CASES, q_sd)
+    ((2, 4, 2, 200, 200, 36, True, None, None, True), 1.0),       # D 36, dlse
+    ((1, 4, 1, 130, 257, 48, True, None, None, False), 1.0),      # D 48, KV tail, GQA 4
+    ((2, 4, 1, 100, 60, 64, False, (0, -1), None, False), 1.0),   # GQA 4, rows >= 60 masked
+    ((1, 2, 2, 77, 100, 36, False, (20, 10), "bhqk", True), 1.0),  # D 36, window, bias
+    ((1, 4, 2, 1024, 1024, 64, True, None, None, False), 3.0),    # causal S 1024, q ~ N(0, 3)
+    ((1, 4, 2, 1024, 1024, 128, True, None, None, True), 3.0),    # the same at D 128, dlse
+]
+
+
+@pytest.mark.parametrize("case,q_sd", BWD_FP32_CASES)
+def test_flash_bwd_fp32_tc_kernels_match_plain(dev, case, q_sd):
+    args, kw = _bwd_inputs(case, torch.float32, dev, q_sd=q_sd)
+    _check_bwd(args, kw, None, BWD_TOLS[torch.float32])
+
+
+# The 3xTF32 products keep the fp32 backward about as accurate as fp32 FMAs
+# in another order: 5e-6 against the plain version at causal S 1024 with
+# q ~ N(0, 3), a twentieth of the gate (chip_smoke.py reports both sides'
+# distance from a float64 evaluation at this shape). One TF32 pass sits
+# near 1e-3 there (the CPU model, tests/test_torch_flash_bwd_split.py).
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_bwd_fp32_keeps_highest_accuracy(dev, d):
+    args, kw = _bwd_inputs((2, 4, 4, 1024, 1024, d, True, None, None, False), torch.float32, dev,
+                           q_sd=3.0)
+    _check_bwd(args, kw, None, 5e-6)
 
 
 def test_quant_attn_fwd_kernel_word_copies_for_unaligned_operands(dev):

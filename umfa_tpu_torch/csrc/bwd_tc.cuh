@@ -1,15 +1,18 @@
 // Tensor-core bodies of the attention backward for Hopper, sm_90a: dK/dV
-// (`dkv_tc_kernel`) and dQ (`dq_tc_kernel`), mma.sync m16n8k16 bf16 -> fp32.
+// (`dkv_tc_kernel`) and dQ (`dq_tc_kernel`).
 //
-// Each body takes its load stage as a template parameter. The stage copies
-// a tile's raw operands into a staging buffer (cp.async, two steps ahead)
-// and turns them into the bf16 tiles the products read (one step ahead), so
-// one barrier a step orders everything. `csrc/quant_bwd.cu` gives both
-// bodies stages that dequantize int8/int4 codes into converted tiles (two
-// staging buffers); `csrc/flash_bwd.cu` gives both stages that copy bf16
-// rows straight into padded tiles, which the products read where they
-// landed (three staging buffers: one being read, one landing, one being
-// filled). The arithmetic the bodies hold to (the reference's rounding
+// Each body takes its load stage and its product policy as template
+// parameters. The stage copies a tile's raw operands into a staging buffer
+// (cp.async, two steps ahead) and turns them into the tiles the products
+// read (one step ahead), so one barrier a step orders everything.
+// `csrc/quant_bwd.cu` gives both bodies stages that dequantize int8/int4
+// codes into converted bf16 tiles (two staging buffers); `csrc/flash_bwd.cu`
+// gives both stages that copy bf16 or fp32 rows straight into padded tiles,
+// which the products read where they landed (three staging buffers: one
+// being read, one landing, one being filled). The policy is `Bf16Mma`
+// (bf16 tiles, mma.sync m16n8k16 bf16 -> fp32) or `Tf32x3Mma` (fp32 tiles,
+// every product as three mma.sync m16n8k8 tf32 -> fp32 on split operands,
+// mma.cuh). The arithmetic the bodies hold to (the reference's rounding
 // points) is in each including file's header.
 //
 // Both keep one owner per output tile, no atomics, and a deterministic
@@ -92,11 +95,16 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&x)[4]) {
 }
 
 // Four values as bf16 pairs at dst (8-byte aligned), each rounded once.
-__device__ __forceinline__ void store4_bf16(__nv_bfloat16* dst, const float (&x)[4]) {
+__device__ __forceinline__ void store4(__nv_bfloat16* dst, const float (&x)[4]) {
   uint2 w;
   w.x = pack_bf16x2(x[0], x[1]);
   w.y = pack_bf16x2(x[2], x[3]);
   *reinterpret_cast<uint2*>(dst) = w;
+}
+
+// Four fp32 values at dst (16-byte aligned).
+__device__ __forceinline__ void store4(float* dst, const float (&x)[4]) {
+  *reinterpret_cast<float4*>(dst) = make_float4(x[0], x[1], x[2], x[3]);
 }
 
 // A bf16 pair (lower index in the low half) times s, each value rounded to
@@ -107,26 +115,26 @@ __device__ __forceinline__ uint32_t scale_bf16x2(uint32_t w, float s) {
                      __fmul_rn(__uint_as_float(w & 0xffff0000u), s));
 }
 
-// Rows [0, ROWS) and columns [c0, c0 + W) of a bf16 matrix with rows of D
-// elements (src: its first row) into a tile of row stride LD; rows at or
-// past n and columns at or past D are 0. vec (D and c0 multiples of 8, src
-// 16-byte aligned): by 16-byte cp.async with zero fill, else by plain loads
-// and stores. n >= 1.
-template <int ROWS, int W, int LD>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src, int n,
-                                          int D, int c0, bool vec) {
-  constexpr int CH = W / 8;  // 16-byte pieces a row
+// Rows [0, ROWS) and columns [c0, c0 + W) of a bf16 or fp32 matrix with
+// rows of D elements (src: its first row) into a tile of row stride LD;
+// rows at or past n and columns at or past D are 0. vec (D and c0
+// multiples of 16 bytes' worth of elements, src 16-byte aligned): by
+// 16-byte cp.async with zero fill, else by plain loads and stores. n >= 1.
+template <int ROWS, int W, int LD, typename T>
+__device__ __forceinline__ void load_tile(T* dst, const T* src, int n, int D, int c0, bool vec) {
+  constexpr int E = 16 / (int)sizeof(T);  // elements a 16-byte piece
+  constexpr int CH = W / E;               // 16-byte pieces a row
   for (int e = threadIdx.x; e < ROWS * CH; e += blockDim.x) {
-    const int r = e / CH, c = (e - r * CH) * 8;
-    __nv_bfloat16* d = dst + r * LD + c;
+    const int r = e / CH, c = (e - r * CH) * E;
+    T* d = dst + r * LD + c;
     const int col = c0 + c;
     if (vec) {
-      const int live = r < n ? max(0, min(8, D - col)) : 0;
-      cp_async16(d, live ? src + (long long)r * D + col : src, 2 * live);
+      const int live = r < n ? max(0, min(E, D - col)) : 0;
+      cp_async16(d, live ? src + (long long)r * D + col : src, (int)sizeof(T) * live);
     } else {
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
-        d[i] = r < n && col + i < D ? src[(long long)r * D + col + i] : __float2bfloat16_rn(0.f);
+      for (int i = 0; i < E; ++i)
+        d[i] = r < n && col + i < D ? src[(long long)r * D + col + i] : static_cast<T>(0.f);
     }
   }
 }
@@ -139,6 +147,219 @@ __device__ __forceinline__ void load_rows_f32(float* dst, const float* src, int 
     cp_async4(dst + r, r < n ? src + r : src, r < n ? 4 : 0);
 }
 
+// ---- Product policies ------------------------------------------------------
+//
+// The three product phases of the bodies, each over one warp's 16 rows:
+//   scores<DP, NB>(s, dp, a1, a2, b1, b2, ld, r0, lane):
+//       s += A1·B1ᵀ and dp += A2·B2ᵀ over DP columns, for rows [r0, r0 + 16)
+//       of A tiles stored [row][d] and the NB rows of B tiles stored [n][d];
+//   grad<NK, NA>(acc, c, b, ld, n0, lane):
+//       acc += C·B, C (16 x NK) in the C fragments c, B rows [0, NK) of a
+//       tile stored [k][n], columns [n0, n0 + 8·NA);
+//   grads<NK, NA>(acc1, acc2, c1, c2, b1, b2, ld, n0, lane):
+//       acc1 += C1·B1 and acc2 += C2·B2, interleaved.
+// T is the element of the tiles in shared memory, padded to a row stride of
+// (width + PAD) elements (16 bytes past a multiple of 128).
+
+struct Bf16Mma {
+  using T = __nv_bfloat16;
+  static constexpr int PAD = 8;
+
+  template <int DP, int NB>
+  static __device__ __forceinline__ void scores(float (&s)[NB / 8][4], float (&dp)[NB / 8][4],
+                                                const T* a1, const T* a2, const T* b1,
+                                                const T* b2, int ld, int r0, int lane) {
+#pragma unroll
+    for (int ks = 0; ks < DP / 16; ++ks) {
+      uint32_t x1[4], x2[4];
+      load_a(x1, a1, ld, r0, ks * 16, lane);
+      load_a(x2, a2, ld, r0, ks * 16, lane);
+#pragma unroll
+      for (int jj = 0; jj < NB / 16; ++jj) {
+        uint32_t y0[2], y1[2];
+        load_b_nk(y0, y1, b1, ld, jj * 16, ks * 16, lane);
+        mma_bf16(s[2 * jj], x1, y0);
+        mma_bf16(s[2 * jj + 1], x1, y1);
+        load_b_nk(y0, y1, b2, ld, jj * 16, ks * 16, lane);
+        mma_bf16(dp[2 * jj], x2, y0);
+        mma_bf16(dp[2 * jj + 1], x2, y1);
+      }
+    }
+  }
+
+  // A from the C fragments rounded to bf16 (`pack_a`), B via ldmatrix.trans.
+  template <int NK, int NA>
+  static __device__ __forceinline__ void grad(float (&acc)[NA][4], const float (&c)[NK / 8][4],
+                                              const T* b, int ld, int n0, int lane) {
+#pragma unroll
+    for (int kk = 0; kk < NK / 16; ++kk) {
+      uint32_t a[4];
+      pack_a(a, c[2 * kk], c[2 * kk + 1]);
+#pragma unroll
+      for (int dn = 0; dn < NA / 2; ++dn) {
+        uint32_t y0[2], y1[2];
+        load_b_kn(y0, y1, b, ld, kk * 16, n0 + dn * 16, lane);
+        mma_bf16(acc[2 * dn], a, y0);
+        mma_bf16(acc[2 * dn + 1], a, y1);
+      }
+    }
+  }
+
+  template <int NK, int NA>
+  static __device__ __forceinline__ void grads(float (&acc1)[NA][4], float (&acc2)[NA][4],
+                                               const float (&c1)[NK / 8][4],
+                                               const float (&c2)[NK / 8][4], const T* b1,
+                                               const T* b2, int ld, int n0, int lane) {
+#pragma unroll
+    for (int kk = 0; kk < NK / 16; ++kk) {
+      uint32_t a1[4], a2[4];
+      pack_a(a1, c1[2 * kk], c1[2 * kk + 1]);
+      pack_a(a2, c2[2 * kk], c2[2 * kk + 1]);
+#pragma unroll
+      for (int dn = 0; dn < NA / 2; ++dn) {
+        uint32_t y0[2], y1[2];
+        load_b_kn(y0, y1, b1, ld, kk * 16, n0 + dn * 16, lane);
+        mma_bf16(acc1[2 * dn], a1, y0);
+        mma_bf16(acc1[2 * dn + 1], a1, y1);
+        load_b_kn(y0, y1, b2, ld, kk * 16, n0 + dn * 16, lane);
+        mma_bf16(acc2[2 * dn], a2, y0);
+        mma_bf16(acc2[2 * dn + 1], a2, y1);
+      }
+    }
+  }
+};
+
+// fp32 tiles, 3xTF32 products (mma.cuh): A and n-major B fragments by
+// ldmatrix on the tiles viewed as b16, split after the load; A from C
+// fragments with the k permutation of `tf32_a_from_c`, and B stored [k][n]
+// by two 4-byte shared loads a fragment (rows 2t and 2t + 1, column g: with
+// a row stride of width + 4 floats the 32 lanes hit 32 banks).
+//
+// The tensor cores truncate each mma's fp32 sum (round toward zero), so a
+// long chain of mma into one accumulator drifts toward zero by about one
+// half-ulp of the running sum a step, in one direction: one accumulator
+// over a dK/dV row (~1500 mma at S 4096) missed the fp32 accuracy test
+// (tests/test_torch_kernels_cuda.py, 5e-6). So no chain is long: the
+// scores keep big·big and the two small products in separate accumulators
+// (DP/8 steps each), summed by an fp32 add at the end, and the gradient
+// products of one tile (NK/8 steps) go into a zeroed fragment that an fp32
+// add (round to nearest) puts on the running sum.
+struct Tf32x3Mma {
+  using T = float;
+  static constexpr int PAD = 4;
+
+  static __device__ __forceinline__ const __nv_bfloat16* b16(const float* s) {
+    return reinterpret_cast<const __nv_bfloat16*>(s);
+  }
+
+  // B rows k0 + 2t and k0 + 2t + 1, column n0 + g of a tile stored [k][n].
+  static __device__ __forceinline__ void load_b_rows(Tf32Split<2>& y, const float* b, int ld,
+                                                     int k0, int n0, int lane) {
+    const float* p = b + (k0 + 2 * (lane & 3)) * ld + n0 + (lane >> 2);
+    const float x[2] = {p[0], p[ld]};
+    split_tf32(y, x);
+  }
+
+  // hi += big·big, lo += small·big + big·small.
+  static __device__ __forceinline__ void mma_hi_lo(float (&hi)[4], float (&lo)[4],
+                                                   const Tf32Split<4>& a, const Tf32Split<2>& b) {
+    mma_tf32(lo, a.small, b.big);
+    mma_tf32(lo, a.big, b.small);
+    mma_tf32(hi, a.big, b.big);
+  }
+
+  static __device__ __forceinline__ void add_into(float (&acc)[4], const float (&t)[4]) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[e] = __fadd_rn(acc[e], t[e]);
+  }
+
+  template <int DP, int NB>
+  static __device__ __forceinline__ void scores(float (&s)[NB / 8][4], float (&dp)[NB / 8][4],
+                                                const T* a1, const T* a2, const T* b1,
+                                                const T* b2, int ld, int r0, int lane) {
+    float slo[NB / 8][4], dplo[NB / 8][4];
+#pragma unroll
+    for (int j = 0; j < NB / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) slo[j][e] = dplo[j][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < DP / 8; ++ks) {
+      Tf32Split<4> x1, x2;
+      uint32_t w[4];
+      load_a(w, b16(a1), 2 * ld, r0, ks * 16, lane);
+      split_tf32(x1, w);
+      load_a(w, b16(a2), 2 * ld, r0, ks * 16, lane);
+      split_tf32(x2, w);
+#pragma unroll
+      for (int jj = 0; jj < NB / 16; ++jj) {
+        uint32_t w0[2], w1[2];
+        Tf32Split<2> y0, y1;
+        load_b_nk(w0, w1, b16(b1), 2 * ld, jj * 16, ks * 16, lane);
+        split_tf32(y0, w0);
+        split_tf32(y1, w1);
+        mma_hi_lo(s[2 * jj], slo[2 * jj], x1, y0);
+        mma_hi_lo(s[2 * jj + 1], slo[2 * jj + 1], x1, y1);
+        load_b_nk(w0, w1, b16(b2), 2 * ld, jj * 16, ks * 16, lane);
+        split_tf32(y0, w0);
+        split_tf32(y1, w1);
+        mma_hi_lo(dp[2 * jj], dplo[2 * jj], x2, y0);
+        mma_hi_lo(dp[2 * jj + 1], dplo[2 * jj + 1], x2, y1);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NB / 8; ++j) {
+      add_into(s[j], slo[j]);
+      add_into(dp[j], dplo[j]);
+    }
+  }
+
+  template <int NK, int NA>
+  static __device__ __forceinline__ void grad(float (&acc)[NA][4], const float (&c)[NK / 8][4],
+                                              const T* b, int ld, int n0, int lane) {
+    Tf32Split<4> a[NK / 8];
+#pragma unroll
+    for (int kk = 0; kk < NK / 8; ++kk) tf32_a_from_c(a[kk], c[kk]);
+#pragma unroll
+    for (int dn = 0; dn < NA; ++dn) {
+      float t[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < NK / 8; ++kk) {
+        Tf32Split<2> y;
+        load_b_rows(y, b, ld, kk * 8, n0 + dn * 8, lane);
+        mma_tf32x3(t, a[kk], y);
+      }
+      add_into(acc[dn], t);
+    }
+  }
+
+  template <int NK, int NA>
+  static __device__ __forceinline__ void grads(float (&acc1)[NA][4], float (&acc2)[NA][4],
+                                               const float (&c1)[NK / 8][4],
+                                               const float (&c2)[NK / 8][4], const T* b1,
+                                               const T* b2, int ld, int n0, int lane) {
+    Tf32Split<4> a1[NK / 8], a2[NK / 8];
+#pragma unroll
+    for (int kk = 0; kk < NK / 8; ++kk) {
+      tf32_a_from_c(a1[kk], c1[kk]);
+      tf32_a_from_c(a2[kk], c2[kk]);
+    }
+#pragma unroll
+    for (int dn = 0; dn < NA; ++dn) {
+      float t1[4] = {0.f, 0.f, 0.f, 0.f}, t2[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < NK / 8; ++kk) {
+        Tf32Split<2> y;
+        load_b_rows(y, b1, ld, kk * 8, n0 + dn * 8, lane);
+        mma_tf32x3(t1, a1[kk], y);
+        load_b_rows(y, b2, ld, kk * 8, n0 + dn * 8, lane);
+        mma_tf32x3(t2, a2[kk], y);
+      }
+      add_into(acc1[dn], t1);
+      add_into(acc2[dn], t2);
+    }
+  }
+};
+
 // ---- dK/dV ---------------------------------------------------------------
 //
 // One block of 4 · SPLIT warps per (64-key tile, kv head, batch). Warp w
@@ -148,56 +369,61 @@ __device__ __forceinline__ void load_rows_f32(float* dst, const float* src, int 
 // rows each). Per query tile, with keys as the rows of every product:
 //   Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ   (A: K, V; B: Q, dO via ldmatrix)
 //   Pᵀ, dSᵀ on the fragments; colsum(dS) in fp32 registers
-//   dV += bf16(Pᵀ)·dO, dK += bf16(dSᵀ)·Q   (A straight from the Pᵀ and dSᵀ
-//   accumulators, B via ldmatrix.trans)
+//   dV += Pᵀ·dO, dK += dSᵀ·Q   (A straight from the Pᵀ and dSᵀ
+//   accumulators, bf16-rounded under Bf16Mma; B via ldmatrix.trans, or
+//   shared loads under Tf32x3Mma)
 // At D 256 one warp's dK and dV (16 keys × 256 columns, two fp32 tiles)
 // would take 256 registers a thread, over the limit of 255: SPLIT = 2 puts
 // two warps on each key group, each recomputing Sᵀ and dPᵀ and owning half
 // the columns.
 //
 // Tiles and occupancy as measured best at the training shape (B8 Hq16 Hkv8
-// S4096 D64; 32-query tiles with the K/V fragments from shared memory and
-// three blocks an SM beat 64-query tiles, fragments held in registers, and
-// two or four blocks an SM).
-template <int DP>
+// S4096 D64 bf16; 32-query tiles with the K/V fragments from shared memory
+// and three blocks an SM beat 64-query tiles, fragments held in registers,
+// and two or four blocks an SM). fp32 tiles take twice the bytes: two
+// blocks an SM at D 64, one at D 128.
+template <int DP, class Mma = Bf16Mma>
 struct DkvTile {
+  using T = typename Mma::T;
+  static constexpr bool F32 = sizeof(T) == 4;
   static constexpr int QT = 32;                  // query rows per tile
-  static constexpr int LD = DP + 8;              // bf16 row stride in shared memory
+  static constexpr int LD = DP + Mma::PAD;       // row stride in shared memory
   static constexpr int SPLIT = DP > 128 ? 2 : 1;  // warps on one key group
   static constexpr int NTHR = 128 * SPLIT;
-  static constexpr int MINB = DP <= 64 ? 3 : DP <= 128 ? 2 : 1;  // blocks an SM holds
-  static constexpr int KV_BYTES = 2 * 64 * LD * 2 + DP * 4;      // K, V (bf16), vm (fp32)
+  static constexpr int MINB = (F32 ? DP <= 64 ? 2 : 1                   // blocks an SM holds
+                                   : DP <= 64 ? 3 : DP <= 128 ? 2 : 1);
+  static constexpr int KV_BYTES = 2 * 64 * LD * (int)sizeof(T) + DP * 4;  // K, V, vm (fp32)
 };
 
 // The load stage `Load` of dkv_tc_kernel provides:
 //   Tile                       the query tile the products read, built from
-//       a converted buffer (Tile::BYTES) and a staging buffer: bf16 tiles
-//       q (the Q operand of Sᵀ), qk (that of dK), o (dO), row stride LD,
-//       and per row vt (a term added to dP), lse, delta;
+//       a converted buffer (Tile::BYTES) and a staging buffer: tiles of
+//       Mma::T q (the Q operand of Sᵀ), qk (that of dK), o (dO), row stride
+//       LD, and per row vt (a term added to dP), lse, delta;
 //   NRAW, RAW_BYTES            the staging buffers (2, or 3 when the Tile
 //       reads its staging buffer) and their size;
 //   dk_scale(p)                the factor on dK at the store;
-//   stage_kv(sK, sV, sVm, ..)  K, V of the block's 64 keys (bf16, LD) and vm;
+//   stage_kv(sK, sV, sVm, ..)  K, V of the block's 64 keys (Mma::T, LD) and vm;
 //   issue(raw, p, qbh, q0, vec)  the copies of a query tile's raw operands;
 //   stage(raw, t, sVm, p, qbh, q0)  raw -> the converted part of tile t.
-template <class Load, int DP>
+template <class Load, class Mma, int DP>
 constexpr int dkv_smem_bytes() {
-  return DkvTile<DP>::KV_BYTES + 2 * Load::Tile::BYTES + Load::NRAW * Load::RAW_BYTES;
+  return DkvTile<DP, Mma>::KV_BYTES + 2 * Load::Tile::BYTES + Load::NRAW * Load::RAW_BYTES;
 }
 
-template <class Load, typename Tout, int DP>
-__global__ void __launch_bounds__(DkvTile<DP>::NTHR, DkvTile<DP>::MINB)
+template <class Load, class Mma, typename Tout, int DP>
+__global__ void __launch_bounds__(DkvTile<DP, Mma>::NTHR, DkvTile<DP, Mma>::MINB)
     dkv_tc_kernel(const BwdParams p, const int vec) {
-  using G = DkvTile<DP>;
+  using G = DkvTile<DP, Mma>;
+  using T = typename Mma::T;
   using Tile = typename Load::Tile;
   constexpr int QT = G::QT, LD = G::LD;
-  constexpr int KS = DP / 16;          // 16-deep steps over d
   constexpr int NQ = QT / 8;           // 8-query tiles of Sᵀ and dPᵀ
   constexpr int DW = DP / G::SPLIT;    // columns of dK and dV a warp owns
   constexpr int NA = DW / 8;           // their 8-column tiles
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sV = sK + 64 * LD;
+  T* sK = reinterpret_cast<T*>(smem_raw);
+  T* sV = sK + 64 * LD;
   float* sVm = reinterpret_cast<float*>(sV + 64 * LD);
   unsigned char* tiles = reinterpret_cast<unsigned char*>(sVm + DP);  // [2][Tile::BYTES]
   unsigned char* raw = tiles + 2 * Tile::BYTES;                       // [NRAW][RAW_BYTES]
@@ -269,22 +495,7 @@ __global__ void __launch_bounds__(DkvTile<DP>::NTHR, DkvTile<DP>::MINB)
       for (int j = 0; j < NQ; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        uint32_t ak[4], av[4];
-        load_a(ak, sK, LD, kr, ks * 16, lane);
-        load_a(av, sV, LD, kr, ks * 16, lane);
-#pragma unroll
-        for (int jj = 0; jj < QT / 16; ++jj) {
-          uint32_t b0[2], b1[2];
-          load_b_nk(b0, b1, t.q, LD, jj * 16, ks * 16, lane);
-          mma_bf16(s[2 * jj], ak, b0);
-          mma_bf16(s[2 * jj + 1], ak, b1);
-          load_b_nk(b0, b1, t.o, LD, jj * 16, ks * 16, lane);
-          mma_bf16(dp[2 * jj], av, b0);
-          mma_bf16(dp[2 * jj + 1], av, b1);
-        }
-      }
+      Mma::template scores<DP, QT>(s, dp, sK, sV, t.q, t.o, LD, kr, lane);
 
       // Element (j, e): key e < 2 ? key0 : key1, query q0 + 8j + 2tq + (e & 1).
       const float* bias =
@@ -307,22 +518,7 @@ __global__ void __launch_bounds__(DkvTile<DP>::NTHR, DkvTile<DP>::MINB)
           dp[j][e] = ds;
         }
 
-#pragma unroll
-      for (int kk = 0; kk < QT / 16; ++kk) {
-        uint32_t ap[4], as[4];
-        pack_a(ap, s[2 * kk], s[2 * kk + 1]);
-        pack_a(as, dp[2 * kk], dp[2 * kk + 1]);
-#pragma unroll
-        for (int dn = 0; dn < DW / 16; ++dn) {
-          uint32_t b0[2], b1[2];
-          load_b_kn(b0, b1, t.o, LD, kk * 16, c0 + dn * 16, lane);
-          mma_bf16(dv[2 * dn], ap, b0);
-          mma_bf16(dv[2 * dn + 1], ap, b1);
-          load_b_kn(b0, b1, t.qk, LD, kk * 16, c0 + dn * 16, lane);
-          mma_bf16(dk[2 * dn], as, b0);
-          mma_bf16(dk[2 * dn + 1], as, b1);
-        }
-      }
+      Mma::template grads<QT, NA>(dv, dk, s, dp, t.o, t.qk, LD, c0, lane);
     }
 
     if (i % n_t == n_t - 1) {
@@ -364,14 +560,15 @@ __global__ void __launch_bounds__(DkvTile<DP>::NTHR, DkvTile<DP>::MINB)
   }
 }
 
-template <class Load, typename Tout, int DP>
+template <class Load, class Mma, typename Tout, int DP>
 cudaError_t launch_dkv_tc(const BwdParams& p, int vec, cudaStream_t stream) {
-  constexpr int smem = dkv_smem_bytes<Load, DP>();
-  cudaError_t err = cudaFuncSetAttribute(dkv_tc_kernel<Load, Tout, DP>,
+  constexpr int smem = dkv_smem_bytes<Load, Mma, DP>();
+  constexpr int nthr = DkvTile<DP, Mma>::NTHR;
+  cudaError_t err = cudaFuncSetAttribute(dkv_tc_kernel<Load, Mma, Tout, DP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Sk + 63) / 64, p.Hkv, p.B);
-  dkv_tc_kernel<Load, Tout, DP><<<grid, DkvTile<DP>::NTHR, smem, stream>>>(p, vec);
+  dkv_tc_kernel<Load, Mma, Tout, DP><<<grid, nthr, smem, stream>>>(p, vec);
   return cudaGetLastError();
 }
 
@@ -380,54 +577,57 @@ cudaError_t launch_dkv_tc(const BwdParams& p, int vec, cudaStream_t stream) {
 // One block of 4 warps per (64-row query tile, q head, batch), the last
 // query tiles (which see the most keys under a causal mask) first; warp w
 // owns query rows 16w..16w+15 and their dQ in fp32 mma accumulators. Q and
-// dO are staged once as bf16 tiles with the per-row LSE, δ and dP term. Per
+// dO are staged once as tiles with the per-row LSE, δ and dP term. Per
 // visible key tile of KT keys:
 //   S = Q·Kᵀ and dP = dO·Vᵀ   (A: Q, dO via ldmatrix; B: K, V stored
 //   [key][d], via ldmatrix)
 //   P, dS on the fragments
-//   dQ += bf16(dS)·K   (A straight from the dS accumulators, B via
-//   ldmatrix.trans)
-// At D > 64 the key tile is 32 keys, so two blocks an SM fit at D 128 and
-// one at D 256 (where dQ alone holds 128 fp32 registers a thread).
-template <int DP>
+//   dQ += dS·K   (A straight from the dS accumulators, bf16-rounded under
+//   Bf16Mma; B via ldmatrix.trans, or shared loads under Tf32x3Mma)
+// bf16: at D > 64 the key tile is 32 keys, so two blocks an SM fit at D 128
+// and one at D 256 (where dQ alone holds 128 fp32 registers a thread).
+// fp32: 32 keys, two blocks an SM at D 64, one at D 128.
+template <int DP, class Mma = Bf16Mma>
 struct DqTile {
-  static constexpr int KT = DP <= 64 ? 64 : 32;  // keys a step
-  static constexpr int LD = DP + 8;
-  static constexpr int MINB = DP <= 64 ? 3 : DP <= 128 ? 2 : 1;
+  static constexpr bool F32 = sizeof(typename Mma::T) == 4;
+  static constexpr int KT = DP <= 64 && !F32 ? 64 : 32;  // keys a step
+  static constexpr int LD = DP + Mma::PAD;
+  static constexpr int MINB = F32 ? DP <= 64 ? 2 : 1 : DP <= 64 ? 3 : DP <= 128 ? 2 : 1;
 };
 
 // The load stage `Load` of dq_tc_kernel provides:
 //   Kv                        the key tile the products read, built from a
-//       converted buffer (Kv::BYTES) and a staging buffer: bf16 tiles k, v
-//       (row stride LD) and score(x, kj), the score x of key kj plus the
-//       stage's per-key term (or x itself);
+//       converted buffer (Kv::BYTES) and a staging buffer: tiles of Mma::T
+//       k, v (row stride LD) and score(x, kj), the score x of key kj plus
+//       the stage's per-key term (or x itself);
 //   NRAW, RAW_BYTES           the staging buffers (2, or 3 when Kv reads its
 //       staging buffer) and their size;
 //   IN_FLIGHT                 the copies that may still be in flight at a
 //       step's barrier: 0 when `stage` converts the next tile, which must
 //       have landed by then, 1 when it does not;
 //   stage_q(sQ, sO, sRow, p, qbh, kbh, q0)  Q and dO of the block's 64
-//       rows (bf16, LD) and per row the dP term, LSE and δ (sRow[0..63],
+//       rows (Mma::T, LD) and per row the dP term, LSE and δ (sRow[0..63],
 //       [64..127], [128..191]);
 //   issue(raw, p, qbh, kbh, k0, vec)   the copies of a key tile's raw operands;
 //   stage(raw, kv, p, kbh, k0)         raw -> the converted part of kv.
-template <class Load, int DP>
+template <class Load, class Mma, int DP>
 constexpr int dq_smem_bytes() {
-  return 2 * 64 * (DP + 8) * 2 + 3 * 64 * 4 + 2 * Load::Kv::BYTES + Load::NRAW * Load::RAW_BYTES;
+  return 2 * 64 * DqTile<DP, Mma>::LD * (int)sizeof(typename Mma::T) + 3 * 64 * 4 +
+         2 * Load::Kv::BYTES + Load::NRAW * Load::RAW_BYTES;
 }
 
-template <class Load, typename Tout, int DP>
-__global__ void __launch_bounds__(NT, DqTile<DP>::MINB) dq_tc_kernel(const BwdParams p,
-                                                                     const int vec) {
-  using G = DqTile<DP>;
+template <class Load, class Mma, typename Tout, int DP>
+__global__ void __launch_bounds__(NT, DqTile<DP, Mma>::MINB) dq_tc_kernel(const BwdParams p,
+                                                                          const int vec) {
+  using G = DqTile<DP, Mma>;
+  using T = typename Mma::T;
   using Kv = typename Load::Kv;
   constexpr int KT = G::KT, LD = G::LD;
-  constexpr int KS = DP / 16;  // 16-deep steps over d
   constexpr int NS = KT / 8;   // 8-key tiles of S and dP
   constexpr int NA = DP / 8;   // 8-column tiles of dQ
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sO = sQ + 64 * LD;
+  T* sQ = reinterpret_cast<T*>(smem_raw);
+  T* sO = sQ + 64 * LD;
   float* sRow = reinterpret_cast<float*>(sO + 64 * LD);               // dP term, LSE, δ
   unsigned char* kvb = reinterpret_cast<unsigned char*>(sRow + 3 * 64);  // [2][Kv::BYTES]
   unsigned char* raw = kvb + 2 * Kv::BYTES;                              // [NRAW][RAW_BYTES]
@@ -492,22 +692,7 @@ __global__ void __launch_bounds__(NT, DqTile<DP>::MINB) dq_tc_kernel(const BwdPa
     for (int j = 0; j < NS; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      uint32_t aq[4], ao[4];
-      load_a(aq, sQ, LD, rw, ks * 16, lane);
-      load_a(ao, sO, LD, rw, ks * 16, lane);
-#pragma unroll
-      for (int jj = 0; jj < KT / 16; ++jj) {
-        uint32_t b0[2], b1[2];
-        load_b_nk(b0, b1, kv.k, LD, jj * 16, ks * 16, lane);
-        mma_bf16(s[2 * jj], aq, b0);
-        mma_bf16(s[2 * jj + 1], aq, b1);
-        load_b_nk(b0, b1, kv.v, LD, jj * 16, ks * 16, lane);
-        mma_bf16(dp[2 * jj], ao, b0);
-        mma_bf16(dp[2 * jj + 1], ao, b1);
-      }
-    }
+    Mma::template scores<DP, KT>(s, dp, sQ, sO, kv.k, kv.v, LD, rw, lane);
 
     // Element (j, e): row e < 2 ? row0 : row1, key k0 + 8j + 2tq + (e & 1).
 #pragma unroll
@@ -525,18 +710,7 @@ __global__ void __launch_bounds__(NT, DqTile<DP>::MINB) dq_tc_kernel(const BwdPa
         dp[j][e] = ds;
       }
 
-#pragma unroll
-    for (int kk = 0; kk < KT / 16; ++kk) {
-      uint32_t a[4];
-      pack_a(a, dp[2 * kk], dp[2 * kk + 1]);
-#pragma unroll
-      for (int dn = 0; dn < DP / 16; ++dn) {
-        uint32_t b0[2], b1[2];
-        load_b_kn(b0, b1, kv.k, LD, kk * 16, dn * 16, lane);
-        mma_bf16(acc[2 * dn], a, b0);
-        mma_bf16(acc[2 * dn + 1], a, b1);
-      }
-    }
+    Mma::template grad<KT, NA>(acc, dp, kv.k, LD, 0, lane);
   }
 
   Tout* dq = static_cast<Tout*>(p.out0) + qbh * p.Sq * p.D;
@@ -555,14 +729,14 @@ __global__ void __launch_bounds__(NT, DqTile<DP>::MINB) dq_tc_kernel(const BwdPa
   }
 }
 
-template <class Load, typename Tout, int DP>
+template <class Load, class Mma, typename Tout, int DP>
 cudaError_t launch_dq_tc(const BwdParams& p, int vec, cudaStream_t stream) {
-  constexpr int smem = dq_smem_bytes<Load, DP>();
-  cudaError_t err = cudaFuncSetAttribute(dq_tc_kernel<Load, Tout, DP>,
+  constexpr int smem = dq_smem_bytes<Load, Mma, DP>();
+  cudaError_t err = cudaFuncSetAttribute(dq_tc_kernel<Load, Mma, Tout, DP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Sq + 63) / 64, p.Hq, p.B);
-  dq_tc_kernel<Load, Tout, DP><<<grid, NT, smem, stream>>>(p, vec);
+  dq_tc_kernel<Load, Mma, Tout, DP><<<grid, NT, smem, stream>>>(p, vec);
   return cudaGetLastError();
 }
 

@@ -81,10 +81,11 @@ __device__ __forceinline__ bool key_visible(int row, int col, int sq, int sk, in
          (right < 0 || col <= row + right);
 }
 
-// The backward kernels (flash_bwd.cu, flash_dbias.cu) run NTB threads as a
-// 16 x 16 grid: thread (ty, tx) = (t / 16, t % 16) owns rows 4*ty..+3 of a
-// 64 x 64 score tile and its columns tx + 16*j, j < 4, and rows 4*ty..+3 of
-// a 64 x D gradient tile with its columns tx + 16*c, c < D/16.
+// The CUDA-core backward kernels (flash_dbias.cu, ring_attn.cu) run NTB
+// threads as a 16 x 16 grid: thread (ty, tx) = (t / 16, t % 16) owns rows
+// 4*ty..+3 of a 64 x 64 score tile and its columns tx + 16*j, j < 4, and
+// rows 4*ty..+3 of a 64 x D gradient tile with its columns tx + 16*c,
+// c < D/16.
 constexpr int NTB = 256;
 
 // Stage rows [r0, r0 + 64) of a (rows, D) matrix into shared memory as fp32,

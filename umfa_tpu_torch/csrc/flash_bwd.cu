@@ -8,42 +8,48 @@
 // input type, as the reference does outside its kernels.
 //
 // What bounds it on this card: at the training shape (B8 Hq16 Hkv8, causal
-// S 4096, D 64, bf16) the dQ pass does 3 products (S = Q·Kᵀ, dP = dO·Vᵀ,
+// S 4096, D 64) the dQ pass does 3 products (S = Q·Kᵀ, dP = dO·Vᵀ,
 // dQ = dS·K) and the dK/dV pass 4 (S, dP, dV = Pᵀ·dO, dK = dSᵀ·Q) over the
-// visible (query, key) pairs, 2·D flops each, against reading Q, K, V and
-// dO once: both are compute-bound, ~0.42 ms and ~0.56 ms of bf16
-// tensor-core time, against ~0.08 ms of HBM time.
+// visible (query, key) pairs, 2·D flops each: 4.12e11 and 5.5e11 flop,
+// against reading Q, K, V and dO once (~0.08 ms of HBM time in bf16). Both
+// are compute-bound: bf16, ~0.42 ms and ~0.56 ms of bf16 tensor-core time;
+// fp32, three TF32 products for each (below), 2.50 ms and 3.34 ms at the
+// 495 TFLOP/s TF32 peak (6.16 and 8.21 ms at the 67 TFLOP/s of fp32 FMAs).
 //
-// What the design does about it. Every output tile has one owner and
-// nothing is summed with atomics, so both passes are deterministic:
-//   * bf16 inputs: the tensor-core bodies of bwd_tc.cuh (mma.sync m16n8k16
-//     bf16 -> fp32) that the quantized backward shares, with load stages
-//     that copy bf16 rows by cp.async straight into padded shared-memory
-//     tiles, two steps ahead into one of three staging buffers, where the
-//     products read them:
-//     - dQ (`dq_tc_kernel<DenseDqLoad>`): one block of 4 warps per (64-row
-//       query tile, q head, batch); bf16(q·scale), dO, LSE and δ staged
-//       once, then the visible key tiles (64 keys at D 64, 32 above) in
-//       order, nothing converted;
-//     - dK/dV (`dkv_tc_kernel<DenseLoad>`): one block of 4 warps (8 at
-//       D 256) per (64-key tile, kv head, batch) keeps K and V in shared
-//       memory and walks the query heads of its GQA group and their visible
-//       32-row query tiles; dK reads each tile's raw Q where it landed, and
-//       only bf16(q·scale) for Sᵀ is converted, one step ahead; the group
-//       sum stays in registers, so no per-query-head dK/dV reaches HBM
-//       (flash_bwd.py:1144-1170).
-//     Head dims up to 256 (templates 64, 128, 256; a smaller D is
-//     zero-padded to the template width). Reading the staging buffers in
-//     place is what fits dK/dV at D 256: 204,800 bytes of shared memory,
-//     where a staging buffer beside converted Q, raw Q and dO tiles would
-//     need 236,800 (a block may have 232,448).
-//   * fp32 inputs (fp16 arrives as fp32): `flash_bwd_dq_kernel` and
-//     `flash_bwd_dkv_kernel`, FP32 FMAs on the CUDA cores, one block of 256
-//     threads per 64-row tile, fp32 tiles in dynamic shared memory (83-165
-//     KB a block; each thread a 4 x 4 patch of the score tile); TF32 would
-//     miss the fp32 gate of 1e-4, and the reference forces HIGHEST precision
-//     for fp32 (flash_bwd.py:36-42). Head dims up to 128: at 256 their
-//     tiles would need 279,808 (dQ) and 296,448 (dK/dV) bytes.
+// What the design does about it. Both passes are the tensor-core bodies of
+// bwd_tc.cuh, which the quantized backward shares, with load stages that
+// copy rows by cp.async straight into padded shared-memory tiles, two steps
+// ahead into one of three staging buffers, where the products read them.
+// Every output tile has one owner and nothing is summed with atomics, so
+// both passes are deterministic:
+//   * dQ (`dq_tc_kernel<DenseDqLoad>`): one block of 4 warps per (64-row
+//     query tile, q head, batch); Q·scale, dO, LSE and δ staged once, then
+//     the visible key tiles (bf16: 64 keys at D 64, 32 above; fp32: 32) in
+//     order, nothing converted;
+//   * dK/dV (`dkv_tc_kernel<DenseLoad>`): one block of 4 warps (8 at
+//     D 256) per (64-key tile, kv head, batch) keeps K and V in shared
+//     memory and walks the query heads of its GQA group and their visible
+//     32-row query tiles; dK reads each tile's raw Q where it landed, and
+//     only Q·scale for Sᵀ is converted, one step ahead; the group sum stays
+//     in registers, so no per-query-head dK/dV reaches HBM
+//     (flash_bwd.py:1144-1170).
+// Products by input type:
+//   * bf16: mma.sync m16n8k16 bf16 -> fp32 (`Bf16Mma`), head dims up to 256
+//     (templates 64, 128, 256; a smaller D is zero-padded to the template
+//     width). Reading the staging buffers in place is what fits dK/dV at
+//     D 256: 204,800 bytes of shared memory, where a staging buffer beside
+//     converted Q, raw Q and dO tiles would need 236,800 (a block may have
+//     232,448).
+//   * fp32 (fp16 arrives as fp32): fp32 tiles and 3xTF32 (`Tf32x3Mma`,
+//     mma.cuh): each operand split into tf32 big and small parts, each
+//     product three mma.sync m16n8k8 tf32 -> fp32 into one fp32 accumulator
+//     (small·big, big·small, big·big). One TF32 pass would miss the fp32
+//     gate of 1e-4 (relerr ~5e-4); the split keeps ~22 bits of every
+//     operand, as accurate as fp32 FMAs in another order, which is what the
+//     reference's HIGHEST precision for fp32 asks (flash_bwd.py:36-42); P
+//     and dS are split from the accumulators, rounded nowhere else. Head
+//     dims up to 128 (templates 64, 128): at D 128 the dK/dV block takes
+//     204,288 bytes of shared memory, one block an SM (D 64: 105,728, two).
 // wgmma, TMA and warp specialisation are later work.
 //
 // Rounding points held to the reference (bf16 inputs; fp32 rounds nowhere):
@@ -58,263 +64,47 @@
 // Masking: index-hidden pairs (causal, window, KV tail, padded rows) have
 // P = 0; a -1e30 bias is not an index mask. Bias: fp32, any broadcast
 // shape, four element strides (0 = broadcast dimension, q-broadcast too).
+#include <type_traits>
+
 #include "bwd_tc.cuh"
 
 using namespace umfa;
 
 namespace {
 
-// Dynamic shared memory of the CUDA-core kernels (fp32 inputs).
-template <int DP>
-constexpr int simt_dq_smem_bytes() {
-  return (4 * 64 * (DP + 1) + 64 * (BK + 1)) * (int)sizeof(float);
-}
+// ---- The load stages of the tensor-core bodies (bf16 or fp32 tiles) -------
 
-template <int DP>
-constexpr int simt_dkv_smem_bytes() {
-  return (4 * 64 * (DP + 1) + 2 * 64 * (BQ + 1)) * (int)sizeof(float);
-}
+// The product policy of an input type.
+template <typename T>
+using MmaFor = std::conditional_t<sizeof(T) == 2, Bf16Mma, Tf32x3Mma>;
 
-// fp32 inputs only (bf16 takes dq_tc_kernel<DenseDqLoad>).
-template <typename Tout, int DP>
-__global__ void __launch_bounds__(NTB) flash_bwd_dq_kernel(const BwdParams p) {
-  constexpr int S = DP + 1;
-  constexpr int PS = BK + 1;
-  constexpr int NC = DP / 16;
-  extern __shared__ float smem[];
-  float* sQ = smem;         // q · scale
-  float* sO = sQ + BQ * S;  // dO
-  float* sK = sO + BQ * S;
-  float* sV = sK + BK * S;
-  float* sS = sV + BK * S;  // dS, BQ x PS
-
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (p.Hq / p.Hkv);
-  const long long qrow = ((long long)b * p.Hq + h) * p.Sq;
-  const long long krow = ((long long)b * p.Hkv + hk) * p.Sk;
-  const float* k = static_cast<const float*>(p.k) + krow * p.D;
-  const float* v = static_cast<const float*>(p.v) + krow * p.D;
-  const float* bias = p.bias ? p.bias + b * p.bsb + h * p.bsh : nullptr;
-
-  stage_rows<float, DP, true>(sQ, static_cast<const float*>(p.q) + qrow * p.D, q0, p.Sq, p.D,
-                              p.scale);
-  stage_rows<float, DP>(sO, static_cast<const float*>(p.dout) + qrow * p.D, q0, p.Sq, p.D);
-  float lse[4], dlt[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    lse[i] = row < p.Sq ? p.lse[qrow + row] : 0.f;
-    dlt[i] = row < p.Sq ? p.delta[qrow + row] : 0.f;
-  }
-
-  int k_lo, k_hi;
-  visible_keys(q0, min(q0 + BQ, p.Sq) - 1, p.Sk, p.left, p.right, &k_lo, &k_hi);
-  const int t_lo = k_lo / BK;
-  const int t_hi = k_hi >= k_lo ? k_hi / BK : t_lo - 1;
-
-  float acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-
-  for (int t = t_lo; t <= t_hi; ++t) {
-    const int k0 = t * BK;
-    __syncthreads();  // sQ/sO staged; the previous tile's sK/sV/sS consumed
-    stage_rows<float, DP>(sK, k, k0, p.Sk, p.D);
-    stage_rows<float, DP>(sV, v, k0, p.Sk, p.D);
-    __syncthreads();
-
-    float s[4][4] = {}, dp[4][4] = {};
-    patch_abt<float, DP>(s, sQ, sK, ty, tx);
-    patch_abt<float, DP>(dp, sO, sV, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        float ds = 0.f;
-        if (key_visible(row, col, p.Sq, p.Sk, p.left, p.right)) {
-          float x = s[i][j];
-          if (bias) x += bias[row * p.bsq + col * p.bsk];
-          ds = expf(x - lse[i]) * (dp[i][j] - dlt[i]);
-        }
-        sS[(ty * 4 + i) * PS + tx + 16 * j] = ds;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float d[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) d[i] = sS[(ty * 4 + i) * PS + kk];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const float kv = sK[kk * S + tx + 16 * c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(d[i], kv, acc[i][c]);
-      }
-    }
-  }
-
-  Tout* dq = static_cast<Tout*>(p.out0) + qrow * p.D;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= p.Sq) continue;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int col = tx + 16 * c;
-      if (col < p.D) Elem<Tout>::store(dq, (long long)row * p.D + col, p.scale * acc[i][c]);
-    }
-  }
-}
-
-// fp32 inputs only (bf16 takes dkv_tc_kernel<DenseLoad>).
-template <typename Tout, int DP>
-__global__ void __launch_bounds__(NTB) flash_bwd_dkv_kernel(const BwdParams p) {
-  constexpr int S = DP + 1;
-  constexpr int PS = BQ + 1;
-  constexpr int NC = DP / 16;
-  extern __shared__ float smem[];
-  float* sK = smem;
-  float* sV = sK + BK * S;
-  float* sQ = sV + BK * S;  // raw q (scaled on the fly for S)
-  float* sO = sQ + BQ * S;  // dO
-  float* sP = sO + BQ * S;  // Pᵀ, BK x PS
-  float* sS = sP + BK * PS;  // dSᵀ, BK x PS
-
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int k0 = blockIdx.x * BK, hk = blockIdx.y, b = blockIdx.z;
-  const int group = p.Hq / p.Hkv;
-  const long long krow = ((long long)b * p.Hkv + hk) * p.Sk;
-  stage_rows<float, DP>(sK, static_cast<const float*>(p.k) + krow * p.D, k0, p.Sk, p.D);
-  stage_rows<float, DP>(sV, static_cast<const float*>(p.v) + krow * p.D, k0, p.Sk, p.D);
-
-  int q_lo, q_hi;
-  visible_queries(k0, min(k0 + BK, p.Sk) - 1, p.Sq, p.left, p.right, &q_lo, &q_hi);
-  const int t_lo = q_lo / BQ;
-  const int t_hi = q_hi >= q_lo ? q_hi / BQ : t_lo - 1;
-
-  float dk[4][NC], dv[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) dk[i][c] = dv[i][c] = 0.f;
-
-  for (int g = 0; g < group; ++g) {
-    const int h = hk * group + g;
-    const long long qrow = ((long long)b * p.Hq + h) * p.Sq;
-    const float* q = static_cast<const float*>(p.q) + qrow * p.D;
-    const float* dout = static_cast<const float*>(p.dout) + qrow * p.D;
-    const float* bias = p.bias ? p.bias + b * p.bsb + h * p.bsh : nullptr;
-    for (int t = t_lo; t <= t_hi; ++t) {
-      const int q0 = t * BQ;
-      __syncthreads();  // sK/sV staged; the previous tile's sQ/sO/sP/sS consumed
-      stage_rows<float, DP>(sQ, q, q0, p.Sq, p.D);
-      stage_rows<float, DP>(sO, dout, q0, p.Sq, p.D);
-      float lse[4], dlt[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int row = q0 + tx + 16 * j;
-        lse[j] = row < p.Sq ? p.lse[qrow + row] : 0.f;
-        dlt[j] = row < p.Sq ? p.delta[qrow + row] : 0.f;
-      }
-      __syncthreads();
-
-      // Transposed patches: rows are keys, columns are queries.
-      float s[4][4] = {}, dp[4][4] = {};
-      patch_abt<float, DP, true>(s, sK, sQ, ty, tx, p.scale);
-      patch_abt<float, DP>(dp, sV, sO, ty, tx);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int key = k0 + ty * 4 + i;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int row = q0 + tx + 16 * j;
-          float pr = 0.f, ds = 0.f;
-          if (key_visible(row, key, p.Sq, p.Sk, p.left, p.right)) {
-            float x = s[i][j];
-            if (bias) x += bias[row * p.bsq + key * p.bsk];
-            pr = expf(x - lse[j]);
-            ds = pr * (dp[i][j] - dlt[j]);
-          }
-          sP[(ty * 4 + i) * PS + tx + 16 * j] = pr;
-          sS[(ty * 4 + i) * PS + tx + 16 * j] = ds;
-        }
-      }
-      __syncthreads();
-
-#pragma unroll 4
-      for (int qq = 0; qq < BQ; ++qq) {
-        float pv[4], dsv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          pv[i] = sP[(ty * 4 + i) * PS + qq];
-          dsv[i] = sS[(ty * 4 + i) * PS + qq];
-        }
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const float o = sO[qq * S + tx + 16 * c];
-          const float qv = sQ[qq * S + tx + 16 * c];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            dv[i][c] = fmaf(pv[i], o, dv[i][c]);
-            dk[i][c] = fmaf(dsv[i], qv, dk[i][c]);
-          }
-        }
-      }
-    }
-  }
-
-  Tout* dkp = static_cast<Tout*>(p.out0) + krow * p.D;
-  Tout* dvp = static_cast<Tout*>(p.out1) + krow * p.D;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + ty * 4 + i;
-    if (key >= p.Sk) continue;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int col = tx + 16 * c;
-      if (col < p.D) {
-        Elem<Tout>::store(dkp, (long long)key * p.D + col, p.scale * dk[i][c]);
-        Elem<Tout>::store(dvp, (long long)key * p.D + col, dv[i][c]);
-      }
-    }
-  }
-}
-
-// ---- bf16 inputs: the load stages of the tensor-core bodies ----------------
-
-// Rows [0, 64) of a bf16 matrix with rows of D elements (src: its first
-// row; n live rows) into a tile of row stride DP + 8, each value times
-// `scale` and rounded to bf16 once when SCALED (bf16(q·scale),
+// Rows [0, 64) of a bf16 or fp32 matrix with rows of D elements (src: its
+// first row; n live rows) into a tile of row stride DP + PAD, each value
+// times `scale` and rounded to T once when SCALED (the reference's Q·scale,
 // flash_bwd.py:52); rows at or past n and columns past D are 0. wide: four
-// values at a time (D % 4 == 0, src 8-byte aligned).
-template <int DP, bool SCALED>
-__device__ __forceinline__ void stage_rows_bf16(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                                int n, int D, bool wide, float scale) {
+// values at a time (D % 4 == 0, src aligned to four elements).
+template <int DP, bool SCALED, typename T>
+__device__ __forceinline__ void stage_rows_tile(T* dst, const T* src, int n, int D, bool wide,
+                                                float scale) {
   constexpr int C4 = DP / 4;
+  constexpr int LD = DP + MmaFor<T>::PAD;
   for (int e = threadIdx.x; e < 64 * C4; e += blockDim.x) {
     const int r = e / C4, c = (e - r * C4) * 4;
-    const __nv_bfloat16* row = src + (long long)r * D;
+    const T* row = src + (long long)r * D;
     float x[4] = {0.f, 0.f, 0.f, 0.f};
     if (r < n) {
       if (wide) {
         if (c < D) load4(row + c, x);
       } else {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) x[i] = c + i < D ? __bfloat162float(row[c + i]) : 0.f;
+        for (int i = 0; i < 4; ++i) x[i] = c + i < D ? Elem<T>::load(row, c + i) : 0.f;
       }
     }
     if (SCALED) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) x[i] = __fmul_rn(x[i], scale);
     }
-    store4_bf16(dst + r * (DP + 8) + c, x);  // bf16 values (unscaled): exact
+    store4(dst + r * LD + c, x);  // unscaled values: exact
   }
 }
 
@@ -322,32 +112,33 @@ __device__ __forceinline__ void stage_rows_bf16(__nv_bfloat16* dst, const __nv_b
 // straight into padded tiles, which the products read where they landed
 // (three staging buffers, copies two steps ahead, nothing converted, no
 // per-key score term).
-template <int DP>
+template <int DP, typename T>
 struct DenseDqLoad {
-  static constexpr int KT = DqTile<DP>::KT, LD = DqTile<DP>::LD;
+  using G = DqTile<DP, MmaFor<T>>;
+  static constexpr int KT = G::KT, LD = G::LD;
   static constexpr int NRAW = 3, IN_FLIGHT = 1;
-  static constexpr int RAW_BYTES = 2 * KT * LD * 2;  // K, V (bf16, row stride LD)
+  static constexpr int RAW_BYTES = 2 * KT * LD * (int)sizeof(T);  // K, V (row stride LD)
   struct Kv {
     static constexpr int BYTES = 0;
-    __nv_bfloat16* k;
-    __nv_bfloat16* v;
+    T* k;
+    T* v;
     __device__ __forceinline__ Kv(unsigned char*, unsigned char* raw) {
-      k = reinterpret_cast<__nv_bfloat16*>(raw);
+      k = reinterpret_cast<T*>(raw);
       v = k + KT * LD;
     }
     __device__ __forceinline__ float score(float x, int) const { return x; }
   };
 
-  // bf16(q·scale), dO, LSE and δ of query rows [q0, q0 + 64); no dP term.
-  static __device__ __forceinline__ void stage_q(__nv_bfloat16* sQ, __nv_bfloat16* sO, float* sRow,
-                                                 const BwdParams& p, long long qbh, long long,
-                                                 int q0) {
+  // Q·scale (rounded to T), dO, LSE and δ of query rows [q0, q0 + 64); no
+  // dP term.
+  static __device__ __forceinline__ void stage_q(T* sQ, T* sO, float* sRow, const BwdParams& p,
+                                                 long long qbh, long long, int q0) {
     const int n = min(64, p.Sq - q0);
     const long long r0 = qbh * p.Sq + q0;
-    stage_rows_bf16<DP, true>(sQ, static_cast<const __nv_bfloat16*>(p.q) + r0 * p.D, n, p.D,
-                              p.wide, p.scale);
-    stage_rows_bf16<DP, false>(sO, static_cast<const __nv_bfloat16*>(p.dout) + r0 * p.D, n, p.D,
-                               p.wide, 1.f);
+    stage_rows_tile<DP, true>(sQ, static_cast<const T*>(p.q) + r0 * p.D, n, p.D, p.wide,
+                              p.scale);
+    stage_rows_tile<DP, false>(sO, static_cast<const T*>(p.dout) + r0 * p.D, n, p.D, p.wide,
+                               1.f);
     for (int r = threadIdx.x; r < 64; r += blockDim.x) {
       sRow[r] = 0.f;
       sRow[64 + r] = r < n ? p.lse[r0 + r] : 0.f;
@@ -360,9 +151,9 @@ struct DenseDqLoad {
                                                long long kbh, int k0, bool vec) {
     const int n = min(KT, p.Sk - k0);
     const long long off = (kbh * p.Sk + k0) * p.D;
-    __nv_bfloat16* k = reinterpret_cast<__nv_bfloat16*>(raw);
-    load_tile<KT, DP, LD>(k, static_cast<const __nv_bfloat16*>(p.k) + off, n, p.D, 0, vec);
-    load_tile<KT, DP, LD>(k + KT * LD, static_cast<const __nv_bfloat16*>(p.v) + off, n, p.D, 0, vec);
+    T* k = reinterpret_cast<T*>(raw);
+    load_tile<KT, DP, LD>(k, static_cast<const T*>(p.k) + off, n, p.D, 0, vec);
+    load_tile<KT, DP, LD>(k + KT * LD, static_cast<const T*>(p.v) + off, n, p.D, 0, vec);
   }
 
   static __device__ __forceinline__ void stage(const unsigned char*, const Kv&, const BwdParams&,
@@ -372,51 +163,49 @@ struct DenseDqLoad {
 // dK/dV: a query tile as the products read it. Its staging buffer (three
 // of them, copied two steps ahead) holds the raw Q (dK's operand,
 // flash_bwd.py:451-456), dO, LSE and δ as they landed; its converted buffer
-// bf16(q·scale) (Sᵀ's operand, flash_bwd.py:52) and the dP term vt = 0. At
-// D 64 the scale 1/8 is exact and the two Q operands agree; at D 80 or 128
-// dK from the scaled Q would be off by relerr ~1e-3.
-template <int DP>
+// Q·scale rounded to T (Sᵀ's operand, flash_bwd.py:52) and the dP term
+// vt = 0. bf16 at D 64: the scale 1/8 is exact and the two Q operands
+// agree; at D 80 or 128 dK from the scaled Q would be off by relerr ~1e-3.
+template <int DP, typename T>
 struct DenseQTile {
-  static constexpr int QT = DkvTile<DP>::QT, LD = DkvTile<DP>::LD;
-  static constexpr int BYTES = QT * LD * 2 + QT * 4;  // bf16(q·scale), vt
-  static constexpr int RAW_O = QT * LD * 2;
-  static constexpr int RAW_L = 2 * QT * LD * 2;
+  using G = DkvTile<DP, MmaFor<T>>;
+  static constexpr int QT = G::QT, LD = G::LD;
+  static constexpr int BYTES = QT * LD * (int)sizeof(T) + QT * 4;  // Q·scale, vt
+  static constexpr int RAW_O = QT * LD * (int)sizeof(T);
+  static constexpr int RAW_L = 2 * QT * LD * (int)sizeof(T);
   static constexpr int RAW_D = RAW_L + QT * 4;
-  static constexpr int RAW_BYTES = RAW_D + QT * 4;  // Q, dO (bf16, LD), LSE, δ
-  __nv_bfloat16* q;
-  __nv_bfloat16* qk;
-  __nv_bfloat16* o;
+  static constexpr int RAW_BYTES = RAW_D + QT * 4;  // Q, dO (LD), LSE, δ
+  T* q;
+  T* qk;
+  T* o;
   float* vt;
   float* lse;
   float* delta;
   __device__ __forceinline__ DenseQTile(unsigned char* conv, unsigned char* raw) {
-    q = reinterpret_cast<__nv_bfloat16*>(conv);
+    q = reinterpret_cast<T*>(conv);
     vt = reinterpret_cast<float*>(q + QT * LD);
-    qk = reinterpret_cast<__nv_bfloat16*>(raw);
-    o = reinterpret_cast<__nv_bfloat16*>(raw + RAW_O);
+    qk = reinterpret_cast<T*>(raw);
+    o = reinterpret_cast<T*>(raw + RAW_O);
     lse = reinterpret_cast<float*>(raw + RAW_L);
     delta = reinterpret_cast<float*>(raw + RAW_D);
   }
 };
 
-template <int DP>
+template <int DP, typename T>
 struct DenseLoad {
-  using G = DkvTile<DP>;
-  using Tile = DenseQTile<DP>;
+  using G = DkvTile<DP, MmaFor<T>>;
+  using Tile = DenseQTile<DP, T>;
   static constexpr int NRAW = 3, RAW_BYTES = Tile::RAW_BYTES;
 
   static __device__ __forceinline__ float dk_scale(const BwdParams& p) { return p.scale; }
 
   // K and V of key rows [k0, k0 + 64); the dense backward has no V mean.
-  static __device__ __forceinline__ void stage_kv(__nv_bfloat16* sK, __nv_bfloat16* sV,
-                                                  float* sVm, const BwdParams& p, long long kbh,
-                                                  int k0) {
+  static __device__ __forceinline__ void stage_kv(T* sK, T* sV, float* sVm, const BwdParams& p,
+                                                  long long kbh, int k0) {
     const int n = min(64, p.Sk - k0);
     const long long off = (kbh * p.Sk + k0) * p.D;
-    stage_rows_bf16<DP, false>(sK, static_cast<const __nv_bfloat16*>(p.k) + off, n, p.D, p.wide,
-                               1.f);
-    stage_rows_bf16<DP, false>(sV, static_cast<const __nv_bfloat16*>(p.v) + off, n, p.D, p.wide,
-                               1.f);
+    stage_rows_tile<DP, false>(sK, static_cast<const T*>(p.k) + off, n, p.D, p.wide, 1.f);
+    stage_rows_tile<DP, false>(sV, static_cast<const T*>(p.v) + off, n, p.D, p.wide, 1.f);
     for (int c = threadIdx.x; c < DP; c += blockDim.x) sVm[c] = 0.f;
   }
 
@@ -426,72 +215,65 @@ struct DenseLoad {
                                                long long qbh, int q0, bool vec) {
     const int n = min(G::QT, p.Sq - q0);
     const long long r0 = qbh * p.Sq + q0;
-    load_tile<G::QT, DP, G::LD>(reinterpret_cast<__nv_bfloat16*>(raw),
-                                static_cast<const __nv_bfloat16*>(p.q) + r0 * p.D, n, p.D, 0, vec);
-    load_tile<G::QT, DP, G::LD>(reinterpret_cast<__nv_bfloat16*>(raw + Tile::RAW_O),
-                                static_cast<const __nv_bfloat16*>(p.dout) + r0 * p.D, n, p.D, 0,
-                                vec);
+    load_tile<G::QT, DP, G::LD>(reinterpret_cast<T*>(raw), static_cast<const T*>(p.q) + r0 * p.D,
+                                n, p.D, 0, vec);
+    load_tile<G::QT, DP, G::LD>(reinterpret_cast<T*>(raw + Tile::RAW_O),
+                                static_cast<const T*>(p.dout) + r0 * p.D, n, p.D, 0, vec);
     load_rows_f32<G::QT>(reinterpret_cast<float*>(raw + Tile::RAW_L), p.lse + r0, n);
     load_rows_f32<G::QT>(reinterpret_cast<float*>(raw + Tile::RAW_D), p.delta + r0, n);
   }
 
-  // bf16(q·scale) from the raw Q of tile t (zero where it is), eight
-  // columns a thread; vt = 0.
+  // Q·scale from the raw Q of tile t (zero where it is), 16 bytes a thread
+  // (each value rounded to T once); vt = 0.
   static __device__ __forceinline__ void stage(const unsigned char*, const Tile& t, const float*,
                                                const BwdParams& p, long long, int) {
-    constexpr int C8 = DP / 8;
-    for (int e = threadIdx.x; e < G::QT * C8; e += blockDim.x) {
-      const int r = e / C8, c = (e - r * C8) * 8;
-      uint4 w = *reinterpret_cast<const uint4*>(t.qk + r * G::LD + c);
-      w.x = scale_bf16x2(w.x, p.scale);
-      w.y = scale_bf16x2(w.y, p.scale);
-      w.z = scale_bf16x2(w.z, p.scale);
-      w.w = scale_bf16x2(w.w, p.scale);
-      *reinterpret_cast<uint4*>(t.q + r * G::LD + c) = w;
+    constexpr int E = 16 / (int)sizeof(T);
+    constexpr int CE = DP / E;
+    for (int e = threadIdx.x; e < G::QT * CE; e += blockDim.x) {
+      const int r = e / CE, c = (e - r * CE) * E;
+      if constexpr (sizeof(T) == 2) {
+        uint4 w = *reinterpret_cast<const uint4*>(t.qk + r * G::LD + c);
+        w.x = scale_bf16x2(w.x, p.scale);
+        w.y = scale_bf16x2(w.y, p.scale);
+        w.z = scale_bf16x2(w.z, p.scale);
+        w.w = scale_bf16x2(w.w, p.scale);
+        *reinterpret_cast<uint4*>(t.q + r * G::LD + c) = w;
+      } else {
+        float4 w = *reinterpret_cast<const float4*>(t.qk + r * G::LD + c);
+        w.x = __fmul_rn(w.x, p.scale);
+        w.y = __fmul_rn(w.y, p.scale);
+        w.z = __fmul_rn(w.z, p.scale);
+        w.w = __fmul_rn(w.w, p.scale);
+        *reinterpret_cast<float4*>(t.q + r * G::LD + c) = w;
+      }
     }
     for (int r = threadIdx.x; r < G::QT; r += blockDim.x) t.vt[r] = 0.f;
   }
 };
 
-template <typename Tout, int DP>
+template <typename Tin, typename Tout, int DP>
 cudaError_t launch_tc(BwdParams p, bool dkv, cudaStream_t stream) {
   // Rows by 16-byte cp.async when every row of q, k, v and dO starts
-  // 16-byte aligned.
-  const int vec = p.D % 8 == 0 && aligned({p.q, p.k, p.v, p.dout}, 16);
+  // 16-byte aligned; four values at a time when rows start at a multiple of
+  // four elements.
+  const int vec = p.D % (16 / (int)sizeof(Tin)) == 0 && aligned({p.q, p.k, p.v, p.dout}, 16);
+  using Mma = MmaFor<Tin>;
   if (dkv) {
-    p.wide = p.D % 4 == 0 && aligned({p.k, p.v}, 8);
-    return launch_dkv_tc<DenseLoad<DP>, Tout, DP>(p, vec, stream);
+    p.wide = p.D % 4 == 0 && aligned({p.k, p.v}, 4 * sizeof(Tin));
+    return launch_dkv_tc<DenseLoad<DP, Tin>, Mma, Tout, DP>(p, vec, stream);
   }
-  p.wide = p.D % 4 == 0 && aligned({p.q, p.dout}, 8);
-  return launch_dq_tc<DenseDqLoad<DP>, Tout, DP>(p, vec, stream);
-}
-
-template <typename Tout, int DP>
-cudaError_t launch_simt(const BwdParams& p, bool dkv, cudaStream_t stream) {
-  const dim3 grid(((dkv ? p.Sk : p.Sq) + BQ - 1) / BQ, dkv ? p.Hkv : p.Hq, p.B);
-  if (dkv) {
-    constexpr int smem = simt_dkv_smem_bytes<DP>();
-    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<Tout, DP>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    flash_bwd_dkv_kernel<Tout, DP><<<grid, NTB, smem, stream>>>(p);
-  } else {
-    constexpr int smem = simt_dq_smem_bytes<DP>();
-    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<Tout, DP>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    flash_bwd_dq_kernel<Tout, DP><<<grid, NTB, smem, stream>>>(p);
-  }
-  return cudaGetLastError();
+  p.wide = p.D % 4 == 0 && aligned({p.q, p.dout}, 4 * sizeof(Tin));
+  return launch_dq_tc<DenseDqLoad<DP, Tin>, Mma, Tout, DP>(p, vec, stream);
 }
 
 template <typename Tout>
 cudaError_t launch_d(const BwdParams& p, bool dkv, bool bf16, cudaStream_t stream) {
   if (!bf16)
-    return p.D <= 64 ? launch_simt<Tout, 64>(p, dkv, stream) : launch_simt<Tout, 128>(p, dkv, stream);
-  if (p.D <= 64) return launch_tc<Tout, 64>(p, dkv, stream);
-  if (p.D <= 128) return launch_tc<Tout, 128>(p, dkv, stream);
-  return launch_tc<Tout, 256>(p, dkv, stream);
+    return p.D <= 64 ? launch_tc<float, Tout, 64>(p, dkv, stream)
+                     : launch_tc<float, Tout, 128>(p, dkv, stream);
+  if (p.D <= 64) return launch_tc<__nv_bfloat16, Tout, 64>(p, dkv, stream);
+  if (p.D <= 128) return launch_tc<__nv_bfloat16, Tout, 128>(p, dkv, stream);
+  return launch_tc<__nv_bfloat16, Tout, 256>(p, dkv, stream);
 }
 
 int dispatch(const BwdParams& p, bool dkv, int in_dtype, int out_dtype, void* stream) {
@@ -506,12 +288,11 @@ int dispatch(const BwdParams& p, bool dkv, int in_dtype, int out_dtype, void* st
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16. q/dout (B, Hq, Sq, D) and k/v
-// (B, Hkv, Sk, D) contiguous in in_dtype, D <= 256 for bfloat16 (tensor
-// cores) and <= 128 for float32 (CUDA cores); lse, delta (B, Hq, Sq)
-// float32; bias float32 with element strides (or null). umfa_flash_bwd_dq
-// writes out0 = dQ (B, Hq, Sq, D); umfa_flash_bwd_dkv writes out0 = dK and
-// out1 = dV (B, Hkv, Sk, D); both in out_dtype. Each returns the
-// cudaError_t of its launch.
+// (B, Hkv, Sk, D) contiguous in in_dtype, D <= 256 for bfloat16 and <= 128
+// for float32; lse, delta (B, Hq, Sq) float32; bias float32 with element
+// strides (or null). umfa_flash_bwd_dq writes out0 = dQ (B, Hq, Sq, D);
+// umfa_flash_bwd_dkv writes out0 = dK and out1 = dV (B, Hkv, Sk, D); both in
+// out_dtype. Each returns the cudaError_t of its launch.
 #define UMFA_BWD_ARGS                                                                        \
   const void *q, const void *k, const void *v, const void *dout, const void *lse,           \
       const void *delta, const void *bias, void *out0, void *out1, int B, int Hq, int Hkv, \
@@ -533,15 +314,24 @@ extern "C" int umfa_flash_bwd_dkv(UMFA_BWD_ARGS) {
   return dispatch(UMFA_BWD_PARAMS, true, in_dtype, out_dtype, stream);
 }
 
-// Dynamic shared memory of the tensor-core dQ (dkv = 0) or dK/dV (dkv = 1)
-// kernel (bfloat16 inputs) for head dim D, in bytes (0 if it does not take D).
-extern "C" int umfa_flash_bwd_smem_bytes(int D, int dkv) {
-  if (D < 1 || D > 256) return 0;
+// Dynamic shared memory of the dQ (dkv = 0) or dK/dV (dkv = 1) kernel for
+// head dim D and input dtype code in_dtype, in bytes (0 if it does not take
+// them).
+extern "C" int umfa_flash_bwd_smem_bytes(int D, int dkv, int in_dtype) {
+  if (D < 1 || in_dtype < 0 || in_dtype > 1 || D > (in_dtype == 1 ? 256 : 128)) return 0;
+  if (in_dtype == 0) {
+    if (dkv)
+      return D <= 64 ? dkv_smem_bytes<DenseLoad<64, float>, Tf32x3Mma, 64>()
+                     : dkv_smem_bytes<DenseLoad<128, float>, Tf32x3Mma, 128>();
+    return D <= 64 ? dq_smem_bytes<DenseDqLoad<64, float>, Tf32x3Mma, 64>()
+                   : dq_smem_bytes<DenseDqLoad<128, float>, Tf32x3Mma, 128>();
+  }
+  using B16 = __nv_bfloat16;
   if (dkv)
-    return D <= 64    ? dkv_smem_bytes<DenseLoad<64>, 64>()
-           : D <= 128 ? dkv_smem_bytes<DenseLoad<128>, 128>()
-                      : dkv_smem_bytes<DenseLoad<256>, 256>();
-  return D <= 64    ? dq_smem_bytes<DenseDqLoad<64>, 64>()
-         : D <= 128 ? dq_smem_bytes<DenseDqLoad<128>, 128>()
-                    : dq_smem_bytes<DenseDqLoad<256>, 256>();
+    return D <= 64    ? dkv_smem_bytes<DenseLoad<64, B16>, Bf16Mma, 64>()
+           : D <= 128 ? dkv_smem_bytes<DenseLoad<128, B16>, Bf16Mma, 128>()
+                      : dkv_smem_bytes<DenseLoad<256, B16>, Bf16Mma, 256>();
+  return D <= 64    ? dq_smem_bytes<DenseDqLoad<64, B16>, Bf16Mma, 64>()
+         : D <= 128 ? dq_smem_bytes<DenseDqLoad<128, B16>, Bf16Mma, 128>()
+                    : dq_smem_bytes<DenseDqLoad<256, B16>, Bf16Mma, 256>();
 }

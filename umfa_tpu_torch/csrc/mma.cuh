@@ -1,7 +1,8 @@
 // Tensor-core building blocks for Hopper, sm_90a: `mma.sync` m16n8k16 bf16
-// -> fp32, m16n8k32 int8 -> int32 and m16n8k8 f64 -> f64, `ldmatrix`
-// (plain and transposed), `cp.async`, and the fragment layouts the
-// attention kernels rely on.
+// -> fp32, m16n8k32 int8 -> int32, m16n8k8 f64 -> f64 and m16n8k8 tf32 ->
+// fp32 (with the 3xTF32 split of fp32 operands), `ldmatrix` (plain and
+// transposed), `cp.async`, and the fragment layouts the attention kernels
+// rely on.
 //
 // Fragment layout of m16n8k16 (lane l, g = l / 4, t = l % 4):
 //   A (16 x 16, row-major): a[0] = A[g][2t..2t+1], a[1] = A[g+8][2t..],
@@ -36,10 +37,32 @@
 // (Checked on the card against a host product, with m16n8k4 and m16n8k16,
 // which extend A and B the same way in k.)
 //
+// Fragment layout of m16n8k8 tf32 -> fp32 (`mma_tf32`, HMMA in the SASS),
+// one tf32 value (an fp32 whose low 13 bits the tensor core ignores) a
+// register: A, B and C as for m16n8k8 f64. An fp32 tile with row stride ld
+// is, to `ldmatrix`, a b16 tile with row stride 2·ld whose 8 x 8 matrices
+// are 8 rows of 4 floats, lane l receiving float l % 4 of row l / 4: so
+// `load_a` and `load_b_nk`, given the tile as b16 with ld and k0 doubled,
+// return the tf32 A fragment of rows [r0, r0 + 16) over columns
+// [k0, k0 + 8) and the B fragments of two 8-row tiles stored [n][k]. The
+// C fragment holds columns 2t, 2t+1 where A wants t, t+4: a C tile becomes
+// an A fragment with its k index permuted inside the 8-wide step (logical
+// t is column 2t, logical t+4 column 2t+1, `tf32_a_from_c`), and the B
+// rows are read in the same order (b[0] = B[2t][g], b[1] = B[2t+1][g]),
+// which leaves the sum unchanged.
+//
+// 3xTF32: an fp32 operand x is split into big = tf32(x) and small =
+// tf32(x - big), both rounded to nearest (cvt.rna; a raw fp32 given to the
+// tensor core would lose its low bits by truncation), and a·b is summed as
+// small·big + big·small + big·big (small·small dropped), CUTLASS's order:
+// each product keeps ~22 bits of its operands. The tensor cores truncate
+// each mma's fp32 sum, so callers keep their chains of mma short (bwd_tc.cuh).
+//
 // Shared-memory tiles are bf16, row-major, with rows padded to a stride of
 // (width + 8) elements: 16 bytes past a multiple of 128, so the eight
 // 16-byte rows that one `ldmatrix` phase reads fall in distinct banks.
-// Int8 tiles are padded the same way, to (width + 16) bytes.
+// Int8 tiles are padded the same way, to (width + 16) bytes, and fp32
+// tiles to (width + 4) floats.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -74,6 +97,62 @@ __device__ __forceinline__ void mma_f64(double (&c)[4], const double (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
       : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// An operand fragment of N registers split for 3xTF32.
+template <int N>
+struct Tf32Split {
+  uint32_t big[N], small[N];
+};
+
+// tf32(x) rounded to nearest, ties away from zero: cvt.rna.tf32.f32's
+// result for every finite x and for ±inf (a carry out of the mantissa
+// rounds the exponent up), in two integer operations, where the cvt
+// compiles to a NaN test and a select besides. A NaN may come out as
+// another NaN or as -0: the operands this splits are finite.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+template <int N>
+__device__ __forceinline__ void split_tf32(Tf32Split<N>& f, const float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    f.big[i] = tf32_rna(x[i]);
+    f.small[i] = tf32_rna(__fsub_rn(x[i], __uint_as_float(f.big[i])));
+  }
+}
+
+// The same for N fp32 values held as raw bits (as ldmatrix returns them).
+template <int N>
+__device__ __forceinline__ void split_tf32(Tf32Split<N>& f, const uint32_t (&w)[N]) {
+  float x[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) x[i] = __uint_as_float(w[i]);
+  split_tf32(f, x);
+}
+
+// c += a·b in 3xTF32: small·big, big·small, big·big.
+__device__ __forceinline__ void mma_tf32x3(float (&c)[4], const Tf32Split<4>& a,
+                                           const Tf32Split<2>& b) {
+  mma_tf32(c, a.small, b.big);
+  mma_tf32(c, a.big, b.small);
+  mma_tf32(c, a.big, b.big);
+}
+
+// The split A fragment of the 8-deep step over the columns of C tile c
+// (k permuted: logical t = column 2t, logical t + 4 = column 2t + 1).
+__device__ __forceinline__ void tf32_a_from_c(Tf32Split<4>& a, const float (&c)[4]) {
+  const float x[4] = {c[0], c[2], c[1], c[3]};
+  split_tf32(a, x);
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {

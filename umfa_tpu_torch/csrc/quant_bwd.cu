@@ -98,7 +98,7 @@ __device__ __forceinline__ void deq_rows(__nv_bfloat16* dst, const int8_t* codes
           x[i] = __fmul_rn((float)code_at(codes + r * w, c + i, w, D, int4), sc);
       }
     }
-    store4_bf16(dst + r * (DP + 8) + c, x);
+    store4(dst + r * (DP + 8) + c, x);
   }
 }
 
@@ -146,8 +146,8 @@ __device__ __forceinline__ void deq_q_rows(__nv_bfloat16* tq, __nv_bfloat16* to,
           if (vm) part = fmaf(xo[i], vm[c + i], part);
         }
       }
-      store4_bf16(tq + r * (DP + 8) + c, xq);
-      store4_bf16(to + r * (DP + 8) + c, xo);
+      store4(tq + r * (DP + 8) + c, xq);
+      store4(to + r * (DP + 8) + c, xo);
     }
 #pragma unroll
     for (int off = TPR / 2; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
@@ -332,13 +332,13 @@ cudaError_t launch(BwdParams p, bool dkv, cudaStream_t stream) {
     // Query tiles by cp.async when every tile's rows start 16-byte aligned.
     const int vec = aligned({p.q, p.dout, p.lse, p.delta, p.qs}, 16) && p.Sq % 4 == 0 &&
                     p.Sq * qw % 16 == 0 && p.Sq * (long long)p.D * (long long)sizeof(Tdo) % 16 == 0;
-    return launch_dkv_tc<QuantLoad<Tdo, DP>, Tout, DP>(p, vec, stream);
+    return launch_dkv_tc<QuantLoad<Tdo, DP>, Bf16Mma, Tout, DP>(p, vec, stream);
   }
   const long long kw = p.int4 & 2 ? p.D / 2 : p.D, vw = p.int4 & 4 ? p.D / 2 : p.D;
   // Key tiles by cp.async when every tile's rows start 16-byte aligned.
   const int vec = aligned({p.k, p.v, p.ks, p.vs, p.corr}, 16) && p.Sk % 4 == 0 &&
                   p.Sk * kw % 16 == 0 && p.Sk * vw % 16 == 0;
-  return launch_dq_tc<QuantDqLoad<Tdo, DP>, Tout, DP>(p, vec, stream);
+  return launch_dq_tc<QuantDqLoad<Tdo, DP>, Bf16Mma, Tout, DP>(p, vec, stream);
 }
 
 template <typename Tdo, typename Tout>
@@ -402,10 +402,10 @@ extern "C" int umfa_quant_bwd_dkv(UMFA_QBWD_ARGS) {
 extern "C" int umfa_quant_bwd_smem_bytes(int D, int dkv) {
   if (D < 1 || D > 256) return 0;
   if (dkv)
-    return D <= 64    ? dkv_smem_bytes<QuantLoad<float, 64>, 64>()
-           : D <= 128 ? dkv_smem_bytes<QuantLoad<float, 128>, 128>()
-                      : dkv_smem_bytes<QuantLoad<float, 256>, 256>();
-  return D <= 64    ? dq_smem_bytes<QuantDqLoad<float, 64>, 64>()
-         : D <= 128 ? dq_smem_bytes<QuantDqLoad<float, 128>, 128>()
-                    : dq_smem_bytes<QuantDqLoad<float, 256>, 256>();
+    return D <= 64    ? dkv_smem_bytes<QuantLoad<float, 64>, Bf16Mma, 64>()
+           : D <= 128 ? dkv_smem_bytes<QuantLoad<float, 128>, Bf16Mma, 128>()
+                      : dkv_smem_bytes<QuantLoad<float, 256>, Bf16Mma, 256>();
+  return D <= 64    ? dq_smem_bytes<QuantDqLoad<float, 64>, Bf16Mma, 64>()
+         : D <= 128 ? dq_smem_bytes<QuantDqLoad<float, 128>, Bf16Mma, 128>()
+                    : dq_smem_bytes<QuantDqLoad<float, 256>, Bf16Mma, 256>();
 }

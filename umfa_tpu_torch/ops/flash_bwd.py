@@ -1,13 +1,17 @@
 """Dense flash-attention backward (port of umfa_tpu/ops/flash_bwd.py).
 
 `flash_attention_backward` launches the CUDA kernels `csrc/flash_bwd.cu`
-(dQ, then dK/dV) on CUDA tensors and `flash_attention_bias_grad` the kernel
-`csrc/flash_dbias.cu`: bf16 inputs on the tensor cores, head_dim <= 256;
-fp32 inputs (and fp16, computed as fp32) on the CUDA cores, head_dim <= 128,
-since their fp32 tiles do not fit a block's shared memory at 256. On CPU
-tensors each runs its `*_plain` twin, the same arithmetic in plain PyTorch.
-There is no fallback between the two: a CUDA tensor the kernels do not take
-raises.
+(dQ, then dK/dV) on CUDA tensors, all on the tensor cores: bf16 inputs as
+bf16 products, head_dim <= 256; fp32 inputs (and fp16, computed as fp32)
+as 3xTF32 products (each fp32 operand split into two TF32 parts, three
+products each, as accurate as fp32 FMAs in another order: relerr ~1e-7 to
+1e-6 against the plain version, not bit-equal), head_dim <= 128, since
+their fp32 tiles do not fit a block's shared memory at 256.
+`flash_attention_bias_grad` launches `csrc/flash_dbias.cu`: bf16 inputs on
+the tensor cores, head_dim <= 256; fp32 on the CUDA cores, head_dim <= 128.
+On CPU tensors each runs its `*_plain` twin, the same arithmetic in plain
+PyTorch. There is no fallback between the two: a CUDA tensor the kernels
+do not take raises.
 
 Semantics (the reference's, flash_bwd.py:45-69, :699-701, :825-1274):
   * P is recomputed from the saved LSE, P = exp(Q·scale·Kᵀ + bias − LSE),

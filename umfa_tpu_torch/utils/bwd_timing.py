@@ -1,6 +1,6 @@
 """Time the backward kernels of a source tree on the card.
 
-    python umfa_tpu_torch/utils/bwd_timing.py [--tree DIR] [--label NAME] [--wide]
+    python umfa_tpu_torch/utils/bwd_timing.py [--tree DIR] [--label NAME] [--wide | --fp32]
 
 Imports `umfa_tpu_torch` from DIR (default: the tree this file is in), so
 another tree, such as a parent commit unpacked with `git archive`, can be
@@ -11,9 +11,13 @@ times `flash_bwd_dq`, `flash_bwd_dkv` and `flash_dbias` (a (1, 16, S, S)
 bias summed over the batch) at D 64 and 128 (and 256 with --wide), and
 `quant_bwd_dq` and `quant_bwd_dkv` on the int8 recipe's residuals at D 64:
 median, min and max of 10 CUDA-event timings after 2 warm-up calls, and at
-D 64 each dense kernel's relerr against its plain version. Prints one JSON
-line per timing, then the card's name and power limit as nvidia-smi gives
-them. Needs a CUDA device.
+D 64 each dense kernel's relerr against its plain version. With --fp32 it
+times only `flash_bwd_dq` and `flash_bwd_dkv` on fp32 inputs (what the
+int8-qdense recipe runs) at the training shape, D 64 and 128, each with its
+relerr against its plain version, beside the memory-efficient SDPA backward
+(dQ, dK and dV in one call) on the same fp32 inputs. Prints one JSON line
+per timing, then the card's name and power limit as nvidia-smi gives them.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -51,6 +55,8 @@ def main(argv=None) -> int:
     ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(here)))
     ap.add_argument("--label", default="tree")
     ap.add_argument("--wide", action="store_true", help="also time D 256")
+    ap.add_argument("--fp32", action="store_true",
+                    help="time only the dense dQ and dK/dV on fp32 inputs, beside the SDPA backward")
     args = ap.parse_args(argv)
     tree = os.path.abspath(args.tree)
     if sys.path and os.path.abspath(sys.path[0]) == here:
@@ -80,8 +86,13 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(4)
 
-    def randn(shape):
-        return torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+    def randn(shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen).to(dev, dtype)
+
+    if args.fp32:
+        _time_fp32(randn, emit)
+        _print_card()
+        return 0
 
     for d in (64, 128, 256) if args.wide else (64, 128):
         q, k, v = randn((B, HQ, S, d)), randn((B, HKV, S, d)), randn((B, HKV, S, d))
@@ -118,10 +129,60 @@ def main(argv=None) -> int:
     p = qb._prepare(qt_q, qt_k, qt_v, out, lse, do, qm, vm, None, None, None, True, None, None)
     emit(kernel="quant_bwd_dq", D=64, **_stats(lambda: qb._launch_dq(p, torch.bfloat16)))
     emit(kernel="quant_bwd_dkv", D=64, **_stats(lambda: qb._launch_dkv(p, torch.bfloat16)))
+    _print_card()
+    return 0
+
+
+def _print_card():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True,
                          timeout=60).stdout.strip().splitlines()[0], flush=True)
-    return 0
+
+
+def _time_fp32(randn, emit):
+    """The fp32 dQ and dK/dV at the training shape, D 64 and 128, and the
+    memory-efficient SDPA backward on the same inputs (K and V expanded to
+    the query heads outside the timing where this torch refuses enable_gqa)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from umfa_tpu_torch.ops import flash_bwd as fb
+    from umfa_tpu_torch.ops.flash_fwd import flash_attention_forward
+    from umfa_tpu_torch.utils.testing import rel_err
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for d in (64, 128):
+        q, k, v = (randn(s, torch.float32) for s in ((B, HQ, S, d), (B, HKV, S, d), (B, HKV, S, d)))
+        out, lse = flash_attention_forward(q, k, v, causal=True)
+        do = randn(out.shape, torch.float32)
+        p = fb._prepare(q, k, v, out, lse, do, None, None, True, None, None)
+        runs = {"flash_bwd_dq": (lambda: (fb._launch_dq(p, torch.float32),),
+                                 lambda: (fb._plain_dq(p),)),
+                "flash_bwd_dkv": (lambda: fb._launch_dkv(p, torch.float32),
+                                  lambda: fb._plain_dkv(p))}
+        for name, (kern, plain) in runs.items():
+            err = [rel_err(x, y) for x, y in zip(kern(), plain())]
+            torch.cuda.empty_cache()
+            emit(kernel=name, dtype="float32", D=d, **_stats(kern), relerr=err)
+        qg = q.detach().requires_grad_(True)
+
+        def grads(kg, vg, **kw):
+            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, **kw)
+            return lambda: torch.autograd.grad(o, (qg, kg, vg), do, retain_graph=True)
+
+        try:
+            kg, vg = k.detach().requires_grad_(True), v.detach().requires_grad_(True)
+            fn, gqa = grads(kg, vg, enable_gqa=True), "enable_gqa"
+            fn()
+        except (RuntimeError, TypeError):
+            kg = k.repeat_interleave(HQ // HKV, 1).requires_grad_(True)
+            vg = v.repeat_interleave(HQ // HKV, 1).requires_grad_(True)
+            fn, gqa = grads(kg, vg), "K and V expanded to the query heads"
+        emit(kernel="sdpa_efficient_backward", dtype="float32", D=d, gqa=gqa, **_stats(fn))
+        del q, k, v, out, lse, do, p, runs, qg, kg, vg, fn
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":
