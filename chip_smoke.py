@@ -9,7 +9,9 @@ Phases, one JSON line each:
      `umfa_tpu_torch/csrc/`, one nvcc each, all at once; then the
      tensor-core kernels (the bf16 kernels of `flash_fwd`, `flash_bwd_dq`,
      `flash_bwd_dkv` and `flash_dbias`; `quant_attn_fwd`, `fused_qattn`,
-     `quant_bwd_dq`, `quant_bwd_dkv`): their HMMA instructions, and for
+     `quant_bwd_dq`, `quant_bwd_dkv`; the fp32 dQ and dK/dV; `ring_bwd_dq`,
+     `ring_bwd_dkv`): their HMMA instructions (TF32 ones in the fp32
+     instantiations of the dense and ring backward), and for
      `quant_attn_fwd` also its IMMA (int8) ones, for `fused_qattn` its
      DMMA (f64) ones, counted in the SASS (cuobjdump; none fails the run),
      their registers and spills (ptxas) and dynamic shared memory at
@@ -22,9 +24,11 @@ Phases, one JSON line each:
      4096 keys; median, min and max of 10) beside its plain version, its
      bound, its TFLOP/s (for `quant_attn_fwd`, int8 ops and bf16 flops
      together) and share of the bound, `quant_attn_fwd`'s worst abs error
-     there held to 1e-5, the fp32 inputs' CUDA-core `flash_fwd` and, for the dense
-     kernel, torch's scaled_dot_product_attention (a yardstick only; the
-     port never calls it);
+     there held to 1e-5, and, for the dense kernel, torch's
+     scaled_dot_product_attention (a yardstick only; the port never calls
+     it); the fp32 inputs' CUDA-core `flash_fwd` at the same shape beside its
+     plain version, its 3xTF32 floor and the memory-efficient SDPA forward
+     on the same fp32 inputs;
   4. backward kernels (dQ, dK/dV, dbias) against their plain versions at
      the training head geometry (batch 2, causal 1024, odd 777 x 1000,
      window (128, 0), full and shared biases, fully masked rows, a nonzero
@@ -37,6 +41,8 @@ Phases, one JSON line each:
      for dbias; yardsticks only); dQ and dK/dV also with fp32 inputs (3xTF32
      on the tensor cores, as int8-qdense runs them) beside their 3xTF32
      floor and the memory-efficient SDPA backward on the same fp32 inputs;
+     dbias with fp32 inputs (CUDA cores) beside its 3xTF32 floor and the
+     memory-efficient SDPA backward with an fp32 bias gradient;
   5. serving at full width (vocab 32768, dim 1024, 16/8 heads, D 64, depth
      8, max_seq 4096, bf16, batch 8) for the dense and the INT8 KV cache:
      prefill of 4032 tokens, a 16-token continuation with chunk_start, a
@@ -255,6 +261,7 @@ def visible_pairs(sq, sk, left, right):
 def phase_kernels(record):
     import torch
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from umfa_tpu_torch.engine.config import QuantMode
     from umfa_tpu_torch.ops.flash_fwd import (
@@ -382,11 +389,6 @@ def phase_kernels(record):
         flops=flops, bytes=nbytes,
         ops_ms=flops / H100_BF16_FLOPS * 1e3, bytes_ms=nbytes / H100_HBM_BYTES * 1e3,
     )
-    # fp32 inputs take the CUDA-core kernel: its time at the same shape.
-    qf, kf, vf = (x.float() for x in (q, k, v))
-    timing["flash_fwd"]["fp32_simt_ms"] = cuda_ms(
-        lambda: flash_attention_forward(qf, kf, vf, causal=True), iters=3, warmup=1)
-    del qf, kf, vf
     try:
         F.scaled_dot_product_attention(q[:1, :, :64], k[:1, :, :64], v[:1, :, :64],
                                        is_causal=True, enable_gqa=True)
@@ -398,6 +400,36 @@ def phase_kernels(record):
         lambda: F.scaled_dot_product_attention(q, kl, vl, is_causal=True, **gqa))
     timing["flash_fwd"]["check"] = res
     del kl, vl
+    # fp32 inputs take the CUDA-core kernel: its line at the same shape.
+    # Bound: the 3xTF32 floor (three TF32 products for each fp32 one at the
+    # TF32 peak; the dense backward's fp32 lines use it too), with the fp32
+    # CUDA-core time of the same flop beside it; yardstick: the
+    # memory-efficient SDPA forward on the same fp32 inputs.
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    fk32 = lambda: flash_attention_forward(qf, kf, vf, causal=True)  # noqa: E731
+    fp32 = lambda: flash_attention_forward_plain(qf, kf, vf, causal=True)  # noqa: E731
+    res = compare("flash_fwd/float32/prefill_b8", fk32(), fp32(), 2e-5, 1e-5)
+    worst["flash_fwd"] = max(worst["flash_fwd"], res["max_abs_out"])
+    nbytes = 4 * (2 * q.numel() + k.numel() + v.numel()) + b * HQ * sq * 4
+    t = dict(**cuda_stats(fk32, iters=5, warmup=1), plain_ms=cuda_ms(fp32, iters=3, warmup=1),
+             flops=flops, bytes=nbytes, ops_ms=3 * flops / H100_TF32_FLOPS * 1e3,
+             bytes_ms=nbytes / H100_HBM_BYTES * 1e3, check=res)
+    t["tf32x3_floor_ms"] = t["ops_ms"]
+    t["fp32_cuda_core_ms"] = flops / H100_FP32_FLOPS * 1e3
+    try:
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            F.scaled_dot_product_attention(qf[:1, :, :64], kf[:1, :, :64], vf[:1, :, :64],
+                                           is_causal=True, enable_gqa=True)
+        kl, vl, gqa, how = kf, vf, dict(enable_gqa=True), "enable_gqa"
+    except (RuntimeError, TypeError):
+        kl, vl, gqa = (kf.repeat_interleave(HQ // HKV, 1), vf.repeat_interleave(HQ // HKV, 1), {})
+        how = "K and V expanded to 16 heads outside the timing (enable_gqa refused)"
+    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        t["library_ms"] = cuda_ms(
+            lambda: F.scaled_dot_product_attention(qf, kl, vl, is_causal=True, **gqa))
+    t["library"] = "memory-efficient SDPA forward on the fp32 inputs, " + how
+    timing["flash_fwd_fp32"] = t
+    del qf, kf, vf, kl, vl
     qt = [quantize(x, mode=QuantMode.ROW) for x in (q, k, v)]
     del q, k, v
     torch.cuda.empty_cache()
@@ -427,7 +459,9 @@ def phase_kernels(record):
             raise AssertionError(f"{name} disagrees with its plain version at the prefill shape: "
                                  f"{t['check']}")
         bound(t)
-        emit({"phase": "kernel_timing", "kernel": name, "shape": f"B{b} Hq{HQ} Hkv{HKV} Sq{sq} Sk{sk} D{D} causal",
+        dt = "fp32" if name.endswith("_fp32") else "bf16"
+        emit({"phase": "kernel_timing", "kernel": name,
+              "shape": f"B{b} Hq{HQ} Hkv{HKV} Sq{sq} Sk{sk} D{D} causal {dt}",
               **{k2: v2 for k2, v2 in t.items() if k2 != "check"}})
     record["kernel_timing"] = timing
     return timing, worst
@@ -1144,7 +1178,45 @@ def phase_bwd_kernels(record):
     except RuntimeError as e:
         timing["flash_dbias"]["library_ms"] = None
         timing["flash_dbias"]["library"] = f"none: this torch refused the bias gradient ({e})"[:300]
-    del qg, kx, vx, mask, bias, pb, p, q, k, v, do, out, lse, out_b, lse_b
+    del qg, kx, vx, mask, pb, out_b, lse_b
+    torch.cuda.empty_cache()
+
+    # dbias on fp32 inputs (the CUDA-core kernel) with the same bias. Bound:
+    # the 3xTF32 floor, as the fp32 dQ and dK/dV; yardstick: the
+    # memory-efficient SDPA backward with an fp32 bias gradient.
+    q32, k32, v32, do32 = q.float(), k.float(), v.float(), do.float()
+    out_b, lse_b = flash_attention_forward(q32, k32, v32, bias, causal=True)
+    pb = fb._prepare(q32, k32, v32, out_b, lse_b, do32, bias, None, True, None, None)
+    kern = lambda: fb._launch_dbias(pb, tuple(bias.shape))  # noqa: E731
+    plain = lambda: fb._plain_dbias(pb, tuple(bias.shape))  # noqa: E731
+    got, want = kern(), plain()
+    check = {"dbias": rel_err(got, want)}
+    worst["flash_dbias"] = max(worst["flash_dbias"], float((got - want).abs().max()))
+    del got, want
+    torch.cuda.empty_cache()
+    flops = 2 * D * 2 * pairs
+    nbytes = reads32 + 4 * HQ * visible_pairs(s, s, -1, 0) + 4 * bias.numel()
+    t = dict(**cuda_stats(kern, iters=5, warmup=1), plain_ms=cuda_ms(plain, iters=3, warmup=1),
+             flops=flops, bytes=nbytes, ops_ms=3 * flops / H100_TF32_FLOPS * 1e3,
+             bytes_ms=nbytes / H100_HBM_BYTES * 1e3, check=check, ok=check["dbias"] <= 1e-4)
+    t["tf32x3_floor_ms"] = t["ops_ms"]
+    t["fp32_cuda_core_ms"] = flops / H100_FP32_FLOPS * 1e3
+    mask = torch.where(vis, bias, float("-inf")).requires_grad_(True)
+    qg = q32.detach().requires_grad_(True)
+    kx = k32.repeat_interleave(HQ // HKV, 1).requires_grad_(True)
+    vx = v32.repeat_interleave(HQ // HKV, 1).requires_grad_(True)
+    try:
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            o = F.scaled_dot_product_attention(qg, kx, vx, attn_mask=mask)
+        t["library_ms"] = cuda_ms(lambda: torch.autograd.grad(o, (mask,), do32, retain_graph=True))
+        t["library"] = ("memory-efficient SDPA backward with a (1, 16, S, S) fp32 bias gradient on "
+                        "the fp32 inputs; also computes dQ, dK, dV")
+        del o
+    except RuntimeError as e:
+        t["library_ms"] = None
+        t["library"] = f"none: this torch refused the fp32 bias gradient ({e})"[:300]
+    timing["flash_dbias_fp32"] = t
+    del qg, kx, vx, mask, bias, vis, pb, p, q, k, v, do, out, lse, out_b, lse_b, q32, k32, v32, do32
     torch.cuda.empty_cache()
 
     for name, t in timing.items():
@@ -1951,6 +2023,12 @@ def phase_ring_selfloop(record):
     record["ring_selfloop"] = out
 
 
+# The ring's kernels by the names the trace gives them: the forward step's,
+# and the backward step's tensor-core bodies (no other kernel of these names
+# runs while the ring is driven).
+RING_TRACE_KERNELS = ("ring_fwd_step_kernel", "dkv_tc_kernel", "dq_tc_kernel")
+
+
 def cuda_trace_overlap(fn, path):
     """Device copies of `fn` on other streams than its ring kernels, and how
     much of their time ran while a ring kernel ran (torch.profiler trace,
@@ -1964,7 +2042,8 @@ def cuda_trace_overlap(fn, path):
     prof.export_chrome_trace(path)
     with open(path) as f:
         events = json.load(f).get("traceEvents", [])
-    kernels = [e for e in events if e.get("cat") == "kernel" and "ring_" in e.get("name", "")]
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and any(k in e.get("name", "") for k in RING_TRACE_KERNELS)]
     if not kernels:
         return None
     streams = {e.get("args", {}).get("stream") for e in kernels}
@@ -2227,15 +2306,17 @@ def phase_mma_probe(record):
 TC_KERNELS = {"flash_fwd": ("flash_fwd_tc_kernel",), "flash_bwd": ("dq_tc_kernel", "dkv_tc_kernel"),
               "flash_dbias": ("dbias_tc_kernel",), "quant_bwd": ("dq_tc_kernel", "dkv_tc_kernel"),
               "quant_attn_fwd": ("quant_attn_fwd_tc_kernel",),
-              "fused_qattn": ("fused_qattn_tc_kernel",)}
+              "fused_qattn": ("fused_qattn_tc_kernel",),
+              "ring_attn": ("dq_tc_kernel", "dkv_tc_kernel")}
 # The tensor-core instructions (SASS mnemonics) each library's kernels must
 # hold: HMMA for bf16 (and tf32) mma.sync, IMMA for int8, DMMA for f64.
 TC_OPS = {"quant_attn_fwd": ("HMMA", "IMMA"), "fused_qattn": ("DMMA", "HMMA")}
-# The fp32 dense backward: its 3xTF32 instantiations (product policy
-# Tf32x3Mma) must hold TF32 HMMA, and the CUDA-core kernels they replaced
-# must be gone.
+# The fp32 dense backward and the fp32 ring backward step: their 3xTF32
+# instantiations (product policy Tf32x3Mma) must hold TF32 HMMA, and the
+# CUDA-core kernels they replaced must be gone.
 TF32_POLICY, TF32_HMMA = "Tf32x3Mma", "HMMA.1688.F32.TF32"
-SIMT_BWD_GONE = ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
+SIMT_BWD_GONE = {"flash_bwd": ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"),
+                 "ring_attn": ("ring_bwd_dq_kernel", "ring_bwd_dkv_kernel")}
 
 
 def ptxas_resources(log):
@@ -2262,8 +2343,8 @@ def phase_sass(record, report):
     """Count the HMMA (or, per TC_OPS, IMMA and DMMA) tensor-core instructions of
     each tensor-core kernel in its library's SASS (cuobjdump -sass); raise
     if a kernel has none of one of them, if an fp32 (3xTF32) instantiation
-    of the dense backward has no TF32 HMMA, or if a CUDA-core dense
-    backward kernel is left.
+    of the dense or ring backward has no TF32 HMMA, or if a CUDA-core
+    dense or ring backward kernel is left.
     With each kernel its registers and spills (ptxas -v, when this run built
     the library) and the dynamic shared memory it launches with."""
     import ctypes
@@ -2283,7 +2364,7 @@ def phase_sass(record, report):
         for ln in sass.splitlines():
             m = re.search(r"Function : (\S+)", ln)
             if m:
-                left = [k for k in SIMT_BWD_GONE if lib == "flash_bwd" and k in m.group(1)]
+                left = [k for k in SIMT_BWD_GONE.get(lib, ()) if k in m.group(1)]
                 if left:
                     raise AssertionError(f"{lib} still holds the CUDA-core {left[0]}")
                 stem = next((st for st in stems if st in m.group(1)), None)
@@ -2304,7 +2385,7 @@ def phase_sass(record, report):
                 if not found or any(kernels[f][op.lower()] == 0 for f in found):
                     raise AssertionError(f"no {op} in the SASS of {lib}'s {stem}: "
                                          f"{ {f: kernels[f][op.lower()] for f in found} }")
-        if lib == "flash_bwd":
+        if lib in SIMT_BWD_GONE:
             for stem in stems:
                 found = [f for f in kernels if kernels[f]["stem"] == stem and "hmma_tf32" in kernels[f]]
                 if not found or any(kernels[f]["hmma_tf32"] == 0 for f in found):
@@ -2321,6 +2402,8 @@ def phase_sass(record, report):
     qbwd = _kernels.function("quant_bwd", "umfa_quant_bwd_smem_bytes", (ctypes.c_int, ctypes.c_int))
     qfwd = _kernels.function("quant_attn_fwd", "umfa_quant_attn_fwd_smem_bytes", (ctypes.c_int,))
     fq = _kernels.function("fused_qattn", "umfa_fused_qattn_smem_bytes", (ctypes.c_int,))
+    rbwd = _kernels.function("ring_attn", "umfa_ring_bwd_smem_bytes",
+                             (ctypes.c_int, ctypes.c_int, ctypes.c_int))
     for d in (64, 128, 256):
         smem[f"flash_fwd bf16 D{d}"] = fwd(d, 1)
         smem[f"flash_fwd fp32 D{d}"] = fwd(d, 0)
@@ -2330,7 +2413,11 @@ def phase_sass(record, report):
         smem[f"quant_bwd_dq D{d}"] = qbwd(d, 0)
         smem[f"quant_bwd_dkv D{d}"] = qbwd(d, 1)
         smem[f"quant_attn_fwd D{d}"] = qfwd(d)
+        smem[f"ring_bwd_dq bf16 D{d}"] = rbwd(d, 0, 1)
+        smem[f"ring_bwd_dkv bf16 D{d}"] = rbwd(d, 1, 1)
         if d <= 128:
+            smem[f"ring_bwd_dq fp32 D{d}"] = rbwd(d, 0, 0)
+            smem[f"ring_bwd_dkv fp32 D{d}"] = rbwd(d, 1, 0)
             smem[f"flash_bwd_dq fp32 D{d}"] = fbwd(d, 0, 0)
             smem[f"flash_bwd_dkv fp32 D{d}"] = fbwd(d, 1, 0)
             smem[f"fused_qattn D{d}"] = fq(d)
@@ -2387,6 +2474,15 @@ DESIGN = {
                    "step ahead, K to fp32, V to bf16; two passes: QKᵀ alone for the exact row "
                    "max, then P·V); the means, K/V quantize and cc-row kernels on the CUDA cores",
     "quant_rows": "CUDA cores: one warp a row, elementwise",
+    "ring_bwd_dkv": "tensor cores, the dK/dV body of flash_bwd_dkv (csrc/bwd_tc.cuh "
+                    "dkv_tc_kernel with the dense load stages of csrc/bwd_dense.cuh) in ring "
+                    "mode: the step's global-position mask reduced on the host to the band plus "
+                    "a first visible query row and a key limit, hidden tiles skipped, dK/dV "
+                    "folded into the travelling fp32 buffers by their one owner; bf16 inputs "
+                    "mma.sync m16n8k16 bf16->fp32, D <= 256; fp32 3xTF32, D <= 128",
+    "ring_bwd_dq": "tensor cores, the dQ body of flash_bwd_dq (csrc/bwd_tc.cuh dq_tc_kernel) "
+                   "in ring mode as ring_bwd_dkv, dQ folded into the fp32 accumulator; bf16 "
+                   "inputs mma.sync m16n8k16 bf16->fp32, D <= 256; fp32 3xTF32, D <= 128",
     "mma_probe": "tensor cores, mma.sync m16n8k16 bf16->fp32",
 }
 

@@ -941,6 +941,65 @@ def test_ring_selfloop_checks_on_the_card(dev, n_steps, causal):
         assert _kernels.launches[name] == before.get(name, 0) + 1
 
 
+# The backward kernels (the tensor-core bodies of csrc/bwd_tc.cuh in ring
+# mode) called on one step at bf16 D 256, S_loc 1024, Hq16 Hkv8: the
+# diagonal step (written into the buffers) and the off-diagonal steps of
+# rank 2 of 4 (folded into buffers that hold earlier steps), against their
+# plain versions at the bf16 backward gate, 2e-2.
+@pytest.mark.parametrize("zigzag", [False, True])
+def test_ring_bwd_kernels_take_bf16_head_dim_256(dev, zigzag):
+    s_loc, d, n, my = 1024, 256, 4, 2
+    g = torch.Generator().manual_seed(3)
+    q, do = (torch.randn((2, 16, s_loc, d), generator=g).to(dev, torch.bfloat16) for _ in range(2))
+    delta = torch.randn((2, 16, s_loc), generator=g).to(dev)
+    for src in ((2, 1, 3) if zigzag else (2, 1)):
+        k, v = (torch.randn((2, 8, s_loc, d), generator=g).to(dev, torch.bfloat16)
+                for _ in range(2))
+        c = rp._Step(n, my, src, src == my, True, zigzag, d**-0.5, 512)
+        s = torch.matmul(rp._fold(q.float() * c.scale, 8), k.float().transpose(-1, -2))
+        lse = s.reshape(2, 16, s_loc, s_loc).logsumexp(-1)  # finite on every row
+        bufs = [torch.randn((2, 8, s_loc, d), generator=g).to(dev) for _ in range(2)]
+        bufs.append(torch.randn((2, 16, s_loc, d), generator=g).to(dev))
+        got = [x.clone() for x in bufs]
+        before = dict(_kernels.launches)
+        rp.ring_bwd_dkv(q, do, lse, delta, k, v, got[0], got[1], c)
+        rp.ring_bwd_dq(q, do, lse, delta, k, v, got[2], c)
+        torch.cuda.synchronize()
+        for name in ("ring_bwd_dkv", "ring_bwd_dq"):
+            assert _kernels.launches[name] == before.get(name, 0) + 1
+        want = [x.clone() for x in bufs]
+        rp._dkv_plain(q, do, lse, delta, k, v, want[0], want[1], c)
+        rp._dq_plain(q, do, lse, delta, k, v, want[2], c)
+        for x, y in zip(got, want):
+            assert torch.isfinite(x).all() and rel_err(x, y) <= RING_BWD_TOLS[torch.bfloat16]
+
+
+# The fp32 ring backward (3xTF32) as accurate as the dense one: 5e-6
+# against its plain version at causal S 1024, q ~ N(0, 3), as
+# test_flash_bwd_fp32_keeps_highest_accuracy holds the dense backward.
+@pytest.mark.parametrize("d", [64, 128])
+def test_ring_bwd_fp32_keeps_highest_accuracy(dev, d):
+    q, k, v, do, dlse = _ring_inputs(4, 4, d, torch.float32, dev)
+    q = q * 3.0
+    cfg = rp._config(256, True, False, d**-0.5, None)
+    out, lse = rp._ring_fwd(q, k, v, LocalRing(4), cfg, plain=True)
+    got = rp._ring_bwd(q, k, v, out, lse, do, dlse, LocalRing(4), cfg)
+    want = rp._ring_bwd(q, k, v, out, lse, do, dlse, LocalRing(4), cfg, plain=True)
+    for x, y in zip(got, want):
+        assert rel_err(x, y) <= 5e-6
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_bwd_kernels_are_deterministic(dev, dtype):
+    q, k, v, do, dlse = _ring_inputs(16, 8, 64, dtype, dev)
+    cfg = rp._config(256, True, True, 0.125, None)
+    out, lse = rp._ring_fwd(q, k, v, LocalRing(4), cfg)
+    first = rp._ring_bwd(q, k, v, out, lse, do, dlse, LocalRing(4), cfg)
+    second = rp._ring_bwd(q, k, v, out, lse, do, dlse, LocalRing(4), cfg)
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
 def test_ring_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="head_dim <= 128"):
         q, k, v, _, _ = _ring_inputs(2, 2, 160, torch.float32, dev, seq=512)
@@ -956,6 +1015,17 @@ def test_ring_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="one CUDA device"):
         rp.ring_fwd_step(q[:, :, :64].contiguous(), k[:, :, :64].cpu(), v[:, :, :64].contiguous(),
                          o, lse, c)
+    # The backward kernels: bf16 up to head_dim 256, fp32 up to 128.
+    for dtype, d, limit in ((torch.bfloat16, 260, 256), (torch.float32, 160, 128)):
+        q, k, v, do, _ = _ring_inputs(2, 2, d, dtype, dev, seq=128)
+        lse = torch.zeros(q.shape[:3], device=dev)
+        dk, dv, dq = (torch.zeros(x.shape, device=dev) for x in (k, v, q))
+        before = dict(_kernels.launches)
+        with pytest.raises(ValueError, match=f"head_dim <= {limit}"):
+            rp.ring_bwd_dkv(q, do, lse, lse, k, v, dk, dv, c)
+        with pytest.raises(ValueError, match=f"head_dim <= {limit}"):
+            rp.ring_bwd_dq(q, do, lse, lse, k, v, dq, c)
+        assert dict(_kernels.launches) == before
 
 
 @pytest.mark.parametrize("name", sorted(mp.SHAPES))

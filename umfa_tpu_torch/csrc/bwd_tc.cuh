@@ -18,9 +18,18 @@
 // Both keep one owner per output tile, no atomics, and a deterministic
 // result: the dK/dV block sums its GQA group in registers, the dQ block
 // walks its key tiles in order.
+//
+// RING (a template parameter, so the other instantiations compile as
+// without it): one rank's ring step (`csrc/ring_attn.cu`). What the step
+// sees is the band mask (left, right) plus two limits, query rows below
+// q_lo and keys at or past k_hi hidden; the fp32 gradients fold into the
+// buffers they are stored to, written at the rank's first step and added
+// to (the old value plus scale times the sum, each rounded once) after it.
+// A block that sees nothing after the first step returns without a store.
 #pragma once
 
 #include <initializer_list>
+#include <type_traits>
 
 #include "common.cuh"
 #include "mma.cuh"
@@ -54,6 +63,9 @@ struct BwdParams {
   int int4;  // bit 0: Q, bit 1: K, bit 2: V
   int wide;  // set by the launcher: rows of q, k, v, dout (and vm) may be read from
              // global memory by vector loads (D and the pointers' alignment allow it)
+  // Read only by the RING instantiations: query rows below q_lo and keys at
+  // or past k_hi are hidden; first: store the step's gradients, else add them.
+  int q_lo, k_hi, first;
 };
 
 // Whether every pointer is a multiple of `bytes` (null counts as aligned):
@@ -105,6 +117,18 @@ __device__ __forceinline__ void store4(__nv_bfloat16* dst, const float (&x)[4]) 
 // Four fp32 values at dst (16-byte aligned).
 __device__ __forceinline__ void store4(float* dst, const float (&x)[4]) {
   *reinterpret_cast<float4*>(dst) = make_float4(x[0], x[1], x[2], x[3]);
+}
+
+// out[i] = x (Elem<Tout>'s rounding); under RING (fp32 out) after the first
+// step out[i] + x, rounded once: the fold of a ring step into its buffer.
+template <bool RING, typename Tout>
+__device__ __forceinline__ void store_grad(Tout* out, long long i, float x, int first) {
+  if constexpr (RING) {
+    static_assert(std::is_same<Tout, float>::value, "a ring step folds into fp32 buffers");
+    out[i] = first ? x : __fadd_rn(out[i], x);
+  } else {
+    Elem<Tout>::store(out, i, x);
+  }
 }
 
 // A bf16 pair (lower index in the low half) times s, each value rounded to
@@ -411,7 +435,7 @@ constexpr int dkv_smem_bytes() {
   return DkvTile<DP, Mma>::KV_BYTES + 2 * Load::Tile::BYTES + Load::NRAW * Load::RAW_BYTES;
 }
 
-template <class Load, class Mma, typename Tout, int DP>
+template <class Load, class Mma, typename Tout, int DP, bool RING = false>
 __global__ void __launch_bounds__(DkvTile<DP, Mma>::NTHR, DkvTile<DP, Mma>::MINB)
     dkv_tc_kernel(const BwdParams p, const int vec) {
   using G = DkvTile<DP, Mma>;
@@ -441,9 +465,16 @@ __global__ void __launch_bounds__(DkvTile<DP, Mma>::NTHR, DkvTile<DP, Mma>::MINB
 
   int q_lo, q_hi;
   visible_queries(k0, min(k0 + 64, p.Sk) - 1, p.Sq, p.left, p.right, &q_lo, &q_hi);
+  if constexpr (RING) {
+    q_lo = max(q_lo, p.q_lo);
+    if (k0 >= p.k_hi) q_hi = -1;
+  }
   const int t_lo = q_lo / QT;
   const int n_t = q_hi >= q_lo ? q_hi / QT - t_lo + 1 : 0;
   const int total = group * n_t;  // (head, query tile) steps, head-major
+  if constexpr (RING) {
+    if (n_t == 0 && !p.first) return;  // adds nothing to the buffers
+  }
   auto head_of = [&](int i) { return (long long)b * p.Hq + hk * group + i / n_t; };
   auto q0_of = [&](int i) { return (t_lo + i % n_t) * QT; };
 
@@ -486,9 +517,11 @@ __global__ void __launch_bounds__(DkvTile<DP, Mma>::NTHR, DkvTile<DP, Mma>::MINB
     // This warp's keys [kw, kw + 15] against queries [q0, q0 + QT).
     const int kw = k0 + kr, qe = q0 + QT - 1;
     const bool none = kw >= p.Sk || q0 >= p.Sq || (p.right >= 0 && kw > qe + p.right) ||
-                      (p.left >= 0 && kw + 15 < q0 - p.left);
+                      (p.left >= 0 && kw + 15 < q0 - p.left) ||
+                      (RING && (kw >= p.k_hi || qe < p.q_lo));
     const bool all = kw + 15 < p.Sk && qe < p.Sq && (p.right < 0 || kw + 15 <= q0 + p.right) &&
-                     (p.left < 0 || kw >= qe - p.left);
+                     (p.left < 0 || kw >= qe - p.left) &&
+                     (!RING || (kw + 15 < p.k_hi && q0 >= p.q_lo));
     if (!none) {
       float s[NQ][4], dp[NQ][4];
 #pragma unroll
@@ -506,7 +539,8 @@ __global__ void __launch_bounds__(DkvTile<DP, Mma>::NTHR, DkvTile<DP, Mma>::MINB
         for (int e = 0; e < 4; ++e) {
           const int key = e < 2 ? key0 : key1, qi = 8 * j + 2 * tq + (e & 1), row = q0 + qi;
           float pr = 0.f, ds = 0.f;
-          if (all || key_visible(row, key, p.Sq, p.Sk, p.left, p.right)) {
+          if (all || ((!RING || row >= p.q_lo) &&
+                      key_visible(row, key, p.Sq, RING ? p.k_hi : p.Sk, p.left, p.right))) {
             float x = s[j][e];
             if (p.corr) x = __fadd_rn(x, corr[e >> 1]);
             if (bias) x = __fadd_rn(x, bias[row * p.bsq + key * p.bsk]);
@@ -553,22 +587,23 @@ __global__ void __launch_bounds__(DkvTile<DP, Mma>::NTHR, DkvTile<DP, Mma>::MINB
       for (int c = 0; c < 2; ++c) {
         const int col = c0 + 8 * n + 2 * tq + c;
         if (col < p.D) {
-          Elem<Tout>::store(dkp, (long long)key * p.D + col, dks * dk[n][2 * r + c]);
-          Elem<Tout>::store(dvp, (long long)key * p.D + col, dv[n][2 * r + c]);
+          store_grad<RING>(dkp, (long long)key * p.D + col, dks * dk[n][2 * r + c], p.first);
+          store_grad<RING>(dvp, (long long)key * p.D + col, dv[n][2 * r + c], p.first);
         }
       }
   }
 }
 
-template <class Load, class Mma, typename Tout, int DP>
+template <class Load, class Mma, typename Tout, int DP, bool RING = false>
 cudaError_t launch_dkv_tc(const BwdParams& p, int vec, cudaStream_t stream) {
   constexpr int smem = dkv_smem_bytes<Load, Mma, DP>();
   constexpr int nthr = DkvTile<DP, Mma>::NTHR;
-  cudaError_t err = cudaFuncSetAttribute(dkv_tc_kernel<Load, Mma, Tout, DP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const auto kernel = dkv_tc_kernel<Load, Mma, Tout, DP, RING>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Sk + 63) / 64, p.Hkv, p.B);
-  dkv_tc_kernel<Load, Mma, Tout, DP><<<grid, nthr, smem, stream>>>(p, vec);
+  kernel<<<grid, nthr, smem, stream>>>(p, vec);
   return cudaGetLastError();
 }
 
@@ -616,7 +651,7 @@ constexpr int dq_smem_bytes() {
          2 * Load::Kv::BYTES + Load::NRAW * Load::RAW_BYTES;
 }
 
-template <class Load, class Mma, typename Tout, int DP>
+template <class Load, class Mma, typename Tout, int DP, bool RING = false>
 __global__ void __launch_bounds__(NT, DqTile<DP, Mma>::MINB) dq_tc_kernel(const BwdParams p,
                                                                           const int vec) {
   using G = DqTile<DP, Mma>;
@@ -642,8 +677,15 @@ __global__ void __launch_bounds__(NT, DqTile<DP, Mma>::MINB) dq_tc_kernel(const 
 
   int k_lo, k_hi;
   visible_keys(q0, min(q0 + 64, p.Sq) - 1, p.Sk, p.left, p.right, &k_lo, &k_hi);
+  if constexpr (RING) {
+    k_hi = min(k_hi, p.k_hi - 1);
+    if (min(q0 + 64, p.Sq) <= p.q_lo) k_hi = -1;
+  }
   const int t_lo = k_lo / KT;
   const int n_t = k_hi >= k_lo ? k_hi / KT - t_lo + 1 : 0;
+  if constexpr (RING) {
+    if (n_t == 0 && !p.first) return;  // adds nothing to the buffer
+  }
 
   // Pipeline as in dkv_tc_kernel: key tile i copied two steps ahead,
   // converted one step ahead, one barrier a step.
@@ -682,9 +724,11 @@ __global__ void __launch_bounds__(NT, DqTile<DP, Mma>::MINB) dq_tc_kernel(const 
     // This warp's rows [r_lo, r_lo + 15] against keys [k0, k0 + KT).
     const int r_lo = q0 + rw, r_hi = r_lo + 15, ke = k0 + KT - 1;
     const bool none = r_lo >= p.Sq || k0 >= p.Sk || (p.right >= 0 && k0 > r_hi + p.right) ||
-                      (p.left >= 0 && ke < r_lo - p.left);
+                      (p.left >= 0 && ke < r_lo - p.left) ||
+                      (RING && (k0 >= p.k_hi || r_hi < p.q_lo));
     const bool all = r_hi < p.Sq && ke < p.Sk && (p.right < 0 || ke <= r_lo + p.right) &&
-                     (p.left < 0 || k0 >= r_hi - p.left);
+                     (p.left < 0 || k0 >= r_hi - p.left) &&
+                     (!RING || (ke < p.k_hi && r_lo >= p.q_lo));
     if (none) continue;
 
     float s[NS][4], dp[NS][4];
@@ -701,7 +745,8 @@ __global__ void __launch_bounds__(NT, DqTile<DP, Mma>::MINB) dq_tc_kernel(const 
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1, row = r ? row1 : row0, kj = 8 * j + 2 * tq + (e & 1), key = k0 + kj;
         float ds = 0.f;
-        if (all || key_visible(row, key, p.Sq, p.Sk, p.left, p.right)) {
+        if (all || ((!RING || row >= p.q_lo) &&
+                    key_visible(row, key, p.Sq, RING ? p.k_hi : p.Sk, p.left, p.right))) {
           float x = kv.score(s[j][e], kj);
           if (bias) x = __fadd_rn(x, bias[row * p.bsq + key * p.bsk]);
           const float pr = expf(x - lse[r]);
@@ -724,19 +769,20 @@ __global__ void __launch_bounds__(NT, DqTile<DP, Mma>::MINB) dq_tc_kernel(const 
       for (int c = 0; c < 2; ++c) {
         const int col = 8 * n + 2 * tq + c;
         if (col < p.D)
-          Elem<Tout>::store(dq, (long long)row * p.D + col, p.scale * acc[n][2 * r + c]);
+          store_grad<RING>(dq, (long long)row * p.D + col, p.scale * acc[n][2 * r + c], p.first);
       }
   }
 }
 
-template <class Load, class Mma, typename Tout, int DP>
+template <class Load, class Mma, typename Tout, int DP, bool RING = false>
 cudaError_t launch_dq_tc(const BwdParams& p, int vec, cudaStream_t stream) {
   constexpr int smem = dq_smem_bytes<Load, Mma, DP>();
-  cudaError_t err = cudaFuncSetAttribute(dq_tc_kernel<Load, Mma, Tout, DP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const auto kernel = dq_tc_kernel<Load, Mma, Tout, DP, RING>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Sq + 63) / 64, p.Hq, p.B);
-  dq_tc_kernel<Load, Mma, Tout, DP><<<grid, NT, smem, stream>>>(p, vec);
+  kernel<<<grid, NT, smem, stream>>>(p, vec);
   return cudaGetLastError();
 }
 

@@ -81,8 +81,8 @@ __device__ __forceinline__ bool key_visible(int row, int col, int sq, int sk, in
          (right < 0 || col <= row + right);
 }
 
-// The CUDA-core backward kernels (flash_dbias.cu, ring_attn.cu) run NTB
-// threads as a 16 x 16 grid: thread (ty, tx) = (t / 16, t % 16) owns rows
+// The CUDA-core backward kernel (fp32 flash_dbias.cu) runs NTB threads as
+// a 16 x 16 grid: thread (ty, tx) = (t / 16, t % 16) owns rows
 // 4*ty..+3 of a 64 x 64 score tile and its columns tx + 16*j, j < 4, and
 // rows 4*ty..+3 of a 64 x D gradient tile with its columns tx + 16*c,
 // c < D/16.
@@ -107,12 +107,10 @@ __device__ __forceinline__ void stage_rows(float* dst, const T* src, int r0, int
 }
 
 // s[i][j] += a[4*ty + i] . b[tx + 16*j] over the DP columns of two staged
-// tiles: one 4 x 4 patch of a 64 x 64 product A·Bᵀ. SCALED: each b element
-// is taken as round_T(b * scale), the scaled Q operand formed on the fly
-// exactly as stage_rows<T, DP, true> forms it.
-template <typename T, int DP, bool SCALED = false>
+// tiles: one 4 x 4 patch of a 64 x 64 product A·Bᵀ.
+template <int DP>
 __device__ __forceinline__ void patch_abt(float (&s)[4][4], const float* a, const float* b,
-                                          int ty, int tx, float scale = 1.f) {
+                                          int ty, int tx) {
   constexpr int S = DP + 1;
 #pragma unroll 8
   for (int d = 0; d < DP; ++d) {
@@ -120,10 +118,7 @@ __device__ __forceinline__ void patch_abt(float (&s)[4][4], const float* a, cons
 #pragma unroll
     for (int i = 0; i < 4; ++i) x[i] = a[(ty * 4 + i) * S + d];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      y[j] = b[(tx + 16 * j) * S + d];
-      if (SCALED) y[j] = Elem<T>::round(y[j] * scale);
-    }
+    for (int j = 0; j < 4; ++j) y[j] = b[(tx + 16 * j) * S + d];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll

@@ -117,8 +117,8 @@ __global__ void __launch_bounds__(NTB) flash_dbias_kernel(const DbiasParams p) {
     __syncthreads();
 
     float s[4][4] = {}, dp[4][4] = {};
-    patch_abt<float, DP>(s, sQ, sK, ty, tx);
-    patch_abt<float, DP>(dp, sO, sV, ty, tx);
+    patch_abt<DP>(s, sQ, sK, ty, tx);
+    patch_abt<DP>(dp, sO, sV, ty, tx);
     const float* bias = p.bias + b * p.bsb + h * p.bsh;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {

@@ -17,40 +17,53 @@
 // ~35, ~70 and ~52 µs of bf16 tensor-core time, against ~20 µs of HBM time.
 // All three are compute-bound.
 //
-// What this design does about it: this first version is simple and exact
-// rather than fast, as the other kernels of the port. Products run as FP32
-// FMAs on the CUDA cores (exact for bf16 operands, full FP32 for fp32 ones:
-// no TF32), so its own ceiling is the 67 TFLOP/s FP32 rate. Tiles are 64
-// rows by 64 keys staged in shared memory as fp32; 64-key tiles that causal
-// masking hides from a whole 64-row tile are skipped (exact: they add 0).
-//   * ring_fwd_step: one block of 128 threads per (64-row query tile, q
-//     head, batch), the thread layout of flash_fwd.cu. The reference rounds
-//     P to V's type against the running row max of its block_k-key tiles;
-//     to round against the same max this kernel walks each block_k tile
-//     twice (its row max first, then P and P·V), one extra QKᵀ product.
-//   * ring_bwd_dq / ring_bwd_dkv: the layout of flash_bwd.cu. dK/dV has one
-//     owner per (64-key tile, kv head, batch), which walks the query heads
-//     of its GQA group in order and sums them in registers: deterministic,
-//     no atomics.
+// The backward step (`ring_bwd_dkv`, `ring_bwd_dq`) is the dense backward's
+// tensor-core bodies (bwd_tc.cuh `dkv_tc_kernel`, `dq_tc_kernel`) with its
+// load stages (bwd_dense.cuh), instantiated with RING = true: bf16 inputs
+// by mma.sync m16n8k16 bf16 -> fp32 (`Bf16Mma`), head dims up to 256;
+// fp32 inputs by 3xTF32 (`Tf32x3Mma`), up to 128. Tiles, occupancy and the
+// cp.async pipeline are those of csrc/flash_bwd.cu, whose header gives the
+// rounding points a ring step shares: Q·scale rounded to the input type
+// (ring_pallas.py:693); P = exp(s - lse) with the final LSE; dS =
+// P∘(dP − δ); dV += round(P)ᵀ·dO, dK += round(dS)ᵀ·Q and dQ += round(dS)·K,
+// dK and dQ times scale. Two things differ from the dense backward:
+//   * which pairs a step sees. The host reduces the step's global positions
+//     (chunk_pos below) to the bodies' band mask plus a first visible query
+//     row q_lo and a key limit k_hi, in local indices (ring_pallas.py
+//     `_step_mask`): not causal, nothing hidden; the diagonal step (src ==
+//     my) local causal (right = 0; under zigzag too, since a chunk's two
+//     halves sit in order); contiguous causal with src < my, nothing hidden;
+//     zigzag with src < my, keys [0, S/2) only; with src > my, query rows
+//     [S/2, S) only. Tiles past the limits are skipped whole, and a block
+//     that sees nothing after the first step stores nothing;
+//   * the gradients fold into the travelling fp32 dK/dV buffers and the
+//     fp32 dQ accumulator: written at the rank's first step (:829-837,
+//     :912-923), then added, old + scale·sum, each rounded once, as the
+//     plain versions add.
+// One owner per output tile and no atomics, so the step is deterministic.
 //
-// Semantics held to the reference:
+// The forward step (`ring_fwd_step_kernel`) is still the first version,
+// simple and exact rather than fast: FP32 FMAs on the CUDA cores (exact for
+// bf16 operands, full FP32 for fp32 ones: no TF32), so its own ceiling is
+// the 67 TFLOP/s FP32 rate. One block of 128 threads per (64-row query
+// tile, q head, batch), the thread layout of flash_fwd.cu; tiles are 64 rows
+// by 64 keys staged in shared memory as fp32, and 64-key tiles that causal
+// masking hides from a whole 64-row tile are skipped (exact: they add 0).
+// The reference rounds P to V's type against the running row max of its
+// block_k-key tiles; to round against the same max this kernel walks each
+// block_k tile twice (its row max first, then P and P·V), one extra QKᵀ
+// product. Semantics held to the reference:
 //   * global positions: a local row r of ring position c is c·S_loc + r
 //     contiguous, or in zigzag half-chunk c (r < S_loc/2) or 2n-1-c
 //     (ring_pallas.py:170-178); causal keeps key position <= query
 //     position; a hidden score is -1e30 and its P is 0 (:327-345);
-//   * forward: s = (q·k) · scale in fp32 (:321-326); P = exp(s - m) against
-//     the running max, rounded to V's type for P·V while l sums the
-//     unrounded P (:338-355); o_step = acc / l and lse_step = m + log l, a
-//     row with l == 0 gets 0 and -1e30 (:363-367); then the merge into the
-//     previous (o, lse) (:382-390) or, at the rank's first step, a plain
-//     write (:392-395); o is stored in its own type after every step;
-//   * backward: Q·scale rounded to the input type (:693); P = exp(s - lse)
-//     with the final LSE; dP = dO·Vᵀ with dO in V's type; dS = P∘(dP − δ);
-//     dV += round(P)ᵀ·dO, dK += round(dS)ᵀ·Q, dQ += round(dS)·K; dK and dQ
-//     times scale; dK/dV fold into the travelling fp32 buffers and dQ into
-//     its fp32 accumulator: replace at step 0, add after (:829-837,
-//     :912-923).
-#include "common.cuh"
+//   * s = (q·k) · scale in fp32 (:321-326); P = exp(s - m) against the
+//     running max, rounded to V's type for P·V while l sums the unrounded P
+//     (:338-355); o_step = acc / l and lse_step = m + log l, a row with
+//     l == 0 gets 0 and -1e30 (:363-367); then the merge into the previous
+//     (o, lse) (:382-390) or, at the rank's first step, a plain write
+//     (:392-395); o is stored in its own type after every step.
+#include "bwd_dense.cuh"
 
 using namespace umfa;
 
@@ -69,18 +82,6 @@ struct FwdParams {
   void* o;
   float* lse;
   int block_k;
-  RingStep r;
-};
-
-struct BwdParams {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* dout;
-  const float* lse;
-  const float* delta;
-  float* out0;  // dQ, or the travelling dK
-  float* out1;  // unused, or the travelling dV
   RingStep r;
 };
 
@@ -271,204 +272,6 @@ __global__ void __launch_bounds__(NT) ring_fwd_step_kernel(const FwdParams p) {
   }
 }
 
-template <int DP>
-constexpr int dq_smem_bytes() {
-  return (4 * 64 * (DP + 1) + 64 * (BK + 1)) * (int)sizeof(float);
-}
-
-template <int DP>
-constexpr int dkv_smem_bytes() {
-  return (4 * 64 * (DP + 1) + 2 * 64 * (BQ + 1)) * (int)sizeof(float);
-}
-
-template <typename T, int DP>
-__global__ void __launch_bounds__(NTB) ring_bwd_dq_kernel(const BwdParams p) {
-  constexpr int S = DP + 1;
-  constexpr int PS = BK + 1;
-  constexpr int NC = DP / 16;
-  extern __shared__ float smem[];
-  float* sQ = smem;         // round(q · scale)
-  float* sO = sQ + BQ * S;  // dO
-  float* sK = sO + BQ * S;
-  float* sV = sK + BK * S;
-  float* sS = sV + BK * S;  // round(dS), BQ x PS
-
-  const RingStep& r = p.r;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (r.Hq / r.Hkv);
-  const long long qrow = ((long long)b * r.Hq + h) * r.S;
-  const long long krow = ((long long)b * r.Hkv + hk) * r.S;
-  const T* k = static_cast<const T*>(p.k) + krow * r.D;
-  const T* v = static_cast<const T*>(p.v) + krow * r.D;
-
-  stage_rows<T, DP, true>(sQ, static_cast<const T*>(p.q) + qrow * r.D, q0, r.S, r.D, r.scale);
-  stage_rows<T, DP>(sO, static_cast<const T*>(p.dout) + qrow * r.D, q0, r.S, r.D);
-  float lse[4], dlt[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    lse[i] = p.lse[qrow + q0 + ty * 4 + i];
-    dlt[i] = p.delta[qrow + q0 + ty * 4 + i];
-  }
-  const int qbase = chunk_pos(r, r.my, q0);
-
-  float acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-
-  for (int k0 = 0; k0 < r.S; k0 += BK) {
-    const int kbase = chunk_pos(r, r.src, k0);
-    if (!tile_visible(r, qbase, kbase)) continue;
-    __syncthreads();  // sQ/sO staged; the previous tile's sK/sV/sS consumed
-    stage_rows<T, DP>(sK, k, k0, r.S, r.D);
-    stage_rows<T, DP>(sV, v, k0, r.S, r.D);
-    __syncthreads();
-
-    float s[4][4] = {}, dp[4][4] = {};
-    patch_abt<T, DP>(s, sQ, sK, ty, tx);
-    patch_abt<T, DP>(dp, sO, sV, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool vis = !r.causal || kbase + tx + 16 * j <= qbase + ty * 4 + i;
-        const float ds = vis ? expf(s[i][j] - lse[i]) * (dp[i][j] - dlt[i]) : 0.f;
-        sS[(ty * 4 + i) * PS + tx + 16 * j] = Elem<T>::round(ds);
-      }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float d[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) d[i] = sS[(ty * 4 + i) * PS + kk];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const float kv = sK[kk * S + tx + 16 * c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(d[i], kv, acc[i][c]);
-      }
-    }
-  }
-
-  float* dq = p.out0 + qrow * r.D;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long row = q0 + ty * 4 + i;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int col = tx + 16 * c;
-      if (col >= r.D) continue;
-      const float x = r.scale * acc[i][c];
-      dq[row * r.D + col] = r.first ? x : dq[row * r.D + col] + x;
-    }
-  }
-}
-
-template <typename T, int DP>
-__global__ void __launch_bounds__(NTB) ring_bwd_dkv_kernel(const BwdParams p) {
-  constexpr int S = DP + 1;
-  constexpr int PS = BQ + 1;
-  constexpr int NC = DP / 16;
-  extern __shared__ float smem[];
-  float* sK = smem;
-  float* sV = sK + BK * S;
-  float* sQ = sV + BK * S;   // raw q (scaled on the fly for S)
-  float* sO = sQ + BQ * S;   // dO
-  float* sP = sO + BQ * S;   // round(Pᵀ), BK x PS
-  float* sS = sP + BK * PS;  // round(dSᵀ), BK x PS
-
-  const RingStep& r = p.r;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int k0 = blockIdx.x * BK, hk = blockIdx.y, b = blockIdx.z;
-  const int group = r.Hq / r.Hkv;
-  const long long krow = ((long long)b * r.Hkv + hk) * r.S;
-  stage_rows<T, DP>(sK, static_cast<const T*>(p.k) + krow * r.D, k0, r.S, r.D);
-  stage_rows<T, DP>(sV, static_cast<const T*>(p.v) + krow * r.D, k0, r.S, r.D);
-  const int kbase = chunk_pos(r, r.src, k0);
-
-  float dk[4][NC], dv[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) dk[i][c] = dv[i][c] = 0.f;
-
-  for (int g = 0; g < group; ++g) {
-    const int h = hk * group + g;
-    const long long qrow = ((long long)b * r.Hq + h) * r.S;
-    const T* q = static_cast<const T*>(p.q) + qrow * r.D;
-    const T* dout = static_cast<const T*>(p.dout) + qrow * r.D;
-    for (int q0 = 0; q0 < r.S; q0 += BQ) {
-      const int qbase = chunk_pos(r, r.my, q0);
-      if (!tile_visible(r, qbase, kbase)) continue;
-      __syncthreads();  // sK/sV staged; the previous tile's sQ/sO/sP/sS consumed
-      stage_rows<T, DP>(sQ, q, q0, r.S, r.D);
-      stage_rows<T, DP>(sO, dout, q0, r.S, r.D);
-      float lse[4], dlt[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        lse[j] = p.lse[qrow + q0 + tx + 16 * j];
-        dlt[j] = p.delta[qrow + q0 + tx + 16 * j];
-      }
-      __syncthreads();
-
-      // Transposed patches: rows are keys, columns are queries.
-      float s[4][4] = {}, dp[4][4] = {};
-      patch_abt<T, DP, true>(s, sK, sQ, ty, tx, r.scale);
-      patch_abt<T, DP>(dp, sV, sO, ty, tx);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const bool vis = !r.causal || kbase + ty * 4 + i <= qbase + tx + 16 * j;
-          const float pr = vis ? expf(s[i][j] - lse[j]) : 0.f;
-          const float ds = pr * (dp[i][j] - dlt[j]);
-          sP[(ty * 4 + i) * PS + tx + 16 * j] = Elem<T>::round(pr);
-          sS[(ty * 4 + i) * PS + tx + 16 * j] = Elem<T>::round(ds);
-        }
-      __syncthreads();
-
-#pragma unroll 4
-      for (int qq = 0; qq < BQ; ++qq) {
-        float pv[4], dsv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          pv[i] = sP[(ty * 4 + i) * PS + qq];
-          dsv[i] = sS[(ty * 4 + i) * PS + qq];
-        }
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const float o = sO[qq * S + tx + 16 * c];
-          const float qv = sQ[qq * S + tx + 16 * c];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            dv[i][c] = fmaf(pv[i], o, dv[i][c]);
-            dk[i][c] = fmaf(dsv[i], qv, dk[i][c]);
-          }
-        }
-      }
-    }
-  }
-
-  float* dkp = p.out0 + krow * r.D;
-  float* dvp = p.out1 + krow * r.D;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long key = k0 + ty * 4 + i;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int col = tx + 16 * c;
-      if (col >= r.D) continue;
-      const long long idx = key * r.D + col;
-      const float dkx = r.scale * dk[i][c];
-      dkp[idx] = r.first ? dkx : dkp[idx] + dkx;
-      dvp[idx] = r.first ? dv[i][c] : dvp[idx] + dv[i][c];
-    }
-  }
-}
-
 template <typename T, int DP>
 cudaError_t launch_fwd(const FwdParams& p, cudaStream_t stream) {
   constexpr int smem = fwd_smem_bytes<DP>();
@@ -480,28 +283,13 @@ cudaError_t launch_fwd(const FwdParams& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T, int DP>
+template <typename T>
 cudaError_t launch_bwd(const BwdParams& p, bool dkv, cudaStream_t stream) {
-  const void* fn = dkv ? (const void*)ring_bwd_dkv_kernel<T, DP>
-                       : (const void*)ring_bwd_dq_kernel<T, DP>;
-  const int smem = dkv ? dkv_smem_bytes<DP>() : dq_smem_bytes<DP>();
-  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  if (dkv) {
-    const dim3 grid(p.r.S / BK, p.r.Hkv, p.r.B);
-    ring_bwd_dkv_kernel<T, DP><<<grid, NTB, smem, stream>>>(p);
-  } else {
-    const dim3 grid(p.r.S / BQ, p.r.Hq, p.r.B);
-    ring_bwd_dq_kernel<T, DP><<<grid, NTB, smem, stream>>>(p);
+  if (p.D <= 64) return launch_dense<T, float, 64, true>(p, dkv, stream);
+  if constexpr (sizeof(T) == 2) {
+    if (p.D > 128) return launch_dense<T, float, 256, true>(p, dkv, stream);
   }
-  return cudaGetLastError();
-}
-
-bool valid(const RingStep& r, int dtype) {
-  const int tile = r.zigzag ? 2 * BQ : BQ;
-  return r.D >= 1 && r.D <= 128 && r.Hkv >= 1 && r.Hq % r.Hkv == 0 && r.S >= tile &&
-         r.S % tile == 0 && r.n >= 1 && r.my >= 0 && r.my < r.n && r.src >= 0 && r.src < r.n &&
-         (dtype == 0 || dtype == 1);
+  return launch_dense<T, float, 128, true>(p, dkv, stream);
 }
 
 }  // namespace
@@ -512,13 +300,18 @@ bool valid(const RingStep& r, int dtype) {
 #define UMFA_RING_STEP RingStep{B, Hq, Hkv, S, D, scale, causal, zigzag, n, my, src, first}
 
 // dtype codes: 0 = float32, 1 = bfloat16 (q, k, v and o). q and o
-// (B, Hq, S, D), k and v (B, Hkv, S, D), S the rank's chunk, contiguous;
-// lse (B, Hq, S) float32. o and lse are read (unless first) and written.
-// Returns the cudaError_t of the launch.
+// (B, Hq, S, D), k and v (B, Hkv, S, D), S the rank's chunk, contiguous,
+// D <= 128, S a multiple of 64 (of 128 with zigzag); lse (B, Hq, S)
+// float32. o and lse are read (unless first) and written. Returns the
+// cudaError_t of the launch.
 extern "C" int umfa_ring_fwd_step(const void* q, const void* k, const void* v, void* o,
                                   void* lse, int block_k, UMFA_RING_STEP_ARGS) {
   const RingStep r = UMFA_RING_STEP;
-  if (!valid(r, dtype) || block_k < BK || block_k % BK != 0 || S % block_k != 0)
+  const int tile = r.zigzag ? 2 * BQ : BQ;
+  const bool valid = r.D >= 1 && r.D <= 128 && r.Hkv >= 1 && r.Hq % r.Hkv == 0 && r.S >= tile &&
+                     r.S % tile == 0 && r.n >= 1 && r.my >= 0 && r.my < r.n && r.src >= 0 &&
+                     r.src < r.n && (dtype == 0 || dtype == 1);
+  if (!valid || block_k < BK || block_k % BK != 0 || S % block_k != 0)
     return cudaErrorInvalidValue;
   const FwdParams p{q, k, v, o, static_cast<float*>(lse), block_k, r};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -526,34 +319,62 @@ extern "C" int umfa_ring_fwd_step(const void* q, const void* k, const void* v, v
   return D <= 64 ? launch_fwd<__nv_bfloat16, 64>(p, st) : launch_fwd<__nv_bfloat16, 128>(p, st);
 }
 
-// q, dout (B, Hq, S, D) and k, v (B, Hkv, S, D) in dtype; lse, delta
-// (B, Hq, S) float32. umfa_ring_bwd_dq reads and writes out0 = dQ
-// (B, Hq, S, D); umfa_ring_bwd_dkv reads and writes out0 = dK and out1 = dV
-// (B, Hkv, S, D); all float32 (written, not read, when first). Each returns
-// the cudaError_t of its launch.
-#define UMFA_RING_BWD_ARGS                                                                 \
-  const void *q, const void *k, const void *v, const void *dout, const void *lse,         \
-      const void *delta, void *out0, void *out1, UMFA_RING_STEP_ARGS
+// q, dout (B, Hq, S, D) and k, v (B, Hkv, S, D) in dtype, contiguous, D <=
+// 256 for bfloat16 and <= 128 for float32; lse, delta (B, Hq, S) float32.
+// What the step sees, in local indices: the band (left, right; -1 =
+// unbounded), query rows from q_lo and keys below k_hi
+// (parallel/ring_pallas.py `_step_mask`). umfa_ring_bwd_dq folds dQ into
+// out0 (B, Hq, S, D); umfa_ring_bwd_dkv folds dK into out0 and dV into out1
+// (B, Hkv, S, D); all float32, written when first, else added to. Each
+// returns the cudaError_t of its launch.
+#define UMFA_RING_BWD_ARGS                                                                   \
+  const void *q, const void *k, const void *v, const void *dout, const void *lse,           \
+      const void *delta, void *out0, void *out1, int B, int Hq, int Hkv, int S, int D,      \
+      float scale, int left, int right, int q_lo, int k_hi, int first, int dtype, void *stream
 
 static int ring_bwd(UMFA_RING_BWD_ARGS, bool dkv) {
-  const RingStep r = UMFA_RING_STEP;
-  if (!valid(r, dtype) || (dkv && out1 == nullptr)) return cudaErrorInvalidValue;
-  const BwdParams p{q, k, v, dout, static_cast<const float*>(lse),
-                    static_cast<const float*>(delta), static_cast<float*>(out0),
-                    static_cast<float*>(out1), r};
+  if ((dtype != 0 && dtype != 1) || D < 1 || D > (dtype == 1 ? 256 : 128) || Hkv < 1 ||
+      Hq % Hkv != 0 || S < 1 || left < -1 || right < -1 || q_lo < 0 || q_lo > S || k_hi < 0 ||
+      k_hi > S || (dkv && out1 == nullptr))
+    return cudaErrorInvalidValue;
+  BwdParams p{};
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.dout = dout;
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<const float*>(delta);
+  p.out0 = out0;
+  p.out1 = out1;
+  p.B = B;
+  p.Hq = Hq;
+  p.Hkv = Hkv;
+  p.Sq = p.Sk = S;
+  p.D = D;
+  p.scale = scale;
+  p.left = left;
+  p.right = right;
+  p.q_lo = q_lo;
+  p.k_hi = k_hi;
+  p.first = first;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return D <= 64 ? launch_bwd<float, 64>(p, dkv, st) : launch_bwd<float, 128>(p, dkv, st);
-  return D <= 64 ? launch_bwd<__nv_bfloat16, 64>(p, dkv, st)
-                 : launch_bwd<__nv_bfloat16, 128>(p, dkv, st);
+  return dtype == 0 ? launch_bwd<float>(p, dkv, st) : launch_bwd<__nv_bfloat16>(p, dkv, st);
 }
 
 extern "C" int umfa_ring_bwd_dq(UMFA_RING_BWD_ARGS) {
-  return ring_bwd(q, k, v, dout, lse, delta, out0, out1, B, Hq, Hkv, S, D, scale, causal, zigzag,
-                  n, my, src, first, dtype, stream, false);
+  return ring_bwd(q, k, v, dout, lse, delta, out0, out1, B, Hq, Hkv, S, D, scale, left, right,
+                  q_lo, k_hi, first, dtype, stream, false);
 }
 
 extern "C" int umfa_ring_bwd_dkv(UMFA_RING_BWD_ARGS) {
-  return ring_bwd(q, k, v, dout, lse, delta, out0, out1, B, Hq, Hkv, S, D, scale, causal, zigzag,
-                  n, my, src, first, dtype, stream, true);
+  return ring_bwd(q, k, v, dout, lse, delta, out0, out1, B, Hq, Hkv, S, D, scale, left, right,
+                  q_lo, k_hi, first, dtype, stream, true);
+}
+
+// Dynamic shared memory of the ring backward's dQ (dkv = 0) or dK/dV
+// (dkv = 1) kernel for head dim D and dtype code dtype, in bytes (0 if it
+// does not take them).
+extern "C" int umfa_ring_bwd_smem_bytes(int D, int dkv, int dtype) {
+  if (dtype != 0 && dtype != 1) return 0;
+  return dense_smem_bytes(D, dkv, dtype);
 }

@@ -26,6 +26,13 @@ and step, and a transport of `parallel/transport.py` carries the hops.
     reference's A/B route instead: a ring of the dense backward
     (ops/flash_bwd.py, rows 2-3) with step biases (:1127-1158).
 
+The backward kernels are the dense backward's tensor-core bodies in ring
+mode: `_step_mask` reduces what a step sees by global position to their
+band mask plus a first visible query row and a key limit, in local
+indices, and they fold into the fp32 buffers. They take head_dim <= 256
+for bf16 and <= 128 for fp32; the forward kernel takes head_dim <= 128.
+Both need the local chunk a multiple of 64 (of 128 under zigzag).
+
 Rounding points held to the reference: the forward multiplies the fp32
 dot by scale (:321-326) and rounds P to V's type against the running max
 of block_k tiles, sums the unrounded P into l (:338-355), and stores o in
@@ -62,7 +69,13 @@ KERNEL_TILE = 64  # rows and keys of one tile of the CUDA kernels
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _STEP_ARGS = (_I,) * 5 + (ctypes.c_float,) + (_I,) * 7 + (_P,)
 _FWD_ARGTYPES = (_P,) * 5 + (_I,) + _STEP_ARGS
-_BWD_ARGTYPES = (_P,) * 8 + _STEP_ARGS
+# q, k, v, dout, lse, delta, out0, out1; B, Hq, Hkv, S, D; scale; left,
+# right, q_lo, k_hi, first, dtype; stream.
+_BWD_ARGTYPES = (_P,) * 8 + (_I,) * 5 + (ctypes.c_float,) + (_I,) * 6 + (_P,)
+# The largest head_dim each kernel takes, by dtype.
+_MAX_D = {"ring_fwd_step": {torch.float32: 128, torch.bfloat16: 128},
+          "ring_bwd_dkv": {torch.float32: 128, torch.bfloat16: 256},
+          "ring_bwd_dq": {torch.float32: 128, torch.bfloat16: 256}}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,6 +115,35 @@ class _Step(NamedTuple):
         qpos = _global_positions(self.my, self.n, s_loc, self.zigzag, device)
         kpos = _global_positions(self.src, self.n, s_loc, self.zigzag, device)
         return kpos[None, :] <= qpos[:, None]
+
+
+class StepMask(NamedTuple):
+    """What one ring step sees, in local indices: key j is visible to query
+    row i iff q_lo <= i, j < k_hi, j >= i - left (left >= 0) and
+    j <= i + right (right >= 0); -1 leaves a side of the band open."""
+
+    left: int
+    right: int
+    q_lo: int
+    k_hi: int
+
+
+def _step_mask(c: _Step, s_loc: int) -> StepMask:
+    """The backward kernels' view of step c, equal to `c.keep(s_loc)`. Local
+    positions increase with global ones inside a chunk (the two zigzag
+    halves sit in order), so the diagonal step is local causal. Between two
+    chunks, contiguous: the earlier chunk is wholly visible, the later one
+    wholly hidden; zigzag: src < my sees the first half of src's keys from
+    every row, src > my sees every key from the second half of my's rows."""
+    full = StepMask(-1, -1, 0, s_loc)
+    if not c.causal:
+        return full
+    if c.src == c.my:
+        return full._replace(right=0)
+    if not c.zigzag:
+        return full if c.src < c.my else full._replace(k_hi=0)
+    half = s_loc // 2
+    return full._replace(k_hi=half) if c.src < c.my else full._replace(q_lo=half)
 
 
 def _visible(ring, cfg: _Config, my: int, step: int) -> bool:
@@ -247,8 +289,9 @@ def _check_launch(kernel: str, tensors, q: torch.Tensor, k: torch.Tensor, c: _St
         raise ValueError(f"{kernel} kernel takes float32 or bfloat16 q/k/v, got {q.dtype}/{k.dtype}")
     b, hq, s_loc, d = q.shape
     hkv = k.shape[1]
-    if not 1 <= d <= 128:
-        raise ValueError(f"{kernel} kernel takes head_dim <= 128, got {d}")
+    max_d = _MAX_D[kernel][q.dtype]
+    if not 1 <= d <= max_d:
+        raise ValueError(f"{kernel} kernel takes head_dim <= {max_d} for {q.dtype}, got {d}")
     if hkv < 1 or hq % hkv:
         raise ValueError(f"q heads {hq} must be a multiple of kv heads {hkv}")
     tile = KERNEL_TILE * (2 if c.zigzag else 1)
@@ -290,10 +333,12 @@ def _launch_bwd(kernel: str, q, do, lse, delta, k, v, out0, out1, c: _Step) -> N
     if do.dtype != q.dtype or any(t.dtype != torch.float32 for t in (lse, delta, *outs)):
         raise ValueError(f"{kernel} kernel takes dO in q's type and fp32 lse, delta and outputs")
     fn = _kernels.function("ring_attn", f"umfa_{kernel}", _BWD_ARGTYPES)
+    b, hq, s_loc, d = q.shape
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
                  delta.data_ptr(), out0.data_ptr(), 0 if out1 is None else out1.data_ptr(),
-                 *_step_args(q, k, c))
+                 b, hq, k.shape[1], s_loc, d, c.scale, *_step_mask(c, s_loc), int(c.first),
+                 _DTYPE_CODE[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     _kernels.check("ring_attn", err, kernel)
 
 

@@ -1,6 +1,6 @@
 """Time the backward kernels of a source tree on the card.
 
-    python umfa_tpu_torch/utils/bwd_timing.py [--tree DIR] [--label NAME] [--wide | --fp32]
+    python umfa_tpu_torch/utils/bwd_timing.py [--tree DIR] [--label NAME] [--wide | --fp32 | --ring]
 
 Imports `umfa_tpu_torch` from DIR (default: the tree this file is in), so
 another tree, such as a parent commit unpacked with `git archive`, can be
@@ -15,9 +15,15 @@ D 64 each dense kernel's relerr against its plain version. With --fp32 it
 times only `flash_bwd_dq` and `flash_bwd_dkv` on fp32 inputs (what the
 int8-qdense recipe runs) at the training shape, D 64 and 128, each with its
 relerr against its plain version, beside the memory-efficient SDPA backward
-(dQ, dK and dV in one call) on the same fp32 inputs. Prints one JSON line
-per timing, then the card's name and power limit as nvidia-smi gives them.
-Needs a CUDA device.
+(dQ, dK and dV in one call) on the same fp32 inputs. With --ring it times
+only `ring_bwd_dkv` and `ring_bwd_dq` on one rank's step of the full-width
+ring (B8 Hq16 Hkv8, S_loc 1024 of S 4096 over 4 ranks, bf16; rank 3 against
+chunk 2, every pair visible; rank 3's diagonal step; zigzag rank 3 against
+chunk 1 and rank 1 against chunk 3, half of the pairs each) at D 64 and 128
+(and 256 with --wide), each with its relerr against its plain version, its
+flop and bound, then the whole ring backward (contiguous and zigzag causal,
+D 64) over LocalRing(4). Prints one JSON line per timing, then the card's
+name and power limit as nvidia-smi gives them. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -57,6 +63,8 @@ def main(argv=None) -> int:
     ap.add_argument("--wide", action="store_true", help="also time D 256")
     ap.add_argument("--fp32", action="store_true",
                     help="time only the dense dQ and dK/dV on fp32 inputs, beside the SDPA backward")
+    ap.add_argument("--ring", action="store_true",
+                    help="time only the ring backward kernels, on ring steps and the whole ring")
     args = ap.parse_args(argv)
     tree = os.path.abspath(args.tree)
     if sys.path and os.path.abspath(sys.path[0]) == here:
@@ -78,7 +86,8 @@ def main(argv=None) -> int:
         return 2
     if not _kernels.__file__.startswith(tree + os.sep):
         raise RuntimeError(f"imported {_kernels.__file__}, not the tree {tree}")
-    _kernels.build_all(("flash_fwd", "flash_bwd", "flash_dbias", "quant_bwd", "fused_qattn"))
+    _kernels.build_all(("ring_attn",) if args.ring else
+                       ("flash_fwd", "flash_bwd", "flash_dbias", "quant_bwd", "fused_qattn"))
 
     def emit(**kw):
         print(json.dumps({"tree": args.label, **kw}), flush=True)
@@ -91,6 +100,10 @@ def main(argv=None) -> int:
 
     if args.fp32:
         _time_fp32(randn, emit)
+        _print_card()
+        return 0
+    if args.ring:
+        _time_ring(randn, emit, args.wide)
         _print_card()
         return 0
 
@@ -182,6 +195,80 @@ def _time_fp32(randn, emit):
             fn, gqa = grads(kg, vg), "K and V expanded to the query heads"
         emit(kernel="sdpa_efficient_backward", dtype="float32", D=d, gqa=gqa, **_stats(fn))
         del q, k, v, out, lse, do, p, runs, qg, kg, vg, fn
+        torch.cuda.empty_cache()
+
+
+H100_BF16_FLOPS, H100_HBM_BYTES = 989e12, 3.35e12
+RING_N, RING_S_LOC = 4, 1024
+# name: (my, src, zigzag); all causal.
+RING_STEPS = {"full": (3, 2, False), "diagonal": (3, 3, False),
+              "zigzag_first_half_of_keys": (3, 1, True), "zigzag_second_half_of_rows": (1, 3, True)}
+
+
+def _time_ring(randn, emit, wide):
+    """The ring backward kernels on the steps of RING_STEPS, then the whole
+    ring backward. A head dim a tree's kernels refuse is printed as such."""
+    import torch
+
+    from umfa_tpu_torch.parallel import LocalRing
+    from umfa_tpu_torch.parallel import ring_pallas as rp
+    from umfa_tpu_torch.utils.testing import rel_err
+
+    s_loc, n = RING_S_LOC, RING_N
+    for d in (64, 128, 256) if wide else (64, 128):
+        scale = d**-0.5
+        q, do = randn((B, HQ, s_loc, d)), randn((B, HQ, s_loc, d))
+        k, v = randn((B, HKV, s_loc, d)), randn((B, HKV, s_loc, d))
+        s = torch.matmul(rp._fold(q.float() * scale, HKV), k.float().transpose(-1, -2))
+        lse = s.reshape(B, HQ, s_loc, s_loc).logsumexp(-1)  # finite on every row
+        delta = randn((B, HQ, s_loc), torch.float32)
+        del s
+        dk, dv, dq = (torch.zeros(x.shape, device=q.device) for x in (k, v, q))
+        for step, (my, src, zigzag) in RING_STEPS.items():
+            c = rp._Step(n, my, src, my == src, True, zigzag, scale, 512)
+            pairs = B * HQ * int(c.keep(s_loc, q.device).sum())
+            reads = 2 * (q.numel() + k.numel() + v.numel() + do.numel()) + 4 * 2 * lse.numel()
+            runs = {
+                "ring_bwd_dkv": (lambda: rp.ring_bwd_dkv(q, do, lse, delta, k, v, dk, dv, c),
+                                 lambda: rp._dkv_plain(q, do, lse, delta, k, v, dk, dv, c),
+                                 (dk, dv), 8),
+                "ring_bwd_dq": (lambda: rp.ring_bwd_dq(q, do, lse, delta, k, v, dq, c),
+                                lambda: rp._dq_plain(q, do, lse, delta, k, v, dq, c), (dq,), 6),
+            }
+            for name, (kern, plain, outs, flop_per_pair) in runs.items():
+                try:
+                    kern()
+                except ValueError as e:
+                    emit(kernel=name, step=step, D=d, refused=str(e))
+                    continue
+                got = [x.clone() for x in outs]
+                for x in outs:
+                    x.zero_()
+                plain()
+                # Both folded the step into zeroed buffers (or wrote them).
+                err = max(rel_err(x, y) for x, y in zip(got, outs))
+                flops = flop_per_pair * d * pairs
+                nbytes = reads + 2 * 4 * sum(x.numel() for x in outs)  # read and written
+                st = _stats(kern)
+                emit(kernel=name, step=step, D=d, **st, relerr=err, flops=flops,
+                     tflops=flops / st["ms"] / 1e9,
+                     bound_ms=max(flops / H100_BF16_FLOPS, nbytes / H100_HBM_BYTES) * 1e3)
+                for x in outs:
+                    x.zero_()
+                del got
+        del q, do, k, v, lse, delta, dk, dv, dq
+        torch.cuda.empty_cache()
+
+    s, d = n * s_loc, 64
+    q, do = randn((B, HQ, s, d)), randn((B, HQ, s, d))
+    k, v = randn((B, HKV, s, d)), randn((B, HKV, s, d))
+    dlse = randn((B, HQ, s), torch.float32)
+    for layout, zigzag in (("causal", False), ("zigzag", True)):
+        cfg = rp._config(s_loc, True, zigzag, d**-0.5, None)
+        out, lse = rp._ring_fwd(q, k, v, LocalRing(n), cfg)
+        emit(kernel="ring_backward", layout=layout, D=d, **_stats(
+            lambda: rp._ring_bwd(q, k, v, out, lse, do, dlse, LocalRing(n), cfg), iters=5))
+        del out, lse
         torch.cuda.empty_cache()
 
 
