@@ -9,9 +9,11 @@ Phases, one JSON line each:
      `umfa_tpu_torch/csrc/`, one nvcc each, all at once; then the
      tensor-core kernels (the bf16 kernels of `flash_fwd`, `flash_bwd_dq`,
      `flash_bwd_dkv` and `flash_dbias`; `quant_attn_fwd`, `fused_qattn`,
-     `quant_bwd_dq`, `quant_bwd_dkv`; the fp32 dQ and dK/dV; `ring_bwd_dq`,
-     `ring_bwd_dkv`): their HMMA instructions (TF32 ones in the fp32
-     instantiations of the dense and ring backward), and for
+     `quant_bwd_dq`, `quant_bwd_dkv`; the fp32 `flash_fwd`, dQ and dK/dV;
+     `ring_fwd_step`, `ring_bwd_dq`, `ring_bwd_dkv`): their HMMA
+     instructions (TF32 ones in the fp32 instantiations of the dense
+     forward and backward and of the ring kernels; no CUDA-core kernel left
+     in `ring_attn`, and in `flash_fwd` only the fp32 D 256 one), and for
      `quant_attn_fwd` also its IMMA (int8) ones, for `fused_qattn` its
      DMMA (f64) ones, counted in the SASS (cuobjdump; none fails the run),
      their registers and spills (ptxas) and dynamic shared memory at
@@ -26,9 +28,9 @@ Phases, one JSON line each:
      together) and share of the bound, `quant_attn_fwd`'s worst abs error
      there held to 1e-5, and, for the dense kernel, torch's
      scaled_dot_product_attention (a yardstick only; the port never calls
-     it); the fp32 inputs' CUDA-core `flash_fwd` at the same shape beside its
-     plain version, its 3xTF32 floor and the memory-efficient SDPA forward
-     on the same fp32 inputs;
+     it); the fp32 inputs' `flash_fwd` (3xTF32 on the tensor cores) at the
+     same shape beside its plain version, its 3xTF32 floor and the
+     memory-efficient SDPA forward on the same fp32 inputs;
   4. backward kernels (dQ, dK/dV, dbias) against their plain versions at
      the training head geometry (batch 2, causal 1024, odd 777 x 1000,
      window (128, 0), full and shared biases, fully masked rows, a nonzero
@@ -108,8 +110,10 @@ Phases, one JSON line each:
      plain versions at B2, Hq16/Hkv8 and Hq = Hkv = 8, S 1024 over 4 and 2
      ranks, D 64/128, fp32 and bf16, contiguous causal, zigzag causal and
      non-causal, the backward with a nonzero dlse (forward fp32 2e-5 / LSE
-     1e-5, bf16 1e-2 / 1e-3; backward fp32 1e-4, bf16 2e-2); the kernel
-     backward against the UMFA_RING_BWD=jnp route (fp32 2e-5);
+     1e-5, bf16 1e-2 / 1e-3; backward fp32 1e-4, bf16 2e-2); then S 384
+     over 4 ranks (a local chunk of 96, zigzag halves of 48), fp32 and bf16,
+     and bf16 D 256, contiguous and zigzag causal, at the same gates; the
+     kernel backward against the UMFA_RING_BWD=jnp route (fp32 2e-5);
  12. the one-device self-loop checks at the reference's defaults (B1 H2
      S1024 D128 bf16; n_steps 4 causal and 3 non-causal), each with one
      launch of each ring kernel and n_steps - 1 hops per buffer;
@@ -120,7 +124,8 @@ Phases, one JSON line each:
      gradients 2e-2), with exact launch counts (10 / 16 of each ring
      kernel, no other kernel) and hops (forward 6 / 12; backward 12 K/V,
      12 dK/dV, 4 homing); each ring kernel timed on one rank's chunk beside
-     its plain version and its bound; the whole ring beside the port's
+     its plain version and its bound (`ring_fwd_step` also on fp32 inputs,
+     beside its 3xTF32 floor); the whole ring beside the port's
      flash kernels and SDPA on the unsharded sequence (yardsticks only);
      one hop's copy time, and from a torch.profiler trace how much of the
      hops' copy time ran under ring kernels;
@@ -400,7 +405,7 @@ def phase_kernels(record):
         lambda: F.scaled_dot_product_attention(q, kl, vl, is_causal=True, **gqa))
     timing["flash_fwd"]["check"] = res
     del kl, vl
-    # fp32 inputs take the CUDA-core kernel: its line at the same shape.
+    # fp32 inputs take the 3xTF32 instantiation: its line at the same shape.
     # Bound: the 3xTF32 floor (three TF32 products for each fp32 one at the
     # TF32 peak; the dense backward's fp32 lines use it too), with the fp32
     # CUDA-core time of the same flop beside it; yardstick: the
@@ -1908,7 +1913,8 @@ def phase_ring_kernels(record):
     versions, both on the card over LocalRing, at B2, Hq16/Hkv8 and Hq =
     Hkv = 8, S 1024 over 4 and 2 ranks, D 64 and 128, fp32 and bf16,
     contiguous causal, zigzag causal and non-causal, the backward with a
-    nonzero dlse; then the two backward routes against each other."""
+    nonzero dlse; a local chunk of 96 and bf16 D 256 over 4 ranks; then the
+    two backward routes against each other."""
     import torch
 
     from umfa_tpu_torch.parallel import LocalRing, ring_flash_attention_pallas
@@ -1955,6 +1961,35 @@ def phase_ring_kernels(record):
                         worst["ring_bwd_dq"] = max(worst["ring_bwd_dq"], abs_err[1])
                         worst["ring_bwd_dkv"] = max(worst["ring_bwd_dkv"], *abs_err[2:])
                         results.append(res)
+    # A local chunk of 96 rows (zigzag halves of 48: ragged tiles) and bf16
+    # D 256, contiguous and zigzag causal, over 4 ranks.
+    extra = [(384, 64, dtype, layout) for dtype in (torch.float32, torch.bfloat16)
+             for layout in ("causal", "zigzag")]
+    extra += [(1024, 256, torch.bfloat16, layout) for layout in ("causal", "zigzag")]
+    for seq, d, dtype, layout in extra:
+        causal, zigzag = RING_LAYOUTS[layout]
+        shapes = ((B_CHECK, HQ, seq, d), (B_CHECK, HKV, seq, d), (B_CHECK, HKV, seq, d),
+                  (B_CHECK, HQ, seq, d))
+        q, k, v, do = (torch.randn(s, generator=gen).to(dev, dtype) for s in shapes)
+        dlse = torch.randn((B_CHECK, HQ, seq), generator=gen).to(dev)
+        cfg = rp._config(seq // 4, causal, zigzag, d**-0.5, None)
+        out, lse = rp._ring_fwd(q, k, v, LocalRing(4), cfg)
+        grads = rp._ring_bwd(q, k, v, out, lse, do, dlse, LocalRing(4), cfg)
+        torch.cuda.synchronize()
+        want, want_lse = rp._ring_fwd(q, k, v, LocalRing(4), cfg, plain=True)
+        want_grads = rp._ring_bwd(q, k, v, out, lse, do, dlse, LocalRing(4), cfg, plain=True)
+        res = {"case": f"Hq{HQ} Hkv{HKV} n4 S_loc{seq // 4} D{d} {layout} {str(dtype)[6:]}",
+               "relerr_out": rel_err(out, want),
+               "max_abs_lse": float((lse - want_lse).abs().max()),
+               "finite": all(torch_isfinite(t) for t in (out, lse, *grads))}
+        for g, x, y in zip(("dq", "dk", "dv"), grads, want_grads):
+            res[f"relerr_{g}"] = rel_err(x, y)
+        rtol, ltol = fwd_tol[dtype]
+        res["ok"] = (res["finite"] and res["relerr_out"] <= rtol and res["max_abs_lse"] <= ltol
+                     and all(res[f"relerr_{g}"] <= bwd_tol[dtype] for g in ("dq", "dk", "dv")))
+        worst["ring_fwd_step"] = max(worst["ring_fwd_step"],
+                                     float((out.float() - want.float()).abs().max()))
+        results.append(res)
     record["ring_kernel_checks"] = results
     summary = {"phase": "ring_kernel_check", "cases": len(results),
                "gates": "fwd fp32 2e-5 (LSE 1e-5), bf16 1e-2 (LSE 1e-3); bwd fp32 1e-4, bf16 2e-2",
@@ -2023,10 +2058,10 @@ def phase_ring_selfloop(record):
     record["ring_selfloop"] = out
 
 
-# The ring's kernels by the names the trace gives them: the forward step's,
-# and the backward step's tensor-core bodies (no other kernel of these names
+# The ring's kernels by the names the trace gives them: the tensor-core
+# bodies of the forward and backward steps (no other kernel of these names
 # runs while the ring is driven).
-RING_TRACE_KERNELS = ("ring_fwd_step_kernel", "dkv_tc_kernel", "dq_tc_kernel")
+RING_TRACE_KERNELS = ("fwd_tc_kernel", "dkv_tc_kernel", "dq_tc_kernel")
 
 
 def cuda_trace_overlap(fn, path):
@@ -2164,6 +2199,7 @@ def phase_ring_full(record):
     diag = rp._Step(n, 3, 3, True, True, False, scale, cfg.block_k)
     o3, l3 = torch.empty_like(q3), torch.empty(lse3.shape, device=dev)
     rp.ring_fwd_step(q3, k3, v3, o3, l3, diag)
+    q3f, k2f, v2f, o3f = q3.float(), k2.float(), v2.float(), o3.float()
     dk, dv, dq = (torch.zeros(x.shape, device=dev) for x in (k2, v2, q3))
     pairs_full = b * HQ * s_loc * s_loc
     pairs_diag = b * HQ * s_loc * (s_loc + 1) // 2
@@ -2178,6 +2214,11 @@ def phase_ring_full(record):
                                    lambda: rp._fwd_step_plain(q3, k3, v3, o3, l3, diag),
                                    4 * D * pairs_diag, qkv_bytes + 2 * o3.numel() + 4 * l3.numel(),
                                    (o3, l3), 1e-2),
+        "ring_fwd_step_fp32": (lambda: rp.ring_fwd_step(q3f, k2f, v2f, o3f, l3, full),
+                               lambda: rp._fwd_step_plain(q3f, k2f, v2f, o3f, l3, full),
+                               4 * D * pairs_full,
+                               2 * qkv_bytes + 2 * 4 * o3f.numel() + 2 * 4 * l3.numel(),
+                               (o3f, l3), 2e-5),
         "ring_bwd_dkv": (lambda: rp.ring_bwd_dkv(q3, do3, lse3, delta3, k2, v2, dk, dv, full),
                          lambda: rp._dkv_plain(q3, do3, lse3, delta3, k2, v2, dk, dv, full),
                          8 * D * pairs_full, bwd_reads + 2 * 4 * (dk.numel() + dv.numel()),
@@ -2188,6 +2229,7 @@ def phase_ring_full(record):
     }
     timing = {}
     for name, (kern, plain, flops, nbytes, outs, gate) in kernels.items():
+        fp32 = name.endswith("_fp32")
         start = [x.clone() for x in outs]
         kern()
         got = [x.clone() for x in outs]
@@ -2195,15 +2237,18 @@ def phase_ring_full(record):
             x.copy_(y)
         plain()
         check = max(rel_err(x, y) for x, y in zip(got, outs))
-        t = dict(ms=cuda_ms(kern), plain_ms=cuda_ms(plain, iters=3, warmup=1),
-                 flops=flops, bytes=nbytes, ops_ms=flops / H100_BF16_FLOPS * 1e3,
+        # fp32: the 3xTF32 floor, three TF32 products for each fp32 one.
+        ops_ms = (3 * flops / H100_TF32_FLOPS if fp32 else flops / H100_BF16_FLOPS) * 1e3
+        t = dict(**cuda_stats(kern), plain_ms=cuda_ms(plain, iters=3, warmup=1),
+                 flops=flops, bytes=nbytes, ops_ms=ops_ms,
                  bytes_ms=nbytes / H100_HBM_BYTES * 1e3, relerr_vs_plain=check, gate=gate,
                  library_ms=None,
                  library=("none: no single PyTorch call attends one chunk by global "
                           "positions and merges into (o, lse)"))
         bound(t)
         emit({"phase": "kernel_timing", "kernel": name,
-              "shape": f"B{b} Hq{HQ} Hkv{HKV} S_loc{s_loc} D{D} bf16, rank 3 of {n}", **t})
+              "shape": f"B{b} Hq{HQ} Hkv{HKV} S_loc{s_loc} D{D} {'fp32' if fp32 else 'bf16'}, "
+                       f"rank 3 of {n}", **t})
         timing[name] = t
         if check > gate:
             raise AssertionError(f"{name} disagrees with its plain version at full width: {check}")
@@ -2303,20 +2348,24 @@ def phase_mma_probe(record):
 
 
 # The tensor-core kernels: library -> the stems of their function names.
-TC_KERNELS = {"flash_fwd": ("flash_fwd_tc_kernel",), "flash_bwd": ("dq_tc_kernel", "dkv_tc_kernel"),
+TC_KERNELS = {"flash_fwd": ("fwd_tc_kernel",), "flash_bwd": ("dq_tc_kernel", "dkv_tc_kernel"),
               "flash_dbias": ("dbias_tc_kernel",), "quant_bwd": ("dq_tc_kernel", "dkv_tc_kernel"),
               "quant_attn_fwd": ("quant_attn_fwd_tc_kernel",),
               "fused_qattn": ("fused_qattn_tc_kernel",),
-              "ring_attn": ("dq_tc_kernel", "dkv_tc_kernel")}
+              "ring_attn": ("fwd_tc_kernel", "dq_tc_kernel", "dkv_tc_kernel")}
 # The tensor-core instructions (SASS mnemonics) each library's kernels must
 # hold: HMMA for bf16 (and tf32) mma.sync, IMMA for int8, DMMA for f64.
 TC_OPS = {"quant_attn_fwd": ("HMMA", "IMMA"), "fused_qattn": ("DMMA", "HMMA")}
-# The fp32 dense backward and the fp32 ring backward step: their 3xTF32
-# instantiations (product policy Tf32x3Mma) must hold TF32 HMMA, and the
-# CUDA-core kernels they replaced must be gone.
+# The fp32 dense forward and backward and the fp32 ring steps: their 3xTF32
+# instantiations (product policy Tf32x3Mma) of every stem must hold TF32
+# HMMA, and the CUDA-core kernels they replaced must be gone, but for the
+# one exception: `flash_fwd_kernel` at D 256 (fp32 inputs of head dim
+# 129-256, which the 3xTF32 body does not take).
 TF32_POLICY, TF32_HMMA = "Tf32x3Mma", "HMMA.1688.F32.TF32"
-SIMT_BWD_GONE = {"flash_bwd": ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"),
-                 "ring_attn": ("ring_bwd_dq_kernel", "ring_bwd_dkv_kernel")}
+TF32_LIBS = ("flash_fwd", "flash_bwd", "ring_attn")
+SIMT_GONE = {"flash_bwd": ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"),
+             "ring_attn": ("ring_fwd_step_kernel", "ring_bwd_dq_kernel", "ring_bwd_dkv_kernel")}
+SIMT_KEPT = {"flash_fwd": ("flash_fwd_kernel", "Li256E")}  # (stem, its one template argument)
 
 
 def ptxas_resources(log):
@@ -2343,8 +2392,9 @@ def phase_sass(record, report):
     """Count the HMMA (or, per TC_OPS, IMMA and DMMA) tensor-core instructions of
     each tensor-core kernel in its library's SASS (cuobjdump -sass); raise
     if a kernel has none of one of them, if an fp32 (3xTF32) instantiation
-    of the dense or ring backward has no TF32 HMMA, or if a CUDA-core
-    dense or ring backward kernel is left.
+    of the dense forward or backward or of a ring kernel has no TF32 HMMA,
+    or if a CUDA-core kernel that a tensor-core one replaced is left (in
+    `flash_fwd` the fp32 D 256 one alone stays).
     With each kernel its registers and spills (ptxas -v, when this run built
     the library) and the dynamic shared memory it launches with."""
     import ctypes
@@ -2354,7 +2404,7 @@ def phase_sass(record, report):
 
     from umfa_tpu_torch import _kernels
 
-    kernels, smem = {}, {}
+    kernels, smem, simt_kept = {}, {}, []
     for lib, stems in TC_KERNELS.items():
         sass = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass",
                                str(_kernels._lib_path(lib))],
@@ -2364,7 +2414,13 @@ def phase_sass(record, report):
         for ln in sass.splitlines():
             m = re.search(r"Function : (\S+)", ln)
             if m:
-                left = [k for k in SIMT_BWD_GONE.get(lib, ()) if k in m.group(1)]
+                left = [k for k in SIMT_GONE.get(lib, ()) if k in m.group(1)]
+                kept = SIMT_KEPT.get(lib)
+                if kept and kept[0] in m.group(1):
+                    if kept[1] not in m.group(1):
+                        left.append(m.group(1))
+                    else:
+                        simt_kept.append(f"{lib}:{m.group(1)}")
                 if left:
                     raise AssertionError(f"{lib} still holds the CUDA-core {left[0]}")
                 stem = next((st for st in stems if st in m.group(1)), None)
@@ -2385,9 +2441,10 @@ def phase_sass(record, report):
                 if not found or any(kernels[f][op.lower()] == 0 for f in found):
                     raise AssertionError(f"no {op} in the SASS of {lib}'s {stem}: "
                                          f"{ {f: kernels[f][op.lower()] for f in found} }")
-        if lib in SIMT_BWD_GONE:
+        if lib in TF32_LIBS:
             for stem in stems:
-                found = [f for f in kernels if kernels[f]["stem"] == stem and "hmma_tf32" in kernels[f]]
+                found = [f for f in kernels if kernels[f]["library"] == lib
+                         and kernels[f]["stem"] == stem and "hmma_tf32" in kernels[f]]
                 if not found or any(kernels[f]["hmma_tf32"] == 0 for f in found):
                     raise AssertionError(f"no {TF32_HMMA} in the fp32 {stem} of {lib}: "
                                          f"{ {f: kernels[f].get('hmma_tf32') for f in found} }")
@@ -2404,6 +2461,7 @@ def phase_sass(record, report):
     fq = _kernels.function("fused_qattn", "umfa_fused_qattn_smem_bytes", (ctypes.c_int,))
     rbwd = _kernels.function("ring_attn", "umfa_ring_bwd_smem_bytes",
                              (ctypes.c_int, ctypes.c_int, ctypes.c_int))
+    rfwd = _kernels.function("ring_attn", "umfa_ring_fwd_smem_bytes", (ctypes.c_int, ctypes.c_int))
     for d in (64, 128, 256):
         smem[f"flash_fwd bf16 D{d}"] = fwd(d, 1)
         smem[f"flash_fwd fp32 D{d}"] = fwd(d, 0)
@@ -2413,23 +2471,37 @@ def phase_sass(record, report):
         smem[f"quant_bwd_dq D{d}"] = qbwd(d, 0)
         smem[f"quant_bwd_dkv D{d}"] = qbwd(d, 1)
         smem[f"quant_attn_fwd D{d}"] = qfwd(d)
+        smem[f"ring_fwd_step bf16 D{d}"] = rfwd(d, 1)
         smem[f"ring_bwd_dq bf16 D{d}"] = rbwd(d, 0, 1)
         smem[f"ring_bwd_dkv bf16 D{d}"] = rbwd(d, 1, 1)
         if d <= 128:
+            smem[f"ring_fwd_step fp32 D{d}"] = rfwd(d, 0)
             smem[f"ring_bwd_dq fp32 D{d}"] = rbwd(d, 0, 0)
             smem[f"ring_bwd_dkv fp32 D{d}"] = rbwd(d, 1, 0)
             smem[f"flash_bwd_dq fp32 D{d}"] = fbwd(d, 0, 0)
             smem[f"flash_bwd_dkv fp32 D{d}"] = fbwd(d, 1, 0)
             smem[f"fused_qattn D{d}"] = fq(d)
-    out = {"kernels": kernels, "dynamic_smem_bytes": smem}
+    if len(simt_kept) != 2:  # flash_fwd_kernel<float|bf16 out, 256>
+        raise AssertionError(f"the CUDA-core fp32 D 256 forward: expected 2 instantiations, "
+                             f"got {simt_kept}")
+    out = {"kernels": kernels, "dynamic_smem_bytes": smem,
+           "cuda_core_exception": {"kernels": simt_kept,
+                                   "why": "fp32 flash_fwd at head dim 129-256, which the 3xTF32 "
+                                          "body does not take"}}
     emit({"phase": "sass", **out})
     record["sass"] = out
 
 
 DESIGN = {
-    "flash_fwd": "bf16 inputs: tensor cores, mma.sync m16n8k16 bf16->fp32 (4 warps x 16 query "
-                 "rows, Q fragments in registers, K/V 64-key tiles double-buffered by cp.async, "
-                 "P from the S accumulators); fp32/fp16 inputs: CUDA cores, FP32 FMAs",
+    "flash_fwd": "tensor cores, the forward body of csrc/fwd_tc.cuh (fwd_tc_kernel: 4 warps x "
+                 "16 query rows, K/V tiles double-buffered by cp.async, a K-only pre-pass over "
+                 "the first 512 keys seeding the running max, P from the S accumulators); bf16 "
+                 "inputs: mma.sync m16n8k16 bf16->fp32, Q fragments in registers, 64-key tiles, "
+                 "D <= 256; fp32/fp16 inputs: 3xTF32 (each operand split into tf32 big and small "
+                 "parts, three mma.sync m16n8k8 tf32->fp32 a product, big·big and the small "
+                 "products in separate score accumulators, each tile's P·V added by an fp32 "
+                 "add, P's keys permuted inside each 8-key step so the accumulators are the A "
+                 "fragment), 32-key fp32 tiles, D <= 128; fp32 D 129-256: CUDA cores, FP32 FMAs",
     "flash_bwd_dq": "tensor cores, the dQ body of quant_bwd_dq (csrc/bwd_tc.cuh dq_tc_kernel) "
                     "with a dense load stage (4 warps x 16 query rows, q·scale and dO staged "
                     "once, K/V key tiles copied by cp.async two steps ahead into three padded "
@@ -2474,6 +2546,13 @@ DESIGN = {
                    "step ahead, K to fp32, V to bf16; two passes: QKᵀ alone for the exact row "
                    "max, then P·V); the means, K/V quantize and cc-row kernels on the CUDA cores",
     "quant_rows": "CUDA cores: one warp a row, elementwise",
+    "ring_fwd_step": "tensor cores, the forward body of flash_fwd (csrc/fwd_tc.cuh fwd_tc_kernel) "
+                     "in ring mode: the step's global-position mask reduced on the host to the "
+                     "band plus a first visible query row and a key limit, hidden tiles skipped; "
+                     "for each block_k group of keys a K-only pre-pass for the group's row max, "
+                     "then P (rounded to V's type against it) and P·V; merged into (o, lse) by "
+                     "their one owner; bf16 inputs mma.sync m16n8k16 bf16->fp32, D <= 256; fp32 "
+                     "3xTF32, D <= 128",
     "ring_bwd_dkv": "tensor cores, the dK/dV body of flash_bwd_dkv (csrc/bwd_tc.cuh "
                     "dkv_tc_kernel with the dense load stages of csrc/bwd_dense.cuh) in ring "
                     "mode: the step's global-position mask reduced on the host to the band plus "

@@ -101,8 +101,8 @@ FLASH_CASES = [
 ]
 
 
-# bf16 runs the tensor-core kernel, fp32 and fp16 the CUDA-core one; both
-# count as one `flash_fwd` launch.
+# bf16 runs the tensor-core body in bf16, fp32 and fp16 in 3xTF32 (D <= 128)
+# or the CUDA-core kernel (D 256); each counts as one `flash_fwd` launch.
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("case", FLASH_CASES)
 def test_flash_fwd_kernel_matches_plain(dev, dtype, case):
@@ -131,6 +131,30 @@ def test_flash_fwd_kernel_bf16_in_fp32_out(dev, d):
     want, want_lse = flash_attention_forward_plain(q, k, v, causal=True, out_dtype=torch.float32)
     assert out.dtype == torch.float32
     _check(out, lse, want, want_lse, 1e-2, 1e-3)
+
+
+# The fp32 forward (3xTF32 on the tensor cores at D <= 128) as accurate as
+# fp32 FMAs in another order: 5e-6 against the plain version at causal S
+# 1024 with q ~ N(0, 3), a quarter of the gate, as the fp32 backward is held
+# (test_flash_bwd_fp32_keeps_highest_accuracy); D 256 runs the CUDA-core
+# kernel.
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_fwd_fp32_keeps_highest_accuracy(dev, d):
+    q, k, v = _qkv(2, 4, 4, 1024, 1024, d, torch.float32, dev)
+    q = q * 3.0
+    out, lse = flash_attention_forward(q, k, v, causal=True)
+    want, want_lse = flash_attention_forward_plain(q, k, v, causal=True)
+    _check(out, lse, want, want_lse, 5e-6, 1e-5)
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 64), (torch.float32, 128),
+                                     (torch.bfloat16, 64)])
+def test_flash_fwd_kernel_is_deterministic(dev, dtype, d):
+    q, k, v = _qkv(2, 4, 2, 300, 300, d, dtype, dev)
+    first = flash_attention_forward(q, k, v, causal=True)
+    second = flash_attention_forward(q, k, v, causal=True)
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
 
 
 def test_flash_fwd_kernel_refuses_what_it_does_not_take(dev):
@@ -1000,18 +1024,99 @@ def test_ring_bwd_kernels_are_deterministic(dev, dtype):
         assert torch.equal(x, y)
 
 
+# The ring forward (the tensor-core body of csrc/fwd_tc.cuh in ring mode) as
+# accurate in fp32 as the ring backward: 5e-6 against its plain version at
+# causal S 1024, q ~ N(0, 3), LSE 1e-5.
+@pytest.mark.parametrize("zigzag", [False, True])
+@pytest.mark.parametrize("d", [64, 128])
+def test_ring_fwd_fp32_keeps_highest_accuracy(dev, d, zigzag):
+    q, k, v, _, _ = _ring_inputs(4, 4, d, torch.float32, dev)
+    q = q * 3.0
+    cfg = rp._config(256, True, zigzag, d**-0.5, None)
+    out, lse = rp._ring_fwd(q, k, v, LocalRing(4), cfg)
+    want, want_lse = rp._ring_fwd(q, k, v, LocalRing(4), cfg, plain=True)
+    assert rel_err(out, want) <= 5e-6
+    assert (lse - want_lse).abs().max().item() <= 1e-5
+
+
+# bf16 D 256 through the public entry point, forward and backward, against
+# the ring of plain versions (the parent's forward refused D > 128).
+@pytest.mark.parametrize("zigzag", [False, True])
+def test_ring_takes_bf16_head_dim_256(dev, zigzag):
+    q, k, v, do, dlse = _ring_inputs(16, 8, 256, torch.bfloat16, dev)
+    cfg = rp._config(256, True, zigzag, 256**-0.5, None)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    before = dict(_kernels.launches)
+    out, lse = rp.ring_flash_attention_pallas(*leaves, ring=LocalRing(4), causal=True,
+                                              zigzag=zigzag, return_lse=True)
+    ((out.float() * do.float()).sum() + (lse * dlse).sum()).backward()
+    torch.cuda.synchronize()
+    steps = 16 if zigzag else 10
+    for name in ("ring_fwd_step", "ring_bwd_dkv", "ring_bwd_dq"):
+        assert _kernels.launches[name] == before.get(name, 0) + steps
+    want, want_lse = rp._ring_fwd(q, k, v, LocalRing(4), cfg, plain=True)
+    rtol, ltol = RING_FWD_TOLS[torch.bfloat16]
+    assert rel_err(out, want) <= rtol and (lse - want_lse).abs().max().item() <= ltol
+    want_grads = rp._ring_bwd(q, k, v, out.detach(), lse.detach(), do, dlse, LocalRing(4), cfg,
+                              plain=True)
+    for x, y in zip(leaves, want_grads):
+        assert torch.isfinite(x.grad).all()
+        assert rel_err(x.grad, y) <= RING_BWD_TOLS[torch.bfloat16]
+
+
+# A local chunk of 96 rows (S 384 over 4 ranks), contiguous and zigzag (halves
+# of 48): the three ring kernels take the ragged tiles, at the file's gates.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["causal", "zigzag"])
+def test_ring_kernels_take_a_local_chunk_of_96(dev, dtype, layout):
+    causal, zigzag = RING_LAYOUTS[layout]
+    q, k, v, do, dlse = _ring_inputs(16, 8, 64, dtype, dev, seq=384)
+    cfg = rp._config(96, causal, zigzag, 0.125, None)
+    before = dict(_kernels.launches)
+    out, lse = rp._ring_fwd(q, k, v, LocalRing(4), cfg)
+    grads = rp._ring_bwd(q, k, v, out, lse, do, dlse, LocalRing(4), cfg)
+    torch.cuda.synchronize()
+    for name in ("ring_fwd_step", "ring_bwd_dkv", "ring_bwd_dq"):
+        assert _kernels.launches[name] == before.get(name, 0) + (10 if layout == "causal" else 16)
+    want, want_lse = rp._ring_fwd(q, k, v, LocalRing(4), cfg, plain=True)
+    rtol, ltol = RING_FWD_TOLS[dtype]
+    assert torch.isfinite(out).all() and rel_err(out, want) <= rtol
+    assert (lse - want_lse).abs().max().item() <= ltol
+    want_grads = rp._ring_bwd(q, k, v, out, lse, do, dlse, LocalRing(4), cfg, plain=True)
+    for got, ref in zip(grads, want_grads):
+        assert torch.isfinite(got).all() and rel_err(got, ref) <= RING_BWD_TOLS[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("zigzag", [False, True])
+def test_ring_fwd_kernel_is_deterministic(dev, dtype, zigzag):
+    q, k, v, _, _ = _ring_inputs(16, 8, 64, dtype, dev)
+    cfg = rp._config(256, True, zigzag, 0.125, None)
+    first = rp._ring_fwd(q, k, v, LocalRing(4), cfg)
+    second = rp._ring_fwd(q, k, v, LocalRing(4), cfg)
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
 def test_ring_kernels_refuse_what_they_do_not_take(dev):
+    # The forward: fp32 up to head_dim 128, bf16 up to 256.
     with pytest.raises(ValueError, match="head_dim <= 128"):
         q, k, v, _, _ = _ring_inputs(2, 2, 160, torch.float32, dev, seq=512)
         rp.ring_flash_attention_pallas(q, k, v, ring=LocalRing(4))
-    q, k, v, _, _ = _ring_inputs(2, 2, 64, torch.float32, dev, seq=384)
-    with pytest.raises(ValueError, match="multiple of 64"):  # S_loc 96
+    with pytest.raises(ValueError, match="head_dim <= 256"):
+        q, k, v, _, _ = _ring_inputs(2, 2, 320, torch.bfloat16, dev, seq=512)
         rp.ring_flash_attention_pallas(q, k, v, ring=LocalRing(4))
-    q, k, v, _, _ = _ring_inputs(2, 2, 64, torch.float32, dev, seq=256)
-    with pytest.raises(ValueError, match="multiple of 128"):  # zigzag halves of 32 rows
+    # A local chunk the reference's tile asserts refuse: zigzag halves of 48
+    # and 49 rows (S_loc 97, odd) do not divide into its tiles.
+    q, k, v, _, _ = _ring_inputs(2, 2, 64, torch.float32, dev, seq=388)
+    with pytest.raises(ValueError, match="divisible"):
         rp.ring_flash_attention_pallas(q, k, v, ring=LocalRing(4), causal=True, zigzag=True)
+    q, k, v, _, _ = _ring_inputs(2, 2, 64, torch.float32, dev, seq=256)
     c = rp._Step(4, 0, 0, True, True, False, 0.125, 64)
     o, lse = torch.empty_like(q[:, :, :64]), torch.empty(q.shape[:2] + (64,), device=dev)
+    with pytest.raises(ValueError, match="block_k"):  # 48 does not divide 64
+        rp.ring_fwd_step(q[:, :, :64].contiguous(), k[:, :, :64].contiguous(),
+                         v[:, :, :64].contiguous(), o, lse, c._replace(block_k=48))
     with pytest.raises(ValueError, match="one CUDA device"):
         rp.ring_fwd_step(q[:, :, :64].contiguous(), k[:, :, :64].cpu(), v[:, :, :64].contiguous(),
                          o, lse, c)

@@ -74,19 +74,22 @@ def _t(x, dtype="fp32"):
     return torch.from_numpy(np.asarray(x, np.float32).copy()).to(TDT[dtype])
 
 
-RING_CASES = [  # (hq, hkv, causal, zigzag)
-    (2, 2, True, False),
-    (2, 2, False, False),
-    (2, 2, True, True),
-    (4, 2, True, False),
+RING_CASES = [  # (hq, hkv, causal, zigzag, seq)
+    (2, 2, True, False, S),
+    (2, 2, False, False, S),
+    (2, 2, True, True, S),
+    (4, 2, True, False, S),
+    (2, 2, True, False, 384),  # S_loc 96: block_k 96
+    (2, 2, True, True, 384),   # S_loc 96: zigzag halves of 48
 ]
 
 
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
-@pytest.mark.parametrize("case", RING_CASES, ids=["causal", "noncausal", "zigzag", "gqa"])
+@pytest.mark.parametrize("case", RING_CASES, ids=["causal", "noncausal", "zigzag", "gqa",
+                                                  "causal_s96", "zigzag_s96"])
 def test_ring_pallas_forward_matches_jax(case, dtype):
-    hq, hkv, causal, zigzag = case
-    q, k, v = _qkv(hq, hkv)
+    hq, hkv, causal, zigzag, seq = case
+    q, k, v = _qkv(hq, hkv, seq)
     if zigzag:
         q, k, v = (np.asarray(jax_zigzag_shard(jnp.asarray(x), N_DEV)) for x in (q, k, v))
     want, want_lse = _jax_ring_pallas(q, k, v, dtype, causal=causal, zigzag=zigzag)

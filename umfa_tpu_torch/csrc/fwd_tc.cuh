@@ -1,0 +1,439 @@
+// Tensor-core body of the attention forward for Hopper, sm_90a
+// (`fwd_tc_kernel`): the dense forward (csrc/flash_fwd.cu) and one rank's
+// ring forward step (csrc/ring_attn.cu).
+//
+// The FA2 shape on mma.sync: one block of 4 warps per (64-row query tile,
+// q head, batch), the last query tiles (which see the most keys under a
+// causal mask) first; each warp owns 16 whole query rows, so the row max and
+// row sum need only quad shuffles. Q is staged once (and, where it fits,
+// held in registers as A fragments for the whole walk); K and V tiles of KT
+// keys are double-buffered in shared memory, cp.async bringing step i + 1
+// while step i is computed; rows past the key limit and columns past D are
+// zero-filled by the copy. S = Q·Kᵀ into fp32 fragments; the mask and the
+// bias are applied on the fragments, element by element only on tiles that
+// cross a mask edge or carry a bias; tiles nobody in the block sees are
+// never loaded, and a warp skips a tile its rows cannot see. P leaves the S
+// accumulators as A fragments of P·V (no trip through shared memory).
+//
+// The product policy (mma_policy.cuh) is a template parameter: `Bf16Mma`
+// (bf16 tiles, KT = 64, mma.sync m16n8k16) or `Tf32x3Mma` (fp32 tiles,
+// KT = 32, every product as three mma.sync m16n8k8 tf32 on split operands;
+// the scores keep big·big and the small products in separate accumulators,
+// and each tile's P·V goes into a zeroed fragment that an fp32 add puts on
+// the running sum, so no mma chain is long). For P·V's A fragment the tf32
+// policy permutes the keys inside each 8-key step (mma.cuh
+// `tf32_a_from_c`), and reads V's B fragment in the same order by two
+// scalar shared loads (rows padded to D + 4 floats: free of bank conflicts).
+//
+// The walk: the running max is seeded by a K-only pre-pass before any P is
+// formed. Dense (RING = false): one pre-pass over the first PRE tiles (512
+// keys), then every visible tile with the online softmax update and P·V.
+// Ring (RING = true): the keys fall in groups of block_k (the reference's
+// key tiles); for each group that holds visible keys, its visible tiles
+// (KT keys, clipped to the group) first for the group's row max, then for P
+// and P·V, so that P is rounded against the running max of whole groups as
+// the reference rounds it. The including file's header gives the rounding
+// points each mode holds to.
+//
+// RING (a template parameter, so the dense instantiations compile as
+// without it): what the step sees is the band (left, right) plus two
+// limits, query rows below q_lo and keys at or past k_hi hidden; the step's
+// (o_step, lse_step) merge into the running (o, lse), or are written at the
+// rank's first step. One warp owns each row, so a __syncwarp orders the
+// quad's reads of the old LSE before its owner's write. A block that sees
+// nothing after the first step stores nothing. One owner per output tile,
+// no atomics: the step is deterministic.
+#pragma once
+
+#include "common.cuh"
+#include "mma.cuh"
+#include "mma_policy.cuh"
+
+namespace umfa {
+
+// The arguments of the forward body. The dense forward leaves the ring's
+// fields 0.
+struct FwdParams {
+  const void* q;
+  const void* k;
+  const void* v;
+  const float* bias;
+  void* out;  // the ring: o, read (unless first) and written
+  float* lse;
+  int B, Hq, Hkv, Sq, Sk, D;
+  long long bsb, bsh, bsq, bsk;
+  float scale;
+  int left, right;
+  int vec;  // K/V rows by 16-byte cp.async (D and the pointers' alignment allow it)
+  // Read only by the RING instantiations: query rows below q_lo and keys at
+  // or past k_hi are hidden; keys fall in groups of block_k; first: write
+  // (o, lse), else merge into them.
+  int q_lo, k_hi, block_k, first;
+};
+
+// Tiles and occupancy. bf16: 64-key tiles, four blocks an SM at D 64 (the
+// dense forward; registers capped at 128), three in ring mode. fp32: 32-key
+// tiles (52 KB of shared memory at D 64, 99 KB at D 128), three blocks an
+// SM at D 64 (6 % faster at the prefill than two with Q split once into
+// registers), two at D 128.
+template <int DP, class Mma, bool RING>
+struct FwdTile {
+  using T = typename Mma::T;
+  static constexpr bool F32 = sizeof(T) == 4;
+  static constexpr int KT = F32 ? 32 : 64;                  // keys a tile
+  static constexpr int LD = DP + Mma::PAD;                  // row stride in shared memory
+  static constexpr int PRE = 512 / KT;                      // dense: tiles of the pre-pass
+  static constexpr int MINB = F32 ? (DP <= 64 ? 3 : 2) : DP <= 64 ? (RING ? 3 : 4) : 1;
+  static constexpr int SMEM = (BQ + 4 * KT) * LD * (int)sizeof(T);  // Q, [2][K, V]
+};
+
+// Rows [k0, k0 + ROWS) of K (and of V, with_v) into one buffer of row
+// stride LD; rows at or past kend and columns past D are zero. With `vec`
+// by 16-byte cp.async (the caller commits the group); else by plain loads
+// and stores.
+template <int ROWS, int DP, int LD, typename T>
+__device__ __forceinline__ void load_kv_tile(T* sK, T* sV, const T* k, const T* v, int k0,
+                                             int kend, int D, bool vec, bool with_v) {
+  constexpr int E = 16 / (int)sizeof(T), CH = DP / E;
+  if (vec) {
+    for (int e = threadIdx.x; e < ROWS * CH; e += blockDim.x) {
+      const int r = e / CH, c = (e - r * CH) * E;
+      const bool ok = k0 + r < kend && c < D;
+      const long long i = ok ? (long long)(k0 + r) * D + c : 0;
+      cp_async16(sK + r * LD + c, k + i, ok ? 16 : 0);
+      if (with_v) cp_async16(sV + r * LD + c, v + i, ok ? 16 : 0);
+    }
+  } else {
+    for (int e = threadIdx.x; e < ROWS * DP; e += blockDim.x) {
+      const int r = e / DP, c = e - r * DP;
+      const bool ok = k0 + r < kend && c < D;
+      const long long i = (long long)(k0 + r) * D + c;
+      sK[r * LD + c] = ok ? k[i] : static_cast<T>(0.f);
+      if (with_v) sV[r * LD + c] = ok ? v[i] : static_cast<T>(0.f);
+    }
+  }
+}
+
+// acc *= alpha, row by row (C fragments: elements 0, 1 of row g, 2, 3 of g + 8).
+template <int NA>
+__device__ __forceinline__ void scale_rows(float (&acc)[NA][4], const float (&alpha)[2]) {
+#pragma unroll
+  for (int n = 0; n < NA; ++n) {
+    acc[n][0] *= alpha[0];
+    acc[n][1] *= alpha[0];
+    acc[n][2] *= alpha[1];
+    acc[n][3] *= alpha[1];
+  }
+}
+
+// The ring walk of one block: the groups of bk keys that hold visible keys
+// [lo, hi], in each its visible tiles of kt keys (clipped to the group) twice,
+// first for the row max (pre), then for P and P·V.
+struct RingWalk {
+  int lo, hi, bk, kt;
+  int g, j, j_lo, j_hi, pre;  // the step: group, tile, the group's tiles, pass
+  __device__ __forceinline__ void enter(int group) {
+    g = group;
+    const int base = g * bk;
+    j_lo = (max(base, lo) - base) / kt;
+    j_hi = (min(base + bk - 1, hi) - base) / kt;
+    j = j_lo;
+    pre = 1;
+  }
+  __device__ __forceinline__ void next() {
+    if (j < j_hi) {
+      ++j;
+    } else if (pre) {
+      pre = 0;
+      j = j_lo;
+    } else {
+      enter(g + 1);
+    }
+  }
+  __device__ __forceinline__ int k0() const { return g * bk + j * kt; }
+  // The step's key limit: the group's end, or k_hi before it.
+  __device__ __forceinline__ int end(int k_hi) const { return min(g * bk + bk, k_hi); }
+  // Steps of the whole walk.
+  __device__ __forceinline__ int steps() {
+    int n = 0;
+    for (int grp = lo / bk; grp <= hi / bk; ++grp) {
+      enter(grp);
+      n += 2 * (j_hi - j_lo + 1);
+    }
+    enter(lo / bk);
+    return n;
+  }
+};
+
+template <class Mma, typename Tout, int DP, bool RING = false>
+__global__ void __launch_bounds__(NT, (FwdTile<DP, Mma, RING>::MINB))
+    fwd_tc_kernel(const FwdParams p) {
+  using G = FwdTile<DP, Mma, RING>;
+  using T = typename Mma::T;
+  constexpr int LD = G::LD, KT = G::KT;
+  constexpr int NS = KT / 8;  // 8-key tiles of S
+  constexpr int NA = DP / 8;  // 8-column tiles of out
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sQ = reinterpret_cast<T*>(smem_raw);
+  T* sKV = sQ + BQ * LD;  // [buffer][K, V][KT][LD]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (p.Hq / p.Hkv);
+  const T* q = static_cast<const T*>(p.q) + ((long long)b * p.Hq + h) * p.Sq * p.D;
+  const T* k = static_cast<const T*>(p.k) + ((long long)b * p.Hkv + hk) * p.Sk * p.D;
+  const T* v = static_cast<const T*>(p.v) + ((long long)b * p.Hkv + hk) * p.Sk * p.D;
+  const float* bias = p.bias ? p.bias + b * p.bsb + h * p.bsh : nullptr;
+  // The dense forward's row sum adds the rounded P at D < 128; the ring's
+  // the unrounded P.
+  const bool sum_rounded = !RING && p.D < 128;
+
+  int k_lo, k_hi;
+  visible_keys(q0, min(q0 + BQ, p.Sq) - 1, p.Sk, p.left, p.right, &k_lo, &k_hi);
+  if constexpr (RING) {
+    k_hi = min(k_hi, p.k_hi - 1);
+    if (min(q0 + BQ, p.Sq) <= p.q_lo) k_hi = -1;
+  }
+  // Dense: steps [0, n_pre) walk the first key tiles for the row max alone
+  // (K only); steps [n_pre, n_pre + n_t) walk every visible tile with the
+  // softmax update and P·V. A row that sees at most PRE tiles thus rounds P
+  // against its final max, as the plain version does.
+  const int t_lo = k_lo / KT;
+  const int n_t = k_hi >= k_lo ? k_hi / KT - t_lo + 1 : 0;
+  const int n_pre = min(n_t, G::PRE);
+  auto tile_of = [&](int i) { return t_lo + (i < n_pre ? i : i - n_pre); };
+  int steps = n_pre + n_t;
+  RingWalk walk;
+  if constexpr (RING) {
+    walk = RingWalk{k_lo, k_hi, p.block_k, KT, 0, 0, 0, 0, 1};
+    steps = n_t > 0 ? walk.steps() : 0;
+    if (steps == 0 && !p.first) return;  // merges nothing into (o, lse)
+  }
+  if (steps > 0) {
+    if constexpr (RING) {
+      load_kv_tile<KT, DP, LD>(sKV, sKV + KT * LD, k, v, walk.k0(), walk.end(p.k_hi), p.D,
+                               p.vec, false);
+    } else {
+      load_kv_tile<KT, DP, LD>(sKV, sKV + KT * LD, k, v, tile_of(0) * KT, p.Sk, p.D, p.vec,
+                               false);
+    }
+    cp_async_commit();
+  }
+
+  for (int e = tid; e < BQ * DP; e += NT) {
+    const int r = e / DP, c = e - r * DP;
+    float x = 0.f;
+    if (q0 + r < p.Sq && c < p.D) {
+      x = Elem<T>::load(q, (long long)(q0 + r) * p.D + c);
+      if constexpr (!RING) x = x * p.scale;  // the ring scales the dot, not Q
+    }
+    sQ[r * LD + c] = static_cast<T>(x);
+  }
+  __syncthreads();
+
+  const int rw = warp * 16;                       // the warp's first row in the tile
+  const int row0 = q0 + rw + g, row1 = row0 + 8;  // this thread's two rows
+  typename Mma::template FwdQ<DP> qf;
+  qf.load(sQ, LD, rw, lane);
+
+  float m[2] = {MASK_VALUE, MASK_VALUE}, l[2] = {0.f, 0.f};
+  float acc[NA][4];
+#pragma unroll
+  for (int n = 0; n < NA; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int i = 0; i < steps; ++i) {
+    // The step's first key, its key limit (keys at or past it are hidden),
+    // and whether it forms P (else it is a pre-pass step).
+    int k0, kend;
+    bool form_p;
+    if constexpr (RING) {
+      k0 = walk.k0();
+      kend = walk.end(p.k_hi);
+      form_p = !walk.pre;
+    } else {
+      k0 = tile_of(i) * KT;
+      kend = p.Sk;
+      form_p = i >= n_pre;
+    }
+    const int cur = i & 1;
+    if (i + 1 < steps) {
+      T* nxt = sKV + (cur ^ 1) * 2 * KT * LD;
+      if constexpr (RING) {
+        RingWalk w2 = walk;
+        w2.next();
+        load_kv_tile<KT, DP, LD>(nxt, nxt + KT * LD, k, v, w2.k0(), w2.end(p.k_hi), p.D, p.vec,
+                                 !w2.pre);
+      } else {
+        load_kv_tile<KT, DP, LD>(nxt, nxt + KT * LD, k, v, tile_of(i + 1) * KT, p.Sk, p.D,
+                                 p.vec, i + 1 >= n_pre);
+      }
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* cK = sKV + cur * 2 * KT * LD;
+    const T* cV = cK + KT * LD;
+
+    // Rows rw..rw+15 of the tile against keys k0..k0+KT-1: none visible, all
+    // visible (and all rows real), or an edge.
+    const int r_lo = q0 + rw, r_hi = r_lo + 15;
+    bool none = k0 >= kend || (p.right >= 0 && k0 > r_hi + p.right) ||
+                (p.left >= 0 && k0 + KT - 1 < r_lo - p.left);
+    bool all = k0 + KT <= kend && r_hi < p.Sq && (p.right < 0 || k0 + KT - 1 <= r_lo + p.right) &&
+               (p.left < 0 || k0 >= r_hi - p.left);
+    if constexpr (RING) {
+      none = none || r_hi < p.q_lo;
+      all = all && r_lo >= p.q_lo;
+    }
+    if (!none) {
+      float s[NS][4];
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+      Mma::template qk<DP, KT>(s, qf, sQ, cK, LD, rw, lane);
+      if constexpr (RING) {  // s = (q·k) · scale, rounded once
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] = __fmul_rn(s[j][e], p.scale);
+      }
+
+      // Element (j, e): row e < 2 ? row0 : row1, key k0 + 8j + 2tq + (e & 1).
+      unsigned vis = 0xffffffffu;
+      if (!all || bias) {
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = e < 2 ? row0 : row1, col = k0 + 8 * j + 2 * tq + (e & 1);
+            if (all || ((!RING || row >= p.q_lo) &&
+                        key_visible(row, col, p.Sq, kend, p.left, p.right))) {
+              if (bias) s[j][e] += bias[row * p.bsq + col * p.bsk];
+            } else {
+              s[j][e] = MASK_VALUE;
+              vis &= ~(1u << (4 * j + e));
+            }
+          }
+      }
+
+      float m_new[2] = {m[0], m[1]};
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        m_new[0] = fmaxf(m_new[0], fmaxf(s[j][0], s[j][1]));
+        m_new[1] = fmaxf(m_new[1], fmaxf(s[j][2], s[j][3]));
+      }
+      float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        m_new[r] = quad_max(m_new[r]);
+        alpha[r] = Mma::exp(m[r] - m_new[r]);
+        m[r] = m_new[r];
+      }
+      if (form_p) {  // a pre-pass step stops at the row max
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float pj = (vis >> (4 * j + e)) & 1u ? Mma::exp(s[j][e] - m_new[e >> 1]) : 0.f;
+            const float pr = Mma::round_p(pj);
+            rs[e >> 1] += sum_rounded ? pr : pj;
+            s[j][e] = pr;
+          }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) l[r] = alpha[r] * l[r] + rs[r];
+        scale_rows(acc, alpha);
+        Mma::template grad<KT, NA>(acc, s, cV, LD, 0, lane);
+      } else if constexpr (RING) {  // the ring's pre-pass follows earlier groups' P·V
+#pragma unroll
+        for (int r = 0; r < 2; ++r) l[r] *= alpha[r];
+        scale_rows(acc, alpha);
+      }
+    }
+    __syncthreads();  // this buffer is refilled two steps on
+    if constexpr (RING) walk.next();
+  }
+
+  if constexpr (RING) {
+    // Merge this step's (o_step, lse_step) into the running (o, lse), or
+    // write them at the rank's first step; o in its own type.
+    Tout* o = static_cast<Tout*>(p.out) + ((long long)b * p.Hq + h) * p.Sq * p.D;
+    float* lse = p.lse + ((long long)b * p.Hq + h) * p.Sq;
+    float prev[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = i ? row1 : row0;
+      prev[i] = !p.first && row < p.Sq ? lse[row] : 0.f;
+    }
+    __syncwarp();  // the quad has read its rows' old LSE before the owner writes
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = i ? row1 : row0;
+      const float lsum = quad_sum(l[i]);
+      if (row >= p.Sq) continue;
+      const bool empty = lsum == 0.f;
+      const float l_safe = empty ? 1.f : lsum;
+      const float lse_step = empty ? MASK_VALUE : m[i] + logf(l_safe);
+      float w1 = 0.f, w2 = 1.f, lse_new = lse_step;
+      if (!p.first) {
+        const float m2 = fmaxf(prev[i], lse_step);
+        w1 = expf(prev[i] - m2);
+        w2 = expf(lse_step - m2);
+        const float denom = w1 + w2;
+        const float safe = denom == 0.f ? 1.f : denom;
+        w1 /= safe;
+        w2 /= safe;
+        lse_new = m2 + logf(safe);
+      }
+#pragma unroll
+      for (int n = 0; n < NA; ++n)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int col = 8 * n + 2 * tq + c;
+          if (col >= p.D) continue;
+          const long long idx = (long long)row * p.D + col;
+          const float o_step = acc[n][2 * i + c] / l_safe;
+          Elem<Tout>::store(o, idx, p.first ? o_step : Elem<Tout>::load(o, idx) * w1 + o_step * w2);
+        }
+      if (tq == 0) lse[row] = lse_new;
+    }
+  } else {
+    Tout* out = static_cast<Tout*>(p.out) + ((long long)b * p.Hq + h) * p.Sq * p.D;
+    float* lse = p.lse + ((long long)b * p.Hq + h) * p.Sq;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = i ? row1 : row0;
+      const float lsum = quad_sum(l[i]);
+      if (row >= p.Sq) continue;
+      const bool empty = lsum == 0.f;
+      const float l_safe = empty ? 1.f : lsum;
+#pragma unroll
+      for (int n = 0; n < NA; ++n) {
+        const int col = 8 * n + 2 * tq;
+        if (col < p.D) Elem<Tout>::store(out, (long long)row * p.D + col, acc[n][2 * i] / l_safe);
+        if (col + 1 < p.D)
+          Elem<Tout>::store(out, (long long)row * p.D + col + 1, acc[n][2 * i + 1] / l_safe);
+      }
+      if (tq == 0) lse[row] = empty ? MASK_VALUE : m[i] + logf(l_safe);
+    }
+  }
+}
+
+template <class Mma, typename Tout, int DP, bool RING = false>
+cudaError_t launch_fwd_tc(const FwdParams& p, cudaStream_t stream) {
+  constexpr int smem = FwdTile<DP, Mma, RING>::SMEM;
+  const auto kernel = fwd_tc_kernel<Mma, Tout, DP, RING>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.Sq + BQ - 1) / BQ, p.Hq, p.B);
+  kernel<<<grid, NT, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace umfa

@@ -26,12 +26,13 @@ and step, and a transport of `parallel/transport.py` carries the hops.
     reference's A/B route instead: a ring of the dense backward
     (ops/flash_bwd.py, rows 2-3) with step biases (:1127-1158).
 
-The backward kernels are the dense backward's tensor-core bodies in ring
-mode: `_step_mask` reduces what a step sees by global position to their
-band mask plus a first visible query row and a key limit, in local
-indices, and they fold into the fp32 buffers. They take head_dim <= 256
-for bf16 and <= 128 for fp32; the forward kernel takes head_dim <= 128.
-Both need the local chunk a multiple of 64 (of 128 under zigzag).
+All three kernels are the dense kernels' tensor-core bodies in ring mode
+(the forward `csrc/fwd_tc.cuh`, the backward `csrc/bwd_tc.cuh`):
+`_step_mask` reduces what a step sees by global position to their band
+mask plus a first visible query row and a key limit, in local indices;
+the forward merges into (o, lse), the backward folds into the fp32
+buffers. They take head_dim <= 256 for bf16 and <= 128 for fp32, and any
+local chunk the reference's tile asserts admit (`_check_tiles`).
 
 Rounding points held to the reference: the forward multiplies the fp32
 dot by scale (:321-326) and rounds P to V's type against the running max
@@ -64,16 +65,15 @@ from umfa_tpu_torch.parallel.transport import SelfLoop
 from umfa_tpu_torch.utils.device import default_device
 from umfa_tpu_torch.utils.testing import rel_err
 
-KERNEL_TILE = 64  # rows and keys of one tile of the CUDA kernels
-
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_STEP_ARGS = (_I,) * 5 + (ctypes.c_float,) + (_I,) * 7 + (_P,)
-_FWD_ARGTYPES = (_P,) * 5 + (_I,) + _STEP_ARGS
+# q, k, v, o, lse; block_k; B, Hq, Hkv, S, D; scale; left, right, q_lo,
+# k_hi, first, dtype; stream.
+_FWD_ARGTYPES = (_P,) * 5 + (_I,) * 6 + (ctypes.c_float,) + (_I,) * 6 + (_P,)
 # q, k, v, dout, lse, delta, out0, out1; B, Hq, Hkv, S, D; scale; left,
 # right, q_lo, k_hi, first, dtype; stream.
 _BWD_ARGTYPES = (_P,) * 8 + (_I,) * 5 + (ctypes.c_float,) + (_I,) * 6 + (_P,)
 # The largest head_dim each kernel takes, by dtype.
-_MAX_D = {"ring_fwd_step": {torch.float32: 128, torch.bfloat16: 128},
+_MAX_D = {"ring_fwd_step": {torch.float32: 128, torch.bfloat16: 256},
           "ring_bwd_dkv": {torch.float32: 128, torch.bfloat16: 256},
           "ring_bwd_dq": {torch.float32: 128, torch.bfloat16: 256}}
 
@@ -129,7 +129,7 @@ class StepMask(NamedTuple):
 
 
 def _step_mask(c: _Step, s_loc: int) -> StepMask:
-    """The backward kernels' view of step c, equal to `c.keep(s_loc)`. Local
+    """The ring kernels' view of step c, equal to `c.keep(s_loc)`. Local
     positions increase with global ones inside a chunk (the two zigzag
     halves sit in order), so the diagonal step is local causal. Between two
     chunks, contiguous: the earlier chunk is wholly visible, the later one
@@ -278,11 +278,15 @@ def _dq_plain(q, do, lse, delta, k, v, dq, c: _Step) -> None:
         dq.add_(dq_s)
 
 
-def _check_launch(kernel: str, tensors, q: torch.Tensor, k: torch.Tensor, c: _Step) -> None:
-    dev = q.device
+def _check_device(kernel: str, tensors) -> None:
+    dev = tensors[0].device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError(f"{kernel} kernel needs every operand on one CUDA device, "
                          f"got {sorted({str(t.device) for t in tensors})}")
+
+
+def _check_launch(kernel: str, tensors, q: torch.Tensor, k: torch.Tensor, c: _Step) -> None:
+    _check_device(kernel, tensors)
     if any(not t.is_contiguous() for t in tensors):
         raise ValueError(f"{kernel} kernel needs contiguous operands")
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype:
@@ -294,17 +298,9 @@ def _check_launch(kernel: str, tensors, q: torch.Tensor, k: torch.Tensor, c: _St
         raise ValueError(f"{kernel} kernel takes head_dim <= {max_d} for {q.dtype}, got {d}")
     if hkv < 1 or hq % hkv:
         raise ValueError(f"q heads {hq} must be a multiple of kv heads {hkv}")
-    tile = KERNEL_TILE * (2 if c.zigzag else 1)
-    if s_loc % tile:
-        raise ValueError(f"{kernel} kernel needs the local chunk ({s_loc}) to be a multiple "
-                         f"of {tile} (its {KERNEL_TILE}-row tiles{', per zigzag half' if c.zigzag else ''})")
-
-
-def _step_args(q, k, c: _Step) -> tuple:
-    b, hq, s_loc, d = q.shape
-    return (b, hq, k.shape[1], s_loc, d, c.scale, int(c.causal), int(c.zigzag), c.n, c.my,
-            c.src, int(c.first), _DTYPE_CODE[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream)
+    if s_loc < 1 or (c.zigzag and s_loc % 2):
+        raise ValueError(f"{kernel} kernel needs a local chunk ({s_loc}) of at least one row"
+                         f"{', even under zigzag (two halves)' if c.zigzag else ''}")
 
 
 def ring_fwd_step(q, k, v, o, lse, c: _Step) -> None:
@@ -313,17 +309,26 @@ def ring_fwd_step(q, k, v, o, lse, c: _Step) -> None:
     plain version on CPU tensors."""
     if q.device.type == "cpu":
         _fwd_step_plain(q, k, v, o, lse, c)
-        return
+    else:
+        _launch_fwd(q, k, v, o, lse, c)
+
+
+def _launch_fwd(q, k, v, o, lse, c: _Step) -> None:
     _check_launch("ring_fwd_step", (q, k, v, o, lse), q, k, c)
-    if c.block_k % KERNEL_TILE or q.shape[2] % c.block_k:
-        raise ValueError(f"ring_fwd_step kernel needs block_k ({c.block_k}) a multiple of "
-                         f"{KERNEL_TILE} that divides the local chunk ({q.shape[2]})")
-    if o.dtype != q.dtype:
-        raise ValueError(f"ring_fwd_step kernel stores o in q's type {q.dtype}, got {o.dtype}")
+    s_loc = q.shape[2]
+    if not 1 <= c.block_k <= s_loc or s_loc % c.block_k:
+        raise ValueError(f"ring_fwd_step kernel needs block_k ({c.block_k}) to divide the "
+                         f"local chunk ({s_loc})")
+    if o.dtype != q.dtype or lse.dtype != torch.float32:
+        raise ValueError(f"ring_fwd_step kernel stores o in q's type {q.dtype} and an fp32 "
+                         f"lse, got {o.dtype} and {lse.dtype}")
     fn = _kernels.function("ring_attn", "umfa_ring_fwd_step", _FWD_ARGTYPES)
+    b, hq, _, d = q.shape
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-                 c.block_k, *_step_args(q, k, c))
+                 c.block_k, b, hq, k.shape[1], s_loc, d, c.scale, *_step_mask(c, s_loc),
+                 int(c.first), _DTYPE_CODE[q.dtype],
+                 torch.cuda.current_stream(q.device).cuda_stream)
     _kernels.check("ring_attn", err, "ring_fwd_step")
 
 
