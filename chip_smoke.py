@@ -12,8 +12,8 @@ Phases, one JSON line each:
      `quant_bwd_dq`, `quant_bwd_dkv`; the fp32 `flash_fwd`, dQ and dK/dV;
      `ring_fwd_step`, `ring_bwd_dq`, `ring_bwd_dkv`): their HMMA
      instructions (TF32 ones in the fp32 instantiations of the dense
-     forward and backward and of the ring kernels; no CUDA-core kernel left
-     in `ring_attn`, and in `flash_fwd` only the fp32 D 256 one), and for
+     forward and backward and of the ring kernels, at D 64, 128 and 256; no
+     CUDA-core kernel left in `flash_fwd`, `flash_bwd` or `ring_attn`), and for
      `quant_attn_fwd` also its IMMA (int8) ones, for `fused_qattn` its
      DMMA (f64) ones, counted in the SASS (cuobjdump; none fails the run),
      their registers and spills (ptxas) and dynamic shared memory at
@@ -29,20 +29,23 @@ Phases, one JSON line each:
      there held to 1e-5, and, for the dense kernel, torch's
      scaled_dot_product_attention (a yardstick only; the port never calls
      it); the fp32 inputs' `flash_fwd` (3xTF32 on the tensor cores) at the
-     same shape beside its plain version, its 3xTF32 floor and the
-     memory-efficient SDPA forward on the same fp32 inputs;
+     same shape, D 64 and 256, beside its plain version, its 3xTF32 floor
+     and the memory-efficient SDPA forward on the same fp32 inputs (fp32
+     also checked at D 192 and 256 at the check shapes);
   4. backward kernels (dQ, dK/dV, dbias) against their plain versions at
      the training head geometry (batch 2, causal 1024, odd 777 x 1000,
      window (128, 0), full and shared biases, fully masked rows, a nonzero
-     dlse, D 32/64/128, fp32 and bf16; bf16 also at D 256, with a shared
-     bias and a window; bf16 inputs with fp32 gradients at D 128, 80 and
-     256, gate 5e-4, where a dK from the scaled Q would show); then each
+     dlse, D 32/64/128, fp32 and bf16; bf16 and fp32 also at D 256, with a
+     shared bias and a window, and fp32 at D 192 with masked rows; bf16
+     inputs with fp32 gradients at D 128, 80 and 256, gate 5e-4, where a dK
+     from the scaled Q would show); then each
      timed at the training shape (batch 8, causal 4096, D 64, bf16; median,
      min and max of 10) beside its plain version, its bound and the SDPA
      backward (flash for dQ + dK/dV, memory-efficient with a bias gradient
      for dbias; yardsticks only); dQ and dK/dV also with fp32 inputs (3xTF32
-     on the tensor cores, as int8-qdense runs them) beside their 3xTF32
-     floor and the memory-efficient SDPA backward on the same fp32 inputs;
+     on the tensor cores, as int8-qdense runs them), D 64 and 256, beside
+     their 3xTF32 floor and the memory-efficient SDPA backward on the same
+     fp32 inputs;
      dbias with fp32 inputs (CUDA cores) beside its 3xTF32 floor and the
      memory-efficient SDPA backward with an fp32 bias gradient;
   5. serving at full width (vocab 32768, dim 1024, 16/8 heads, D 64, depth
@@ -95,8 +98,8 @@ Phases, one JSON line each:
      held to 1e-5: the scores keep their bits) and, for the backward, the
      flash SDPA backward on the dequantized operands (a yardstick only);
   9. quantized training at full width (the same model and batch, lr
-     TRAIN_LR): the int8 recipe for a warm-up and three SGD steps, int4 for
-     a warm-up and one, int8-qdense for one; each step with a finite loss
+     TRAIN_LR): the int8 recipe for a warm-up and three SGD steps, int4 and
+     int8-qdense for a warm-up and one each; each step with a finite loss
      below the step before's and exactly 8 fused_qattn launches and 8 of
      each backward kernel of its route (quant_bwd_dq/dkv, or flash_bwd_dq/
      dkv for the dense Q), none of the others;
@@ -112,7 +115,8 @@ Phases, one JSON line each:
      non-causal, the backward with a nonzero dlse (forward fp32 2e-5 / LSE
      1e-5, bf16 1e-2 / 1e-3; backward fp32 1e-4, bf16 2e-2); then S 384
      over 4 ranks (a local chunk of 96, zigzag halves of 48), fp32 and bf16,
-     and bf16 D 256, contiguous and zigzag causal, at the same gates; the
+     and D 256, fp32 and bf16, contiguous and zigzag causal, at the same
+     gates; the
      kernel backward against the UMFA_RING_BWD=jnp route (fp32 2e-5);
  12. the one-device self-loop checks at the reference's defaults (B1 H2
      S1024 D128 bf16; n_steps 4 causal and 3 non-causal), each with one
@@ -125,7 +129,8 @@ Phases, one JSON line each:
      kernel, no other kernel) and hops (forward 6 / 12; backward 12 K/V,
      12 dK/dV, 4 homing); each ring kernel timed on one rank's chunk beside
      its plain version and its bound (`ring_fwd_step` also on fp32 inputs,
-     beside its 3xTF32 floor); the whole ring beside the port's
+     beside its 3xTF32 floor; all three also on fp32 inputs at D 256); the
+     whole ring beside the port's
      flash kernels and SDPA on the unsharded sequence (yardsticks only);
      one hop's copy time, and from a torch.profiler trace how much of the
      hops' copy time ran under ring kernels;
@@ -372,6 +377,29 @@ def phase_kernels(record):
         emit({"phase": "kernel_check", **res})
         worst["quant_attn_fwd"] = max(worst["quant_attn_fwd"], res["max_abs_out"])
         del got, want, qt
+    # The fp32 flash_fwd at the head dims of its wide 3xTF32 tile (D 192
+    # padded to 256): 8 warps on 128 query rows, 16-key tiles.
+    for name, sq, sk, kw, d in (("causal_prefill_d256", PROMPT, SK, dict(causal=True), 256),
+                                ("masked_rows_d256", SK + 64, SK, dict(window=(0, -1)), 256),
+                                ("bias_tq24_d256", 24, SK, dict(bias=True), 256),
+                                ("chunk_window_d192", 16, SK, dict(window=(-1, PROMPT)), 192),
+                                ("causal_prefill_d192", PROMPT, SK, dict(causal=True), 192)):
+        bias = path_bias(B_CHECK, sq, sk, 4072) if kw.get("bias") else None
+        causal, window = kw.get("causal", False), kw.get("window")
+        q, k, v = qkv(B_CHECK, sq, sk, torch.float32, d)
+
+        def run(q=q, k=k, v=v):
+            return flash_attention_forward(q, k, v, bias, causal=causal, window=window)
+
+        got = run()
+        torch.cuda.synchronize()
+        want = flash_attention_forward_plain(q, k, v, bias, causal=causal, window=window)
+        res = compare(f"flash_fwd/float32/{name}", got, want, 2e-5, 1e-5)
+        res["ms"] = cuda_ms(run)
+        results.append(res)
+        emit({"phase": "kernel_check", **res})
+        worst["flash_fwd"] = max(worst["flash_fwd"], res["max_abs_out"])
+        del got, want, q, k, v
     record["kernel_checks"] = results
     bad = [r["case"] for r in results if not r["ok"]]
     if bad:
@@ -405,36 +433,46 @@ def phase_kernels(record):
         lambda: F.scaled_dot_product_attention(q, kl, vl, is_causal=True, **gqa))
     timing["flash_fwd"]["check"] = res
     del kl, vl
-    # fp32 inputs take the 3xTF32 instantiation: its line at the same shape.
-    # Bound: the 3xTF32 floor (three TF32 products for each fp32 one at the
-    # TF32 peak; the dense backward's fp32 lines use it too), with the fp32
-    # CUDA-core time of the same flop beside it; yardstick: the
-    # memory-efficient SDPA forward on the same fp32 inputs.
-    qf, kf, vf = (x.float() for x in (q, k, v))
-    fk32 = lambda: flash_attention_forward(qf, kf, vf, causal=True)  # noqa: E731
-    fp32 = lambda: flash_attention_forward_plain(qf, kf, vf, causal=True)  # noqa: E731
-    res = compare("flash_fwd/float32/prefill_b8", fk32(), fp32(), 2e-5, 1e-5)
-    worst["flash_fwd"] = max(worst["flash_fwd"], res["max_abs_out"])
-    nbytes = 4 * (2 * q.numel() + k.numel() + v.numel()) + b * HQ * sq * 4
-    t = dict(**cuda_stats(fk32, iters=5, warmup=1), plain_ms=cuda_ms(fp32, iters=3, warmup=1),
-             flops=flops, bytes=nbytes, ops_ms=3 * flops / H100_TF32_FLOPS * 1e3,
-             bytes_ms=nbytes / H100_HBM_BYTES * 1e3, check=res)
-    t["tf32x3_floor_ms"] = t["ops_ms"]
-    t["fp32_cuda_core_ms"] = flops / H100_FP32_FLOPS * 1e3
-    try:
+    # fp32 inputs take the 3xTF32 instantiations: their lines at the same
+    # shape, at D 64 and at D 256 (the wide tile). Bound: the 3xTF32 floor
+    # (three TF32 products for each fp32 one at the TF32 peak; the dense
+    # backward's fp32 lines use it too), with the fp32 CUDA-core time of the
+    # same flop beside it; yardstick: the memory-efficient SDPA forward on
+    # the same fp32 inputs.
+    shapes = {"flash_fwd": f"B{b} Hq{HQ} Hkv{HKV} Sq{sq} Sk{sk} D{D} causal bf16"}
+    for name, d in (("flash_fwd_fp32", D), ("flash_fwd_fp32_d256", 256)):
+        if d == D:
+            qf, kf, vf = (x.float() for x in (q, k, v))
+        else:
+            qf, kf, vf = qkv(b, sq, sk, torch.float32, d)
+        fk32 = lambda: flash_attention_forward(qf, kf, vf, causal=True)  # noqa: E731
+        fp32 = lambda: flash_attention_forward_plain(qf, kf, vf, causal=True)  # noqa: E731
+        res = compare(f"flash_fwd/float32/prefill_b8_d{d}", fk32(), fp32(), 2e-5, 1e-5)
+        worst["flash_fwd"] = max(worst["flash_fwd"], res["max_abs_out"])
+        flops32 = 4 * d * pairs
+        nbytes = 4 * (2 * qf.numel() + kf.numel() + vf.numel()) + b * HQ * sq * 4
+        t = dict(**cuda_stats(fk32, iters=5, warmup=1), plain_ms=cuda_ms(fp32, iters=3, warmup=1),
+                 flops=flops32, bytes=nbytes, ops_ms=3 * flops32 / H100_TF32_FLOPS * 1e3,
+                 bytes_ms=nbytes / H100_HBM_BYTES * 1e3, check=res)
+        t["tf32x3_floor_ms"] = t["ops_ms"]
+        t["fp32_cuda_core_ms"] = flops32 / H100_FP32_FLOPS * 1e3
+        try:
+            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                F.scaled_dot_product_attention(qf[:1, :, :64], kf[:1, :, :64], vf[:1, :, :64],
+                                               is_causal=True, enable_gqa=True)
+            kl, vl, gqa, how = kf, vf, dict(enable_gqa=True), "enable_gqa"
+        except (RuntimeError, TypeError):
+            kl, vl = kf.repeat_interleave(HQ // HKV, 1), vf.repeat_interleave(HQ // HKV, 1)
+            gqa, how = {}, "K and V expanded to 16 heads outside the timing (enable_gqa refused)"
         with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
-            F.scaled_dot_product_attention(qf[:1, :, :64], kf[:1, :, :64], vf[:1, :, :64],
-                                           is_causal=True, enable_gqa=True)
-        kl, vl, gqa, how = kf, vf, dict(enable_gqa=True), "enable_gqa"
-    except (RuntimeError, TypeError):
-        kl, vl, gqa = (kf.repeat_interleave(HQ // HKV, 1), vf.repeat_interleave(HQ // HKV, 1), {})
-        how = "K and V expanded to 16 heads outside the timing (enable_gqa refused)"
-    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
-        t["library_ms"] = cuda_ms(
-            lambda: F.scaled_dot_product_attention(qf, kl, vl, is_causal=True, **gqa))
-    t["library"] = "memory-efficient SDPA forward on the fp32 inputs, " + how
-    timing["flash_fwd_fp32"] = t
-    del qf, kf, vf, kl, vl
+            t["library_ms"] = cuda_ms(
+                lambda: F.scaled_dot_product_attention(qf, kl, vl, is_causal=True, **gqa))
+        t["library"] = "memory-efficient SDPA forward on the fp32 inputs, " + how
+        timing[name] = t
+        shapes[name] = f"B{b} Hq{HQ} Hkv{HKV} Sq{sq} Sk{sk} D{d} causal fp32"
+        del qf, kf, vf, kl, vl
+        torch.cuda.empty_cache()
+    shapes["quant_attn_fwd"] = shapes["flash_fwd"]
     qt = [quantize(x, mode=QuantMode.ROW) for x in (q, k, v)]
     del q, k, v
     torch.cuda.empty_cache()
@@ -464,9 +502,7 @@ def phase_kernels(record):
             raise AssertionError(f"{name} disagrees with its plain version at the prefill shape: "
                                  f"{t['check']}")
         bound(t)
-        dt = "fp32" if name.endswith("_fp32") else "bf16"
-        emit({"phase": "kernel_timing", "kernel": name,
-              "shape": f"B{b} Hq{HQ} Hkv{HKV} Sq{sq} Sk{sk} D{D} causal {dt}",
+        emit({"phase": "kernel_timing", "kernel": name, "shape": shapes[name],
               **{k2: v2 for k2, v2 in t.items() if k2 != "check"}})
     record["kernel_timing"] = timing
     return timing, worst
@@ -968,12 +1004,19 @@ def phase_bwd_kernels(record):
     runs += [("fp32_grads_d128_causal", 1024, 1024, 128, dict(causal=True), torch.bfloat16, None, 5e-4),
              ("fp32_grads_d80_odd_777x1000_window_dlse", 777, 1000, 80,
               dict(window=(128, 0), dlse=True), torch.bfloat16, None, 5e-4),
-             # D 256: bf16 inputs only (fp32 stops at 128).
+             # D 256 (D 192 padded to it): bf16, and fp32 on the wide 3xTF32 tiles
+             # (the fp32 dbias, on the CUDA cores, stops at 128).
              ("d256_causal_dlse", 1024, 1024, 256, dict(causal=True, dlse=True), torch.bfloat16,
               torch.bfloat16, tol[torch.bfloat16]),
              ("d256_bias_11qk_window_128_0", 777, 1000, 256, dict(window=(128, 0), bias_shape="11qk"),
               torch.bfloat16, torch.bfloat16, tol[torch.bfloat16]),
-             ("fp32_grads_d256_causal", 1024, 1024, 256, dict(causal=True), torch.bfloat16, None, 5e-4)]
+             ("fp32_grads_d256_causal", 1024, 1024, 256, dict(causal=True), torch.bfloat16, None, 5e-4),
+             ("d256_causal_dlse", 1024, 1024, 256, dict(causal=True, dlse=True), torch.float32,
+              None, tol[torch.float32]),
+             ("d256_bias_11qk_window_128_0", 777, 1000, 256, dict(window=(128, 0), bias_shape="11qk"),
+              torch.float32, None, tol[torch.float32]),
+             ("d192_masked_rows_1088x1024_dlse", 1088, 1024, 192, dict(window=(0, -1), dlse=True),
+              torch.float32, None, tol[torch.float32])]
     worst = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0, "flash_dbias": 0.0}
     results = []
     for name, sq, sk, d, kw, dtype, gdt, gate in runs:
@@ -998,7 +1041,7 @@ def phase_bwd_kernels(record):
         results.append(res)
         emit({"phase": "kernel_check", **res})
         bias = args[6]
-        if bias is not None:
+        if bias is not None and (dtype == torch.bfloat16 or d <= 128):
             q, k, v, out, lse, do = args[:6]
             got = fb.flash_attention_bias_grad(q, k, v, out, lse, do, bias, **mask_kw)
             torch.cuda.synchronize()
@@ -1017,7 +1060,7 @@ def phase_bwd_kernels(record):
     # same function, beside their plain version, at causal S 1024 with
     # q ~ N(0, 3): within 5e-6 of the plain version, as
     # tests/test_torch_kernels_cuda.py test_flash_bwd_fp32_keeps_highest_accuracy.
-    for d in (64, 128):
+    for d in (64, 128, 256):
         q, k, v, out, lse, do, _, _ = inputs(B_CHECK, 1024, 1024, d, torch.float32, causal=True,
                                              q_sd=3.0)
         got = fb.flash_attention_backward(q, k, v, out, lse, do, causal=True)
@@ -1094,57 +1137,70 @@ def phase_bwd_kernels(record):
     # memory-efficient SDPA backward on the same fp32 inputs. Bound: the
     # 3xTF32 floor (three TF32 products for each fp32 one at the TF32 peak),
     # with the fp32 CUDA-core time of the same flop beside it.
-    q32, k32, v32, do32 = q.float(), k.float(), v.float(), do.float()
-    out32, lse32 = flash_attention_forward(q32, k32, v32, causal=True)
-    p32 = fb._prepare(q32, k32, v32, out32, lse32, do32, None, None, True, None, None)
-    reads32 = 4 * (q.numel() + k.numel() + v.numel() + do.numel()) + 4 * 2 * lse.numel()
-    passes32 = {
-        "flash_bwd_dq_fp32": (lambda: (fb._launch_dq(p32, torch.float32),),
-                              lambda: (fb._plain_dq(p32),), 3, 4 * q.numel(), ("dq",)),
-        "flash_bwd_dkv_fp32": (lambda: fb._launch_dkv(p32, torch.float32),
-                               lambda: fb._plain_dkv(p32), 4, 2 * 4 * k.numel(), ("dk", "dv")),
-    }
-    for name, (kern, plain, products, written, grads) in passes32.items():
-        got, want = kern(), plain()
-        check = {g: rel_err(x, y) for g, x, y in zip(grads, got, want)}
-        kernel = name.removesuffix("_fp32")
-        worst[kernel] = max(worst[kernel], *(float((x - y).abs().max()) for x, y in zip(got, want)))
-        del got, want
-        flops = 2 * D * products * pairs
-        nbytes = reads32 + written
-        t = dict(**cuda_stats(kern), plain_ms=cuda_ms(plain, iters=3, warmup=1),
-                 flops=flops, bytes=nbytes, ops_ms=3 * flops / H100_TF32_FLOPS * 1e3,
-                 bytes_ms=nbytes / H100_HBM_BYTES * 1e3, check=check,
-                 ok=all(e <= 1e-4 for e in check.values()))
-        t["tf32x3_floor_ms"] = t["ops_ms"]
-        t["share_of_tf32x3_floor"] = t["tf32x3_floor_ms"] / t["ms"]
-        t["fp32_cuda_core_ms"] = flops / H100_FP32_FLOPS * 1e3
-        timing[name] = t
+    # At D 64 (the bf16 inputs as fp32) and at D 256 (fresh fp32 inputs: the
+    # wide 3xTF32 tiles).
+    shapes = {}
+    for suffix, d in (("_fp32", D), ("_fp32_d256", 256)):
+        if d == D:
+            q32, k32, v32, do32 = q.float(), k.float(), v.float(), do.float()
+        else:
+            q32, k32, v32 = (randn((b, h, s, d)) for h in (HQ, HKV, HKV))
+            do32 = randn((b, HQ, s, d))
+        out32, lse32 = flash_attention_forward(q32, k32, v32, causal=True)
+        p32 = fb._prepare(q32, k32, v32, out32, lse32, do32, None, None, True, None, None)
+        reads32 = 4 * (q32.numel() + k32.numel() + v32.numel() + do32.numel() + 2 * lse32.numel())
+        passes32 = {
+            "flash_bwd_dq" + suffix: (lambda: (fb._launch_dq(p32, torch.float32),),
+                                      lambda: (fb._plain_dq(p32),), 3, 4 * q32.numel(), ("dq",)),
+            "flash_bwd_dkv" + suffix: (lambda: fb._launch_dkv(p32, torch.float32),
+                                       lambda: fb._plain_dkv(p32), 4, 2 * 4 * k32.numel(),
+                                       ("dk", "dv")),
+        }
+        for name, (kern, plain, products, written, grads) in passes32.items():
+            got, want = kern(), plain()
+            check = {g: rel_err(x, y) for g, x, y in zip(grads, got, want)}
+            kernel = name.removesuffix(suffix)
+            worst[kernel] = max(worst[kernel],
+                                *(float((x - y).abs().max()) for x, y in zip(got, want)))
+            del got, want
+            flops = 2 * d * products * pairs
+            nbytes = reads32 + written
+            t = dict(**cuda_stats(kern), plain_ms=cuda_ms(plain, iters=3, warmup=1),
+                     flops=flops, bytes=nbytes, ops_ms=3 * flops / H100_TF32_FLOPS * 1e3,
+                     bytes_ms=nbytes / H100_HBM_BYTES * 1e3, check=check,
+                     ok=all(e <= 1e-4 for e in check.values()))
+            t["tf32x3_floor_ms"] = t["ops_ms"]
+            t["share_of_tf32x3_floor"] = t["tf32x3_floor_ms"] / t["ms"]
+            t["fp32_cuda_core_ms"] = flops / H100_FP32_FLOPS * 1e3
+            timing[name] = t
+            shapes[name] = f"B{b} Hq{HQ} Hkv{HKV} Sq{s} Sk{s} D{d} causal fp32"
+            torch.cuda.empty_cache()
+        qg = q32.detach().requires_grad_(True)
+
+        def sdpa32_grads(kg, vg, qg=qg, do32=do32, **kw):
+            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, **kw)
+            torch.autograd.grad(o, (qg, kg, vg), do32, retain_graph=True)
+            return lambda: torch.autograd.grad(o, (qg, kg, vg), do32, retain_graph=True)
+
+        try:
+            kg, vg = k32.detach().requires_grad_(True), v32.detach().requires_grad_(True)
+            grads32 = sdpa32_grads(kg, vg, enable_gqa=True)
+            sdpa_gqa = "enable_gqa"
+        except (RuntimeError, TypeError):
+            kg = k32.repeat_interleave(HQ // HKV, 1).requires_grad_(True)
+            vg = v32.repeat_interleave(HQ // HKV, 1).requires_grad_(True)
+            grads32 = sdpa32_grads(kg, vg)
+            sdpa_gqa = "K and V expanded to 16 heads outside the timing (enable_gqa refused)"
+        sdpa32_ms = cuda_ms(grads32)
+        for name in passes32:
+            timing[name].update(library_ms=sdpa32_ms,
+                                library="memory-efficient SDPA backward on the fp32 inputs (dQ, "
+                                        "dK and dV in one call), " + sdpa_gqa)
+        del qg, kg, vg, grads32, p32, q32, k32, v32, do32, out32, lse32, passes32
         torch.cuda.empty_cache()
-    qg = q32.detach().requires_grad_(True)
-
-    def sdpa32_grads(kg, vg, **kw):
-        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
-            o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True, **kw)
-        torch.autograd.grad(o, (qg, kg, vg), do32, retain_graph=True)
-        return lambda: torch.autograd.grad(o, (qg, kg, vg), do32, retain_graph=True)
-
-    try:
-        kg, vg = k32.detach().requires_grad_(True), v32.detach().requires_grad_(True)
-        grads32 = sdpa32_grads(kg, vg, enable_gqa=True)
-        sdpa_gqa = "enable_gqa"
-    except (RuntimeError, TypeError):
-        kg = k32.repeat_interleave(HQ // HKV, 1).requires_grad_(True)
-        vg = v32.repeat_interleave(HQ // HKV, 1).requires_grad_(True)
-        grads32 = sdpa32_grads(kg, vg)
-        sdpa_gqa = "K and V expanded to 16 heads outside the timing (enable_gqa refused)"
-    sdpa32_ms = cuda_ms(grads32)
-    for name in passes32:
-        timing[name].update(library_ms=sdpa32_ms,
-                            library="memory-efficient SDPA backward on the fp32 inputs (dQ, dK "
-                                    "and dV in one call), " + sdpa_gqa)
-    del qg, kg, vg, grads32, p32, q32, k32, v32, do32, out32, lse32
-    torch.cuda.empty_cache()
+    q32, k32, v32, do32 = q.float(), k.float(), v.float(), do.float()
+    reads32 = 4 * (q.numel() + k.numel() + v.numel() + do.numel()) + 4 * 2 * lse.numel()
 
     # dbias with a (1, Hq, S, S) bias, summed over the batch in the kernel.
     bias = torch.randn((1, HQ, s, s), device=dev,
@@ -1189,7 +1245,6 @@ def phase_bwd_kernels(record):
     # dbias on fp32 inputs (the CUDA-core kernel) with the same bias. Bound:
     # the 3xTF32 floor, as the fp32 dQ and dK/dV; yardstick: the
     # memory-efficient SDPA backward with an fp32 bias gradient.
-    q32, k32, v32, do32 = q.float(), k.float(), v.float(), do.float()
     out_b, lse_b = flash_attention_forward(q32, k32, v32, bias, causal=True)
     pb = fb._prepare(q32, k32, v32, out_b, lse_b, do32, bias, None, True, None, None)
     kern = lambda: fb._launch_dbias(pb, tuple(bias.shape))  # noqa: E731
@@ -1229,7 +1284,8 @@ def phase_bwd_kernels(record):
             raise AssertionError(f"{name} disagrees with its plain version at the training shape: {t['check']}")
         bound(t)
         emit({"phase": "kernel_timing", "kernel": name,
-              "shape": shape.replace("bf16", "fp32") if name.endswith("_fp32") else shape, **t})
+              "shape": shapes.get(name, shape.replace("bf16", "fp32") if name.endswith("_fp32")
+                                  else shape), **t})
     record["bwd_kernel_timing"] = timing
     return timing, worst
 
@@ -1691,7 +1747,9 @@ def quant_step_want(recipe, depth):
 
 def phase_quant_training(record):
     """The full-width model trains with cfg.quantization: int8 (a warm-up and
-    three timed SGD steps), int4 (a warm-up and one), int8-qdense (one)."""
+    three timed SGD steps), int4 and int8-qdense (a warm-up and one each:
+    a recipe's first step also pays its allocations and first launches,
+    300 ms more in one run)."""
     import torch
 
     from umfa_tpu_torch import _kernels
@@ -1702,7 +1760,7 @@ def phase_quant_training(record):
     tokens = torch.randint(0, 32768, (B_TRAIN, S_TRAIN + 1),
                            generator=torch.Generator().manual_seed(5)).to(dev)
     out, path_counts = {}, []
-    for recipe, n_steps in (("int8", 4), ("int4", 2), ("int8-qdense", 1)):
+    for recipe, n_steps in (("int8", 4), ("int4", 2), ("int8-qdense", 2)):
         cfg = gpt.GPTConfig(vocab=32768, dim=1024, num_heads=HQ, num_kv_heads=HKV, depth=8,
                             max_seq=SK, dtype="bfloat16",
                             quantization=QuantizationConfig.from_mode_string(recipe))
@@ -1913,8 +1971,8 @@ def phase_ring_kernels(record):
     versions, both on the card over LocalRing, at B2, Hq16/Hkv8 and Hq =
     Hkv = 8, S 1024 over 4 and 2 ranks, D 64 and 128, fp32 and bf16,
     contiguous causal, zigzag causal and non-causal, the backward with a
-    nonzero dlse; a local chunk of 96 and bf16 D 256 over 4 ranks; then the
-    two backward routes against each other."""
+    nonzero dlse; a local chunk of 96, and bf16 and fp32 D 256, over 4
+    ranks; then the two backward routes against each other."""
     import torch
 
     from umfa_tpu_torch.parallel import LocalRing, ring_flash_attention_pallas
@@ -1961,11 +2019,11 @@ def phase_ring_kernels(record):
                         worst["ring_bwd_dq"] = max(worst["ring_bwd_dq"], abs_err[1])
                         worst["ring_bwd_dkv"] = max(worst["ring_bwd_dkv"], *abs_err[2:])
                         results.append(res)
-    # A local chunk of 96 rows (zigzag halves of 48: ragged tiles) and bf16
-    # D 256, contiguous and zigzag causal, over 4 ranks.
-    extra = [(384, 64, dtype, layout) for dtype in (torch.float32, torch.bfloat16)
-             for layout in ("causal", "zigzag")]
-    extra += [(1024, 256, torch.bfloat16, layout) for layout in ("causal", "zigzag")]
+    # A local chunk of 96 rows (zigzag halves of 48: ragged tiles) and D 256
+    # (bf16, and fp32 on the wide 3xTF32 tiles), contiguous and zigzag
+    # causal, over 4 ranks.
+    extra = [(seq, d, dtype, layout) for seq, d in ((384, 64), (1024, 256))
+             for dtype in (torch.float32, torch.bfloat16) for layout in ("causal", "zigzag")]
     for seq, d, dtype, layout in extra:
         causal, zigzag = RING_LAYOUTS[layout]
         shapes = ((B_CHECK, HQ, seq, d), (B_CHECK, HKV, seq, d), (B_CHECK, HKV, seq, d),
@@ -1987,8 +2045,11 @@ def phase_ring_kernels(record):
         rtol, ltol = fwd_tol[dtype]
         res["ok"] = (res["finite"] and res["relerr_out"] <= rtol and res["max_abs_lse"] <= ltol
                      and all(res[f"relerr_{g}"] <= bwd_tol[dtype] for g in ("dq", "dk", "dv")))
-        worst["ring_fwd_step"] = max(worst["ring_fwd_step"],
-                                     float((out.float() - want.float()).abs().max()))
+        abs_err = [float((x.float() - y.float()).abs().max())
+                   for x, y in zip((out, *grads), (want, *want_grads))]
+        worst["ring_fwd_step"] = max(worst["ring_fwd_step"], abs_err[0])
+        worst["ring_bwd_dq"] = max(worst["ring_bwd_dq"], abs_err[1])
+        worst["ring_bwd_dkv"] = max(worst["ring_bwd_dkv"], *abs_err[2:])
         results.append(res)
     record["ring_kernel_checks"] = results
     summary = {"phase": "ring_kernel_check", "cases": len(results),
@@ -2227,9 +2288,42 @@ def phase_ring_full(record):
                         lambda: rp._dq_plain(q3, do3, lse3, delta3, k2, v2, dq, full),
                         6 * D * pairs_full, bwd_reads + 2 * 4 * dq.numel(), (dq,), 2e-2),
     }
+    # The three kernels on fp32 inputs at D 256 (the wide 3xTF32 tiles), the
+    # same step of rank 3 against chunk 2.
+    d2 = 256
+    q3w, do3w = (torch.randn((b, HQ, s_loc, d2), generator=gen).to(dev) for _ in range(2))
+    k2w, v2w = (torch.randn((b, HKV, s_loc, d2), generator=gen).to(dev) for _ in range(2))
+    full2 = full._replace(scale=d2**-0.5)
+    sw = torch.matmul(rp._fold(q3w * full2.scale, HKV), k2w.transpose(-1, -2))
+    lse3w = sw.reshape(b, HQ, s_loc, s_loc).logsumexp(-1)  # finite on every row
+    del sw
+    delta3w = torch.randn(lse3w.shape, generator=gen).to(dev)
+    o3w, l3w = torch.randn(q3w.shape, generator=gen).to(dev), lse3w.clone()
+    dkw, dvw, dqw = (torch.zeros(x.shape, device=dev) for x in (k2w, v2w, q3w))
+    wide_reads = 4 * (q3w.numel() + k2w.numel() + v2w.numel())
+    kernels.update({
+        "ring_fwd_step_fp32_d256": (
+            lambda: rp.ring_fwd_step(q3w, k2w, v2w, o3w, l3w, full2),
+            lambda: rp._fwd_step_plain(q3w, k2w, v2w, o3w, l3w, full2),
+            4 * d2 * pairs_full, wide_reads + 2 * 4 * o3w.numel() + 2 * 4 * l3w.numel(),
+            (o3w, l3w), 2e-5),
+        "ring_bwd_dkv_fp32_d256": (
+            lambda: rp.ring_bwd_dkv(q3w, do3w, lse3w, delta3w, k2w, v2w, dkw, dvw, full2),
+            lambda: rp._dkv_plain(q3w, do3w, lse3w, delta3w, k2w, v2w, dkw, dvw, full2),
+            8 * d2 * pairs_full,
+            wide_reads + 4 * (do3w.numel() + 2 * lse3w.numel()) + 2 * 4 * (dkw.numel() + dvw.numel()),
+            (dkw, dvw), 1e-4),
+        "ring_bwd_dq_fp32_d256": (
+            lambda: rp.ring_bwd_dq(q3w, do3w, lse3w, delta3w, k2w, v2w, dqw, full2),
+            lambda: rp._dq_plain(q3w, do3w, lse3w, delta3w, k2w, v2w, dqw, full2),
+            6 * d2 * pairs_full,
+            wide_reads + 4 * (do3w.numel() + 2 * lse3w.numel()) + 2 * 4 * dqw.numel(),
+            (dqw,), 1e-4),
+    })
     timing = {}
     for name, (kern, plain, flops, nbytes, outs, gate) in kernels.items():
-        fp32 = name.endswith("_fp32")
+        fp32 = "_fp32" in name
+        d_name = 256 if name.endswith("_d256") else D
         start = [x.clone() for x in outs]
         kern()
         got = [x.clone() for x in outs]
@@ -2247,12 +2341,13 @@ def phase_ring_full(record):
                           "positions and merges into (o, lse)"))
         bound(t)
         emit({"phase": "kernel_timing", "kernel": name,
-              "shape": f"B{b} Hq{HQ} Hkv{HKV} S_loc{s_loc} D{D} {'fp32' if fp32 else 'bf16'}, "
+              "shape": f"B{b} Hq{HQ} Hkv{HKV} S_loc{s_loc} D{d_name} {'fp32' if fp32 else 'bf16'}, "
                        f"rank 3 of {n}", **t})
         timing[name] = t
         if check > gate:
             raise AssertionError(f"{name} disagrees with its plain version at full width: {check}")
         del start, got
+    del q3w, do3w, k2w, v2w, lse3w, delta3w, o3w, l3w, dkw, dvw, dqw, kernels
     torch.cuda.empty_cache()
 
     # The whole ring beside single-device attention on the unsharded sequence.
@@ -2358,14 +2453,14 @@ TC_KERNELS = {"flash_fwd": ("fwd_tc_kernel",), "flash_bwd": ("dq_tc_kernel", "dk
 TC_OPS = {"quant_attn_fwd": ("HMMA", "IMMA"), "fused_qattn": ("DMMA", "HMMA")}
 # The fp32 dense forward and backward and the fp32 ring steps: their 3xTF32
 # instantiations (product policy Tf32x3Mma) of every stem must hold TF32
-# HMMA, and the CUDA-core kernels they replaced must be gone, but for the
-# one exception: `flash_fwd_kernel` at D 256 (fp32 inputs of head dim
-# 129-256, which the 3xTF32 body does not take).
+# HMMA, at D 64, 128 and 256 alike, and the CUDA-core kernels they replaced
+# must be gone.
 TF32_POLICY, TF32_HMMA = "Tf32x3Mma", "HMMA.1688.F32.TF32"
 TF32_LIBS = ("flash_fwd", "flash_bwd", "ring_attn")
-SIMT_GONE = {"flash_bwd": ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"),
+TF32_WIDTHS = ("Li64E", "Li128E", "Li256E")  # the head-dim template argument, mangled
+SIMT_GONE = {"flash_fwd": ("flash_fwd_kernel",),
+             "flash_bwd": ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"),
              "ring_attn": ("ring_fwd_step_kernel", "ring_bwd_dq_kernel", "ring_bwd_dkv_kernel")}
-SIMT_KEPT = {"flash_fwd": ("flash_fwd_kernel", "Li256E")}  # (stem, its one template argument)
 
 
 def ptxas_resources(log):
@@ -2392,9 +2487,9 @@ def phase_sass(record, report):
     """Count the HMMA (or, per TC_OPS, IMMA and DMMA) tensor-core instructions of
     each tensor-core kernel in its library's SASS (cuobjdump -sass); raise
     if a kernel has none of one of them, if an fp32 (3xTF32) instantiation
-    of the dense forward or backward or of a ring kernel has no TF32 HMMA,
-    or if a CUDA-core kernel that a tensor-core one replaced is left (in
-    `flash_fwd` the fp32 D 256 one alone stays).
+    of the dense forward or backward or of a ring kernel has no TF32 HMMA
+    (or one of the D 64, 128 and 256 instantiations of a stem is missing),
+    or if a CUDA-core kernel that a tensor-core one replaced is left.
     With each kernel its registers and spills (ptxas -v, when this run built
     the library) and the dynamic shared memory it launches with."""
     import ctypes
@@ -2404,7 +2499,7 @@ def phase_sass(record, report):
 
     from umfa_tpu_torch import _kernels
 
-    kernels, smem, simt_kept = {}, {}, []
+    kernels, smem = {}, {}
     for lib, stems in TC_KERNELS.items():
         sass = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass",
                                str(_kernels._lib_path(lib))],
@@ -2415,12 +2510,6 @@ def phase_sass(record, report):
             m = re.search(r"Function : (\S+)", ln)
             if m:
                 left = [k for k in SIMT_GONE.get(lib, ()) if k in m.group(1)]
-                kept = SIMT_KEPT.get(lib)
-                if kept and kept[0] in m.group(1):
-                    if kept[1] not in m.group(1):
-                        left.append(m.group(1))
-                    else:
-                        simt_kept.append(f"{lib}:{m.group(1)}")
                 if left:
                     raise AssertionError(f"{lib} still holds the CUDA-core {left[0]}")
                 stem = next((st for st in stems if st in m.group(1)), None)
@@ -2448,6 +2537,10 @@ def phase_sass(record, report):
                 if not found or any(kernels[f]["hmma_tf32"] == 0 for f in found):
                     raise AssertionError(f"no {TF32_HMMA} in the fp32 {stem} of {lib}: "
                                          f"{ {f: kernels[f].get('hmma_tf32') for f in found} }")
+                widths = [w for w in TF32_WIDTHS if not any(w in f for f in found)]
+                if widths:
+                    raise AssertionError(f"the fp32 {stem} of {lib} lacks the instantiations "
+                                         f"{widths}: {found}")
         if lib in report:
             for f, r in ptxas_resources(report[lib]["ptxas"]).items():
                 if f"{lib}:{f}" in kernels:
@@ -2474,20 +2567,14 @@ def phase_sass(record, report):
         smem[f"ring_fwd_step bf16 D{d}"] = rfwd(d, 1)
         smem[f"ring_bwd_dq bf16 D{d}"] = rbwd(d, 0, 1)
         smem[f"ring_bwd_dkv bf16 D{d}"] = rbwd(d, 1, 1)
+        smem[f"ring_fwd_step fp32 D{d}"] = rfwd(d, 0)
+        smem[f"ring_bwd_dq fp32 D{d}"] = rbwd(d, 0, 0)
+        smem[f"ring_bwd_dkv fp32 D{d}"] = rbwd(d, 1, 0)
+        smem[f"flash_bwd_dq fp32 D{d}"] = fbwd(d, 0, 0)
+        smem[f"flash_bwd_dkv fp32 D{d}"] = fbwd(d, 1, 0)
         if d <= 128:
-            smem[f"ring_fwd_step fp32 D{d}"] = rfwd(d, 0)
-            smem[f"ring_bwd_dq fp32 D{d}"] = rbwd(d, 0, 0)
-            smem[f"ring_bwd_dkv fp32 D{d}"] = rbwd(d, 1, 0)
-            smem[f"flash_bwd_dq fp32 D{d}"] = fbwd(d, 0, 0)
-            smem[f"flash_bwd_dkv fp32 D{d}"] = fbwd(d, 1, 0)
             smem[f"fused_qattn D{d}"] = fq(d)
-    if len(simt_kept) != 2:  # flash_fwd_kernel<float|bf16 out, 256>
-        raise AssertionError(f"the CUDA-core fp32 D 256 forward: expected 2 instantiations, "
-                             f"got {simt_kept}")
-    out = {"kernels": kernels, "dynamic_smem_bytes": smem,
-           "cuda_core_exception": {"kernels": simt_kept,
-                                   "why": "fp32 flash_fwd at head dim 129-256, which the 3xTF32 "
-                                          "body does not take"}}
+    out = {"kernels": kernels, "dynamic_smem_bytes": smem}
     emit({"phase": "sass", **out})
     record["sass"] = out
 
@@ -2501,7 +2588,8 @@ DESIGN = {
                  "parts, three mma.sync m16n8k8 tf32->fp32 a product, big·big and the small "
                  "products in separate score accumulators, each tile's P·V added by an fp32 "
                  "add, P's keys permuted inside each 8-key step so the accumulators are the A "
-                 "fragment), 32-key fp32 tiles, D <= 128; fp32 D 129-256: CUDA cores, FP32 FMAs",
+                 "fragment), 32-key fp32 tiles, D <= 256 (at D 129-256: 8 warps on 128 query "
+                 "rows, 16-key tiles)",
     "flash_bwd_dq": "tensor cores, the dQ body of quant_bwd_dq (csrc/bwd_tc.cuh dq_tc_kernel) "
                     "with a dense load stage (4 warps x 16 query rows, q·scale and dO staged "
                     "once, K/V key tiles copied by cp.async two steps ahead into three padded "
@@ -2509,14 +2597,20 @@ DESIGN = {
                     "tiles at D 64; fp32/fp16 inputs: 3xTF32 (each operand split into tf32 big "
                     "and small parts, three mma.sync m16n8k8 tf32->fp32 a product, big·big and "
                     "the small products in separate accumulators, each 32-key tile's dQ product "
-                    "added to the running sum by an fp32 add), 32-key fp32 tiles",
+                    "added to the running sum by an fp32 add), 32-key fp32 tiles (at D 129-256: "
+                    "8 warps, each forming S and dP over half the depth and owning that half "
+                    "of dQ, the halves' partials added in shared memory; 16-key tiles in two "
+                    "staging buffers copied one step ahead)",
     "flash_bwd_dkv": "tensor cores, the dK/dV body of quant_bwd_dkv (csrc/bwd_tc.cuh "
                      "dkv_tc_kernel) with a dense load stage (4 warps x 16 keys, 8 at D 256; K/V "
                      "staged once, Q and dO 32-row tiles copied by cp.async two steps ahead into "
                      "three padded buffers, the raw Q read in place for dK, q·scale for Sᵀ "
                      "converted one step ahead); bf16 inputs: mma.sync m16n8k16 bf16->fp32; "
                      "fp32/fp16 inputs: 3xTF32 as flash_bwd_dq, each query tile's dK and dV "
-                     "products added to the running sums by fp32 adds, fp32 tiles",
+                     "products added to the running sums by fp32 adds, fp32 tiles (at D 129-256: "
+                     "8 warps on 32 keys, each forming Sᵀ and dPᵀ over a quarter of the depth and "
+                     "owning that quarter of dK and dV, the partials added in shared memory; "
+                     "16-row query tiles)",
     "flash_dbias": "bf16 inputs: tensor cores, mma.sync m16n8k16 bf16->fp32 (dbias_tc_kernel: 8 "
                    "warps on a 64-query x 128-key output tile, the dS sum over the bias's "
                    "broadcast batch and heads in registers, the bias tile in shared memory "
@@ -2551,17 +2645,17 @@ DESIGN = {
                      "band plus a first visible query row and a key limit, hidden tiles skipped; "
                      "for each block_k group of keys a K-only pre-pass for the group's row max, "
                      "then P (rounded to V's type against it) and P·V; merged into (o, lse) by "
-                     "their one owner; bf16 inputs mma.sync m16n8k16 bf16->fp32, D <= 256; fp32 "
-                     "3xTF32, D <= 128",
+                     "their one owner; bf16 inputs mma.sync m16n8k16 bf16->fp32, fp32 3xTF32 "
+                     "(fp16 computed as fp32), D <= 256",
     "ring_bwd_dkv": "tensor cores, the dK/dV body of flash_bwd_dkv (csrc/bwd_tc.cuh "
                     "dkv_tc_kernel with the dense load stages of csrc/bwd_dense.cuh) in ring "
                     "mode: the step's global-position mask reduced on the host to the band plus "
                     "a first visible query row and a key limit, hidden tiles skipped, dK/dV "
                     "folded into the travelling fp32 buffers by their one owner; bf16 inputs "
-                    "mma.sync m16n8k16 bf16->fp32, D <= 256; fp32 3xTF32, D <= 128",
+                    "mma.sync m16n8k16 bf16->fp32, fp32 3xTF32 (fp16 computed as fp32), D <= 256",
     "ring_bwd_dq": "tensor cores, the dQ body of flash_bwd_dq (csrc/bwd_tc.cuh dq_tc_kernel) "
                    "in ring mode as ring_bwd_dkv, dQ folded into the fp32 accumulator; bf16 "
-                   "inputs mma.sync m16n8k16 bf16->fp32, D <= 256; fp32 3xTF32, D <= 128",
+                   "inputs mma.sync m16n8k16 bf16->fp32, fp32 3xTF32, D <= 256",
     "mma_probe": "tensor cores, mma.sync m16n8k16 bf16->fp32",
 }
 

@@ -98,11 +98,15 @@ FLASH_CASES = [
     (2, 2, 1, 70, 300, 256, False, (40, 8), "hqk"),     # D 256, window, bias, GQA 2
     (1, 4, 4, 100, 60, 128, False, (0, -1), None),      # D 128, rows >= 60 fully masked
     (1, 2, 2, 100, 60, 256, False, (0, -1), "bq"),      # D 256, masked rows and a bias
+    (1, 4, 2, 130, 257, 192, True, None, None),         # D 192 (padded to 256), KV tail
+    (2, 2, 1, 70, 300, 192, False, (40, 8), "hqk"),     # D 192, window, bias, GQA 2
+    (1, 4, 1, 100, 60, 192, False, (0, -1), "bq"),      # D 192, GQA 4, masked rows, a bias
 ]
 
 
-# bf16 runs the tensor-core body in bf16, fp32 and fp16 in 3xTF32 (D <= 128)
-# or the CUDA-core kernel (D 256); each counts as one `flash_fwd` launch.
+# bf16 runs the tensor-core body in bf16, fp32 and fp16 in 3xTF32 (at D 256
+# on 8 warps, 128 query rows and 16-key tiles); each counts as one
+# `flash_fwd` launch.
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("case", FLASH_CASES)
 def test_flash_fwd_kernel_matches_plain(dev, dtype, case):
@@ -133,11 +137,10 @@ def test_flash_fwd_kernel_bf16_in_fp32_out(dev, d):
     _check(out, lse, want, want_lse, 1e-2, 1e-3)
 
 
-# The fp32 forward (3xTF32 on the tensor cores at D <= 128) as accurate as
-# fp32 FMAs in another order: 5e-6 against the plain version at causal S
-# 1024 with q ~ N(0, 3), a quarter of the gate, as the fp32 backward is held
-# (test_flash_bwd_fp32_keeps_highest_accuracy); D 256 runs the CUDA-core
-# kernel.
+# The fp32 forward (3xTF32 on the tensor cores) as accurate as fp32 FMAs in
+# another order: 5e-6 against the plain version at causal S 1024 with
+# q ~ N(0, 3), a quarter of the gate, as the fp32 backward is held
+# (test_flash_bwd_fp32_keeps_highest_accuracy).
 @pytest.mark.parametrize("d", [64, 128, 256])
 def test_flash_fwd_fp32_keeps_highest_accuracy(dev, d):
     q, k, v = _qkv(2, 4, 4, 1024, 1024, d, torch.float32, dev)
@@ -148,7 +151,7 @@ def test_flash_fwd_fp32_keeps_highest_accuracy(dev, d):
 
 
 @pytest.mark.parametrize("dtype,d", [(torch.float32, 64), (torch.float32, 128),
-                                     (torch.bfloat16, 64)])
+                                     (torch.float32, 256), (torch.bfloat16, 64)])
 def test_flash_fwd_kernel_is_deterministic(dev, dtype, d):
     q, k, v = _qkv(2, 4, 2, 300, 300, d, dtype, dev)
     first = flash_attention_forward(q, k, v, causal=True)
@@ -276,6 +279,14 @@ def test_flash_bwd_kernels_bf16_wide_heads_match_plain(dev, case):
     _check_bwd(args, kw, torch.bfloat16, BWD_TOLS[torch.bfloat16])
 
 
+# fp16 inputs (computed as fp32) at the same head dims: the 3xTF32 bodies'
+# D 256 tiles, fp32 gradients, 1e-4.
+@pytest.mark.parametrize("case", BWD_WIDE_CASES)
+def test_flash_bwd_kernels_fp16_wide_heads_match_plain(dev, case):
+    args, kw = _bwd_inputs(case, torch.float16, dev)
+    _check_bwd(args, kw, None, BWD_TOLS[torch.float16])
+
+
 def _check_dbias(case, dtype, dev):
     """The dbias kernel once, against the plain version: fp32 out, 1e-4."""
     (q, k, v, out, lse, do, bias, _), kw = _bwd_inputs(case, dtype, dev)
@@ -368,7 +379,9 @@ def test_flash_bwd_dkv_tc_bf16_in_fp32_out(dev, case):
 # fp32 inputs: dQ and dK/dV on the tensor cores in 3xTF32 (dq_tc_kernel and
 # dkv_tc_kernel with fp32 load stages), at head dims that are not multiples
 # of 16 (zero-padded to the 64 template), a KV tail, GQA 4, fully masked
-# rows and a long causal row with larger scores; gate 1e-4 (BWD_TOLS).
+# rows and a long causal row with larger scores, and at D 192 and 256 (the
+# wide fp32 tiles: dK/dV 32-key blocks, dQ 16-key tiles); gate 1e-4
+# (BWD_TOLS).
 BWD_FP32_CASES = [
     # (case as in BWD_CASES, q_sd)
     ((2, 4, 2, 200, 200, 36, True, None, None, True), 1.0),       # D 36, dlse
@@ -377,6 +390,12 @@ BWD_FP32_CASES = [
     ((1, 2, 2, 77, 100, 36, False, (20, 10), "bhqk", True), 1.0),  # D 36, window, bias
     ((1, 4, 2, 1024, 1024, 64, True, None, None, False), 3.0),    # causal S 1024, q ~ N(0, 3)
     ((1, 4, 2, 1024, 1024, 128, True, None, None, True), 3.0),    # the same at D 128, dlse
+    ((1, 4, 2, 130, 257, 192, True, None, None, True), 1.0),      # D 192, KV tail, dlse
+    ((2, 4, 1, 200, 200, 256, True, None, None, False), 1.0),     # D 256, GQA 4
+    ((1, 2, 2, 100, 60, 256, False, (0, -1), None, False), 1.0),  # D 256, rows >= 60 masked
+    ((2, 2, 1, 96, 160, 256, False, (20, 10), "b11k", True), 1.0),  # window, bias, GQA 2, dlse
+    ((1, 4, 1, 100, 60, 192, False, (0, -1), "bhqk", True), 1.0),  # D 192, GQA 4, masked, bias
+    ((1, 4, 2, 1024, 1024, 256, True, None, None, True), 3.0),    # causal S 1024 at D 256
 ]
 
 
@@ -391,7 +410,7 @@ def test_flash_bwd_fp32_tc_kernels_match_plain(dev, case, q_sd):
 # q ~ N(0, 3), a twentieth of the gate (chip_smoke.py reports both sides'
 # distance from a float64 evaluation at this shape). One TF32 pass sits
 # near 1e-3 there (the CPU model, tests/test_torch_flash_bwd_split.py).
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_flash_bwd_fp32_keeps_highest_accuracy(dev, d):
     args, kw = _bwd_inputs((2, 4, 4, 1024, 1024, d, True, None, None, False), torch.float32, dev,
                            q_sd=3.0)
@@ -424,26 +443,34 @@ def test_quant_attn_fwd_kernel_refuses_head_dim_over_256(dev, d):
 
 
 def test_flash_bwd_kernels_refuse_what_they_do_not_take(dev):
-    args, kw = _bwd_inputs((1, 2, 2, 64, 64, 192, False, None, None, False), torch.float32, dev)
-    with pytest.raises(ValueError):
+    args, kw = _bwd_inputs((1, 2, 2, 64, 64, 264, False, None, None, False), torch.float32, dev)
+    n0 = _kernels.launches["flash_bwd_dq"]
+    with pytest.raises(ValueError, match="head_dim <= 256"):
         flash_attention_backward(*args, **kw)
+    assert _kernels.launches["flash_bwd_dq"] == n0
     args, kw = _bwd_inputs((1, 2, 2, 64, 64, 64, False, None, None, False), torch.float32, dev)
     with pytest.raises(ValueError):
         flash_attention_backward(args[0], args[1].cpu(), *args[2:], **kw)
 
 
 def test_flash_bwd_kernels_refuse_head_dims_over_their_limits(dev):
-    # bf16: head_dim <= 256 (dQ, dK/dV, dbias); fp32: <= 128, dbias too.
-    (q, k, v, out, lse, do, bias, _), kw = _bwd_inputs(
-        (1, 2, 2, 64, 64, 320, False, None, "bhqk", False), torch.bfloat16, dev)
-    with pytest.raises(ValueError, match="head_dim <= 256"):
-        flash_attention_backward(q, k, v, out, lse, do, bias, **kw)
-    with pytest.raises(ValueError, match="head_dim <= 256"):
-        flash_attention_bias_grad(q, k, v, out, lse, do, bias, **kw)
+    # head_dim <= 256 for dQ and dK/dV in bf16 and fp32 and for the bf16
+    # dbias; the fp32 dbias (CUDA cores) <= 128.
+    for dtype in (torch.bfloat16, torch.float32):
+        (q, k, v, out, lse, do, bias, _), kw = _bwd_inputs(
+            (1, 2, 2, 64, 64, 320, False, None, "bhqk", False), dtype, dev)
+        with pytest.raises(ValueError, match="head_dim <= 256"):
+            flash_attention_backward(q, k, v, out, lse, do, bias, **kw)
+        with pytest.raises(ValueError, match="head_dim <= 256"):
+            flash_attention_bias_grad(q, k, v, out, lse, do, bias, **kw)
     (q, k, v, out, lse, do, bias, _), kw = _bwd_inputs(
         (1, 2, 2, 64, 64, 192, False, None, "bhqk", False), torch.float32, dev)
-    with pytest.raises(ValueError, match="head_dim <= 128"):
+    with pytest.raises(ValueError, match="flash_dbias kernel takes head_dim <= 128"):
         flash_attention_bias_grad(q, k, v, out, lse, do, bias, **kw)
+    n0 = _kernels.launches["flash_bwd_dkv"]
+    flash_attention_backward(q, k, v, out, lse, do, bias, **kw)  # dQ, dK/dV take D 192
+    torch.cuda.synchronize()
+    assert _kernels.launches["flash_bwd_dkv"] == n0 + 1
 
 
 # ---- Quantized training kernels (quant_rows, fused_qattn, quant_bwd) ----
@@ -1001,7 +1028,7 @@ def test_ring_bwd_kernels_take_bf16_head_dim_256(dev, zigzag):
 # The fp32 ring backward (3xTF32) as accurate as the dense one: 5e-6
 # against its plain version at causal S 1024, q ~ N(0, 3), as
 # test_flash_bwd_fp32_keeps_highest_accuracy holds the dense backward.
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_ring_bwd_fp32_keeps_highest_accuracy(dev, d):
     q, k, v, do, dlse = _ring_inputs(4, 4, d, torch.float32, dev)
     q = q * 3.0
@@ -1028,7 +1055,7 @@ def test_ring_bwd_kernels_are_deterministic(dev, dtype):
 # accurate in fp32 as the ring backward: 5e-6 against its plain version at
 # causal S 1024, q ~ N(0, 3), LSE 1e-5.
 @pytest.mark.parametrize("zigzag", [False, True])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_ring_fwd_fp32_keeps_highest_accuracy(dev, d, zigzag):
     q, k, v, _, _ = _ring_inputs(4, 4, d, torch.float32, dev)
     q = q * 3.0
@@ -1062,6 +1089,60 @@ def test_ring_takes_bf16_head_dim_256(dev, zigzag):
     for x, y in zip(leaves, want_grads):
         assert torch.isfinite(x.grad).all()
         assert rel_err(x.grad, y) <= RING_BWD_TOLS[torch.bfloat16]
+
+
+# fp32 D 256 through the public entry point, forward and backward, against
+# the ring of plain versions at the fp32 gates (the 3xTF32 bodies' wide fp32
+# tiles).
+@pytest.mark.parametrize("zigzag", [False, True])
+def test_ring_takes_fp32_head_dim_256(dev, zigzag):
+    q, k, v, do, dlse = _ring_inputs(16, 8, 256, torch.float32, dev)
+    cfg = rp._config(256, True, zigzag, 256**-0.5, None)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    before = dict(_kernels.launches)
+    out, lse = rp.ring_flash_attention_pallas(*leaves, ring=LocalRing(4), causal=True,
+                                              zigzag=zigzag, return_lse=True)
+    ((out * do).sum() + (lse * dlse).sum()).backward()
+    torch.cuda.synchronize()
+    steps = 16 if zigzag else 10
+    for name in ("ring_fwd_step", "ring_bwd_dkv", "ring_bwd_dq"):
+        assert _kernels.launches[name] == before.get(name, 0) + steps
+    want, want_lse = rp._ring_fwd(q, k, v, LocalRing(4), cfg, plain=True)
+    rtol, ltol = RING_FWD_TOLS[torch.float32]
+    assert rel_err(out, want) <= rtol and (lse - want_lse).abs().max().item() <= ltol
+    want_grads = rp._ring_bwd(q, k, v, out.detach(), lse.detach(), do, dlse, LocalRing(4), cfg,
+                              plain=True)
+    for x, y in zip(leaves, want_grads):
+        assert torch.isfinite(x.grad).all()
+        assert rel_err(x.grad, y) <= RING_BWD_TOLS[torch.float32]
+
+
+# fp16 through the public entry point: computed as fp32 on the 3xTF32
+# kernels and cast back, against the ring of plain versions on the same
+# values in fp32, at the dense fp16 forward's gates (atol/rtol 1e-3, LSE
+# 1e-3; tests/test_torch_flash_fwd.py); gradients in fp16 at 1e-3.
+@pytest.mark.parametrize("zigzag", [False, True])
+def test_ring_takes_fp16(dev, zigzag):
+    q, k, v, do, dlse = _ring_inputs(16, 8, 64, torch.float16, dev)
+    cfg = rp._config(256, True, zigzag, 64**-0.5, None)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    before = dict(_kernels.launches)
+    out, lse = rp.ring_flash_attention_pallas(*leaves, ring=LocalRing(4), causal=True,
+                                              zigzag=zigzag, return_lse=True)
+    ((out.float() * do.float()).sum() + (lse * dlse).sum()).backward()
+    torch.cuda.synchronize()
+    for name in ("ring_fwd_step", "ring_bwd_dkv", "ring_bwd_dq"):
+        assert _kernels.launches[name] == before.get(name, 0) + (16 if zigzag else 10)
+    q32, k32, v32 = (x.float() for x in (q, k, v))
+    want, want_lse = rp._ring_fwd(q32, k32, v32, LocalRing(4), cfg, plain=True)
+    assert out.dtype == torch.float16 and lse.dtype == torch.float32
+    torch.testing.assert_close(out.float(), want.half().float(), atol=1e-3, rtol=1e-3)
+    torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=0)
+    want_grads = rp._ring_bwd(q32, k32, v32, want, want_lse, do.float(), dlse, LocalRing(4), cfg,
+                              plain=True)
+    for x, y in zip(leaves, want_grads):
+        assert x.grad.dtype == torch.float16 and torch.isfinite(x.grad).all()
+        assert rel_err(x.grad, y) <= 1e-3
 
 
 # A local chunk of 96 rows (S 384 over 4 ranks), contiguous and zigzag (halves
@@ -1099,9 +1180,9 @@ def test_ring_fwd_kernel_is_deterministic(dev, dtype, zigzag):
 
 
 def test_ring_kernels_refuse_what_they_do_not_take(dev):
-    # The forward: fp32 up to head_dim 128, bf16 up to 256.
-    with pytest.raises(ValueError, match="head_dim <= 128"):
-        q, k, v, _, _ = _ring_inputs(2, 2, 160, torch.float32, dev, seq=512)
+    # The forward: head_dim up to 256, fp32 and bf16.
+    with pytest.raises(ValueError, match="head_dim <= 256"):
+        q, k, v, _, _ = _ring_inputs(2, 2, 264, torch.float32, dev, seq=512)
         rp.ring_flash_attention_pallas(q, k, v, ring=LocalRing(4))
     with pytest.raises(ValueError, match="head_dim <= 256"):
         q, k, v, _, _ = _ring_inputs(2, 2, 320, torch.bfloat16, dev, seq=512)
@@ -1120,8 +1201,8 @@ def test_ring_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="one CUDA device"):
         rp.ring_fwd_step(q[:, :, :64].contiguous(), k[:, :, :64].cpu(), v[:, :, :64].contiguous(),
                          o, lse, c)
-    # The backward kernels: bf16 up to head_dim 256, fp32 up to 128.
-    for dtype, d, limit in ((torch.bfloat16, 260, 256), (torch.float32, 160, 128)):
+    # The backward kernels: head_dim up to 256, bf16 and fp32.
+    for dtype, d, limit in ((torch.bfloat16, 260, 256), (torch.float32, 264, 256)):
         q, k, v, do, _ = _ring_inputs(2, 2, d, dtype, dev, seq=128)
         lse = torch.zeros(q.shape[:3], device=dev)
         dk, dv, dq = (torch.zeros(x.shape, device=dev) for x in (k, v, q))

@@ -13,7 +13,11 @@ bf16: both round P to bf16 against the same running max and store o in
 bf16 after every step, so only a summation-order difference that moves a
 value across a bf16 rounding boundary separates them: measured relerr
 2.7e-5 to 1.1e-4 and LSE max abs <= 9.6e-7 at these shapes, gated at
-relerr 1e-3 and LSE 1e-5.
+relerr 1e-3 and LSE 1e-5. fp16: the port computes it as fp32 (P not
+rounded) and casts the output to fp16 once, where the reference rounds P
+to fp16 and stores o in fp16 after every step; held at the dense fp16
+forward's gates (tests/test_torch_flash_fwd.py), atol/rtol 1e-3 and LSE
+1e-3.
 """
 
 import jax
@@ -45,8 +49,8 @@ from umfa_tpu_torch.utils.testing import rel_err
 
 N_DEV, S, D = 4, 256, 64
 SP = P(None, None, "sp", None)
-JDT = {"fp32": jnp.float32, "bf16": jnp.bfloat16}
-TDT = {"fp32": torch.float32, "bf16": torch.bfloat16}
+JDT = {"fp32": jnp.float32, "bf16": jnp.bfloat16, "fp16": jnp.float16}
+TDT = {"fp32": torch.float32, "bf16": torch.bfloat16, "fp16": torch.float16}
 GATES = {"fp32": (2e-5, 1e-5), "bf16": (1e-3, 1e-5)}
 
 
@@ -54,8 +58,8 @@ def _normal(seed, *shape):
     return np.random.default_rng(seed).normal(0, 1, shape).astype(np.float32)
 
 
-def _qkv(hq, hkv, seq=S):
-    return _normal(0, 1, hq, seq, D), _normal(1, 1, hkv, seq, D), _normal(2, 1, hkv, seq, D)
+def _qkv(hq, hkv, seq=S, d=D):
+    return _normal(0, 1, hq, seq, d), _normal(1, 1, hkv, seq, d), _normal(2, 1, hkv, seq, d)
 
 
 def _mesh():
@@ -98,6 +102,32 @@ def test_ring_pallas_forward_matches_jax(case, dtype):
     assert out.dtype == TDT[dtype] and lse.dtype == torch.float32
     assert out.shape == q.shape and lse.shape == q.shape[:3]
     rtol, ltol = GATES[dtype]
+    assert rel_err(out, want) <= rtol
+    assert float((lse - _t(want_lse)).abs().max()) <= ltol
+
+
+@pytest.mark.parametrize("zigzag", [False, True], ids=["causal", "zigzag"])
+def test_ring_pallas_forward_takes_fp16(zigzag):
+    q, k, v = _qkv(2, 2)
+    if zigzag:
+        q, k, v = (np.asarray(jax_zigzag_shard(jnp.asarray(x), N_DEV)) for x in (q, k, v))
+    want, want_lse = _jax_ring_pallas(q, k, v, "fp16", causal=True, zigzag=zigzag)
+    out, lse = ring_flash_attention_pallas(*(_t(x, "fp16") for x in (q, k, v)),
+                                           ring=LocalRing(N_DEV), causal=True, zigzag=zigzag,
+                                           return_lse=True)
+    assert out.dtype == torch.float16 and lse.dtype == torch.float32
+    np.testing.assert_allclose(out.float().numpy(), want, atol=1e-3, rtol=1e-3)
+    np.testing.assert_allclose(lse.numpy(), want_lse, atol=1e-3, rtol=0)
+
+
+def test_ring_pallas_forward_takes_fp32_head_dim_256():
+    # B1 H2, S 128 over 4 ranks (S_loc 32), causal: the head dim the port's
+    # fp32 ring kernels take since their 3xTF32 bodies have a D 256 tile.
+    q, k, v = _qkv(2, 2, seq=128, d=256)
+    want, want_lse = _jax_ring_pallas(q, k, v, "fp32", causal=True)
+    out, lse = ring_flash_attention_pallas(*(_t(x) for x in (q, k, v)), ring=LocalRing(N_DEV),
+                                           causal=True, return_lse=True)
+    rtol, ltol = GATES["fp32"]
     assert rel_err(out, want) <= rtol
     assert float((lse - _t(want_lse)).abs().max()) <= ltol
 

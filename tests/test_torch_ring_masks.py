@@ -5,7 +5,7 @@ visibility by global position (`_Step.keep`, from `ring._global_positions`),
 element by element, for every (rank, step) that the ring launches; and the
 arguments the wrappers pass to the C entries (a fake entry records them),
 with the limits the kernels take: any local chunk the reference's tile
-asserts admit, bf16 head_dim <= 256, fp32 <= 128."""
+asserts admit, head_dim <= 256 in bf16 and fp32."""
 
 import contextlib
 from types import SimpleNamespace
@@ -165,13 +165,23 @@ def test_the_ring_kernels_take_bf16_head_dim_256(monkeypatch, kernel):
 
 
 @pytest.mark.parametrize("kernel", ["ring_fwd_step", "ring_bwd_dkv", "ring_bwd_dq"])
+def test_the_ring_kernels_take_fp32_head_dim_256(monkeypatch, kernel):
+    calls = _fake_c_entry(monkeypatch, check_launch=True)
+    c = rp._Step(4, 3, 2, False, True, False, 0.0625, S_LOC)
+    for d in (160, 256):
+        _launch(kernel, _operands(kernel, d=d, dtype=torch.float32), c)
+    assert [args[10 if kernel == "ring_fwd_step" else 12] for _, _, _, args in calls] == [160, 256]
+    assert all(args[-2] == 0 for _, _, _, args in calls)  # the fp32 dtype code
+
+
+@pytest.mark.parametrize("kernel", ["ring_fwd_step", "ring_bwd_dkv", "ring_bwd_dq"])
 def test_the_ring_kernels_still_refuse_what_they_do_not_take(monkeypatch, kernel):
     calls = _fake_c_entry(monkeypatch, check_launch=True)
     c = rp._Step(4, 3, 2, False, True, False, 0.125, 64)
     with pytest.raises(ValueError, match="head_dim <= 256"):
         _launch(kernel, _operands(kernel, d=320), c)
-    with pytest.raises(ValueError, match="head_dim <= 128"):
-        _launch(kernel, _operands(kernel, d=160, dtype=torch.float32), c)
+    with pytest.raises(ValueError, match="head_dim <= 256"):
+        _launch(kernel, _operands(kernel, d=264, dtype=torch.float32), c)
     zig = c._replace(zigzag=True, block_k=45)
     with pytest.raises(ValueError, match="even under zigzag"):
         _launch(kernel, _operands(kernel, s_loc=91), zig)

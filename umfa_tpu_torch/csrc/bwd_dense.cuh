@@ -16,17 +16,17 @@ namespace umfa {
 template <typename T>
 using MmaFor = std::conditional_t<sizeof(T) == 2, Bf16Mma, Tf32x3Mma>;
 
-// Rows [0, 64) of a bf16 or fp32 matrix with rows of D elements (src: its
+// Rows [0, ROWS) of a bf16 or fp32 matrix with rows of D elements (src: its
 // first row; n live rows) into a tile of row stride DP + PAD, each value
 // times `scale` and rounded to T once when SCALED (the reference's Q·scale,
 // flash_bwd.py:52); rows at or past n and columns past D are 0. wide: four
 // values at a time (D % 4 == 0, src aligned to four elements).
-template <int DP, bool SCALED, typename T>
+template <int DP, bool SCALED, int ROWS = 64, typename T>
 __device__ __forceinline__ void stage_rows_tile(T* dst, const T* src, int n, int D, bool wide,
                                                 float scale) {
   constexpr int C4 = DP / 4;
   constexpr int LD = DP + MmaFor<T>::PAD;
-  for (int e = threadIdx.x; e < 64 * C4; e += blockDim.x) {
+  for (int e = threadIdx.x; e < ROWS * C4; e += blockDim.x) {
     const int r = e / C4, c = (e - r * C4) * 4;
     const T* row = src + (long long)r * D;
     float x[4] = {0.f, 0.f, 0.f, 0.f};
@@ -48,13 +48,14 @@ __device__ __forceinline__ void stage_rows_tile(T* dst, const T* src, int n, int
 
 // dQ: Q and dO staged once; each key tile's K and V copied by cp.async
 // straight into padded tiles, which the products read where they landed
-// (three staging buffers, copies two steps ahead, nothing converted, no
-// per-key score term).
+// (three staging buffers, copies two steps ahead; fp32 at D 256, where
+// three do not fit beside Q and dO, two, copies one step ahead; nothing
+// converted, no per-key score term).
 template <int DP, typename T>
 struct DenseDqLoad {
   using G = DqTile<DP, MmaFor<T>>;
   static constexpr int KT = G::KT, LD = G::LD;
-  static constexpr int NRAW = 3, IN_FLIGHT = 1;
+  static constexpr int NRAW = G::WIDE32 ? 2 : 3, AHEAD = NRAW - 1, IN_FLIGHT = NRAW - 2;
   static constexpr int RAW_BYTES = 2 * KT * LD * (int)sizeof(T);  // K, V (row stride LD)
   struct Kv {
     static constexpr int BYTES = 0;
@@ -137,13 +138,13 @@ struct DenseLoad {
 
   static __device__ __forceinline__ float dk_scale(const BwdParams& p) { return p.scale; }
 
-  // K and V of key rows [k0, k0 + 64); the dense backward has no V mean.
+  // K and V of key rows [k0, k0 + KB); the dense backward has no V mean.
   static __device__ __forceinline__ void stage_kv(T* sK, T* sV, float* sVm, const BwdParams& p,
                                                   long long kbh, int k0) {
-    const int n = min(64, p.Sk - k0);
+    const int n = min(G::KB, p.Sk - k0);
     const long long off = (kbh * p.Sk + k0) * p.D;
-    stage_rows_tile<DP, false>(sK, static_cast<const T*>(p.k) + off, n, p.D, p.wide, 1.f);
-    stage_rows_tile<DP, false>(sV, static_cast<const T*>(p.v) + off, n, p.D, p.wide, 1.f);
+    stage_rows_tile<DP, false, G::KB>(sK, static_cast<const T*>(p.k) + off, n, p.D, p.wide, 1.f);
+    stage_rows_tile<DP, false, G::KB>(sV, static_cast<const T*>(p.v) + off, n, p.D, p.wide, 1.f);
     for (int c = threadIdx.x; c < DP; c += blockDim.x) sVm[c] = 0.f;
   }
 
@@ -208,15 +209,17 @@ cudaError_t launch_dense(BwdParams p, bool dkv, cudaStream_t stream) {
 
 // Dynamic shared memory of the dense dQ (dkv = 0) or dK/dV (dkv = 1) body
 // for head dim D on bf16 (bf16 = 1) or fp32 inputs, in bytes; 0 if it does
-// not take them (bf16: D <= 256; fp32: D <= 128).
+// not take them (D <= 256).
 inline int dense_smem_bytes(int D, int dkv, int bf16) {
-  if (D < 1 || D > (bf16 ? 256 : 128)) return 0;
+  if (D < 1 || D > 256) return 0;
   if (!bf16) {
     if (dkv)
-      return D <= 64 ? dkv_smem_bytes<DenseLoad<64, float>, Tf32x3Mma, 64>()
-                     : dkv_smem_bytes<DenseLoad<128, float>, Tf32x3Mma, 128>();
-    return D <= 64 ? dq_smem_bytes<DenseDqLoad<64, float>, Tf32x3Mma, 64>()
-                   : dq_smem_bytes<DenseDqLoad<128, float>, Tf32x3Mma, 128>();
+      return D <= 64    ? dkv_smem_bytes<DenseLoad<64, float>, Tf32x3Mma, 64>()
+             : D <= 128 ? dkv_smem_bytes<DenseLoad<128, float>, Tf32x3Mma, 128>()
+                        : dkv_smem_bytes<DenseLoad<256, float>, Tf32x3Mma, 256>();
+    return D <= 64    ? dq_smem_bytes<DenseDqLoad<64, float>, Tf32x3Mma, 64>()
+           : D <= 128 ? dq_smem_bytes<DenseDqLoad<128, float>, Tf32x3Mma, 128>()
+                      : dq_smem_bytes<DenseDqLoad<256, float>, Tf32x3Mma, 256>();
   }
   using B16 = __nv_bfloat16;
   if (dkv)

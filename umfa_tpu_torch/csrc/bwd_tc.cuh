@@ -173,13 +173,56 @@ __device__ __forceinline__ void load_rows_f32(float* dst, const float* src, int 
     cp_async4(dst + r, r < n ? src + r : src, r < n ? 4 : 0);
 }
 
+// The fp32 bodies at D 256 (WIDE32) split each product's depth between
+// warps: warp w holds the C fragments (s, dp) of its rows over depth slice
+// w / STRIDE, and each of the NSLICE warps of a row group adds the group's
+// partials in slice order, so all of them hold the same sums (one owner's
+// result, computed NSLICE times). part: 2·N·4 floats a thread, stored
+// [element][thread]. Every thread of the block calls it (a barrier); `live`
+// is false for warps whose rows see nothing this step, as for their whole
+// row group.
+template <int NSLICE, int STRIDE, int N>
+__device__ __forceinline__ void sum_slices(float (&s)[N][4], float (&dp)[N][4], float* part,
+                                           bool live) {
+  constexpr int NTH = NSLICE * STRIDE * 32;
+  const int tid = threadIdx.x, slice = (tid >> 5) / STRIDE;
+  const int own = tid - slice * STRIDE * 32;  // the thread of slice 0 with these elements
+  if (live) {
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        part[(4 * j + e) * NTH + tid] = s[j][e];
+        part[(4 * (N + j) + e) * NTH + tid] = dp[j][e];
+      }
+  }
+  __syncthreads();
+  if (!live) return;
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float* ps = part + (4 * j + e) * NTH + own;
+      const float* pd = part + (4 * (N + j) + e) * NTH + own;
+      float x = ps[0], y = pd[0];
+#pragma unroll
+      for (int c = 1; c < NSLICE; ++c) {
+        x = __fadd_rn(x, ps[c * STRIDE * 32]);
+        y = __fadd_rn(y, pd[c * STRIDE * 32]);
+      }
+      s[j][e] = x;
+      dp[j][e] = y;
+    }
+}
+
 // ---- dK/dV ---------------------------------------------------------------
 //
-// One block of 4 · SPLIT warps per (64-key tile, kv head, batch). Warp w
-// owns keys 16(w % 4)..+15 of the tile and columns [(w / 4)·DW, +DW) of
-// their dK and dV (DW = DP / SPLIT), in fp32 mma accumulators for the whole
-// walk over the GQA group's query heads and their visible query tiles (QT
-// rows each). Per query tile, with keys as the rows of every product:
+// One block of KB/16 · SPLIT warps per (KB-key tile, kv head, batch). Warp
+// w owns keys 16(w % (KB/16))..+15 of the tile and columns
+// [(w / (KB/16))·DW, +DW) of their dK and dV (DW = DP / SPLIT), in fp32 mma
+// accumulators for the whole walk over the GQA group's query heads and
+// their visible query tiles (QT rows each). Per query tile, with keys as
+// the rows of every product:
 //   Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ   (A: K, V; B: Q, dO via ldmatrix)
 //   Pᵀ, dSᵀ on the fragments; colsum(dS) in fp32 registers
 //   dV += Pᵀ·dO, dK += dSᵀ·Q   (A straight from the Pᵀ and dSᵀ
@@ -188,24 +231,35 @@ __device__ __forceinline__ void load_rows_f32(float* dst, const float* src, int 
 // At D 256 one warp's dK and dV (16 keys × 256 columns, two fp32 tiles)
 // would take 256 registers a thread, over the limit of 255: SPLIT = 2 puts
 // two warps on each key group, each recomputing Sᵀ and dPᵀ and owning half
-// the columns.
+// the columns (bf16). fp32 (WIDE32): SPLIT = 4 warps on each key group,
+// each owning a quarter of the columns and forming Sᵀ and dPᵀ over that
+// quarter of the depth alone; `sum_slices` adds the four partials.
 //
 // Tiles and occupancy as measured best at the training shape (B8 Hq16 Hkv8
 // S4096 D64 bf16; 32-query tiles with the K/V fragments from shared memory
 // and three blocks an SM beat 64-query tiles, fragments held in registers,
 // and two or four blocks an SM). fp32 tiles take twice the bytes: two
-// blocks an SM at D 64, one at D 128.
+// blocks an SM at D 64, one at D 128. fp32 at D 256 (WIDE32): 64 keys of
+// K and V alone take 134 KB, and the dense stage's three staging buffers
+// of 32-row Q and dO tiles 200 KB more; so 32-key blocks (8 warps: two key
+// groups, four depth slices) and 16-row query tiles, with 16 KB for the
+// partials: 217,600 bytes. Two key groups with two column halves each,
+// both recomputing Sᵀ and dPᵀ over the whole depth, took 138 ms at the
+// training shape, slower than the plain version (124 ms).
 template <int DP, class Mma = Bf16Mma>
 struct DkvTile {
   using T = typename Mma::T;
   static constexpr bool F32 = sizeof(T) == 4;
-  static constexpr int QT = 32;                  // query rows per tile
+  static constexpr bool WIDE32 = F32 && DP > 128;
+  static constexpr int KB = WIDE32 ? 32 : 64;     // keys a block
+  static constexpr int QT = WIDE32 ? 16 : 32;     // query rows per tile
   static constexpr int LD = DP + Mma::PAD;       // row stride in shared memory
-  static constexpr int SPLIT = DP > 128 ? 2 : 1;  // warps on one key group
-  static constexpr int NTHR = 128 * SPLIT;
+  static constexpr int SPLIT = WIDE32 ? 4 : DP > 128 ? 2 : 1;  // warps on one key group
+  static constexpr int NTHR = KB / 16 * 32 * SPLIT;
   static constexpr int MINB = (F32 ? DP <= 64 ? 2 : 1                   // blocks an SM holds
                                    : DP <= 64 ? 3 : DP <= 128 ? 2 : 1);
-  static constexpr int KV_BYTES = 2 * 64 * LD * (int)sizeof(T) + DP * 4;  // K, V, vm (fp32)
+  static constexpr int KV_BYTES = 2 * KB * LD * (int)sizeof(T) + DP * 4;  // K, V, vm (fp32)
+  static constexpr int PART_BYTES = WIDE32 ? QT * 4 * NTHR : 0;  // 2·(QT/8)·4 floats a thread
 };
 
 // The load stage `Load` of dkv_tc_kernel provides:
@@ -216,12 +270,13 @@ struct DkvTile {
 //   NRAW, RAW_BYTES            the staging buffers (2, or 3 when the Tile
 //       reads its staging buffer) and their size;
 //   dk_scale(p)                the factor on dK at the store;
-//   stage_kv(sK, sV, sVm, ..)  K, V of the block's 64 keys (Mma::T, LD) and vm;
+//   stage_kv(sK, sV, sVm, ..)  K, V of the block's KB keys (Mma::T, LD) and vm;
 //   issue(raw, p, qbh, q0, vec)  the copies of a query tile's raw operands;
 //   stage(raw, t, sVm, p, qbh, q0)  raw -> the converted part of tile t.
 template <class Load, class Mma, int DP>
 constexpr int dkv_smem_bytes() {
-  return DkvTile<DP, Mma>::KV_BYTES + 2 * Load::Tile::BYTES + Load::NRAW * Load::RAW_BYTES;
+  return DkvTile<DP, Mma>::KV_BYTES + 2 * Load::Tile::BYTES + Load::NRAW * Load::RAW_BYTES +
+         DkvTile<DP, Mma>::PART_BYTES;
 }
 
 template <class Load, class Mma, typename Tout, int DP, bool RING = false>
@@ -230,30 +285,32 @@ __global__ void __launch_bounds__(DkvTile<DP, Mma>::NTHR, DkvTile<DP, Mma>::MINB
   using G = DkvTile<DP, Mma>;
   using T = typename Mma::T;
   using Tile = typename Load::Tile;
-  constexpr int QT = G::QT, LD = G::LD;
+  constexpr int QT = G::QT, LD = G::LD, KB = G::KB;
+  constexpr int KW = KB / 16;          // key groups of 16 a block (a power of two)
   constexpr int NQ = QT / 8;           // 8-query tiles of Sᵀ and dPᵀ
   constexpr int DW = DP / G::SPLIT;    // columns of dK and dV a warp owns
   constexpr int NA = DW / 8;           // their 8-column tiles
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sK = reinterpret_cast<T*>(smem_raw);
-  T* sV = sK + 64 * LD;
-  float* sVm = reinterpret_cast<float*>(sV + 64 * LD);
+  T* sV = sK + KB * LD;
+  float* sVm = reinterpret_cast<float*>(sV + KB * LD);
   unsigned char* tiles = reinterpret_cast<unsigned char*>(sVm + DP);  // [2][Tile::BYTES]
   unsigned char* raw = tiles + 2 * Tile::BYTES;                       // [NRAW][RAW_BYTES]
+  float* part = reinterpret_cast<float*>(raw + Load::NRAW * Load::RAW_BYTES);  // WIDE32
   auto raw_of = [&](int i) { return raw + (i % Load::NRAW) * Load::RAW_BYTES; };
   auto tile_of = [&](int i) { return Tile(tiles + (i & 1) * Tile::BYTES, raw_of(i)); };
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tq = lane & 3;
-  const int kr = (G::SPLIT > 1 ? warp & 3 : warp) * 16;  // the warp's first key row in the tile
-  const int c0 = G::SPLIT > 1 ? (warp >> 2) * DW : 0;    // its first column of dK and dV
-  const int k0 = blockIdx.x * 64, hk = blockIdx.y, b = blockIdx.z;
+  const int kr = (G::SPLIT > 1 ? warp & (KW - 1) : warp) * 16;  // its first key row in the tile
+  const int c0 = G::SPLIT > 1 ? (warp >> (KW == 4 ? 2 : 1)) * DW : 0;  // its first column
+  const int k0 = blockIdx.x * KB, hk = blockIdx.y, b = blockIdx.z;
   const int group = p.Hq / p.Hkv;
   const long long kbh = (long long)b * p.Hkv + hk;
   const int key0 = k0 + kr + g, key1 = key0 + 8;  // this thread's two key rows
 
   int q_lo, q_hi;
-  visible_queries(k0, min(k0 + 64, p.Sk) - 1, p.Sq, p.left, p.right, &q_lo, &q_hi);
+  visible_queries(k0, min(k0 + KB, p.Sk) - 1, p.Sq, p.left, p.right, &q_lo, &q_hi);
   if constexpr (RING) {
     q_lo = max(q_lo, p.q_lo);
     if (k0 >= p.k_hi) q_hi = -1;
@@ -311,14 +368,21 @@ __global__ void __launch_bounds__(DkvTile<DP, Mma>::NTHR, DkvTile<DP, Mma>::MINB
     const bool all = kw + 15 < p.Sk && qe < p.Sq && (p.right < 0 || kw + 15 <= q0 + p.right) &&
                      (p.left < 0 || kw >= qe - p.left) &&
                      (!RING || (kw + 15 < p.k_hi && q0 >= p.q_lo));
+    float s[NQ][4], dp[NQ][4];
     if (!none) {
-      float s[NQ][4], dp[NQ][4];
 #pragma unroll
       for (int j = 0; j < NQ; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-      Mma::template scores<DP, QT>(s, dp, sK, sV, t.q, t.o, LD, kr, lane);
-
+      if constexpr (G::WIDE32) {  // over the warp's depth slice, the columns it owns
+        Mma::template scores<DW, QT, Mma::QK_CHAIN>(s, dp, sK + c0, sV + c0, t.q + c0, t.o + c0,
+                                                    LD, kr, lane);
+      } else {
+        Mma::template scores<DP, QT>(s, dp, sK, sV, t.q, t.o, LD, kr, lane);
+      }
+    }
+    if constexpr (G::WIDE32) sum_slices<G::SPLIT, KW>(s, dp, part, !none);
+    if (!none) {
       // Element (j, e): key e < 2 ? key0 : key1, query q0 + 8j + 2tq + (e & 1).
       const float* bias =
           p.bias ? p.bias + b * p.bsb + (qbh - (long long)b * p.Hq) * p.bsh : nullptr;
@@ -386,12 +450,12 @@ __global__ void __launch_bounds__(DkvTile<DP, Mma>::NTHR, DkvTile<DP, Mma>::MINB
 template <class Load, class Mma, typename Tout, int DP, bool RING = false>
 cudaError_t launch_dkv_tc(const BwdParams& p, int vec, cudaStream_t stream) {
   constexpr int smem = dkv_smem_bytes<Load, Mma, DP>();
-  constexpr int nthr = DkvTile<DP, Mma>::NTHR;
+  constexpr int nthr = DkvTile<DP, Mma>::NTHR, kb = DkvTile<DP, Mma>::KB;
   const auto kernel = dkv_tc_kernel<Load, Mma, Tout, DP, RING>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.Sk + 63) / 64, p.Hkv, p.B);
+  const dim3 grid((p.Sk + kb - 1) / kb, p.Hkv, p.B);
   kernel<<<grid, nthr, smem, stream>>>(p, vec);
   return cudaGetLastError();
 }
@@ -400,7 +464,10 @@ cudaError_t launch_dkv_tc(const BwdParams& p, int vec, cudaStream_t stream) {
 //
 // One block of 4 warps per (64-row query tile, q head, batch), the last
 // query tiles (which see the most keys under a causal mask) first; warp w
-// owns query rows 16w..16w+15 and their dQ in fp32 mma accumulators. Q and
+// owns query rows 16w..16w+15 and their dQ in fp32 mma accumulators (fp32
+// at D 256, WIDE32: 8 warps, warp w rows 16(w % 4)..+15 and half the
+// columns of their dQ, S and dP formed over that half of the depth and
+// added by `sum_slices`). Q and
 // dO are staged once as tiles with the per-row LSE, δ and dP term. Per
 // visible key tile of KT keys:
 //   S = Q·Kᵀ and dP = dO·Vᵀ   (A: Q, dO via ldmatrix; B: K, V stored
@@ -410,13 +477,19 @@ cudaError_t launch_dkv_tc(const BwdParams& p, int vec, cudaStream_t stream) {
 //   Bf16Mma; B via ldmatrix.trans, or shared loads under Tf32x3Mma)
 // bf16: at D > 64 the key tile is 32 keys, so two blocks an SM fit at D 128
 // and one at D 256 (where dQ alone holds 128 fp32 registers a thread).
-// fp32: 32 keys, two blocks an SM at D 64, one at D 128.
+// fp32: 32 keys, two blocks an SM at D 64, one at D 128; 16 at D 256, where
+// Q and dO alone take 133 KB and the stage holds two key tiles, not three
+// (its `AHEAD`), and the partials 16 KB: 216,832 bytes.
 template <int DP, class Mma = Bf16Mma>
 struct DqTile {
   static constexpr bool F32 = sizeof(typename Mma::T) == 4;
-  static constexpr int KT = DP <= 64 && !F32 ? 64 : 32;  // keys a step
+  static constexpr bool WIDE32 = F32 && DP > 128;
+  static constexpr int SLICES = WIDE32 ? 2 : 1;  // warps on one 16-row group
+  static constexpr int NTHR = NT * SLICES;
+  static constexpr int KT = WIDE32 ? 16 : DP <= 64 && !F32 ? 64 : 32;  // keys a step
   static constexpr int LD = DP + Mma::PAD;
   static constexpr int MINB = F32 ? DP <= 64 ? 2 : 1 : DP <= 64 ? 3 : DP <= 128 ? 2 : 1;
+  static constexpr int PART_BYTES = WIDE32 ? KT * 4 * NTHR : 0;  // `sum_slices`
 };
 
 // The load stage `Load` of dq_tc_kernel provides:
@@ -426,9 +499,12 @@ struct DqTile {
 //       the stage's per-key term (or x itself);
 //   NRAW, RAW_BYTES           the staging buffers (2, or 3 when Kv reads its
 //       staging buffer) and their size;
+//   AHEAD                     how many steps ahead a key tile is copied: 2,
+//       or 1 when Kv reads its staging buffer from two of them;
 //   IN_FLIGHT                 the copies that may still be in flight at a
 //       step's barrier: 0 when `stage` converts the next tile, which must
-//       have landed by then, 1 when it does not;
+//       have landed by then (or when it was copied one step ahead), 1 when
+//       it does not;
 //   stage_q(sQ, sO, sRow, p, qbh, kbh, q0)  Q and dO of the block's 64
 //       rows (Mma::T, LD) and per row the dP term, LSE and δ (sRow[0..63],
 //       [64..127], [128..191]);
@@ -437,24 +513,26 @@ struct DqTile {
 template <class Load, class Mma, int DP>
 constexpr int dq_smem_bytes() {
   return 2 * 64 * DqTile<DP, Mma>::LD * (int)sizeof(typename Mma::T) + 3 * 64 * 4 +
-         2 * Load::Kv::BYTES + Load::NRAW * Load::RAW_BYTES;
+         2 * Load::Kv::BYTES + Load::NRAW * Load::RAW_BYTES + DqTile<DP, Mma>::PART_BYTES;
 }
 
 template <class Load, class Mma, typename Tout, int DP, bool RING = false>
-__global__ void __launch_bounds__(NT, DqTile<DP, Mma>::MINB) dq_tc_kernel(const BwdParams p,
-                                                                          const int vec) {
+__global__ void __launch_bounds__(DqTile<DP, Mma>::NTHR, DqTile<DP, Mma>::MINB)
+    dq_tc_kernel(const BwdParams p, const int vec) {
   using G = DqTile<DP, Mma>;
   using T = typename Mma::T;
   using Kv = typename Load::Kv;
   constexpr int KT = G::KT, LD = G::LD;
-  constexpr int NS = KT / 8;   // 8-key tiles of S and dP
-  constexpr int NA = DP / 8;   // 8-column tiles of dQ
+  constexpr int NS = KT / 8;            // 8-key tiles of S and dP
+  constexpr int DW = DP / G::SLICES;    // columns of dQ a warp owns
+  constexpr int NA = DW / 8;            // their 8-column tiles
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sQ = reinterpret_cast<T*>(smem_raw);
   T* sO = sQ + 64 * LD;
   float* sRow = reinterpret_cast<float*>(sO + 64 * LD);               // dP term, LSE, δ
   unsigned char* kvb = reinterpret_cast<unsigned char*>(sRow + 3 * 64);  // [2][Kv::BYTES]
   unsigned char* raw = kvb + 2 * Kv::BYTES;                              // [NRAW][RAW_BYTES]
+  float* part = reinterpret_cast<float*>(raw + Load::NRAW * Load::RAW_BYTES);  // WIDE32
   auto raw_of = [&](int i) { return raw + (i % Load::NRAW) * Load::RAW_BYTES; };
   auto kv_of = [&](int i) { return Kv(kvb + (i & 1) * Kv::BYTES, raw_of(i)); };
 
@@ -476,19 +554,21 @@ __global__ void __launch_bounds__(NT, DqTile<DP, Mma>::MINB) dq_tc_kernel(const 
     if (n_t == 0 && !p.first) return;  // adds nothing to the buffer
   }
 
-  // Pipeline as in dkv_tc_kernel: key tile i copied two steps ahead,
+  // Pipeline as in dkv_tc_kernel: key tile i copied AHEAD steps ahead,
   // converted one step ahead, one barrier a step.
+  constexpr int AHEAD = Load::AHEAD;
   if (n_t > 0) Load::issue(raw_of(0), p, qbh, kbh, t_lo * KT, vec);
   cp_async_commit();
-  if (n_t > 1) Load::issue(raw_of(1), p, qbh, kbh, (t_lo + 1) * KT, vec);
+  if (AHEAD > 1 && n_t > 1) Load::issue(raw_of(1), p, qbh, kbh, (t_lo + 1) * KT, vec);
   cp_async_commit();
   Load::stage_q(sQ, sO, sRow, p, qbh, kbh, q0);
   cp_async_wait<1>();
   __syncthreads();
   if (n_t > 0) Load::stage(raw_of(0), kv_of(0), p, kbh, t_lo * KT);
 
-  const int rw = warp * 16;                       // the warp's first row in the tile
-  const int row0 = q0 + rw + g, row1 = row0 + 8;  // this thread's two rows
+  const int rw = (G::WIDE32 ? warp & 3 : warp) * 16;  // the warp's first row in the tile
+  const int c0 = G::WIDE32 ? (warp >> 2) * DW : 0;      // its first column of dQ
+  const int row0 = q0 + rw + g, row1 = row0 + 8;       // this thread's two rows
   const float vt[2] = {sRow[rw + g], sRow[rw + g + 8]};
   const float lse[2] = {sRow[64 + rw + g], sRow[64 + rw + g + 8]};
   const float dlt[2] = {sRow[128 + rw + g], sRow[128 + rw + g + 8]};
@@ -503,7 +583,8 @@ __global__ void __launch_bounds__(NT, DqTile<DP, Mma>::MINB) dq_tc_kernel(const 
   for (int i = 0; i < n_t; ++i) {
     cp_async_wait<Load::IN_FLIGHT>();
     __syncthreads();  // key tile i landed and converted, step i - 1 done
-    if (i + 2 < n_t) Load::issue(raw_of(i + 2), p, qbh, kbh, (t_lo + i + 2) * KT, vec);
+    if (i + AHEAD < n_t)
+      Load::issue(raw_of(i + AHEAD), p, qbh, kbh, (t_lo + i + AHEAD) * KT, vec);
     cp_async_commit();
     if (i + 1 < n_t) Load::stage(raw_of(i + 1), kv_of(i + 1), p, kbh, (t_lo + i + 1) * KT);
 
@@ -518,14 +599,22 @@ __global__ void __launch_bounds__(NT, DqTile<DP, Mma>::MINB) dq_tc_kernel(const 
     const bool all = r_hi < p.Sq && ke < p.Sk && (p.right < 0 || ke <= r_lo + p.right) &&
                      (p.left < 0 || k0 >= r_hi - p.left) &&
                      (!RING || (ke < p.k_hi && r_lo >= p.q_lo));
-    if (none) continue;
+    if (!G::WIDE32 && none) continue;
 
     float s[NS][4], dp[NS][4];
 #pragma unroll
     for (int j = 0; j < NS; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-    Mma::template scores<DP, KT>(s, dp, sQ, sO, kv.k, kv.v, LD, rw, lane);
+    if constexpr (G::WIDE32) {  // over the warp's depth slice, the columns it owns
+      if (!none)
+        Mma::template scores<DW, KT, Mma::QK_CHAIN>(s, dp, sQ + c0, sO + c0, kv.k + c0,
+                                                    kv.v + c0, LD, rw, lane);
+      sum_slices<G::SLICES, 4>(s, dp, part, !none);
+      if (none) continue;
+    } else {
+      Mma::template scores<DP, KT>(s, dp, sQ, sO, kv.k, kv.v, LD, rw, lane);
+    }
 
     // Element (j, e): row e < 2 ? row0 : row1, key k0 + 8j + 2tq + (e & 1).
 #pragma unroll
@@ -544,7 +633,7 @@ __global__ void __launch_bounds__(NT, DqTile<DP, Mma>::MINB) dq_tc_kernel(const 
         dp[j][e] = ds;
       }
 
-    Mma::template grad<KT, NA>(acc, dp, kv.k, LD, 0, lane);
+    Mma::template grad<KT, NA>(acc, dp, kv.k, LD, c0, lane);
   }
 
   Tout* dq = static_cast<Tout*>(p.out0) + qbh * p.Sq * p.D;
@@ -556,7 +645,7 @@ __global__ void __launch_bounds__(NT, DqTile<DP, Mma>::MINB) dq_tc_kernel(const 
     for (int n = 0; n < NA; ++n)
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
-        const int col = 8 * n + 2 * tq + c;
+        const int col = c0 + 8 * n + 2 * tq + c;
         if (col < p.D)
           store_grad<RING>(dq, (long long)row * p.D + col, p.scale * acc[n][2 * r + c], p.first);
       }
@@ -570,8 +659,9 @@ cudaError_t launch_dq_tc(const BwdParams& p, int vec, cudaStream_t stream) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
+  constexpr int nthr = DqTile<DP, Mma>::NTHR;
   const dim3 grid((p.Sq + 63) / 64, p.Hq, p.B);
-  kernel<<<grid, NT, smem, stream>>>(p, vec);
+  kernel<<<grid, nthr, smem, stream>>>(p, vec);
   return cudaGetLastError();
 }
 

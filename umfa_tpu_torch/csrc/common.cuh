@@ -9,10 +9,8 @@
 
 namespace umfa {
 
-// One block of NT threads per 64-row query tile; 64-key K/V tiles. Thread t
-// owns score rows 4*(t/8)..+3 and score columns (t%8) + 8*j, j < 8, so the
-// eight threads of one row group are adjacent lanes of one warp and reduce
-// a row with three xor-shuffles.
+// The common tile geometry: one block of NT threads (4 warps) per 64-row
+// query tile, 64-key K/V tiles; kernels that differ say so.
 constexpr int BQ = 64;
 constexpr int BK = 64;
 constexpr int NT = 128;
@@ -42,21 +40,6 @@ template <> struct Elem<__nv_bfloat16> {
     p[i] = __float2bfloat16_rn(x);
   }
 };
-
-// Reductions over the eight lanes (t % 8) that share a score row.
-__device__ __forceinline__ float row_max8(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
-  return x;
-}
-
-__device__ __forceinline__ float row_sum8(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  x += __shfl_xor_sync(0xffffffffu, x, 2);
-  x += __shfl_xor_sync(0xffffffffu, x, 4);
-  return x;
-}
 
 // Key index range [lo, hi] that query rows [q0, q_last] can see under the
 // top-left aligned window (left, right), -1 = unbounded; causal is folded

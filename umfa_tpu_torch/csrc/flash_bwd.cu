@@ -25,15 +25,15 @@
 // both passes are deterministic:
 //   * dQ (`dq_tc_kernel<DenseDqLoad>`): one block of 4 warps per (64-row
 //     query tile, q head, batch); Q·scale, dO, LSE and δ staged once, then
-//     the visible key tiles (bf16: 64 keys at D 64, 32 above; fp32: 32) in
-//     order, nothing converted;
+//     the visible key tiles (bf16: 64 keys at D 64, 32 above; fp32: 32, 16
+//     at D 256) in order, nothing converted;
 //   * dK/dV (`dkv_tc_kernel<DenseLoad>`): one block of 4 warps (8 at
-//     D 256) per (64-key tile, kv head, batch) keeps K and V in shared
-//     memory and walks the query heads of its GQA group and their visible
-//     32-row query tiles; dK reads each tile's raw Q where it landed, and
-//     only Q·scale for Sᵀ is converted, one step ahead; the group sum stays
-//     in registers, so no per-query-head dK/dV reaches HBM
-//     (flash_bwd.py:1144-1170).
+//     D 256) per (64-key tile, kv head, batch; fp32 D 256: 32 keys) keeps K
+//     and V in shared memory and walks the query heads of its GQA group and
+//     their visible 32-row query tiles (fp32 D 256: 16 rows); dK reads
+//     each tile's raw Q where it landed, and only Q·scale for Sᵀ is
+//     converted, one step ahead; the group sum stays in registers, so no
+//     per-query-head dK/dV reaches HBM (flash_bwd.py:1144-1170).
 // Products by input type:
 //   * bf16: mma.sync m16n8k16 bf16 -> fp32 (`Bf16Mma`), head dims up to 256
 //     (templates 64, 128, 256; a smaller D is zero-padded to the template
@@ -49,8 +49,14 @@
 //     operand, as accurate as fp32 FMAs in another order, which is what the
 //     reference's HIGHEST precision for fp32 asks (flash_bwd.py:36-42); P
 //     and dS are split from the accumulators, rounded nowhere else. Head
-//     dims up to 128 (templates 64, 128): at D 128 the dK/dV block takes
-//     204,288 bytes of shared memory, one block an SM (D 64: 105,728, two).
+//     dims up to 256 (templates 64, 128, 256): at D 128 the dK/dV block
+//     takes 204,288 bytes of shared memory, one block an SM (D 64: 105,728,
+//     two); at D 256 the fp32 tiles take their own shapes (bwd_tc.cuh
+//     `DkvTile`, `DqTile`, `sum_slices`): 8 warps, each forming Sᵀ and dPᵀ
+//     (S and dP) over a slice of the depth and owning that slice's columns
+//     of the gradients, the slices' partials added in shared memory; dK/dV
+//     32-key blocks and 16-row query tiles (217,600 bytes), dQ 16-key tiles
+//     in two staging buffers copied one step ahead (216,832 bytes).
 // wgmma, TMA and warp specialisation are later work.
 //
 // Rounding points held to the reference (bf16 inputs; fp32 rounds nowhere):
@@ -73,9 +79,11 @@ namespace {
 
 template <typename Tout>
 cudaError_t launch_d(const BwdParams& p, bool dkv, bool bf16, cudaStream_t stream) {
-  if (!bf16)
-    return p.D <= 64 ? launch_dense<float, Tout, 64>(p, dkv, stream)
-                     : launch_dense<float, Tout, 128>(p, dkv, stream);
+  if (!bf16) {
+    if (p.D <= 64) return launch_dense<float, Tout, 64>(p, dkv, stream);
+    if (p.D <= 128) return launch_dense<float, Tout, 128>(p, dkv, stream);
+    return launch_dense<float, Tout, 256>(p, dkv, stream);
+  }
   if (p.D <= 64) return launch_dense<__nv_bfloat16, Tout, 64>(p, dkv, stream);
   if (p.D <= 128) return launch_dense<__nv_bfloat16, Tout, 128>(p, dkv, stream);
   return launch_dense<__nv_bfloat16, Tout, 256>(p, dkv, stream);
@@ -83,7 +91,7 @@ cudaError_t launch_d(const BwdParams& p, bool dkv, bool bf16, cudaStream_t strea
 
 int dispatch(const BwdParams& p, bool dkv, int in_dtype, int out_dtype, void* stream) {
   if (in_dtype < 0 || in_dtype > 1 || out_dtype < 0 || out_dtype > 1 || p.D < 1 ||
-      p.D > (in_dtype == 1 ? 256 : 128) || p.Hkv < 1 || p.Hq % p.Hkv != 0)
+      p.D > 256 || p.Hkv < 1 || p.Hq % p.Hkv != 0)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return out_dtype == 0 ? launch_d<float>(p, dkv, in_dtype == 1, st)
@@ -93,11 +101,11 @@ int dispatch(const BwdParams& p, bool dkv, int in_dtype, int out_dtype, void* st
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16. q/dout (B, Hq, Sq, D) and k/v
-// (B, Hkv, Sk, D) contiguous in in_dtype, D <= 256 for bfloat16 and <= 128
-// for float32; lse, delta (B, Hq, Sq) float32; bias float32 with element
-// strides (or null). umfa_flash_bwd_dq writes out0 = dQ (B, Hq, Sq, D);
-// umfa_flash_bwd_dkv writes out0 = dK and out1 = dV (B, Hkv, Sk, D); both in
-// out_dtype. Each returns the cudaError_t of its launch.
+// (B, Hkv, Sk, D) contiguous in in_dtype, D <= 256; lse, delta (B, Hq, Sq)
+// float32; bias float32 with element strides (or null). umfa_flash_bwd_dq
+// writes out0 = dQ (B, Hq, Sq, D); umfa_flash_bwd_dkv writes out0 = dK and
+// out1 = dV (B, Hkv, Sk, D); both in out_dtype. Each returns the
+// cudaError_t of its launch.
 #define UMFA_BWD_ARGS                                                                        \
   const void *q, const void *k, const void *v, const void *dout, const void *lse,           \
       const void *delta, const void *bias, void *out0, void *out1, int B, int Hq, int Hkv, \

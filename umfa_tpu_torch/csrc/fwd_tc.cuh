@@ -3,12 +3,13 @@
 // ring forward step (csrc/ring_attn.cu).
 //
 // The FA2 shape on mma.sync: one block of 4 warps per (64-row query tile,
-// q head, batch), the last query tiles (which see the most keys under a
-// causal mask) first; each warp owns 16 whole query rows, so the row max and
-// row sum need only quad shuffles. Q is staged once (and, where it fits,
-// held in registers as A fragments for the whole walk); K and V tiles of KT
-// keys are double-buffered in shared memory, cp.async bringing step i + 1
-// while step i is computed; rows past the key limit and columns past D are
+// q head, batch; fp32 at D 256: 8 warps per 128-row tile), the last query
+// tiles (which see the most keys under a causal mask) first; each warp
+// owns 16 whole query rows, so the row max and row sum need only quad
+// shuffles. Q is staged once (and, where it fits, held in registers as A
+// fragments for the whole walk); K and V tiles of KT keys are
+// double-buffered in shared memory, cp.async bringing step i + 1 while
+// step i is computed; rows past the key limit and columns past D are
 // zero-filled by the copy. S = Q·Kᵀ into fp32 fragments; the mask and the
 // bias are applied on the fragments, element by element only on tiles that
 // cross a mask edge or carry a bias; tiles nobody in the block sees are
@@ -17,10 +18,10 @@
 //
 // The product policy (mma_policy.cuh) is a template parameter: `Bf16Mma`
 // (bf16 tiles, KT = 64, mma.sync m16n8k16) or `Tf32x3Mma` (fp32 tiles,
-// KT = 32, every product as three mma.sync m16n8k8 tf32 on split operands;
-// the scores keep big·big and the small products in separate accumulators,
-// and each tile's P·V goes into a zeroed fragment that an fp32 add puts on
-// the running sum, so no mma chain is long). For P·V's A fragment the tf32
+// KT = 32 or 16 at D 256, every product as three mma.sync m16n8k8 tf32 on
+// split operands; the scores keep big·big and the small products in
+// separate accumulators, and each tile's P·V goes into a zeroed fragment
+// that an fp32 add puts on the running sum, so no mma chain is long). For P·V's A fragment the tf32
 // policy permutes the keys inside each 8-key step (mma.cuh
 // `tf32_a_from_c`), and reads V's B fragment in the same order by two
 // scalar shared loads (rows padded to D + 4 floats: free of bank conflicts).
@@ -75,15 +76,25 @@ struct FwdParams {
 // dense forward; registers capped at 128), three in ring mode. fp32: 32-key
 // tiles (52 KB of shared memory at D 64, 99 KB at D 128), three blocks an
 // SM at D 64 (6 % faster at the prefill than two with Q split once into
-// registers), two at D 128.
+// registers), two at D 128. fp32 at D 256 (WIDE32): a 64-row block would
+// hold one block of 4 warps an SM (the Q tile alone is 66 KB, and each
+// warp's out accumulator 128 registers), so the block takes 128 query rows
+// on 8 warps and 16-key tiles: (128 + 4·16) · 260 · 4 = 199,680 bytes, one
+// block an SM, 8 warps, 255 registers a thread; each warp's step is the
+// D 128 step's mma count (32 k-steps over 2 key tiles, 2 k-steps over 32
+// output tiles).
 template <int DP, class Mma, bool RING>
 struct FwdTile {
   using T = typename Mma::T;
   static constexpr bool F32 = sizeof(T) == 4;
-  static constexpr int KT = F32 ? 32 : 64;                  // keys a tile
+  static constexpr bool WIDE32 = F32 && DP > 128;
+  static constexpr int BQ = WIDE32 ? 128 : umfa::BQ;        // query rows a block
+  static constexpr int NT = BQ / 16 * 32;                   // a warp per 16 rows
+  static constexpr int KT = WIDE32 ? 16 : F32 ? 32 : 64;    // keys a tile
   static constexpr int LD = DP + Mma::PAD;                  // row stride in shared memory
   static constexpr int PRE = 512 / KT;                      // dense: tiles of the pre-pass
-  static constexpr int MINB = F32 ? (DP <= 64 ? 3 : 2) : DP <= 64 ? (RING ? 3 : 4) : 1;
+  static constexpr int MINB =
+      WIDE32 ? 1 : F32 ? (DP <= 64 ? 3 : 2) : DP <= 64 ? (RING ? 3 : 4) : 1;
   static constexpr int SMEM = (BQ + 4 * KT) * LD * (int)sizeof(T);  // Q, [2][K, V]
 };
 
@@ -166,11 +177,11 @@ struct RingWalk {
 };
 
 template <class Mma, typename Tout, int DP, bool RING = false>
-__global__ void __launch_bounds__(NT, (FwdTile<DP, Mma, RING>::MINB))
+__global__ void __launch_bounds__((FwdTile<DP, Mma, RING>::NT), (FwdTile<DP, Mma, RING>::MINB))
     fwd_tc_kernel(const FwdParams p) {
   using G = FwdTile<DP, Mma, RING>;
   using T = typename Mma::T;
-  constexpr int LD = G::LD, KT = G::KT;
+  constexpr int LD = G::LD, KT = G::KT, BQ = G::BQ, NT = G::NT;
   constexpr int NS = KT / 8;  // 8-key tiles of S
   constexpr int NA = DP / 8;  // 8-column tiles of out
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -431,8 +442,9 @@ cudaError_t launch_fwd_tc(const FwdParams& p, cudaStream_t stream) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.Sq + BQ - 1) / BQ, p.Hq, p.B);
-  kernel<<<grid, NT, smem, stream>>>(p);
+  constexpr int bq = FwdTile<DP, Mma, RING>::BQ, nt = FwdTile<DP, Mma, RING>::NT;
+  const dim3 grid((p.Sq + bq - 1) / bq, p.Hq, p.B);
+  kernel<<<grid, nt, smem, stream>>>(p);
   return cudaGetLastError();
 }
 

@@ -158,12 +158,18 @@ struct Bf16Mma {
 // over a dK/dV row (~1500 mma at S 4096) missed the fp32 accuracy test
 // (tests/test_torch_kernels_cuda.py, 5e-6). So no chain is long: the
 // scores keep big·big and the two small products in separate accumulators
-// (DP/8 steps each), summed by an fp32 add at the end, and the gradient
+// (DP/8 steps each; big·big in chains of QK_CHAIN steps above D 128),
+// summed by an fp32 add at the end, and the gradient
 // products of one tile (NK/8 steps) go into a zeroed fragment that an fp32
 // add (round to nearest) puts on the running sum.
 struct Tf32x3Mma {
   using T = float;
   static constexpr int PAD = 4;
+  // The longest chain of 8-deep big·big steps into one accumulator where a
+  // product's depth is split into chains: the truncated sums of a 16-step
+  // chain (the D 128 forward) put the LSE of long causal rows with
+  // q ~ N(0, 3) 1.1e-5 from the plain version's, over the 1e-5 gate.
+  static constexpr int QK_CHAIN = 4;
 
   static __device__ __forceinline__ const __nv_bfloat16* b16(const float* s) {
     return reinterpret_cast<const __nv_bfloat16*>(s);
@@ -190,17 +196,17 @@ struct Tf32x3Mma {
     for (int e = 0; e < 4; ++e) acc[e] = __fadd_rn(acc[e], t[e]);
   }
 
-  template <int DP, int NB>
-  static __device__ __forceinline__ void scores(float (&s)[NB / 8][4], float (&dp)[NB / 8][4],
-                                                const T* a1, const T* a2, const T* b1,
-                                                const T* b2, int ld, int r0, int lane) {
-    float slo[NB / 8][4], dplo[NB / 8][4];
+  // The 8-deep steps [k0, k1) of `scores`: big·big into s and dp, the small
+  // products into slo and dplo.
+  template <int NB>
+  static __device__ __forceinline__ void score_steps(float (&s)[NB / 8][4],
+                                                     float (&dp)[NB / 8][4],
+                                                     float (&slo)[NB / 8][4],
+                                                     float (&dplo)[NB / 8][4], const T* a1,
+                                                     const T* a2, const T* b1, const T* b2,
+                                                     int ld, int r0, int lane, int k0, int k1) {
 #pragma unroll
-    for (int j = 0; j < NB / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) slo[j][e] = dplo[j][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < DP / 8; ++ks) {
+    for (int ks = k0; ks < k1; ++ks) {
       Tf32Split<4> x1, x2;
       uint32_t w[4];
       load_a(w, b16(a1), 2 * ld, r0, ks * 16, lane);
@@ -221,6 +227,41 @@ struct Tf32x3Mma {
         split_tf32(y1, w1);
         mma_hi_lo(dp[2 * jj], dplo[2 * jj], x2, y0);
         mma_hi_lo(dp[2 * jj + 1], dplo[2 * jj + 1], x2, y1);
+      }
+    }
+  }
+
+  // big·big in chains of CHAIN steps a product: one chain (DP/8 steps) by
+  // default up to D 128; above, and where the caller asks, chains of
+  // QK_CHAIN steps into zeroed fragments, each put on s and dp by an fp32
+  // add, as `qk` does: one 32-step chain (D 256) put the fp32 dQ at causal
+  // S 1024, q ~ N(0, 3), 6.4e-6 from the plain version, over the 5e-6 of
+  // test_flash_bwd_fp32_keeps_highest_accuracy.
+  template <int DP, int NB, int CHAIN = (DP > 128 ? QK_CHAIN : DP / 8)>
+  static __device__ __forceinline__ void scores(float (&s)[NB / 8][4], float (&dp)[NB / 8][4],
+                                                const T* a1, const T* a2, const T* b1,
+                                                const T* b2, int ld, int r0, int lane) {
+    float slo[NB / 8][4], dplo[NB / 8][4];
+#pragma unroll
+    for (int j = 0; j < NB / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) slo[j][e] = dplo[j][e] = 0.f;
+    if constexpr (CHAIN >= DP / 8) {
+      score_steps<NB>(s, dp, slo, dplo, a1, a2, b1, b2, ld, r0, lane, 0, DP / 8);
+    } else {
+#pragma unroll
+      for (int k0 = 0; k0 < DP / 8; k0 += CHAIN) {
+        float shi[NB / 8][4], dphi[NB / 8][4];
+#pragma unroll
+        for (int j = 0; j < NB / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) shi[j][e] = dphi[j][e] = 0.f;
+        score_steps<NB>(shi, dphi, slo, dplo, a1, a2, b1, b2, ld, r0, lane, k0, k0 + CHAIN);
+#pragma unroll
+        for (int j = 0; j < NB / 8; ++j) {
+          add_into(s[j], shi[j]);
+          add_into(dp[j], dphi[j]);
+        }
       }
     }
 #pragma unroll
@@ -287,11 +328,7 @@ struct Tf32x3Mma {
 
   // big·big and the small products in separate accumulators, as `scores`,
   // and big·big over at most QK_CHAIN 8-deep steps into one zeroed fragment,
-  // each put on the sum by an fp32 add: the truncated sums of a 16-step chain
-  // (D 128) put the LSE of long causal rows with q ~ N(0, 3) 1.1e-5 from the
-  // plain version's, over the 1e-5 gate.
-  static constexpr int QK_CHAIN = 4;
-
+  // each put on the sum by an fp32 add (QK_CHAIN, above).
   template <int DP, int NB>
   static __device__ __forceinline__ void qk(float (&s)[NB / 8][4], const FwdQ<DP>&, const T* a,
                                             const T* b, int ld, int r0, int lane) {

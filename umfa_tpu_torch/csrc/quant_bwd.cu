@@ -251,7 +251,7 @@ struct QuantLoad {
 template <typename Tdo, int DP>
 struct QuantDqLoad {
   static constexpr int KT = DqTile<DP>::KT, LD = DqTile<DP>::LD;
-  static constexpr int NRAW = 2, IN_FLIGHT = 0;
+  static constexpr int NRAW = 2, AHEAD = 2, IN_FLIGHT = 0;
   // The dequantized key tile: K̃, Ṽ (bf16) and the corr row (its per-key
   // score term) in the converted buffer.
   struct Kv {

@@ -19,8 +19,11 @@
 //
 // All three are tensor-core bodies shared with the dense kernels,
 // instantiated with RING = true: bf16 inputs by mma.sync m16n8k16 bf16 ->
-// fp32 (`Bf16Mma`), head dims up to 256; fp32 inputs by 3xTF32
-// (`Tf32x3Mma`), up to 128. What a step sees comes from the host, which
+// fp32 (`Bf16Mma`), fp32 inputs by 3xTF32 (`Tf32x3Mma`), head dims up to
+// 256 for both (fp32 at 256 on the bodies' wide fp32 tiles: the forward 8
+// warps on 128 query rows and 16-key tiles; dK/dV and dQ 8 warps that
+// split each product's depth, 32-key blocks and 16-row query tiles, 16-key
+// tiles copied one step ahead). What a step sees comes from the host, which
 // reduces the step's global positions to the bodies' band mask (left,
 // right) plus a first visible query row q_lo and a key limit k_hi, in local
 // indices (ring_pallas.py `_step_mask`): not causal, nothing hidden; the
@@ -69,17 +72,15 @@ namespace {
 template <typename T>
 cudaError_t launch_bwd(const BwdParams& p, bool dkv, cudaStream_t stream) {
   if (p.D <= 64) return launch_dense<T, float, 64, true>(p, dkv, stream);
-  if constexpr (sizeof(T) == 2) {
-    if (p.D > 128) return launch_dense<T, float, 256, true>(p, dkv, stream);
-  }
-  return launch_dense<T, float, 128, true>(p, dkv, stream);
+  if (p.D <= 128) return launch_dense<T, float, 128, true>(p, dkv, stream);
+  return launch_dense<T, float, 256, true>(p, dkv, stream);
 }
 
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16 (q, k, v and o). q and o
 // (B, Hq, S, D), k and v (B, Hkv, S, D), S the rank's chunk, contiguous,
-// D <= 256 for bfloat16 and <= 128 for float32; lse (B, Hq, S) float32. What
+// D <= 256; lse (B, Hq, S) float32. What
 // the step sees, in local indices: the band (left, right; -1 = unbounded),
 // query rows from q_lo and keys below k_hi (parallel/ring_pallas.py
 // `_step_mask`); P is rounded against the running max of groups of block_k
@@ -89,9 +90,9 @@ extern "C" int umfa_ring_fwd_step(const void* q, const void* k, const void* v, v
                                   void* lse, int block_k, int B, int Hq, int Hkv, int S, int D,
                                   float scale, int left, int right, int q_lo, int k_hi,
                                   int first, int dtype, void* stream) {
-  if ((dtype != 0 && dtype != 1) || D < 1 || D > (dtype == 1 ? 256 : 128) || Hkv < 1 ||
-      Hq % Hkv != 0 || S < 1 || left < -1 || right < -1 || q_lo < 0 || q_lo > S || k_hi < 0 ||
-      k_hi > S || block_k < 1 || S % block_k != 0)
+  if ((dtype != 0 && dtype != 1) || D < 1 || D > 256 || Hkv < 1 || Hq % Hkv != 0 || S < 1 ||
+      left < -1 || right < -1 || q_lo < 0 || q_lo > S || k_hi < 0 || k_hi > S || block_k < 1 ||
+      S % block_k != 0)
     return cudaErrorInvalidValue;
   const int per16 = dtype == 1 ? 8 : 4;  // elements a 16-byte copy
   FwdParams p{};
@@ -115,9 +116,11 @@ extern "C" int umfa_ring_fwd_step(const void* q, const void* k, const void* v, v
   p.first = first;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   using B16 = __nv_bfloat16;
-  if (dtype == 0)
-    return D <= 64 ? launch_fwd_tc<Tf32x3Mma, float, 64, true>(p, st)
-                   : launch_fwd_tc<Tf32x3Mma, float, 128, true>(p, st);
+  if (dtype == 0) {
+    if (D <= 64) return launch_fwd_tc<Tf32x3Mma, float, 64, true>(p, st);
+    if (D <= 128) return launch_fwd_tc<Tf32x3Mma, float, 128, true>(p, st);
+    return launch_fwd_tc<Tf32x3Mma, float, 256, true>(p, st);
+  }
   if (D <= 64) return launch_fwd_tc<Bf16Mma, B16, 64, true>(p, st);
   if (D <= 128) return launch_fwd_tc<Bf16Mma, B16, 128, true>(p, st);
   return launch_fwd_tc<Bf16Mma, B16, 256, true>(p, st);
@@ -126,16 +129,18 @@ extern "C" int umfa_ring_fwd_step(const void* q, const void* k, const void* v, v
 // Dynamic shared memory of the ring forward step for head dim D and dtype
 // code dtype, in bytes (0 if it does not take them).
 extern "C" int umfa_ring_fwd_smem_bytes(int D, int dtype) {
-  if ((dtype != 0 && dtype != 1) || D < 1 || D > (dtype == 1 ? 256 : 128)) return 0;
+  if ((dtype != 0 && dtype != 1) || D < 1 || D > 256) return 0;
   if (dtype == 0)
-    return D <= 64 ? FwdTile<64, Tf32x3Mma, true>::SMEM : FwdTile<128, Tf32x3Mma, true>::SMEM;
+    return D <= 64    ? FwdTile<64, Tf32x3Mma, true>::SMEM
+           : D <= 128 ? FwdTile<128, Tf32x3Mma, true>::SMEM
+                      : FwdTile<256, Tf32x3Mma, true>::SMEM;
   return D <= 64    ? FwdTile<64, Bf16Mma, true>::SMEM
          : D <= 128 ? FwdTile<128, Bf16Mma, true>::SMEM
                     : FwdTile<256, Bf16Mma, true>::SMEM;
 }
 
 // q, dout (B, Hq, S, D) and k, v (B, Hkv, S, D) in dtype, contiguous, D <=
-// 256 for bfloat16 and <= 128 for float32; lse, delta (B, Hq, S) float32.
+// 256; lse, delta (B, Hq, S) float32.
 // What the step sees, in local indices: the band (left, right; -1 =
 // unbounded), query rows from q_lo and keys below k_hi
 // (parallel/ring_pallas.py `_step_mask`). umfa_ring_bwd_dq folds dQ into
@@ -148,9 +153,9 @@ extern "C" int umfa_ring_fwd_smem_bytes(int D, int dtype) {
       float scale, int left, int right, int q_lo, int k_hi, int first, int dtype, void *stream
 
 static int ring_bwd(UMFA_RING_BWD_ARGS, bool dkv) {
-  if ((dtype != 0 && dtype != 1) || D < 1 || D > (dtype == 1 ? 256 : 128) || Hkv < 1 ||
-      Hq % Hkv != 0 || S < 1 || left < -1 || right < -1 || q_lo < 0 || q_lo > S || k_hi < 0 ||
-      k_hi > S || (dkv && out1 == nullptr))
+  if ((dtype != 0 && dtype != 1) || D < 1 || D > 256 || Hkv < 1 || Hq % Hkv != 0 || S < 1 ||
+      left < -1 || right < -1 || q_lo < 0 || q_lo > S || k_hi < 0 || k_hi > S ||
+      (dkv && out1 == nullptr))
     return cudaErrorInvalidValue;
   BwdParams p{};
   p.q = q;

@@ -1,12 +1,11 @@
 """Dense flash-attention backward (port of umfa_tpu/ops/flash_bwd.py).
 
 `flash_attention_backward` launches the CUDA kernels `csrc/flash_bwd.cu`
-(dQ, then dK/dV) on CUDA tensors, all on the tensor cores: bf16 inputs as
-bf16 products, head_dim <= 256; fp32 inputs (and fp16, computed as fp32)
-as 3xTF32 products (each fp32 operand split into two TF32 parts, three
+(dQ, then dK/dV) on CUDA tensors, all on the tensor cores, head_dim <= 256:
+bf16 inputs as bf16 products; fp32 inputs (and fp16, computed as fp32) as
+3xTF32 products (each fp32 operand split into two TF32 parts, three
 products each, as accurate as fp32 FMAs in another order: relerr ~1e-7 to
-1e-6 against the plain version, not bit-equal), head_dim <= 128, since
-their fp32 tiles do not fit a block's shared memory at 256.
+1e-6 against the plain version, not bit-equal).
 `flash_attention_bias_grad` launches `csrc/flash_dbias.cu`: bf16 inputs on
 the tensor cores, head_dim <= 256; fp32 on the CUDA cores, head_dim <= 128.
 On CPU tensors each runs its `*_plain` twin, the same arithmetic in plain
@@ -228,9 +227,6 @@ def _check_device(p: _Prepared, name: str) -> None:
     d = p.q.shape[3]
     if d > 256:
         raise ValueError(f"{name} kernel takes head_dim <= 256, got {d}")
-    if d > 128 and p.q.dtype != torch.bfloat16:
-        raise ValueError(f"{name} kernel takes head_dim <= 128 for float32 and float16 inputs "
-                         f"(<= 256 for bfloat16), got {d}")
 
 
 def _launch(p: _Prepared, store_dtype: torch.dtype):
@@ -280,6 +276,9 @@ def _run_bwd_kernel(kernel: str, p: _Prepared, out0: torch.Tensor, out1) -> None
 def _launch_dbias(p: _Prepared, shape: tuple) -> torch.Tensor:
     _check_device(p, "flash_dbias")
     b, hq, sq, d = p.q.shape
+    if d > 128 and p.q.dtype != torch.bfloat16:
+        raise ValueError(f"flash_dbias kernel takes head_dim <= 128 for float32 and float16 "
+                         f"inputs (its CUDA-core kernel; <= 256 for bfloat16), got {d}")
     _, hkv, sk, _ = p.k.shape
     bb, bh = shape[:2]
     dbias = torch.empty((bb, bh, sq, sk), dtype=torch.float32, device=p.q.device)

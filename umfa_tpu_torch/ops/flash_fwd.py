@@ -1,9 +1,8 @@
 """Dense flash-attention forward with LSE (port of umfa_tpu/ops/flash_fwd.py).
 
 `flash_attention_forward` launches a CUDA kernel of `csrc/flash_fwd.cu` on
-CUDA tensors (the tensor-core body of `csrc/fwd_tc.cuh`: bf16 inputs in
-bf16, fp32 and fp16 inputs in 3xTF32 up to head_dim 128; fp32 and fp16 at
-head_dim 129-256 the CUDA-core kernel; head_dim <= 256) and runs
+CUDA tensors (the tensor-core body of `csrc/fwd_tc.cuh`, head_dim <= 256:
+bf16 inputs in bf16, fp32 and fp16 inputs in 3xTF32) and runs
 `flash_attention_forward_plain`, the same arithmetic in plain PyTorch, on
 CPU tensors. There is no fallback between them: a CUDA tensor the kernel
 does not take raises.

@@ -31,8 +31,10 @@ All three kernels are the dense kernels' tensor-core bodies in ring mode
 `_step_mask` reduces what a step sees by global position to their band
 mask plus a first visible query row and a key limit, in local indices;
 the forward merges into (o, lse), the backward folds into the fp32
-buffers. They take head_dim <= 256 for bf16 and <= 128 for fp32, and any
-local chunk the reference's tile asserts admit (`_check_tiles`).
+buffers. They take head_dim <= 256 (bf16 and fp32), and any local chunk
+the reference's tile asserts admit (`_check_tiles`). fp16 is storage-only,
+as in the dense ops: `ring_flash_attention_pallas` computes it as fp32 and
+casts the output back.
 
 Rounding points held to the reference: the forward multiplies the fp32
 dot by scale (:321-326) and rounds P to V's type against the running max
@@ -72,10 +74,8 @@ _FWD_ARGTYPES = (_P,) * 5 + (_I,) * 6 + (ctypes.c_float,) + (_I,) * 6 + (_P,)
 # q, k, v, dout, lse, delta, out0, out1; B, Hq, Hkv, S, D; scale; left,
 # right, q_lo, k_hi, first, dtype; stream.
 _BWD_ARGTYPES = (_P,) * 8 + (_I,) * 5 + (ctypes.c_float,) + (_I,) * 6 + (_P,)
-# The largest head_dim each kernel takes, by dtype.
-_MAX_D = {"ring_fwd_step": {torch.float32: 128, torch.bfloat16: 256},
-          "ring_bwd_dkv": {torch.float32: 128, torch.bfloat16: 256},
-          "ring_bwd_dq": {torch.float32: 128, torch.bfloat16: 256}}
+# The largest head_dim the kernels take, fp32 and bf16.
+_MAX_D = 256
 
 
 @dataclasses.dataclass(frozen=True)
@@ -293,9 +293,8 @@ def _check_launch(kernel: str, tensors, q: torch.Tensor, k: torch.Tensor, c: _St
         raise ValueError(f"{kernel} kernel takes float32 or bfloat16 q/k/v, got {q.dtype}/{k.dtype}")
     b, hq, s_loc, d = q.shape
     hkv = k.shape[1]
-    max_d = _MAX_D[kernel][q.dtype]
-    if not 1 <= d <= max_d:
-        raise ValueError(f"{kernel} kernel takes head_dim <= {max_d} for {q.dtype}, got {d}")
+    if not 1 <= d <= _MAX_D:
+        raise ValueError(f"{kernel} kernel takes head_dim <= {_MAX_D}, got {d}")
     if hkv < 1 or hq % hkv:
         raise ValueError(f"q heads {hq} must be a multiple of kv heads {hkv}")
     if s_loc < 1 or (c.zigzag and s_loc % 2):
@@ -554,7 +553,15 @@ def ring_flash_attention_pallas(
     sequence in contiguous ring chunks or, with zigzag=True, in
     `zigzag_shard`'s layout. With `LocalRing(n)` the tensors hold all n
     chunks, with `DistRing` this process's chunk. Returns out (q's type)
-    and, with return_lse=True, the fp32 LSE (B, Hq, S)."""
+    and, with return_lse=True, the fp32 LSE (B, Hq, S). fp16 inputs are
+    computed as fp32 and the output cast back (the gradients flow through
+    the casts)."""
+    if q.dtype == torch.float16:
+        out, lse = ring_flash_attention_pallas(
+            q.float(), k.float(), v.float(), ring=ring, causal=causal, zigzag=zigzag, scale=scale,
+            block_sizes=block_sizes, return_lse=True)
+        out = out.to(torch.float16)
+        return (out, lse) if return_lse else out
     s_loc = q.shape[2] // len(ring.ranks)
     if scale is None:
         scale = q.shape[-1] ** -0.5

@@ -13,16 +13,18 @@ bias summed over the batch) at D 64 and 128 (and 256 with --wide), and
 median, min and max of 10 CUDA-event timings after 2 warm-up calls, and at
 D 64 each dense kernel's relerr against its plain version. With --fp32 it
 times only `flash_bwd_dq` and `flash_bwd_dkv` on fp32 inputs (what the
-int8-qdense recipe runs) at the training shape, D 64 and 128, each with its
-relerr against its plain version, beside the memory-efficient SDPA backward
-(dQ, dK and dV in one call) on the same fp32 inputs. With --ring it times
-only `ring_bwd_dkv` and `ring_bwd_dq` on one rank's step of the full-width
-ring (B8 Hq16 Hkv8, S_loc 1024 of S 4096 over 4 ranks, bf16; rank 3 against
-chunk 2, every pair visible; rank 3's diagonal step; zigzag rank 3 against
-chunk 1 and rank 1 against chunk 3, half of the pairs each) at D 64 and 128
-(and 256 with --wide), each with its relerr against its plain version, its
-flop and bound, then the whole ring backward (contiguous and zigzag causal,
-D 64) over LocalRing(4). Prints one JSON line per timing, then the card's
+int8-qdense recipe runs) at the training shape, D 64, 128 and 256, each
+with its relerr against its plain version, beside the memory-efficient
+SDPA backward (dQ, dK and dV in one call) on the same fp32 inputs. With
+--ring it times only `ring_bwd_dkv` and `ring_bwd_dq` on one rank's step of
+the full-width ring (B8 Hq16 Hkv8, S_loc 1024 of S 4096 over 4 ranks; rank
+3 against chunk 2, every pair visible; rank 3's diagonal step; zigzag rank
+3 against chunk 1 and rank 1 against chunk 3, half of the pairs each), bf16
+at D 64 and 128 (and 256 with --wide) and fp32 at D 256, each with its
+relerr against its plain version, its flop and bound (fp32: the 3xTF32
+floor), then the whole ring backward (contiguous and zigzag causal, bf16 D
+64 and fp32 D 256) over LocalRing(4). A head dim a tree's kernels refuse
+is printed as refused. Prints one JSON line per timing, then the card's
 name and power limit as nvidia-smi gives them. Needs a CUDA device.
 """
 
@@ -153,9 +155,10 @@ def _print_card():
 
 
 def _time_fp32(randn, emit):
-    """The fp32 dQ and dK/dV at the training shape, D 64 and 128, and the
-    memory-efficient SDPA backward on the same inputs (K and V expanded to
-    the query heads outside the timing where this torch refuses enable_gqa)."""
+    """The fp32 dQ and dK/dV at the training shape, D 64, 128 and 256, and
+    the memory-efficient SDPA backward on the same inputs (K and V expanded
+    to the query heads outside the timing where this torch refuses
+    enable_gqa)."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -165,7 +168,7 @@ def _time_fp32(randn, emit):
     from umfa_tpu_torch.utils.testing import rel_err
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    for d in (64, 128):
+    for d in (64, 128, 256):
         q, k, v = (randn(s, torch.float32) for s in ((B, HQ, S, d), (B, HKV, S, d), (B, HKV, S, d)))
         out, lse = flash_attention_forward(q, k, v, causal=True)
         do = randn(out.shape, torch.float32)
@@ -175,7 +178,13 @@ def _time_fp32(randn, emit):
                 "flash_bwd_dkv": (lambda: fb._launch_dkv(p, torch.float32),
                                   lambda: fb._plain_dkv(p))}
         for name, (kern, plain) in runs.items():
-            err = [rel_err(x, y) for x, y in zip(kern(), plain())]
+            try:
+                got = kern()
+            except (ValueError, RuntimeError) as e:  # a tree whose C entry refuses D
+                emit(kernel=name, dtype="float32", D=d, refused=str(e))
+                continue
+            err = [rel_err(x, y) for x, y in zip(got, plain())]
+            del got
             torch.cuda.empty_cache()
             emit(kernel=name, dtype="float32", D=d, **_stats(kern), relerr=err)
         qg = q.detach().requires_grad_(True)
@@ -198,7 +207,7 @@ def _time_fp32(randn, emit):
         torch.cuda.empty_cache()
 
 
-H100_BF16_FLOPS, H100_HBM_BYTES = 989e12, 3.35e12
+H100_BF16_FLOPS, H100_TF32_FLOPS, H100_HBM_BYTES = 989e12, 495e12, 3.35e12
 RING_N, RING_S_LOC = 4, 1024
 # name: (my, src, zigzag); all causal.
 RING_STEPS = {"full": (3, 2, False), "diagonal": (3, 3, False),
@@ -215,10 +224,13 @@ def _time_ring(randn, emit, wide):
     from umfa_tpu_torch.utils.testing import rel_err
 
     s_loc, n = RING_S_LOC, RING_N
-    for d in (64, 128, 256) if wide else (64, 128):
+    bf16 = torch.bfloat16
+    widths = [(bf16, 64), (bf16, 128)] + ([(bf16, 256)] if wide else []) + [(torch.float32, 256)]
+    for dtype, d in widths:
         scale = d**-0.5
-        q, do = randn((B, HQ, s_loc, d)), randn((B, HQ, s_loc, d))
-        k, v = randn((B, HKV, s_loc, d)), randn((B, HKV, s_loc, d))
+        fp32, dt = dtype == torch.float32, str(dtype)[6:]
+        q, do = randn((B, HQ, s_loc, d), dtype), randn((B, HQ, s_loc, d), dtype)
+        k, v = randn((B, HKV, s_loc, d), dtype), randn((B, HKV, s_loc, d), dtype)
         s = torch.matmul(rp._fold(q.float() * scale, HKV), k.float().transpose(-1, -2))
         lse = s.reshape(B, HQ, s_loc, s_loc).logsumexp(-1)  # finite on every row
         delta = randn((B, HQ, s_loc), torch.float32)
@@ -227,7 +239,8 @@ def _time_ring(randn, emit, wide):
         for step, (my, src, zigzag) in RING_STEPS.items():
             c = rp._Step(n, my, src, my == src, True, zigzag, scale, 512)
             pairs = B * HQ * int(c.keep(s_loc, q.device).sum())
-            reads = 2 * (q.numel() + k.numel() + v.numel() + do.numel()) + 4 * 2 * lse.numel()
+            reads = (q.element_size() * (q.numel() + k.numel() + v.numel() + do.numel())
+                     + 4 * 2 * lse.numel())
             runs = {
                 "ring_bwd_dkv": (lambda: rp.ring_bwd_dkv(q, do, lse, delta, k, v, dk, dv, c),
                                  lambda: rp._dkv_plain(q, do, lse, delta, k, v, dk, dv, c),
@@ -239,7 +252,7 @@ def _time_ring(randn, emit, wide):
                 try:
                     kern()
                 except ValueError as e:
-                    emit(kernel=name, step=step, D=d, refused=str(e))
+                    emit(kernel=name, dtype=dt, step=step, D=d, refused=str(e))
                     continue
                 got = [x.clone() for x in outs]
                 for x in outs:
@@ -250,25 +263,35 @@ def _time_ring(randn, emit, wide):
                 flops = flop_per_pair * d * pairs
                 nbytes = reads + 2 * 4 * sum(x.numel() for x in outs)  # read and written
                 st = _stats(kern)
-                emit(kernel=name, step=step, D=d, **st, relerr=err, flops=flops,
+                ops_s = 3 * flops / H100_TF32_FLOPS if fp32 else flops / H100_BF16_FLOPS
+                emit(kernel=name, dtype=dt, step=step, D=d, **st, relerr=err, flops=flops,
                      tflops=flops / st["ms"] / 1e9,
-                     bound_ms=max(flops / H100_BF16_FLOPS, nbytes / H100_HBM_BYTES) * 1e3)
+                     bound_ms=max(ops_s, nbytes / H100_HBM_BYTES) * 1e3)
                 for x in outs:
                     x.zero_()
                 del got
         del q, do, k, v, lse, delta, dk, dv, dq
         torch.cuda.empty_cache()
 
-    s, d = n * s_loc, 64
-    q, do = randn((B, HQ, s, d)), randn((B, HQ, s, d))
-    k, v = randn((B, HKV, s, d)), randn((B, HKV, s, d))
-    dlse = randn((B, HQ, s), torch.float32)
-    for layout, zigzag in (("causal", False), ("zigzag", True)):
-        cfg = rp._config(s_loc, True, zigzag, d**-0.5, None)
-        out, lse = rp._ring_fwd(q, k, v, LocalRing(n), cfg)
-        emit(kernel="ring_backward", layout=layout, D=d, **_stats(
-            lambda: rp._ring_bwd(q, k, v, out, lse, do, dlse, LocalRing(n), cfg), iters=5))
-        del out, lse
+    s = n * s_loc
+    for dtype, d in ((bf16, 64), (torch.float32, 256)):
+        dt = str(dtype)[6:]
+        q, do = randn((B, HQ, s, d), dtype), randn((B, HQ, s, d), dtype)
+        k, v = randn((B, HKV, s, d), dtype), randn((B, HKV, s, d), dtype)
+        dlse = randn((B, HQ, s), torch.float32)
+        for layout, zigzag in (("causal", False), ("zigzag", True)):
+            cfg = rp._config(s_loc, True, zigzag, d**-0.5, None)
+            try:
+                out, lse = rp._ring_fwd(q, k, v, LocalRing(n), cfg)
+                rp._ring_bwd(q, k, v, out, lse, do, dlse, LocalRing(n), cfg)
+            except ValueError as e:
+                emit(kernel="ring_backward", dtype=dt, layout=layout, D=d, refused=str(e))
+                continue
+            emit(kernel="ring_backward", dtype=dt, layout=layout, D=d, **_stats(
+                lambda: rp._ring_bwd(q, k, v, out, lse, do, dlse, LocalRing(n), cfg), iters=5))
+            del out, lse
+            torch.cuda.empty_cache()
+        del q, do, k, v, dlse
         torch.cuda.empty_cache()
 
 

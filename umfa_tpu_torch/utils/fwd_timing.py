@@ -10,8 +10,8 @@ into its own `_build/`). Median, min and max of 10 CUDA-event timings after
 2 warm-up calls.
 
 --fp32: `flash_fwd` on fp32 inputs at the serving prefill (B8 Hq16 Hkv8,
-4032 causal queries against 4096 keys, seeded normals) at D 64, 128 and
-256, each with its relerr and worst LSE error against the plain version,
+4032 causal queries against 4096 keys, seeded normals) at D 64, 128, 192
+and 256, each with its relerr and worst LSE error against the plain version,
 its flop and 3xTF32 floor, beside the memory-efficient SDPA forward on the
 same inputs (K and V expanded to the query heads outside the timing where
 this torch refuses enable_gqa).
@@ -22,8 +22,8 @@ pair visible; rank 3's diagonal step; zigzag rank 3 against chunk 1 and
 rank 1 against chunk 3, half of the pairs each) at D 64, 128 and 256, bf16
 and fp32, each with its relerr against the plain version, its flop and
 bound; then the whole ring forward (contiguous and zigzag causal, D 64,
-bf16 and fp32) over LocalRing(4). A head dim a tree's kernel refuses is
-printed as refused.
+bf16 and fp32, and D 256 fp32) over LocalRing(4). A head dim a tree's
+kernel refuses is printed as refused.
 
 Prints one JSON line per timing, then the card's name and power limit as
 nvidia-smi gives them. Needs a CUDA device.
@@ -63,7 +63,7 @@ def _time_fp32(emit, stats):
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
     pairs = B * HQ * sum(min(i + 1, SK) for i in range(SQ))
-    for d in (64, 128, 256):
+    for d in (64, 128, 192, 256):
         q, k, v = (torch.randn(s, generator=gen).to(dev) for s in
                    ((B, HQ, SQ, d), (B, HKV, SK, d), (B, HKV, SK, d)))
 
@@ -148,14 +148,21 @@ def _time_ring(emit, stats):
             del q, k, v, o, lse
             torch.cuda.empty_cache()
 
-    s, d = n * s_loc, 64
-    for dtype in (torch.bfloat16, torch.float32):
+    s = n * s_loc
+    for dtype, d in ((torch.bfloat16, 64), (torch.float32, 64), (torch.float32, 256)):
         q = torch.randn((B, HQ, s, d), generator=gen).to(dev, dtype)
         k, v = (torch.randn((B, HKV, s, d), generator=gen).to(dev, dtype) for _ in range(2))
         for layout, zigzag in (("causal", False), ("zigzag", True)):
             cfg = rp._config(s_loc, True, zigzag, d**-0.5, None)
+            run = lambda cfg=cfg: rp._ring_fwd(q, k, v, LocalRing(n), cfg)  # noqa: E731
+            try:
+                run()
+            except ValueError as e:
+                emit(kernel="ring_forward", dtype=str(dtype)[6:], layout=layout, D=d,
+                     refused=str(e))
+                continue
             emit(kernel="ring_forward", dtype=str(dtype)[6:], layout=layout, D=d,
-                 **stats(lambda cfg=cfg: rp._ring_fwd(q, k, v, LocalRing(n), cfg), iters=5))
+                 **stats(run, iters=5))
         del q, k, v
         torch.cuda.empty_cache()
 
