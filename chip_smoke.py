@@ -9,15 +9,17 @@ Phases, one JSON line each:
      `umfa_tpu_torch/csrc/`, one nvcc each, all at once; then the
      tensor-core kernels (the bf16 kernels of `flash_fwd`, `flash_bwd_dq`,
      `flash_bwd_dkv` and `flash_dbias`; `quant_attn_fwd`, `fused_qattn`,
-     `quant_bwd_dq`, `quant_bwd_dkv`; the fp32 `flash_fwd`, dQ and dK/dV;
-     `ring_fwd_step`, `ring_bwd_dq`, `ring_bwd_dkv`): their HMMA
+     `quant_bwd_dq`, `quant_bwd_dkv`; the fp32 `flash_fwd`, dQ, dK/dV and
+     dbias; `ring_fwd_step`, `ring_bwd_dq`, `ring_bwd_dkv`): their HMMA
      instructions (TF32 ones in the fp32 instantiations of the dense
-     forward and backward and of the ring kernels, at D 64, 128 and 256; no
-     CUDA-core kernel left in `flash_fwd`, `flash_bwd` or `ring_attn`), and for
-     `quant_attn_fwd` also its IMMA (int8) ones, for `fused_qattn` its
-     DMMA (f64) ones, counted in the SASS (cuobjdump; none fails the run),
-     their registers and spills (ptxas) and dynamic shared memory at
-     D 64/128/256;
+     forward and backward, of the dbias and of the ring kernels, at D 64,
+     128 and 256; no CUDA-core kernel left in `flash_fwd`, `flash_bwd`,
+     `flash_dbias` or `ring_attn`), and for `quant_attn_fwd` also its IMMA
+     (int8) ones, for `fused_qattn` its DMMA (f64) ones (its D 256
+     instantiations among them), counted in the SASS (cuobjdump; none
+     fails the run), their registers and spills (ptxas; a spill in the
+     fp32 dbias or in `fused_qattn` at D 256 fails the run) and dynamic
+     shared memory at D 64/128/256;
   3. forward kernels against their plain PyTorch versions on the card at
      the serving head geometry (Hq 16 / Hkv 8, D 64, Sk 4096, batch 2),
      with the stated tolerances, and the bf16 `flash_fwd` and the int8
@@ -36,9 +38,11 @@ Phases, one JSON line each:
      the training head geometry (batch 2, causal 1024, odd 777 x 1000,
      window (128, 0), full and shared biases, fully masked rows, a nonzero
      dlse, D 32/64/128, fp32 and bf16; bf16 and fp32 also at D 256, with a
-     shared bias and a window, and fp32 at D 192 with masked rows; bf16
-     inputs with fp32 gradients at D 128, 80 and 256, gate 5e-4, where a dK
-     from the scaled Q would show); then each
+     shared bias and a window, and fp32 at D 192 with masked rows and with
+     a per-head bias; bf16 inputs with fp32 gradients at D 128, 80 and 256,
+     gate 5e-4, where a dK from the scaled Q would show; the fp32 dQ, dK/dV
+     and dbias at causal 1024, q ~ N(0, 3), D 64/128/256, gate 5e-6); then
+     each
      timed at the training shape (batch 8, causal 4096, D 64, bf16; median,
      min and max of 10) beside its plain version, its bound and the SDPA
      backward (flash for dQ + dK/dV, memory-efficient with a bias gradient
@@ -46,8 +50,9 @@ Phases, one JSON line each:
      on the tensor cores, as int8-qdense runs them), D 64 and 256, beside
      their 3xTF32 floor and the memory-efficient SDPA backward on the same
      fp32 inputs;
-     dbias with fp32 inputs (CUDA cores) beside its 3xTF32 floor and the
-     memory-efficient SDPA backward with an fp32 bias gradient;
+     dbias with fp32 inputs (3xTF32 on the tensor cores), D 64 and 256,
+     beside its 3xTF32 floor and the memory-efficient SDPA backward with an
+     fp32 bias gradient;
   5. serving at full width (vocab 32768, dim 1024, 16/8 heads, D 64, depth
      8, max_seq 4096, bf16, batch 8) for the dense and the INT8 KV cache:
      prefill of 4032 tokens, a 16-token continuation with chunk_start, a
@@ -56,12 +61,13 @@ Phases, one JSON line each:
      the plain path on the CPU;
   5a. the flash-decode kernel (`flash_decode` and its merge kernel
      `flash_decode_merge`) against its plain tile walk at Hq 16 / Hkv 8 and
-     Hq = Hkv 8, Tq 1/4/16, D 64/128, fp32 and bf16, S_max 4096 (block 2048)
+     Hq = Hkv 8, Tq 1/4/16, D 64/128/72/256, fp32 and bf16, S_max 4096 (block 2048)
      and 768 (block 256), slot lengths S_max, 1, 0 and S_max/3 + 5 with
      the causal bias of Tq > 1 (fp32 relerr 2e-5, bf16 1e-2, finite); then
      timed at the serving decode geometry (B8 Hq16 Hkv8 S4096 D64 bf16,
-     Tq 1 and 16, full cache, L2 evicted by reads before each timing)
-     beside the plain walk, the default gemv route and the bound;
+     Tq 1 and 16, full cache, L2 evicted by reads before each timing; Tq 1
+     also at D 256) beside the plain walk, the default gemv route and the
+     bound;
   5b. continuous batching at full width: the serving model with the INT8
      cache, 8 slots, 24 seeded requests (prompts 256-3584 tokens, 8-64 new
      tokens, teacher-forced), each admission prefilled into its slot, one
@@ -86,17 +92,18 @@ Phases, one JSON line each:
   8. the quantized training kernels (quant_rows, fused_qattn, quant_bwd_dq,
      quant_bwd_dkv) against their plain versions at B2 Hq16 Hkv8 (causal
      1024, odd 777, window (128, 0), a shared bias, a left-only window with
-     rows that see no key, D 32/64/128, fp32 and bf16, the int8 and int4
-     recipes, smoothing off, a dense Q; the backward with 64 masked rows
-     and a nonzero dlse, also at D 256 on the residuals of fused_qattn's
-     plain version, the kernel taking D <= 128); then each timed at the
-     training shape (B8, causal
-     4096, D 64, bf16, int8 recipe; fused_qattn also under int4; median,
-     min and max of 10) beside its plain version, its bound, TFLOP/s and
-     share of the bound (fused_qattn also its FP64 floor, both passes'
-     QKᵀ in double at the FP64 tensor rate, and its worst LSE abs error,
-     held to 1e-5: the scores keep their bits) and, for the backward, the
-     flash SDPA backward on the dequantized operands (a yardstick only);
+     rows that see no key, D 32/64/128/256, fp32 and bf16, the int8 and
+     int4 recipes, smoothing off, a dense Q; the backward with 64 masked
+     rows and a nonzero dlse on the kernel's residuals; fused_qattn's LSE
+     held to 1e-5 at causal 1024, q ~ N(0, 3), D 64 and 256: the scores
+     keep their bits); then each timed at the training shape (B8, causal
+     4096, D 64, bf16, int8 recipe; fused_qattn also under int4, and at
+     D 256 under int8 beside the two-pass route's forward on the same
+     inputs; median, min and max of 10) beside its plain version, its
+     bound, TFLOP/s and share of the bound (fused_qattn also its FP64
+     floor, both passes' QKᵀ in double at the FP64 tensor rate, and its
+     worst LSE abs error, held to 1e-5) and, for the backward, the flash
+     SDPA backward on the dequantized operands (a yardstick only);
   9. quantized training at full width (the same model and batch, lr
      TRAIN_LR): the int8 recipe for a warm-up and three SGD steps, int4 and
      int8-qdense for a warm-up and one each; each step with a finite loss
@@ -105,7 +112,8 @@ Phases, one JSON line each:
      dkv for the dense Q), none of the others;
  10. `attention()` under int8 through the two-pass route (quant_rows three
      times, quant_attn_fwd once, then the backward kernels) with
-     UMFA_DISABLE_FUSED_QUANT=1 and with causal Sq 512 against Sk 1024, a
+     UMFA_DISABLE_FUSED_QUANT=1 (at D 64 and 63: codes zero-padded to 64
+     for quant_attn_fwd) and with causal Sq 512 against Sk 1024, a
      small quantized model's loss and gradients, and quantized `attention()`
      with a bias gradient, each on the card against the CPU path;
  11. the ring kernels (`ring_fwd_step`, `ring_bwd_dkv`, `ring_bwd_dq`): the
@@ -662,7 +670,7 @@ def phase_decode_kernel(record):
     results = []
     for hq, hkv in ((HQ, HKV), (HKV, HKV)):
         for s_max, bk in ((SK, 2048), (768, 256)):
-            for d in (64, 128):
+            for d in (64, 128, 72, 256):  # 72: rows not 16-byte aligned; 256: the 256 template
                 for tq in (1, 4, 16):
                     for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 1e-2)):
                         q, k, ks, v, vs, bias, _ = decode_inputs(
@@ -702,9 +710,9 @@ def phase_decode_kernel(record):
         torch.cuda._sleep(1_000_000)
 
     timing = {}
-    for tq in (1, 16):
+    for tq, d in ((1, D), (16, D), (1, 256)):
         q, k, ks, v, vs, bias, lengths = decode_inputs(
-            B_SERVE, HQ, HKV, tq, D, SK, torch.bfloat16, (SK,) * B_SERVE, seed=1000 + tq)
+            B_SERVE, HQ, HKV, tq, d, SK, torch.bfloat16, (SK,) * B_SERVE, seed=1000 + tq + d)
         args = (q, k, ks, v, vs, bias)
         p = dk._prepare(*args, None, 2048)
         got = dk.quantized_flash_decode(*args, block_k=2048)
@@ -715,10 +723,10 @@ def phase_decode_kernel(record):
         cache = QuantizedKVCache(k, ks, v, vs, lengths)
         nbytes = (k.numel() + v.numel() + 4 * (ks.numel() + vs.numel() + bias.numel())
                   + 2 * q.numel() + 4 * got.numel())
-        flops = 4 * B_SERVE * HQ * tq * SK * D  # QKᵀ and P·V
+        flops = 4 * B_SERVE * HQ * tq * SK * d  # QKᵀ and P·V
         merge_bytes = 4 * (part_o.numel() + part_ml.numel() + out.numel())
         t = {
-            "shape": f"B{B_SERVE} Hq{HQ} Hkv{HKV} Tq{tq} S{SK} D{D} bf16, full cache",
+            "shape": f"B{B_SERVE} Hq{HQ} Hkv{HKV} Tq{tq} S{SK} D{d} bf16, full cache",
             "ms": cuda_ms(lambda: dk._launch_partials(p), before=flush),
             "merge_ms": cuda_ms(lambda: dk._launch_merge(part_o, part_ml), before=flush),
             "call_ms": cuda_ms(lambda: dk.quantized_flash_decode(*args, block_k=2048),
@@ -738,7 +746,7 @@ def phase_decode_kernel(record):
         }
         bound(t)
         emit({"phase": "kernel_timing", "kernel": "flash_decode", **t})
-        timing[tq] = t
+        timing[f"tq{tq}_d{d}"] = t
         if not (t["relerr"] <= 1e-2 and t["merge_relerr"] <= 1e-5):
             raise AssertionError(f"flash_decode at the serving shape: relerr {t['relerr']}, "
                                  f"merge relerr {t['merge_relerr']}")
@@ -746,7 +754,7 @@ def phase_decode_kernel(record):
     del flush_buf
     torch.cuda.empty_cache()
     record["decode_kernel_timing"] = timing
-    t1 = timing[1]
+    t1 = timing[f"tq1_d{D}"]
     out_timing = {
         "flash_decode": {k2: t1[k2] for k2 in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                 "library_ms")},
@@ -754,7 +762,11 @@ def phase_decode_kernel(record):
                                "bound_ms": t1["merge_bound_ms"], "bound_by": "bytes",
                                "library_ms": None},
     }
-    worst["flash_decode_merge"] = max(timing[tq]["merge_max_abs"] for tq in timing)
+    worst["flash_decode_merge"] = max(t["merge_max_abs"] for t in timing.values())
+    t256 = timing["tq1_d256"]
+    out_timing["flash_decode"]["variants"] = [
+        {"shape": t256["shape"], **{k2: t256[k2] for k2 in ("ms", "plain_ms", "bound_ms",
+                                                            "bound_by", "library_ms", "relerr")}}]
     return out_timing, worst
 
 
@@ -1005,7 +1017,7 @@ def phase_bwd_kernels(record):
              ("fp32_grads_d80_odd_777x1000_window_dlse", 777, 1000, 80,
               dict(window=(128, 0), dlse=True), torch.bfloat16, None, 5e-4),
              # D 256 (D 192 padded to it): bf16, and fp32 on the wide 3xTF32 tiles
-             # (the fp32 dbias, on the CUDA cores, stops at 128).
+             # (the dbias in 3xTF32 at D 192 and 256 too).
              ("d256_causal_dlse", 1024, 1024, 256, dict(causal=True, dlse=True), torch.bfloat16,
               torch.bfloat16, tol[torch.bfloat16]),
              ("d256_bias_11qk_window_128_0", 777, 1000, 256, dict(window=(128, 0), bias_shape="11qk"),
@@ -1016,6 +1028,8 @@ def phase_bwd_kernels(record):
              ("d256_bias_11qk_window_128_0", 777, 1000, 256, dict(window=(128, 0), bias_shape="11qk"),
               torch.float32, None, tol[torch.float32]),
              ("d192_masked_rows_1088x1024_dlse", 1088, 1024, 192, dict(window=(0, -1), dlse=True),
+              torch.float32, None, tol[torch.float32]),
+             ("d192_bias_bhqk_causal_512", 512, 512, 192, dict(causal=True, bias_shape="bhqk"),
               torch.float32, None, tol[torch.float32])]
     worst = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0, "flash_dbias": 0.0}
     results = []
@@ -1041,7 +1055,7 @@ def phase_bwd_kernels(record):
         results.append(res)
         emit({"phase": "kernel_check", **res})
         bias = args[6]
-        if bias is not None and (dtype == torch.bfloat16 or d <= 128):
+        if bias is not None:
             q, k, v, out, lse, do = args[:6]
             got = fb.flash_attention_bias_grad(q, k, v, out, lse, do, bias, **mask_kw)
             torch.cuda.synchronize()
@@ -1076,6 +1090,21 @@ def phase_bwd_kernels(record):
         results.append(res)
         emit({"phase": "kernel_check", **res})
         del q, k, v, out, lse, do, got, want, ref
+    # The fp32 dbias (3xTF32) at the same shape and gate, a shared bias
+    # (summed over batch and heads), as test_flash_dbias_fp32_keeps_highest_accuracy.
+    for d in (64, 128, 256):
+        q, k, v, out, lse, do, bias, _ = inputs(B_CHECK, 1024, 1024, d, torch.float32,
+                                                causal=True, bias_shape="11qk", q_sd=3.0)
+        got = fb.flash_attention_bias_grad(q, k, v, out, lse, do, bias, causal=True)
+        torch.cuda.synchronize()
+        want = fb.flash_attention_bias_grad_plain(q, k, v, out, lse, do, bias, causal=True)
+        res = {"case": f"flash_dbias/float32/highest_accuracy_d{d}", "tol": 5e-6,
+               "relerr": rel_err(got, want), "max_abs": float((got - want).abs().max())}
+        res["ok"] = res["relerr"] <= 5e-6 and torch_isfinite(got)
+        worst["flash_dbias"] = max(worst["flash_dbias"], res["max_abs"])
+        results.append(res)
+        emit({"phase": "kernel_check", **res})
+        del q, k, v, out, lse, do, bias, got, want
     record["bwd_kernel_checks"] = results
     bad = [r["case"] for r in results if not r["ok"]]
     if bad:
@@ -1199,8 +1228,6 @@ def phase_bwd_kernels(record):
                                         "dK and dV in one call), " + sdpa_gqa)
         del qg, kg, vg, grads32, p32, q32, k32, v32, do32, out32, lse32, passes32
         torch.cuda.empty_cache()
-    q32, k32, v32, do32 = q.float(), k.float(), v.float(), do.float()
-    reads32 = 4 * (q.numel() + k.numel() + v.numel() + do.numel()) + 4 * 2 * lse.numel()
 
     # dbias with a (1, Hq, S, S) bias, summed over the batch in the kernel.
     bias = torch.randn((1, HQ, s, s), device=dev,
@@ -1242,41 +1269,52 @@ def phase_bwd_kernels(record):
     del qg, kx, vx, mask, pb, out_b, lse_b
     torch.cuda.empty_cache()
 
-    # dbias on fp32 inputs (the CUDA-core kernel) with the same bias. Bound:
-    # the 3xTF32 floor, as the fp32 dQ and dK/dV; yardstick: the
-    # memory-efficient SDPA backward with an fp32 bias gradient.
-    out_b, lse_b = flash_attention_forward(q32, k32, v32, bias, causal=True)
-    pb = fb._prepare(q32, k32, v32, out_b, lse_b, do32, bias, None, True, None, None)
-    kern = lambda: fb._launch_dbias(pb, tuple(bias.shape))  # noqa: E731
-    plain = lambda: fb._plain_dbias(pb, tuple(bias.shape))  # noqa: E731
-    got, want = kern(), plain()
-    check = {"dbias": rel_err(got, want)}
-    worst["flash_dbias"] = max(worst["flash_dbias"], float((got - want).abs().max()))
-    del got, want
+    # dbias on fp32 inputs (3xTF32 on the tensor cores) with the same bias,
+    # at D 64 and 256. Bound: the 3xTF32 floor, as the fp32 dQ and dK/dV;
+    # yardstick: the memory-efficient SDPA backward with an fp32 bias
+    # gradient.
+    del q, k, v, do, out, lse, p
     torch.cuda.empty_cache()
-    flops = 2 * D * 2 * pairs
-    nbytes = reads32 + 4 * HQ * visible_pairs(s, s, -1, 0) + 4 * bias.numel()
-    t = dict(**cuda_stats(kern, iters=5, warmup=1), plain_ms=cuda_ms(plain, iters=3, warmup=1),
-             flops=flops, bytes=nbytes, ops_ms=3 * flops / H100_TF32_FLOPS * 1e3,
-             bytes_ms=nbytes / H100_HBM_BYTES * 1e3, check=check, ok=check["dbias"] <= 1e-4)
-    t["tf32x3_floor_ms"] = t["ops_ms"]
-    t["fp32_cuda_core_ms"] = flops / H100_FP32_FLOPS * 1e3
-    mask = torch.where(vis, bias, float("-inf")).requires_grad_(True)
-    qg = q32.detach().requires_grad_(True)
-    kx = k32.repeat_interleave(HQ // HKV, 1).requires_grad_(True)
-    vx = v32.repeat_interleave(HQ // HKV, 1).requires_grad_(True)
-    try:
-        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
-            o = F.scaled_dot_product_attention(qg, kx, vx, attn_mask=mask)
-        t["library_ms"] = cuda_ms(lambda: torch.autograd.grad(o, (mask,), do32, retain_graph=True))
-        t["library"] = ("memory-efficient SDPA backward with a (1, 16, S, S) fp32 bias gradient on "
-                        "the fp32 inputs; also computes dQ, dK, dV")
-        del o
-    except RuntimeError as e:
-        t["library_ms"] = None
-        t["library"] = f"none: this torch refused the fp32 bias gradient ({e})"[:300]
-    timing["flash_dbias_fp32"] = t
-    del qg, kx, vx, mask, bias, vis, pb, p, q, k, v, do, out, lse, out_b, lse_b, q32, k32, v32, do32
+    for d in (D, 256):
+        q32, k32, v32 = (randn(shape) for shape in ((b, HQ, s, d), (b, HKV, s, d), (b, HKV, s, d)))
+        do32 = randn((b, HQ, s, d))
+        out_b, lse_b = flash_attention_forward(q32, k32, v32, bias, causal=True)
+        pb = fb._prepare(q32, k32, v32, out_b, lse_b, do32, bias, None, True, None, None)
+        kern = lambda: fb._launch_dbias(pb, tuple(bias.shape))  # noqa: E731
+        plain = lambda: fb._plain_dbias(pb, tuple(bias.shape))  # noqa: E731
+        got, want = kern(), plain()
+        check = {"dbias": rel_err(got, want)}
+        worst["flash_dbias"] = max(worst["flash_dbias"], float((got - want).abs().max()))
+        del got, want
+        torch.cuda.empty_cache()
+        flops = 2 * d * 2 * pairs
+        reads32 = 4 * (q32.numel() + k32.numel() + v32.numel() + do32.numel()) + 4 * 2 * lse_b.numel()
+        nbytes = reads32 + 4 * HQ * visible_pairs(s, s, -1, 0) + 4 * bias.numel()
+        t = dict(**cuda_stats(kern, iters=5, warmup=1), plain_ms=cuda_ms(plain, iters=3, warmup=1),
+                 flops=flops, bytes=nbytes, ops_ms=3 * flops / H100_TF32_FLOPS * 1e3,
+                 bytes_ms=nbytes / H100_HBM_BYTES * 1e3, check=check, ok=check["dbias"] <= 1e-4)
+        t["tf32x3_floor_ms"] = t["ops_ms"]
+        t["fp32_cuda_core_ms"] = flops / H100_FP32_FLOPS * 1e3
+        mask = torch.where(vis, bias, float("-inf")).requires_grad_(True)
+        qg = q32.detach().requires_grad_(True)
+        kx = k32.repeat_interleave(HQ // HKV, 1).requires_grad_(True)
+        vx = v32.repeat_interleave(HQ // HKV, 1).requires_grad_(True)
+        try:
+            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                o = F.scaled_dot_product_attention(qg, kx, vx, attn_mask=mask)
+            t["library_ms"] = cuda_ms(lambda: torch.autograd.grad(o, (mask,), do32, retain_graph=True))
+            t["library"] = ("memory-efficient SDPA backward with a (1, 16, S, S) fp32 bias gradient "
+                            "on the fp32 inputs; also computes dQ, dK, dV")
+            del o
+        except RuntimeError as e:
+            t["library_ms"] = None
+            t["library"] = f"none: this torch refused the fp32 bias gradient ({e})"[:300]
+        key = "flash_dbias_fp32" if d == D else f"flash_dbias_fp32_d{d}"
+        timing[key] = t
+        shapes[key] = f"B{b} Hq{HQ} Hkv{HKV} Sq{s} Sk{s} D{d} causal fp32, bias (1, {HQ}, S, S)"
+        del qg, kx, vx, mask, pb, q32, k32, v32, do32, out_b, lse_b
+        torch.cuda.empty_cache()
+    del bias, vis
     torch.cuda.empty_cache()
 
     for name, t in timing.items():
@@ -1287,6 +1325,10 @@ def phase_bwd_kernels(record):
               "shape": shapes.get(name, shape.replace("bf16", "fp32") if name.endswith("_fp32")
                                   else shape), **t})
     record["bwd_kernel_timing"] = timing
+    timing["flash_dbias"]["variants"] = [
+        {"shape": shapes[key], **{k2: timing[key][k2] for k2 in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "tf32x3_floor_ms")}}
+        for key in ("flash_dbias_fp32", "flash_dbias_fp32_d256")]
     return timing, worst
 
 
@@ -1495,7 +1537,8 @@ def phase_quant_kernels(record):
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    from umfa_tpu_torch.engine.config import Precision
+    from umfa_tpu_torch.engine.config import Precision, QuantizationConfig
+    from umfa_tpu_torch.ops import quant_attention as qa
     from umfa_tpu_torch.ops import quant_bwd as qb
     from umfa_tpu_torch.ops.quant import dequantize
     from umfa_tpu_torch.ops.quant_attention import _corr_from_quantized
@@ -1560,34 +1603,29 @@ def phase_quant_kernels(record):
             fkw = dict(recipe_kwargs(recipe), causal=kw.get("causal", False), window=kw.get("window"))
             if kw.get("bias"):
                 fkw["bias"] = randn((1, 1, sq, sk))
-            if d > 128:
-                # fused_qattn takes head_dim <= 128: the backward kernels'
-                # residuals come from its plain version.
-                got = want = fused_quantize_attend_plain(q, k, v, **fkw)
-            else:
-                got = fused_quantize_attend(q, k, v, **fkw)
-                torch.cuda.synchronize()
-                want = fused_quantize_attend_plain(q, k, v, **fkw)
-                lse, w_lse = got[1], want[1]
-                vis = w_lse > -1e29
-                res = {"case": f"fused_qattn/{recipe}/{str(dtype)[6:]}/{name}",
-                       "relerr_out": rel_err(got[0], want[0]),
-                       "max_abs_out": float((got[0].float() - want[0].float()).abs().max()),
-                       "max_abs_lse": float((lse[vis] - w_lse[vis]).abs().max()) if vis.any() else 0.0,
-                       "empty_rows": int((~vis).sum()),
-                       "empty_rows_exact": bool((got[0][~vis] == 0).all()
-                                                and (lse[~vis] == -1e30).all()),
-                       "codes_close": all(codes_close(a, b) for a, b in zip(got[2:5], want[2:5])
-                                          if a is not None),
-                       "relerr_means": max([rel_err(a, b) for a, b in zip(got[5:], want[5:])
-                                            if a is not None] + [0.0]),
-                       "finite": torch_isfinite(got[0].float()) and torch_isfinite(lse)}
-                res["ok"] = (res["relerr_out"] <= 1e-3 and res["max_abs_lse"] <= 1e-4
-                             and res["empty_rows_exact"] and res["codes_close"]
-                             and res["relerr_means"] <= 1e-6 and res["finite"])
-                worst["fused_qattn"] = max(worst["fused_qattn"], res["max_abs_out"])
-                results.append(res)
-                emit({"phase": "kernel_check", **res})
+            got = fused_quantize_attend(q, k, v, **fkw)
+            torch.cuda.synchronize()
+            want = fused_quantize_attend_plain(q, k, v, **fkw)
+            lse, w_lse = got[1], want[1]
+            vis = w_lse > -1e29
+            res = {"case": f"fused_qattn/{recipe}/{str(dtype)[6:]}/{name}",
+                   "relerr_out": rel_err(got[0], want[0]),
+                   "max_abs_out": float((got[0].float() - want[0].float()).abs().max()),
+                   "max_abs_lse": float((lse[vis] - w_lse[vis]).abs().max()) if vis.any() else 0.0,
+                   "empty_rows": int((~vis).sum()),
+                   "empty_rows_exact": bool((got[0][~vis] == 0).all()
+                                            and (lse[~vis] == -1e30).all()),
+                   "codes_close": all(codes_close(a, b) for a, b in zip(got[2:5], want[2:5])
+                                      if a is not None),
+                   "relerr_means": max([rel_err(a, b) for a, b in zip(got[5:], want[5:])
+                                        if a is not None] + [0.0]),
+                   "finite": torch_isfinite(got[0].float()) and torch_isfinite(lse)}
+            res["ok"] = (res["relerr_out"] <= 1e-3 and res["max_abs_lse"] <= 1e-4
+                         and res["empty_rows_exact"] and res["codes_close"]
+                         and res["relerr_means"] <= 1e-6 and res["finite"])
+            worst["fused_qattn"] = max(worst["fused_qattn"], res["max_abs_out"])
+            results.append(res)
+            emit({"phase": "kernel_check", **res})
             if recipe == "qdense":
                 continue
             # The STE backward on the kernel's residuals, with 64 rows of
@@ -1616,6 +1654,24 @@ def phase_quant_kernels(record):
             results.append(res)
             emit({"phase": "kernel_check", **res})
             del got, want, gb, wb, args
+    # The score bits: causal S 1024 with q ~ N(0, 3) (short causal rows,
+    # where fp32 score sums in another order flip bf16(P)), the LSE held to
+    # 1e-5, at D 64 and 256 (256 products a score, still exact in double).
+    for d in (64, 256):
+        q = (3 * torch.randn((B_CHECK, HQ, 1024, d), generator=gen)).to(dev, torch.bfloat16)
+        k, v = randn((B_CHECK, HKV, 1024, d), torch.bfloat16), randn((B_CHECK, HKV, 1024, d),
+                                                                     torch.bfloat16)
+        fkw = dict(recipe_kwargs("int8"), causal=True)
+        got = fused_quantize_attend(q, k, v, **fkw)
+        torch.cuda.synchronize()
+        want = fused_quantize_attend_plain(q, k, v, **fkw)
+        res = {"case": f"fused_qattn/int8/bfloat16/score_bits_d{d}", "tol_lse": 1e-5,
+               "max_abs_lse": float((got[1] - want[1]).abs().max()),
+               "relerr_out": rel_err(got[0], want[0])}
+        res["ok"] = res["max_abs_lse"] <= 1e-5 and res["relerr_out"] <= 1e-3
+        results.append(res)
+        emit({"phase": "kernel_check", **res})
+        del q, k, v, got, want
     record["quant_kernel_checks"] = results
     bad = [r["case"] for r in results if not r["ok"]]
     if bad:
@@ -1629,9 +1685,9 @@ def phase_quant_kernels(record):
     q, k, v = (randn((b, HQ, s, D), torch.bfloat16), randn((b, HKV, s, D), torch.bfloat16, 0.5),
                randn((b, HKV, s, D), torch.bfloat16, 0.3))
     timing = {}
-    in_bytes = 2 * (q.numel() + k.numel() + v.numel())
 
-    def fused_timing(recipe):
+    def fused_timing(recipe, q, k, v):
+        d = q.shape[3]
         kw = dict(recipe_kwargs(recipe), causal=True)
         fk = lambda: fused_quantize_attend(q, k, v, **kw)  # noqa: E731
         fp = lambda: fused_quantize_attend_plain(q, k, v, **kw)  # noqa: E731
@@ -1647,9 +1703,10 @@ def phase_quant_kernels(record):
         torch.cuda.empty_cache()
         # QKᵀ and P·V over the visible pairs; with the rotation, x·H on each
         # Q and K row (2·D² each); the per-element quantize work is O(S·D).
-        flops = 4 * D * pairs
+        flops = 4 * d * pairs
         if kw.get("hadamard"):
-            flops += 2 * D * D * (q.numel() + k.numel()) // D
+            flops += 2 * d * d * (q.numel() + k.numel()) // d
+        in_bytes = 2 * (q.numel() + k.numel() + v.numel())
         nbytes = in_bytes + q.numel() * 2 + 4 * b * HQ * s + res_bytes  # + out, lse, residuals
         t = dict(**cuda_stats(fk), plain_ms=cuda_ms(fp, iters=3, warmup=1), flops=flops,
                  bytes=nbytes, ops_ms=flops / H100_BF16_FLOPS * 1e3,
@@ -1660,13 +1717,25 @@ def phase_quant_kernels(record):
                  library="none: no single PyTorch call quantizes and attends")
         # The floor of the exact score contract: both passes' QKᵀ in double
         # on the FP64 tensor cores, over the visible pairs.
-        t["fp64_flops"] = 2 * 2 * D * pairs
+        t["fp64_flops"] = 2 * 2 * d * pairs
         t["fp64_floor_ms"] = t["fp64_flops"] / H100_FP64_TC_FLOPS * 1e3
         t["share_of_fp64_floor"] = t["fp64_floor_ms"] / t["ms"]
         return t
 
-    timing["fused_qattn"] = fused_timing("int8")
-    timing["fused_qattn_int4"] = fused_timing("int4")
+    timing["fused_qattn"] = fused_timing("int8", q, k, v)
+    timing["fused_qattn_int4"] = fused_timing("int4", q, k, v)
+    # At D 256, beside the FP64 floor, the two-pass route's forward on the
+    # same inputs (quant_rows three times, then quant_attn_fwd; true means,
+    # not tile-0 estimates: other numbers, a yardstick).
+    q2, k2, v2 = (randn((b, HQ, s, 256), torch.bfloat16), randn((b, HKV, s, 256), torch.bfloat16, 0.5),
+                  randn((b, HKV, s, 256), torch.bfloat16, 0.3))
+    t = fused_timing("int8", q2, k2, v2)
+    cfg = QuantizationConfig.from_mode_string("int8")
+    t["two_pass_ms"] = cuda_ms(lambda: qa._two_pass(q2, k2, v2, None, cfg, True, None, None, None))
+    t["two_pass"] = "quant_rows x 3, quant_attn_fwd and the V-mean restore, int8, same inputs"
+    timing["fused_qattn_d256"] = t
+    del q2, k2, v2
+    torch.cuda.empty_cache()
 
     # quant_rows on Q (bytes-bound: bf16 in, int8 codes and fp32 scales out).
     mean = q.float().mean(dim=2, keepdim=True)
@@ -1730,8 +1799,14 @@ def phase_quant_kernels(record):
                                  f"{t['check']}")
         bound(t)
         emit({"phase": "kernel_timing", "kernel": name,
-              "shape": shape if name != "fused_qattn_int4" else shape + " int4 recipe", **t})
+              "shape": {"fused_qattn_int4": shape + " int4 recipe",
+                        "fused_qattn_d256": shape.replace(f"D{D}", "D256")}.get(name, shape), **t})
     record["quant_kernel_timing"] = timing
+    t256 = timing["fused_qattn_d256"]
+    timing["fused_qattn"]["variants"] = [
+        {"shape": shape.replace(f"D{D}", "D256") + ", int8 recipe",
+         **{k2: t256[k2] for k2 in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                     "fp64_floor_ms", "two_pass_ms")}}]
     return timing, worst
 
 
@@ -1824,14 +1899,17 @@ def phase_two_pass(record):
 
     gen = torch.Generator().manual_seed(10)
     b = B_CHECK
-    calls = [("disable_fused_quant", 1024, {"UMFA_DISABLE_FUSED_QUANT": "1"}),
-             ("causal_sq512_sk1024", 512, {})]
+    calls = [("disable_fused_quant", 1024, {"UMFA_DISABLE_FUSED_QUANT": "1"}, D),
+             ("causal_sq512_sk1024", 512, {}, D),
+             # a head_dim that is not a multiple of 4: quant_attn_fwd on
+             # codes zero-padded to 64
+             ("disable_fused_quant_d63", 1024, {"UMFA_DISABLE_FUSED_QUANT": "1"}, 63)]
     want_counts = {"quant_rows": 3, "quant_attn_fwd": 1, "quant_bwd_dq": 1, "quant_bwd_dkv": 1,
                    "fused_qattn": 0}
     results, path_counts = [], []
-    for name, sq, env in calls:
-        q = torch.randn((b, HQ, sq, D), generator=gen)
-        k, v = torch.randn((b, HKV, 1024, D), generator=gen), torch.randn((b, HKV, 1024, D), generator=gen)
+    for name, sq, env, d in calls:
+        q = torch.randn((b, HQ, sq, d), generator=gen)
+        k, v = torch.randn((b, HKV, 1024, d), generator=gen), torch.randn((b, HKV, 1024, d), generator=gen)
         w = torch.randn(q.shape, generator=gen)
         got = {}
         os.environ.update(env)
@@ -1854,7 +1932,7 @@ def phase_two_pass(record):
         errs = {n: rel_err(a, c) for n, a, c in zip(("out", "dq", "dk", "dv"), got["cuda"],
                                                      got["cpu"])}
         res = {"phase": "two_pass_route", "case": name, "shape": f"B{b} Hq{HQ} Hkv{HKV} "
-               f"Sq{sq} Sk1024 D{D} causal fp32 int8", "relerr": errs, "tol": 1e-2,
+               f"Sq{sq} Sk1024 D{d} causal fp32 int8", "relerr": errs, "tol": 1e-2,
                "launches": counts}
         emit(res)
         results.append(res)
@@ -2451,16 +2529,24 @@ TC_KERNELS = {"flash_fwd": ("fwd_tc_kernel",), "flash_bwd": ("dq_tc_kernel", "dk
 # The tensor-core instructions (SASS mnemonics) each library's kernels must
 # hold: HMMA for bf16 (and tf32) mma.sync, IMMA for int8, DMMA for f64.
 TC_OPS = {"quant_attn_fwd": ("HMMA", "IMMA"), "fused_qattn": ("DMMA", "HMMA")}
-# The fp32 dense forward and backward and the fp32 ring steps: their 3xTF32
-# instantiations (product policy Tf32x3Mma) of every stem must hold TF32
-# HMMA, at D 64, 128 and 256 alike, and the CUDA-core kernels they replaced
-# must be gone.
+# The fp32 dense forward and backward, the fp32 dbias and the fp32 ring
+# steps: their 3xTF32 instantiations (product policy Tf32x3Mma) of every
+# stem must hold TF32 HMMA (at D 64, 128 and 256 alike where the head dim
+# is a template argument; the dbias body walks any depth in chunks), and the
+# CUDA-core kernels they replaced must be gone.
 TF32_POLICY, TF32_HMMA = "Tf32x3Mma", "HMMA.1688.F32.TF32"
-TF32_LIBS = ("flash_fwd", "flash_bwd", "ring_attn")
+TF32_LIBS = ("flash_fwd", "flash_bwd", "flash_dbias", "ring_attn")
+TF32_WIDTH_LIBS = ("flash_fwd", "flash_bwd", "ring_attn")
 TF32_WIDTHS = ("Li64E", "Li128E", "Li256E")  # the head-dim template argument, mangled
 SIMT_GONE = {"flash_fwd": ("flash_fwd_kernel",),
              "flash_bwd": ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"),
+             "flash_dbias": ("flash_dbias_kernel",),
              "ring_attn": ("ring_fwd_step_kernel", "ring_bwd_dq_kernel", "ring_bwd_dkv_kernel")}
+# Kernels that must exist and spill nothing: (library, stem, a substring of
+# the mangled name) -> what it is. fused_qattn's D 256 instantiations
+# (its bf16-Q-tile layout) and the fp32 dbias.
+NO_SPILL = {("fused_qattn", "fused_qattn_tc_kernel", "Li256E"): "fused_qattn D 256",
+            ("flash_dbias", "dbias_tc_kernel", TF32_POLICY): "fp32 flash_dbias"}
 
 
 def ptxas_resources(log):
@@ -2538,17 +2624,26 @@ def phase_sass(record, report):
                     raise AssertionError(f"no {TF32_HMMA} in the fp32 {stem} of {lib}: "
                                          f"{ {f: kernels[f].get('hmma_tf32') for f in found} }")
                 widths = [w for w in TF32_WIDTHS if not any(w in f for f in found)]
-                if widths:
+                if widths and lib in TF32_WIDTH_LIBS:
                     raise AssertionError(f"the fp32 {stem} of {lib} lacks the instantiations "
                                          f"{widths}: {found}")
         if lib in report:
             for f, r in ptxas_resources(report[lib]["ptxas"]).items():
                 if f"{lib}:{f}" in kernels:
                     kernels[f"{lib}:{f}"].update(r)
+    for (lib, stem, part), what in NO_SPILL.items():
+        found = [f for f, r in kernels.items() if r["library"] == lib and r["stem"] == stem
+                 and part in f]
+        if not found:
+            raise AssertionError(f"no {what} kernel in {lib}'s SASS")
+        spilled = {f: kernels[f].get("spill_stores", 0) + kernels[f].get("spill_loads", 0)
+                   for f in found}
+        if any(spilled.values()):
+            raise AssertionError(f"the {what} kernels spill: {spilled}")
     fwd = _kernels.function("flash_fwd", "umfa_flash_fwd_smem_bytes", (ctypes.c_int, ctypes.c_int))
     fbwd = _kernels.function("flash_bwd", "umfa_flash_bwd_smem_bytes",
                              (ctypes.c_int, ctypes.c_int, ctypes.c_int))
-    fdb = _kernels.function("flash_dbias", "umfa_flash_dbias_smem_bytes", (ctypes.c_int,))
+    fdb = _kernels.function("flash_dbias", "umfa_flash_dbias_smem_bytes", (ctypes.c_int, ctypes.c_int))
     qbwd = _kernels.function("quant_bwd", "umfa_quant_bwd_smem_bytes", (ctypes.c_int, ctypes.c_int))
     qfwd = _kernels.function("quant_attn_fwd", "umfa_quant_attn_fwd_smem_bytes", (ctypes.c_int,))
     fq = _kernels.function("fused_qattn", "umfa_fused_qattn_smem_bytes", (ctypes.c_int,))
@@ -2560,7 +2655,8 @@ def phase_sass(record, report):
         smem[f"flash_fwd fp32 D{d}"] = fwd(d, 0)
         smem[f"flash_bwd_dq bf16 D{d}"] = fbwd(d, 0, 1)
         smem[f"flash_bwd_dkv bf16 D{d}"] = fbwd(d, 1, 1)
-        smem[f"flash_dbias bf16 D{d}"] = fdb(d)
+        smem[f"flash_dbias bf16 D{d}"] = fdb(d, 1)
+        smem[f"flash_dbias fp32 D{d}"] = fdb(d, 0)
         smem[f"quant_bwd_dq D{d}"] = qbwd(d, 0)
         smem[f"quant_bwd_dkv D{d}"] = qbwd(d, 1)
         smem[f"quant_attn_fwd D{d}"] = qfwd(d)
@@ -2572,8 +2668,7 @@ def phase_sass(record, report):
         smem[f"ring_bwd_dkv fp32 D{d}"] = rbwd(d, 1, 0)
         smem[f"flash_bwd_dq fp32 D{d}"] = fbwd(d, 0, 0)
         smem[f"flash_bwd_dkv fp32 D{d}"] = fbwd(d, 1, 0)
-        if d <= 128:
-            smem[f"fused_qattn D{d}"] = fq(d)
+        smem[f"fused_qattn D{d}"] = fq(d)
     out = {"kernels": kernels, "dynamic_smem_bytes": smem}
     emit({"phase": "sass", **out})
     record["sass"] = out
@@ -2611,12 +2706,15 @@ DESIGN = {
                      "8 warps on 32 keys, each forming Sᵀ and dPᵀ over a quarter of the depth and "
                      "owning that quarter of dK and dV, the partials added in shared memory; "
                      "16-row query tiles)",
-    "flash_dbias": "bf16 inputs: tensor cores, mma.sync m16n8k16 bf16->fp32 (dbias_tc_kernel: 8 "
-                   "warps on a 64-query x 128-key output tile, the dS sum over the bias's "
-                   "broadcast batch and heads in registers, the bias tile in shared memory "
-                   "once, Q/dO/K/V in 32-column chunks double-buffered by cp.async, "
-                   "bf16(q·scale) formed on the A fragments); fp32/fp16 inputs: CUDA cores, "
-                   "FP32 FMAs",
+    "flash_dbias": "tensor cores, one body with a product policy (dbias_tc_kernel: 8 warps on "
+                   "a 64-query output tile, the dS sum over the bias's broadcast batch and "
+                   "heads in registers, the bias tile in shared memory once, Q/dO/K/V in "
+                   "32-column chunks double-buffered by cp.async, q·scale formed on the A "
+                   "fragments, D <= 256); bf16 inputs: mma.sync m16n8k16 bf16->fp32, 128-key "
+                   "tiles; fp32/fp16 inputs: 3xTF32 (three mma.sync m16n8k8 tf32->fp32 a "
+                   "product on split operands, each 32-column chunk's three products into one "
+                   "zeroed fragment added to S, then dP, by an fp32 add), 64-key tiles, 128 "
+                   "registers, two blocks an SM",
     "quant_bwd_dq": "tensor cores, mma.sync m16n8k16 bf16->fp32 (csrc/bwd_tc.cuh dq_tc_kernel: "
                     "4 warps x 16 query rows, Q and dO dequantized once, raw int8/int4 K/V key "
                     "tiles double-buffered by cp.async and dequantized to bf16 in shared memory, "
@@ -2634,11 +2732,12 @@ DESIGN = {
                       "passes: QKᵀ alone for the exact row max, then P·V)",
     "fused_qattn": "tensor cores: QKᵀ by mma.sync m16n8k8 f64 (DMMA; each score an exact double "
                    "sum of bf16 products rounded once, as the plain version), P·V by mma.sync "
-                   "m16n8k16 bf16->fp32 (8 warps x 16 query rows, Q quantized in the block, its A "
-                   "fragments as double in registers at D 64; int8/int4 K/V code tiles, scales "
-                   "and the cc row in two cp.async buffers, each tile dequantized once a block a "
-                   "step ahead, K to fp32, V to bf16; two passes: QKᵀ alone for the exact row "
-                   "max, then P·V); the means, K/V quantize and cc-row kernels on the CUDA cores",
+                   "m16n8k16 bf16->fp32 (12 warps x 16 query rows at D 64, 8 at D 128 and 256, Q "
+                   "quantized in the block, its A fragments as double in registers at D 64, the "
+                   "Q tile bf16 at D 256; the dequantized bf16 K̃/Ṽ tiles (64 keys, 32 at D 256) "
+                   "and the cc row in three cp.async buffers two tiles ahead, K̃ as double once "
+                   "a block at D 64; two passes: QKᵀ alone for the exact row max, then P·V); "
+                   "the means, K/V quantize and cc-row kernels on the CUDA cores",
     "quant_rows": "CUDA cores: one warp a row, elementwise",
     "ring_fwd_step": "tensor cores, the forward body of flash_fwd (csrc/fwd_tc.cuh fwd_tc_kernel) "
                      "in ring mode: the step's global-position mask reduced on the host to the "
@@ -2761,9 +2860,12 @@ def main():
          "ms": timing[name]["ms"], "plain_ms": timing[name]["plain_ms"],
          "bound_ms": timing[name]["bound_ms"], "bound_by": timing[name]["bound_by"],
          "library_ms": timing[name]["library_ms"],
-         "design": DESIGN.get(name, "CUDA cores, FP32 FMAs")}
+         "design": DESIGN.get(name, "CUDA cores, FP32 FMAs"),
+         **({"variants": timing[name]["variants"]} if "variants" in timing[name] else {})}
         for name in src
     ]
+    kernels[[k["name"] for k in kernels].index("flash_dbias")]["launches_by_dtype"] = {
+        key.split("/")[1]: n for key, n in launches.items() if key.startswith("flash_dbias/")}
     missing = [k["name"] for k in kernels if k["launches"] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the driven paths: {missing}")

@@ -61,8 +61,8 @@ def _q(seed, hq, tq, d):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("tq", [1, 4, 16])
-@pytest.mark.parametrize("heads", [(4, 2, 64), (2, 2, 64), (4, 2, 128)],
-                         ids=["gqa_d64", "mha_d64", "gqa_d128"])
+@pytest.mark.parametrize("heads", [(4, 2, 64), (2, 2, 64), (4, 2, 128), (4, 2, 72), (2, 1, 256)],
+                         ids=["gqa_d64", "mha_d64", "gqa_d128", "gqa_d72", "gqa_d256"])
 def test_plain_flash_decode_matches_jax_interpret(heads, tq, dtype):
     hq, hkv, d = heads
     s_max, block = 1024, 512  # two KV tiles

@@ -174,6 +174,27 @@ def test_bias_grad_matches_jax(kind):
     np.testing.assert_allclose(got.numpy(), want, **FP32)
 
 
+# fp32 inputs at head dims over 128, which the card's dbias kernel takes
+# since its 3xTF32 body (D 192 zero-padded inside its 32-column chunks):
+# the CPU path is the plain version, the same arithmetic, held to the
+# reference at the fp32 gate.
+@pytest.mark.parametrize("d", [192, 256])
+@pytest.mark.parametrize("kind", ["11qk", "bhqk"])
+def test_bias_grad_fp32_wide_heads_match_jax(kind, d):
+    sq, sk = 80, 104
+    q, k, v = _normal(0, B, HQ, sq, d), _normal(1, B, HKV, sk, d), _normal(2, B, HKV, sk, d)
+    bias = _bias(kind, sq, sk)
+    jq, jk, jv, jb = (jnp.asarray(x) for x in (q, k, v, bias))
+    j_out, j_lse = jax_flash_forward(jq, jk, jv, jb, causal=True, interpret=True)
+    do = jnp.asarray(_normal(3, B, HQ, sq, d))
+    want = np.asarray(jax_bias_grad(jq, jk, jv, j_out, j_lse, do, jb, causal=True,
+                                    interpret=True))
+    got = flash_attention_bias_grad(*(_t(x, torch.float32) for x in (jq, jk, jv, j_out, j_lse, do)),
+                                    torch.from_numpy(bias), causal=True)
+    assert got.shape == bias.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, **FP32)
+
+
 # bf16 inputs at D 128 (scale not a power of two): both sides take
 # S = bf16(q·scale)·Kᵀ and dP = dO·Vᵀ as exact bf16 products summed in
 # fp32, and dbias = P∘(dP − δ) in fp32 with no rounding, so only summation

@@ -19,8 +19,8 @@ and `flash_attention_bias_grad_plain` on the same inputs: fp32 and fp16
 tests/test_flash_backward.py:32; bf16 (bf16 gradients emitted, dS and P
 rounded to bf16 at the same points, fp32 sums in another order) relerr
 2e-2, TOL["bf16"]. Rows with no visible key have gradients of exactly 0.
-The fp32 dQ and dK/dV (3xTF32 on the tensor cores) are also held to 5e-6,
-a twentieth of their gate, where one TF32 pass would sit near 1e-3.
+The fp32 dQ, dK/dV and dbias (3xTF32 on the tensor cores) are also held to
+5e-6, a twentieth of their gate, where one TF32 pass would sit near 1e-3.
 """
 
 import pytest
@@ -185,6 +185,8 @@ QUANT_CASES = [
     (1, 4, 2, 130, 257, 192, True, None, False, QuantMode.ROW, QuantMode.BLOCK),   # D 192 padded to 256
     (2, 4, 2, 100, 150, 36, True, None, True, QuantMode.ROW, QuantMode.ROW),       # 4-byte copies
     (2, 4, 2, 16, 300, 128, False, (-1, 284), False, QuantMode.ROW, QuantMode.ROW),  # Tq 16 chunk
+    (1, 4, 2, 130, 257, 63, True, None, True, QuantMode.ROW, QuantMode.ROW),  # D 63: zero-padded codes
+    (2, 2, 1, 70, 300, 250, False, (40, 8), False, QuantMode.ROW, QuantMode.ROW),  # D 250, padded to 256
 ]
 
 
@@ -325,6 +327,16 @@ def test_flash_dbias_tc_bf16_matches_plain(dev, case):
     _check_dbias(case, torch.bfloat16, dev)
 
 
+# fp32 and fp16 inputs (computed as fp32) on the same kernel's 3xTF32 body,
+# at the same cases (D 80: three column chunks; D 256: eight) and at D 192,
+# at the fp32 gate, 1e-4.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+@pytest.mark.parametrize("case", DBIAS_TC_CASES + [
+    (1, 4, 2, 130, 257, 192, True, None, "11qk", False)])  # D 192, KV tail, summed
+def test_flash_dbias_tc_fp32_matches_plain(dev, dtype, case):
+    _check_dbias(case, dtype, dev)
+
+
 def test_flash_dbias_tc_row_masked_by_bias_alone(dev):
     # Rows 5 and 40 see keys by the index rule, but a -1e30 bias hides
     # every one: LSE -1e30, P = exp(S + bias + 1e30) = 1 on them, and their
@@ -417,6 +429,25 @@ def test_flash_bwd_fp32_keeps_highest_accuracy(dev, d):
     _check_bwd(args, kw, None, 5e-6)
 
 
+# The fp32 dbias (3xTF32) at the same shape and gate, 5e-6, with a bias
+# summed over batch and heads (32 (b, h) a tile) and one per (b, h): dS =
+# P∘(dP − δ) cancels in dP − δ, so a truncated mma chain in S or dP shows
+# as flipped low bits over the whole row, where the summed bias adds 32 of
+# them up.
+@pytest.mark.parametrize("kind", ["11qk", "bhqk"])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_dbias_fp32_keeps_highest_accuracy(dev, d, kind):
+    (q, k, v, out, lse, do, bias, _), kw = _bwd_inputs(
+        (2, 4, 4, 1024, 1024, d, True, None, kind, False), torch.float32, dev, q_sd=3.0)
+    n0 = _kernels.launches["flash_dbias"]
+    got = flash_attention_bias_grad(q, k, v, out, lse, do, bias, **kw)
+    torch.cuda.synchronize()
+    assert _kernels.launches["flash_dbias"] == n0 + 1
+    want = flash_attention_bias_grad_plain(q, k, v, out, lse, do, bias, **kw)
+    assert torch.isfinite(got).all()
+    assert rel_err(got, want) <= 5e-6
+
+
 def test_quant_attn_fwd_kernel_word_copies_for_unaligned_operands(dev):
     # int8 operands 4 bytes past a 16-byte boundary: 4-byte copies at D 64.
     q, k, v = _qkv(1, 4, 2, 130, 200, 64, torch.float32, dev)
@@ -454,8 +485,8 @@ def test_flash_bwd_kernels_refuse_what_they_do_not_take(dev):
 
 
 def test_flash_bwd_kernels_refuse_head_dims_over_their_limits(dev):
-    # head_dim <= 256 for dQ and dK/dV in bf16 and fp32 and for the bf16
-    # dbias; the fp32 dbias (CUDA cores) <= 128.
+    # head_dim <= 256 for dQ, dK/dV and dbias, in bf16 and fp32; under it
+    # (D 192, fp32) each kernel runs and meets its plain version.
     for dtype in (torch.bfloat16, torch.float32):
         (q, k, v, out, lse, do, bias, _), kw = _bwd_inputs(
             (1, 2, 2, 64, 64, 320, False, None, "bhqk", False), dtype, dev)
@@ -465,8 +496,11 @@ def test_flash_bwd_kernels_refuse_head_dims_over_their_limits(dev):
             flash_attention_bias_grad(q, k, v, out, lse, do, bias, **kw)
     (q, k, v, out, lse, do, bias, _), kw = _bwd_inputs(
         (1, 2, 2, 64, 64, 192, False, None, "bhqk", False), torch.float32, dev)
-    with pytest.raises(ValueError, match="flash_dbias kernel takes head_dim <= 128"):
-        flash_attention_bias_grad(q, k, v, out, lse, do, bias, **kw)
+    n0 = _kernels.launches["flash_dbias"]
+    got = flash_attention_bias_grad(q, k, v, out, lse, do, bias, **kw)
+    torch.cuda.synchronize()
+    assert _kernels.launches["flash_dbias"] == n0 + 1
+    assert rel_err(got, flash_attention_bias_grad_plain(q, k, v, out, lse, do, bias, **kw)) <= 1e-4
     n0 = _kernels.launches["flash_bwd_dkv"]
     flash_attention_backward(q, k, v, out, lse, do, bias, **kw)  # dQ, dK/dV take D 192
     torch.cuda.synchronize()
@@ -565,6 +599,12 @@ FUSED_KERNEL_CASES = [
     (1, 8, 2, 333, 333, 48, "int8", dict(causal=True)),       # D 48 padded to 64, GQA 4
     (1, 4, 2, 200, 257, 64, "int8", {}),                      # a KV tail: Sk 257
     (1, 4, 2, 256, 256, 128, "int8_nosmooth", dict(causal=True)),
+    # D 256: bf16 Q tile, 32-key tiles (and D 200 padded to it)
+    (1, 4, 2, 300, 300, 256, "int8", dict(causal=True)),
+    (1, 4, 2, 200, 200, 256, "int4", dict(window=(128, 0))),
+    (1, 4, 2, 300, 300, 256, "int8_smooth_q", dict(causal=True, bias="11qk")),
+    (1, 4, 2, 256, 256, 256, "qdense", dict(causal=True)),
+    (1, 8, 2, 333, 257, 200, "int8", {}),
 ]
 
 
@@ -627,9 +667,19 @@ def test_fused_qattn_kernel_keeps_the_score_bits(dev, recipe):
     # sums in another order flipped bf16(P) elements (LSE ~1e-3 off). The
     # kernel's scores are the plain version's exact double sums rounded
     # once, so the LSE stays ten times under the 1e-4 gate.
+    _check_score_bits(dev, recipe, 64)
+
+
+# The same at D 256: 256 products a score, still exact in double.
+@pytest.mark.parametrize("recipe", ["int8", "int4"])
+def test_fused_qattn_kernel_keeps_the_score_bits_at_d256(dev, recipe):
+    _check_score_bits(dev, recipe, 256)
+
+
+def _check_score_bits(dev, recipe, d):
     g = torch.Generator().manual_seed(11)
-    q = (3 * torch.randn((2, 4, 1024, 64), generator=g)).to(dev, torch.bfloat16)
-    k, v = (torch.randn((2, 2, 1024, 64), generator=g).to(dev, torch.bfloat16) for _ in "kv")
+    q = (3 * torch.randn((2, 4, 1024, d), generator=g)).to(dev, torch.bfloat16)
+    k, v = (torch.randn((2, 2, 1024, d), generator=g).to(dev, torch.bfloat16) for _ in "kv")
     kw = dict(causal=True, **RECIPES[recipe])
     n0 = _kernels.launches["fused_qattn"]
     got = fused_quantize_attend(q, k, v, **kw)
@@ -747,25 +797,26 @@ def test_quantized_training_on_the_card_matches_the_cpu(dev):
 
 
 def test_quantized_attention_two_pass_at_head_dim_256_on_the_card(dev, monkeypatch):
-    # fused_qattn takes head_dim <= 128; the two-pass route (quant_rows,
-    # quant_attn_fwd, then the quantized backward) takes 256.
+    # Both routes take head_dim 256: the fused route (fused_qattn, then the
+    # quantized backward), then the two-pass one (quant_rows,
+    # quant_attn_fwd, then the quantized backward), each against the CPU.
     g = torch.Generator().manual_seed(9)
     q, k, v = (torch.randn(s, generator=g) for s in ((1, 4, 130, 256), (1, 2, 130, 256),
                                                     (1, 2, 130, 256)))
     cfg = QuantizationConfig.from_mode_string("int8")
-    with pytest.raises(ValueError, match="head_dim <= 128"):
-        quantized_flash_attention(q.to(dev), k.to(dev), v.to(dev), config=cfg, causal=True)
-    monkeypatch.setenv("UMFA_DISABLE_FUSED_QUANT", "1")
-    got = {}
-    for where in ("cuda", "cpu"):
-        t = [x.to(where, copy=True).requires_grad_(True) for x in (q, k, v)]
-        n0 = _kernels.launches["quant_attn_fwd"]
-        out = quantized_flash_attention(*t, config=cfg, causal=True)
-        assert _kernels.launches["quant_attn_fwd"] == n0 + (where == "cuda")
-        out.square().sum().backward()
-        got[where] = [out.detach().cpu()] + [x.grad.cpu() for x in t]
-    for a, b_, name in zip(got["cuda"], got["cpu"], ("out", "dq", "dk", "dv")):
-        assert rel_err(a, b_) <= 1e-2, name
+    for route, kernel in (("fused", "fused_qattn"), ("two_pass", "quant_attn_fwd")):
+        if route == "two_pass":
+            monkeypatch.setenv("UMFA_DISABLE_FUSED_QUANT", "1")
+        got = {}
+        for where in ("cuda", "cpu"):
+            t = [x.to(where, copy=True).requires_grad_(True) for x in (q, k, v)]
+            n0 = _kernels.launches[kernel]
+            out = quantized_flash_attention(*t, config=cfg, causal=True)
+            assert _kernels.launches[kernel] == n0 + (where == "cuda"), route
+            out.square().sum().backward()
+            got[where] = [out.detach().cpu()] + [x.grad.cpu() for x in t]
+        for a, b_, name in zip(got["cuda"], got["cpu"], ("out", "dq", "dk", "dv")):
+            assert rel_err(a, b_) <= 1e-2, (route, name)
 
 
 # Row 10: flash-decode over the INT8 cache (csrc/flash_decode.cu), against
@@ -858,10 +909,25 @@ def test_flash_decode_kernel_refuses_what_it_does_not_take(dev):
     q17, _, _, _, _, bias17, _ = _decode_inputs(4, 2, 17, 64, 768, torch.float32, dev)
     with pytest.raises(ValueError):  # more than 16 new queries
         dk.quantized_flash_decode(q17, k, ks, v, vs, bias17)
-    for d in (192, 72):  # head_dim over 128, or not a multiple of 16
-        q2, k2, ks2, v2, vs2, bias2, _ = _decode_inputs(4, 2, 1, d, 768, torch.float32, dev)
-        with pytest.raises(ValueError):
-            dk.quantized_flash_decode(q2, k2, ks2, v2, vs2, bias2)
+    q2, k2, ks2, v2, vs2, bias2, _ = _decode_inputs(4, 2, 1, 320, 768, torch.float32, dev)
+    with pytest.raises(ValueError, match="head_dim <= 256"):
+        dk.quantized_flash_decode(q2, k2, ks2, v2, vs2, bias2)
+
+
+# Head dims the 64 and 128 templates do not cover, or whose cache rows are
+# not 16-byte aligned: 192 and 256 (the 256 template, two P·V columns a
+# thread), 72 (4-byte copies), 33 (byte loads); at the gates above.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [192, 256, 72, 33])
+def test_flash_decode_kernel_takes_any_head_dim(dev, dtype, d):
+    for hq, tq in ((16, 1), (8, 16)):
+        q, k, ks, v, vs, bias, _ = _decode_inputs(hq, 8, tq, d, 768, dtype, dev)
+        n0 = _kernels.launches["flash_decode"]
+        out = dk.quantized_flash_decode(q, k, ks, v, vs, bias, block_k=256)
+        torch.cuda.synchronize()
+        assert _kernels.launches["flash_decode"] == n0 + 1
+        want = dk.quantized_flash_decode_plain(q, k, ks, v, vs, bias, block_k=256)
+        assert torch.isfinite(out).all() and rel_err(out, want) <= DECODE_TOLS[dtype]
 
 
 # ---- ring attention (csrc/ring_attn.cu) and the tensor-core probe ----------

@@ -119,6 +119,8 @@ QCASES = [
     ("causal_d128", 96, 160, dict(causal=True), False, QuantMode.ROW, (*WIDE, 128)),
     ("causal_d256", 96, 160, dict(causal=True), False, QuantMode.ROW, (*WIDE, 256)),
     ("window_bias_d256", 24, 160, dict(window=(64, 0)), True, QuantMode.ROW, (*WIDE, 256)),
+    # D 63: the card pads the codes with zeros to a multiple of 16.
+    ("causal_d63", 96, 160, dict(causal=True), False, QuantMode.ROW, (*WIDE, 63)),
 ]
 
 

@@ -134,6 +134,11 @@ FUSED_CASES = [
      dict(causal=True, smooth=True, smooth_q=True, bias="11qk"), None),
     ("int4_recipe_d128", (1, 4, 2, 160, 160, 128), "float32", INT4,
      dict(causal=True, smooth=True, smooth_q=True, hadamard=True), None),
+    # D 256: the kernel's third template width (bf16 Q tile, 32-key tiles).
+    ("int8_causal_d256", (1, 4, 2, 96, 96, 256), "float32", INT8,
+     dict(causal=True, smooth=True, smooth_q=True), None),
+    ("int8_hadamard_causal_d256", (1, 2, 1, 96, 96, 256), "bfloat16", INT8,
+     dict(causal=True, smooth=True, smooth_q=True, hadamard=True), None),
 ]
 
 

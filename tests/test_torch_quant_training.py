@@ -61,7 +61,7 @@ def _grad_tol(mode):
 
 
 ATTN_CASES = [
-    # id, (precision, mode), kwargs, bias (bias_grad), lse cotangent, env
+    # id, (precision, mode), kwargs, bias (bias_grad), lse cotangent, env[, head_dim]
     ("int8_causal", ("int8", "row"), dict(is_causal=True), None, False, {}),
     ("int4_causal_lse", ("int4", "row"), dict(is_causal=True), None, True, {}),
     ("int8_tensor_two_pass", ("int8", "tensor"), dict(is_causal=True), None, False, {}),
@@ -69,15 +69,19 @@ ATTN_CASES = [
     ("int4_bias_no_grad", ("int4", "row"), {}, False, False, {}),
     ("int8_disable_fused", ("int8", "row"), dict(is_causal=True), None, False,
      {"UMFA_DISABLE_FUSED_QUANT": "1"}),
+    # The two-pass route at a head_dim that is not a multiple of 4.
+    ("int8_two_pass_d63", ("int8", "row"), dict(is_causal=True), None, False,
+     {"UMFA_DISABLE_FUSED_QUANT": "1"}, 63),
 ]
 
 
 @pytest.mark.parametrize("case", ATTN_CASES, ids=[c[0] for c in ATTN_CASES])
 def test_attention_quantized_gradients_match_jax(case, monkeypatch):
-    _, (prec, mode), kw, bias_grad, lse_cot, env = case
+    _, (prec, mode), kw, bias_grad, lse_cot, env = case[:6]
+    d = case[6] if len(case) > 6 else 64
     for key, val in env.items():
         monkeypatch.setenv(key, val)
-    shape_q, shape_kv = (2, 4, 128, 64), (2, 2, 128, 64)
+    shape_q, shape_kv = (2, 4, 128, d), (2, 2, 128, d)
     q, k, v = _x(1, shape_q), _x(2, shape_kv, 0.5), _x(3, shape_kv, 0.3)
     bias = None if bias_grad is None else _x(4, (1, 4, 128, 128))
     w, w_lse = _x(5, shape_q), _x(6, shape_q[:3])

@@ -37,7 +37,8 @@ NVCC_FLAGS = (
 # `flash_decode` holds `flash_decode` and `flash_decode_merge`, `ring_attn`
 # holds `ring_fwd_step`, `ring_bwd_dkv` and `ring_bwd_dq`),
 # counted by each wrapper right after its kernel was launched (and nowhere
-# else).
+# else). `flash_dbias` also counts under "flash_dbias/<dtype>" (float32,
+# float16, bfloat16), which splits its launches by input type.
 launches: collections.Counter = collections.Counter()
 
 _libs: dict = {}

@@ -64,60 +64,15 @@ __device__ __forceinline__ bool key_visible(int row, int col, int sq, int sk, in
          (right < 0 || col <= row + right);
 }
 
-// The CUDA-core backward kernel (fp32 flash_dbias.cu) runs NTB threads as
-// a 16 x 16 grid: thread (ty, tx) = (t / 16, t % 16) owns rows
-// 4*ty..+3 of a 64 x 64 score tile and its columns tx + 16*j, j < 4, and
-// rows 4*ty..+3 of a 64 x D gradient tile with its columns tx + 16*c,
-// c < D/16.
-constexpr int NTB = 256;
-
-// Stage rows [r0, r0 + 64) of a (rows, D) matrix into shared memory as fp32,
-// row stride DP + 1 (row-strided reads then hit distinct banks); rows past
-// `nrows` and columns past D are zero. SCALED: each element becomes
-// round_T(x * scale), the reference's scaled Q operand.
-template <typename T, int DP, bool SCALED = false>
-__device__ __forceinline__ void stage_rows(float* dst, const T* src, int r0, int nrows, int D,
-                                           float scale = 1.f) {
-  for (int e = threadIdx.x; e < 64 * DP; e += blockDim.x) {
-    const int r = e / DP, c = e - r * DP;
-    float x = 0.f;
-    if (r0 + r < nrows && c < D) {
-      x = Elem<T>::load(src, (long long)(r0 + r) * D + c);
-      if (SCALED) x = Elem<T>::round(x * scale);
-    }
-    dst[r * (DP + 1) + c] = x;
-  }
-}
-
-// s[i][j] += a[4*ty + i] . b[tx + 16*j] over the DP columns of two staged
-// tiles: one 4 x 4 patch of a 64 x 64 product A·Bᵀ.
-template <int DP>
-__device__ __forceinline__ void patch_abt(float (&s)[4][4], const float* a, const float* b,
-                                          int ty, int tx) {
-  constexpr int S = DP + 1;
-#pragma unroll 8
-  for (int d = 0; d < DP; ++d) {
-    float x[4], y[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) x[i] = a[(ty * 4 + i) * S + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) y[j] = b[(tx + 16 * j) * S + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(x[i], y[j], s[i][j]);
-  }
-}
-
-// Rows [r0, r0 + 64) of an int8 (or packed INT4, split halves) code
+// Rows [r0, r0 + ROWS) of an int8 (or packed INT4, split halves) code
 // matrix, dequantized on load to bf16(code · scale) into dst (fp32 or
 // double, row stride DP + 1); rows past `nrows` and columns past D are 0.
 // INT4 codes unpack as ((p & 0xF) ^ 8) - 8 and p >> 4 (arithmetic shift).
-template <int DP, typename T>
+template <int DP, int ROWS = 64, typename T>
 __device__ __forceinline__ void stage_deq(T* dst, const int8_t* vals, const float* scales,
                                           int per_row, int r0, int nrows, int D, bool int4) {
   const int w = int4 ? D / 2 : D;
-  for (int e = threadIdx.x; e < 64 * DP; e += blockDim.x) {
+  for (int e = threadIdx.x; e < ROWS * DP; e += blockDim.x) {
     const int r = e / DP, c = e - r * DP;
     float x = 0.f;
     if (r0 + r < nrows && c < D) {

@@ -14,15 +14,18 @@
 //
 // What this design does about it (flash-decoding): one (batch, kv-head)
 // pair would give only B·Hkv = 64 blocks for 132 SMs, so the KV axis is
-// split into chunks of 16 KiB of K (256 rows at D <= 64, 128 at D <= 128),
-// one block of 128 threads each: 1024 blocks at the serving geometry. A
-// block puts every byte it needs in flight at once by cp.async (its K and V
-// rows, 16 bytes a copy, coalesced; their scales; its bias rows), then
-// computes out of shared memory: scores with D/16 lanes per cache row,
-// each lane widening its 16 codes once for four rows and reducing by
-// shuffles; the chunk's softmax one warp per query row; P·V one thread per
-// output column. int8 widens to fp32 exactly by a byte permutation into
-// the mantissa of 2^23 (not the quarter-rate I2F). Each block writes its
+// split into chunks of 16 KiB of K (256 rows at D <= 64, 128 at D <= 128,
+// 64 at D <= 256), one block of 128 threads each: 1024 blocks at the
+// serving geometry. A block puts every byte it needs in flight at once by
+// cp.async (its K and V rows, 16 bytes a copy, coalesced, where rows are
+// 16-byte aligned; else 4 bytes a copy, or byte loads for a D that is not a
+// multiple of 4; their scales; its bias rows), then computes out of shared
+// memory, each row padded to the template's width DP: scores with DP/16
+// lanes per cache row, each lane widening its 16 codes once for four rows
+// and reducing by shuffles; the chunk's softmax one warp per query row;
+// P·V one thread per output column (two at D > 128, in turn). int8 widens
+// to fp32 exactly by a byte permutation into the mantissa of 2^23 (not the
+// quarter-rate I2F). Each block writes its
 // (m, l, acc) over its chunk; a second launch (`flash_decode_merge`)
 // combines the chunks: M = max m_i, out = Σ e^(m_i-M) acc_i /
 // Σ e^(m_i-M) l_i. SIMT FP32 FMAs throughout; query rows beyond 32 run in
@@ -69,6 +72,7 @@ struct DParams {
   float scale;
   int q_bf16;
   int nsplit;
+  int copy;  // how cache rows are copied: 2 by 16 bytes, 1 by 4, 0 by bytes
 };
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -108,6 +112,9 @@ __device__ __forceinline__ void widen16(const int4 kv, float (&kf)[16]) {
 template <int DP>
 __host__ __device__ constexpr int keys_per_block() { return FD_BYTES / DP; }
 
+// The template width (a cache row's bytes in shared memory) of head dim D.
+constexpr int padded_dim(int D) { return D <= 64 ? 64 : D <= 128 ? 128 : 256; }
+
 template <int DP>
 int smem_bytes(int tq, int rstride) {
   constexpr int KEYS = keys_per_block<DP>();
@@ -118,14 +125,17 @@ int smem_bytes(int tq, int rstride) {
 // RPT: query rows per thread in P·V, the least power of two that covers the
 // block's rows (a template parameter, so the accumulators stay in registers
 // without guarding 16 or 32 of them for Tq = 1). At most 128 registers a
-// thread.
+// thread; 255 for 32 rows at DP 256, whose 78 KB of shared memory leave two
+// blocks an SM anyway (at 128 its P·V spilled).
 template <int DP, int RPT>
-__global__ void __launch_bounds__(FD_NT, 4) flash_decode_kernel(const DParams p) {
-  constexpr int KEYS = keys_per_block<DP>();  // cache rows per block: 256 or 128
-  constexpr int LPK = DP / 16;                // lanes per row (16 bytes each): 4 or 8
-  constexpr int KPP = FD_NT / LPK;            // rows per pass of the block: 32 or 16
+__global__ void __launch_bounds__(FD_NT, DP > 128 && RPT > 16 ? 2 : 4)
+    flash_decode_kernel(const DParams p) {
+  constexpr int KEYS = keys_per_block<DP>();  // cache rows per block: 256, 128 or 64
+  constexpr int LPK = DP / 16;                // lanes per row (16 bytes each): 4, 8 or 16
+  constexpr int KPP = FD_NT / LPK;            // rows per pass of the block: 32, 16 or 8
   constexpr int NPASS = KEYS / KPP;           // 8
-  constexpr int NG = FD_NT / DP;              // P·V thread groups: 2 or 1
+  constexpr int NG = DP < FD_NT ? FD_NT / DP : 1;  // P·V thread groups: 2 or 1
+  constexpr int NC = DP > FD_NT ? DP / FD_NT : 1;  // P·V columns a thread: 1 or 2
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int split = blockIdx.x;
@@ -137,7 +147,6 @@ __global__ void __launch_bounds__(FD_NT, 4) flash_decode_kernel(const DParams p)
   const int rstride = min(FD_RB, p.R);
   const int k0 = split * KEYS;
   const int n = min(KEYS, p.S - k0);
-  const int cpr = p.D / 16;  // 16-byte chunks per cache row
 
   extern __shared__ float4 smem4[];
   int8_t* sK = reinterpret_cast<int8_t*>(smem4);          // KEYS x DP int8
@@ -156,15 +165,37 @@ __global__ void __launch_bounds__(FD_NT, 4) flash_decode_kernel(const DParams p)
   const float* bg = p.bias + b * p.bsb + (long long)k0 * p.bss;
 
   // Every byte the block needs is in flight at once: K and V rows (16 bytes
-  // a copy, consecutive threads on consecutive chunks), their scales and
-  // the bias rows, all by cp.async. Rows past n and columns past D stay
-  // unwritten: int8 is finite whatever it holds, their scores are never
-  // stored, their P is 0 and their columns of q are 0.
-  for (int e = tid; e < KEYS * LPK; e += FD_NT) {
-    const int j = e / LPK, c = e - j * LPK;
-    if (j < n && c < cpr) {
-      cp_async16(sK + j * DP + c * 16, kg + (long long)j * p.D + c * 16);
-      cp_async16(sV + j * DP + c * 16, vg + (long long)j * p.D + c * 16);
+  // a copy, consecutive threads on consecutive chunks; 4 bytes, or byte
+  // loads, where rows are not 16-byte aligned), their scales and the bias
+  // rows, all by cp.async. Rows past n and columns past D stay unwritten:
+  // int8 is finite whatever it holds, their scores are never stored, their
+  // P is 0 and their columns of q are 0.
+  if (p.copy == 2) {
+    const int cpr = p.D / 16;  // 16-byte chunks per cache row
+    for (int e = tid; e < KEYS * LPK; e += FD_NT) {
+      const int j = e / LPK, c = e - j * LPK;
+      if (j < n && c < cpr) {
+        cp_async16(sK + j * DP + c * 16, kg + (long long)j * p.D + c * 16);
+        cp_async16(sV + j * DP + c * 16, vg + (long long)j * p.D + c * 16);
+      }
+    }
+  } else if (p.copy == 1) {
+    constexpr int WPK = DP / 4;  // 4-byte words of a padded row
+    const int wpr = p.D / 4;
+    for (int e = tid; e < KEYS * WPK; e += FD_NT) {
+      const int j = e / WPK, c = e - j * WPK;
+      if (j < n && c < wpr) {
+        cp_async4(sK + j * DP + c * 4, kg + (long long)j * p.D + c * 4);
+        cp_async4(sV + j * DP + c * 4, vg + (long long)j * p.D + c * 4);
+      }
+    }
+  } else {
+    for (int e = tid; e < KEYS * DP; e += FD_NT) {
+      const int j = e / DP, c = e - j * DP;
+      if (j < n && c < p.D) {
+        sK[j * DP + c] = kg[(long long)j * p.D + c];
+        sV[j * DP + c] = vg[(long long)j * p.D + c];
+      }
     }
   }
   for (int j = tid; j < n; j += FD_NT) {
@@ -262,32 +293,36 @@ __global__ void __launch_bounds__(FD_NT, 4) flash_decode_kernel(const DParams p)
   }
   __syncthreads();
 
-  // acc[r][col] = Σ_j cdt(p·vs)[r][j] · v[j][col], four rows of V a step.
-  const int col = tid % DP, grp = tid / DP;
-  if (col >= p.D) return;
-  const unsigned char* vcol = reinterpret_cast<const unsigned char*>(sV) + col;
-  float acc[RPT], acc2[RPT];  // two chains a row: even and odd cache rows
+  // acc[r][col] = Σ_j cdt(p·vs)[r][j] · v[j][col], four rows of V a step;
+  // at D > 128 each thread takes columns tid and tid + 128 in turn.
+  const int grp = tid / (DP / NC);
+  for (int cp = 0; cp < NC; ++cp) {
+    const int col = tid % (DP / NC) + cp * (DP / NC);
+    if (col >= p.D) return;
+    const unsigned char* vcol = reinterpret_cast<const unsigned char*>(sV) + col;
+    float acc[RPT], acc2[RPT];  // two chains a row: even and odd cache rows
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) acc[i] = acc2[i] = 0.f;
-  for (int j = 0; j < n; j += 4) {
-    const float v0 = widen_byte(vcol[j * DP]), v1 = widen_byte(vcol[(j + 1) * DP]);
-    const float v2 = widen_byte(vcol[(j + 2) * DP]), v3 = widen_byte(vcol[(j + 3) * DP]);
+    for (int i = 0; i < RPT; ++i) acc[i] = acc2[i] = 0.f;
+    for (int j = 0; j < n; j += 4) {
+      const float v0 = widen_byte(vcol[j * DP]), v1 = widen_byte(vcol[(j + 1) * DP]);
+      const float v2 = widen_byte(vcol[(j + 2) * DP]), v3 = widen_byte(vcol[(j + 3) * DP]);
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        const int r = grp + NG * i;
+        if (r < rows) {
+          const float4 pp = *reinterpret_cast<const float4*>(sS + r * KEYS + j);
+          acc[i] = fmaf(pp.x, v0, acc[i]);
+          acc2[i] = fmaf(pp.y, v1, acc2[i]);
+          acc[i] = fmaf(pp.z, v2, acc[i]);
+          acc2[i] = fmaf(pp.w, v3, acc2[i]);
+        }
+      }
+    }
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
       const int r = grp + NG * i;
-      if (r < rows) {
-        const float4 pp = *reinterpret_cast<const float4*>(sS + r * KEYS + j);
-        acc[i] = fmaf(pp.x, v0, acc[i]);
-        acc2[i] = fmaf(pp.y, v1, acc2[i]);
-        acc[i] = fmaf(pp.z, v2, acc[i]);
-        acc2[i] = fmaf(pp.w, v3, acc2[i]);
-      }
+      if (r < rows) p.part_o[(prow0 + (long long)r * p.nsplit) * p.D + col] = acc[i] + acc2[i];
     }
-  }
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int r = grp + NG * i;
-    if (r < rows) p.part_o[(prow0 + (long long)r * p.nsplit) * p.D + col] = acc[i] + acc2[i];
   }
 }
 
@@ -332,7 +367,7 @@ cudaError_t launch_rpt(const DParams& p, cudaStream_t stream) {
 
 template <int DP>
 cudaError_t launch(const DParams& p, cudaStream_t stream) {
-  constexpr int NG = FD_NT / DP;
+  constexpr int NG = DP < FD_NT ? FD_NT / DP : 1;
   const int per_thread = (min(p.R, FD_RB) + NG - 1) / NG;
   if (per_thread <= 1) return launch_rpt<DP, 1>(p, stream);
   if (per_thread <= 2) return launch_rpt<DP, 2>(p, stream);
@@ -345,7 +380,7 @@ cudaError_t launch(const DParams& p, cudaStream_t stream) {
 }  // namespace
 
 // q (B, Hkv, R, D) contiguous, q_bf16 0 = float32, 1 = bfloat16; k/v
-// (B, Hkv, S, D) contiguous int8, 16-byte aligned, D % 16 == 0, D <= 128;
+// (B, Hkv, S, D) contiguous int8, D <= 256;
 // ks/vs (B, Hkv, S) float32; bias float32 read at b*bsb + t*bst + j*bss
 // (t = row % Tq); part_o (B, Hkv, R, nsplit, D), part_m and part_l
 // (B, Hkv, R, nsplit) float32, nsplit = ceil(S / rows per block). Returns
@@ -355,10 +390,12 @@ extern "C" int umfa_flash_decode(const void* q, const void* k, const void* ks, c
                                  void* part_l, int B, int Hkv, int R, int Tq, int S, int D,
                                  long long bsb, long long bst, long long bss, float scale,
                                  int q_bf16, int nsplit, void* stream) {
-  const int keys = FD_BYTES / (D <= 64 ? 64 : 128);
-  if (D < 16 || D > 128 || D % 16 != 0 || B < 1 || Hkv < 1 || R < 1 || Tq < 1 || Tq > FD_TQ ||
-      R % Tq != 0 || S < 1 || q_bf16 < 0 || q_bf16 > 1 || nsplit != (S + keys - 1) / keys)
+  const int keys = FD_BYTES / padded_dim(D);
+  if (D < 1 || D > 256 || B < 1 || Hkv < 1 || R < 1 || Tq < 1 || Tq > FD_TQ || R % Tq != 0 ||
+      S < 1 || q_bf16 < 0 || q_bf16 > 1 || nsplit != (S + keys - 1) / keys)
     return cudaErrorInvalidValue;
+  const uintptr_t kv = reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v);
+  const int copy = D % 16 == 0 && kv % 16 == 0 ? 2 : D % 4 == 0 && kv % 4 == 0 ? 1 : 0;
   const DParams p{q,
                   static_cast<const int8_t*>(k),
                   static_cast<const float*>(ks),
@@ -370,9 +407,9 @@ extern "C" int umfa_flash_decode(const void* q, const void* k, const void* ks, c
                   static_cast<float*>(part_l),
                   B, Hkv, R, Tq, S, D,
                   bsb, bst, bss,
-                  scale, q_bf16, nsplit};
+                  scale, q_bf16, nsplit, copy};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return D <= 64 ? launch<64>(p, st) : launch<128>(p, st);
+  return D <= 64 ? launch<64>(p, st) : D <= 128 ? launch<128>(p, st) : launch<256>(p, st);
 }
 
 // out (rows, D) float32 from the chunk partials of umfa_flash_decode

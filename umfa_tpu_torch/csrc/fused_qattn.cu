@@ -5,7 +5,7 @@
 // V, quantize them per row (INT8 or INT4, mean smoothing, optional Hadamard
 // rotation of Q and K, or a dense Q), attend on the dequantized bf16
 // values, restore the V mean, and write the quantized residuals the STE
-// backward consumes. Symmetric ROW only, head_dim <= 128; BLOCK,
+// backward consumes. Symmetric ROW only, head_dim <= 256; BLOCK,
 // ASYMMETRIC, pv_int8 and block-sparse walks are not ported yet.
 //
 // The score contract, and what bounds the kernel under it. The kernel and
@@ -15,7 +15,7 @@
 // flips bf16(P) in short causal rows, LSE ~1e-3 off against a 1e-4 gate).
 // The sum is exact in any order: a bf16 product has at most 16 significant
 // bits, the products of one dot span about 14 binades (codes 1..127 on each
-// side, one scale per row), so a sum of <= 128 of them needs about 37 bits,
+// side, one scale per row), so a sum of <= 256 of them needs about 38 bits,
 // under double's 53. (A dense Q has free exponents: there exactness rests
 // on the data, as it did in the CUDA-core kernel this one replaces.) So
 // QKᵀ runs on the FP64 tensor cores (mma.sync m16n8k8 f64, DMMA in the
@@ -47,26 +47,28 @@
 //      tile, like a bias row. Its bits are those of the in-block sum;
 //   4. attention, `fused_qattn_tc_kernel`, in the shape of row 5's
 //      quant_attn_fwd_tc_kernel: one block per (query tile, q head, batch),
-//      issued heaviest first, 12 warps at D 64 and 8 at D 128 (FCfg); each
-//      warp owns 16 whole query rows, so row maxima and sums need only
-//      quad shuffles.
+//      issued heaviest first, 12 warps at D 64 and 8 at D 128 and 256
+//      (FCfg); each warp owns 16 whole query rows, so row maxima and sums
+//      need only quad shuffles.
 //      * The block quantizes its Q tile (one warp a row, absmax by
 //        shuffles; the codes are the Q residual) into a padded fp32 tile
 //        of the dequantized bf16 values; rotated rows come from each raw
 //        row converted to double once in shared memory, four columns a
 //        thread. At D 64 each warp converts its A fragments to double once
-//        and keeps them in registers; at D 128 it converts them from the
-//        tile at each use.
-//      * The K̃ and Ṽ tiles of 64 keys and the cc row arrive by cp.async in
-//        rings of three buffers, two tiles ahead (16- or 4-byte copies
-//        where rows and operands are aligned, element loads for odd D;
-//        rows past Sk zero). At D 64 each K̃ tile is converted to double
+//        and keeps them in registers; at D 128 and 256 it converts them
+//        from the tile at each use. At D 256 the tile is bf16 (its values
+//        are bf16 already), each warp quantizing its rows from registers.
+//      * The K̃ and Ṽ tiles of 64 keys (32 at D 256) and the cc row arrive
+//        by cp.async in rings of three buffers, two tiles ahead (16- or
+//        4-byte copies where rows and operands are aligned, element loads
+//        for odd D; rows past Sk zero). At D 64 each K̃ tile is converted to double
 //        once a block, a step ahead (conversions to double run at a
 //        fraction of the fp32 rate, and converting every B fragment in
-//        every warp held the products back); at D 128 the B fragments are
-//        converted from the ring at the load. Ṽ feeds P·V from the ring. A step needs one
-//        barrier. Key tiles hidden from the whole block are never loaded,
-//        and a warp skips a tile its rows cannot see.
+//        every warp held the products back); at D 128 and 256 the B
+//        fragments are converted from the ring at the load. Ṽ feeds P·V
+//        from the ring. A step needs one barrier. Key tiles hidden from the
+//        whole block are never loaded, and a warp skips a tile its rows
+//        cannot see.
 //      * QKᵀ by mma_f64 into double accumulators, 16 keys at a time; each
 //        score is then formed as the plain version forms it: (float) of
 //        the exact double, __fadd_rn of the cc term, __fadd_rn of the
@@ -103,8 +105,9 @@
 // float64 sums are, so both quantize and exponentiate the same fp32 values
 // and round P to bf16 at the same points; only the fp32 sums of l and P·V
 // run in another order (the tensor cores', in 16-key pieces), as in row 5.
-// Shared memory (191,488 bytes a block at D 64, 190,720 at D 128, one
-// block an SM) is set above 48 KB through cudaFuncSetAttribute.
+// Shared memory (191,488 bytes a block at D 64, 190,720 at D 128, 204,672
+// at D 256, one block an SM) is set above 48 KB through
+// cudaFuncSetAttribute.
 #include <math.h>
 
 #include "common.cuh"
@@ -154,7 +157,7 @@ struct FQParams {
 
 constexpr int NTM = 256;  // means kernel threads
 constexpr int KV_WARPS = 8;  // rows per block of the K/V quantize kernel
-constexpr int MAXD = 128;
+constexpr int MAXD = 256;
 
 // Element c of the rotated row x·H (H entries ±hval): the products summed
 // in double and rounded once, as the plain version's float64 product is,
@@ -219,11 +222,11 @@ __global__ void __launch_bounds__(NTM) fused_means_kernel(const FQParams p) {
 // the mean, quantize (reciprocal multiply, no clip), write the codes (INT4
 // packed split-halves) and the scale, and the dequantized row bf16(code ·
 // scale) that the attention reads (stage_deq's rounding of the same code
-// and scale).
-template <typename Tin>
+// and scale). NE: elements of a row a lane (D <= 32 NE).
+template <typename Tin, int NE>
 __global__ void __launch_bounds__(KV_WARPS * 32) fused_kv_quant_kernel(const FQParams p) {
-  __shared__ float s_raw[KV_WARPS][MAXD];
-  __shared__ int s_code[KV_WARPS][MAXD];
+  __shared__ float s_raw[KV_WARPS][32 * NE];
+  __shared__ int s_code[KV_WARPS][32 * NE];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long n = (long long)p.B * p.Hkv * p.Sk;
   const long long row = (long long)blockIdx.x * KV_WARPS + warp;
@@ -242,10 +245,10 @@ __global__ void __launch_bounds__(KV_WARPS * 32) fused_kv_quant_kernel(const FQP
     for (int c = lane; c < D; c += 32) raw[c] = Elem<Tin>::load(x, c);
     __syncwarp();
   }
-  float y[MAXD / 32];
+  float y[NE];
   float amax = 0.f;
 #pragma unroll
-  for (int i = 0; i < MAXD / 32; ++i) {
+  for (int i = 0; i < NE; ++i) {
     const int c = lane + 32 * i;
     float t = 0.f;
     if (c < D) {
@@ -262,7 +265,7 @@ __global__ void __launch_bounds__(KV_WARPS * 32) fused_kv_quant_kernel(const FQP
   int8_t* vals = is_v ? p.vv : p.kv;
   __nv_bfloat16* deq = (is_v ? p.vb : p.kb) + r * D;
 #pragma unroll
-  for (int i = 0; i < MAXD / 32; ++i) {
+  for (int i = 0; i < NE; ++i) {
     const int c = lane + 32 * i;
     if (c >= D) continue;
     const int qc = (int)rintf(__fmul_rn(y[i], rcp));
@@ -283,20 +286,25 @@ __global__ void __launch_bounds__(KV_WARPS * 32) fused_kv_quant_kernel(const FQP
 
 // The cc row, cc[b, h, j] = fl(fl(Σ_d bf16(qm[b, h, d]) · k̃[j, d]) · scale),
 // k̃ = bf16(code · sk), the products summed in double in order of d (exact:
-// products of bf16 values): one block per (64-key tile, kv head, batch),
-// one thread per key and q head of the group.
+// products of bf16 values): one block per (CK-key tile, kv head, batch),
+// one thread per key and q head of the group. CK keys a tile: 64, 32 at
+// D 256 (its staged tile within the 48 KB of static shared memory).
+template <int DP>
+__host__ __device__ constexpr int cc_keys() { return DP > 128 ? 32 : 64; }
+
 template <int DP>
 __global__ void __launch_bounds__(NTM) fused_cc_kernel(const FQParams p) {
-  __shared__ float sK[BK * (DP + 1)];
-  const int k0 = blockIdx.x * BK, hk = blockIdx.y, b = blockIdx.z;
+  constexpr int CK = cc_keys<DP>();
+  __shared__ float sK[CK * (DP + 1)];
+  const int k0 = blockIdx.x * CK, hk = blockIdx.y, b = blockIdx.z;
   const int D = p.D, G = p.Hq / p.Hkv;
   const bool k4 = p.flags & F_K_INT4;
   const long long krow = ((long long)b * p.Hkv + hk) * p.Sk;
-  stage_deq<DP>(sK, p.kv + krow * (k4 ? D / 2 : D), p.ks + krow, 1, k0, p.Sk, D, k4);
+  stage_deq<DP, CK>(sK, p.kv + krow * (k4 ? D / 2 : D), p.ks + krow, 1, k0, p.Sk, D, k4);
   __syncthreads();
-  const int j = threadIdx.x % BK;
+  const int j = threadIdx.x % CK;
   if (k0 + j >= p.Sk) return;
-  for (int gi = threadIdx.x / BK; gi < G; gi += NTM / BK) {
+  for (int gi = threadIdx.x / CK; gi < G; gi += NTM / CK) {
     const long long bh = (long long)b * p.Hq + hk * G + gi;
     const float* qm = p.qm + bh * D;
     double acc = 0.0;
@@ -308,34 +316,46 @@ __global__ void __launch_bounds__(NTM) fused_cc_kernel(const FQParams p) {
 
 // Tile geometry of the attention kernel: warps of 16 query rows, 12 at
 // D 64 (BQ = 192 query rows a block; 8 and 10 warps were slower, 14 and 16
-// spilled under their register caps) and 8 at D 128 (BQ = 128, as many as
-// its shared memory holds), 64-key tiles, one block an SM. Shared memory,
-// in bytes, each part a multiple of 16: the Q tile (fp32, the dequantized
-// bf16 values); at D 64 two K tiles as double (the tile of step i in
-// i & 1); rings of three K̃ and Ṽ tiles (bf16) and cc rows (fp32), the
-// tile of step i in i % 3, copied two steps ahead; qm, vm, the Q tile's
-// row scales and its codes. With the rotation, the raw Q rows (as double)
-// live in the K tiles and the rings before the first copy.
+// spilled under their register caps) and 8 at D 128 and 256 (BQ = 128, as
+// many as shared memory holds), 64-key tiles (32 at D 256), one block an
+// SM. Shared memory, in bytes, each part a multiple of 16: the Q tile (the
+// dequantized bf16 values, as fp32, or as bf16 at D 256); at D 64 two K
+// tiles as double (the tile of step i in i & 1); rings of three K̃ and Ṽ
+// tiles (bf16) and cc rows (fp32), the tile of step i in i % 3, copied two
+// steps ahead; qm, vm, the Q tile's row scales and its codes. With the
+// rotation, the raw Q rows (as double) live in the K tiles and the rings
+// before the first copy.
 //
 // At D 64 each K tile is converted to double once a block, a step ahead,
 // not once a warp at each use: conversions to and from double run at a
 // fraction of the fp32 rate. At D 128 two double tiles do not fit beside
 // the Q tile; the B fragments are converted from the bf16 ring at the load.
+// At D 256 an fp32 Q tile of 128 rows (133 KB) and rings of 64-key tiles
+// (101 KB each) do not fit: the tile is bf16 (67.6 KB; its values are exact
+// bf16) and the key tiles are 32 rows (rings of 50.7 KB), so the D 128
+// walk, its 8 warps and its three-deep rings carry over unchanged; a
+// warp's P·V accumulators take 128 registers of its 255.
 template <int DP>
 struct FCfg {
   static constexpr int NW = DP <= 64 ? 12 : 8;
   static constexpr int NTH = 32 * NW;
   static constexpr int BQ = 16 * NW;
+  static constexpr int BK = DP > 128 ? 32 : 64;  // keys a tile
+  // A step's 16-key chunks are unrolled, but rolled up at D 256, where the
+  // compiler kept the Q fragments of every chunk live across the unrolled
+  // copies and spilled 2.6 KB a thread (none rolled up).
+  static constexpr bool ROLL_CHUNKS = DP > 128;
+  static constexpr bool QBF = DP > 128;   // the Q tile as bf16
   static constexpr bool QREG = DP <= 64;  // Q's A fragments held in registers, as double
   static constexpr bool KD = DP <= 64;    // K tiles as double
   // fp32 rows of stride 4 mod 32 words, double rows of stride 4 mod 16
   // double words: the eight rows and four columns of a (g, t) fragment
   // read fall in distinct banks. bf16 rows padded as mma.cuh says.
-  static constexpr int LDQ = DP + 4;
+  static constexpr int LDQ = QBF ? DP + 8 : DP + 4;
   static constexpr int LDK = DP + 4;
   static constexpr int LDR = DP + 8;
-  static constexpr int Q = 0;                              // [BQ][LDQ] fp32
-  static constexpr int KD_ = Q + BQ * LDQ * 4;             // [2][BK][LDK] double, at D 64
+  static constexpr int Q = 0;                              // [BQ][LDQ] fp32 (bf16 at D 256)
+  static constexpr int KD_ = Q + BQ * LDQ * (QBF ? 2 : 4);  // [2][BK][LDK] double, at D 64
   static constexpr int KR = KD_ + (KD ? 2 * BK * LDK * 8 : 0);  // [3][BK][LDR] bf16
   static constexpr int VR = KR + 3 * BK * LDR * 2;         // [3][BK][LDR] bf16
   static constexpr int CC = VR + 3 * BK * LDR * 2;         // [3][BK] fp32
@@ -345,23 +365,25 @@ struct FCfg {
   static constexpr int CODE = RS + BQ * 4;                 // [BQ][DP] int8
   static constexpr int BYTES = CODE + BQ * DP;
   // Raw Q rows staged for the rotation, RAW rows at a time, in [KD_, CC).
-  static constexpr int RAW = (CC - KD_) / (DP * 8) >= BQ ? BQ : BQ / 2;
+  static constexpr int RAW = (CC - KD_) / (DP * 8) >= BQ       ? BQ
+                             : (CC - KD_) / (DP * 8) >= BQ / 2 ? BQ / 2
+                                                               : BQ / 4;
   static_assert(RAW * DP * 8 <= CC - KD_, "raw Q rows fit in the K tiles and rings");
   static_assert(BYTES <= 232448, "one block fits in an SM's shared memory");
 };
 
-// Rows [r0, r0 + 64) of an (n, D) bf16 matrix into a ring buffer of row
+// Rows [r0, r0 + ROWS) of an (n, D) bf16 matrix into a ring buffer of row
 // stride DP + 8; rows past n and columns past D are zero. mode 2: 16-byte
 // cp.async (D % 8 == 0, src 16-byte aligned), 1: 4-byte cp.async (D even,
 // 4-aligned), 0: element loads, stored at once (odd D).
-template <int DP, int NTH>
+template <int DP, int NTH, int ROWS>
 __device__ __forceinline__ void copy_rows(__nv_bfloat16* dst, const __nv_bfloat16* src, int r0,
                                           int n, int D, int mode) {
   constexpr int LD = DP + 8;
   if (mode == 2) {
     constexpr int CH = DP / 8;
 #pragma unroll
-    for (int e = threadIdx.x; e < BK * CH; e += NTH) {
+    for (int e = threadIdx.x; e < ROWS * CH; e += NTH) {
       const int r = e / CH, c = (e % CH) * 8;
       const bool ok = r0 + r < n && c < D;
       cp_async16(dst + r * LD + c, ok ? src + (long long)(r0 + r) * D + c : src, ok ? 16 : 0);
@@ -369,13 +391,13 @@ __device__ __forceinline__ void copy_rows(__nv_bfloat16* dst, const __nv_bfloat1
   } else if (mode == 1) {
     constexpr int CW = DP / 2;
 #pragma unroll 4
-    for (int e = threadIdx.x; e < BK * CW; e += NTH) {
+    for (int e = threadIdx.x; e < ROWS * CW; e += NTH) {
       const int r = e / CW, c = (e % CW) * 2;
       const bool ok = r0 + r < n && c < D;
       cp_async4(dst + r * LD + c, ok ? src + (long long)(r0 + r) * D + c : src, ok ? 4 : 0);
     }
   } else {
-    for (int e = threadIdx.x; e < BK * DP; e += NTH) {
+    for (int e = threadIdx.x; e < ROWS * DP; e += NTH) {
       const int r = e / DP, c = e - r * DP;
       dst[r * LD + c] =
           r0 + r < n && c < D ? src[(long long)(r0 + r) * D + c] : __float2bfloat16_rn(0.f);
@@ -399,6 +421,93 @@ __device__ __forceinline__ void rotate4(Load x, int c, int D, float hval, float 
   for (int k = 0; k < 4; ++k) y[k] = (float)acc[k];
 }
 
+// The bf16 Q tile of the D 256 layout (FCfg<DP>::QBF): one warp a row, its
+// NE = DP / 32 values a lane (column lane + 32 i) read into registers from
+// q, or rotated there from the raw rows staged as double in `raw` (L::RAW
+// at a time; each column's sum in the order of rotate_elem, the NE chains
+// interleaved); then the mean subtracted, quantized as the fp32 tile is
+// (codes to sCode, scales to sRs) and stored as the dequantized bf16 value
+// times the softmax scale, or, dense, as bf16(q_rot · scale). Rows past
+// nvalid and columns past D are 0. Every thread calls it (barriers).
+template <int DP, typename Tin>
+__device__ __forceinline__ void stage_q_bf16(__nv_bfloat16* sQb, int8_t* sCode, float* sRs,
+                                             const float* sQm, double* raw, const Tin* q,
+                                             int nvalid, const FQParams& p) {
+  using L = FCfg<DP>;
+  constexpr int NE = DP / 32;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, D = p.D;
+  const bool rot = p.flags & F_HADAMARD, dense = p.flags & F_Q_DENSE;
+  const bool smooth_q = p.flags & F_SMOOTH_Q;
+  const float fq = (float)p.qmax_q;
+  for (int r0 = 0; r0 < L::BQ; r0 += L::RAW) {
+    if (rot) {
+      for (int e = tid; e < L::RAW * D; e += L::NTH)
+        raw[e] = r0 + e / D < nvalid ? (double)Elem<Tin>::load(q, (long long)r0 * D + e) : 0.0;
+      __syncthreads();
+    }
+    for (int r = r0 + warp; r < r0 + L::RAW; r += L::NW) {  // warp-uniform
+      __nv_bfloat16* tr = sQb + r * L::LDQ;
+      const bool live = r < nvalid;
+      float y[NE];
+      if (live && rot) {
+        const double* xr = raw + (r - r0) * D;
+        double acc[NE];
+#pragma unroll
+        for (int i = 0; i < NE; ++i) acc[i] = 0.0;
+        for (int j = 0; j < D; ++j) {
+          const double xj = xr[j];
+#pragma unroll
+          for (int i = 0; i < NE; ++i)
+            acc[i] = fma(xj, (__popc(j & (lane + 32 * i)) & 1) ? -(double)p.hval : (double)p.hval,
+                         acc[i]);
+        }
+#pragma unroll
+        for (int i = 0; i < NE; ++i) y[i] = lane + 32 * i < D ? (float)acc[i] : 0.f;
+      } else {
+#pragma unroll
+        for (int i = 0; i < NE; ++i) {
+          const int c = lane + 32 * i;
+          y[i] = live && c < D ? Elem<Tin>::load(q, (long long)r * D + c) : 0.f;
+        }
+      }
+      if (dense) {
+#pragma unroll
+        for (int i = 0; i < NE; ++i) {
+          const int c = lane + 32 * i;
+          tr[c] = __float2bfloat16_rn(live && c < D ? round_bf16(__fmul_rn(y[i], p.scale)) : 0.f);
+        }
+        continue;
+      }
+      float amax = 0.f;
+#pragma unroll
+      for (int i = 0; i < NE; ++i) {
+        const int c = lane + 32 * i;
+        if (c < D) {
+          if (smooth_q) y[i] = __fsub_rn(y[i], sQm[c]);
+          amax = fmaxf(amax, fabsf(y[i]));
+        }
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+      amax = fmaxf(amax, 1e-12f);
+      const float sc = __fdiv_rn(amax, fq), rcp = __fdiv_rn(fq, amax);
+#pragma unroll
+      for (int i = 0; i < NE; ++i) {
+        const int c = lane + 32 * i;
+        float x = 0.f;
+        if (live && c < D) {
+          const float qf = rintf(__fmul_rn(y[i], rcp));
+          sCode[r * DP + c] = (int8_t)(int)qf;
+          x = round_bf16(__fmul_rn(__fmul_rn(qf, sc), p.scale));
+        }
+        tr[c] = __float2bfloat16_rn(x);
+      }
+      if (live && lane == 0) sRs[r] = sc;
+    }
+    if (rot) __syncthreads();  // raw read before the next rows land
+  }
+}
+
 template <typename Tin, typename Tout, int DP>
 __global__ void __launch_bounds__(FCfg<DP>::NTH, 1) fused_qattn_tc_kernel(const FQParams p) {
   using L = FCfg<DP>;
@@ -406,9 +515,11 @@ __global__ void __launch_bounds__(FCfg<DP>::NTH, 1) fused_qattn_tc_kernel(const 
   constexpr int KST = DP / 8;  // 8-deep steps of QKᵀ
   constexpr int NA = DP / 8;   // 8-column accumulator tiles of out
   constexpr int NE = DP / 32;  // elements of a Q row per lane
+  constexpr int BK = L::BK;
   constexpr bool QREG = L::QREG, KD = L::KD;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* sQ = reinterpret_cast<float*>(smem_raw + L::Q);
+  __nv_bfloat16* sQb = reinterpret_cast<__nv_bfloat16*>(smem_raw + L::Q);  // at D 256
   double* sKd = reinterpret_cast<double*>(smem_raw + L::KD_);
   __nv_bfloat16* sKR = reinterpret_cast<__nv_bfloat16*>(smem_raw + L::KR);
   __nv_bfloat16* sVR = reinterpret_cast<__nv_bfloat16*>(smem_raw + L::VR);
@@ -444,8 +555,8 @@ __global__ void __launch_bounds__(FCfg<DP>::NTH, 1) fused_qattn_tc_kernel(const 
   auto issue = [&](int i) {
     if (i < steps) {
       const int buf = i % 3, k0 = k0_of(i);
-      copy_rows<DP, NTH>(sKR + buf * BK * L::LDR, kbf, k0, p.Sk, D, p.kvmode);
-      if (i >= n_t) copy_rows<DP, NTH>(sVR + buf * BK * L::LDR, vbf, k0, p.Sk, D, p.kvmode);
+      copy_rows<DP, NTH, BK>(sKR + buf * BK * L::LDR, kbf, k0, p.Sk, D, p.kvmode);
+      if (i >= n_t) copy_rows<DP, NTH, BK>(sVR + buf * BK * L::LDR, vbf, k0, p.Sk, D, p.kvmode);
       if (smooth_q && tid < BK) copy_scale(sCC + buf * BK, ccrow, 1, k0, tid, p.Sk);
     }
     cp_async_commit();  // empty groups keep the count of groups uniform
@@ -457,13 +568,19 @@ __global__ void __launch_bounds__(FCfg<DP>::NTH, 1) fused_qattn_tc_kernel(const 
     sVm[c] = in && smooth ? p.vm[((long long)b * p.Hkv + hk) * D + c] : 0.f;
   }
 
-  // The Q tile: staged as fp32, rotated (each raw row converted to double
-  // once, then rotated from shared memory, RAW rows at a time), then
-  // quantized in place to its dequantized values with the softmax scale
+  // The Q tile, quantized to its dequantized values with the softmax scale
   // folded in, or, dense, rounded as bf16(q_rot · scale). Rows past Sq and
-  // columns past D stay 0.
+  // columns past D stay 0. Up to D 128 the tile is fp32: staged, rotated
+  // (each raw row converted to double once, then rotated from shared
+  // memory, RAW rows at a time), then quantized in place. At D 256 it is
+  // bf16, and each warp quantizes whole rows from registers
+  // (`stage_q_bf16`).
   const int nvalid = min(BQ_, p.Sq - q0);
-  {
+  if constexpr (L::QBF) {
+    __syncthreads();  // sQm written
+    stage_q_bf16<DP, Tin>(sQb, sCode, sRs, sQm, reinterpret_cast<double*>(smem_raw + L::KD_),
+                         static_cast<const Tin*>(p.q) + (qrow + q0) * D, nvalid, p);
+  } else {
     const Tin* q = static_cast<const Tin*>(p.q) + (qrow + q0) * D;
     if (p.flags & F_HADAMARD) {
       double* raw = reinterpret_cast<double*>(smem_raw + L::KD_);
@@ -492,57 +609,57 @@ __global__ void __launch_bounds__(FCfg<DP>::NTH, 1) fused_qattn_tc_kernel(const 
       }
       __syncthreads();
     }
+    if (p.flags & F_Q_DENSE) {
+      for (int e = tid; e < nvalid * DP; e += NTH) {
+        const int r = e / DP, c = e - r * DP;
+        float* x = sQ + r * L::LDQ + c;
+        *x = round_bf16(__fmul_rn(*x, p.scale));
+      }
+    } else {
+      const float fq = (float)p.qmax_q;
+      for (int r = warp; r < nvalid; r += NW) {  // one warp per row
+        float* tr = sQ + r * L::LDQ;
+        float y[NE];
+        float amax = 0.f;
+#pragma unroll
+        for (int i = 0; i < NE; ++i) {
+          const int c = lane + 32 * i;
+          float x = 0.f;
+          if (c < D) {
+            x = tr[c];
+            if (smooth_q) x = __fsub_rn(x, sQm[c]);
+            amax = fmaxf(amax, fabsf(x));
+          }
+          y[i] = x;
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+        amax = fmaxf(amax, 1e-12f);
+        const float sc = __fdiv_rn(amax, fq), rcp = __fdiv_rn(fq, amax);
+#pragma unroll
+        for (int i = 0; i < NE; ++i) {
+          const int c = lane + 32 * i;
+          if (c < D) {
+            const float qf = rintf(__fmul_rn(y[i], rcp));
+            sCode[r * DP + c] = (int8_t)(int)qf;
+            tr[c] = round_bf16(__fmul_rn(__fmul_rn(qf, sc), p.scale));
+          }
+        }
+        if (lane == 0) sRs[r] = sc;
+      }
+    }
   }
-  if (p.flags & F_Q_DENSE) {
-    for (int e = tid; e < nvalid * DP; e += NTH) {
-      const int r = e / DP, c = e - r * DP;
-      float* x = sQ + r * L::LDQ + c;
-      *x = round_bf16(__fmul_rn(*x, p.scale));
+  if (!(p.flags & F_Q_DENSE) && p.qv) {  // the Q residual: codes (INT4 packed) and scales
+    __syncthreads();
+    const bool q4 = p.flags & F_Q_INT4;
+    const int w = q4 ? D / 2 : D;
+    for (int e = tid; e < nvalid * w; e += NTH) {
+      const int r = e / w, c = e - r * w;
+      int code = sCode[r * DP + c];
+      if (q4) code = (code & 0xF) | ((sCode[r * DP + c + w] & 0xF) << 4);
+      p.qv[(qrow + q0 + r) * w + c] = (int8_t)(unsigned char)code;
     }
-  } else {
-    const float fq = (float)p.qmax_q;
-    for (int r = warp; r < nvalid; r += NW) {  // one warp per row
-      float* tr = sQ + r * L::LDQ;
-      float y[NE];
-      float amax = 0.f;
-#pragma unroll
-      for (int i = 0; i < NE; ++i) {
-        const int c = lane + 32 * i;
-        float x = 0.f;
-        if (c < D) {
-          x = tr[c];
-          if (smooth_q) x = __fsub_rn(x, sQm[c]);
-          amax = fmaxf(amax, fabsf(x));
-        }
-        y[i] = x;
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-      amax = fmaxf(amax, 1e-12f);
-      const float sc = __fdiv_rn(amax, fq), rcp = __fdiv_rn(fq, amax);
-#pragma unroll
-      for (int i = 0; i < NE; ++i) {
-        const int c = lane + 32 * i;
-        if (c < D) {
-          const float qf = rintf(__fmul_rn(y[i], rcp));
-          sCode[r * DP + c] = (int8_t)(int)qf;
-          tr[c] = round_bf16(__fmul_rn(__fmul_rn(qf, sc), p.scale));
-        }
-      }
-      if (lane == 0) sRs[r] = sc;
-    }
-    if (p.qv) {  // the Q residual: codes (INT4 packed) and scales
-      __syncthreads();
-      const bool q4 = p.flags & F_Q_INT4;
-      const int w = q4 ? D / 2 : D;
-      for (int e = tid; e < nvalid * w; e += NTH) {
-        const int r = e / w, c = e - r * w;
-        int code = sCode[r * DP + c];
-        if (q4) code = (code & 0xF) | ((sCode[r * DP + c + w] & 0xF) << 4);
-        p.qv[(qrow + q0 + r) * w + c] = (int8_t)(unsigned char)code;
-      }
-      for (int r = tid; r < nvalid; r += NTH) p.qs[qrow + q0 + r] = sRs[r];
-    }
+    for (int r = tid; r < nvalid; r += NTH) p.qs[qrow + q0 + r] = sRs[r];
   }
   __syncthreads();
 
@@ -552,11 +669,19 @@ __global__ void __launch_bounds__(FCfg<DP>::NTH, 1) fused_qattn_tc_kernel(const 
   // a[2], a[3] four columns on (mma.cuh).
   double qf[QREG ? KST : 1][4];
   auto q_frag = [&](int ks, double (&a)[4]) {
-    const float* qa = sQ + (rw + g) * L::LDQ + 8 * ks + tq;
-    a[0] = qa[0];
-    a[1] = qa[8 * L::LDQ];
-    a[2] = qa[4];
-    a[3] = qa[8 * L::LDQ + 4];
+    if constexpr (L::QBF) {
+      const __nv_bfloat16* qa = sQb + (rw + g) * L::LDQ + 8 * ks + tq;
+      a[0] = __bfloat162float(qa[0]);
+      a[1] = __bfloat162float(qa[8 * L::LDQ]);
+      a[2] = __bfloat162float(qa[4]);
+      a[3] = __bfloat162float(qa[8 * L::LDQ + 4]);
+    } else {
+      const float* qa = sQ + (rw + g) * L::LDQ + 8 * ks + tq;
+      a[0] = qa[0];
+      a[1] = qa[8 * L::LDQ];
+      a[2] = qa[4];
+      a[3] = qa[8 * L::LDQ + 4];
+    }
   };
   if constexpr (QREG) {
 #pragma unroll
@@ -649,6 +774,15 @@ __global__ void __launch_bounds__(FCfg<DP>::NTH, 1) fused_qattn_tc_kernel(const 
   };
 
   const bool sum_rounded = D < 128;
+  // The 16-key chunks of a step, BK / 16. At D 256 (ROLL_CHUNKS) the count
+  // passes through an empty asm, so the compiler cannot see it and
+  // `#pragma unroll` (which unrolls only a known trip count) leaves the
+  // loops over the chunks rolled up. `#pragma unroll(ROLL_CHUNKS ? 1 :
+  // BK / 16)` would say the same, but nvcc then builds other D <= 128
+  // code: 344 bytes of spill stores a thread at D 128 where this form has
+  // 184, 244 at D 64 where it has 196.
+  int n_chunks = BK / 16;
+  if constexpr (L::ROLL_CHUNKS) asm volatile("" : "+r"(n_chunks));
   float m[2] = {MASK_VALUE, MASK_VALUE}, l[2] = {0.f, 0.f};
   float acc[NA][4];
 #pragma unroll
@@ -684,7 +818,7 @@ __global__ void __launch_bounds__(FCfg<DP>::NTH, 1) fused_qattn_tc_kernel(const 
     if (i < n_t) {
       // Pass 1: the exact row max over every visible key, QKᵀ alone.
 #pragma unroll
-      for (int c = 0; c < BK / 16; ++c) {
+      for (int c = 0; c < n_chunks; ++c) {
         float s[2][4];
         chunk(i, k0, c, edge, s);
 #pragma unroll
@@ -699,7 +833,7 @@ __global__ void __launch_bounds__(FCfg<DP>::NTH, 1) fused_qattn_tc_kernel(const 
       // D 128; P·V takes bf16(P) and the Ṽ tile.
       const __nv_bfloat16* cV = sVR + (i % 3) * BK * L::LDR;
 #pragma unroll
-      for (int c = 0; c < BK / 16; ++c) {
+      for (int c = 0; c < n_chunks; ++c) {
         float s[2][4];
         const unsigned vis = chunk(i, k0, c, edge, s);
 #pragma unroll
@@ -760,12 +894,14 @@ cudaError_t launch(const FQParams& p, cudaStream_t stream) {
   }
   const long long kv_rows = 2LL * p.B * p.Hkv * p.Sk;
   if (kv_rows) {
-    fused_kv_quant_kernel<Tin>
+    constexpr int ne = DP <= 128 ? 4 : 8;  // a row's elements a lane
+    fused_kv_quant_kernel<Tin, ne>
         <<<(unsigned)((kv_rows + KV_WARPS - 1) / KV_WARPS), KV_WARPS * 32, 0, stream>>>(p);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   if ((p.flags & F_SMOOTH_Q) && p.Sk > 0) {
-    const dim3 cc_grid((p.Sk + BK - 1) / BK, p.Hkv, p.B);
+    constexpr int ck = cc_keys<DP>();
+    const dim3 cc_grid((p.Sk + ck - 1) / ck, p.Hkv, p.B);
     fused_cc_kernel<DP><<<cc_grid, NTM, 0, stream>>>(p);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
@@ -781,7 +917,8 @@ cudaError_t launch(const FQParams& p, cudaStream_t stream) {
 template <typename Tin, typename Tout>
 cudaError_t launch_d(const FQParams& p, cudaStream_t stream) {
   if (p.D <= 64) return launch<Tin, Tout, 64>(p, stream);
-  return launch<Tin, Tout, 128>(p, stream);
+  if (p.D <= 128) return launch<Tin, Tout, 128>(p, stream);
+  return launch<Tin, Tout, 256>(p, stream);
 }
 
 // How bf16 rows of D elements starting at ptr are copied (`copy_rows`).
@@ -793,7 +930,7 @@ int copy_mode(const void* ptr, int D) {
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16. q (B, Hq, Sq, D), k/v
-// (B, Hkv, Sk, D) contiguous in in_dtype, D <= 128; bias float32 with
+// (B, Hkv, Sk, D) contiguous in in_dtype, D <= 256; bias float32 with
 // element strides (or null); out (B, Hq, Sq, D) in out_dtype, lse
 // (B, Hq, Sq) float32. K/V codes kv/vv (B, Hkv, Sk, D), or (B, Hkv, Sk,
 // D/2) packed INT4, and float32 scales ks/vs (B, Hkv, Sk): always written
@@ -839,5 +976,5 @@ extern "C" int umfa_fused_qattn(const void* q, const void* k, const void* v, con
 // launches for head dim D, in bytes (0 if it does not take D).
 extern "C" int umfa_fused_qattn_smem_bytes(int D) {
   if (D < 1 || D > MAXD) return 0;
-  return D <= 64 ? FCfg<64>::BYTES : FCfg<128>::BYTES;
+  return D <= 64 ? FCfg<64>::BYTES : D <= 128 ? FCfg<128>::BYTES : FCfg<256>::BYTES;
 }

@@ -6,8 +6,9 @@ bf16 inputs as bf16 products; fp32 inputs (and fp16, computed as fp32) as
 3xTF32 products (each fp32 operand split into two TF32 parts, three
 products each, as accurate as fp32 FMAs in another order: relerr ~1e-7 to
 1e-6 against the plain version, not bit-equal).
-`flash_attention_bias_grad` launches `csrc/flash_dbias.cu`: bf16 inputs on
-the tensor cores, head_dim <= 256; fp32 on the CUDA cores, head_dim <= 128.
+`flash_attention_bias_grad` launches `csrc/flash_dbias.cu`, on the tensor
+cores for every input type, head_dim <= 256: bf16 products for bf16
+inputs, 3xTF32 for fp32 (and fp16, computed as fp32).
 On CPU tensors each runs its `*_plain` twin, the same arithmetic in plain
 PyTorch. There is no fallback between the two: a CUDA tensor the kernels
 do not take raises.
@@ -276,9 +277,6 @@ def _run_bwd_kernel(kernel: str, p: _Prepared, out0: torch.Tensor, out1) -> None
 def _launch_dbias(p: _Prepared, shape: tuple) -> torch.Tensor:
     _check_device(p, "flash_dbias")
     b, hq, sq, d = p.q.shape
-    if d > 128 and p.q.dtype != torch.bfloat16:
-        raise ValueError(f"flash_dbias kernel takes head_dim <= 128 for float32 and float16 "
-                         f"inputs (its CUDA-core kernel; <= 256 for bfloat16), got {d}")
     _, hkv, sk, _ = p.k.shape
     bb, bh = shape[:2]
     dbias = torch.empty((bb, bh, sq, sk), dtype=torch.float32, device=p.q.device)
@@ -294,4 +292,5 @@ def _launch_dbias(p: _Prepared, shape: tuple) -> torch.Tensor:
             _DTYPE_CODE[p.q.dtype], torch.cuda.current_stream(p.q.device).cuda_stream,
         )
     _kernels.check("flash_dbias", err)
+    _kernels.launches[f"flash_dbias/{str(p.q.dtype).removeprefix('torch.')}"] += 1
     return dbias

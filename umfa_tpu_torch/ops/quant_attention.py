@@ -3,9 +3,10 @@ umfa_tpu/ops/quant_attention.py:295 `quantized_attention_forward`).
 
 `quantized_attention_forward` launches the CUDA kernel
 `csrc/quant_attn_fwd.cu` (int8 tensor cores for QKᵀ, bf16 for P·V; head_dim
-<= 256, a multiple of 4) on CUDA tensors and runs
-`quantized_attention_forward_plain`, the same arithmetic in plain PyTorch,
-on CPU tensors; no fallback between them.
+<= 256, the codes zero-padded to a multiple of 16 where head_dim is not a
+multiple of 4) on CUDA tensors and runs `quantized_attention_forward_plain`,
+the same arithmetic in plain PyTorch, on CPU tensors; no fallback between
+them.
 
 Arithmetic (quant_attention.py:166-256): s = int32(q_i8 · k_i8) ·
 (q_scale · softmax_scale) · k_scale + bias, index mask → -1e30,
@@ -209,34 +210,43 @@ def _launch(p: _Prepared):
     for name in ("q", "k", "v"):
         if tensors[name].dtype != torch.int8:
             raise ValueError(f"quant_attn_fwd kernel needs int8 {name}")
-        if tensors[name].data_ptr() % 4:
-            raise ValueError(f"quant_attn_fwd kernel needs a 4-byte aligned {name}")
     if p.bias is not None and p.bias.device != dev:
         raise ValueError(f"bias on {p.bias.device}, q on {dev}")
     b, hq, sq, d = p.q.shape
     _, hkv, sk, _ = p.k.shape
-    if d > 256 or d % 4:
-        raise ValueError(f"quant_attn_fwd kernel takes head_dim <= 256 and a multiple of 4, got {d}")
-    out = torch.empty((b, hq, sq, d), dtype=torch.float32, device=dev)
+    if d > 256:
+        raise ValueError(f"quant_attn_fwd kernel takes head_dim <= 256, got {d}")
+    q, k, v = p.q, p.k, p.v
+    dk = d  # the head dim the kernel sees
+    if d % 4:
+        # Rows of zero codes to the next multiple of 16: exact zeros in the
+        # s32 dot products, and V columns that are sliced off; the row
+        # scales are unchanged.
+        dk = -(-d // 16) * 16
+        q, k, v = (torch.nn.functional.pad(x, (0, dk - d)) for x in (q, k, v))
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 4:
+            raise ValueError(f"quant_attn_fwd kernel needs a 4-byte aligned {name}")
+    out = torch.empty((b, hq, sq, dk), dtype=torch.float32, device=dev)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
     if out.numel() == 0:
-        return out, lse
+        return out[..., :d], lse
     fn = _kernels.function("quant_attn_fwd", "umfa_quant_attn_fwd", _ARGTYPES)
     bsb, bsh, bsq, bsk = bias_strides(p.bias)
     with torch.cuda.device(dev):
         err = fn(
-            p.q.data_ptr(), p.k.data_ptr(), p.v.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
             p.q_scales.data_ptr(), p.k_scales.data_ptr(), p.v_scales.data_ptr(),
             None if p.bias is None else p.bias.data_ptr(),
             out.data_ptr(), lse.data_ptr(),
-            b, hq, hkv, sq, sk, d,
+            b, hq, hkv, sq, sk, dk,
             int(p.q_scales.shape[2] > 1), int(p.k_scales.shape[2] > 1),
             int(p.v_scales.shape[2] > 1),
             bsb, bsh, bsq, bsk, p.left, p.right,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _kernels.check("quant_attn_fwd", err)
-    return out, lse
+    return (out if dk == d else out[..., :d].contiguous()), lse
 
 
 # ---- The STE route: quantized_flash_attention (quant_attention.py:597-1095) ----

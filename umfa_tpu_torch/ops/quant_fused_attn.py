@@ -30,7 +30,7 @@ against a running max where it walks more than one tile; this port (kernel
 and plain version) rounds against the final row max (ROADMAP §3).
 
 Supported: symmetric ROW quantization, INT8 or INT4 per operand, a dense Q,
-smoothing, Hadamard, bias, causal/window, GQA, D ≤ 128, fp32/bf16/fp16
+smoothing, Hadamard, bias, causal/window, GQA, D ≤ 256, fp32/bf16/fp16
 inputs. BLOCK, ASYMMETRIC, `pv_int8` and block-sparse walks raise
 NotImplementedError (ROADMAP, Queue 2: row 7's unported variants).
 """
@@ -391,8 +391,8 @@ def _launch(p: _Prepared):
         raise ValueError(f"bias on {p.bias.device}, q on {dev}")
     b, hq, sq, d = p.q.shape
     _, hkv, sk, _ = p.k.shape
-    if d > 128:
-        raise ValueError(f"fused_qattn kernel takes head_dim <= 128, got {d}")
+    if d > 256:
+        raise ValueError(f"fused_qattn kernel takes head_dim <= 256, got {d}")
     q_dense = not p.q_precision.is_integer
     f32 = dict(dtype=torch.float32, device=dev)
     out = torch.empty((b, hq, sq, d), dtype=p.out_dtype, device=dev)

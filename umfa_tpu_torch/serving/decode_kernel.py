@@ -170,15 +170,13 @@ def _launch_partials(p: _Prepared):
                              f"got {name} on {t.device} (q on {dev})")
     b, hkv, gtq, d = p.q.shape
     s_max = p.k.shape[2]
-    if d > 128 or d % 16:
-        raise ValueError(f"flash_decode kernel takes head_dim <= 128 and a multiple of 16, got {d}")
+    if d > 256:
+        raise ValueError(f"flash_decode kernel takes head_dim <= 256, got {d}")
     if p.tq > 16:
         raise ValueError(f"flash_decode kernel takes Tq <= 16 new queries, got {p.tq}")
     q = p.q.contiguous()
     k, v = p.k.contiguous(), p.v.contiguous()
     ks, vs = p.ks.contiguous(), p.vs.contiguous()
-    if k.data_ptr() % 16 or v.data_ptr() % 16:
-        raise ValueError("flash_decode kernel needs 16-byte aligned k/v values")
     nsplit = split_count(s_max, d)
     part_o = torch.empty((b, hkv, gtq, nsplit, d), dtype=torch.float32, device=dev)
     part_ml = torch.empty((2, b, hkv, gtq, nsplit), dtype=torch.float32, device=dev)
@@ -220,6 +218,7 @@ def _merge_plain(part_o, part_ml) -> torch.Tensor:
 
 def split_count(s_max: int, d: int) -> int:
     """KV chunks the kernel splits S_max into: 16 KiB of int8 K (and as
-    much V) per block, 256 rows at D <= 64 and 128 at D <= 128."""
-    rows = 256 if d <= 64 else 128
+    much V) per block of cache rows padded to 64, 128 or 256 bytes: 256
+    rows at D <= 64, 128 at D <= 128 and 64 at D <= 256."""
+    rows = 256 if d <= 64 else 128 if d <= 128 else 64
     return -(-s_max // rows)

@@ -13,9 +13,10 @@ bias summed over the batch) at D 64 and 128 (and 256 with --wide), and
 median, min and max of 10 CUDA-event timings after 2 warm-up calls, and at
 D 64 each dense kernel's relerr against its plain version. With --fp32 it
 times only `flash_bwd_dq` and `flash_bwd_dkv` on fp32 inputs (what the
-int8-qdense recipe runs) at the training shape, D 64, 128 and 256, each
-with its relerr against its plain version, beside the memory-efficient
-SDPA backward (dQ, dK and dV in one call) on the same fp32 inputs. With
+int8-qdense recipe runs) and `flash_dbias` on fp32 inputs (the same
+(1, 16, S, S) bias; 5 timings after 1 warm-up) at the training shape, D
+64, 128 and 256, each with its relerr against its plain version, beside the memory-efficient SDPA
+backward (dQ, dK and dV in one call) on the same fp32 inputs. With
 --ring it times only `ring_bwd_dkv` and `ring_bwd_dq` on one rank's step of
 the full-width ring (B8 Hq16 Hkv8, S_loc 1024 of S 4096 over 4 ranks; rank
 3 against chunk 2, every pair visible; rank 3's diagonal step; zigzag rank
@@ -155,9 +156,9 @@ def _print_card():
 
 
 def _time_fp32(randn, emit):
-    """The fp32 dQ and dK/dV at the training shape, D 64, 128 and 256, and
-    the memory-efficient SDPA backward on the same inputs (K and V expanded
-    to the query heads outside the timing where this torch refuses
+    """The fp32 dQ, dK/dV and dbias at the training shape, D 64, 128 and
+    256, and the memory-efficient SDPA backward on the same inputs (K and V
+    expanded to the query heads outside the timing where this torch refuses
     enable_gqa)."""
     import torch
     import torch.nn.functional as F
@@ -173,10 +174,17 @@ def _time_fp32(randn, emit):
         out, lse = flash_attention_forward(q, k, v, causal=True)
         do = randn(out.shape, torch.float32)
         p = fb._prepare(q, k, v, out, lse, do, None, None, True, None, None)
+        bias = torch.randn((1, HQ, S, S), device=q.device,
+                           generator=torch.Generator(device=q.device).manual_seed(8))
+        out_b, lse_b = flash_attention_forward(q, k, v, bias, causal=True)
+        pb = fb._prepare(q, k, v, out_b, lse_b, do, bias, None, True, None, None)
+        del out_b, lse_b
         runs = {"flash_bwd_dq": (lambda: (fb._launch_dq(p, torch.float32),),
                                  lambda: (fb._plain_dq(p),)),
                 "flash_bwd_dkv": (lambda: fb._launch_dkv(p, torch.float32),
-                                  lambda: fb._plain_dkv(p))}
+                                  lambda: fb._plain_dkv(p)),
+                "flash_dbias": (lambda: (fb._launch_dbias(pb, tuple(bias.shape)),),
+                                lambda: (fb._plain_dbias(pb, tuple(bias.shape)),))}
         for name, (kern, plain) in runs.items():
             try:
                 got = kern()
@@ -186,7 +194,9 @@ def _time_fp32(randn, emit):
             err = [rel_err(x, y) for x, y in zip(got, plain())]
             del got
             torch.cuda.empty_cache()
-            emit(kernel=name, dtype="float32", D=d, **_stats(kern), relerr=err)
+            # The dbias takes tens of ms a call at D 256: 5 timings after 1 warm-up.
+            stats = _stats(kern, iters=5, warmup=1) if name == "flash_dbias" else _stats(kern)
+            emit(kernel=name, dtype="float32", D=d, **stats, relerr=err)
         qg = q.detach().requires_grad_(True)
 
         def grads(kg, vg, **kw):
@@ -203,7 +213,7 @@ def _time_fp32(randn, emit):
             vg = v.repeat_interleave(HQ // HKV, 1).requires_grad_(True)
             fn, gqa = grads(kg, vg), "K and V expanded to the query heads"
         emit(kernel="sdpa_efficient_backward", dtype="float32", D=d, gqa=gqa, **_stats(fn))
-        del q, k, v, out, lse, do, p, runs, qg, kg, vg, fn
+        del q, k, v, out, lse, do, p, pb, bias, runs, qg, kg, vg, fn
         torch.cuda.empty_cache()
 
 

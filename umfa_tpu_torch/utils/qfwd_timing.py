@@ -15,10 +15,12 @@ the tree's kernel refuses is reported as refused.
 
 With --fused it times `fused_quantize_attend` (`fused_qattn`) instead, at
 the training shape (B8 Hq16 Hkv8, causal S 4096, seeded bf16 Q, K, V) under
-the int8 and int4 recipes at D 64 and 128, with the worst abs error of out
-and of the LSE and the relerr of out against the plain version, and each
-kernel's device ms in one call (`kernels_ms`, from torch.profiler over 3
-calls).
+the int8 and int4 recipes at D 64, 128 and 256, with the worst abs error
+of out and of the LSE and the relerr of out against the plain version, and
+each kernel's device ms in one call (`kernels_ms`, from torch.profiler over
+3 calls); at D 256 also the two-pass route's forward under int8 on the same
+inputs (`quant_rows` three times, then `quant_attn_fwd`; other numbers,
+true means instead of tile-0 estimates: a yardstick).
 
 Prints one JSON line per timing, then the card's name and power limit as
 nvidia-smi gives them. Needs a CUDA device.
@@ -102,14 +104,15 @@ def _time_fused(emit):
     import torch
 
     from umfa_tpu_torch import _kernels
-    from umfa_tpu_torch.engine.config import Precision
+    from umfa_tpu_torch.engine.config import Precision, QuantizationConfig
+    from umfa_tpu_torch.ops import quant_attention as qa
     from umfa_tpu_torch.ops.quant_fused_attn import (
         fused_quantize_attend,
         fused_quantize_attend_plain,
     )
     from umfa_tpu_torch.utils.bwd_timing import _stats
 
-    _kernels.build_all(("fused_qattn",))
+    _kernels.build_all(("fused_qattn", "quant_rows", "quant_attn_fwd"))
     i8, i4 = Precision.INT8, Precision.INT4
     recipes = {
         "int8": dict(q_precision=i8, k_precision=i8, v_precision=i8, smooth=True,
@@ -119,15 +122,27 @@ def _time_fused(emit):
     }
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
-    for d in (64, 128):
+    for d in (64, 128, 256):
         q = torch.randn((B, HQ, S_TRAIN, d), generator=gen).to(dev, torch.bfloat16)
         k, v = ((torch.randn((B, HKV, S_TRAIN, d), generator=gen) + off).to(dev, torch.bfloat16)
                 for off in (0.5, 0.3))
+        if d == 256:
+            cfg = QuantizationConfig.from_mode_string("int8")
+
+            def two_pass():
+                return qa._two_pass(q, k, v, None, cfg, True, None, None, None)
+
+            emit("two_pass_route", recipe="int8", D=d, **_stats(two_pass),
+                 kernels_ms=_kernel_ms(two_pass))
         for name, kw in recipes.items():
             def run(kw=kw):
                 return fused_quantize_attend(q, k, v, causal=True, **kw)
 
-            got = run()
+            try:
+                got = run()
+            except (ValueError, RuntimeError) as e:  # a tree whose kernel refuses D
+                emit("fused_qattn", recipe=name, D=d, refused=str(e))
+                continue
             want = fused_quantize_attend_plain(q, k, v, causal=True, **kw)
             out, w_out = got[0].float(), want[0].float()
             err = dict(max_abs_out=float((out - w_out).abs().max()),
