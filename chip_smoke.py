@@ -10,16 +10,17 @@ Phases, one JSON line each:
      tensor-core kernels (the bf16 kernels of `flash_fwd`, `flash_bwd_dq`,
      `flash_bwd_dkv` and `flash_dbias`; `quant_attn_fwd`, `fused_qattn`,
      `quant_bwd_dq`, `quant_bwd_dkv`; the fp32 `flash_fwd`, dQ, dK/dV and
-     dbias; `ring_fwd_step`, `ring_bwd_dq`, `ring_bwd_dkv`): their HMMA
+     dbias; `ring_fwd_step`, `ring_bwd_dq`, `ring_bwd_dkv`; `flash_decode`,
+     bf16 and tf32): their HMMA
      instructions (TF32 ones in the fp32 instantiations of the dense
      forward and backward, of the dbias and of the ring kernels, at D 64,
      128 and 256; no CUDA-core kernel left in `flash_fwd`, `flash_bwd`,
-     `flash_dbias` or `ring_attn`), and for `quant_attn_fwd` also its IMMA
+     `flash_dbias`, `ring_attn` or `flash_decode`), and for `quant_attn_fwd` also its IMMA
      (int8) ones, for `fused_qattn` its DMMA (f64) ones (its D 256
      instantiations among them), counted in the SASS (cuobjdump; none
      fails the run), their registers and spills (ptxas; a spill in the
-     fp32 dbias or in `fused_qattn` at D 256 fails the run) and dynamic
-     shared memory at D 64/128/256;
+     fp32 dbias, in `fused_qattn` at D 256 or in a bf16 `flash_decode`
+     fails the run) and dynamic shared memory at D 64/128/256;
   3. forward kernels against their plain PyTorch versions on the card at
      the serving head geometry (Hq 16 / Hkv 8, D 64, Sk 4096, batch 2),
      with the stated tolerances, and the bf16 `flash_fwd` and the int8
@@ -59,24 +60,27 @@ Phases, one JSON line each:
      24-token continuation through the bias route, 16 greedy decode steps,
      once to warm up and once timed; plus a small model checked against
      the plain path on the CPU;
-  5a. the flash-decode kernel (`flash_decode` and its merge kernel
-     `flash_decode_merge`) against its plain tile walk at Hq 16 / Hkv 8 and
+  5a. the flash-decode kernel (`flash_decode`, one launch: the splits
+     merge inside it) against its plain tile walk at Hq 16 / Hkv 8 and
      Hq = Hkv 8, Tq 1/4/16, D 64/128/72/256, fp32 and bf16, S_max 4096 (block 2048)
      and 768 (block 256), slot lengths S_max, 1, 0 and S_max/3 + 5 with
-     the causal bias of Tq > 1 (fp32 relerr 2e-5, bf16 1e-2, finite); then
-     timed at the serving decode geometry (B8 Hq16 Hkv8 S4096 D64 bf16,
-     Tq 1 and 16, full cache, L2 evicted by reads before each timing; Tq 1
-     also at D 256) beside the plain walk, the default gemv route and the
-     bound;
+     the causal bias of Tq > 1 (fp32 relerr 2e-5, bf16 1e-2, finite); the
+     cluster's edges at the same gates: Hq 16 / Hkv 1 at Tq 1 and 16 (D 64,
+     256), S_max 64 (block 64) and 1000 (block 1000) at Tq 1 and 16 (D 64,
+     72); then timed at the serving decode geometry (B8 Hq16 Hkv8 S4096
+     D64 bf16, Tq 1 and 16, full cache, L2 evicted by reads before each
+     timing; Tq 1 also at D 256) beside the plain walk, the default gemv
+     route and the bound, each with its relerr against the plain walk
+     (1e-2) and two calls' bits compared (equal);
   5b. continuous batching at full width: the serving model with the INT8
      cache, 8 slots, 24 seeded requests (prompts 256-3584 tokens, 8-64 new
      tokens, teacher-forced), each admission prefilled into its slot, one
      ragged decode round for all slots, retired slots reset after the
      round; a warm-up run, then runs with UMFA_ENABLE_DECODE_KERNEL=1 and
      without it: every request completes, cache lengths follow the
-     schedule, exact launch counts (depth x rounds `flash_decode` and
-     merge with the switch, depth x admissions `quant_attn_fwd`, nothing
-     else), and the two runs' logits agree (bf16 relerr 2e-2 each round);
+     schedule, exact launch counts (depth x rounds `flash_decode` with
+     the switch, depth x admissions `quant_attn_fwd`, nothing else), and
+     the two runs' logits agree (bf16 relerr 2e-2 each round);
   5c. a small model's continuous-batching loop with the switch on, on the
      card against the CPU (INT8 cache max abs 1e-2, dense 1e-4);
   6. training at full width (the same model, batch 8 rows of 4097 tokens,
@@ -657,35 +661,52 @@ def decode_inputs(b, hq, hkv, tq, d, s_max, dtype, lengths, seed):
 
 
 def phase_decode_kernel(record):
-    """Row 10 (`flash_decode` and its merge) against the plain tile walk,
+    """Row 10 (`flash_decode`, one launch) against the plain tile walk,
     then timed at the serving decode geometry beside the plain walk, the
     gemv route and the bound."""
+    import ctypes
+
     import torch
 
+    from umfa_tpu_torch import _kernels
     from umfa_tpu_torch.serving import decode_kernel as dk
     from umfa_tpu_torch.serving.decode import _gemv_decode
     from umfa_tpu_torch.serving.kv_cache import QuantizedKVCache
     from umfa_tpu_torch.utils.testing import rel_err
 
     results = []
+    dtypes = ((torch.float32, 2e-5), (torch.bfloat16, 1e-2))
+
+    def check(hq, hkv, tq, d, s_max, bk):
+        for dtype, tol in dtypes:
+            q, k, ks, v, vs, bias, _ = decode_inputs(
+                4, hq, hkv, tq, d, s_max, dtype, (s_max, 1, 0, s_max // 3 + 5),
+                seed=len(results))
+            got = dk.quantized_flash_decode(q, k, ks, v, vs, bias, block_k=bk)
+            torch.cuda.synchronize()
+            want = dk.quantized_flash_decode_plain(q, k, ks, v, vs, bias, block_k=bk)
+            res = {"case": f"Hq{hq} Hkv{hkv} S{s_max} bk{bk} D{d} Tq{tq} {str(dtype)[6:]}",
+                   "relerr": rel_err(got, want), "max_abs": float((got - want).abs().max()),
+                   "finite": torch_isfinite(got), "tol": tol}
+            res["ok"] = res["finite"] and res["relerr"] <= tol
+            results.append(res)
+
     for hq, hkv in ((HQ, HKV), (HKV, HKV)):
         for s_max, bk in ((SK, 2048), (768, 256)):
             for d in (64, 128, 72, 256):  # 72: rows not 16-byte aligned; 256: the 256 template
                 for tq in (1, 4, 16):
-                    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 1e-2)):
-                        q, k, ks, v, vs, bias, _ = decode_inputs(
-                            4, hq, hkv, tq, d, s_max, dtype, (s_max, 1, 0, s_max // 3 + 5),
-                            seed=len(results))
-                        got = dk.quantized_flash_decode(q, k, ks, v, vs, bias, block_k=bk)
-                        torch.cuda.synchronize()
-                        want = dk.quantized_flash_decode_plain(q, k, ks, v, vs, bias, block_k=bk)
-                        res = {"case": f"Hq{hq} Hkv{hkv} S{s_max} bk{bk} D{d} Tq{tq} "
-                                       f"{str(dtype)[6:]}",
-                               "relerr": rel_err(got, want),
-                               "max_abs": float((got - want).abs().max()),
-                               "finite": torch_isfinite(got), "tol": tol}
-                        res["ok"] = res["finite"] and res["relerr"] <= tol
-                        results.append(res)
+                    check(hq, hkv, tq, d, s_max, bk)
+    # The cluster's edges: MQA (Hq 16 / Hkv 1: 16 and 256 query rows, the
+    # latter in row groups of 32, or 16 at D 256), S_max 64 (five of a
+    # cluster's eight splits get no cache row), S_max 1000 in one block_k
+    # tile (splits of 128 rows, the last of 104: a partial stage).
+    for tq in (1, 16):
+        for d in (64, 256):
+            check(HQ, 1, tq, d, SK, 2048)
+    for s_max, bk in ((64, 64), (1000, 1000)):
+        for tq in (1, 16):
+            for d in (64, 72):
+                check(HQ, HKV, tq, d, s_max, bk)
     worst = {"flash_decode": max(r["max_abs"] for r in results)}
     summary = {"phase": "decode_kernel_check", "cases": len(results),
                "lengths": "S_max, 1, 0, S_max/3 + 5",
@@ -709,64 +730,54 @@ def phase_decode_kernel(record):
         flush_buf.sum()
         torch.cuda._sleep(1_000_000)
 
+    smem = _kernels.function("flash_decode", "umfa_flash_decode_smem_bytes", (ctypes.c_int,) * 4)
+    splits = _kernels.function("flash_decode", "umfa_flash_decode_splits", (ctypes.c_int,) * 7)
     timing = {}
     for tq, d in ((1, D), (16, D), (1, 256)):
         q, k, ks, v, vs, bias, lengths = decode_inputs(
             B_SERVE, HQ, HKV, tq, d, SK, torch.bfloat16, (SK,) * B_SERVE, seed=1000 + tq + d)
         args = (q, k, ks, v, vs, bias)
-        p = dk._prepare(*args, None, 2048)
         got = dk.quantized_flash_decode(*args, block_k=2048)
+        again = dk.quantized_flash_decode(*args, block_k=2048)
         want = dk.quantized_flash_decode_plain(*args, block_k=2048)
-        part_o, part_ml = dk._launch_partials(p)
-        out = dk._launch_merge(part_o, part_ml)
-        merge_want = dk._merge_plain(part_o, part_ml)
         cache = QuantizedKVCache(k, ks, v, vs, lengths)
         nbytes = (k.numel() + v.numel() + 4 * (ks.numel() + vs.numel() + bias.numel())
                   + 2 * q.numel() + 4 * got.numel())
         flops = 4 * B_SERVE * HQ * tq * SK * d  # QKᵀ and P·V
-        merge_bytes = 4 * (part_o.numel() + part_ml.numel() + out.numel())
+        rows = HQ // HKV * tq
+        rows_a_block = 32 if rows > 16 and d <= 128 else 16
         t = {
             "shape": f"B{B_SERVE} Hq{HQ} Hkv{HKV} Tq{tq} S{SK} D{d} bf16, full cache",
-            "ms": cuda_ms(lambda: dk._launch_partials(p), before=flush),
-            "merge_ms": cuda_ms(lambda: dk._launch_merge(part_o, part_ml), before=flush),
-            "call_ms": cuda_ms(lambda: dk.quantized_flash_decode(*args, block_k=2048),
-                               before=flush),
+            "ms": cuda_ms(lambda: dk.quantized_flash_decode(*args, block_k=2048), before=flush),
             "plain_ms": cuda_ms(lambda: dk.quantized_flash_decode_plain(*args, block_k=2048),
                                 iters=3, warmup=1, before=flush),
-            "merge_plain_ms": cuda_ms(lambda: dk._merge_plain(part_o, part_ml), before=flush),
             "gemv_ms": cuda_ms(lambda: _gemv_decode(q, cache, bias, None), before=flush),
             "library_ms": None,  # no single PyTorch call computes INT8-cache decode attention
             "bytes": nbytes, "flops": flops,
             "bytes_ms": nbytes / H100_HBM_BYTES * 1e3, "ops_ms": flops / H100_BF16_FLOPS * 1e3,
-            "merge_bytes": merge_bytes, "merge_bound_ms": merge_bytes / H100_HBM_BYTES * 1e3,
-            "relerr": rel_err(got, want), "merge_relerr": rel_err(out, merge_want),
-            "merge_max_abs": float((out - merge_want).abs().max()),
-            "nsplit": part_o.shape[3],
-            "blocks": part_o.shape[3] * B_SERVE * HKV,
+            "relerr": rel_err(got, want), "max_abs": float((got - want).abs().max()),
+            "finite": torch_isfinite(got), "same_bits_twice": bool(torch.equal(got, again)),
+            "cluster": splits(B_SERVE, HKV, rows, tq, SK, d, 1),
+            "blocks": splits(B_SERVE, HKV, rows, tq, SK, d, 1) * B_SERVE * HKV
+                      * -(-rows // rows_a_block),
+            "smem_bytes": smem(d, rows, tq, 1),
         }
         bound(t)
         emit({"phase": "kernel_timing", "kernel": "flash_decode", **t})
         timing[f"tq{tq}_d{d}"] = t
-        if not (t["relerr"] <= 1e-2 and t["merge_relerr"] <= 1e-5):
+        if not (t["relerr"] <= 1e-2 and t["finite"] and t["same_bits_twice"]):
             raise AssertionError(f"flash_decode at the serving shape: relerr {t['relerr']}, "
-                                 f"merge relerr {t['merge_relerr']}")
-        del args, p, got, want, out, part_o, part_ml, cache, q, k, ks, v, vs, bias
+                                 f"finite {t['finite']}, same bits twice {t['same_bits_twice']}")
+        del args, got, again, want, cache, q, k, ks, v, vs, bias
     del flush_buf
     torch.cuda.empty_cache()
     record["decode_kernel_timing"] = timing
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     t1 = timing[f"tq1_d{D}"]
-    out_timing = {
-        "flash_decode": {k2: t1[k2] for k2 in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                "library_ms")},
-        "flash_decode_merge": {"ms": t1["merge_ms"], "plain_ms": t1["merge_plain_ms"],
-                               "bound_ms": t1["merge_bound_ms"], "bound_by": "bytes",
-                               "library_ms": None},
-    }
-    worst["flash_decode_merge"] = max(t["merge_max_abs"] for t in timing.values())
-    t256 = timing["tq1_d256"]
+    out_timing = {"flash_decode": {k2: t1[k2] for k2 in keys}}
     out_timing["flash_decode"]["variants"] = [
-        {"shape": t256["shape"], **{k2: t256[k2] for k2 in ("ms", "plain_ms", "bound_ms",
-                                                            "bound_by", "library_ms", "relerr")}}]
+        {"shape": timing[name]["shape"], **{k2: timing[name][k2] for k2 in keys + ("relerr",)}}
+        for name in (f"tq16_d{D}", "tq1_d256")]
     return out_timing, worst
 
 
@@ -897,8 +908,7 @@ def phase_continuous_batching(record):
         runs[name] = r
         want = {"quant_attn_fwd": cfg.depth * r["admitted"]}
         if switch:
-            want.update(flash_decode=cfg.depth * r["rounds"],
-                        flash_decode_merge=cfg.depth * r["rounds"])
+            want.update(flash_decode=cfg.depth * r["rounds"])
         res = {"phase": "continuous_batching", "run": name, "switch": DECODE_SWITCH + "=1"
                if switch else "unset", "kv_cache": "int8",
                **{k2: v2 for k2, v2 in r.items() if not k2.endswith("logits")},
@@ -2525,7 +2535,8 @@ TC_KERNELS = {"flash_fwd": ("fwd_tc_kernel",), "flash_bwd": ("dq_tc_kernel", "dk
               "flash_dbias": ("dbias_tc_kernel",), "quant_bwd": ("dq_tc_kernel", "dkv_tc_kernel"),
               "quant_attn_fwd": ("quant_attn_fwd_tc_kernel",),
               "fused_qattn": ("fused_qattn_tc_kernel",),
-              "ring_attn": ("fwd_tc_kernel", "dq_tc_kernel", "dkv_tc_kernel")}
+              "ring_attn": ("fwd_tc_kernel", "dq_tc_kernel", "dkv_tc_kernel"),
+              "flash_decode": ("flash_decode_tc_kernel",)}
 # The tensor-core instructions (SASS mnemonics) each library's kernels must
 # hold: HMMA for bf16 (and tf32) mma.sync, IMMA for int8, DMMA for f64.
 TC_OPS = {"quant_attn_fwd": ("HMMA", "IMMA"), "fused_qattn": ("DMMA", "HMMA")}
@@ -2541,12 +2552,15 @@ TF32_WIDTHS = ("Li64E", "Li128E", "Li256E")  # the head-dim template argument, m
 SIMT_GONE = {"flash_fwd": ("flash_fwd_kernel",),
              "flash_bwd": ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"),
              "flash_dbias": ("flash_dbias_kernel",),
-             "ring_attn": ("ring_fwd_step_kernel", "ring_bwd_dq_kernel", "ring_bwd_dkv_kernel")}
+             "ring_attn": ("ring_fwd_step_kernel", "ring_bwd_dq_kernel", "ring_bwd_dkv_kernel"),
+             "flash_decode": ("flash_decode_kernel", "flash_decode_merge_kernel")}
 # Kernels that must exist and spill nothing: (library, stem, a substring of
 # the mangled name) -> what it is. fused_qattn's D 256 instantiations
-# (its bf16-Q-tile layout) and the fp32 dbias.
+# (its bf16-Q-tile layout), the fp32 dbias, and the bf16 instantiations of
+# flash_decode (template <DP, RT, BF16 = true>: "Lb1E").
 NO_SPILL = {("fused_qattn", "fused_qattn_tc_kernel", "Li256E"): "fused_qattn D 256",
-            ("flash_dbias", "dbias_tc_kernel", TF32_POLICY): "fp32 flash_dbias"}
+            ("flash_dbias", "dbias_tc_kernel", TF32_POLICY): "fp32 flash_dbias",
+            ("flash_decode", "flash_decode_tc_kernel", "Lb1E"): "bf16 flash_decode"}
 
 
 def ptxas_resources(log):
@@ -2650,6 +2664,7 @@ def phase_sass(record, report):
     rbwd = _kernels.function("ring_attn", "umfa_ring_bwd_smem_bytes",
                              (ctypes.c_int, ctypes.c_int, ctypes.c_int))
     rfwd = _kernels.function("ring_attn", "umfa_ring_fwd_smem_bytes", (ctypes.c_int, ctypes.c_int))
+    fdec = _kernels.function("flash_decode", "umfa_flash_decode_smem_bytes", (ctypes.c_int,) * 4)
     for d in (64, 128, 256):
         smem[f"flash_fwd bf16 D{d}"] = fwd(d, 1)
         smem[f"flash_fwd fp32 D{d}"] = fwd(d, 0)
@@ -2669,6 +2684,8 @@ def phase_sass(record, report):
         smem[f"flash_bwd_dq fp32 D{d}"] = fbwd(d, 0, 0)
         smem[f"flash_bwd_dkv fp32 D{d}"] = fbwd(d, 1, 0)
         smem[f"fused_qattn D{d}"] = fq(d)
+        for tq in (1, 16):  # the serving group of 2: 2 or 32 query rows
+            smem[f"flash_decode bf16 D{d} Tq{tq}"] = fdec(d, 2 * tq, tq, 1)
     out = {"kernels": kernels, "dynamic_smem_bytes": smem}
     emit({"phase": "sass", **out})
     record["sass"] = out
@@ -2755,6 +2772,17 @@ DESIGN = {
     "ring_bwd_dq": "tensor cores, the dQ body of flash_bwd_dq (csrc/bwd_tc.cuh dq_tc_kernel) "
                    "in ring mode as ring_bwd_dkv, dQ folded into the fp32 accumulator; bf16 "
                    "inputs mma.sync m16n8k16 bf16->fp32, fp32 3xTF32, D <= 256",
+    "flash_decode": "tensor cores, one launch (flash_decode_tc_kernel: the splits of a (batch, "
+                    "kv-head, row group) are the c blocks of a thread-block cluster, c <= 8 chosen "
+                    "by the occupancy calculator (7 at the serving geometry), each walking its "
+                    "cache rows in 64-row stages through a cp.async ring (4 stages at D 64, 3 at "
+                    "D 128, 2 at D 256), each warp 16 rows a stage with its own running (m, l, "
+                    "acc); bf16 q: mma.sync m16n8k16 bf16->fp32, K's B fragments widened from the "
+                    "int8 stage in registers (the head dim permuted alike in Q), P from the score "
+                    "accumulators, V widened by its warp to bf16 and read by ldmatrix.trans; fp32 "
+                    "q: mma.sync m16n8k8 tf32 with q and p·vs split in two; the warps, then the "
+                    "splits (over distributed shared memory, in rank order) merged inside the "
+                    "launch, deterministic)",
     "mma_probe": "tensor cores, mma.sync m16n8k16 bf16->fp32",
 }
 
@@ -2845,8 +2873,6 @@ def main():
            "quant_bwd_dkv": ("umfa_tpu_torch/csrc/quant_bwd.cu", "umfa_tpu/ops/quant_bwd.py:339"),
            "flash_decode": ("umfa_tpu_torch/csrc/flash_decode.cu",
                             "umfa_tpu/serving/decode_kernel.py:38"),
-           "flash_decode_merge": ("umfa_tpu_torch/csrc/flash_decode.cu",
-                                  "umfa_tpu/serving/decode_kernel.py:38"),
            "ring_fwd_step": ("umfa_tpu_torch/csrc/ring_attn.cu",
                              "umfa_tpu/parallel/ring_pallas.py:99"),
            "ring_bwd_dkv": ("umfa_tpu_torch/csrc/ring_attn.cu",

@@ -84,6 +84,53 @@ def test_plain_flash_decode_matches_jax_interpret(heads, tq, dtype):
     assert torch.equal(got, again)
 
 
+# The shapes the card's cluster edges are tested at: MQA at Tq 16 (256
+# query rows a kv head), S_max 64 (one tile; on the card most splits of the
+# cluster get no cache row), and slots of length 0 beside full ones (every
+# column at -1e30: V averaged uniformly). (b, hq, hkv, tq, d, s_max,
+# block_k, lengths); the cache is filled to S_max.
+EDGE_CASES = {
+    "mqa_tq16": (2, 16, 1, 16, 64, 1024, 512, (700, 333)),
+    "s64": (2, 4, 2, 4, 64, 64, 64, (64, 17)),
+    "empty_among_full": (4, 4, 2, 4, 64, 768, 256, (768, 0, 768, 0)),
+}
+
+
+def _full_caches(b, hkv, s_max, d, lengths, seed):
+    rng = np.random.default_rng(seed)
+    k = rng.normal(0, 1, (b, hkv, s_max, d)).astype(np.float32)
+    v = rng.normal(0, 1, (b, hkv, s_max, d)).astype(np.float32)
+    jc = jkv.append_quantized(jkv.init_quantized_cache(b, hkv, s_max, d), jnp.asarray(k),
+                              jnp.asarray(v))
+    tc = tkv.append_quantized(tkv.init_quantized_cache(b, hkv, s_max, d, device="cpu"),
+                              torch.from_numpy(k), torch.from_numpy(v))
+    jc.length = jnp.asarray(lengths, jnp.int32)
+    tc.length = torch.tensor(lengths, dtype=torch.int32)
+    return jc, tc
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(EDGE_CASES), ids=list(EDGE_CASES))
+def test_plain_flash_decode_cluster_edge_shapes_match_jax(case, dtype):
+    b, hq, hkv, tq, d, s_max, block, lengths = EDGE_CASES[case]
+    jc, tc = _full_caches(b, hkv, s_max, d, lengths, seed=11)
+    q = np.random.default_rng(12).normal(0, 1, (b, hq, tq, d)).astype(np.float32)
+    bias = _bias(tq, s_max, lengths)
+    want = np.asarray(jdk.quantized_flash_decode(
+        jnp.asarray(q, dtype=dtype), jc.k_values, jc.k_scales, jc.v_values, jc.v_scales,
+        jnp.asarray(bias), block_k=block, interpret=True))
+    got = tdk.quantized_flash_decode(
+        torch.from_numpy(q).to(getattr(torch, dtype)), tc.k_values, tc.k_scales, tc.v_values,
+        tc.v_scales, torch.from_numpy(bias), block_k=block)
+    assert got.shape == (b, hq, tq, d) and torch.isfinite(got).all()
+    # fp32: summation order only. bf16: a score whose last fp32 bit differs
+    # between the two orders can round p·vs to the neighbouring bf16 (one
+    # such flip in the 256 x 1024 scores of mqa_tq16 moves one query row:
+    # relerr 1.8e-5, the rest of the cases ~1e-7); 1e-4 admits a few flips,
+    # a rounding point in the wrong place lands near 1e-3.
+    assert rel_err(got, want) <= (1e-5 if dtype == "float32" else 1e-4)
+
+
 def test_plain_flash_decode_broadcast_bias_and_empty_slot():
     """A (B, 1, 1, S) bias broadcast over Tq, and a slot of length 0 (every
     column at -1e30), which averages V uniformly in both packages."""

@@ -819,10 +819,12 @@ def test_quantized_attention_two_pass_at_head_dim_256_on_the_card(dev, monkeypat
             assert rel_err(a, b_) <= 1e-2, (route, name)
 
 
-# Row 10: flash-decode over the INT8 cache (csrc/flash_decode.cu), against
-# its plain tile walk. fp32 relerr 2e-5 (same arithmetic, other summation
-# order); bf16 relerr 1e-2 (the kernel rounds bf16(p·vs) against its chunk's
-# own maximum, the plain walk against its running one).
+# Row 10: flash-decode over the INT8 cache (csrc/flash_decode.cu, one
+# launch: the splits of a row group are the blocks of a cluster and merge
+# inside it), against its plain tile walk. fp32 relerr 2e-5 (same
+# arithmetic, other summation order); bf16 relerr 1e-2 (the kernel rounds
+# bf16(p·vs) against the running maximum of its own walk, the plain walk
+# against the tile walk's).
 
 import os  # noqa: E402
 
@@ -840,16 +842,17 @@ DECODE_CASES = [  # (hq, hkv, tq, d, s_max, block_k)
 ]
 
 
-def _decode_inputs(hq, hkv, tq, d, s_max, dtype, dev, seed=0):
-    """A 4-slot INT8 cache at lengths S_max, 1, 0 and S_max/3 + 5, and the
-    decode route's length-and-causal bias (query t at length - Tq + t)."""
+def _decode_inputs(hq, hkv, tq, d, s_max, dtype, dev, seed=0, lengths=None):
+    """A 4-slot INT8 cache at lengths S_max, 1, 0 and S_max/3 + 5 (or the
+    given ones), and the decode route's length-and-causal bias (query t at
+    length - Tq + t)."""
     g = torch.Generator().manual_seed(seed)
-    b = 4
+    lengths = torch.tensor(lengths or [s_max, 1, 0, s_max // 3 + 5])
+    b = len(lengths)
     k = torch.randint(-128, 128, (b, hkv, s_max, d), generator=g, dtype=torch.int8)
     v = torch.randint(-128, 128, (b, hkv, s_max, d), generator=g, dtype=torch.int8)
     ks = torch.rand((b, hkv, s_max, 1), generator=g) * 0.05 + 1e-3
     vs = torch.rand((b, hkv, s_max, 1), generator=g) * 0.05 + 1e-3
-    lengths = torch.tensor([s_max, 1, 0, s_max // 3 + 5])
     pos = torch.arange(s_max)
     qpos = lengths[:, None] - tq + torch.arange(tq)
     masked = (pos > qpos[:, :, None]) | (pos >= lengths[:, None, None])
@@ -863,20 +866,61 @@ def _decode_inputs(hq, hkv, tq, d, s_max, dtype, dev, seed=0):
 def test_flash_decode_kernel_matches_plain(dev, dtype, case):
     hq, hkv, tq, d, s_max, bk = case
     q, k, ks, v, vs, bias, _ = _decode_inputs(hq, hkv, tq, d, s_max, dtype, dev)
-    n0, m0 = _kernels.launches["flash_decode"], _kernels.launches["flash_decode_merge"]
+    n0 = _kernels.launches["flash_decode"]
     out = dk.quantized_flash_decode(q, k, ks, v, vs, bias, block_k=bk)
     torch.cuda.synchronize()
-    assert _kernels.launches["flash_decode"] == n0 + 1
-    assert _kernels.launches["flash_decode_merge"] == m0 + 1
+    assert _kernels.launches["flash_decode"] == n0 + 1  # one launch, the merge inside it
+    assert "flash_decode_merge" not in _kernels.launches
     want = dk.quantized_flash_decode_plain(q, k, ks, v, vs, bias, block_k=bk)
     assert out.dtype == torch.float32 and out.shape == (4, hq, tq, d)
     assert torch.isfinite(out).all()
     assert rel_err(out, want) <= DECODE_TOLS[dtype]
 
 
+# The cluster's edges: S_max 64 (the first split's 16 rows a block, five
+# of the eight splits empty), Hkv 1 at Tq 16 (256 query rows: eight row
+# groups of 32, each its own cluster; 16 at D 256), and slots of length 0
+# (every split sees only the -1e30 bias: V averaged uniformly over all of
+# them) beside full ones.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    (16, 8, 1, 64, 64, 64, None), (16, 8, 16, 64, 64, 64, None),
+    (16, 1, 16, 64, 768, 256, None), (16, 1, 16, 128, 768, 256, None),
+    (16, 1, 16, 256, 768, 256, None), (16, 1, 1, 64, 4096, 2048, None),
+    (16, 8, 1, 64, 4096, 2048, [0, 4096, 0, 4096]), (8, 8, 4, 128, 768, 256, [768, 0, 0, 768]),
+], ids=["s64_tq1", "s64_tq16", "mqa_tq16_d64", "mqa_tq16_d128", "mqa_tq16_d256", "mqa_tq1",
+        "empty_slots_s4096", "empty_slots_d128"])
+def test_flash_decode_kernel_cluster_edges(dev, dtype, case):
+    hq, hkv, tq, d, s_max, bk, lengths = case
+    q, k, ks, v, vs, bias, _ = _decode_inputs(hq, hkv, tq, d, s_max, dtype, dev, seed=2,
+                                              lengths=lengths)
+    n0 = _kernels.launches["flash_decode"]
+    out = dk.quantized_flash_decode(q, k, ks, v, vs, bias, block_k=bk)
+    torch.cuda.synchronize()
+    assert _kernels.launches["flash_decode"] == n0 + 1
+    want = dk.quantized_flash_decode_plain(q, k, ks, v, vs, bias, block_k=bk)
+    assert torch.isfinite(out).all() and rel_err(out, want) <= DECODE_TOLS[dtype]
+    for slot in [i for i, n in enumerate(lengths or []) if n == 0]:
+        # Every cache row at -1e30: out is the mean of cdt(vs)·v over S_max rows.
+        cdt = torch.float32 if dtype == torch.float32 else torch.bfloat16
+        mean = (vs[slot].to(cdt).float() * v[slot].float()).mean(dim=1)  # (Hkv, D)
+        got = out[slot].reshape(hkv, hq // hkv * tq, d)
+        assert rel_err(got, mean[:, None].expand_as(got)) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tq", [1, 16])
+def test_flash_decode_kernel_is_deterministic(dev, dtype, tq):
+    # The splits merge in a fixed order, with no atomics: the same bits twice.
+    q, k, ks, v, vs, bias, _ = _decode_inputs(16, 8, tq, 64, 4096, dtype, dev, seed=3)
+    first = dk.quantized_flash_decode(q, k, ks, v, vs, bias)
+    again = dk.quantized_flash_decode(q, k, ks, v, vs, bias)
+    assert torch.equal(first, again)
+
+
 def test_flash_decode_kernel_broadcast_bias_and_odd_length(dev):
-    # A (B, 1, 1, S) bias broadcast over Tq 4, S_max 1000 (not a multiple of
-    # the kernel's 256-row chunks), D 32 and 80.
+    # A (B, 1, 1, S) bias broadcast over Tq 4, S_max 1000 (splits of 128
+    # rows, the last of 104; stages of 64 rows and a partial one), D 32 and 80.
     for d in (32, 80):
         q, k, ks, v, vs, bias, _ = _decode_inputs(4, 2, 4, d, 1000, torch.float32, dev, seed=1)
         bias = bias[:, :, -1:]

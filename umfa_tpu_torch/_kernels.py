@@ -34,8 +34,7 @@ NVCC_FLAGS = (
 
 # Launches per kernel (not per library: `flash_bwd` holds `flash_bwd_dq` and
 # `flash_bwd_dkv`, `quant_bwd` holds `quant_bwd_dq` and `quant_bwd_dkv`,
-# `flash_decode` holds `flash_decode` and `flash_decode_merge`, `ring_attn`
-# holds `ring_fwd_step`, `ring_bwd_dkv` and `ring_bwd_dq`),
+# `ring_attn` holds `ring_fwd_step`, `ring_bwd_dkv` and `ring_bwd_dq`),
 # counted by each wrapper right after its kernel was launched (and nowhere
 # else). `flash_dbias` also counts under "flash_dbias/<dtype>" (float32,
 # float16, bfloat16), which splits its launches by input type.

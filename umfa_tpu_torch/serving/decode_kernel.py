@@ -1,11 +1,11 @@
 """Flash-decode over the INT8 KV cache (port of
 umfa_tpu/serving/decode_kernel.py).
 
-`quantized_flash_decode` launches the CUDA kernels of
+`quantized_flash_decode` launches the CUDA kernel of
 `csrc/flash_decode.cu` on CUDA tensors and runs
 `quantized_flash_decode_plain`, the reference kernel's arithmetic in plain
 PyTorch, on CPU tensors. There is no fallback between the two: a CUDA
-tensor the kernels do not take raises.
+tensor the kernel does not take raises.
 
 GQA folds the query group into the rows, q → (B, Hkv, g·Tq, D) row-major
 (g, t), so each K/V row is read once for the whole group. The plain version
@@ -25,10 +25,13 @@ This route rounds differently from `serving/decode._gemv_decode`, which
 forms (s·ks)·scale and rounds the normalized P·vs: the two agree to ~2e-5
 in fp32, not bit for bit.
 
-The CUDA kernel splits the KV axis into its own chunks (flash-decoding) and
-merges them in a second launch; in bf16 it therefore rounds cdt(p · vs)
-against a chunk-local maximum, not the tile walk's running one, and is held
-to its plain version by tolerance (see `csrc/flash_decode.cu`).
+The CUDA kernel (`csrc/flash_decode.cu`) is one launch: it splits the KV
+axis over the eight blocks of a thread-block cluster, each walking its
+rows with its own running (m, l, acc), and merges the splits inside the
+launch in a fixed order, so two calls on the same inputs give the same
+bits. In bf16 it rounds cdt(p · vs) against the running maximum of its own
+walk, not the tile walk's, and is held to its plain version by tolerance
+(bf16 relerr 1e-2, fp32 2e-5).
 """
 
 from __future__ import annotations
@@ -43,9 +46,8 @@ from umfa_tpu_torch import _kernels
 DEFAULT_MASK_VALUE = -1e30
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _L,
-             ctypes.c_float, _I, _I, _P)
-_MERGE_ARGTYPES = (_P, _P, _P, _P, _I, _I, _I, _P)
+_ARGTYPES = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _L, ctypes.c_float,
+             _I, _P)
 
 
 class _Prepared(NamedTuple):
@@ -153,14 +155,9 @@ def _plain(p: _Prepared) -> torch.Tensor:
 
 
 def _launch(p: _Prepared) -> torch.Tensor:
+    """The CUDA kernel: out (B, Hkv, g·Tq, D) f32 in one launch."""
     if p.q.numel() == 0:
         return torch.empty(p.q.shape, dtype=torch.float32, device=p.q.device)
-    return _launch_merge(*_launch_partials(p))
-
-
-def _launch_partials(p: _Prepared):
-    """The chunk kernel: returns part_o (B, Hkv, g·Tq, nsplit, D) and
-    part_ml (2, B, Hkv, g·Tq, nsplit), each chunk's acc and its m, l."""
     dev = p.q.device
     tensors = (("q", p.q), ("k_values", p.k), ("k_scales", p.ks), ("v_values", p.v),
                ("v_scales", p.vs), ("bias", p.bias))
@@ -177,48 +174,13 @@ def _launch_partials(p: _Prepared):
     q = p.q.contiguous()
     k, v = p.k.contiguous(), p.v.contiguous()
     ks, vs = p.ks.contiguous(), p.vs.contiguous()
-    nsplit = split_count(s_max, d)
-    part_o = torch.empty((b, hkv, gtq, nsplit, d), dtype=torch.float32, device=dev)
-    part_ml = torch.empty((2, b, hkv, gtq, nsplit), dtype=torch.float32, device=dev)
+    out = torch.empty((b, hkv, gtq, d), dtype=torch.float32, device=dev)
     bsb, _, bst, bss = (st if n > 1 else 0 for st, n in zip(p.bias.stride(), p.bias.shape))
     fn = _kernels.function("flash_decode", "umfa_flash_decode", _ARGTYPES)
     with torch.cuda.device(dev):
         err = fn(q.data_ptr(), k.data_ptr(), ks.data_ptr(), v.data_ptr(), vs.data_ptr(),
-                 p.bias.data_ptr(), part_o.data_ptr(), part_ml[0].data_ptr(),
-                 part_ml[1].data_ptr(), b, hkv, gtq, p.tq, s_max, d, bsb, bst, bss,
-                 p.scale, int(q.dtype == torch.bfloat16), nsplit,
+                 p.bias.data_ptr(), out.data_ptr(), b, hkv, gtq, p.tq, s_max, d, bsb, bst, bss,
+                 p.scale, int(q.dtype == torch.bfloat16),
                  torch.cuda.current_stream(dev).cuda_stream)
     _kernels.check("flash_decode", err)
-    return part_o, part_ml
-
-
-def _launch_merge(part_o, part_ml) -> torch.Tensor:
-    """The merge kernel: out (B, Hkv, g·Tq, D) f32 from the chunk partials."""
-    b, hkv, gtq, nsplit, d = part_o.shape
-    out = torch.empty((b, hkv, gtq, d), dtype=torch.float32, device=part_o.device)
-    merge = _kernels.function("flash_decode", "umfa_flash_decode_merge", _MERGE_ARGTYPES)
-    with torch.cuda.device(out.device):
-        err = merge(part_o.data_ptr(), part_ml[0].data_ptr(), part_ml[1].data_ptr(),
-                    out.data_ptr(), b * hkv * gtq, nsplit, d,
-                    torch.cuda.current_stream(out.device).cuda_stream)
-    _kernels.check("flash_decode", err, "flash_decode_merge")
     return out
-
-
-def _merge_plain(part_o, part_ml) -> torch.Tensor:
-    """The merge kernel's arithmetic in plain PyTorch: over the chunks i of
-    each query row, M = max(m_i, -1e30), out = Σ e^(m_i-M) acc_i /
-    Σ e^(m_i-M) l_i, a zero sum replaced by 1."""
-    m, l = part_ml[0], part_ml[1]
-    w = torch.exp(m - m.amax(dim=-1, keepdim=True).clamp_min(DEFAULT_MASK_VALUE))
-    lsum = (w * l).sum(dim=-1, keepdim=True)
-    acc = (w[..., None] * part_o).sum(dim=-2)
-    return acc / torch.where(lsum == 0.0, torch.ones_like(lsum), lsum)
-
-
-def split_count(s_max: int, d: int) -> int:
-    """KV chunks the kernel splits S_max into: 16 KiB of int8 K (and as
-    much V) per block of cache rows padded to 64, 128 or 256 bytes: 256
-    rows at D <= 64, 128 at D <= 128 and 64 at D <= 256."""
-    rows = 256 if d <= 64 else 128 if d <= 128 else 64
-    return -(-s_max // rows)
