@@ -17,10 +17,13 @@ Phases, one JSON line each:
      128 and 256; no CUDA-core kernel left in `flash_fwd`, `flash_bwd`,
      `flash_dbias`, `ring_attn` or `flash_decode`), and for `quant_attn_fwd` also its IMMA
      (int8) ones, for `fused_qattn` its DMMA (f64) ones (its D 256
-     instantiations among them), counted in the SASS (cuobjdump; none
+     instantiations among them), for `mma_probe` its HGMMA (`wgmma`)
+     ones (the `mma.sync` probe kernel gone, and no "wgmma ... serialized"
+     in its ptxas report), counted in the SASS (cuobjdump; none
      fails the run), their registers and spills (ptxas; a spill in the
      fp32 dbias, in `fused_qattn` at D 256 or in a bf16 `flash_decode`
-     fails the run) and dynamic shared memory at D 64/128/256;
+     fails the run; `quant_rows`' kernels listed too) and dynamic shared
+     memory at D 64/128/256 (and of each probe plan);
   3. forward kernels against their plain PyTorch versions on the card at
      the serving head geometry (Hq 16 / Hkv 8, D 64, Sk 4096, batch 2),
      with the stated tolerances, and the bf16 `flash_fwd` and the int8
@@ -147,9 +150,10 @@ Phases, one JSON line each:
      one hop's copy time, and from a torch.profiler trace how much of the
      hops' copy time ran under ring kernels;
  14. the tensor-core probe `mma_probe` at the five shapes of
-     scripts/d64_ab.py against its plain version at reps 8 (fp32 1e-5),
-     then at reps 1024 with its TFLOP/s beside 989 and one cuBLAS product
-     of each shape (a yardstick only);
+     scripts/d64_ab.py against its plain version at reps 1 and 8 (fp32
+     1e-5; the same bits twice), then at reps 1024 with its TFLOP/s beside
+     989, its plan (tile, K split, work items, SMs used) and one cuBLAS
+     product of each shape (a yardstick only);
  15. the wall seconds of each phase; a `kernels` line (each kernel with
      its `design`: tensor cores or CUDA cores); the nvidia-smi line; the
      result line.
@@ -1552,7 +1556,8 @@ def phase_quant_kernels(record):
     from umfa_tpu_torch.ops import quant_bwd as qb
     from umfa_tpu_torch.ops.quant import dequantize
     from umfa_tpu_torch.ops.quant_attention import _corr_from_quantized
-    from umfa_tpu_torch.ops.quant_fused import quantize_rows_fused, quantize_rows_fused_plain
+    from umfa_tpu_torch.ops.quant_fused import (quantize_rows_fused, quantize_rows_fused_plain,
+                                                rotate)
     from umfa_tpu_torch.ops.quant_fused_attn import (
         fused_quantize_attend, fused_quantize_attend_plain,
     )
@@ -1748,6 +1753,15 @@ def phase_quant_kernels(record):
     torch.cuda.empty_cache()
 
     # quant_rows on Q (bytes-bound: bf16 in, int8 codes and fp32 scales out).
+    # Before each timing the 50 MB L2 is evicted by reading 256 MB and the
+    # card spins while the host enqueues the call, so the events time the
+    # device, not the Python wrapper (`ms_host`: the same call without).
+    flush_buf = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
+
+    def evict():
+        flush_buf.sum()
+        torch.cuda._sleep(1_000_000)
+
     mean = q.float().mean(dim=2, keepdim=True)
     rk = lambda: quantize_rows_fused(q, mean)  # noqa: E731
     rp = lambda: quantize_rows_fused_plain(q, mean)  # noqa: E731
@@ -1755,12 +1769,27 @@ def phase_quant_kernels(record):
     exact = torch.equal(got.values, want.values) and torch.equal(got.scales, want.scales)
     nbytes = 2 * q.numel() + q.numel() + 4 * b * HQ * s + 4 * mean.numel()
     flops = 4 * q.numel()  # subtract, |x|, divide, round per element
-    timing["quant_rows"] = dict(ms=cuda_ms(rk), plain_ms=cuda_ms(rp, iters=3, warmup=1),
+    timing["quant_rows"] = dict(ms=cuda_ms(rk, before=evict), ms_host=cuda_ms(rk),
+                                plain_ms=cuda_ms(rp, iters=3, warmup=1, before=evict),
                                 flops=flops, bytes=nbytes, ops_ms=flops / H100_BF16_FLOPS * 1e3,
                                 bytes_ms=nbytes / H100_HBM_BYTES * 1e3, check={"exact": exact},
                                 ok=exact, library_ms=None,
                                 library="none: no single PyTorch call row-quantizes to int8")
-    del got, want, mean
+    del got, want
+    # The rotated path (int8, the mean in the rotated space) at D 64 and 128.
+    for d in (64, 128):
+        x = q if d == D else randn((b, HQ, s, d), torch.bfloat16)
+        xm = rotate(x.float()).mean(dim=2, keepdim=True)
+        got = quantize_rows_fused(x, xm, hadamard=True)
+        want = quantize_rows_fused_plain(x, xm, hadamard=True)
+        timing["quant_rows"][f"rotated_d{d}"] = {
+            "ms": cuda_ms(lambda: quantize_rows_fused(x, xm, hadamard=True), before=evict),
+            "bytes_ms": (3 * x.numel() + 4 * x.numel() // d + 4 * xm.numel())
+            / H100_HBM_BYTES * 1e3,
+            "codes_off_by_one_at_most": int((got.values.int() - want.values.int()).abs().max()) <= 1,
+            "scales_relerr": rel_err(got.scales, want.scales)}
+        del x, xm, got, want
+    del mean, flush_buf
 
     # The backward kernels on the int8 recipe's residuals.
     out, lse, qt_q, qt_k, qt_v, qm, vm = fused_quantize_attend(q, k, v, causal=True,
@@ -2476,9 +2505,13 @@ def phase_ring_full(record):
 
 def phase_mma_probe(record):
     """Row 13: the tensor-core probe at the five shapes of scripts/d64_ab.py,
-    against its plain version at reps 8 (fp32 relerr 1e-5), then at reps
-    1024 with its TFLOP/s beside the 989 TFLOP/s datasheet peak and one
-    cuBLAS product of the same shape (a yardstick only)."""
+    against its plain version at reps 1 and 8 (fp32 relerr 1e-5) and the
+    same bits on two calls, then at reps 1024 with its TFLOP/s beside the
+    989 TFLOP/s datasheet peak, its plan (64 x tn tiles, K split, work
+    items, blocks an SM holds, SMs used) and one cuBLAS product of the same
+    shape (a yardstick only)."""
+    import ctypes
+
     import torch
 
     from umfa_tpu_torch import _kernels
@@ -2486,25 +2519,36 @@ def phase_mma_probe(record):
     from umfa_tpu_torch.utils.testing import rel_err
 
     dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    per_sm = _kernels.function("mma_probe", "umfa_mma_probe_blocks_per_sm", (ctypes.c_int,) * 2)
     gen = torch.Generator().manual_seed(13)
     operands, rows, worst = {}, {}, 0.0
     for name, (m, k, n) in mp.SHAPES.items():
         a = torch.randn((m, k), generator=gen).to(dev, torch.bfloat16)
         b = (torch.randn((k, n), generator=gen) * 1e-3).to(dev, torch.bfloat16)
         operands[name] = (a, b)
-        got, want = mp.mma_probe(a, b, 8), mp.mma_probe_plain(a, b, 8)
-        worst = max(worst, float((got - want).abs().max()))
+        checks = {}
+        for reps in (1, 8):
+            got, want = mp.mma_probe(a, b, reps), mp.mma_probe_plain(a, b, reps)
+            worst = max(worst, float((got - want).abs().max()))
+            checks[f"relerr_reps{reps}"] = rel_err(got, want)
+        same = bool(torch.equal(mp.mma_probe(a, b, 8), got))
+        tn, split = mp.plan(m, k, n)
+        items = (m // 64) * (n // tn) * split
         flops = 2 * m * k * n * PROBE_REPS
         ms = cuda_ms(lambda: mp.mma_probe(a, b, PROBE_REPS), iters=5, warmup=1)
         cublas_ms = cuda_ms(lambda: torch.mm(a, b))
-        rows[name] = {"shape": f"M{m} K{k} N{n}", "relerr_reps8": rel_err(got, want),
-                      "blocks": (m // mp.TILE) * (n // mp.TILE), "ms": ms,
+        rows[name] = {"shape": f"M{m} K{k} N{n}", **checks, "same_bits_twice": same,
+                      "tile": f"64x{tn}", "split": split, "slice_k": k // split,
+                      "work_items": items, "blocks_per_sm": per_sm(tn, k // split // 16),
+                      "sms_used": min(items, sms), "sms": sms, "ms": ms,
                       "tflops": flops / ms / 1e9, "share_of_989": flops / ms / 1e9 / 989,
                       "cublas_ms_one_product": cublas_ms,
                       "cublas_tflops": 2 * m * k * n / cublas_ms / 1e9}
         emit({"phase": "mma_probe", "name": name, "reps": PROBE_REPS, **rows[name]})
-        if rows[name]["relerr_reps8"] > 1e-5:
-            raise AssertionError(f"mma_probe disagrees with its plain version at {name}")
+        if max(checks.values()) > 1e-5 or not same:
+            raise AssertionError(f"mma_probe disagrees with its plain version at {name}: "
+                                 f"{checks}, same bits twice {same}")
     record["mma_probe"] = rows
 
     # The probe's own path: each shape once at reps 1024.
@@ -2536,10 +2580,17 @@ TC_KERNELS = {"flash_fwd": ("fwd_tc_kernel",), "flash_bwd": ("dq_tc_kernel", "dk
               "quant_attn_fwd": ("quant_attn_fwd_tc_kernel",),
               "fused_qattn": ("fused_qattn_tc_kernel",),
               "ring_attn": ("fwd_tc_kernel", "dq_tc_kernel", "dkv_tc_kernel"),
-              "flash_decode": ("flash_decode_tc_kernel",)}
+              "flash_decode": ("flash_decode_tc_kernel",),
+              "mma_probe": ("mma_probe_wg_kernel",)}
 # The tensor-core instructions (SASS mnemonics) each library's kernels must
-# hold: HMMA for bf16 (and tf32) mma.sync, IMMA for int8, DMMA for f64.
-TC_OPS = {"quant_attn_fwd": ("HMMA", "IMMA"), "fused_qattn": ("DMMA", "HMMA")}
+# hold: HMMA for bf16 (and tf32) mma.sync, IMMA for int8, DMMA for f64,
+# HGMMA for the warpgroup products (wgmma).
+TC_OPS = {"quant_attn_fwd": ("HMMA", "IMMA"), "fused_qattn": ("DMMA", "HMMA"),
+          "mma_probe": ("HGMMA",)}
+# Kernels on the CUDA cores whose registers and spills are listed beside
+# the tensor-core ones: library -> the stems of their function names.
+LISTED_KERNELS = {"quant_rows": ("quant_rows_vec_kernel",),
+                  "mma_probe": ("mma_probe_merge_kernel",)}
 # The fp32 dense forward and backward, the fp32 dbias and the fp32 ring
 # steps: their 3xTF32 instantiations (product policy Tf32x3Mma) of every
 # stem must hold TF32 HMMA (at D 64, 128 and 256 alike where the head dim
@@ -2553,7 +2604,8 @@ SIMT_GONE = {"flash_fwd": ("flash_fwd_kernel",),
              "flash_bwd": ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"),
              "flash_dbias": ("flash_dbias_kernel",),
              "ring_attn": ("ring_fwd_step_kernel", "ring_bwd_dq_kernel", "ring_bwd_dkv_kernel"),
-             "flash_decode": ("flash_decode_kernel", "flash_decode_merge_kernel")}
+             "flash_decode": ("flash_decode_kernel", "flash_decode_merge_kernel"),
+             "mma_probe": ("mma_probe_kernel",)}
 # Kernels that must exist and spill nothing: (library, stem, a substring of
 # the mangled name) -> what it is. fused_qattn's D 256 instantiations
 # (its bf16-Q-tile layout), the fp32 dbias, and the bf16 instantiations of
@@ -2580,17 +2632,22 @@ def ptxas_resources(log):
         m = re.search(r"Used (\d+) registers", ln)
         if fn and m:
             res[fn]["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", ln)
+        if fn and m:
+            res[fn]["static_smem_bytes"] = int(m.group(1))
     return res
 
 
 def phase_sass(record, report):
-    """Count the HMMA (or, per TC_OPS, IMMA and DMMA) tensor-core instructions of
-    each tensor-core kernel in its library's SASS (cuobjdump -sass); raise
-    if a kernel has none of one of them, if an fp32 (3xTF32) instantiation
-    of the dense forward or backward or of a ring kernel has no TF32 HMMA
-    (or one of the D 64, 128 and 256 instantiations of a stem is missing),
-    or if a CUDA-core kernel that a tensor-core one replaced is left.
-    With each kernel its registers and spills (ptxas -v, when this run built
+    """Count the HMMA (or, per TC_OPS, IMMA, DMMA and HGMMA) tensor-core
+    instructions of each tensor-core kernel in its library's SASS (cuobjdump
+    -sass); raise if a kernel has none of one of them, if an fp32 (3xTF32)
+    instantiation of the dense forward or backward or of a ring kernel has
+    no TF32 HMMA (or one of the D 64, 128 and 256 instantiations of a stem
+    is missing), if a CUDA-core kernel that a tensor-core one replaced is
+    left, or if ptxas reports that it serialized the probe's wgmma
+    pipeline. With each kernel (and the CUDA-core kernels of
+    LISTED_KERNELS) its registers and spills (ptxas -v, when this run built
     the library) and the dynamic shared memory it launches with."""
     import ctypes
     import re
@@ -2645,6 +2702,16 @@ def phase_sass(record, report):
             for f, r in ptxas_resources(report[lib]["ptxas"]).items():
                 if f"{lib}:{f}" in kernels:
                     kernels[f"{lib}:{f}"].update(r)
+    for lib, stems in LISTED_KERNELS.items():
+        if lib in report:
+            for f, r in ptxas_resources(report[lib]["ptxas"]).items():
+                stem = next((st for st in stems if st in f), None)
+                if stem:
+                    kernels[f"{lib}:{f}"] = {"library": lib, "stem": stem, **r}
+    serialized = [ln.strip() for ln in report.get("mma_probe", {}).get("ptxas", "").splitlines()
+                  if re.search(r"wgmma.*serialized", ln)]
+    if serialized:
+        raise AssertionError(f"ptxas serialized the probe's wgmma pipeline: {serialized[:2]}")
     for (lib, stem, part), what in NO_SPILL.items():
         found = [f for f, r in kernels.items() if r["library"] == lib and r["stem"] == stem
                  and part in f]
@@ -2665,6 +2732,13 @@ def phase_sass(record, report):
                              (ctypes.c_int, ctypes.c_int, ctypes.c_int))
     rfwd = _kernels.function("ring_attn", "umfa_ring_fwd_smem_bytes", (ctypes.c_int, ctypes.c_int))
     fdec = _kernels.function("flash_decode", "umfa_flash_decode_smem_bytes", (ctypes.c_int,) * 4)
+    probe = _kernels.function("mma_probe", "umfa_mma_probe_smem_bytes", (ctypes.c_int,) * 2)
+    from umfa_tpu_torch.utils import mma_probe as mp
+
+    for name, (m, k, n) in mp.SHAPES.items():
+        tn, split = mp.plan(m, k, n)
+        smem[f"mma_probe {name} 64x{tn} slice K {k // split}"] = probe(tn, k // split // 16)
+    smem["quant_rows (static only)"] = 0
     for d in (64, 128, 256):
         smem[f"flash_fwd bf16 D{d}"] = fwd(d, 1)
         smem[f"flash_fwd fp32 D{d}"] = fwd(d, 0)
@@ -2755,7 +2829,17 @@ DESIGN = {
                    "and the cc row in three cp.async buffers two tiles ahead, K̃ as double once "
                    "a block at D 64; two passes: QKᵀ alone for the exact row max, then P·V); "
                    "the means, K/V quantize and cc-row kernels on the CUDA cores",
-    "quant_rows": "CUDA cores: one warp a row, elementwise",
+    "quant_rows": "CUDA cores, a bytes-bound pass (quant_rows_vec_kernel: a row over the fewest "
+                  "lanes that hold it at 16 elements a lane in 16-byte bf16 rows, 8 otherwise: "
+                  "4 lanes at D 64 bf16, so a warp has 8 rows at once; 16-byte loads, narrower "
+                  "where D or an address is not 16-byte aligned; the next row group loaded "
+                  "while one is quantized; each warp a contiguous run of rows, the channel "
+                  "mean held while the head does not change; a grid of the blocks the card "
+                  "holds; the absmax a shuffle reduction over the row's lanes, codes by the "
+                  "IEEE-exact quotient from the row's rounded reciprocal and two FMA "
+                  "corrections, rounded and clipped on the FP32 pipes; VEC-byte code stores, "
+                  "INT4 packed through shared memory; the rotation a Walsh-Hadamard butterfly "
+                  "in double over the row's registers and lanes)",
     "ring_fwd_step": "tensor cores, the forward body of flash_fwd (csrc/fwd_tc.cuh fwd_tc_kernel) "
                      "in ring mode: the step's global-position mask reduced on the host to the "
                      "band plus a first visible query row and a key limit, hidden tiles skipped; "
@@ -2783,7 +2867,13 @@ DESIGN = {
                     "q: mma.sync m16n8k8 tf32 with q and p·vs split in two; the warps, then the "
                     "splits (over distributed shared memory, in rank order) merged inside the "
                     "launch, deterministic)",
-    "mma_probe": "tensor cores, mma.sync m16n8k16 bf16->fp32",
+    "mma_probe": "tensor cores, wgmma.mma_async m64nNk16 bf16->fp32 (mma_probe_wg_kernel: one "
+                 "warpgroup a work item, a 64 x 128 output tile (64 x 64 at N 64) over a K slice "
+                 "of 16-128 columns (256 at N 64), K split by the host's plan to >= 256 items, "
+                 "two an SM; a and b^T stored once in 128-byte swizzled shared-memory tiles "
+                 "(csrc/wgmma.cuh); rep 0 A from shared memory (SS), every later rep A from "
+                 "registers (RS) with eps added in place, one group a rep retired before eps "
+                 "is read; the K slices' partials summed in split order by a second kernel)",
 }
 
 

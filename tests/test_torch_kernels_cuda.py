@@ -23,6 +23,8 @@ The fp32 dQ, dK/dV and dbias (3xTF32 on the tensor cores) are also held to
 5e-6, a twentieth of their gate, where one TF32 pass would sit near 1e-3.
 """
 
+import math
+
 import pytest
 import torch
 
@@ -565,14 +567,20 @@ def _codes_close(a, b):
     return diff.max().item() <= 1 and (diff == 0).float().mean().item() >= 0.999
 
 
-@pytest.mark.parametrize("precision", [Precision.INT8, Precision.INT4])
-@pytest.mark.parametrize("hadamard", [False, True])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [32, 64, 128])
-def test_quant_rows_kernel_matches_plain(dev, precision, hadamard, dtype, d):
-    g = torch.Generator().manual_seed(4)
-    x = (torch.randn((2, 3, 333, d), generator=g) + 0.3).to(dev, dtype)
-    mean = x.float().mean(dim=2, keepdim=True)
+def _quant_rows_cases(ds, dtypes):
+    """(precision, hadamard, dtype, d) the quantizer takes: INT4 needs an
+    even head_dim, the rotation a power of two."""
+    for d in ds:
+        for dtype in dtypes:
+            for hadamard in (False, True):
+                for precision in (Precision.INT8, Precision.INT4):
+                    if (precision == Precision.INT4 and d % 2) or (hadamard and d & (d - 1)):
+                        continue
+                    yield pytest.param(precision, hadamard, dtype, d,
+                                       id=f"{d}-{str(dtype)[6:]}-{hadamard}-{precision.value}")
+
+
+def _check_quant_rows(x, mean, precision, hadamard):
     n0 = _kernels.launches["quant_rows"]
     got = quantize_rows_fused(x, mean, precision=precision, hadamard=hadamard)
     torch.cuda.synchronize()
@@ -584,6 +592,50 @@ def test_quant_rows_kernel_matches_plain(dev, precision, hadamard, dtype, d):
         assert rel_err(got.scales, want.scales) <= 1e-6
     else:
         assert torch.equal(got.values, want.values) and torch.equal(got.scales, want.scales)
+
+
+def _rows_input(shape, dtype, dev, offset=0, seed=4):
+    """Seeded rows (+0.3, so the mean matters), as a view `offset` elements
+    into its storage."""
+    g = torch.Generator().manual_seed(seed)
+    flat = (torch.randn((math.prod(shape) + offset,), generator=g) + 0.3).to(dev, dtype)
+    return flat[offset:].view(shape)
+
+
+# Every D from 1 to 256 the kernel's load widths and lane groups differ at:
+# 16-byte loads (D % 8 == 0 in bf16, % 4 in fp32: 32, 48, 64, 72, 128, 256)
+# and element loads (1, 255), one lane a row (1) up to 32 (255, 256); fp16
+# is read as fp32.
+@pytest.mark.parametrize("precision,hadamard,dtype,d", list(_quant_rows_cases(
+    (1, 32, 48, 64, 72, 128, 255, 256), (torch.float32, torch.bfloat16, torch.float16))))
+def test_quant_rows_kernel_matches_plain(dev, precision, hadamard, dtype, d):
+    x = _rows_input((2, 3, 333, d), dtype, dev)
+    mean = x.float().mean(dim=2, keepdim=True)
+    _check_quant_rows(x, mean, precision, hadamard)
+
+
+@pytest.mark.parametrize("precision,hadamard,dtype,d", list(_quant_rows_cases(
+    (1, 64, 72, 255, 256), (torch.float32, torch.bfloat16))))
+def test_quant_rows_kernel_without_mean(dev, precision, hadamard, dtype, d):
+    _check_quant_rows(_rows_input((2, 3, 333, d), dtype, dev), None, precision, hadamard)
+
+
+# Storage offsets (in elements) that break the rows' 16-byte alignment: the
+# narrower-load variants (8-, 4- and 2-byte and element loads), with and
+# without the mean, which is passed one float off its own alignment too.
+@pytest.mark.parametrize("dtype,offset", [(torch.float32, 1), (torch.float32, 2),
+                                          (torch.float32, 3), (torch.bfloat16, 1),
+                                          (torch.bfloat16, 2), (torch.bfloat16, 4)])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_quant_rows_kernel_unaligned(dev, dtype, offset, d):
+    x = _rows_input((2, 3, 333, d), dtype, dev, offset=offset)
+    assert x.data_ptr() % 16
+    mean = torch.empty((2 * 3 * d + 1,), device=dev)[1:].view(2, 3, 1, d)
+    mean.copy_(x.float().mean(dim=2, keepdim=True))
+    for precision in (Precision.INT8, Precision.INT4):
+        for hadamard in (False, True):
+            _check_quant_rows(x, mean, precision, hadamard)
+            _check_quant_rows(x, None, precision, hadamard)
 
 
 FUSED_KERNEL_CASES = [
@@ -1326,14 +1378,47 @@ def test_ring_kernels_refuse_what_they_do_not_take(dev):
 
 @pytest.mark.parametrize("name", sorted(mp.SHAPES))
 def test_mma_probe_kernel_matches_plain(dev, name):
+    # The reference's shapes, each split in K by the plan (4 or 8 slices).
     m, k, n = mp.SHAPES[name]
+    assert mp.plan(m, k, n)[1] > 1
+    _check_probe(dev, m, k, n)
     g = torch.Generator().manual_seed(0)
     a = torch.randn((m, k), generator=g).to(dev, torch.bfloat16)
     b = (torch.randn((k, n), generator=g) * 1e-3).to(dev, torch.bfloat16)
-    n0 = _kernels.launches["mma_probe"]
-    got = mp.mma_probe(a, b, 8)
-    torch.cuda.synchronize()
-    assert _kernels.launches["mma_probe"] == n0 + 1
-    assert got.dtype == torch.float32 and rel_err(got, mp.mma_probe_plain(a, b, 8)) <= 1e-5
-    with pytest.raises(ValueError):
-        mp.mma_probe(a[:100], b, 8)  # M not a multiple of 64
+    before = dict(_kernels.launches)
+    flat = torch.empty(a.numel() + 1, dtype=torch.bfloat16, device=dev)
+    for args in ((a[:100], b, 8),                        # M not a multiple of 64
+                 (a[:, :40].contiguous(), b[:40], 8),    # K not a multiple of 16
+                 (a, b[:, :32].contiguous(), 8),         # N not a multiple of 64
+                 (flat[1:].view(m, k), b, 8),            # a not 16-byte aligned
+                 (a, b, 0)):                             # no reps
+        with pytest.raises(ValueError):
+            mp.mma_probe(*args)
+    assert dict(_kernels.launches) == before
+
+
+def _check_probe(dev, m, k, n):
+    """Reps 1 and 8 against the plain loop (fp32 relerr 1e-5: bf16 products
+    are exact in fp32, the two sum them in another order), reps 3 (the odd
+    tail of the loop), one launch a call, and the same bits twice."""
+    g = torch.Generator().manual_seed(0)
+    a = torch.randn((m, k), generator=g).to(dev, torch.bfloat16)
+    b = (torch.randn((k, n), generator=g) * 1e-3).to(dev, torch.bfloat16)
+    for reps in (1, 3, 8):
+        n0 = _kernels.launches["mma_probe"]
+        got = mp.mma_probe(a, b, reps)
+        torch.cuda.synchronize()
+        assert _kernels.launches["mma_probe"] == n0 + 1
+        assert got.dtype == torch.float32 and got.shape == (m, n)
+        assert rel_err(got, mp.mma_probe_plain(a, b, reps)) <= 1e-5
+    assert torch.equal(mp.mma_probe(a, b, 8), got)
+
+
+# Plans beside the reference's: 64-wide tiles with 16 steps a slice (K
+# 1024, N 64: split 4), 64-wide tiles split 32 (N 192), a split of 3 (K
+# 48), one slice of one step (K 16), a tile that alone fills nothing, and
+# many tiles without a split.
+@pytest.mark.parametrize("m,k,n", [(4096, 1024, 64), (256, 1024, 192), (64, 48, 64),
+                                   (128, 16, 128), (64, 64, 128), (8192, 128, 256)])
+def test_mma_probe_kernel_other_plans(dev, m, k, n):
+    _check_probe(dev, m, k, n)

@@ -28,8 +28,20 @@ from umfa_tpu_torch.ops.hadamard import hadamard_matrix
 from umfa_tpu_torch.ops.quant import QuantizedTensor, _qmax, pack_int4
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)
+_ARGTYPES = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P)
 _IN_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def load_width(d: int, itemsize: int, x_ptr: int, mean_ptr: Optional[int] = None) -> int:
+    """Elements of x one lane of the kernel loads at once: the widest of 16
+    bytes, 8, 4, 2 or one element that divides the row length d and that
+    x's address (itemsize bytes an element) and the fp32 mean's are aligned
+    to (the mean is read in pieces of up to 16 bytes)."""
+    vec = 16 // itemsize
+    while vec > 1 and (d % vec or x_ptr % (vec * itemsize)
+                       or (mean_ptr is not None and mean_ptr % (4 * min(vec, 4)))):
+        vec //= 2
+    return vec
 
 
 def rotate(x: torch.Tensor) -> torch.Tensor:
@@ -122,6 +134,8 @@ def _launch(x, mean, precision, hadamard) -> QuantizedTensor:
             err = fn(x32.data_ptr(), None if mean32 is None else mean32.data_ptr(),
                      vals.data_ptr(), scales.data_ptr(), b * h, s, d,
                      _qmax(precision), int(int4), int(hadamard), _IN_CODE[x32.dtype],
+                     load_width(d, x32.element_size(), x32.data_ptr(),
+                                None if mean32 is None else mean32.data_ptr()),
                      torch.cuda.current_stream(dev).cuda_stream)
         _kernels.check("quant_rows", err)
     return _result(x, vals, scales, precision)
