@@ -100,29 +100,40 @@ Phases, one JSON line each:
      quant_bwd_dkv) against their plain versions at B2 Hq16 Hkv8 (causal
      1024, odd 777, window (128, 0), a shared bias, a left-only window with
      rows that see no key, D 32/64/128/256, fp32 and bf16, the int8 and
-     int4 recipes, smoothing off, a dense Q; the backward with 64 masked
-     rows and a nonzero dlse on the kernel's residuals; fused_qattn's LSE
-     held to 1e-5 at causal 1024, q ~ N(0, 3), D 64 and 256: the scores
-     keep their bits); then each timed at the training shape (B8, causal
-     4096, D 64, bf16, int8 recipe; fused_qattn also under int4, and at
-     D 256 under int8 beside the two-pass route's forward on the same
-     inputs; median, min and max of 10) beside its plain version, its
+     int4 recipes, smoothing off, a dense Q, and BLOCK and ASYMMETRIC
+     (int8, int4, both, a dense Q; zero points at most one apart); the
+     backward with 64 masked rows and a nonzero dlse on the kernel's
+     residuals (BLOCK's too); fused_qattn's LSE held to 1e-5 at causal
+     1024, q ~ N(0, 3), D 64 and 256, also under BLOCK and ASYMMETRIC: the
+     scores keep their bits; quant_attn_fwd under INT4 with the corr row,
+     ASYMMETRIC int8 and both, D 64/128/256/66, at its INT8 gates); then
+     each timed at the training shape (B8, causal 4096, D 64, bf16, int8
+     recipe; fused_qattn also under int4, int8 and int4 BLOCK, int8 and
+     int4 ASYMMETRIC, and at D 256 under int8 beside the two-pass route's
+     forward on the same inputs; quant_attn_fwd on the two-pass route's
+     operands under int8, the int4 recipe and ASYMMETRIC int8; median, min
+     and max of 10) beside its plain version, its
      bound, TFLOP/s and share of the bound (fused_qattn also its FP64
      floor, both passes' QKᵀ in double at the FP64 tensor rate, and its
      worst LSE abs error, held to 1e-5) and, for the backward, the flash
      SDPA backward on the dequantized operands (a yardstick only);
   9. quantized training at full width (the same model and batch, lr
-     TRAIN_LR): the int8 recipe for a warm-up and three SGD steps, int4 and
-     int8-qdense for a warm-up and one each; each step with a finite loss
-     below the step before's and exactly 8 fused_qattn launches and 8 of
-     each backward kernel of its route (quant_bwd_dq/dkv, or flash_bwd_dq/
-     dkv for the dense Q), none of the others;
+     TRAIN_LR): the int8 recipe for a warm-up and three SGD steps, int4,
+     int8-qdense, int8 and int4 with BLOCK scales and int8 ASYMMETRIC for
+     a warm-up and one each; each step with a finite loss below the step
+     before's and exactly 8 fused_qattn launches and 8 of each backward
+     kernel of its route (quant_bwd_dq/dkv, or flash_bwd_dq/dkv for the
+     dense Q and ASYMMETRIC), none of the others;
  10. `attention()` under int8 through the two-pass route (quant_rows three
      times, quant_attn_fwd once, then the backward kernels) with
      UMFA_DISABLE_FUSED_QUANT=1 (at D 64 and 63: codes zero-padded to 64
-     for quant_attn_fwd) and with causal Sq 512 against Sk 1024, a
-     small quantized model's loss and gradients, and quantized `attention()`
-     with a bias gradient, each on the card against the CPU path;
+     for quant_attn_fwd) and with causal Sq 512 against Sk 1024, the int4
+     recipe (INT4 Q/K and the corr row), ASYMMETRIC int8 and BLOCK int8 on
+     the two-pass route, set_quantization_mode("int8", "block") and HYBRID
+     on data that picks BLOCK on the single-launch route, each with its
+     exact launches; a small quantized model's loss and gradients (int8,
+     int4, int8 BLOCK, int8 ASYMMETRIC), and quantized `attention()` with a
+     bias gradient, each on the card against the CPU path;
  11. the ring kernels (`ring_fwd_step`, `ring_bwd_dkv`, `ring_bwd_dq`): the
      ring over LocalRing with its kernels against the same ring with their
      plain versions at B2, Hq16/Hkv8 and Hq = Hkv = 8, S 1024 over 4 and 2
@@ -1518,17 +1529,40 @@ QRECIPES = ("int8", "int4", "int8_nosmooth", "qdense")
 
 def recipe_kwargs(name):
     """fused_quantize_attend's switches for a recipe (the reference's
-    QuantizationConfig.from_mode_string, and smoothing off)."""
-    from umfa_tpu_torch.engine.config import Precision
+    QuantizationConfig.from_mode_string, and smoothing off); "_block" and
+    "_asym" after a recipe's name add BLOCK scales (the default groups of
+    128 Q and 64 K/V rows) and ASYMMETRIC quantization."""
+    from umfa_tpu_torch.engine.config import Precision, QuantMode, QuantStrategy
 
     i8, i4, bf = Precision.INT8, Precision.INT4, Precision.BF16
-    return {
+    base, *extra = name.split("_")
+    kw = {
         "int8": dict(q_precision=i8, k_precision=i8, v_precision=i8, smooth=True, smooth_q=False),
         "int4": dict(q_precision=i4, k_precision=i4, v_precision=i8, smooth=True, smooth_q=True,
                      hadamard=True),
-        "int8_nosmooth": dict(q_precision=i8, k_precision=i8, v_precision=i8, smooth=False),
         "qdense": dict(q_precision=bf, k_precision=i8, v_precision=i8, smooth=True),
-    }[name]
+    }[base]
+    for e in extra:
+        kw.update({"nosmooth": dict(smooth=False), "smoothq": dict(smooth_q=True),
+                   "block": dict(mode=QuantMode.BLOCK),
+                   "asym": dict(strategy=QuantStrategy.ASYMMETRIC)}[e])
+    return kw
+
+
+def quant_config(recipe):
+    """The QuantizationConfig of a training recipe: a mode string of the
+    reference ("int8", "int4", "int8-qdense"), "<precision>-block", or
+    "<precision>-asym" (that recipe, ASYMMETRIC)."""
+    import dataclasses as dc
+
+    from umfa_tpu_torch.engine.config import QuantizationConfig, QuantStrategy
+
+    if recipe.endswith("-asym"):
+        return dc.replace(QuantizationConfig.from_mode_string(recipe[:-5]),
+                          strategy=QuantStrategy.ASYMMETRIC)
+    if recipe.endswith("-block"):
+        return QuantizationConfig.from_mode_string(recipe[:-6], "block")
+    return QuantizationConfig.from_mode_string(recipe)
 
 
 def codes_close(a, b):
@@ -1609,6 +1643,14 @@ def phase_quant_kernels(record):
         ("qdense_causal_1024", 1024, 1024, 64, "qdense", dict(causal=True)),
         ("int8_d256_causal", 1024, 1024, 256, "int8", dict(causal=True)),
         ("int4_d256_window_128_0", 777, 777, 256, "int4", dict(window=(128, 0))),
+        # BLOCK and ASYMMETRIC: every operand through the pre-pass, Q read
+        # as bf16 by the attention; odd lengths leave the last groups short.
+        ("int8_block_causal_1024", 1024, 1024, 64, "int8_block", dict(causal=True)),
+        ("int4_block_window_777_d128", 777, 777, 128, "int4_block", dict(window=(128, 0))),
+        ("int8_asym_causal_1024", 1024, 1024, 64, "int8_asym", dict(causal=True)),
+        ("int4_asym_causal_777_d256", 777, 777, 256, "int4_asym", dict(causal=True)),
+        ("int8_asym_block_bias_512", 512, 512, 64, "int8_smoothq_asym_block", dict(bias=True)),
+        ("qdense_asym_causal_1024", 1024, 1024, 64, "qdense_asym", dict(causal=True)),
     ]
     bwd_tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
     for name, sq, sk, d, recipe, kw in cases:
@@ -1638,11 +1680,15 @@ def phase_quant_kernels(record):
             res["ok"] = (res["relerr_out"] <= 1e-3 and res["max_abs_lse"] <= 1e-4
                          and res["empty_rows_exact"] and res["codes_close"]
                          and res["relerr_means"] <= 1e-6 and res["finite"])
+            for a, b_ in zip(got[2:5], want[2:5]):
+                if a is not None and a.zero_points is not None:
+                    diff = (a.zero_points - b_.zero_points).abs()
+                    res["ok"] = res["ok"] and int(diff.max()) <= 1
             worst["fused_qattn"] = max(worst["fused_qattn"], res["max_abs_out"])
             results.append(res)
             emit({"phase": "kernel_check", **res})
-            if recipe == "qdense":
-                continue
+            if recipe.startswith("qdense") or "asym" in recipe:
+                continue  # the dense backward's (rows 2-3), checked in phase 4
             # The STE backward on the kernel's residuals, with 64 rows of
             # LSE -1e30 (no visible key) and a nonzero dlse.
             out, lse, qt_q, qt_k, qt_v, qm, vm = got
@@ -1671,22 +1717,50 @@ def phase_quant_kernels(record):
             del got, want, gb, wb, args
     # The score bits: causal S 1024 with q ~ N(0, 3) (short causal rows,
     # where fp32 score sums in another order flip bf16(P)), the LSE held to
-    # 1e-5, at D 64 and 256 (256 products a score, still exact in double).
-    for d in (64, 256):
+    # 1e-5, at D 64 and 256 (256 products a score, still exact in double),
+    # also under BLOCK and ASYMMETRIC (code − zp spans up to 256 steps).
+    for d, recipe in ((64, "int8"), (256, "int8"), (64, "int8_block"), (64, "int8_asym"),
+                      (256, "int4_asym")):
         q = (3 * torch.randn((B_CHECK, HQ, 1024, d), generator=gen)).to(dev, torch.bfloat16)
         k, v = randn((B_CHECK, HKV, 1024, d), torch.bfloat16), randn((B_CHECK, HKV, 1024, d),
                                                                      torch.bfloat16)
-        fkw = dict(recipe_kwargs("int8"), causal=True)
+        fkw = dict(recipe_kwargs(recipe), causal=True)
         got = fused_quantize_attend(q, k, v, **fkw)
         torch.cuda.synchronize()
         want = fused_quantize_attend_plain(q, k, v, **fkw)
-        res = {"case": f"fused_qattn/int8/bfloat16/score_bits_d{d}", "tol_lse": 1e-5,
+        res = {"case": f"fused_qattn/{recipe}/bfloat16/score_bits_d{d}", "tol_lse": 1e-5,
                "max_abs_lse": float((got[1] - want[1]).abs().max()),
                "relerr_out": rel_err(got[0], want[0])}
         res["ok"] = res["max_abs_lse"] <= 1e-5 and res["relerr_out"] <= 1e-3
         results.append(res)
         emit({"phase": "kernel_check", **res})
         del q, k, v, got, want
+    # Row 5's INT4 operands (unpacked while staged), the Q-mean corr row and
+    # ASYMMETRIC zero points, against the plain version at the INT8 gates
+    # (out relerr 1e-3, LSE 1e-4), D 64, 128, 256 and 66 (INT4 unpacked and
+    # zero-padded to 80 by the wrapper).
+    from umfa_tpu_torch.engine.config import QuantMode, QuantStrategy
+    from umfa_tpu_torch.ops.quant import quantize
+
+    worst["quant_attn_fwd"] = 0.0
+    i4, i8 = Precision.INT4, Precision.INT8
+    for d in (64, 128, 256, 66):
+        for name, precs, strategy, corr_on in (
+                ("int4_qk_corr", (i4, i4, i8), QuantStrategy.SYMMETRIC, True),
+                ("int8_asym", (i8, i8, i8), QuantStrategy.ASYMMETRIC, False),
+                ("int4_asym_corr", (i4, i4, i8), QuantStrategy.ASYMMETRIC, True)):
+            xs = (randn((B_CHECK, HQ, 1024, d)), randn((B_CHECK, HKV, 1024, d), offset=0.4),
+                  randn((B_CHECK, HKV, 1024, d), offset=0.2))
+            qts = [quantize(x, pr, QuantMode.ROW, strategy) for x, pr in zip(xs, precs)]
+            corr = randn((B_CHECK, HQ, 1, 1024)) if corr_on else None
+            got = qa.quantized_attention_forward(*qts, None, corr, causal=True)
+            torch.cuda.synchronize()
+            want = qa.quantized_attention_forward_plain(*qts, None, corr, causal=True)
+            res = compare(f"quant_attn_fwd/{name}/d{d}", got, want, 1e-3, 1e-4)
+            worst["quant_attn_fwd"] = max(worst["quant_attn_fwd"], res["max_abs_out"])
+            results.append(res)
+            emit({"phase": "kernel_check", **res})
+            del xs, qts, got, want
     record["quant_kernel_checks"] = results
     bad = [r["case"] for r in results if not r["ok"]]
     if bad:
@@ -1712,7 +1786,9 @@ def phase_quant_kernels(record):
                  "codes_close": all(codes_close(a, b_) for a, b_ in zip(got[2:5], want[2:5]))}
         worst["fused_qattn"] = max(worst["fused_qattn"],
                                    float((got[0].float() - want[0].float()).abs().max()))
-        res_bytes = sum(t.values.numel() + 4 * t.scales.numel() for t in got[2:5])
+        res_bytes = sum(t.values.numel() + 4 * t.scales.numel()
+                        + (0 if t.zero_points is None else 4 * t.zero_points.numel())
+                        for t in got[2:5])
         res_bytes += sum(4 * t.numel() for t in got[5:] if t is not None)
         del got, want
         torch.cuda.empty_cache()
@@ -1739,6 +1815,35 @@ def phase_quant_kernels(record):
 
     timing["fused_qattn"] = fused_timing("int8", q, k, v)
     timing["fused_qattn_int4"] = fused_timing("int4", q, k, v)
+    for recipe in ("int8_block", "int4_block", "int8_asym", "int4_asym"):
+        timing[f"fused_qattn_{recipe}"] = fused_timing(recipe, q, k, v)
+    # quant_attn_fwd on the two-pass route's operands at the training shape,
+    # each from the two-pass quantizer: INT8 (symmetric ROW, the same
+    # kernel's common form, for comparison in this call), the int4 recipe's
+    # (Q and K INT4 with the rotation, V INT8, the Q-mean corr row) and
+    # ASYMMETRIC INT8 (zero points and row sums, V's scale on P).
+    for name, recipe in (("quant_attn_fwd_int8", "int8"), ("quant_attn_fwd_int4_corr", "int4"),
+                         ("quant_attn_fwd_asym", "int8-asym")):
+        qt_q, qt_k, qt_v, _, _, corr = qa._quantize_operands(q, k, v, quant_config(recipe))
+        qts = (qt_q, qt_k, qt_v)
+        qk = lambda qts=qts, corr=corr: qa.quantized_attention_forward(  # noqa: E731
+            *qts, None, corr, causal=True)
+        qp = lambda qts=qts, corr=corr: qa.quantized_attention_forward_plain(  # noqa: E731
+            *qts, None, corr, causal=True)
+        res = compare(name, qk(), qp(), 1e-3, 1e-4)
+        int_ops = bf16_flops = 2 * D * pairs
+        nbytes = (sum(t.values.numel() + 4 * t.scales.numel() for t in qts)
+                  + sum(4 * t.zero_points.numel() + 4 * t.row_sums.numel()
+                        for t in qts if t.zero_points is not None and t.row_sums is not None)
+                  + (0 if corr is None else 4 * corr.numel()) + 4 * q.numel() + 4 * b * HQ * s)
+        timing[name] = dict(
+            **cuda_stats(qk), plain_ms=cuda_ms(qp, iters=3, warmup=1),
+            flops=int_ops + bf16_flops, int8_ops=int_ops, bf16_flops=bf16_flops, bytes=nbytes,
+            ops_ms=(int_ops / H100_INT8_OPS + bf16_flops / H100_BF16_FLOPS) * 1e3,
+            bytes_ms=nbytes / H100_HBM_BYTES * 1e3, check=res, ok=res["ok"], library_ms=None,
+            library="none: no single PyTorch call computes int8 attention")
+        del qts, qt_q, qt_k, qt_v, corr
+        torch.cuda.empty_cache()
     # At D 256, beside the FP64 floor, the two-pass route's forward on the
     # same inputs (quant_rows three times, then quant_attn_fwd; true means,
     # not tile-0 estimates: other numbers, a yardstick).
@@ -1842,42 +1947,50 @@ def phase_quant_kernels(record):
                         "fused_qattn_d256": shape.replace(f"D{D}", "D256")}.get(name, shape), **t})
     record["quant_kernel_timing"] = timing
     t256 = timing["fused_qattn_d256"]
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     timing["fused_qattn"]["variants"] = [
         {"shape": shape.replace(f"D{D}", "D256") + ", int8 recipe",
-         **{k2: t256[k2] for k2 in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                                     "fp64_floor_ms", "two_pass_ms")}}]
+         **{k2: t256[k2] for k2 in keys + ("fp64_floor_ms", "two_pass_ms")}}] + [
+        {"shape": f"{shape}, {recipe} recipe",
+         **{k2: timing[f"fused_qattn_{recipe}"][k2] for k2 in keys + ("fp64_floor_ms",)}}
+        for recipe in ("int4", "int8_block", "int4_block", "int8_asym", "int4_asym")]
+    # Row 5's variants, beside its prefill line (phase 3) in the kernels line.
+    timing["quant_attn_fwd_variants"] = [
+        {"shape": f"{shape}, {name[15:]}", **{k2: timing[name][k2] for k2 in keys}}
+        for name in ("quant_attn_fwd_int8", "quant_attn_fwd_int4_corr", "quant_attn_fwd_asym")]
     return timing, worst
 
 
 def quant_step_want(recipe, depth):
     """Launches per quantized training step: one forward kernel and the two
-    backward kernels per layer, and nothing of the other routes."""
+    backward kernels per layer, and nothing of the other routes. A dense Q
+    and ASYMMETRIC residuals take the dense backward (fp32, 3xTF32)."""
     zero = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "quant_bwd_dq", "quant_bwd_dkv",
             "quant_rows", "quant_attn_fwd")
-    bwd = ("flash_bwd_dq", "flash_bwd_dkv") if recipe == "int8-qdense" else (
-        "quant_bwd_dq", "quant_bwd_dkv")
+    dense = recipe == "int8-qdense" or recipe.endswith("-asym")
+    bwd = ("flash_bwd_dq", "flash_bwd_dkv") if dense else ("quant_bwd_dq", "quant_bwd_dkv")
     return {k: depth if k in bwd else 0 for k in zero} | {"fused_qattn": depth}
 
 
 def phase_quant_training(record):
     """The full-width model trains with cfg.quantization: int8 (a warm-up and
-    three timed SGD steps), int4 and int8-qdense (a warm-up and one each:
-    a recipe's first step also pays its allocations and first launches,
-    300 ms more in one run)."""
+    three timed SGD steps), int4, int8-qdense, int8 and int4 with BLOCK
+    scales and int8 ASYMMETRIC (a warm-up and one each: a recipe's first
+    step also pays its allocations and first launches, 300 ms more in one
+    run)."""
     import torch
 
     from umfa_tpu_torch import _kernels
-    from umfa_tpu_torch.engine.config import QuantizationConfig
     from umfa_tpu_torch.models import gpt
 
     dev = torch.device("cuda")
     tokens = torch.randint(0, 32768, (B_TRAIN, S_TRAIN + 1),
                            generator=torch.Generator().manual_seed(5)).to(dev)
     out, path_counts = {}, []
-    for recipe, n_steps in (("int8", 4), ("int4", 2), ("int8-qdense", 2)):
+    for recipe, n_steps in (("int8", 4), ("int4", 2), ("int8-qdense", 2), ("int8-block", 2),
+                            ("int4-block", 2), ("int8-asym", 2)):
         cfg = gpt.GPTConfig(vocab=32768, dim=1024, num_heads=HQ, num_kv_heads=HKV, depth=8,
-                            max_seq=SK, dtype="bfloat16",
-                            quantization=QuantizationConfig.from_mode_string(recipe))
+                            max_seq=SK, dtype="bfloat16", quantization=quant_config(recipe))
         model = gpt.init_params(cfg, torch.Generator().manual_seed(0), device=dev)
         want = quant_step_want(recipe, cfg.depth)
         steps = []
@@ -1926,28 +2039,53 @@ def phase_quant_training(record):
 
 
 def phase_two_pass(record):
-    """attention() under int8 through the two-pass route (quant_rows three
-    times, quant_attn_fwd once, then the STE backward kernels), on the card
-    against the CPU path: with UMFA_DISABLE_FUSED_QUANT=1, and causal with
-    Sq 512 against Sk 1024."""
+    """attention() under a quantization mode, on the card against the CPU
+    path, with exact launches: int8 through the two-pass route (quant_rows
+    three times, quant_attn_fwd once, then the STE backward kernels), with
+    UMFA_DISABLE_FUSED_QUANT=1 (D 64 and 63) and causal with Sq 512 against
+    Sk 1024; on the two-pass route also the int4 recipe (INT4 Q and K, the
+    Q-mean corr row), ASYMMETRIC int8 (quantized by plain torch, as the
+    reference does; the dense fp32 backward) and BLOCK int8 (plain torch
+    quantizer, the quantized backward); then set_quantization_mode("int8",
+    "block") and HYBRID on data that picks BLOCK, both single-launch."""
+    import dataclasses as dc
+
     import torch
 
     import umfa_tpu_torch as ut
     from umfa_tpu_torch import _kernels
+    from umfa_tpu_torch.engine.config import QuantMode
     from umfa_tpu_torch.utils.testing import rel_err
 
     gen = torch.Generator().manual_seed(10)
     b = B_CHECK
-    calls = [("disable_fused_quant", 1024, {"UMFA_DISABLE_FUSED_QUANT": "1"}, D),
-             ("causal_sq512_sk1024", 512, {}, D),
-             # a head_dim that is not a multiple of 4: quant_attn_fwd on
-             # codes zero-padded to 64
-             ("disable_fused_quant_d63", 1024, {"UMFA_DISABLE_FUSED_QUANT": "1"}, 63)]
-    want_counts = {"quant_rows": 3, "quant_attn_fwd": 1, "quant_bwd_dq": 1, "quant_bwd_dkv": 1,
-                   "fused_qattn": 0}
+    two_pass = {"UMFA_DISABLE_FUSED_QUANT": "1"}
+    rows_q = {"quant_rows": 3, "quant_attn_fwd": 1, "quant_bwd_dq": 1, "quant_bwd_dkv": 1,
+              "fused_qattn": 0}
+    plain_q = dict(rows_q, quant_rows=0)
+    fused = {"fused_qattn": 1, "quant_bwd_dq": 1, "quant_bwd_dkv": 1, "quant_rows": 0,
+             "quant_attn_fwd": 0}
+    calls = [  # name, Sq, env, D, config, launches
+        ("disable_fused_quant", 1024, two_pass, D, "int8", rows_q),
+        ("causal_sq512_sk1024", 512, {}, D, "int8", rows_q),
+        # a head_dim that is not a multiple of 4: quant_attn_fwd on codes
+        # zero-padded to 64
+        ("disable_fused_quant_d63", 1024, two_pass, 63, "int8", rows_q),
+        ("two_pass_int4_recipe", 1024, two_pass, D, "int4", rows_q),
+        ("two_pass_int8_asym", 1024, two_pass, D, "int8-asym",
+         dict(plain_q, quant_bwd_dq=0, quant_bwd_dkv=0, flash_bwd_dq=1, flash_bwd_dkv=1)),
+        ("two_pass_int8_block", 1024, two_pass, D, "int8-block", plain_q),
+        ("fused_int8_block", 1024, {}, D, "int8-block", fused),
+        ("fused_hybrid_picks_block", 1024, {}, D, "hybrid", fused),
+    ]
     results, path_counts = [], []
-    for name, sq, env, d in calls:
+    for name, sq, env, d, recipe, want_counts in calls:
         q = torch.randn((b, HQ, sq, d), generator=gen)
+        if recipe == "hybrid":
+            q[:, :, 7] *= 1000.0  # one outlier row: HYBRID picks BLOCK
+            cfg = dc.replace(quant_config("int8"), mode=QuantMode.HYBRID)
+        else:
+            cfg = quant_config(recipe)
         k, v = torch.randn((b, HKV, 1024, d), generator=gen), torch.randn((b, HKV, 1024, d), generator=gen)
         w = torch.randn(q.shape, generator=gen)
         got = {}
@@ -1958,7 +2096,7 @@ def phase_two_pass(record):
                 if dev == "cuda":
                     torch.cuda.synchronize()
                     _kernels.reset_launch_counts()
-                with ut.use_quantization("int8"):
+                with ut.use_quantization(config=cfg):
                     o = ut.attention(*t, is_causal=True)
                 (o * w.to(dev)).sum().backward()
                 if dev == "cuda":
@@ -1971,7 +2109,7 @@ def phase_two_pass(record):
         errs = {n: rel_err(a, c) for n, a, c in zip(("out", "dq", "dk", "dv"), got["cuda"],
                                                      got["cpu"])}
         res = {"phase": "two_pass_route", "case": name, "shape": f"B{b} Hq{HQ} Hkv{HKV} "
-               f"Sq{sq} Sk1024 D{d} causal fp32 int8", "relerr": errs, "tol": 1e-2,
+               f"Sq{sq} Sk1024 D{d} causal fp32 {recipe}", "relerr": errs, "tol": 1e-2,
                "launches": counts}
         emit(res)
         results.append(res)
@@ -1979,25 +2117,25 @@ def phase_two_pass(record):
         if not all(e <= 1e-2 for e in errs.values()):
             raise AssertionError(f"two-pass route on the card differs from the CPU: {errs}")
         if {k_: counts.get(k_, 0) for k_ in want_counts} != want_counts:
-            raise AssertionError(f"two-pass route launches {counts}, expected {want_counts}")
+            raise AssertionError(f"{name}: launches {counts}, expected {want_counts}")
     record["two_pass"] = results
     return path_counts
 
 
 def phase_small_quant_training(record):
-    """A small fp32 model with cfg.quantization (int8, then int4): the loss
-    and every gradient on the card against the plain path on the CPU."""
+    """A small fp32 model with cfg.quantization (int8, int4, int8 BLOCK, int8
+    ASYMMETRIC): the loss and every gradient on the card against the plain
+    path on the CPU."""
     import torch
 
-    from umfa_tpu_torch.engine.config import QuantizationConfig
     from umfa_tpu_torch.models import gpt
     from umfa_tpu_torch.utils.testing import rel_err
 
     tokens = torch.randint(0, 64, (2, 97), generator=torch.Generator().manual_seed(11))
     out = {}
-    for recipe in ("int8", "int4"):
+    for recipe in ("int8", "int4", "int8-block", "int8-asym"):
         cfg = gpt.GPTConfig(vocab=64, dim=128, num_heads=4, num_kv_heads=2, depth=2, max_seq=96,
-                            quantization=QuantizationConfig.from_mode_string(recipe))
+                            quantization=quant_config(recipe))
         res = {}
         for dev in ("cuda", "cpu"):
             model = gpt.init_params(cfg, torch.Generator().manual_seed(0), device=dev)
@@ -2590,7 +2728,8 @@ TC_OPS = {"quant_attn_fwd": ("HMMA", "IMMA"), "fused_qattn": ("DMMA", "HMMA"),
 # Kernels on the CUDA cores whose registers and spills are listed beside
 # the tensor-core ones: library -> the stems of their function names.
 LISTED_KERNELS = {"quant_rows": ("quant_rows_vec_kernel",),
-                  "mma_probe": ("mma_probe_merge_kernel",)}
+                  "mma_probe": ("mma_probe_merge_kernel",),
+                  "fused_qattn": ("fused_rows_kernel", "fused_group_quant_kernel")}
 # The fp32 dense forward and backward, the fp32 dbias and the fp32 ring
 # steps: their 3xTF32 instantiations (product policy Tf32x3Mma) of every
 # stem must hold TF32 HMMA (at D 64, 128 and 256 alike where the head dim
@@ -2820,7 +2959,10 @@ DESIGN = {
                       "D <= 128, int8 K/V 64-key tiles and scales in three cp.async buffers two "
                       "tiles ahead, each V tile dequantized once a block a step ahead into one of "
                       "two padded bf16 tiles, P from the score accumulators in 16-key chunks; two "
-                      "passes: QKᵀ alone for the exact row max, then P·V)",
+                      "passes: QKᵀ alone for the exact row max, then P·V); instantiations of "
+                      "their own for INT4 codes (unpacked a 4-byte word a thread into the int8 "
+                      "tiles as they are staged) with the corr row, and for ASYMMETRIC zero "
+                      "points (streamed with the key tile; P·V on bf16(p·sv) and the V codes)",
     "fused_qattn": "tensor cores: QKᵀ by mma.sync m16n8k8 f64 (DMMA; each score an exact double "
                    "sum of bf16 products rounded once, as the plain version), P·V by mma.sync "
                    "m16n8k16 bf16->fp32 (12 warps x 16 query rows at D 64, 8 at D 128 and 256, Q "
@@ -2828,7 +2970,9 @@ DESIGN = {
                    "Q tile bf16 at D 256; the dequantized bf16 K̃/Ṽ tiles (64 keys, 32 at D 256) "
                    "and the cc row in three cp.async buffers two tiles ahead, K̃ as double once "
                    "a block at D 64; two passes: QKᵀ alone for the exact row max, then P·V); "
-                   "the means, K/V quantize and cc-row kernels on the CUDA cores",
+                   "the means, K/V quantize and cc-row kernels on the CUDA cores; BLOCK and "
+                   "ASYMMETRIC through a pre-pass of two CUDA-core kernels (rows, then groups) "
+                   "that quantizes Q, K and V, Q then read as a dense bf16 Q",
     "quant_rows": "CUDA cores, a bytes-bound pass (quant_rows_vec_kernel: a row over the fewest "
                   "lanes that hold it at 16 elements a lane in 16-byte bf16 rows, 8 otherwise: "
                   "4 lanes at D 64 bf16, so a warp has 8 rows at once; 16-byte loads, narrower "
@@ -2929,6 +3073,8 @@ def main():
     run(phase_small_training)
     path_counts += run(phase_training)
     q_timing, q_worst = run(phase_quant_kernels)
+    timing["quant_attn_fwd"]["variants"] = q_timing.pop("quant_attn_fwd_variants")
+    worst["quant_attn_fwd"] = max(worst["quant_attn_fwd"], q_worst.pop("quant_attn_fwd"))
     timing.update(q_timing)
     worst.update(q_worst)
     path_counts += run(phase_quant_training)

@@ -23,13 +23,14 @@ The fp32 dQ, dK/dV and dbias (3xTF32 on the tensor cores) are also held to
 5e-6, a twentieth of their gate, where one TF32 pass would sit near 1e-3.
 """
 
+import dataclasses
 import math
 
 import pytest
 import torch
 
 from umfa_tpu_torch import _kernels
-from umfa_tpu_torch.engine.config import QuantMode
+from umfa_tpu_torch.engine.config import Precision, QuantMode, QuantStrategy
 from umfa_tpu_torch.ops.attention import flash_attention
 from umfa_tpu_torch.ops.flash_bwd import (
     flash_attention_backward,
@@ -208,6 +209,49 @@ def test_quant_attn_fwd_kernel_matches_plain(dev, case):
     want, want_lse = quantized_attention_forward_plain(
         qt_q, qt_k, qt_v, bias, causal=causal, window=window)
     assert out.dtype == torch.float32
+    _check(out, lse, want, want_lse, 1e-3, 1e-4)
+
+
+# Row 5's INT4 operands (unpacked while staged), the Q-mean corr row and
+# ASYMMETRIC zero points, at D 64, 128 and 256 and a D that is not a
+# multiple of 4 (66 under INT4: unpacked and zero-padded by the wrapper;
+# 63 under INT8), against the plain version at the INT8 gates.
+QUANT_VARIANT_CASES = [
+    # (b, hq, hkv, sq, sk, d, causal, window, bias, precisions, asym, mode, corr)
+    (2, 4, 2, 200, 200, 64, True, None, False, "int4_qk", False, QuantMode.ROW, True),
+    (1, 4, 2, 130, 257, 128, True, None, True, "int4", False, QuantMode.ROW, True),
+    (1, 4, 1, 300, 257, 256, False, (0, -1), False, "int4_qk", False, QuantMode.ROW, True),
+    (1, 4, 2, 130, 257, 66, True, None, False, "int4_qk", False, QuantMode.ROW, True),
+    (2, 4, 2, 200, 200, 64, True, None, True, "int8", True, QuantMode.ROW, False),
+    (1, 4, 2, 130, 257, 128, False, (40, 8), False, "int8", True, QuantMode.TENSOR, True),
+    (1, 4, 2, 130, 257, 256, True, None, True, "int4_qk", True, QuantMode.ROW, True),
+    (1, 4, 2, 100, 150, 63, True, None, False, "int8", True, QuantMode.BLOCK, True),
+    (2, 4, 2, 16, 300, 64, False, (-1, 284), False, "int4", True, QuantMode.ROW, False),
+    # INT4 at D 40 (unpacked in the kernel, columns 40-63 zero) and D 36
+    # (not a multiple of 8: unpacked by the wrapper).
+    (1, 4, 2, 130, 257, 40, True, None, False, "int4", False, QuantMode.ROW, True),
+    (1, 4, 2, 130, 257, 36, True, None, False, "int4_qk", True, QuantMode.ROW, False),
+]
+_PRECS = {"int8": (Precision.INT8,) * 3, "int4": (Precision.INT4,) * 3,
+          "int4_qk": (Precision.INT4, Precision.INT4, Precision.INT8)}
+
+
+@pytest.mark.parametrize("case", QUANT_VARIANT_CASES)
+def test_quant_attn_fwd_kernel_int4_corr_asym_match_plain(dev, case):
+    b, hq, hkv, sq, sk, d, causal, window, use_bias, precs, asym, mode, use_corr = case
+    q, k, v = _qkv(b, hq, hkv, sq, sk, d, torch.float32, dev)
+    strategy = QuantStrategy.ASYMMETRIC if asym else QuantStrategy.SYMMETRIC
+    qts = [quantize(x + off, p, mode, strategy)
+           for x, p, off in zip((q, k, v), _PRECS[precs], (0.0, 0.4, 0.2))]
+    g = torch.Generator().manual_seed(3)
+    corr = torch.randn((b, hq, 1, sk), generator=g).to(dev) if use_corr else None
+    bias = torch.randn((b, 1, sq, sk), generator=g).to(dev) if use_bias else None
+    n0 = _kernels.launches["quant_attn_fwd"]
+    out, lse = quantized_attention_forward(*qts, bias, corr, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert _kernels.launches["quant_attn_fwd"] == n0 + 1
+    want, want_lse = quantized_attention_forward_plain(*qts, bias, corr, causal=causal,
+                                                       window=window)
     _check(out, lse, want, want_lse, 1e-3, 1e-4)
 
 
@@ -525,7 +569,7 @@ def test_flash_bwd_kernels_refuse_head_dims_over_their_limits(dev):
 #   * quant_bwd: fp32-emitted relerr 1e-4, bf16-emitted 2e-2 (BWD_TOLS),
 #     rows with no visible key exactly 0.
 
-from umfa_tpu_torch.engine.config import Precision, QuantizationConfig  # noqa: E402
+from umfa_tpu_torch.engine.config import QuantizationConfig  # noqa: E402
 from umfa_tpu_torch.ops.quant import unpack_int4  # noqa: E402
 from umfa_tpu_torch.ops.quant_attention import (  # noqa: E402
     _corr_from_quantized,
@@ -556,6 +600,19 @@ RECIPES = {
     "qdense": dict(q_precision=Precision.BF16, k_precision=Precision.INT8,
                    v_precision=Precision.INT8, smooth=True),
 }
+# BLOCK and ASYMMETRIC (row 7's pre-pass: every operand quantized by
+# fused_rows_kernel and fused_group_quant_kernel, Q then read as bf16).
+_BLOCK = dict(mode=QuantMode.BLOCK)
+_ASYM = dict(strategy=QuantStrategy.ASYMMETRIC)
+RECIPES.update({
+    "int8_block": dict(RECIPES["int8"], **_BLOCK),
+    "int4_block": dict(RECIPES["int4"], **_BLOCK),
+    "int8_asym": dict(RECIPES["int8"], **_ASYM),
+    "int4_asym": dict(RECIPES["int4"], **_ASYM),
+    "int8_asym_block_smooth_q": dict(RECIPES["int8_smooth_q"], **_ASYM, **_BLOCK),
+    "qdense_asym": dict(RECIPES["qdense"], **_ASYM),
+    "int8_nosmooth_asym_block": dict(RECIPES["int8_nosmooth"], **_ASYM, **_BLOCK),
+})
 
 
 def _codes(qt):
@@ -692,6 +749,11 @@ def _check_fused(got, want, check_out=True):
         assert (a is None) == (b_ is None)
         if a is not None:
             assert _codes_close(a, b_) and rel_err(a.scales, b_.scales) <= 1e-5
+            assert (a.mode, a.strategy, a.block_size) == (b_.mode, b_.strategy, b_.block_size)
+            assert (a.zero_points is None) == (b_.zero_points is None)
+            if a.zero_points is not None:
+                diff = (a.zero_points - b_.zero_points).abs()
+                assert diff.max().item() <= 1 and (diff == 0).float().mean().item() >= 0.999
     for a, b_ in zip(got[5:], want[5:]):
         assert (a is None) == (b_ is None)
         if a is not None:
@@ -742,6 +804,57 @@ def _check_score_bits(dev, recipe, d):
     assert vis.all()
     assert (got[1] - want[1]).abs().max().item() <= 1e-5
     _check_fused(got, want)
+
+
+# Row 7's BLOCK and ASYMMETRIC recipes at D 64, 128 and 256 and an odd D
+# (INT8 only there: INT4 and the rotation need an even, a power-of-two D),
+# held to the gates of the symmetric ROW cases (`_check_fused`), with the
+# zero points at most one apart. S 200 and 333 leave the last group of 64
+# (K, V) and 128 (Q) rows short: the reference's zero-padded rows count.
+FUSED_VARIANT_CASES = [
+    (b, hq, hkv, sq, sq, d, recipe, kw)
+    for d in (64, 128, 256, 33)
+    for recipe, (b, hq, hkv, sq), kw in (
+        ("int8_block", (2, 4, 2, 333), dict(causal=True)),
+        ("int4_block", (1, 4, 2, 200), dict(window=(128, 0))),
+        ("int8_asym", (2, 4, 2, 200), dict(causal=True)),
+        ("int4_asym", (1, 4, 2, 333), dict(causal=True, bias="11qk")),
+        ("int8_asym_block_smooth_q", (1, 8, 2, 200), {}),
+        ("qdense_asym", (1, 4, 2, 256), dict(causal=True)),
+        ("int8_nosmooth_asym_block", (1, 4, 4, 333), dict(window=(64, -1))),
+    )
+    if d % 2 == 0 or "int4" not in recipe
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FUSED_VARIANT_CASES)
+def test_fused_qattn_kernel_block_and_asym_match_plain(dev, dtype, case):
+    (q, k, v), kw = _fused_inputs(case, dtype, dev)
+    n0 = _kernels.launches["fused_qattn"]
+    got = fused_quantize_attend(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert _kernels.launches["fused_qattn"] == n0 + 1
+    want = fused_quantize_attend_plain(q, k, v, **kw)
+    _check_fused(got, want)
+    bare = fused_quantize_attend(q, k, v, emit_residuals=False, **kw)
+    assert bare[2:] == (None,) * 5 and torch.equal(bare[0], got[0])
+
+
+# The score bits of the FP64 QKᵀ under BLOCK and ASYMMETRIC (code − zp
+# spans up to 256 steps; csrc/fused_qattn.cu's header): LSE within 1e-5.
+@pytest.mark.parametrize("d", [64, 256])
+@pytest.mark.parametrize("recipe", ["int8_block", "int8_asym", "int4_asym"])
+def test_fused_qattn_block_and_asym_keep_the_score_bits(dev, recipe, d):
+    _check_score_bits(dev, recipe, d)
+
+
+# Rows 8-9 on BLOCK residuals (a group's scale on every row of it).
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [(2, 4, 2, 333, 333, 64, "int8_block", dict(causal=True)),
+                                  (1, 4, 2, 200, 200, 128, "int4_block", dict(causal=True))])
+def test_quant_bwd_kernels_on_block_residuals(dev, dtype, case):
+    test_quant_bwd_kernels_match_plain(dev, dtype, case)
 
 
 def _qbwd_inputs(case, dtype, dev):
@@ -846,6 +959,46 @@ def test_quantized_training_on_the_card_matches_the_cpu(dev):
             grads[where] = [x.grad.cpu() for x in t]
         for a, b_, name in zip(grads["cuda"], grads["cpu"], ("dq", "dk", "dv", "dbias")):
             assert rel_err(a, b_) <= 1e-2, (recipe, name)
+
+
+# The recipes this slice opened, through quantized_flash_attention on the
+# card against the CPU, forward and backward: fused BLOCK and ASYMMETRIC
+# (the ASYMMETRIC backward is the fp32 dense backward on the dequantized
+# operands), and on the two-pass route the int4 recipe (INT4 Q/K, the
+# Q-mean row), ASYMMETRIC and BLOCK; each with its launches.
+QVARIANT_ROUTES = [  # (recipe, mode, asymmetric, two-pass, launches of one call)
+    ("int8", "block", False, False, {"fused_qattn": 1, "quant_bwd_dq": 1}),
+    ("int8", "row", True, False, {"fused_qattn": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}),
+    ("int4", "row", False, True, {"quant_rows": 3, "quant_attn_fwd": 1, "quant_bwd_dq": 1}),
+    ("int8", "row", True, True, {"quant_attn_fwd": 1, "flash_bwd_dq": 1, "quant_rows": 0}),
+    ("int8", "block", False, True, {"quant_attn_fwd": 1, "quant_bwd_dkv": 1, "fused_qattn": 0}),
+]
+
+
+@pytest.mark.parametrize("route", QVARIANT_ROUTES, ids=lambda r: f"{r[0]}-{r[1]}-{r[2]}-{r[3]}")
+def test_quantized_variants_on_the_card_match_the_cpu(dev, monkeypatch, route):
+    recipe, mode, asym, two_pass, launches = route
+    if two_pass:
+        monkeypatch.setenv("UMFA_DISABLE_FUSED_QUANT", "1")
+    cfg = QuantizationConfig.from_mode_string(recipe, mode)
+    if asym:
+        cfg = dataclasses.replace(cfg, strategy=QuantStrategy.ASYMMETRIC)
+    g = torch.Generator().manual_seed(10)
+    q, k, v = (torch.randn(s, generator=g) for s in ((2, 4, 200, 64), (2, 2, 200, 64),
+                                                    (2, 2, 200, 64)))
+    got = {}
+    for where in ("cuda", "cpu"):
+        t = [x.to(where, copy=True).requires_grad_(True) for x in (q, k, v)]
+        before = dict(_kernels.launches)
+        out = quantized_flash_attention(*t, config=cfg, causal=True)
+        out.square().sum().backward()
+        if where == "cuda":
+            torch.cuda.synchronize()
+            ran = {key: _kernels.launches[key] - before.get(key, 0) for key in launches}
+            assert ran == launches, ran
+        got[where] = [out.detach().cpu()] + [x.grad.cpu() for x in t]
+    for a, b_, name in zip(got["cuda"], got["cpu"], ("out", "dq", "dk", "dv")):
+        assert rel_err(a, b_) <= 1e-2, name
 
 
 def test_quantized_attention_two_pass_at_head_dim_256_on_the_card(dev, monkeypatch):

@@ -153,14 +153,23 @@ def test_quantized_attention_forward_matches_jax(case):
 def test_quantized_attention_forward_refuses_unported():
     x = torch.from_numpy(_x(7, (1, 2, 32, D)))
     qt = quant.quantize(x)
-    for bad in (dict(pv_int8=True), dict(score_corr=torch.zeros(1, 2, 1, 32)),
-                dict(block_map=torch.ones(1, 1, 1, 1, dtype=torch.int32))):
-        with pytest.raises(NotImplementedError):
+    # pv_int8 and the block-sparse walks are still to port (ROADMAP).
+    for bad in (dict(pv_int8=True), dict(block_map=torch.ones(1, 1, 1, 1, dtype=torch.int32))):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
             quantized_attention_forward(qt, qt, qt, **bad)
-    for qt_bad in (quant.quantize(x, Precision.INT4),
+    # score_corr, INT4 operands and ASYMMETRIC residuals run (their values
+    # against JAX: tests/test_torch_quant_variants.py); a zero corr row
+    # changes nothing.
+    base = quantized_attention_forward(qt, qt, qt)
+    zero = quantized_attention_forward(qt, qt, qt, score_corr=torch.zeros(1, 2, 1, 32))
+    assert torch.equal(base[0], zero[0]) and torch.equal(base[1], zero[1])
+    for qt_var in (quant.quantize(x, Precision.INT4),
                    quant.quantize(x, strategy=QuantStrategy.ASYMMETRIC)):
-        with pytest.raises(NotImplementedError):
-            quantized_attention_forward(qt_bad, qt_bad, qt_bad)
+        out, lse = quantized_attention_forward(qt_var, qt_var, qt_var)
+        assert out.shape == x.shape and torch.isfinite(out).all() and torch.isfinite(lse).all()
+    mixed = quant.quantize(x, strategy=QuantStrategy.ASYMMETRIC)
+    with pytest.raises(ValueError, match="mixed"):
+        quantized_attention_forward(qt, mixed, qt)
     qt.scales.requires_grad_(True)
     with pytest.raises(NotImplementedError, match="training"):
         quantized_attention_forward(qt, qt, qt)

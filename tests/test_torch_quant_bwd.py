@@ -141,6 +141,8 @@ def test_quantized_backward_takes_tensor_scales_and_masked_rows():
     want = quantized_attention_backward(*rows, out, lse, do, window=(0, -1))
     for name, a, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
         assert torch.equal(a, w), name
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        asym = [quantize(x, strategy=QuantStrategy.ASYMMETRIC) for x in (q, k, v)]
+    # ASYMMETRIC residuals take the dequantize-and-dense route, as in the
+    # reference: this backward refuses them and names that route.
+    asym = [quantize(x, strategy=QuantStrategy.ASYMMETRIC) for x in (q, k, v)]
+    with pytest.raises(ValueError, match="flash_attention_backward"):
         quantized_attention_backward(*asym, out, lse, do)

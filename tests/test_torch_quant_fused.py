@@ -36,6 +36,7 @@ import torch
 
 from umfa_tpu.engine.config import Precision as JPrecision
 from umfa_tpu.engine.config import QuantizationConfig as JQuantizationConfig
+from umfa_tpu.engine.config import QuantStrategy as JQuantStrategy
 from umfa_tpu.ops import flash_fwd as jflash_fwd
 from umfa_tpu.ops import quant_fused as jquant_fused
 from umfa_tpu.ops import quant_fused_attn as jqfa
@@ -275,8 +276,19 @@ def test_fused_path_rules_match_jax(monkeypatch):
     assert not fused_path_supported(QuantizationConfig(), 256, 64, causal=False,
                                     window=None, seq_q=256)
     monkeypatch.delenv("UMFA_DISABLE_FUSED_QUANT")
-    for bad in (dict(mode=QuantMode.BLOCK), dict(strategy=QuantStrategy.ASYMMETRIC),
-                dict(pv_int8=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fused_path_supported(dataclasses.replace(QuantizationConfig(), **bad), 256, 64,
-                                 causal=False, window=None, seq_q=256)
+    sym, asym = QuantStrategy.SYMMETRIC, QuantStrategy.ASYMMETRIC
+    for cfg_s, mode, strategy, pv_int8 in (("int8", "block", sym, False),
+                                           ("int4", "block", sym, False),
+                                           ("int8", "row", asym, False),
+                                           ("int8", "row", asym, True)):
+        tcfg = dataclasses.replace(QuantizationConfig.from_mode_string(cfg_s, mode),
+                                   strategy=strategy, pv_int8=pv_int8)
+        jcfg = dataclasses.replace(JQuantizationConfig.from_mode_string(cfg_s, mode),
+                                   strategy=JQuantStrategy(strategy.value), pv_int8=pv_int8)
+        want = jqfa.fused_path_supported(jcfg, 256, 64, None, None, None, causal=True,
+                                         window=None, seq_q=256)
+        assert fused_path_supported(tcfg, 256, 64, causal=True, window=None, seq_q=256) == want
+    # pv_int8 (symmetric) is the one fused variant still to port.
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fused_path_supported(dataclasses.replace(QuantizationConfig(), pv_int8=True), 256, 64,
+                             causal=False, window=None, seq_q=256)

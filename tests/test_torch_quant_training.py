@@ -15,7 +15,8 @@ Tolerances, with their reasons:
     two quantizers) can do to a gradient;
   * the bias gradient (fp32 dense kernel on the same dequantized operands):
     relerr 5e-3;
-  * GPT: loss abs 1e-4 and every parameter's gradient relerr 1e-2. The two
+  * GPT (int8, int4, int8 BLOCK, int8 ASYMMETRIC): loss abs 1e-4 and
+    every parameter's gradient relerr 1e-2. The two
     stacks compute LayerNorm, RoPE and the projections in fp32 in other
     orders, so an activation may cross a quantizer rounding boundary (one
     code) in either package; through two layers that moves a gradient by up
@@ -33,6 +34,7 @@ import torch
 import umfa_tpu
 import umfa_tpu_torch
 from umfa_tpu.engine.config import QuantizationConfig as JQuantizationConfig
+from umfa_tpu.engine.config import QuantStrategy as JQuantStrategy
 from umfa_tpu.models import gpt as jgpt
 from umfa_tpu.ops.quant_attention import quantized_flash_attention as jqflash
 from umfa_tpu_torch import _kernels
@@ -72,6 +74,12 @@ ATTN_CASES = [
     # The two-pass route at a head_dim that is not a multiple of 4.
     ("int8_two_pass_d63", ("int8", "row"), dict(is_causal=True), None, False,
      {"UMFA_DISABLE_FUSED_QUANT": "1"}, 63),
+    # set_quantization_mode(..., "block") on the single-launch route, and the
+    # int4 recipe on the two-pass route (INT4 operands, the Q-mean row).
+    ("int8_block_causal", ("int8", "block"), dict(is_causal=True), None, False, {}),
+    ("int4_block_bias_grad", ("int4", "block"), {}, True, False, {}),
+    ("int4_two_pass_lse", ("int4", "row"), dict(is_causal=True), None, True,
+     {"UMFA_DISABLE_FUSED_QUANT": "1"}),
 ]
 
 
@@ -149,17 +157,29 @@ def test_quantized_flash_attention_qdense_and_no_grad_match_jax():
 def test_unported_quantized_configs_raise(monkeypatch):
     q, k, v = (torch.from_numpy(_x(s, (1, 2, 64, 32))) for s in (11, 12, 13))
     base = QuantizationConfig()
-    for bad in (dict(strategy=QuantStrategy.ASYMMETRIC), dict(mode=QuantMode.BLOCK),
-                dict(pv_int8=True)):
+    asym = dataclasses.replace(base, strategy=QuantStrategy.ASYMMETRIC)
+    # pv_int8 is the quantized recipe still to port; with ASYMMETRIC the
+    # reference sends it to the two-pass route, which refuses it too.
+    for bad in (dataclasses.replace(base, pv_int8=True), dataclasses.replace(asym, pv_int8=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            quantized_flash_attention(q, k, v, config=dataclasses.replace(base, **bad))
+            quantized_flash_attention(q, k, v, config=bad)
+    # BLOCK and ASYMMETRIC run (their values against JAX:
+    # tests/test_torch_quant_variants.py).
+    for good in (asym, dataclasses.replace(base, mode=QuantMode.BLOCK)):
+        out = quantized_flash_attention(q, k, v, config=good)
+        assert out.shape == q.shape and torch.isfinite(out).all()
     hot = q.clone()
     hot[:, :, 7] *= 1000.0  # one outlier row: HYBRID picks BLOCK
-    with pytest.raises(NotImplementedError, match="BLOCK"):
-        quantized_flash_attention(hot, k, v, config=dataclasses.replace(base, mode=QuantMode.HYBRID))
+    block = quantized_flash_attention(hot, k, v, config=dataclasses.replace(base, mode=QuantMode.BLOCK))
+    hybrid = quantized_flash_attention(hot, k, v, config=dataclasses.replace(base, mode=QuantMode.HYBRID))
+    assert torch.equal(hybrid, block)
     monkeypatch.setenv("UMFA_DISABLE_FUSED_QUANT", "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):  # INT4 two-pass: row 5's variant
-        quantized_flash_attention(q, k, v, config=QuantizationConfig.from_mode_string("int4"))
+    # The two-pass route runs the int4 recipe (INT4 operands and the Q-mean
+    # row) and still refuses pv_int8.
+    out = quantized_flash_attention(q, k, v, config=QuantizationConfig.from_mode_string("int4"))
+    assert out.shape == q.shape and torch.isfinite(out).all()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        quantized_flash_attention(q, k, v, config=dataclasses.replace(base, pv_int8=True))
     with pytest.raises(ValueError, match="dense-Q"):
         quantized_flash_attention(q, k, v, config=QuantizationConfig.from_mode_string("int8-qdense"))
 
@@ -187,10 +207,22 @@ def _jloss(params, tokens, cfg):
     return -jnp.mean(jnp.take_along_axis(lp, tokens[:, 1:, None], axis=-1))
 
 
-@pytest.mark.parametrize("recipe", ["int8", "int4"])
+def _recipe(name):
+    """(JAX config, port config) of a recipe: a mode string, "<precision>-block",
+    or "int8-asym" (the int8 recipe, ASYMMETRIC)."""
+    if name == "int8-asym":
+        return (dataclasses.replace(JQuantizationConfig(), strategy=JQuantStrategy.ASYMMETRIC),
+                dataclasses.replace(QuantizationConfig(), strategy=QuantStrategy.ASYMMETRIC))
+    prec, _, mode = name.partition("-")
+    return (JQuantizationConfig.from_mode_string(prec, mode or "row"),
+            QuantizationConfig.from_mode_string(prec, mode or "row"))
+
+
+@pytest.mark.parametrize("recipe", ["int8", "int4", "int8-block", "int8-asym"])
 def test_quantized_gpt_loss_and_every_gradient_match_jax(jparams, recipe):
-    jcfg = dataclasses.replace(JCFG, quantization=JQuantizationConfig.from_mode_string(recipe))
-    cfg = dataclasses.replace(CFG, quantization=QuantizationConfig.from_mode_string(recipe))
+    jq, tq = _recipe(recipe)
+    jcfg = dataclasses.replace(JCFG, quantization=jq)
+    cfg = dataclasses.replace(CFG, quantization=tq)
     tokens = np.random.default_rng(21).integers(0, CFG.vocab, (2, 49))
     want_loss, want = jax.value_and_grad(_jloss)(jparams, jnp.asarray(tokens), jcfg)
     model = gpt.params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), cfg, device="cpu")

@@ -64,32 +64,6 @@ __device__ __forceinline__ bool key_visible(int row, int col, int sq, int sk, in
          (right < 0 || col <= row + right);
 }
 
-// Rows [r0, r0 + ROWS) of an int8 (or packed INT4, split halves) code
-// matrix, dequantized on load to bf16(code · scale) into dst (fp32 or
-// double, row stride DP + 1); rows past `nrows` and columns past D are 0.
-// INT4 codes unpack as ((p & 0xF) ^ 8) - 8 and p >> 4 (arithmetic shift).
-template <int DP, int ROWS = 64, typename T>
-__device__ __forceinline__ void stage_deq(T* dst, const int8_t* vals, const float* scales,
-                                          int per_row, int r0, int nrows, int D, bool int4) {
-  const int w = int4 ? D / 2 : D;
-  for (int e = threadIdx.x; e < ROWS * DP; e += blockDim.x) {
-    const int r = e / DP, c = e - r * DP;
-    float x = 0.f;
-    if (r0 + r < nrows && c < D) {
-      const long long row = r0 + r;
-      int code;
-      if (int4) {
-        const int pk = vals[row * w + (c < w ? c : c - w)];
-        code = c < w ? ((pk & 0xF) ^ 8) - 8 : pk >> 4;
-      } else {
-        code = vals[row * w + c];
-      }
-      x = round_bf16(__fmul_rn((float)code, scales[per_row ? row : 0]));
-    }
-    dst[r * (DP + 1) + c] = x;
-  }
-}
-
 }  // namespace umfa
 
 extern "C" const char* umfa_cuda_error_string(int err) {

@@ -5,8 +5,8 @@
 // V, quantize them per row (INT8 or INT4, mean smoothing, optional Hadamard
 // rotation of Q and K, or a dense Q), attend on the dequantized bf16
 // values, restore the V mean, and write the quantized residuals the STE
-// backward consumes. Symmetric ROW only, head_dim <= 256; BLOCK,
-// ASYMMETRIC, pv_int8 and block-sparse walks are not ported yet.
+// backward consumes. ROW or BLOCK scales, SYMMETRIC or ASYMMETRIC,
+// head_dim <= 256; pv_int8 and block-sparse walks are not ported yet.
 //
 // The score contract, and what bounds the kernel under it. The kernel and
 // its plain version form each score as one double sum of products of bf16
@@ -16,8 +16,18 @@
 // The sum is exact in any order: a bf16 product has at most 16 significant
 // bits, the products of one dot span about 14 binades (codes 1..127 on each
 // side, one scale per row), so a sum of <= 256 of them needs about 38 bits,
-// under double's 53. (A dense Q has free exponents: there exactness rests
-// on the data, as it did in the CUDA-core kernel this one replaces.) So
+// under double's 53. BLOCK keeps one scale a row as far as a dot is
+// concerned (a group's scale is one row's), so the argument stands. Under
+// ASYMMETRIC an operand is bf16((code − zp)·s): the code spans 256 values
+// and the zero point is not clipped, so code − zp runs over 256
+// consecutive integers, which either hold 0 (nonzero magnitudes 1..255)
+// or do not (magnitudes m..m + 255, m >= 1); either way the largest
+// nonzero magnitude of a row is at most 256 times its smallest, 8 binades
+// plus one for the bf16 rounding, so the products of a dot span at most
+// ~18 binades of 16-bit significands and a sum of <= 256 of them needs
+// about 16 + 18 + 8 = 42 bits, still under 53. (A dense Q has free
+// exponents: there exactness rests on the data, as it did in the
+// CUDA-core kernel this one replaces.) So
 // QKᵀ runs on the FP64 tensor cores (mma.sync m16n8k8 f64, DMMA in the
 // SASS), and their rate is the bound that matters: at the training shape
 // (B8 Hq16 Hkv8, causal S 4096, D 64) two passes of QKᵀ in double,
@@ -25,26 +35,36 @@
 // ~0.28 ms of bf16 tensor-core time for QKᵀ and P·V and ~0.08 ms of HBM
 // time.
 //
-// One call runs up to four kernels on the stream:
+// One call runs up to five kernels on the stream:
 //   1. means: the smoothing means, one block per (b, h), so every block of
 //      a (b, h) reads the same bits;
-//   2. K/V quantize: one warp per K or V row writes its int8 codes (INT4
+//   2. K/V quantize (symmetric ROW): one warp per K or V row writes its int8 codes (INT4
 //      packed) and scale, once. On the TPU the kernel quantizes each K/V
 //      tile on first touch into a VMEM cache that later q-blocks reuse;
 //      blocks on this card share nothing, so the rows are quantized once
 //      into HBM instead. These are the K/V residuals, each row written by
 //      exactly one warp; without residuals they go to scratch. The warp
 //      also writes its row dequantized, K̃ = bf16(code·sk) and
-//      Ṽ = bf16(code·sv) (stage_deq's rounding of the same code and
-//      scale), to bf16 scratch, so that the attention copies tiles ready
-//      for the tensor cores instead of dequantizing every tile again in
-//      every block;
+//      Ṽ = bf16(code·sv), to bf16 scratch, so that the attention copies
+//      tiles ready for the tensor cores instead of dequantizing every tile
+//      again in every block;
+//   2'. BLOCK or ASYMMETRIC: the same for Q, K and V in two passes of one
+//      warp a row, since a group's statistic spans rows that other warps
+//      and blocks hold (a 128-row Q group straddles the attention's
+//      192-row tiles at D 64): `fused_rows_kernel` writes each row x − mean
+//      as fp32 and its statistic (absmax, or hi and lo), then
+//      `fused_group_quant_kernel` reduces the row's group (the
+//      reference's zero-padded rows past S included: 0 − mean), quantizes
+//      and writes codes, scales, zero points and the dequantized bf16 row;
+//      Q's with the softmax scale folded in, so the attention reads it as
+//      a dense bf16 Q (scale 1, no rotation);
 //   3. with smooth_q, the cc row: cc_j = (Σ_d bf16(qm_d)·k̃_jd in double)
 //      · scale depends only on (b, q head, key), so it is formed once a
 //      call into a (B, Hq, Sk) fp32 scratch, with the same sequential
-//      double sum, instead of once a key tile in every block (64 serial
-//      threads and a barrier a tile); the attention reads it with each key
-//      tile, like a bias row. Its bits are those of the in-block sum;
+//      double sum, from the K̃ scratch, instead of once a key tile in every
+//      block (64 serial threads and a barrier a tile); the attention reads
+//      it with each key tile, like a bias row. Its bits are those of the
+//      in-block sum;
 //   4. attention, `fused_qattn_tc_kernel`, in the shape of row 5's
 //      quant_attn_fwd_tc_kernel: one block per (query tile, q head, batch),
 //      issued heaviest first, 12 warps at D 64 and 8 at D 128 and 256
@@ -93,8 +113,12 @@
 //   * x·H summed in double and rounded once to fp32 (V is never rotated);
 //   * a row: x − mean, absmax = max(|x|, 1e-12), scale = absmax / qmax,
 //     code = rint(x · (qmax / absmax)) (a reciprocal multiply, no clip);
-//   * bf16(code·sk), bf16(code·sv), bf16((code·sq)·scale); a dense Q is
-//     bf16(q_rot·scale) and has no mean;
+//     BLOCK: the absmax of the row's group; ASYMMETRIC: hi and lo (of the
+//     group), scale = max(hi − lo, 1e-12) / (2 qmax + 1), zp = rint(−lo /
+//     scale) − (qmax + 1), code = clip(rint(x / scale) + zp, −qmax − 1,
+//     qmax), exact divisions, deq = (code − zp)·scale;
+//   * bf16(deq_k), bf16(deq_v), bf16(deq_q·scale), deq = code·s
+//     symmetric; a dense Q is bf16(q_rot·scale) and has no mean;
 //   * with smooth_q: cc_j = (bf16(qm)·k̃_j)·scale, added to S before the
 //     bias; index masking (causal, window, KV tail) sets −1e30;
 //   * P = exp(S − m), P·V on bf16(P); l sums bf16(P) at D < 128 and the
@@ -122,6 +146,7 @@ enum : int {
   F_SMOOTH = 2,
   F_SMOOTH_Q = 4,
   F_Q_DENSE = 8,
+  F_ASYM = 16,
   F_Q_INT4 = 32,
   F_K_INT4 = 64,
   F_V_INT4 = 128,
@@ -144,13 +169,20 @@ struct FQParams {
   float* km;  // (B, Hkv, D), with F_SMOOTH
   float* vm;
   float* cc;  // (B, Hq, Sk) scratch, with F_SMOOTH_Q
-  __nv_bfloat16* kb;  // (B, Hkv, Sk, D) scratch: the dequantized K̃ = bf16(code·sk)
-  __nv_bfloat16* vb;  // and Ṽ = bf16(code·sv)
+  __nv_bfloat16* kb;  // (B, Hkv, Sk, D) scratch: the dequantized K̃ = bf16(deq_k)
+  __nv_bfloat16* vb;  // and Ṽ = bf16(deq_v)
+  int* qzp;  // ASYMMETRIC zero points, like the scales (qzp with qv only)
+  int* kzp;
+  int* vzp;
+  float* ys;  // BLOCK/ASYMMETRIC scratch: rows x − mean (Q's, then K's, V's), fp32
+  float* st;  // their statistics: hi (or absmax) at [row], lo at [rows + row]
+  __nv_bfloat16* qb;  // (B, Hq, Sq, D) scratch: bf16(deq_q·scale), an integer Q
   int B, Hq, Hkv, Sq, Sk, D;
   long long bsb, bsh, bsq, bsk;
   float scale;
   int left, right;
   int flags, qmax_q, qmax_k, qmax_v, Tq, Tkv;
+  int q_group, k_group, v_group;  // BLOCK rows a scale, 0 = ROW
   float hval;
   int kvmode;  // how the K̃ and Ṽ rows are copied (`copy_rows`)
 };
@@ -221,8 +253,8 @@ __global__ void __launch_bounds__(NTM) fused_means_kernel(const FQParams p) {
 // One warp per row of K (rows [0, n)) or V (rows [n, 2n)): rotate K, subtract
 // the mean, quantize (reciprocal multiply, no clip), write the codes (INT4
 // packed split-halves) and the scale, and the dequantized row bf16(code ·
-// scale) that the attention reads (stage_deq's rounding of the same code
-// and scale). NE: elements of a row a lane (D <= 32 NE).
+// scale) that the attention reads. NE: elements of a row a lane
+// (D <= 32 NE).
 template <typename Tin, int NE>
 __global__ void __launch_bounds__(KV_WARPS * 32) fused_kv_quant_kernel(const FQParams p) {
   __shared__ float s_raw[KV_WARPS][32 * NE];
@@ -284,8 +316,166 @@ __global__ void __launch_bounds__(KV_WARPS * 32) fused_kv_quant_kernel(const FQP
   if (lane == 0) (is_v ? p.vs : p.ks)[r] = sc;
 }
 
+// The operand a row of the BLOCK/ASYMMETRIC pre-pass belongs to: rows
+// [0, nq) are Q's (an integer Q only), then nkv of K and nkv of V, each
+// (b, h, s) flattened.
+struct RowOf {
+  int op;  // 0 Q, 1 K, 2 V; -1 past the last row
+  long long r;  // the row within its operand
+  int S, group, qmax;
+  bool rot, int4;
+  const void* src;
+  const float* mean;  // the (b, h)'s smoothing mean, or null
+};
+
+__device__ __forceinline__ long long q_rows(const FQParams& p) {
+  return (p.flags & F_Q_DENSE) ? 0 : (long long)p.B * p.Hq * p.Sq;
+}
+
+__device__ __forceinline__ RowOf row_of(const FQParams& p, long long row) {
+  const long long nq = q_rows(p), nkv = (long long)p.B * p.Hkv * p.Sk;
+  const bool rot = p.flags & F_HADAMARD;
+  RowOf o{-1, 0, 1, 0, 0, false, false, nullptr, nullptr};
+  if (row < nq) {
+    o = {0, row, p.Sq, p.q_group, p.qmax_q, rot, (p.flags & F_Q_INT4) != 0, p.q,
+         (p.flags & F_SMOOTH_Q) ? p.qm + (row / p.Sq) * p.D : nullptr};
+  } else if (row < nq + 2 * nkv) {
+    const bool is_v = row >= nq + nkv;
+    const long long r = row - nq - (is_v ? nkv : 0);
+    o = {is_v ? 2 : 1, r, p.Sk, is_v ? p.v_group : p.k_group, is_v ? p.qmax_v : p.qmax_k,
+         rot && !is_v, (p.flags & (is_v ? F_V_INT4 : F_K_INT4)) != 0, is_v ? p.v : p.k,
+         (p.flags & F_SMOOTH) ? (is_v ? p.vm : p.km) + (r / p.Sk) * p.D : nullptr};
+  }
+  return o;
+}
+
+// BLOCK/ASYMMETRIC pass 1: one warp per row of Q, K or V (`row_of`): the
+// row rotated (Q and K, with F_HADAMARD; rotate_elem's sum, as in the
+// other passes), less its mean, as fp32 into ys, and its statistic into
+// st: the absmax, or hi at [row] and lo at [rows + row] when asymmetric.
+template <typename Tin, int NE>
+__global__ void __launch_bounds__(KV_WARPS * 32) fused_rows_kernel(const FQParams p) {
+  __shared__ float s_raw[KV_WARPS][32 * NE];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * KV_WARPS + warp;
+  const RowOf o = row_of(p, row);
+  if (o.op < 0) return;
+  const int D = p.D;
+  const bool asym = p.flags & F_ASYM;
+  const Tin* x = static_cast<const Tin*>(o.src) + o.r * D;
+  float* raw = s_raw[warp];
+  if (o.rot) {
+    for (int c = lane; c < D; c += 32) raw[c] = Elem<Tin>::load(x, c);
+    __syncwarp();
+  }
+  float* y = p.ys + row * D;
+  float hi = asym ? -INFINITY : 0.f, lo = INFINITY;
+#pragma unroll
+  for (int i = 0; i < NE; ++i) {
+    const int c = lane + 32 * i;
+    if (c >= D) continue;
+    float t = o.rot ? rotate_elem([&](int j) { return raw[j]; }, c, D, p.hval)
+                    : Elem<Tin>::load(x, c);
+    if (o.mean) t = __fsub_rn(t, o.mean[c]);
+    y[c] = t;
+    hi = fmaxf(hi, asym ? t : fabsf(t));
+    lo = fminf(lo, t);
+  }
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) {
+    hi = fmaxf(hi, __shfl_xor_sync(0xffffffffu, hi, s));
+    lo = fminf(lo, __shfl_xor_sync(0xffffffffu, lo, s));
+  }
+  if (lane == 0) {
+    p.st[row] = hi;
+    if (asym) p.st[q_rows(p) + 2LL * p.B * p.Hkv * p.Sk + row] = lo;
+  }
+}
+
+// BLOCK/ASYMMETRIC pass 2: one warp per row. The statistic of the row's
+// group (its own row under ROW) is the max (and min) of its rows' in st,
+// and, where the group runs past S, of the reference's zero-padded rows,
+// 0 − mean; then the row quantizes (symmetric: reciprocal multiply, no
+// clip; asymmetric: exact divisions, the zero point unclipped) and writes
+// its codes (INT4 packed split-halves), scale, zero point and dequantized
+// bf16 row: K̃, Ṽ, or Q's times the softmax scale into qb.
+template <int NE>
+__global__ void __launch_bounds__(KV_WARPS * 32) fused_group_quant_kernel(const FQParams p) {
+  __shared__ int s_code[KV_WARPS][32 * NE];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * KV_WARPS + warp;
+  const RowOf o = row_of(p, row);
+  if (o.op < 0) return;
+  const int D = p.D, G = max(o.group, 1);
+  const bool asym = p.flags & F_ASYM;
+  const long long lo_at = q_rows(p) + 2LL * p.B * p.Hkv * p.Sk;
+  const long long r_in = o.r % o.S, base = row - r_in;
+  const long long g0 = r_in - r_in % G, g1 = min(g0 + G, (long long)o.S);
+  float hi = asym ? -INFINITY : 0.f, lo = INFINITY;
+  for (long long j = g0 + lane; j < g1; j += 32) {
+    hi = fmaxf(hi, p.st[base + j]);
+    if (asym) lo = fminf(lo, p.st[lo_at + base + j]);
+  }
+  if (g0 + G > o.S) {
+    for (int c = lane; c < D; c += 32) {
+      const float t = o.mean ? __fsub_rn(0.f, o.mean[c]) : 0.f;
+      hi = fmaxf(hi, asym ? t : fabsf(t));
+      lo = fminf(lo, t);
+    }
+  }
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) {
+    hi = fmaxf(hi, __shfl_xor_sync(0xffffffffu, hi, s));
+    lo = fminf(lo, __shfl_xor_sync(0xffffffffu, lo, s));
+  }
+  const float fq = (float)o.qmax;
+  float sc, rcp = 0.f, zp = 0.f;
+  if (asym) {
+    sc = __fdiv_rn(fmaxf(__fsub_rn(hi, lo), 1e-12f), 2.f * fq + 1.f);
+    zp = __fsub_rn(rintf(__fdiv_rn(-lo, sc)), fq + 1.f);
+  } else {
+    hi = fmaxf(hi, 1e-12f);
+    sc = __fdiv_rn(hi, fq);
+    rcp = __fdiv_rn(fq, hi);
+  }
+  const float* y = p.ys + row * D;
+  int8_t* vals = o.op == 0 ? p.qv : o.op == 1 ? p.kv : p.vv;
+  __nv_bfloat16* deq = (o.op == 0 ? p.qb : o.op == 1 ? p.kb : p.vb) + o.r * D;
+  int* code = s_code[warp];
+#pragma unroll
+  for (int i = 0; i < NE; ++i) {
+    const int c = lane + 32 * i;
+    if (c >= D) continue;
+    float qc, x;
+    if (asym) {
+      qc = __fadd_rn(rintf(__fdiv_rn(y[c], sc)), zp);
+      qc = fminf(fmaxf(qc, -fq - 1.f), fq);
+      x = __fmul_rn(__fsub_rn(qc, zp), sc);
+    } else {
+      qc = rintf(__fmul_rn(y[c], rcp));
+      x = __fmul_rn(qc, sc);
+    }
+    deq[c] = __float2bfloat16_rn(o.op == 0 ? __fmul_rn(x, p.scale) : x);
+    if (o.int4)
+      code[c] = (int)qc;
+    else if (vals)
+      vals[o.r * D + c] = (int8_t)(int)qc;
+  }
+  if (!vals) return;  // Q without residuals: only its dequantized row
+  if (o.int4) {
+    __syncwarp();
+    const int h = D / 2;
+    for (int c = lane; c < h; c += 32)
+      vals[o.r * h + c] = (int8_t)(unsigned char)((code[c] & 0xF) | ((code[c + h] & 0xF) << 4));
+  }
+  if (lane == 0) {
+    (o.op == 0 ? p.qs : o.op == 1 ? p.ks : p.vs)[o.r] = sc;
+    if (asym) (o.op == 0 ? p.qzp : o.op == 1 ? p.kzp : p.vzp)[o.r] = (int)zp;
+  }
+}
+
 // The cc row, cc[b, h, j] = fl(fl(Σ_d bf16(qm[b, h, d]) · k̃[j, d]) · scale),
-// k̃ = bf16(code · sk), the products summed in double in order of d (exact:
+// k̃ from the K̃ scratch, the products summed in double in order of d (exact:
 // products of bf16 values): one block per (CK-key tile, kv head, batch),
 // one thread per key and q head of the group. CK keys a tile: 64, 32 at
 // D 256 (its staged tile within the 48 KB of static shared memory).
@@ -298,9 +488,12 @@ __global__ void __launch_bounds__(NTM) fused_cc_kernel(const FQParams p) {
   __shared__ float sK[CK * (DP + 1)];
   const int k0 = blockIdx.x * CK, hk = blockIdx.y, b = blockIdx.z;
   const int D = p.D, G = p.Hq / p.Hkv;
-  const bool k4 = p.flags & F_K_INT4;
-  const long long krow = ((long long)b * p.Hkv + hk) * p.Sk;
-  stage_deq<DP, CK>(sK, p.kv + krow * (k4 ? D / 2 : D), p.ks + krow, 1, k0, p.Sk, D, k4);
+  const __nv_bfloat16* kb = p.kb + ((long long)b * p.Hkv + hk) * p.Sk * D;
+  for (int e = threadIdx.x; e < CK * DP; e += NTM) {
+    const int r = e / DP, c = e - r * DP;
+    sK[r * (DP + 1) + c] =
+        k0 + r < p.Sk && c < D ? __bfloat162float(kb[(long long)(k0 + r) * D + c]) : 0.f;
+  }
   __syncthreads();
   const int j = threadIdx.x % CK;
   if (k0 + j >= p.Sk) return;
@@ -886,15 +1079,38 @@ __global__ void __launch_bounds__(FCfg<DP>::NTH, 1) fused_qattn_tc_kernel(const 
 }
 
 template <typename Tin, typename Tout, int DP>
+cudaError_t attend(const FQParams& p, cudaStream_t stream) {
+  constexpr int smem = FCfg<DP>::BYTES, bq = FCfg<DP>::BQ, nth = FCfg<DP>::NTH;
+  cudaError_t err = cudaFuncSetAttribute(fused_qattn_tc_kernel<Tin, Tout, DP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.Sq + bq - 1) / bq, p.Hq, p.B);
+  fused_qattn_tc_kernel<Tin, Tout, DP><<<grid, nth, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+bool pre_pass(const FQParams& p) {
+  return (p.flags & F_ASYM) || p.q_group || p.k_group || p.v_group;
+}
+
+template <typename Tin, typename Tout, int DP>
 cudaError_t launch(const FQParams& p, cudaStream_t stream) {
   cudaError_t err;
+  constexpr int ne = DP <= 128 ? 4 : 8;  // a row's elements a lane
   if (p.flags & (F_SMOOTH | F_SMOOTH_Q)) {
     fused_means_kernel<Tin><<<p.B * (p.Hq + p.Hkv), NTM, 0, stream>>>(p);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   const long long kv_rows = 2LL * p.B * p.Hkv * p.Sk;
-  if (kv_rows) {
-    constexpr int ne = DP <= 128 ? 4 : 8;  // a row's elements a lane
+  const bool pre = pre_pass(p);
+  if (pre) {
+    const long long rows = ((p.flags & F_Q_DENSE) ? 0 : (long long)p.B * p.Hq * p.Sq) + kv_rows;
+    const unsigned blocks = (unsigned)((rows + KV_WARPS - 1) / KV_WARPS);
+    fused_rows_kernel<Tin, ne><<<blocks, KV_WARPS * 32, 0, stream>>>(p);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    fused_group_quant_kernel<ne><<<blocks, KV_WARPS * 32, 0, stream>>>(p);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  } else if (kv_rows) {
     fused_kv_quant_kernel<Tin, ne>
         <<<(unsigned)((kv_rows + KV_WARPS - 1) / KV_WARPS), KV_WARPS * 32, 0, stream>>>(p);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
@@ -905,13 +1121,18 @@ cudaError_t launch(const FQParams& p, cudaStream_t stream) {
     fused_cc_kernel<DP><<<cc_grid, NTM, 0, stream>>>(p);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
-  constexpr int smem = FCfg<DP>::BYTES, bq = FCfg<DP>::BQ, nth = FCfg<DP>::NTH;
-  err = cudaFuncSetAttribute(fused_qattn_tc_kernel<Tin, Tout, DP>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.Sq + bq - 1) / bq, p.Hq, p.B);
-  fused_qattn_tc_kernel<Tin, Tout, DP><<<grid, nth, smem, stream>>>(p);
-  return cudaGetLastError();
+  if (pre && !(p.flags & F_Q_DENSE)) {
+    // The pre-pass quantized Q: the attention reads qb as a dense bf16 Q
+    // whose values already carry the softmax scale (times 1, unrotated).
+    FQParams a = p;
+    a.q = p.qb;
+    a.flags = (p.flags & ~F_HADAMARD) | F_Q_DENSE;
+    a.scale = 1.f;
+    a.qv = nullptr;
+    a.qs = nullptr;
+    return attend<__nv_bfloat16, Tout, DP>(a, stream);
+  }
+  return attend<Tin, Tout, DP>(p, stream);
 }
 
 template <typename Tin, typename Tout>
@@ -938,38 +1159,51 @@ int copy_mode(const void* ptr, int D) {
 // Q, or null. Means (float32): qm (B, Hq, D) with SMOOTH_Q, km and vm
 // (B, Hkv, D) with SMOOTH, written by this call; cc (B, Hq, Sk) float32
 // scratch with SMOOTH_Q; kb and vb (B, Hkv, Sk, D) bfloat16 scratch.
-// Returns the cudaError_t of the launches.
+// ASYM (flag 16): int32 zero points kzp/vzp (B, Hkv, Sk), and qzp
+// (B, Hq, Sq) with qv. BLOCK (a group > 0) or ASYM: ys (rows, D) and st
+// (2, rows) float32 scratch, rows = B·Hq·Sq (0 for a dense Q) + 2·B·Hkv·Sk,
+// and qb (B, Hq, Sq, D) bfloat16 scratch for an integer Q. Returns the
+// cudaError_t of the launches.
 extern "C" int umfa_fused_qattn(const void* q, const void* k, const void* v, const void* bias,
                                 void* out, void* lse, void* qv, void* qs, void* kv, void* ks,
                                 void* vv, void* vs, void* qm, void* km, void* vm, void* cc,
-                                void* kb, void* vb, int B,
+                                void* kb, void* vb, void* qzp, void* kzp, void* vzp, void* ys,
+                                void* st, void* qb, int B,
                                 int Hq, int Hkv, int Sq, int Sk, int D, long long bsb,
                                 long long bsh, long long bsq, long long bsk, float scale, int left,
                                 int right, int flags, int qmax_q, int qmax_k, int qmax_v, int Tq,
-                                int Tkv, int in_dtype, int out_dtype, void* stream) {
+                                int Tkv, int q_group, int k_group, int v_group, int in_dtype,
+                                int out_dtype, void* stream) {
   const bool int4 = flags & (F_Q_INT4 | F_K_INT4 | F_V_INT4);
+  const bool asym = flags & F_ASYM, dense = flags & F_Q_DENSE;
+  const bool pre = asym || q_group || k_group || v_group;
   if (D < 1 || D > MAXD || Hkv < 1 || Hq % Hkv != 0 || in_dtype < 0 || in_dtype > 1 ||
       out_dtype < 0 || out_dtype > 1 || (int4 && D % 2) ||
       ((flags & F_HADAMARD) && (D & (D - 1))) || Tq < 1 || Tkv < 1 ||
       ((flags & F_SMOOTH) && (!km || !vm)) || ((flags & F_SMOOTH_Q) && (!qm || !cc)) || !kv ||
-      !ks || !vv || !vs || !kb || !vb || (!qv != !qs))
+      !ks || !vv || !vs || !kb || !vb || (!qv != !qs) || q_group < 0 || k_group < 0 ||
+      v_group < 0 || (asym && (!kzp || !vzp || (!qv != !qzp))) ||
+      (pre && (!ys || !st || (!dense && !qb))))
     return cudaErrorInvalidValue;
   const FQParams p{q, k, v, static_cast<const float*>(bias), out, static_cast<float*>(lse),
                    static_cast<int8_t*>(qv), static_cast<float*>(qs), static_cast<int8_t*>(kv),
                    static_cast<float*>(ks), static_cast<int8_t*>(vv), static_cast<float*>(vs),
                    static_cast<float*>(qm), static_cast<float*>(km), static_cast<float*>(vm),
                    static_cast<float*>(cc), static_cast<__nv_bfloat16*>(kb),
-                   static_cast<__nv_bfloat16*>(vb),
+                   static_cast<__nv_bfloat16*>(vb), static_cast<int*>(qzp),
+                   static_cast<int*>(kzp), static_cast<int*>(vzp), static_cast<float*>(ys),
+                   static_cast<float*>(st), static_cast<__nv_bfloat16*>(qb),
                    B, Hq, Hkv, Sq, Sk, D, bsb, bsh, bsq, bsk, scale, left, right,
-                   flags, qmax_q, qmax_k, qmax_v, Tq, Tkv,
+                   flags, qmax_q, qmax_k, qmax_v, Tq, Tkv, q_group, k_group, v_group,
                    // The rotation's entries: fp32(D^-1/2), as the host's hadamard_matrix.
                    (float)pow((double)D, -0.5),
                    copy_mode(kb, D) < copy_mode(vb, D) ? copy_mode(kb, D) : copy_mode(vb, D)};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaStream_t strm = static_cast<cudaStream_t>(stream);
   if (in_dtype == 0)
-    return out_dtype == 0 ? launch_d<float, float>(p, st) : launch_d<float, __nv_bfloat16>(p, st);
-  return out_dtype == 0 ? launch_d<__nv_bfloat16, float>(p, st)
-                        : launch_d<__nv_bfloat16, __nv_bfloat16>(p, st);
+    return out_dtype == 0 ? launch_d<float, float>(p, strm)
+                          : launch_d<float, __nv_bfloat16>(p, strm);
+  return out_dtype == 0 ? launch_d<__nv_bfloat16, float>(p, strm)
+                        : launch_d<__nv_bfloat16, __nv_bfloat16>(p, strm);
 }
 
 // Dynamic shared memory of the attention kernel that umfa_fused_qattn

@@ -1,13 +1,13 @@
-// Quantized (INT8) attention forward on pre-quantized operands, for
+// Quantized (INT8/INT4) attention forward on pre-quantized operands, for
 // Hopper, sm_90a, on the tensor cores.
 //
 // Replaces umfa_tpu/ops/quant_attention.py:74 `_quant_fwd_kernel` (host
-// `quantized_attention_forward`, quant_attention.py:295) for symmetric INT8
-// operands with per-row or per-tensor scales, bias, causal/window and GQA,
-// head dims up to 256 (D % 4 == 0; templates 64, 128, 256, a smaller D
-// zero-padded to the template width, where int8 zeros add nothing to the
-// dot). INT4 operands, asymmetric zero points, the Q-mean correction row,
-// integer P·V and block-sparse walks are not ported yet.
+// `quantized_attention_forward`, quant_attention.py:295) for INT8 or INT4
+// operands (each its own), symmetric or asymmetric, with per-row or
+// per-tensor scales, the Q-mean correction row, bias, causal/window and
+// GQA, head dims up to 256 (D % 4 == 0; templates 64, 128, 256, a smaller
+// D zero-padded to the template width, where int8 zeros add nothing to
+// the dot). Integer P·V and block-sparse walks are not ported yet.
 //
 // What bounds it on this card: at the serving prefill (B8 Hq16 Hkv8, 4032
 // causal queries against the 4096-row INT8 cache, D 64) the work is
@@ -33,7 +33,13 @@
 //   * the int8 K and V tiles of 64 keys and their scales arrive by cp.async
 //     into three buffers, two tiles ahead (16-byte copies when D % 16 == 0
 //     and the operands are 16-byte aligned, 4-byte copies otherwise); rows
-//     past Sk and columns past D are zero-filled by the copy. Key tiles
+//     past Sk and columns past D are zero-filled by the copy. An INT4
+//     operand (split-halves nibbles) is unpacked into the same int8 tile
+//     while it is staged, by plain loads and stores in the same ring
+//     (`unpack_tile`), so the int8 QKᵀ runs as it is: the card's integer
+//     tensor-core rate is int8's. The per-key rows (the Q-mean corr row,
+//     the asymmetric zero points and row sums) stream with the key tile
+//     like its scales. Key tiles
 //     hidden from the whole block are never loaded, a warp skips a tile its
 //     rows cannot see, and masks and bias are applied only on tiles that
 //     cross a mask edge or carry a bias;
@@ -53,14 +59,18 @@
 // QKᵀ and its scaling for every visible tile.
 //
 // Arithmetic held to the reference (quant_attention.py:166-256):
-//   s = float(int32 dot) * q_scale * k_scale, two rounded multiplies with
-//   the softmax scale already folded into q_scale by the host, then a
-//   rounded add of the bias (never contracted, so both passes get the same
-//   bits); index mask (causal, window, KV tail) -> -1e30 and P = 0 (a
-//   -1e30 bias is not an index mask); l sums the fp32 P; P·V takes bf16(P)
-//   and the dequantized V tile, accumulated in fp32; output fp32; a row
-//   with no visible key writes out = 0 and LSE -1e30; q head h reads kv
-//   head h / (Hq / Hkv).
+//   s = float(int32 dot); asymmetric, s − zq·rs_k − zk·rs_q + (D·zq)·zk,
+//   rounded fp32 steps in that order (zero points and row sums exact in
+//   fp32); then · q_scale · k_scale, two rounded multiplies with the
+//   softmax scale already folded into q_scale by the host; then rounded
+//   adds of the corr row (scale folded in) and of the bias (never
+//   contracted, so both passes get the same bits); index mask (causal,
+//   window, KV tail) -> -1e30 and P = 0 (a -1e30 bias is not an index
+//   mask); l sums the fp32 P; P·V takes bf16(P) and the dequantized V tile
+//   bf16(bf16(v)·bf16(v_scale)), or, asymmetric, bf16(P·v_scale) and the
+//   integer V codes, less Σ P·v_scale·zv in fp32; accumulated in fp32;
+//   output fp32; a row with no visible key writes out = 0 and LSE -1e30;
+//   q head h reads kv head h / (Hq / Hkv).
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -76,6 +86,14 @@ struct QParams {
   const float* ks;  // (B, Hkv, Sk | 1)
   const float* vs;  // (B, Hkv, Sk | 1)
   const float* bias;
+  const float* corr;  // (B, Hq, Sk) the Q-mean row, softmax scale folded in, or null
+  // Asymmetric (or null): zero points laid out as the scales, row sums
+  // (B, H, S) of the codes, as fp32.
+  const float* qz;
+  const float* qr;
+  const float* kz;
+  const float* kr;
+  const float* vz;
   float* out;
   float* lse;
   int B, Hq, Hkv, Sq, Sk, D;
@@ -83,6 +101,8 @@ struct QParams {
   long long bsb, bsh, bsq, bsk;
   int left, right;
   int vec;  // D % 16 == 0 and q/k/v 16-byte aligned: 16-byte copies
+  int q4, k4, v4;  // INT4 operands, D / 2 packed bytes a row
+  float dz;  // the head dim of the zero-point term (before any padding)
 };
 
 // Tile geometry: 8 warps of 16 query rows each, BQ = 128 query rows a
@@ -106,6 +126,13 @@ struct Cfg {
   static constexpr int KS = VB + 2 * BK * LDV * 2;  // [3][BK] fp32
   static constexpr int VS = KS + 3 * BK * 4;        // [3][BK] fp32
   static constexpr int BYTES = VS + 3 * BK * 4;
+  // The variants' per-key rows: corr, K's zero points and row sums, V's
+  // zero points.
+  static constexpr int CR = BYTES;                  // [3][BK] fp32 each
+  static constexpr int KZ = CR + 3 * BK * 4;
+  static constexpr int KR = KZ + 3 * BK * 4;
+  static constexpr int VZ = KR + 3 * BK * 4;
+  static constexpr int BYTES_VAR = VZ + 3 * BK * 4;
 };
 
 // Rows [r0, r0 + R) of an int8 (n, D) matrix into a tile of row stride
@@ -137,8 +164,43 @@ __device__ __forceinline__ void copy_tile(int8_t* dst, const int8_t* src, int r0
   }
 }
 
-template <int DP>
-__global__ void __launch_bounds__(Cfg<DP>::NTH, Cfg<DP>::MINB)
+// The same rows of a packed INT4 (n, D / 2) matrix, unpacked into int8
+// codes (split halves: byte j holds element j, low nibble, and j + D / 2)
+// by plain loads and stores, a 4-byte word of packed codes a thread: its
+// low nibbles are columns 4w..4w+3, its high ones D/2 + 4w..; each nibble
+// sign-extended to a byte by a byte-wise subtract (__vsub4). D % 8 == 0 and
+// src 4-byte aligned; rows past n and columns past D are zero.
+template <int DP, int R, int NTH>
+__device__ __forceinline__ void unpack_tile(int8_t* dst, const int8_t* src, int r0, int n,
+                                            int D) {
+  constexpr int LD = DP + 16, WR = DP / 8;  // at most DP / 8 packed words a row
+  const int h = D / 2, hw = h / 4;
+  for (int e = threadIdx.x; e < R * WR; e += NTH) {
+    const int r = e / WR, w = e - r * WR;
+    if (w >= hw) continue;
+    uint32_t pk = 0;
+    if (r0 + r < n) pk = *reinterpret_cast<const uint32_t*>(src + (long long)(r0 + r) * h + 4 * w);
+    const uint32_t lo = __vsub4((pk & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
+    const uint32_t hi = __vsub4(((pk >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
+    *reinterpret_cast<uint32_t*>(dst + r * LD + 4 * w) = lo;
+    *reinterpret_cast<uint32_t*>(dst + r * LD + h + 4 * w) = hi;
+  }
+  const int zw = (DP - D) / 4;  // zero words past D
+  for (int e = threadIdx.x; e < R * zw; e += NTH) {
+    const int r = e / zw;
+    *reinterpret_cast<uint32_t*>(dst + r * LD + D + 4 * (e - r * zw)) = 0u;
+  }
+}
+
+// VAR 0: symmetric INT8, two blocks an SM at D <= 128. VAR 1: INT4 operands
+// and the corr row; VAR 2: ASYMMETRIC (INT4 and corr too). The variants
+// are their own instantiations, so the symmetric INT8 kernel compiles none
+// of their code. They keep two blocks an SM at D 64 (under its 128
+// registers they spill 24 and 64 bytes a thread, and ran 3.5 and 4.2 ms at
+// the training shape against 5.1 and 4.9 with one block) and one at D 128
+// (two spilled 184 and 328 bytes).
+template <int DP, int VAR>
+__global__ void __launch_bounds__(Cfg<DP>::NTH, VAR ? (DP <= 64 ? 2 : 1) : Cfg<DP>::MINB)
     quant_attn_fwd_tc_kernel(const QParams p) {
   using L = Cfg<DP>;
   constexpr int NTH = L::NTH, BQ_ = L::BQ;
@@ -146,6 +208,7 @@ __global__ void __launch_bounds__(Cfg<DP>::NTH, Cfg<DP>::MINB)
   constexpr int KS = DP / 32;       // 32-deep steps of QKᵀ
   constexpr int NA = DP / 8;        // 8-column accumulator tiles of out
   constexpr bool QREG = DP <= 128;  // Q's A fragments held in registers
+  constexpr bool ASYM = VAR == 2;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   int8_t* sQ = reinterpret_cast<int8_t*>(smem_raw + L::Q);
   int8_t* sK = reinterpret_cast<int8_t*>(smem_raw + L::K);
@@ -153,19 +216,32 @@ __global__ void __launch_bounds__(Cfg<DP>::NTH, Cfg<DP>::MINB)
   __nv_bfloat16* sVb = reinterpret_cast<__nv_bfloat16*>(smem_raw + L::VB);
   float* sKs = reinterpret_cast<float*>(smem_raw + L::KS);
   float* sVs = reinterpret_cast<float*>(smem_raw + L::VS);
+  // The variants' per-key rows: corr, K's zero points and row sums, V's
+  // zero points.
+  float* sCr = reinterpret_cast<float*>(smem_raw + L::CR);
+  float* sKz = reinterpret_cast<float*>(smem_raw + L::KZ);
+  float* sKr = reinterpret_cast<float*>(smem_raw + L::KR);
+  float* sVz = reinterpret_cast<float*>(smem_raw + L::VZ);
   const __nv_bfloat16* wQ = reinterpret_cast<const __nv_bfloat16*>(sQ);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tq = lane & 3;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ_, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (p.Hq / p.Hkv);
-  const int8_t* q = p.q + ((long long)b * p.Hq + h) * p.Sq * p.D;
-  const int8_t* k = p.k + ((long long)b * p.Hkv + hk) * p.Sk * p.D;
-  const int8_t* v = p.v + ((long long)b * p.Hkv + hk) * p.Sk * p.D;
+  const bool q4 = VAR && p.q4, k4 = VAR && p.k4, v4 = VAR && p.v4;
+  const int8_t* q = p.q + ((long long)b * p.Hq + h) * p.Sq * (q4 ? p.D / 2 : p.D);
+  const int8_t* k = p.k + ((long long)b * p.Hkv + hk) * p.Sk * (k4 ? p.D / 2 : p.D);
+  const int8_t* v = p.v + ((long long)b * p.Hkv + hk) * p.Sk * (v4 ? p.D / 2 : p.D);
   const float* qs = p.qs + ((long long)b * p.Hq + h) * (p.qs_rows ? p.Sq : 1);
   const float* ks = p.ks + ((long long)b * p.Hkv + hk) * (p.ks_rows ? p.Sk : 1);
   const float* vs = p.vs + ((long long)b * p.Hkv + hk) * (p.vs_rows ? p.Sk : 1);
   const float* bias = p.bias ? p.bias + b * p.bsb + h * p.bsh : nullptr;
+  const bool has_corr = VAR && p.corr;
+  const float* corr = has_corr ? p.corr + ((long long)b * p.Hq + h) * p.Sk : nullptr;
+  const long long kvh = (long long)b * p.Hkv + hk;
+  const float* kz = ASYM ? p.kz + kvh * (p.ks_rows ? p.Sk : 1) : nullptr;
+  const float* kr = ASYM ? p.kr + kvh * p.Sk : nullptr;
+  const float* vz = ASYM ? p.vz + kvh * (p.vs_rows ? p.Sk : 1) : nullptr;
 
   int k_lo, k_hi;
   visible_keys(q0, min(q0 + BQ_, p.Sq) - 1, p.Sk, p.left, p.right, &k_lo, &k_hi);
@@ -180,21 +256,50 @@ __global__ void __launch_bounds__(Cfg<DP>::NTH, Cfg<DP>::MINB)
     if (i < steps) {
       const int buf = i % 3, k0 = k0_of(i);
       const bool with_v = i >= n_t;
-      copy_tile<DP, BK, NTH>(sK + buf * BK * L::LD8, k, k0, p.Sk, p.D, p.vec);
-      if (with_v) copy_tile<DP, BK, NTH>(sV + buf * BK * L::LD8, v, k0, p.Sk, p.D, p.vec);
-      if (tid < BK)
-        copy_scale(sKs + buf * BK, ks, p.ks_rows, k0, tid, p.Sk);
-      else if (with_v && tid < 2 * BK)
-        copy_scale(sVs + buf * BK, vs, p.vs_rows, k0, tid - BK, p.Sk);
+      if constexpr (VAR == 0) {
+        copy_tile<DP, BK, NTH>(sK + buf * BK * L::LD8, k, k0, p.Sk, p.D, p.vec);
+        if (with_v) copy_tile<DP, BK, NTH>(sV + buf * BK * L::LD8, v, k0, p.Sk, p.D, p.vec);
+        if (tid < BK)
+          copy_scale(sKs + buf * BK, ks, p.ks_rows, k0, tid, p.Sk);
+        else if (with_v && tid < 2 * BK)
+          copy_scale(sVs + buf * BK, vs, p.vs_rows, k0, tid - BK, p.Sk);
+      } else {
+        if (k4)
+          unpack_tile<DP, BK, NTH>(sK + buf * BK * L::LD8, k, k0, p.Sk, p.D);
+        else
+          copy_tile<DP, BK, NTH>(sK + buf * BK * L::LD8, k, k0, p.Sk, p.D, p.vec);
+        if (with_v && v4)
+          unpack_tile<DP, BK, NTH>(sV + buf * BK * L::LD8, v, k0, p.Sk, p.D);
+        else if (with_v)
+          copy_tile<DP, BK, NTH>(sV + buf * BK * L::LD8, v, k0, p.Sk, p.D, p.vec);
+        // The per-key rows of the tile, BK threads each.
+        for (int e = tid; e < (ASYM ? 6 : 3) * BK; e += NTH) {
+          const int j = e % BK, o = buf * BK;
+          switch (e / BK) {
+            case 0: copy_scale(sKs + o, ks, p.ks_rows, k0, j, p.Sk); break;
+            case 1: if (with_v) copy_scale(sVs + o, vs, p.vs_rows, k0, j, p.Sk); break;
+            case 2: if (has_corr) copy_scale(sCr + o, corr, 1, k0, j, p.Sk); break;
+            case 3: copy_scale(sKz + o, kz, p.ks_rows, k0, j, p.Sk); break;
+            case 4: copy_scale(sKr + o, kr, 1, k0, j, p.Sk); break;
+            default: if (with_v) copy_scale(sVz + o, vz, p.vs_rows, k0, j, p.Sk);
+          }
+        }
+      }
     }
     cp_async_commit();  // empty groups keep the count of groups uniform
   };
-  if (steps > 0) copy_tile<DP, BQ_, NTH>(sQ, q, q0, p.Sq, p.D, p.vec);  // lands with tile 0
+  if (steps > 0) {  // lands with tile 0
+    if (q4)
+      unpack_tile<DP, BQ_, NTH>(sQ, q, q0, p.Sq, p.D);
+    else
+      copy_tile<DP, BQ_, NTH>(sQ, q, q0, p.Sq, p.D, p.vec);
+  }
   issue(0);
   issue(1);
 
-  // The V tile of step i, bf16(bf16(v) · bf16(vs)), into dequantized
-  // buffer i & 1: four codes a thread a row, the same column of each row.
+  // The V tile of step i, bf16(bf16(v) · bf16(vs)) (asymmetric: bf16(v),
+  // the scale goes on P), into dequantized buffer i & 1: four codes a
+  // thread a row, the same column of each row.
   auto dequant = [&](int i) {
     constexpr int W = DP / 4;
     static_assert(BK * W % NTH == 0, "whole sweeps");
@@ -205,7 +310,7 @@ __global__ void __launch_bounds__(Cfg<DP>::NTH, Cfg<DP>::MINB)
     for (int it = 0; it < BK * W / NTH; ++it) {
       const int e = tid + it * NTH, r = e / W, c = (e % W) * 4;
       const char4 x = *reinterpret_cast<const char4*>(cV + r * L::LD8 + c);
-      const float sc = round_bf16(cVs[r]);
+      const float sc = ASYM ? 1.f : round_bf16(cVs[r]);
       uint2 y;
       y.x = pack_bf16x2(__fmul_rn((float)x.x, sc), __fmul_rn((float)x.y, sc));
       y.y = pack_bf16x2(__fmul_rn((float)x.z, sc), __fmul_rn((float)x.w, sc));
@@ -217,6 +322,22 @@ __global__ void __launch_bounds__(Cfg<DP>::NTH, Cfg<DP>::MINB)
   const int row0 = q0 + rw + g, row1 = row0 + 8;  // this thread's two rows
   const float qsc[2] = {row0 < p.Sq ? qs[p.qs_rows ? row0 : 0] : 0.f,
                         row1 < p.Sq ? qs[p.qs_rows ? row1 : 0] : 0.f};
+  // Asymmetric: Q's zero points and row sums of the thread's two rows, and
+  // D·zq.
+  float qzr[2] = {0.f, 0.f}, qrs[2] = {0.f, 0.f}, dzq[2] = {0.f, 0.f};
+  if constexpr (ASYM) {
+    const float* qz = p.qz + ((long long)b * p.Hq + h) * (p.qs_rows ? p.Sq : 1);
+    const float* qr = p.qr + ((long long)b * p.Hq + h) * p.Sq;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = i ? row1 : row0;
+      if (row < p.Sq) {
+        qzr[i] = qz[p.qs_rows ? row : 0];
+        qrs[i] = qr[row];
+        dzq[i] = __fmul_rn(p.dz, qzr[i]);
+      }
+    }
+  }
   uint32_t qf[QREG ? KS : 1][4];
 
   // This thread's scores of keys k0 + 16 c + [0, 16) of the K tile wK:
@@ -224,6 +345,8 @@ __global__ void __launch_bounds__(Cfg<DP>::NTH, Cfg<DP>::MINB)
   // MASK_VALUE; element (jj, e) is row e < 2 ? row0 : row1, key
   // k0 + 16 c + 8 jj + 2 tq + (e & 1). With `edge` (the tile crosses a
   // mask edge or carries a bias) returns the bits 4 jj + e of the visible.
+  // The variants take the dot less the zero-point terms (in the
+  // reference's order) and add the corr row after the scales.
   auto chunk = [&](const int8_t* cK, const float* cKs, int k0, int c, bool edge,
                    float (&s)[2][4]) -> unsigned {
     const __nv_bfloat16* wK = reinterpret_cast<const __nv_bfloat16*>(cK);
@@ -245,9 +368,31 @@ __global__ void __launch_bounds__(Cfg<DP>::NTH, Cfg<DP>::MINB)
 #pragma unroll
     for (int jj = 0; jj < 2; ++jj) {
       const float2 kq = *reinterpret_cast<const float2*>(cKs + 16 * c + 8 * jj + 2 * tq);
+      if constexpr (VAR == 0) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        s[jj][e] = __fmul_rn(__fmul_rn((float)si[jj][e], qsc[e >> 1]), e & 1 ? kq.y : kq.x);
+        for (int e = 0; e < 4; ++e)
+          s[jj][e] = __fmul_rn(__fmul_rn((float)si[jj][e], qsc[e >> 1]), e & 1 ? kq.y : kq.x);
+      } else {
+        const int o = (cKs - sKs) + 16 * c + 8 * jj + 2 * tq;  // the tile's per-key rows
+        float2 kzv = make_float2(0.f, 0.f), krv = kzv, crv = kzv;
+        if constexpr (ASYM) {
+          kzv = *reinterpret_cast<const float2*>(sKz + o);
+          krv = *reinterpret_cast<const float2*>(sKr + o);
+        }
+        if (has_corr) crv = *reinterpret_cast<const float2*>(sCr + o);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = (float)si[jj][e];
+          if constexpr (ASYM) {
+            const float zk = e & 1 ? kzv.y : kzv.x;
+            x = __fsub_rn(x, __fmul_rn(qzr[e >> 1], e & 1 ? krv.y : krv.x));
+            x = __fsub_rn(x, __fmul_rn(zk, qrs[e >> 1]));
+            x = __fadd_rn(x, __fmul_rn(dzq[e >> 1], zk));
+          }
+          s[jj][e] = __fmul_rn(__fmul_rn(x, qsc[e >> 1]), e & 1 ? kq.y : kq.x);
+          if (has_corr) s[jj][e] = __fadd_rn(s[jj][e], e & 1 ? crv.y : crv.x);
+        }
+      }
     }
     unsigned vis = 0xffu;
     if (edge) {
@@ -268,6 +413,7 @@ __global__ void __launch_bounds__(Cfg<DP>::NTH, Cfg<DP>::MINB)
   };
 
   float m[2] = {MASK_VALUE, MASK_VALUE}, l[2] = {0.f, 0.f};
+  float zsum[2] = {0.f, 0.f};  // asymmetric: Σ P·v_scale·zv of the two rows
   float acc[NA][4];
 #pragma unroll
   for (int n = 0; n < NA; ++n)
@@ -320,7 +466,8 @@ __global__ void __launch_bounds__(Cfg<DP>::NTH, Cfg<DP>::MINB)
       }
     } else {
       // Pass 2: P = expf(s - m) against the final max; l sums the fp32 P,
-      // P·V takes bf16(P) and the dequantized V tile.
+      // P·V takes bf16(P) and the dequantized V tile (asymmetric:
+      // bf16(P·v_scale) and the V codes, the zero points summed aside).
       const __nv_bfloat16* cVb = sVb + (i & 1) * BK * L::LDV;
 #pragma unroll
       for (int c = 0; c < BK / 16; ++c) {
@@ -343,6 +490,19 @@ __global__ void __launch_bounds__(Cfg<DP>::NTH, Cfg<DP>::MINB)
           l[0] += s[jj][0] + s[jj][1];
           l[1] += s[jj][2] + s[jj][3];
         }
+        if constexpr (ASYM) {
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj) {
+            const int kc = (i % 3) * BK + 16 * c + 8 * jj + 2 * tq;
+            const float2 sv = *reinterpret_cast<const float2*>(sVs + kc);
+            const float2 zv = *reinterpret_cast<const float2*>(sVz + kc);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              s[jj][e] = __fmul_rn(s[jj][e], e & 1 ? sv.y : sv.x);
+              zsum[e >> 1] += __fmul_rn(s[jj][e], e & 1 ? zv.y : zv.x);
+            }
+          }
+        }
         uint32_t a[4];
         pack_a(a, s[0], s[1]);
 #pragma unroll
@@ -362,6 +522,14 @@ __global__ void __launch_bounds__(Cfg<DP>::NTH, Cfg<DP>::MINB)
   for (int i = 0; i < 2; ++i) {
     const int row = i ? row1 : row0;
     const float lsum = quad_sum(l[i]);
+    if constexpr (ASYM) {
+      const float zs = quad_sum(zsum[i]);
+#pragma unroll
+      for (int n = 0; n < NA; ++n) {
+        acc[n][2 * i] = __fsub_rn(acc[n][2 * i], zs);
+        acc[n][2 * i + 1] = __fsub_rn(acc[n][2 * i + 1], zs);
+      }
+    }
     if (row >= p.Sq) continue;
     const bool empty = lsum == 0.f;
     const float l_safe = empty ? 1.f : lsum;
@@ -376,16 +544,23 @@ __global__ void __launch_bounds__(Cfg<DP>::NTH, Cfg<DP>::MINB)
   }
 }
 
-template <int DP>
-cudaError_t launch(const QParams& p, cudaStream_t stream) {
-  constexpr int smem = Cfg<DP>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(quant_attn_fwd_tc_kernel<DP>,
+template <int DP, int VAR>
+cudaError_t launch_var(const QParams& p, cudaStream_t stream) {
+  constexpr int smem = VAR ? Cfg<DP>::BYTES_VAR : Cfg<DP>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(quant_attn_fwd_tc_kernel<DP, VAR>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   constexpr int bq = Cfg<DP>::BQ, nth = Cfg<DP>::NTH;
   const dim3 grid((p.Sq + bq - 1) / bq, p.Hq, p.B);
-  quant_attn_fwd_tc_kernel<DP><<<grid, nth, smem, stream>>>(p);
+  quant_attn_fwd_tc_kernel<DP, VAR><<<grid, nth, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t launch(const QParams& p, cudaStream_t stream) {
+  if (p.kz) return launch_var<DP, 2>(p, stream);
+  if (p.q4 || p.k4 || p.v4 || p.corr) return launch_var<DP, 1>(p, stream);
+  return launch_var<DP, 0>(p, stream);
 }
 
 bool takes(int D) { return D >= 4 && D <= 256 && D % 4 == 0; }
@@ -393,15 +568,24 @@ bool takes(int D) { return D >= 4 && D <= 256 && D % 4 == 0; }
 }  // namespace
 
 // q (B, Hq, Sq, D), k/v (B, Hkv, Sk, D): contiguous int8, D <= 256 and
-// D % 4 == 0, 4-byte aligned. Scales contiguous float32. out (B, Hq, Sq, D)
+// D % 4 == 0, 4-byte aligned; an operand flagged INT4 (int4 bit 1 Q, 2 K,
+// 4 V) is (…, D / 2) packed split-halves, D % 8 == 0. Scales contiguous float32. corr
+// (B, Hq, Sk) float32 or null. Asymmetric: qz, kz, vz zero points laid out
+// as the scales and qr (B, Hq, Sq), kr (B, Hkv, Sk) row sums, all float32
+// (or all null); dz the head dim of the zero-point term. out (B, Hq, Sq, D)
 // and lse (B, Hq, Sq) float32. Returns the cudaError_t of the launch.
 extern "C" int umfa_quant_attn_fwd(const void* q, const void* k, const void* v, const void* qs,
-                                   const void* ks, const void* vs, const void* bias, void* out,
+                                   const void* ks, const void* vs, const void* bias,
+                                   const void* corr, const void* qz, const void* qr,
+                                   const void* kz, const void* kr, const void* vz, void* out,
                                    void* lse, int B, int Hq, int Hkv, int Sq, int Sk, int D,
                                    int qs_rows, int ks_rows, int vs_rows, long long bsb,
                                    long long bsh, long long bsq, long long bsk, int left,
-                                   int right, void* stream) {
-  if (!takes(D) || Hkv < 1 || Hq % Hkv != 0) return cudaErrorInvalidValue;
+                                   int right, int int4, int dz, void* stream) {
+  const bool asym = qz || qr || kz || kr || vz;
+  if (!takes(D) || Hkv < 1 || Hq % Hkv != 0 || int4 < 0 || int4 > 7 || (int4 && D % 8) ||
+      (asym && !(qz && qr && kz && kr && vz)))
+    return cudaErrorInvalidValue;
   const int vec = D % 16 == 0 && ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                                    reinterpret_cast<uintptr_t>(v)) & 15) == 0;
   const QParams p{static_cast<const int8_t*>(q),
@@ -411,12 +595,18 @@ extern "C" int umfa_quant_attn_fwd(const void* q, const void* k, const void* v, 
                   static_cast<const float*>(ks),
                   static_cast<const float*>(vs),
                   static_cast<const float*>(bias),
+                  static_cast<const float*>(corr),
+                  static_cast<const float*>(qz),
+                  static_cast<const float*>(qr),
+                  static_cast<const float*>(kz),
+                  static_cast<const float*>(kr),
+                  static_cast<const float*>(vz),
                   static_cast<float*>(out),
                   static_cast<float*>(lse),
                   B, Hq, Hkv, Sq, Sk, D,
                   qs_rows, ks_rows, vs_rows,
                   bsb, bsh, bsq, bsk,
-                  left, right, vec};
+                  left, right, vec, int4 & 1, (int4 >> 1) & 1, (int4 >> 2) & 1, (float)dz};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D <= 64) return launch<64>(p, st);
   if (D <= 128) return launch<128>(p, st);

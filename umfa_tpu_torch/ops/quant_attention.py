@@ -1,35 +1,40 @@
-"""Quantized attention forward on pre-quantized INT8 operands (port of
+"""Quantized attention forward on pre-quantized INT8/INT4 operands (port of
 umfa_tpu/ops/quant_attention.py:295 `quantized_attention_forward`).
 
 `quantized_attention_forward` launches the CUDA kernel
-`csrc/quant_attn_fwd.cu` (int8 tensor cores for QKᵀ, bf16 for P·V; head_dim
-<= 256, the codes zero-padded to a multiple of 16 where head_dim is not a
-multiple of 4) on CUDA tensors and runs `quantized_attention_forward_plain`,
-the same arithmetic in plain PyTorch, on CPU tensors; no fallback between
-them.
+`csrc/quant_attn_fwd.cu` (int8 tensor cores for QKᵀ, INT4 codes unpacked to
+int8 as they are staged (here first where head_dim is not a multiple of
+8), bf16 for P·V; head_dim <= 256, the codes zero-padded to a multiple of
+16 where head_dim is not a multiple of 4) on
+CUDA tensors and runs `quantized_attention_forward_plain`, the same
+arithmetic in plain PyTorch, on CPU tensors; no fallback between them.
 
-Arithmetic (quant_attention.py:166-256): s = int32(q_i8 · k_i8) ·
-(q_scale · softmax_scale) · k_scale + bias, index mask → -1e30,
-P = exp(s - m) against the row max m, the FP32 row sum of P, P·V on
-bf16(P) and the dequantized V tile bf16(bf16(v_i8) · bf16(v_scale)) with
-FP32 accumulation; FP32 output. The kernel finds m in a first pass, so it
-rounds P where this plain version does (the reference's one-pass kernel
-rounds relative to a running max; where it walks a single KV tile, as in
-the parity tests, that is the same point). Masking semantics are those of
-ops/flash_fwd.py.
+Arithmetic (quant_attention.py:166-256): s = int32(q_code · k_code) (INT4
+codes unpacked from split halves); ASYMMETRIC, s − zq·rs_k − zk·rs_q +
+D·zq·zk in fp32 (zero points and code row sums); then · (q_scale ·
+softmax_scale) · k_scale, + score_corr · softmax_scale (the Q-mean row),
++ bias, index mask → -1e30, P = exp(s - m) against the row max m, the FP32
+row sum of P, P·V on bf16(P) and the dequantized V tile bf16(bf16(v_code) ·
+bf16(v_scale)) with FP32 accumulation, or ASYMMETRIC on bf16(P · v_scale)
+and the V codes, less Σ P · v_scale · zv; FP32 output. The kernel finds m
+in a first pass, so it rounds P where this plain version does (the
+reference's one-pass kernel rounds relative to a running max; where it
+walks a single KV tile, as in the parity tests, that is the same point).
+Masking semantics are those of ops/flash_fwd.py.
 
-Supported: symmetric INT8 with per-row (ROW/BLOCK) or per-tensor scales,
-bias, causal/window, GQA. Not ported yet (raise NotImplementedError, ROADMAP,
-Queue 2: row 5's unported variants): INT4 operands, ASYMMETRIC,
-`score_corr`, `pv_int8`, `block_map`/`fetch_ids`.
+Supported: INT8 or INT4 per operand, symmetric or asymmetric (one
+strategy for all three), per-row (ROW/BLOCK) or per-tensor scales,
+`score_corr`, bias, causal/window, GQA. Not ported yet (raise
+NotImplementedError, ROADMAP, Queue 2: row 5's unported variants):
+`pv_int8`, `block_map`/`fetch_ids`.
 
 `quantized_flash_attention` is the differentiable STE route (port of
 quant_attention.py:597-1095): runtime quantization and attention in one
 launch (`ops/quant_fused_attn.py`) where the reference's rules allow it,
 else the two-pass route (`_quantize_operands`, then the kernel above, then
 the V-mean restore); the backward runs on the quantized residuals
-(`ops/quant_bwd.py`), or for a dense Q on the dequantized K/V through the
-dense backward (`ops/flash_bwd.py`). The reference's window auto-tiling
+(`ops/quant_bwd.py`), or, for a dense Q or ASYMMETRIC residuals, on the
+dequantized operands through the dense backward (`ops/flash_bwd.py`). The reference's window auto-tiling
 (quant_attention.py:1037-1056) is TPU tile scheduling and is left out.
 """
 
@@ -71,17 +76,22 @@ from umfa_tpu_torch.ops.quant_fused_attn import (
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ROW5 = "(ROADMAP, Queue 2: row 5's unported variants)"
-_ARGTYPES = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-             _I, _I, _I, _L, _L, _L, _L, _I, _I, _P)
+# q k v qs ks vs bias corr qz qr kz kr vz out lse | B Hq Hkv Sq Sk D | qs_rows
+# ks_rows vs_rows | bsb bsh bsq bsk | left right int4 dz | stream
+_ARGTYPES = (*(_P,) * 15, *(_I,) * 6, _I, _I, _I, _L, _L, _L, _L, _I, _I, _I, _I, _P)
 
 
 class _Prepared(NamedTuple):
-    q: torch.Tensor        # int8 (B, Hq, Sq, D)
-    k: torch.Tensor        # int8 (B, Hkv, Sk, D)
+    q: torch.Tensor        # int8 (B, Hq, Sq, D), or (…, D/2) packed INT4
+    k: torch.Tensor        # int8 (B, Hkv, Sk, D or D/2)
     v: torch.Tensor
+    int4: tuple            # (q, k, v) INT4 packed
+    d: int                 # head dim
     q_scales: torch.Tensor  # f32 (B, Hq, Sq|1, 1), softmax scale folded in
     k_scales: torch.Tensor  # f32 (B, Hkv, Sk|1, 1)
     v_scales: torch.Tensor
+    asym: Optional[tuple]  # f32 (qz, qr, kz, kr, vz): zero points like the scales, row sums (…, S, 1)
+    corr: Optional[torch.Tensor]  # f32 (B, Hq, 1, Sk), softmax scale folded in
     bias: Optional[torch.Tensor]
     left: int
     right: int
@@ -96,36 +106,60 @@ def _scales(t: torch.Tensor, b: int, h: int, s: int, name: str) -> torch.Tensor:
 
 def _prepare(qt_q, qt_k, qt_v, bias, score_corr, block_map, fetch_ids,
              causal, window, scale, out_dtype, pv_int8) -> _Prepared:
-    for qt in (qt_q, qt_k, qt_v):
-        if qt.precision != Precision.INT8:
-            raise NotImplementedError(f"INT4 operands are not ported yet {_ROW5}")
-        if qt.strategy != QuantStrategy.SYMMETRIC:
-            raise NotImplementedError(f"ASYMMETRIC quantization is not ported yet {_ROW5}")
-    if score_corr is not None:
-        raise NotImplementedError(f"score_corr (Q-mean smoothing) is not ported yet {_ROW5}")
     if pv_int8:
         raise NotImplementedError(f"pv_int8 (integer P·V) is not ported yet {_ROW5}")
     if block_map is not None or fetch_ids is not None:
         raise NotImplementedError(f"block-sparse block_map/fetch_ids are not ported yet {_ROW5}")
+    asym = qt_q.strategy == QuantStrategy.ASYMMETRIC
+    for qt in (qt_q, qt_k, qt_v):
+        if not qt.precision.is_integer:
+            raise ValueError(f"quantized operands are INT8 or INT4, got {qt.precision}")
+        if (qt.strategy == QuantStrategy.ASYMMETRIC) != asym:
+            raise ValueError("mixed quantization strategies are not supported")
     b, hq, sq, _ = qt_q.orig_shape
     _, hkv, sk, d = qt_k.orig_shape
     q, k, v = qt_q.values, qt_k.values, qt_v.values
-    if tuple(q.shape) != (b, hq, sq, d) or tuple(k.shape) != (b, hkv, sk, d) or v.shape != k.shape:
+    int4 = tuple(qt.precision == Precision.INT4 for qt in (qt_q, qt_k, qt_v))
+    w = [d // 2 if i4 else d for i4 in int4]
+    if (tuple(q.shape) != (b, hq, sq, w[0]) or tuple(k.shape) != (b, hkv, sk, w[1])
+            or tuple(v.shape) != (b, hkv, sk, w[2])):
         raise ValueError(f"value shapes {tuple(q.shape)}/{tuple(k.shape)}/{tuple(v.shape)} do not match orig_shape")
+    if any(int4) and d % 2:
+        raise ValueError("INT4 operands need an even head_dim")
     if hq % hkv:
         raise ValueError(f"q heads {hq} must be a multiple of kv heads {hkv}")
     if scale is None:
         scale = d**-0.5
-    # Softmax scale folded into the Q scales (quant_attention.py:359-363).
+    # Softmax scale folded into the Q scales and the corr row
+    # (quant_attention.py:359-363, :461-472).
     q_scales = _scales(qt_q.scales, b, hq, sq, "q") * scale
     k_scales = _scales(qt_k.scales, b, hkv, sk, "k")
     v_scales = _scales(qt_v.scales, b, hkv, sk, "v")
+    zps = None
+    if asym:
+        # As fp32, as the reference reads them: integers below 2^24, exact.
+        zps = []
+        for name, qt, heads, s_ in (("q", qt_q, hq, sq), ("k", qt_k, hkv, sk), ("v", qt_v, hkv, sk)):
+            if qt.zero_points is None or tuple(qt.zero_points.shape) != tuple(qt.scales.shape):
+                raise ValueError(f"{name} zero points must be laid out as its scales")
+            zps.append(qt.zero_points.float())
+            if name != "v":
+                if qt.row_sums is None or tuple(qt.row_sums.shape) != (b, heads, s_, 1):
+                    raise ValueError(f"{name} row sums of shape ({b}, {heads}, {s_}, 1) needed")
+                zps.append(qt.row_sums.float())
+        zps = tuple(zps)
+    corr = None
+    if score_corr is not None:
+        if tuple(score_corr.shape) != (b, hq, 1, sk):
+            raise ValueError(f"score_corr of shape {tuple(score_corr.shape)}; expected {(b, hq, 1, sk)}")
+        corr = score_corr.float() * scale
     if bias is not None:
         while bias.dim() < 4:
             bias = bias[None]
         bias = broadcast_bias(bias, b, hq, sq, sk)
     left, right = fold_mask(causal, window)
-    return _Prepared(q, k, v, q_scales, k_scales, v_scales, bias, left, right, out_dtype)
+    return _Prepared(q, k, v, int4, d, q_scales, k_scales, v_scales, zps, corr, bias, left,
+                     right, out_dtype)
 
 
 def quantized_attention_forward(
@@ -170,15 +204,32 @@ def quantized_attention_forward_plain(
     return out.to(p.out_dtype), lse
 
 
+def _unpacked(p: _Prepared):
+    return tuple(unpack_int4(x) if i4 else x for x, i4 in zip((p.q, p.k, p.v), p.int4))
+
+
 def _plain(p: _Prepared):
-    b, hq, sq, d = p.q.shape
-    _, hkv, sk, _ = p.k.shape
+    q, k, v = _unpacked(p)
+    b, hq, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
     g = hq // hkv
+
+    def kv_row(t):  # a K/V per-key column (…, Sk|1, 1) as a q-head row (…, 1, Sk|1)
+        return t.repeat_interleave(g, dim=1).transpose(-1, -2)
+
     # Integer dot in fp32: every partial sum of int8 products is an integer
     # below 2^24 for D <= 1024, so it is exact (even under TF32).
-    s = torch.matmul(p.q.float().reshape(b, hkv, g * sq, d), p.k.float().transpose(-1, -2))
+    s = torch.matmul(q.float().reshape(b, hkv, g * sq, d), k.float().transpose(-1, -2))
     s = s.reshape(b, hq, sq, sk)
-    s.mul_(p.q_scales).mul_(p.k_scales.repeat_interleave(g, dim=1).transpose(-1, -2))
+    if p.asym is not None:
+        # Σ(qq − zq)(qk − zk) = dot − zq·rs_k − zk·rs_q + D·zq·zk, fp32 steps
+        # in the reference's order (quant_attention.py:176-181).
+        qz, qr, kz, kr, _ = p.asym
+        kz, kr = kv_row(kz), kv_row(kr)
+        s = s - qz * kr - kz * qr + (d * qz) * kz
+    s.mul_(p.q_scales).mul_(kv_row(p.k_scales))
+    if p.corr is not None:
+        s += p.corr
     if p.bias is not None:
         s += p.bias
     hidden = ~visible_mask(sq, sk, p.left, p.right, s.device)
@@ -186,10 +237,19 @@ def _plain(p: _Prepared):
     m = s.amax(dim=-1, keepdim=True).clamp_min(DEFAULT_MASK_VALUE)
     s.sub_(m).exp_().masked_fill_(hidden, 0.0)
     l = s.sum(dim=-1)
+    if p.asym is not None:
+        # V's scale folded into P, its zero point subtracted after the dot
+        # (quant_attention.py:231-243).
+        s.mul_(kv_row(p.v_scales))
+        zsum = (s * kv_row(p.asym[4])).sum(dim=-1, keepdim=True)
+        v_deq = v.to(torch.bfloat16).float()
+    else:
+        v_deq = (v.to(torch.bfloat16) * p.v_scales.to(torch.bfloat16)).float()
     pb = s.to(torch.bfloat16)
     del s
-    v_deq = (p.v.to(torch.bfloat16) * p.v_scales.to(torch.bfloat16)).float()
     pv = torch.matmul(pb.float().reshape(b, hkv, g * sq, sk), v_deq).reshape(b, hq, sq, d)
+    if p.asym is not None:
+        pv = pv - zsum
     empty = l == 0
     l_safe = torch.where(empty, torch.ones_like(l), l)
     out = pv / l_safe[..., None]
@@ -202,28 +262,35 @@ def _launch(p: _Prepared):
     dev = p.q.device
     tensors = {"q": p.q, "k": p.k, "v": p.v, "q_scales": p.q_scales,
                "k_scales": p.k_scales, "v_scales": p.v_scales}
+    if p.corr is not None:
+        tensors["score_corr"] = p.corr
+    for name, t in zip(("qz", "qr", "kz", "kr", "vz"), p.asym or ()):
+        tensors[name] = t
     for name, t in tensors.items():
         if t.device != dev or dev.type != "cuda":
             raise ValueError(f"quant_attn_fwd kernel needs every operand on one CUDA device; {name} is on {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"quant_attn_fwd kernel needs a contiguous {name}")
     for name in ("q", "k", "v"):
         if tensors[name].dtype != torch.int8:
             raise ValueError(f"quant_attn_fwd kernel needs int8 {name}")
     if p.bias is not None and p.bias.device != dev:
         raise ValueError(f"bias on {p.bias.device}, q on {dev}")
-    b, hq, sq, d = p.q.shape
+    b, hq, sq, _ = p.q.shape
     _, hkv, sk, _ = p.k.shape
+    d = p.d
     if d > 256:
         raise ValueError(f"quant_attn_fwd kernel takes head_dim <= 256, got {d}")
     q, k, v = p.q, p.k, p.v
+    int4 = p.int4
     dk = d  # the head dim the kernel sees
-    if d % 4:
+    if d % 4 or (any(int4) and d % 8):
         # Rows of zero codes to the next multiple of 16: exact zeros in the
         # s32 dot products, and V columns that are sliced off; the row
-        # scales are unchanged.
-        dk = -(-d // 16) * 16
-        q, k, v = (torch.nn.functional.pad(x, (0, dk - d)) for x in (q, k, v))
+        # scales are unchanged. INT4 codes are unpacked here first: the
+        # kernel unpacks whole 4-byte words of packed codes (D % 8 == 0),
+        # and the split halves of another width do not pad.
+        dk = -(-d // 16) * 16 if d % 4 else d
+        q, k, v = (torch.nn.functional.pad(x, (0, dk - d)) for x in _unpacked(p))
+        int4 = (False, False, False)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 4:
             raise ValueError(f"quant_attn_fwd kernel needs a 4-byte aligned {name}")
@@ -231,18 +298,26 @@ def _launch(p: _Prepared):
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out[..., :d], lse
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    # Keep the contiguous copies alive through the launch.
+    flat = [t.contiguous() for t in (q, k, v, p.q_scales, p.k_scales, p.v_scales)]
+    extra = [None if t is None else t.contiguous() for t in (p.corr, *(p.asym or (None,) * 5))]
     fn = _kernels.function("quant_attn_fwd", "umfa_quant_attn_fwd", _ARGTYPES)
     bsb, bsh, bsq, bsk = bias_strides(p.bias)
     with torch.cuda.device(dev):
         err = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            p.q_scales.data_ptr(), p.k_scales.data_ptr(), p.v_scales.data_ptr(),
+            *(t.data_ptr() for t in flat),
             None if p.bias is None else p.bias.data_ptr(),
+            *(ptr(t) for t in extra),
             out.data_ptr(), lse.data_ptr(),
             b, hq, hkv, sq, sk, dk,
             int(p.q_scales.shape[2] > 1), int(p.k_scales.shape[2] > 1),
             int(p.v_scales.shape[2] > 1),
             bsb, bsh, bsq, bsk, p.left, p.right,
+            int(int4[0]) | 2 * int(int4[1]) | 4 * int(int4[2]), d,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _kernels.check("quant_attn_fwd", err)
@@ -325,6 +400,7 @@ def _try_fused_single_launch(q, k, v, bias, config, causal, window, scale, out_d
         smooth_q=config.effective_smooth_q(), hadamard=config.hadamard,
         emit_residuals=emit_residuals, q_precision=config.q_precision,
         k_precision=config.k_precision, v_precision=config.v_precision,
+        strategy=config.strategy, mode=config.mode, quant_blocks=config.block_sizes,
         out_dtype=out_dtype or q.dtype)
 
 
@@ -362,6 +438,18 @@ def _forward(q, k, v, bias, config, causal, window, scale, out_dtype, emit_resid
         out, lse, *res = fused
         return out, lse, tuple(res)
     return _two_pass(q, k, v, bias, config, causal, window, scale, out_dtype)
+
+
+def _dequantized(qt_q, qt_k, qt_v, qm, vm):
+    """The operands the STE backward differentiates, fp32: deq(q') + qm,
+    deq(k') (the K mean is softmax-invariant) and deq(v') + vm."""
+    f32 = torch.float32
+    q_dq, k_dq, v_dq = (dequantize(t, f32) for t in (qt_q, qt_k, qt_v))
+    if qm is not None:
+        q_dq = q_dq + qm
+    if vm is not None:
+        v_dq = v_dq + vm
+    return q_dq, k_dq, v_dq
 
 
 class _QFlash(torch.autograd.Function):
@@ -405,6 +493,13 @@ class _QFlash(torch.autograd.Function):
                 v_dq = v_dq + vm
             dq, dk, dv = flash_attention_backward(q_dq, k_dq, v_dq, out.float(), lse,
                                                   g_out.float(), bias, g_lse, **ctx.attn)
+        elif qt_q.strategy == QuantStrategy.ASYMMETRIC:
+            # Zero-point corrections in the backward's products are not
+            # worth their complexity: the dense backward on the dequantized
+            # operands, as the reference does (quant_attention.py:937-950).
+            q_dq, k_dq, v_dq = _dequantized(qt_q, qt_k, qt_v, qm, vm)
+            dq, dk, dv = flash_attention_backward(q_dq, k_dq, v_dq, out.float(), lse,
+                                                  g_out.float(), bias, g_lse, **ctx.attn)
         else:
             corr = None if qm is None else _corr_from_quantized(qm, qt_k)
             gdt = torch.bfloat16 if qt_q.orig_dtype == torch.bfloat16 else None
@@ -417,14 +512,8 @@ class _QFlash(torch.autograd.Function):
         dbias = None
         if bias is not None and ctx.needs_input_grad[3]:
             if ctx.bias_grad:
-                if dense_q is None:
-                    q_dq = dequantize(qt_q, f32)
-                    if qm is not None:
-                        q_dq = q_dq + qm
-                    k_dq = dequantize(qt_k, f32)
-                    v_dq = dequantize(qt_v, f32)
-                    if vm is not None:
-                        v_dq = v_dq + vm
+                if dense_q is None and qt_q.strategy == QuantStrategy.SYMMETRIC:
+                    q_dq, k_dq, v_dq = _dequantized(qt_q, qt_k, qt_v, qm, vm)
                 b4 = bias
                 while b4.dim() < 4:
                     b4 = b4[None]
@@ -459,7 +548,8 @@ def quantized_flash_attention(
     to (B, Hq, Sq, Sk). Returns out (out_dtype, default q.dtype), or
     (out, lse) with return_lse=True. Gradients reach q, k, v and, with
     bias_grad=True, the bias (else it gets zeros). HYBRID mode is resolved
-    from q's data; BLOCK, ASYMMETRIC and pv_int8 raise NotImplementedError."""
+    from q's data (it may pick TENSOR, ROW or BLOCK); pv_int8 raises
+    NotImplementedError."""
     if config.mode == QuantMode.HYBRID:
         config = dataclasses.replace(config, mode=choose_mode(q))
     require_ported(config)

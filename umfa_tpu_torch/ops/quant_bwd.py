@@ -23,7 +23,10 @@ fp32, and LSE +1e30 for rows with no visible key, so their gradients are 0.
 Scales come per row (…, S, 1) or per (b, h) (…, 1, 1). The port does not
 run the "int8 S recompute" that the comment at quant_attention.py:892-894
 claims; the kernels dequantize on load, as the reference's kernels do.
-Not ported yet: the block-sparse `block_map`/`fetch_kv`/`fetch_q` walks.
+SYMMETRIC residuals only, as in the reference (quant_bwd.py:34-37):
+ASYMMETRIC ones go through the dense backward on the dequantized operands
+(`ops/quant_attention.py` `_QFlash.backward`). Not ported yet: the
+block-sparse `block_map`/`fetch_kv`/`fetch_q` walks.
 """
 
 from __future__ import annotations
@@ -88,9 +91,11 @@ def _prepare(qt_q, qt_k, qt_v, out, lse, do, qm, vm, score_corr, bias, dlse,
         if not isinstance(qt, QuantizedTensor) or not qt.precision.is_integer:
             raise ValueError("quantized_attention_backward takes INT8/INT4 QuantizedTensors")
         if qt.strategy != QuantStrategy.SYMMETRIC:
-            raise NotImplementedError(
-                "ASYMMETRIC residuals are not ported yet (ROADMAP, Queue 2: row 7's "
-                "unported variants)")
+            raise ValueError(
+                "quantized_attention_backward takes SYMMETRIC residuals; ASYMMETRIC ones "
+                "take the dequantize-and-dense route (dequantize, then "
+                "ops.flash_bwd.flash_attention_backward), as quantized_flash_attention's "
+                "backward does")
     b, hq, sq, d = qt_q.orig_shape
     _, hkv, sk, dk_ = qt_k.orig_shape
     if tuple(qt_v.orig_shape) != tuple(qt_k.orig_shape) or dk_ != d or qt_k.orig_shape[0] != b:

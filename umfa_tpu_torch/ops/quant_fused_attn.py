@@ -13,9 +13,18 @@ Arithmetic, at the TPU kernel's rounding points (quant_fused_attn.py:100-828):
     head, qm per query head; qm only with `smooth_q` and an integer Q;
   * a row quantizes as x − mean, absmax = max(|x|, 1e-12), scale =
     absmax / qmax, code = round_half_even(x · (qmax / absmax)), no clip;
-  * dequantized operands are bf16: bf16(code_q·sq·scale) (softmax scale
-    folded in), bf16(code_k·sk), bf16(code_v·sv); a dense Q is
-    bf16(q_rot·scale);
+  * BLOCK: one absmax per group of rows (the reference's `_segment_stat`),
+    the group the request floored to a power of two (at least 8) and
+    clamped until it divides the reference's tile (`effective_group`);
+    the rows past S that complete the last group are the reference's
+    zero-padded tile rows, x = 0 − mean, and count in its statistic;
+  * ASYMMETRIC (quant_fused_attn.py:171-193): hi and lo per row (or
+    group), scale = max(hi − lo, 1e-12) / (2·qmax + 1), zp =
+    round(−lo / scale) − (qmax + 1) (not clipped), code = clip(round(x /
+    scale) + zp, −qmax − 1, qmax), exact divisions; deq = (code − zp)·scale;
+  * dequantized operands are bf16: bf16(deq_q·sq·scale) (softmax scale
+    folded in), bf16(deq_k), bf16(deq_v), deq = code·scale symmetric; a
+    dense Q is bf16(q_rot·scale);
   * with `smooth_q` the score row gets cc = (bf16(qm)·k_bf)·scale, then the
     bias; index masking (causal, window, KV tail) sets −1e30;
   * the means, q_bf·k_bf and the cc row are summed in float64 and rounded
@@ -29,9 +38,9 @@ The reference walks KV tiles with an online softmax and so rounds P
 against a running max where it walks more than one tile; this port (kernel
 and plain version) rounds against the final row max (ROADMAP §3).
 
-Supported: symmetric ROW quantization, INT8 or INT4 per operand, a dense Q,
-smoothing, Hadamard, bias, causal/window, GQA, D ≤ 256, fp32/bf16/fp16
-inputs. BLOCK, ASYMMETRIC, `pv_int8` and block-sparse walks raise
+Supported: ROW or BLOCK granularity, SYMMETRIC or ASYMMETRIC, INT8 or INT4
+per operand, a dense Q, smoothing, Hadamard, bias, causal/window, GQA,
+D ≤ 256, fp32/bf16/fp16 inputs. `pv_int8` and block-sparse walks raise
 NotImplementedError (ROADMAP, Queue 2: row 7's unported variants).
 """
 
@@ -44,7 +53,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from umfa_tpu_torch import _kernels
-from umfa_tpu_torch.engine.config import Precision, QuantMode, QuantStrategy
+from umfa_tpu_torch.engine.config import BlockSizeConfig, Precision, QuantMode, QuantStrategy
 from umfa_tpu_torch.ops.flash_fwd import (
     DEFAULT_MASK_VALUE,
     _DTYPE_CODE,
@@ -57,28 +66,22 @@ from umfa_tpu_torch.ops.quant import QuantizedTensor, _qmax, pack_int4
 from umfa_tpu_torch.ops.quant_fused import rotate
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# q k v bias out lse | qv qs kv ks vv vs qm km vm cc kb vb | B Hq Hkv Sq Sk D |
-# bsb bsh bsq bsk | scale left right | flags qmax_q qmax_k qmax_v Tq Tkv |
-# in out | stream
-_ARGTYPES = (*(_P,) * 18, *(_I,) * 6, *(_L,) * 4, ctypes.c_float, _I, _I,
-             *(_I,) * 6, _I, _I, _P)
+# q k v bias out lse | qv qs kv ks vv vs qm km vm cc kb vb | qzp kzp vzp ys st
+# qb | B Hq Hkv Sq Sk D | bsb bsh bsq bsk | scale left right | flags qmax_q
+# qmax_k qmax_v Tq Tkv | q_group k_group v_group | in out | stream
+_ARGTYPES = (*(_P,) * 24, *(_I,) * 6, *(_L,) * 4, ctypes.c_float, _I, _I,
+             *(_I,) * 6, *(_I,) * 3, _I, _I, _P)
 
 # Flag bits of the C entry point.
-_F_HADAMARD, _F_SMOOTH, _F_SMOOTH_Q, _F_Q_DENSE = 1, 2, 4, 8
+_F_HADAMARD, _F_SMOOTH, _F_SMOOTH_Q, _F_Q_DENSE, _F_ASYM = 1, 2, 4, 8, 16
 _Q_INT4, _K_INT4, _V_INT4 = 32, 64, 128
 
 _NOT_PORTED = "(ROADMAP, Queue 2: row 7's unported variants)"
 
 
 def require_ported(config) -> None:
-    """Raise NotImplementedError for the configs whose fused kernels are
-    not ported yet. The reference runs BLOCK (segment-max scales),
-    ASYMMETRIC (affine quantizer, zero-point residuals, dense backward) and
-    pv_int8 (integer P·V); the port does not yet."""
-    if config.strategy == QuantStrategy.ASYMMETRIC:
-        raise NotImplementedError(f"ASYMMETRIC quantized attention is not ported yet {_NOT_PORTED}")
-    if config.mode == QuantMode.BLOCK:
-        raise NotImplementedError(f"BLOCK-mode quantized attention is not ported yet {_NOT_PORTED}")
+    """Raise NotImplementedError for the configs whose kernels are not
+    ported yet: pv_int8 (the reference's integer P·V)."""
     if config.pv_int8:
         raise NotImplementedError(f"pv_int8 (integer P·V) is not ported yet {_NOT_PORTED}")
 
@@ -87,18 +90,20 @@ def fused_path_supported(config, seq_k: int, head_dim: int, *, causal: bool, win
                          seq_q: int) -> bool:
     """Whether the single-launch route serves this call, by the reference's
     rules (quant_fused_attn.py:1374-1440). `UMFA_DISABLE_FUSED_QUANT=1`
-    (read on each call) sends the call to the two-pass route. BLOCK,
-    ASYMMETRIC and pv_int8 raise NotImplementedError here (not ported yet)."""
+    (read on each call) sends the call to the two-pass route. pv_int8
+    raises NotImplementedError here (not ported yet)."""
     if os.environ.get("UMFA_DISABLE_FUSED_QUANT", "0") == "1":
         return False
     if config.mode not in (QuantMode.ROW, QuantMode.BLOCK):
         return False
-    require_ported(config)
     if not (config.k_precision.is_integer and config.v_precision.is_integer):
         return False
     if Precision.INT4 in (config.q_precision, config.k_precision,
                           config.v_precision) and head_dim % 2:
         return False
+    if config.pv_int8 and config.strategy == QuantStrategy.ASYMMETRIC:
+        return False  # integer P·V needs a symmetric V: the two-pass route
+    require_ported(config)
     # On the TPU this is the VMEM budget of the K/V caches (long KV, about
     # Sk > 10240 at D <= 128, goes two-pass), and the fill schedule assumes
     # self-attention geometry when the right side is bounded. The card has
@@ -143,6 +148,17 @@ def _choose_block(requested: int, seq: int, head_dim: int, vmem_cap_elems: int =
     return cap
 
 
+def effective_group(requested: int, tile: int) -> int:
+    """The BLOCK group of the reference (`_grp`, quant_fused_attn.py:
+    982-1000): the request floored to a power of two (at least 8), clamped
+    to the tile and halved until it divides it."""
+    g = 1 << (max(8, int(requested)).bit_length() - 1)
+    g = min(g, tile)
+    while tile % g:
+        g //= 2
+    return g
+
+
 def default_mean_rows(seq_q: int, seq_k: int, head_dim: int, *, causal: bool, window,
                       has_bias: bool) -> tuple:
     """(T_q, T_kv): the reference's first Q and K/V tiles at its default
@@ -177,13 +193,16 @@ class _Prepared(NamedTuple):
     v_precision: Precision
     t_q: int
     t_kv: int
+    asym: bool
+    groups: tuple            # (q, k, v) BLOCK groups in rows, 0 = ROW
     out_dtype: torch.dtype   # what the kernel writes (fp32 or bf16)
     final_dtype: torch.dtype  # what the caller gets (fp16 cast last)
     orig_dtypes: tuple
 
 
 def _prepare(q, k, v, bias, causal, window, scale, smooth, smooth_q, hadamard, emit,
-             q_precision, k_precision, v_precision, out_dtype, mean_rows) -> _Prepared:
+             q_precision, k_precision, v_precision, out_dtype, mean_rows, strategy, mode,
+             quant_blocks) -> _Prepared:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be (B, H, S, D)")
     b, hq, sq, d = q.shape
@@ -199,6 +218,8 @@ def _prepare(q, k, v, bias, causal, window, scale, smooth, smooth_q, hadamard, e
         raise ValueError("INT4 operands need an even head_dim")
     if hadamard and d & (d - 1):
         raise ValueError(f"the Hadamard rotation needs a power-of-two head_dim, got {d}")
+    if mode not in (QuantMode.ROW, QuantMode.BLOCK):
+        raise ValueError(f"the single-launch kernel quantizes ROW or BLOCK, got {mode}")
     orig_dtypes = (q.dtype, k.dtype, v.dtype)
     # fp16 is storage-only: read as fp32 (the TPU kernel's f32 tiles).
     q, k, v = (x.float() if x.dtype == torch.float16 else x for x in (q, k, v))
@@ -221,10 +242,18 @@ def _prepare(q, k, v, bias, causal, window, scale, smooth, smooth_q, hadamard, e
     t_q, t_kv = (int(t) for t in mean_rows)
     if t_q < 1 or t_kv < 1:
         raise ValueError(f"mean_rows must be positive, got {mean_rows}")
+    groups = (0, 0, 0)
+    if mode == QuantMode.BLOCK:
+        # The reference clamps each group to its own tile, the tiles the
+        # means are estimated over.
+        qb = quant_blocks or BlockSizeConfig()
+        groups = (effective_group(qb.q, t_q), effective_group(qb.k, t_kv),
+                  effective_group(qb.v, t_kv))
     return _Prepared(q.contiguous(), k.contiguous(), v.contiguous(), bias,
                      float(d**-0.5 if scale is None else scale), left, right, bool(smooth),
                      smooth_q, bool(hadamard), bool(emit), q_precision, k_precision,
-                     v_precision, t_q, t_kv, kernel_out, final, orig_dtypes)
+                     v_precision, t_q, t_kv, strategy == QuantStrategy.ASYMMETRIC, groups,
+                     kernel_out, final, orig_dtypes)
 
 
 def fused_quantize_attend(
@@ -243,20 +272,27 @@ def fused_quantize_attend(
     q_precision: Precision = Precision.INT8,
     k_precision: Precision = Precision.INT8,
     v_precision: Precision = Precision.INT8,
+    strategy: QuantStrategy = QuantStrategy.SYMMETRIC,
+    mode: QuantMode = QuantMode.ROW,
+    quant_blocks: Optional[BlockSizeConfig] = None,
     out_dtype: Optional[torch.dtype] = None,
     mean_rows: Optional[tuple] = None,
 ):
     """Runtime INT8/INT4 quantization and attention in one kernel launch.
     q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D); bias additive, broadcastable
-    to (B, Hq, Sq, Sk). `mean_rows` = (T_q, T_kv) overrides the rows the
-    smoothing means are estimated over (default: `default_mean_rows`).
+    to (B, Hq, Sq, Sk). `mean_rows` = (T_q, T_kv) overrides the reference's
+    tiles, the rows the smoothing means are estimated over and the bound of
+    the BLOCK groups (default: `default_mean_rows`). `mode=BLOCK` takes one
+    scale per `quant_blocks.{q,k,v}` rows (`effective_group`).
 
     Returns (out (B, Hq, Sq, D) in out_dtype (default q.dtype), lse
-    (B, Hq, Sq) fp32, qt_q, qt_k, qt_v, qm, vm): ROW-symmetric residuals
-    (qt_q None for a dense Q; all None without `emit_residuals`), qm
+    (B, Hq, Sq) fp32, qt_q, qt_k, qt_v, qm, vm): the residuals (qt_q None
+    for a dense Q; all None without `emit_residuals`; per-row scales and,
+    ASYMMETRIC, int32 zero points (B, H, S, 1), row_sums None), qm
     (B, Hq, 1, D) with `smooth_q`, vm (B, Hkv, 1, D) with `smooth`, fp32."""
     p = _prepare(q, k, v, bias, causal, window, scale, smooth, smooth_q, hadamard,
-                 emit_residuals, q_precision, k_precision, v_precision, out_dtype, mean_rows)
+                 emit_residuals, q_precision, k_precision, v_precision, out_dtype, mean_rows,
+                 strategy, mode, quant_blocks)
     if p.q.device.type == "cpu":
         res = _plain(p)
     else:
@@ -267,20 +303,23 @@ def fused_quantize_attend(
 def fused_quantize_attend_plain(
     q, k, v, bias=None, *, causal=False, window=None, scale=None, smooth=True, smooth_q=None,
     hadamard=False, emit_residuals=True, q_precision=Precision.INT8, k_precision=Precision.INT8,
-    v_precision=Precision.INT8, out_dtype=None, mean_rows=None,
+    v_precision=Precision.INT8, strategy=QuantStrategy.SYMMETRIC, mode=QuantMode.ROW,
+    quant_blocks=None, out_dtype=None, mean_rows=None,
 ):
     """The kernel's arithmetic in plain PyTorch, on any device. Same
     arguments and results as `fused_quantize_attend`."""
     p = _prepare(q, k, v, bias, causal, window, scale, smooth, smooth_q, hadamard,
-                 emit_residuals, q_precision, k_precision, v_precision, out_dtype, mean_rows)
+                 emit_residuals, q_precision, k_precision, v_precision, out_dtype, mean_rows,
+                 strategy, mode, quant_blocks)
     return _finish(p, *_plain(p))
 
 
-def _qt(vals, scales, shape, dtype, precision) -> QuantizedTensor:
-    return QuantizedTensor(values=vals, scales=scales, zero_points=None, row_sums=None,
-                           precision=precision, mode=QuantMode.ROW,
-                           strategy=QuantStrategy.SYMMETRIC, block_size=0,
-                           orig_shape=tuple(shape), orig_dtype=dtype)
+def _qt(vals, scales, zps, shape, dtype, precision, group, asym) -> QuantizedTensor:
+    return QuantizedTensor(values=vals, scales=scales, zero_points=zps, row_sums=None,
+                           precision=precision,
+                           mode=QuantMode.BLOCK if group else QuantMode.ROW,
+                           strategy=QuantStrategy.ASYMMETRIC if asym else QuantStrategy.SYMMETRIC,
+                           block_size=group, orig_shape=tuple(shape), orig_dtype=dtype)
 
 
 def _finish(p: _Prepared, out, lse, res):
@@ -288,12 +327,14 @@ def _finish(p: _Prepared, out, lse, res):
         out = out.half()
     if not p.emit:
         return out, lse, None, None, None, None, None
-    qv, qs, kv, ks, vv, vs, qm, vm = res
+    qv, qs, kv, ks, vv, vs, qzp, kzp, vzp, qm, vm = res
     b, hq, sq, d = p.q.shape
     kshape = p.k.shape
-    qt_q = None if qv is None else _qt(qv, qs, (b, hq, sq, d), p.orig_dtypes[0], p.q_precision)
-    qt_k = _qt(kv, ks, kshape, p.orig_dtypes[1], p.k_precision)
-    qt_v = _qt(vv, vs, kshape, p.orig_dtypes[2], p.v_precision)
+    gq, gk, gv = p.groups
+    qt_q = None if qv is None else _qt(qv, qs, qzp, (b, hq, sq, d), p.orig_dtypes[0],
+                                       p.q_precision, gq, p.asym)
+    qt_k = _qt(kv, ks, kzp, kshape, p.orig_dtypes[1], p.k_precision, gk, p.asym)
+    qt_v = _qt(vv, vs, vzp, kshape, p.orig_dtypes[2], p.v_precision, gv, p.asym)
     return out, lse, qt_q, qt_k, qt_v, qm, vm
 
 
@@ -305,16 +346,53 @@ def _tile_mean(x: torch.Tensor, t: int) -> torch.Tensor:
     return x[:, :, :t].double().sum(dim=2, keepdim=True).float() / x.new_tensor(float(t))
 
 
-def _quantize_rows(x: torch.Tensor, mean, precision: Precision):
+def _group_stat(stat: torch.Tensor, group: int, pad: torch.Tensor, reduce) -> torch.Tensor:
+    """A per-row statistic (..., S, 1) reduced over groups of `group` rows
+    and broadcast back to every row (the reference's `_segment_stat`). The
+    rows past S that complete the last group carry the statistic `pad`
+    (..., 1, 1): the reference's zero-padded tile rows."""
+    *lead, s, _ = stat.shape
+    n = -(-s // group) * group
+    if n > s:
+        stat = torch.cat([stat, pad.expand(*lead, n - s, 1)], dim=-2)
+    g = reduce(stat.reshape(*lead, n // group, group), dim=-1, keepdim=True)
+    return g.expand(*lead, n // group, group).reshape(*lead, n, 1)[..., :s, :]
+
+
+def _quantize_rows(x: torch.Tensor, mean, precision: Precision, group: int = 0,
+                   asym: bool = False):
     """Register-space quantization of the TPU kernel (quant_fused_attn.py:
-    156-168): reciprocal multiply, no clip. Returns (codes as fp32, scales)."""
+    127-193): symmetric by a reciprocal multiply, no clip; asymmetric by
+    exact divisions, the zero point not clipped; one statistic per row, or
+    per `group` rows. Returns (codes as fp32, scales, zero points as fp32
+    or None)."""
+    pad = x.new_zeros(x.shape[:-2] + (1, x.shape[-1]))  # a zero-padded row
     if mean is not None:
-        x = x - mean
-    absmax = x.abs().amax(dim=-1, keepdim=True).clamp_min(1e-12)
+        x, pad = x - mean, pad - mean
+    qmax = float(_qmax(precision))
+    if asym:
+        hi, lo = x.amax(dim=-1, keepdim=True), x.amin(dim=-1, keepdim=True)
+        if group:
+            hi = _group_stat(hi, group, pad.amax(dim=-1, keepdim=True), torch.amax)
+            lo = _group_stat(lo, group, pad.amin(dim=-1, keepdim=True), torch.amin)
+        # 0-dim tensor operands: `t / c` on CUDA multiplies by 1/c; the
+        # kernel divides exactly.
+        scale = (hi - lo).clamp_min(1e-12) / x.new_tensor(2 * qmax + 1)
+        zp = torch.round(-lo / scale) - (qmax + 1)
+        codes = torch.clamp(torch.round(x / scale) + zp, -qmax - 1, qmax)
+        return codes, scale, zp
+    absmax = x.abs().amax(dim=-1, keepdim=True)
+    if group:
+        absmax = _group_stat(absmax, group, pad.abs().amax(dim=-1, keepdim=True), torch.amax)
+    absmax = absmax.clamp_min(1e-12)
     # 0-dim tensor operands: `c / t` in PyTorch is reciprocal(t) * c, and
     # `t / c` on CUDA multiplies by 1/c; the kernel divides exactly.
-    qmax = absmax.new_tensor(float(_qmax(precision)))
-    return torch.round(x * (qmax / absmax)), absmax / qmax
+    qmax_t = absmax.new_tensor(qmax)
+    return torch.round(x * (qmax_t / absmax)), absmax / qmax_t, None
+
+
+def _deq(codes, scale, zp):
+    return codes * scale if zp is None else (codes - zp) * scale
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
@@ -326,10 +404,15 @@ def _codes(codes_f: torch.Tensor, precision: Precision) -> torch.Tensor:
     return pack_int4(codes) if precision == Precision.INT4 else codes
 
 
+def _zp(zp):
+    return None if zp is None else zp.to(torch.int32)
+
+
 def _plain(p: _Prepared):
     b, hq, sq, d = p.q.shape
     _, hkv, sk, _ = p.k.shape
     g = hq // hkv
+    gq, gk, gv = p.groups
     q32, k32, v32 = p.q.float(), p.k.float(), p.v.float()
     if p.hadamard:
         q32, k32 = rotate(q32), rotate(k32)
@@ -337,15 +420,15 @@ def _plain(p: _Prepared):
     vm = _tile_mean(v32, p.t_kv) if p.smooth else None
     qm = _tile_mean(q32, p.t_q) if p.smooth_q else None
 
-    k_f, sk_ = _quantize_rows(k32, km, p.k_precision)
-    v_f, sv_ = _quantize_rows(v32, vm, p.v_precision)
-    k_bf, v_bf = _bf16(k_f * sk_), _bf16(v_f * sv_)
+    k_f, sk_, zk = _quantize_rows(k32, km, p.k_precision, gk, p.asym)
+    v_f, sv_, zv = _quantize_rows(v32, vm, p.v_precision, gv, p.asym)
+    k_bf, v_bf = _bf16(_deq(k_f, sk_, zk)), _bf16(_deq(v_f, sv_, zv))
     q_dense = not p.q_precision.is_integer
     if q_dense:
-        q_bf, q_f, sq_ = _bf16(q32 * p.scale), None, None
+        q_bf, q_f, sq_, zq = _bf16(q32 * p.scale), None, None, None
     else:
-        q_f, sq_ = _quantize_rows(q32, qm, p.q_precision)
-        q_bf = _bf16((q_f * sq_) * p.scale)
+        q_f, sq_, zq = _quantize_rows(q32, qm, p.q_precision, gq, p.asym)
+        q_bf = _bf16(_deq(q_f, sq_, zq) * p.scale)
 
     # GQA: fold the group into the query rows (h = hk * g + gi). The dots of
     # bf16 values are exact in float64 and rounded once, as in the kernel.
@@ -378,7 +461,8 @@ def _plain(p: _Prepared):
     res = None
     if p.emit:
         res = (None if q_dense else _codes(q_f, p.q_precision), sq_,
-               _codes(k_f, p.k_precision), sk_, _codes(v_f, p.v_precision), sv_, qm, vm)
+               _codes(k_f, p.k_precision), sk_, _codes(v_f, p.v_precision), sv_,
+               _zp(zq), _zp(zk), _zp(zv), qm, vm)
     return out.to(p.out_dtype), lse, res
 
 
@@ -395,6 +479,7 @@ def _launch(p: _Prepared):
         raise ValueError(f"fused_qattn kernel takes head_dim <= 256, got {d}")
     q_dense = not p.q_precision.is_integer
     f32 = dict(dtype=torch.float32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
     out = torch.empty((b, hq, sq, d), dtype=p.out_dtype, device=dev)
     lse = torch.empty((b, hq, sq), **f32)
     # Means: computed by the kernel's first pass into these buffers (km is
@@ -405,25 +490,40 @@ def _launch(p: _Prepared):
     # The cc row (bf16(qm)·k̃)·scale of every (b, q head, key): scratch the
     # kernel fills once and the attention reads with each key tile.
     cc = torch.empty((b, hq, sk), **f32) if p.smooth_q else None
-    # The dequantized K̃ and Ṽ, bf16(code·scale), written by the quantize pass
+    # The dequantized K̃ and Ṽ, bf16(deq), written by the quantize pass
     # beside the codes: the attention copies these tiles as they are.
     kb, vb = (torch.empty((b, hkv, sk, d), dtype=torch.bfloat16, device=dev) for _ in "kv")
+    # BLOCK and ASYMMETRIC quantize every operand in a pre-pass (the group
+    # statistics span rows of other blocks): the rows x − mean as fp32
+    # (Q's rows first, then K's, then V's), their statistics (hi, or
+    # absmax, then lo), and Q's dequantized bf16 values, softmax scale
+    # folded in, which the attention then reads as a dense Q.
+    pre = p.asym or any(p.groups)
+    nq = 0 if q_dense else b * hq * sq
+    rows = nq + 2 * b * hkv * sk
+    ys = torch.empty((rows, d), **f32) if pre else None
+    st = torch.empty((2, rows), **f32) if pre else None
+    qb = torch.empty((b, hq, sq, d), dtype=torch.bfloat16, device=dev) if pre and nq else None
 
     def width(prec):
         return d // 2 if prec == Precision.INT4 else d
 
     # The K/V codes and scales are written by the kernel's quantize pass
-    # whether or not residuals are asked for (the cc row reads the K codes).
+    # whether or not residuals are asked for.
     res = [None, None,
            torch.empty((b, hkv, sk, width(p.k_precision)), dtype=torch.int8, device=dev),
            torch.empty((b, hkv, sk, 1), **f32),
            torch.empty((b, hkv, sk, width(p.v_precision)), dtype=torch.int8, device=dev),
-           torch.empty((b, hkv, sk, 1), **f32)]
+           torch.empty((b, hkv, sk, 1), **f32), None,
+           torch.empty((b, hkv, sk, 1), **i32) if p.asym else None,
+           torch.empty((b, hkv, sk, 1), **i32) if p.asym else None]
     if p.emit and not q_dense:
         res[0] = torch.empty((b, hq, sq, width(p.q_precision)), dtype=torch.int8, device=dev)
         res[1] = torch.empty((b, hq, sq, 1), **f32)
+        res[6] = torch.empty((b, hq, sq, 1), **i32) if p.asym else None
     flags = ((_F_HADAMARD if p.hadamard else 0) | (_F_SMOOTH if p.smooth else 0)
              | (_F_SMOOTH_Q if p.smooth_q else 0) | (_F_Q_DENSE if q_dense else 0)
+             | (_F_ASYM if p.asym else 0)
              | (_Q_INT4 if p.q_precision == Precision.INT4 else 0)
              | (_K_INT4 if p.k_precision == Precision.INT4 else 0)
              | (_V_INT4 if p.v_precision == Precision.INT4 else 0))
@@ -435,11 +535,12 @@ def _launch(p: _Prepared):
         with torch.cuda.device(dev):
             err = fn(
                 p.q.data_ptr(), p.k.data_ptr(), p.v.data_ptr(), ptr(p.bias),
-                out.data_ptr(), lse.data_ptr(), *(ptr(t) for t in res),
+                out.data_ptr(), lse.data_ptr(), *(ptr(t) for t in res[:6]),
                 ptr(qm), ptr(km), ptr(vm), ptr(cc), kb.data_ptr(), vb.data_ptr(),
+                *(ptr(t) for t in res[6:]), ptr(ys), ptr(st), ptr(qb),
                 b, hq, hkv, sq, sk, d, bsb, bsh, bsq, bsk, p.scale, p.left, p.right,
                 flags, _qmax(p.q_precision) if not q_dense else 0,
-                _qmax(p.k_precision), _qmax(p.v_precision), p.t_q, p.t_kv,
+                _qmax(p.k_precision), _qmax(p.v_precision), p.t_q, p.t_kv, *p.groups,
                 _DTYPE_CODE[p.q.dtype], _DTYPE_CODE[p.out_dtype],
                 torch.cuda.current_stream(dev).cuda_stream,
             )
