@@ -96,6 +96,28 @@ Phases, one JSON line each:
   7. the public `attention()` on the card with gradients (a float bias with
      bias_grad=True, a bool mask, a float bias with bias_grad=False)
      against the CPU path, through the fused route only;
+  7a. block-sparse masks (ops/block_mask.py) through the walked
+     instantiations of `flash_fwd`, `flash_bwd_dq` and `flash_bwd_dkv`:
+     (a) each against its plain version at B2 Hq16 Hkv8, S 1024 and odd
+     777 x 1000, D 64/128/256, fp32 and bf16, under causal_block_mask,
+     sliding_window_block_mask(128, 0), causal segments of seeded uneven
+     documents with a -1 tail (rows that see no key inside PARTIAL tiles,
+     held to the same gates), a per-head map under GQA, BlockSizes(96, 160)
+     and documents of 512 (no bias), with a nonzero dlse (the table's
+     gates: forward fp32 2e-5 / LSE 1e-5, bf16 1e-2 / LSE 1e-3, a row past
+     it held to it against the float64 LSE; backward fp32 1e-4, bf16
+     2e-2); (b) the
+     full-width path, `attention(q, k, v, mask)` and `.backward()` at B8
+     Hq16 Hkv8 S4096 D64 bf16 for causal documents of 512, causal documents
+     of seeded lengths 64-1536 with a -1 tail, and
+     sliding_window_block_mask(4096, 4096, 512, 0): exactly 1 flash_fwd, 1
+     flash_bwd_dq, 1 flash_bwd_dkv and 0 flash_dbias launches each, the
+     output and gradients against the plain versions (1e-2 / 2e-2), each
+     kernel timed beside the dense causal kernels, its bound on the mask's
+     visible pairs, the walked share, and the memory-efficient SDPA with
+     the bool mask (a yardstick only); (c) the reference's masks cell (B2
+     H16 S4096 D64 bf16, 8 documents of 512, non-causal) forward beside the
+     dense non-causal `flash_fwd`;
   8. the quantized training kernels (quant_rows, fused_qattn, quant_bwd_dq,
      quant_bwd_dkv) against their plain versions at B2 Hq16 Hkv8 (causal
      1024, odd 777, window (128, 0), a shared bias, a left-only window with
@@ -169,7 +191,8 @@ Phases, one JSON line each:
      its `design`: tensor cores or CUDA cores); the nvidia-smi line; the
      result line.
 Every path (each serving run, both timed continuous-batching runs, the
-timed training steps, the attention() phase, the two full-width ring runs,
+timed training steps, the attention() phase, the three full-width
+block-sparse runs, the two full-width ring runs,
 the probe's five reps-1024 calls) is driven with the launch counts set to 0
 just before it and read just after; a kernel's `launches` in the kernels
 line is its sum over them.
@@ -1522,6 +1545,334 @@ def phase_attention_api(record):
     if counts.get("flash_dbias", 0) < 1 or counts.get("flash_bwd_dq", 0) != len(calls):
         raise AssertionError(f"attention() did not go through the backward kernels: {counts}")
     return counts
+
+
+def doc_ids(b, s, lengths, seed, pad=0):
+    """(B, S) int32 ids of packed documents, lengths drawn per row from
+    [lengths[0], lengths[1]] (a seeded generator), the last `pad` ids -1."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    ids = torch.zeros((b, s), dtype=torch.int32)
+    for r in range(b):
+        pos, doc = 0, 0
+        while pos < s:
+            n = int(torch.randint(lengths[0], lengths[1] + 1, (1,), generator=g))
+            ids[r, pos:pos + n] = doc
+            pos, doc = pos + n, doc + 1
+        if pad:
+            ids[r, s - pad:] = -1
+    return ids
+
+
+def sparse_check_mask(kind, b, sq, sk, dev):
+    """The BlockMasks of the walked-kernel checks (phase 7a)."""
+    import torch
+
+    from umfa_tpu_torch.ops import block_mask as bm
+    from umfa_tpu_torch.ops.flash_fwd import BlockSizes
+
+    ids = doc_ids(b, sk, (48, sk // 3), 5, pad=sk // 7)
+    if kind == "causal":
+        return bm.causal_block_mask(sq, sk, device=dev)
+    if kind == "window_128_0":
+        return bm.sliding_window_block_mask(sq, sk, 128, 0, device=dev)
+    if kind == "segments_padded":
+        return bm.segment_block_mask(ids[:, :sq], ids, causal=True, device=dev)
+    if kind == "blocks_96x160":
+        return bm.segment_block_mask(ids[:, :sq], ids, causal=True, device=dev,
+                                     block_sizes=BlockSizes(96, 160))
+    if kind == "per_head":
+        i, j = torch.arange(sq)[:, None], torch.arange(sk)[None, :]
+        heads = torch.stack([(j <= i) & (j >= i - 48 * (h + 1)) for h in range(HQ)])[None]
+        return bm.make_block_mask(heads, sq, sk, device=dev)
+    if kind == "aligned_no_bias":
+        ids = torch.arange(sk, dtype=torch.int32)[None].repeat(b, 1) // 512
+        return bm.segment_block_mask(ids[:, :sq], ids, device=dev)
+    raise ValueError(kind)
+
+
+def causal_doc_pairs(ids):
+    """Visible (query, key) pairs of a causal segment mask, per batch row
+    summed: each document of length L holds L (L + 1) / 2; id -1 none."""
+    total = 0
+    for row in ids.tolist():
+        run, prev = 0, None
+        for x in row + [None]:
+            if x == prev:
+                run += 1
+                continue
+            if prev is not None and prev >= 0:
+                total += run * (run + 1) // 2
+            prev, run = x, 1
+    return total
+
+
+def phase_block_sparse(record):
+    """Block-sparse masks (ops/block_mask.py) through the walked kernels:
+    (a) each walked kernel against its plain version; (b) the full-width
+    path, `attention(q, k, v, mask)` with `.backward()` for three masks,
+    with exact launches, the plain versions, timings, bounds and the walked
+    share; (c) the reference's masks cell."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    import umfa_tpu_torch as ut
+    from umfa_tpu_torch import _kernels
+    from umfa_tpu_torch.ops import flash_bwd as fb
+    from umfa_tpu_torch.ops import flash_fwd as ff
+    from umfa_tpu_torch.ops.block_mask import PARTIAL
+    from umfa_tpu_torch.utils.testing import lse_check, rel_err
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(21)
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen).to(dev, dtype)
+
+    # (a) Walked kernels against their plain versions, B2 Hq16 Hkv8.
+    masks = ("causal", "window_128_0", "segments_padded", "per_head", "blocks_96x160",
+             "aligned_no_bias")
+    cases = [(m, 1024, 1024, 64) for m in masks] + [
+        ("segments_padded", 777, 1000, 64), ("blocks_96x160", 777, 1000, 64),
+        ("segments_padded", 1024, 1024, 128), ("per_head", 777, 1000, 128),
+        ("segments_padded", 1024, 1024, 256), ("blocks_96x160", 777, 1000, 256),
+        ("per_head", 1024, 1024, 256)]
+    # (out relerr, LSE abs, gradient relerr): the table's gates, as the card
+    # tests hold them. At D < 128 the row sum adds bf16(P), as the
+    # reference's ones column does, so where P is rounded moves the LSE: the
+    # walked forward's pre-pass takes a row's last walked tiles (its own
+    # document's keys), so a row that sees few keys rounds P against its
+    # final max, as the plain version does. A row whose LSE is past its gate
+    # must be within it of the float64 LSE (`lse_check`): in a row of two
+    # keys the fp32 plain version can round the second P one ulp off, 1.35e-3
+    # in LSE, where the walked and the dense kernels hold the float64 value.
+    gates = {torch.float32: (2e-5, 1e-5, 1e-4), torch.bfloat16: (1e-2, 1e-3, 2e-2)}
+    worst = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    checks = []
+    for kind, sq, sk, d in cases:
+        mask = sparse_check_mask(kind, B_CHECK, sq, sk, dev)
+        walk = dict(block_map=mask.block_map, block_q=mask.block_q, block_k=mask.block_k)
+        keep = ff.walked_keys(mask.walk(), sq, sk)
+        for dtype in (torch.float32, torch.bfloat16):
+            fgate, lgate, bgate = gates[dtype]
+            q, k, v = (randn((B_CHECK, h, s, d), dtype) for h, s in ((HQ, sq), (HKV, sk), (HKV, sk)))
+            got = ff.flash_attention_forward(q, k, v, mask.bias, fetch_ids=mask.fetch_kv, **walk)
+            torch.cuda.synchronize()
+            want = ff.flash_attention_forward_plain(q, k, v, mask.bias, **walk)
+            res = compare(f"block_sparse/{str(dtype)[6:]}/{kind}_{sq}x{sk}_d{d}", got, want,
+                          fgate, lgate)
+            res.update(lse_check(got[1], want[1], q, k, mask.bias, lgate, keep=keep))
+            if res["lse_rows_over_tol"]:
+                # A second reading: the dense kernel (the same bias, no walk)
+                # on the same inputs against the same plain version.
+                dense = ff.flash_attention_forward(q, k, v, mask.bias)
+                dres = lse_check(dense[1], want[1], q, k, mask.bias, lgate, keep=keep)
+                res.update({f"dense_{key}": dres[key] for key in
+                            ("max_abs_lse", "lse_rows_over_tol", "max_abs_lse_f64_on_those_rows")})
+                del dense
+            res["ok"] = (res["relerr_out"] <= fgate and res["lse_ok"] and res["empty_rows_exact"]
+                         and res["finite"])
+            # Rows whose walked keys all carry the -1e30 bias: V averaged
+            # over exactly those keys, held to the same gate.
+            blind = (want[1] <= -1e29) & (want[0].float() != 0).any(dim=-1)
+            res["bias_masked_rows"] = int(blind.sum())
+            res["relerr_bias_masked_rows"] = (rel_err(got[0][blind], want[0][blind])
+                                              if blind.any() else 0.0)
+            res["ok"] = res["ok"] and res["relerr_bias_masked_rows"] <= fgate
+            worst["flash_fwd"] = max(worst["flash_fwd"], res["max_abs_out"])
+            do = randn(want[0].shape, want[0].dtype)
+            dlse = torch.where(want[1] > -1e29, randn(want[1].shape, torch.float32), 0.0)
+            gdt = torch.bfloat16 if dtype == torch.bfloat16 else None
+            args = (q, k, v, want[0], want[1], do, mask.bias, dlse)
+            bgot = fb.flash_attention_backward(*args, grad_dtype=gdt, fetch_kv=mask.fetch_kv,
+                                               fetch_q=mask.fetch_q, **walk)
+            torch.cuda.synchronize()
+            bwant = fb.flash_attention_backward_plain(*args, grad_dtype=gdt, **walk)
+            for kern, name, x, y in zip(("flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dkv"),
+                                        ("dq", "dk", "dv"), bgot, bwant):
+                res[f"relerr_{name}"] = rel_err(x, y)
+                res["ok"] = res["ok"] and res[f"relerr_{name}"] <= bgate and torch_isfinite(x.float())
+                worst[kern] = max(worst[kern], float((x.float() - y.float()).abs().max()))
+            res.update(tol_bwd=bgate, block_q=mask.block_q, block_k=mask.block_k,
+                       map_shape=list(mask.block_map.shape), bias=mask.bias is not None,
+                       sparsity=mask.sparsity)
+            emit({"phase": "kernel_check", **res})
+            checks.append(res)
+            del q, k, v, got, want, do, dlse, args, bgot, bwant
+        del mask, keep
+    torch.cuda.empty_cache()
+    record["block_sparse_checks"] = checks
+    bad = [r["case"] for r in checks if not r["ok"]]
+    if bad:
+        raise AssertionError(f"walked kernels disagree with their plain versions: {bad}")
+
+    # (b) The full-width path: the GPT's attention geometry, bf16.
+    b, s = B_TRAIN, S_TRAIN
+    shape = f"B{b} Hq{HQ} Hkv{HKV} S{s} D{D} bf16"
+    q, k, v = (randn((b, h, s, D), torch.bfloat16) for h in (HQ, HKV, HKV))
+    w = randn((b, HQ, s, D), torch.bfloat16)
+    docs = doc_ids(b, s, (64, 1536), 8, pad=200)
+    full_masks = {  # name: (BlockMask, visible pairs of one head summed over the batch)
+        "causal_docs_512": (ut.segment_block_mask(torch.arange(s, dtype=torch.int32)[None] // 512,
+                                                  causal=True, device=dev),
+                            b * (s // 512) * 512 * 513 // 2),
+        "causal_docs_64_1536_padded": (ut.segment_block_mask(docs, causal=True, device=dev),
+                                       causal_doc_pairs(docs)),
+        "window_512_0": (ut.sliding_window_block_mask(s, s, 512, 0, device=dev),
+                         b * visible_pairs(s, s, 512, 0)),
+    }
+    causal_pairs = b * visible_pairs(s, s, -1, 0)
+    reads = 2 * (q.numel() + k.numel() + v.numel())
+    pb_dense = None
+    timing, counts_all, runs = {}, [], {}
+    for name, (mask, pairs1) in full_masks.items():
+        # One attention() forward and backward, its launches counted alone.
+        qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        ut.reset_dispatch_stats()
+        out = ut.attention(qg, kg, vg, mask)
+        out.backward(w)
+        torch.cuda.synchronize()
+        counts = dict(_kernels.launches)
+        counts_all.append(counts)
+        want_counts = {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1, "flash_dbias": 0}
+        if {kk: counts.get(kk, 0) for kk in want_counts} != want_counts:
+            raise AssertionError(f"block-sparse {name}: launches {counts}, expected {want_counts}")
+        if ut.get_dispatch_stats()["fused_autograd"] != 1:
+            raise AssertionError(f"block-sparse {name}: another route than fused_autograd")
+        walk = dict(block_map=mask.block_map, block_q=mask.block_q, block_k=mask.block_k)
+        pw = ff.flash_attention_forward_plain(q, k, v, mask.bias, **walk)
+        res = {"mask": name, "shape": shape, "block_q": mask.block_q, "block_k": mask.block_k,
+               "map_shape": list(mask.block_map.shape), "bias": mask.bias is not None,
+               "sparsity": mask.sparsity, "launches": counts,
+               "relerr_out": rel_err(out, pw[0])}
+        grads = fb.flash_attention_backward_plain(q, k, v, pw[0], pw[1], w, mask.bias,
+                                                  grad_dtype=torch.bfloat16, **walk)
+        for gname, x, y in zip(("dq", "dk", "dv"), (qg.grad, kg.grad, vg.grad), grads):
+            res[f"relerr_{gname}"] = rel_err(x, y)
+        res["ok"] = (res["relerr_out"] <= 1e-2 and torch_isfinite(out.float())
+                     and all(res[f"relerr_{g}"] <= 2e-2 for g in ("dq", "dk", "dv")))
+        del qg, kg, vg, out, grads, pw
+        torch.cuda.empty_cache()
+        # Walked share: the (query, key) pairs of the map's walked tiles, each
+        # walked in full (no causal flag: the mask's bias hides the upper
+        # triangle of a diagonal tile), against the dense causal walk's; the
+        # mask's visible pairs for the bound, and the bias where a walked
+        # tile is PARTIAL.
+        walked = ff.walked_keys(ff.Walk(mask.block_map, None, None, mask.block_q, mask.block_k),
+                                s, s)
+        walked_pairs = int(walked.sum()) * (b if walked.shape[0] == 1 else 1)
+        partial = (mask.block_map == PARTIAL).repeat_interleave(mask.block_q, 2)[:, :, :s] \
+            .repeat_interleave(mask.block_k, 3)[..., :s]
+        bias_bytes = 4 * int(partial.sum()) if mask.bias is not None else 0
+        del walked, partial
+        pairs = HQ * pairs1
+        res.update(visible_pairs=pairs, walked_pairs=HQ * walked_pairs,
+                   walked_share_of_causal=walked_pairs / causal_pairs,
+                   visible_share_of_causal=pairs1 / causal_pairs, bias_bytes_read=bias_bytes)
+        # Each kernel timed on its own inputs, beside the dense causal kernels.
+        p = ff._prepare(q, k, v, mask.bias, False, None, None, None, mask.walk())
+        out, lse = ff._launch(p)
+        pb = fb._prepare(q, k, v, out, lse, w, mask.bias, None, False, None, None, mask.walk())
+        if pb_dense is None:
+            od, ld = ff.flash_attention_forward(q, k, v, causal=True)
+            pb_dense = fb._prepare(q, k, v, od, ld, w, None, None, True, None, None)
+            pf_dense = ff._prepare(q, k, v, None, True, None, None, None)
+            dense = {"flash_fwd": cuda_stats(lambda: ff._launch(pf_dense)),
+                     "flash_bwd_dq": cuda_stats(lambda: fb._launch_dq(pb_dense, torch.bfloat16)),
+                     "flash_bwd_dkv": cuda_stats(lambda: fb._launch_dkv(pb_dense, torch.bfloat16))}
+            del od, ld
+        kern = {"flash_fwd": (lambda: ff._launch(p), 4, 2 * q.numel() + 4 * lse.numel()),
+                "flash_bwd_dq": (lambda: fb._launch_dq(pb, torch.bfloat16), 6, 2 * q.numel()),
+                "flash_bwd_dkv": (lambda: fb._launch_dkv(pb, torch.bfloat16), 8,
+                                  2 * 2 * k.numel())}
+        for kname, (fn, per_pair, written) in kern.items():
+            flops = D * per_pair * pairs
+            extra = 0 if kname == "flash_fwd" else 2 * w.numel() + 8 * lse.numel()
+            nbytes = reads + extra + written + bias_bytes
+            t = dict(**cuda_stats(fn), flops=flops, bytes=nbytes,
+                     ops_ms=flops / H100_BF16_FLOPS * 1e3, bytes_ms=nbytes / H100_HBM_BYTES * 1e3,
+                     dense_causal=dense[kname],
+                     yardstick_ms=dense[kname]["ms"] * walked_pairs / causal_pairs)
+            bound(t)
+            res[kname] = t
+        # Yardstick: the memory-efficient SDPA with the bool mask (K and V
+        # expanded to the query heads), forward, and forward + backward.
+        ids = (torch.arange(s, dtype=torch.int32)[None] // 512 if name == "causal_docs_512"
+               else docs)
+        if name == "window_512_0":
+            i, j = torch.arange(s)[:, None], torch.arange(s)[None, :]
+            bool_mask = ((j <= i) & (j >= i - 512))[None, None].to(dev)
+        else:
+            bool_mask = ((ids[:, :, None] == ids[:, None, :]) & (ids[:, :, None] >= 0)
+                         & torch.ones((s, s), dtype=torch.bool).tril())[:, None].to(dev)
+        ke, ve = (x.repeat_interleave(HQ // HKV, 1) for x in (k, v))
+        qs_, ks_, vs_ = (x.detach().requires_grad_(True) for x in (q, ke, ve))
+        res["sdpa"] = ("memory-efficient SDPA, the bool mask (B|1, 1, S, S), K and V expanded "
+                       "to 16 heads; backward: dQ, dK and dV in one call")
+        try:
+            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                res["sdpa_fwd_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q, ke, ve, attn_mask=bool_mask))
+                o = F.scaled_dot_product_attention(qs_, ks_, vs_, attn_mask=bool_mask)
+            res["sdpa_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(o, (qs_, ks_, vs_), w,
+                                                                     retain_graph=True))
+            del o
+        except RuntimeError as e:  # a yardstick only: its refusal fails nothing
+            res["sdpa_fwd_ms"] = res["sdpa_bwd_ms"] = None
+            res["sdpa"] += f"; refused: {str(e)[:200]}"
+        del ke, ve, qs_, ks_, vs_, bool_mask, p, pb, out, lse
+        torch.cuda.empty_cache()
+        emit({"phase": "block_sparse_path", **{kk: vv for kk, vv in res.items()
+                                              if kk not in ("flash_fwd", "flash_bwd_dq",
+                                                            "flash_bwd_dkv")},
+              **{f"{kk}_ms": res[kk]["ms"] for kk in kern},
+              **{f"{kk}_bound_ms": res[kk]["bound_ms"] for kk in kern},
+              **{f"{kk}_dense_causal_ms": res[kk]["dense_causal"]["ms"] for kk in kern}})
+        runs[name] = res
+        if not res["ok"]:
+            raise AssertionError(f"block-sparse {name}: the path disagrees with the plain "
+                                 f"versions: {res}")
+    del pb_dense, pf_dense
+    torch.cuda.empty_cache()
+
+    # (c) The reference's masks cell (bench.py:523-548): B2 H16 S4096 D64
+    # bf16, 8 equal non-causal documents, forward, beside the dense
+    # non-causal flash_fwd.
+    bc = 2
+    qc, kc, vc = (randn((bc, HQ, s, D), torch.bfloat16) for _ in range(3))
+    cell = ut.segment_block_mask(torch.arange(s, dtype=torch.int32)[None] // 512, device=dev)
+    pc = ff._prepare(qc, kc, vc, cell.bias, False, None, None, None, cell.walk())
+    pcd = ff._prepare(qc, kc, vc, None, False, None, None, None)
+    got = ff._launch(pc)
+    want = ff.flash_attention_forward_plain(qc, kc, vc, cell.bias, block_map=cell.block_map,
+                                            block_q=cell.block_q, block_k=cell.block_k)
+    masks_cell = {"shape": f"B{bc} H{HQ} S{s} D{D} bf16, 8 documents of 512, non-causal",
+                  "block_q": cell.block_q, "block_k": cell.block_k, "sparsity": cell.sparsity,
+                  "relerr_out": rel_err(got[0], want[0]),
+                  "sparse": cuda_stats(lambda: ff._launch(pc)),
+                  "dense": cuda_stats(lambda: ff._launch(pcd))}
+    masks_cell["speedup"] = masks_cell["dense"]["ms"] / masks_cell["sparse"]["ms"]
+    emit({"phase": "block_sparse_masks_cell", **masks_cell})
+    del qc, kc, vc, pc, pcd, got, want
+    if masks_cell["relerr_out"] > 1e-2:
+        raise AssertionError(f"the masks cell disagrees with the plain version: {masks_cell}")
+    record["block_sparse"] = {"paths": runs, "masks_cell": masks_cell}
+    for kname in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        timing[kname] = {m: {kk: r[kname][kk] for kk in ("ms", "ms_min", "ms_max", "bound_ms",
+                                                          "bound_by", "yardstick_ms")}
+                         | {"dense_causal_ms": r[kname]["dense_causal"]["ms"],
+                            "walked_share_of_causal": r["walked_share_of_causal"],
+                            "sdpa_fwd_ms": r["sdpa_fwd_ms"], "sdpa_bwd_ms": r["sdpa_bwd_ms"]}
+                         for m, r in runs.items()}
+    timing["flash_fwd"]["masks_cell"] = {"ms": masks_cell["sparse"]["ms"],
+                                         "dense_ms": masks_cell["dense"]["ms"]}
+    del q, k, v, w
+    torch.cuda.empty_cache()
+    return timing, worst, counts_all
 
 
 QRECIPES = ("int8", "int4", "int8_nosmooth", "qdense")
@@ -2914,7 +3265,9 @@ DESIGN = {
                  "products in separate score accumulators, each tile's P·V added by an fp32 "
                  "add, P's keys permuted inside each 8-key step so the accumulators are the A "
                  "fragment), 32-key fp32 tiles, D <= 256 (at D 129-256: 8 warps on 128 query "
-                 "rows, 16-key tiles)",
+                 "rows, 16-key tiles); with a BlockMask the SPARSE instantiation walks the "
+                 "compacted key row of the block's map query tile, its key tiles from each map "
+                 "tile's first key, the bias read only on tiles that are not FULL",
     "flash_bwd_dq": "tensor cores, the dQ body of quant_bwd_dq (csrc/bwd_tc.cuh dq_tc_kernel) "
                     "with a dense load stage (4 warps x 16 query rows, q·scale and dO staged "
                     "once, K/V key tiles copied by cp.async two steps ahead into three padded "
@@ -2925,7 +3278,9 @@ DESIGN = {
                     "added to the running sum by an fp32 add), 32-key fp32 tiles (at D 129-256: "
                     "8 warps, each forming S and dP over half the depth and owning that half "
                     "of dQ, the halves' partials added in shared memory; 16-key tiles in two "
-                    "staging buffers copied one step ahead)",
+                    "staging buffers copied one step ahead); with a BlockMask the SPARSE "
+                    "instantiation walks the compacted key row (fetch_kv) of its map query tile "
+                    "in order",
     "flash_bwd_dkv": "tensor cores, the dK/dV body of quant_bwd_dkv (csrc/bwd_tc.cuh "
                      "dkv_tc_kernel) with a dense load stage (4 warps x 16 keys, 8 at D 256; K/V "
                      "staged once, Q and dO 32-row tiles copied by cp.async two steps ahead into "
@@ -2935,7 +3290,9 @@ DESIGN = {
                      "products added to the running sums by fp32 adds, fp32 tiles (at D 129-256: "
                      "8 warps on 32 keys, each forming Sᵀ and dPᵀ over a quarter of the depth and "
                      "owning that quarter of dK and dV, the partials added in shared memory; "
-                     "16-row query tiles)",
+                     "16-row query tiles); with a BlockMask the SPARSE instantiation walks, for "
+                     "each query head of its GQA group, that head's compacted query row "
+                     "(fetch_q), the group summed in registers",
     "flash_dbias": "tensor cores, one body with a product policy (dbias_tc_kernel: 8 warps on "
                    "a 64-query output tile, the dS sum over the bias's broadcast batch and "
                    "heads in registers, the bias tile in shared memory once, Q/dO/K/V in "
@@ -3070,6 +3427,11 @@ def main():
     path_counts += run(phase_continuous_batching)
     run(phase_small_batching)
     path_counts.append(run(phase_attention_api))
+    s_timing, s_worst, s_counts = run(phase_block_sparse)
+    for name, t in s_timing.items():
+        timing[name]["block_sparse"] = t
+        worst[name] = max(worst[name], s_worst[name])
+    path_counts += s_counts
     run(phase_small_training)
     path_counts += run(phase_training)
     q_timing, q_worst = run(phase_quant_kernels)
@@ -3123,7 +3485,7 @@ def main():
          "bound_ms": timing[name]["bound_ms"], "bound_by": timing[name]["bound_by"],
          "library_ms": timing[name]["library_ms"],
          "design": DESIGN.get(name, "CUDA cores, FP32 FMAs"),
-         **({"variants": timing[name]["variants"]} if "variants" in timing[name] else {})}
+         **{key: timing[name][key] for key in ("variants", "block_sparse") if key in timing[name]}}
         for name in src
     ]
     kernels[[k["name"] for k in kernels].index("flash_dbias")]["launches_by_dtype"] = {

@@ -20,7 +20,6 @@ import torch
 
 import umfa_tpu
 import umfa_tpu_torch
-from umfa_tpu.ops.block_mask import causal_block_mask
 from umfa_tpu_torch import api
 from umfa_tpu_torch.engine import config as tcfg
 
@@ -204,7 +203,14 @@ def test_unported_routes_raise():
     # int8-qdense keeps Q dense: the dense route, as in the reference.
     with umfa_tpu_torch.use_quantization("int8-qdense"):
         umfa_tpu_torch.attention(q, k, v)
-    with pytest.raises(NotImplementedError, match="block_mask"):
-        umfa_tpu_torch.attention(q, k, v, lambda b, h, i, j: i >= j)
-    with pytest.raises(NotImplementedError, match="block_mask"):
-        umfa_tpu_torch.attention(q, k, v, causal_block_mask(64, 64))
+    # A block mask walks on the dense route (int8-qdense's too; values held
+    # by test_torch_block_mask.py); the integer-quantized route still
+    # raises on one: its walks are the next slice.
+    with umfa_tpu_torch.use_quantization("int8-qdense"):
+        out = umfa_tpu_torch.attention(q, k, v, umfa_tpu_torch.causal_block_mask(64, 64, device="cpu"))
+    assert torch.isfinite(out).all()
+    with umfa_tpu_torch.use_quantization("int8"):
+        with pytest.raises(NotImplementedError, match="block_mask"):
+            umfa_tpu_torch.attention(q, k, v, lambda i, j: j <= i)
+        with pytest.raises(NotImplementedError, match="block_mask"):
+            umfa_tpu_torch.attention(q, k, v, umfa_tpu_torch.causal_block_mask(64, 64, device="cpu"))

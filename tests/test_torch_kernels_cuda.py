@@ -41,13 +41,14 @@ from umfa_tpu_torch.ops.flash_bwd import (
 from umfa_tpu_torch.ops.flash_fwd import (
     flash_attention_forward,
     flash_attention_forward_plain,
+    walked_keys,
 )
 from umfa_tpu_torch.ops.quant import quantize
 from umfa_tpu_torch.ops.quant_attention import (
     quantized_attention_forward,
     quantized_attention_forward_plain,
 )
-from umfa_tpu_torch.utils.testing import rel_err
+from umfa_tpu_torch.utils.testing import lse_check, rel_err
 
 pytestmark = pytest.mark.cuda
 
@@ -72,11 +73,19 @@ def _qkv(b, hq, hkv, sq, sk, d, dtype, dev, seed=0):
     return (x.to(dev, dtype) for x in (q, k, v))
 
 
-def _check(out, lse, want, want_lse, rtol, ltol):
+def _check(out, lse, want, want_lse, rtol, ltol, arbiter=None):
+    """arbiter: (q, k, bias, keep) of the call; then a row whose LSE is
+    past ltol from the plain version's must be within ltol of the float64
+    one (`lse_check`: the fp32 plain version rounds a short row's bf16(P)
+    one ulp off)."""
     assert torch.isfinite(out).all() and torch.isfinite(lse).all()
     assert rel_err(out, want) <= rtol
     vis = want_lse > -1e29
-    if vis.any():
+    if arbiter is not None:
+        q, k, bias, keep = arbiter
+        res = lse_check(lse, want_lse, q, k, bias, ltol, keep=keep)
+        assert res["lse_ok"], res
+    elif vis.any():
         assert (lse[vis] - want_lse[vis]).abs().max().item() <= ltol
     # LSE -1e30: no visible key (out exactly 0) or every visible key masked
     # by a -1e30 bias (uniform average, LSE -1e30 + log(n) == -1e30).
@@ -1575,3 +1584,148 @@ def _check_probe(dev, m, k, n):
                                    (128, 16, 128), (64, 64, 128), (8192, 128, 256)])
 def test_mma_probe_kernel_other_plans(dev, m, k, n):
     _check_probe(dev, m, k, n)
+
+
+# ---- Block-sparse walks (rows 1-3: the SPARSE instantiations) --------------
+#
+# Each walked kernel against its plain version on the same BlockMask, at
+# the gates above (forward fp32 2e-5 / LSE 1e-5, bf16 1e-2 / 1e-3;
+# backward fp32 1e-4, bf16 2e-2); a row whose LSE is past its gate must
+# be within it of the float64 LSE (`lse_check`): at D < 128 the row sum
+# adds bf16(P), and in a row of two keys the fp32 plain version can round
+# its second P one ulp off (1.35e-3 in LSE), where the kernels do not. Rows whose walked keys all carry the
+# mask's -1e30 bias average V over those keys on both sides and are held
+# to the same gates; rows that walk no key are exact.
+
+
+def _doc_ids(b, s, seed, pad):
+    """(B, S) int32 ids of seeded uneven documents per row, the last `pad`
+    ids -1 (padding that sees no key)."""
+    g = torch.Generator().manual_seed(seed)
+    ids = torch.zeros((b, s), dtype=torch.int32)
+    for r in range(b):
+        pos, doc = 0, 0
+        while pos < s:
+            n = int(torch.randint(48, max(49, s // 3), (1,), generator=g))
+            ids[r, pos:pos + n] = doc
+            pos, doc = pos + n, doc + 1
+        if pad:
+            ids[r, s - pad:] = -1
+    return ids
+
+
+def _walk_mask(kind, b, hq, sq, sk, dev):
+    """A BlockMask on `dev` for the walked-kernel cases."""
+    from umfa_tpu_torch.ops import block_mask as bm
+    from umfa_tpu_torch.ops.flash_fwd import BlockSizes
+
+    if kind == "causal":
+        return bm.causal_block_mask(sq, sk, device=dev)
+    if kind == "window_128_0":
+        return bm.sliding_window_block_mask(sq, sk, 128, 0, device=dev)
+    ids = _doc_ids(b, sk, 5, pad=sk // 7)
+    if kind == "segments_padded":
+        return bm.segment_block_mask(ids[:, :sq], ids, causal=True, device=dev)
+    if kind == "blocks_96x160":
+        return bm.segment_block_mask(ids[:, :sq], ids, causal=True, device=dev,
+                                     block_sizes=BlockSizes(96, 160))
+    if kind == "per_head":
+        i = torch.arange(sq)[:, None]
+        j = torch.arange(sk)[None, :]
+        mask = torch.stack([(j <= i) & (j >= i - 64 * (h + 1)) for h in range(hq)])[None]
+        return bm.make_block_mask(mask, sq, sk, device=dev)
+    if kind == "aligned":  # documents of 512: SKIP and FULL tiles only, no bias
+        ids = torch.arange(sk, dtype=torch.int32)[None].repeat(b, 1) // 512
+        mask = bm.segment_block_mask(ids[:, :sq], ids, device=dev)
+        assert mask.bias is None
+        return mask
+    raise ValueError(kind)
+
+
+SPARSE_CASES = [
+    # (b, hq, hkv, sq, sk, d, mask)
+    (2, 4, 2, 1024, 1024, 64, "causal"),
+    (2, 4, 2, 1024, 1024, 64, "window_128_0"),
+    (2, 4, 2, 1024, 1024, 64, "segments_padded"),
+    (1, 4, 2, 1024, 1024, 64, "per_head"),
+    (2, 4, 2, 777, 1000, 64, "blocks_96x160"),
+    (2, 4, 2, 1024, 1024, 64, "aligned"),
+    (1, 4, 2, 777, 1000, 128, "segments_padded"),
+    (1, 4, 1, 1024, 1024, 256, "segments_padded"),
+    (1, 4, 2, 777, 1000, 256, "blocks_96x160"),
+    # The smoke's geometry (B2 Hq16 Hkv8), where more document starts fall
+    # past a row's first walked tiles.
+    (2, 16, 8, 777, 1000, 64, "segments_padded"),
+    (2, 16, 8, 777, 1000, 64, "blocks_96x160"),
+    (2, 16, 8, 1024, 1024, 64, "per_head"),
+]
+
+
+def _walk_kwargs(mask):
+    return dict(block_map=mask.block_map, block_q=mask.block_q, block_k=mask.block_k)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SPARSE_CASES)
+def test_flash_kernels_walk_a_block_mask_as_the_plain_versions(dev, dtype, case):
+    b, hq, hkv, sq, sk, d, kind = case
+    q, k, v = _qkv(b, hq, hkv, sq, sk, d, dtype, dev)
+    mask = _walk_mask(kind, b, hq, sq, sk, dev)
+    wkw = _walk_kwargs(mask)
+    n0 = dict(_kernels.launches)
+    out, lse = flash_attention_forward(q, k, v, mask.bias, fetch_ids=mask.fetch_kv, **wkw)
+    torch.cuda.synchronize()
+    assert _kernels.launches["flash_fwd"] == n0.get("flash_fwd", 0) + 1
+    want, want_lse = flash_attention_forward_plain(q, k, v, mask.bias, **wkw)
+    keep = walked_keys(mask.walk(), sq, sk)
+    _check(out.float(), lse, want.float(), want_lse, *TOLS[dtype], (q, k, mask.bias, keep))
+    again = flash_attention_forward(q, k, v, mask.bias, fetch_ids=mask.fetch_kv, **wkw)
+    assert torch.equal(again[0], out) and torch.equal(again[1], lse)
+    g = torch.Generator().manual_seed(2)
+    do = torch.randn(out.shape, generator=g).to(dev, out.dtype)
+    dlse = torch.where(want_lse > -1e29, torch.randn(lse.shape, generator=g).to(dev), 0.0)
+    gdt = torch.bfloat16 if dtype == torch.bfloat16 else None
+    args = (q, k, v, want.to(dtype), want_lse, do, mask.bias, dlse)
+    bkw = dict(wkw, fetch_kv=mask.fetch_kv, fetch_q=mask.fetch_q)
+    got = flash_attention_backward(*args, grad_dtype=gdt, **bkw)
+    torch.cuda.synchronize()
+    assert _kernels.launches["flash_bwd_dq"] == n0.get("flash_bwd_dq", 0) + 1
+    assert _kernels.launches["flash_bwd_dkv"] == n0.get("flash_bwd_dkv", 0) + 1
+    want_g = flash_attention_backward_plain(*args, grad_dtype=gdt, **wkw)
+    for x, y, name in zip(got, want_g, ("dq", "dk", "dv")):
+        assert torch.isfinite(x.float()).all(), name
+        assert rel_err(x, y) <= BWD_TOLS[dtype], name
+    again = flash_attention_backward(*args, grad_dtype=gdt, **bkw)
+    assert all(torch.equal(x, y) for x, y in zip(again, got))
+
+
+def test_flash_kernels_refuse_a_map_without_its_tables(dev):
+    q, k, v = _qkv(1, 2, 1, 256, 256, 64, torch.bfloat16, dev)
+    mask = _walk_mask("causal", 1, 2, 256, 256, dev)
+    with pytest.raises(ValueError, match="fetch_kv"):
+        flash_attention_forward(q, k, v, **_walk_kwargs(mask))
+    out, lse = flash_attention_forward(q, k, v, fetch_ids=mask.fetch_kv, **_walk_kwargs(mask))
+    with pytest.raises(ValueError, match="fetch_q"):
+        flash_attention_backward(q, k, v, out, lse, out, fetch_kv=mask.fetch_kv,
+                                 **_walk_kwargs(mask))
+    with pytest.raises(ValueError, match="lies on"):
+        flash_attention_forward(q, k, v, **_walk_kwargs(mask.to("cpu")),
+                                fetch_ids=mask.fetch_kv.cpu())
+
+
+def test_attention_with_a_block_mask_on_the_card_matches_the_cpu(dev):
+    import umfa_tpu_torch
+
+    q, k, v = _qkv(2, 4, 2, 512, 512, 64, torch.float32, dev)
+    ids = _doc_ids(2, 512, 9, pad=70)
+    mask = umfa_tpu_torch.segment_block_mask(ids, causal=True)
+    outs = []
+    for device, m in ((dev, mask.to(dev)), (torch.device("cpu"), mask)):
+        qq, kk, vv = (x.detach().to(device).requires_grad_(True) for x in (q, k, v))
+        out = umfa_tpu_torch.attention(qq, kk, vv, m)
+        (out * out).sum().backward()
+        outs.append([x.detach().cpu() for x in (out, qq.grad, kk.grad, vv.grad)])
+    for got, want in zip(*outs):
+        assert rel_err(got, want) <= 1e-4
+    with pytest.raises(ValueError, match="on cpu"):  # the mask's bias and tables stay where built
+        umfa_tpu_torch.attention(q, k, v, mask)

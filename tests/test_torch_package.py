@@ -79,7 +79,9 @@ def test_error_metrics_take_numpy_and_torch():
     assert INT8_REL_ERR == 0.02
 
 
-@pytest.mark.parametrize("name", ["quantize", "dequantize", "QuantizedTensor", "apply_rope"])
+@pytest.mark.parametrize("name", ["quantize", "dequantize", "QuantizedTensor", "apply_rope",
+                                  "BlockMask", "make_block_mask", "causal_block_mask",
+                                  "sliding_window_block_mask", "segment_block_mask"])
 def test_top_level_exports_follow_the_reference(name):
     import umfa_tpu
     import umfa_tpu_torch

@@ -21,7 +21,9 @@ kernel of `serving/decode_kernel.py` at Tq <= 16; ring attention
 (`parallel/`): `ring_flash_attention_pallas` forward and backward through
 the ring kernels, and `ring_flash_attention`, over a `LocalRing` of
 virtual ranks on one card or a `DistRing` of processes; and the
-tensor-core probe `utils/mma_probe.py`.
+tensor-core probe `utils/mma_probe.py`; block-sparse masks
+(`ops/block_mask.py`: a BlockMask or a mask_mod through `attention()` and
+`flash_attention`, forward and backward walking the map's tiles).
 
     import umfa_tpu_torch
     out = umfa_tpu_torch.attention(q, k, v, is_causal=True)
@@ -30,6 +32,8 @@ tensor-core probe `utils/mma_probe.py`.
         umfa_tpu_torch.attention(q, k, v, is_causal=True).sum().backward()
     from umfa_tpu_torch.parallel import LocalRing, ring_flash_attention_pallas
     ring_flash_attention_pallas(q, k, v, ring=LocalRing(4), causal=True).sum().backward()
+    docs = umfa_tpu_torch.segment_block_mask(segment_ids, causal=True, device="cuda")
+    umfa_tpu_torch.attention(q, k, v, docs).sum().backward()
 """
 
 from umfa_tpu_torch.api import (
@@ -49,6 +53,13 @@ from umfa_tpu_torch.engine.config import (
 )
 from umfa_tpu_torch.engine.stats import get_dispatch_stats, reset_dispatch_stats
 from umfa_tpu_torch.ops.attention import flash_attention
+from umfa_tpu_torch.ops.block_mask import (
+    BlockMask,
+    causal_block_mask,
+    make_block_mask,
+    segment_block_mask,
+    sliding_window_block_mask,
+)
 from umfa_tpu_torch.ops.hadamard import hadamard_rotate
 from umfa_tpu_torch.ops.quant import QuantizedTensor, dequantize, quantize
 from umfa_tpu_torch.ops.quant_attention import quantized_flash_attention
@@ -74,5 +85,10 @@ __all__ = [
     "quantize",
     "dequantize",
     "QuantizedTensor",
+    "BlockMask",
+    "make_block_mask",
+    "causal_block_mask",
+    "sliding_window_block_mask",
+    "segment_block_mask",
     "apply_rope",
 ]

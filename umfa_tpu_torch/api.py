@@ -12,10 +12,13 @@ and routes the call, recording the route in the dispatch stats
     are attention dropout (dropout_p > 0, with a `torch.Generator` where the
     reference takes a JAX key: the random bits differ), UMFA_DISABLE_FUSED=1
     and the UMFA_NAN_CHECK=1 recompute of an output holding NaN.
-Not ported yet (raise NotImplementedError): a BlockMask or mask_mod callable
-(ROADMAP, Open items, modules still to port: ops/block_mask.py). The
-reference's window auto-tiling is TPU tile scheduling and has no
-counterpart: the kernels' index math computes the same values.
+A BlockMask, or a mask_mod callable compiled by `make_block_mask` on q's
+device (auto-tiled, ops/block_mask.py), goes to the fused route, which
+walks its tiles. Not ported yet (raise NotImplementedError): a block mask
+under an integer quantization mode (the quantized kernels' walks are the
+next slice; int8-qdense keeps the dense route and walks) and with the
+naive routes. The reference's window auto-tiling is TPU tile scheduling
+and has no counterpart: the kernels' band walk skips the same tiles.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from umfa_tpu_torch.engine.config import Precision, QuantMode, QuantizationConfi
 from umfa_tpu_torch.engine.stats import record_dispatch
 from umfa_tpu_torch.ops import masks as masks_lib
 from umfa_tpu_torch.ops.attention import flash_attention, reference_attention
+from umfa_tpu_torch.ops.block_mask import BlockMask, make_block_mask
 from umfa_tpu_torch.ops.flash_fwd import DEFAULT_MASK_VALUE, fold_mask, visible_mask
 from umfa_tpu_torch.ops.quant_attention import quantized_flash_attention
 
@@ -121,21 +125,23 @@ def attention(
     """SDPA-shaped fused attention. q: (B, Hq, Sq, D), k, v: (B, Hkv, Sk, D)
     (or 3-D/2-D, promoted), Hq % Hkv == 0 for GQA. `mask`: a bool or integer
     mask (nonzero = attend) or an additive float bias, any shape that
-    broadcasts to (B, Hq, Sq, Sk). `window` = (left, right), -1 = unbounded.
-    Returns out, or (out, lse) with return_lse=True; differentiable in q, k,
-    v and, with bias_grad=True, in a float mask (else its gradient is 0)."""
-    if callable(mask) or hasattr(mask, "block_map"):
-        raise NotImplementedError(
-            "BlockMask and mask_mod masks are not ported yet (ROADMAP, Open "
-            "items, modules still to port: ops/block_mask.py); pass a bool or "
-            "float mask"
-        )
+    broadcasts to (B, Hq, Sq, Sk); or a BlockMask, or a mask_mod
+    `(q_idx, k_idx) -> bool` (FlexAttention-style, ops/block_mask.py).
+    `window` = (left, right), -1 = unbounded. Returns out, or (out, lse)
+    with return_lse=True; differentiable in q, k, v and, with
+    bias_grad=True, in a float mask (else its gradient is 0)."""
     q4, added = _ensure_4d(q)
     k4, _ = _ensure_4d(k)
     v4, _ = _ensure_4d(v)
     batch, num_heads, seq_q, head_dim = q4.shape
     seq_k = k4.shape[2]
 
+    block_mask = None
+    if isinstance(mask, BlockMask):
+        block_mask, mask = mask, None
+    elif callable(mask):
+        block_mask = make_block_mask(mask, seq_q, seq_k, head_dim=head_dim, device=q4.device)
+        mask = None
     if mask is not None:
         mask = torch.as_tensor(mask)
         if masks_lib.is_all_true(mask):
@@ -143,6 +149,14 @@ def attention(
             mask = None
     bias = masks_lib.canonicalize_mask(mask, batch, num_heads, seq_q, seq_k)
     quant = quantization if quantization is not None else get_quantization_mode()
+    integer_quant = quant is not None and quant.q_precision.is_integer
+    if block_mask is not None and (integer_quant or dropout_p > 0.0 or cfg.DISABLE_FUSED):
+        raise NotImplementedError(
+            "a block mask takes the fused route only: the quantized kernels' "
+            "block-sparse walks are the next slice (ROADMAP, Queue 2 A1, A2 and "
+            "A4: quantized_flash_attention(block_mask=...)), and the naive routes "
+            "(dropout, UMFA_DISABLE_FUSED) take no block mask"
+        )
 
     if dropout_p > 0.0:
         # Attention dropout is not fused (nor in the reference): the naive
@@ -156,13 +170,14 @@ def attention(
 
     _debug(
         f"attention B={batch} H={num_heads} Sq={seq_q} Sk={seq_k} D={head_dim} "
-        f"causal={is_causal} window={window} quant={quant is not None} bias={bias is not None}"
+        f"causal={is_causal} window={window} quant={quant is not None} "
+        f"block_mask={block_mask is not None} bias={bias is not None}"
     )
     lse = None
     if cfg.DISABLE_FUSED:
         record_dispatch("naive_fallback")
         out = reference_attention(q4, k4, v4, bias, causal=is_causal, window=window, scale=scale)
-    elif quant is not None and quant.q_precision.is_integer:
+    elif integer_quant:
         # A dense Q (int8-qdense) keeps the dense route, as in the reference.
         record_dispatch("quantized_autograd")
         out, lse = quantized_flash_attention(q4, k4, v4, bias, config=quant, causal=is_causal,
@@ -171,10 +186,13 @@ def attention(
     else:
         record_dispatch("fused_fwd" if return_lse else "fused_autograd")
         out, lse = flash_attention(q4, k4, v4, bias, causal=is_causal, window=window,
-                                   scale=scale, out_dtype=out_dtype, return_lse=True,
-                                   bias_grad=bias_grad)
+                                   scale=scale, block_mask=block_mask, out_dtype=out_dtype,
+                                   return_lse=True, bias_grad=bias_grad)
+        if block_mask is not None:
+            bias = block_mask.bias
     if cfg.NAN_CHECK:
-        out = _nan_check_or_recompute(out, q4, k4, v4, bias, is_causal, window, scale)
+        out = _nan_check_or_recompute(out, q4, k4, v4, bias, is_causal, window, scale,
+                                      None if block_mask is None else block_mask.walk())
     if return_lse and lse is not None:
         return _squeeze(out, added), _squeeze(lse, added)
     return _squeeze(out, added)
@@ -212,12 +230,13 @@ def attention_with_lse(q, k, v, mask=None, **kwargs):
     return attention(q, k, v, mask, return_lse=True, **kwargs)
 
 
-def _nan_check_or_recompute(out, q4, k4, v4, bias, is_causal, window, scale):
+def _nan_check_or_recompute(out, q4, k4, v4, bias, is_causal, window, scale, walk):
     """UMFA_NAN_CHECK=1: scan the output for NaN and, if there is any,
-    recompute it through the naive reference path."""
+    recompute it through the naive reference path (a block mask's walk
+    included)."""
     if bool(torch.isnan(out).any()):
         record_dispatch("naive_fallback")
         _debug("NaN detected — recomputing via the naive reference path")
         return reference_attention(q4, k4, v4, bias, causal=is_causal, window=window,
-                                   scale=scale).to(out.dtype)
+                                   scale=scale, walk=walk).to(out.dtype)
     return out

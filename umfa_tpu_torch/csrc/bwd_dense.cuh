@@ -191,8 +191,9 @@ struct DenseLoad {
 };
 
 // One dense backward pass: dK/dV (dkv) or dQ on Tin inputs into Tout
-// gradients, head dims up to DP; RING as in bwd_tc.cuh (fp32 outputs).
-template <typename Tin, typename Tout, int DP, bool RING = false>
+// gradients, head dims up to DP; RING (fp32 outputs) and SPARSE as in
+// bwd_tc.cuh.
+template <typename Tin, typename Tout, int DP, bool RING = false, bool SPARSE = false>
 cudaError_t launch_dense(BwdParams p, bool dkv, cudaStream_t stream) {
   // Rows by 16-byte cp.async when every row of q, k, v and dO starts
   // 16-byte aligned; four values at a time when rows start at a multiple of
@@ -201,10 +202,10 @@ cudaError_t launch_dense(BwdParams p, bool dkv, cudaStream_t stream) {
   using Mma = MmaFor<Tin>;
   if (dkv) {
     p.wide = p.D % 4 == 0 && aligned({p.k, p.v}, 4 * sizeof(Tin));
-    return launch_dkv_tc<DenseLoad<DP, Tin>, Mma, Tout, DP, RING>(p, vec, stream);
+    return launch_dkv_tc<DenseLoad<DP, Tin>, Mma, Tout, DP, RING, SPARSE>(p, vec, stream);
   }
   p.wide = p.D % 4 == 0 && aligned({p.q, p.dout}, 4 * sizeof(Tin));
-  return launch_dq_tc<DenseDqLoad<DP, Tin>, Mma, Tout, DP, RING>(p, vec, stream);
+  return launch_dq_tc<DenseDqLoad<DP, Tin>, Mma, Tout, DP, RING, SPARSE>(p, vec, stream);
 }
 
 // Dynamic shared memory of the dense dQ (dkv = 0) or dK/dV (dkv = 1) body

@@ -27,6 +27,17 @@
 // buffers they are stored to, written at the rank's first step and added
 // to (the old value plus scale times the sum, each rounded once) after it.
 // A block that sees nothing after the first step returns without a store.
+//
+// SPARSE (a template parameter as RING is; only the dense stages of
+// bwd_dense.cuh take it): the walks restricted to a block-sparse map
+// (common.cuh `SparseWalk`). The dQ block walks the compacted key row of
+// its map query tile in order (deterministic, as the dense walk); the dK/dV
+// block walks, for each query head of its GQA group in turn, that head's
+// own compacted query row (a per-head map gives each head its own), the
+// group still summed in registers by one owner. Indices past a map tile's
+// end are hidden like the tails; the bias is read only on tiles that are
+// not FULL for the block; a block that straddles map tiles looks up each
+// element's own tile.
 #pragma once
 
 #include <initializer_list>
@@ -68,6 +79,7 @@ struct BwdParams {
   // Read only by the RING instantiations: query rows below q_lo and keys at
   // or past k_hi are hidden; first: store the step's gradients, else add them.
   int q_lo, k_hi, first;
+  SparseMap sm;  // read only by the SPARSE instantiations: the map and fetch_kv (dQ) or fetch_q (dK/dV)
 };
 
 // Whether every pointer is a multiple of `bytes` (null counts as aligned):
@@ -279,7 +291,7 @@ constexpr int dkv_smem_bytes() {
          DkvTile<DP, Mma>::PART_BYTES;
 }
 
-template <class Load, class Mma, typename Tout, int DP, bool RING = false>
+template <class Load, class Mma, typename Tout, int DP, bool RING = false, bool SPARSE = false>
 __global__ void __launch_bounds__(DkvTile<DP, Mma>::NTHR, DkvTile<DP, Mma>::MINB)
     dkv_tc_kernel(const BwdParams p, const int vec) {
   using G = DkvTile<DP, Mma>;
@@ -317,23 +329,56 @@ __global__ void __launch_bounds__(DkvTile<DP, Mma>::NTHR, DkvTile<DP, Mma>::MINB
   }
   const int t_lo = q_lo / QT;
   const int n_t = q_hi >= q_lo ? q_hi / QT - t_lo + 1 : 0;
-  const int total = group * n_t;  // (head, query tile) steps, head-major
+  int total = group * n_t;  // (head, query tile) steps, head-major
   if constexpr (RING) {
     if (n_t == 0 && !p.first) return;  // adds nothing to the buffers
   }
   auto head_of = [&](int i) { return (long long)b * p.Hq + hk * group + i / n_t; };
   auto q0_of = [&](int i) { return (t_lo + i % n_t) * QT; };
+  // SPARSE: the walk's position of the next tile to copy, and the tiles of
+  // steps i and i + 1 (copied already).
+  SparseWalk sw;
+  WalkPos w_iss;
+  WalkTile ta{}, tb{};
+  auto qbh_of = [&](const WalkTile& t) { return (long long)b * p.Hq + hk * group + t.h; };
+  if constexpr (SPARSE) {
+    sw = sparse_walk(p.sm, false, b, hk * group, group, k0, min(k0 + KB, p.Sk) - 1, q_lo, q_hi,
+                     QT, p.Sq);
+    total = 0;
+    if (n_t > 0) {
+      w_iss = walk_start(sw);
+      total = walk_count(sw, w_iss);
+    }
+  }
 
   // Pipeline: step i's raw operands are copied two steps ahead and
   // converted one step ahead, so one barrier a step orders everything.
-  if (total > 0) Load::issue(raw_of(0), p, head_of(0), q0_of(0), vec);
-  cp_async_commit();
-  if (total > 1) Load::issue(raw_of(1), p, head_of(1), q0_of(1), vec);
-  cp_async_commit();
+  if constexpr (SPARSE) {
+    if (total > 0) {
+      ta = walk_take(sw, w_iss);
+      Load::issue(raw_of(0), p, qbh_of(ta), ta.first, vec);
+    }
+    cp_async_commit();
+    if (total > 1) {
+      tb = walk_take(sw, w_iss);
+      Load::issue(raw_of(1), p, qbh_of(tb), tb.first, vec);
+    }
+    cp_async_commit();
+  } else {
+    if (total > 0) Load::issue(raw_of(0), p, head_of(0), q0_of(0), vec);
+    cp_async_commit();
+    if (total > 1) Load::issue(raw_of(1), p, head_of(1), q0_of(1), vec);
+    cp_async_commit();
+  }
   Load::stage_kv(sK, sV, sVm, p, kbh, k0);
   cp_async_wait<1>();
   __syncthreads();
-  if (total > 0) Load::stage(raw_of(0), tile_of(0), sVm, p, head_of(0), q0_of(0));
+  if (total > 0) {
+    if constexpr (SPARSE)
+      Load::stage(raw_of(0), tile_of(0), sVm, p, qbh_of(ta), ta.first);
+    else
+      Load::stage(raw_of(0), tile_of(0), sVm, p, head_of(0), q0_of(0));
+  }
 
   float dk[NA][4], dv[NA][4];
 #pragma unroll
@@ -346,15 +391,29 @@ __global__ void __launch_bounds__(DkvTile<DP, Mma>::NTHR, DkvTile<DP, Mma>::MINB
   for (int i = 0; i < total; ++i) {
     cp_async_wait<0>();
     __syncthreads();  // tile i converted, raw i + 1 landed, step i - 1 done
-    if (i + 2 < total) Load::issue(raw_of(i + 2), p, head_of(i + 2), q0_of(i + 2), vec);
-    cp_async_commit();
-    if (i + 1 < total)
-      Load::stage(raw_of(i + 1), tile_of(i + 1), sVm, p, head_of(i + 1), q0_of(i + 1));
+    WalkTile tw{};  // SPARSE: step i's tile (rows at or past tw.end hidden)
+    if constexpr (SPARSE) {
+      WalkTile tc{};
+      if (i + 2 < total) {
+        tc = walk_take(sw, w_iss);
+        Load::issue(raw_of(i + 2), p, qbh_of(tc), tc.first, vec);
+      }
+      cp_async_commit();
+      if (i + 1 < total) Load::stage(raw_of(i + 1), tile_of(i + 1), sVm, p, qbh_of(tb), tb.first);
+      tw = ta;
+      ta = tb;
+      tb = tc;
+    } else {
+      if (i + 2 < total) Load::issue(raw_of(i + 2), p, head_of(i + 2), q0_of(i + 2), vec);
+      cp_async_commit();
+      if (i + 1 < total)
+        Load::stage(raw_of(i + 1), tile_of(i + 1), sVm, p, head_of(i + 1), q0_of(i + 1));
+    }
 
-    const long long qbh = head_of(i);
-    const int q0 = q0_of(i);
+    const long long qbh = SPARSE ? qbh_of(tw) : head_of(i);
+    const int q0 = SPARSE ? tw.first : q0_of(i);
     const Tile t = tile_of(i);
-    if (i % n_t == 0 && p.corr) {
+    if (!SPARSE && i % n_t == 0 && p.corr) {
       const float* cr = p.corr + qbh * p.Sk;
       corr[0] = key0 < p.Sk ? cr[key0] : 0.f;
       corr[1] = key1 < p.Sk ? cr[key1] : 0.f;
@@ -362,12 +421,15 @@ __global__ void __launch_bounds__(DkvTile<DP, Mma>::NTHR, DkvTile<DP, Mma>::MINB
 
     // This warp's keys [kw, kw + 15] against queries [q0, q0 + QT).
     const int kw = k0 + kr, qe = q0 + QT - 1;
-    const bool none = kw >= p.Sk || q0 >= p.Sq || (p.right >= 0 && kw > qe + p.right) ||
+    const bool none = kw >= p.Sk || q0 >= (SPARSE ? tw.end : p.Sq) ||
+                      (p.right >= 0 && kw > qe + p.right) ||
                       (p.left >= 0 && kw + 15 < q0 - p.left) ||
                       (RING && (kw >= p.k_hi || qe < p.q_lo));
-    const bool all = kw + 15 < p.Sk && qe < p.Sq && (p.right < 0 || kw + 15 <= q0 + p.right) &&
+    const bool all = kw + 15 < p.Sk && qe < (SPARSE ? tw.end : p.Sq) &&
+                     (p.right < 0 || kw + 15 <= q0 + p.right) &&
                      (p.left < 0 || kw >= qe - p.left) &&
-                     (!RING || (kw + 15 < p.k_hi && q0 >= p.q_lo));
+                     (!RING || (kw + 15 < p.k_hi && q0 >= p.q_lo)) &&
+                     (!SPARSE || sw.fetch != nullptr);
     float s[NQ][4], dp[NQ][4];
     if (!none) {
 #pragma unroll
@@ -384,8 +446,10 @@ __global__ void __launch_bounds__(DkvTile<DP, Mma>::NTHR, DkvTile<DP, Mma>::MINB
     if constexpr (G::WIDE32) sum_slices<G::SPLIT, KW>(s, dp, part, !none);
     if (!none) {
       // Element (j, e): key e < 2 ? key0 : key1, query q0 + 8j + 2tq + (e & 1).
-      const float* bias =
-          p.bias ? p.bias + b * p.bsb + (qbh - (long long)b * p.Hq) * p.bsh : nullptr;
+      // SPARSE: no bias read on a FULL tile.
+      const float* bias = p.bias && !(SPARSE && tw.full)
+                              ? p.bias + b * p.bsb + (qbh - (long long)b * p.Hq) * p.bsh
+                              : nullptr;
 #pragma unroll
       for (int j = 0; j < NQ; ++j)
 #pragma unroll
@@ -393,7 +457,9 @@ __global__ void __launch_bounds__(DkvTile<DP, Mma>::NTHR, DkvTile<DP, Mma>::MINB
           const int key = e < 2 ? key0 : key1, qi = 8 * j + 2 * tq + (e & 1), row = q0 + qi;
           float pr = 0.f, ds = 0.f;
           if (all || ((!RING || row >= p.q_lo) &&
-                      key_visible(row, key, p.Sq, RING ? p.k_hi : p.Sk, p.left, p.right))) {
+                      key_visible(row, key, SPARSE ? tw.end : p.Sq, RING ? p.k_hi : p.Sk,
+                                  p.left, p.right) &&
+                      (!SPARSE || sw.fetch || walk_has(sw, tw.h, key, row)))) {
             float x = s[j][e];
             if (p.corr) x = __fadd_rn(x, corr[e >> 1]);
             if (bias) x = __fadd_rn(x, bias[row * p.bsq + key * p.bsk]);
@@ -408,7 +474,7 @@ __global__ void __launch_bounds__(DkvTile<DP, Mma>::NTHR, DkvTile<DP, Mma>::MINB
       Mma::template grads<QT, NA>(dv, dk, s, dp, t.o, t.qk, LD, c0, lane);
     }
 
-    if (i % n_t == n_t - 1) {
+    if (!SPARSE && i % n_t == n_t - 1) {
       // The head's last tile: dK += scale · colsum(dS)ᵀ · qm of this head.
       if (p.qm) {
         const float* qm = p.qm + qbh * p.D;
@@ -447,11 +513,11 @@ __global__ void __launch_bounds__(DkvTile<DP, Mma>::NTHR, DkvTile<DP, Mma>::MINB
   }
 }
 
-template <class Load, class Mma, typename Tout, int DP, bool RING = false>
+template <class Load, class Mma, typename Tout, int DP, bool RING = false, bool SPARSE = false>
 cudaError_t launch_dkv_tc(const BwdParams& p, int vec, cudaStream_t stream) {
   constexpr int smem = dkv_smem_bytes<Load, Mma, DP>();
   constexpr int nthr = DkvTile<DP, Mma>::NTHR, kb = DkvTile<DP, Mma>::KB;
-  const auto kernel = dkv_tc_kernel<Load, Mma, Tout, DP, RING>;
+  const auto kernel = dkv_tc_kernel<Load, Mma, Tout, DP, RING, SPARSE>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -516,7 +582,7 @@ constexpr int dq_smem_bytes() {
          2 * Load::Kv::BYTES + Load::NRAW * Load::RAW_BYTES + DqTile<DP, Mma>::PART_BYTES;
 }
 
-template <class Load, class Mma, typename Tout, int DP, bool RING = false>
+template <class Load, class Mma, typename Tout, int DP, bool RING = false, bool SPARSE = false>
 __global__ void __launch_bounds__(DqTile<DP, Mma>::NTHR, DqTile<DP, Mma>::MINB)
     dq_tc_kernel(const BwdParams p, const int vec) {
   using G = DqTile<DP, Mma>;
@@ -549,22 +615,47 @@ __global__ void __launch_bounds__(DqTile<DP, Mma>::NTHR, DqTile<DP, Mma>::MINB)
     if (min(q0 + 64, p.Sq) <= p.q_lo) k_hi = -1;
   }
   const int t_lo = k_lo / KT;
-  const int n_t = k_hi >= k_lo ? k_hi / KT - t_lo + 1 : 0;
+  int n_t = k_hi >= k_lo ? k_hi / KT - t_lo + 1 : 0;
   if constexpr (RING) {
     if (n_t == 0 && !p.first) return;  // adds nothing to the buffer
+  }
+  // SPARSE: the walk's position of the next tile to copy, and the tiles of
+  // steps i and i + 1 (i + 1 copied already when AHEAD is 2).
+  SparseWalk sw;
+  WalkPos w_iss;
+  WalkTile ta{}, tb{};
+  if constexpr (SPARSE) {
+    sw = sparse_walk(p.sm, true, b, h, 1, q0, min(q0 + 64, p.Sq) - 1, k_lo, k_hi, KT, p.Sk);
+    if (n_t > 0) {
+      w_iss = walk_start(sw);
+      n_t = walk_count(sw, w_iss);
+    }
   }
 
   // Pipeline as in dkv_tc_kernel: key tile i copied AHEAD steps ahead,
   // converted one step ahead, one barrier a step.
   constexpr int AHEAD = Load::AHEAD;
-  if (n_t > 0) Load::issue(raw_of(0), p, qbh, kbh, t_lo * KT, vec);
-  cp_async_commit();
-  if (AHEAD > 1 && n_t > 1) Load::issue(raw_of(1), p, qbh, kbh, (t_lo + 1) * KT, vec);
-  cp_async_commit();
+  if constexpr (SPARSE) {
+    if (n_t > 0) {
+      ta = walk_take(sw, w_iss);
+      Load::issue(raw_of(0), p, qbh, kbh, ta.first, vec);
+    }
+    cp_async_commit();
+    if (AHEAD > 1 && n_t > 1) {
+      tb = walk_take(sw, w_iss);
+      Load::issue(raw_of(1), p, qbh, kbh, tb.first, vec);
+    }
+    cp_async_commit();
+  } else {
+    if (n_t > 0) Load::issue(raw_of(0), p, qbh, kbh, t_lo * KT, vec);
+    cp_async_commit();
+    if (AHEAD > 1 && n_t > 1) Load::issue(raw_of(1), p, qbh, kbh, (t_lo + 1) * KT, vec);
+    cp_async_commit();
+  }
   Load::stage_q(sQ, sO, sRow, p, qbh, kbh, q0);
   cp_async_wait<1>();
   __syncthreads();
-  if (n_t > 0) Load::stage(raw_of(0), kv_of(0), p, kbh, t_lo * KT);
+  if (n_t > 0) Load::stage(raw_of(0), kv_of(0), p, kbh, SPARSE ? ta.first : t_lo * KT);
 
   const int rw = (G::WIDE32 ? warp & 3 : warp) * 16;  // the warp's first row in the tile
   const int c0 = G::WIDE32 ? (warp >> 2) * DW : 0;      // its first column of dQ
@@ -583,22 +674,40 @@ __global__ void __launch_bounds__(DqTile<DP, Mma>::NTHR, DqTile<DP, Mma>::MINB)
   for (int i = 0; i < n_t; ++i) {
     cp_async_wait<Load::IN_FLIGHT>();
     __syncthreads();  // key tile i landed and converted, step i - 1 done
-    if (i + AHEAD < n_t)
-      Load::issue(raw_of(i + AHEAD), p, qbh, kbh, (t_lo + i + AHEAD) * KT, vec);
-    cp_async_commit();
-    if (i + 1 < n_t) Load::stage(raw_of(i + 1), kv_of(i + 1), p, kbh, (t_lo + i + 1) * KT);
+    WalkTile tw{};  // SPARSE: step i's tile (keys at or past tw.end hidden)
+    if constexpr (SPARSE) {
+      WalkTile tc{};
+      if (i + AHEAD < n_t) {
+        tc = walk_take(sw, w_iss);
+        Load::issue(raw_of(i + AHEAD), p, qbh, kbh, tc.first, vec);
+      }
+      cp_async_commit();
+      if (AHEAD == 1) tb = tc;
+      if (i + 1 < n_t) Load::stage(raw_of(i + 1), kv_of(i + 1), p, kbh, tb.first);
+      tw = ta;
+      ta = tb;
+      tb = tc;
+    } else {
+      if (i + AHEAD < n_t)
+        Load::issue(raw_of(i + AHEAD), p, qbh, kbh, (t_lo + i + AHEAD) * KT, vec);
+      cp_async_commit();
+      if (i + 1 < n_t) Load::stage(raw_of(i + 1), kv_of(i + 1), p, kbh, (t_lo + i + 1) * KT);
+    }
 
-    const int k0 = (t_lo + i) * KT;
+    const int k0 = SPARSE ? tw.first : (t_lo + i) * KT;
     const Kv kv = kv_of(i);
 
     // This warp's rows [r_lo, r_lo + 15] against keys [k0, k0 + KT).
     const int r_lo = q0 + rw, r_hi = r_lo + 15, ke = k0 + KT - 1;
-    const bool none = r_lo >= p.Sq || k0 >= p.Sk || (p.right >= 0 && k0 > r_hi + p.right) ||
+    const bool none = r_lo >= p.Sq || k0 >= (SPARSE ? tw.end : p.Sk) ||
+                      (p.right >= 0 && k0 > r_hi + p.right) ||
                       (p.left >= 0 && ke < r_lo - p.left) ||
                       (RING && (k0 >= p.k_hi || r_hi < p.q_lo));
-    const bool all = r_hi < p.Sq && ke < p.Sk && (p.right < 0 || ke <= r_lo + p.right) &&
+    const bool all = r_hi < p.Sq && ke < (SPARSE ? tw.end : p.Sk) &&
+                     (p.right < 0 || ke <= r_lo + p.right) &&
                      (p.left < 0 || k0 >= r_hi - p.left) &&
-                     (!RING || (ke < p.k_hi && r_lo >= p.q_lo));
+                     (!RING || (ke < p.k_hi && r_lo >= p.q_lo)) &&
+                     (!SPARSE || sw.fetch != nullptr);
     if (!G::WIDE32 && none) continue;
 
     float s[NS][4], dp[NS][4];
@@ -617,6 +726,7 @@ __global__ void __launch_bounds__(DqTile<DP, Mma>::NTHR, DqTile<DP, Mma>::MINB)
     }
 
     // Element (j, e): row e < 2 ? row0 : row1, key k0 + 8j + 2tq + (e & 1).
+    const float* tbias = SPARSE && tw.full ? nullptr : bias;  // SPARSE: none read on a FULL tile
 #pragma unroll
     for (int j = 0; j < NS; ++j)
 #pragma unroll
@@ -624,9 +734,11 @@ __global__ void __launch_bounds__(DqTile<DP, Mma>::NTHR, DqTile<DP, Mma>::MINB)
         const int r = e >> 1, row = r ? row1 : row0, kj = 8 * j + 2 * tq + (e & 1), key = k0 + kj;
         float ds = 0.f;
         if (all || ((!RING || row >= p.q_lo) &&
-                    key_visible(row, key, p.Sq, RING ? p.k_hi : p.Sk, p.left, p.right))) {
+                    key_visible(row, key, p.Sq, RING ? p.k_hi : SPARSE ? tw.end : p.Sk, p.left,
+                                p.right) &&
+                    (!SPARSE || sw.fetch || walk_has(sw, 0, row, key)))) {
           float x = kv.score(s[j][e], kj);
-          if (bias) x = __fadd_rn(x, bias[row * p.bsq + key * p.bsk]);
+          if (tbias) x = __fadd_rn(x, tbias[row * p.bsq + key * p.bsk]);
           const float pr = expf(x - lse[r]);
           ds = __fmul_rn(pr, __fadd_rn(dp[j][e], vt[r]) - dlt[r]);
         }
@@ -652,10 +764,10 @@ __global__ void __launch_bounds__(DqTile<DP, Mma>::NTHR, DqTile<DP, Mma>::MINB)
   }
 }
 
-template <class Load, class Mma, typename Tout, int DP, bool RING = false>
+template <class Load, class Mma, typename Tout, int DP, bool RING = false, bool SPARSE = false>
 cudaError_t launch_dq_tc(const BwdParams& p, int vec, cudaStream_t stream) {
   constexpr int smem = dq_smem_bytes<Load, Mma, DP>();
-  const auto kernel = dq_tc_kernel<Load, Mma, Tout, DP, RING>;
+  const auto kernel = dq_tc_kernel<Load, Mma, Tout, DP, RING, SPARSE>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;

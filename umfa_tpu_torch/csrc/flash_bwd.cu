@@ -1,8 +1,10 @@
 // Dense flash-attention backward (dQ, then dK/dV) for Hopper, sm_90a.
 //
 // Replaces umfa_tpu/ops/flash_bwd.py:84 `_dq_kernel` and flash_bwd.py:336
-// `_dkv_kernel` (host `flash_attention_backward`, flash_bwd.py:825), without
-// their block-sparse walks. The host wrapper (ops/flash_bwd.py) computes
+// `_dkv_kernel` (host `flash_attention_backward`, flash_bwd.py:825), with
+// their block-sparse walks (a map given: the bodies' SPARSE instantiations;
+// dQ walks fetch_kv, dK/dV each query head's row of fetch_q, :369-402,
+// unwalked pairs hidden, the bias read only where a tile is not FULL). The host wrapper (ops/flash_bwd.py) computes
 // delta = rowsum(dO∘O) − dlse in fp32, gives fully masked rows LSE +1e30
 // (their P, and so their gradients, are exactly 0), and casts dO to the
 // input type, as the reference does outside its kernels.
@@ -77,25 +79,34 @@ using namespace umfa;
 
 namespace {
 
-template <typename Tout>
+template <typename Tout, bool SPARSE>
 cudaError_t launch_d(const BwdParams& p, bool dkv, bool bf16, cudaStream_t stream) {
   if (!bf16) {
-    if (p.D <= 64) return launch_dense<float, Tout, 64>(p, dkv, stream);
-    if (p.D <= 128) return launch_dense<float, Tout, 128>(p, dkv, stream);
-    return launch_dense<float, Tout, 256>(p, dkv, stream);
+    if (p.D <= 64) return launch_dense<float, Tout, 64, false, SPARSE>(p, dkv, stream);
+    if (p.D <= 128) return launch_dense<float, Tout, 128, false, SPARSE>(p, dkv, stream);
+    return launch_dense<float, Tout, 256, false, SPARSE>(p, dkv, stream);
   }
-  if (p.D <= 64) return launch_dense<__nv_bfloat16, Tout, 64>(p, dkv, stream);
-  if (p.D <= 128) return launch_dense<__nv_bfloat16, Tout, 128>(p, dkv, stream);
-  return launch_dense<__nv_bfloat16, Tout, 256>(p, dkv, stream);
+  if (p.D <= 64) return launch_dense<__nv_bfloat16, Tout, 64, false, SPARSE>(p, dkv, stream);
+  if (p.D <= 128) return launch_dense<__nv_bfloat16, Tout, 128, false, SPARSE>(p, dkv, stream);
+  return launch_dense<__nv_bfloat16, Tout, 256, false, SPARSE>(p, dkv, stream);
 }
 
-int dispatch(const BwdParams& p, bool dkv, int in_dtype, int out_dtype, void* stream) {
+template <typename Tout>
+cudaError_t launch_walk(const BwdParams& p, bool dkv, bool bf16, cudaStream_t stream) {
+  return p.sm.map ? launch_d<Tout, true>(p, dkv, bf16, stream)
+                  : launch_d<Tout, false>(p, dkv, bf16, stream);
+}
+
+int dispatch(BwdParams p, bool dkv, int in_dtype, int out_dtype, const void* map,
+             const void* fetch, int bq, int bk, int nq, int nk, int width, long long msb,
+             long long msh, long long fsb, long long fsh, void* stream) {
   if (in_dtype < 0 || in_dtype > 1 || out_dtype < 0 || out_dtype > 1 || p.D < 1 ||
-      p.D > 256 || p.Hkv < 1 || p.Hq % p.Hkv != 0)
+      p.D > 256 || p.Hkv < 1 || p.Hq % p.Hkv != 0 ||
+      !sparse_map(&p.sm, map, fetch, bq, bk, nq, nk, width, msb, msh, fsb, fsh))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return out_dtype == 0 ? launch_d<float>(p, dkv, in_dtype == 1, st)
-                        : launch_d<__nv_bfloat16>(p, dkv, in_dtype == 1, st);
+  return out_dtype == 0 ? launch_walk<float>(p, dkv, in_dtype == 1, st)
+                        : launch_walk<__nv_bfloat16>(p, dkv, in_dtype == 1, st);
 }
 
 }  // namespace
@@ -104,13 +115,18 @@ int dispatch(const BwdParams& p, bool dkv, int in_dtype, int out_dtype, void* st
 // (B, Hkv, Sk, D) contiguous in in_dtype, D <= 256; lse, delta (B, Hq, Sq)
 // float32; bias float32 with element strides (or null). umfa_flash_bwd_dq
 // writes out0 = dQ (B, Hq, Sq, D); umfa_flash_bwd_dkv writes out0 = dK and
-// out1 = dV (B, Hkv, Sk, D); both in out_dtype. Each returns the
-// cudaError_t of its launch.
+// out1 = dV (B, Hkv, Sk, D); both in out_dtype. map (null: no walk): the
+// block-sparse map (Bm, Hm, nq, nk) int32 of bq x bk tiles; fetch its
+// compacted table, fetch_kv (Bm, Hm, nq, width) for dQ, fetch_q
+// (Bm, Hm, nk, width) for dK/dV; the element strides of their batch and
+// head (0 = broadcast). Each returns the cudaError_t of its launch.
 #define UMFA_BWD_ARGS                                                                        \
   const void *q, const void *k, const void *v, const void *dout, const void *lse,           \
       const void *delta, const void *bias, void *out0, void *out1, int B, int Hq, int Hkv, \
       int Sq, int Sk, int D, long long bsb, long long bsh, long long bsq, long long bsk,    \
-      float scale, int left, int right, int in_dtype, int out_dtype, void *stream
+      float scale, int left, int right, int in_dtype, int out_dtype, const void *map,        \
+      const void *fetch, int bq, int bk, int nq, int nk, int width, long long msb,            \
+      long long msh, long long fsb, long long fsh, void *stream
 #define UMFA_BWD_PARAMS                                                                       \
   BwdParams {                                                                                 \
     q, k, v, nullptr, nullptr, nullptr, dout, static_cast<const float*>(lse),                 \
@@ -120,11 +136,13 @@ int dispatch(const BwdParams& p, bool dkv, int in_dtype, int out_dtype, void* st
   }
 
 extern "C" int umfa_flash_bwd_dq(UMFA_BWD_ARGS) {
-  return dispatch(UMFA_BWD_PARAMS, false, in_dtype, out_dtype, stream);
+  return dispatch(UMFA_BWD_PARAMS, false, in_dtype, out_dtype, map, fetch, bq, bk, nq, nk, width,
+                  msb, msh, fsb, fsh, stream);
 }
 
 extern "C" int umfa_flash_bwd_dkv(UMFA_BWD_ARGS) {
-  return dispatch(UMFA_BWD_PARAMS, true, in_dtype, out_dtype, stream);
+  return dispatch(UMFA_BWD_PARAMS, true, in_dtype, out_dtype, map, fetch, bq, bk, nq, nk, width,
+                  msb, msh, fsb, fsh, stream);
 }
 
 // Dynamic shared memory of the dQ (dkv = 0) or dK/dV (dkv = 1) kernel for

@@ -1,8 +1,8 @@
 // Dense flash-attention forward (out + LSE) for Hopper, sm_90a.
 //
 // Replaces umfa_tpu/ops/flash_fwd.py:296 `_fwd_kernel` (host
-// `flash_attention_forward`, flash_fwd.py:762), without its block-sparse
-// walk and its in-kernel RoPE. The tensor-core body of fwd_tc.cuh
+// `flash_attention_forward`, flash_fwd.py:762), with its block-sparse walk
+// (:340-357), without its in-kernel RoPE. The tensor-core body of fwd_tc.cuh
 // (`fwd_tc_kernel`), with the product policy chosen by the input dtype:
 //   * bf16 inputs: `Bf16Mma`, mma.sync m16n8k16 bf16 -> fp32, D <= 256;
 //   * fp32 inputs (fp16 arrives promoted to fp32): `Tf32x3Mma`, both
@@ -50,23 +50,36 @@
 //     0 with LSE -1e30;
 //   * GQA: q head h reads kv head h / (Hq / Hkv);
 //   * bias: FP32, any broadcast shape, given as four element strides
-//     (0 = broadcast dimension).
+//     (0 = broadcast dimension);
+//   * block-sparse (a map given): key j is walked by query i iff the map
+//     tile (i / block_q, j / block_k) is not SKIP; unwalked keys are hidden
+//     like index-masked ones, and a row whose walked keys all carry a -1e30
+//     bias averages V over exactly those keys. The walk is the body's
+//     SPARSE instantiation (fwd_tc.cuh), the compacted row fetch_kv of the
+//     block's map query tile; the bias is read only on tiles that are not
+//     FULL. A simple walk: the map's tiles are walked in full where the
+//     mask leaves part of them empty, and nothing is fused across tiles.
 #include "fwd_tc.cuh"
 
 using namespace umfa;
 
 namespace {
 
-template <typename Tout>
+template <typename Tout, bool SPARSE>
 cudaError_t launch_d(const FwdParams& p, bool bf16, cudaStream_t stream) {
   if (bf16) {
-    if (p.D <= 64) return launch_fwd_tc<Bf16Mma, Tout, 64>(p, stream);
-    if (p.D <= 128) return launch_fwd_tc<Bf16Mma, Tout, 128>(p, stream);
-    return launch_fwd_tc<Bf16Mma, Tout, 256>(p, stream);
+    if (p.D <= 64) return launch_fwd_tc<Bf16Mma, Tout, 64, false, SPARSE>(p, stream);
+    if (p.D <= 128) return launch_fwd_tc<Bf16Mma, Tout, 128, false, SPARSE>(p, stream);
+    return launch_fwd_tc<Bf16Mma, Tout, 256, false, SPARSE>(p, stream);
   }
-  if (p.D <= 64) return launch_fwd_tc<Tf32x3Mma, Tout, 64>(p, stream);
-  if (p.D <= 128) return launch_fwd_tc<Tf32x3Mma, Tout, 128>(p, stream);
-  return launch_fwd_tc<Tf32x3Mma, Tout, 256>(p, stream);
+  if (p.D <= 64) return launch_fwd_tc<Tf32x3Mma, Tout, 64, false, SPARSE>(p, stream);
+  if (p.D <= 128) return launch_fwd_tc<Tf32x3Mma, Tout, 128, false, SPARSE>(p, stream);
+  return launch_fwd_tc<Tf32x3Mma, Tout, 256, false, SPARSE>(p, stream);
+}
+
+template <typename Tout>
+cudaError_t launch_walk(const FwdParams& p, bool bf16, cudaStream_t stream) {
+  return p.sm.map ? launch_d<Tout, true>(p, bf16, stream) : launch_d<Tout, false>(p, bf16, stream);
 }
 
 }  // namespace
@@ -74,14 +87,21 @@ cudaError_t launch_d(const FwdParams& p, bool bf16, cudaStream_t stream) {
 // dtype codes: 0 = float32, 1 = bfloat16. q/k/v contiguous (B, H, S, D),
 // D <= 256; bfloat16 inputs run the tensor-core body in bf16, float32
 // inputs in 3xTF32. out (B, Hq, Sq, D) in out_dtype; lse (B, Hq, Sq)
-// float32. Returns the cudaError_t of the launch.
+// float32. map (null: no walk): the block-sparse map (Bm, Hm, nq, nk) int32
+// of block_q x block_k tiles and fetch, its compacted key-tile table
+// fetch_kv (Bm, Hm, nq, width), with the element strides of their batch
+// and head (0 = broadcast). Returns the cudaError_t of the launch.
 extern "C" int umfa_flash_fwd(const void* q, const void* k, const void* v, const void* bias,
                               void* out, void* lse, int B, int Hq, int Hkv, int Sq, int Sk,
                               int D, long long bsb, long long bsh, long long bsq,
                               long long bsk, float scale, int left, int right, int in_dtype,
-                              int out_dtype, void* stream) {
+                              int out_dtype, const void* map, const void* fetch, int block_q,
+                              int block_k, int nq, int nk, int width, long long msb,
+                              long long msh, long long fsb, long long fsh, void* stream) {
+  SparseMap sm;
   if (D < 1 || D > 256 || Hkv < 1 || Hq % Hkv != 0 || in_dtype < 0 || in_dtype > 1 ||
-      out_dtype < 0 || out_dtype > 1)
+      out_dtype < 0 || out_dtype > 1 ||
+      !sparse_map(&sm, map, fetch, block_q, block_k, nq, nk, width, msb, msh, fsb, fsh))
     return cudaErrorInvalidValue;
   const int per16 = in_dtype == 1 ? 8 : 4;  // elements a 16-byte copy
   const int vec = D % per16 == 0 && ((reinterpret_cast<uintptr_t>(k) |
@@ -107,9 +127,10 @@ extern "C" int umfa_flash_fwd(const void* q, const void* k, const void* v, const
   p.left = left;
   p.right = right;
   p.vec = vec;
+  p.sm = sm;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool bf16 = in_dtype == 1;
-  return out_dtype == 0 ? launch_d<float>(p, bf16, st) : launch_d<__nv_bfloat16>(p, bf16, st);
+  return out_dtype == 0 ? launch_walk<float>(p, bf16, st) : launch_walk<__nv_bfloat16>(p, bf16, st);
 }
 
 // Dynamic shared memory of the kernel that umfa_flash_fwd launches for

@@ -36,6 +36,20 @@
 // the reference rounds it. The including file's header gives the rounding
 // points each mode holds to.
 //
+// SPARSE (a template parameter, so the dense and ring instantiations
+// compile as without it): the dense walk restricted to a block-sparse map
+// (common.cuh `SparseWalk`): the block walks the map's walked key tiles
+// (from the compacted row of its map query tile), in each its KT-key tiles
+// from the tile's first key in the band; the K-only pre-pass takes the
+// last PRE walked tiles: a row's first walked keys are often another
+// document's, hidden by the bias, while the keys nearest the diagonal are
+// its own, so a row that sees only keys of its last PRE walked tiles (the
+// first rows of a causal document, a window of up to PRE tiles) rounds P
+// against its final max, as the plain version does. Keys past a map tile's end are hidden
+// like the KV tail, and the bias is read only on tiles that are not FULL
+// for the block (a BlockMask's bias is 0 on FULL tiles); where the block
+// straddles map query tiles, each element looks up its own tile's class.
+//
 // RING (a template parameter, so the dense instantiations compile as
 // without it): what the step sees is the band (left, right) plus two
 // limits, query rows below q_lo and keys at or past k_hi hidden; the step's
@@ -70,10 +84,12 @@ struct FwdParams {
   // or past k_hi are hidden; keys fall in groups of block_k; first: write
   // (o, lse), else merge into them.
   int q_lo, k_hi, block_k, first;
+  SparseMap sm;  // read only by the SPARSE instantiations: the map and fetch_kv
 };
 
 // Tiles and occupancy. bf16: 64-key tiles, four blocks an SM at D 64 (the
-// dense forward; registers capped at 128), three in ring mode. fp32: 32-key
+// dense forward; registers capped at 128), three in ring mode (WALK: the
+// ring's and the block-sparse walks, whose state takes registers). fp32: 32-key
 // tiles (52 KB of shared memory at D 64, 99 KB at D 128), three blocks an
 // SM at D 64 (6 % faster at the prefill than two with Q split once into
 // registers), two at D 128. fp32 at D 256 (WIDE32): a 64-row block would
@@ -83,7 +99,7 @@ struct FwdParams {
 // block an SM, 8 warps, 255 registers a thread; each warp's step is the
 // D 128 step's mma count (32 k-steps over 2 key tiles, 2 k-steps over 32
 // output tiles).
-template <int DP, class Mma, bool RING>
+template <int DP, class Mma, bool WALK>
 struct FwdTile {
   using T = typename Mma::T;
   static constexpr bool F32 = sizeof(T) == 4;
@@ -94,7 +110,7 @@ struct FwdTile {
   static constexpr int LD = DP + Mma::PAD;                  // row stride in shared memory
   static constexpr int PRE = 512 / KT;                      // dense: tiles of the pre-pass
   static constexpr int MINB =
-      WIDE32 ? 1 : F32 ? (DP <= 64 ? 3 : 2) : DP <= 64 ? (RING ? 3 : 4) : 1;
+      WIDE32 ? 1 : F32 ? (DP <= 64 ? 3 : 2) : DP <= 64 ? (WALK ? 3 : 4) : 1;
   static constexpr int SMEM = (BQ + 4 * KT) * LD * (int)sizeof(T);  // Q, [2][K, V]
 };
 
@@ -176,10 +192,11 @@ struct RingWalk {
   }
 };
 
-template <class Mma, typename Tout, int DP, bool RING = false>
-__global__ void __launch_bounds__((FwdTile<DP, Mma, RING>::NT), (FwdTile<DP, Mma, RING>::MINB))
+template <class Mma, typename Tout, int DP, bool RING = false, bool SPARSE = false>
+__global__ void __launch_bounds__((FwdTile<DP, Mma, RING || SPARSE>::NT),
+                                  (FwdTile<DP, Mma, RING || SPARSE>::MINB))
     fwd_tc_kernel(const FwdParams p) {
-  using G = FwdTile<DP, Mma, RING>;
+  using G = FwdTile<DP, Mma, RING || SPARSE>;
   using T = typename Mma::T;
   constexpr int LD = G::LD, KT = G::KT, BQ = G::BQ, NT = G::NT;
   constexpr int NS = KT / 8;  // 8-key tiles of S
@@ -211,7 +228,19 @@ __global__ void __launch_bounds__((FwdTile<DP, Mma, RING>::NT), (FwdTile<DP, Mma
   // softmax update and P·V. A row that sees at most PRE tiles thus rounds P
   // against its final max, as the plain version does.
   const int t_lo = k_lo / KT;
-  const int n_t = k_hi >= k_lo ? k_hi / KT - t_lo + 1 : 0;
+  int n_t = k_hi >= k_lo ? k_hi / KT - t_lo + 1 : 0;
+  // SPARSE: the walk from its start (w_start), the step's tile (w_cur) and
+  // the next step's (w_nxt).
+  SparseWalk sw;
+  WalkPos w_start{0, -1, 0, 0}, w_cur, w_nxt;
+  if constexpr (SPARSE) {
+    sw = sparse_walk(p.sm, true, b, h, 1, q0, min(q0 + BQ, p.Sq) - 1, k_lo, k_hi, KT, p.Sk);
+    if (n_t > 0) {
+      w_start = walk_start(sw);
+      n_t = walk_count(sw, w_start);
+    }
+    w_cur = walk_skip(sw, w_start, n_t - min(n_t, G::PRE));  // the pre-pass's first tile
+  }
   const int n_pre = min(n_t, G::PRE);
   auto tile_of = [&](int i) { return t_lo + (i < n_pre ? i : i - n_pre); };
   int steps = n_pre + n_t;
@@ -224,6 +253,9 @@ __global__ void __launch_bounds__((FwdTile<DP, Mma, RING>::NT), (FwdTile<DP, Mma
   if (steps > 0) {
     if constexpr (RING) {
       load_kv_tile<KT, DP, LD>(sKV, sKV + KT * LD, k, v, walk.k0(), walk.end(p.k_hi), p.D,
+                               p.vec, false);
+    } else if constexpr (SPARSE) {
+      load_kv_tile<KT, DP, LD>(sKV, sKV + KT * LD, k, v, walk_tile(sw, w_cur).first, p.Sk, p.D,
                                p.vec, false);
     } else {
       load_kv_tile<KT, DP, LD>(sKV, sKV + KT * LD, k, v, tile_of(0) * KT, p.Sk, p.D, p.vec,
@@ -259,11 +291,17 @@ __global__ void __launch_bounds__((FwdTile<DP, Mma, RING>::NT), (FwdTile<DP, Mma
     // The step's first key, its key limit (keys at or past it are hidden),
     // and whether it forms P (else it is a pre-pass step).
     int k0, kend;
-    bool form_p;
+    bool form_p, full = false;
     if constexpr (RING) {
       k0 = walk.k0();
       kend = walk.end(p.k_hi);
       form_p = !walk.pre;
+    } else if constexpr (SPARSE) {
+      const WalkTile t = walk_tile(sw, w_cur);
+      k0 = t.first;
+      kend = t.end;
+      full = t.full;
+      form_p = i >= n_pre;
     } else {
       k0 = tile_of(i) * KT;
       kend = p.Sk;
@@ -277,6 +315,14 @@ __global__ void __launch_bounds__((FwdTile<DP, Mma, RING>::NT), (FwdTile<DP, Mma
         w2.next();
         load_kv_tile<KT, DP, LD>(nxt, nxt + KT * LD, k, v, w2.k0(), w2.end(p.k_hi), p.D, p.vec,
                                  !w2.pre);
+      } else if constexpr (SPARSE) {
+        w_nxt = w_cur;
+        if (i + 1 == n_pre)
+          w_nxt = w_start;  // the pre-pass ends: the walk starts again, with V
+        else
+          walk_next(sw, w_nxt);
+        load_kv_tile<KT, DP, LD>(nxt, nxt + KT * LD, k, v, walk_tile(sw, w_nxt).first, p.Sk, p.D,
+                                 p.vec, i + 1 >= n_pre);
       } else {
         load_kv_tile<KT, DP, LD>(nxt, nxt + KT * LD, k, v, tile_of(i + 1) * KT, p.Sk, p.D,
                                  p.vec, i + 1 >= n_pre);
@@ -301,6 +347,11 @@ __global__ void __launch_bounds__((FwdTile<DP, Mma, RING>::NT), (FwdTile<DP, Mma
       none = none || r_hi < p.q_lo;
       all = all && r_lo >= p.q_lo;
     }
+    if constexpr (SPARSE) all = all && sw.fetch != nullptr;
+    const float* tb = bias;  // SPARSE: no bias read on a FULL tile
+    if constexpr (SPARSE) {
+      if (full) tb = nullptr;
+    }
     if (!none) {
       float s[NS][4];
 #pragma unroll
@@ -317,15 +368,16 @@ __global__ void __launch_bounds__((FwdTile<DP, Mma, RING>::NT), (FwdTile<DP, Mma
 
       // Element (j, e): row e < 2 ? row0 : row1, key k0 + 8j + 2tq + (e & 1).
       unsigned vis = 0xffffffffu;
-      if (!all || bias) {
+      if (!all || tb) {
 #pragma unroll
         for (int j = 0; j < NS; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int row = e < 2 ? row0 : row1, col = k0 + 8 * j + 2 * tq + (e & 1);
             if (all || ((!RING || row >= p.q_lo) &&
-                        key_visible(row, col, p.Sq, kend, p.left, p.right))) {
-              if (bias) s[j][e] += bias[row * p.bsq + col * p.bsk];
+                        key_visible(row, col, p.Sq, kend, p.left, p.right) &&
+                        (!SPARSE || sw.fetch || walk_has(sw, 0, row, col)))) {
+              if (tb) s[j][e] += tb[row * p.bsq + col * p.bsk];
             } else {
               s[j][e] = MASK_VALUE;
               vis &= ~(1u << (4 * j + e));
@@ -368,6 +420,7 @@ __global__ void __launch_bounds__((FwdTile<DP, Mma, RING>::NT), (FwdTile<DP, Mma
     }
     __syncthreads();  // this buffer is refilled two steps on
     if constexpr (RING) walk.next();
+    if constexpr (SPARSE) w_cur = w_nxt;
   }
 
   if constexpr (RING) {
@@ -435,14 +488,15 @@ __global__ void __launch_bounds__((FwdTile<DP, Mma, RING>::NT), (FwdTile<DP, Mma
   }
 }
 
-template <class Mma, typename Tout, int DP, bool RING = false>
+template <class Mma, typename Tout, int DP, bool RING = false, bool SPARSE = false>
 cudaError_t launch_fwd_tc(const FwdParams& p, cudaStream_t stream) {
-  constexpr int smem = FwdTile<DP, Mma, RING>::SMEM;
-  const auto kernel = fwd_tc_kernel<Mma, Tout, DP, RING>;
+  using G = FwdTile<DP, Mma, RING || SPARSE>;
+  constexpr int smem = G::SMEM;
+  const auto kernel = fwd_tc_kernel<Mma, Tout, DP, RING, SPARSE>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  constexpr int bq = FwdTile<DP, Mma, RING>::BQ, nt = FwdTile<DP, Mma, RING>::NT;
+  constexpr int bq = G::BQ, nt = G::NT;
   const dim3 grid((p.Sq + bq - 1) / bq, p.Hq, p.B);
   kernel<<<grid, nt, smem, stream>>>(p);
   return cudaGetLastError();

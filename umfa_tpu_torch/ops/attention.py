@@ -8,8 +8,9 @@ backward's δ. The forward saves (q, k, v, bias, out, lse) and the backward
 recomputes P from LSE (the reference's `_flash` custom_vjp,
 attention.py:40-108). The reference's `window=` auto-tiling
 (`maybe_window_block_mask`) is TPU tile scheduling; the port's kernels
-compute the same values with their index math. Block-sparse `block_mask`
-is not ported yet.
+compute the same values with their index math. A `block_mask`
+(ops/block_mask.py) gives the bias and the walk (`flash_fwd.Walk`) that
+both passes take.
 """
 
 from __future__ import annotations
@@ -19,19 +20,20 @@ from typing import Optional
 import torch
 from torch.autograd.function import once_differentiable
 
-from umfa_tpu_torch.ops.flash_bwd import flash_attention_backward, flash_attention_bias_grad
-from umfa_tpu_torch.ops.flash_fwd import flash_attention_forward
+from umfa_tpu_torch.ops.flash_bwd import _backward, flash_attention_bias_grad
+from umfa_tpu_torch.ops.flash_fwd import _forward, walked_keys
 
 
 class _Flash(torch.autograd.Function):
-    """(q, k, v, bias) → (out, lse) with the FA2 backward kernels."""
+    """(q, k, v, bias) → (out, lse) with the FA2 backward kernels; `walk`
+    (a `flash_fwd.Walk` or None) is the block-sparse map and its tables."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, causal, window, scale, out_dtype, bias_grad):
+    def forward(ctx, q, k, v, bias, causal, window, scale, out_dtype, bias_grad, walk):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        out, lse = flash_attention_forward(q, k, v, bias, causal=causal, window=window,
-                                           scale=scale, out_dtype=out_dtype)
+        out, lse = _forward(q, k, v, bias, causal, window, scale, out_dtype, walk)
         ctx.save_for_backward(q, k, v, bias, out, lse)
+        ctx.walk = walk
         ctx.attn = dict(causal=causal, window=window, scale=scale)
         ctx.bias_grad = bias_grad
         ctx.set_materialize_grads(False)
@@ -42,14 +44,14 @@ class _Flash(torch.autograd.Function):
     def backward(ctx, g_out, g_lse):
         q, k, v, bias, out, lse = ctx.saved_tensors
         if g_out is None and g_lse is None:
-            return (None,) * 9
+            return (None,) * 10
         if g_out is None:
             g_out = torch.zeros_like(out)
         # bf16 inputs: the kernels emit bf16 gradients (the consumer casts
         # anyway, attention.py:67-70); fp32 and fp16 get fp32 emission.
         gdt = torch.bfloat16 if q.dtype == torch.bfloat16 else None
-        dq, dk, dv = flash_attention_backward(q, k, v, out, lse, g_out, bias, g_lse,
-                                              grad_dtype=gdt, **ctx.attn)
+        dq, dk, dv = _backward(q, k, v, out, lse, g_out, bias, g_lse, grad_dtype=gdt,
+                               walk=ctx.walk, **ctx.attn)
         dbias = None
         if bias is not None and ctx.needs_input_grad[3]:
             if ctx.bias_grad:
@@ -65,7 +67,7 @@ class _Flash(torch.autograd.Function):
                 # reference's AttnConfig.bias_grad, attention.py:34-37).
                 dbias = torch.zeros_like(bias)
         return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias,
-                None, None, None, None, None)
+                None, None, None, None, None, None)
 
 
 def flash_attention(
@@ -77,24 +79,36 @@ def flash_attention(
     causal: bool = False,
     window: Optional[tuple] = None,
     scale: Optional[float] = None,
+    block_mask=None,
     out_dtype: Optional[torch.dtype] = None,
     return_lse: bool = False,
     bias_grad: bool = False,
 ):
     """Differentiable fused flash attention. q: (B, Hq, Sq, D); k, v:
     (B, Hkv, Sk, D) with Hq % Hkv == 0 (GQA); bias: additive, broadcastable
-    to (B, Hq, Sq, Sk). Returns out, or (out, lse) with return_lse=True.
+    to (B, Hq, Sq, Sk); block_mask: a BlockMask (ops/block_mask.py) on q's
+    device, which gives the bias (pass one or the other) and the tiles
+    each row walks. Returns out, or (out, lse) with return_lse=True.
 
     Gradients reach q, k, v through the backward kernels (fp32
     accumulation, cast back to the input types); bias_grad=True computes
     the real bias gradient, else the bias gets zeros."""
-    out, lse = _Flash.apply(q, k, v, bias, causal, window, scale, out_dtype, bias_grad)
+    walk = None
+    if block_mask is not None:
+        if bias is not None:
+            raise ValueError("pass either bias or block_mask, not both")
+        bias, walk = block_mask.bias, block_mask.walk()
+    out, lse = _Flash.apply(q, k, v, bias, causal, window, scale, out_dtype, bias_grad, walk)
     return (out, lse) if return_lse else out
 
 
-def reference_attention(q, k, v, bias=None, *, causal=False, window=None, scale=None):
+def reference_attention(q, k, v, bias=None, *, causal=False, window=None, scale=None,
+                        walk=None):
     """Naive softmax(QKᵀ)V in fp32 (the tests' oracle): -inf masking,
-    fully-masked rows → 0."""
+    fully-masked rows → 0. walk: a block-sparse `flash_fwd.Walk` (a
+    BlockMask's `walk()`); keys outside a row's walked tiles are masked
+    too, so a row whose walked keys all carry the -1e30 bias averages V
+    over exactly those keys, as the kernels do."""
     b, hq, sq, d = q.shape
     _, hkv, sk, _ = k.shape
     if hq != hkv:
@@ -118,6 +132,8 @@ def reference_attention(q, k, v, bias=None, *, causal=False, window=None, scale=
             mask &= k_ids >= q_ids - left
         if right >= 0:
             mask &= k_ids <= q_ids + right
+    if walk is not None:
+        mask = mask & walked_keys(walk, sq, sk)
     s = s.masked_fill(~mask, float("-inf"))
     p = torch.softmax(s, dim=-1)
     p = torch.nan_to_num(p, nan=0.0)  # fully-masked rows → 0

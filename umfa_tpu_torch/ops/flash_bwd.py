@@ -28,8 +28,12 @@ Semantics (the reference's, flash_bwd.py:45-69, :699-701, :825-1274):
   * dK/dV of a GQA group are summed inside the kernel;
   * the bias gradient is dS unscaled, summed over the bias's broadcast
     batch and head dimensions; it uses the LSE as given and δ without the
-    LSE cotangent, as the reference does (flash_bwd.py:737).
-Not ported yet: the block-sparse `block_map`/`fetch_kv`/`fetch_q` walks.
+    LSE cotangent, as the reference does (flash_bwd.py:737);
+  * a block-sparse map (`block_map`, ops/flash_fwd.py `Walk`) hides the
+    unwalked pairs as the forward does (P = 0); on the card the dQ kernel
+    walks `fetch_kv` and the dK/dV kernel `fetch_q`, for each query head of
+    its GQA group that head's own row; the bias gradient is not walked, as
+    the reference's is not (umfa_tpu/ops/attention.py:80-97).
 """
 
 from __future__ import annotations
@@ -42,14 +46,20 @@ import torch
 from umfa_tpu_torch import _kernels
 from umfa_tpu_torch.ops.flash_fwd import (
     DEFAULT_MASK_VALUE,
+    WALK_ARGTYPES,
+    Walk,
     _DTYPE_CODE,
     _prepare as _prepare_operands,
     bias_strides,
+    make_walk,
     visible_mask,
+    walk_args,
+    walked_keys,
 )
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_BWD_ARGTYPES = (*(_P,) * 9, *(_I,) * 6, *(_L,) * 4, ctypes.c_float, _I, _I, _I, _I, _P)
+_BWD_ARGTYPES = (*(_P,) * 9, *(_I,) * 6, *(_L,) * 4, ctypes.c_float, _I, _I, _I, _I,
+                 *WALK_ARGTYPES, _P)
 _DBIAS_ARGTYPES = (*(_P,) * 8, *(_I,) * 8, *(_L,) * 4, ctypes.c_float, _I, _I, _I, _P)
 
 
@@ -64,10 +74,12 @@ class _Prepared(NamedTuple):
     scale: float
     left: int
     right: int
+    walk: Optional[Walk] = None
 
 
-def _prepare(q, k, v, out, lse, do, bias, dlse, causal, window, scale) -> _Prepared:
-    p = _prepare_operands(q, k, v, bias, causal, window, scale, None)
+def _prepare(q, k, v, out, lse, do, bias, dlse, causal, window, scale,
+             walk: Optional[Walk] = None) -> _Prepared:
+    p = _prepare_operands(q, k, v, bias, causal, window, scale, None, walk)
     if do.shape != q.shape or out.shape != q.shape:
         raise ValueError(f"do {tuple(do.shape)} and out {tuple(out.shape)} must match q {tuple(q.shape)}")
     if lse.shape != q.shape[:3]:
@@ -77,7 +89,7 @@ def _prepare(q, k, v, out, lse, do, bias, dlse, causal, window, scale) -> _Prepa
         delta = delta - dlse.float()
     return _Prepared(p.q.contiguous(), p.k.contiguous(), p.v.contiguous(),
                      do.to(p.v.dtype).contiguous(), lse.float().contiguous(), delta.contiguous(),
-                     p.bias, p.scale, p.left, p.right)
+                     p.bias, p.scale, p.left, p.right, p.walk)
 
 
 def _kernel_lse(lse: torch.Tensor) -> torch.Tensor:
@@ -100,14 +112,29 @@ def flash_attention_backward(
     window: Optional[tuple] = None,
     scale: Optional[float] = None,
     grad_dtype: Optional[torch.dtype] = None,
+    block_map: Optional[torch.Tensor] = None,
+    fetch_kv: Optional[torch.Tensor] = None,
+    fetch_q: Optional[torch.Tensor] = None,
+    block_q: Optional[int] = None,
+    block_k: Optional[int] = None,
 ):
     """FA2 backward. q, out, do: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D);
-    lse, dlse: (B, Hq, Sq); bias as in the forward. Returns (dq, dk, dv) in
-    `grad_dtype` (default fp32), dk/dv per KV head (the GQA group summed)."""
+    lse, dlse: (B, Hq, Sq); bias, block_map, block_q and block_k as in the
+    forward, fetch_kv and fetch_q the map's compacted tables. Returns
+    (dq, dk, dv) in `grad_dtype` (default fp32), dk/dv per KV head (the GQA
+    group summed)."""
+    return _backward(q, k, v, out, lse, do, bias, dlse, causal=causal, window=window,
+                     scale=scale, grad_dtype=grad_dtype,
+                     walk=make_walk(block_map, fetch_kv, fetch_q, block_q, block_k))
+
+
+def _backward(q, k, v, out, lse, do, bias, dlse, *, causal, window, scale, grad_dtype,
+              walk: Optional[Walk]):
+    """`flash_attention_backward` with its block-sparse arguments as a Walk."""
     grad_dtype = grad_dtype or torch.float32
     if grad_dtype not in _DTYPE_CODE:
         raise ValueError(f"grad_dtype must be float32 or bfloat16, got {grad_dtype}")
-    p = _prepare(q, k, v, out, lse, do, bias, dlse, causal, window, scale)
+    p = _prepare(q, k, v, out, lse, do, bias, dlse, causal, window, scale, walk)
     if p.q.device.type == "cpu":
         return tuple(g.to(grad_dtype) for g in _plain(p))
     return _launch(p, grad_dtype)
@@ -115,11 +142,12 @@ def flash_attention_backward(
 
 def flash_attention_backward_plain(
     q, k, v, out, lse, do, bias=None, dlse=None, *, causal=False, window=None, scale=None,
-    grad_dtype=None,
+    grad_dtype=None, block_map=None, fetch_kv=None, fetch_q=None, block_q=None, block_k=None,
 ):
     """The kernels' arithmetic in plain PyTorch, on any device. Same
     arguments and results as `flash_attention_backward`."""
-    p = _prepare(q, k, v, out, lse, do, bias, dlse, causal, window, scale)
+    p = _prepare(q, k, v, out, lse, do, bias, dlse, causal, window, scale,
+                 make_walk(block_map, fetch_kv, fetch_q, block_q, block_k))
     return tuple(g.to(grad_dtype or torch.float32) for g in _plain(p))
 
 
@@ -174,6 +202,8 @@ def _plain_p_ds(p: _Prepared, lse: torch.Tensor):
     if p.bias is not None:
         s += p.bias
     hidden = ~visible_mask(sq, sk, p.left, p.right, s.device)
+    if p.walk is not None:
+        hidden = hidden | ~walked_keys(p.walk, sq, sk)
     pm = s.sub_(lse[..., None]).exp_().masked_fill_(hidden, 0.0)
     dp = torch.matmul(p.do.float().reshape(b, hkv, g * sq, d), p.v.float().transpose(-1, -2))
     ds = dp.reshape(b, hq, sq, sk).sub_(p.delta[..., None]).mul_(pm)
@@ -260,6 +290,7 @@ def _run_bwd_kernel(kernel: str, p: _Prepared, out0: torch.Tensor, out1) -> None
     _, hkv, sk, _ = p.k.shape
     bsb, bsh, bsq, bsk = bias_strides(p.bias)
     lse = _kernel_lse(p.lse)  # held until the launch is queued
+    walk = walk_args(p.walk, "fetch_q" if out1 is not None else "fetch_kv", p.q.device)
     fn = _kernels.function("flash_bwd", f"umfa_{kernel}", _BWD_ARGTYPES)
     with torch.cuda.device(p.q.device):
         err = fn(
@@ -269,6 +300,7 @@ def _run_bwd_kernel(kernel: str, p: _Prepared, out0: torch.Tensor, out1) -> None
             out0.data_ptr(), None if out1 is None else out1.data_ptr(),
             b, hq, hkv, sq, sk, d, bsb, bsh, bsq, bsk, p.scale, p.left, p.right,
             _DTYPE_CODE[p.q.dtype], _DTYPE_CODE[out0.dtype],
+            *walk,
             torch.cuda.current_stream(p.q.device).cuda_stream,
         )
     _kernels.check("flash_bwd", err, kernel)

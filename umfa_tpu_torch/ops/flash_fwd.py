@@ -18,13 +18,23 @@ Semantics (the reference's, flash_fwd.py:41-175 and :469-737):
     bf16 inputs round P to bf16 before P·V; the row sum adds the rounded P
     at D < 128 (the reference's ones column) and the fp32 P at D >= 128
     (its VPU row sum: no ones column there, flash_fwd.py:499, :523);
-  * fp16 is storage-only: computed as fp32 and cast back.
-Not ported yet: block-sparse `block_map`/`fetch_ids` and in-kernel RoPE.
+  * fp16 is storage-only: computed as fp32 and cast back;
+  * a block-sparse map (`block_map`, from a BlockMask, ops/block_mask.py)
+    walks key j for query i iff block_map[b, h, i // block_q, j // block_k]
+    is not SKIP, the BlockMask's own tiling (flash_fwd.py:340-357: the
+    TPU kernel's tiles are the map's); unwalked keys are hidden like
+    index-masked ones (P = 0), and the bias is added on the walked keys.
+    A row whose walked keys all carry a -1e30 bias averages V over exactly
+    those keys. On the card the kernel walks the compacted table
+    `fetch_ids` and reads the bias only where a tile is not FULL, so a
+    bias given with a map must be 0 on its FULL tiles (a BlockMask's is).
+Not ported yet: in-kernel RoPE.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import NamedTuple, Optional
 
 import torch
@@ -32,11 +42,122 @@ import torch
 from umfa_tpu_torch import _kernels
 
 DEFAULT_MASK_VALUE = -1e30
+SKIP = 0  # a tile of a block-sparse map that no row walks (ops/block_mask.py)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# The block-sparse walk's trailing arguments: map, compacted table, block_q,
+# block_k, nq, nk, the table's width, and the element strides of the map's
+# and the table's batch and head (0 = broadcast).
+WALK_ARGTYPES = (_P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L)
 _ARGTYPES = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _L, _L,
-             ctypes.c_float, _I, _I, _I, _I, _P)
+             ctypes.c_float, _I, _I, _I, _I, *WALK_ARGTYPES, _P)
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockSizes:
+    """The reference's forward tile requests (umfa_tpu/ops/flash_fwd.py:57-75;
+    its backward ones have no use here). The port's kernels pick their own
+    tiles; a BlockMask's tiling comes from these (ops/block_mask.py), and
+    that tiling decides which keys a row walks. A default-constructed
+    instance means "auto"."""
+
+    block_q: int = 512
+    block_k: int = 2048
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def _choose_block(requested: int, seq: int, head_dim: int):
+    """The reference's tile choice (flash_fwd.py:91-112): a tile <= the
+    request, clamped to the 128-rounded sequence and to its per-operand cap
+    of 2**18 elements, preferring a 128-multiple with <= ~7 % padding."""
+    cap = min(requested, _round_up(max(seq, 1), 128))
+    while cap > 128 and cap * head_dim > 2**18:
+        cap //= 2
+    if seq <= cap:
+        return cap
+    best = cap
+    b = cap
+    while b >= 256:
+        waste = (_round_up(seq, b) - seq) / seq
+        if waste <= 0.07:
+            return b
+        b -= 128
+        if b < cap // 2:
+            break
+    return best
+
+
+class Walk(NamedTuple):
+    """A block-sparse map and its compacted tables (a BlockMask's fields,
+    ops/block_mask.py): tile (i, j) of block_q query rows and block_k keys is
+    walked iff block_map[.., i, j] != SKIP. fetch_kv (Bm, Hm, nq, w) lists
+    each query tile's walked key tiles in order, fetch_q (Bm, Hm, nk, w')
+    each key tile's walked query tiles; -1 and below pad a row."""
+
+    block_map: torch.Tensor
+    fetch_kv: Optional[torch.Tensor]
+    fetch_q: Optional[torch.Tensor]
+    block_q: int
+    block_k: int
+
+
+def make_walk(block_map, fetch_kv, fetch_q, block_q, block_k) -> Optional[Walk]:
+    """The public block-sparse keyword arguments as a Walk; None without a map."""
+    if block_map is None:
+        if fetch_kv is not None or fetch_q is not None:
+            raise ValueError("fetch tables need their block_map")
+        return None
+    if block_q is None or block_k is None or block_q < 1 or block_k < 1:
+        raise ValueError("a block_map needs its block_q and block_k")
+    return Walk(block_map, fetch_kv, fetch_q, int(block_q), int(block_k))
+
+
+def _check_walk(walk: Walk, b: int, h: int, sq: int, sk: int) -> None:
+    """Refuse a map (and tables) that do not fit (B, H, Sq, Sk)."""
+    block_map, fetch_kv, fetch_q = walk.block_map, walk.fetch_kv, walk.fetch_q
+    nq, nk = -(-sq // walk.block_q), -(-sk // walk.block_k)
+    shape = tuple(block_map.shape)
+    if (len(shape) != 4 or shape[0] not in (1, b) or shape[1] not in (1, h)
+            or shape[2:] != (nq, nk)):
+        raise ValueError(f"block_map shape {shape} does not fit (B {b}|1, H {h}|1, {nq}, {nk})")
+    for name, t, n in (("fetch_kv", fetch_kv, nq), ("fetch_q", fetch_q, nk)):
+        if t is not None and (t.dim() != 4 or tuple(t.shape[:3]) != shape[:2] + (n,)):
+            raise ValueError(f"{name} shape {tuple(t.shape)} does not fit {shape[:2] + (n,)}")
+
+
+def walked_keys(walk: Walk, sq: int, sk: int) -> torch.Tensor:
+    """(Bm, Hm, Sq, Sk) bool: the keys each query row walks."""
+    m = walk.block_map != SKIP
+    return m.repeat_interleave(walk.block_q, 2)[:, :, :sq].repeat_interleave(
+        walk.block_k, 3)[..., :sk]
+
+
+def walk_args(walk: Optional[Walk], table: str, device) -> tuple:
+    """The kernels' trailing walk arguments (WALK_ARGTYPES) for the
+    compacted table `table` ("fetch_kv" or "fetch_q") and operands on
+    `device`; null without a walk."""
+    if walk is None:
+        return (None, None, 0, 0, 0, 0, 0, 0, 0, 0, 0)
+    m, f = walk.block_map, getattr(walk, table)
+    if f is None:
+        raise ValueError(f"the block-sparse kernels walk the compacted table {table}: pass it")
+    for name, t in (("block_map", m), (table, f)):
+        if t.device != device:
+            raise ValueError(f"the block-sparse {name} lies on {t.device}, the operands on "
+                             f"{device}: build the BlockMask there (device=) or move it (.to)")
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous int32 tensor")
+    bm, hm, nq, nk = m.shape
+    w = f.shape[3]
+    n_own = f.shape[2]
+    return (m.data_ptr(), f.data_ptr(), walk.block_q, walk.block_k, nq, nk, w,
+            hm * nq * nk if bm > 1 else 0, nq * nk if hm > 1 else 0,
+            hm * n_own * w if bm > 1 else 0, n_own * w if hm > 1 else 0)
+
 
 
 def check_no_grad(name: str, *tensors, hint: str) -> None:
@@ -107,9 +228,11 @@ class _Prepared(NamedTuple):
     right: int
     out_dtype: torch.dtype
     fp16_out: bool
+    walk: Optional[Walk] = None
 
 
-def _prepare(q, k, v, bias, causal, window, scale, out_dtype) -> _Prepared:
+def _prepare(q, k, v, bias, causal, window, scale, out_dtype,
+             walk: Optional[Walk] = None) -> _Prepared:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be (B, H, S, D)")
     b, hq, sq, d = q.shape
@@ -139,8 +262,10 @@ def _prepare(q, k, v, bias, causal, window, scale, out_dtype) -> _Prepared:
             bias = bias[:, None]
         bias = broadcast_bias(bias, b, hq, sq, sk)
     left, right = fold_mask(causal, window)
+    if walk is not None:
+        _check_walk(walk, b, hq, sq, sk)
     return _Prepared(q, k, v, bias, float(d**-0.5 if scale is None else scale),
-                     left, right, out_dtype, fp16_out)
+                     left, right, out_dtype, fp16_out, walk)
 
 
 def flash_attention_forward(
@@ -153,16 +278,29 @@ def flash_attention_forward(
     window: Optional[tuple] = None,
     scale: Optional[float] = None,
     out_dtype: Optional[torch.dtype] = None,
+    block_map: Optional[torch.Tensor] = None,
+    fetch_ids: Optional[torch.Tensor] = None,
+    block_q: Optional[int] = None,
+    block_k: Optional[int] = None,
 ):
     """Flash attention forward. q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D)
     with Hq % Hkv == 0 (GQA); bias: additive, broadcastable to
-    (B, Hq, Sq, Sk) (2-D = (Sq|1, Sk), 3-D = (B, Sq|1, Sk)).
+    (B, Hq, Sq, Sk) (2-D = (Sq|1, Sk), 3-D = (B, Sq|1, Sk)). block_map
+    (Bm, Hm, ceil(Sq / block_q), ceil(Sk / block_k)) int32 and fetch_ids,
+    its compacted key-tile table (a BlockMask's fetch_kv), restrict each
+    row to the keys of its walked tiles (the module docstring).
 
     Returns (out (B, Hq, Sq, D) in out_dtype (default q.dtype),
     lse (B, Hq, Sq) float32)."""
+    return _forward(q, k, v, bias, causal, window, scale, out_dtype,
+                    make_walk(block_map, fetch_ids, None, block_q, block_k))
+
+
+def _forward(q, k, v, bias, causal, window, scale, out_dtype, walk: Optional[Walk]):
+    """`flash_attention_forward` with its block-sparse arguments as a Walk."""
     check_no_grad("flash_attention_forward", q, k, v, bias,
                   hint="call ops.attention.flash_attention for gradients")
-    p = _prepare(q, k, v, bias, causal, window, scale, out_dtype)
+    p = _prepare(q, k, v, bias, causal, window, scale, out_dtype, walk)
     if p.q.device.type == "cpu":
         out, lse = _plain(p)
     else:
@@ -172,10 +310,12 @@ def flash_attention_forward(
 
 def flash_attention_forward_plain(
     q, k, v, bias=None, *, causal=False, window=None, scale=None, out_dtype=None,
+    block_map=None, fetch_ids=None, block_q=None, block_k=None,
 ):
     """The kernel's arithmetic in plain PyTorch, on any device. Same
     arguments and results as `flash_attention_forward`."""
-    p = _prepare(q, k, v, bias, causal, window, scale, out_dtype)
+    p = _prepare(q, k, v, bias, causal, window, scale, out_dtype,
+                 make_walk(block_map, fetch_ids, None, block_q, block_k))
     out, lse = _plain(p)
     return (out.half() if p.fp16_out else out), lse
 
@@ -191,6 +331,8 @@ def _plain(p: _Prepared):
     if p.bias is not None:
         s += p.bias
     hidden = ~visible_mask(sq, sk, p.left, p.right, s.device)
+    if p.walk is not None:
+        hidden = hidden | ~walked_keys(p.walk, sq, sk)
     s.masked_fill_(hidden, DEFAULT_MASK_VALUE)
     m = s.amax(dim=-1, keepdim=True).clamp_min(DEFAULT_MASK_VALUE)
     s.sub_(m).exp_().masked_fill_(hidden, 0.0)
@@ -220,6 +362,7 @@ def _launch(p: _Prepared):
     _, hkv, sk, _ = k.shape
     if d > 256:
         raise ValueError(f"flash_fwd kernels take head_dim <= 256, got {d}")
+    walk = walk_args(p.walk, "fetch_kv", q.device)
     out = torch.empty((b, hq, sq, d), dtype=p.out_dtype, device=q.device)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
@@ -233,7 +376,7 @@ def _launch(p: _Prepared):
             out.data_ptr(), lse.data_ptr(),
             b, hq, hkv, sq, sk, d, bsb, bsh, bsq, bsk,
             p.scale, p.left, p.right,
-            _DTYPE_CODE[q.dtype], _DTYPE_CODE[p.out_dtype],
+            _DTYPE_CODE[q.dtype], _DTYPE_CODE[p.out_dtype], *walk,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _kernels.check("flash_fwd", err)

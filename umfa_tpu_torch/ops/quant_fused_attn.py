@@ -57,6 +57,7 @@ from umfa_tpu_torch.engine.config import BlockSizeConfig, Precision, QuantMode, 
 from umfa_tpu_torch.ops.flash_fwd import (
     DEFAULT_MASK_VALUE,
     _DTYPE_CODE,
+    _choose_block,
     bias_strides,
     broadcast_bias,
     fold_mask,
@@ -124,28 +125,6 @@ def _right_bound(causal: bool, window) -> Optional[int]:
     if window is not None and window[1] >= 0:
         r = window[1] if r is None else min(r, window[1])
     return r
-
-
-def _round_up(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
-
-
-def _choose_block(requested: int, seq: int, head_dim: int, vmem_cap_elems: int = 2**18) -> int:
-    """The reference's tile choice (umfa_tpu/ops/flash_fwd.py:91-111), kept
-    only to reproduce its mean estimate."""
-    cap = min(requested, _round_up(max(seq, 1), 128))
-    while cap > 128 and cap * head_dim > vmem_cap_elems:
-        cap //= 2
-    if seq <= cap:
-        return cap
-    b = cap
-    while b >= 256:
-        if (_round_up(seq, b) - seq) / seq <= 0.07:
-            return b
-        b -= 128
-        if b < cap // 2:
-            break
-    return cap
 
 
 def effective_group(requested: int, tile: int) -> int:

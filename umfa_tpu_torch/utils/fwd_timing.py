@@ -1,6 +1,6 @@
 """Time the attention forwards of a source tree on the card.
 
-    python umfa_tpu_torch/utils/fwd_timing.py [--tree DIR] [--label NAME] (--fp32 | --ring)
+    python umfa_tpu_torch/utils/fwd_timing.py [--tree DIR] [--label NAME] (--fp32 | --ring | --bf16)
 
 Imports `umfa_tpu_torch` from DIR (default: the tree this file is in), so
 another tree, such as a parent commit unpacked with `git archive`, can be
@@ -24,6 +24,10 @@ and fp32, each with its relerr against the plain version, its flop and
 bound; then the whole ring forward (contiguous and zigzag causal, D 64,
 bf16 and fp32, and D 256 fp32) over LocalRing(4). A head dim a tree's
 kernel refuses is printed as refused.
+
+--bf16: the unmasked bf16 `flash_fwd` at the training shape (B8 Hq16 Hkv8,
+causal S 4096, seeded normals) at D 64 and 128, each with its relerr
+against the plain version.
 
 Prints one JSON line per timing, then the card's name and power limit as
 nvidia-smi gives them. Needs a CUDA device.
@@ -167,6 +171,30 @@ def _time_ring(emit, stats):
         torch.cuda.empty_cache()
 
 
+def _time_bf16(emit, stats):
+    import torch
+
+    from umfa_tpu_torch.ops.flash_fwd import flash_attention_forward, flash_attention_forward_plain
+    from umfa_tpu_torch.utils.testing import rel_err
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(0)
+    s = SK
+    for d in (64, 128):
+        q, k, v = (torch.randn(shape, generator=gen).to(dev, torch.bfloat16) for shape in
+                   ((B, HQ, s, d), (B, HKV, s, d), (B, HKV, s, d)))
+
+        def run(q=q, k=k, v=v):
+            return flash_attention_forward(q, k, v, causal=True)
+
+        err = rel_err(run()[0], flash_attention_forward_plain(q, k, v, causal=True)[0])
+        torch.cuda.empty_cache()
+        emit(kernel="flash_fwd", dtype="bfloat16", shape=f"B{B} Hq{HQ} Hkv{HKV} S{s} causal",
+             D=d, relerr=err, **stats(run))
+        del q, k, v
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -175,6 +203,7 @@ def main(argv=None) -> int:
     mode = ap.add_mutually_exclusive_group(required=True)
     mode.add_argument("--fp32", action="store_true", help="flash_fwd on fp32 inputs at the prefill")
     mode.add_argument("--ring", action="store_true", help="ring_fwd_step and the whole ring forward")
+    mode.add_argument("--bf16", action="store_true", help="the bf16 flash_fwd at the training shape")
     args = ap.parse_args(argv)
     tree = os.path.abspath(args.tree)
     if sys.path and os.path.abspath(sys.path[0]) == here:
@@ -198,7 +227,7 @@ def main(argv=None) -> int:
     def emit(**kw):
         print(json.dumps({"tree": args.label, **kw}), flush=True)
 
-    (_time_ring if args.ring else _time_fp32)(emit, _stats)
+    (_time_ring if args.ring else _time_bf16 if args.bf16 else _time_fp32)(emit, _stats)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True,
                          timeout=60).stdout.strip().splitlines()[0], flush=True)
