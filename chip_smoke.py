@@ -118,6 +118,27 @@ Phases, one JSON line each:
      the bool mask (a yardstick only); (c) the reference's masks cell (B2
      H16 S4096 D64 bf16, 8 documents of 512, non-causal) forward beside the
      dense non-causal `flash_fwd`;
+  7b. block-sparse masks on the quantized routes, through the walked
+     instantiations of `fused_qattn`, `quant_attn_fwd`, `quant_bwd_dq` and
+     `quant_bwd_dkv`: (a) each against its plain version at B2 Hq16 Hkv8,
+     S 1024 and 768 x 1000, D 64/128/256, bf16, under causal_block_mask,
+     causal segments of seeded uneven documents with a -1 tail and batch 0
+     left-padded (its first fill, and so its K/V means window, not tile 0),
+     a per-head map under GQA, BlockSizes(96, 160) and documents of 512 (no
+     bias); fused_qattn under int8, int4, int8 BLOCK, int8 ASYMMETRIC and
+     int8-qdense, quant_attn_fwd under int8, the int4 recipe with its corr
+     row and ASYMMETRIC, the backward on the int8 and int4 residuals
+     (smoothing on, a nonzero dlse), at the gates of their unwalked
+     instantiations (rows that see no key among them, the same bits twice
+     for fused_qattn); (b) the full-width path, `attention(q, k, v, mask)`
+     and `.backward()` (out and LSE cotangents) at B8 Hq16 Hkv8 S4096 D64
+     bf16 under int8, int4, int8 BLOCK and int8 ASYMMETRIC, for causal
+     documents of 512 and of seeded lengths 64-1536 with a -1 tail, and the
+     two-pass route (512, bias_grad=True): exact launches (the unwalked
+     route's, the walked kernels in its place), out, LSE and gradients
+     against the same path with every kernel wrapper's plain version, each
+     walked kernel timed beside the same recipe's unwalked causal kernel,
+     the walked share and its bound on the mask's visible pairs;
   8. the quantized training kernels (quant_rows, fused_qattn, quant_bwd_dq,
      quant_bwd_dkv) against their plain versions at B2 Hq16 Hkv8 (causal
      1024, odd 777, window (128, 0), a shared bias, a left-only window with
@@ -192,7 +213,7 @@ Phases, one JSON line each:
      result line.
 Every path (each serving run, both timed continuous-batching runs, the
 timed training steps, the attention() phase, the three full-width
-block-sparse runs, the two full-width ring runs,
+block-sparse runs and the nine quantized ones, the two full-width ring runs,
 the probe's five reps-1024 calls) is driven with the launch counts set to 0
 just before it and read just after; a kernel's `launches` in the kernels
 line is its sum over them.
@@ -205,6 +226,7 @@ Details go to chiprun_out/chip_smoke.json.
 """
 
 import collections
+import contextlib
 import dataclasses
 import json
 import math
@@ -1579,6 +1601,12 @@ def sparse_check_mask(kind, b, sq, sk, dev):
         return bm.sliding_window_block_mask(sq, sk, 128, 0, device=dev)
     if kind == "segments_padded":
         return bm.segment_block_mask(ids[:, :sq], ids, causal=True, device=dev)
+    if kind == "segments_left_padded":
+        # Batch 0's -1 ids first, more than a 128-row tile of them: its
+        # first fill, and so its K/V means window, is key tile 1, not 0.
+        ids[0] = ids[0].flip(0)
+        return bm.segment_block_mask(ids[:, :sq], ids, causal=True, device=dev,
+                                     block_sizes=BlockSizes(128, 128))
     if kind == "blocks_96x160":
         return bm.segment_block_mask(ids[:, :sq], ids, causal=True, device=dev,
                                      block_sizes=BlockSizes(96, 160))
@@ -1873,6 +1901,345 @@ def phase_block_sparse(record):
     del q, k, v, w
     torch.cuda.empty_cache()
     return timing, worst, counts_all
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """The quantized path with every kernel wrapper's launch swapped for its
+    plain version (same arguments and results, no launch counted): the
+    whole path's plain version on the same inputs, for the comparisons."""
+    from umfa_tpu_torch.ops import flash_bwd as fb
+    from umfa_tpu_torch.ops import flash_fwd as ff
+    from umfa_tpu_torch.ops import quant_attention as qa
+    from umfa_tpu_torch.ops import quant_bwd as qb
+    from umfa_tpu_torch.ops import quant_fused as qfu
+    from umfa_tpu_torch.ops import quant_fused_attn as qf
+
+    swaps = {
+        (qf, "_launch"): qf._plain, (qa, "_launch"): qa._plain, (ff, "_launch"): ff._plain,
+        (qb, "_launch"): lambda p, dt: tuple(g.to(dt) for g in (qb._plain_dq(p),
+                                                                 *qb._plain_dkv(p))),
+        (fb, "_launch"): lambda p, dt: tuple(g.to(dt) for g in fb._plain(p)),
+        (qfu, "_launch"): lambda x, mean, precision, hadamard: qfu.quantize_rows_fused_plain(
+            x, mean, precision=precision, hadamard=hadamard),
+    }
+    saved = {key: getattr(*key) for key in swaps}
+    for (mod, name), fn in swaps.items():
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+
+
+def phase_quant_block_sparse(record):
+    """Block-sparse masks on the quantized routes: (a) the walked
+    instantiations of fused_qattn (row 7), quant_attn_fwd (row 5),
+    quant_bwd_dq and quant_bwd_dkv (rows 8, 9) against their plain versions;
+    (b) the full-width path, `attention(q, k, v, mask)` with `.backward()`
+    under four quantization modes and two document masks, and one
+    two-pass run, with exact launches, the plain path, timings beside the
+    same recipe's unwalked causal kernels, the walked share and bounds."""
+    import dataclasses as dc
+
+    import torch
+
+    import umfa_tpu_torch as ut
+    from umfa_tpu_torch import _kernels
+    from umfa_tpu_torch.engine.config import Precision, QuantMode, QuantStrategy
+    from umfa_tpu_torch.ops import flash_bwd as fb
+    from umfa_tpu_torch.ops import flash_fwd as ff
+    from umfa_tpu_torch.ops import quant_attention as qa
+    from umfa_tpu_torch.ops import quant_bwd as qb
+    from umfa_tpu_torch.ops.block_mask import PARTIAL
+    from umfa_tpu_torch.ops.quant import dequantize, quantize
+    from umfa_tpu_torch.ops.quant_fused_attn import (
+        fused_quantize_attend, fused_quantize_attend_plain,
+    )
+    from umfa_tpu_torch.utils.testing import rel_err
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(22)
+
+    def randn(shape, dtype, offset=0.0):
+        return (torch.randn(shape, generator=gen) + offset).to(dev, dtype)
+
+    # (a) Walked kernels against their plain versions at B2 Hq16 Hkv8, bf16,
+    # at the gates their unwalked instantiations meet in phase 8 (fused_qattn:
+    # out relerr 1e-3, LSE 1e-4, codes at most one apart, means 1e-6; row 5:
+    # 1e-3 / 1e-4; rows 8-9: 2e-2), rows that see no key included.
+    # Each mask once, D 128 and 256 once each; the card tests take the rest.
+    cases = [("causal", 1024, 1024, 64), ("segments_left_padded", 1024, 1024, 64),
+             ("per_head", 1024, 1024, 64), ("blocks_96x160", 768, 1000, 128),
+             ("aligned_no_bias", 1024, 1024, 64), ("segments_left_padded", 768, 1000, 256)]
+    worst = {"fused_qattn": 0.0, "quant_attn_fwd": 0.0, "quant_bwd_dq": 0.0,
+             "quant_bwd_dkv": 0.0}
+    checks = []
+    i8, i4 = Precision.INT8, Precision.INT4
+    for kind, sq, sk, d in cases:
+        mask = sparse_check_mask(kind, B_CHECK, sq, sk, dev)
+        walk = dict(block_map=mask.block_map, block_q=mask.block_q, block_k=mask.block_k)
+        tables = dict(fetch_kv=mask.fetch_kv, hold_kv=mask.hold_kv, fill_kv=mask.fill_kv)
+        shape = {"mask": kind, "sq": sq, "sk": sk, "d": d, "block_q": mask.block_q,
+                 "block_k": mask.block_k, "bias": mask.bias is not None,
+                 "kv_mean_tiles": sorted(set(mask.kv_mean_tile.flatten().tolist()))}
+        if kind == "segments_left_padded" and shape["kv_mean_tiles"] != [0, 1]:
+            raise AssertionError(f"the left-padded mask's first fills {shape['kv_mean_tiles']}: "
+                                 "batch 0's means window should be tile 1, batch 1's tile 0")
+        q = randn((B_CHECK, HQ, sq, d), torch.bfloat16)
+        k, v = randn((B_CHECK, HKV, sk, d), torch.bfloat16, 0.5), randn((B_CHECK, HKV, sk, d),
+                                                                        torch.bfloat16, 0.3)
+        for recipe in ("int8", "int4", "int8_block", "int8_asym", "qdense"):
+            fkw = dict(recipe_kwargs(recipe), **walk, **tables)
+            got = fused_quantize_attend(q, k, v, mask.bias, **fkw)
+            torch.cuda.synchronize()
+            want = fused_quantize_attend_plain(q, k, v, mask.bias, **fkw)
+            vis = want[1] > -1e29
+            blind = ~vis & (want[0].float() != 0).any(dim=-1)  # walked, no key seen
+            res = {"case": f"fused_qattn/{recipe}/{kind}_{sq}x{sk}_d{d}", **shape,
+                   "relerr_out": rel_err(got[0], want[0]),
+                   "max_abs_lse": float((got[1][vis] - want[1][vis]).abs().max()),
+                   "rows_no_key_walked": int(blind.sum()),
+                   "relerr_rows_no_key": (rel_err(got[0][blind], want[0][blind])
+                                          if blind.any() else 0.0),
+                   "codes_close": all(codes_close(a, b_) for a, b_ in zip(got[2:5], want[2:5])
+                                      if a is not None),
+                   "relerr_means": max([rel_err(a, b_) for a, b_ in zip(got[5:], want[5:])
+                                        if a is not None] + [0.0]),
+                   "same_bits_twice": bool(torch.equal(
+                       fused_quantize_attend(q, k, v, mask.bias, **fkw)[0], got[0]))}
+            res["ok"] = (res["relerr_out"] <= 1e-3 and res["max_abs_lse"] <= 1e-4
+                         and res["relerr_rows_no_key"] <= 1e-3 and res["codes_close"]
+                         and res["relerr_means"] <= 1e-6 and res["same_bits_twice"]
+                         and torch_isfinite(got[0].float()))
+            for a, b_ in zip(got[2:5], want[2:5]):
+                if a is not None and a.zero_points is not None:
+                    res["ok"] = res["ok"] and int((a.zero_points - b_.zero_points).abs().max()) <= 1
+            worst["fused_qattn"] = max(worst["fused_qattn"],
+                                       float((got[0].float() - want[0].float()).abs().max()))
+            emit({"phase": "kernel_check", **res})
+            checks.append(res)
+            if recipe in ("int8", "int4"):
+                # Rows 8-9 on these residuals: smoothing on (int4: qm and the
+                # corr row), a nonzero dlse.
+                out, lse, qt_q, qt_k, qt_v, qm, vm = want
+                do = randn(out.shape, out.dtype)
+                dlse = torch.where(vis, randn(lse.shape, torch.float32), 0.0)
+                corr = None if qm is None else qa._corr_from_quantized(qm, qt_k)
+                args = (qt_q, qt_k, qt_v, out, lse, do, qm, vm, corr, mask.bias, dlse)
+                gb = qb.quantized_attention_backward(*args, mask.block_map, mask.fetch_kv,
+                                                     mask.fetch_q, grad_dtype=torch.bfloat16,
+                                                     block_q=mask.block_q, block_k=mask.block_k)
+                torch.cuda.synchronize()
+                wb = qb.quantized_attention_backward_plain(*args, grad_dtype=torch.bfloat16,
+                                                           **walk)
+                bres = {"case": f"quant_bwd/{recipe}/{kind}_{sq}x{sk}_d{d}", **shape,
+                        "tol": 2e-2, "no_key_rows_dq_zero": bool((gb[0][~vis] == 0).all())}
+                for kern, g_name, x, y in zip(("quant_bwd_dq", "quant_bwd_dkv", "quant_bwd_dkv"),
+                                              ("dq", "dk", "dv"), gb, wb):
+                    bres[f"relerr_{g_name}"] = rel_err(x, y)
+                    worst[kern] = max(worst[kern], float((x.float() - y.float()).abs().max()))
+                bres["ok"] = bres["no_key_rows_dq_zero"] and all(
+                    bres[f"relerr_{g_}"] <= 2e-2 for g_ in ("dq", "dk", "dv"))
+                emit({"phase": "kernel_check", **bres})
+                checks.append(bres)
+                del gb, wb, args, do, dlse
+            del got, want
+        # Row 5: INT8, the int4 recipe's operands with its corr row, ASYMMETRIC.
+        xs = (q.float(), k.float(), v.float())
+        for name, precs, strategy, corr_on in (
+                ("int8", (i8, i8, i8), QuantStrategy.SYMMETRIC, False),
+                ("int4_corr", (i4, i4, i8), QuantStrategy.SYMMETRIC, True),
+                ("asym", (i8, i8, i8), QuantStrategy.ASYMMETRIC, False)):
+            qts = [quantize(x, pr, QuantMode.ROW, strategy) for x, pr in zip(xs, precs)]
+            corr = randn((B_CHECK, HQ, 1, sk), torch.float32) if corr_on else None
+            got = qa.quantized_attention_forward(*qts, mask.bias, corr, mask.block_map,
+                                                 mask.fetch_kv, block_q=mask.block_q,
+                                                 block_k=mask.block_k)
+            torch.cuda.synchronize()
+            want = qa.quantized_attention_forward_plain(*qts, mask.bias, corr, **walk)
+            res = compare(f"quant_attn_fwd/{name}/{kind}_{sq}x{sk}_d{d}", got, want, 1e-3, 1e-4)
+            res.update(shape)
+            worst["quant_attn_fwd"] = max(worst["quant_attn_fwd"], res["max_abs_out"])
+            emit({"phase": "kernel_check", **res})
+            checks.append(res)
+            del qts, got, want
+        del q, k, v, mask
+    torch.cuda.empty_cache()
+    record["quant_block_sparse_checks"] = checks
+    bad = [r["case"] for r in checks if not r["ok"]]
+    if bad:
+        raise AssertionError(f"walked quantized kernels disagree with their plain versions: {bad}")
+
+    # (b) The full-width path: the GPT's attention geometry, bf16.
+    b, s = B_TRAIN, S_TRAIN
+    shape = f"B{b} Hq{HQ} Hkv{HKV} S{s} D{D} bf16"
+    q, k, v = (randn((b, h, s, D), torch.bfloat16) for h in (HQ, HKV, HKV))
+    w = randn((b, HQ, s, D), torch.bfloat16)
+    docs = doc_ids(b, s, (64, 1536), 8, pad=200)
+    masks = {"causal_docs_512": (ut.segment_block_mask(
+                 torch.arange(s, dtype=torch.int32)[None] // 512, causal=True, device=dev),
+                 b * (s // 512) * 512 * 513 // 2),
+             "causal_docs_64_1536_padded": (ut.segment_block_mask(docs, causal=True, device=dev),
+                                            causal_doc_pairs(docs))}
+    causal_pairs = b * visible_pairs(s, s, -1, 0)
+    runs_spec = [(recipe, name, False) for recipe in ("int8", "int4", "int8-block", "int8-asym")
+                 for name in masks] + [("int8", "causal_docs_512", True)]
+    fused_counts = {"fused_qattn": 1, "quant_bwd_dq": 1, "quant_bwd_dkv": 1, "quant_rows": 0,
+                    "quant_attn_fwd": 0, "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                    "flash_dbias": 0}
+    unwalked, runs, counts_all = {}, [], []
+    for recipe, mname, bias_grad in runs_spec:
+        mask, pairs1 = masks[mname]
+        cfg = quant_config(recipe)
+        asym = cfg.strategy == QuantStrategy.ASYMMETRIC
+        want_counts = dict(fused_counts)
+        if bias_grad:  # the two-pass route: quant_rows x 3, then row 5
+            want_counts.update(fused_qattn=0, quant_rows=3, quant_attn_fwd=1)
+        if asym:  # the fp32 dense backward on the dequantized operands
+            want_counts.update(quant_bwd_dq=0, quant_bwd_dkv=0, flash_bwd_dq=1, flash_bwd_dkv=1)
+        qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        with ut.use_quantization(config=cfg):
+            out, lse = ut.attention(qg, kg, vg, mask, return_lse=True, bias_grad=bias_grad)
+        torch.autograd.backward((out, lse), (w, torch.where(lse > -1e29, 1.0, 0.0)))
+        torch.cuda.synchronize()
+        counts = dict(_kernels.launches)
+        counts_all.append(counts)
+        run = f"{recipe}{'/bias_grad' if bias_grad else ''}/{mname}"
+        if {kk: counts.get(kk, 0) for kk in want_counts} != want_counts:
+            raise AssertionError(f"quantized block-sparse {run}: launches {counts}, "
+                                 f"expected {want_counts}")
+        grads = (qg.grad, kg.grad, vg.grad)
+        # The plain path on the same inputs (every wrapper's plain version).
+        qp, kp, vp = (x.detach().requires_grad_(True) for x in (q, k, v))
+        with plain_kernels(), ut.use_quantization(config=cfg):
+            out_p, lse_p = ut.attention(qp, kp, vp, mask, return_lse=True, bias_grad=bias_grad)
+            torch.autograd.backward((out_p, lse_p), (w, torch.where(lse_p > -1e29, 1.0, 0.0)))
+        vis = lse_p > -1e29
+        res = {"recipe": recipe, "mask": mname, "bias_grad": bias_grad, "shape": shape,
+               "route": "two-pass" if bias_grad else "single-launch",
+               "block_q": mask.block_q, "block_k": mask.block_k, "launches": counts,
+               "relerr_out": rel_err(out.detach(), out_p.detach()),
+               "max_abs_lse": float((lse[vis] - lse_p[vis]).detach().abs().max()),
+               **{f"relerr_{g_}": rel_err(gx, px.grad)
+                  for g_, gx, px in zip(("dq", "dk", "dv"), grads, (qp, kp, vp))}}
+        res["ok"] = (res["relerr_out"] <= 1e-3 and res["max_abs_lse"] <= 1e-4
+                     and torch_isfinite(out.float())
+                     and all(res[f"relerr_{g_}"] <= 2e-2 for g_ in ("dq", "dk", "dv")))
+        del qg, kg, vg, qp, kp, vp, out_p, lse_p, grads
+        torch.cuda.empty_cache()
+        # Walked share and the bytes of the bias the PARTIAL tiles read.
+        walked = ff.walked_keys(ff.Walk(mask.block_map, None, None, mask.block_q, mask.block_k),
+                                s, s)
+        walked_pairs = int(walked.sum()) * (b if walked.shape[0] == 1 else 1)
+        partial = (mask.block_map == PARTIAL).repeat_interleave(mask.block_q, 2)[:, :, :s] \
+            .repeat_interleave(mask.block_k, 3)[..., :s]
+        bias_bytes = 4 * int(partial.sum()) if mask.bias is not None else 0
+        del walked, partial
+        pairs = HQ * pairs1
+        res.update(visible_pairs=pairs, walked_share_of_causal=walked_pairs / causal_pairs,
+                   visible_share_of_causal=pairs1 / causal_pairs, bias_bytes_read=bias_bytes)
+        # Each walked kernel timed on its own inputs, beside the same recipe's
+        # unwalked causal kernel at the same shape.
+        wk = mask.walk()
+        rk = {"smooth": cfg.smooth, "smooth_q": cfg.effective_smooth_q(),
+              "hadamard": cfg.hadamard, "q_precision": cfg.q_precision,
+              "k_precision": cfg.k_precision, "v_precision": cfg.v_precision,
+              "strategy": cfg.strategy, "mode": cfg.mode, "quant_blocks": cfg.block_sizes}
+        mkw = dict(block_map=mask.block_map, fetch_kv=mask.fetch_kv, hold_kv=mask.hold_kv,
+                   fill_kv=mask.fill_kv, block_q=mask.block_q, block_k=mask.block_k)
+        # Bytes: each input read once and each output written once (codes one
+        # byte an element; scales left out), the bias of PARTIAL tiles.
+        codes = q.numel() + 2 * k.numel()
+        rows = 4 * b * HQ * s  # an fp32 per query row (LSE, δ)
+        kern = {}
+        if bias_grad:  # the two-pass route's operands, residuals and row 5
+            qt_q, qt_k, qt_v, qm, vm, corr2 = qa._quantize_operands(q, k, v, cfg)
+            fwd = qa.quantized_attention_forward(qt_q, qt_k, qt_v, mask.bias, corr2,
+                                                 mask.block_map, mask.fetch_kv,
+                                                 block_q=mask.block_q, block_k=mask.block_k,
+                                                 out_dtype=torch.bfloat16)
+            kern["quant_attn_fwd"] = (
+                lambda: qa.quantized_attention_forward(qt_q, qt_k, qt_v, mask.bias, corr2,
+                                                       mask.block_map, mask.fetch_kv,
+                                                       block_q=mask.block_q,
+                                                       block_k=mask.block_k),
+                lambda: qa.quantized_attention_forward(qt_q, qt_k, qt_v, None, corr2, causal=True),
+                (2 * D * pairs / H100_INT8_OPS + 2 * D * pairs / H100_BF16_FLOPS) * 1e3,
+                codes + 4 * q.numel() + rows + bias_bytes)
+        else:
+            _, _, qt_q, qt_k, qt_v, qm, vm = fwd = fused_quantize_attend(q, k, v, mask.bias, **rk,
+                                                                         **mkw)
+            kern["fused_qattn"] = (
+                lambda: fused_quantize_attend(q, k, v, mask.bias, **rk, **mkw),
+                lambda: fused_quantize_attend(q, k, v, causal=True, **rk),
+                4 * D * pairs / H100_BF16_FLOPS * 1e3,
+                2 * (q.numel() + 2 * k.numel()) + 2 * q.numel() + rows + codes + bias_bytes)
+        f_out, f_lse = fwd[0], fwd[1]
+        do = w
+        dlse = torch.zeros_like(f_lse)
+        if asym:
+            qd, kd, vd = qa._dequantized(qt_q, qt_k, qt_v, qm, vm)
+            pb = fb._prepare(qd, kd, vd, f_out.float(), f_lse, do.float(), mask.bias, dlse,
+                             False, None, None, wk)
+            pbc = fb._prepare(qd, kd, vd, f_out.float(), f_lse, do.float(), None, dlse,
+                              True, None, None)
+            names, launch, f32 = ("flash_bwd_dq", "flash_bwd_dkv"), fb, torch.float32
+            rate, in_bytes, out_size = H100_TF32_FLOPS / 3, 4 * codes + 4 * do.numel(), 4
+        else:
+            corr = None if qm is None else qa._corr_from_quantized(qm, qt_k)
+            pb = qb._prepare(qt_q, qt_k, qt_v, f_out, f_lse, do, qm, vm, corr, mask.bias,
+                             dlse, False, None, None, wk)
+            pbc = qb._prepare(qt_q, qt_k, qt_v, f_out, f_lse, do, qm, vm, corr, None,
+                              dlse, True, None, None)
+            names, launch, f32 = ("quant_bwd_dq", "quant_bwd_dkv"), qb, torch.bfloat16
+            rate, in_bytes, out_size = H100_BF16_FLOPS, codes + 2 * do.numel(), 2
+        # (3xTF32: three TF32 products for each fp32 one, at the TF32 rate.)
+        bwd_bytes = in_bytes + 2 * rows + bias_bytes
+        kern[names[0]] = (lambda: launch._launch_dq(pb, f32), lambda: launch._launch_dq(pbc, f32),
+                          3 * 2 * D * pairs / rate * 1e3, bwd_bytes + out_size * q.numel())
+        kern[names[1]] = (lambda: launch._launch_dkv(pb, f32),
+                          lambda: launch._launch_dkv(pbc, f32),
+                          4 * 2 * D * pairs / rate * 1e3, bwd_bytes + out_size * 2 * k.numel())
+        for kname, (fn, fn_causal, ops_ms, nbytes) in kern.items():
+            key = (recipe, bias_grad, kname)
+            if key not in unwalked:
+                unwalked[key] = cuda_stats(fn_causal)
+            t = dict(**cuda_stats(fn), ops_ms=ops_ms, bytes=nbytes,
+                     bytes_ms=nbytes / H100_HBM_BYTES * 1e3, unwalked_causal=unwalked[key])
+            t["yardstick_ms"] = unwalked[key]["ms"] * walked_pairs / causal_pairs
+            bound(t)
+            res[kname] = t
+        del fwd, f_out, f_lse, pb, pbc, kern, qt_q, qt_k, qt_v, qm, vm
+        torch.cuda.empty_cache()
+        emit({"phase": "quant_block_sparse_path",
+              **{kk: vv for kk, vv in res.items() if not isinstance(vv, dict) or kk == "launches"},
+              **{f"{kk}_ms": vv["ms"] for kk, vv in res.items()
+                 if isinstance(vv, dict) and "ms" in vv},
+              **{f"{kk}_bound_ms": vv["bound_ms"] for kk, vv in res.items()
+                 if isinstance(vv, dict) and "bound_ms" in vv},
+              **{f"{kk}_unwalked_causal_ms": vv["unwalked_causal"]["ms"] for kk, vv in res.items()
+                 if isinstance(vv, dict) and "unwalked_causal" in vv}})
+        runs.append(res)
+        if not res["ok"]:
+            raise AssertionError(f"quantized block-sparse {run}: the path disagrees with the "
+                                 f"plain path: {res}")
+    del q, k, v, w
+    torch.cuda.empty_cache()
+    record["quant_block_sparse"] = runs
+    timing = collections.defaultdict(dict)
+    for r in runs:
+        for kname, t in r.items():
+            if isinstance(t, dict) and "bound_ms" in t:
+                label = f"{r['recipe']}{'/bias_grad' if r['bias_grad'] else ''}/{r['mask']}"
+                timing[kname][label] = {kk: t[kk] for kk in ("ms", "ms_min", "ms_max", "bound_ms",
+                                                           "bound_by", "yardstick_ms")} | {
+                    "unwalked_causal_ms": t["unwalked_causal"]["ms"],
+                    "walked_share_of_causal": r["walked_share_of_causal"]}
+    return dict(timing), worst, counts_all
 
 
 QRECIPES = ("int8", "int4", "int8_nosmooth", "qdense")
@@ -3305,12 +3672,15 @@ DESIGN = {
     "quant_bwd_dq": "tensor cores, mma.sync m16n8k16 bf16->fp32 (csrc/bwd_tc.cuh dq_tc_kernel: "
                     "4 warps x 16 query rows, Q and dO dequantized once, raw int8/int4 K/V key "
                     "tiles double-buffered by cp.async and dequantized to bf16 in shared memory, "
-                    "dS fed from the accumulators)",
+                    "dS fed from the accumulators); with a BlockMask the SPARSE instantiation "
+                    "walks the compacted key row (fetch_kv) of its map query tile in order",
     "quant_bwd_dkv": "tensor cores, mma.sync m16n8k16 bf16->fp32 (csrc/bwd_tc.cuh dkv_tc_kernel: "
                      "4 warps x 16 keys, 8 warps at D 256 each owning half the columns, K/V "
                      "dequantized once, raw int8/int4 Q and dO tiles double-buffered by cp.async "
                      "and dequantized to bf16 in shared memory, Pᵀ and dSᵀ fed from the "
-                     "accumulators)",
+                     "accumulators); with a BlockMask the SPARSE instantiation walks each GQA "
+                     "head's compacted query row (fetch_q) in turn, the corr row and the Q-mean "
+                     "term at each head's own first and last walked tile",
     "quant_attn_fwd": "tensor cores: QKᵀ by mma.sync m16n8k32 s8->s32 (exact), P·V by mma.sync "
                       "m16n8k16 bf16->fp32 (8 warps x 16 query rows, Q fragments in registers at "
                       "D <= 128, int8 K/V 64-key tiles and scales in three cp.async buffers two "
@@ -3319,7 +3689,9 @@ DESIGN = {
                       "passes: QKᵀ alone for the exact row max, then P·V); instantiations of "
                       "their own for INT4 codes (unpacked a 4-byte word a thread into the int8 "
                       "tiles as they are staged) with the corr row, and for ASYMMETRIC zero "
-                      "points (streamed with the key tile; P·V on bf16(p·sv) and the V codes)",
+                      "points (streamed with the key tile; P·V on bf16(p·sv) and the V codes); "
+                      "with a BlockMask the SPARSE instantiations walk the block's compacted key "
+                      "row (fetch_kv) in both passes, the bias read only on tiles not FULL",
     "fused_qattn": "tensor cores: QKᵀ by mma.sync m16n8k8 f64 (DMMA; each score an exact double "
                    "sum of bf16 products rounded once, as the plain version), P·V by mma.sync "
                    "m16n8k16 bf16->fp32 (12 warps x 16 query rows at D 64, 8 at D 128 and 256, Q "
@@ -3329,7 +3701,10 @@ DESIGN = {
                    "a block at D 64; two passes: QKᵀ alone for the exact row max, then P·V); "
                    "the means, K/V quantize and cc-row kernels on the CUDA cores; BLOCK and "
                    "ASYMMETRIC through a pre-pass of two CUDA-core kernels (rows, then groups) "
-                   "that quantizes Q, K and V, Q then read as a dense bf16 Q",
+                   "that quantizes Q, K and V, Q then read as a dense bf16 Q; with a "
+                   "BlockMask the SPARSE instantiation walks the block's compacted key row "
+                   "(fetch_kv) in both passes, the K/V means over the tile each map slice "
+                   "fills first",
     "quant_rows": "CUDA cores, a bytes-bound pass (quant_rows_vec_kernel: a row over the fewest "
                   "lanes that hold it at 16 elements a lane in 16-byte bf16 rows, 8 otherwise: "
                   "4 lanes at D 64 bf16, so a warp has 8 rows at once; 16-byte loads, narrower "
@@ -3432,6 +3807,8 @@ def main():
         timing[name]["block_sparse"] = t
         worst[name] = max(worst[name], s_worst[name])
     path_counts += s_counts
+    qs_timing, qs_worst, qs_counts = run(phase_quant_block_sparse)
+    path_counts += qs_counts
     run(phase_small_training)
     path_counts += run(phase_training)
     q_timing, q_worst = run(phase_quant_kernels)
@@ -3439,6 +3816,10 @@ def main():
     worst["quant_attn_fwd"] = max(worst["quant_attn_fwd"], q_worst.pop("quant_attn_fwd"))
     timing.update(q_timing)
     worst.update(q_worst)
+    for name, t in qs_timing.items():  # phase 7b's lines, beside their kernels' own
+        timing[name]["quant_block_sparse"] = t
+    for name, e in qs_worst.items():
+        worst[name] = max(worst[name], e)
     path_counts += run(phase_quant_training)
     path_counts += run(phase_two_pass)
     run(phase_small_quant_training)
@@ -3485,7 +3866,8 @@ def main():
          "bound_ms": timing[name]["bound_ms"], "bound_by": timing[name]["bound_by"],
          "library_ms": timing[name]["library_ms"],
          "design": DESIGN.get(name, "CUDA cores, FP32 FMAs"),
-         **{key: timing[name][key] for key in ("variants", "block_sparse") if key in timing[name]}}
+         **{key: timing[name][key] for key in ("variants", "block_sparse", "quant_block_sparse")
+            if key in timing[name]}}
         for name in src
     ]
     kernels[[k["name"] for k in kernels].index("flash_dbias")]["launches_by_dtype"] = {

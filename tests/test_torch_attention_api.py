@@ -204,13 +204,23 @@ def test_unported_routes_raise():
     with umfa_tpu_torch.use_quantization("int8-qdense"):
         umfa_tpu_torch.attention(q, k, v)
     # A block mask walks on the dense route (int8-qdense's too; values held
-    # by test_torch_block_mask.py); the integer-quantized route still
-    # raises on one: its walks are the next slice.
+    # by test_torch_block_mask.py) and on the integer-quantized route, which
+    # takes it as quantized_flash_attention(block_mask=...) with no other
+    # bias (values held by test_torch_quant_block_mask.py); the naive
+    # dropout route still raises on one.
+    from umfa_tpu_torch.engine.config import QuantizationConfig
+    from umfa_tpu_torch.ops.quant_attention import quantized_flash_attention
+
+    mask = umfa_tpu_torch.causal_block_mask(64, 64, device="cpu")
     with umfa_tpu_torch.use_quantization("int8-qdense"):
-        out = umfa_tpu_torch.attention(q, k, v, umfa_tpu_torch.causal_block_mask(64, 64, device="cpu"))
+        out = umfa_tpu_torch.attention(q, k, v, mask)
     assert torch.isfinite(out).all()
+    want = quantized_flash_attention(q, k, v, config=QuantizationConfig.from_mode_string("int8"),
+                                     block_mask=mask)
     with umfa_tpu_torch.use_quantization("int8"):
-        with pytest.raises(NotImplementedError, match="block_mask"):
-            umfa_tpu_torch.attention(q, k, v, lambda i, j: j <= i)
-        with pytest.raises(NotImplementedError, match="block_mask"):
-            umfa_tpu_torch.attention(q, k, v, umfa_tpu_torch.causal_block_mask(64, 64, device="cpu"))
+        assert torch.equal(umfa_tpu_torch.attention(q, k, v, mask), want)
+        assert torch.equal(umfa_tpu_torch.attention(q, k, v, lambda i, j: j <= i), want)
+        with pytest.raises(NotImplementedError, match="block mask"):
+            umfa_tpu_torch.attention(q, k, v, mask, dropout_p=0.1,
+                                     dropout_generator=torch.Generator())
+    assert umfa_tpu_torch.get_dispatch_stats()["quantized_autograd"] == 4

@@ -54,7 +54,7 @@ def test_layernorm_gelu_rope_traps_match_jax():
         np.asarray(jax.nn.gelu(jnp.asarray(x))), atol=2e-6)
     # RoPE: both pairings, the exact inverse, and the model's tables.
     xr = rng.normal(0, 1, (2, 3, 10, 32)).astype(np.float32)
-    cos, sin = rope.rope_angles(10, 32)
+    cos, sin = rope.rope_angles(10, 32, device="cpu")
     jcos, jsin = jrope.rope_angles(10, 32)
     np.testing.assert_allclose(cos.numpy(), np.asarray(jcos), atol=1e-6)
     for interleaved in (True, False):
@@ -73,6 +73,17 @@ def test_layernorm_gelu_rope_traps_match_jax():
                              jgpt._rope_tables(jnp.asarray(pos), 32, 10000.0)):
             assert got.shape == want.shape
             np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+
+
+def test_rope_angles_default_to_the_card():
+    """The device rule: without a device the tables go to the card, a
+    RuntimeError where there is none, as every entry point's do."""
+    if torch.cuda.is_available():
+        assert rope.rope_angles(8, 16)[0].device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            rope.rope_angles(8, 16)
+    assert rope.rope_angles(8, 16, device="cpu")[1].device.type == "cpu"
 
 
 def test_forward_logits_match_jax(jparams):

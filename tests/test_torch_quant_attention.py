@@ -153,10 +153,21 @@ def test_quantized_attention_forward_matches_jax(case):
 def test_quantized_attention_forward_refuses_unported():
     x = torch.from_numpy(_x(7, (1, 2, 32, D)))
     qt = quant.quantize(x)
-    # pv_int8 and the block-sparse walks are still to port (ROADMAP).
-    for bad in (dict(pv_int8=True), dict(block_map=torch.ones(1, 1, 1, 1, dtype=torch.int32))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            quantized_attention_forward(qt, qt, qt, **bad)
+    # pv_int8 is still to port (ROADMAP).
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        quantized_attention_forward(qt, qt, qt, pv_int8=True)
+    # The block-sparse walk runs (its values against JAX:
+    # tests/test_torch_quant_block_mask.py): a map that walks its one tile
+    # changes nothing; one that walks none leaves every row empty.
+    base = quantized_attention_forward(qt, qt, qt)
+    for walked in (1, 0):
+        block_map = torch.full((1, 1, 1, 1), walked, dtype=torch.int32)
+        out, lse = quantized_attention_forward(qt, qt, qt, block_map=block_map, block_q=32,
+                                               block_k=32)
+        if walked:
+            assert torch.equal(out, base[0]) and torch.equal(lse, base[1])
+        else:
+            assert (out == 0).all() and (lse == -1e30).all()
     # score_corr, INT4 operands and ASYMMETRIC residuals run (their values
     # against JAX: tests/test_torch_quant_variants.py); a zero corr row
     # changes nothing.

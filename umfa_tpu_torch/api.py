@@ -13,12 +13,14 @@ and routes the call, recording the route in the dispatch stats
     reference takes a JAX key: the random bits differ), UMFA_DISABLE_FUSED=1
     and the UMFA_NAN_CHECK=1 recompute of an output holding NaN.
 A BlockMask, or a mask_mod callable compiled by `make_block_mask` on q's
-device (auto-tiled, ops/block_mask.py), goes to the fused route, which
-walks its tiles. Not ported yet (raise NotImplementedError): a block mask
-under an integer quantization mode (the quantized kernels' walks are the
-next slice; int8-qdense keeps the dense route and walks) and with the
-naive routes. The reference's window auto-tiling is TPU tile scheduling
-and has no counterpart: the kernels' band walk skips the same tiles.
+device (auto-tiled, ops/block_mask.py), goes to the fused route, or under
+an integer quantization mode to `quantized_flash_attention(block_mask=...)`
+with no other bias (umfa_tpu/api.py:201-216); either walks its tiles
+(int8-qdense keeps the dense route, as in the reference). The naive routes
+(dropout, UMFA_DISABLE_FUSED) take no block mask and raise
+NotImplementedError on one. The reference's window auto-tiling is TPU
+tile scheduling and has no counterpart: the kernels' band walk skips the
+same tiles.
 """
 
 from __future__ import annotations
@@ -150,12 +152,10 @@ def attention(
     bias = masks_lib.canonicalize_mask(mask, batch, num_heads, seq_q, seq_k)
     quant = quantization if quantization is not None else get_quantization_mode()
     integer_quant = quant is not None and quant.q_precision.is_integer
-    if block_mask is not None and (integer_quant or dropout_p > 0.0 or cfg.DISABLE_FUSED):
+    if block_mask is not None and (dropout_p > 0.0 or cfg.DISABLE_FUSED):
         raise NotImplementedError(
-            "a block mask takes the fused route only: the quantized kernels' "
-            "block-sparse walks are the next slice (ROADMAP, Queue 2 A1, A2 and "
-            "A4: quantized_flash_attention(block_mask=...)), and the naive routes "
-            "(dropout, UMFA_DISABLE_FUSED) take no block mask"
+            "a block mask takes the fused and quantized routes only: the naive "
+            "routes (dropout, UMFA_DISABLE_FUSED) take no block mask"
         )
 
     if dropout_p > 0.0:
@@ -180,16 +180,19 @@ def attention(
     elif integer_quant:
         # A dense Q (int8-qdense) keeps the dense route, as in the reference.
         record_dispatch("quantized_autograd")
+        # The block mask brings its own bias and walk; a tile-aligned one
+        # has no bias at all, so the walk must go with it.
         out, lse = quantized_flash_attention(q4, k4, v4, bias, config=quant, causal=is_causal,
-                                             window=window, scale=scale, out_dtype=out_dtype,
-                                             return_lse=True, bias_grad=bias_grad)
+                                             window=window, scale=scale, block_mask=block_mask,
+                                             out_dtype=out_dtype, return_lse=True,
+                                             bias_grad=bias_grad)
     else:
         record_dispatch("fused_fwd" if return_lse else "fused_autograd")
         out, lse = flash_attention(q4, k4, v4, bias, causal=is_causal, window=window,
                                    scale=scale, block_mask=block_mask, out_dtype=out_dtype,
                                    return_lse=True, bias_grad=bias_grad)
-        if block_mask is not None:
-            bias = block_mask.bias
+    if block_mask is not None:
+        bias = block_mask.bias
     if cfg.NAN_CHECK:
         out = _nan_check_or_recompute(out, q4, k4, v4, bias, is_causal, window, scale,
                                       None if block_mask is None else block_mask.walk())

@@ -135,6 +135,7 @@ struct DenseLoad {
   using G = DkvTile<DP, MmaFor<T>>;
   using Tile = DenseQTile<DP, T>;
   static constexpr int NRAW = 3, RAW_BYTES = Tile::RAW_BYTES;
+  static constexpr bool HEAD_TERMS = false;  // no corr row, no Q-mean term
 
   static __device__ __forceinline__ float dk_scale(const BwdParams& p) { return p.scale; }
 

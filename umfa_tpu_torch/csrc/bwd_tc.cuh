@@ -28,16 +28,19 @@
 // to (the old value plus scale times the sum, each rounded once) after it.
 // A block that sees nothing after the first step returns without a store.
 //
-// SPARSE (a template parameter as RING is; only the dense stages of
-// bwd_dense.cuh take it): the walks restricted to a block-sparse map
-// (common.cuh `SparseWalk`). The dQ block walks the compacted key row of
-// its map query tile in order (deterministic, as the dense walk); the dK/dV
-// block walks, for each query head of its GQA group in turn, that head's
-// own compacted query row (a per-head map gives each head its own), the
-// group still summed in registers by one owner. Indices past a map tile's
-// end are hidden like the tails; the bias is read only on tiles that are
-// not FULL for the block; a block that straddles map tiles looks up each
-// element's own tile.
+// SPARSE (a template parameter as RING is; the dense stages of
+// bwd_dense.cuh and the quantized ones of quant_bwd.cu take it): the walks
+// restricted to a block-sparse map (common.cuh `SparseWalk`). The dQ block
+// walks the compacted key row of its map query tile in order
+// (deterministic, as the dense walk); the dK/dV block walks, for each
+// query head of its GQA group in turn, that head's own compacted query row
+// (a per-head map gives each head its own), the group still summed in
+// registers by one owner. A head's per-head work (the corr row read at its
+// first tile, the Q-mean term added at its last) runs at the walk's own
+// head boundaries, and not at all for a head that walks no tile of the
+// block. Indices past a map tile's end are hidden like the tails; the bias
+// is read only on tiles that are not FULL for the block; a block that
+// straddles map tiles looks up each element's own tile.
 #pragma once
 
 #include <initializer_list>
@@ -281,6 +284,8 @@ struct DkvTile {
 //       LD, and per row vt (a term added to dP), lse, delta;
 //   NRAW, RAW_BYTES            the staging buffers (2, or 3 when the Tile
 //       reads its staging buffer) and their size;
+//   HEAD_TERMS                 whether it has per-head terms (the corr row,
+//       the Q-mean term), which a walk takes at each head's own boundaries;
 //   dk_scale(p)                the factor on dK at the store;
 //   stage_kv(sK, sV, sVm, ..)  K, V of the block's KB keys (Mma::T, LD) and vm;
 //   issue(raw, p, qbh, q0, vec)  the copies of a query tile's raw operands;
@@ -387,6 +392,7 @@ __global__ void __launch_bounds__(DkvTile<DP, Mma>::NTHR, DkvTile<DP, Mma>::MINB
     for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
   float cs[2] = {0.f, 0.f};  // this thread's part of colsum(dS), per key row
   float corr[2] = {0.f, 0.f};
+  int h_prev = -1;  // SPARSE: the head of the step before
 
   for (int i = 0; i < total; ++i) {
     cp_async_wait<0>();
@@ -413,7 +419,16 @@ __global__ void __launch_bounds__(DkvTile<DP, Mma>::NTHR, DkvTile<DP, Mma>::MINB
     const long long qbh = SPARSE ? qbh_of(tw) : head_of(i);
     const int q0 = SPARSE ? tw.first : q0_of(i);
     const Tile t = tile_of(i);
-    if (!SPARSE && i % n_t == 0 && p.corr) {
+    // The head's first and last tile of the walk (SPARSE: where the head
+    // changes; ta is step i + 1's tile), for stages with per-head terms.
+    constexpr bool HEADS = SPARSE && Load::HEAD_TERMS;
+    bool head_first = false, head_last = false;
+    if constexpr (HEADS) {
+      head_first = tw.h != h_prev;
+      head_last = i + 1 == total || ta.h != tw.h;
+      h_prev = tw.h;
+    }
+    if ((SPARSE ? head_first : i % n_t == 0) && p.corr) {
       const float* cr = p.corr + qbh * p.Sk;
       corr[0] = key0 < p.Sk ? cr[key0] : 0.f;
       corr[1] = key1 < p.Sk ? cr[key1] : 0.f;
@@ -474,7 +489,7 @@ __global__ void __launch_bounds__(DkvTile<DP, Mma>::NTHR, DkvTile<DP, Mma>::MINB
       Mma::template grads<QT, NA>(dv, dk, s, dp, t.o, t.qk, LD, c0, lane);
     }
 
-    if (!SPARSE && i % n_t == n_t - 1) {
+    if (SPARSE ? head_last : i % n_t == n_t - 1) {
       // The head's last tile: dK += scale · colsum(dS)ᵀ · qm of this head.
       if (p.qm) {
         const float* qm = p.qm + qbh * p.D;

@@ -6,7 +6,8 @@
 // rotation of Q and K, or a dense Q), attend on the dequantized bf16
 // values, restore the V mean, and write the quantized residuals the STE
 // backward consumes. ROW or BLOCK scales, SYMMETRIC or ASYMMETRIC,
-// head_dim <= 256; pv_int8 and block-sparse walks are not ported yet.
+// head_dim <= 256, with or without a block-sparse map; pv_int8 is not
+// ported yet.
 //
 // The score contract, and what bounds the kernel under it. The kernel and
 // its plain version form each score as one double sum of products of bf16
@@ -107,7 +108,19 @@
 // tile): the sum of the first min(T, S) rows over T, T from the host
 // (`default_mean_rows`), the rows summed in double by 256/D row slices in a
 // fixed order; km and vm per KV head, qm per query head, km and qm of the
-// rotated rows.
+// rotated rows. With a block-sparse map the K/V window starts at a row the
+// host gives per (b, kv head), kv_row0: the first tile that the slice's
+// walk fills (the reference's fill flag 2), T = the map's block_k.
+//
+// Block-sparse (SPARSE, a template parameter: the dense instantiations
+// compile as without it): with a map, both passes walk the block's
+// compacted key row (common.cuh `SparseWalk`, clipped to the band),
+// counted once and run twice, its 64-key tiles (32 at D 256) from each map
+// tile's first key; keys past a map tile's end are hidden like the KV
+// tail, the bias is read only on tiles that are not FULL for the block,
+// and a block that straddles map tiles looks up each element's own tile.
+// The pre-pass kernels quantize every row, walked or not: the values of a
+// walked tile are the reference's, the rest are read by nothing.
 //
 // Rounding points held to the reference (quant_fused_attn.py:100-828):
 //   * x·H summed in double and rounded once to fp32 (V is never rotated);
@@ -185,6 +198,8 @@ struct FQParams {
   int q_group, k_group, v_group;  // BLOCK rows a scale, 0 = ROW
   float hval;
   int kvmode;  // how the K̃ and Ṽ rows are copied (`copy_rows`)
+  SparseMap sm;  // read only by the SPARSE instantiations: the map and fetch_kv
+  const int* kv_row0;  // (B, Hkv): the first row of each K/V mean window, or null (row 0)
 };
 
 constexpr int NTM = 256;  // means kernel threads
@@ -229,7 +244,7 @@ __device__ void tile_mean(const Tin* x, int S, int T, int D, bool rot, float hva
   __syncthreads();
 }
 
-template <typename Tin>
+template <typename Tin, bool WALK>
 __global__ void __launch_bounds__(NTM) fused_means_kernel(const FQParams p) {
   __shared__ double part[NTM];
   const bool rot = p.flags & F_HADAMARD;
@@ -243,11 +258,12 @@ __global__ void __launch_bounds__(NTM) fused_means_kernel(const FQParams p) {
   }
   if (!(p.flags & F_SMOOTH)) return;
   const long long kb = bh - nq;
-  const long long off = kb * p.Sk * p.D;
-  tile_mean(static_cast<const Tin*>(p.k) + off, p.Sk, p.Tkv, p.D, rot, p.hval, p.km + kb * p.D,
-            part);
-  tile_mean(static_cast<const Tin*>(p.v) + off, p.Sk, p.Tkv, p.D, false, p.hval, p.vm + kb * p.D,
-            part);
+  const int r0 = WALK ? p.kv_row0[kb] : 0;  // a walk's: the first filled tile
+  const long long off = (kb * p.Sk + r0) * p.D;
+  tile_mean(static_cast<const Tin*>(p.k) + off, p.Sk - r0, p.Tkv, p.D, rot, p.hval,
+            p.km + kb * p.D, part);
+  tile_mean(static_cast<const Tin*>(p.v) + off, p.Sk - r0, p.Tkv, p.D, false, p.hval,
+            p.vm + kb * p.D, part);
 }
 
 // One warp per row of K (rows [0, n)) or V (rows [n, 2n)): rotate K, subtract
@@ -701,7 +717,7 @@ __device__ __forceinline__ void stage_q_bf16(__nv_bfloat16* sQb, int8_t* sCode, 
   }
 }
 
-template <typename Tin, typename Tout, int DP>
+template <typename Tin, typename Tout, int DP, bool SPARSE>
 __global__ void __launch_bounds__(FCfg<DP>::NTH, 1) fused_qattn_tc_kernel(const FQParams p) {
   using L = FCfg<DP>;
   constexpr int NTH = L::NTH, NW = L::NW, BQ_ = L::BQ;
@@ -739,15 +755,35 @@ __global__ void __launch_bounds__(FCfg<DP>::NTH, 1) fused_qattn_tc_kernel(const 
   int k_lo, k_hi;
   visible_keys(q0, min(q0 + BQ_, p.Sq) - 1, p.Sk, p.left, p.right, &k_lo, &k_hi);
   const int t_lo = k_lo / BK;
-  const int n_t = k_hi >= k_lo ? k_hi / BK - t_lo + 1 : 0;
+  int n_t = k_hi >= k_lo ? k_hi / BK - t_lo + 1 : 0;
+  // SPARSE: the walk from its start, the position of the next tile to copy
+  // (w_is) and of the step's tile (w_at); both passes start again at
+  // w_start.
+  SparseWalk sw;
+  WalkPos w_start{0, -1, 0, 0}, w_is, w_at;
+  if constexpr (SPARSE) {
+    sw = sparse_walk(p.sm, true, b, h, 1, q0, min(q0 + BQ_, p.Sq) - 1, k_lo, k_hi, BK, p.Sk);
+    if (n_t > 0) {
+      w_start = walk_start(sw);
+      n_t = walk_count(sw, w_start);
+    }
+    w_is = w_at = w_start;
+  }
   // Steps [0, n_t) are pass 1 (QKᵀ and the row max, K̃ only), steps
   // [n_t, 2 n_t) pass 2 (P against the final max, P·V), over the same
   // tiles. Step i reads ring buffer i % 3; tile i + 2 is copied meanwhile.
   const int steps = 2 * n_t;
   auto k0_of = [&](int i) { return (t_lo + (i < n_t ? i : i - n_t)) * BK; };
-  auto issue = [&](int i) {
+  auto issue = [&](int i) {  // called once for each i, in order
     if (i < steps) {
-      const int buf = i % 3, k0 = k0_of(i);
+      int k0;
+      if constexpr (SPARSE) {
+        if (i == n_t) w_is = w_start;
+        k0 = walk_take(sw, w_is).first;
+      } else {
+        k0 = k0_of(i);
+      }
+      const int buf = i % 3;
       copy_rows<DP, NTH, BK>(sKR + buf * BK * L::LDR, kbf, k0, p.Sk, D, p.kvmode);
       if (i >= n_t) copy_rows<DP, NTH, BK>(sVR + buf * BK * L::LDR, vbf, k0, p.Sk, D, p.kvmode);
       if (smooth_q && tid < BK) copy_scale(sCC + buf * BK, ccrow, 1, k0, tid, p.Sk);
@@ -902,10 +938,14 @@ __global__ void __launch_bounds__(FCfg<DP>::NTH, 1) fused_qattn_tc_kernel(const 
   }
 
   // This thread's scores of keys k0 + 16 c + [0, 16) of step i's K tile:
-  // the exact double dot rounded once, + cc, + bias, index-masked to
-  // MASK_VALUE; element (jj, e) is row e < 2 ? row0 : row1, key
-  // k0 + 16 c + 8 jj + 2 tq + (e & 1). With `edge` (the tile crosses a mask
-  // edge or carries a bias) returns the bits 4 jj + e of the visible.
+  // the exact double dot rounded once, + cc, + bias tb, index-masked to
+  // MASK_VALUE (keys at or past kend hidden, and SPARSE, where the block
+  // straddles map tiles, each element's own tile); element (jj, e) is row
+  // e < 2 ? row0 : row1, key k0 + 16 c + 8 jj + 2 tq + (e & 1). With `edge`
+  // (the tile crosses a mask edge or carries a bias) returns the bits
+  // 4 jj + e of the visible.
+  int kend = 0;                // SPARSE: the step's key limit and bias (set in the loop)
+  const float* tb = nullptr;
   auto chunk = [&](int i, int k0, int c, bool edge, float (&s)[2][4]) -> unsigned {
     const double* cKd = sKd + (i & 1) * BK * L::LDK;
     const __nv_bfloat16* cKR = sKR + (i % 3) * BK * L::LDR;
@@ -955,8 +995,10 @@ __global__ void __launch_bounds__(FCfg<DP>::NTH, 1) fused_qattn_tc_kernel(const 
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int row = e < 2 ? row0 : row1, col = k0 + 16 * c + 8 * jj + 2 * tq + (e & 1);
-          if (key_visible(row, col, p.Sq, p.Sk, p.left, p.right)) {
-            if (bias) s[jj][e] = __fadd_rn(s[jj][e], bias[row * p.bsq + col * p.bsk]);
+          if (key_visible(row, col, p.Sq, SPARSE ? kend : p.Sk, p.left, p.right) &&
+              (!SPARSE || sw.fetch || walk_has(sw, 0, row, col))) {
+            const float* bb = SPARSE ? tb : bias;
+            if (bb) s[jj][e] = __fadd_rn(s[jj][e], bb[row * p.bsq + col * p.bsk]);
           } else {
             s[jj][e] = MASK_VALUE;
             vis &= ~(1u << (4 * jj + e));
@@ -998,16 +1040,29 @@ __global__ void __launch_bounds__(FCfg<DP>::NTH, 1) fused_qattn_tc_kernel(const 
       m[1] = quad_max(m[1]);
     }
 
+    // The step's first key; SPARSE: its key limit (keys at or past it are
+    // hidden) and its bias (none read on a FULL tile).
+    int k0;
+    if constexpr (SPARSE) {
+      if (i == n_t) w_at = w_start;
+      const WalkTile t = walk_take(sw, w_at);
+      k0 = t.first;
+      kend = t.end;
+      tb = t.full ? nullptr : bias;
+    } else {
+      k0 = k0_of(i);
+    }
     // Rows rw..rw+15 of the tile against keys k0..k0+63: none visible, all
     // visible (and all rows real), or an edge.
-    const int k0 = k0_of(i), r_lo = q0 + rw, r_hi = r_lo + 15;
-    const bool none = r_lo >= p.Sq || k0 >= p.Sk || (p.right >= 0 && k0 > r_hi + p.right) ||
+    const int r_lo = q0 + rw, r_hi = r_lo + 15;
+    const bool none = r_lo >= p.Sq || k0 >= (SPARSE ? kend : p.Sk) ||
+                      (p.right >= 0 && k0 > r_hi + p.right) ||
                       (p.left >= 0 && k0 + BK - 1 < r_lo - p.left);
     if (none) continue;
-    const bool all = k0 + BK <= p.Sk && r_hi < p.Sq &&
+    const bool all = k0 + BK <= (SPARSE ? kend : p.Sk) && r_hi < p.Sq &&
                      (p.right < 0 || k0 + BK - 1 <= r_lo + p.right) &&
-                     (p.left < 0 || k0 >= r_hi - p.left);
-    const bool edge = !all || bias;
+                     (p.left < 0 || k0 >= r_hi - p.left) && (!SPARSE || sw.fetch != nullptr);
+    const bool edge = !all || (SPARSE ? tb : bias);
     if (i < n_t) {
       // Pass 1: the exact row max over every visible key, QKᵀ alone.
 #pragma unroll
@@ -1078,15 +1133,22 @@ __global__ void __launch_bounds__(FCfg<DP>::NTH, 1) fused_qattn_tc_kernel(const 
   }
 }
 
-template <typename Tin, typename Tout, int DP>
-cudaError_t attend(const FQParams& p, cudaStream_t stream) {
+template <typename Tin, typename Tout, int DP, bool SPARSE>
+cudaError_t attend_walk(const FQParams& p, cudaStream_t stream) {
   constexpr int smem = FCfg<DP>::BYTES, bq = FCfg<DP>::BQ, nth = FCfg<DP>::NTH;
-  cudaError_t err = cudaFuncSetAttribute(fused_qattn_tc_kernel<Tin, Tout, DP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const auto kernel = fused_qattn_tc_kernel<Tin, Tout, DP, SPARSE>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Sq + bq - 1) / bq, p.Hq, p.B);
-  fused_qattn_tc_kernel<Tin, Tout, DP><<<grid, nth, smem, stream>>>(p);
+  kernel<<<grid, nth, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <typename Tin, typename Tout, int DP>
+cudaError_t attend(const FQParams& p, cudaStream_t stream) {
+  return p.sm.map ? attend_walk<Tin, Tout, DP, true>(p, stream)
+                  : attend_walk<Tin, Tout, DP, false>(p, stream);
 }
 
 bool pre_pass(const FQParams& p) {
@@ -1098,7 +1160,10 @@ cudaError_t launch(const FQParams& p, cudaStream_t stream) {
   cudaError_t err;
   constexpr int ne = DP <= 128 ? 4 : 8;  // a row's elements a lane
   if (p.flags & (F_SMOOTH | F_SMOOTH_Q)) {
-    fused_means_kernel<Tin><<<p.B * (p.Hq + p.Hkv), NTM, 0, stream>>>(p);
+    if (p.kv_row0)
+      fused_means_kernel<Tin, true><<<p.B * (p.Hq + p.Hkv), NTM, 0, stream>>>(p);
+    else
+      fused_means_kernel<Tin, false><<<p.B * (p.Hq + p.Hkv), NTM, 0, stream>>>(p);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   const long long kv_rows = 2LL * p.B * p.Hkv * p.Sk;
@@ -1162,8 +1227,13 @@ int copy_mode(const void* ptr, int D) {
 // ASYM (flag 16): int32 zero points kzp/vzp (B, Hkv, Sk), and qzp
 // (B, Hq, Sq) with qv. BLOCK (a group > 0) or ASYM: ys (rows, D) and st
 // (2, rows) float32 scratch, rows = B·Hq·Sq (0 for a dense Q) + 2·B·Hkv·Sk,
-// and qb (B, Hq, Sq, D) bfloat16 scratch for an integer Q. Returns the
-// cudaError_t of the launches.
+// and qb (B, Hq, Sq, D) bfloat16 scratch for an integer Q. map (null: no
+// walk): the block-sparse map (Bm, Hm, nq, nk) int32 of block_q x block_k
+// tiles and fetch, its compacted key-tile table fetch_kv (Bm, Hm, nq,
+// width), with the element strides of their batch and head (0 =
+// broadcast); kv_row0 (B, Hkv) int32 or null: the first row of each K/V
+// mean window (Tkv rows, zero past Sk). Returns the cudaError_t of the
+// launches.
 extern "C" int umfa_fused_qattn(const void* q, const void* k, const void* v, const void* bias,
                                 void* out, void* lse, void* qv, void* qs, void* kv, void* ks,
                                 void* vv, void* vs, void* qm, void* km, void* vm, void* cc,
@@ -1173,7 +1243,10 @@ extern "C" int umfa_fused_qattn(const void* q, const void* k, const void* v, con
                                 long long bsh, long long bsq, long long bsk, float scale, int left,
                                 int right, int flags, int qmax_q, int qmax_k, int qmax_v, int Tq,
                                 int Tkv, int q_group, int k_group, int v_group, int in_dtype,
-                                int out_dtype, void* stream) {
+                                int out_dtype, const void* map, const void* fetch, int block_q,
+                                int block_k, int nq, int nk, int width, long long msb,
+                                long long msh, long long fsb, long long fsh, const void* kv_row0,
+                                void* stream) {
   const bool int4 = flags & (F_Q_INT4 | F_K_INT4 | F_V_INT4);
   const bool asym = flags & F_ASYM, dense = flags & F_Q_DENSE;
   const bool pre = asym || q_group || k_group || v_group;
@@ -1184,6 +1257,9 @@ extern "C" int umfa_fused_qattn(const void* q, const void* k, const void* v, con
       !ks || !vv || !vs || !kb || !vb || (!qv != !qs) || q_group < 0 || k_group < 0 ||
       v_group < 0 || (asym && (!kzp || !vzp || (!qv != !qzp))) ||
       (pre && (!ys || !st || (!dense && !qb))))
+    return cudaErrorInvalidValue;
+  SparseMap sm;
+  if (!sparse_map(&sm, map, fetch, block_q, block_k, nq, nk, width, msb, msh, fsb, fsh))
     return cudaErrorInvalidValue;
   const FQParams p{q, k, v, static_cast<const float*>(bias), out, static_cast<float*>(lse),
                    static_cast<int8_t*>(qv), static_cast<float*>(qs), static_cast<int8_t*>(kv),
@@ -1197,7 +1273,8 @@ extern "C" int umfa_fused_qattn(const void* q, const void* k, const void* v, con
                    flags, qmax_q, qmax_k, qmax_v, Tq, Tkv, q_group, k_group, v_group,
                    // The rotation's entries: fp32(D^-1/2), as the host's hadamard_matrix.
                    (float)pow((double)D, -0.5),
-                   copy_mode(kb, D) < copy_mode(vb, D) ? copy_mode(kb, D) : copy_mode(vb, D)};
+                   copy_mode(kb, D) < copy_mode(vb, D) ? copy_mode(kb, D) : copy_mode(vb, D),
+                   sm, static_cast<const int*>(kv_row0)};
   cudaStream_t strm = static_cast<cudaStream_t>(stream);
   if (in_dtype == 0)
     return out_dtype == 0 ? launch_d<float, float>(p, strm)

@@ -7,7 +7,8 @@
 // per-tensor scales, the Q-mean correction row, bias, causal/window and
 // GQA, head dims up to 256 (D % 4 == 0; templates 64, 128, 256, a smaller
 // D zero-padded to the template width, where int8 zeros add nothing to
-// the dot). Integer P·V and block-sparse walks are not ported yet.
+// the dot), and its block-sparse walk (`block_map`/`fetch_ids`,
+// quant_attention.py:371-387). Integer P·V is not ported yet.
 //
 // What bounds it on this card: at the serving prefill (B8 Hq16 Hkv8, 4032
 // causal queries against the 4096-row INT8 cache, D 64) the work is
@@ -70,7 +71,15 @@
 //   bf16(bf16(v)·bf16(v_scale)), or, asymmetric, bf16(P·v_scale) and the
 //   integer V codes, less Σ P·v_scale·zv in fp32; accumulated in fp32;
 //   output fp32; a row with no visible key writes out = 0 and LSE -1e30;
-//   q head h reads kv head h / (Hq / Hkv).
+//   q head h reads kv head h / (Hq / Hkv);
+//   block-sparse (a map given, the SPARSE instantiations; the others
+//   compile as without it): key j is walked by query i iff the map tile
+//   (i / block_q, j / block_k) is not SKIP; unwalked keys are hidden like
+//   index-masked ones. Both passes walk the block's compacted key row
+//   (fetch_kv, clipped to the band; common.cuh `SparseWalk`), counted once
+//   and run twice, its 64-key tiles from each map tile's first key; the
+//   bias is read only on tiles that are not FULL for the block, and a
+//   block that straddles map tiles looks up each element's own tile.
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -103,6 +112,7 @@ struct QParams {
   int vec;  // D % 16 == 0 and q/k/v 16-byte aligned: 16-byte copies
   int q4, k4, v4;  // INT4 operands, D / 2 packed bytes a row
   float dz;  // the head dim of the zero-point term (before any padding)
+  SparseMap sm;  // read only by the SPARSE instantiations: the map and fetch_kv
 };
 
 // Tile geometry: 8 warps of 16 query rows each, BQ = 128 query rows a
@@ -199,7 +209,7 @@ __device__ __forceinline__ void unpack_tile(int8_t* dst, const int8_t* src, int 
 // registers they spill 24 and 64 bytes a thread, and ran 3.5 and 4.2 ms at
 // the training shape against 5.1 and 4.9 with one block) and one at D 128
 // (two spilled 184 and 328 bytes).
-template <int DP, int VAR>
+template <int DP, int VAR, bool SPARSE>
 __global__ void __launch_bounds__(Cfg<DP>::NTH, VAR ? (DP <= 64 ? 2 : 1) : Cfg<DP>::MINB)
     quant_attn_fwd_tc_kernel(const QParams p) {
   using L = Cfg<DP>;
@@ -246,15 +256,35 @@ __global__ void __launch_bounds__(Cfg<DP>::NTH, VAR ? (DP <= 64 ? 2 : 1) : Cfg<D
   int k_lo, k_hi;
   visible_keys(q0, min(q0 + BQ_, p.Sq) - 1, p.Sk, p.left, p.right, &k_lo, &k_hi);
   const int t_lo = k_lo / BK;
-  const int n_t = k_hi >= k_lo ? k_hi / BK - t_lo + 1 : 0;
+  int n_t = k_hi >= k_lo ? k_hi / BK - t_lo + 1 : 0;
+  // SPARSE: the walk from its start, the position of the next tile to copy
+  // (w_is) and of the step's tile (w_at); both passes start again at
+  // w_start.
+  SparseWalk sw;
+  WalkPos w_start{0, -1, 0, 0}, w_is, w_at;
+  if constexpr (SPARSE) {
+    sw = sparse_walk(p.sm, true, b, h, 1, q0, min(q0 + BQ_, p.Sq) - 1, k_lo, k_hi, BK, p.Sk);
+    if (n_t > 0) {
+      w_start = walk_start(sw);
+      n_t = walk_count(sw, w_start);
+    }
+    w_is = w_at = w_start;
+  }
   // Steps [0, n_t) are pass 1 (QKᵀ and the row max, K only), steps
   // [n_t, 2 n_t) pass 2 (P against the final max, P·V), over the same
   // tiles. Step i reads buffer i % 3; tile i + 2 is copied meanwhile.
   const int steps = 2 * n_t;
   auto k0_of = [&](int i) { return (t_lo + (i < n_t ? i : i - n_t)) * BK; };
-  auto issue = [&](int i) {
+  auto issue = [&](int i) {  // called once for each i, in order
     if (i < steps) {
-      const int buf = i % 3, k0 = k0_of(i);
+      int k0;
+      if constexpr (SPARSE) {
+        if (i == n_t) w_is = w_start;
+        k0 = walk_take(sw, w_is).first;
+      } else {
+        k0 = k0_of(i);
+      }
+      const int buf = i % 3;
       const bool with_v = i >= n_t;
       if constexpr (VAR == 0) {
         copy_tile<DP, BK, NTH>(sK + buf * BK * L::LD8, k, k0, p.Sk, p.D, p.vec);
@@ -341,12 +371,15 @@ __global__ void __launch_bounds__(Cfg<DP>::NTH, VAR ? (DP <= 64 ? 2 : 1) : Cfg<D
   uint32_t qf[QREG ? KS : 1][4];
 
   // This thread's scores of keys k0 + 16 c + [0, 16) of the K tile wK:
-  // s = fl(fl(dot · q_scale) · k_scale), + bias, index-masked to
-  // MASK_VALUE; element (jj, e) is row e < 2 ? row0 : row1, key
-  // k0 + 16 c + 8 jj + 2 tq + (e & 1). With `edge` (the tile crosses a
-  // mask edge or carries a bias) returns the bits 4 jj + e of the visible.
-  // The variants take the dot less the zero-point terms (in the
-  // reference's order) and add the corr row after the scales.
+  // s = fl(fl(dot · q_scale) · k_scale), + bias tb, index-masked to
+  // MASK_VALUE (keys at or past kend hidden, and SPARSE, where the block
+  // straddles map tiles, each element's own tile); element (jj, e) is row
+  // e < 2 ? row0 : row1, key k0 + 16 c + 8 jj + 2 tq + (e & 1). With `edge`
+  // (the tile crosses a mask edge or carries a bias) returns the bits
+  // 4 jj + e of the visible. The variants take the dot less the zero-point
+  // terms (in the reference's order) and add the corr row after the scales.
+  int kend = 0;                // SPARSE: the step's key limit and bias (set in the loop)
+  const float* tb = nullptr;
   auto chunk = [&](const int8_t* cK, const float* cKs, int k0, int c, bool edge,
                    float (&s)[2][4]) -> unsigned {
     const __nv_bfloat16* wK = reinterpret_cast<const __nv_bfloat16*>(cK);
@@ -401,8 +434,10 @@ __global__ void __launch_bounds__(Cfg<DP>::NTH, VAR ? (DP <= 64 ? 2 : 1) : Cfg<D
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int row = e < 2 ? row0 : row1, col = k0 + 16 * c + 8 * jj + 2 * tq + (e & 1);
-          if (key_visible(row, col, p.Sq, p.Sk, p.left, p.right)) {
-            if (bias) s[jj][e] = __fadd_rn(s[jj][e], bias[row * p.bsq + col * p.bsk]);
+          if (key_visible(row, col, p.Sq, SPARSE ? kend : p.Sk, p.left, p.right) &&
+              (!SPARSE || sw.fetch || walk_has(sw, 0, row, col))) {
+            const float* bb = SPARSE ? tb : bias;
+            if (bb) s[jj][e] = __fadd_rn(s[jj][e], bb[row * p.bsq + col * p.bsk]);
           } else {
             s[jj][e] = MASK_VALUE;
             vis &= ~(1u << (4 * jj + e));
@@ -440,16 +475,28 @@ __global__ void __launch_bounds__(Cfg<DP>::NTH, VAR ? (DP <= 64 ? 2 : 1) : Cfg<D
       m[1] = quad_max(m[1]);
     }
 
+    // The step's first key; SPARSE: its key limit (keys at or past it are
+    // hidden) and its bias (none read on a FULL tile).
+    int k0;
+    if constexpr (SPARSE) {
+      if (i == n_t) w_at = w_start;
+      const WalkTile t = walk_take(sw, w_at);
+      k0 = t.first;
+      kend = t.end;
+      tb = t.full ? nullptr : bias;
+    } else {
+      k0 = k0_of(i);
+    }
     // Rows rw..rw+15 of the tile against keys k0..k0+63: none visible, all
     // visible (and all rows real), or an edge.
-    const int k0 = k0_of(i), r_lo = q0 + rw, r_hi = r_lo + 15;
-    const bool none = k0 >= p.Sk || (p.right >= 0 && k0 > r_hi + p.right) ||
+    const int r_lo = q0 + rw, r_hi = r_lo + 15;
+    const bool none = k0 >= (SPARSE ? kend : p.Sk) || (p.right >= 0 && k0 > r_hi + p.right) ||
                       (p.left >= 0 && k0 + BK - 1 < r_lo - p.left);
     if (none) continue;
-    const bool all = k0 + BK <= p.Sk && r_hi < p.Sq &&
+    const bool all = k0 + BK <= (SPARSE ? kend : p.Sk) && r_hi < p.Sq &&
                      (p.right < 0 || k0 + BK - 1 <= r_lo + p.right) &&
-                     (p.left < 0 || k0 >= r_hi - p.left);
-    const bool edge = !all || bias;
+                     (p.left < 0 || k0 >= r_hi - p.left) && (!SPARSE || sw.fetch != nullptr);
+    const bool edge = !all || (SPARSE ? tb : bias);
     const int8_t* cK = sK + (i % 3) * BK * L::LD8;
     const float* cKs = sKs + (i % 3) * BK;
     if (i < n_t) {
@@ -544,23 +591,29 @@ __global__ void __launch_bounds__(Cfg<DP>::NTH, VAR ? (DP <= 64 ? 2 : 1) : Cfg<D
   }
 }
 
-template <int DP, int VAR>
+template <int DP, int VAR, bool SPARSE>
 cudaError_t launch_var(const QParams& p, cudaStream_t stream) {
   constexpr int smem = VAR ? Cfg<DP>::BYTES_VAR : Cfg<DP>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(quant_attn_fwd_tc_kernel<DP, VAR>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const auto kernel = quant_attn_fwd_tc_kernel<DP, VAR, SPARSE>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   constexpr int bq = Cfg<DP>::BQ, nth = Cfg<DP>::NTH;
   const dim3 grid((p.Sq + bq - 1) / bq, p.Hq, p.B);
-  quant_attn_fwd_tc_kernel<DP, VAR><<<grid, nth, smem, stream>>>(p);
+  kernel<<<grid, nth, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <int DP, bool SPARSE>
+cudaError_t launch_walk(const QParams& p, cudaStream_t stream) {
+  if (p.kz) return launch_var<DP, 2, SPARSE>(p, stream);
+  if (p.q4 || p.k4 || p.v4 || p.corr) return launch_var<DP, 1, SPARSE>(p, stream);
+  return launch_var<DP, 0, SPARSE>(p, stream);
 }
 
 template <int DP>
 cudaError_t launch(const QParams& p, cudaStream_t stream) {
-  if (p.kz) return launch_var<DP, 2>(p, stream);
-  if (p.q4 || p.k4 || p.v4 || p.corr) return launch_var<DP, 1>(p, stream);
-  return launch_var<DP, 0>(p, stream);
+  return p.sm.map ? launch_walk<DP, true>(p, stream) : launch_walk<DP, false>(p, stream);
 }
 
 bool takes(int D) { return D >= 4 && D <= 256 && D % 4 == 0; }
@@ -573,7 +626,11 @@ bool takes(int D) { return D >= 4 && D <= 256 && D % 4 == 0; }
 // (B, Hq, Sk) float32 or null. Asymmetric: qz, kz, vz zero points laid out
 // as the scales and qr (B, Hq, Sq), kr (B, Hkv, Sk) row sums, all float32
 // (or all null); dz the head dim of the zero-point term. out (B, Hq, Sq, D)
-// and lse (B, Hq, Sq) float32. Returns the cudaError_t of the launch.
+// and lse (B, Hq, Sq) float32. map (null: no walk): the block-sparse map
+// (Bm, Hm, nq, nk) int32 of block_q x block_k tiles and fetch, its
+// compacted key-tile table fetch_kv (Bm, Hm, nq, width), with the element
+// strides of their batch and head (0 = broadcast). Returns the
+// cudaError_t of the launch.
 extern "C" int umfa_quant_attn_fwd(const void* q, const void* k, const void* v, const void* qs,
                                    const void* ks, const void* vs, const void* bias,
                                    const void* corr, const void* qz, const void* qr,
@@ -581,10 +638,15 @@ extern "C" int umfa_quant_attn_fwd(const void* q, const void* k, const void* v, 
                                    void* lse, int B, int Hq, int Hkv, int Sq, int Sk, int D,
                                    int qs_rows, int ks_rows, int vs_rows, long long bsb,
                                    long long bsh, long long bsq, long long bsk, int left,
-                                   int right, int int4, int dz, void* stream) {
+                                   int right, int int4, int dz, const void* map,
+                                   const void* fetch, int block_q, int block_k, int nq, int nk,
+                                   int width, long long msb, long long msh, long long fsb,
+                                   long long fsh, void* stream) {
   const bool asym = qz || qr || kz || kr || vz;
+  SparseMap sm;
   if (!takes(D) || Hkv < 1 || Hq % Hkv != 0 || int4 < 0 || int4 > 7 || (int4 && D % 8) ||
-      (asym && !(qz && qr && kz && kr && vz)))
+      (asym && !(qz && qr && kz && kr && vz)) ||
+      !sparse_map(&sm, map, fetch, block_q, block_k, nq, nk, width, msb, msh, fsb, fsh))
     return cudaErrorInvalidValue;
   const int vec = D % 16 == 0 && ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                                    reinterpret_cast<uintptr_t>(v)) & 15) == 0;
@@ -606,7 +668,7 @@ extern "C" int umfa_quant_attn_fwd(const void* q, const void* k, const void* v, 
                   B, Hq, Hkv, Sq, Sk, D,
                   qs_rows, ks_rows, vs_rows,
                   bsb, bsh, bsq, bsk,
-                  left, right, vec, int4 & 1, (int4 >> 1) & 1, (int4 >> 2) & 1, (float)dz};
+                  left, right, vec, int4 & 1, (int4 >> 1) & 1, (int4 >> 2) & 1, (float)dz, sm};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D <= 64) return launch<64>(p, st);
   if (D <= 128) return launch<128>(p, st);

@@ -2,8 +2,10 @@
 //
 // Replaces umfa_tpu/ops/quant_bwd.py:101 `_q_dq_kernel` (`quant_bwd_dq`)
 // and quant_bwd.py:339 `_q_dkv_kernel` (`quant_bwd_dkv`), host
-// `quantized_attention_backward` (quant_bwd.py:589), without their
-// block-sparse walks. The host wrapper (ops/quant_bwd.py) computes
+// `quantized_attention_backward` (quant_bwd.py:589), with their
+// block-sparse walks (quant_bwd.py:146-200, :396-445: the SPARSE
+// instantiations of the bodies, a map given; the others compile as without
+// it). The host wrapper (ops/quant_bwd.py) computes
 // δ = rowsum(dO∘O) − dlse in fp32, gives rows with no visible key LSE
 // +1e30 (their gradients are exactly 0), folds the softmax scale into Q's
 // scales and multiplies the Q-mean score row by it, as the reference does
@@ -183,6 +185,7 @@ struct QuantLoad {
   using G = DkvTile<DP>;
   using Tile = QTile<DP>;
   static constexpr int NRAW = 2;
+  static constexpr bool HEAD_TERMS = true;  // the corr row and the Q-mean term
   // Staging buffer: Q codes, dO (up to fp32), LSE, δ, Q's row scales.
   static constexpr int RAW_Q = 0;
   static constexpr int RAW_O = G::QT * DP;
@@ -324,40 +327,52 @@ struct QuantDqLoad {
   }
 };
 
-template <typename Tdo, typename Tout, int DP>
+template <typename Tdo, typename Tout, int DP, bool SPARSE>
 cudaError_t launch(BwdParams p, bool dkv, cudaStream_t stream) {
   p.wide = p.D % 8 == 0 && aligned({p.q, p.k, p.v, p.dout, p.vm}, 16);
   if (dkv) {
     const long long qw = p.int4 & 1 ? p.D / 2 : p.D;
-    // Query tiles by cp.async when every tile's rows start 16-byte aligned.
+    // Query tiles by cp.async when every tile's rows start 16-byte aligned
+    // (a walk's tiles start at multiples of 16 rows when its map tiles do).
     const int vec = aligned({p.q, p.dout, p.lse, p.delta, p.qs}, 16) && p.Sq % 4 == 0 &&
-                    p.Sq * qw % 16 == 0 && p.Sq * (long long)p.D * (long long)sizeof(Tdo) % 16 == 0;
-    return launch_dkv_tc<QuantLoad<Tdo, DP>, Bf16Mma, Tout, DP>(p, vec, stream);
+                    p.Sq * qw % 16 == 0 &&
+                    p.Sq * (long long)p.D * (long long)sizeof(Tdo) % 16 == 0 &&
+                    (!SPARSE || p.sm.bq % 16 == 0);
+    return launch_dkv_tc<QuantLoad<Tdo, DP>, Bf16Mma, Tout, DP, false, SPARSE>(p, vec, stream);
   }
   const long long kw = p.int4 & 2 ? p.D / 2 : p.D, vw = p.int4 & 4 ? p.D / 2 : p.D;
   // Key tiles by cp.async when every tile's rows start 16-byte aligned.
   const int vec = aligned({p.k, p.v, p.ks, p.vs, p.corr}, 16) && p.Sk % 4 == 0 &&
-                  p.Sk * kw % 16 == 0 && p.Sk * vw % 16 == 0;
-  return launch_dq_tc<QuantDqLoad<Tdo, DP>, Bf16Mma, Tout, DP>(p, vec, stream);
+                  p.Sk * kw % 16 == 0 && p.Sk * vw % 16 == 0 && (!SPARSE || p.sm.bk % 16 == 0);
+  return launch_dq_tc<QuantDqLoad<Tdo, DP>, Bf16Mma, Tout, DP, false, SPARSE>(p, vec, stream);
+}
+
+template <typename Tdo, typename Tout, bool SPARSE>
+cudaError_t launch_d(const BwdParams& p, bool dkv, cudaStream_t stream) {
+  if (p.D <= 64) return launch<Tdo, Tout, 64, SPARSE>(p, dkv, stream);
+  if (p.D <= 128) return launch<Tdo, Tout, 128, SPARSE>(p, dkv, stream);
+  return launch<Tdo, Tout, 256, SPARSE>(p, dkv, stream);
 }
 
 template <typename Tdo, typename Tout>
-cudaError_t launch_d(const BwdParams& p, bool dkv, cudaStream_t stream) {
-  if (p.D <= 64) return launch<Tdo, Tout, 64>(p, dkv, stream);
-  if (p.D <= 128) return launch<Tdo, Tout, 128>(p, dkv, stream);
-  return launch<Tdo, Tout, 256>(p, dkv, stream);
+cudaError_t launch_walk(const BwdParams& p, bool dkv, cudaStream_t stream) {
+  return p.sm.map ? launch_d<Tdo, Tout, true>(p, dkv, stream)
+                  : launch_d<Tdo, Tout, false>(p, dkv, stream);
 }
 
-int dispatch(const BwdParams& p, bool dkv, int do_dtype, int out_dtype, void* stream) {
+int dispatch(BwdParams p, bool dkv, int do_dtype, int out_dtype, const void* map,
+             const void* fetch, int bq, int bk, int nq, int nk, int width, long long msb,
+             long long msh, long long fsb, long long fsh, void* stream) {
   if (p.D < 1 || p.D > 256 || p.Hkv < 1 || p.Hq % p.Hkv != 0 || (p.int4 && p.D % 2) ||
-      do_dtype < 0 || do_dtype > 1 || out_dtype < 0 || out_dtype > 1)
+      do_dtype < 0 || do_dtype > 1 || out_dtype < 0 || out_dtype > 1 ||
+      !sparse_map(&p.sm, map, fetch, bq, bk, nq, nk, width, msb, msh, fsb, fsh))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (do_dtype == 0)
-    return out_dtype == 0 ? launch_d<float, float>(p, dkv, st)
-                          : launch_d<float, __nv_bfloat16>(p, dkv, st);
-  return out_dtype == 0 ? launch_d<__nv_bfloat16, float>(p, dkv, st)
-                        : launch_d<__nv_bfloat16, __nv_bfloat16>(p, dkv, st);
+    return out_dtype == 0 ? launch_walk<float, float>(p, dkv, st)
+                          : launch_walk<float, __nv_bfloat16>(p, dkv, st);
+  return out_dtype == 0 ? launch_walk<__nv_bfloat16, float>(p, dkv, st)
+                        : launch_walk<__nv_bfloat16, __nv_bfloat16>(p, dkv, st);
 }
 
 }  // namespace
@@ -369,15 +384,19 @@ int dispatch(const BwdParams& p, bool dkv, int do_dtype, int out_dtype, void* st
 // qm (B, Hq, D), vm (B, Hkv, D), corr (B, Hq, Sk) float32 or null; bias
 // float32 with element strides (or null). umfa_quant_bwd_dq writes
 // out0 = dQ (B, Hq, Sq, D); umfa_quant_bwd_dkv writes out0 = dK and
-// out1 = dV (B, Hkv, Sk, D); both in out_dtype. Each returns the cudaError_t
-// of its launch.
+// out1 = dV (B, Hkv, Sk, D); both in out_dtype. map (null: no walk): the
+// block-sparse map (Bm, Hm, nq, nk) int32 of bq x bk tiles and fetch, its
+// compacted table (fetch_kv for dQ, fetch_q for dK/dV; (Bm, Hm, nq | nk,
+// width)), with the element strides of their batch and head (0 =
+// broadcast). Each returns the cudaError_t of its launch.
 #define UMFA_QBWD_ARGS                                                                          \
   const void *q, const void *k, const void *v, const void *qs, const void *ks, const void *vs, \
       const void *dout, const void *lse, const void *delta, const void *qm, const void *vm,    \
       const void *corr, const void *bias, void *out0, void *out1, int B, int Hq, int Hkv,      \
       int Sq, int Sk, int D, int qs_rows, int ks_rows, int vs_rows, long long bsb,              \
       long long bsh, long long bsq, long long bsk, float scale, int left, int right, int int4, \
-      int do_dtype, int out_dtype, void *stream
+      int do_dtype, int out_dtype, const void *map, const void *fetch, int bq, int bk, int nq,   \
+      int nk, int width, long long msb, long long msh, long long fsb, long long fsh, void *stream
 #define UMFA_QBWD_PARAMS                                                                     \
   BwdParams {                                                                                \
     q, k, v, static_cast<const float*>(qs), static_cast<const float*>(ks),                   \
@@ -389,11 +408,13 @@ int dispatch(const BwdParams& p, bool dkv, int do_dtype, int out_dtype, void* st
   }
 
 extern "C" int umfa_quant_bwd_dq(UMFA_QBWD_ARGS) {
-  return dispatch(UMFA_QBWD_PARAMS, false, do_dtype, out_dtype, stream);
+  return dispatch(UMFA_QBWD_PARAMS, false, do_dtype, out_dtype, map, fetch, bq, bk, nq, nk, width,
+                  msb, msh, fsb, fsh, stream);
 }
 
 extern "C" int umfa_quant_bwd_dkv(UMFA_QBWD_ARGS) {
-  return dispatch(UMFA_QBWD_PARAMS, true, do_dtype, out_dtype, stream);
+  return dispatch(UMFA_QBWD_PARAMS, true, do_dtype, out_dtype, map, fetch, bq, bk, nq, nk, width,
+                  msb, msh, fsb, fsh, stream);
 }
 
 // Dynamic shared memory of the dQ (dkv = 0) or dK/dV (dkv = 1) kernel for

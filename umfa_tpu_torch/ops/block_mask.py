@@ -8,8 +8,10 @@ the mask attends, -1e30 elsewhere; broadcast dimensions kept at size 1).
 The compacted tables list, per query tile, its walked key tiles in order
 (`fetch_kv`) and, per key tile, its walked query tiles (`fetch_q`); the
 kernels walk them. `hold_kv`/`fill_kv` are the reference's cache-fill
-schedule for its fused quantized kernel; they are built here as there,
-and no kernel of the port reads them yet.
+schedule for its fused quantized kernel, built here as there; of them the
+port reads only where each slice's first fill lands (`kv_mean_tile`, found
+in the same pass): the reference estimates the K/V smoothing means over
+that tile's rows, so the single-launch quantized route does too.
 
 The tiling (`block_q`, `block_k`) is part of the result, not only of the
 speed: a row whose walked keys all carry the -1e30 bias averages V over
@@ -58,6 +60,7 @@ class BlockMask:
     fetch_q: Optional[torch.Tensor] = None    # (Bm, Hm, nk, max visible q) int32
     hold_kv: Optional[torch.Tensor] = None    # (Bm, Hm, nq, max visible kv) int32
     fill_kv: Optional[torch.Tensor] = None    # (Bm, Hm, nq, max visible kv) int32
+    kv_mean_tile: Optional[torch.Tensor] = None  # (Bm, Hm) int32: first filled key tile, or -1
 
     @property
     def sparsity(self) -> float:
@@ -74,7 +77,8 @@ class BlockMask:
 
     def walk(self) -> Walk:
         """The map and tables as the attention ops take them."""
-        return Walk(self.block_map, self.fetch_kv, self.fetch_q, self.block_q, self.block_k)
+        return Walk(self.block_map, self.fetch_kv, self.fetch_q, self.block_q, self.block_k,
+                    self.hold_kv, self.fill_kv, self.kv_mean_tile)
 
 
 # The reference's per-mask tile choice (block_mask.py:84-95): candidates
@@ -139,25 +143,27 @@ def _compact_ids(m):
 def _fill_schedule(fetch):
     """The reference's cache-fill schedule of a compacted table: at each
     step the tile the K/V buffer holds, and 2 / 1 at a slice's first / a
-    tile's first visit (block_mask.py:246-274)."""
+    tile's first visit (block_mask.py:246-274); and per slice the tile of
+    its first fill (flag 2), -1 where it fills none."""
     bm, hm, nq, w = fetch.shape
     hold = np.zeros_like(fetch)
     fill = np.zeros_like(fetch)
+    first = np.full((bm, hm), -1, np.int32)
     for b in range(bm):
         for h in range(hm):
             seen = set()
             cur = 0
-            any_fill = False
             for qi in range(nq):
                 for s in range(w):
                     t = int(fetch[b, h, qi, s])
                     if t >= 0 and t not in seen:
                         seen.add(t)
                         cur = t
-                        fill[b, h, qi, s] = 1 if any_fill else 2
-                        any_fill = True
+                        fill[b, h, qi, s] = 1 if first[b, h] >= 0 else 2
+                        if first[b, h] < 0:
+                            first[b, h] = t
                     hold[b, h, qi, s] = cur
-    return hold, fill
+    return hold, fill, first
 
 
 def make_block_mask(
@@ -216,7 +222,7 @@ def make_block_mask(
         bias = torch.zeros((bm, hm, sq, sk), dtype=torch.float32, device=device)
         bias.masked_fill_(~bool_mask.to(device), DEFAULT_MASK_VALUE)
     fkv = _compact_ids(m)
-    hold, fill = _fill_schedule(fkv)
+    hold, fill, first = _fill_schedule(fkv)
 
     def table(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
@@ -225,7 +231,7 @@ def make_block_mask(
         block_map=table(m), bias=bias, block_q=block_q, block_k=block_k,
         seq_q=seq_q, seq_k=seq_k, fetch_kv=table(fkv),
         fetch_q=table(_compact_ids(np.swapaxes(m, 2, 3))),
-        hold_kv=table(hold), fill_kv=table(fill),
+        hold_kv=table(hold), fill_kv=table(fill), kv_mean_tile=table(first),
     )
 
 

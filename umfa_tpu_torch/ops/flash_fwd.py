@@ -96,13 +96,19 @@ class Walk(NamedTuple):
     ops/block_mask.py): tile (i, j) of block_q query rows and block_k keys is
     walked iff block_map[.., i, j] != SKIP. fetch_kv (Bm, Hm, nq, w) lists
     each query tile's walked key tiles in order, fetch_q (Bm, Hm, nk, w')
-    each key tile's walked query tiles; -1 and below pad a row."""
+    each key tile's walked query tiles; -1 and below pad a row. hold_kv and
+    fill_kv are the reference's fill schedule, kv_mean_tile (Bm, Hm) the key
+    tile of each slice's first fill (-1: none), which the single-launch
+    quantized route reads (ops/quant_fused_attn.py)."""
 
     block_map: torch.Tensor
     fetch_kv: Optional[torch.Tensor]
     fetch_q: Optional[torch.Tensor]
     block_q: int
     block_k: int
+    hold_kv: Optional[torch.Tensor] = None
+    fill_kv: Optional[torch.Tensor] = None
+    kv_mean_tile: Optional[torch.Tensor] = None
 
 
 def make_walk(block_map, fetch_kv, fetch_q, block_q, block_k) -> Optional[Walk]:

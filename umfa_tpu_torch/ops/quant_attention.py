@@ -20,13 +20,15 @@ and the V codes, less Σ P · v_scale · zv; FP32 output. The kernel finds m
 in a first pass, so it rounds P where this plain version does (the
 reference's one-pass kernel rounds relative to a running max; where it
 walks a single KV tile, as in the parity tests, that is the same point).
-Masking semantics are those of ops/flash_fwd.py.
+Masking semantics are those of ops/flash_fwd.py, the block-sparse walk
+(`block_map` with its tiles block_q, block_k; the kernel walks the
+compacted table `fetch_ids`) included.
 
 Supported: INT8 or INT4 per operand, symmetric or asymmetric (one
 strategy for all three), per-row (ROW/BLOCK) or per-tensor scales,
-`score_corr`, bias, causal/window, GQA. Not ported yet (raise
-NotImplementedError, ROADMAP, Queue 2: row 5's unported variants):
-`pv_int8`, `block_map`/`fetch_ids`.
+`score_corr`, bias, causal/window, GQA, block-sparse maps. Not ported yet
+(raises NotImplementedError, ROADMAP, Queue 2: row 5's unported
+variants): `pv_int8`.
 
 `quantized_flash_attention` is the differentiable STE route (port of
 quant_attention.py:597-1095): runtime quantization and attention in one
@@ -34,7 +36,11 @@ launch (`ops/quant_fused_attn.py`) where the reference's rules allow it,
 else the two-pass route (`_quantize_operands`, then the kernel above, then
 the V-mean restore); the backward runs on the quantized residuals
 (`ops/quant_bwd.py`), or, for a dense Q or ASYMMETRIC residuals, on the
-dequantized operands through the dense backward (`ops/flash_bwd.py`). The reference's window auto-tiling
+dequantized operands through the dense backward (`ops/flash_bwd.py`). A
+BlockMask (`block_mask=`) gives the bias and the walk to every route, its
+tiles pinning the reference's (the fused route's means windows and BLOCK
+groups; quant_attention.py:1057-1075); the bias gradient is not walked,
+as the reference's is not. The reference's window auto-tiling
 (quant_attention.py:1037-1056) is TPU tile scheduling and is left out.
 """
 
@@ -49,14 +55,21 @@ from torch.autograd.function import once_differentiable
 
 from umfa_tpu_torch import _kernels
 from umfa_tpu_torch.engine.config import Precision, QuantizationConfig, QuantMode, QuantStrategy
-from umfa_tpu_torch.ops.flash_bwd import flash_attention_backward, flash_attention_bias_grad
+from umfa_tpu_torch.ops.flash_bwd import _backward as flash_backward
+from umfa_tpu_torch.ops.flash_bwd import flash_attention_bias_grad
 from umfa_tpu_torch.ops.flash_fwd import (
     DEFAULT_MASK_VALUE,
+    WALK_ARGTYPES,
+    Walk,
+    _check_walk,
     bias_strides,
     broadcast_bias,
     check_no_grad,
     fold_mask,
+    make_walk,
     visible_mask,
+    walk_args,
+    walked_keys,
 )
 from umfa_tpu_torch.ops.hadamard import hadamard_rotate
 from umfa_tpu_torch.ops.quant import (
@@ -66,19 +79,16 @@ from umfa_tpu_torch.ops.quant import (
     quantize,
     unpack_int4,
 )
-from umfa_tpu_torch.ops.quant_bwd import quantized_attention_backward
+from umfa_tpu_torch.ops.quant_bwd import _backward as quantized_backward
 from umfa_tpu_torch.ops.quant_fused import quantize_rows_fused
-from umfa_tpu_torch.ops.quant_fused_attn import (
-    fused_path_supported,
-    fused_quantize_attend,
-    require_ported,
-)
+from umfa_tpu_torch.ops.quant_fused_attn import _fused, fused_path_supported, require_ported
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ROW5 = "(ROADMAP, Queue 2: row 5's unported variants)"
 # q k v qs ks vs bias corr qz qr kz kr vz out lse | B Hq Hkv Sq Sk D | qs_rows
-# ks_rows vs_rows | bsb bsh bsq bsk | left right int4 dz | stream
-_ARGTYPES = (*(_P,) * 15, *(_I,) * 6, _I, _I, _I, _L, _L, _L, _L, _I, _I, _I, _I, _P)
+# ks_rows vs_rows | bsb bsh bsq bsk | left right int4 dz | the walk | stream
+_ARGTYPES = (*(_P,) * 15, *(_I,) * 6, _I, _I, _I, _L, _L, _L, _L, _I, _I, _I, _I,
+             *WALK_ARGTYPES, _P)
 
 
 class _Prepared(NamedTuple):
@@ -96,6 +106,7 @@ class _Prepared(NamedTuple):
     left: int
     right: int
     out_dtype: torch.dtype
+    walk: Optional[Walk]
 
 
 def _scales(t: torch.Tensor, b: int, h: int, s: int, name: str) -> torch.Tensor:
@@ -104,12 +115,10 @@ def _scales(t: torch.Tensor, b: int, h: int, s: int, name: str) -> torch.Tensor:
     return t.float()
 
 
-def _prepare(qt_q, qt_k, qt_v, bias, score_corr, block_map, fetch_ids,
+def _prepare(qt_q, qt_k, qt_v, bias, score_corr, walk: Optional[Walk],
              causal, window, scale, out_dtype, pv_int8) -> _Prepared:
     if pv_int8:
         raise NotImplementedError(f"pv_int8 (integer P·V) is not ported yet {_ROW5}")
-    if block_map is not None or fetch_ids is not None:
-        raise NotImplementedError(f"block-sparse block_map/fetch_ids are not ported yet {_ROW5}")
     asym = qt_q.strategy == QuantStrategy.ASYMMETRIC
     for qt in (qt_q, qt_k, qt_v):
         if not qt.precision.is_integer:
@@ -158,8 +167,10 @@ def _prepare(qt_q, qt_k, qt_v, bias, score_corr, block_map, fetch_ids,
             bias = bias[None]
         bias = broadcast_bias(bias, b, hq, sq, sk)
     left, right = fold_mask(causal, window)
+    if walk is not None:
+        _check_walk(walk, b, hq, sq, sk)
     return _Prepared(q, k, v, int4, d, q_scales, k_scales, v_scales, zps, corr, bias, left,
-                     right, out_dtype)
+                     right, out_dtype, walk)
 
 
 def quantized_attention_forward(
@@ -176,15 +187,29 @@ def quantized_attention_forward(
     scale: Optional[float] = None,
     out_dtype: torch.dtype = torch.float32,
     pv_int8: bool = False,
+    block_q: Optional[int] = None,
+    block_k: Optional[int] = None,
 ):
-    """Quantized attention on pre-quantized operands. Returns
+    """Quantized attention on pre-quantized operands. block_map
+    (Bm, Hm, ceil(Sq / block_q), ceil(Sk / block_k)) and fetch_ids, its
+    compacted key-tile table (a BlockMask's fetch_kv, which the kernel
+    walks), restrict each row to the keys of its walked tiles. Returns
     (out (B, Hq, Sq, D) in out_dtype, lse (B, Hq, Sq) float32)."""
+    return _quant_forward(qt_q, qt_k, qt_v, bias, score_corr,
+                          make_walk(block_map, fetch_ids, None, block_q, block_k),
+                          causal=causal, window=window, scale=scale, out_dtype=out_dtype,
+                          pv_int8=pv_int8)
+
+
+def _quant_forward(qt_q, qt_k, qt_v, bias, score_corr, walk: Optional[Walk], *, causal,
+                   window, scale, out_dtype, pv_int8=False):
+    """`quantized_attention_forward` with its block-sparse arguments as a Walk."""
     check_no_grad("quantized_attention_forward", qt_q.values, qt_q.scales,
                   qt_k.values, qt_k.scales, qt_v.values, qt_v.scales, bias,
                   hint="call quantized_flash_attention for the STE gradients of "
                        "quantized training")
-    p = _prepare(qt_q, qt_k, qt_v, bias, score_corr, block_map, fetch_ids,
-                 causal, window, scale, out_dtype, pv_int8)
+    p = _prepare(qt_q, qt_k, qt_v, bias, score_corr, walk, causal, window, scale, out_dtype,
+                 pv_int8)
     if p.q.device.type == "cpu":
         out, lse = _plain(p)
     else:
@@ -195,10 +220,12 @@ def quantized_attention_forward(
 def quantized_attention_forward_plain(
     qt_q, qt_k, qt_v, bias=None, score_corr=None, block_map=None, fetch_ids=None,
     *, causal=False, window=None, scale=None, out_dtype=torch.float32, pv_int8=False,
+    block_q=None, block_k=None,
 ):
     """The kernel's arithmetic in plain PyTorch, on any device. Same
     arguments and results as `quantized_attention_forward`."""
-    p = _prepare(qt_q, qt_k, qt_v, bias, score_corr, block_map, fetch_ids,
+    p = _prepare(qt_q, qt_k, qt_v, bias, score_corr,
+                 make_walk(block_map, fetch_ids, None, block_q, block_k),
                  causal, window, scale, out_dtype, pv_int8)
     out, lse = _plain(p)
     return out.to(p.out_dtype), lse
@@ -233,6 +260,8 @@ def _plain(p: _Prepared):
     if p.bias is not None:
         s += p.bias
     hidden = ~visible_mask(sq, sk, p.left, p.right, s.device)
+    if p.walk is not None:
+        hidden = hidden | ~walked_keys(p.walk, sq, sk)
     s.masked_fill_(hidden, DEFAULT_MASK_VALUE)
     m = s.amax(dim=-1, keepdim=True).clamp_min(DEFAULT_MASK_VALUE)
     s.sub_(m).exp_().masked_fill_(hidden, 0.0)
@@ -279,6 +308,7 @@ def _launch(p: _Prepared):
     d = p.d
     if d > 256:
         raise ValueError(f"quant_attn_fwd kernel takes head_dim <= 256, got {d}")
+    walk = walk_args(p.walk, "fetch_kv", dev)
     q, k, v = p.q, p.k, p.v
     int4 = p.int4
     dk = d  # the head dim the kernel sees
@@ -317,7 +347,7 @@ def _launch(p: _Prepared):
             int(p.q_scales.shape[2] > 1), int(p.k_scales.shape[2] > 1),
             int(p.v_scales.shape[2] > 1),
             bsb, bsh, bsq, bsk, p.left, p.right,
-            int(int4[0]) | 2 * int(int4[1]) | 4 * int(int4[2]), d,
+            int(int4[0]) | 2 * int(int4[1]) | 4 * int(int4[2]), d, *walk,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _kernels.check("quant_attn_fwd", err)
@@ -389,14 +419,20 @@ def _quantize_operands(q, k, v, config: QuantizationConfig):
 
 
 def _try_fused_single_launch(q, k, v, bias, config, causal, window, scale, out_dtype,
-                             emit_residuals: bool):
+                             emit_residuals: bool, walk: Optional[Walk] = None,
+                             bias_grad: bool = False):
     """The single-launch kernel where the reference's rules allow it
     (`fused_path_supported`); None sends the call to the two-pass route."""
+    tables = {}
+    if walk is not None:
+        tables = dict(block_map=walk.block_map, fetch_kv=walk.fetch_kv, hold_kv=walk.hold_kv,
+                      fill_kv=walk.fill_kv)
     if not fused_path_supported(config, k.shape[2], k.shape[3], causal=causal, window=window,
-                                seq_q=q.shape[2]):
+                                seq_q=q.shape[2], num_heads=q.shape[1], num_kv_heads=k.shape[1],
+                                bias_grad=bias_grad, **tables):
         return None
-    return fused_quantize_attend(
-        q, k, v, bias, causal=causal, window=window, scale=scale, smooth=config.smooth,
+    return _fused(
+        q, k, v, bias, walk, causal=causal, window=window, scale=scale, smooth=config.smooth,
         smooth_q=config.effective_smooth_q(), hadamard=config.hadamard,
         emit_residuals=emit_residuals, q_precision=config.q_precision,
         k_precision=config.k_precision, v_precision=config.v_precision,
@@ -414,14 +450,14 @@ def _require_integer_q(config) -> None:
             "(see fused_path_supported). Use an integer q_precision here.")
 
 
-def _two_pass(q, k, v, bias, config, causal, window, scale, out_dtype):
+def _two_pass(q, k, v, bias, config, causal, window, scale, out_dtype,
+              walk: Optional[Walk] = None):
     """Quantize, attend on the quantized operands, restore the V mean
     (quant_attention.py:845-880)."""
     _require_integer_q(config)
     qt_q, qt_k, qt_v, qm, vm, corr = _quantize_operands(q, k, v, config)
-    out, lse = quantized_attention_forward(qt_q, qt_k, qt_v, bias, corr, causal=causal,
-                                           window=window, scale=scale,
-                                           out_dtype=out_dtype or q.dtype)
+    out, lse = _quant_forward(qt_q, qt_k, qt_v, bias, corr, walk, causal=causal,
+                              window=window, scale=scale, out_dtype=out_dtype or q.dtype)
     if vm is not None:
         # out = P·v' + vm (softmax rows sum to 1), except rows with no
         # visible key, which keep their exact 0.
@@ -431,13 +467,14 @@ def _two_pass(q, k, v, bias, config, causal, window, scale, out_dtype):
     return out, lse, (qt_q, qt_k, qt_v, qm, vm)
 
 
-def _forward(q, k, v, bias, config, causal, window, scale, out_dtype, emit_residuals):
+def _forward(q, k, v, bias, config, causal, window, scale, out_dtype, emit_residuals,
+             walk: Optional[Walk] = None, bias_grad: bool = False):
     fused = _try_fused_single_launch(q, k, v, bias, config, causal, window, scale, out_dtype,
-                                     emit_residuals)
+                                     emit_residuals, walk, bias_grad)
     if fused is not None:
         out, lse, *res = fused
         return out, lse, tuple(res)
-    return _two_pass(q, k, v, bias, config, causal, window, scale, out_dtype)
+    return _two_pass(q, k, v, bias, config, causal, window, scale, out_dtype, walk)
 
 
 def _dequantized(qt_q, qt_k, qt_v, qm, vm):
@@ -456,17 +493,19 @@ class _QFlash(torch.autograd.Function):
     """(q, k, v, bias) → (out, lse) with the STE backward. Saves only the
     residuals: int8/int4 values with their scales, qm, vm, bias, out and
     lse, plus the raw Q for a dense Q; never the raw q, k and v (the
-    training-memory point of the reference, quant_attention.py:875-876)."""
+    training-memory point of the reference, quant_attention.py:875-876).
+    A block-sparse `walk` reaches every backward route."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, config, causal, window, scale, out_dtype, bias_grad):
-        out, lse, res = _forward(q, k, v, bias, config, causal, window, scale, out_dtype, True)
+    def forward(ctx, q, k, v, bias, config, causal, window, scale, out_dtype, bias_grad, walk):
+        out, lse, res = _forward(q, k, v, bias, config, causal, window, scale, out_dtype, True,
+                                 walk, bias_grad)
         qt_q, qt_k, qt_v, qm, vm = res
         dense_q = q if qt_q is None else None
         ctx.save_for_backward(dense_q, bias, out, lse)
         ctx.res = (qt_q, qt_k, qt_v, qm, vm)
         ctx.attn = dict(causal=causal, window=window, scale=scale)
-        ctx.config, ctx.bias_grad = config, bias_grad
+        ctx.config, ctx.bias_grad, ctx.walk = config, bias_grad, walk
         ctx.in_dtypes = (q.dtype, k.dtype, v.dtype)
         ctx.set_materialize_grads(False)
         return out, lse
@@ -477,7 +516,7 @@ class _QFlash(torch.autograd.Function):
         dense_q, bias, out, lse = ctx.saved_tensors
         qt_q, qt_k, qt_v, qm, vm = ctx.res
         if g_out is None and g_lse is None:
-            return (None,) * 10
+            return (None,) * 11
         if g_out is None:
             g_out = torch.zeros_like(out)
         f32 = torch.float32
@@ -491,21 +530,20 @@ class _QFlash(torch.autograd.Function):
             v_dq = dequantize(qt_v, f32)
             if vm is not None:
                 v_dq = v_dq + vm
-            dq, dk, dv = flash_attention_backward(q_dq, k_dq, v_dq, out.float(), lse,
-                                                  g_out.float(), bias, g_lse, **ctx.attn)
+            dq, dk, dv = flash_backward(q_dq, k_dq, v_dq, out.float(), lse, g_out.float(), bias,
+                                        g_lse, grad_dtype=None, walk=ctx.walk, **ctx.attn)
         elif qt_q.strategy == QuantStrategy.ASYMMETRIC:
             # Zero-point corrections in the backward's products are not
             # worth their complexity: the dense backward on the dequantized
             # operands, as the reference does (quant_attention.py:937-950).
             q_dq, k_dq, v_dq = _dequantized(qt_q, qt_k, qt_v, qm, vm)
-            dq, dk, dv = flash_attention_backward(q_dq, k_dq, v_dq, out.float(), lse,
-                                                  g_out.float(), bias, g_lse, **ctx.attn)
+            dq, dk, dv = flash_backward(q_dq, k_dq, v_dq, out.float(), lse, g_out.float(), bias,
+                                        g_lse, grad_dtype=None, walk=ctx.walk, **ctx.attn)
         else:
             corr = None if qm is None else _corr_from_quantized(qm, qt_k)
             gdt = torch.bfloat16 if qt_q.orig_dtype == torch.bfloat16 else None
-            dq, dk, dv = quantized_attention_backward(qt_q, qt_k, qt_v, out, lse, g_out, qm, vm,
-                                                      corr, bias, g_lse, grad_dtype=gdt,
-                                                      **ctx.attn)
+            dq, dk, dv = quantized_backward(qt_q, qt_k, qt_v, out, lse, g_out, qm, vm, corr, bias,
+                                            g_lse, grad_dtype=gdt, walk=ctx.walk, **ctx.attn)
         if ctx.config.hadamard:
             # Gradients in the rotated space rotate back (self-inverse).
             dq, dk = hadamard_rotate(dq), hadamard_rotate(dk)
@@ -526,7 +564,7 @@ class _QFlash(torch.autograd.Function):
             else:
                 dbias = torch.zeros_like(bias)
         qd, kd, vd = ctx.in_dtypes
-        return (dq.to(qd), dk.to(kd), dv.to(vd), dbias) + (None,) * 6
+        return (dq.to(qd), dk.to(kd), dv.to(vd), dbias) + (None,) * 7
 
 
 def quantized_flash_attention(
@@ -539,24 +577,34 @@ def quantized_flash_attention(
     causal: bool = False,
     window: Optional[tuple] = None,
     scale: Optional[float] = None,
+    block_mask=None,
     out_dtype: Optional[torch.dtype] = None,
     return_lse: bool = False,
     bias_grad: bool = False,
 ):
     """Runtime-quantized attention, differentiable through the STE backward.
     q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D); bias additive, broadcastable
-    to (B, Hq, Sq, Sk). Returns out (out_dtype, default q.dtype), or
-    (out, lse) with return_lse=True. Gradients reach q, k, v and, with
-    bias_grad=True, the bias (else it gets zeros). HYBRID mode is resolved
-    from q's data (it may pick TENSOR, ROW or BLOCK); pv_int8 raises
-    NotImplementedError."""
+    to (B, Hq, Sq, Sk); block_mask: a BlockMask (ops/block_mask.py) on q's
+    device instead of a bias: its bias, its walk (forward and backward, on
+    either route) and its tiles (the reference's, for the fused route's
+    means windows and BLOCK groups). Returns out (out_dtype, default
+    q.dtype), or (out, lse) with return_lse=True. Gradients reach q, k, v
+    and, with bias_grad=True, the bias (else it gets zeros). HYBRID mode is
+    resolved from q's data (it may pick TENSOR, ROW or BLOCK); pv_int8
+    raises NotImplementedError."""
+    walk = None
+    if block_mask is not None:
+        if bias is not None:
+            raise ValueError("pass either bias or block_mask, not both")
+        bias, walk = block_mask.bias, block_mask.walk()
     if config.mode == QuantMode.HYBRID:
         config = dataclasses.replace(config, mode=choose_mode(q))
     require_ported(config)
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (q, k, v, bias)):
         out, lse = _QFlash.apply(q, k, v, bias, config, causal, window, scale, out_dtype,
-                                 bias_grad)
+                                 bias_grad, walk)
     else:
         # No gradient needed: the kernel writes no residuals.
-        out, lse, _ = _forward(q, k, v, bias, config, causal, window, scale, out_dtype, False)
+        out, lse, _ = _forward(q, k, v, bias, config, causal, window, scale, out_dtype, False,
+                               walk, bias_grad)
     return (out, lse) if return_lse else out

@@ -25,8 +25,12 @@ run the "int8 S recompute" that the comment at quant_attention.py:892-894
 claims; the kernels dequantize on load, as the reference's kernels do.
 SYMMETRIC residuals only, as in the reference (quant_bwd.py:34-37):
 ASYMMETRIC ones go through the dense backward on the dequantized operands
-(`ops/quant_attention.py` `_QFlash.backward`). Not ported yet: the
-block-sparse `block_map`/`fetch_kv`/`fetch_q` walks.
+(`ops/quant_attention.py` `_QFlash.backward`). A block-sparse map
+(`block_map` with block_q, block_k) hides the unwalked pairs as the dense
+backward does (P = 0); on the card the dQ kernel walks `fetch_kv` and the
+dK/dV kernel `fetch_q`, each query head of its GQA group its own row, the
+corr row and the Q-mean term taken at each head's own first and last
+walked tile.
 """
 
 from __future__ import annotations
@@ -40,20 +44,26 @@ from umfa_tpu_torch import _kernels
 from umfa_tpu_torch.engine.config import Precision, QuantStrategy
 from umfa_tpu_torch.ops.flash_bwd import _kernel_lse
 from umfa_tpu_torch.ops.flash_fwd import (
+    WALK_ARGTYPES,
+    Walk,
     _DTYPE_CODE,
+    _check_walk,
     bias_strides,
     broadcast_bias,
     fold_mask,
+    make_walk,
     visible_mask,
+    walk_args,
+    walked_keys,
 )
 from umfa_tpu_torch.ops.quant import QuantizedTensor, unpack_int4
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # qv kv vv qs ks vs do lse delta qm vm corr bias out0 out1 | B Hq Hkv Sq Sk D |
 # qs_rows ks_rows vs_rows | bsb bsh bsq bsk | scale left right | int4 flags |
-# do dtype, out dtype | stream
+# do dtype, out dtype | the walk | stream
 _ARGTYPES = (*(_P,) * 15, *(_I,) * 6, *(_I,) * 3, *(_L,) * 4, ctypes.c_float, _I, _I,
-             _I, _I, _I, _P)
+             _I, _I, _I, *WALK_ARGTYPES, _P)
 
 
 class _Prepared(NamedTuple):
@@ -77,6 +87,7 @@ class _Prepared(NamedTuple):
     scale: float
     left: int
     right: int
+    walk: Optional[Walk]
 
 
 def _scales(t, b, h, s, name) -> torch.Tensor:
@@ -86,7 +97,7 @@ def _scales(t, b, h, s, name) -> torch.Tensor:
 
 
 def _prepare(qt_q, qt_k, qt_v, out, lse, do, qm, vm, score_corr, bias, dlse,
-             causal, window, scale) -> _Prepared:
+             causal, window, scale, walk: Optional[Walk] = None) -> _Prepared:
     for qt in (qt_q, qt_k, qt_v):
         if not isinstance(qt, QuantizedTensor) or not qt.precision.is_integer:
             raise ValueError("quantized_attention_backward takes INT8/INT4 QuantizedTensors")
@@ -131,6 +142,8 @@ def _prepare(qt_q, qt_k, qt_v, out, lse, do, qm, vm, score_corr, bias, dlse,
             bias = bias[None]
         bias = broadcast_bias(bias, b, hq, sq, sk)
     left, right = fold_mask(causal, window)
+    if walk is not None:
+        _check_walk(walk, b, hq, sq, sk)
     return _Prepared(
         qt_q.values.contiguous(), qt_k.values.contiguous(), qt_v.values.contiguous(),
         q_scales.contiguous(), _scales(qt_k.scales, b, hkv, sk, "k"),
@@ -138,7 +151,7 @@ def _prepare(qt_q, qt_k, qt_v, out, lse, do, qm, vm, score_corr, bias, dlse,
         qt_q.precision == Precision.INT4, qt_k.precision == Precision.INT4,
         qt_v.precision == Precision.INT4, do.contiguous(),
         _kernel_lse(lse.float()).contiguous(), delta.contiguous(), qm, vm, corr, bias,
-        (b, hq, hkv, sq, sk, d), scale, left, right)
+        (b, hq, hkv, sq, sk, d), scale, left, right, walk)
 
 
 def quantized_attention_backward(
@@ -153,22 +166,36 @@ def quantized_attention_backward(
     score_corr: Optional[torch.Tensor] = None,
     bias: Optional[torch.Tensor] = None,
     dlse: Optional[torch.Tensor] = None,
+    block_map: Optional[torch.Tensor] = None,
+    fetch_kv: Optional[torch.Tensor] = None,
+    fetch_q: Optional[torch.Tensor] = None,
     *,
     causal: bool = False,
     window: Optional[tuple] = None,
     scale: Optional[float] = None,
     grad_dtype: Optional[torch.dtype] = None,
+    block_q: Optional[int] = None,
+    block_k: Optional[int] = None,
 ):
     """STE backward consuming ROW/TENSOR symmetric INT8/INT4 residuals.
     qm (B, Hq, 1, D), vm (B, Hkv, 1, D): the smoothing means the forward
     subtracted; score_corr (B, Hq, 1, Sk): the Q-mean score row in raw dot
-    units. Returns (dq, dk, dv) in `grad_dtype` (default fp32), dk/dv per
-    KV head (the GQA group summed)."""
+    units; block_map, fetch_kv, fetch_q, block_q and block_k: a block-sparse
+    walk, as in ops/flash_bwd.py. Returns (dq, dk, dv) in `grad_dtype`
+    (default fp32), dk/dv per KV head (the GQA group summed)."""
+    return _backward(qt_q, qt_k, qt_v, out, lse, do, qm, vm, score_corr, bias, dlse,
+                     causal=causal, window=window, scale=scale, grad_dtype=grad_dtype,
+                     walk=make_walk(block_map, fetch_kv, fetch_q, block_q, block_k))
+
+
+def _backward(qt_q, qt_k, qt_v, out, lse, do, qm, vm, score_corr, bias, dlse, *, causal,
+              window, scale, grad_dtype, walk: Optional[Walk]):
+    """`quantized_attention_backward` with its block-sparse arguments as a Walk."""
     grad_dtype = grad_dtype or torch.float32
     if grad_dtype not in _DTYPE_CODE:
         raise ValueError(f"grad_dtype must be float32 or bfloat16, got {grad_dtype}")
     p = _prepare(qt_q, qt_k, qt_v, out, lse, do, qm, vm, score_corr, bias, dlse,
-                 causal, window, scale)
+                 causal, window, scale, walk)
     if p.q.device.type == "cpu":
         return tuple(g.to(grad_dtype) for g in (_plain_dq(p), *_plain_dkv(p)))
     return _launch(p, grad_dtype)
@@ -176,12 +203,13 @@ def quantized_attention_backward(
 
 def quantized_attention_backward_plain(
     qt_q, qt_k, qt_v, out, lse, do, qm=None, vm=None, score_corr=None, bias=None, dlse=None,
-    *, causal=False, window=None, scale=None, grad_dtype=None,
+    block_map=None, fetch_kv=None, fetch_q=None, *, causal=False, window=None, scale=None,
+    grad_dtype=None, block_q=None, block_k=None,
 ):
     """The kernels' arithmetic in plain PyTorch, on any device. Same
     arguments and results as `quantized_attention_backward`."""
     p = _prepare(qt_q, qt_k, qt_v, out, lse, do, qm, vm, score_corr, bias, dlse,
-                 causal, window, scale)
+                 causal, window, scale, make_walk(block_map, fetch_kv, fetch_q, block_q, block_k))
     return tuple(g.to(grad_dtype or torch.float32) for g in (_plain_dq(p), *_plain_dkv(p)))
 
 
@@ -206,6 +234,8 @@ def _plain_p_ds(p: _Prepared):
     if p.bias is not None:
         s += p.bias
     hidden = ~visible_mask(sq, sk, p.left, p.right, s.device)
+    if p.walk is not None:
+        hidden = hidden | ~walked_keys(p.walk, sq, sk)
     pm = s.sub_(p.lse[..., None]).exp_().masked_fill_(hidden, 0.0)
     do_f = p.do.float()
     do_bf = do_f.to(torch.bfloat16).float()
@@ -288,6 +318,7 @@ def _run(kernel: str, p: _Prepared, out0: torch.Tensor, out1) -> None:
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    walk = walk_args(p.walk, "fetch_q" if out1 is not None else "fetch_kv", p.q.device)
     fn = _kernels.function("quant_bwd", f"umfa_{kernel}", _ARGTYPES)
     with torch.cuda.device(p.q.device):
         err = fn(
@@ -299,7 +330,7 @@ def _run(kernel: str, p: _Prepared, out0: torch.Tensor, out1) -> None:
             int(p.q_scales.shape[2] > 1), int(p.k_scales.shape[2] > 1),
             int(p.v_scales.shape[2] > 1),
             bsb, bsh, bsq, bsk, p.scale, p.left, p.right, int4,
-            _DTYPE_CODE[p.do.dtype], _DTYPE_CODE[out0.dtype],
+            _DTYPE_CODE[p.do.dtype], _DTYPE_CODE[out0.dtype], *walk,
             torch.cuda.current_stream(p.q.device).cuda_stream,
         )
     _kernels.check("quant_bwd", err, kernel)

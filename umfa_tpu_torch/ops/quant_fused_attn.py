@@ -11,6 +11,11 @@ Arithmetic, at the TPU kernel's rounding points (quant_fused_attn.py:100-828):
     sequence means: the sum of the first min(T, S) rows over T, T being the
     reference's own first tile (`default_mean_rows`); km and vm per KV
     head, qm per query head; qm only with `smooth_q` and an integer Q;
+    with a block-sparse map T is the map's tile (block_q, block_k), and K
+    and V are estimated over the block_k rows of the tile each map slice
+    fills first (`fill_kv`'s flag 2; rows past Sk count as zeros), so the
+    window depends on the map, per batch where the map is; Q's stays
+    q-block 0;
   * a row quantizes as x − mean, absmax = max(|x|, 1e-12), scale =
     absmax / qmax, code = round_half_even(x · (qmax / absmax)), no clip;
   * BLOCK: one absmax per group of rows (the reference's `_segment_stat`),
@@ -33,14 +38,19 @@ Arithmetic, at the TPU kernel's rounding points (quant_fused_attn.py:100-828):
   * P = exp(S − m) against the row max, P·V on bf16(P); the row sum l adds
     bf16(P) at D < 128 (the reference's ones column) and the fp32 P at
     D ≥ 128;
-  * out = acc / l + vm, except rows with l == 0: exactly 0, LSE −1e30.
+  * out = acc / l + vm, except rows with l == 0: exactly 0, LSE −1e30;
+  * a block-sparse map (ops/flash_fwd.py `Walk`) hides the keys outside a
+    row's walked tiles like index-masked ones, the BlockMask's tiling as on
+    the dense path; the kernel walks `fetch_kv`. K and V are quantized on
+    every row (the reference writes residuals only for the tiles it fills:
+    the values of walked tiles agree, the others are read by nothing).
 The reference walks KV tiles with an online softmax and so rounds P
 against a running max where it walks more than one tile; this port (kernel
 and plain version) rounds against the final row max (ROADMAP §3).
 
 Supported: ROW or BLOCK granularity, SYMMETRIC or ASYMMETRIC, INT8 or INT4
 per operand, a dense Q, smoothing, Hadamard, bias, causal/window, GQA,
-D ≤ 256, fp32/bf16/fp16 inputs. `pv_int8` and block-sparse walks raise
+block-sparse maps, D ≤ 256, fp32/bf16/fp16 inputs. `pv_int8` raises
 NotImplementedError (ROADMAP, Queue 2: row 7's unported variants).
 """
 
@@ -56,12 +66,18 @@ from umfa_tpu_torch import _kernels
 from umfa_tpu_torch.engine.config import BlockSizeConfig, Precision, QuantMode, QuantStrategy
 from umfa_tpu_torch.ops.flash_fwd import (
     DEFAULT_MASK_VALUE,
+    WALK_ARGTYPES,
+    Walk,
     _DTYPE_CODE,
+    _check_walk,
     _choose_block,
     bias_strides,
     broadcast_bias,
     fold_mask,
+    make_walk,
     visible_mask,
+    walk_args,
+    walked_keys,
 )
 from umfa_tpu_torch.ops.quant import QuantizedTensor, _qmax, pack_int4
 from umfa_tpu_torch.ops.quant_fused import rotate
@@ -69,9 +85,10 @@ from umfa_tpu_torch.ops.quant_fused import rotate
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # q k v bias out lse | qv qs kv ks vv vs qm km vm cc kb vb | qzp kzp vzp ys st
 # qb | B Hq Hkv Sq Sk D | bsb bsh bsq bsk | scale left right | flags qmax_q
-# qmax_k qmax_v Tq Tkv | q_group k_group v_group | in out | stream
+# qmax_k qmax_v Tq Tkv | q_group k_group v_group | in out | the walk
+# (WALK_ARGTYPES) | kv_row0 | stream
 _ARGTYPES = (*(_P,) * 24, *(_I,) * 6, *(_L,) * 4, ctypes.c_float, _I, _I,
-             *(_I,) * 6, *(_I,) * 3, _I, _I, _P)
+             *(_I,) * 6, *(_I,) * 3, _I, _I, *WALK_ARGTYPES, _P, _P)
 
 # Flag bits of the C entry point.
 _F_HADAMARD, _F_SMOOTH, _F_SMOOTH_Q, _F_Q_DENSE, _F_ASYM = 1, 2, 4, 8, 16
@@ -88,11 +105,16 @@ def require_ported(config) -> None:
 
 
 def fused_path_supported(config, seq_k: int, head_dim: int, *, causal: bool, window,
-                         seq_q: int) -> bool:
+                         seq_q: int, block_map=None, fetch_kv=None, hold_kv=None, fill_kv=None,
+                         num_heads: Optional[int] = None, num_kv_heads: Optional[int] = None,
+                         bias_grad: bool = False) -> bool:
     """Whether the single-launch route serves this call, by the reference's
     rules (quant_fused_attn.py:1374-1440). `UMFA_DISABLE_FUSED_QUANT=1`
-    (read on each call) sends the call to the two-pass route. pv_int8
-    raises NotImplementedError here (not ported yet)."""
+    (read on each call) sends the call to the two-pass route. With a
+    block-sparse map it takes the whole compacted schedule (`fetch_kv`,
+    `hold_kv`, `fill_kv`), no `bias_grad`, and no per-head map (Hm > 1)
+    under GQA; `fetch_kv` without a map goes two-pass. pv_int8 raises
+    NotImplementedError here (not ported yet)."""
     if os.environ.get("UMFA_DISABLE_FUSED_QUANT", "0") == "1":
         return False
     if config.mode not in (QuantMode.ROW, QuantMode.BLOCK):
@@ -105,6 +127,18 @@ def fused_path_supported(config, seq_k: int, head_dim: int, *, causal: bool, win
     if config.pv_int8 and config.strategy == QuantStrategy.ASYMMETRIC:
         return False  # integer P·V needs a symmetric V: the two-pass route
     require_ported(config)
+    if block_map is not None:
+        # The reference's reasons: a non-leader GQA head reading tiles a
+        # per-head leader never filled, and a bias gradient dequantizing
+        # residual tiles never written. The card has neither problem; the
+        # rules stay because the route decides the numbers.
+        if fetch_kv is None or hold_kv is None or fill_kv is None or bias_grad:
+            return False
+        if (num_heads is not None and num_kv_heads is not None
+                and num_heads != num_kv_heads and block_map.shape[1] > 1):
+            return False
+    elif fetch_kv is not None:
+        return False
     # On the TPU this is the VMEM budget of the K/V caches (long KV, about
     # Sk > 10240 at D <= 128, goes two-pass), and the fill schedule assumes
     # self-attention geometry when the right side is bounded. The card has
@@ -177,11 +211,38 @@ class _Prepared(NamedTuple):
     out_dtype: torch.dtype   # what the kernel writes (fp32 or bf16)
     final_dtype: torch.dtype  # what the caller gets (fp16 cast last)
     orig_dtypes: tuple
+    walk: Optional[Walk]
+    kv_row0: Optional[torch.Tensor]  # (B, Hkv) int32: the first row of each K/V mean window
+
+
+def first_fill_tiles(fetch_kv: torch.Tensor, fill_kv: torch.Tensor) -> torch.Tensor:
+    """(Bm, Hm) int32: the key tile of each slice's first fill (the entry of
+    `fetch_kv` where `fill_kv` is 2), -1 where a slice fills none; a
+    BlockMask carries it as `kv_mean_tile`, found on the host."""
+    bm, hm = fill_kv.shape[:2]
+    first = (fill_kv == 2).reshape(bm, hm, -1)
+    at = first.int().argmax(dim=-1, keepdim=True)
+    tile = fetch_kv.reshape(bm, hm, -1).gather(-1, at)[..., 0]
+    return torch.where(first.any(dim=-1), tile, -1).to(torch.int32)
+
+
+def kv_mean_rows(walk: Walk, b: int, hkv: int, group: int) -> torch.Tensor:
+    """(B, Hkv) int32, on the map's device: the first row of the block_k
+    rows each KV head's K and V means are estimated over, the tile its map
+    slice fills first (the reference's flag 2, `fill_kv`): the slice of
+    batch b and of the group's leader head hk·group, which fills the
+    reference's cache. A slice that fills nothing (no row sees a key)
+    takes tile 0; nothing reads its means."""
+    tile = walk.kv_mean_tile
+    if tile.shape[1] > 1:
+        tile = tile[:, torch.arange(hkv, device=tile.device) * group]
+    rows = tile.clamp_min(0).to(torch.int32) * walk.block_k
+    return rows.expand(b, hkv).contiguous()
 
 
 def _prepare(q, k, v, bias, causal, window, scale, smooth, smooth_q, hadamard, emit,
              q_precision, k_precision, v_precision, out_dtype, mean_rows, strategy, mode,
-             quant_blocks) -> _Prepared:
+             quant_blocks, walk: Optional[Walk]) -> _Prepared:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be (B, H, S, D)")
     b, hq, sq, d = q.shape
@@ -215,6 +276,19 @@ def _prepare(q, k, v, bias, causal, window, scale, smooth, smooth_q, hadamard, e
             bias = bias[None]
         bias = broadcast_bias(bias, b, hq, sq, sk)
     left, right = fold_mask(causal, window)
+    kv_row0 = None
+    if walk is not None:
+        _check_walk(walk, b, hq, sq, sk)
+        if walk.kv_mean_tile is None:
+            # Raw tables of a public call: the tile a BlockMask finds on the host.
+            if walk.fetch_kv is None or walk.fill_kv is None:
+                raise ValueError("a block_map on the single-launch route needs fetch_kv and "
+                                 "fill_kv: the K/V means come from each slice's first fill")
+            walk = walk._replace(kv_mean_tile=first_fill_tiles(walk.fetch_kv, walk.fill_kv))
+        kv_row0 = kv_mean_rows(walk, b, hkv, hq // hkv)
+        if mean_rows is None:
+            # The reference's tiles are the map's (quant_attention.py:1057-1075).
+            mean_rows = (walk.block_q, walk.block_k)
     if mean_rows is None:
         mean_rows = default_mean_rows(sq, sk, d, causal=causal, window=window,
                                       has_bias=bias is not None)
@@ -232,7 +306,7 @@ def _prepare(q, k, v, bias, causal, window, scale, smooth, smooth_q, hadamard, e
                      float(d**-0.5 if scale is None else scale), left, right, bool(smooth),
                      smooth_q, bool(hadamard), bool(emit), q_precision, k_precision,
                      v_precision, t_q, t_kv, strategy == QuantStrategy.ASYMMETRIC, groups,
-                     kernel_out, final, orig_dtypes)
+                     kernel_out, final, orig_dtypes, walk, kv_row0)
 
 
 def fused_quantize_attend(
@@ -256,41 +330,65 @@ def fused_quantize_attend(
     quant_blocks: Optional[BlockSizeConfig] = None,
     out_dtype: Optional[torch.dtype] = None,
     mean_rows: Optional[tuple] = None,
+    block_map: Optional[torch.Tensor] = None,
+    fetch_kv: Optional[torch.Tensor] = None,
+    hold_kv: Optional[torch.Tensor] = None,
+    fill_kv: Optional[torch.Tensor] = None,
+    block_q: Optional[int] = None,
+    block_k: Optional[int] = None,
 ):
     """Runtime INT8/INT4 quantization and attention in one kernel launch.
     q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D); bias additive, broadcastable
     to (B, Hq, Sq, Sk). `mean_rows` = (T_q, T_kv) overrides the reference's
     tiles, the rows the smoothing means are estimated over and the bound of
-    the BLOCK groups (default: `default_mean_rows`). `mode=BLOCK` takes one
-    scale per `quant_blocks.{q,k,v}` rows (`effective_group`).
+    the BLOCK groups (default: `default_mean_rows`, or the map's tiles).
+    `mode=BLOCK` takes one scale per `quant_blocks.{q,k,v}` rows
+    (`effective_group`). block_map (Bm, Hm, ceil(Sq / block_q),
+    ceil(Sk / block_k)) with its compacted key-tile table fetch_kv (the
+    kernel walks it) and fill schedule hold_kv/fill_kv (a BlockMask's
+    fields, both tables required) restricts each row to the keys of its
+    walked tiles; the K/V means come from each slice's first filled tile
+    (`first_fill_tiles`).
 
     Returns (out (B, Hq, Sq, D) in out_dtype (default q.dtype), lse
     (B, Hq, Sq) fp32, qt_q, qt_k, qt_v, qm, vm): the residuals (qt_q None
     for a dense Q; all None without `emit_residuals`; per-row scales and,
     ASYMMETRIC, int32 zero points (B, H, S, 1), row_sums None), qm
     (B, Hq, 1, D) with `smooth_q`, vm (B, Hkv, 1, D) with `smooth`, fp32."""
-    p = _prepare(q, k, v, bias, causal, window, scale, smooth, smooth_q, hadamard,
-                 emit_residuals, q_precision, k_precision, v_precision, out_dtype, mean_rows,
-                 strategy, mode, quant_blocks)
-    if p.q.device.type == "cpu":
-        res = _plain(p)
-    else:
-        res = _launch(p)
-    return _finish(p, *res)
+    return _fused(q, k, v, bias, _map_walk(block_map, fetch_kv, hold_kv, fill_kv, block_q,
+                                           block_k),
+                  causal=causal, window=window, scale=scale, smooth=smooth, smooth_q=smooth_q,
+                  hadamard=hadamard, emit_residuals=emit_residuals, q_precision=q_precision,
+                  k_precision=k_precision, v_precision=v_precision, strategy=strategy,
+                  mode=mode, quant_blocks=quant_blocks, out_dtype=out_dtype,
+                  mean_rows=mean_rows)
 
 
-def fused_quantize_attend_plain(
-    q, k, v, bias=None, *, causal=False, window=None, scale=None, smooth=True, smooth_q=None,
-    hadamard=False, emit_residuals=True, q_precision=Precision.INT8, k_precision=Precision.INT8,
-    v_precision=Precision.INT8, strategy=QuantStrategy.SYMMETRIC, mode=QuantMode.ROW,
-    quant_blocks=None, out_dtype=None, mean_rows=None,
-):
+def fused_quantize_attend_plain(q, k, v, bias=None, *, block_map=None, fetch_kv=None,
+                                hold_kv=None, fill_kv=None, block_q=None, block_k=None, **kw):
     """The kernel's arithmetic in plain PyTorch, on any device. Same
     arguments and results as `fused_quantize_attend`."""
+    return _fused(q, k, v, bias, _map_walk(block_map, fetch_kv, hold_kv, fill_kv, block_q,
+                                           block_k), plain=True, **kw)
+
+
+def _fused(q, k, v, bias, walk: Optional[Walk], plain: bool = False, *, causal=False,
+           window=None, scale=None, smooth=True, smooth_q=None, hadamard=False,
+           emit_residuals=True, q_precision=Precision.INT8, k_precision=Precision.INT8,
+           v_precision=Precision.INT8, strategy=QuantStrategy.SYMMETRIC, mode=QuantMode.ROW,
+           quant_blocks=None, out_dtype=None, mean_rows=None):
+    """`fused_quantize_attend` with its block-sparse arguments as a Walk (a
+    BlockMask's carries the means tile found on the host); `plain` runs the
+    plain version on any device."""
     p = _prepare(q, k, v, bias, causal, window, scale, smooth, smooth_q, hadamard,
                  emit_residuals, q_precision, k_precision, v_precision, out_dtype, mean_rows,
-                 strategy, mode, quant_blocks)
-    return _finish(p, *_plain(p))
+                 strategy, mode, quant_blocks, walk)
+    return _finish(p, *(_plain(p) if plain or p.q.device.type == "cpu" else _launch(p)))
+
+
+def _map_walk(block_map, fetch_kv, hold_kv, fill_kv, block_q, block_k) -> Optional[Walk]:
+    walk = make_walk(block_map, fetch_kv, None, block_q, block_k)
+    return None if walk is None else walk._replace(hold_kv=hold_kv, fill_kv=fill_kv)
 
 
 def _qt(vals, scales, zps, shape, dtype, precision, group, asym) -> QuantizedTensor:
@@ -317,12 +415,19 @@ def _finish(p: _Prepared, out, lse, res):
     return out, lse, qt_q, qt_k, qt_v, qm, vm
 
 
-def _tile_mean(x: torch.Tensor, t: int) -> torch.Tensor:
-    """The reference's estimate: the sum of the first min(T, S) rows of the
-    zero-padded first tile, over T."""
+def _tile_mean(x: torch.Tensor, t: int, row0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The reference's estimate: the sum of the rows of its zero-padded
+    tile of T rows, over T; the first tile, or with `row0` (B, H) the one
+    that starts at row0[b, h]."""
     # Summed in float64 and rounded once, as the kernel does (exact for
     # these magnitudes, so the order of the sum does not matter).
-    return x[:, :, :t].double().sum(dim=2, keepdim=True).float() / x.new_tensor(float(t))
+    if row0 is None:
+        total = x[:, :, :t].double().sum(dim=2, keepdim=True)
+    else:
+        r = torch.arange(x.shape[2], device=x.device)[None, None, :, None]
+        r0 = row0.to(x.device)[..., None, None]
+        total = (x.double() * ((r >= r0) & (r < r0 + t))).sum(dim=2, keepdim=True)
+    return total.float() / x.new_tensor(float(t))
 
 
 def _group_stat(stat: torch.Tensor, group: int, pad: torch.Tensor, reduce) -> torch.Tensor:
@@ -395,8 +500,8 @@ def _plain(p: _Prepared):
     q32, k32, v32 = p.q.float(), p.k.float(), p.v.float()
     if p.hadamard:
         q32, k32 = rotate(q32), rotate(k32)
-    km = _tile_mean(k32, p.t_kv) if p.smooth else None
-    vm = _tile_mean(v32, p.t_kv) if p.smooth else None
+    km = _tile_mean(k32, p.t_kv, p.kv_row0) if p.smooth else None
+    vm = _tile_mean(v32, p.t_kv, p.kv_row0) if p.smooth else None
     qm = _tile_mean(q32, p.t_q) if p.smooth_q else None
 
     k_f, sk_, zk = _quantize_rows(k32, km, p.k_precision, gk, p.asym)
@@ -421,6 +526,8 @@ def _plain(p: _Prepared):
     if p.bias is not None:
         s += p.bias
     hidden = ~visible_mask(sq, sk, p.left, p.right, s.device)
+    if p.walk is not None:
+        hidden = hidden | ~walked_keys(p.walk, sq, sk)
     s.masked_fill_(hidden, DEFAULT_MASK_VALUE)
     m = s.amax(dim=-1, keepdim=True).clamp_min(DEFAULT_MASK_VALUE)
     s.sub_(m).exp_().masked_fill_(hidden, 0.0)
@@ -456,6 +563,9 @@ def _launch(p: _Prepared):
     _, hkv, sk, _ = p.k.shape
     if d > 256:
         raise ValueError(f"fused_qattn kernel takes head_dim <= 256, got {d}")
+    walk = walk_args(p.walk, "fetch_kv", dev)
+    if p.kv_row0 is not None and p.kv_row0.device != dev:
+        raise ValueError(f"the block-sparse tables lie on {p.kv_row0.device}, q on {dev}")
     q_dense = not p.q_precision.is_integer
     f32 = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
@@ -520,7 +630,7 @@ def _launch(p: _Prepared):
                 b, hq, hkv, sq, sk, d, bsb, bsh, bsq, bsk, p.scale, p.left, p.right,
                 flags, _qmax(p.q_precision) if not q_dense else 0,
                 _qmax(p.k_precision), _qmax(p.v_precision), p.t_q, p.t_kv, *p.groups,
-                _DTYPE_CODE[p.q.dtype], _DTYPE_CODE[p.out_dtype],
+                _DTYPE_CODE[p.q.dtype], _DTYPE_CODE[p.out_dtype], *walk, ptr(p.kv_row0),
                 torch.cuda.current_stream(dev).cuda_stream,
             )
         _kernels.check("fused_qattn", err)

@@ -5,10 +5,15 @@ from __future__ import annotations
 
 import torch
 
+from umfa_tpu_torch.utils.device import default_device
+
 
 def rope_angles(seq_len: int, head_dim: int, base: float = 10000.0,
                 dtype=torch.float32, device=None):
-    """Standard RoPE angle table: (cos, sin), each (seq, head_dim // 2)."""
+    """Standard RoPE angle table: (cos, sin), each (seq, head_dim // 2), on
+    `device` (default the card, as every entry point: pass device="cpu"
+    for the plain path)."""
+    device = default_device(device)
     inv_freq = 1.0 / (
         base ** (torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
                  / head_dim)

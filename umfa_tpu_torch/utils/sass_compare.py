@@ -1,16 +1,17 @@
-"""Compare the kernels of two source trees: registers, spills and HMMA counts.
+"""Compare the kernels of two source trees: registers, spills and MMA counts.
 
     python umfa_tpu_torch/utils/sass_compare.py --tree PARENT [--libs LIB,...] [--new-bool]
 
-Builds each library (default flash_fwd, flash_bwd, ring_attn, quant_bwd) of
-this file's tree and of PARENT (such as a parent commit unpacked with
-`git archive`) with this tree's nvcc flags, one nvcc per source, all at
-once; reads each kernel's registers and spills from ptxas -v and counts the
-HMMA instructions in its cuobjdump SASS. Prints a line for every kernel that
-differs ("DIFF": parent, change), is new ("NEW") or is gone ("GONE"), then
-a JSON summary {"same", "differ"}. Kernel names are demangled. --new-bool:
-this tree added a trailing bool template parameter; its `false`
-instantiations are matched to the parent's names without it.
+Builds each library (default flash_fwd, flash_bwd, ring_attn, quant_bwd,
+quant_attn_fwd, fused_qattn) of this file's tree and of PARENT (such as a
+parent commit unpacked with `git archive`) with this tree's nvcc flags, one
+nvcc per source, all at once; reads each kernel's registers and spills from
+ptxas -v and counts its HMMA, IMMA and DMMA instructions in its cuobjdump
+SASS. Prints a line for every kernel that differs ("DIFF": parent, change),
+is new ("NEW") or is gone ("GONE"), then a JSON summary {"same", "differ"}.
+Kernel names are demangled. --new-bool: this tree may have added a trailing
+bool template parameter; a `false` instantiation whose name the parent
+lacks is matched to the parent's name without it.
 
 Needs nvcc (the CUDA toolkit), not a card.
 """
@@ -26,7 +27,8 @@ import sys
 import tempfile
 
 HERE = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-KEYS = ("registers", "spill_stores", "spill_loads", "hmma")
+MMA = ("HMMA", "IMMA", "DMMA")
+KEYS = ("registers", "spill_stores", "spill_loads") + tuple(m.lower() for m in MMA)
 
 
 def ptxas_report(log: str) -> dict:
@@ -47,22 +49,27 @@ def ptxas_report(log: str) -> dict:
     return res
 
 
-def hmma_counts(sass: str) -> dict:
+def mma_counts(sass: str) -> dict:
+    """{mangled function: {"hmma", "imma", "dmma"}}: its tensor-core
+    instructions of each kind in the SASS."""
     counts, fn = {}, None
     for ln in sass.splitlines():
         m = re.search(r"Function : (\S+)", ln)
         if m:
             fn = m.group(1)
-            counts[fn] = 0
-        elif fn and "HMMA" in ln:
-            counts[fn] += 1
+            counts[fn] = dict.fromkeys((k.lower() for k in MMA), 0)
+        elif fn:
+            for kind in MMA:
+                if kind in ln:
+                    counts[fn][kind.lower()] += 1
     return counts
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", required=True, help="the parent tree")
-    ap.add_argument("--libs", default="flash_fwd,flash_bwd,ring_attn,quant_bwd")
+    ap.add_argument("--libs",
+                    default="flash_fwd,flash_bwd,ring_attn,quant_bwd,quant_attn_fwd,fused_qattn")
     ap.add_argument("--new-bool", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, HERE)
@@ -89,14 +96,19 @@ def main() -> None:
         report = ptxas_report(log)
         sass = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass", out],
                               capture_output=True, text=True, check=True).stdout
-        hmma = hmma_counts(sass)
+        mma = mma_counts(sass)
         names = subprocess.run(["c++filt"], input="\n".join(report), capture_output=True,
                                text=True, check=True).stdout.splitlines()
         for name, (mangled, res) in zip(names, report.items()):
             short = name.replace("(anonymous namespace)::", "").replace("umfa::", "").split("(")[0]
-            if label == "change" and args.new_bool:
-                short = re.sub(r", (false|\(bool\)0)>$", ">", short)
-            kernels.setdefault((lib, short), {})[label] = dict(res, hmma=hmma.get(mangled, -1))
+            counts = mma.get(mangled, dict.fromkeys((k.lower() for k in MMA), -1))
+            kernels.setdefault((lib, short), {})[label] = dict(res, **counts)
+    if args.new_bool:
+        for (lib, short) in list(kernels):
+            bare = re.sub(r", (false|\(bool\)0)>$", ">", short)
+            v = kernels[(lib, short)]
+            if bare != short and "parent" not in v and "parent" in kernels.get((lib, bare), {}):
+                kernels[(lib, bare)]["change"] = kernels.pop((lib, short))["change"]
     same = differ = 0
     for (lib, name), v in sorted(kernels.items()):
         p, c = v.get("parent"), v.get("change")
