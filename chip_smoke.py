@@ -208,13 +208,40 @@ Phases, one JSON line each:
      1e-5; the same bits twice), then at reps 1024 with its TFLOP/s beside
      989, its plan (tile, K split, work items, SMs used) and one cuBLAS
      product of each shape (a yardstick only);
+ 14a. rope_attention(interleaved=False) through the ROPE instantiation of
+     `flash_fwd` (Q and K rotated inside the kernel) at FLUX (B1 H24 S4608
+     D128 non-causal) and S4K (B2 H16 S4096 D64 causal) in bf16, and S4K
+     in fp32: the kernel's out and LSE against its plain version (row 1's
+     gates), the path's forward and `.backward()` with exactly one
+     flash_fwd (one flash_fwd/rope), flash_bwd_dq and flash_bwd_dkv launch
+     against the same path with every wrapper's plain version (out 1e-2,
+     gradients 2e-2 in bf16; out 2e-5, gradients 1e-4 in fp32), and the
+     in-kernel forward timed
+     beside the two-pass route (apply_rope on Q and K, then flash_fwd), its
+     plain version, its bound and SDPA on the pre-rotated Q and K (a
+     yardstick only); the sass phase also requires the twelve ROPE
+     instantiations of `fwd_tc_kernel`;
+ 14b. the FLUX-shaped DiT (models/dit.py) at full width (dim 1536, 24 heads
+     of 64, depth 4, B1 S4608, bf16) dense, int8 and int4: a timed forward
+     and a warm-up and three plain-SGD steps (lr DIT_LR, an MSE to x plus
+     DIT_NOISE noise) whose loss falls, with exact launches (rows 1-3 dense,
+     7-9 quantized, once a block), forward and step ms and peak memory;
+     the first block's bf16 q, k, v (B1 H24 S4608 D64, non-causal) through
+     the recipe's attention call with the LSE and the backward of a seeded
+     dO, each kernel launched once, against the same call with every
+     wrapper's plain version (dense out 1e-2, LSE 1e-3; int8 and int4 out
+     1e-3, LSE 1e-4; gradients 2e-2); then a reduced DiT (depth 1, S 512, fp32) through the kernels against
+     the same model with every wrapper's plain version on the card (loss
+     abs 1e-5, gradients 1e-4 dense; loss 1e-4, gradient relerr 1e-2
+     int8/int4);
  15. the wall seconds of each phase; a `kernels` line (each kernel with
      its `design`: tensor cores or CUDA cores); the nvidia-smi line; the
      result line.
 Every path (each serving run, both timed continuous-batching runs, the
 timed training steps, the attention() phase, the three full-width
 block-sparse runs and the nine quantized ones, the two full-width ring runs,
-the probe's five reps-1024 calls) is driven with the launch counts set to 0
+the probe's five reps-1024 calls, the three rope_attention paths, the
+DiT's forwards and timed steps) is driven with the launch counts set to 0
 just before it and read just after; a kernel's `launches` in the kernels
 line is its sum over them.
 
@@ -3430,6 +3457,361 @@ def phase_mma_probe(record):
     return {"mma_probe": t}, {"mma_probe": worst}, counts
 
 
+def phase_rope(record):
+    """rope_attention(interleaved=False) through the ROPE instantiation of
+    flash_fwd (Q and K rotated inside the kernel) and the dense backward
+    kernels: at each of rope_attention's geometries (`utils/fwd_timing.py`
+    ROPE_SHAPES) the kernel's out and LSE against its plain
+    version (row 1's gates), then the path's forward and `.backward()` with
+    exact launches (one flash_fwd, one flash_fwd/rope, one flash_bwd_dq, one
+    flash_bwd_dkv) against the same path with every wrapper's plain version
+    (`plain_kernels()`; out 1e-2 / gradients 2e-2 in bf16, out 2e-5 /
+    gradients 1e-4 in fp32);
+    then the in-kernel forward timed beside the two-pass route (apply_rope
+    on Q and K, then flash_fwd) and SDPA on the pre-rotated operands (a
+    yardstick only), with its bound."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from umfa_tpu_torch import _kernels
+    from umfa_tpu_torch.ops import flash_fwd as ff
+    from umfa_tpu_torch.ops.rope import apply_rope, rope_angles, rope_attention
+    from umfa_tpu_torch.utils.fwd_timing import ROPE_SHAPES
+    from umfa_tpu_torch.utils.testing import rel_err
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(23)
+    gates = {torch.float32: (2e-5, 1e-5, 1e-4), torch.bfloat16: (1e-2, 1e-3, 2e-2)}
+    want_counts = {"flash_fwd": 1, "flash_fwd/rope": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    runs, path_counts, worst = {}, [], 0.0
+    for name, b, h, s, d, causal, dt in ROPE_SHAPES:
+        dtype = getattr(torch, dt)
+        fgate, lgate, bgate = gates[dtype]
+        q, k, v, w = (torch.randn((b, h, s, d), generator=gen).to(dev, dtype) for _ in range(4))
+        cos, sin = rope_angles(s, d, device=dev)
+        kw = dict(causal=causal, rope_cos=cos, rope_sin=sin)
+        got = ff.flash_attention_forward(q, k, v, **kw)
+        torch.cuda.synchronize()
+        check = compare(f"rope/{dt}/{name}", got, ff.flash_attention_forward_plain(q, k, v, **kw),
+                        fgate, lgate)
+        worst = max(worst, check["max_abs_out"])
+        del got
+
+        def path():
+            t = [x.detach().requires_grad_(True) for x in (q, k, v)]
+            out = rope_attention(*t, cos, sin, interleaved=False, causal=causal)
+            (out.float() * w.float()).sum().backward()
+            return [out.detach()] + [x.grad for x in t]
+
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        res = path()
+        torch.cuda.synchronize()
+        counts = dict(_kernels.launches)
+        path_counts.append(counts)
+        with plain_kernels():
+            want = path()
+        errs = {n: rel_err(a, bb) for n, a, bb in zip(("out", "dq", "dk", "dv"), res, want)}
+        del res, want
+        path_ok = errs["out"] <= fgate and all(errs[n] <= bgate for n in ("dq", "dk", "dv"))
+
+        # Timing: the in-kernel forward, the two-pass route, SDPA on the
+        # pre-rotated operands (flash backend for bf16, memory-efficient
+        # for fp32).
+        def two_pass():
+            return ff.flash_attention_forward(apply_rope(q, cos, sin, interleaved=False),
+                                              apply_rope(k, cos, sin, interleaved=False), v,
+                                              causal=causal)
+
+        qr, kr = (apply_rope(x, cos, sin, interleaved=False) for x in (q, k))
+        backend = SDPBackend.FLASH_ATTENTION if dtype == torch.bfloat16 else (
+            SDPBackend.EFFICIENT_ATTENTION)
+        with sdpa_kernel(backend):
+            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qr, kr, v,
+                                                                        is_causal=causal))
+        del qr, kr
+        pairs = b * h * visible_pairs(s, s, -1, 0 if causal else -1)
+        flops = 4 * d * pairs + 6 * b * h * s * d  # the products, and the two rotations
+        nbytes = q.element_size() * 4 * q.numel() + b * h * s * 4 + 2 * cos.numel() * 4
+        peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_TF32_FLOPS / 3
+        t = dict(**cuda_stats(lambda: ff.flash_attention_forward(q, k, v, **kw)),
+                 two_pass_ms=cuda_ms(two_pass),
+                 plain_ms=cuda_ms(lambda: ff.flash_attention_forward_plain(q, k, v, **kw),
+                                  iters=3, warmup=1),
+                 library_ms=library_ms, flops=flops, bytes=nbytes,
+                 ops_ms=flops / peak * 1e3, bytes_ms=nbytes / H100_HBM_BYTES * 1e3)
+        bound(t)
+        t["library"] = (f"{'flash' if dtype == torch.bfloat16 else 'memory-efficient'} SDPA "
+                        "forward on the pre-rotated Q and K")
+        r = {"phase": "rope", "case": name,
+             "shape": f"B{b} H{h} S{s} D{d} {'causal' if causal else 'non-causal'} {dt}",
+             "kernel_check": check, "path_relerr": errs, "path_launches": counts,
+             "path_ok": path_ok, **t}
+        emit(r)
+        runs[name] = r
+        if not check["ok"]:
+            raise AssertionError(f"the ROPE flash_fwd disagrees with its plain version: {check}")
+        if {key: counts.get(key, 0) for key in want_counts} != want_counts or any(
+                n for key, n in counts.items() if key not in want_counts):
+            raise AssertionError(f"rope_attention {name}: launches {counts}, expected "
+                                 f"{want_counts}")
+        if not path_ok:
+            raise AssertionError(f"rope_attention {name} disagrees with its plain chain: {errs}")
+        del q, k, v, w, cos, sin
+        torch.cuda.empty_cache()
+    record["rope"] = runs
+    timing = {name: {key: r[key] for key in ("ms", "ms_min", "ms_max", "two_pass_ms", "plain_ms",
+                                              "library_ms", "bound_ms", "bound_by")}
+              for name, r in runs.items()}
+    return timing, worst, path_counts
+
+
+# The FLUX-shaped DiT at full width (benchmarks/dit_bench.py:33-42: dim
+# 1536, 24 heads of 64, depth 4; 4608 tokens at 1024px), B1, bf16; the
+# regression target x + DIT_NOISE·noise (the blocks learn to leave x
+# nearly as it is: adaLN-zero's gates shrink), plain SGD with lr DIT_LR.
+DIT_WIDTH = dict(dim=1536, num_heads=24, depth=4)
+DIT_B, DIT_S = 1, 4608
+DIT_NOISE, DIT_LR = 0.1, 0.5
+
+
+def dit_recipe(recipe):
+    """The DiT's quantization config of a recipe name (None: dense)."""
+    from umfa_tpu_torch.engine.config import QuantizationConfig
+
+    return {"bf16": None, "int8": QuantizationConfig(),
+            "int4": QuantizationConfig.from_mode_string("int4")}[recipe]
+
+
+def dit_data(cfg, b, s, dev, seed):
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    x, noise = (torch.randn((b, s, cfg.dim), generator=g) for _ in range(2))
+    cond = torch.randn((b, cfg.dim), generator=g)
+    return (x.to(dev, cfg.tdtype), cond.to(dev, cfg.tdtype),
+            (x + DIT_NOISE * noise).to(dev, torch.float32))
+
+
+def dit_loss(model, x, cond, tgt):
+    from umfa_tpu_torch.models import dit
+
+    return ((dit.forward(model, x, cond).float() - tgt) ** 2).mean()
+
+
+@contextlib.contextmanager
+def dit_attention_inputs(store):
+    """Record the (q, k, v) each DiT block hands its attention call (after
+    the interleaved RoPE), detached, in `store`."""
+    from umfa_tpu_torch.models import dit
+
+    attend = dit._attention
+
+    def grab(q, k, v, cfg):
+        store.append((q.detach(), k.detach(), v.detach()))
+        return attend(q, k, v, cfg)
+
+    dit._attention = grab
+    try:
+        yield
+    finally:
+        dit._attention = attend
+
+
+def dit_block_check(model, x, cond, recipe, gen):
+    """The first block's attention inputs at full width (B1 H24 S4608 D64,
+    bf16, non-causal) through the recipe's attention call with the LSE and
+    `.backward()` of a seeded dO, against the same call with every wrapper's
+    plain version (`plain_kernels()`): dense (rows 1-3) out relerr 1e-2, LSE
+    abs 1e-3, gradients relerr 2e-2; int8 and int4 (rows 7-9) out 1e-3, LSE
+    1e-4, gradients 2e-2. The kernel call launches each of its three
+    kernels once."""
+    import torch
+
+    from umfa_tpu_torch import _kernels
+    from umfa_tpu_torch.models import dit
+    from umfa_tpu_torch.ops.attention import flash_attention
+    from umfa_tpu_torch.ops.quant_attention import quantized_flash_attention
+    from umfa_tpu_torch.utils.testing import rel_err
+
+    cfg = model.cfg
+    store = []
+    with torch.no_grad(), dit_attention_inputs(store):
+        dit.block_forward(model.blocks[0], x, cond, cfg)
+    q, k, v = store[0]
+    do = torch.randn(q.shape, generator=gen).to(q.device, q.dtype)
+
+    def call():
+        t = [a.clone().requires_grad_(True) for a in (q, k, v)]
+        if cfg.quantization is None:
+            out, lse = flash_attention(*t, causal=cfg.causal, return_lse=True)
+        else:
+            out, lse = quantized_flash_attention(*t, config=cfg.quantization, causal=cfg.causal,
+                                                 return_lse=True)
+        out.backward(do)
+        return out.detach(), lse.detach(), *(a.grad for a in t)
+
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    got = call()
+    torch.cuda.synchronize()
+    counts = {key: n for key, n in _kernels.launches.items() if n}
+    with plain_kernels():
+        want = call()
+    fgate, lgate = (1e-2, 1e-3) if recipe == "bf16" else (1e-3, 1e-4)
+    res = compare(f"dit_block/{recipe}", got[:2], want[:2], fgate, lgate)
+    res.update(shape="B{} H{} S{} D{} bf16 {}".format(*q.shape, "causal" if cfg.causal
+                                                      else "non-causal"),
+               launches=counts, tol_grads=2e-2,
+               **{f"relerr_{n}": rel_err(a, b) for n, a, b in zip(("dq", "dk", "dv"), got[2:],
+                                                                   want[2:])})
+    want_counts = dict.fromkeys(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv") if recipe == "bf16"
+                                else ("fused_qattn", "quant_bwd_dq", "quant_bwd_dkv"), 1)
+    res["ok"] = (res["ok"] and counts == want_counts
+                 and all(res[f"relerr_{n}"] <= 2e-2 and torch_isfinite(g.float())
+                         for n, g in zip(("dq", "dk", "dv"), got[2:])))
+    emit({"phase": "kernel_check", **res})
+    if not res["ok"]:
+        raise AssertionError(f"the DiT's {recipe} attention kernels at full width disagree with "
+                             f"their plain versions (or launched {counts}, expected "
+                             f"{want_counts}): {res}")
+    return res
+
+
+def phase_dit(record):
+    """The full-width DiT (DIT_WIDTH, B1 S4608, bf16) dense, under int8 and
+    under int4: a timed forward (no grad) and a warm-up and three SGD steps
+    whose loss falls, each with exact launches (dense: flash_fwd, and in a
+    step flash_bwd_dq and flash_bwd_dkv, once a block; quantized: fused_qattn,
+    and in a step quant_bwd_dq and quant_bwd_dkv); forward ms, step ms and
+    peak memory. Between the forward and the steps, the first block's
+    attention kernels on that block's own q, k, v against their plain
+    versions (`dit_block_check`). Then a reduced DiT (full width, depth 1, S 512, fp32) through
+    the kernels against the same model with every wrapper's plain version
+    (`plain_kernels()`), on the card: dense loss abs 1e-5 and every gradient
+    atol = rtol = 1e-4; int8 and int4 loss abs 1e-4 and every gradient
+    relerr 1e-2 (the CPU parity tolerances of tests/test_torch_dit.py)."""
+    import torch
+
+    from umfa_tpu_torch import _kernels
+    from umfa_tpu_torch.models import dit
+    from umfa_tpu_torch.utils.testing import rel_err
+
+    dev = torch.device("cuda")
+    kernels_of = {"bf16": ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+                  "int8": ("fused_qattn", "quant_bwd_dq", "quant_bwd_dkv")}
+    kernels_of["int4"] = kernels_of["int8"]
+    every = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_dbias", "fused_qattn",
+             "quant_bwd_dq", "quant_bwd_dkv", "quant_rows", "quant_attn_fwd")
+    out, path_counts = {}, []
+    for recipe in ("bf16", "int8", "int4"):
+        cfg = dit.DiTConfig(**DIT_WIDTH, dtype="bfloat16", quantization=dit_recipe(recipe))
+        model = dit.init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+        x, cond, tgt = dit_data(cfg, DIT_B, DIT_S, dev, 31)
+        fwd_k, dq_k, dkv_k = kernels_of[recipe]
+        want_fwd = {key: cfg.depth if key == fwd_k else 0 for key in every}
+        want_step = {key: cfg.depth if key in (fwd_k, dq_k, dkv_k) else 0 for key in every}
+        with torch.no_grad():
+            dit.forward(model, x, cond)  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            y = dit.forward(model, x, cond)
+            torch.cuda.synchronize()
+            fwd = {"phase": "dit_forward", "recipe": recipe,
+                   "fwd_ms": (time.perf_counter() - t0) * 1e3,
+                   "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "finite": torch_isfinite(y), "shape_ok": tuple(y.shape) == tuple(x.shape),
+                   "launches": dict(_kernels.launches)}
+            del y
+        emit(fwd)
+        path_counts.append(fwd["launches"])
+        if not (fwd["finite"] and fwd["shape_ok"]):
+            raise AssertionError(f"DiT {recipe} forward: non-finite or misshaped output")
+        if {key: fwd["launches"].get(key, 0) for key in every} != want_fwd:
+            raise AssertionError(f"DiT {recipe} forward: launches {fwd['launches']}, "
+                                 f"expected {want_fwd}")
+        block_check = dit_block_check(model, x, cond, recipe, torch.Generator().manual_seed(41))
+        torch.cuda.empty_cache()
+        steps = []
+        for i in range(4):  # one warm-up step, then three timed ones
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            loss = dit_loss(model, x, cond, tgt)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            loss.backward()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            with torch.no_grad():
+                for prm in model.parameters():
+                    prm -= DIT_LR * prm.grad
+                    prm.grad = None
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            counts = dict(_kernels.launches)
+            step = {"phase": "dit_training", "recipe": recipe, "step": i, "warmup": i == 0,
+                    "loss": loss.item(), "fwd_ms": (t1 - t0) * 1e3, "bwd_ms": (t2 - t1) * 1e3,
+                    "sgd_ms": (t3 - t2) * 1e3, "step_ms": (t3 - t0) * 1e3,
+                    "tokens_per_s": DIT_B * DIT_S / (t3 - t0),
+                    "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": counts}
+            del loss
+            emit(step)
+            steps.append(step)
+            if i > 0:
+                path_counts.append(counts)
+            if not math.isfinite(step["loss"]) or (i > 0 and not step["loss"] < steps[i - 1]["loss"]):
+                raise AssertionError(f"DiT {recipe} training step {i}: loss {step['loss']} is not "
+                                     f"finite and below the step before's")
+            if {key: counts.get(key, 0) for key in every} != want_step:
+                raise AssertionError(f"DiT {recipe} training step {i}: launches {counts}, "
+                                     f"expected {want_step}")
+        out[recipe] = {"forward": fwd, "block_check": block_check, "steps": steps}
+        del model, x, cond, tgt
+        torch.cuda.empty_cache()
+
+    # The reduced DiT through the kernels against the plain versions.
+    small = {}
+    for recipe in ("bf16", "int8", "int4"):
+        cfg = dit.DiTConfig(**{**DIT_WIDTH, "depth": 1}, dtype="float32",
+                            quantization=dit_recipe(recipe))
+        x, cond, tgt = dit_data(cfg, 1, 512, dev, 37)
+        res = {}
+        for how in ("kernels", "plain"):
+            model = dit.init_params(cfg, torch.Generator().manual_seed(1), device=dev)
+            with plain_kernels() if how == "plain" else contextlib.nullcontext():
+                loss = dit_loss(model, x, cond, tgt)
+                loss.backward()
+            res[how] = (loss.item(), {n: prm.grad for n, prm in model.named_parameters()})
+            del model, loss
+        (lk, gk), (lp, gp) = res["kernels"], res["plain"]
+        if recipe == "bf16":
+            grads_ok = all(torch.allclose(gk[n], gp[n], atol=1e-4, rtol=1e-4) for n in gp)
+            loss_tol = 1e-5
+        else:
+            grads_ok = all(rel_err(gk[n], gp[n]) <= 1e-2 for n in gp)
+            loss_tol = 1e-4
+        r = {"phase": "dit_small_vs_plain", "recipe": recipe, "loss_kernels": lk,
+             "loss_plain": lp, "loss_abs": abs(lk - lp), "tol_loss": loss_tol,
+             "grads": len(gp), "worst_grad_relerr": max(rel_err(gk[n], gp[n]) for n in gp),
+             "worst_grad_abs": max(float((gk[n] - gp[n]).abs().max()) for n in gp),
+             "grads_ok": grads_ok}
+        emit(r)
+        small[recipe] = r
+        del res, gk, gp
+        if not (r["loss_abs"] <= loss_tol and grads_ok):
+            raise AssertionError(f"the reduced DiT through the kernels differs from the plain "
+                                 f"versions: {r}")
+    torch.cuda.empty_cache()
+    record["dit"] = {"config": DIT_WIDTH, "batch": DIT_B, "seq": DIT_S, "lr": DIT_LR,
+                     "noise": DIT_NOISE, "runs": out, "small_vs_plain": small}
+    return path_counts
+
+
 # The tensor-core kernels: library -> the stems of their function names.
 TC_KERNELS = {"flash_fwd": ("fwd_tc_kernel",), "flash_bwd": ("dq_tc_kernel", "dkv_tc_kernel"),
               "flash_dbias": ("dbias_tc_kernel",), "quant_bwd": ("dq_tc_kernel", "dkv_tc_kernel"),
@@ -3467,6 +3849,9 @@ SIMT_GONE = {"flash_fwd": ("flash_fwd_kernel",),
 # the mangled name) -> what it is. fused_qattn's D 256 instantiations
 # (its bf16-Q-tile layout), the fp32 dbias, and the bf16 instantiations of
 # flash_decode (template <DP, RT, BF16 = true>: "Lb1E").
+# fwd_tc_kernel's ROPE instantiations (RING, SPARSE, ROPE = false, false,
+# true), mangled.
+ROPE_MANGLED = "Lb0ELb0ELb1EE"
 NO_SPILL = {("fused_qattn", "fused_qattn_tc_kernel", "Li256E"): "fused_qattn D 256",
             ("flash_dbias", "dbias_tc_kernel", TF32_POLICY): "fp32 flash_dbias",
             ("flash_decode", "flash_decode_tc_kernel", "Lb1E"): "bf16 flash_decode"}
@@ -3565,6 +3950,9 @@ def phase_sass(record, report):
                 stem = next((st for st in stems if st in f), None)
                 if stem:
                     kernels[f"{lib}:{f}"] = {"library": lib, "stem": stem, **r}
+    rope = [f for f, r in kernels.items() if r["library"] == "flash_fwd" and ROPE_MANGLED in f]
+    if len(rope) != 12:  # bf16 and fp32 inputs, D 64/128/256, fp32 and bf16 out
+        raise AssertionError(f"flash_fwd holds {len(rope)} ROPE instantiations, not 12: {rope}")
     serialized = [ln.strip() for ln in report.get("mma_probe", {}).get("ptxas", "").splitlines()
                   if re.search(r"wgmma.*serialized", ln)]
     if serialized:
@@ -3634,7 +4022,10 @@ DESIGN = {
                  "fragment), 32-key fp32 tiles, D <= 256 (at D 129-256: 8 warps on 128 query "
                  "rows, 16-key tiles); with a BlockMask the SPARSE instantiation walks the "
                  "compacted key row of the block's map query tile, its key tiles from each map "
-                 "tile's first key, the bias read only on tiles that are not FULL",
+                 "tile's first key, the bias read only on tiles that are not FULL; with RoPE "
+                 "tables the ROPE instantiation rotates Q (rotate-half, fp32) as it stages it "
+                 "and each staged K tile in shared memory before any product reads it, a "
+                 "barrier after",
     "flash_bwd_dq": "tensor cores, the dQ body of quant_bwd_dq (csrc/bwd_tc.cuh dq_tc_kernel) "
                     "with a dense load stage (4 warps x 16 query rows, q·scale and dO staged "
                     "once, K/V key tiles copied by cp.async two steps ahead into three padded "
@@ -3833,6 +4224,11 @@ def main():
     timing.update(p_timing)
     worst.update(p_worst)
     path_counts.append(p_counts)
+    rope_timing, rope_worst, rope_counts = run(phase_rope)
+    timing["flash_fwd"]["rope"] = rope_timing
+    worst["flash_fwd"] = max(worst["flash_fwd"], rope_worst)
+    path_counts += rope_counts
+    path_counts += run(phase_dit)
     emit({"phase": "seconds", "build": build["seconds"], **seconds})
     record["phase_seconds"] = seconds
     launches = collections.Counter()
@@ -3866,13 +4262,17 @@ def main():
          "bound_ms": timing[name]["bound_ms"], "bound_by": timing[name]["bound_by"],
          "library_ms": timing[name]["library_ms"],
          "design": DESIGN.get(name, "CUDA cores, FP32 FMAs"),
-         **{key: timing[name][key] for key in ("variants", "block_sparse", "quant_block_sparse")
-            if key in timing[name]}}
+         **{key: timing[name][key] for key in ("variants", "block_sparse", "quant_block_sparse",
+                                               "rope") if key in timing[name]}}
         for name in src
     ]
     kernels[[k["name"] for k in kernels].index("flash_dbias")]["launches_by_dtype"] = {
         key.split("/")[1]: n for key, n in launches.items() if key.startswith("flash_dbias/")}
+    kernels[[k["name"] for k in kernels].index("flash_fwd")]["launches_rope"] = (
+        launches["flash_fwd/rope"])  # the ROPE instantiation's share of its launches
     missing = [k["name"] for k in kernels if k["launches"] <= 0]
+    if launches["flash_fwd/rope"] <= 0:
+        missing.append("flash_fwd/rope")
     if missing:
         raise AssertionError(f"kernels never launched on the driven paths: {missing}")
     record["kernels"] = kernels

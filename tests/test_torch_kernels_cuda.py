@@ -44,6 +44,7 @@ from umfa_tpu_torch.ops.flash_fwd import (
     walked_keys,
 )
 from umfa_tpu_torch.ops.quant import quantize
+from umfa_tpu_torch.ops.rope import rope_angles, rope_attention
 from umfa_tpu_torch.ops.quant_attention import (
     quantized_attention_forward,
     quantized_attention_forward_plain,
@@ -182,6 +183,106 @@ def test_flash_fwd_kernel_refuses_what_it_does_not_take(dev):
         q2, k2, v2 = _qkv(1, 2, 2, 64, 64, 320, dtype, dev)
         with pytest.raises(ValueError):
             flash_attention_forward(q2, k2, v2)
+
+
+# The ROPE instantiation of the forward body (rotate-half RoPE inside the
+# kernel: Q as it is staged, each K tile in shared memory) against the plain
+# version on the same tables, at the dense forward's gates; it counts as one
+# `flash_fwd` launch and one `flash_fwd/rope`.
+ROPE_CASES = [
+    # (b, hq, hkv, sq, sk, d, causal, window, bias_shape)
+    (2, 4, 2, 200, 200, 64, True, None, None),          # causal, GQA 2, S not a tile multiple
+    (1, 4, 4, 300, 300, 128, False, None, None),        # non-causal
+    (1, 2, 2, 130, 257, 64, True, None, None),          # Sq != Sk, KV tail
+    (1, 4, 2, 300, 300, 128, False, (50, 0), None),     # sliding window
+    (2, 2, 1, 96, 160, 80, False, (20, 10), "bq"),      # D 80, window, bias, GQA 2
+    (1, 4, 2, 64, 128, 64, True, None, "hqk"),          # per-head bias, Sq != Sk
+    (1, 4, 1, 700, 700, 64, True, None, None),          # rows past the 512-key pre-pass, GQA 4
+    (1, 4, 2, 130, 257, 256, True, None, None),         # D 256, KV tail
+    (2, 2, 1, 70, 300, 256, False, (40, 8), "hqk"),     # D 256, window, bias
+    (1, 2, 2, 300, 200, 192, False, None, None),        # D 192 (padded to 256), Sq > Sk
+    (1, 4, 2, 150, 150, 36, True, None, None),          # D/2 18: the tables a pair at a time
+]
+
+
+def _rope_bias(shape, dev):
+    bias = torch.randn(shape, generator=torch.Generator().manual_seed(1)).to(dev)
+    return torch.where(bias > 1.5, torch.full_like(bias, -1e30), bias)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ROPE_CASES)
+def test_flash_fwd_rope_kernel_matches_plain(dev, dtype, case):
+    b, hq, hkv, sq, sk, d, causal, window, bias_shape = case
+    q, k, v = _qkv(b, hq, hkv, sq, sk, d, dtype, dev, seed=4)
+    bias = None if bias_shape is None else _rope_bias(
+        {"bq": (b, 1, 1, sk), "hqk": (1, hq, sq, sk)}[bias_shape], dev)
+    cos, sin = rope_angles(max(sq, sk) + 3, d, device=dev)  # rows past S unread
+    kw = dict(causal=causal, window=window, rope_cos=cos, rope_sin=sin)
+    n0, r0 = _kernels.launches["flash_fwd"], _kernels.launches["flash_fwd/rope"]
+    out, lse = flash_attention_forward(q, k, v, bias, **kw)
+    torch.cuda.synchronize()
+    assert (_kernels.launches["flash_fwd"], _kernels.launches["flash_fwd/rope"]) == (n0 + 1, r0 + 1)
+    want, want_lse = flash_attention_forward_plain(q, k, v, bias, **kw)
+    assert out.dtype == dtype
+    _check(out.float(), lse, want.float(), want_lse, *TOLS[dtype])
+
+
+# As test_flash_fwd_fp32_keeps_highest_accuracy: the fp32 ROPE instantiation
+# (3xTF32) at 5e-6 against the plain version, causal S 1024, q ~ N(0, 3).
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_fwd_rope_fp32_keeps_highest_accuracy(dev, d):
+    q, k, v = _qkv(2, 4, 4, 1024, 1024, d, torch.float32, dev)
+    q = q * 3.0
+    cos, sin = rope_angles(1024, d, device=dev)
+    out, lse = flash_attention_forward(q, k, v, causal=True, rope_cos=cos, rope_sin=sin)
+    want, want_lse = flash_attention_forward_plain(q, k, v, causal=True, rope_cos=cos,
+                                                   rope_sin=sin)
+    _check(out, lse, want, want_lse, 5e-6, 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_fwd_rope_kernel_takes_unaligned_tables(dev, dtype):
+    # Tables 4 bytes past a 16-byte boundary: read a pair at a time.
+    q, k, v = _qkv(1, 4, 2, 200, 200, 64, dtype, dev, seed=6)
+    cos, sin = rope_angles(200, 64, device=dev)
+    off = [torch.empty(cos.numel() + 1, device=dev) for _ in range(2)]
+    for buf, t in zip(off, (cos, sin)):
+        buf[1:] = t.flatten()
+    ucos, usin = (buf[1:].view(200, 32) for buf in off)
+    assert ucos.data_ptr() % 16 and usin.data_ptr() % 16
+    out, lse = flash_attention_forward(q, k, v, causal=True, rope_cos=ucos, rope_sin=usin)
+    want, want_lse = flash_attention_forward_plain(q, k, v, causal=True, rope_cos=cos,
+                                                   rope_sin=sin)
+    _check(out.float(), lse, want.float(), want_lse, *TOLS[dtype])
+
+
+def test_flash_fwd_rope_kernel_refuses_tables_off_the_card(dev):
+    q, k, v = _qkv(1, 2, 2, 64, 64, 64, torch.bfloat16, dev)
+    cos, sin = rope_angles(64, 64, device="cpu")
+    with pytest.raises(ValueError, match="RoPE tables"):
+        flash_attention_forward(q, k, v, rope_cos=cos, rope_sin=sin)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rope_attention_on_the_card_matches_the_cpu(dev, dtype):
+    # The in-kernel route's forward and backward (rows 1-3) against the same
+    # call on the CPU (plain versions); bf16 at the backward's bf16 gate.
+    g = torch.Generator().manual_seed(5)
+    q, k, v = (torch.randn(s, generator=g).to(dtype)
+               for s in ((2, 4, 300, 64), (2, 2, 300, 64), (2, 2, 300, 64)))
+    w = torch.randn((2, 4, 300, 64), generator=g)
+    res = {}
+    for where in ("cuda", "cpu"):
+        t = [x.to(where).requires_grad_(True) for x in (q, k, v)]
+        r0 = _kernels.launches["flash_fwd/rope"]
+        out = rope_attention(*t, interleaved=False, causal=True)
+        (out.float() * w.to(where)).sum().backward()
+        assert _kernels.launches["flash_fwd/rope"] == r0 + (where == "cuda")
+        res[where] = [out.detach().cpu()] + [x.grad.cpu() for x in t]
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for a, b, name in zip(res["cuda"], res["cpu"], ("out", "dq", "dk", "dv")):
+        assert rel_err(a, b) <= tol, name
 
 
 QUANT_CASES = [
@@ -1979,3 +2080,28 @@ def _walked_instantiation(line: str) -> bool:
     demangled name: the trailing bool is true."""
     name = line.split(" ", 2)[2] if line.count(" ") >= 2 else line
     return ", true>" in name or ", (bool)1>" in name
+
+
+def test_rope_leaves_the_other_forward_instantiations_as_they_were():
+    """Registers, spills and HMMA counts of every dense, SPARSE and RING
+    instantiation of the forward body (flash_fwd, ring_attn) against a
+    parent tree without ROPE (`utils/sass_compare.py`; needs nvcc, not a
+    card; set UMFA_SASS_PARENT as above): nothing differs or goes, and the
+    new kernels are the twelve ROPE instantiations of flash_fwd."""
+    import os
+    import subprocess
+    import sys
+
+    parent = os.environ.get("UMFA_SASS_PARENT")
+    if not parent:
+        pytest.skip("set UMFA_SASS_PARENT to a parent tree to compare with")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    run = subprocess.run(
+        [sys.executable, os.path.join(repo, "umfa_tpu_torch", "utils", "sass_compare.py"),
+         "--tree", parent, "--new-bool", "--libs", "flash_fwd,ring_attn"],
+        capture_output=True, text=True, timeout=1200)
+    assert run.returncode == 0, run.stdout[-4000:] + run.stderr[-4000:]
+    lines = run.stdout.splitlines()
+    assert not [ln for ln in lines if ln.startswith(("DIFF", "GONE"))], run.stdout[-4000:]
+    new = [ln for ln in lines if ln.startswith("NEW")]
+    assert len(new) == 12 and all(ln.split()[1] == "flash_fwd" for ln in new), new

@@ -81,7 +81,8 @@ def test_error_metrics_take_numpy_and_torch():
 
 @pytest.mark.parametrize("name", ["quantize", "dequantize", "QuantizedTensor", "apply_rope",
                                   "BlockMask", "make_block_mask", "causal_block_mask",
-                                  "sliding_window_block_mask", "segment_block_mask"])
+                                  "sliding_window_block_mask", "segment_block_mask",
+                                  "rope_attention"])
 def test_top_level_exports_follow_the_reference(name):
     import umfa_tpu
     import umfa_tpu_torch

@@ -23,7 +23,10 @@ the ring kernels, and `ring_flash_attention`, over a `LocalRing` of
 virtual ranks on one card or a `DistRing` of processes; and the
 tensor-core probe `utils/mma_probe.py`; block-sparse masks
 (`ops/block_mask.py`: a BlockMask or a mask_mod through `attention()` and
-`flash_attention`, forward and backward walking the map's tiles).
+`flash_attention`, forward and backward walking the map's tiles);
+`rope_attention` (`ops/rope.py`: rotate-half RoPE inside the forward
+kernel); and the FLUX-shaped DiT (`models/dit.py`, dense or quantized,
+forward and training).
 
     import umfa_tpu_torch
     out = umfa_tpu_torch.attention(q, k, v, is_causal=True)
@@ -34,6 +37,7 @@ tensor-core probe `utils/mma_probe.py`; block-sparse masks
     ring_flash_attention_pallas(q, k, v, ring=LocalRing(4), causal=True).sum().backward()
     docs = umfa_tpu_torch.segment_block_mask(segment_ids, causal=True, device="cuda")
     umfa_tpu_torch.attention(q, k, v, docs).sum().backward()
+    umfa_tpu_torch.rope_attention(q, k, v, interleaved=False, causal=True).sum().backward()
 """
 
 from umfa_tpu_torch.api import (
@@ -63,7 +67,7 @@ from umfa_tpu_torch.ops.block_mask import (
 from umfa_tpu_torch.ops.hadamard import hadamard_rotate
 from umfa_tpu_torch.ops.quant import QuantizedTensor, dequantize, quantize
 from umfa_tpu_torch.ops.quant_attention import quantized_flash_attention
-from umfa_tpu_torch.ops.rope import apply_rope
+from umfa_tpu_torch.ops.rope import apply_rope, rope_attention
 
 __all__ = [
     "attention",
@@ -91,4 +95,5 @@ __all__ = [
     "sliding_window_block_mask",
     "segment_block_mask",
     "apply_rope",
+    "rope_attention",
 ]

@@ -2,7 +2,8 @@
 //
 // Replaces umfa_tpu/ops/flash_fwd.py:296 `_fwd_kernel` (host
 // `flash_attention_forward`, flash_fwd.py:762), with its block-sparse walk
-// (:340-357), without its in-kernel RoPE. The tensor-core body of fwd_tc.cuh
+// (:340-357) and its in-kernel rotate-half RoPE (:284-293, :374-378,
+// :425-431). The tensor-core body of fwd_tc.cuh
 // (`fwd_tc_kernel`), with the product policy chosen by the input dtype:
 //   * bf16 inputs: `Bf16Mma`, mma.sync m16n8k16 bf16 -> fp32, D <= 256;
 //   * fp32 inputs (fp16 arrives promoted to fp32): `Tf32x3Mma`, both
@@ -18,7 +19,10 @@
 // (query, key) pair, 2.66e11 flop, against ~0.07 GB of Q/K/V/out read or
 // written once (bf16): operation-bound, 0.269 ms at 989 TFLOP/s bf16
 // against ~0.02 ms of HBM time; in fp32 the floor is three TF32 products
-// for each fp32 one, 1.61 ms at 495 TFLOP/s (6.45 ms at D 256).
+// for each fp32 one, 1.61 ms at 495 TFLOP/s (6.45 ms at D 256). With RoPE
+// at the FLUX geometry (B1 H24 S4608 D128, non-causal) 2.61e11 flop, 0.264
+// ms; the rotation adds 3 flop an element of Q and K and the tables' bytes
+// once (2.4 MB): still operation-bound.
 //
 // What the design does about it (fwd_tc.cuh): the FA2 shape on mma.sync,
 // 4 warps x 16 query rows (fp32 D 256: 8 warps), Q in registers as A
@@ -58,28 +62,39 @@
 //     SPARSE instantiation (fwd_tc.cuh), the compacted row fetch_kv of the
 //     block's map query tile; the bias is read only on tiles that are not
 //     FULL. A simple walk: the map's tiles are walked in full where the
-//     mask leaves part of them empty, and nothing is fused across tiles.
+//     mask leaves part of them empty, and nothing is fused across tiles;
+//   * RoPE (angle tables given): the body's ROPE instantiation rotates Q
+//     (rotate-half, fp32) as it stages it, then scales and rounds it once,
+//     and each K tile in shared memory after its copy lands, rounded to
+//     K's type; not with a map. A simple rotation: each K tile is rotated
+//     every time it is staged (by every query tile of its head, the
+//     pre-pass's tiles again in the main walk), its table rows read from
+//     L2 (16-byte loads of 4 pairs where D % 8 == 0, several in flight),
+//     with one more barrier a step. In bf16 the tables are as many bytes
+//     as the K and V tiles they rotate; the pass sits between two barriers.
 #include "fwd_tc.cuh"
 
 using namespace umfa;
 
 namespace {
 
-template <typename Tout, bool SPARSE>
+template <typename Tout, bool SPARSE, bool ROPE>
 cudaError_t launch_d(const FwdParams& p, bool bf16, cudaStream_t stream) {
   if (bf16) {
-    if (p.D <= 64) return launch_fwd_tc<Bf16Mma, Tout, 64, false, SPARSE>(p, stream);
-    if (p.D <= 128) return launch_fwd_tc<Bf16Mma, Tout, 128, false, SPARSE>(p, stream);
-    return launch_fwd_tc<Bf16Mma, Tout, 256, false, SPARSE>(p, stream);
+    if (p.D <= 64) return launch_fwd_tc<Bf16Mma, Tout, 64, false, SPARSE, ROPE>(p, stream);
+    if (p.D <= 128) return launch_fwd_tc<Bf16Mma, Tout, 128, false, SPARSE, ROPE>(p, stream);
+    return launch_fwd_tc<Bf16Mma, Tout, 256, false, SPARSE, ROPE>(p, stream);
   }
-  if (p.D <= 64) return launch_fwd_tc<Tf32x3Mma, Tout, 64, false, SPARSE>(p, stream);
-  if (p.D <= 128) return launch_fwd_tc<Tf32x3Mma, Tout, 128, false, SPARSE>(p, stream);
-  return launch_fwd_tc<Tf32x3Mma, Tout, 256, false, SPARSE>(p, stream);
+  if (p.D <= 64) return launch_fwd_tc<Tf32x3Mma, Tout, 64, false, SPARSE, ROPE>(p, stream);
+  if (p.D <= 128) return launch_fwd_tc<Tf32x3Mma, Tout, 128, false, SPARSE, ROPE>(p, stream);
+  return launch_fwd_tc<Tf32x3Mma, Tout, 256, false, SPARSE, ROPE>(p, stream);
 }
 
 template <typename Tout>
 cudaError_t launch_walk(const FwdParams& p, bool bf16, cudaStream_t stream) {
-  return p.sm.map ? launch_d<Tout, true>(p, bf16, stream) : launch_d<Tout, false>(p, bf16, stream);
+  if (p.rope_cos) return launch_d<Tout, false, true>(p, bf16, stream);
+  return p.sm.map ? launch_d<Tout, true, false>(p, bf16, stream)
+                  : launch_d<Tout, false, false>(p, bf16, stream);
 }
 
 }  // namespace
@@ -90,18 +105,24 @@ cudaError_t launch_walk(const FwdParams& p, bool bf16, cudaStream_t stream) {
 // float32. map (null: no walk): the block-sparse map (Bm, Hm, nq, nk) int32
 // of block_q x block_k tiles and fetch, its compacted key-tile table
 // fetch_kv (Bm, Hm, nq, width), with the element strides of their batch
-// and head (0 = broadcast). Returns the cudaError_t of the launch.
+// and head (0 = broadcast). rope_cos/rope_sin (null: no RoPE): the
+// rotate-half angle tables, fp32 (>= max(Sq, Sk), D/2), D even, no map.
+// Returns the cudaError_t of the launch.
 extern "C" int umfa_flash_fwd(const void* q, const void* k, const void* v, const void* bias,
                               void* out, void* lse, int B, int Hq, int Hkv, int Sq, int Sk,
                               int D, long long bsb, long long bsh, long long bsq,
                               long long bsk, float scale, int left, int right, int in_dtype,
                               int out_dtype, const void* map, const void* fetch, int block_q,
                               int block_k, int nq, int nk, int width, long long msb,
-                              long long msh, long long fsb, long long fsh, void* stream) {
+                              long long msh, long long fsb, long long fsh,
+                              const void* rope_cos, const void* rope_sin, void* stream) {
   SparseMap sm;
   if (D < 1 || D > 256 || Hkv < 1 || Hq % Hkv != 0 || in_dtype < 0 || in_dtype > 1 ||
       out_dtype < 0 || out_dtype > 1 ||
       !sparse_map(&sm, map, fetch, block_q, block_k, nq, nk, width, msb, msh, fsb, fsh))
+    return cudaErrorInvalidValue;
+  if ((rope_cos == nullptr) != (rope_sin == nullptr) ||
+      (rope_cos && (D % 2 != 0 || map != nullptr)))
     return cudaErrorInvalidValue;
   const int per16 = in_dtype == 1 ? 8 : 4;  // elements a 16-byte copy
   const int vec = D % per16 == 0 && ((reinterpret_cast<uintptr_t>(k) |
@@ -128,6 +149,10 @@ extern "C" int umfa_flash_fwd(const void* q, const void* k, const void* v, const
   p.right = right;
   p.vec = vec;
   p.sm = sm;
+  p.rope_cos = static_cast<const float*>(rope_cos);
+  p.rope_sin = static_cast<const float*>(rope_sin);
+  p.rope_vec = D % 8 == 0 && ((reinterpret_cast<uintptr_t>(rope_cos) |
+                               reinterpret_cast<uintptr_t>(rope_sin)) & 15) == 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool bf16 = in_dtype == 1;
   return out_dtype == 0 ? launch_walk<float>(p, bf16, st) : launch_walk<__nv_bfloat16>(p, bf16, st);

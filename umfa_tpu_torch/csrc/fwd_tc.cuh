@@ -50,6 +50,18 @@
 // for the block (a BlockMask's bias is 0 on FULL tiles); where the block
 // straddles map query tiles, each element looks up its own tile's class.
 //
+// ROPE (a template parameter, so the other instantiations compile as
+// without it; not combined with RING or SPARSE): rotate-half RoPE inside
+// the kernel (the reference's flash_fwd.py:284-293, :374-378, :425-431).
+// Q is rotated in fp32 as it is staged, element c against element c ± D/2
+// of its row and table row q0 + r, then scaled and rounded once to its
+// type; each staged K tile (the pre-pass's too: an unrotated pre-pass
+// would seed the running max from the wrong scores) is rotated in shared
+// memory in fp32 and rounded to its type after its copy landed and before
+// any product reads it, a barrier after. Each product and sum of the
+// rotation is rounded on its own (no FMA), as the plain version computes
+// it. Rows past Sk stay zero. Rotated Q and K never reach device memory.
+//
 // RING (a template parameter, so the dense instantiations compile as
 // without it): what the step sees is the band (left, right) plus two
 // limits, query rows below q_lo and keys at or past k_hi hidden; the step's
@@ -85,7 +97,66 @@ struct FwdParams {
   // (o, lse), else merge into them.
   int q_lo, k_hi, block_k, first;
   SparseMap sm;  // read only by the SPARSE instantiations: the map and fetch_kv
+  // Read only by the ROPE instantiations: the rotate-half angle tables,
+  // fp32, at least max(Sq, Sk) rows of D/2 (query row i and key row j
+  // take table row i and j).
+  const float* rope_cos;
+  const float* rope_sin;
+  int rope_vec;  // D % 8 == 0 and both tables 16-byte aligned: 4 pairs a load
 };
+
+// Rotate-half RoPE of one element x against its partner (the element
+// D/2 away in the same row) at angle (cs, sn): x·cos − partner·sin in the
+// lower half, x·cos + partner·sin in the upper; products and sum rounded
+// one at a time (no FMA contraction), as the plain version rounds them.
+__device__ __forceinline__ float rope_rotate(float x, float partner, float cs, float sn,
+                                             bool lower) {
+  const float a = __fmul_rn(x, cs), b = __fmul_rn(partner, sn);
+  return lower ? __fsub_rn(a, b) : __fadd_rn(a, b);
+}
+
+// Rotate the pair (c, c + h2) of a row in shared memory, in fp32, each
+// element rounded back to T.
+template <typename T>
+__device__ __forceinline__ void rope_rotate_pair(T* row, int c, int h2, float cs, float sn) {
+  const float x1 = Elem<T>::load(row, c), x2 = Elem<T>::load(row, c + h2);
+  Elem<T>::store(row, c, rope_rotate(x1, x2, cs, sn, true));
+  Elem<T>::store(row, c + h2, rope_rotate(x2, x1, cs, sn, false));
+}
+
+// Rotate rows [0, ROWS) of a staged K tile (row stride LD, key k0 + r in
+// row r) in place; rows at or past sk stay as they are (zero). Each thread
+// owns whole pairs. The table reads are L2 hits whose latency, not their
+// bytes, bounds the pass: with `vec` a thread takes 4 pairs of a row at
+// once (one 16-byte load of each table) and several groups are in flight.
+template <int ROWS, int DP, int LD, int NT, typename T>
+__device__ __forceinline__ void rope_rotate_tile(T* sK, int k0, int sk, int d, bool vec,
+                                                 const float* cos_t, const float* sin_t) {
+  const int h2 = d >> 1;
+  if (vec) {
+    constexpr int G4 = DP / 8;  // groups of 4 pairs in a padded row
+#pragma unroll 4
+    for (int e = threadIdx.x; e < ROWS * G4; e += NT) {
+      const int r = e / G4, c = (e - r * G4) * 4;
+      if (k0 + r >= sk || c >= h2) continue;
+      const long long t = (long long)(k0 + r) * h2 + c;
+      const float4 cs = __ldg(reinterpret_cast<const float4*>(cos_t + t));
+      const float4 sn = __ldg(reinterpret_cast<const float4*>(sin_t + t));
+      T* row = sK + r * LD;
+      rope_rotate_pair(row, c, h2, cs.x, sn.x);
+      rope_rotate_pair(row, c + 1, h2, cs.y, sn.y);
+      rope_rotate_pair(row, c + 2, h2, cs.z, sn.z);
+      rope_rotate_pair(row, c + 3, h2, cs.w, sn.w);
+    }
+  } else {
+    for (int e = threadIdx.x; e < ROWS * h2; e += NT) {
+      const int r = e / h2, c = e - r * h2;
+      if (k0 + r >= sk) continue;
+      const long long t = (long long)(k0 + r) * h2 + c;
+      rope_rotate_pair(sK + r * LD, c, h2, __ldg(cos_t + t), __ldg(sin_t + t));
+    }
+  }
+}
 
 // Tiles and occupancy. bf16: 64-key tiles, four blocks an SM at D 64 (the
 // dense forward; registers capped at 128), three in ring mode (WALK: the
@@ -192,10 +263,12 @@ struct RingWalk {
   }
 };
 
-template <class Mma, typename Tout, int DP, bool RING = false, bool SPARSE = false>
+template <class Mma, typename Tout, int DP, bool RING = false, bool SPARSE = false,
+          bool ROPE = false>
 __global__ void __launch_bounds__((FwdTile<DP, Mma, RING || SPARSE>::NT),
                                   (FwdTile<DP, Mma, RING || SPARSE>::MINB))
     fwd_tc_kernel(const FwdParams p) {
+  static_assert(!(ROPE && (RING || SPARSE)), "in-kernel RoPE takes the dense walk only");
   using G = FwdTile<DP, Mma, RING || SPARSE>;
   using T = typename Mma::T;
   constexpr int LD = G::LD, KT = G::KT, BQ = G::BQ, NT = G::NT;
@@ -264,14 +337,33 @@ __global__ void __launch_bounds__((FwdTile<DP, Mma, RING || SPARSE>::NT),
     cp_async_commit();
   }
 
-  for (int e = tid; e < BQ * DP; e += NT) {
-    const int r = e / DP, c = e - r * DP;
-    float x = 0.f;
-    if (q0 + r < p.Sq && c < p.D) {
-      x = Elem<T>::load(q, (long long)(q0 + r) * p.D + c);
-      if constexpr (!RING) x = x * p.scale;  // the ring scales the dot, not Q
+  if constexpr (ROPE) {  // Q rotated and scaled in fp32, rounded once
+    const int h2 = p.D >> 1;
+#pragma unroll 4
+    for (int e = tid; e < BQ * DP; e += NT) {
+      const int r = e / DP, c = e - r * DP;
+      float x = 0.f;
+      if (q0 + r < p.Sq && c < p.D) {
+        const long long row = (long long)(q0 + r) * p.D;
+        const int lower = c < h2, cc = lower ? c : c - h2;
+        const long long t = (long long)(q0 + r) * h2 + cc;
+        x = __fmul_rn(rope_rotate(Elem<T>::load(q, row + c),
+                                  Elem<T>::load(q, row + (lower ? c + h2 : cc)),
+                                  __ldg(p.rope_cos + t), __ldg(p.rope_sin + t), lower),
+                      p.scale);
+      }
+      sQ[r * LD + c] = static_cast<T>(x);
     }
-    sQ[r * LD + c] = static_cast<T>(x);
+  } else {
+    for (int e = tid; e < BQ * DP; e += NT) {
+      const int r = e / DP, c = e - r * DP;
+      float x = 0.f;
+      if (q0 + r < p.Sq && c < p.D) {
+        x = Elem<T>::load(q, (long long)(q0 + r) * p.D + c);
+        if constexpr (!RING) x = x * p.scale;  // the ring scales the dot, not Q
+      }
+      sQ[r * LD + c] = static_cast<T>(x);
+    }
   }
   __syncthreads();
 
@@ -333,6 +425,11 @@ __global__ void __launch_bounds__((FwdTile<DP, Mma, RING || SPARSE>::NT),
       cp_async_wait<0>();
     }
     __syncthreads();
+    if constexpr (ROPE) {  // the landed K tile, rotated before any product reads it
+      rope_rotate_tile<KT, DP, LD, NT>(sKV + cur * 2 * KT * LD, k0, p.Sk, p.D, p.rope_vec,
+                                       p.rope_cos, p.rope_sin);
+      __syncthreads();
+    }
     const T* cK = sKV + cur * 2 * KT * LD;
     const T* cV = cK + KT * LD;
 
@@ -488,11 +585,12 @@ __global__ void __launch_bounds__((FwdTile<DP, Mma, RING || SPARSE>::NT),
   }
 }
 
-template <class Mma, typename Tout, int DP, bool RING = false, bool SPARSE = false>
+template <class Mma, typename Tout, int DP, bool RING = false, bool SPARSE = false,
+          bool ROPE = false>
 cudaError_t launch_fwd_tc(const FwdParams& p, cudaStream_t stream) {
   using G = FwdTile<DP, Mma, RING || SPARSE>;
   constexpr int smem = G::SMEM;
-  const auto kernel = fwd_tc_kernel<Mma, Tout, DP, RING, SPARSE>;
+  const auto kernel = fwd_tc_kernel<Mma, Tout, DP, RING, SPARSE, ROPE>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;

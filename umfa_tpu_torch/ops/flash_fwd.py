@@ -40,6 +40,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from umfa_tpu_torch import _kernels
+from umfa_tpu_torch.ops.rotary import apply_rope
 
 DEFAULT_MASK_VALUE = -1e30
 SKIP = 0  # a tile of a block-sparse map that no row walks (ops/block_mask.py)
@@ -51,7 +52,7 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # and the table's batch and head (0 = broadcast).
 WALK_ARGTYPES = (_P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L)
 _ARGTYPES = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _L, _L,
-             ctypes.c_float, _I, _I, _I, _I, *WALK_ARGTYPES, _P)
+             ctypes.c_float, _I, _I, _I, _I, *WALK_ARGTYPES, _P, _P, _P)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -235,10 +236,11 @@ class _Prepared(NamedTuple):
     out_dtype: torch.dtype
     fp16_out: bool
     walk: Optional[Walk] = None
+    rope: Optional[tuple] = None  # (cos, sin): fp32, contiguous, (S_tab, D/2)
 
 
 def _prepare(q, k, v, bias, causal, window, scale, out_dtype,
-             walk: Optional[Walk] = None) -> _Prepared:
+             walk: Optional[Walk] = None, rope: Optional[tuple] = None) -> _Prepared:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be (B, H, S, D)")
     b, hq, sq, d = q.shape
@@ -270,8 +272,32 @@ def _prepare(q, k, v, bias, causal, window, scale, out_dtype,
     left, right = fold_mask(causal, window)
     if walk is not None:
         _check_walk(walk, b, hq, sq, sk)
+    if rope is not None:
+        rope = _check_rope(rope, d, max(sq, sk), walk)
     return _Prepared(q, k, v, bias, float(d**-0.5 if scale is None else scale),
-                     left, right, out_dtype, fp16_out, walk)
+                     left, right, out_dtype, fp16_out, walk, rope)
+
+
+def make_rope(rope_cos, rope_sin) -> Optional[tuple]:
+    """The public RoPE keyword arguments as a (cos, sin) pair; None without."""
+    if (rope_cos is None) != (rope_sin is None):
+        raise ValueError("rope_cos and rope_sin come together")
+    return None if rope_cos is None else (rope_cos, rope_sin)
+
+
+def _check_rope(rope: tuple, d: int, rows: int, walk: Optional[Walk]) -> tuple:
+    """Refuse angle tables that do not fit (rows, D/2) or a walk beside them;
+    return them as contiguous fp32."""
+    cos, sin = rope
+    if walk is not None:
+        raise ValueError("in-kernel RoPE does not combine with a block-sparse walk: "
+                         "rope_attention sends a block_mask to its two-pass route")
+    if d % 2:
+        raise ValueError(f"in-kernel RoPE needs an even head_dim, got {d}")
+    for name, t in (("rope_cos", cos), ("rope_sin", sin)):
+        if t.dim() != 2 or t.shape[0] < rows or t.shape[1] != d // 2:
+            raise ValueError(f"{name} shape {tuple(t.shape)} does not fit (>= {rows}, {d // 2})")
+    return cos.float().contiguous(), sin.float().contiguous()
 
 
 def flash_attention_forward(
@@ -288,6 +314,8 @@ def flash_attention_forward(
     fetch_ids: Optional[torch.Tensor] = None,
     block_q: Optional[int] = None,
     block_k: Optional[int] = None,
+    rope_cos: Optional[torch.Tensor] = None,
+    rope_sin: Optional[torch.Tensor] = None,
 ):
     """Flash attention forward. q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D)
     with Hq % Hkv == 0 (GQA); bias: additive, broadcastable to
@@ -295,18 +323,23 @@ def flash_attention_forward(
     (Bm, Hm, ceil(Sq / block_q), ceil(Sk / block_k)) int32 and fetch_ids,
     its compacted key-tile table (a BlockMask's fetch_kv), restrict each
     row to the keys of its walked tiles (the module docstring).
+    rope_cos/rope_sin: (S >= max(Sq, Sk), D/2) angle tables; Q and K are
+    rotated (rotate-half) inside the kernel (the module docstring).
 
     Returns (out (B, Hq, Sq, D) in out_dtype (default q.dtype),
     lse (B, Hq, Sq) float32)."""
     return _forward(q, k, v, bias, causal, window, scale, out_dtype,
-                    make_walk(block_map, fetch_ids, None, block_q, block_k))
+                    make_walk(block_map, fetch_ids, None, block_q, block_k),
+                    make_rope(rope_cos, rope_sin))
 
 
-def _forward(q, k, v, bias, causal, window, scale, out_dtype, walk: Optional[Walk]):
-    """`flash_attention_forward` with its block-sparse arguments as a Walk."""
+def _forward(q, k, v, bias, causal, window, scale, out_dtype, walk: Optional[Walk],
+             rope: Optional[tuple] = None):
+    """`flash_attention_forward` with its block-sparse arguments as a Walk
+    and its angle tables as a (cos, sin) pair."""
     check_no_grad("flash_attention_forward", q, k, v, bias,
                   hint="call ops.attention.flash_attention for gradients")
-    p = _prepare(q, k, v, bias, causal, window, scale, out_dtype, walk)
+    p = _prepare(q, k, v, bias, causal, window, scale, out_dtype, walk, rope)
     if p.q.device.type == "cpu":
         out, lse = _plain(p)
     else:
@@ -316,12 +349,13 @@ def _forward(q, k, v, bias, causal, window, scale, out_dtype, walk: Optional[Wal
 
 def flash_attention_forward_plain(
     q, k, v, bias=None, *, causal=False, window=None, scale=None, out_dtype=None,
-    block_map=None, fetch_ids=None, block_q=None, block_k=None,
+    block_map=None, fetch_ids=None, block_q=None, block_k=None, rope_cos=None, rope_sin=None,
 ):
     """The kernel's arithmetic in plain PyTorch, on any device. Same
     arguments and results as `flash_attention_forward`."""
     p = _prepare(q, k, v, bias, causal, window, scale, out_dtype,
-                 make_walk(block_map, fetch_ids, None, block_q, block_k))
+                 make_walk(block_map, fetch_ids, None, block_q, block_k),
+                 make_rope(rope_cos, rope_sin))
     out, lse = _plain(p)
     return (out.half() if p.fp16_out else out), lse
 
@@ -330,9 +364,15 @@ def _plain(p: _Prepared):
     b, hq, sq, d = p.q.shape
     _, hkv, sk, _ = p.k.shape
     g = hq // hkv
-    qs = (p.q.float() * p.scale).to(p.q.dtype).float()
+    qf, kf = p.q.float(), p.k.float()
+    if p.rope is not None:
+        # Q rotated and scaled in fp32, rounded once; K rounded to its type.
+        cos, sin = p.rope
+        qf = apply_rope(qf, cos[:sq], sin[:sq], interleaved=False)
+        kf = apply_rope(kf, cos[:sk], sin[:sk], interleaved=False).to(p.k.dtype).float()
+    qs = (qf * p.scale).to(p.q.dtype).float()
     # GQA: fold the group into the query rows (h = hk * g + gi).
-    s = torch.matmul(qs.reshape(b, hkv, g * sq, d), p.k.float().transpose(-1, -2))
+    s = torch.matmul(qs.reshape(b, hkv, g * sq, d), kf.transpose(-1, -2))
     s = s.reshape(b, hq, sq, sk)
     if p.bias is not None:
         s += p.bias
@@ -368,6 +408,8 @@ def _launch(p: _Prepared):
     _, hkv, sk, _ = k.shape
     if d > 256:
         raise ValueError(f"flash_fwd kernels take head_dim <= 256, got {d}")
+    if p.rope is not None and any(t.device != q.device for t in p.rope):
+        raise ValueError(f"the RoPE tables lie on {p.rope[0].device}, q on {q.device}")
     walk = walk_args(p.walk, "fetch_kv", q.device)
     out = torch.empty((b, hq, sq, d), dtype=p.out_dtype, device=q.device)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
@@ -383,7 +425,10 @@ def _launch(p: _Prepared):
             b, hq, hkv, sq, sk, d, bsb, bsh, bsq, bsk,
             p.scale, p.left, p.right,
             _DTYPE_CODE[q.dtype], _DTYPE_CODE[p.out_dtype], *walk,
+            *((None, None) if p.rope is None else (p.rope[0].data_ptr(), p.rope[1].data_ptr())),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _kernels.check("flash_fwd", err)
+    if p.rope is not None:  # the ROPE instantiation: also counted on its own
+        _kernels.launches["flash_fwd/rope"] += 1
     return out, lse

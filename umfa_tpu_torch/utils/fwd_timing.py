@@ -1,6 +1,6 @@
 """Time the attention forwards of a source tree on the card.
 
-    python umfa_tpu_torch/utils/fwd_timing.py [--tree DIR] [--label NAME] (--fp32 | --ring | --bf16)
+    python umfa_tpu_torch/utils/fwd_timing.py [--tree DIR] [--label NAME] (--fp32 | --ring | --bf16 | --rope)
 
 Imports `umfa_tpu_torch` from DIR (default: the tree this file is in), so
 another tree, such as a parent commit unpacked with `git archive`, can be
@@ -28,6 +28,12 @@ kernel refuses is printed as refused.
 --bf16: the unmasked bf16 `flash_fwd` at the training shape (B8 Hq16 Hkv8,
 causal S 4096, seeded normals) at D 64 and 128, each with its relerr
 against the plain version.
+
+--rope: `flash_fwd` with RoPE tables (the ROPE instantiation, Q and K
+rotated inside the kernel) at rope_attention's geometries (ROPE_SHAPES,
+which `chip_smoke.py` also drives), each with its relerr against the plain
+version, beside the same kernel without tables on the same inputs (the
+rotation's cost); `chip_smoke.py` times the two-pass route and SDPA.
 
 Prints one JSON line per timing, then the card's name and power limit as
 nvidia-smi gives them. Needs a CUDA device.
@@ -195,6 +201,44 @@ def _time_bf16(emit, stats):
         torch.cuda.empty_cache()
 
 
+# rope_attention's geometries (scripts/rope_ab.py:17-18): FLUX, B1 H24
+# S4608 D128 non-causal; S4K, B2 H16 S4096 D64 causal; bf16, and the S4K
+# geometry once in fp32. (name, B, H, S, D, causal, dtype)
+ROPE_SHAPES = (("flux", 1, 24, 4608, 128, False, "bfloat16"),
+               ("s4k", 2, 16, 4096, 64, True, "bfloat16"),
+               ("s4k_fp32", 2, 16, 4096, 64, True, "float32"))
+
+
+def _time_rope(emit, stats):
+    import torch
+
+    from umfa_tpu_torch.ops.flash_fwd import flash_attention_forward, flash_attention_forward_plain
+    from umfa_tpu_torch.ops.rope import rope_angles
+    from umfa_tpu_torch.utils.testing import rel_err
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(0)
+    for name, b, h, s, d, causal, dt in ROPE_SHAPES:
+        q, k, v = (torch.randn((b, h, s, d), generator=gen).to(dev, getattr(torch, dt))
+                   for _ in range(3))
+        cos, sin = rope_angles(s, d, device=dev)
+
+        def rope(q=q, k=k, v=v):
+            return flash_attention_forward(q, k, v, causal=causal, rope_cos=cos, rope_sin=sin)
+
+        def dense(q=q, k=k, v=v):
+            return flash_attention_forward(q, k, v, causal=causal)
+
+        err = rel_err(rope()[0], flash_attention_forward_plain(
+            q, k, v, causal=causal, rope_cos=cos, rope_sin=sin)[0])
+        torch.cuda.empty_cache()
+        emit(kernel="flash_fwd/rope", case=name, dtype=dt, relerr=err,
+             shape=f"B{b} H{h} S{s} D{d} {'causal' if causal else 'non-causal'}", **stats(rope),
+             dense_ms=stats(dense)["ms"])
+        del q, k, v
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -204,6 +248,7 @@ def main(argv=None) -> int:
     mode.add_argument("--fp32", action="store_true", help="flash_fwd on fp32 inputs at the prefill")
     mode.add_argument("--ring", action="store_true", help="ring_fwd_step and the whole ring forward")
     mode.add_argument("--bf16", action="store_true", help="the bf16 flash_fwd at the training shape")
+    mode.add_argument("--rope", action="store_true", help="flash_fwd with in-kernel RoPE")
     args = ap.parse_args(argv)
     tree = os.path.abspath(args.tree)
     if sys.path and os.path.abspath(sys.path[0]) == here:
@@ -227,7 +272,8 @@ def main(argv=None) -> int:
     def emit(**kw):
         print(json.dumps({"tree": args.label, **kw}), flush=True)
 
-    (_time_ring if args.ring else _time_bf16 if args.bf16 else _time_fp32)(emit, _stats)
+    (_time_ring if args.ring else _time_bf16 if args.bf16 else _time_rope if args.rope
+     else _time_fp32)(emit, _stats)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True,
                          timeout=60).stdout.strip().splitlines()[0], flush=True)
