@@ -12,7 +12,8 @@ Phases, one JSON line each:
      `quant_bwd_dq`, `quant_bwd_dkv`; the fp32 `flash_fwd`, dQ, dK/dV and
      dbias; `ring_fwd_step`, `ring_bwd_dq`, `ring_bwd_dkv`; `flash_decode`,
      bf16 and tf32): their HMMA
-     instructions (TF32 ones in the fp32 instantiations of the dense
+     instructions (IMMA in place of HMMA in the pv_int8 instantiations of
+     `quant_attn_fwd` and `fused_qattn`, 12 and 24 of them) (TF32 ones in the fp32 instantiations of the dense
      forward and backward, of the dbias and of the ring kernels, at D 64,
      128 and 256; no CUDA-core kernel left in `flash_fwd`, `flash_bwd`,
      `flash_dbias`, `ring_attn` or `flash_decode`), and for `quant_attn_fwd` also its IMMA
@@ -160,13 +161,30 @@ Phases, one JSON line each:
      floor, both passes' QKᵀ in double at the FP64 tensor rate, and its
      worst LSE abs error, held to 1e-5) and, for the backward, the flash
      SDPA backward on the dequantized operands (a yardstick only);
+  8a. pv_int8, the integer P·V: `fused_qattn`'s PV instantiation against
+     its plain version at the training shape (B8 Hq16 Hkv8 S4096 D64
+     causal bf16, int8 ROW) and at B2 under int8 BLOCK, a dense Q, D 128
+     and 256, non-causal, and causal documents of 512 under a BlockMask;
+     `quant_attn_fwd`'s at the prefill shape (int8) and under the int4
+     recipe (INT4 Q and K, the corr row), V per the reference's KV tile;
+     out relerr 1e-3, LSE 1e-3, V's residual codes at most one apart, and
+     the count of P codes that differ from the plain version's; each timed
+     (median, min and max of 10) beside the same call without pv_int8, its
+     plain version and its bound (P·V at the int8 rate; row 7 also its
+     FP64 floor); then the accuracy cell of bench.py:852-884 (B2 H16 S4096
+     D64, iid bf16, non-causal): int8 and int8 pv_int8 against fp64
+     attention, beside the v5e history, pv_int8 held to 0.02;
   9. quantized training at full width (the same model and batch, lr
      TRAIN_LR): the int8 recipe for a warm-up and three SGD steps, int4,
      int8-qdense, int8 and int4 with BLOCK scales and int8 ASYMMETRIC for
-     a warm-up and one each; each step with a finite loss below the step
-     before's and exactly 8 fused_qattn launches and 8 of each backward
-     kernel of its route (quant_bwd_dq/dkv, or flash_bwd_dq/dkv for the
-     dense Q and ASYMMETRIC), none of the others;
+     a warm-up and one each, int8 with pv_int8 for a warm-up and three;
+     each step with a finite loss below the step before's and exactly 8
+     fused_qattn launches (8 of them `fused_qattn/pv` under pv_int8) and 8
+     of each backward kernel of its route (quant_bwd_dq/dkv, or
+     flash_bwd_dq/dkv for the dense Q and ASYMMETRIC), none of the others;
+     then int8 pv_int8 once on the two-pass route (16 quant_rows, 8
+     quant_attn_fwd, all `quant_attn_fwd/pv`, 8 of each quantized backward
+     kernel);
  10. `attention()` under int8 through the two-pass route (quant_rows three
      times, quant_attn_fwd once, then the backward kernels) with
      UMFA_DISABLE_FUSED_QUANT=1 (at D 64 and 63: codes zero-padded to 64
@@ -241,9 +259,12 @@ Every path (each serving run, both timed continuous-batching runs, the
 timed training steps, the attention() phase, the three full-width
 block-sparse runs and the nine quantized ones, the two full-width ring runs,
 the probe's five reps-1024 calls, the three rope_attention paths, the
-DiT's forwards and timed steps) is driven with the launch counts set to 0
+DiT's forwards and timed steps, the pv_int8 accuracy cell's two calls and
+its two-pass training step) is driven with the launch counts set to 0
 just before it and read just after; a kernel's `launches` in the kernels
-line is its sum over them.
+line is its sum over them; `launches_pv` of `fused_qattn` and
+`quant_attn_fwd`, and `launches_rope` of `flash_fwd`, their PV and ROPE
+instantiations' share, each of which must be positive.
 
 Any failed check raises, so the script exits non-zero. Without a CUDA
 device, or without the rest of the repository beside it, it exits non-zero
@@ -2296,12 +2317,15 @@ def recipe_kwargs(name):
 
 def quant_config(recipe):
     """The QuantizationConfig of a training recipe: a mode string of the
-    reference ("int8", "int4", "int8-qdense"), "<precision>-block", or
-    "<precision>-asym" (that recipe, ASYMMETRIC)."""
+    reference ("int8", "int4", "int8-qdense"), "<precision>-block",
+    "<precision>-asym" (that recipe, ASYMMETRIC), or "<recipe>-pv" (that
+    recipe with pv_int8)."""
     import dataclasses as dc
 
     from umfa_tpu_torch.engine.config import QuantizationConfig, QuantStrategy
 
+    if recipe.endswith("-pv"):
+        return dc.replace(quant_config(recipe[:-3]), pv_int8=True)
     if recipe.endswith("-asym"):
         return dc.replace(QuantizationConfig.from_mode_string(recipe[:-5]),
                           strategy=QuantStrategy.ASYMMETRIC)
@@ -2706,6 +2730,195 @@ def phase_quant_kernels(record):
     return timing, worst
 
 
+def pv_pairs(b, s, causal, docs=None):
+    """Visible (query, key) pairs of b x HQ heads at Sq = Sk = s: all,
+    causal, or causal inside documents of `docs` keys."""
+    if docs:
+        return b * HQ * (s // docs) * docs * (docs + 1) // 2
+    return b * HQ * (visible_pairs(s, s, -1, 0) if causal else s * s)
+
+
+def phase_pv_int8(record):
+    """pv_int8, the integer P·V of rows 7 (chunked local max) and 5: each PV
+    instantiation against its plain version (out relerr 1e-3, LSE 1e-3, the
+    V residual's codes at most one apart, and the count of P codes that
+    differ from the plain version's), timed (median, min and max of 10)
+    beside the same call without pv_int8, its plain version and its bound
+    (QKᵀ at the bf16 rate, or int8 on row 5, P·V at the int8 rate; row 7
+    also its FP64 floor); then the accuracy cell of bench.py:852-884 (B2 H16
+    S4096 D64, iid bf16, non-causal): int8 and int8 pv_int8 against fp64
+    attention, pv_int8 held to 0.02."""
+    import dataclasses as dc
+
+    import torch
+
+    from umfa_tpu_torch import _kernels
+    from umfa_tpu_torch.engine.config import Precision, QuantizationConfig
+    from umfa_tpu_torch.ops import block_mask as tbm
+    from umfa_tpu_torch.ops import quant_attention as qa
+    from umfa_tpu_torch.ops.flash_fwd import BlockSizes, _choose_block
+    from umfa_tpu_torch.ops.quant_fused_attn import _fused, _map_walk
+    from umfa_tpu_torch.utils.testing import rel_err
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(24)
+
+    def randn(shape, offset=0.0):
+        return (torch.randn(shape, generator=gen) + offset).to(dev, torch.bfloat16)
+
+    worst = {"fused_qattn": 0.0, "quant_attn_fwd": 0.0}
+    lines = {"fused_qattn": [], "quant_attn_fwd": []}
+    results, path_counts = [], []
+
+    # Row 7: the training shape first, then the variants at B2.
+    cases = [  # name, b, s, d, recipe, causal, documents of n keys
+        ("int8_row_causal", B_TRAIN, S_TRAIN, D, "int8", True, None),
+        ("int8_block_causal", B_CHECK, S_TRAIN, D, "int8_block", True, None),
+        ("qdense_causal", B_CHECK, S_TRAIN, D, "qdense", True, None),
+        ("int8_d128_causal", B_CHECK, S_TRAIN, 128, "int8", True, None),
+        ("int8_d256_causal", B_CHECK, S_TRAIN, 256, "int8", True, None),
+        ("int8_noncausal", B_CHECK, S_TRAIN, D, "int8", False, None),
+        ("int8_docs512_block_mask", B_CHECK, S_TRAIN, D, "int8", True, 512),
+    ]
+    for name, b, s, d, recipe, causal, docs in cases:
+        q, k, v = randn((b, HQ, s, d)), randn((b, HKV, s, d), 0.5), randn((b, HKV, s, d), 0.3)
+        kw = dict(recipe_kwargs(recipe), causal=causal)
+        walk = None
+        bias = None
+        if docs:
+            # Aligned documents: the map's tiles are FULL or SKIP (no bias),
+            # causal by the index mask.
+            ids = (torch.arange(s, dtype=torch.int32) // docs)[None].expand(b, s).contiguous()
+            bm = tbm.segment_block_mask(ids.to(dev), block_sizes=BlockSizes(128, 128))
+            walk = _map_walk(bm.block_map, bm.fetch_kv, bm.hold_kv, bm.fill_kv, bm.block_q,
+                             bm.block_k)
+            bias = bm.bias
+        shape = (f"B{b} Hq{HQ} Hkv{HKV} S{s} D{d} {'causal' if causal else 'non-causal'} bf16 "
+                 f"{recipe}" + (f", documents of {docs} (BlockMask 128 x 128)" if docs else ""))
+        codes = [torch.zeros((b, HQ, s, s), dtype=torch.uint8, device=dev) for _ in "kp"]
+        got = _fused(q, k, v, bias, walk, pv_int8=True, p_codes=codes[0], **kw)
+        torch.cuda.synchronize()
+        want = _fused(q, k, v, bias, walk, plain=True, pv_int8=True, p_codes=codes[1], **kw)
+        differ = codes[0] != codes[1]
+        n_differ, n_codes = int(differ.sum()), int((codes[1] > 0).sum())
+        code_gap = int((codes[0].int() - codes[1].int()).abs().max())
+        del codes, differ
+        lse, w_lse = got[1], want[1]
+        vis = w_lse > -1e29
+        res = {"case": f"fused_qattn/pv/{name}", "shape": shape,
+               "relerr_out": rel_err(got[0], want[0]),
+               "max_abs_out": float((got[0].float() - want[0].float()).abs().max()),
+               "max_abs_lse": float((lse[vis] - w_lse[vis]).abs().max()),
+               "codes_close": all(codes_close(a, b_) for a, b_ in zip(got[2:5], want[2:5])
+                                  if a is not None),
+               "v_group": got[4].block_size, "p_codes_differ": n_differ,
+               "p_codes_nonzero": n_codes, "p_code_gap": code_gap,
+               "finite": torch_isfinite(got[0].float()) and torch_isfinite(lse),
+               "tol_out": 1e-3, "tol_lse": 1e-3}
+        res["ok"] = (res["relerr_out"] <= 1e-3 and res["max_abs_lse"] <= 1e-3
+                     and res["codes_close"] and res["finite"])
+        worst["fused_qattn"] = max(worst["fused_qattn"], res["max_abs_out"])
+        res_bytes = sum(t.values.numel() + 4 * t.scales.numel() for t in got[2:5]
+                        if t is not None)
+        res_bytes += sum(4 * t.numel() for t in got[5:] if t is not None)
+        del got, want
+        torch.cuda.empty_cache()
+        fk = lambda: _fused(q, k, v, bias, walk, pv_int8=True, **kw)  # noqa: E731
+        fb = lambda: _fused(q, k, v, bias, walk, **kw)  # noqa: E731
+        fp = lambda: _fused(q, k, v, bias, walk, plain=True, pv_int8=True, **kw)  # noqa: E731
+        pairs = pv_pairs(b, s, causal, docs)
+        flops = 4 * d * pairs
+        nbytes = 2 * (q.numel() + k.numel() + v.numel()) + 2 * q.numel() + 4 * b * HQ * s
+        nbytes += res_bytes
+        t = dict(**cuda_stats(fk), non_pv_ms=cuda_ms(fb), plain_ms=cuda_ms(fp, iters=3, warmup=1),
+                 flops=flops, bytes=nbytes,
+                 ops_ms=(2 * d * pairs / H100_BF16_FLOPS + 2 * d * pairs / H100_INT8_OPS) * 1e3,
+                 bytes_ms=nbytes / H100_HBM_BYTES * 1e3,
+                 fp64_floor_ms=2 * 2 * d * pairs / H100_FP64_TC_FLOPS * 1e3,
+                 library_ms=None, library="none: no single PyTorch call quantizes and attends")
+        bound(t)
+        res["timing"] = t
+        emit({"phase": "pv_int8_check", **res})
+        results.append(res)
+        lines["fused_qattn"].append(
+            {"shape": shape + ", pv_int8", **{key: t[key] for key in (
+                "ms", "ms_min", "ms_max", "non_pv_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "fp64_floor_ms")},
+             "relerr_out": res["relerr_out"], "max_abs_lse": res["max_abs_lse"],
+             "p_codes_differ": n_differ, "p_codes_nonzero": n_codes})
+        del q, k, v, bias, walk
+        torch.cuda.empty_cache()
+
+    # Row 5 on the two-pass route's operands (V BLOCK-quantized per the
+    # reference's KV tile, 2048 keys here): the prefill shape under int8,
+    # and the int4 recipe (INT4 Q and K, the Q-mean corr row) at B2.
+    for name, b, sq, recipe in (("int8_prefill", B_SERVE, PROMPT, "int8"),
+                                ("int4_corr", B_CHECK, SK, "int4")):
+        q, k, v = randn((b, HQ, sq, D)), randn((b, HKV, SK, D), 0.5), randn((b, HKV, SK, D), 0.3)
+        cfg = dc.replace(quant_config(recipe), pv_int8=True)
+        tile = _choose_block(BlockSizes().block_k, SK, D)
+        qt_q, qt_k, qt_v, _, _, corr = qa._quantize_operands(q, k, v, cfg, tile)
+        qts = (qt_q, qt_k, qt_v)
+        qk = lambda pv=True: qa.quantized_attention_forward(  # noqa: E731
+            *qts, None, corr, causal=True, pv_int8=pv)
+        qp = lambda: qa.quantized_attention_forward_plain(  # noqa: E731
+            *qts, None, corr, causal=True, pv_int8=True)
+        shape = f"B{b} Hq{HQ} Hkv{HKV} Sq{sq} Sk{SK} D{D} causal bf16 {recipe}, V per {tile} keys"
+        res = compare(f"quant_attn_fwd/pv/{name}", qk(), qp(), 1e-3, 1e-3)
+        res["shape"] = shape
+        worst["quant_attn_fwd"] = max(worst["quant_attn_fwd"], res["max_abs_out"])
+        pairs = b * HQ * visible_pairs(sq, SK, -1, 0)
+        nbytes = (sum(t_.values.numel() + 4 * t_.scales.numel() for t_ in qts)
+                  + (0 if corr is None else 4 * corr.numel()) + 4 * q.numel() + 4 * b * HQ * sq)
+        t = dict(**cuda_stats(qk), non_pv_ms=cuda_ms(lambda: qk(False)),
+                 plain_ms=cuda_ms(qp, iters=3, warmup=1), flops=4 * D * pairs, bytes=nbytes,
+                 ops_ms=4 * D * pairs / H100_INT8_OPS * 1e3,
+                 bytes_ms=nbytes / H100_HBM_BYTES * 1e3, library_ms=None,
+                 library="none: no single PyTorch call computes int8 attention")
+        bound(t)
+        res["timing"] = t
+        emit({"phase": "pv_int8_check", **res})
+        results.append(res)
+        lines["quant_attn_fwd"].append(
+            {"shape": shape + ", pv_int8", **{key: t[key] for key in (
+                "ms", "ms_min", "ms_max", "non_pv_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")}, "relerr_out": res["relerr_out"], "max_abs_lse": res["max_abs_lse"]})
+        del q, k, v, qts, qt_q, qt_k, qt_v, corr
+        torch.cuda.empty_cache()
+    bad = [r["case"] for r in results if not r["ok"]]
+    if bad:
+        raise AssertionError(f"pv_int8 kernels disagree with their plain versions: {bad}")
+
+    # The accuracy cell (bench.py:852-884): int8 and int8 pv_int8 through
+    # quantized_flash_attention against fp64 attention.
+    b, h, s = 2, 16, 4096
+    x = [torch.randn((b, h, s, D), generator=gen).to(dev, torch.bfloat16) for _ in "qkv"]
+    sc = torch.matmul(x[0].double(), x[1].double().transpose(-1, -2)) * D ** -0.5
+    ref = torch.matmul(torch.softmax(sc, dim=-1), x[2].double())
+    del sc
+    int8 = QuantizationConfig(q_precision=Precision.INT8, k_precision=Precision.INT8,
+                              v_precision=Precision.INT8)
+    acc = {"phase": "pv_int8_accuracy", "shape": f"B{b} H{h} S{s} D{D} non-causal bf16 iid N(0, 1)",
+           "reference": "fp64 attention", "v5e_history": {"int8": 0.0113, "int8_pv": 0.0159},
+           "tol_pv": 0.02}
+    for key, cfg in (("int8", int8), ("int8_pv", dc.replace(int8, pv_int8=True))):
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        out = qa.quantized_flash_attention(*x, config=cfg)
+        torch.cuda.synchronize()
+        counts = dict(_kernels.launches)
+        acc[key] = rel_err(out.double(), ref)
+        acc[f"{key}_launches"] = counts
+        path_counts.append(counts)
+    emit(acc)
+    if not (acc["int8_pv"] < 0.02 and acc["int8_pv_launches"].get("fused_qattn/pv") == 1):
+        raise AssertionError(f"pv_int8 accuracy cell: {acc}")
+    del x, ref, out
+    torch.cuda.empty_cache()
+    record["pv_int8"] = {"checks": results, "accuracy": acc}
+    return lines, worst, path_counts
+
+
 def quant_step_want(recipe, depth):
     """Launches per quantized training step: one forward kernel and the two
     backward kernels per layer, and nothing of the other routes. A dense Q
@@ -2714,7 +2927,8 @@ def quant_step_want(recipe, depth):
             "quant_rows", "quant_attn_fwd")
     dense = recipe == "int8-qdense" or recipe.endswith("-asym")
     bwd = ("flash_bwd_dq", "flash_bwd_dkv") if dense else ("quant_bwd_dq", "quant_bwd_dkv")
-    return {k: depth if k in bwd else 0 for k in zero} | {"fused_qattn": depth}
+    pv = {"fused_qattn/pv": depth} if recipe.endswith("-pv") else {}
+    return {k: depth if k in bwd else 0 for k in zero} | {"fused_qattn": depth} | pv
 
 
 def phase_quant_training(record):
@@ -2733,7 +2947,7 @@ def phase_quant_training(record):
                            generator=torch.Generator().manual_seed(5)).to(dev)
     out, path_counts = {}, []
     for recipe, n_steps in (("int8", 4), ("int4", 2), ("int8-qdense", 2), ("int8-block", 2),
-                            ("int4-block", 2), ("int8-asym", 2)):
+                            ("int4-block", 2), ("int8-asym", 2), ("int8-pv", 4)):
         cfg = gpt.GPTConfig(vocab=32768, dim=1024, num_heads=HQ, num_kv_heads=HKV, depth=8,
                             max_seq=SK, dtype="bfloat16", quantization=quant_config(recipe))
         model = gpt.init_params(cfg, torch.Generator().manual_seed(0), device=dev)
@@ -2777,6 +2991,39 @@ def phase_quant_training(record):
         out[recipe] = steps
         del model
         torch.cuda.empty_cache()
+    # pv_int8 on the two-pass route once: rows 6 (Q and K) and 5's PV
+    # instantiation forward, rows 8-9 on V's per-tile BLOCK scales.
+    cfg = gpt.GPTConfig(vocab=32768, dim=1024, num_heads=HQ, num_kv_heads=HKV, depth=8,
+                        max_seq=SK, dtype="bfloat16", quantization=quant_config("int8-pv"))
+    model = gpt.init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    want = {"quant_rows": 2 * cfg.depth, "quant_attn_fwd": cfg.depth,
+            "quant_attn_fwd/pv": cfg.depth, "quant_bwd_dq": cfg.depth,
+            "quant_bwd_dkv": cfg.depth, "fused_qattn": 0, "flash_fwd": 0}
+    os.environ["UMFA_DISABLE_FUSED_QUANT"] = "1"
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss = loss_fn(model, tokens)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        counts = dict(_kernels.launches)
+    finally:
+        os.environ.pop("UMFA_DISABLE_FUSED_QUANT")
+    step = {"phase": "quant_training", "recipe": "int8-pv", "route": "two-pass", "step": 0,
+            "loss": loss.item(), "fwd_ms": (t1 - t0) * 1e3, "bwd_ms": (t2 - t1) * 1e3,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": counts}
+    emit(step)
+    out["int8-pv two-pass"] = [step]
+    path_counts.append(counts)
+    if not math.isfinite(step["loss"]) or {k: counts.get(k, 0) for k in want} != want:
+        raise AssertionError(f"int8-pv two-pass training step: {step}, expected {want}")
+    del model, loss
+    torch.cuda.empty_cache()
     record["quant_training"] = {"batch": B_TRAIN, "seq": S_TRAIN, "lr": TRAIN_LR, "steps": out}
     del tokens
     torch.cuda.empty_cache()
@@ -3825,6 +4072,11 @@ TC_KERNELS = {"flash_fwd": ("fwd_tc_kernel",), "flash_bwd": ("dq_tc_kernel", "dk
 # HGMMA for the warpgroup products (wgmma).
 TC_OPS = {"quant_attn_fwd": ("HMMA", "IMMA"), "fused_qattn": ("DMMA", "HMMA"),
           "mma_probe": ("HGMMA",)}
+# pv_int8's instantiations (the last template argument PV = true, mangled),
+# whose P·V is integer: IMMA in place of HMMA; how many each library holds.
+PV_MANGLED = "Lb1EEEv"
+PV_OPS = {"quant_attn_fwd": ("IMMA",), "fused_qattn": ("DMMA", "IMMA")}
+PV_COUNT = {"quant_attn_fwd": 12, "fused_qattn": 24}
 # Kernels on the CUDA cores whose registers and spills are listed beside
 # the tensor-core ones: library -> the stems of their function names.
 LISTED_KERNELS = {"quant_rows": ("quant_rows_vec_kernel",),
@@ -3847,14 +4099,24 @@ SIMT_GONE = {"flash_fwd": ("flash_fwd_kernel",),
              "mma_probe": ("mma_probe_kernel",)}
 # Kernels that must exist and spill nothing: (library, stem, a substring of
 # the mangled name) -> what it is. fused_qattn's D 256 instantiations
-# (its bf16-Q-tile layout), the fp32 dbias, and the bf16 instantiations of
-# flash_decode (template <DP, RT, BF16 = true>: "Lb1E").
+# (its bf16-Q-tile layout; <.., 256, SPARSE, PV>), the fp32 dbias, and the
+# bf16 instantiations of flash_decode (template <DP, RT, BF16 = true>:
+# "Lb1E"). The SPARSE pv_int8 ones at D 256 are held to SPILL_CAP instead.
 # fwd_tc_kernel's ROPE instantiations (RING, SPARSE, ROPE = false, false,
 # true), mangled.
 ROPE_MANGLED = "Lb0ELb0ELb1EE"
-NO_SPILL = {("fused_qattn", "fused_qattn_tc_kernel", "Li256E"): "fused_qattn D 256",
+NO_SPILL = {("fused_qattn", "fused_qattn_tc_kernel", "Li256ELb0ELb0E"): "fused_qattn D 256",
+            ("fused_qattn", "fused_qattn_tc_kernel", "Li256ELb1ELb0E"): "fused_qattn D 256 SPARSE",
+            ("fused_qattn", "fused_qattn_tc_kernel", "Li256ELb0ELb1E"): "fused_qattn D 256 pv_int8",
             ("flash_dbias", "dbias_tc_kernel", TF32_POLICY): "fp32 flash_dbias",
             ("flash_decode", "flash_decode_tc_kernel", "Lb1E"): "bf16 flash_decode"}
+
+
+# Kernels held to a spill ceiling in bytes (stores and loads): fused_qattn's
+# SPARSE pv_int8 instantiations at D 256 spilled 64 (32 + 32) beside the walk's
+# state; a simple kernel first (PERF.md §6).
+SPILL_CAP = {("fused_qattn", "fused_qattn_tc_kernel", "Li256ELb1ELb1E"):
+             ("fused_qattn D 256 SPARSE pv_int8", 128)}
 
 
 def ptxas_resources(log):
@@ -3913,22 +4175,29 @@ def phase_sass(record, report):
                     raise AssertionError(f"{lib} still holds the CUDA-core {left[0]}")
                 stem = next((st for st in stems if st in m.group(1)), None)
                 fn = f"{lib}:{m.group(1)}" if stem else None
+                fops = PV_OPS[lib] if lib in PV_OPS and PV_MANGLED in m.group(1) else ops
                 if fn:
-                    kernels[fn] = {"library": lib, "stem": stem, **{op.lower(): 0 for op in ops}}
+                    kernels[fn] = {"library": lib, "stem": stem, **{op.lower(): 0 for op in fops}}
                     if TF32_POLICY in fn:
                         kernels[fn]["hmma_tf32"] = 0
             elif fn:
-                for op in ops:
+                for op in fops:
                     if op in ln:
                         kernels[fn][op.lower()] += 1
                 if TF32_HMMA in ln and "hmma_tf32" in kernels[fn]:
                     kernels[fn]["hmma_tf32"] += 1
         for stem in stems:
             found = [f for f in kernels if kernels[f]["library"] == lib and kernels[f]["stem"] == stem]
-            for op in ops:
-                if not found or any(kernels[f][op.lower()] == 0 for f in found):
+            for op in set(ops) | set(PV_OPS.get(lib, ())):
+                have = [f for f in found if op.lower() in kernels[f]]
+                if not have or any(kernels[f][op.lower()] == 0 for f in have):
                     raise AssertionError(f"no {op} in the SASS of {lib}'s {stem}: "
-                                         f"{ {f: kernels[f][op.lower()] for f in found} }")
+                                         f"{ {f: kernels[f][op.lower()] for f in have} }")
+        if lib in PV_COUNT:
+            pv = [f for f in kernels if kernels[f]["library"] == lib and PV_MANGLED in f]
+            if len(pv) != PV_COUNT[lib]:
+                raise AssertionError(f"{lib} holds {len(pv)} pv_int8 instantiations, not "
+                                     f"{PV_COUNT[lib]}: {pv}")
         if lib in TF32_LIBS:
             for stem in stems:
                 found = [f for f in kernels if kernels[f]["library"] == lib
@@ -3966,6 +4235,13 @@ def phase_sass(record, report):
                    for f in found}
         if any(spilled.values()):
             raise AssertionError(f"the {what} kernels spill: {spilled}")
+    for (lib, stem, part), (what, cap) in SPILL_CAP.items():
+        found = [f for f, r in kernels.items() if r["library"] == lib and r["stem"] == stem
+                 and part in f]
+        spilled = {f: kernels[f].get("spill_stores", 0) + kernels[f].get("spill_loads", 0)
+                    for f in found}
+        if not found or any(v > cap for v in spilled.values()):
+            raise AssertionError(f"the {what} kernels spill more than {cap} bytes: {spilled}")
     fwd = _kernels.function("flash_fwd", "umfa_flash_fwd_smem_bytes", (ctypes.c_int, ctypes.c_int))
     fbwd = _kernels.function("flash_bwd", "umfa_flash_bwd_smem_bytes",
                              (ctypes.c_int, ctypes.c_int, ctypes.c_int))
@@ -4211,6 +4487,12 @@ def main():
         timing[name]["quant_block_sparse"] = t
     for name, e in qs_worst.items():
         worst[name] = max(worst[name], e)
+    pv_lines, pv_worst, pv_counts = run(phase_pv_int8)
+    timing["fused_qattn"]["variants"] += pv_lines["fused_qattn"]
+    timing["quant_attn_fwd"]["variants"] += pv_lines["quant_attn_fwd"]
+    for name, e in pv_worst.items():
+        worst[name] = max(worst[name], e)
+    path_counts += pv_counts
     path_counts += run(phase_quant_training)
     path_counts += run(phase_two_pass)
     run(phase_small_quant_training)
@@ -4270,9 +4552,11 @@ def main():
         key.split("/")[1]: n for key, n in launches.items() if key.startswith("flash_dbias/")}
     kernels[[k["name"] for k in kernels].index("flash_fwd")]["launches_rope"] = (
         launches["flash_fwd/rope"])  # the ROPE instantiation's share of its launches
+    for name in ("fused_qattn", "quant_attn_fwd"):  # the PV instantiations' share
+        kernels[[k["name"] for k in kernels].index(name)]["launches_pv"] = launches[f"{name}/pv"]
     missing = [k["name"] for k in kernels if k["launches"] <= 0]
-    if launches["flash_fwd/rope"] <= 0:
-        missing.append("flash_fwd/rope")
+    missing += [key for key in ("flash_fwd/rope", "fused_qattn/pv", "quant_attn_fwd/pv")
+                if launches[key] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the driven paths: {missing}")
     record["kernels"] = kernels

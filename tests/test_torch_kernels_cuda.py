@@ -2105,3 +2105,183 @@ def test_rope_leaves_the_other_forward_instantiations_as_they_were():
     assert not [ln for ln in lines if ln.startswith(("DIFF", "GONE"))], run.stdout[-4000:]
     new = [ln for ln in lines if ln.startswith("NEW")]
     assert len(new) == 12 and all(ln.split()[1] == "flash_fwd" for ln in new), new
+
+
+# ---- pv_int8: the integer P·V instantiations of rows 7 and 5 against
+# their plain versions: out relerr 1e-3 and LSE 1e-3 (both code P at the
+# same points, p̂ from expf in the same order, so a code differs only where
+# the two expf differ in the last bit at a .5; the fp32 sums of the scaled
+# integer products run in another order), and row 7's P codes at most one
+# apart from the plain version's and >= 99.99 % equal.
+
+from umfa_tpu_torch.ops.quant_fused_attn import _fused, _map_walk  # noqa: E402
+
+PV_CASES = [
+    # (b, hq, hkv, sq, sk, d, recipe, kwargs)
+    (2, 4, 2, 512, 512, 64, "int8", dict(causal=True)),
+    (1, 4, 2, 512, 512, 64, "int8", {}),
+    # Sk 320: pv_chunk 128 of the reference's 384-key tile, 64 padded rows.
+    (1, 4, 2, 192, 320, 64, "int8", {}),
+    (1, 4, 2, 256, 256, 64, "int8", dict(window=(48, 16))),
+    # Rows that see no key (window (64, unbounded), Sq > Sk): the mean of
+    # the walked chunks' V, with and without padded rows in the last tile.
+    (1, 4, 2, 512, 256, 64, "int8", dict(window=(64, -1))),
+    (1, 4, 2, 400, 200, 64, "int8_nosmooth", dict(window=(64, -1))),
+    (2, 8, 2, 256, 256, 128, "int8", dict(causal=True)),
+    (1, 4, 2, 333, 333, 256, "int8", dict(causal=True)),
+    (1, 4, 2, 256, 256, 33, "int8", dict(causal=True)),
+    (1, 4, 2, 256, 256, 64, "int8_v4", dict(causal=True)),
+    (1, 4, 2, 256, 256, 128, "int4", dict(causal=True)),
+    (1, 4, 2, 333, 333, 64, "int8_block", dict(causal=True)),
+    (1, 4, 2, 256, 256, 64, "qdense", dict(causal=True)),
+    (1, 4, 4, 256, 256, 64, "int8_smooth_q", dict(bias=True)),
+]
+RECIPES["int8_v4"] = dict(RECIPES["int8"], v_precision=Precision.INT4)
+
+
+def _check_pv(got, want, codes):
+    out, lse = got[0].float(), got[1]
+    w_out, w_lse = want[0].float(), want[1]
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    assert rel_err(out, w_out) <= 1e-3
+    vis = w_lse > -1e29
+    if vis.any():
+        assert (lse[vis] - w_lse[vis]).abs().max().item() <= 1e-3
+    assert (lse[~vis] == -1e30).all()
+    if (~vis).any():  # rows that see no key: the reference's mean, or 0
+        assert rel_err(out[~vis], w_out[~vis]) <= 1e-3
+    for a, b_ in zip(got[2:5], want[2:5]):
+        assert (a is None) == (b_ is None)
+        if a is not None:
+            assert _codes_close(a, b_) and rel_err(a.scales, b_.scales) <= 1e-5
+            assert (a.mode, a.block_size) == (b_.mode, b_.block_size)
+    gap = (codes[0].int() - codes[1].int()).abs()
+    assert gap.max().item() <= 1
+    assert (gap != 0).sum().item() <= 1e-4 * max(1, (codes[1] > 0).sum().item())
+
+
+def _pv_call(q, k, v, bias, walk, kw, plain=False):
+    codes = torch.zeros(q.shape[:3] + (k.shape[2],), dtype=torch.uint8, device=q.device)
+    res = _fused(q, k, v, bias, walk, plain=plain, pv_int8=True, p_codes=codes, **kw)
+    return res, codes
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", PV_CASES)
+def test_fused_qattn_pv_matches_plain(dev, dtype, case):
+    (q, k, v), kw = _fused_inputs(case, dtype, dev)
+    bias = kw.pop("bias", None)
+    n0 = dict(_kernels.launches)
+    got, kc = _pv_call(q, k, v, bias, None, kw)
+    torch.cuda.synchronize()
+    assert _kernels.launches["fused_qattn"] == n0.get("fused_qattn", 0) + 1
+    assert _kernels.launches["fused_qattn/pv"] == n0.get("fused_qattn/pv", 0) + 1
+    want, pc = _pv_call(q, k, v, bias, None, kw, plain=True)
+    _check_pv(got, want, (kc, pc))
+    again = _fused(q, k, v, bias, None, pv_int8=True, **kw)
+    assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+
+
+def test_fused_qattn_pv_holds_rows_a_bias_hides(dev):
+    # A bias of -1e30 on every key of some rows: the reference's mean of
+    # the V of the chunks the row's query tile walks (here all of them).
+    (q, k, v), kw = _fused_inputs((1, 4, 2, 256, 256, 64, "int8", dict(causal=True)),
+                                  torch.bfloat16, dev)
+    bias = torch.zeros((1, 4, 256, 256), device=dev)
+    bias[:, :, 5:9] = -1e30
+    got, kc = _pv_call(q, k, v, bias, None, kw)
+    want, pc = _pv_call(q, k, v, bias, None, kw, plain=True)
+    assert (want[1] <= -1e29).sum().item() == 16 and (want[0][want[1] <= -1e29] != 0).any()
+    _check_pv(got, want, (kc, pc))
+
+
+@pytest.mark.parametrize("recipe", ["int8", "int4", "int8_block", "qdense"])
+@pytest.mark.parametrize("case", QSPARSE_CASES)
+def test_fused_qattn_pv_walks_a_block_mask_as_the_plain_version(dev, recipe, case):
+    b, hq, hkv, sq, sk, d, kind = case
+    mask = _walk_mask(kind, b, hq, sq, sk, dev)
+    (q, k, v), kw = _fused_inputs((b, hq, hkv, sq, sk, d, recipe, {}), torch.bfloat16, dev)
+    walk = _map_walk(mask.block_map, mask.fetch_kv, mask.hold_kv, mask.fill_kv, mask.block_q,
+                     mask.block_k)
+    n0 = _kernels.launches["fused_qattn/pv"]
+    got, kc = _pv_call(q, k, v, mask.bias, walk, kw)
+    torch.cuda.synchronize()
+    assert _kernels.launches["fused_qattn/pv"] == n0 + 1
+    want, pc = _pv_call(q, k, v, mask.bias, walk, kw, plain=True)
+    _check_pv(got, want, (kc, pc))
+
+
+PV5_CASES = [
+    # (b, hq, hkv, sq, sk, d, precisions, V group, kwargs, corr)
+    (2, 4, 2, 512, 512, 64, "int8", 256, dict(causal=True), False),
+    (1, 4, 2, 333, 1000, 64, "int8", 512, dict(window=(64, 0)), False),
+    (1, 4, 2, 512, 512, 128, "int4", 128, dict(causal=True), True),
+    (1, 2, 1, 300, 300, 256, "int8", 128, {}, False),
+    (1, 4, 2, 256, 512, 64, "int8", 512, dict(causal=True), True),
+    (1, 4, 2, 256, 256, 66, "int4", 256, dict(causal=True), False),
+    (1, 4, 2, 256, 256, 64, "v4", 256, dict(causal=True), False),
+]
+_PRECS["v4"] = (Precision.INT8, Precision.INT8, Precision.INT4)
+
+
+@pytest.mark.parametrize("case", PV5_CASES)
+def test_quant_attn_fwd_pv_matches_plain(dev, case):
+    b, hq, hkv, sq, sk, d, precs, group, kw, with_corr = case
+    q, k, v = _qkv(b, hq, hkv, sq, sk, d, torch.float32, dev, seed=21)
+    precs = _PRECS[precs]
+    qts = [quantize(q, precs[0]), quantize(k + 0.4, precs[1]),
+           quantize(v, precs[2], QuantMode.BLOCK, QuantStrategy.SYMMETRIC, group)]
+    corr = None
+    if with_corr:
+        corr = torch.randn((b, hq, 1, sk), generator=torch.Generator().manual_seed(3)).to(dev)
+    n0 = dict(_kernels.launches)
+    out, lse = quantized_attention_forward(*qts, None, corr, pv_int8=True, **kw)
+    torch.cuda.synchronize()
+    assert _kernels.launches["quant_attn_fwd"] == n0.get("quant_attn_fwd", 0) + 1
+    assert _kernels.launches["quant_attn_fwd/pv"] == n0.get("quant_attn_fwd/pv", 0) + 1
+    want, want_lse = quantized_attention_forward_plain(*qts, None, corr, pv_int8=True, **kw)
+    _check(out, lse, want, want_lse, 1e-3, 1e-3)
+
+
+@pytest.mark.parametrize("case", QSPARSE_CASES[:5])
+def test_quant_attn_fwd_pv_walks_a_block_mask_as_the_plain_version(dev, case):
+    b, hq, hkv, sq, sk, d, kind = case
+    mask = _walk_mask(kind, b, hq, sq, sk, dev)
+    q, k, v = _qkv(b, hq, hkv, sq, sk, d, torch.float32, dev, seed=12)
+    qts = [quantize(q), quantize(k + 0.4),
+           quantize(v, Precision.INT8, QuantMode.BLOCK, QuantStrategy.SYMMETRIC, mask.block_k)]
+    args = (*qts, mask.bias, None, mask.block_map, mask.fetch_kv)
+    out, lse = quantized_attention_forward(*args, block_q=mask.block_q, block_k=mask.block_k,
+                                           pv_int8=True)
+    torch.cuda.synchronize()
+    want, want_lse = quantized_attention_forward_plain(*args, block_q=mask.block_q,
+                                                       block_k=mask.block_k, pv_int8=True)
+    _check(out, lse, want, want_lse, 1e-3, 1e-3)
+
+
+@pytest.mark.parametrize("route", ["fused", "two_pass"])
+def test_pv_int8_quantized_training_on_the_card_matches_the_cpu(dev, route, monkeypatch):
+    # Both routes' forward (PV kernels) and the STE backward (rows 8-9 on
+    # the per-chunk or per-tile V scales) against the plain path on the CPU.
+    from umfa_tpu_torch.engine.config import QuantizationConfig as QC
+    from umfa_tpu_torch.ops.quant_attention import quantized_flash_attention
+
+    if route == "two_pass":
+        monkeypatch.setenv("UMFA_DISABLE_FUSED_QUANT", "1")
+    cfg = dataclasses.replace(QC(), pv_int8=True)
+    q, k, v = _qkv(2, 4, 2, 512, 512, 64, torch.float32, torch.device("cpu"), seed=31)
+    w = torch.randn(q.shape, generator=torch.Generator().manual_seed(4))
+    res = []
+    for device in (dev, torch.device("cpu")):
+        t = [x.to(device).requires_grad_(True) for x in (q, k, v)]
+        n0 = dict(_kernels.launches)
+        out = quantized_flash_attention(*t, config=cfg, causal=True)
+        (out * w.to(device)).sum().backward()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            key = "fused_qattn/pv" if route == "fused" else "quant_attn_fwd/pv"
+            assert _kernels.launches[key] == n0.get(key, 0) + 1
+            assert _kernels.launches["quant_bwd_dq"] == n0.get("quant_bwd_dq", 0) + 1
+        res.append([x.detach().cpu() for x in (out, *(x.grad for x in t))])
+    for got, want, name in zip(*res, ("out", "dq", "dk", "dv")):
+        assert rel_err(got, want) <= 1e-3, name

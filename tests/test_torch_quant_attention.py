@@ -153,8 +153,13 @@ def test_quantized_attention_forward_matches_jax(case):
 def test_quantized_attention_forward_refuses_unported():
     x = torch.from_numpy(_x(7, (1, 2, 32, D)))
     qt = quant.quantize(x)
-    # pv_int8 is still to port (ROADMAP).
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # pv_int8 runs (its values against JAX: tests/test_torch_quant_pv_int8.py)
+    # on a V whose scale is constant over each KV tile, and refuses per-row
+    # V scales, which do not factor out of the integer P·V.
+    tile = quant.quantize(x, mode=QuantMode.BLOCK, block_size=128)
+    out, _ = quantized_attention_forward(qt, qt, tile, pv_int8=True)
+    assert out.shape == x.shape and torch.isfinite(out).all()
+    with pytest.raises(ValueError, match="constant"):
         quantized_attention_forward(qt, qt, qt, pv_int8=True)
     # The block-sparse walk runs (its values against JAX:
     # tests/test_torch_quant_block_mask.py): a map that walks its one tile

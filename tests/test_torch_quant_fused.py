@@ -288,7 +288,10 @@ def test_fused_path_rules_match_jax(monkeypatch):
         want = jqfa.fused_path_supported(jcfg, 256, 64, None, None, None, causal=True,
                                          window=None, seq_q=256)
         assert fused_path_supported(tcfg, 256, 64, causal=True, window=None, seq_q=256) == want
-    # pv_int8 (symmetric) is the one fused variant still to port.
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fused_path_supported(dataclasses.replace(QuantizationConfig(), pv_int8=True), 256, 64,
-                             causal=False, window=None, seq_q=256)
+    # pv_int8 (symmetric) takes the single-launch route, as in the reference
+    # (its values against JAX: tests/test_torch_quant_pv_int8.py).
+    pv = dataclasses.replace(QuantizationConfig(), pv_int8=True)
+    jpv = dataclasses.replace(JQuantizationConfig(), pv_int8=True)
+    assert fused_path_supported(pv, 256, 64, causal=False, window=None, seq_q=256)
+    assert jqfa.fused_path_supported(jpv, 256, 64, None, None, None, causal=False, window=None,
+                                     seq_q=256)

@@ -158,11 +158,13 @@ def test_unported_quantized_configs_raise(monkeypatch):
     q, k, v = (torch.from_numpy(_x(s, (1, 2, 64, 32))) for s in (11, 12, 13))
     base = QuantizationConfig()
     asym = dataclasses.replace(base, strategy=QuantStrategy.ASYMMETRIC)
-    # pv_int8 is the quantized recipe still to port; with ASYMMETRIC the
-    # reference sends it to the two-pass route, which refuses it too.
-    for bad in (dataclasses.replace(base, pv_int8=True), dataclasses.replace(asym, pv_int8=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            quantized_flash_attention(q, k, v, config=bad)
+    # pv_int8 runs (its values against JAX: tests/test_torch_quant_pv_int8.py);
+    # with ASYMMETRIC the reference sends it to the two-pass route, which
+    # refuses it: a ValueError here.
+    out = quantized_flash_attention(q, k, v, config=dataclasses.replace(base, pv_int8=True))
+    assert out.shape == q.shape and torch.isfinite(out).all()
+    with pytest.raises(ValueError, match="symmetric"):
+        quantized_flash_attention(q, k, v, config=dataclasses.replace(asym, pv_int8=True))
     # BLOCK and ASYMMETRIC run (their values against JAX:
     # tests/test_torch_quant_variants.py).
     for good in (asym, dataclasses.replace(base, mode=QuantMode.BLOCK)):
@@ -175,11 +177,11 @@ def test_unported_quantized_configs_raise(monkeypatch):
     assert torch.equal(hybrid, block)
     monkeypatch.setenv("UMFA_DISABLE_FUSED_QUANT", "1")
     # The two-pass route runs the int4 recipe (INT4 operands and the Q-mean
-    # row) and still refuses pv_int8.
+    # row) and pv_int8 (V per KV tile).
     out = quantized_flash_attention(q, k, v, config=QuantizationConfig.from_mode_string("int4"))
     assert out.shape == q.shape and torch.isfinite(out).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        quantized_flash_attention(q, k, v, config=dataclasses.replace(base, pv_int8=True))
+    out = quantized_flash_attention(q, k, v, config=dataclasses.replace(base, pv_int8=True))
+    assert out.shape == q.shape and torch.isfinite(out).all()
     with pytest.raises(ValueError, match="dense-Q"):
         quantized_flash_attention(q, k, v, config=QuantizationConfig.from_mode_string("int8-qdense"))
 

@@ -6,8 +6,8 @@
 // rotation of Q and K, or a dense Q), attend on the dequantized bf16
 // values, restore the V mean, and write the quantized residuals the STE
 // backward consumes. ROW or BLOCK scales, SYMMETRIC or ASYMMETRIC,
-// head_dim <= 256, with or without a block-sparse map; pv_int8 is not
-// ported yet.
+// head_dim <= 256, with or without a block-sparse map, and pv_int8 (the
+// integer P·V, below).
 //
 // The score contract, and what bounds the kernel under it. The kernel and
 // its plain version form each score as one double sum of products of bf16
@@ -145,6 +145,39 @@
 // Shared memory (191,488 bytes a block at D 64, 190,720 at D 128, 204,672
 // at D 256, one block an SM) is set above 48 KB through
 // cudaFuncSetAttribute.
+//
+// pv_int8 (F_PV, the PV template parameter; quant_fused_attn.py:391-411,
+// :552-601, :823-828), the reference's chunked local-max integer P·V:
+//   * V is quantized by the BLOCK pre-pass with v_group = pv_chunk (one
+//     symmetric scale over a chunk's rows of v − vm, rows past Sk as
+//     0 − vm); at INT4 the pre-pass also writes the unpacked codes (vcode);
+//   * pass 1 also keeps each row's maximum over every absolute pv_chunk of
+//     keys, ml (masked lanes at −1e30 included): each tile's row maxima
+//     (quad shuffles) raise its chunk's entry of a (B, Hq, Sq, Sk /
+//     pv_chunk) fp32 scratch that the host sets to −1e30 (a chunk is 2 or 4
+//     of the 64-key tiles, 4 or 8 of the 32-key tiles at D 256: up to 80
+//     values a row at Sk 10240, more than shared memory holds beside the
+//     rings; per tile, not per chunk, so no state lives across steps);
+//   * pass 2 codes p̂ = rint(expf(s − (ml − ln 255.49))) in [0, 255], expf
+//     (not __expf) in the plain version's order, since p̂ rounds at .5 and
+//     one bit flips a code; the codes of two 16-key score chunks are the u8
+//     A fragment of mma.sync m16n8k32 u8 x s8 -> s32 (IMMA) as they stand:
+//     the thread holds keys {2t, 2t+1, 8+2t, 9+2t} (+16) of a 32-key step,
+//     the fragment wants k = 4t..4t+3 (+16), so the V codes are staged in
+//     that order of k (k = 4t + j holds key 2t + (j & 1) + 8 (j >> 1));
+//   * the V code tile (int8 rows, by cp.async into the Ṽ ring's bytes) is
+//     transposed a step ahead into a D-major tile of that key order by 4 x 4
+//     byte transposes (__byte_perm), the B fragment then one 32-bit load:
+//     sm_90 has no ldmatrix .trans for 8-bit elements;
+//   * the s32 sum of a 32-key product is exact (|Σ| <= 255·127·32), and
+//     converts to fp32 once: acc += Σ · (β·sv); l += Σ p̂ · β once a key
+//     tile; β = expf(ml − m)
+//     against the final max m (the reference: its running max); a row with
+//     no visible key (m = −1e30) takes β = 0 here and gets the reference's
+//     value in the epilogue (`hidden_row`): the mean of the dequantized V
+//     over the lanes of the key tiles its reference query tile walks, each
+//     coding 1, rows past Sk as 0 − vm quantized in their chunk's scale;
+//   * out = acc / l + vm, LSE = (m + log l) − ln 255.49.
 #include <math.h>
 
 #include "common.cuh"
@@ -163,7 +196,11 @@ enum : int {
   F_Q_INT4 = 32,
   F_K_INT4 = 64,
   F_V_INT4 = 128,
+  F_PV = 256,
 };
+
+// fp32(ln 255.49): the reference's integer P·V amplitude (quant_fused_attn.py:96-97).
+constexpr float LN_P_AMP = 0x1.62c384p+2f;  // 5.54318332672119140625
 
 struct FQParams {
   const void* q;
@@ -200,6 +237,15 @@ struct FQParams {
   int kvmode;  // how the K̃ and Ṽ rows are copied (`copy_rows`)
   SparseMap sm;  // read only by the SPARSE instantiations: the map and fetch_kv
   const int* kv_row0;  // (B, Hkv): the first row of each K/V mean window, or null (row 0)
+  // F_PV: each row's chunk maxima (B, Hq, Sq, ceil(Sk / v_group)); V's
+  // unpacked codes (B, Hkv, Sk, D) (vv at INT8); the P codes (B, Hq, Sq,
+  // Sk) uint8 for checks, or null; V's row statistics (absmax of v − vm)
+  // in st, found by launch(); how the code rows are copied (`copy_codes`).
+  float* ml;
+  int8_t* vcode;
+  uint8_t* pcode;
+  const float* vst;
+  int vcmode;
 };
 
 constexpr int NTM = 256;  // means kernel threads
@@ -414,8 +460,9 @@ __global__ void __launch_bounds__(KV_WARPS * 32) fused_rows_kernel(const FQParam
 // 0 − mean; then the row quantizes (symmetric: reciprocal multiply, no
 // clip; asymmetric: exact divisions, the zero point unclipped) and writes
 // its codes (INT4 packed split-halves), scale, zero point and dequantized
-// bf16 row: K̃, Ṽ, or Q's times the softmax scale into qb.
-template <int NE>
+// bf16 row: K̃, Ṽ, or Q's times the softmax scale into qb. PVC (pv_int8 with
+// an INT4 V): V's codes also go unpacked, a byte each, into vcode.
+template <int NE, bool PVC = false>
 __global__ void __launch_bounds__(KV_WARPS * 32) fused_group_quant_kernel(const FQParams p) {
   __shared__ int s_code[KV_WARPS][32 * NE];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -476,6 +523,9 @@ __global__ void __launch_bounds__(KV_WARPS * 32) fused_group_quant_kernel(const 
       code[c] = (int)qc;
     else if (vals)
       vals[o.r * D + c] = (int8_t)(int)qc;
+    if constexpr (PVC) {
+      if (o.op == 2) p.vcode[o.r * D + c] = (int8_t)(int)qc;
+    }
   }
   if (!vals) return;  // Q without residuals: only its dequantized row
   if (o.int4) {
@@ -579,6 +629,14 @@ struct FCfg {
                                                                : BQ / 4;
   static_assert(RAW * DP * 8 <= CC - KD_, "raw Q rows fit in the K tiles and rings");
   static_assert(BYTES <= 232448, "one block fits in an SM's shared memory");
+  // pv_int8: the Ṽ ring's bytes hold a ring of three V code tiles (int8
+  // rows of DP + 16 bytes) and the two transposed tiles P·V reads (DP rows
+  // of BK + 16 bytes, the keys of each 32-key step in the fragment's order).
+  static constexpr int LDC = DP + 16;
+  static constexpr int LDT = BK + 16;
+  static constexpr int VC = VR;                     // [3][BK][LDC] int8
+  static constexpr int VT = VC + 3 * BK * LDC;      // [2][DP][LDT] u8
+  static_assert(VT + 2 * DP * LDT <= CC, "the code tiles fit in the Ṽ ring");
 };
 
 // Rows [r0, r0 + ROWS) of an (n, D) bf16 matrix into a ring buffer of row
@@ -610,6 +668,36 @@ __device__ __forceinline__ void copy_rows(__nv_bfloat16* dst, const __nv_bfloat1
       const int r = e / DP, c = e - r * DP;
       dst[r * LD + c] =
           r0 + r < n && c < D ? src[(long long)(r0 + r) * D + c] : __float2bfloat16_rn(0.f);
+    }
+  }
+}
+
+// Rows [r0, r0 + ROWS) of an (n, D) int8 matrix into a ring buffer of row
+// stride DP + 16 bytes; rows past n and columns past D are zero. mode 2:
+// 16-byte cp.async (D % 16 == 0, src 16-byte aligned), 1: 4-byte cp.async
+// (D % 4 == 0, 4-aligned), 0: byte loads, stored at once.
+template <int DP, int NTH, int ROWS>
+__device__ __forceinline__ void copy_codes(int8_t* dst, const int8_t* src, int r0, int n, int D,
+                                           int mode) {
+  constexpr int LD = DP + 16;
+  if (mode == 2) {
+    constexpr int CH = DP / 16;
+    for (int e = threadIdx.x; e < ROWS * CH; e += NTH) {
+      const int r = e / CH, c = (e % CH) * 16;
+      const bool ok = r0 + r < n && c < D;
+      cp_async16(dst + r * LD + c, ok ? src + (long long)(r0 + r) * D + c : src, ok ? 16 : 0);
+    }
+  } else if (mode == 1) {
+    constexpr int CW = DP / 4;
+    for (int e = threadIdx.x; e < ROWS * CW; e += NTH) {
+      const int r = e / CW, c = (e % CW) * 4;
+      const bool ok = r0 + r < n && c < D;
+      cp_async4(dst + r * LD + c, ok ? src + (long long)(r0 + r) * D + c : src, ok ? 4 : 0);
+    }
+  } else {
+    for (int e = threadIdx.x; e < ROWS * DP; e += NTH) {
+      const int r = e / DP, c = e - r * DP;
+      dst[r * LD + c] = r0 + r < n && c < D ? src[(long long)(r0 + r) * D + c] : (int8_t)0;
     }
   }
 }
@@ -717,7 +805,7 @@ __device__ __forceinline__ void stage_q_bf16(__nv_bfloat16* sQb, int8_t* sCode, 
   }
 }
 
-template <typename Tin, typename Tout, int DP, bool SPARSE>
+template <typename Tin, typename Tout, int DP, bool SPARSE, bool PV = false>
 __global__ void __launch_bounds__(FCfg<DP>::NTH, 1) fused_qattn_tc_kernel(const FQParams p) {
   using L = FCfg<DP>;
   constexpr int NTH = L::NTH, NW = L::NW, BQ_ = L::BQ;
@@ -737,6 +825,8 @@ __global__ void __launch_bounds__(FCfg<DP>::NTH, 1) fused_qattn_tc_kernel(const 
   float* sVm = reinterpret_cast<float*>(smem_raw + L::VM);
   float* sRs = reinterpret_cast<float*>(smem_raw + L::RS);
   int8_t* sCode = reinterpret_cast<int8_t*>(smem_raw + L::CODE);
+  int8_t* sVC = reinterpret_cast<int8_t*>(smem_raw + L::VC);    // PV: the V code ring
+  uint8_t* sVT = reinterpret_cast<uint8_t*>(smem_raw + L::VT);  // PV: the transposed tiles
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tq = lane & 3;
@@ -785,7 +875,13 @@ __global__ void __launch_bounds__(FCfg<DP>::NTH, 1) fused_qattn_tc_kernel(const 
       }
       const int buf = i % 3;
       copy_rows<DP, NTH, BK>(sKR + buf * BK * L::LDR, kbf, k0, p.Sk, D, p.kvmode);
-      if (i >= n_t) copy_rows<DP, NTH, BK>(sVR + buf * BK * L::LDR, vbf, k0, p.Sk, D, p.kvmode);
+      if constexpr (PV) {
+        if (i >= n_t)
+          copy_codes<DP, NTH, BK>(sVC + buf * BK * L::LDC, p.vcode + krow * D, k0, p.Sk, D,
+                                  p.vcmode);
+      } else {
+        if (i >= n_t) copy_rows<DP, NTH, BK>(sVR + buf * BK * L::LDR, vbf, k0, p.Sk, D, p.kvmode);
+      }
       if (smooth_q && tid < BK) copy_scale(sCC + buf * BK, ccrow, 1, k0, tid, p.Sk);
     }
     cp_async_commit();  // empty groups keep the count of groups uniform
@@ -1025,16 +1121,28 @@ __global__ void __launch_bounds__(FCfg<DP>::NTH, 1) fused_qattn_tc_kernel(const 
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
+  // PV: keys a chunk, and chunks a row in the ml scratch (set to −1e30 by
+  // the host: a chunk no tile of which a row's warp computes keeps it).
+  const int pvc = p.v_group, nch = PV ? (p.Sk + pvc - 1) / pvc : 0;
+
   for (int i = 0; i < steps; ++i) {
     // At D 64 the next tile is converted a step ahead, so it must have
-    // landed too; else only tile i.
-    if (KD)
+    // landed too; else only tile i. PV: the next pass-2 tile's codes are
+    // transposed a step ahead.
+    bool ahead = KD;
+    if constexpr (PV) ahead = ahead || (i + 1 >= n_t && i + 1 < steps);
+    if (ahead)
       cp_async_wait<0>();
     else
       cp_async_wait<1>();
     __syncthreads();  // those tiles landed; every warp is done with step i - 1
     issue(i + 2);     // into the buffers step i - 1 read
     if (KD && i + 1 < steps) convert_k(i + 1);
+    if constexpr (PV) {
+      if (i + 1 >= n_t && i + 1 < steps)
+        transpose_codes<DP, NTH, BK>(sVT + ((i + 1) & 1) * DP * L::LDT,
+                                     sVC + ((i + 1) % 3) * BK * L::LDC);
+    }
     if (i == n_t) {
       m[0] = quad_max(m[0]);
       m[1] = quad_max(m[1]);
@@ -1064,17 +1172,114 @@ __global__ void __launch_bounds__(FCfg<DP>::NTH, 1) fused_qattn_tc_kernel(const 
                      (p.left < 0 || k0 >= r_hi - p.left) && (!SPARSE || sw.fetch != nullptr);
     const bool edge = !all || (SPARSE ? tb : bias);
     if (i < n_t) {
-      // Pass 1: the exact row max over every visible key, QKᵀ alone.
+      // Pass 1: the exact row max over every visible key, QKᵀ alone; PV
+      // also the tile's max into its chunk's (a tile lies in one chunk;
+      // each row's entries are its quad's alone).
+      float tm[2] = {MASK_VALUE, MASK_VALUE};
 #pragma unroll
       for (int c = 0; c < n_chunks; ++c) {
         float s[2][4];
         chunk(i, k0, c, edge, s);
 #pragma unroll
         for (int jj = 0; jj < 2; ++jj) {
-          m[0] = fmaxf(m[0], fmaxf(s[jj][0], s[jj][1]));
-          m[1] = fmaxf(m[1], fmaxf(s[jj][2], s[jj][3]));
+          if constexpr (PV) {
+            tm[0] = fmaxf(tm[0], fmaxf(s[jj][0], s[jj][1]));
+            tm[1] = fmaxf(tm[1], fmaxf(s[jj][2], s[jj][3]));
+          } else {
+            m[0] = fmaxf(m[0], fmaxf(s[jj][0], s[jj][1]));
+            m[1] = fmaxf(m[1], fmaxf(s[jj][2], s[jj][3]));
+          }
         }
       }
+      if constexpr (PV) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          m[r] = fmaxf(m[r], tm[r]);
+          const float x = quad_max(tm[r]);
+          const int row = r ? row1 : row0;
+          if (tq == 0 && row < p.Sq) {
+            float* e = p.ml + (qrow + row) * nch + k0 / pvc;
+            *e = fmaxf(*e, x);
+          }
+        }
+      }
+    } else if constexpr (PV) {
+      // Pass 2, integer P·V: p̂ = rint(expf(s − (ml − ln A))) against the
+      // chunk's max, the codes of two 16-key chunks the u8 A fragment of
+      // a 32-deep step, the V codes its s8 B fragments from the transposed
+      // tile; the exact s32 sum converts once a step.
+      // The tile's chunk: ml − ln A (mla), β (wl) and β·sv (wv) of the
+      // thread's two rows.
+      const int ch = k0 / pvc;
+      const float sv = p.vs[krow + (long long)ch * pvc];
+      float mla[2], wl[2], wv[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = r ? row1 : row0;
+        const float mlr = row < p.Sq ? p.ml[(qrow + row) * nch + ch] : MASK_VALUE;
+        // A row with no visible key (m = −1e30) is left to the epilogue.
+        const float beta = m[r] == MASK_VALUE ? 0.f : expf(__fsub_rn(mlr, m[r]));
+        mla[r] = __fsub_rn(mlr, LN_P_AMP);
+        wl[r] = beta;
+        wv[r] = __fmul_rn(beta, sv);
+      }
+      const uint8_t* cT = sVT + (i & 1) * DP * L::LDT + 4 * tq;
+      // The step's 16-key chunks, two to a 32-deep product, rolled up at
+      // every D (the count through an empty asm, as n_chunks): unrolled,
+      // the two chunks of a 32-key step kept both score fragments and their
+      // Q reads live and spilled 2.4-3.2 KB a thread at D 256; rolled, D 128
+      // spills 216 bytes against 448-956 and runs 6.0 ms against 6.7 at B2
+      // S4096 (D 64 and 256 alike; PERF.md §6).
+      int n_pv = BK / 16;
+      asm volatile("" : "+r"(n_pv));
+      uint32_t a[4];
+      int ps[2] = {0, 0};
+#pragma unroll
+      for (int c = 0; c < n_pv; ++c) {
+        float sc[2][4];
+        chunk(i, k0, c, edge, sc);
+        uint32_t w[2] = {0u, 0u};
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {  // byte j: key 2 tq + (j & 1) + 8 (j >> 1)
+            const int code = (int)rintf(expf(__fsub_rn(sc[j >> 1][2 * r + (j & 1)], mla[r])));
+            ps[r] += code;
+            w[r] |= (uint32_t)code << (8 * j);
+          }
+        if (p.pcode) {  // the codes of the lanes whose chunk counts, for checks
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int row = r ? row1 : row0;
+            if (wl[r] <= 0.f || row >= p.Sq) continue;
+            for (int j = 0; j < 4; ++j) {
+              const int col = k0 + 16 * c + 8 * (j >> 1) + 2 * tq + (j & 1);
+              if (col < p.Sk) p.pcode[(qrow + row) * p.Sk + col] = (uint8_t)(w[r] >> (8 * j));
+            }
+          }
+        }
+        if (c & 1) {  // the second half of a 32-key step: its product
+          a[2] = w[0];
+          a[3] = w[1];
+#pragma unroll
+          for (int n = 0; n < NA; ++n) {
+            const uint8_t* bp = cT + (8 * n + g) * L::LDT + 16 * (c - 1);
+            const uint32_t bf[2] = {*reinterpret_cast<const uint32_t*>(bp),
+                                    *reinterpret_cast<const uint32_t*>(bp + 16)};
+            int ic[4] = {0, 0, 0, 0};
+            mma_u8s8(ic, a, bf);
+            acc[n][0] = fmaf((float)ic[0], wv[0], acc[n][0]);
+            acc[n][1] = fmaf((float)ic[1], wv[0], acc[n][1]);
+            acc[n][2] = fmaf((float)ic[2], wv[1], acc[n][2]);
+            acc[n][3] = fmaf((float)ic[3], wv[1], acc[n][3]);
+          }
+        } else {
+          a[0] = w[0];
+          a[1] = w[1];
+        }
+      }
+      l[0] = fmaf((float)ps[0], wl[0], l[0]);  // Σ p̂ of the tile, exact
+      l[1] = fmaf((float)ps[1], wl[1], l[1]);
     } else {
       // Pass 2: P = expf(s - m) against the final max; l sums bf16(P) at
       // D < 128 (read back from the packed A fragment) and the fp32 P at
@@ -1111,11 +1316,69 @@ __global__ void __launch_bounds__(FCfg<DP>::NTH, 1) fused_qattn_tc_kernel(const 
 
   Tout* out = static_cast<Tout*>(p.out) + qrow * D;
   float* lse = p.lse + qrow;
+  // PV, a row with no visible key: the reference codes every lane of each
+  // chunk its query tile walks p̂ = 1 with β = 1, so its output is the mean
+  // of code·sv over those lanes (+ vm), summed chunk by chunk in walk order,
+  // rows past Sk coding 0 − vm in their chunk's scale (the pre-pass's rule),
+  // and its LSE −1e30; none walked: exactly 0. The reference's tiles: its
+  // (Tq, Tkv), or the map's; visible by its `_block_visible`.
+  auto hidden_row = [&](int row) {
+    const int tqr = SPARSE ? p.sm.bq : p.Tq, tkr = SPARSE ? p.sm.bk : p.Tkv;
+    const int qt = row / tqr, qa = qt * tqr, qz = qa + tqr - 1;
+    const float fq = (float)p.qmax_v;
+    auto walked = [&](int ka) {
+      if (p.right >= 0 && ka > qz + p.right) return false;
+      if (p.left >= 0 && ka + tkr - 1 < qa - p.left) return false;
+      if constexpr (SPARSE)
+        return p.sm.map[b * p.sm.msb + h * p.sm.msh + (long long)qt * p.sm.nk + ka / tkr] !=
+               MAP_SKIP;
+      return true;
+    };
+    float hl = 0.f;
+    for (int ka = 0; ka < p.Sk; ka += tkr)
+      if (walked(ka)) hl += (float)tkr;
+    // One column at a time (no register arrays beside acc).
+    for (int ci = 0; ci < 2 * NA; ++ci) {
+      const int col = 8 * (ci >> 1) + 2 * tq + (ci & 1);
+      if (col >= D) continue;
+      float o = 0.f;
+      for (int ka = 0; ka < p.Sk; ka += tkr) {
+        if (!walked(ka)) continue;
+        for (int c0 = ka; c0 < ka + tkr; c0 += pvc) {
+          const int real = min(pvc, max(p.Sk - c0, 0));
+          int isum = 0;
+          for (int j = 0; j < real; ++j) isum += p.vcode[(krow + c0 + j) * D + col];
+          float sv = real ? p.vs[krow + c0] : 0.f;
+          if (real < pvc) {
+            float amax = 0.f;
+            for (int j = 0; j < real; ++j) amax = fmaxf(amax, p.vst[krow + c0 + j]);
+            for (int c = 0; c < D; ++c) amax = fmaxf(amax, fabsf(__fsub_rn(0.f, sVm[c])));
+            amax = fmaxf(amax, 1e-12f);
+            const float rcp = __fdiv_rn(fq, amax);
+            if (!real) sv = __fdiv_rn(amax, fq);
+            isum += (pvc - real) * (int)rintf(__fmul_rn(__fsub_rn(0.f, sVm[col]), rcp));
+          }
+          o = __fadd_rn(o, __fmul_rn((float)isum, sv));
+        }
+      }
+      o = hl > 0.f ? o / hl : 0.f;
+      if (smooth) o = hl > 0.f ? __fadd_rn(o, sVm[col]) : 0.f;
+      Elem<Tout>::store(out, (long long)row * D + col, o);
+    }
+    if (tq == 0)
+      lse[row] = hl > 0.f ? __fsub_rn(MASK_VALUE + logf(hl), LN_P_AMP) : MASK_VALUE;
+  };
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = i ? row1 : row0;
     const float lsum = quad_sum(l[i]);
     if (row >= p.Sq) continue;
+    if constexpr (PV) {
+      if (m[i] == MASK_VALUE) {
+        hidden_row(row);
+        continue;
+      }
+    }
     const bool empty = lsum == 0.f;
     const float l_safe = empty ? 1.f : lsum;
 #pragma unroll
@@ -1129,14 +1392,18 @@ __global__ void __launch_bounds__(FCfg<DP>::NTH, 1) fused_qattn_tc_kernel(const 
         if (smooth) o = empty ? 0.f : __fadd_rn(o, sVm[col]);
         Elem<Tout>::store(out, (long long)row * D + col, o);
       }
-    if (tq == 0) lse[row] = empty ? MASK_VALUE : m[i] + logf(l_safe);
+    if constexpr (PV) {  // l in p̂ = A·p units: ln A comes back off the LSE
+      if (tq == 0) lse[row] = empty ? MASK_VALUE : __fsub_rn(m[i] + logf(l_safe), LN_P_AMP);
+    } else {
+      if (tq == 0) lse[row] = empty ? MASK_VALUE : m[i] + logf(l_safe);
+    }
   }
 }
 
-template <typename Tin, typename Tout, int DP, bool SPARSE>
+template <typename Tin, typename Tout, int DP, bool SPARSE, bool PV>
 cudaError_t attend_walk(const FQParams& p, cudaStream_t stream) {
   constexpr int smem = FCfg<DP>::BYTES, bq = FCfg<DP>::BQ, nth = FCfg<DP>::NTH;
-  const auto kernel = fused_qattn_tc_kernel<Tin, Tout, DP, SPARSE>;
+  const auto kernel = fused_qattn_tc_kernel<Tin, Tout, DP, SPARSE, PV>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -1147,8 +1414,11 @@ cudaError_t attend_walk(const FQParams& p, cudaStream_t stream) {
 
 template <typename Tin, typename Tout, int DP>
 cudaError_t attend(const FQParams& p, cudaStream_t stream) {
-  return p.sm.map ? attend_walk<Tin, Tout, DP, true>(p, stream)
-                  : attend_walk<Tin, Tout, DP, false>(p, stream);
+  if (p.flags & F_PV)
+    return p.sm.map ? attend_walk<Tin, Tout, DP, true, true>(p, stream)
+                    : attend_walk<Tin, Tout, DP, false, true>(p, stream);
+  return p.sm.map ? attend_walk<Tin, Tout, DP, true, false>(p, stream)
+                  : attend_walk<Tin, Tout, DP, false, false>(p, stream);
 }
 
 bool pre_pass(const FQParams& p) {
@@ -1173,7 +1443,10 @@ cudaError_t launch(const FQParams& p, cudaStream_t stream) {
     const unsigned blocks = (unsigned)((rows + KV_WARPS - 1) / KV_WARPS);
     fused_rows_kernel<Tin, ne><<<blocks, KV_WARPS * 32, 0, stream>>>(p);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    fused_group_quant_kernel<ne><<<blocks, KV_WARPS * 32, 0, stream>>>(p);
+    if ((p.flags & F_PV) && (p.flags & F_V_INT4))
+      fused_group_quant_kernel<ne, true><<<blocks, KV_WARPS * 32, 0, stream>>>(p);
+    else
+      fused_group_quant_kernel<ne><<<blocks, KV_WARPS * 32, 0, stream>>>(p);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   } else if (kv_rows) {
     fused_kv_quant_kernel<Tin, ne>
@@ -1186,10 +1459,12 @@ cudaError_t launch(const FQParams& p, cudaStream_t stream) {
     fused_cc_kernel<DP><<<cc_grid, NTM, 0, stream>>>(p);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
+  FQParams a = p;
+  if (pre)  // V's rows' statistics, after Q's (an integer Q) and K's
+    a.vst = p.st + ((p.flags & F_Q_DENSE) ? 0 : (long long)p.B * p.Hq * p.Sq) + kv_rows / 2;
   if (pre && !(p.flags & F_Q_DENSE)) {
     // The pre-pass quantized Q: the attention reads qb as a dense bf16 Q
     // whose values already carry the softmax scale (times 1, unrotated).
-    FQParams a = p;
     a.q = p.qb;
     a.flags = (p.flags & ~F_HADAMARD) | F_Q_DENSE;
     a.scale = 1.f;
@@ -1197,7 +1472,7 @@ cudaError_t launch(const FQParams& p, cudaStream_t stream) {
     a.qs = nullptr;
     return attend<__nv_bfloat16, Tout, DP>(a, stream);
   }
-  return attend<Tin, Tout, DP>(p, stream);
+  return attend<Tin, Tout, DP>(a, stream);
 }
 
 template <typename Tin, typename Tout>
@@ -1211,6 +1486,12 @@ cudaError_t launch_d(const FQParams& p, cudaStream_t stream) {
 int copy_mode(const void* ptr, int D) {
   const uintptr_t a = reinterpret_cast<uintptr_t>(ptr);
   return D % 8 == 0 && a % 16 == 0 ? 2 : D % 2 == 0 && a % 4 == 0 ? 1 : 0;
+}
+
+// How int8 rows of D codes starting at ptr are copied (`copy_codes`).
+int code_mode(const void* ptr, int D) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(ptr);
+  return D % 16 == 0 && a % 16 == 0 ? 2 : D % 4 == 0 && a % 4 == 0 ? 1 : 0;
 }
 
 }  // namespace
@@ -1232,8 +1513,13 @@ int copy_mode(const void* ptr, int D) {
 // tiles and fetch, its compacted key-tile table fetch_kv (Bm, Hm, nq,
 // width), with the element strides of their batch and head (0 =
 // broadcast); kv_row0 (B, Hkv) int32 or null: the first row of each K/V
-// mean window (Tkv rows, zero past Sk). Returns the cudaError_t of the
-// launches.
+// mean window (Tkv rows, zero past Sk). PV (flag 256, symmetric, v_group
+// = pv_chunk > 0): ml (B, Hq, Sq, ceil(Sk / v_group)) float32 scratch set to
+// -1e30 (the chunk maxima), vcode
+// (B, Hkv, Sk, D) int8, V's unpacked codes (vv itself at INT8, else
+// scratch), pcode (B, Hq, Sq, Sk) uint8 or null: the P codes of the lanes
+// whose chunk counts (β > 0), for checks (the others are not written).
+// Returns the cudaError_t of the launches.
 extern "C" int umfa_fused_qattn(const void* q, const void* k, const void* v, const void* bias,
                                 void* out, void* lse, void* qv, void* qs, void* kv, void* ks,
                                 void* vv, void* vs, void* qm, void* km, void* vm, void* cc,
@@ -1246,7 +1532,7 @@ extern "C" int umfa_fused_qattn(const void* q, const void* k, const void* v, con
                                 int out_dtype, const void* map, const void* fetch, int block_q,
                                 int block_k, int nq, int nk, int width, long long msb,
                                 long long msh, long long fsb, long long fsh, const void* kv_row0,
-                                void* stream) {
+                                void* ml, void* vcode, void* pcode, void* stream) {
   const bool int4 = flags & (F_Q_INT4 | F_K_INT4 | F_V_INT4);
   const bool asym = flags & F_ASYM, dense = flags & F_Q_DENSE;
   const bool pre = asym || q_group || k_group || v_group;
@@ -1256,7 +1542,8 @@ extern "C" int umfa_fused_qattn(const void* q, const void* k, const void* v, con
       ((flags & F_SMOOTH) && (!km || !vm)) || ((flags & F_SMOOTH_Q) && (!qm || !cc)) || !kv ||
       !ks || !vv || !vs || !kb || !vb || (!qv != !qs) || q_group < 0 || k_group < 0 ||
       v_group < 0 || (asym && (!kzp || !vzp || (!qv != !qzp))) ||
-      (pre && (!ys || !st || (!dense && !qb))))
+      (pre && (!ys || !st || (!dense && !qb))) ||
+      ((flags & F_PV) && (asym || v_group < 1 || !ml || !vcode)))
     return cudaErrorInvalidValue;
   SparseMap sm;
   if (!sparse_map(&sm, map, fetch, block_q, block_k, nq, nk, width, msb, msh, fsb, fsh))
@@ -1274,7 +1561,9 @@ extern "C" int umfa_fused_qattn(const void* q, const void* k, const void* v, con
                    // The rotation's entries: fp32(D^-1/2), as the host's hadamard_matrix.
                    (float)pow((double)D, -0.5),
                    copy_mode(kb, D) < copy_mode(vb, D) ? copy_mode(kb, D) : copy_mode(vb, D),
-                   sm, static_cast<const int*>(kv_row0)};
+                   sm, static_cast<const int*>(kv_row0), static_cast<float*>(ml),
+                   static_cast<int8_t*>(vcode), static_cast<uint8_t*>(pcode), nullptr,
+                   code_mode(vcode, D)};
   cudaStream_t strm = static_cast<cudaStream_t>(stream);
   if (in_dtype == 0)
     return out_dtype == 0 ? launch_d<float, float>(p, strm)

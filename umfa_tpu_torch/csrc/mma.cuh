@@ -88,6 +88,44 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// The same shape with A unsigned (u8, 0..255) and B signed: the integer
+// P·V of pv_int8, exact for |sum| <= 32 * 255 * 128 < 2^20.
+__device__ __forceinline__ void mma_u8s8(int (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.u8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// An int8 V code tile (BK keys, rows of DP + 16 bytes) into the D-major
+// tile (DP rows of BK + 16 bytes) whose 32-bit words are the B fragments
+// of m16n8k32 (`mma_u8s8`): in each 32-key step, byte k = 16 h + 4 t + j
+// holds key 16 h + 2 t + (j & 1) + 8 (j >> 1), the order in which a thread
+// holds the C fragments of two 16-key score chunks, so the P codes enter
+// the A fragment as they stand. A thread moves 4 keys x 4 columns by a
+// 4 x 4 byte transpose; the caller synchronises.
+template <int DP, int NTH, int BK>
+__device__ __forceinline__ void transpose_codes(uint8_t* dst, const int8_t* src) {
+  constexpr int LDC = DP + 16, LDT = BK + 16, KQ = BK / 4;
+  for (int e = threadIdx.x; e < KQ * (DP / 4); e += NTH) {
+    const int kq = e % KQ, cq = e / KQ;
+    const int k0 = 32 * (kq >> 3) + 16 * ((kq >> 2) & 1), t = kq & 3;
+    const int8_t* x = src + (k0 + 2 * t) * LDC + 4 * cq;  // keys +0, +1, +8, +9
+    const uint32_t x0 = *reinterpret_cast<const uint32_t*>(x);
+    const uint32_t x1 = *reinterpret_cast<const uint32_t*>(x + LDC);
+    const uint32_t x2 = *reinterpret_cast<const uint32_t*>(x + 8 * LDC);
+    const uint32_t x3 = *reinterpret_cast<const uint32_t*>(x + 9 * LDC);
+    const uint32_t lo01 = __byte_perm(x0, x1, 0x5140), lo23 = __byte_perm(x2, x3, 0x5140);
+    const uint32_t hi01 = __byte_perm(x0, x1, 0x7362), hi23 = __byte_perm(x2, x3, 0x7362);
+    uint8_t* d = dst + 4 * cq * LDT + k0 + 4 * t;
+    *reinterpret_cast<uint32_t*>(d) = __byte_perm(lo01, lo23, 0x5410);
+    *reinterpret_cast<uint32_t*>(d + LDT) = __byte_perm(lo01, lo23, 0x7632);
+    *reinterpret_cast<uint32_t*>(d + 2 * LDT) = __byte_perm(hi01, hi23, 0x5410);
+    *reinterpret_cast<uint32_t*>(d + 3 * LDT) = __byte_perm(hi01, hi23, 0x7632);
+  }
+}
+
 // Double product on the FP64 tensor cores, accumulated in double: a sum
 // that is exact in double (as the attention scores of bf16 values are, see
 // fused_qattn.cu) comes out the same in any order.

@@ -7,8 +7,8 @@
 // per-tensor scales, the Q-mean correction row, bias, causal/window and
 // GQA, head dims up to 256 (D % 4 == 0; templates 64, 128, 256, a smaller
 // D zero-padded to the template width, where int8 zeros add nothing to
-// the dot), and its block-sparse walk (`block_map`/`fetch_ids`,
-// quant_attention.py:371-387). Integer P·V is not ported yet.
+// the dot), its block-sparse walk (`block_map`/`fetch_ids`,
+// quant_attention.py:371-387), and the integer P·V of pv_int8 (below).
 //
 // What bounds it on this card: at the serving prefill (B8 Hq16 Hkv8, 4032
 // causal queries against the 4096-row INT8 cache, D 64) the work is
@@ -80,6 +80,18 @@
 //   and run twice, its 64-key tiles from each map tile's first key; the
 //   bias is read only on tiles that are not FULL for the block, and a
 //   block that straddles map tiles looks up each element's own tile.
+//
+// pv_int8 (the PV instantiations, VAR 0 and 1; quant_attention.py:219-229):
+// V's scale is constant over each group of keys (the host checks: BLOCK
+// per KV tile, a multiple of 32 keys, or one group), so it factors out of
+// an integer P·V. P's codes rint(127·p) (0..127, p against the final max,
+// 0 on hidden lanes) go from the score registers into the u8 A fragment of
+// mma.sync m16n8k32 u8 x s8 -> s32 (IMMA) as they stand, the V codes into
+// its B fragments from a D-major tile transposed a step ahead (in place of
+// the dequantized bf16 tile; `transpose_codes`, mma.cuh); each 32-key
+// step's exact s32 sum converts once: acc += Σ · fp32(sv · fp32(1/127)); l
+// sums the fp32 P. Where the reference walks one KV tile its running max is
+// the final max, so the codes agree.
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -113,7 +125,10 @@ struct QParams {
   int q4, k4, v4;  // INT4 operands, D / 2 packed bytes a row
   float dz;  // the head dim of the zero-point term (before any padding)
   SparseMap sm;  // read only by the SPARSE instantiations: the map and fetch_kv
+  int pv;  // pv_int8: the integer P·V (the PV instantiations)
 };
+
+constexpr float PV_SCALE = 1.f / 127.f;  // the reference's fp32(1/127)
 
 // Tile geometry: 8 warps of 16 query rows each, BQ = 128 query rows a
 // block, 64-key tiles in three buffers (tile i computed, tile i + 1 landed
@@ -143,6 +158,10 @@ struct Cfg {
   static constexpr int KR = KZ + 3 * BK * 4;
   static constexpr int VZ = KR + 3 * BK * 4;
   static constexpr int BYTES_VAR = VZ + 3 * BK * 4;
+  // pv_int8: the dequantized tiles' bytes hold the two transposed V code
+  // tiles [2][DP][LDT] that the integer P·V reads.
+  static constexpr int LDT = BK + 16;
+  static_assert(2 * DP * LDT <= 2 * BK * LDV * 2, "the code tiles fit in the bf16 V tiles");
 };
 
 // Rows [r0, r0 + R) of an int8 (n, D) matrix into a tile of row stride
@@ -209,7 +228,7 @@ __device__ __forceinline__ void unpack_tile(int8_t* dst, const int8_t* src, int 
 // registers they spill 24 and 64 bytes a thread, and ran 3.5 and 4.2 ms at
 // the training shape against 5.1 and 4.9 with one block) and one at D 128
 // (two spilled 184 and 328 bytes).
-template <int DP, int VAR, bool SPARSE>
+template <int DP, int VAR, bool SPARSE, bool PV = false>
 __global__ void __launch_bounds__(Cfg<DP>::NTH, VAR ? (DP <= 64 ? 2 : 1) : Cfg<DP>::MINB)
     quant_attn_fwd_tc_kernel(const QParams p) {
   using L = Cfg<DP>;
@@ -224,6 +243,7 @@ __global__ void __launch_bounds__(Cfg<DP>::NTH, VAR ? (DP <= 64 ? 2 : 1) : Cfg<D
   int8_t* sK = reinterpret_cast<int8_t*>(smem_raw + L::K);
   int8_t* sV = reinterpret_cast<int8_t*>(smem_raw + L::V);
   __nv_bfloat16* sVb = reinterpret_cast<__nv_bfloat16*>(smem_raw + L::VB);
+  uint8_t* sVT = reinterpret_cast<uint8_t*>(smem_raw + L::VB);  // PV: the transposed codes
   float* sKs = reinterpret_cast<float*>(smem_raw + L::KS);
   float* sVs = reinterpret_cast<float*>(smem_raw + L::VS);
   // The variants' per-key rows: corr, K's zero points and row sums, V's
@@ -469,7 +489,13 @@ __global__ void __launch_bounds__(Cfg<DP>::NTH, VAR ? (DP <= 64 ? 2 : 1) : Cfg<D
 #pragma unroll
       for (int kc = 0; kc < (QREG ? KS : 1); ++kc) load_a(qf[kc], wQ, LDW, rw, kc * 16, lane);
     }
-    if (deq) dequant(i + 1);
+    if (deq) {
+      if constexpr (PV)
+        transpose_codes<DP, NTH, BK>(sVT + ((i + 1) & 1) * DP * L::LDT,
+                                     sV + ((i + 1) % 3) * BK * L::LD8);
+      else
+        dequant(i + 1);
+    }
     if (i == n_t) {
       m[0] = quad_max(m[0]);
       m[1] = quad_max(m[1]);
@@ -509,6 +535,55 @@ __global__ void __launch_bounds__(Cfg<DP>::NTH, VAR ? (DP <= 64 ? 2 : 1) : Cfg<D
         for (int jj = 0; jj < 2; ++jj) {
           m[0] = fmaxf(m[0], fmaxf(s[jj][0], s[jj][1]));
           m[1] = fmaxf(m[1], fmaxf(s[jj][2], s[jj][3]));
+        }
+      }
+    } else if constexpr (PV) {
+      // Pass 2, integer P·V: the codes rint(127·P) of two 16-key chunks
+      // are the u8 A fragment of a 32-deep step, the V codes its s8 B
+      // fragments; l sums the fp32 P.
+      const uint8_t* cT = sVT + (i & 1) * DP * L::LDT + 4 * tq;
+#pragma unroll
+      for (int u = 0; u < BK / 32; ++u) {
+        float sc[2][2][4];
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          const unsigned vis = chunk(cK, cKs, k0, 2 * u + h2, edge, sc[h2]);
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              sc[h2][jj][e] = !edge || ((vis >> (4 * jj + e)) & 1u)
+                                  ? expf(sc[h2][jj][e] - m[e >> 1])
+                                  : 0.f;
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj) {
+            l[0] += sc[h2][jj][0] + sc[h2][jj][1];
+            l[1] += sc[h2][jj][2] + sc[h2][jj][3];
+          }
+        }
+        uint32_t a[4];
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            uint32_t w = 0;
+#pragma unroll
+            for (int j = 0; j < 4; ++j)  // byte j: key 2 tq + (j & 1) + 8 (j >> 1)
+              w |= (uint32_t)(int)rintf(__fmul_rn(sc[h2][j >> 1][2 * r + (j & 1)], 127.f))
+                   << (8 * j);
+            a[2 * h2 + r] = w;
+          }
+        // V's scale, one over the step (the host's groups are 32-aligned).
+        const float wv = __fmul_rn(sVs[(i % 3) * BK + 32 * u], PV_SCALE);
+#pragma unroll
+        for (int n = 0; n < NA; ++n) {
+          const uint8_t* bp = cT + (8 * n + g) * L::LDT + 32 * u;
+          const uint32_t bf[2] = {*reinterpret_cast<const uint32_t*>(bp),
+                                  *reinterpret_cast<const uint32_t*>(bp + 16)};
+          int ic[4] = {0, 0, 0, 0};
+          mma_u8s8(ic, a, bf);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[n][e] = fmaf((float)ic[e], wv, acc[n][e]);
         }
       }
     } else {
@@ -591,10 +666,10 @@ __global__ void __launch_bounds__(Cfg<DP>::NTH, VAR ? (DP <= 64 ? 2 : 1) : Cfg<D
   }
 }
 
-template <int DP, int VAR, bool SPARSE>
+template <int DP, int VAR, bool SPARSE, bool PV = false>
 cudaError_t launch_var(const QParams& p, cudaStream_t stream) {
   constexpr int smem = VAR ? Cfg<DP>::BYTES_VAR : Cfg<DP>::BYTES;
-  const auto kernel = quant_attn_fwd_tc_kernel<DP, VAR, SPARSE>;
+  const auto kernel = quant_attn_fwd_tc_kernel<DP, VAR, SPARSE, PV>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -606,6 +681,9 @@ cudaError_t launch_var(const QParams& p, cudaStream_t stream) {
 
 template <int DP, bool SPARSE>
 cudaError_t launch_walk(const QParams& p, cudaStream_t stream) {
+  if (p.pv)  // symmetric only (the entry checks)
+    return p.q4 || p.k4 || p.v4 || p.corr ? launch_var<DP, 1, SPARSE, true>(p, stream)
+                                          : launch_var<DP, 0, SPARSE, true>(p, stream);
   if (p.kz) return launch_var<DP, 2, SPARSE>(p, stream);
   if (p.q4 || p.k4 || p.v4 || p.corr) return launch_var<DP, 1, SPARSE>(p, stream);
   return launch_var<DP, 0, SPARSE>(p, stream);
@@ -629,8 +707,9 @@ bool takes(int D) { return D >= 4 && D <= 256 && D % 4 == 0; }
 // and lse (B, Hq, Sq) float32. map (null: no walk): the block-sparse map
 // (Bm, Hm, nq, nk) int32 of block_q x block_k tiles and fetch, its
 // compacted key-tile table fetch_kv (Bm, Hm, nq, width), with the element
-// strides of their batch and head (0 = broadcast). Returns the
-// cudaError_t of the launch.
+// strides of their batch and head (0 = broadcast). pv (symmetric only): the
+// integer P·V, V's scale constant over every 32-key step of the walk.
+// Returns the cudaError_t of the launch.
 extern "C" int umfa_quant_attn_fwd(const void* q, const void* k, const void* v, const void* qs,
                                    const void* ks, const void* vs, const void* bias,
                                    const void* corr, const void* qz, const void* qr,
@@ -641,11 +720,11 @@ extern "C" int umfa_quant_attn_fwd(const void* q, const void* k, const void* v, 
                                    int right, int int4, int dz, const void* map,
                                    const void* fetch, int block_q, int block_k, int nq, int nk,
                                    int width, long long msb, long long msh, long long fsb,
-                                   long long fsh, void* stream) {
+                                   long long fsh, int pv, void* stream) {
   const bool asym = qz || qr || kz || kr || vz;
   SparseMap sm;
   if (!takes(D) || Hkv < 1 || Hq % Hkv != 0 || int4 < 0 || int4 > 7 || (int4 && D % 8) ||
-      (asym && !(qz && qr && kz && kr && vz)) ||
+      (asym && !(qz && qr && kz && kr && vz)) || (pv && asym) ||
       !sparse_map(&sm, map, fetch, block_q, block_k, nq, nk, width, msb, msh, fsb, fsh))
     return cudaErrorInvalidValue;
   const int vec = D % 16 == 0 && ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
@@ -668,7 +747,7 @@ extern "C" int umfa_quant_attn_fwd(const void* q, const void* k, const void* v, 
                   B, Hq, Hkv, Sq, Sk, D,
                   qs_rows, ks_rows, vs_rows,
                   bsb, bsh, bsq, bsk,
-                  left, right, vec, int4 & 1, (int4 >> 1) & 1, (int4 >> 2) & 1, (float)dz, sm};
+                  left, right, vec, int4 & 1, (int4 >> 1) & 1, (int4 >> 2) & 1, (float)dz, sm, pv};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D <= 64) return launch<64>(p, st);
   if (D <= 128) return launch<128>(p, st);

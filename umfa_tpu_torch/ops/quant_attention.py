@@ -24,11 +24,16 @@ Masking semantics are those of ops/flash_fwd.py, the block-sparse walk
 (`block_map` with its tiles block_q, block_k; the kernel walks the
 compacted table `fetch_ids`) included.
 
+`pv_int8` (quant_attention.py:219-229), symmetric only: V's scale must be
+constant over each group of its rows (the reference quantizes V BLOCK-wise
+per KV tile, `v_tile_k`); P's codes are rint(127·p) against the final row
+max (0 on hidden lanes), each group's P·V is the exact integer Σ code ·
+v_code times fp32(sv · fp32(1/127)), the groups summed in fp32, and l sums
+the fp32 P.
+
 Supported: INT8 or INT4 per operand, symmetric or asymmetric (one
 strategy for all three), per-row (ROW/BLOCK) or per-tensor scales,
-`score_corr`, bias, causal/window, GQA, block-sparse maps. Not ported yet
-(raises NotImplementedError, ROADMAP, Queue 2: row 5's unported
-variants): `pv_int8`.
+`score_corr`, bias, causal/window, GQA, block-sparse maps, `pv_int8`.
 
 `quantized_flash_attention` is the differentiable STE route (port of
 quant_attention.py:597-1095): runtime quantization and attention in one
@@ -66,6 +71,8 @@ from umfa_tpu_torch.ops.flash_fwd import (
     broadcast_bias,
     check_no_grad,
     fold_mask,
+    BlockSizes,
+    _choose_block,
     make_walk,
     visible_mask,
     walk_args,
@@ -81,14 +88,18 @@ from umfa_tpu_torch.ops.quant import (
 )
 from umfa_tpu_torch.ops.quant_bwd import _backward as quantized_backward
 from umfa_tpu_torch.ops.quant_fused import quantize_rows_fused
-from umfa_tpu_torch.ops.quant_fused_attn import _fused, fused_path_supported, require_ported
+from umfa_tpu_torch.ops.quant_fused_attn import (
+    _fused,
+    fused_path_supported,
+    require_symmetric_pv,
+)
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ROW5 = "(ROADMAP, Queue 2: row 5's unported variants)"
 # q k v qs ks vs bias corr qz qr kz kr vz out lse | B Hq Hkv Sq Sk D | qs_rows
-# ks_rows vs_rows | bsb bsh bsq bsk | left right int4 dz | the walk | stream
+# ks_rows vs_rows | bsb bsh bsq bsk | left right int4 dz | the walk | pv | stream
 _ARGTYPES = (*(_P,) * 15, *(_I,) * 6, _I, _I, _I, _L, _L, _L, _L, _I, _I, _I, _I,
-             *WALK_ARGTYPES, _P)
+             *WALK_ARGTYPES, _I, _P)
+_PV_SCALE = torch.tensor(1.0 / 127.0, dtype=torch.float32).item()  # fp32(1/127)
 
 
 class _Prepared(NamedTuple):
@@ -107,6 +118,25 @@ class _Prepared(NamedTuple):
     right: int
     out_dtype: torch.dtype
     walk: Optional[Walk]
+    pv_group: int = 0  # pv_int8: rows of one V scale (Sk or more: one group); 0 = bf16 P·V
+
+
+def _pv_group(qt_v, sk: int) -> int:
+    """The rows over which V's scale is constant, for the integer P·V: the
+    BLOCK group, or Sk for one scale per (b, h); the kernel reads one scale
+    a 32-key step, so a smaller group must be a multiple of 32."""
+    sc = qt_v.scales
+    if sc.shape[2] == 1:
+        return sk
+    group = qt_v.block_size if qt_v.mode == QuantMode.BLOCK else 1
+    if group < sk and group % 32:
+        raise ValueError(f"pv_int8 needs V's scale constant over groups of a multiple of 32 "
+                         f"rows (BLOCK scales per KV tile), got {qt_v.mode.value} groups of "
+                         f"{group}")
+    first = sc[:, :, ::group].repeat_interleave(group, dim=2)[:, :, :sk]
+    if not torch.equal(first, sc):
+        raise ValueError(f"pv_int8 needs V's scale constant over each group of {group} rows")
+    return min(group, sk)
 
 
 def _scales(t: torch.Tensor, b: int, h: int, s: int, name: str) -> torch.Tensor:
@@ -117,9 +147,9 @@ def _scales(t: torch.Tensor, b: int, h: int, s: int, name: str) -> torch.Tensor:
 
 def _prepare(qt_q, qt_k, qt_v, bias, score_corr, walk: Optional[Walk],
              causal, window, scale, out_dtype, pv_int8) -> _Prepared:
-    if pv_int8:
-        raise NotImplementedError(f"pv_int8 (integer P·V) is not ported yet {_ROW5}")
     asym = qt_q.strategy == QuantStrategy.ASYMMETRIC
+    if pv_int8 and asym:
+        raise ValueError("pv_int8 requires symmetric quantization")
     for qt in (qt_q, qt_k, qt_v):
         if not qt.precision.is_integer:
             raise ValueError(f"quantized operands are INT8 or INT4, got {qt.precision}")
@@ -169,8 +199,9 @@ def _prepare(qt_q, qt_k, qt_v, bias, score_corr, walk: Optional[Walk],
     left, right = fold_mask(causal, window)
     if walk is not None:
         _check_walk(walk, b, hq, sq, sk)
+    pv_group = _pv_group(qt_v, sk) if pv_int8 else 0
     return _Prepared(q, k, v, int4, d, q_scales, k_scales, v_scales, zps, corr, bias, left,
-                     right, out_dtype, walk)
+                     right, out_dtype, walk, pv_group)
 
 
 def quantized_attention_forward(
@@ -266,7 +297,10 @@ def _plain(p: _Prepared):
     m = s.amax(dim=-1, keepdim=True).clamp_min(DEFAULT_MASK_VALUE)
     s.sub_(m).exp_().masked_fill_(hidden, 0.0)
     l = s.sum(dim=-1)
-    if p.asym is not None:
+    if p.pv_group:
+        pv = _plain_pv(p, s, v)
+        del s
+    elif p.asym is not None:
         # V's scale folded into P, its zero point subtracted after the dot
         # (quant_attention.py:231-243).
         s.mul_(kv_row(p.v_scales))
@@ -274,9 +308,10 @@ def _plain(p: _Prepared):
         v_deq = v.to(torch.bfloat16).float()
     else:
         v_deq = (v.to(torch.bfloat16) * p.v_scales.to(torch.bfloat16)).float()
-    pb = s.to(torch.bfloat16)
-    del s
-    pv = torch.matmul(pb.float().reshape(b, hkv, g * sq, sk), v_deq).reshape(b, hq, sq, d)
+    if not p.pv_group:
+        pb = s.to(torch.bfloat16)
+        del s
+        pv = torch.matmul(pb.float().reshape(b, hkv, g * sq, sk), v_deq).reshape(b, hq, sq, d)
     if p.asym is not None:
         pv = pv - zsum
     empty = l == 0
@@ -285,6 +320,34 @@ def _plain(p: _Prepared):
     lse = torch.where(empty, torch.full_like(l, DEFAULT_MASK_VALUE),
                       m[..., 0] + torch.log(l_safe))
     return out, lse
+
+
+def _plain_pv(p: _Prepared, prob: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The integer P·V (quant_attention.py:219-229) of P (B, Hq, Sq, Sk),
+    0 on hidden lanes, and V's int8 codes: each group's exact Σ rint(127·p)
+    · v_code, as fp32, times fp32(sv · fp32(1/127)), summed over groups."""
+    b, hq, sq, sk = prob.shape
+    hkv, d = v.shape[1], v.shape[3]
+    g, grp = hq // hkv, p.pv_group
+    ng = -(-sk // grp)
+    # Sums of 128 keys are integers below 2^24 (128 · 127 · 127), exact in
+    # fp32 in any order; a group's sum of them is taken in float64, exact,
+    # and rounded once, as the reference's int32 sum is when cast.
+    sub = 128 if grp % 128 == 0 else grp
+    n = ng * grp
+    codes = torch.nn.functional.pad(torch.round(prob * 127.0), (0, n - sk))
+    vc = torch.nn.functional.pad(v.float(), (0, 0, 0, n - sk))
+    part = torch.matmul(codes.reshape(b, hkv, g * sq, n // sub, sub).transpose(2, 3),
+                        vc.reshape(b, hkv, n // sub, sub, d))  # (B, Hkv, n/sub, g·Sq, D)
+    del codes
+    isum = part.double().reshape(b, hkv, ng, grp // sub, g * sq, d).sum(dim=3).float()
+    sv = p.v_scales[:, :, ::grp] if p.v_scales.shape[2] > 1 else p.v_scales.expand(-1, -1, ng, -1)
+    w = sv * _PV_SCALE  # (B, Hkv, ng, 1)
+    pv = isum * w[..., None]
+    acc = pv[:, :, 0]
+    for gi in range(1, ng):
+        acc = acc + pv[:, :, gi]
+    return acc.reshape(b, hq, sq, d)
 
 
 def _launch(p: _Prepared):
@@ -309,6 +372,11 @@ def _launch(p: _Prepared):
     if d > 256:
         raise ValueError(f"quant_attn_fwd kernel takes head_dim <= 256, got {d}")
     walk = walk_args(p.walk, "fetch_kv", dev)
+    if p.pv_group and p.walk is not None and p.pv_group < sk and p.walk.block_k % 32:
+        # The walk's tiles start at each map tile's first key; a 32-key step
+        # must not cross a change of V's scale.
+        raise ValueError(f"pv_int8 under a block-sparse map needs block_k % 32 == 0, got "
+                         f"{p.walk.block_k}")
     q, k, v = p.q, p.k, p.v
     int4 = p.int4
     dk = d  # the head dim the kernel sees
@@ -347,10 +415,12 @@ def _launch(p: _Prepared):
             int(p.q_scales.shape[2] > 1), int(p.k_scales.shape[2] > 1),
             int(p.v_scales.shape[2] > 1),
             bsb, bsh, bsq, bsk, p.left, p.right,
-            int(int4[0]) | 2 * int(int4[1]) | 4 * int(int4[2]), d, *walk,
+            int(int4[0]) | 2 * int(int4[1]) | 4 * int(int4[2]), d, *walk, int(p.pv_group > 0),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _kernels.check("quant_attn_fwd", err)
+    if p.pv_group:
+        _kernels.launches["quant_attn_fwd/pv"] += 1
     return (out if dk == d else out[..., :d].contiguous()), lse
 
 
@@ -371,13 +441,17 @@ def _corr_from_quantized(qm: torch.Tensor, qt_k: QuantizedTensor) -> torch.Tenso
     return (cint * qt_k.scales.float().transpose(-1, -2)).reshape(b, hq, 1, sk)
 
 
-def _quantize_operands(q, k, v, config: QuantizationConfig):
+def _quantize_operands(q, k, v, config: QuantizationConfig, v_tile_k: Optional[int] = None):
     """Runtime quantization with exact mean-smoothing compensation, for the
     two-pass route (quant_attention.py:621-742): true sequence means; ROW
     symmetric goes through the row quantizer (`ops/quant_fused.py`, the
     rotation and the mean subtraction inside it), other modes through
-    `ops/quant.quantize` on fp32-smoothed operands. Returns (qt_q, qt_k,
-    qt_v, qm, vm, corr); qm/vm/corr are None without smoothing."""
+    `ops/quant.quantize` on fp32-smoothed operands. Under pv_int8 V is
+    quantized BLOCK-wise per `v_tile_k` rows (the reference's KV tile) of
+    v − vm in fp32. Returns (qt_q, qt_k, qt_v, qm, vm, corr); qm/vm/corr
+    are None without smoothing."""
+    if config.pv_int8 and v_tile_k is None:
+        raise ValueError("pv_int8 quantizes V per KV tile: pass v_tile_k")
     use_fused = config.strategy == QuantStrategy.SYMMETRIC and config.mode == QuantMode.ROW
     if config.hadamard and not use_fused:
         q, k = hadamard_rotate(q), hadamard_rotate(k)
@@ -396,7 +470,12 @@ def _quantize_operands(q, k, v, config: QuantizationConfig):
             km = hadamard_rotate(km)
         qt_q = quantize_rows_fused(q, qm, precision=config.q_precision, hadamard=config.hadamard)
         qt_k = quantize_rows_fused(k, km, precision=config.k_precision, hadamard=config.hadamard)
-        qt_v = quantize_rows_fused(v, vm, precision=config.v_precision)
+        if config.pv_int8:
+            v_in = v.float() - vm if vm is not None else v
+            qt_v = quantize(v_in, config.v_precision, QuantMode.BLOCK, config.strategy, v_tile_k)
+            qt_v.orig_dtype = orig_dtypes[2]
+        else:
+            qt_v = quantize_rows_fused(v, vm, precision=config.v_precision)
         if qm is not None:
             corr = _corr_from_quantized(qm, qt_k)
         return qt_q, qt_k, qt_v, qm, vm, corr
@@ -413,7 +492,10 @@ def _quantize_operands(q, k, v, config: QuantizationConfig):
     bs = config.block_sizes
     qt_q = quantize(q, config.q_precision, config.mode, config.strategy, bs.q)
     qt_k = quantize(k, config.k_precision, config.mode, config.strategy, bs.k)
-    qt_v = quantize(v, config.v_precision, config.mode, config.strategy, bs.v)
+    if config.pv_int8:
+        qt_v = quantize(v, config.v_precision, QuantMode.BLOCK, config.strategy, v_tile_k)
+    else:
+        qt_v = quantize(v, config.v_precision, config.mode, config.strategy, bs.v)
     qt_q.orig_dtype, qt_k.orig_dtype, qt_v.orig_dtype = orig_dtypes
     return qt_q, qt_k, qt_v, qm, vm, corr
 
@@ -433,7 +515,7 @@ def _try_fused_single_launch(q, k, v, bias, config, causal, window, scale, out_d
         return None
     return _fused(
         q, k, v, bias, walk, causal=causal, window=window, scale=scale, smooth=config.smooth,
-        smooth_q=config.effective_smooth_q(), hadamard=config.hadamard,
+        smooth_q=config.effective_smooth_q(), hadamard=config.hadamard, pv_int8=config.pv_int8,
         emit_residuals=emit_residuals, q_precision=config.q_precision,
         k_precision=config.k_precision, v_precision=config.v_precision,
         strategy=config.strategy, mode=config.mode, quant_blocks=config.block_sizes,
@@ -455,9 +537,16 @@ def _two_pass(q, k, v, bias, config, causal, window, scale, out_dtype,
     """Quantize, attend on the quantized operands, restore the V mean
     (quant_attention.py:845-880)."""
     _require_integer_q(config)
-    qt_q, qt_k, qt_v, qm, vm, corr = _quantize_operands(q, k, v, config)
+    v_tile_k = None
+    if config.pv_int8:
+        # The reference's KV tile (quant_attention.py:845-856): its default
+        # request, or the map's.
+        v_tile_k = _choose_block(walk.block_k if walk is not None else BlockSizes().block_k,
+                                 k.shape[2], k.shape[3])
+    qt_q, qt_k, qt_v, qm, vm, corr = _quantize_operands(q, k, v, config, v_tile_k)
     out, lse = _quant_forward(qt_q, qt_k, qt_v, bias, corr, walk, causal=causal,
-                              window=window, scale=scale, out_dtype=out_dtype or q.dtype)
+                              window=window, scale=scale, out_dtype=out_dtype or q.dtype,
+                              pv_int8=config.pv_int8)
     if vm is not None:
         # out = P·v' + vm (softmax rows sum to 1), except rows with no
         # visible key, which keep their exact 0.
@@ -590,8 +679,8 @@ def quantized_flash_attention(
     means windows and BLOCK groups). Returns out (out_dtype, default
     q.dtype), or (out, lse) with return_lse=True. Gradients reach q, k, v
     and, with bias_grad=True, the bias (else it gets zeros). HYBRID mode is
-    resolved from q's data (it may pick TENSOR, ROW or BLOCK); pv_int8
-    raises NotImplementedError."""
+    resolved from q's data (it may pick TENSOR, ROW or BLOCK); pv_int8 with
+    ASYMMETRIC raises ValueError."""
     walk = None
     if block_mask is not None:
         if bias is not None:
@@ -599,7 +688,7 @@ def quantized_flash_attention(
         bias, walk = block_mask.bias, block_mask.walk()
     if config.mode == QuantMode.HYBRID:
         config = dataclasses.replace(config, mode=choose_mode(q))
-    require_ported(config)
+    require_symmetric_pv(config)
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (q, k, v, bias)):
         out, lse = _QFlash.apply(q, k, v, bias, config, causal, window, scale, out_dtype,
                                  bias_grad, walk)

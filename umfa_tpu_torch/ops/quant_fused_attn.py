@@ -48,15 +48,31 @@ The reference walks KV tiles with an online softmax and so rounds P
 against a running max where it walks more than one tile; this port (kernel
 and plain version) rounds against the final row max (ROADMAP §3).
 
+`pv_int8`, the integer P·V (quant_fused_attn.py:391-411, :552-601,
+:823-828): V is quantized per `pv_chunk` rows (the reference's
+`min(256, block_k)`, halved until it divides its KV tile; one symmetric
+scale over the chunk's rows of v − vm, rows past Sk counted as 0 − vm),
+and its residual is BLOCK with that group. Each row quantizes P in each
+absolute pv_chunk of keys against that chunk's own max ml (taken over
+every lane, masked ones at −1e30 included): p̂ = rint(exp(s − (ml −
+fp32(ln 255.49)))) in [0, 255]; l = Σ_c β_c·Σ p̂ and acc = Σ_c (the exact
+integer Σ p̂·v_code)·(β_c·sv_c) with β_c = exp(ml_c − m), m the final row
+max; out = acc / l + vm, LSE = m + log l − ln 255.49. A row that sees no
+key has m = −1e30, so in the reference every lane of every chunk it walks
+codes p̂ = 1 with β = 1: its output is the mean of the dequantized V over
+the lanes of the key tiles its query tile walks (rows past Sk of the last
+tile included, as 0 − vm quantized), plus vm, and its LSE −1e30; the port
+reproduces that from the reference's tiles (`mean_rows`, or the map's).
+
 Supported: ROW or BLOCK granularity, SYMMETRIC or ASYMMETRIC, INT8 or INT4
 per operand, a dense Q, smoothing, Hadamard, bias, causal/window, GQA,
-block-sparse maps, D ≤ 256, fp32/bf16/fp16 inputs. `pv_int8` raises
-NotImplementedError (ROADMAP, Queue 2: row 7's unported variants).
+block-sparse maps, `pv_int8` (symmetric), D ≤ 256, fp32/bf16/fp16 inputs.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 import os
 from typing import NamedTuple, Optional
 
@@ -86,22 +102,33 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # q k v bias out lse | qv qs kv ks vv vs qm km vm cc kb vb | qzp kzp vzp ys st
 # qb | B Hq Hkv Sq Sk D | bsb bsh bsq bsk | scale left right | flags qmax_q
 # qmax_k qmax_v Tq Tkv | q_group k_group v_group | in out | the walk
-# (WALK_ARGTYPES) | kv_row0 | stream
+# (WALK_ARGTYPES) | kv_row0 | ml vcode pcode | stream
 _ARGTYPES = (*(_P,) * 24, *(_I,) * 6, *(_L,) * 4, ctypes.c_float, _I, _I,
-             *(_I,) * 6, *(_I,) * 3, _I, _I, *WALK_ARGTYPES, _P, _P)
+             *(_I,) * 6, *(_I,) * 3, _I, _I, *WALK_ARGTYPES, _P, _P, _P, _P, _P)
 
 # Flag bits of the C entry point.
 _F_HADAMARD, _F_SMOOTH, _F_SMOOTH_Q, _F_Q_DENSE, _F_ASYM = 1, 2, 4, 8, 16
-_Q_INT4, _K_INT4, _V_INT4 = 32, 64, 128
+_Q_INT4, _K_INT4, _V_INT4, _F_PV = 32, 64, 128, 256
 
-_NOT_PORTED = "(ROADMAP, Queue 2: row 7's unported variants)"
+# ln of the integer P·V's amplitude, as the reference's fp32 constant
+# (quant_fused_attn.py:96-97): p̂ = round(exp(s − ml + ln A)) = round(A·p).
+LN_P_AMP = torch.tensor(math.log(255.49), dtype=torch.float32).item()
 
 
-def require_ported(config) -> None:
-    """Raise NotImplementedError for the configs whose kernels are not
-    ported yet: pv_int8 (the reference's integer P·V)."""
-    if config.pv_int8:
-        raise NotImplementedError(f"pv_int8 (integer P·V) is not ported yet {_NOT_PORTED}")
+def pv_chunk_of(block_k: int) -> int:
+    """The reference's integer P·V chunk (quant_fused_attn.py:973-975):
+    min(256, block_k), halved until it divides its KV tile block_k."""
+    c = min(256, int(block_k))
+    while c and block_k % c:
+        c //= 2
+    return c
+
+
+def require_symmetric_pv(config) -> None:
+    """ASYMMETRIC with pv_int8 is refused, where the reference asserts
+    (quant_attention.py:727-731): the integer P·V needs a symmetric V."""
+    if config.pv_int8 and config.strategy == QuantStrategy.ASYMMETRIC:
+        raise ValueError("pv_int8 requires symmetric quantization")
 
 
 def fused_path_supported(config, seq_k: int, head_dim: int, *, causal: bool, window,
@@ -113,8 +140,8 @@ def fused_path_supported(config, seq_k: int, head_dim: int, *, causal: bool, win
     (read on each call) sends the call to the two-pass route. With a
     block-sparse map it takes the whole compacted schedule (`fetch_kv`,
     `hold_kv`, `fill_kv`), no `bias_grad`, and no per-head map (Hm > 1)
-    under GQA; `fetch_kv` without a map goes two-pass. pv_int8 raises
-    NotImplementedError here (not ported yet)."""
+    under GQA; `fetch_kv` without a map goes two-pass. pv_int8 with
+    ASYMMETRIC goes two-pass, as in the reference (which refuses it there)."""
     if os.environ.get("UMFA_DISABLE_FUSED_QUANT", "0") == "1":
         return False
     if config.mode not in (QuantMode.ROW, QuantMode.BLOCK):
@@ -126,7 +153,6 @@ def fused_path_supported(config, seq_k: int, head_dim: int, *, causal: bool, win
         return False
     if config.pv_int8 and config.strategy == QuantStrategy.ASYMMETRIC:
         return False  # integer P·V needs a symmetric V: the two-pass route
-    require_ported(config)
     if block_map is not None:
         # The reference's reasons: a non-leader GQA head reading tiles a
         # per-head leader never filled, and a bias gradient dequantizing
@@ -173,17 +199,19 @@ def effective_group(requested: int, tile: int) -> int:
 
 
 def default_mean_rows(seq_q: int, seq_k: int, head_dim: int, *, causal: bool, window,
-                      has_bias: bool) -> tuple:
+                      has_bias: bool, pv_int8: bool = False) -> tuple:
     """(T_q, T_kv): the reference's first Q and K/V tiles at its default
     BlockSizes (quant_fused_attn.py:918-946), over which it estimates the
     smoothing means (tile zero-padded: sum of min(T, S) rows, over T).
-    Causal at S = 4096, D = 64 gives (2048, 1024); S = 256 gives (256, 256)."""
+    Causal at S = 4096, D = 64 gives (2048, 1024), (1024, 1024) with
+    pv_int8; S = 256 gives (256, 256)."""
     masked = causal or window is not None
     block_k = _choose_block(1024 if masked else 2048, seq_k, head_dim)
     block_q = _choose_block(1024 if masked else 2048, seq_q, head_dim)
     # Rectangular causal mode (flash_fwd.py:262-281): plain causal, no bias,
-    # aligned KV tail, Sq divisible by the doubled q tile.
-    if (causal and window is None and not has_bias and seq_k % block_k == 0
+    # aligned KV tail, Sq divisible by the doubled q tile; never with
+    # pv_int8 (quant_fused_attn.py:944).
+    if (causal and window is None and not has_bias and not pv_int8 and seq_k % block_k == 0
             and seq_q % (2 * block_k) == 0):
         block_q = 2 * block_k
     return block_q, block_k
@@ -213,6 +241,7 @@ class _Prepared(NamedTuple):
     orig_dtypes: tuple
     walk: Optional[Walk]
     kv_row0: Optional[torch.Tensor]  # (B, Hkv) int32: the first row of each K/V mean window
+    pv_chunk: int = 0        # pv_int8: keys a chunk (V's group, groups[2]); 0 = bf16 P·V
 
 
 def first_fill_tiles(fetch_kv: torch.Tensor, fill_kv: torch.Tensor) -> torch.Tensor:
@@ -242,7 +271,7 @@ def kv_mean_rows(walk: Walk, b: int, hkv: int, group: int) -> torch.Tensor:
 
 def _prepare(q, k, v, bias, causal, window, scale, smooth, smooth_q, hadamard, emit,
              q_precision, k_precision, v_precision, out_dtype, mean_rows, strategy, mode,
-             quant_blocks, walk: Optional[Walk]) -> _Prepared:
+             quant_blocks, walk: Optional[Walk], pv_int8: bool = False) -> _Prepared:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be (B, H, S, D)")
     b, hq, sq, d = q.shape
@@ -260,6 +289,8 @@ def _prepare(q, k, v, bias, causal, window, scale, smooth, smooth_q, hadamard, e
         raise ValueError(f"the Hadamard rotation needs a power-of-two head_dim, got {d}")
     if mode not in (QuantMode.ROW, QuantMode.BLOCK):
         raise ValueError(f"the single-launch kernel quantizes ROW or BLOCK, got {mode}")
+    if pv_int8 and strategy == QuantStrategy.ASYMMETRIC:
+        raise ValueError("pv_int8 requires symmetric quantization")
     orig_dtypes = (q.dtype, k.dtype, v.dtype)
     # fp16 is storage-only: read as fp32 (the TPU kernel's f32 tiles).
     q, k, v = (x.float() if x.dtype == torch.float16 else x for x in (q, k, v))
@@ -291,7 +322,7 @@ def _prepare(q, k, v, bias, causal, window, scale, smooth, smooth_q, hadamard, e
             mean_rows = (walk.block_q, walk.block_k)
     if mean_rows is None:
         mean_rows = default_mean_rows(sq, sk, d, causal=causal, window=window,
-                                      has_bias=bias is not None)
+                                      has_bias=bias is not None, pv_int8=pv_int8)
     t_q, t_kv = (int(t) for t in mean_rows)
     if t_q < 1 or t_kv < 1:
         raise ValueError(f"mean_rows must be positive, got {mean_rows}")
@@ -302,11 +333,17 @@ def _prepare(q, k, v, bias, causal, window, scale, smooth, smooth_q, hadamard, e
         qb = quant_blocks or BlockSizeConfig()
         groups = (effective_group(qb.q, t_q), effective_group(qb.k, t_kv),
                   effective_group(qb.v, t_kv))
+    pv_chunk = 0
+    if pv_int8:
+        # V per chunk of the reference's KV tile, whatever the mode asks
+        # (quant_fused_attn.py:1360-1362).
+        pv_chunk = pv_chunk_of(walk.block_k if walk is not None else t_kv)
+        groups = groups[:2] + (pv_chunk,)
     return _Prepared(q.contiguous(), k.contiguous(), v.contiguous(), bias,
                      float(d**-0.5 if scale is None else scale), left, right, bool(smooth),
                      smooth_q, bool(hadamard), bool(emit), q_precision, k_precision,
                      v_precision, t_q, t_kv, strategy == QuantStrategy.ASYMMETRIC, groups,
-                     kernel_out, final, orig_dtypes, walk, kv_row0)
+                     kernel_out, final, orig_dtypes, walk, kv_row0, pv_chunk)
 
 
 def fused_quantize_attend(
@@ -321,6 +358,7 @@ def fused_quantize_attend(
     smooth: bool = True,
     smooth_q: Optional[bool] = None,
     hadamard: bool = False,
+    pv_int8: bool = False,
     emit_residuals: bool = True,
     q_precision: Precision = Precision.INT8,
     k_precision: Precision = Precision.INT8,
@@ -348,7 +386,8 @@ def fused_quantize_attend(
     kernel walks it) and fill schedule hold_kv/fill_kv (a BlockMask's
     fields, both tables required) restricts each row to the keys of its
     walked tiles; the K/V means come from each slice's first filled tile
-    (`first_fill_tiles`).
+    (`first_fill_tiles`). `pv_int8` runs P·V on integers (the module
+    docstring), symmetric only.
 
     Returns (out (B, Hq, Sq, D) in out_dtype (default q.dtype), lse
     (B, Hq, Sq) fp32, qt_q, qt_k, qt_v, qm, vm): the residuals (qt_q None
@@ -358,7 +397,8 @@ def fused_quantize_attend(
     return _fused(q, k, v, bias, _map_walk(block_map, fetch_kv, hold_kv, fill_kv, block_q,
                                            block_k),
                   causal=causal, window=window, scale=scale, smooth=smooth, smooth_q=smooth_q,
-                  hadamard=hadamard, emit_residuals=emit_residuals, q_precision=q_precision,
+                  hadamard=hadamard, pv_int8=pv_int8, emit_residuals=emit_residuals,
+                  q_precision=q_precision,
                   k_precision=k_precision, v_precision=v_precision, strategy=strategy,
                   mode=mode, quant_blocks=quant_blocks, out_dtype=out_dtype,
                   mean_rows=mean_rows)
@@ -374,16 +414,21 @@ def fused_quantize_attend_plain(q, k, v, bias=None, *, block_map=None, fetch_kv=
 
 def _fused(q, k, v, bias, walk: Optional[Walk], plain: bool = False, *, causal=False,
            window=None, scale=None, smooth=True, smooth_q=None, hadamard=False,
-           emit_residuals=True, q_precision=Precision.INT8, k_precision=Precision.INT8,
-           v_precision=Precision.INT8, strategy=QuantStrategy.SYMMETRIC, mode=QuantMode.ROW,
-           quant_blocks=None, out_dtype=None, mean_rows=None):
+           pv_int8=False, emit_residuals=True, q_precision=Precision.INT8,
+           k_precision=Precision.INT8, v_precision=Precision.INT8,
+           strategy=QuantStrategy.SYMMETRIC, mode=QuantMode.ROW, quant_blocks=None,
+           out_dtype=None, mean_rows=None, p_codes=None):
     """`fused_quantize_attend` with its block-sparse arguments as a Walk (a
     BlockMask's carries the means tile found on the host); `plain` runs the
-    plain version on any device."""
+    plain version on any device. `p_codes`, a zeroed (B, Hq, Sq, Sk)
+    uint8 tensor, receives the P codes under pv_int8, for checks: those of
+    the lanes whose chunk counts (β > 0); the others stay 0."""
     p = _prepare(q, k, v, bias, causal, window, scale, smooth, smooth_q, hadamard,
                  emit_residuals, q_precision, k_precision, v_precision, out_dtype, mean_rows,
-                 strategy, mode, quant_blocks, walk)
-    return _finish(p, *(_plain(p) if plain or p.q.device.type == "cpu" else _launch(p)))
+                 strategy, mode, quant_blocks, walk, pv_int8)
+    if plain or p.q.device.type == "cpu":
+        return _finish(p, *_plain(p, p_codes))
+    return _finish(p, *_launch(p, p_codes))
 
 
 def _map_walk(block_map, fetch_kv, hold_kv, fill_kv, block_q, block_k) -> Optional[Walk]:
@@ -492,7 +537,7 @@ def _zp(zp):
     return None if zp is None else zp.to(torch.int32)
 
 
-def _plain(p: _Prepared):
+def _plain(p: _Prepared, p_codes: Optional[torch.Tensor] = None):
     b, hq, sq, d = p.q.shape
     _, hkv, sk, _ = p.k.shape
     g = hq // hkv
@@ -505,8 +550,18 @@ def _plain(p: _Prepared):
     qm = _tile_mean(q32, p.t_q) if p.smooth_q else None
 
     k_f, sk_, zk = _quantize_rows(k32, km, p.k_precision, gk, p.asym)
-    v_f, sv_, zv = _quantize_rows(v32, vm, p.v_precision, gv, p.asym)
-    k_bf, v_bf = _bf16(_deq(k_f, sk_, zk)), _bf16(_deq(v_f, sv_, zv))
+    if p.pv_chunk:
+        # V as the reference's zero-padded KV tiles hold it: the rows past
+        # Sk (0 − vm) count in the last chunk's scale and code the lanes
+        # that a row with no visible key averages over.
+        bk = p.walk.block_k if p.walk is not None else p.t_kv
+        v_pad = torch.nn.functional.pad(v32, (0, 0, 0, -(-sk // bk) * bk - sk))
+        v_fp, sv_p, _ = _quantize_rows(v_pad, vm, p.v_precision, gv)
+        v_f, sv_, zv, v_bf = v_fp[:, :, :sk], sv_p[:, :, :sk], None, None
+    else:
+        v_f, sv_, zv = _quantize_rows(v32, vm, p.v_precision, gv, p.asym)
+        v_bf = _bf16(_deq(v_f, sv_, zv))
+    k_bf = _bf16(_deq(k_f, sk_, zk))
     q_dense = not p.q_precision.is_integer
     if q_dense:
         q_bf, q_f, sq_, zq = _bf16(q32 * p.scale), None, None, None
@@ -530,6 +585,14 @@ def _plain(p: _Prepared):
         hidden = hidden | ~walked_keys(p.walk, sq, sk)
     s.masked_fill_(hidden, DEFAULT_MASK_VALUE)
     m = s.amax(dim=-1, keepdim=True).clamp_min(DEFAULT_MASK_VALUE)
+    res = None
+    if p.emit:
+        res = (None if q_dense else _codes(q_f, p.q_precision), sq_,
+               _codes(k_f, p.k_precision), sk_, _codes(v_f, p.v_precision), sv_,
+               _zp(zq), _zp(zk), _zp(zv), qm, vm)
+    if p.pv_chunk:
+        out, lse = _plain_pv(p, s, m, v_fp, sv_p, vm, p_codes)
+        return out.to(p.out_dtype), lse, res
     s.sub_(m).exp_().masked_fill_(hidden, 0.0)
     pb = _bf16(s)
     # Row sum: the bf16 P at D < 128 (it rides P·V as a ones column in the
@@ -544,15 +607,92 @@ def _plain(p: _Prepared):
     if vm is not None:
         out = torch.where(empty[..., None], 0.0, out + vm.repeat_interleave(g, dim=1))
     lse = torch.where(empty, torch.full_like(l, DEFAULT_MASK_VALUE), m[..., 0] + torch.log(l_safe))
-    res = None
-    if p.emit:
-        res = (None if q_dense else _codes(q_f, p.q_precision), sq_,
-               _codes(k_f, p.k_precision), sk_, _codes(v_f, p.v_precision), sv_,
-               _zp(zq), _zp(zk), _zp(zv), qm, vm)
     return out.to(p.out_dtype), lse, res
 
 
-def _launch(p: _Prepared):
+def _plain_pv(p: _Prepared, s: torch.Tensor, m: torch.Tensor, v_codes: torch.Tensor,
+              v_scales: torch.Tensor, vm: Optional[torch.Tensor],
+              p_codes: Optional[torch.Tensor] = None):
+    """The integer P·V of the reference (quant_fused_attn.py:552-601,
+    :823-828) on the masked scores s (B, Hq, Sq, Sk), their row max m, and
+    V's codes and scales (as fp32) over the reference's zero-padded rows."""
+    b, hq, sq, sk = s.shape
+    hkv, d = v_codes.shape[1], v_codes.shape[3]
+    g, c = hq // hkv, p.pv_chunk
+    nch = -(-sk // c)
+    # Lanes past Sk are index-masked; ml is each chunk's max over all its lanes.
+    s_c = torch.nn.functional.pad(s, (0, nch * c - sk), value=DEFAULT_MASK_VALUE)
+    s_c = s_c.reshape(b, hq, sq, nch, c)
+    ml = s_c.amax(dim=-1, keepdim=True)
+    codes = s_c.sub_(ml - LN_P_AMP).exp_().round_()  # p̂ in [0, 255]
+    live = m > DEFAULT_MASK_VALUE
+    beta = torch.where(live, torch.exp(ml[..., 0] - m), 0.0)  # (B, Hq, Sq, nch)
+    l = (codes.sum(dim=-1) * beta).sum(dim=-1)
+    if p_codes is not None:
+        kept = torch.where(beta[..., None] > 0, codes, 0.0).reshape(b, hq, sq, nch * c)
+        p_codes.copy_(kept[..., :sk].to(torch.uint8))
+    # Σ p̂·v_code of each chunk: integers below 2^24 (255 · 127 · 256), so the
+    # fp32 product is exact in any order.
+    vc = v_codes[:, :, :nch * c].reshape(b, hkv, 1, nch, c, d)
+    isum = torch.matmul(codes.reshape(b, hkv, g, sq, nch, c).transpose(3, 4), vc)
+    del codes
+    sv_c = v_scales[:, :, 0:nch * c:c, 0].repeat_interleave(g, dim=1)  # (B, Hq, nch)
+    w = beta * sv_c[:, :, None, :]
+    acc = (isum.reshape(b, hq, nch, sq, d) * w.transpose(2, 3)[..., None]).sum(dim=2)
+    del isum
+    empty = l == 0
+    l_safe = torch.where(empty, torch.ones_like(l), l)
+    out = acc / l_safe[..., None]
+    vm_q = None if vm is None else vm.repeat_interleave(g, dim=1)
+    if vm_q is not None:
+        out = torch.where(empty[..., None], 0.0, out + vm_q)
+    lse = torch.where(empty, torch.full_like(l, DEFAULT_MASK_VALUE),
+                      (m[..., 0] + torch.log(l_safe)) - LN_P_AMP)
+    if not live.all():
+        out = torch.where(live, out, _hidden_rows_pv(p, sq, v_codes, v_scales, vm_q))
+    return out, lse
+
+
+def _reference_walked_tiles(p: _Prepared, sq: int, sk: int) -> tuple:
+    """(walked (Bm, Hm, nq, nk) bool, block_q, block_k): the key tiles the
+    reference walks for each of its query tiles, its `_block_visible` under
+    the index mask and, with a map, the map's non-SKIP tiles."""
+    bq, bk = (p.walk.block_q, p.walk.block_k) if p.walk is not None else (p.t_q, p.t_kv)
+    nq, nk = -(-sq // bq), -(-sk // bk)
+    q_start = torch.arange(nq, device=p.q.device)[:, None] * bq
+    k_start = torch.arange(nk, device=p.q.device)[None, :] * bk
+    vis = torch.ones((nq, nk), dtype=torch.bool, device=p.q.device)
+    if p.right >= 0:
+        vis &= k_start <= q_start + bq - 1 + p.right
+    if p.left >= 0:
+        vis &= k_start + bk - 1 >= q_start - p.left
+    vis = vis[None, None]
+    if p.walk is not None:
+        vis = vis & (p.walk.block_map != 0)
+    return vis, bq, bk
+
+
+def _hidden_rows_pv(p: _Prepared, sq: int, v_codes, v_scales, vm_q):
+    """(B, Hq, Sq, D): what the reference gives a row that sees no key (row
+    max −1e30): every lane of every chunk its query tile walks codes p̂ = 1
+    and every β is 1, so out = the mean of code·sv over those lanes (+ vm),
+    summed chunk by chunk; exactly 0 where it walks none."""
+    b, hkv, skp, d = v_codes.shape
+    hq = p.q.shape[1]
+    g, c = hq // hkv, p.pv_chunk
+    walked, bq, bk = _reference_walked_tiles(p, sq, p.k.shape[2])
+    w = walked.repeat_interleave(bq, dim=2)[:, :, :sq].repeat_interleave(bk // c, dim=3)
+    w = w.expand(b, hq, sq, skp // c).float()
+    chunk = v_codes.reshape(b, hkv, skp // c, c, d).sum(dim=3) * v_scales[:, :, ::c]
+    acc = torch.matmul(w.reshape(b, hkv, g * sq, -1), chunk).reshape(b, hq, sq, d)
+    n = w.sum(dim=-1, keepdim=True) * c
+    out = acc / torch.where(n == 0, 1.0, n)
+    if vm_q is not None:
+        out = out + vm_q
+    return torch.where(n == 0, 0.0, out)
+
+
+def _launch(p: _Prepared, p_codes: Optional[torch.Tensor] = None):
     dev = p.q.device
     if dev.type != "cuda" or p.k.device != dev or p.v.device != dev:
         raise ValueError(f"fused_qattn kernel needs q, k, v on one CUDA device, got "
@@ -564,6 +704,12 @@ def _launch(p: _Prepared):
     if d > 256:
         raise ValueError(f"fused_qattn kernel takes head_dim <= 256, got {d}")
     walk = walk_args(p.walk, "fetch_kv", dev)
+    if (p.pv_chunk and p.pv_chunk % (32 if d > 128 else 64)
+            and not (p.walk is not None and p.pv_chunk == p.walk.block_k)):
+        # The kernel's key tiles (64 keys, 32 at D > 128, from key 0 or from
+        # each map tile's first key) must each lie in one chunk.
+        raise ValueError(f"fused_qattn's integer P·V takes chunks of a multiple of its key "
+                         f"tile, got pv_chunk {p.pv_chunk}")
     if p.kv_row0 is not None and p.kv_row0.device != dev:
         raise ValueError(f"the block-sparse tables lie on {p.kv_row0.device}, q on {dev}")
     q_dense = not p.q_precision.is_integer
@@ -610,9 +756,22 @@ def _launch(p: _Prepared):
         res[0] = torch.empty((b, hq, sq, width(p.q_precision)), dtype=torch.int8, device=dev)
         res[1] = torch.empty((b, hq, sq, 1), **f32)
         res[6] = torch.empty((b, hq, sq, 1), **i32) if p.asym else None
+    # pv_int8: each row's chunk maxima, raised by the first pass from −1e30
+    # and read by the second, and V's unpacked codes (the residual's own at
+    # INT8).
+    ml = vcode = None
+    if p.pv_chunk:
+        ml = torch.full((b, hq, sq, -(-sk // p.pv_chunk)), DEFAULT_MASK_VALUE, **f32)
+        vcode = (torch.empty((b, hkv, sk, d), dtype=torch.int8, device=dev)
+                 if p.v_precision == Precision.INT4 else res[4])
+    if p_codes is not None and (not p.pv_chunk or p_codes.dtype != torch.uint8
+                                or tuple(p_codes.shape) != (b, hq, sq, sk)
+                                or p_codes.device != dev or not p_codes.is_contiguous()):
+        raise ValueError(f"p_codes must be a contiguous uint8 {(b, hq, sq, sk)} tensor on "
+                         f"{dev}, under pv_int8")
     flags = ((_F_HADAMARD if p.hadamard else 0) | (_F_SMOOTH if p.smooth else 0)
              | (_F_SMOOTH_Q if p.smooth_q else 0) | (_F_Q_DENSE if q_dense else 0)
-             | (_F_ASYM if p.asym else 0)
+             | (_F_ASYM if p.asym else 0) | (_F_PV if p.pv_chunk else 0)
              | (_Q_INT4 if p.q_precision == Precision.INT4 else 0)
              | (_K_INT4 if p.k_precision == Precision.INT4 else 0)
              | (_V_INT4 if p.v_precision == Precision.INT4 else 0))
@@ -631,7 +790,9 @@ def _launch(p: _Prepared):
                 flags, _qmax(p.q_precision) if not q_dense else 0,
                 _qmax(p.k_precision), _qmax(p.v_precision), p.t_q, p.t_kv, *p.groups,
                 _DTYPE_CODE[p.q.dtype], _DTYPE_CODE[p.out_dtype], *walk, ptr(p.kv_row0),
-                torch.cuda.current_stream(dev).cuda_stream,
+                ptr(ml), ptr(vcode), ptr(p_codes), torch.cuda.current_stream(dev).cuda_stream,
             )
         _kernels.check("fused_qattn", err)
+        if p.pv_chunk:
+            _kernels.launches["fused_qattn/pv"] += 1
     return out, lse, (*res, qm, vm) if p.emit else None
