@@ -252,6 +252,27 @@ Phases, one JSON line each:
      the same model with every wrapper's plain version on the card (loss
      abs 1e-5, gradients 1e-4 dense; loss 1e-4, gradient relerr 1e-2
      int8/int4);
+ 14c. MLA and the DeepSeek-style model (models/mla_model.py, moe.py,
+     deepseek.py) in bf16: (a) the MLA forward at bench.py's geometry (dim
+     1024, 16 heads of 64, latent 128, B8 S4096 causal), dense and with
+     the indexer's top-128 bias, each with exactly one flash_fwd launch,
+     timed (median, min, max of 5), its recorded flash_fwd call against the
+     plain version at row 1's bf16 gates; (b) bench.py's MLA decode parity:
+     8 absorbed decode steps (the latent cache filled to 4032) against 8
+     steps of the dense route (decompressed K/V in a bf16 KVCache,
+     decode_attention's gemv route) from the same state, relerr 1e-2 beside
+     the TPU's 0.0034, no launch, each route's ms per step and cache bytes;
+     (c) the DeepSeek demo model (vocab 512, dim 512, 8 heads, latent 64,
+     depth 2, 16 experts, top 4, one shared) at B8: the forward on 4096
+     tokens (finite, aux >= depth, exactly 2 flash_fwd launches, timed) and
+     greedy generate from 1024 prompt tokens, 32 new (in range, the same
+     tokens twice, no launch, prefill and per-step ms); (d) the reduced fp32
+     DeepSeek through the kernel against its plain versions (routes first,
+     logits abs 1e-5; decode against forward 5e-3); (e) quantized_matmul at
+     x (4096, 1024) @ W (1024, 1024): W8A16, W4A16, W8A8 against x @ W (0.01,
+     W4A16_GATE, 0.02) and against the float64 product of their own
+     quantized operands (1e-6), centered INT4 on shifted columns, and W8A8's
+     integer sums equal to an int64 product;
  15. the wall seconds of each phase; a `kernels` line (each kernel with
      its `design`: tensor cores or CUDA cores); the nvidia-smi line; the
      result line.
@@ -260,7 +281,8 @@ timed training steps, the attention() phase, the three full-width
 block-sparse runs and the nine quantized ones, the two full-width ring runs,
 the probe's five reps-1024 calls, the three rope_attention paths, the
 DiT's forwards and timed steps, the pv_int8 accuracy cell's two calls and
-its two-pass training step) is driven with the launch counts set to 0
+its two-pass training step, the two MLA forwards, both MLA decode routes,
+the DeepSeek forward and its generate) is driven with the launch counts set to 0
 just before it and read just after; a kernel's `launches` in the kernels
 line is its sum over them; `launches_pv` of `fused_qattn` and
 `quant_attn_fwd`, and `launches_rope` of `flash_fwd`, their PV and ROPE
@@ -4059,6 +4081,464 @@ def phase_dit(record):
     return path_counts
 
 
+# MLA at bench.py's geometry (_mla_setup :738-745, the demo's
+# examples/deepseek_mla_demo.py:27-31): dim 1024, 16 heads of 64, latent
+# 128, batch 8, ctx 4096 (the cache filled to 4032), decode in chunks of 8
+# steps, bf16; the demo's indexer_topk 128 as a second forward. The
+# DeepSeek demo model (examples/deepseek_mla_demo.py:56-60) at batch 8: the
+# forward on 4096 tokens, generate from 1024 prompt tokens, 32 new ones,
+# max_len 4096. The reduced fp32 DeepSeek is tests/test_models.py:143-147's.
+MLA_WIDTH = dict(dim=1024, num_heads=16, latent_dim=128)
+MLA_B, MLA_CTX, MLA_CHUNK, MLA_TOPK = 8, 4096, 8, 128
+MLA_TPU_PARITY = 0.0034  # BENCH_r05.json mla_parity_relerr, measured on a TPU v5e
+DS_WIDTH = dict(vocab=512, dim=512, num_heads=8, latent_dim=64, depth=2, num_experts=16,
+                top_k=4, n_shared=1, moe_hidden=512)
+DS_B, DS_S, DS_PROMPT, DS_NEW = 8, 4096, 1024, 32
+# W4A16 against x @ W at K 1024: tests/test_gemm.py's 0.12 is a K 128 gate;
+# a longer column has a larger absmax, so a coarser INT4 step, and the
+# reference's own error here is ~0.143 (tests/test_torch_gemm.py
+# `test_w4a16_error_at_the_card_shape_matches_jax`, which holds both to this).
+W4A16_GATE = 0.15
+DS_SMALL = dict(vocab=64, dim=128, num_heads=4, latent_dim=16, depth=2, num_experts=4, top_k=2,
+                n_shared=1, moe_hidden=64)
+
+
+@contextlib.contextmanager
+def mla_attention_inputs(store):
+    """Record the (q, k, v, bias) each MLA layer hands flash_attention,
+    detached, in `store`."""
+    from umfa_tpu_torch.models import mla_model
+
+    attend = mla_model.flash_attention
+
+    def grab(q, k, v, bias=None, **kw):
+        store.append(tuple(None if t is None else t.detach().contiguous()
+                           for t in (q, k, v, bias)))
+        return attend(q, k, v, bias, **kw)
+
+    mla_model.flash_attention = grab
+    try:
+        yield
+    finally:
+        mla_model.flash_attention = attend
+
+
+@contextlib.contextmanager
+def moe_routes(store):
+    """Record (idx, probs) of every router call of models/moe.py in `store`."""
+    from umfa_tpu_torch.models import moe
+
+    route = moe.router_topk
+
+    def grab(params, x, cfg):
+        w, idx, probs = route(params, x, cfg)
+        store.append((idx.cpu(), probs.detach().cpu()))
+        return w, idx, probs
+
+    moe.router_topk = grab
+    try:
+        yield
+    finally:
+        moe.router_topk = route
+
+
+def held_positions(routes_a, routes_b, batch, k):
+    """(B, S) positions before each sequence's first token routed otherwise
+    in any layer (causal attention carries a changed token to the rows after
+    it, not before); a token routed otherwise must have its k-th and
+    (k+1)-th router probabilities within 4 fp32 ulps. Returns (held, the
+    number of tokens routed otherwise)."""
+    import numpy as np
+    import torch
+
+    first = torch.zeros((batch, routes_a[0][0].shape[0] // batch), dtype=torch.bool)
+    n = 0
+    for (ia, pa), (ib, _) in zip(routes_a, routes_b, strict=True):
+        differ = (ia != ib).any(-1)
+        if differ.any():
+            srt = pa[differ].sort(dim=-1, descending=True).values.numpy()
+            gap = srt[:, k - 1] - srt[:, k]
+            if not (gap <= 4 * np.spacing(srt[:, k - 1])).all():
+                raise AssertionError(f"routes differ beyond a near-tie: gaps {gap}")
+        n += int(differ.sum())
+        first |= differ.reshape(batch, -1)
+    return first.long().cumsum(dim=1) == 0, n
+
+
+def launches_of(fn):
+    """fn()'s result and the kernel launches it made, counted from 0."""
+    import torch
+
+    from umfa_tpu_torch import _kernels
+
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {key: n for key, n in _kernels.launches.items() if n}
+
+
+def one_pass_lse_f64(q, k, bias, rows, kt=64, pre=512):
+    """The causal LSE of `rows` ((n, 3): batch, head, query) as flash_fwd's
+    bf16 body forms it at D < 128 (csrc/fwd_tc.cuh; ROADMAP.md, "One-pass
+    rounding in the dense forward"), every sum in float64: Q scaled and
+    rounded to its type; the running max seeded by the K-only pre-pass over
+    the first `pre` keys; then each `kt`-key tile in order: the max raised
+    to the tile's, P = exp(s - max) rounded to bf16 (0 on index-masked
+    keys), the row sum rescaled and the tile's P added. bias: (B, 1, Sq, Sk)
+    or None. The plain version rounds P against the final max instead
+    (`utils/testing.lse_f64`)."""
+    import torch
+
+    hq, hkv, sk = q.shape[1], k.shape[1], k.shape[2]
+    out = []
+    for part in rows.split(64):
+        bi, hi, qi = part.unbind(1)
+        qs = (q[bi, hi, qi].float() * q.shape[-1]**-0.5).to(q.dtype).double()
+        s = torch.einsum("nd,nkd->nk", qs, k[bi, hi // (hq // hkv)].double())
+        if bias is not None:
+            s = s + bias[bi, 0, qi].double()
+        vis = torch.arange(sk, device=q.device)[None, :] <= qi[:, None]
+        s = s.masked_fill(~vis, -1e30)
+        m = s[:, :pre].amax(dim=-1).clamp_min(-1e30)
+        l = torch.zeros_like(m)
+        for t0 in range(0, sk, kt):
+            blk = s[:, t0:t0 + kt]
+            m_new = torch.maximum(m, blk.amax(dim=-1))
+            p = torch.exp(blk - m_new[:, None]).to(torch.bfloat16).double()
+            l = l * torch.exp(m - m_new) + (p * vis[:, t0:t0 + kt]).sum(dim=-1)
+            m = m_new
+        out.append(m + torch.log(l))
+    return torch.cat(out)
+
+
+def mla_kernel_check(name, inputs):
+    """The recorded flash_fwd call (q, k, v, bias; causal) through the kernel
+    against its plain version, two batch rows at a time, at row 1's bf16
+    gates (out relerr 1e-2, LSE abs 1e-3); and the kernel timed alone on it
+    (median, min, max of 5) beside its bound (4·D flop a visible pair; q, k,
+    v, out, LSE and the bias once). A row whose LSE lies past 1e-3 from the plain version's is held to 1e-3
+    against the float64 LSE of the kernel's own rounding points
+    (`one_pass_lse_f64`): under the indexer's bias a row's kept keys may lie
+    past the pre-pass's first 512, so the kernel rounds their P against a
+    running max that the plain version's final max exceeds. The plain
+    version's distance from its own float64 rounding points
+    (`utils/testing.lse_f64`) on those rows is reported beside it."""
+    import torch
+
+    from umfa_tpu_torch.ops import flash_fwd as ff
+    from umfa_tpu_torch.utils.testing import lse_f64
+
+    q, k, v, bias = inputs
+    got = ff.flash_attention_forward(q, k, v, bias, causal=True)
+    want = [ff.flash_attention_forward_plain(q[i:i + 2], k[i:i + 2], v[i:i + 2],
+                                             None if bias is None else bias[i:i + 2],
+                                             causal=True)
+            for i in range(0, q.shape[0], 2)]
+    want = tuple(torch.cat(parts) for parts in zip(*want))
+    res = compare(name, got, want, 1e-2, 1e-3)
+    vis = want[1] > -1e29
+    over = torch.nonzero(((got[1] - want[1]).abs() > 1e-3) & vis)
+    res["lse_rows_over_tol"] = int(over.shape[0])
+    lse_ok = over.shape[0] == 0
+    if not lse_ok:
+        kernel_model = one_pass_lse_f64(q, k, bias, over)
+        causal = torch.ones((q.shape[2], k.shape[2]), dtype=torch.bool,
+                            device=q.device).tril()[None, None]
+        plain_model = torch.cat([lse_f64(q, k, bias, part, keep=causal)
+                                 for part in over.split(64)])
+        res["max_abs_lse_one_pass_f64_on_those_rows"] = float(
+            (got[1][tuple(over.T)].double() - kernel_model).abs().max())
+        res["max_abs_plain_lse_f64_on_those_rows"] = float(
+            (want[1][tuple(over.T)].double() - plain_model).abs().max())
+        lse_ok = res["max_abs_lse_one_pass_f64_on_those_rows"] <= 1e-3
+    res["lse_ok"] = lse_ok
+    res["ok"] = (res["relerr_out"] <= 1e-2 and lse_ok and res["empty_rows_exact"]
+                 and res["finite"])
+    res["shape"] = "B{} H{} S{} D{} causal bf16".format(*q.shape) + (
+        "" if bias is None else f", bias {tuple(bias.shape)} fp32")
+    t = cuda_stats(lambda: ff.flash_attention_forward(q, k, v, bias, causal=True),
+                   iters=5, warmup=1)
+    b, h, sq, d = q.shape
+    t["flops"] = 4 * d * b * h * visible_pairs(sq, k.shape[2], -1, 0)
+    t["bytes"] = sum(x.numel() * x.element_size() for x in (q, k, v, got[0], got[1])) + (
+        0 if bias is None else bias.numel() * bias.element_size())
+    t["ops_ms"] = t["flops"] / H100_BF16_FLOPS * 1e3
+    t["bytes_ms"] = t["bytes"] / H100_HBM_BYTES * 1e3
+    bound(t)
+    res["kernel_ms"] = t
+    emit({"phase": "kernel_check", **res})
+    if not res["ok"]:
+        raise AssertionError(f"flash_fwd on the MLA forward's inputs disagrees with its plain "
+                             f"version: {res}")
+    return res
+
+
+def phase_mla(record):
+    """MLA and the DeepSeek-style model on the card, bf16 at the widths above:
+    (a) the MLA forward dense and with the indexer's top-128 bias, each with
+    exactly one flash_fwd launch, timed (median, min, max of 5), its
+    recorded flash_fwd call against the plain version; (b) bench.py's
+    decode parity (:760-790, stage_acc_mla :936-952): 8 absorbed decode
+    steps, the output fed back, against 8 steps of the dense route
+    (decompressed K/V in a bf16 KVCache, decode_attention's gemv route), from
+    the same state: final relerr <= 1e-2, no launch, each route's ms per step
+    and cache bytes; (c) the DeepSeek demo model: the forward at B8 S4096
+    (finite logits, aux >= depth·(1 - 1e-5), exactly `depth` flash_fwd
+    launches, timed) and greedy generate (tokens in range, the same tokens
+    twice, no launch, prefill ms and ms per decode step); (d) the reduced fp32
+    DeepSeek through the kernel against the same model with every wrapper's
+    plain version: routes compared first, logits abs 1e-5 before any token
+    routed otherwise, decode logits against the forward's 5e-3; (e)
+    quantized_matmul at x (4096, 1024) @ W (1024, 1024) against x @ W in
+    fp32 at tests/test_gemm.py's gates (W8A16 0.01, W4A16 0.12, W8A8 0.02,
+    centered INT4 on shifted columns below half the uncentered error), W8A8's
+    integer sums equal to an int64 product."""
+    import dataclasses as dc
+
+    import torch
+
+    from umfa_tpu_torch.engine.config import Precision
+    from umfa_tpu_torch.models import deepseek, mla_model
+    from umfa_tpu_torch.ops import gemm
+    from umfa_tpu_torch.ops.mla import mla_decompress
+    from umfa_tpu_torch.serving import kv_cache as kvc
+    from umfa_tpu_torch.serving.decode import decode_attention
+    from umfa_tpu_torch.utils.testing import rel_err
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    gen = torch.Generator().manual_seed(53)
+    path_counts, worst, out = [], 0.0, {}
+
+    # (a) The MLA forward, dense and with the indexer.
+    cfg = mla_model.MLAConfig(**MLA_WIDTH, causal=True, dtype="bfloat16")
+    model = mla_model.init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    x = torch.randn((MLA_B, MLA_CTX, cfg.dim), generator=gen).to(dev, bf16)
+    forwards = {}
+    for label, topk in (("dense", None), ("indexer", MLA_TOPK)):
+        c = dc.replace(cfg, indexer_topk=topk)
+        store = []
+        with torch.no_grad(), mla_attention_inputs(store):
+            y, counts = launches_of(lambda: mla_model.forward(model, x, c))
+        path_counts.append(counts)
+        r = {"phase": "mla_forward", "case": label, "launches": counts,
+             "finite": torch_isfinite(y), "shape_ok": tuple(y.shape) == tuple(x.shape)}
+        del y
+        with torch.no_grad():
+            r.update(cuda_stats(lambda: mla_model.forward(model, x, c), iters=5, warmup=1))
+        check = mla_kernel_check(f"mla/{label}", store[0])
+        worst = max(worst, check["max_abs_out"])
+        r["kernel_check"] = check
+        emit(r)
+        forwards[label] = r
+        del store
+        torch.cuda.empty_cache()
+        if not (r["finite"] and r["shape_ok"]):
+            raise AssertionError(f"MLA {label} forward: non-finite or misshaped output")
+        if counts != {"flash_fwd": 1}:
+            raise AssertionError(f"MLA {label} forward: launches {counts}, expected one flash_fwd")
+    out["forward"] = forwards
+
+    # (b) Absorbed against dense decode from identical state.
+    heads, d, lat = cfg.num_heads, cfg.head_dim, cfg.latent_dim
+    fill = MLA_CTX - 64
+    with torch.no_grad():
+        lat_fill = mla_model.compress_kv(model, x[:, :fill])
+        x0 = torch.randn((MLA_B, 1, cfg.dim), generator=gen).to(dev, bf16)
+        lcache = kvc.append_latent(kvc.init_latent_cache(MLA_B, MLA_CTX, lat, bf16, device=dev),
+                                   lat_fill)
+        dcache = kvc.append(kvc.init_cache(MLA_B, heads, MLA_CTX, d, bf16, device=dev),
+                            *mla_decompress(lat_fill, model.w_k_up, model.w_v_up,
+                                            num_heads=heads))
+    del x, lat_fill
+    state = {"absorbed": lcache, "dense": dcache}
+
+    def fresh(route):
+        c = state[route]
+        return dc.replace(c, **{f.name: getattr(c, f.name).clone()
+                                for f in dc.fields(c)})
+
+    @torch.no_grad()
+    def steps(route, cache, y):
+        for _ in range(MLA_CHUNK):
+            if route == "absorbed":
+                y, cache = mla_model.decode_step(model, y, cache, cfg)
+            else:
+                k_new, v_new = mla_decompress(mla_model.compress_kv(model, y), model.w_k_up,
+                                              model.w_v_up, num_heads=heads)
+                kvc.append(cache, k_new, v_new)
+                q = torch.matmul(y, model.wq).reshape(MLA_B, 1, heads, d).transpose(1, 2)
+                att = decode_attention(q, cache).transpose(1, 2).reshape(MLA_B, 1, cfg.dim)
+                y = y + torch.matmul(att.to(y.dtype), model.wo)
+            y = y.to(bf16)
+        return y
+
+    finals, decode = {}, {}
+    for route in ("absorbed", "dense"):
+        cache = fresh(route)
+        finals[route], counts = launches_of(lambda: steps(route, cache, x0))
+        path_counts.append(counts)
+        times = []
+        for _ in range(4):  # one warm-up, three timed chunks, each from the same state
+            cache = fresh(route)
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            a.record()
+            steps(route, cache, x0)
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b) / MLA_CHUNK)
+        c = state[route]
+        decode[route] = {"launches": counts, "ms_per_step": statistics.median(times[1:]),
+                         "ms_per_step_min": min(times[1:]), "ms_per_step_max": max(times[1:]),
+                         "cache_bytes": sum(getattr(c, f.name).numel()
+                                            * getattr(c, f.name).element_size()
+                                            for f in dc.fields(c) if f.name != "length")}
+        if counts:
+            raise AssertionError(f"MLA {route} decode launched kernels: {counts}")
+    parity = rel_err(finals["absorbed"], finals["dense"])
+    r = {"phase": "mla_decode", "steps": MLA_CHUNK, "fill": fill, "relerr": parity,
+         "tol": 1e-2, "tpu_v5e_relerr": MLA_TPU_PARITY, "finite": torch_isfinite(
+             finals["absorbed"]), **decode,
+         "cache_bytes_ratio": decode["dense"]["cache_bytes"] / decode["absorbed"]["cache_bytes"]}
+    emit(r)
+    out["decode"] = r
+    del state, lcache, dcache, finals, model
+    torch.cuda.empty_cache()
+    if not (parity <= 1e-2 and r["finite"]):
+        raise AssertionError(f"absorbed MLA decode against the dense route: relerr {parity}")
+
+    # (c) The DeepSeek demo model.
+    dcfg = deepseek.DeepSeekConfig(**DS_WIDTH, dtype="bfloat16")
+    dmodel = deepseek.init_params(dcfg, torch.Generator().manual_seed(1), device=dev)
+    tokens = torch.randint(0, dcfg.vocab, (DS_B, DS_S), generator=gen).to(dev)
+    with torch.no_grad():
+        (logits, aux), counts = launches_of(lambda: deepseek.forward(dmodel, tokens, dcfg))
+        path_counts.append(counts)
+        torch.cuda.reset_peak_memory_stats()
+        fwd = {"phase": "deepseek_forward", "launches": counts, "aux": float(aux),
+               "finite": torch_isfinite(logits),
+               "shape_ok": tuple(logits.shape) == (DS_B, DS_S, dcfg.vocab),
+               **cuda_stats(lambda: deepseek.forward(dmodel, tokens, dcfg), iters=5, warmup=1),
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del logits
+    fwd["tokens_per_s"] = DS_B * DS_S / fwd["ms"] * 1e3
+    emit(fwd)
+    if not (fwd["finite"] and fwd["shape_ok"] and fwd["aux"] >= dcfg.depth * (1 - 1e-5)):
+        raise AssertionError(f"DeepSeek forward: {fwd}")
+    if counts != {"flash_fwd": dcfg.depth}:
+        raise AssertionError(f"DeepSeek forward: launches {counts}, expected {dcfg.depth} "
+                             f"flash_fwd")
+    prompt = tokens[:, :DS_PROMPT]
+    gen_tokens, counts = launches_of(lambda: deepseek.generate(
+        dmodel, prompt, dcfg, max_new_tokens=DS_NEW, max_len=DS_S))
+    path_counts.append(counts)
+    again = deepseek.generate(dmodel, prompt, dcfg, max_new_tokens=DS_NEW, max_len=DS_S)
+    caches = deepseek.init_caches(dcfg, DS_B, DS_S, device=dev)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(DS_NEW + 1)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    lg, caches = deepseek.decode_step(dmodel, prompt, caches, dcfg)
+    ev[1].record()
+    for i in range(2, DS_NEW + 1):
+        lg, caches = deepseek.decode_step(dmodel, torch.argmax(lg, -1)[:, None], caches, dcfg)
+        ev[i].record()
+    torch.cuda.synchronize()
+    step_ms = [ev[i - 1].elapsed_time(ev[i]) for i in range(2, DS_NEW + 1)]
+    g = {"phase": "deepseek_generate", "launches": counts, "shape": list(gen_tokens.shape),
+         "in_range": bool(((gen_tokens >= 0) & (gen_tokens < dcfg.vocab)).all()),
+         "same_twice": bool(torch.equal(gen_tokens, again)),
+         "prefill_ms": ev[0].elapsed_time(ev[1]), "ms_per_step": statistics.median(step_ms),
+         "ms_per_step_min": min(step_ms), "ms_per_step_max": max(step_ms),
+         "tokens_per_s": DS_B / statistics.median(step_ms) * 1e3}
+    emit(g)
+    if not (g["in_range"] and g["same_twice"] and g["shape"] == [DS_B, DS_NEW]) or counts:
+        raise AssertionError(f"DeepSeek generate: {g}")
+    out["deepseek"] = {"forward": fwd, "generate": g}
+    del dmodel, tokens, caches, prompt
+    torch.cuda.empty_cache()
+
+    # (d) The reduced fp32 DeepSeek through the kernel against its plain versions.
+    scfg = deepseek.DeepSeekConfig(**DS_SMALL, dtype="float32")
+    smodel = deepseek.init_params(scfg, torch.Generator().manual_seed(2), device=dev)
+    stokens = torch.randint(0, scfg.vocab, (2, 24), generator=gen).to(dev)
+    runs = {}
+    for how in ("kernels", "plain"):
+        routes = []
+        with torch.no_grad(), moe_routes(routes), (
+                plain_kernels() if how == "plain" else contextlib.nullcontext()):
+            res, counts = launches_of(lambda: deepseek.forward(smodel, stokens, scfg))
+        runs[how] = (res, routes, counts)
+    (lk, ak), rk, ck = runs["kernels"]
+    (lp, ap), rp, cp = runs["plain"]
+    held, rerouted = held_positions(rp, rk, 2, scfg.top_k)
+    held = held.to(dev)
+    caches = deepseek.init_caches(scfg, 2, 24, device=dev)
+    dec = [deepseek.decode_step(smodel, stokens[:, :16], caches, scfg)[0]]
+    dec += [deepseek.decode_step(smodel, stokens[:, t:t + 1], caches, scfg)[0]
+            for t in range(16, 24)]
+    dec_err = max(float((a - lk[:, t]).abs().max()) for a, t in zip(dec, range(15, 24)))
+    small = {"phase": "deepseek_small_vs_plain", "launches_kernels": ck, "launches_plain": cp,
+             "rerouted_tokens": rerouted, "held_positions": int(held.sum()),
+             "logits_abs": float((lk - lp)[held].abs().max()), "tol_logits": 1e-5,
+             "aux_abs": abs(float(ak) - float(ap)), "decode_vs_forward_abs": dec_err,
+             "tol_decode": 5e-3}
+    emit(small)
+    out["small_vs_plain"] = small
+    if not (small["logits_abs"] <= 1e-5 and small["aux_abs"] <= 1e-5 and dec_err <= 5e-3
+            and ck == {"flash_fwd": scfg.depth} and not cp and held[:, 0].all()):
+        raise AssertionError(f"the reduced DeepSeek through the kernel differs from its plain "
+                             f"versions: {small}")
+    del smodel
+
+    # (e) quantized_matmul: each mode against x @ W, and against the float64
+    # product of its own quantized operands (its arithmetic: 1e-6).
+    w = torch.randn((1024, 1024), generator=gen).to(dev)
+    xq = torch.randn((4096, 1024), generator=gen).to(dev)
+    want = xq @ w
+    gemms = {}
+    for mode, prec, act, gate in (("w8a16", Precision.INT8, None, 0.01),
+                                  ("w4a16", Precision.INT4, None, W4A16_GATE),
+                                  ("w8a8", Precision.INT8, Precision.INT8, 0.02)):
+        qw = gemm.quantize_weight(w, prec)
+        got = gemm.quantized_matmul(xq, qw, activation_precision=act)
+        codes = gemm._codes(qw).double()
+        if act is None:
+            exact = (xq.to(bf16).double() @ codes) * qw.scales.double()
+        else:
+            x_codes, x_scale = gemm.quantize_activations(xq)
+            exact = (x_codes.double() @ codes) * (x_scale * qw.scales).double()
+        gemms[mode] = {"relerr": rel_err(got, want), "tol": gate,
+                       "arith_relerr": rel_err(got, exact),
+                       **cuda_stats(lambda: gemm.quantized_matmul(xq, qw,
+                                                                  activation_precision=act),
+                                    iters=5, warmup=1)}
+        del got, codes, exact
+    shifted = 0.1 * torch.randn((1024, 1024), generator=gen) + 3 * torch.randn((1, 1024),
+                                                                                generator=gen)
+    shifted = shifted.to(dev)
+    want_s = xq @ shifted
+    errs = [rel_err(gemm.quantized_matmul(xq, gemm.quantize_weight(shifted, Precision.INT4,
+                                                                   center=center)), want_s)
+            for center in (False, True)]
+    gemms["int4_centering"] = {"relerr_plain": errs[0], "relerr_centered": errs[1]}
+    x_codes, _ = gemm.quantize_activations(xq)
+    codes = gemm.quantize_weight(w, Precision.INT8).values
+    exact = torch.equal(gemm.int8_matmul(x_codes, codes).cpu().long(),
+                        x_codes.cpu().long() @ codes.cpu().long())
+    gemms["w8a8_sums_exact"] = exact
+    gemms["library_ms_fp32"] = cuda_ms(lambda: xq @ w, iters=5, warmup=1)
+    emit({"phase": "quantized_matmul", "shape": "x (4096, 1024) @ W (1024, 1024) fp32", **gemms})
+    out["quantized_matmul"] = gemms
+    if not (all(gemms[m]["relerr"] < gemms[m]["tol"] and gemms[m]["arith_relerr"] <= 1e-6
+                for m in ("w8a16", "w4a16", "w8a8")) and errs[1] < errs[0] / 2 and exact):
+        raise AssertionError(f"quantized_matmul on the card: {gemms}")
+    torch.cuda.empty_cache()
+    record["mla"] = out
+    return path_counts, worst
+
+
 # The tensor-core kernels: library -> the stems of their function names.
 TC_KERNELS = {"flash_fwd": ("fwd_tc_kernel",), "flash_bwd": ("dq_tc_kernel", "dkv_tc_kernel"),
               "flash_dbias": ("dbias_tc_kernel",), "quant_bwd": ("dq_tc_kernel", "dkv_tc_kernel"),
@@ -4511,6 +4991,9 @@ def main():
     worst["flash_fwd"] = max(worst["flash_fwd"], rope_worst)
     path_counts += rope_counts
     path_counts += run(phase_dit)
+    mla_counts, mla_worst = run(phase_mla)
+    path_counts += mla_counts
+    worst["flash_fwd"] = max(worst["flash_fwd"], mla_worst)
     emit({"phase": "seconds", "build": build["seconds"], **seconds})
     record["phase_seconds"] = seconds
     launches = collections.Counter()

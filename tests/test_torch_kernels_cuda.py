@@ -2285,3 +2285,62 @@ def test_pv_int8_quantized_training_on_the_card_matches_the_cpu(dev, route, monk
         res.append([x.detach().cpu() for x in (out, *(x.grad for x in t))])
     for got, want, name in zip(*res, ("out", "dq", "dk", "dv")):
         assert rel_err(got, want) <= 1e-3, name
+
+
+def _launches_of(fn):
+    """fn()'s result and the kernel launches it made."""
+    n0 = dict(_kernels.launches)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: n - n0.get(k, 0) for k, n in _kernels.launches.items() if n - n0.get(k, 0)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("indexer", [None, 16])
+def test_mla_forward_through_the_kernel_matches_the_plain_versions(dev, dtype, indexer,
+                                                                   monkeypatch):
+    # models/mla_model.py at a small size (dim 256, 4 heads of 64, latent
+    # 32, B2 S128, causal): one flash_fwd launch, with and without the
+    # indexer's (B, 1, S, S) bias; against the same forward with the
+    # wrapper's plain version (fp32 2e-5, bf16 1e-2, the forward's gates).
+    from umfa_tpu_torch.models import mla_model
+    from umfa_tpu_torch.ops import flash_fwd as ff
+
+    cfg = mla_model.MLAConfig(dim=256, num_heads=4, latent_dim=32, indexer_topk=indexer,
+                              dtype="float32" if dtype == torch.float32 else "bfloat16")
+    model = mla_model.init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    x = torch.randn((2, 128, 256), generator=torch.Generator().manual_seed(1)).to(dev, dtype)
+    with torch.no_grad():
+        got, counts = _launches_of(lambda: mla_model.forward(model, x, cfg))
+        assert counts == {"flash_fwd": 1}
+        monkeypatch.setattr(ff, "_launch", ff._plain)
+        want, plain_counts = _launches_of(lambda: mla_model.forward(model, x, cfg))
+    assert plain_counts == {}
+    assert torch.isfinite(got).all() and got.dtype == dtype
+    assert rel_err(got, want) <= TOLS[dtype][0]
+
+
+def test_mla_deepseek_forward_and_decode_on_the_card(dev, monkeypatch):
+    # The reduced fp32 DeepSeek of tests/test_models.py:143-147: the forward
+    # launches flash_fwd once a layer and matches the plain versions (logits
+    # atol 1e-5); decode launches nothing and holds its forward (5e-3).
+    from umfa_tpu_torch.models import deepseek
+    from umfa_tpu_torch.ops import flash_fwd as ff
+
+    cfg = deepseek.DeepSeekConfig(vocab=64, dim=128, num_heads=4, latent_dim=16, depth=2,
+                                  num_experts=4, top_k=2, n_shared=1, moe_hidden=64,
+                                  dtype="float32")
+    model = deepseek.init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    tokens = torch.randint(0, 64, (2, 12), generator=torch.Generator().manual_seed(2)).to(dev)
+    with torch.no_grad():
+        (logits, aux), counts = _launches_of(lambda: deepseek.forward(model, tokens, cfg))
+    assert counts == {"flash_fwd": cfg.depth}
+    caches = deepseek.init_caches(cfg, 2, 12, device=dev)
+    (dec, _), dec_counts = _launches_of(lambda: deepseek.decode_step(model, tokens, caches, cfg))
+    assert dec_counts == {}
+    torch.testing.assert_close(dec, logits[:, -1], atol=5e-3, rtol=5e-3)
+    monkeypatch.setattr(ff, "_launch", ff._plain)
+    with torch.no_grad():
+        want, _ = deepseek.forward(model, tokens, cfg)
+    torch.testing.assert_close(logits, want, atol=1e-5, rtol=0)
+    assert float(aux) >= cfg.depth * (1 - 1e-5)

@@ -46,6 +46,28 @@ def test_sources_import_no_jax():
     assert not offenders
 
 
+def test_mla_and_deepseek_entry_points_default_to_the_card():
+    from umfa_tpu_torch.models import deepseek, mla_model
+    from umfa_tpu_torch.serving import init_latent_cache
+
+    mcfg = mla_model.MLAConfig(dim=32, num_heads=2, latent_dim=8)
+    dcfg = deepseek.DeepSeekConfig(vocab=16, dim=32, num_heads=2, latent_dim=8, depth=1,
+                                   num_experts=2, top_k=1, moe_hidden=16)
+    calls = {"init_latent_cache": lambda **kw: init_latent_cache(1, 8, 4, **kw),
+             "mla_model.init_params": lambda **kw: mla_model.init_params(mcfg, **kw),
+             "deepseek.init_params": lambda **kw: deepseek.init_params(dcfg, **kw),
+             "deepseek.init_caches": lambda **kw: deepseek.init_caches(dcfg, 1, 8, **kw)}
+    for name, call in calls.items():
+        if torch.cuda.is_available():
+            call()
+        else:
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                call()
+        assert call(device="cpu") is not None, name
+    assert init_latent_cache(1, 8, 4, device="cpu").latent.device.type == "cpu"
+    assert deepseek.init_caches(dcfg, 1, 8, device="cpu")[0].latent.dtype == torch.bfloat16
+
+
 def test_entry_points_default_to_the_card():
     from umfa_tpu_torch.models import gpt
     from umfa_tpu_torch.serving.kv_cache import init_cache
@@ -82,10 +104,30 @@ def test_error_metrics_take_numpy_and_torch():
 @pytest.mark.parametrize("name", ["quantize", "dequantize", "QuantizedTensor", "apply_rope",
                                   "BlockMask", "make_block_mask", "causal_block_mask",
                                   "sliding_window_block_mask", "segment_block_mask",
-                                  "rope_attention"])
+                                  "rope_attention", "quantize_weight", "quantized_matmul",
+                                  "mla_absorbed_decode", "mla_decompress",
+                                  "sparse_indexer_scores"])
 def test_top_level_exports_follow_the_reference(name):
     import umfa_tpu
     import umfa_tpu_torch
 
     assert name in umfa_tpu.__all__ and name in umfa_tpu_torch.__all__
     assert getattr(umfa_tpu_torch, name).__name__ == getattr(umfa_tpu, name).__name__
+
+
+def test_top_level_exports_cover_the_references():
+    import umfa_tpu
+    import umfa_tpu_torch
+
+    assert set(umfa_tpu.__all__) <= set(umfa_tpu_torch.__all__)
+    assert all(hasattr(umfa_tpu_torch, name) for name in umfa_tpu_torch.__all__)
+
+
+@pytest.mark.parametrize("name", ["LatentKVCache", "init_latent_cache", "append_latent"])
+def test_serving_exports_the_latent_cache(name):
+    import umfa_tpu.serving
+    import umfa_tpu_torch.serving
+
+    assert name in umfa_tpu.serving.__all__ and name in umfa_tpu_torch.serving.__all__
+    assert getattr(umfa_tpu_torch.serving, name).__name__ == name
+    assert set(umfa_tpu_torch.serving.__all__) == set(umfa_tpu.serving.__all__)

@@ -25,8 +25,12 @@ tensor-core probe `utils/mma_probe.py`; block-sparse masks
 (`ops/block_mask.py`: a BlockMask or a mask_mod through `attention()` and
 `flash_attention`, forward and backward walking the map's tiles);
 `rope_attention` (`ops/rope.py`: rotate-half RoPE inside the forward
-kernel); and the FLUX-shaped DiT (`models/dit.py`, dense or quantized,
-forward and training).
+kernel); the FLUX-shaped DiT (`models/dit.py`, dense or quantized,
+forward and training); MLA (`ops/mla.py`, the latent cache, and
+`models/mla_model.py`), the MoE FFN (`models/moe.py`) and the
+DeepSeek-style model (`models/deepseek.py`: forward through `flash_fwd`,
+latent-cache decode and generation), and the quantized-weight GEMMs of
+`ops/gemm.py`.
 
     import umfa_tpu_torch
     out = umfa_tpu_torch.attention(q, k, v, is_causal=True)
@@ -38,6 +42,10 @@ forward and training).
     docs = umfa_tpu_torch.segment_block_mask(segment_ids, causal=True, device="cuda")
     umfa_tpu_torch.attention(q, k, v, docs).sum().backward()
     umfa_tpu_torch.rope_attention(q, k, v, interleaved=False, causal=True).sum().backward()
+    from umfa_tpu_torch.models import deepseek
+    cfg = deepseek.DeepSeekConfig()
+    model = deepseek.init_params(cfg, torch.Generator().manual_seed(0))
+    tokens = deepseek.generate(model, prompt, cfg, max_new_tokens=32)
 """
 
 from umfa_tpu_torch.api import (
@@ -64,7 +72,9 @@ from umfa_tpu_torch.ops.block_mask import (
     segment_block_mask,
     sliding_window_block_mask,
 )
+from umfa_tpu_torch.ops.gemm import quantize_weight, quantized_matmul
 from umfa_tpu_torch.ops.hadamard import hadamard_rotate
+from umfa_tpu_torch.ops.mla import mla_absorbed_decode, mla_decompress, sparse_indexer_scores
 from umfa_tpu_torch.ops.quant import QuantizedTensor, dequantize, quantize
 from umfa_tpu_torch.ops.quant_attention import quantized_flash_attention
 from umfa_tpu_torch.ops.rope import apply_rope, rope_attention
@@ -96,4 +106,9 @@ __all__ = [
     "segment_block_mask",
     "apply_rope",
     "rope_attention",
+    "quantize_weight",
+    "quantized_matmul",
+    "mla_absorbed_decode",
+    "mla_decompress",
+    "sparse_indexer_scores",
 ]
