@@ -257,7 +257,9 @@ Phases, one JSON line each:
      1024, 16 heads of 64, latent 128, B8 S4096 causal), dense and with
      the indexer's top-128 bias, each with exactly one flash_fwd launch,
      timed (median, min, max of 5), its recorded flash_fwd call against the
-     plain version at row 1's bf16 gates; (b) bench.py's MLA decode parity:
+     plain version at row 1's bf16 gates (every visible row's LSE within
+     1e-3), timed beside its bound and the memory-efficient SDPA forward on
+     the same float mask (a yardstick only); (b) bench.py's MLA decode parity:
      8 absorbed decode steps (the latent cache filled to 4032) against 8
      steps of the dense route (decompressed K/V in a bf16 KVCache,
      decode_attention's gemv route) from the same state, relerr 1e-2 beside
@@ -273,7 +275,33 @@ Phases, one JSON line each:
      W4A16_GATE, 0.02) and against the float64 product of their own
      quantized operands (1e-6), centered INT4 on shifted columns, and W8A8's
      integer sums equal to an int64 product;
- 15. the wall seconds of each phase; a `kernels` line (each kernel with
+ 14d. MLA and DeepSeek training: the MLA layer at (a)'s geometry with the
+     top-128 indexer (loss mean(forward(x)²), lr MLA_TRAIN_LR) and the
+     DeepSeek demo model at B8 S4096 (next-token cross-entropy plus aux, lr
+     DS_TRAIN_LR), each a warm-up and three plain-SGD steps with a falling
+     loss and exactly one flash_fwd, flash_bwd_dq and flash_bwd_dkv launch
+     a layer and no flash_dbias, forward, backward and SGD ms and peak
+     memory; each model's first recorded attention call through rows 1-3
+     against the same call with every wrapper's plain version (out 1e-2,
+     LSE 1e-3, gradients 2e-2), and dQ and dK/dV timed on it beside their
+     bounds and torch's SDPA backward (a yardstick only);
+ 16. the SDPA override (utils/interop.py) at the GPT's width: a plain-torch
+     stack of two attention layers (dim 1024, Hq 16 / Hkv 8 with
+     enable_gqa, D 64, B8 S4096, causal, bf16) calling
+     F.scaled_dot_product_attention under use_torch_sdpa(), forward and
+     backward: one launch of each of rows 1-3 a layer, the route counted,
+     its output bit for bit the stack calling attention() directly, within
+     1e-2 of torch's own SDPA with the override removed; then
+     nn.MultiheadAttention (dim 1024, 16 heads) under the override, its
+     launches reported;
+ 17. the utilities on the card: the full-width GPT's parameters through
+     checkpoint.save/restore (bit for bit), time_op on row 1 at the
+     prefill shape within 10 % of cuda_stats' median, a profiling.trace of
+     one MLA training step naming flash_fwd, flash_bwd_dq and
+     flash_bwd_dkv (chiprun_out/mla_step_trace/), the native runtime's
+     version and a timed() latency, an AttentionDescriptor at the prefill
+     shape equal to attention();
+ Last: the wall seconds of each phase; a `kernels` line (each kernel with
      its `design`: tensor cores or CUDA cores); the nvidia-smi line; the
      result line.
 Every path (each serving run, both timed continuous-batching runs, the
@@ -282,7 +310,9 @@ block-sparse runs and the nine quantized ones, the two full-width ring runs,
 the probe's five reps-1024 calls, the three rope_attention paths, the
 DiT's forwards and timed steps, the pv_int8 accuracy cell's two calls and
 its two-pass training step, the two MLA forwards, both MLA decode routes,
-the DeepSeek forward and its generate) is driven with the launch counts set to 0
+the DeepSeek forward and its generate, the MLA and DeepSeek timed training
+steps, the override's stacks and nn.MultiheadAttention, the descriptor and
+attention() calls and the traced MLA step) is driven with the launch counts set to 0
 just before it and read just after; a kernel's `launches` in the kernels
 line is its sum over them; `launches_pv` of `fused_qattn` and
 `quant_attn_fwd`, and `launches_rope` of `flash_fwd`, their PV and ROPE
@@ -290,7 +320,8 @@ instantiations' share, each of which must be positive.
 
 Any failed check raises, so the script exits non-zero. Without a CUDA
 device, or without the rest of the repository beside it, it exits non-zero
-and prints no result. fp32 checks run with TF32 disabled
+and prints no result. It builds the kernels with nvcc and the native
+runtime (native/src) with the host C++ compiler ($CXX, else g++). fp32 checks run with TF32 disabled
 (torch.backends.cuda.matmul.allow_tf32 and cudnn.allow_tf32 set False).
 Details go to chiprun_out/chip_smoke.json.
 """
@@ -1503,11 +1534,55 @@ def loss_fn(model, tokens):
     return -lp.gather(-1, tokens[:, 1:, None]).mean()
 
 
+def sgd_steps(phase, model, loss_of, want, lr, tokens):
+    """One warm-up and three timed steps of loss_of(), `.backward()` and
+    plain SGD on `model`'s parameters: each with a finite loss below the step
+    before's and exactly the launches `want`; forward, backward and SGD ms
+    and peak memory. Returns (steps, the timed steps' launch counts)."""
+    import torch
+
+    from umfa_tpu_torch import _kernels
+
+    steps, path_counts = [], []
+    for i in range(4):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss = loss_of()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        with torch.no_grad():
+            for prm in model.parameters():
+                prm -= lr * prm.grad
+                prm.grad = None
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        counts = {key: n for key, n in _kernels.launches.items() if n}
+        step = {"phase": phase, "step": i, "warmup": i == 0, "loss": loss.item(), "lr": lr,
+                "fwd_ms": (t1 - t0) * 1e3, "bwd_ms": (t2 - t1) * 1e3, "sgd_ms": (t3 - t2) * 1e3,
+                "step_ms": (t3 - t0) * 1e3, "tokens_per_s": tokens / (t3 - t0),
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": counts}
+        del loss
+        emit(step)
+        steps.append(step)
+        if i > 0:
+            path_counts.append(counts)
+        if not math.isfinite(step["loss"]) or (i > 0 and not step["loss"] < steps[i - 1]["loss"]):
+            raise AssertionError(f"{phase} step {i}: loss {step['loss']} is not finite and "
+                                 f"below the step before's")
+        if {k: counts.get(k, 0) for k in want} != want:
+            raise AssertionError(f"{phase} step {i}: launches {counts}, expected {want}")
+    return steps, path_counts
+
+
 def phase_training(record):
     """The full-width model trains: loss, .backward(), plain SGD."""
     import torch
 
-    from umfa_tpu_torch import _kernels
     from umfa_tpu_torch.models import gpt
 
     dev = torch.device("cuda")
@@ -1518,40 +1593,8 @@ def phase_training(record):
                            generator=torch.Generator().manual_seed(5)).to(dev)
     want = {"flash_fwd": cfg.depth, "flash_bwd_dq": cfg.depth, "flash_bwd_dkv": cfg.depth,
             "flash_dbias": 0, "quant_attn_fwd": 0}
-    steps, path_counts = [], []
-    for i in range(4):  # one warm-up step, then three timed ones
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        _kernels.reset_launch_counts()
-        t0 = time.perf_counter()
-        loss = loss_fn(model, tokens)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        loss.backward()
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        with torch.no_grad():
-            for prm in model.parameters():
-                prm -= TRAIN_LR * prm.grad
-                prm.grad = None
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        counts = dict(_kernels.launches)
-        step = {"phase": "training", "step": i, "warmup": i == 0, "loss": loss.item(),
-                "fwd_ms": (t1 - t0) * 1e3, "bwd_ms": (t2 - t1) * 1e3, "sgd_ms": (t3 - t2) * 1e3,
-                "step_ms": (t3 - t0) * 1e3,
-                "tokens_per_s": B_TRAIN * S_TRAIN / (t3 - t0),
-                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": counts}
-        del loss
-        emit(step)
-        steps.append(step)
-        if i > 0:
-            path_counts.append(counts)
-        if not math.isfinite(step["loss"]) or (i > 0 and not step["loss"] < steps[i - 1]["loss"]):
-            raise AssertionError(f"training step {i}: loss {step['loss']} is not finite and "
-                                 f"below the step before's")
-        if {k: counts.get(k, 0) for k in want} != want:
-            raise AssertionError(f"training step {i}: launches {counts}, expected {want}")
+    steps, path_counts = sgd_steps("training", model, lambda: loss_fn(model, tokens), want,
+                                   TRAIN_LR, B_TRAIN * S_TRAIN)
     record["training"] = {"config": dataclasses.asdict(cfg),
                           "batch": B_TRAIN, "seq": S_TRAIN, "lr": TRAIN_LR, "steps": steps}
     del model, tokens
@@ -4178,56 +4221,23 @@ def launches_of(fn):
     return out, {key: n for key, n in _kernels.launches.items() if n}
 
 
-def one_pass_lse_f64(q, k, bias, rows, kt=64, pre=512):
-    """The causal LSE of `rows` ((n, 3): batch, head, query) as flash_fwd's
-    bf16 body forms it at D < 128 (csrc/fwd_tc.cuh; ROADMAP.md, "One-pass
-    rounding in the dense forward"), every sum in float64: Q scaled and
-    rounded to its type; the running max seeded by the K-only pre-pass over
-    the first `pre` keys; then each `kt`-key tile in order: the max raised
-    to the tile's, P = exp(s - max) rounded to bf16 (0 on index-masked
-    keys), the row sum rescaled and the tile's P added. bias: (B, 1, Sq, Sk)
-    or None. The plain version rounds P against the final max instead
-    (`utils/testing.lse_f64`)."""
-    import torch
-
-    hq, hkv, sk = q.shape[1], k.shape[1], k.shape[2]
-    out = []
-    for part in rows.split(64):
-        bi, hi, qi = part.unbind(1)
-        qs = (q[bi, hi, qi].float() * q.shape[-1]**-0.5).to(q.dtype).double()
-        s = torch.einsum("nd,nkd->nk", qs, k[bi, hi // (hq // hkv)].double())
-        if bias is not None:
-            s = s + bias[bi, 0, qi].double()
-        vis = torch.arange(sk, device=q.device)[None, :] <= qi[:, None]
-        s = s.masked_fill(~vis, -1e30)
-        m = s[:, :pre].amax(dim=-1).clamp_min(-1e30)
-        l = torch.zeros_like(m)
-        for t0 in range(0, sk, kt):
-            blk = s[:, t0:t0 + kt]
-            m_new = torch.maximum(m, blk.amax(dim=-1))
-            p = torch.exp(blk - m_new[:, None]).to(torch.bfloat16).double()
-            l = l * torch.exp(m - m_new) + (p * vis[:, t0:t0 + kt]).sum(dim=-1)
-            m = m_new
-        out.append(m + torch.log(l))
-    return torch.cat(out)
-
-
 def mla_kernel_check(name, inputs):
     """The recorded flash_fwd call (q, k, v, bias; causal) through the kernel
     against its plain version, two batch rows at a time, at row 1's bf16
-    gates (out relerr 1e-2, LSE abs 1e-3); and the kernel timed alone on it
-    (median, min, max of 5) beside its bound (4·D flop a visible pair; q, k,
-    v, out, LSE and the bias once). A row whose LSE lies past 1e-3 from the plain version's is held to 1e-3
-    against the float64 LSE of the kernel's own rounding points
-    (`one_pass_lse_f64`): under the indexer's bias a row's kept keys may lie
-    past the pre-pass's first 512, so the kernel rounds their P against a
-    running max that the plain version's final max exceeds. The plain
-    version's distance from its own float64 rounding points
-    (`utils/testing.lse_f64`) on those rows is reported beside it."""
+    gates (out relerr 1e-2, LSE abs 1e-3; a visible row past it must be
+    within it of the float64 LSE of the plain version's own rounding points,
+    `lse_check`, as every bf16 LSE gate of the walks: in a row that sees one
+    or two kept keys the fp32 plain version can round a bf16(P) one ulp off);
+    and the kernel timed alone on it (median, min, max of 5) beside its bound
+    (4·D flop a visible pair; q, k, v, out, LSE and the bias once) and the
+    memory-efficient SDPA forward on the same float mask (a yardstick
+    only)."""
     import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from umfa_tpu_torch.ops import flash_fwd as ff
-    from umfa_tpu_torch.utils.testing import lse_f64
+    from umfa_tpu_torch.utils.testing import lse_check
 
     q, k, v, bias = inputs
     got = ff.flash_attention_forward(q, k, v, bias, causal=True)
@@ -4237,23 +4247,9 @@ def mla_kernel_check(name, inputs):
             for i in range(0, q.shape[0], 2)]
     want = tuple(torch.cat(parts) for parts in zip(*want))
     res = compare(name, got, want, 1e-2, 1e-3)
-    vis = want[1] > -1e29
-    over = torch.nonzero(((got[1] - want[1]).abs() > 1e-3) & vis)
-    res["lse_rows_over_tol"] = int(over.shape[0])
-    lse_ok = over.shape[0] == 0
-    if not lse_ok:
-        kernel_model = one_pass_lse_f64(q, k, bias, over)
-        causal = torch.ones((q.shape[2], k.shape[2]), dtype=torch.bool,
-                            device=q.device).tril()[None, None]
-        plain_model = torch.cat([lse_f64(q, k, bias, part, keep=causal)
-                                 for part in over.split(64)])
-        res["max_abs_lse_one_pass_f64_on_those_rows"] = float(
-            (got[1][tuple(over.T)].double() - kernel_model).abs().max())
-        res["max_abs_plain_lse_f64_on_those_rows"] = float(
-            (want[1][tuple(over.T)].double() - plain_model).abs().max())
-        lse_ok = res["max_abs_lse_one_pass_f64_on_those_rows"] <= 1e-3
-    res["lse_ok"] = lse_ok
-    res["ok"] = (res["relerr_out"] <= 1e-2 and lse_ok and res["empty_rows_exact"]
+    causal = torch.ones((q.shape[2], k.shape[2]), dtype=torch.bool, device=q.device).tril()
+    res.update(lse_check(got[1], want[1], q, k, bias, 1e-3, keep=causal))
+    res["ok"] = (res["relerr_out"] <= 1e-2 and res["lse_ok"] and res["empty_rows_exact"]
                  and res["finite"])
     res["shape"] = "B{} H{} S{} D{} causal bf16".format(*q.shape) + (
         "" if bias is None else f", bias {tuple(bias.shape)} fp32")
@@ -4266,6 +4262,16 @@ def mla_kernel_check(name, inputs):
     t["ops_ms"] = t["flops"] / H100_BF16_FLOPS * 1e3
     t["bytes_ms"] = t["bytes"] / H100_HBM_BYTES * 1e3
     bound(t)
+    # SDPA takes a float mask or is_causal: the causal mask folded into the bias.
+    mask = None if bias is None else bias.masked_fill(~causal, float("-inf")).to(q.dtype)
+
+    def sdpa():
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  is_causal=bias is None)
+
+    t["library_ms"] = cuda_stats(sdpa, iters=5, warmup=1)["ms"]
+    del mask
     res["kernel_ms"] = t
     emit({"phase": "kernel_check", **res})
     if not res["ok"]:
@@ -4539,6 +4545,401 @@ def phase_mla(record):
     return path_counts, worst
 
 
+MLA_TRAIN_LR = 1.0   # plain SGD on the bf16 MLA layer, loss mean(forward(x)²); see PERF.md
+# Plain SGD on the bf16 DeepSeek demo model, loss cross-entropy plus aux: on
+# the CPU at B1 S512 lr 0.03 raised the aux loss and 0.1 the sum, while
+# 0.01 lowered both each step (the aux loss's f_e is not differentiable, so
+# a large step that reroutes tokens can raise it).
+DS_TRAIN_LR = 0.01
+
+
+def train_attention_check(name, inputs, gen):
+    """A model's first recorded attention call (q, k, v, bias; causal)
+    through rows 1-3: `flash_attention` with the LSE and `.backward()` of a
+    seeded dO, each kernel launched once, against the same call with every
+    wrapper's plain version (`plain_kernels()`, two batch rows at a time):
+    out relerr 1e-2, LSE abs 1e-3 (a row past it held to it against the
+    float64 LSE of the plain version's rounding points, `lse_check`, as in
+    `mla_kernel_check`), gradients relerr 2e-2. Then dQ and dK/dV
+    timed on its inputs (median, min, max of 5) beside their bounds (6·D and
+    8·D flop a causal pair; q, k, v, dO, LSE, δ, the bias and the gradients
+    once) and torch's SDPA backward on the same inputs (memory-efficient with
+    the bias and the causal mask folded into one float mask, flash without a
+    bias; a yardstick only). Returns (the check, {kernel: timing})."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from umfa_tpu_torch import _kernels
+    from umfa_tpu_torch.ops import flash_bwd as fb
+    from umfa_tpu_torch.ops.attention import flash_attention
+    from umfa_tpu_torch.utils.testing import lse_check, rel_err
+
+    q, k, v, bias = inputs
+    do = torch.randn(q.shape, generator=gen).to(q.device, q.dtype)
+
+    def call(rows):
+        t = [a[rows].clone().requires_grad_(True) for a in (q, k, v)]
+        out, lse = flash_attention(*t, None if bias is None else bias[rows], causal=True,
+                                   return_lse=True)
+        out.backward(do[rows])
+        return out.detach(), lse.detach(), *(a.grad for a in t)
+
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    got = call(slice(None))
+    torch.cuda.synchronize()
+    counts = {key: n for key, n in _kernels.launches.items() if n}
+    with plain_kernels():
+        want = [call(slice(i, i + 2)) for i in range(0, q.shape[0], 2)]
+    want = tuple(torch.cat(parts) for parts in zip(*want))
+    res = compare(name, got[:2], want[:2], 1e-2, 1e-3)
+    causal = torch.ones((q.shape[2], k.shape[2]), dtype=torch.bool, device=q.device).tril()
+    res.update(lse_check(got[1], want[1], q, k, bias, 1e-3, keep=causal))
+    res["ok"] = (res["relerr_out"] <= 1e-2 and res["lse_ok"] and res["empty_rows_exact"]
+                 and res["finite"])
+    grads = ("dq", "dk", "dv")
+    res.update(shape="B{} H{} S{} D{} causal bf16".format(*q.shape) + (
+        "" if bias is None else f", bias {tuple(bias.shape)} fp32"), launches=counts,
+        tol_grads=2e-2, **{f"relerr_{n}": rel_err(a, b) for n, a, b in zip(grads, got[2:],
+                                                                             want[2:])})
+    want_counts = {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    res["ok"] = (res["ok"] and counts == want_counts
+                 and all(res[f"relerr_{n}"] <= 2e-2 and torch_isfinite(g.float())
+                         for n, g in zip(grads, got[2:])))
+    emit({"phase": "kernel_check", **res})
+    if not res["ok"]:
+        raise AssertionError(f"{name}: rows 1-3 disagree with their plain versions (or launched "
+                             f"{counts}, expected {want_counts}): {res}")
+    out, lse = got[:2]
+    del got, want
+    torch.cuda.empty_cache()
+
+    b, h, s, d = q.shape
+    p = fb._prepare(q, k, v, out, lse, do, bias, None, True, None, None)
+    pairs = b * h * visible_pairs(s, k.shape[2], -1, 0)
+    bias_bytes = 0 if bias is None else bias.numel() * bias.element_size()
+    reads = 2 * (q.numel() + k.numel() + v.numel() + do.numel()) + 4 * 2 * lse.numel() + bias_bytes
+    if bias is None:
+        mask, causal, backend = None, True, SDPBackend.FLASH_ATTENTION
+    else:
+        keep = torch.ones((s, k.shape[2]), dtype=torch.bool, device=q.device).tril()
+        mask, causal = bias.masked_fill(~keep, float("-inf")).to(q.dtype), False
+        backend = SDPBackend.EFFICIENT_ATTENTION
+    qg, kg, vg = (a.detach().requires_grad_(True) for a in (q, k, v))
+    with sdpa_kernel(backend):
+        o = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask, is_causal=causal)
+    library_ms = cuda_ms(lambda: torch.autograd.grad(o, (qg, kg, vg), do, retain_graph=True),
+                         iters=5, warmup=1)
+    del o, mask
+    timing = {}
+    for kname, fn, per_pair, written in (
+            ("flash_bwd_dq", lambda: fb._launch_dq(p, torch.bfloat16), 6, 2 * q.numel()),
+            ("flash_bwd_dkv", lambda: fb._launch_dkv(p, torch.bfloat16), 8, 2 * 2 * k.numel())):
+        flops = d * per_pair * pairs
+        t = dict(**cuda_stats(fn, iters=5, warmup=1), flops=flops, bytes=reads + written,
+                 ops_ms=flops / H100_BF16_FLOPS * 1e3,
+                 bytes_ms=(reads + written) / H100_HBM_BYTES * 1e3, library_ms=library_ms,
+                 library=("memory-efficient SDPA backward with the float mask" if bias is not None
+                          else "flash SDPA backward") + " (dQ, dK and dV in one call)",
+                 shape=res["shape"])
+        bound(t)
+        timing[kname] = t
+    emit({"phase": "train_attention_timing", "case": name, **timing})
+    del p, qg, kg, vg
+    torch.cuda.empty_cache()
+    return res, timing
+
+
+def phase_mla_training(record):
+    """MLA and DeepSeek training on the card, bf16: (a) the MLA layer at
+    bench.py's geometry (dim 1024, 16 heads of 64, latent 128, B8 S4096
+    causal, the indexer's top-128 bias), loss mean(forward(x)²), lr
+    MLA_TRAIN_LR; (b) the DeepSeek demo model at B8 S4096, loss the
+    next-token cross-entropy plus aux, lr DS_TRAIN_LR. Each: a warm-up and
+    three plain-SGD steps (`sgd_steps`) with exactly one flash_fwd, one
+    flash_bwd_dq and one flash_bwd_dkv launch a layer and no flash_dbias
+    (the indexer's mask is a constant; the MoE's backward is plain torch),
+    and the first layer's recorded call through rows 1-3 against their plain
+    versions (`train_attention_check`)."""
+    import torch
+
+    from umfa_tpu_torch.models import deepseek, mla_model
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(59)
+    out, path_counts, timing = {}, [], {}
+
+    cfg = mla_model.MLAConfig(**MLA_WIDTH, causal=True, dtype="bfloat16", indexer_topk=MLA_TOPK)
+    model = mla_model.init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    x = torch.randn((MLA_B, MLA_CTX, cfg.dim), generator=gen).to(dev, torch.bfloat16)
+    want = {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1, "flash_dbias": 0}
+    steps, counts = sgd_steps("mla_training", model,
+                              lambda: mla_model.forward(model, x, cfg).float().square().mean(),
+                              want, MLA_TRAIN_LR, MLA_B * MLA_CTX)
+    path_counts += counts
+    store = []
+    with torch.no_grad(), mla_attention_inputs(store):
+        mla_model.forward(model, x, cfg)
+    check, timing["mla"] = train_attention_check("mla_training/indexer", store[0], gen)
+    out["mla"] = {"config": dataclasses.asdict(cfg), "batch": MLA_B, "seq": MLA_CTX,
+                  "steps": steps, "check": check}
+    del model, x, store
+    torch.cuda.empty_cache()
+
+    dcfg = deepseek.DeepSeekConfig(**DS_WIDTH, dtype="bfloat16")
+    dmodel = deepseek.init_params(dcfg, torch.Generator().manual_seed(1), device=dev)
+    tokens = torch.randint(0, dcfg.vocab, (DS_B, DS_S + 1), generator=gen).to(dev)
+
+    def ds_loss():
+        logits, aux = deepseek.forward(dmodel, tokens[:, :-1], dcfg)
+        lp = torch.log_softmax(logits, dim=-1)
+        return -lp.gather(-1, tokens[:, 1:, None]).mean() + aux
+
+    want = {"flash_fwd": dcfg.depth, "flash_bwd_dq": dcfg.depth, "flash_bwd_dkv": dcfg.depth,
+            "flash_dbias": 0}
+    steps, counts = sgd_steps("deepseek_training", dmodel, ds_loss, want, DS_TRAIN_LR,
+                              DS_B * DS_S)
+    path_counts += counts
+    store = []
+    with torch.no_grad(), mla_attention_inputs(store):
+        deepseek.forward(dmodel, tokens[:, :-1], dcfg)
+    check, timing["deepseek"] = train_attention_check("deepseek_training/layer0", store[0], gen)
+    out["deepseek"] = {"config": dataclasses.asdict(dcfg), "batch": DS_B, "seq": DS_S,
+                       "steps": steps, "check": check}
+    del dmodel, tokens, store
+    torch.cuda.empty_cache()
+    record["mla_training"] = out
+    return path_counts, timing
+
+
+SDPA_DEPTH = 2
+
+
+def phase_sdpa_override(record):
+    """The SDPA override (utils/interop.py) at the GPT's width: a plain-torch
+    stack of SDPA_DEPTH attention layers (dim 1024, Hq 16 / Hkv 8 with
+    enable_gqa, D 64, B8 S4096, causal, bf16; random projections from a
+    seed) calling F.scaled_dot_product_attention under use_torch_sdpa(),
+    forward and `.backward()`: exactly one flash_fwd, one flash_bwd_dq and
+    one flash_bwd_dkv launch a layer, the `fused_autograd` route counted
+    once a layer; its output bit for bit the same stack calling the port's
+    attention() directly; within 1e-2 relerr of torch's own SDPA with the
+    override removed (a yardstick only); each stack's forward timed. Then
+    nn.MultiheadAttention (dim 1024, 16 heads, B8 S4096, non-causal) under
+    the override, training mode and eval under no_grad: its launches
+    reported (its fast path need not reach the Python function)."""
+    import torch
+    import torch.nn.functional as F
+
+    import umfa_tpu_torch
+    from umfa_tpu_torch import _kernels
+    from umfa_tpu_torch.utils.interop import use_torch_sdpa
+    from umfa_tpu_torch.utils.testing import rel_err
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(61)
+    b, s, dim, bf16 = B_TRAIN, S_TRAIN, 1024, torch.bfloat16
+
+    def param(shape, std):
+        return (torch.randn(shape, generator=gen) * std).to(dev, bf16).requires_grad_(True)
+
+    layers = [(param((dim, HQ * D), dim**-0.5), param((dim, 2 * HKV * D), dim**-0.5),
+               param((HQ * D, dim), (HQ * D)**-0.5)) for _ in range(SDPA_DEPTH)]
+    x = torch.randn((b, s, dim), generator=gen).to(dev, bf16)
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+
+    def direct(q, k, v):
+        return umfa_tpu_torch.attention(q, k, v, is_causal=True)
+
+    def stack(attend):
+        h = x
+        for wq, wkv, wo in layers:
+            q = (h @ wq).reshape(b, s, HQ, D).transpose(1, 2)
+            k, v = (h @ wkv).reshape(b, s, 2, HKV, D).permute(2, 0, 3, 1, 4)
+            h = h + attend(q, k, v).transpose(1, 2).reshape(b, s, HQ * D) @ wo
+        return h
+
+    def run(attend):
+        umfa_tpu_torch.reset_dispatch_stats()
+        y, counts = launches_of(lambda: stack(attend))
+        _kernels.reset_launch_counts()
+        y.float().square().mean().backward()
+        torch.cuda.synchronize()
+        g_counts = {key: n for key, n in _kernels.launches.items() if n}
+        grads = [w.grad.clone() for lw in layers for w in lw]
+        for lw in layers:
+            for w in lw:
+                w.grad = None
+        return y.detach(), counts, g_counts, umfa_tpu_torch.get_dispatch_stats(), grads
+
+    with use_torch_sdpa():
+        y_o, c_o, g_o, stats_o, grads_o = run(sdpa)
+    y_d, c_d, g_d, _, grads_d = run(direct)
+    if getattr(F.scaled_dot_product_attention, "_umfa_override", False):
+        raise AssertionError("the SDPA override outlived its scope")
+    with torch.no_grad():
+        y_n = stack(sdpa)
+        ms = {"override_fwd_ms": None, "direct_fwd_ms": None, "torch_sdpa_fwd_ms": None}
+        with use_torch_sdpa():
+            ms["override_fwd_ms"] = cuda_ms(lambda: stack(sdpa), iters=5, warmup=1)
+        ms["direct_fwd_ms"] = cuda_ms(lambda: stack(direct), iters=5, warmup=1)
+        ms["torch_sdpa_fwd_ms"] = cuda_ms(lambda: stack(sdpa), iters=5, warmup=1)
+    res = {"phase": "sdpa_override", "depth": SDPA_DEPTH,
+           "shape": f"B{b} S{s} dim {dim} Hq{HQ} Hkv{HKV} D{D} causal bf16, enable_gqa",
+           "launches_forward": c_o, "launches_backward": g_o, "dispatch_stats": stats_o,
+           "bit_equal_to_attention": bool(torch.equal(y_o, y_d)),
+           "grads_bit_equal": all(torch.equal(a, c) for a, c in zip(grads_o, grads_d)),
+           "relerr_vs_torch_sdpa": rel_err(y_o, y_n), "tol_torch_sdpa": 1e-2,
+           "finite": torch_isfinite(y_o.float()), **ms}
+    del y_n, y_d, grads_o, grads_d
+    torch.cuda.empty_cache()
+
+    mha = torch.nn.MultiheadAttention(dim, HQ, batch_first=True, device=dev, dtype=bf16)
+    with torch.no_grad():
+        want_train = mha(x, x, x, need_weights=False)[0]
+        mha.eval()
+        want_eval = mha(x, x, x, need_weights=False)[0]
+        mha.train()
+    with use_torch_sdpa():
+        y_t, c_train = launches_of(lambda: mha(x, x, x, need_weights=False)[0])
+        mha.eval()
+        with torch.no_grad():
+            y_e, c_eval = launches_of(lambda: mha(x, x, x, need_weights=False)[0])
+    res["multihead_attention"] = {
+        "shape": f"B{b} S{s} dim {dim} 16 heads non-causal bf16",
+        "launches_training_mode": c_train, "launches_eval_no_grad": c_eval,
+        "relerr_training_mode_vs_torch": rel_err(y_t.detach(), want_train),
+        "relerr_eval_vs_torch": rel_err(y_e, want_eval)}
+    emit(res)
+    record["sdpa_override"] = res
+    want_fwd = {"flash_fwd": SDPA_DEPTH}
+    want_bwd = {"flash_bwd_dq": SDPA_DEPTH, "flash_bwd_dkv": SDPA_DEPTH}
+    if not (res["bit_equal_to_attention"] and res["relerr_vs_torch_sdpa"] <= 1e-2
+            and res["finite"] and c_o == want_fwd and g_o == want_bwd and c_d == want_fwd
+            and stats_o["fused_autograd"] == SDPA_DEPTH == stats_o["total"]):
+        raise AssertionError(f"the SDPA override at full width: {res}")
+    del mha, x, layers, y_o, y_t, y_e, want_train, want_eval
+    torch.cuda.empty_cache()
+    return [c_o, g_o, c_train, c_eval]
+
+
+def phase_utilities(record):
+    """The utilities on the card: (a) the full-width GPT's parameters (the
+    serving model, bf16) through utils/checkpoint.save and restore, bit for
+    bit, on the card; (b) utils/timing.time_op on row 1 at the prefill shape
+    within 10 % of `cuda_stats`' median on the same call (the card spun
+    while each timed call is enqueued); (c) an
+    engine/profiling.trace of one MLA training step at bench.py's geometry
+    (indexer top-128) whose Chrome trace names flash_fwd, flash_bwd_dq and
+    flash_bwd_dkv (chiprun_out/mla_step_trace/trace.json); (d) the native
+    runtime's version and a `timed()` latency read back; (e) an
+    AttentionDescriptor at the prefill shape equal to attention(), bit for
+    bit."""
+    import tempfile
+
+    import torch
+
+    import umfa_tpu_torch
+    from umfa_tpu_torch.engine import profiling
+    from umfa_tpu_torch.engine.descriptor import (AttentionDescriptor, MultiHeadShape,
+                                                  SparsityPattern)
+    from umfa_tpu_torch.models import gpt, mla_model
+    from umfa_tpu_torch.native import runtime
+    from umfa_tpu_torch.ops.flash_fwd import flash_attention_forward
+    from umfa_tpu_torch.utils import checkpoint
+    from umfa_tpu_torch.utils.timing import time_op
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(67)
+    res, path_counts = {"phase": "utilities"}, []
+
+    cfg = gpt.GPTConfig(vocab=32768, dim=1024, num_heads=HQ, num_kv_heads=HKV, depth=8,
+                        max_seq=SK, dtype="bfloat16")
+    state = gpt.init_params(cfg, torch.Generator().manual_seed(0), device=dev).state_dict()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "gpt.pt")
+        t0 = time.perf_counter()
+        checkpoint.save(path, state)
+        t1 = time.perf_counter()
+        back = checkpoint.restore(path, state)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        nbytes = os.path.getsize(path)
+    res["checkpoint"] = {
+        "tensors": len(state), "file_bytes": nbytes, "save_s": t1 - t0, "restore_s": t2 - t1,
+        "bit_equal": sorted(back) == sorted(state) and all(
+            torch.equal(back[n], t) and back[n].dtype == t.dtype and back[n].device == t.device
+            for n, t in state.items())}
+    del state, back
+    torch.cuda.empty_cache()
+
+    q = torch.randn((B_SERVE, HQ, PROMPT, D), generator=gen).to(dev, torch.bfloat16)
+    k, v = (torch.randn((B_SERVE, HKV, SK, D), generator=gen).to(dev, torch.bfloat16)
+            for _ in range(2))
+    # The card spins while the host enqueues each timed call, so the events
+    # time the device, as time_op's back-to-back loop does (without the spin
+    # the median carries ~0.16 ms of the wrapper's host time: 1.959 against
+    # 1.793 ms on "NVIDIA H100 80GB HBM3, 700.00 W").
+    median = cuda_stats(lambda: flash_attention_forward(q, k, v, causal=True),
+                        before=lambda: torch.cuda._sleep(1_000_000))["ms"]
+    best = time_op(lambda a, b_, c: flash_attention_forward(a, b_, c, causal=True), q, k, v,
+                   iters=16, reps=3) * 1e3
+    res["time_op"] = {"shape": f"B{B_SERVE} Hq{HQ} Hkv{HKV} Sq{PROMPT} Sk{SK} D{D} causal bf16",
+                      "time_op_ms": best, "cuda_stats_ms": median, "ratio": best / median,
+                      "tol": 0.1}
+
+    desc = AttentionDescriptor(shape=MultiHeadShape(B_SERVE, HQ, PROMPT, D), kv_seq_len=SK,
+                               num_kv_heads=HKV, sparsity=SparsityPattern.CAUSAL)
+    with torch.no_grad():
+        got, c_desc = launches_of(lambda: desc(q, k, v))
+        want, c_api = launches_of(lambda: umfa_tpu_torch.attention(q, k, v, is_causal=True))
+    path_counts += [c_desc, c_api]
+    res["descriptor"] = {"bit_equal": bool(torch.equal(got, want)), "launches": c_desc,
+                         "hash_equal": hash(desc) == hash(dataclasses.replace(desc))}
+    del got, want
+
+    with profiling.timed():
+        flash_attention_forward(q, k, v, causal=True)
+        torch.cuda.synchronize()
+    res["native"] = {"version": runtime.version(), "lib": runtime.lib_path().name,
+                     "last_latency_ms": profiling.get_last_latency_ms(),
+                     "mean_latency_ns": runtime.get_mean_latency_ns()}
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    mcfg = mla_model.MLAConfig(**MLA_WIDTH, causal=True, dtype="bfloat16", indexer_topk=MLA_TOPK)
+    model = mla_model.init_params(mcfg, torch.Generator().manual_seed(0), device=dev)
+    x = torch.randn((MLA_B, MLA_CTX, mcfg.dim), generator=gen).to(dev, torch.bfloat16)
+    mla_model.forward(model, x, mcfg).float().square().mean().backward()  # warm-up
+    model.zero_grad(set_to_none=True)
+    log_dir = os.path.join(REPO, "chiprun_out", "mla_step_trace")
+    with profiling.trace(log_dir):
+        _, counts = launches_of(
+            lambda: mla_model.forward(model, x, mcfg).float().square().mean().backward())
+    path_counts.append(counts)
+    with open(os.path.join(log_dir, "trace.json")) as f:
+        text = f.read()
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    res["trace"] = {"file": "chiprun_out/mla_step_trace/trace.json", "bytes": len(text),
+                    "launches": counts, "names": {n: f'"{n}"' in text for n in names},
+                    "kernels": {n: n in text for n in ("fwd_tc_kernel", "dq_tc_kernel",
+                                                       "dkv_tc_kernel")}}
+    del model, x, text
+    torch.cuda.empty_cache()
+    emit(res)
+    record["utilities"] = res
+    if not (res["checkpoint"]["bit_equal"] and abs(res["time_op"]["ratio"] - 1) <= 0.1
+            and res["descriptor"]["bit_equal"] and c_desc == {"flash_fwd": 1}
+            and res["native"]["last_latency_ms"] and res["native"]["last_latency_ms"] > 0
+            and all(res["trace"]["names"].values())
+            and counts == {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}):
+        raise AssertionError(f"the utilities on the card: {res}")
+    return path_counts
+
+
 # The tensor-core kernels: library -> the stems of their function names.
 TC_KERNELS = {"flash_fwd": ("fwd_tc_kernel",), "flash_bwd": ("dq_tc_kernel", "dkv_tc_kernel"),
               "flash_dbias": ("dbias_tc_kernel",), "quant_bwd": ("dq_tc_kernel", "dkv_tc_kernel"),
@@ -4769,7 +5170,8 @@ def phase_sass(record, report):
 DESIGN = {
     "flash_fwd": "tensor cores, the forward body of csrc/fwd_tc.cuh (fwd_tc_kernel: 4 warps x "
                  "16 query rows, K/V tiles double-buffered by cp.async, a K-only pre-pass over "
-                 "the first 512 keys seeding the running max, P from the S accumulators); bf16 "
+                 "the first 512 keys, or with a bias over every visible tile, seeding the running "
+                 "max, P from the S accumulators); bf16 "
                  "inputs: mma.sync m16n8k16 bf16->fp32, Q fragments in registers, 64-key tiles, "
                  "D <= 256; fp32/fp16 inputs: 3xTF32 (each operand split into tf32 big and small "
                  "parts, three mma.sync m16n8k8 tf32->fp32 a product, big·big and the small "
@@ -4994,6 +5396,14 @@ def main():
     mla_counts, mla_worst = run(phase_mla)
     path_counts += mla_counts
     worst["flash_fwd"] = max(worst["flash_fwd"], mla_worst)
+    timing["flash_fwd"]["mla_indexer"] = record["mla"]["forward"]["indexer"]["kernel_check"][
+        "kernel_ms"]
+    t_counts, t_timing = run(phase_mla_training)
+    path_counts += t_counts
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):  # rows 2-3 on the training inputs
+        timing[name]["mla_training"] = {model: t[name] for model, t in t_timing.items()}
+    path_counts += run(phase_sdpa_override)
+    path_counts += run(phase_utilities)
     emit({"phase": "seconds", "build": build["seconds"], **seconds})
     record["phase_seconds"] = seconds
     launches = collections.Counter()
@@ -5028,7 +5438,8 @@ def main():
          "library_ms": timing[name]["library_ms"],
          "design": DESIGN.get(name, "CUDA cores, FP32 FMAs"),
          **{key: timing[name][key] for key in ("variants", "block_sparse", "quant_block_sparse",
-                                               "rope") if key in timing[name]}}
+                                               "rope", "mla_indexer", "mla_training")
+            if key in timing[name]}}
         for name in src
     ]
     kernels[[k["name"] for k in kernels].index("flash_dbias")]["launches_by_dtype"] = {

@@ -188,3 +188,58 @@ def test_bf16_forward_and_decode_agree(jparams):
     caches = deepseek.init_caches(cfg, 2, 16, device="cpu")
     logits, caches = deepseek.decode_step(model, tokens, caches, cfg)
     assert rel_err(logits, full[:, -1]) <= 5e-2
+
+
+def _named_grads(tree, prefix=""):
+    """A JAX gradient tree (nested dicts and lists) flattened to
+    {dotted name: array}, the names of the port's `named_parameters()`."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: np.asarray(tree)}
+    out = {}
+    for key, val in items:
+        out.update(_named_grads(val, f"{prefix}.{key}" if prefix else str(key)))
+    return out
+
+
+def test_training_loss_and_every_gradient_match_jax(jparams):
+    # Training parity: next-token cross-entropy of forward's logits plus
+    # the aux loss, through jax.value_and_grad (its kernels in interpret
+    # mode) and through torch autograd (flash_attention's backward, the
+    # MoE's per-expert loop in plain torch) on the same weights. The loss
+    # abs 1e-5; every parameter's gradient atol = rtol = 1e-4, the backward
+    # bound of tests/test_flash_backward.py:32. Every layer's routes are
+    # compared first and must be equal: a token routed otherwise would move
+    # every gradient.
+    tokens = _tokens(5, (2, 25))
+    targets = tokens[:, 1:]
+
+    def jloss(params):
+        logits, aux = jds.forward(params, jnp.asarray(tokens[:, :-1]), JCFG)
+        lp = jax.nn.log_softmax(logits, axis=-1)
+        return -jnp.mean(jnp.take_along_axis(lp, jnp.asarray(targets)[..., None], -1)) + aux
+
+    jr, tr = [], []
+    with _routes(jmoe, jr):  # the routes, outside the gradient's tracing
+        jds.forward(jparams, jnp.asarray(tokens[:, :-1]), JCFG)
+    want_loss, want = jax.value_and_grad(jloss)(jparams)
+    model = _port(jparams)
+    with _routes(moe, tr):
+        logits, aux = deepseek.forward(model, torch.from_numpy(tokens[:, :-1]).long(), CFG)
+    lp = torch.log_softmax(logits, dim=-1)
+    loss = -lp.gather(-1, torch.from_numpy(targets).long()[..., None]).mean() + aux
+    loss.backward()
+    assert len(jr) == len(tr) == CFG.depth
+    for (jidx, _), (idx, _) in zip(jr, tr):
+        np.testing.assert_array_equal(idx, jidx)
+    assert abs(loss.item() - float(want_loss)) <= 1e-5
+    want = _named_grads(want)
+    got = dict(model.named_parameters())
+    assert sorted(got) == sorted(want)
+    for name, param in got.items():
+        assert param.grad is not None, name
+        np.testing.assert_allclose(param.grad.numpy(), want[name], atol=1e-4, rtol=1e-4,
+                                   err_msg=name)

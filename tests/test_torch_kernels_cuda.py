@@ -141,6 +141,37 @@ def test_flash_fwd_kernel_matches_plain(dev, dtype, case):
     _check(out.float(), lse, want.float(), want_lse, *TOLS[dtype])
 
 
+# A bias that hides every key of a row's first 512 and keeps later ones
+# (a top-k bias like the MLA indexer's, with the first 512 keys never kept;
+# and one that keeps only the last 64 keys): the K-only pre-pass covers
+# every visible tile under a bias, so P is rounded against each row's final
+# max, as the plain version rounds it. A row past the LSE gate must be
+# within it of the float64 LSE (`lse_check`, as the walk tests below): in a
+# row that sees one or two kept keys the fp32 plain version can round a
+# bf16(P) one ulp off (1.7e-3 in LSE), where the kernel holds the float64
+# value. Before the repair such rows missed by running maxima, not ulps.
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("kind,causal", [("topk_past_512", True), ("topk_past_512", False),
+                                         ("last_64", False)])
+def test_flash_fwd_bias_that_keeps_keys_past_the_first_512(dev, dtype, d, kind, causal):
+    b, h, s = 2, 4, 2048
+    q, k, v = _qkv(b, h, h, s, s, d, dtype, dev, seed=3)
+    keep = torch.zeros((b, s, s), dtype=torch.bool)
+    if kind == "topk_past_512":
+        scores = torch.rand((b, s, s), generator=torch.Generator().manual_seed(5))
+        scores[..., :512] = -1.0
+        keep = scores >= torch.topk(scores, 64, dim=-1).values[..., -1:]
+    else:
+        keep[..., -64:] = True
+    bias = torch.where(keep, 0.0, -1e30)[:, None].to(dev)
+    out, lse = flash_attention_forward(q, k, v, bias, causal=causal)
+    want, want_lse = flash_attention_forward_plain(q, k, v, bias, causal=causal)
+    visible = torch.ones((s, s), dtype=torch.bool, device=dev).tril() if causal else None
+    _check(out.float(), lse, want.float(), want_lse, *TOLS[dtype],
+           arbiter=(q, k, bias, visible))
+
+
 @pytest.mark.parametrize("d", [64, 128, 256])
 def test_flash_fwd_kernel_bf16_in_fp32_out(dev, d):
     q, k, v = _qkv(2, 4, 2, 150, 150, d, torch.bfloat16, dev)

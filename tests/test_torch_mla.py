@@ -201,15 +201,32 @@ def test_mla_sparse_indexer_changes_the_output(jparams):
 
 
 def test_mla_forward_takes_gradients(jparams):
-    # The forward runs under autograd (flash_attention's backward); the
-    # indexer's mask carries no gradient.
+    # Training parity: the loss mean(forward(x)²) with the top-16 indexer
+    # under causal, through jax.value_and_grad (its kernels in interpret
+    # mode) and through torch autograd (flash_attention's backward; the
+    # indexer's mask is a constant and carries no gradient) on the same
+    # weights. Every parameter's gradient atol = rtol = 1e-4, the backward
+    # bound of tests/test_flash_backward.py:32; the loss 1e-5. The kept key
+    # sets are compared first: a near-tie at the top-k edge would change a
+    # row's keys, and no row of this input has one.
+    jcfg = dataclasses.replace(JCFG, indexer_topk=16)
     cfg = dataclasses.replace(CFG, indexer_topk=16)
+    x = np.random.default_rng(7).normal(0, 1, (2, 32, 256)).astype(np.float32)
+    assert _kept_rows(jparams, x, 16).all()
+
+    def jloss(params):
+        return jnp.mean(jnp.square(jmla.forward(params, jnp.asarray(x), jcfg)))
+
+    want_loss, want = jax.value_and_grad(jloss)(jparams)
     model = _port(jparams, cfg)
-    x = torch.from_numpy(np.random.default_rng(7).normal(0, 1, (1, 32, 256)).astype(np.float32))
-    mla_model.forward(model, x, cfg).square().mean().backward()
+    loss = mla_model.forward(model, torch.from_numpy(x), cfg).square().mean()
+    loss.backward()
+    assert abs(loss.item() - float(want_loss)) <= 1e-5
     for name in mla_model.PARAMS:
         g = getattr(model, name).grad
         assert g is not None and torch.isfinite(g).all() and g.abs().sum() > 0, name
+        np.testing.assert_allclose(g.numpy(), np.asarray(want[name]), atol=1e-4, rtol=1e-4,
+                                   err_msg=name)
 
 
 def _decode_runs(jparams, x, prefill):

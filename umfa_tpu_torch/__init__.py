@@ -29,8 +29,12 @@ kernel); the FLUX-shaped DiT (`models/dit.py`, dense or quantized,
 forward and training); MLA (`ops/mla.py`, the latent cache, and
 `models/mla_model.py`), the MoE FFN (`models/moe.py`) and the
 DeepSeek-style model (`models/deepseek.py`: forward through `flash_fwd`,
-latent-cache decode and generation), and the quantized-weight GEMMs of
-`ops/gemm.py`.
+latent-cache decode and generation; MLA and DeepSeek training), and the
+quantized-weight GEMMs of `ops/gemm.py`; the utilities: the torch SDPA
+override and DLPack (`utils/interop.py`), checkpoints
+(`utils/checkpoint.py`), `utils/timing.py`, `engine/descriptor.py`,
+`engine/profiling.py` and the native runtime's binding
+(`native/runtime.py`, built from `native/src/` at first use).
 
     import umfa_tpu_torch
     out = umfa_tpu_torch.attention(q, k, v, is_causal=True)

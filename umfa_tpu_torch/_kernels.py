@@ -22,6 +22,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent
 _SRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -114,13 +116,24 @@ def _lib(name: str) -> ctypes.CDLL:
 def function(name: str, symbol: str, argtypes):
     """The C function `symbol` of kernel library `name`, with its argtypes
     declared (pointers and the stream as c_void_p) and an int result (the
-    cudaError_t of the launch)."""
+    cudaError_t of the launch). While torch.profiler records, each call is
+    a range named `symbol` without its `umfa_` prefix (`flash_fwd`,
+    `flash_bwd_dq`, ...), so a trace names the launches' wrappers beside
+    the kernels they ran."""
     key = (name, symbol)
     if key not in _fns:
         fn = getattr(_lib(name), symbol)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
-        _fns[key] = fn
+        range_name = symbol.removeprefix("umfa_")
+
+        def call(*args):
+            if torch.autograd._profiler_enabled():
+                with torch.profiler.record_function(range_name):
+                    return fn(*args)
+            return fn(*args)
+
+        _fns[key] = call
     return _fns[key]
 
 

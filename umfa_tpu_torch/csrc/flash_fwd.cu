@@ -35,7 +35,11 @@
 // and a longer one rounds against a running max only past its first 512
 // keys. Without it, P rounded against the max of each row's first 64 keys
 // put the bf16 LSE of short causal rows up to 1.15e-3 from the plain
-// version's at the serving prefill, over its 1e-3 gate.
+// version's at the serving prefill, over its 1e-3 gate. With a bias the
+// pre-pass takes every visible tile (the bias read twice, the Q·Kᵀ work
+// doubled): a bias can hide all of a row's first 512 keys and keep later
+// ones (the MLA indexer's top-128), and then only the final max rounds P
+// as the plain version does.
 // Left for later PRs: wgmma (the only way to the full tensor-core rate),
 // TMA loads with mbarriers, warp specialisation (a producer warp), and a
 // persistent grid that overlaps one tile's epilogue with the next loads.

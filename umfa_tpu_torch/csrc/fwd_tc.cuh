@@ -28,7 +28,13 @@
 //
 // The walk: the running max is seeded by a K-only pre-pass before any P is
 // formed. Dense (RING = false): one pre-pass over the first PRE tiles (512
-// keys), then every visible tile with the online softmax update and P·V.
+// keys), then every visible tile with the online softmax update and P·V;
+// with a bias (dense and SPARSE) the pre-pass takes every tile the walk
+// visits, bias included, so P is rounded against each row's final max, as
+// the plain version rounds it: a bias may hide a row's first 512 keys and
+// keep later ones (the MLA indexer's top-128 at B8 H16 S4096), and a max
+// seeded from its first 512 keys put 461 of 524,288 rows up to 1.7e-3
+// from the plain LSE. The RING walk keeps its per-group pre-pass.
 // Ring (RING = true): the keys fall in groups of block_k (the reference's
 // key tiles); for each group that holds visible keys, its visible tiles
 // (KT keys, clipped to the group) first for the group's row max, then for P
@@ -40,12 +46,9 @@
 // compile as without it): the dense walk restricted to a block-sparse map
 // (common.cuh `SparseWalk`): the block walks the map's walked key tiles
 // (from the compacted row of its map query tile), in each its KT-key tiles
-// from the tile's first key in the band; the K-only pre-pass takes the
-// last PRE walked tiles: a row's first walked keys are often another
-// document's, hidden by the bias, while the keys nearest the diagonal are
-// its own, so a row that sees only keys of its last PRE walked tiles (the
-// first rows of a causal document, a window of up to PRE tiles) rounds P
-// against its final max, as the plain version does. Keys past a map tile's end are hidden
+// from the tile's first key in the band; without a bias the K-only
+// pre-pass takes the last PRE walked tiles (the keys nearest the
+// diagonal), with one every walked tile (as the dense walk). Keys past a map tile's end are hidden
 // like the KV tail, and the bias is read only on tiles that are not FULL
 // for the block (a BlockMask's bias is 0 on FULL tiles); where the block
 // straddles map query tiles, each element looks up its own tile's class.
@@ -298,8 +301,9 @@ __global__ void __launch_bounds__((FwdTile<DP, Mma, RING || SPARSE>::NT),
   }
   // Dense: steps [0, n_pre) walk the first key tiles for the row max alone
   // (K only); steps [n_pre, n_pre + n_t) walk every visible tile with the
-  // softmax update and P·V. A row that sees at most PRE tiles thus rounds P
-  // against its final max, as the plain version does.
+  // softmax update and P·V. A row that sees at most PRE tiles, and with a
+  // bias every row, thus rounds P against its final max, as the plain
+  // version does.
   const int t_lo = k_lo / KT;
   int n_t = k_hi >= k_lo ? k_hi / KT - t_lo + 1 : 0;
   // SPARSE: the walk from its start (w_start), the step's tile (w_cur) and
@@ -312,9 +316,9 @@ __global__ void __launch_bounds__((FwdTile<DP, Mma, RING || SPARSE>::NT),
       w_start = walk_start(sw);
       n_t = walk_count(sw, w_start);
     }
-    w_cur = walk_skip(sw, w_start, n_t - min(n_t, G::PRE));  // the pre-pass's first tile
   }
-  const int n_pre = min(n_t, G::PRE);
+  const int n_pre = !RING && p.bias ? n_t : min(n_t, G::PRE);
+  if constexpr (SPARSE) w_cur = walk_skip(sw, w_start, n_t - n_pre);  // the pre-pass's first tile
   auto tile_of = [&](int i) { return t_lo + (i < n_pre ? i : i - n_pre); };
   int steps = n_pre + n_t;
   RingWalk walk;

@@ -1,9 +1,9 @@
 """Dispatch-route statistics (port of umfa_tpu/engine/stats.py).
 
 Every call through the public `attention()` records which route handled
-it, under the reference's route names. The counters are Python integers
-under a lock; the reference's binding of the native counter library is not
-ported yet.
+it, under the reference's route names. When the port's native runtime
+library builds and loads (`native/runtime.py`), the counters are its
+process-wide atomics; otherwise Python integers under a lock.
 """
 
 from __future__ import annotations
@@ -27,7 +27,17 @@ _lock = threading.Lock()
 _counters: Dict[str, int] = {r: 0 for r in _ROUTES}
 
 
+def _native():
+    from umfa_tpu_torch.native import runtime
+
+    return runtime if runtime.available() else None
+
+
 def record_dispatch(route: str) -> None:
+    nat = _native()
+    if nat is not None:
+        nat.record_dispatch(route)
+        return
     with _lock:
         _counters["total"] += 1
         if route in _counters:
@@ -35,11 +45,18 @@ def record_dispatch(route: str) -> None:
 
 
 def get_dispatch_stats() -> Dict[str, int]:
+    nat = _native()
+    if nat is not None:
+        return nat.get_dispatch_stats()
     with _lock:
         return dict(_counters)
 
 
 def reset_dispatch_stats() -> None:
+    nat = _native()
+    if nat is not None:
+        nat.reset_dispatch_stats()
+        return
     with _lock:
         for key in _counters:
             _counters[key] = 0

@@ -1,6 +1,6 @@
 """Time the attention forwards of a source tree on the card.
 
-    python umfa_tpu_torch/utils/fwd_timing.py [--tree DIR] [--label NAME] (--fp32 | --ring | --bf16 | --rope)
+    python umfa_tpu_torch/utils/fwd_timing.py [--tree DIR] [--label NAME] (--fp32 | --ring | --bf16 | --rope | --bias)
 
 Imports `umfa_tpu_torch` from DIR (default: the tree this file is in), so
 another tree, such as a parent commit unpacked with `git archive`, can be
@@ -34,6 +34,16 @@ rotated inside the kernel) at rope_attention's geometries (ROPE_SHAPES,
 which `chip_smoke.py` also drives), each with its relerr against the plain
 version, beside the same kernel without tables on the same inputs (the
 rotation's cost); `chip_smoke.py` times the two-pass route and SDPA.
+
+--bias: the bf16 `flash_fwd` on the MLA indexer's call (B8 H16 S4096 D64
+causal, `chip_smoke.py` phase 14c) with a seeded top-128 bias of shape
+(8, 1, 4096, 4096) fp32 (each row keeps the 128 keys of highest seeded
+uniform score: 0 there, -1e30 elsewhere), with its relerr, worst LSE error
+and the count of visible rows past 1e-3 against the plain version (each
+such row, up to 32, read against the float64 LSE of the plain version's
+rounding points: `utils/testing.lse_check`), its
+flop (4·D a visible pair) and bound (q, k, v, out, LSE and the bias once);
+then the same call without the bias.
 
 Prints one JSON line per timing, then the card's name and power limit as
 nvidia-smi gives them. Needs a CUDA device.
@@ -239,6 +249,49 @@ def _time_rope(emit, stats):
         torch.cuda.empty_cache()
 
 
+def _time_bias(emit, stats):
+    import torch
+
+    from umfa_tpu_torch.ops.flash_fwd import flash_attention_forward, flash_attention_forward_plain
+    from umfa_tpu_torch.utils.testing import lse_check, rel_err
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(0)
+    b, h, s, d, topk = 8, 16, 4096, 64, 128
+    q, k, v = (torch.randn((b, h, s, d), generator=gen).to(dev, torch.bfloat16) for _ in range(3))
+    scores = torch.rand((b, s, s), generator=torch.Generator(device=dev).manual_seed(1),
+                        device=dev)
+    kth = torch.topk(scores, topk, dim=-1).values[..., -1:]
+    bias = torch.where(scores >= kth, 0.0, -1e30)[:, None]
+    del scores, kth
+    pairs = b * h * s * (s + 1) // 2
+    for label, bb in (("bias", bias), ("none", None)):
+        def run(bb=bb):
+            return flash_attention_forward(q, k, v, bb, causal=True)
+
+        got = run()
+        want = [flash_attention_forward_plain(q[i:i + 2], k[i:i + 2], v[i:i + 2],
+                                              None if bb is None else bb[i:i + 2], causal=True)
+                for i in range(0, b, 2)]
+        want = tuple(torch.cat(parts) for parts in zip(*want))
+        causal = torch.ones((s, s), dtype=torch.bool, device=dev).tril()
+        err = dict(relerr_out=rel_err(got[0], want[0]),
+                   **lse_check(got[1], want[1], q, k, bb, 1e-3, keep=causal))
+        del got, want
+        torch.cuda.empty_cache()
+        flops = 4 * d * pairs
+        nbytes = 2 * 4 * q.numel() + 4 * b * h * s + (  # q, k, v, out; LSE; the bias
+            0 if bb is None else bb.numel() * 4)
+        st = stats(run, iters=10)
+        emit(kernel="flash_fwd", case=f"mla_indexer_{label}", dtype="bfloat16",
+             shape=f"B{b} H{h} S{s} D{d} causal" + ("" if bb is None else
+                                                   f", bias {tuple(bb.shape)} fp32 top-{topk}"),
+             **st, **err, flops=flops, tflops=flops / st["ms"] / 1e9,
+             bound_ms=_bound_ms(flops, nbytes, False))
+    del q, k, v, bias
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -249,6 +302,8 @@ def main(argv=None) -> int:
     mode.add_argument("--ring", action="store_true", help="ring_fwd_step and the whole ring forward")
     mode.add_argument("--bf16", action="store_true", help="the bf16 flash_fwd at the training shape")
     mode.add_argument("--rope", action="store_true", help="flash_fwd with in-kernel RoPE")
+    mode.add_argument("--bias", action="store_true",
+                      help="flash_fwd on the MLA indexer's call, with and without its bias")
     args = ap.parse_args(argv)
     tree = os.path.abspath(args.tree)
     if sys.path and os.path.abspath(sys.path[0]) == here:
@@ -273,7 +328,7 @@ def main(argv=None) -> int:
         print(json.dumps({"tree": args.label, **kw}), flush=True)
 
     (_time_ring if args.ring else _time_bf16 if args.bf16 else _time_rope if args.rope
-     else _time_fp32)(emit, _stats)
+     else _time_bias if args.bias else _time_fp32)(emit, _stats)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True,
                          timeout=60).stdout.strip().splitlines()[0], flush=True)
