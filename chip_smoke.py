@@ -301,6 +301,30 @@ Phases, one JSON line each:
      flash_bwd_dkv (chiprun_out/mla_step_trace/), the native runtime's
      version and a timed() latency, an AttentionDescriptor at the prefill
      shape equal to attention();
+ 18. the mesh on one card (parallel/mesh.py, sharded.py, pipeline.py; the
+     DiT's tp/sp and the MoE's ep routes): make_mesh over [cuda] * 8
+     virtual ranks; (a) sharded_attention at B8 Hq16 Hkv8 S4096 D64 bf16
+     causal, the heads/batch route on dp2/tp4, the sequence route on
+     dp1/sp4/tp2 (contiguous and zigzag), the int8 heads route on tp8, each
+     with exact launches (dp·tp of row 1, dp·tp·sp² on the ring, dp·tp of
+     row 7), held to one unsharded call (out relerr 1e-2; int8 1e-3) and
+     timed beside it; (b) the quantized ring's accuracy cell
+     (tests/test_parallel.py:257-304's data at that width, fp32) against
+     float64 attention: under 0.03 and at most 1.5 × the single int8 call's
+     error + 5e-3, beside the reference's 1.15e-2; (c) the FLUX-shaped DiT
+     (dim 1536, 24 heads, depth 4, B1 S4608, bf16) on dp1/sp4/tp2: the
+     forward within DIT_MESH_GATE of the single-device DiT with the same
+     weights, the first ring step's attention call against its plain
+     versions (rows 1-3's gates), a warm-up and three SGD steps whose loss
+     falls, exact launches (depth·tp·sp² of rows 1-3), forward and step ms
+     and peak memory; the int8 DiT on tp8 the same way (rows 7-9); (d)
+     pipeline_apply over four DiT blocks (pp 4, M 8, x B8 S1024, a fixed
+     cond): S·(S + M − 1) launches of row 1 and S·(S + M − 2) + 1 of rows
+     2-3, output and gradients against the sequential loop (1e-2, 2e-2);
+     (e) the MoE at the DeepSeek demo's width (dense dispatch, B8 S4096):
+     ep 8 against no ep_axis (relerr 1e-2, aux equal), both timed; (f)
+     each of the five examples' main() on the card (the SDPA replacement's
+     relerrs within 1e-3);
  Last: the wall seconds of each phase; a `kernels` line (each kernel with
      its `design`: tensor cores or CUDA cores); the nvidia-smi line; the
      result line.
@@ -312,7 +336,9 @@ DiT's forwards and timed steps, the pv_int8 accuracy cell's two calls and
 its two-pass training step, the two MLA forwards, both MLA decode routes,
 the DeepSeek forward and its generate, the MLA and DeepSeek timed training
 steps, the override's stacks and nn.MultiheadAttention, the descriptor and
-attention() calls and the traced MLA step) is driven with the launch counts set to 0
+attention() calls, the traced MLA step, and phase 18's sharded calls, its
+quantized ring, its DiT forwards and timed steps, the pipeline's forward
+and backward, both MoE calls and each example) is driven with the launch counts set to 0
 just before it and read just after; a kernel's `launches` in the kernels
 line is its sum over them; `launches_pv` of `fused_qattn` and
 `quant_attn_fwd`, and `launches_rope` of `flash_fwd`, their PV and ROPE
@@ -3920,9 +3946,9 @@ def dit_attention_inputs(store):
 
     attend = dit._attention
 
-    def grab(q, k, v, cfg):
+    def grab(q, k, v, cfg, *rest):
         store.append((q.detach(), k.detach(), v.detach()))
-        return attend(q, k, v, cfg)
+        return attend(q, k, v, cfg, *rest)
 
     dit._attention = grab
     try:
@@ -3933,33 +3959,43 @@ def dit_attention_inputs(store):
 
 def dit_block_check(model, x, cond, recipe, gen):
     """The first block's attention inputs at full width (B1 H24 S4608 D64,
-    bf16, non-causal) through the recipe's attention call with the LSE and
-    `.backward()` of a seeded dO, against the same call with every wrapper's
-    plain version (`plain_kernels()`): dense (rows 1-3) out relerr 1e-2, LSE
-    abs 1e-3, gradients relerr 2e-2; int8 and int4 (rows 7-9) out 1e-3, LSE
-    1e-4, gradients 2e-2. The kernel call launches each of its three
-    kernels once."""
+    bf16, non-causal) through the recipe's attention call, held to its
+    plain versions by `attention_call_check`."""
     import torch
 
-    from umfa_tpu_torch import _kernels
     from umfa_tpu_torch.models import dit
-    from umfa_tpu_torch.ops.attention import flash_attention
-    from umfa_tpu_torch.ops.quant_attention import quantized_flash_attention
-    from umfa_tpu_torch.utils.testing import rel_err
 
     cfg = model.cfg
     store = []
     with torch.no_grad(), dit_attention_inputs(store):
         dit.block_forward(model.blocks[0], x, cond, cfg)
-    q, k, v = store[0]
+    return attention_call_check(f"dit_block/{recipe}", *store[0], cfg.quantization, cfg.causal,
+                                gen)
+
+
+def attention_call_check(name, q, k, v, quantization, causal, gen, bias=None):
+    """One attention call (`flash_attention`, or `quantized_flash_attention`
+    under `quantization`) with the LSE and `.backward()` of a seeded dO,
+    against the same call with every wrapper's plain version
+    (`plain_kernels()`): dense (rows 1-3) out relerr 1e-2, LSE abs 1e-3,
+    gradients relerr 2e-2; int8 and int4 (rows 7-9) out 1e-3, LSE 1e-4,
+    gradients 2e-2. The kernel call launches each of its three kernels
+    once."""
+    import torch
+
+    from umfa_tpu_torch import _kernels
+    from umfa_tpu_torch.ops.attention import flash_attention
+    from umfa_tpu_torch.ops.quant_attention import quantized_flash_attention
+    from umfa_tpu_torch.utils.testing import rel_err
+
     do = torch.randn(q.shape, generator=gen).to(q.device, q.dtype)
 
     def call():
         t = [a.clone().requires_grad_(True) for a in (q, k, v)]
-        if cfg.quantization is None:
-            out, lse = flash_attention(*t, causal=cfg.causal, return_lse=True)
+        if quantization is None:
+            out, lse = flash_attention(*t, bias, causal=causal, return_lse=True)
         else:
-            out, lse = quantized_flash_attention(*t, config=cfg.quantization, causal=cfg.causal,
+            out, lse = quantized_flash_attention(*t, bias, config=quantization, causal=causal,
                                                  return_lse=True)
         out.backward(do)
         return out.detach(), lse.detach(), *(a.grad for a in t)
@@ -3971,23 +4007,23 @@ def dit_block_check(model, x, cond, recipe, gen):
     counts = {key: n for key, n in _kernels.launches.items() if n}
     with plain_kernels():
         want = call()
-    fgate, lgate = (1e-2, 1e-3) if recipe == "bf16" else (1e-3, 1e-4)
-    res = compare(f"dit_block/{recipe}", got[:2], want[:2], fgate, lgate)
-    res.update(shape="B{} H{} S{} D{} bf16 {}".format(*q.shape, "causal" if cfg.causal
-                                                      else "non-causal"),
+    fgate, lgate = (1e-2, 1e-3) if quantization is None else (1e-3, 1e-4)
+    res = compare(name, got[:2], want[:2], fgate, lgate)
+    res.update(shape="B{} H{} S{} D{} {} {}".format(*q.shape, str(q.dtype).split(".")[1],
+                                                    "causal" if causal else "non-causal"),
                launches=counts, tol_grads=2e-2,
                **{f"relerr_{n}": rel_err(a, b) for n, a, b in zip(("dq", "dk", "dv"), got[2:],
                                                                    want[2:])})
-    want_counts = dict.fromkeys(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv") if recipe == "bf16"
+    want_counts = dict.fromkeys(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+                                if quantization is None
                                 else ("fused_qattn", "quant_bwd_dq", "quant_bwd_dkv"), 1)
     res["ok"] = (res["ok"] and counts == want_counts
                  and all(res[f"relerr_{n}"] <= 2e-2 and torch_isfinite(g.float())
                          for n, g in zip(("dq", "dk", "dv"), got[2:])))
     emit({"phase": "kernel_check", **res})
     if not res["ok"]:
-        raise AssertionError(f"the DiT's {recipe} attention kernels at full width disagree with "
-                             f"their plain versions (or launched {counts}, expected "
-                             f"{want_counts}): {res}")
+        raise AssertionError(f"{name}: the attention kernels disagree with their plain "
+                             f"versions (or launched {counts}, expected {want_counts}): {res}")
     return res
 
 
@@ -4940,6 +4976,372 @@ def phase_utilities(record):
     return path_counts
 
 
+# The mesh on one card (phase 18): eight virtual ranks of one card, as
+# LocalRing's ranks; the reference ran its multi-device layer on eight
+# virtual CPU devices only (MULTICHIP_r05.json).
+MESH_RANKS = 8
+MESH_B, MESH_S = B_TRAIN, S_TRAIN  # the GPT's attention width: HQ, HKV, D
+QRING_REF = 0.0115  # MULTICHIP_r05.json: the quantized ring's relerr on the virtual mesh
+# The mesh DiT's forward against the single-device DiT, bf16 relerr: twice
+# tests/test_torch_dit.py's bound on the reference's own sharded-vs-single
+# spread (REF_BF16_SPREAD 2e-3; measured 1.05e-3 at dim 256, depth 2), the
+# model here being twice as deep.
+DIT_MESH_GATE = 4e-3
+PIPE_STAGES, PIPE_MICRO, PIPE_B, PIPE_S = 4, 8, 8, 1024
+MOE_WIDTH = dict(dim=512, hidden=512, num_experts=16, top_k=4, n_shared=1, dispatch="dense")
+EXAMPLES = {"quickstart": [], "serving_demo": [], "torch_sdpa_replacement": [],
+            "deepseek_mla_demo": [], "flux_attention_benchmark": ["--iters", "8"]}
+
+
+def pipeline_backward_calls(stages, micro):
+    """The stage calls whose backward autograd runs in pipeline_apply: every
+    call of the first S + M - 2 ticks feeds the next tick's rotation, which
+    the loss reaches (its unused outputs get zero cotangents), and of the
+    last tick only the last stage's, which is banked; the other stages'
+    last outputs feed only the final rotation, which nothing reads."""
+    return stages * (stages + micro - 2) + 1
+
+
+@contextlib.contextmanager
+def ring_step_calls(store):
+    """Record each (q, k, v, bias) that ring.py hands `flash_attention`,
+    detached, in `store`."""
+    from umfa_tpu_torch.parallel import ring
+
+    attend = ring.flash_attention
+
+    def grab(q, k, v, bias=None, **kw):
+        store.append((q.detach(), k.detach(), v.detach(), bias))
+        return attend(q, k, v, bias, **kw)
+
+    ring.flash_attention = grab
+    try:
+        yield
+    finally:
+        ring.flash_attention = attend
+
+
+def phase_mesh(record):
+    """The mesh on one card: make_mesh over [cuda] * 8 virtual ranks.
+    (a) sharded_attention at the GPT's attention width (B8 Hq16 Hkv8 S4096
+    D64 bf16 causal): the heads/batch route on dp2/tp4, the sequence route
+    on dp1/sp4/tp2 (contiguous and zigzag), the int8 heads route on tp8,
+    each with exact launches (dp·tp of row 1, dp·tp·sp² on the ring, dp·tp
+    of row 7), held to one unsharded call at row 1's gate (out relerr 1e-2;
+    int8 1e-3) and timed beside it; (b) the quantized ring's accuracy cell
+    (tests/test_parallel.py:257-304's data at that width, fp32, dp1/sp4/tp2)
+    against float64 attention: under 0.03 and at most 1.5 × the single int8
+    call's error + 5e-3, beside the reference's 1.15e-2; (c) the FLUX-shaped
+    DiT (DIT_WIDTH, B1 S4608, bf16) on dp1/sp4/tp2: a timed forward held to
+    the single-device DiT with the same weights at DIT_MESH_GATE, the first
+    ring-step attention call held to its plain versions, a warm-up and three
+    SGD steps (lr DIT_LR) whose loss falls, with exact launches; the int8
+    DiT on tp8 the same way (rows 7-9); (d) pipeline_apply over four DiT
+    blocks (pp 4, M 8, x B8 S1024, a fixed cond), forward and backward,
+    against the sequential loop; (e) the MoE at the DeepSeek demo's width
+    (dense dispatch), ep 8 against no ep_axis; (f) each of the five
+    examples' main() on the card."""
+    import dataclasses
+    import io
+    import types
+
+    import torch
+
+    from umfa_tpu_torch import _kernels
+    from umfa_tpu_torch.engine.config import QuantizationConfig
+    from umfa_tpu_torch.models import dit, moe
+    from umfa_tpu_torch.ops.attention import flash_attention
+    from umfa_tpu_torch.ops.quant_attention import quantized_flash_attention
+    from umfa_tpu_torch.ops.quant_fused_attn import fused_path_supported
+    from umfa_tpu_torch.parallel import make_mesh, pipeline_apply, sharded_attention
+    from umfa_tpu_torch.utils.testing import rel_err
+
+    dev = torch.device("cuda")
+    ranks = [dev] * MESH_RANKS
+    gen = torch.Generator().manual_seed(71)
+    res, path_counts = {"phase": "mesh", "ranks": MESH_RANKS, "device": str(dev)}, []
+    int8 = QuantizationConfig()
+
+    def require_fused(cfg, sk, hq, hkv, causal):
+        if not fused_path_supported(cfg, sk, D, causal=causal, window=None, seq_q=sk,
+                                    num_heads=hq, num_kv_heads=hkv):
+            raise AssertionError("phase 18 expects the single-launch quantized route")
+
+    # (a) sharded_attention at the GPT's attention width.
+    q = torch.randn((MESH_B, HQ, MESH_S, D), generator=gen).to(dev, torch.bfloat16)
+    k, v = (torch.randn((MESH_B, HKV, MESH_S, D), generator=gen).to(dev, torch.bfloat16)
+            for _ in range(2))
+    with torch.no_grad():
+        want, c_one = launches_of(lambda: flash_attention(q, k, v, causal=True))
+        want_q, c_one_q = launches_of(
+            lambda: quantized_flash_attention(q, k, v, config=int8, causal=True))
+        one_ms = cuda_stats(lambda: flash_attention(q, k, v, causal=True), iters=5)
+        one_q_ms = cuda_stats(lambda: quantized_flash_attention(q, k, v, config=int8,
+                                                                causal=True), iters=5)
+    routes = {"heads_dp2_tp4": (dict(dp=2, tp=4), {}),
+              "ring_dp1_sp4_tp2": (dict(sp=4, tp=2), dict(seq_axis="sp")),
+              "ring_zigzag_dp1_sp4_tp2": (dict(sp=4, tp=2), dict(seq_axis="sp", zigzag=True)),
+              "int8_heads_tp8": (dict(tp=8), dict(quantization=int8))}
+    res["sharded_attention"] = {"shape": f"B{MESH_B} Hq{HQ} Hkv{HKV} S{MESH_S} D{D} causal bf16",
+                                "unsharded_ms": one_ms, "unsharded_int8_ms": one_q_ms,
+                                "unsharded_launches": [c_one, c_one_q], "routes": {}}
+    for name, (sizes, kw) in routes.items():
+        mesh = make_mesh(**sizes, devices=ranks)
+        dp, sp, tp = (mesh.shape[a] for a in ("dp", "sp", "tp"))
+        attn = sharded_attention(mesh, causal=True, **kw)
+        with torch.no_grad():
+            out, counts = launches_of(lambda: attn(q, k, v))
+            ms = cuda_stats(lambda: attn(q, k, v), iters=5)
+        calls = dp * tp * (sp * sp if "seq_axis" in kw else 1)
+        if "quantization" in kw:
+            require_fused(int8, MESH_S, HQ // tp, HKV // tp, True)
+            want_counts, ref, gate = {"fused_qattn": calls}, want_q, 1e-3
+        else:
+            want_counts, ref, gate = {"flash_fwd": calls}, want, 1e-2
+        r = {"launches": counts, "expected": want_counts, "relerr_vs_unsharded": rel_err(out, ref),
+             "tol": gate, "finite": torch_isfinite(out.float()), **ms}
+        res["sharded_attention"]["routes"][name] = r
+        path_counts.append(counts)
+        if not (counts == want_counts and r["relerr_vs_unsharded"] <= gate and r["finite"]):
+            raise AssertionError(f"sharded_attention {name}: {r}")
+        del out
+    del q, k, v, want, want_q
+    torch.cuda.empty_cache()
+
+    # (b) The quantized ring's accuracy cell (tests/test_parallel.py:257-304):
+    # four channels of Q and K ×8, the scores scaled to a std of 0.5, fp32.
+    qn = torch.randn((MESH_B, HQ, MESH_S, D), generator=gen, dtype=torch.float64)
+    kn = torch.randn((MESH_B, HKV, MESH_S, D), generator=gen, dtype=torch.float64)
+    ch = torch.randperm(D, generator=gen)[:4]
+    qn[..., ch] *= 8.0
+    kn[..., ch] *= 8.0
+    qn, kn = qn.to(dev), kn.to(dev)
+    s0 = qn[0] @ kn[0].repeat_interleave(HQ // HKV, dim=0).transpose(-1, -2) / math.sqrt(D)
+    f = math.sqrt(0.5 / s0.std().item())
+    del s0
+    q, k = (qn * f).float(), (kn * f).float()
+    v = torch.randn((MESH_B, HKV, MESH_S, D), generator=gen).to(dev)
+    del qn, kn
+    with torch.no_grad():
+        exact = torch.cat([torch.softmax(
+            (qb.double() @ kb.double().repeat_interleave(HQ // HKV, dim=1).transpose(-1, -2)
+             / math.sqrt(D)).masked_fill(
+                torch.ones(MESH_S, MESH_S, dtype=torch.bool, device=dev).triu(1), float("-inf")),
+            dim=-1) @ vb.double().repeat_interleave(HQ // HKV, dim=1)
+            for qb, kb, vb in zip(q.split(1), k.split(1), v.split(1))]).float()
+        single = quantized_flash_attention(q, k, v, config=int8, causal=True)
+        mesh = make_mesh(sp=4, tp=2, devices=ranks)
+        ring = sharded_attention(mesh, seq_axis="sp", causal=True, quantization=int8)
+        require_fused(dataclasses.replace(int8, smooth=False), MESH_S // 4, HQ // 2, HKV // 2,
+                      False)
+        got, counts = launches_of(lambda: ring(q, k, v))
+    path_counts.append(counts)
+    err_single, err_ring = rel_err(single, exact), rel_err(got, exact)
+    cell = {"shape": f"B{MESH_B} Hq{HQ} Hkv{HKV} S{MESH_S} D{D} causal fp32, dp1/sp4/tp2",
+            "err_ring": err_ring, "err_single": err_single, "reference_virtual_mesh": QRING_REF,
+            "gate_abs": 0.03, "gate_rel": "1.5 x err_single + 5e-3", "launches": counts}
+    res["quantized_ring_cell"] = cell
+    if not (err_ring < 0.03 and err_ring <= 1.5 * err_single + 5e-3
+            and counts == {"fused_qattn": 2 * 16}):
+        raise AssertionError(f"the quantized ring's accuracy cell: {cell}")
+    del q, k, v, exact, single, got
+    torch.cuda.empty_cache()
+
+    # (c) The FLUX-shaped DiT on the mesh.
+    every = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_dbias", "fused_qattn",
+             "quant_bwd_dq", "quant_bwd_dkv", "quant_rows", "quant_attn_fwd")
+    res["dit"] = {}
+    for recipe, sizes in (("bf16", dict(sp=4, tp=2)), ("int8", dict(tp=8))):
+        mesh = make_mesh(**sizes, devices=ranks)
+        sp, tp = mesh.shape["sp"], mesh.shape["tp"]
+        cfg = dit.DiTConfig(**DIT_WIDTH, dtype="bfloat16", quantization=dit_recipe(recipe),
+                            tp_axis="tp", sp_axis="sp" if sp > 1 else None)
+        single = dit.init_params(dataclasses.replace(cfg, tp_axis=None, sp_axis=None),
+                                 torch.Generator().manual_seed(0), device=dev)
+        model = dit.init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+        x, cond, tgt = dit_data(cfg, DIT_B, DIT_S, dev, 31)
+        calls = cfg.depth * tp * sp * sp
+        fwd_k, dq_k, dkv_k = (("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv") if recipe == "bf16"
+                              else ("fused_qattn", "quant_bwd_dq", "quant_bwd_dkv"))
+        if recipe != "bf16":
+            require_fused(cfg.quantization, DIT_S, cfg.num_heads // tp, cfg.num_heads // tp,
+                          False)
+        want_fwd = {key: calls if key == fwd_k else 0 for key in every}
+        want_step = {key: calls if key in (fwd_k, dq_k, dkv_k) else 0 for key in every}
+        with torch.no_grad(), mesh:
+            y_one = dit.forward(single, x, cond)
+            dit.forward(model, x, cond)  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            y, counts = launches_of(lambda: dit.forward(model, x, cond))
+            fwd_ms = (time.perf_counter() - t0) * 1e3
+        path_counts.append(counts)
+        r = {"mesh": dict(mesh.shape), "fwd_ms": fwd_ms,
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "launches_forward": counts,
+             "relerr_vs_single_device": rel_err(y, y_one), "tol_vs_single_device": DIT_MESH_GATE,
+             "finite": torch_isfinite(y.float())}
+        del y, y_one, single
+        if {key: counts.get(key, 0) for key in every} != want_fwd or not (
+                r["relerr_vs_single_device"] <= DIT_MESH_GATE and r["finite"]):
+            raise AssertionError(f"the mesh DiT {recipe} forward: {r}, expected {want_fwd}")
+        if recipe == "bf16":
+            store = []
+            with torch.no_grad(), mesh, ring_step_calls(store):
+                dit.block_forward(model.blocks[0], x, cond, cfg)
+            r["ring_step_check"] = attention_call_check(
+                "mesh_dit_ring_step/bf16", *store[0][:3], None, cfg.causal,
+                torch.Generator().manual_seed(43), bias=store[0][3])
+            del store
+        torch.cuda.empty_cache()
+        steps = []
+        for i in range(4):  # one warm-up step, then three timed ones
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            with mesh:
+                loss = dit_loss(model, x, cond, tgt)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                loss.backward()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            with torch.no_grad():
+                for prm in model.parameters():
+                    prm -= DIT_LR * prm.grad
+                    prm.grad = None
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            counts = dict(_kernels.launches)
+            step = {"step": i, "warmup": i == 0, "loss": loss.item(), "fwd_ms": (t1 - t0) * 1e3,
+                    "bwd_ms": (t2 - t1) * 1e3, "sgd_ms": (t3 - t2) * 1e3,
+                    "step_ms": (t3 - t0) * 1e3,
+                    "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": counts}
+            del loss
+            steps.append(step)
+            if i > 0:
+                path_counts.append(counts)
+            if not math.isfinite(step["loss"]) or (i > 0 and not step["loss"] < steps[i - 1]["loss"]):
+                raise AssertionError(f"the mesh DiT {recipe} step {i}: loss {step['loss']} is not "
+                                     f"finite and below the step before's")
+            if {key: counts.get(key, 0) for key in every} != want_step:
+                raise AssertionError(f"the mesh DiT {recipe} step {i}: launches {counts}, "
+                                     f"expected {want_step}")
+        r["steps"] = steps
+        one = record.get("dit", {}).get("runs", {}).get(recipe)
+        if one is not None:  # phase 14b's single-device DiT, same width, for comparison
+            r["single_device"] = {"fwd_ms": one["forward"]["fwd_ms"],
+                                  "step_ms": [st["step_ms"] for st in one["steps"][1:]],
+                                  "peak_mem_gb": max(st["peak_mem_gb"] for st in one["steps"])}
+        res["dit"][recipe] = r
+        emit({"phase": "mesh_dit", "recipe": recipe, **{k_: v_ for k_, v_ in r.items()
+                                                        if k_ != "ring_step_check"}})
+        del model, x, cond, tgt
+        torch.cuda.empty_cache()
+
+    # (d) pipeline_apply over four DiT blocks.
+    cfg = dit.DiTConfig(**{**DIT_WIDTH, "depth": PIPE_STAGES}, dtype="bfloat16")
+    blocks = dit.init_params(cfg, torch.Generator().manual_seed(2), device=dev).blocks
+    stacked = {n: torch.stack([getattr(b, n).detach() for b in blocks]).requires_grad_(True)
+               for n in dit.PARAMS}
+    del blocks
+    x = torch.randn((PIPE_B, PIPE_S, cfg.dim), generator=gen).to(dev, torch.bfloat16)
+    cond = torch.randn((1, cfg.dim), generator=gen).to(dev, torch.bfloat16)
+    w = torch.randn(x.shape, generator=gen).to(dev)
+
+    def stage(p, h):
+        return dit.block_forward(types.SimpleNamespace(**p), h, cond, cfg)
+
+    def run(fn):
+        y, c_fwd = launches_of(fn)
+        _, c_bwd = launches_of(lambda: (y.float() * w).sum().backward())
+        grads = {n: p.grad for n, p in stacked.items()}
+        for p in stacked.values():
+            p.grad = None
+        return y.detach(), c_fwd, c_bwd, grads
+
+    mesh = make_mesh(PIPE_STAGES, devices=ranks, axis_names=("pp", "sp", "tp"))
+    t0 = time.perf_counter()
+    y, c_fwd, c_bwd, grads = run(lambda: pipeline_apply(stage, stacked, x, mesh=mesh,
+                                                        num_microbatches=PIPE_MICRO))
+    pipe_s = time.perf_counter() - t0
+
+    def sequential():
+        h = x
+        for i in range(PIPE_STAGES):
+            h = stage({n: p[i] for n, p in stacked.items()}, h)
+        return h
+
+    y_seq, s_fwd, s_bwd, g_seq = run(sequential)
+    path_counts += [c_fwd, c_bwd]
+    ticks = PIPE_STAGES + PIPE_MICRO - 1
+    want_fwd = {"flash_fwd": PIPE_STAGES * ticks}
+    n_bwd = pipeline_backward_calls(PIPE_STAGES, PIPE_MICRO)
+    want_bwd = {"flash_bwd_dq": n_bwd, "flash_bwd_dkv": n_bwd}
+    r = {"shape": f"pp{PIPE_STAGES} M{PIPE_MICRO} x B{PIPE_B} S{PIPE_S} dim {cfg.dim} bf16",
+         "seconds": pipe_s, "launches_forward": c_fwd, "launches_backward": c_bwd,
+         "expected_forward": want_fwd, "expected_backward": want_bwd,
+         "sequential_launches": [s_fwd, s_bwd], "relerr_vs_sequential": rel_err(y, y_seq),
+         "grad_relerr_vs_sequential": {n: rel_err(grads[n], g_seq[n]) for n in grads},
+         "tol": 1e-2, "tol_grads": 2e-2}
+    res["pipeline"] = r
+    emit({"phase": "mesh_pipeline", **r})
+    if not (c_fwd == want_fwd and c_bwd == want_bwd and r["relerr_vs_sequential"] <= 1e-2
+            and all(e <= 2e-2 for e in r["grad_relerr_vs_sequential"].values())):
+        raise AssertionError(f"pipeline_apply over four DiT blocks: {r}")
+    del stacked, x, y, y_seq, grads, g_seq, w
+    torch.cuda.empty_cache()
+
+    # (e) The MoE at the DeepSeek demo's width, the experts over ep 8.
+    mcfg = moe.MoEConfig(**MOE_WIDTH, dtype="bfloat16", ep_axis="ep")
+    layer = moe.init_params(mcfg, torch.Generator().manual_seed(3), device=dev)
+    xm = torch.randn((B_TRAIN, S_TRAIN, mcfg.dim), generator=gen).to(dev, torch.bfloat16)
+    plain_cfg = dataclasses.replace(mcfg, ep_axis=None)
+    with torch.no_grad():
+        (y0, aux0), c0 = launches_of(lambda: moe.moe_ffn(layer, xm, plain_cfg))
+        with make_mesh(MESH_RANKS, devices=ranks, axis_names=("ep", "sp", "tp")):
+            (y1, aux1), c1 = launches_of(lambda: moe.moe_ffn(layer, xm, mcfg))
+            ep_ms = cuda_stats(lambda: moe.moe_ffn(layer, xm, mcfg), iters=3)
+        one_ms = cuda_stats(lambda: moe.moe_ffn(layer, xm, plain_cfg), iters=3)
+    path_counts += [c0, c1]
+    r = {"shape": f"B{B_TRAIN} S{S_TRAIN}", "config": MOE_WIDTH, "ep": MESH_RANKS,
+         "relerr_vs_no_ep": rel_err(y1, y0), "max_abs": float((y1.float() - y0.float()).abs().max()),
+         "aux_equal": bool(torch.equal(aux0, aux1)), "launches": c1, "ep_ms": ep_ms,
+         "no_ep_ms": one_ms, "tol": 1e-2}
+    res["moe_ep"] = r
+    if not (r["relerr_vs_no_ep"] <= 1e-2 and r["aux_equal"] and c1 == {} == c0):
+        raise AssertionError(f"the MoE's ep route: {r}")
+    del layer, xm, y0, y1
+    torch.cuda.empty_cache()
+
+    # (f) The examples on the card.
+    import importlib
+
+    res["examples"] = {}
+    for name, argv in EXAMPLES.items():
+        mod = importlib.import_module(f"umfa_tpu_torch.examples.{name}")
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            _, counts = launches_of(lambda: mod.main(argv))
+        path_counts.append(counts)
+        text = buf.getvalue()
+        ex = {"seconds": time.perf_counter() - t0, "launches": counts,
+              "stdout_tail": text.splitlines()[-8:]}
+        if name == "torch_sdpa_replacement":
+            ex["relerr"] = [float(line.split("relerr ")[1]) for line in text.splitlines()
+                            if "relerr" in line]
+            if len(ex["relerr"]) != 3 or max(ex["relerr"]) > 1e-3:
+                raise AssertionError(f"the SDPA replacement example on the card: {ex}")
+        res["examples"][name] = ex
+        if not counts:
+            raise AssertionError(f"the example {name} launched no kernel on the card: {ex}")
+    emit({"phase": "mesh", **{k_: v_ for k_, v_ in res.items() if k_ != "dit"}})
+    record["mesh"] = res
+    return path_counts
+
+
 # The tensor-core kernels: library -> the stems of their function names.
 TC_KERNELS = {"flash_fwd": ("fwd_tc_kernel",), "flash_bwd": ("dq_tc_kernel", "dkv_tc_kernel"),
               "flash_dbias": ("dbias_tc_kernel",), "quant_bwd": ("dq_tc_kernel", "dkv_tc_kernel"),
@@ -5404,6 +5806,7 @@ def main():
         timing[name]["mla_training"] = {model: t[name] for model, t in t_timing.items()}
     path_counts += run(phase_sdpa_override)
     path_counts += run(phase_utilities)
+    path_counts += run(phase_mesh)
     emit({"phase": "seconds", "build": build["seconds"], **seconds})
     record["phase_seconds"] = seconds
     launches = collections.Counter()

@@ -28,12 +28,14 @@ from umfa_tpu.engine.config import QuantizationConfig as JQuantizationConfig
 from umfa_tpu.models import dit as jdit
 from umfa_tpu_torch.engine.config import QuantizationConfig
 from umfa_tpu_torch.models import dit
+from umfa_tpu_torch.parallel import make_mesh
 from umfa_tpu_torch.utils.testing import rel_err
 
 JCFG = jdit.DiTConfig(dim=256, num_heads=4, depth=2, dtype="float32", interpret=True)
 CFG = dit.DiTConfig(dim=256, num_heads=4, depth=2, dtype="float32")
 FP32 = dict(atol=1e-4, rtol=1e-4)
 B, S = 2, 64
+CPU8 = [torch.device("cpu")] * 8
 
 
 @pytest.fixture(scope="module")
@@ -135,13 +137,113 @@ def test_init_params_scales_and_layouts():
 
 @pytest.mark.parametrize("axis", ["tp_axis", "sp_axis"])
 def test_sharded_routes_raise(jparams, axis):
+    # An axis that no current mesh has raises a ValueError naming it.
     cfg = dataclasses.replace(CFG, **{axis: "x"})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        _port(jparams, cfg)
-    model = _port(jparams, CFG)
+    model = _port(jparams, cfg)
     x, cond, _ = (torch.from_numpy(a) for a in _data(5))
-    with pytest.raises(NotImplementedError, match="mesh layer"):
+    with pytest.raises(ValueError, match="'x'"):
         dit.block_forward(model.blocks[0], x, cond, cfg)
+    with make_mesh(dp=1, sp=2, tp=2, devices=CPU8), pytest.raises(ValueError, match="'x'"):
+        dit.forward(model, x, cond)
+    qcfg = dataclasses.replace(CFG, sp_axis="sp", quantization=QuantizationConfig())
+    with make_mesh(sp=2, devices=CPU8), pytest.raises(ValueError, match="quantized ring"):
+        dit.forward(_port(jparams, qcfg), x, cond)
+
+
+# The mesh routes at __graft_entry__.py:69-79's width: dim 256, 8 heads,
+# depth 2, batch 2, S 128 a sequence rank; dp1/sp4/tp2 on 8 virtual ranks.
+MESH_JCFG = jdit.DiTConfig(dim=256, num_heads=8, depth=2, dtype="float32", interpret=True)
+MESH_SIZES = dict(dp=1, sp=4, tp=2)
+MESH_B, MESH_S = 2, 512
+# Bound on the reference's own bf16 sharded-vs-single spread at this width
+# (measured 1.05e-3 relerr); chip_smoke.py phase 18's DiT gate is twice it.
+REF_BF16_SPREAD = 2e-3
+
+
+@pytest.fixture(scope="module")
+def mesh_jparams():
+    return jdit.init_params(jax.random.PRNGKey(0), MESH_JCFG)
+
+
+def _mesh_data():
+    rng = np.random.default_rng(11)
+    x, tgt = (rng.normal(0, 1, (MESH_B, MESH_S, 256)).astype(np.float32) for _ in range(2))
+    cond = rng.normal(0, 1, (MESH_B, 256)).astype(np.float32)
+    return x, cond, tgt
+
+
+def _jax_sharded_forward(jparams, jcfg, x, cond, tgt):
+    """The reference's sharded forward and loss (__graft_entry__.py:81-106:
+    parameter shardings, the loss psum'd over ("dp", "sp"))."""
+    from jax.sharding import Mesh as JMesh
+    from jax.sharding import PartitionSpec as P
+
+    from umfa_tpu.utils.compat import shard_map
+
+    cfg = dataclasses.replace(jcfg, tp_axis="tp", sp_axis="sp")
+    mesh = JMesh(np.array(jax.devices()[:8]).reshape(1, 4, 2), ("dp", "sp", "tp"))
+    block = {"wqkv": P(None, None, "tp", None), "wo": P("tp", None, None), "w1": P(None, "tp"),
+             "b1": P("tp"), "w2": P("tp", None), "b2": P(), "wmod": P(), "bmod": P()}
+    specs = {"blocks": [dict(block) for _ in range(jcfg.depth)]}
+    xs = P("dp", "sp", None)
+
+    def body(params, x, cond, tgt):
+        pred = jdit.forward(params, x, cond, cfg)
+        local = jnp.sum((pred.astype(jnp.float32) - tgt) ** 2)
+        return pred, jax.lax.psum(local, ("dp", "sp")) / (MESH_B * MESH_S * jcfg.dim)
+
+    f = shard_map(body, mesh=mesh, in_specs=(specs, xs, P("dp", None), xs), out_specs=(xs, P()))
+    pred, loss = jax.jit(f)(jparams, *(jnp.asarray(a, jcfg.jdtype) for a in (x, cond)),
+                            jnp.asarray(tgt))
+    return np.asarray(pred, np.float32), float(loss)
+
+
+def test_mesh_forward_and_gradients(mesh_jparams):
+    # Forward and loss against the reference's shard_map forward; every
+    # gradient against jax.value_and_grad of the UNSHARDED forward (the
+    # reference's sharded step scales them by tp and sp: ROADMAP.md).
+    x, cond, tgt = _mesh_data()
+    want_pred, want_loss = _jax_sharded_forward(mesh_jparams, MESH_JCFG, x, cond, tgt)
+    _, want = jax.value_and_grad(_jloss)(mesh_jparams,
+                                         *(jnp.asarray(a) for a in (x, cond, tgt)), MESH_JCFG)
+    cfg = dit.DiTConfig(dim=256, num_heads=8, depth=2, dtype="float32", tp_axis="tp",
+                        sp_axis="sp")
+    model = _port(mesh_jparams, cfg)
+    with make_mesh(**MESH_SIZES, devices=CPU8):
+        pred = dit.forward(model, *(torch.from_numpy(a) for a in (x, cond)))
+    loss = ((pred - torch.from_numpy(tgt)) ** 2).mean()
+    loss.backward()
+    np.testing.assert_allclose(pred.detach().numpy(), want_pred, **FP32)
+    assert abs(loss.item() - want_loss) <= 1e-5
+    named = dict(model.named_parameters())
+    for i in range(cfg.depth):
+        for name in dit.PARAMS:
+            np.testing.assert_allclose(named[f"blocks.{i}.{name}"].grad.numpy(),
+                                       np.asarray(want["blocks"][i][name]),
+                                       err_msg=f"blocks.{i}.{name}", **FP32)
+
+
+def test_mesh_bf16_spread_within_the_references(mesh_jparams):
+    # bf16: how far the reference's sharded forward sits from its own
+    # single-device forward, and the port's mesh forward from its own.
+    jcfg = dataclasses.replace(MESH_JCFG, dtype="bfloat16")
+    jparams = jax.tree_util.tree_map(lambda a: a.astype(jnp.bfloat16), mesh_jparams)
+    x, cond, tgt = _mesh_data()
+    sharded, _ = _jax_sharded_forward(jparams, jcfg, x, cond, tgt)
+    single = np.asarray(jdit.forward(jparams, *(jnp.asarray(a, jnp.bfloat16) for a in (x, cond)),
+                                     jcfg), np.float32)
+    ref_spread = rel_err(sharded, single)
+    cfg = dit.DiTConfig(dim=256, num_heads=8, depth=2, dtype="bfloat16")
+    tx, tc = (torch.from_numpy(a).bfloat16() for a in (x, cond))
+    with torch.no_grad():
+        one = dit.forward(_port(jparams, cfg), tx, tc)
+        with make_mesh(**MESH_SIZES, devices=CPU8):
+            mesh = dit.forward(_port(jparams, dataclasses.replace(cfg, tp_axis="tp",
+                                                                  sp_axis="sp")), tx, tc)
+    port_spread = rel_err(mesh, one)
+    assert 0 < ref_spread <= REF_BF16_SPREAD, ref_spread
+    assert port_spread <= 2 * ref_spread, (port_spread, ref_spread)
+    assert rel_err(mesh, sharded) <= 2 * REF_BF16_SPREAD
 
 
 def test_init_params_defaults_to_the_card():

@@ -2375,3 +2375,87 @@ def test_mla_deepseek_forward_and_decode_on_the_card(dev, monkeypatch):
         want, _ = deepseek.forward(model, tokens, cfg)
     torch.testing.assert_close(logits, want, atol=1e-5, rtol=0)
     assert float(aux) >= cfg.depth * (1 - 1e-5)
+
+
+# The mesh layer on one card (parallel/mesh.py, sharded.py; models/dit.py's
+# routes): every shard through the kernels, held to one unsharded call.
+MESH_CASES = [("heads_dp2_tp4", dict(dp=2, tp=4), {}),
+              ("ring_sp4_tp2", dict(sp=4, tp=2), dict(seq_axis="sp")),
+              ("ring_zigzag_sp4_tp2", dict(sp=4, tp=2), dict(seq_axis="sp", zigzag=True))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", MESH_CASES, ids=[c[0] for c in MESH_CASES])
+def test_sharded_attention_matches_one_unsharded_call(dev, dtype, case):
+    # Forward: fp32 2e-5 on the heads route (the same calls on each shard),
+    # 1e-4 on the ring (its merge sums in another order), bf16 1e-2;
+    # gradients fp32 1e-4, bf16 2e-2.
+    from umfa_tpu_torch.parallel import make_mesh, sharded_attention
+
+    name, sizes, kw = case
+    mesh = make_mesh(**sizes, devices=[dev] * 8)
+    dp, sp, tp = (mesh.shape[a] for a in ("dp", "sp", "tp"))
+    q, k, v = _qkv(2, 8, 4, 512, 512, 64, dtype, dev, seed=5)
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(6)).to(dev, dtype)
+    res = {}
+    for how in ("mesh", "one"):
+        t = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        _kernels.reset_launch_counts()
+        if how == "mesh":
+            out = sharded_attention(mesh, causal=True, **kw)(*t)
+        else:
+            out = flash_attention(*t, causal=True)
+        counts = _kernels.launches["flash_fwd"]
+        out.backward(do)
+        res[how] = (out.detach(), [x.grad for x in t], counts)
+    assert res["mesh"][2] == dp * tp * (sp * sp if "seq_axis" in kw else 1)
+    fwd = 2e-5 if dtype == torch.float32 and "seq_axis" not in kw else (
+        1e-4 if dtype == torch.float32 else 1e-2)
+    bwd = 1e-4 if dtype == torch.float32 else 2e-2
+    assert rel_err(res["mesh"][0], res["one"][0]) <= fwd
+    for n, a, b in zip("qkv", res["mesh"][1], res["one"][1]):
+        assert rel_err(a, b) <= bwd, n
+
+
+def test_sharded_int8_heads_route_matches_one_unsharded_call(dev):
+    # Each tp rank quantizes its own heads: the same rows as one call (1e-3).
+    from umfa_tpu_torch.engine.config import QuantizationConfig
+    from umfa_tpu_torch.ops.quant_attention import quantized_flash_attention
+    from umfa_tpu_torch.parallel import make_mesh, sharded_attention
+
+    q, k, v = _qkv(2, 8, 8, 512, 512, 64, torch.bfloat16, dev, seed=7)
+    cfg = QuantizationConfig()
+    with torch.no_grad():
+        _kernels.reset_launch_counts()
+        got = sharded_attention(make_mesh(tp=8, devices=[dev] * 8), causal=True,
+                                quantization=cfg)(q, k, v)
+        assert _kernels.launches["fused_qattn"] == 8
+        want = quantized_flash_attention(q, k, v, config=cfg, causal=True)
+    assert rel_err(got, want) <= 1e-3
+
+
+def test_mesh_dit_matches_the_single_device_dit(dev):
+    # dp1/sp4/tp2, full width, depth 1, S 512, fp32: forward and every
+    # gradient at 1e-4 (chip_smoke.py phase 14b's reduced DiT gate).
+    import dataclasses
+
+    from umfa_tpu_torch.models import dit
+    from umfa_tpu_torch.parallel import make_mesh
+
+    cfg = dit.DiTConfig(dim=1536, num_heads=24, depth=1, dtype="float32")
+    g = torch.Generator().manual_seed(8)
+    x, tgt = (torch.randn((1, 512, cfg.dim), generator=g).to(dev) for _ in range(2))
+    cond = torch.randn((1, cfg.dim), generator=g).to(dev)
+    res = {}
+    for how, c in (("one", cfg), ("mesh", dataclasses.replace(cfg, tp_axis="tp", sp_axis="sp"))):
+        model = dit.init_params(c, torch.Generator().manual_seed(1), device=dev)
+        _kernels.reset_launch_counts()
+        with make_mesh(sp=4, tp=2, devices=[dev] * 8):
+            y = dit.forward(model, x, cond)
+            ((y - tgt) ** 2).mean().backward()
+        res[how] = (y.detach(), {n: p.grad for n, p in model.named_parameters()},
+                    _kernels.launches["flash_fwd"], _kernels.launches["flash_bwd_dq"])
+    assert res["mesh"][2:] == (2 * 16, 2 * 16) and res["one"][2:] == (1, 1)
+    torch.testing.assert_close(res["mesh"][0], res["one"][0], atol=1e-4, rtol=1e-4)
+    for n, want in res["one"][1].items():
+        torch.testing.assert_close(res["mesh"][1][n], want, atol=1e-4, rtol=1e-4, msg=n)

@@ -140,10 +140,20 @@ def test_moe_combine_gives_the_same_bits_twice():
 
 
 def test_ep_axis_raises():
-    cfg = moe.MoEConfig(**BASE, dtype="float32", ep_axis="ep")
+    # The dense dispatch refuses an ep_axis that no current mesh has, naming
+    # it; the ragged one ignores ep_axis, as the reference's does.
+    from umfa_tpu_torch.parallel import make_mesh
+
+    cfg = moe.MoEConfig(**BASE, dtype="float32", dispatch="dense", ep_axis="ep")
     model = moe.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh layer"):
-        moe.moe_ffn(model, torch.zeros((1, 4, cfg.dim)), cfg)
+    x = torch.zeros((1, 4, cfg.dim))
+    with pytest.raises(ValueError, match="'ep'"):
+        moe.moe_ffn(model, x, cfg)
+    with make_mesh(dp=2, devices=["cpu"] * 2), pytest.raises(ValueError, match="'ep'"):
+        moe.moe_ffn(model, x, cfg)
+    ragged = dataclasses.replace(cfg, dispatch="ragged")
+    assert torch.equal(moe.moe_ffn(model, x, ragged)[0],
+                       moe.moe_ffn(model, x, dataclasses.replace(ragged, ep_axis=None))[0])
 
 
 def test_params_keep_the_router_fp32():

@@ -131,3 +131,14 @@ def test_serving_exports_the_latent_cache(name):
     assert name in umfa_tpu.serving.__all__ and name in umfa_tpu_torch.serving.__all__
     assert getattr(umfa_tpu_torch.serving, name).__name__ == name
     assert set(umfa_tpu_torch.serving.__all__) == set(umfa_tpu.serving.__all__)
+
+
+@pytest.mark.parametrize("name", ["make_mesh", "sharded_attention", "pipeline_apply",
+                                  "ring_flash_attention", "ring_flash_attention_pallas"])
+def test_parallel_exports_follow_the_reference(name):
+    import umfa_tpu.parallel
+    import umfa_tpu_torch.parallel
+
+    assert name in umfa_tpu.parallel.__all__ and name in umfa_tpu_torch.parallel.__all__
+    assert getattr(umfa_tpu_torch.parallel, name).__name__ == name
+    assert set(umfa_tpu.parallel.__all__) <= set(umfa_tpu_torch.parallel.__all__)

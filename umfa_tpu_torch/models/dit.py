@@ -19,10 +19,19 @@ population variance, in fp32 and cast back (`models/gpt.py` `_ln`); GELU
 with the tanh approximation (jax.nn.gelu's default); the modulation from
 `silu` of the fp32 cond and an fp32 einsum, then cast to the model dtype.
 
-The reference's `tp_axis`/`sp_axis` routes (heads over a tensor-parallel
-axis, the sequence over a ring) need the port's mesh layer, which does not
-exist yet (ROADMAP.md, Queue 1 item 7): a config that sets either raises
-NotImplementedError.
+The reference's `tp_axis`/`sp_axis` routes run the same forward inside
+`shard_map` (dit.py:84-160). The port runs them over the current `Mesh`
+(parallel/mesh.py, `with mesh:`) of virtual ranks on one device: `forward`
+takes the global x (B, S, dim) and the whole parameters, splits the batch
+over the mesh's "dp" axis (where it has one); over `tp_axis` it splits the
+heads (`wqkv[:, :, h]`, `wo[h]`) and the MLP's hidden columns (`w1[:, c]`,
+`b1[c]`, `w2[c]`) and adds the ranks' fp32 partials in rank order, cast once
+after the sum where the reference's `_tp_psum` sits; over `sp_axis` the
+attention is ring attention over a `LocalRing` (RoPE at global positions).
+Gradients are plain autograd on the whole parameters, so they equal the
+single-device gradients (the reference's shard_map step scales the
+tp-sharded ones by tp and all of them by sp: ROADMAP.md, "Reference faults
+not queued").
 """
 
 from __future__ import annotations
@@ -40,6 +49,9 @@ from umfa_tpu_torch.models.gpt import _ln
 from umfa_tpu_torch.ops.attention import flash_attention
 from umfa_tpu_torch.ops.quant_attention import quantized_flash_attention
 from umfa_tpu_torch.ops.rope import apply_rope, rope_angles
+from umfa_tpu_torch.parallel.mesh import current_mesh, mesh_axis_size
+from umfa_tpu_torch.parallel.ring import ring_flash_attention
+from umfa_tpu_torch.parallel.transport import LocalRing
 from umfa_tpu_torch.utils.device import default_device
 
 PARAMS = ("wqkv", "wo", "w1", "b1", "w2", "b2", "wmod", "bmod")
@@ -55,7 +67,7 @@ class DiTConfig:
     rope: bool = True
     dtype: str = "bfloat16"
     quantization: Optional[QuantizationConfig] = None
-    # The reference's shard_map axis names; not ported (the module docstring).
+    # Mesh axis names of the current mesh (None = single device).
     tp_axis: Optional[str] = None
     sp_axis: Optional[str] = None
 
@@ -81,7 +93,6 @@ class DiT(nn.Module):
 
     def __init__(self, cfg: DiTConfig, blocks):
         super().__init__()
-        _check_single_device(cfg)
         self.cfg = cfg
         self.blocks = nn.ModuleList(Block(**b) for b in blocks)
 
@@ -89,13 +100,6 @@ class DiT(nn.Module):
         for block in self.blocks:
             x = block_forward(block, x, cond, self.cfg)
         return x
-
-
-def _check_single_device(cfg: DiTConfig) -> None:
-    if cfg.tp_axis is not None or cfg.sp_axis is not None:
-        raise NotImplementedError(
-            "the DiT's tp_axis/sp_axis routes need the mesh layer, not ported yet "
-            "(ROADMAP.md, Queue 1 item 7)")
 
 
 def init_params(cfg: DiTConfig, generator: Optional[torch.Generator] = None,
@@ -138,38 +142,92 @@ def params_from_jax(params_np: dict, cfg: DiTConfig, device=None) -> DiT:
     return DiT(cfg, [{name: t(b[name]) for name in PARAMS} for b in params_np["blocks"]])
 
 
-def _attention(q, k, v, cfg: DiTConfig):
-    """(B, H, S, Dh) → same (dit.py:90-105, single device)."""
+def _attention(q, k, v, cfg: DiTConfig, sp: int = 1):
+    """(B, H, S, Dh) → same (dit.py:90-105): over `sp_axis` a ring of `sp`
+    ranks, each holding S / sp of the sequence."""
     if cfg.quantization is not None:
         return quantized_flash_attention(q, k, v, config=cfg.quantization, causal=cfg.causal)
+    if cfg.sp_axis is not None:
+        return ring_flash_attention(q, k, v, ring=LocalRing(sp), causal=cfg.causal)
     return flash_attention(q, k, v, causal=cfg.causal)
+
+
+def _mesh_sizes(cfg: DiTConfig) -> tuple:
+    """(dp, sp, tp) of the current mesh for cfg's axes; (1, 1, 1) without
+    axes. An axis that no current mesh has raises ValueError."""
+    if cfg.tp_axis is None and cfg.sp_axis is None:
+        return 1, 1, 1
+    if cfg.quantization is not None and cfg.sp_axis is not None:
+        raise ValueError("quantized ring attention in the DiT is not in the reference "
+                         "(dit.py:95): set sp_axis=None with a quantization")
+    tp, sp = mesh_axis_size(cfg.tp_axis), mesh_axis_size(cfg.sp_axis)
+    dp = mesh_axis_size("dp") if "dp" in current_mesh().axis_names else 1
+    return dp, sp, tp
 
 
 def block_forward(block: Block, x: torch.Tensor, cond: torch.Tensor,
                   cfg: DiTConfig) -> torch.Tensor:
-    """One DiT block. x: (B, S, dim); cond: (B, dim)."""
-    _check_single_device(cfg)
+    """One DiT block. x: (B, S, dim); cond: (B, dim). With cfg's mesh axes
+    set, x and cond are global: the batch splits over "dp", the heads and
+    MLP columns over `tp_axis`, the sequence over `sp_axis`."""
+    dp, sp, tp = _mesh_sizes(cfg)
+    if x.shape[0] % dp or x.shape[1] % sp or cfg.num_heads % tp or (cfg.dim * cfg.mlp_ratio) % tp:
+        raise ValueError(f"batch {x.shape[0]}, sequence {x.shape[1]}, {cfg.num_heads} heads and "
+                         f"{cfg.dim * cfg.mlp_ratio} MLP columns must divide by dp={dp}, "
+                         f"sp={sp} and tp={tp}")
+    if dp > 1:
+        return torch.cat([_block(block, xi, ci, cfg, sp, tp)
+                          for xi, ci in zip(x.chunk(dp), cond.chunk(dp))])
+    return _block(block, x, cond, cfg, sp, tp)
+
+
+def _block(block: Block, x, cond, cfg: DiTConfig, sp: int, tp: int):
+    """One data rank's block: tp head and column shards, the ring over sp."""
     mod = (torch.einsum("bd,dme->bme", F.silu(cond.float()), block.wmod.float())
            + block.bmod.float()).to(x.dtype)  # (B, 6, dim)
     shift_a, scale_a, gate_a, shift_m, scale_m, gate_m = (mod[:, i][:, None, :]
                                                           for i in range(6))
 
-    # --- attention ---
+    # --- attention (heads over tp) ---
     h = _ln(x) * (1 + scale_a) + shift_a
-    qkv = torch.einsum("bsd,dthe->btshe", h, block.wqkv)  # t ∈ {q, k, v}
-    q, k, v = (qkv[:, i].transpose(1, 2) for i in range(3))  # (B, H, S, Dh)
-    if cfg.rope:  # the reference's in-block tables (dit.py:134-142) are rope_angles'
+    if cfg.rope:
+        # The reference's in-block tables (dit.py:127-144) are rope_angles';
+        # the ring's chunk j holds rows j·S/sp onward, its global positions.
         cos, sin = rope_angles(x.shape[1], cfg.head_dim, device=x.device)
-        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-    attn = _attention(q, k, v.contiguous(), cfg)
-    x = x + gate_a * torch.einsum("bhse,hed->bsd", attn.to(x.dtype), block.wo)
+    heads = cfg.num_heads // tp
+    partials = []
+    for r in range(tp):
+        hs = slice(r * heads, (r + 1) * heads)
+        qkv = torch.einsum("bsd,dthe->btshe", h, block.wqkv[:, :, hs])  # t ∈ {q, k, v}
+        q, k, v = (qkv[:, i].transpose(1, 2) for i in range(3))  # (B, H/tp, S, Dh)
+        if cfg.rope:
+            q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+        attn = _attention(q, k, v.contiguous(), cfg, sp)
+        partials.append(torch.einsum("bhse,hed->bsd", attn.to(x.dtype), block.wo[hs]))
+    x = x + gate_a * _tp_sum(partials, x.dtype)
 
-    # --- MLP ---
+    # --- MLP (w1 column-sharded, w2 row-sharded over tp) ---
     h = _ln(x) * (1 + scale_m) + shift_m
-    h = torch.einsum("bsd,dk->bsk", h, block.w1) + block.b1
-    h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
-    h = torch.einsum("bsk,kd->bsd", h, block.w2) + block.b2
+    cols = cfg.dim * cfg.mlp_ratio // tp
+    partials = []
+    for r in range(tp):
+        cs = slice(r * cols, (r + 1) * cols)
+        hc = torch.einsum("bsd,dk->bsk", h, block.w1[:, cs]) + block.b1[cs]
+        hc = F.gelu(hc.float(), approximate="tanh").to(x.dtype)
+        partials.append(torch.einsum("bsk,kd->bsd", hc, block.w2[cs]))
+    h = _tp_sum(partials, x.dtype) + block.b2
     return x + gate_m * h
+
+
+def _tp_sum(partials, dtype):
+    """The reference's `_tp_psum`: each rank's product cast to fp32, the
+    ranks added in rank order, cast back once (a no-op at tp 1)."""
+    if len(partials) == 1:
+        return partials[0]
+    total = partials[0].float()
+    for p in partials[1:]:
+        total = total + p.float()
+    return total.to(dtype)
 
 
 def forward(model: DiT, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:

@@ -18,9 +18,11 @@ Both combine without atomics: each slot's weighted output goes back to its
 (token, k) place and the K of a token are summed by one reduction, so a
 call gives the same bits every time (`index_add_` on CUDA would not).
 
-Expert parallelism (`ep_axis`, `ep_specs`) needs the port's mesh layer,
-which does not exist yet (ROADMAP.md, Queue 1 item 7): a config that sets
-`ep_axis` raises NotImplementedError.
+Expert parallelism (`ep_axis`, `ep_specs`): under the current `Mesh`
+(parallel/mesh.py, `with mesh:`) of virtual ranks on one device, the dense
+dispatch splits its (E, C, dim) block into the ep ranks' expert groups and
+each rank runs its own experts' SwiGLU; the combine keeps its fixed order.
+The ragged dispatch ignores `ep_axis`, as the reference's does.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from umfa_tpu_torch.parallel.mesh import mesh_axis_size
 from umfa_tpu_torch.utils.device import default_device
 
 EXPERT_PARAMS = ("router", "w1", "w3", "w2")
@@ -50,7 +53,7 @@ class MoEConfig:
     capacity_factor: float = 1.5  # dense dispatch only
     dispatch: str = "ragged"     # "ragged" (dropless) | "dense" (capacity)
     dtype: str = "bfloat16"
-    # The reference's expert-parallel mesh axis; not ported (module docstring).
+    # Mesh axis for expert parallelism (dense dispatch; module docstring).
     ep_axis: Optional[str] = None
 
     @property
@@ -108,6 +111,18 @@ def params_from_jax(params_np: dict, cfg: MoEConfig, device=None) -> MoE:
     return MoE(cfg, **{name: t(name) for name in _param_names(cfg)})
 
 
+def ep_specs(cfg: MoEConfig) -> dict:
+    """Expert-parallel placement of each parameter, as a tuple of mesh axis
+    names for its leading dimensions (the reference's PartitionSpecs): the
+    expert-stacked w1, w3 and w2 split their expert dimension over
+    `cfg.ep_axis`; the router and the shared experts are whole on every
+    rank."""
+    specs = {"router": (), "w1": (cfg.ep_axis,), "w3": (cfg.ep_axis,), "w2": (cfg.ep_axis,)}
+    if cfg.n_shared:
+        specs.update(ws1=(), ws3=(), ws2=())
+    return specs
+
+
 def router_topk(params: MoE, x: torch.Tensor,
                 cfg: MoEConfig) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: (T, dim) → (weights (T, K) fp32, expert idx (T, K) int64, full
@@ -154,7 +169,8 @@ def _moe_ragged(params: MoE, x, w, idx, cfg: MoEConfig):
 def _moe_dense(params: MoE, x, w, idx, cfg: MoEConfig):
     """GShard capacity dispatch: token t's slot in expert e is the count of
     earlier tokens routed to e; slots at or past the capacity are dropped.
-    Returns (T, dim) fp32."""
+    Under `ep_axis` each ep rank runs its own group of experts. Returns
+    (T, dim) fp32."""
     t, d = x.shape
     e, k = cfg.num_experts, cfg.top_k
     cap = max(int(cfg.capacity_factor * k * t / e), k)
@@ -168,7 +184,13 @@ def _moe_dense(params: MoE, x, w, idx, cfg: MoEConfig):
     toks = torch.arange(t, device=x.device).repeat_interleave(k)
     experts = idx.reshape(-1)
     xe = x.new_zeros((e, cap + 1, d)).index_put((experts, slot), x[toks])[:, :cap]
-    ye = _swiglu(xe, params.w1, params.w3, params.w2)            # (E, C, d)
+    ep = mesh_axis_size(cfg.ep_axis)
+    if e % ep:
+        raise ValueError(f"{e} experts do not divide over {cfg.ep_axis}={ep}")
+    g = e // ep  # each ep rank's experts
+    ye = torch.cat([_swiglu(xe[r * g:(r + 1) * g], params.w1[r * g:(r + 1) * g],
+                            params.w3[r * g:(r + 1) * g], params.w2[r * g:(r + 1) * g])
+                    for r in range(ep)])                          # (E, C, d)
     ye = torch.cat([ye, ye.new_zeros((e, 1, d))], dim=1)         # the scratch row reads 0
     yk = ye[experts, slot].float() * (w.float() * kept).reshape(-1)[:, None]
     return yk.reshape(t, k, d).sum(dim=1)
@@ -176,9 +198,6 @@ def _moe_dense(params: MoE, x, w, idx, cfg: MoEConfig):
 
 def moe_ffn(params: MoE, x: torch.Tensor, cfg: MoEConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, dim) → (y (B, S, dim) in x's dtype, aux load-balance loss)."""
-    if cfg.ep_axis is not None:
-        raise NotImplementedError("the MoE's ep_axis route needs the mesh layer, not ported "
-                                  "yet (ROADMAP.md, Queue 1 item 7)")
     b, s, d = x.shape
     xf = x.reshape(b * s, d)
     w, idx, probs = router_topk(params, xf, cfg)
