@@ -22,9 +22,12 @@ Phases, one JSON line each:
      ones (the `mma.sync` probe kernel gone, and no "wgmma ... serialized"
      in its ptxas report), counted in the SASS (cuobjdump; none
      fails the run), their registers and spills (ptxas; a spill in the
-     fp32 dbias, in `fused_qattn` at D 256 or in a bf16 `flash_decode`
-     fails the run; `quant_rows`' kernels listed too) and dynamic shared
-     memory at D 64/128/256 (and of each probe plan);
+     fp32 dbias, in `fused_qattn` at D 256, in a bf16 `flash_decode` or in
+     a wide body (`fwd_wide_kernel`, `dq_wide_kernel`, `dkv_wide_kernel`,
+     head_dim > 256, bf16 and 3xTF32, with HMMA and TF32 HMMA like the
+     rest) fails the run; `quant_rows`' kernels listed too) and dynamic
+     shared memory at D 64/128/256, at D 300/512/1024 for rows 1-4 (and of
+     each probe plan);
   3. forward kernels against their plain PyTorch versions on the card at
      the serving head geometry (Hq 16 / Hkv 8, D 64, Sk 4096, batch 2),
      with the stated tolerances, and the bf16 `flash_fwd` and the int8
@@ -325,6 +328,25 @@ Phases, one JSON line each:
      ep 8 against no ep_axis (relerr 1e-2, aux equal), both timed; (f)
      each of the five examples' main() on the card (the SDPA replacement's
      relerrs within 1e-3);
+ 19. wide heads, rows 1-4 above head_dim 256 (csrc/wide_tc.cuh; dbias's
+     own body): (a) the FLUX VAE decoder's mid-block call at full width
+     (B1 H1 S16384 D512, one head of 512 channels, non-causal;
+     utils/fwd_timing.py WIDE_SHAPE) through F.scaled_dot_product_attention
+     under use_torch_sdpa() and no_grad, bf16 and fp32: exactly 2
+     flash_fwd launches (the row-max pass, then the column slices), its
+     output the kernel's bit for bit, out and LSE against the plain
+     version (bf16 1e-2 / 1e-3, fp32 2e-5 / 1e-5); (b) attention() forward and `.backward()` at the same shape:
+     exactly 2 flash_fwd, 1 flash_bwd_dq, 1 flash_bwd_dkv, dQ, dK and dV
+     against the plain backward (bf16 2e-2, fp32 1e-4); (c) bias_grad=True
+     at B1 H2 S2048 D512 with a (1, 2, S, S) fp32 bias (also 1 flash_dbias)
+     and causal GQA (B1 Hq4 Hkv2 S1024) at D 300 and 1024 (at 1024 with a
+     (1, 4, S, S) bias gradient), each against its plain versions; each
+     kernel timed at the VAE shape, the bias case and D 1024 (median, min
+     and max of 10) beside its plain version, its bound, its plan (depth
+     chunks, column slices, as umfa_flash_wide_plan reports it) and the
+     memory-efficient SDPA (a yardstick only: its forward, its backward,
+     for dbias its backward with a bias gradient; null with torch's reason
+     where it refuses);
  Last: the wall seconds of each phase; a `kernels` line (each kernel with
      its `design`: tensor cores or CUDA cores); the nvidia-smi line; the
      result line.
@@ -338,7 +360,8 @@ the DeepSeek forward and its generate, the MLA and DeepSeek timed training
 steps, the override's stacks and nn.MultiheadAttention, the descriptor and
 attention() calls, the traced MLA step, and phase 18's sharded calls, its
 quantized ring, its DiT forwards and timed steps, the pipeline's forward
-and backward, both MoE calls and each example) is driven with the launch counts set to 0
+and backward, both MoE calls and each example, and phase 19's override
+calls and attention() calls) is driven with the launch counts set to 0
 just before it and read just after; a kernel's `launches` in the kernels
 line is its sum over them; `launches_pv` of `fused_qattn` and
 `quant_attn_fwd`, and `launches_rope` of `flash_fwd`, their PV and ROPE
@@ -4993,6 +5016,237 @@ EXAMPLES = {"quickstart": [], "serving_demo": [], "torch_sdpa_replacement": [],
             "deepseek_mla_demo": [], "flux_attention_benchmark": ["--iters", "8"]}
 
 
+# Phase 19: head dims above 256, rows 1-4's wide bodies (csrc/wide_tc.cuh;
+# flash_dbias's own body), at utils/fwd_timing.py's WIDE_SHAPE (the FLUX VAE
+# decoder's mid-block), WIDE_BIAS_SHAPE and WIDE_GQA.
+WIDE_FWD_GATES = {"bfloat16": (1e-2, 1e-3), "float32": (2e-5, 1e-5)}
+WIDE_BWD_GATES = {"bfloat16": 2e-2, "float32": 1e-4}
+
+
+def wide_plan(kind, d, dtype):
+    """The plan of the wide body `kind` ("fwd", "dq" or "dkv") at head dim d
+    on `dtype` inputs, as csrc/wide_tc.cuh reports it (umfa_flash_wide_plan)."""
+    import ctypes
+
+    import torch
+
+    from umfa_tpu_torch import _kernels
+
+    fn = _kernels.function("flash_fwd", "umfa_flash_wide_plan",
+                           (ctypes.c_int,) * 3 + (ctypes.c_void_p,))
+    out = (ctypes.c_int * 5)()
+    fn(d, ("fwd", "dq", "dkv").index(kind), int(dtype == torch.bfloat16), ctypes.addressof(out))
+    return dict(zip(("chunk", "chunks", "slice", "slices", "smem_bytes"), out))
+
+
+def phase_wide_heads(record):
+    """Rows 1-4 at head dims above 256, bf16 and fp32. (a) The VAE mid-block's
+    call at full width (WIDE_SHAPE) through F.scaled_dot_product_attention
+    under use_torch_sdpa() and no_grad: exactly two flash_fwd launches (the
+    row-max pass, then the column slices) and nothing else, its output the
+    kernel's bit for bit, out and LSE against the plain version (row 1's
+    gates); (b) attention() forward and `.backward()` at the same shape:
+    exactly 2 flash_fwd, 1 flash_bwd_dq and 1 flash_bwd_dkv launches, dQ, dK
+    and dV against the plain backward (rows 2-3's gates); (c) attention()
+    with bias_grad=True at WIDE_BIAS_SHAPE (also 1 flash_dbias), and causal
+    GQA at D 300 and 1024 (WIDE_GQA; at D 1024 also the bias gradient of a
+    (1, Hq, S, S) bias), each against its plain versions. At the VAE shape,
+    the bias case and D 1024 each kernel timed (median, min, max of 10)
+    beside its plain version, its bound and the memory-efficient SDPA (a
+    yardstick only: its forward, its backward, and for dbias its backward
+    with a bias gradient; null, with torch's reason, where it refuses)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    import umfa_tpu_torch
+    from umfa_tpu_torch import _kernels
+    from umfa_tpu_torch.ops import flash_bwd as fb
+    from umfa_tpu_torch.ops import flash_fwd as ff
+    from umfa_tpu_torch.utils.fwd_timing import WIDE_BIAS_SHAPE, WIDE_GQA, WIDE_SHAPE
+    from umfa_tpu_torch.utils.interop import use_torch_sdpa
+    from umfa_tpu_torch.utils.testing import rel_err
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(29)
+    rows = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_dbias")
+    worst = {name: 0.0 for name in rows}
+    timing = {name: {} for name in rows}
+    runs, path_counts, failed = [], [], []
+
+    def library(fn):
+        """The memory-efficient SDPA's time, or None and torch's reason."""
+        try:
+            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                return cuda_ms(fn), "memory-efficient SDPA"
+        except RuntimeError as e:
+            return None, f"none: the memory-efficient SDPA refused ({e})"[:300]
+
+    def case(name, b, hq, hkv, s, d, causal, dt, bias_shape=None, sdpa=False, timed=False):
+        dtype = getattr(torch, dt)
+        elem = torch.tensor([], dtype=dtype).element_size()
+        q = torch.randn((b, hq, s, d), generator=gen).to(dev, dtype)
+        k, v = (torch.randn((b, hkv, s, d), generator=gen).to(dev, dtype) for _ in range(2))
+        do = torch.randn((b, hq, s, d), generator=gen).to(dev, dtype)
+        bias = None if bias_shape is None else torch.randn(bias_shape, generator=gen).to(dev)
+        res = {"phase": "wide_heads", "case": name, "shape": f"B{b} Hq{hq} Hkv{hkv} S{s} D{d} "
+               f"{'causal' if causal else 'non-causal'} {dt}" + (
+                   f", a {tuple(bias_shape)} fp32 bias, bias_grad" if bias is not None else "")}
+        ok = True
+        if sdpa:  # (a) the decoder's call
+            _kernels.reset_launch_counts()
+            with use_torch_sdpa(), torch.no_grad():
+                y = F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+            torch.cuda.synchronize()
+            res["sdpa_launches"] = dict(_kernels.launches)
+            path_counts.append(res["sdpa_launches"])
+            ok &= res["sdpa_launches"] == {"flash_fwd": 2}
+        got = ff.flash_attention_forward(q, k, v, bias, causal=causal)
+        if sdpa:
+            res["sdpa_bit_equal_to_kernel"] = bool(torch.equal(y, got[0]))
+            ok &= res["sdpa_bit_equal_to_kernel"]
+            del y
+        res["forward_check"] = compare(f"wide/{name}", got, ff.flash_attention_forward_plain(
+            q, k, v, bias, causal=causal), *WIDE_FWD_GATES[dt])
+        ok &= res["forward_check"]["ok"]
+        worst["flash_fwd"] = max(worst["flash_fwd"], res["forward_check"]["max_abs_out"])
+        out, lse = got
+        del got
+        torch.cuda.empty_cache()
+
+        # (b) attention() forward and backward.
+        t = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        tb = None if bias is None else bias.detach().requires_grad_(True)
+        _kernels.reset_launch_counts()
+        o = umfa_tpu_torch.attention(*t, tb, is_causal=causal, bias_grad=bias is not None)
+        o.backward(do)
+        torch.cuda.synchronize()
+        counts = dict(_kernels.launches)
+        path_counts.append(counts)
+        want_counts = {"flash_fwd": 2, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+        if bias is not None:
+            want_counts.update({"flash_dbias": 1, f"flash_dbias/{dt}": 1})
+        res["path_launches"] = counts
+        ok &= counts == want_counts
+        p = fb._prepare(q, k, v, out, lse, do, bias, None, causal, None, None)
+        want = fb._plain(p)
+        grads = [x.grad for x in t]
+        res["path_bit_equal_out"] = bool(torch.equal(o.detach(), out))
+        res["grad_relerr"] = {n: rel_err(g.float(), w) for n, g, w in
+                              zip(("dq", "dk", "dv"), grads, want)}
+        for n, key in (("dq", "flash_bwd_dq"), ("dk", "flash_bwd_dkv"), ("dv", "flash_bwd_dkv")):
+            g, w = grads[("dq", "dk", "dv").index(n)], want[("dq", "dk", "dv").index(n)]
+            worst[key] = max(worst[key], float((g.float() - w).abs().max()))
+        ok &= res["path_bit_equal_out"] and all(
+            e <= WIDE_BWD_GATES[dt] for e in res["grad_relerr"].values())
+        del o, want, grads
+        if bias is not None:
+            shape = tuple(bias.shape)
+            want_db = fb._plain_dbias(p, shape)
+            res["dbias_relerr"] = rel_err(tb.grad, want_db)
+            worst["flash_dbias"] = max(worst["flash_dbias"],
+                                       float((tb.grad - want_db).abs().max()))
+            ok &= res["dbias_relerr"] <= WIDE_BWD_GATES[dt]
+            del want_db
+        del t, tb
+        torch.cuda.empty_cache()
+
+        if timed:
+            pairs = b * hq * visible_pairs(s, s, -1, 0 if causal else -1)
+            peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_TF32_FLOPS / 3
+            gdt = torch.bfloat16 if dtype == torch.bfloat16 else torch.float32
+            qkv = elem * (q.numel() + k.numel() + v.numel())
+            kx = k.repeat_interleave(hq // hkv, 1) if hq != hkv else k
+            vx = v.repeat_interleave(hq // hkv, 1) if hq != hkv else v
+            plan = {kind: wide_plan(kind, d, dtype) for kind in ("fwd", "dq", "dkv")}
+            lib_fwd, lib_fwd_what = library(lambda: F.scaled_dot_product_attention(
+                q, kx, vx, is_causal=causal))
+            qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, kx, vx))
+            try:
+                with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                    og = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+                lib_bwd = cuda_ms(lambda: torch.autograd.grad(og, (qg, kg, vg), do,
+                                                              retain_graph=True))
+                lib_bwd_what = "memory-efficient SDPA backward (dQ, dK and dV in one call)"
+                del og
+            except RuntimeError as e:
+                lib_bwd, lib_bwd_what = None, (f"none: the memory-efficient SDPA backward "
+                                               f"refused ({e})")[:300]
+            lib_db = (None, None)
+            if bias is not None:  # the same backward with a bias gradient, as phase 5's
+                mask = bias if not causal else torch.where(
+                    torch.ones((s, s), dtype=torch.bool, device=dev).tril(), bias, -math.inf)
+                mask = mask.to(dtype, copy=True).requires_grad_(True)
+                try:
+                    with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                        og = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
+                    lib_db = (cuda_ms(lambda: torch.autograd.grad(og, (mask,), do,
+                                                                  retain_graph=True)),
+                              f"memory-efficient SDPA backward with a {tuple(mask.shape)} {dt} "
+                              "bias gradient" + (" (causal folded in)" if causal else "")
+                              + "; also computes dQ, dK, dV")
+                    del og
+                except RuntimeError as e:
+                    lib_db = (None, f"none: the memory-efficient SDPA refused the bias "
+                                    f"gradient ({e})"[:300])
+                del mask
+            del qg, kg, vg, kx, vx
+            torch.cuda.empty_cache()
+            passes = {  # row: (kernel, plain, flops, bytes, launches, library)
+                "flash_fwd": (lambda: ff.flash_attention_forward(q, k, v, bias, causal=causal),
+                              lambda: ff.flash_attention_forward_plain(q, k, v, bias,
+                                                                       causal=causal),
+                              4 * d * pairs, qkv + elem * q.numel() + 4 * lse.numel(), 2,
+                              (lib_fwd, lib_fwd_what)),
+                "flash_bwd_dq": (lambda: fb._launch_dq(p, gdt), lambda: fb._plain_dq(p),
+                                 6 * d * pairs, qkv + 2 * elem * q.numel() + 8 * lse.numel(), 1,
+                                 (lib_bwd, lib_bwd_what)),
+                "flash_bwd_dkv": (lambda: fb._launch_dkv(p, gdt), lambda: fb._plain_dkv(p),
+                                  8 * d * pairs,
+                                  qkv + elem * (q.numel() + k.numel() + v.numel())
+                                  + 8 * lse.numel(), 1, (lib_bwd, lib_bwd_what)),
+            }
+            if bias is not None:
+                shape = tuple(bias.shape)
+                passes["flash_dbias"] = (
+                    lambda: fb._launch_dbias(p, shape), lambda: fb._plain_dbias(p, shape),
+                    4 * d * pairs, qkv + elem * q.numel() + 8 * bias.numel(), 1, lib_db)
+            res["timing"] = {}
+            for row, (kern, plain, flops, nbytes, n, (lib_ms, lib_what)) in passes.items():
+                tm = dict(**cuda_stats(kern), plain_ms=cuda_ms(plain, iters=3, warmup=1),
+                          library_ms=lib_ms, library=lib_what, launches=n, flops=flops,
+                          bytes=nbytes, ops_ms=flops / peak * 1e3,
+                          bytes_ms=nbytes / H100_HBM_BYTES * 1e3, shape=res["shape"])
+                if row != "flash_dbias":
+                    tm["plan"] = plan[{"flash_fwd": "fwd", "flash_bwd_dq": "dq"}.get(row, "dkv")]
+                bound(tm)
+                res["timing"][row] = tm
+                timing[row][f"{dt}/{name}"] = tm
+                torch.cuda.empty_cache()
+        res["ok"] = bool(ok)
+        emit(res)
+        runs.append(res)
+        if not ok:
+            failed.append(name)
+        del q, k, v, do, bias, out, lse, p
+        torch.cuda.empty_cache()
+
+    b, h, s, d = WIDE_SHAPE
+    bb, bh, bs, bd = WIDE_BIAS_SHAPE
+    dims, gb, ghq, ghkv, gs = WIDE_GQA
+    for dt in ("bfloat16", "float32"):
+        case("vae_mid_block", b, h, h, s, d, False, dt, sdpa=True, timed=True)
+        case("bias_grad", bb, bh, bh, bs, bd, False, dt, bias_shape=(1, bh, bs, bs), timed=True)
+        for gd in dims:
+            case(f"causal_gqa_d{gd}", gb, ghq, ghkv, gs, gd, True, dt,
+                 bias_shape=(1, ghq, gs, gs) if gd == max(dims) else None,
+                 timed=gd == max(dims))
+    record["wide_heads"] = runs
+    if failed:
+        raise AssertionError(f"wide heads: cases off their gates or launches: {failed}")
+    return timing, worst, path_counts
+
+
 def pipeline_backward_calls(stages, micro):
     """The stage calls whose backward autograd runs in pipeline_apply: every
     call of the first S + M - 2 ticks feeds the next tick's rotation, which
@@ -5343,7 +5597,8 @@ def phase_mesh(record):
 
 
 # The tensor-core kernels: library -> the stems of their function names.
-TC_KERNELS = {"flash_fwd": ("fwd_tc_kernel",), "flash_bwd": ("dq_tc_kernel", "dkv_tc_kernel"),
+TC_KERNELS = {"flash_fwd": ("fwd_tc_kernel", "fwd_wide_kernel"),
+              "flash_bwd": ("dq_tc_kernel", "dkv_tc_kernel", "dq_wide_kernel", "dkv_wide_kernel"),
               "flash_dbias": ("dbias_tc_kernel",), "quant_bwd": ("dq_tc_kernel", "dkv_tc_kernel"),
               "quant_attn_fwd": ("quant_attn_fwd_tc_kernel",),
               "fused_qattn": ("fused_qattn_tc_kernel",),
@@ -5374,6 +5629,9 @@ TF32_POLICY, TF32_HMMA = "Tf32x3Mma", "HMMA.1688.F32.TF32"
 TF32_LIBS = ("flash_fwd", "flash_bwd", "flash_dbias", "ring_attn")
 TF32_WIDTH_LIBS = ("flash_fwd", "flash_bwd", "ring_attn")
 TF32_WIDTHS = ("Li64E", "Li128E", "Li256E")  # the head-dim template argument, mangled
+# The wide bodies (head_dim > 256), one instantiation a policy (the forward
+# two: its row-max and column-slice passes), no head-dim argument.
+WIDE_STEMS = ("fwd_wide_kernel", "dq_wide_kernel", "dkv_wide_kernel")
 SIMT_GONE = {"flash_fwd": ("flash_fwd_kernel",),
              "flash_bwd": ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"),
              "flash_dbias": ("flash_dbias_kernel",),
@@ -5392,7 +5650,10 @@ NO_SPILL = {("fused_qattn", "fused_qattn_tc_kernel", "Li256ELb0ELb0E"): "fused_q
             ("fused_qattn", "fused_qattn_tc_kernel", "Li256ELb1ELb0E"): "fused_qattn D 256 SPARSE",
             ("fused_qattn", "fused_qattn_tc_kernel", "Li256ELb0ELb1E"): "fused_qattn D 256 pv_int8",
             ("flash_dbias", "dbias_tc_kernel", TF32_POLICY): "fp32 flash_dbias",
-            ("flash_decode", "flash_decode_tc_kernel", "Lb1E"): "bf16 flash_decode"}
+            ("flash_decode", "flash_decode_tc_kernel", "Lb1E"): "bf16 flash_decode",
+            ("flash_fwd", "fwd_wide_kernel", ""): "wide flash_fwd (D > 256)",
+            ("flash_bwd", "dq_wide_kernel", ""): "wide flash_bwd_dq (D > 256)",
+            ("flash_bwd", "dkv_wide_kernel", ""): "wide flash_bwd_dkv (D > 256)"}
 
 
 # Kernels held to a spill ceiling in bytes (stores and loads): fused_qattn's
@@ -5489,7 +5750,7 @@ def phase_sass(record, report):
                     raise AssertionError(f"no {TF32_HMMA} in the fp32 {stem} of {lib}: "
                                          f"{ {f: kernels[f].get('hmma_tf32') for f in found} }")
                 widths = [w for w in TF32_WIDTHS if not any(w in f for f in found)]
-                if widths and lib in TF32_WIDTH_LIBS:
+                if widths and lib in TF32_WIDTH_LIBS and stem not in WIDE_STEMS:
                     raise AssertionError(f"the fp32 {stem} of {lib} lacks the instantiations "
                                          f"{widths}: {found}")
         if lib in report:
@@ -5564,6 +5825,15 @@ def phase_sass(record, report):
         smem[f"fused_qattn D{d}"] = fq(d)
         for tq in (1, 16):  # the serving group of 2: 2 or 32 query rows
             smem[f"flash_decode bf16 D{d} Tq{tq}"] = fdec(d, 2 * tq, tq, 1)
+    for d in (300, 512, 1024):  # the wide bodies (the forward's column-slice pass)
+        smem[f"flash_fwd bf16 D{d}"] = fwd(d, 1)
+        smem[f"flash_fwd fp32 D{d}"] = fwd(d, 0)
+        smem[f"flash_bwd_dq bf16 D{d}"] = fbwd(d, 0, 1)
+        smem[f"flash_bwd_dkv bf16 D{d}"] = fbwd(d, 1, 1)
+        smem[f"flash_bwd_dq fp32 D{d}"] = fbwd(d, 0, 0)
+        smem[f"flash_bwd_dkv fp32 D{d}"] = fbwd(d, 1, 0)
+        smem[f"flash_dbias bf16 D{d}"] = fdb(d, 1)
+        smem[f"flash_dbias fp32 D{d}"] = fdb(d, 0)
     out = {"kernels": kernels, "dynamic_smem_bytes": smem}
     emit({"phase": "sass", **out})
     record["sass"] = out
@@ -5585,7 +5855,11 @@ DESIGN = {
                  "tile's first key, the bias read only on tiles that are not FULL; with RoPE "
                  "tables the ROPE instantiation rotates Q (rotate-half, fp32) as it stages it "
                  "and each staged K tile in shared memory before any product reads it, a "
-                 "barrier after",
+                 "barrier after; above D 256 the wide body (csrc/wide_tc.cuh fwd_wide_kernel, "
+                 "two launches: a row-max pass, then one block per 256-column slice of out, "
+                 "128 in fp32; S built up through 128-column depth chunks, 64 in fp32, in "
+                 "three cp.async buffers, the 64-row Q tile resident where it fits; P rounded "
+                 "against the final max; dense walk only)",
     "flash_bwd_dq": "tensor cores, the dQ body of quant_bwd_dq (csrc/bwd_tc.cuh dq_tc_kernel) "
                     "with a dense load stage (4 warps x 16 query rows, q·scale and dO staged "
                     "once, K/V key tiles copied by cp.async two steps ahead into three padded "
@@ -5598,7 +5872,9 @@ DESIGN = {
                     "of dQ, the halves' partials added in shared memory; 16-key tiles in two "
                     "staging buffers copied one step ahead); with a BlockMask the SPARSE "
                     "instantiation walks the compacted key row (fetch_kv) of its map query tile "
-                    "in order",
+                    "in order; above D 256 dq_wide_kernel (csrc/wide_tc.cuh: one block per "
+                    "256-column slice of dQ, 128 in fp32, S and dP built up through 64-column "
+                    "depth chunks, 32 in fp32, of Q, dO, K and V)",
     "flash_bwd_dkv": "tensor cores, the dK/dV body of quant_bwd_dkv (csrc/bwd_tc.cuh "
                      "dkv_tc_kernel) with a dense load stage (4 warps x 16 keys, 8 at D 256; K/V "
                      "staged once, Q and dO 32-row tiles copied by cp.async two steps ahead into "
@@ -5610,12 +5886,14 @@ DESIGN = {
                      "owning that quarter of dK and dV, the partials added in shared memory; "
                      "16-row query tiles); with a BlockMask the SPARSE instantiation walks, for "
                      "each query head of its GQA group, that head's compacted query row "
-                     "(fetch_q), the group summed in registers",
+                     "(fetch_q), the group summed in registers; above D 256 dkv_wide_kernel "
+                     "(csrc/wide_tc.cuh: one block per 128-column slice of dK and dV, Sᵀ and "
+                     "dPᵀ built up through depth chunks of K, V, Q and dO)",
     "flash_dbias": "tensor cores, one body with a product policy (dbias_tc_kernel: 8 warps on "
                    "a 64-query output tile, the dS sum over the bias's broadcast batch and "
                    "heads in registers, the bias tile in shared memory once, Q/dO/K/V in "
                    "32-column chunks double-buffered by cp.async, q·scale formed on the A "
-                   "fragments, D <= 256); bf16 inputs: mma.sync m16n8k16 bf16->fp32, 128-key "
+                   "fragments, any D); bf16 inputs: mma.sync m16n8k16 bf16->fp32, 128-key "
                    "tiles; fp32/fp16 inputs: 3xTF32 (three mma.sync m16n8k8 tf32->fp32 a "
                    "product on split operands, each 32-column chunk's three products into one "
                    "zeroed fragment added to S, then dP, by an fp32 add), 64-key tiles, 128 "
@@ -5807,6 +6085,11 @@ def main():
     path_counts += run(phase_sdpa_override)
     path_counts += run(phase_utilities)
     path_counts += run(phase_mesh)
+    w_timing, w_worst, w_counts = run(phase_wide_heads)
+    for name, t in w_timing.items():  # rows 1-4 above head_dim 256
+        timing[name]["wide_heads"] = t
+        worst[name] = max(worst[name], w_worst[name])
+    path_counts += w_counts
     emit({"phase": "seconds", "build": build["seconds"], **seconds})
     record["phase_seconds"] = seconds
     launches = collections.Counter()
@@ -5841,7 +6124,8 @@ def main():
          "library_ms": timing[name]["library_ms"],
          "design": DESIGN.get(name, "CUDA cores, FP32 FMAs"),
          **{key: timing[name][key] for key in ("variants", "block_sparse", "quant_block_sparse",
-                                               "rope", "mla_indexer", "mla_training")
+                                               "rope", "mla_indexer", "mla_training",
+                                               "wide_heads")
             if key in timing[name]}}
         for name in src
     ]

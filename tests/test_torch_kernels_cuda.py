@@ -185,17 +185,28 @@ def test_flash_fwd_kernel_bf16_in_fp32_out(dev, d):
 # another order: 5e-6 against the plain version at causal S 1024 with
 # q ~ N(0, 3), a quarter of the gate, as the fp32 backward is held
 # (test_flash_bwd_fp32_keeps_highest_accuracy).
-@pytest.mark.parametrize("d", [64, 128, 256])
+# At D 512 a few rows' fp32 LSE differ from the plain version's by more than
+# 1e-5 while the kernel's is within 1e-5 of the float64 LSE, so a row past
+# 1e-5 from the plain version is held to 1e-5 of the float64 LSE
+# (`lse_check`, as the bias and walk tests). On the card (utils/fwd_timing.py
+# --wide, seeds 0-3, seed 0 these inputs) 2-5 rows are past 1e-5; every
+# row of the kernel is within 5.0e-6 of the float64 LSE, the plain
+# version's up to 1.33e-5 from it.
+@pytest.mark.parametrize("d", [64, 128, 256, 512])
 def test_flash_fwd_fp32_keeps_highest_accuracy(dev, d):
     q, k, v = _qkv(2, 4, 4, 1024, 1024, d, torch.float32, dev)
     q = q * 3.0
     out, lse = flash_attention_forward(q, k, v, causal=True)
     want, want_lse = flash_attention_forward_plain(q, k, v, causal=True)
-    _check(out, lse, want, want_lse, 5e-6, 1e-5)
+    causal = torch.ones((1024, 1024), dtype=torch.bool, device=dev).tril()
+    _check(out, lse, want, want_lse, 5e-6, 1e-5,
+           arbiter=(q, k, None, causal) if d > 256 else None)
 
 
 @pytest.mark.parametrize("dtype,d", [(torch.float32, 64), (torch.float32, 128),
-                                     (torch.float32, 256), (torch.bfloat16, 64)])
+                                     (torch.float32, 256), (torch.bfloat16, 64),
+                                     (torch.float32, 512), (torch.bfloat16, 512),
+                                     (torch.bfloat16, 1024)])
 def test_flash_fwd_kernel_is_deterministic(dev, dtype, d):
     q, k, v = _qkv(2, 4, 2, 300, 300, d, dtype, dev)
     first = flash_attention_forward(q, k, v, causal=True)
@@ -210,10 +221,9 @@ def test_flash_fwd_kernel_refuses_what_it_does_not_take(dev):
         flash_attention_forward(q.transpose(2, 3), k, v)
     with pytest.raises(ValueError):
         flash_attention_forward(q, k.cpu(), v)
-    for dtype in (torch.float32, torch.bfloat16):
-        q2, k2, v2 = _qkv(1, 2, 2, 64, 64, 320, dtype, dev)
-        with pytest.raises(ValueError):
-            flash_attention_forward(q2, k2, v2)
+    q2, k2, v2 = _qkv(1, 2, 2, 64, 64, 320, torch.float32, dev)  # D > 256 too
+    with pytest.raises(ValueError):
+        flash_attention_forward(q2, k2.cpu(), v2)
 
 
 # The ROPE instantiation of the forward body (rotate-half RoPE inside the
@@ -609,7 +619,7 @@ def test_flash_bwd_fp32_tc_kernels_match_plain(dev, case, q_sd):
 # q ~ N(0, 3), a twentieth of the gate (chip_smoke.py reports both sides'
 # distance from a float64 evaluation at this shape). One TF32 pass sits
 # near 1e-3 there (the CPU model, tests/test_torch_flash_bwd_split.py).
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 128, 256, 512])
 def test_flash_bwd_fp32_keeps_highest_accuracy(dev, d):
     args, kw = _bwd_inputs((2, 4, 4, 1024, 1024, d, True, None, None, False), torch.float32, dev,
                            q_sd=3.0)
@@ -622,7 +632,7 @@ def test_flash_bwd_fp32_keeps_highest_accuracy(dev, d):
 # as flipped low bits over the whole row, where the summed bias adds 32 of
 # them up.
 @pytest.mark.parametrize("kind", ["11qk", "bhqk"])
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 128, 256, 512])
 def test_flash_dbias_fp32_keeps_highest_accuracy(dev, d, kind):
     (q, k, v, out, lse, do, bias, _), kw = _bwd_inputs(
         (2, 4, 4, 1024, 1024, d, True, None, kind, False), torch.float32, dev, q_sd=3.0)
@@ -661,26 +671,40 @@ def test_quant_attn_fwd_kernel_refuses_head_dim_over_256(dev, d):
 
 
 def test_flash_bwd_kernels_refuse_what_they_do_not_take(dev):
-    args, kw = _bwd_inputs((1, 2, 2, 64, 64, 264, False, None, None, False), torch.float32, dev)
-    n0 = _kernels.launches["flash_bwd_dq"]
-    with pytest.raises(ValueError, match="head_dim <= 256"):
-        flash_attention_backward(*args, **kw)
-    assert _kernels.launches["flash_bwd_dq"] == n0
-    args, kw = _bwd_inputs((1, 2, 2, 64, 64, 64, False, None, None, False), torch.float32, dev)
-    with pytest.raises(ValueError):
-        flash_attention_backward(args[0], args[1].cpu(), *args[2:], **kw)
+    for d in (64, 264):
+        args, kw = _bwd_inputs((1, 2, 2, 64, 64, d, False, None, None, False), torch.float32,
+                               dev)
+        n0 = _kernels.launches["flash_bwd_dq"]
+        with pytest.raises(ValueError):
+            flash_attention_backward(args[0], args[1].cpu(), *args[2:], **kw)
+        assert _kernels.launches["flash_bwd_dq"] == n0
 
 
 def test_flash_bwd_kernels_refuse_head_dims_over_their_limits(dev):
-    # head_dim <= 256 for dQ, dK/dV and dbias, in bf16 and fp32; under it
-    # (D 192, fp32) each kernel runs and meets its plain version.
+    # Every head dim runs on dQ, dK/dV and dbias, in bf16 and fp32 (D 320:
+    # the wide bodies; D 192: the 256 template) and meets its plain version;
+    # above 256 the block-sparse walk refuses (ROADMAP.md fault 2) before
+    # any launch.
+    from umfa_tpu_torch.ops import block_mask as bm
+
     for dtype in (torch.bfloat16, torch.float32):
-        (q, k, v, out, lse, do, bias, _), kw = _bwd_inputs(
-            (1, 2, 2, 64, 64, 320, False, None, "bhqk", False), dtype, dev)
-        with pytest.raises(ValueError, match="head_dim <= 256"):
-            flash_attention_backward(q, k, v, out, lse, do, bias, **kw)
-        with pytest.raises(ValueError, match="head_dim <= 256"):
-            flash_attention_bias_grad(q, k, v, out, lse, do, bias, **kw)
+        args, kw = _bwd_inputs((1, 2, 2, 64, 64, 320, False, None, "bhqk", False), dtype, dev)
+        gdt = torch.bfloat16 if dtype == torch.bfloat16 else None
+        _check_bwd(args, kw, gdt, BWD_TOLS[dtype])
+        q, k, v, out, lse, do, bias, _ = args
+        n0 = _kernels.launches["flash_dbias"]
+        got = flash_attention_bias_grad(q, k, v, out, lse, do, bias, **kw)
+        torch.cuda.synchronize()
+        assert _kernels.launches["flash_dbias"] == n0 + 1
+        want = flash_attention_bias_grad_plain(q, k, v, out, lse, do, bias, **kw)
+        assert rel_err(got, want) <= BWD_TOLS[dtype]
+        mask = bm.causal_block_mask(64, 64, device=dev)
+        n0 = _kernels.launches["flash_bwd_dq"]
+        with pytest.raises(ValueError, match="fault 2"):
+            flash_attention_backward(q, k, v, out, lse, do, block_map=mask.block_map,
+                                     fetch_kv=mask.fetch_kv, fetch_q=mask.fetch_q,
+                                     block_q=mask.block_q, block_k=mask.block_k)
+        assert _kernels.launches["flash_bwd_dq"] == n0
     (q, k, v, out, lse, do, bias, _), kw = _bwd_inputs(
         (1, 2, 2, 64, 64, 192, False, None, "bhqk", False), torch.float32, dev)
     n0 = _kernels.launches["flash_dbias"]
@@ -692,6 +716,190 @@ def test_flash_bwd_kernels_refuse_head_dims_over_their_limits(dev):
     flash_attention_backward(q, k, v, out, lse, do, bias, **kw)  # dQ, dK/dV take D 192
     torch.cuda.synchronize()
     assert _kernels.launches["flash_bwd_dkv"] == n0 + 1
+
+
+# ---- Head dims above 256 (rows 1-4: csrc/wide_tc.cuh, csrc/flash_dbias.cu) --
+#
+# The dense kernels take any head dim: above 256 the forward is two
+# launches (the row-max pass, then one block per column slice), dQ and dK/dV
+# one each, dbias its own body; each against its plain version at its row's
+# gates (the forward's TOLS, the backward's BWD_TOLS). D 264 and 1024 are
+# 16-byte rows; D 300 is not in bf16 (element copies); D 320 leaves a ragged
+# last slice. The block-sparse walk and in-kernel RoPE refuse them
+# (ROADMAP.md fault 2).
+WIDE_FWD_CASES = [
+    # (b, hq, hkv, sq, sk, d, causal, window, bias_shape)
+    (1, 2, 2, 200, 200, 264, True, None, None),         # causal
+    (1, 4, 2, 130, 257, 300, True, None, None),         # GQA 2, KV tail, unaligned bf16 rows
+    (2, 2, 1, 70, 300, 320, False, (40, 8), "hqk"),     # window, per-head bias, GQA 2
+    (1, 2, 2, 100, 60, 512, False, (0, -1), "bq"),      # rows >= 60 fully masked, a bias
+    (2, 2, 2, 96, 160, 512, False, (20, 10), "b1qk"),   # window, a (B, Sq, Sk)-shaped bias
+    (1, 4, 1, 150, 150, 1024, True, None, None),        # GQA 4
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", WIDE_FWD_CASES)
+def test_wide_d_flash_fwd_matches_plain(dev, dtype, case):
+    b, hq, hkv, sq, sk, d, causal, window, bias_shape = case
+    q, k, v = _qkv(b, hq, hkv, sq, sk, d, dtype, dev)
+    bias = None
+    if bias_shape is not None:
+        shape = {"bq": (b, 1, 1, sk), "b1qk": (b, sq, sk), "hqk": (1, hq, sq, sk)}[bias_shape]
+        bias = torch.randn(shape, generator=torch.Generator().manual_seed(1)).to(dev)
+        bias = torch.where(bias > 1.5, torch.full_like(bias, -1e30), bias)
+    n0 = _kernels.launches["flash_fwd"]
+    out, lse = flash_attention_forward(q, k, v, bias, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert _kernels.launches["flash_fwd"] == n0 + 2
+    want, want_lse = flash_attention_forward_plain(q, k, v, bias, causal=causal, window=window)
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    _check(out.float(), lse, want.float(), want_lse, *TOLS[dtype])
+
+
+WIDE_BWD_CASES = [
+    # (b, hq, hkv, sq, sk, d, causal, window, bias_shape, dlse)
+    (1, 2, 2, 130, 257, 264, True, None, None, True),       # Sq != Sk, KV tail, dlse
+    (1, 4, 2, 100, 100, 300, True, None, None, False),      # GQA 2, unaligned bf16 rows
+    (2, 2, 1, 96, 160, 320, False, (20, 10), "b11k", True),  # window, bias, GQA 2, dlse
+    (1, 2, 2, 100, 60, 512, False, (0, -1), None, False),    # rows >= 60 fully masked
+    (1, 4, 2, 128, 128, 1024, True, None, "bhqk", False),   # GQA 2, per-head bias
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", WIDE_BWD_CASES)
+def test_wide_d_flash_bwd_kernels_match_plain(dev, dtype, case):
+    args, kw = _bwd_inputs(case, dtype, dev)
+    _check_bwd(args, kw, torch.bfloat16 if dtype == torch.bfloat16 else None, BWD_TOLS[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [(1, 2, 2, 130, 257, 320, True, None, "11qk", False),
+                                  (2, 2, 1, 96, 160, 512, False, (20, 10), "bhqk", False),
+                                  (1, 2, 2, 64, 128, 1024, False, None, "11qk", False)])
+def test_wide_d_flash_dbias_matches_plain(dev, dtype, case):
+    (q, k, v, out, lse, do, bias, _), kw = _bwd_inputs(case, dtype, dev)
+    n0 = _kernels.launches["flash_dbias"]
+    got = flash_attention_bias_grad(q, k, v, out, lse, do, bias, **kw)
+    torch.cuda.synchronize()
+    assert _kernels.launches["flash_dbias"] == n0 + 1
+    want = flash_attention_bias_grad_plain(q, k, v, out, lse, do, bias, **kw)
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert rel_err(got, want) <= BWD_TOLS[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_d_flash_bwd_kernels_are_deterministic(dev, dtype):
+    args, kw = _bwd_inputs((1, 4, 2, 200, 200, 512, True, None, "11qk", False), dtype, dev)
+    first = flash_attention_backward(*args, **kw)
+    second = flash_attention_backward(*args, **kw)
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+    q, k, v, out, lse, do, bias, _ = args
+    assert torch.equal(flash_attention_bias_grad(q, k, v, out, lse, do, bias, **kw),
+                       flash_attention_bias_grad(q, k, v, out, lse, do, bias, **kw))
+
+
+# The plan each wide body reports (`umfa_flash_wide_plan`: depth chunk,
+# chunks, slice width, slices, dynamic shared memory) covers the head dim.
+@pytest.mark.parametrize("d", [257, 264, 300, 320, 512, 1000, 1024, 4096])
+def test_wide_d_plan_covers_the_head_dim(dev, d):
+    import ctypes
+
+    fn = _kernels.function("flash_fwd", "umfa_flash_wide_plan",
+                           (ctypes.c_int,) * 3 + (ctypes.c_void_p,))
+    for kind in range(3):  # the forward, dQ, dK/dV
+        for bf16, elem in ((1, 2), (0, 4)):
+            out = (ctypes.c_int * 5)()
+            fn(d, kind, bf16, ctypes.addressof(out))
+            chunk, chunks, width, slices, smem = out
+            # Depth chunks: whole 16-byte pieces a row (cp.async) and whole
+            # 3xTF32 chains (32 columns), the last one ragged and
+            # zero-padded, none empty, at least two a tile (the forward
+            # reuses a V slice buffer two steps on).
+            assert (chunk * elem) % 16 == 0 and chunk % 32 == 0, (kind, bf16)
+            assert (chunks - 1) * chunk < d <= chunks * chunk and chunks >= 2, (kind, bf16)
+            # Column slices: at most the 256 columns one warp's rows hold,
+            # whole 16-column mma tiles, the last one ragged, none empty,
+            # and above 256 never the whole row.
+            assert width <= 256 and width % 16 == 0, (kind, bf16)
+            assert (slices - 1) * width < d <= slices * width and slices >= 2, (kind, bf16)
+            assert 0 < smem <= 232448, (kind, bf16)
+
+
+# The SDPA override and attention() with gradients at the FLUX VAE mid-block's
+# width (one head of 512), cut to S 512: exact launches, the plain versions'
+# gates.
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_wide_d_attention_and_sdpa_override(dev, dtype):
+    import torch.nn.functional as F
+
+    import umfa_tpu_torch
+    from umfa_tpu_torch.utils.interop import use_torch_sdpa
+
+    q, k, v = _qkv(1, 1, 1, 512, 512, 512, dtype, dev, seed=4)
+    _kernels.reset_launch_counts()
+    with use_torch_sdpa(), torch.no_grad():
+        got = F.scaled_dot_product_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert dict(_kernels.launches) == {"flash_fwd": 2}
+    want, _ = flash_attention_forward_plain(q, k, v)
+    assert rel_err(got.float(), want.float()) <= TOLS[dtype][0]
+    qg, kg, vg = (x.clone().requires_grad_(True) for x in (q, k, v))
+    _kernels.reset_launch_counts()
+    out = umfa_tpu_torch.attention(qg, kg, vg, is_causal=True)
+    do = torch.randn(out.shape, generator=torch.Generator().manual_seed(5)).to(dev, dtype)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert dict(_kernels.launches) == {"flash_fwd": 2, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    o, lse = flash_attention_forward_plain(q, k, v, causal=True)
+    want = flash_attention_backward_plain(q, k, v, o, lse, do, causal=True)
+    for g, w in zip((qg.grad, kg.grad, vg.grad), want):
+        assert g.dtype == dtype and rel_err(g.float(), w) <= BWD_TOLS[dtype]
+
+
+def test_wide_heads_keep_the_other_instantiations():
+    """The wide bodies are instantiations of their own: against a parent
+    tree without them (`utils/sass_compare.py`; needs nvcc, not a card; set
+    UMFA_SASS_PARENT as above) no kernel of rows 1-4's libraries differs or
+    goes, and the new ones are the wide bodies."""
+    import os
+    import subprocess
+    import sys
+
+    parent = os.environ.get("UMFA_SASS_PARENT")
+    if not parent:
+        pytest.skip("set UMFA_SASS_PARENT to a parent tree to compare with")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    run = subprocess.run(
+        [sys.executable, os.path.join(repo, "umfa_tpu_torch", "utils", "sass_compare.py"),
+         "--tree", parent, "--libs", "flash_fwd,flash_bwd,flash_dbias"],
+        capture_output=True, text=True, timeout=1200)
+    assert run.returncode == 0, run.stdout[-4000:] + run.stderr[-4000:]
+    lines = run.stdout.splitlines()
+    assert not [ln for ln in lines if ln.startswith(("DIFF", "GONE"))], run.stdout[-4000:]
+    new = [ln for ln in lines if ln.startswith("NEW")]
+    assert new and all("_wide_kernel" in ln for ln in new), new
+
+
+def test_wide_d_rope_and_block_sparse_refuse(dev):
+    from umfa_tpu_torch.ops import block_mask as bm
+
+    q, k, v = _qkv(1, 2, 2, 64, 64, 320, torch.bfloat16, dev)
+    cos, sin = rope_angles(64, 320, device=dev)
+    mask = bm.causal_block_mask(64, 64, device=dev)
+    n0 = sum(_kernels.launches.values())
+    with pytest.raises(ValueError, match="fault 2"):
+        flash_attention_forward(q, k, v, rope_cos=cos, rope_sin=sin)
+    with pytest.raises(ValueError, match="fault 2"):
+        rope_attention(q, k, v, cos, sin, interleaved=False)
+    with pytest.raises(ValueError, match="fault 2"):
+        flash_attention_forward(q, k, v, block_map=mask.block_map, fetch_ids=mask.fetch_kv,
+                                block_q=mask.block_q, block_k=mask.block_k)
+    with pytest.raises(ValueError, match="fault 2"):
+        flash_attention(q, k, v, block_mask=mask)
+    assert sum(_kernels.launches.values()) == n0
 
 
 # ---- Quantized training kernels (quant_rows, fused_qattn, quant_bwd) ----

@@ -137,10 +137,10 @@ def function(name: str, symbol: str, argtypes):
     return _fns[key]
 
 
-def check(name: str, err: int, kernel: str | None = None) -> None:
-    """Raise if a launch from library `name` returned a CUDA error; else
-    count one launch of `kernel` (default: the library's own name)."""
+def check(name: str, err: int, kernel: str | None = None, n: int = 1) -> None:
+    """Raise if a call into library `name` returned a CUDA error; else count
+    its n launches of `kernel` (default: the library's own name)."""
     if err != 0:
         msg = _lib(name).umfa_cuda_error_string(err).decode()
         raise RuntimeError(f"{kernel or name} kernel launch failed: CUDA error {err} ({msg})")
-    launches[kernel or name] += 1
+    launches[kernel or name] += n

@@ -59,6 +59,11 @@
 //     of the gradients, the slices' partials added in shared memory; dK/dV
 //     32-key blocks and 16-row query tiles (217,600 bytes), dQ 16-key tiles
 //     in two staging buffers copied one step ahead (216,832 bytes).
+// Head dims above 256 (both input types) run the wide bodies of
+// wide_tc.cuh (`dq_wide_kernel`, `dkv_wide_kernel`; no map): the scores
+// built up through the depth in chunks, each block one column slice of dQ
+// (256 bf16, 128 fp32) or of dK and dV (128), the scores recomputed for
+// each slice; same rounding points as below.
 // wgmma, TMA and warp specialisation are later work.
 //
 // Rounding points held to the reference (bf16 inputs; fp32 rounds nowhere):
@@ -74,6 +79,7 @@
 // P = 0; a -1e30 bias is not an index mask. Bias: fp32, any broadcast
 // shape, four element strides (0 = broadcast dimension, q-broadcast too).
 #include "bwd_dense.cuh"
+#include "wide_tc.cuh"
 
 using namespace umfa;
 
@@ -97,14 +103,47 @@ cudaError_t launch_walk(const BwdParams& p, bool dkv, bool bf16, cudaStream_t st
                   : launch_d<Tout, false>(p, dkv, bf16, stream);
 }
 
+// The wide bodies (wide_tc.cuh) at D > 256: dense walk only.
+cudaError_t launch_wide(const BwdParams& p, bool dkv, bool bf16, bool out_bf16,
+                        cudaStream_t stream) {
+  WideParams w{};
+  w.q = p.q;
+  w.k = p.k;
+  w.v = p.v;
+  w.dout = p.dout;
+  w.lse = const_cast<float*>(p.lse);
+  w.delta = p.delta;
+  w.bias = p.bias;
+  w.out0 = p.out0;
+  w.out1 = p.out1;
+  w.B = p.B;
+  w.Hq = p.Hq;
+  w.Hkv = p.Hkv;
+  w.Sq = p.Sq;
+  w.Sk = p.Sk;
+  w.D = p.D;
+  w.bsb = p.bsb;
+  w.bsh = p.bsh;
+  w.bsq = p.bsq;
+  w.bsk = p.bsk;
+  w.scale = p.scale;
+  w.left = p.left;
+  w.right = p.right;
+  w.vec = wide_vec(p.D, bf16 ? 2 : 4, {p.q, p.k, p.v, p.dout});
+  w.out_bf16 = out_bf16;
+  if (dkv) return bf16 ? launch_dkv_wide<Bf16Mma>(w, stream) : launch_dkv_wide<Tf32x3Mma>(w, stream);
+  return bf16 ? launch_dq_wide<Bf16Mma>(w, stream) : launch_dq_wide<Tf32x3Mma>(w, stream);
+}
+
 int dispatch(BwdParams p, bool dkv, int in_dtype, int out_dtype, const void* map,
              const void* fetch, int bq, int bk, int nq, int nk, int width, long long msb,
              long long msh, long long fsb, long long fsh, void* stream) {
   if (in_dtype < 0 || in_dtype > 1 || out_dtype < 0 || out_dtype > 1 || p.D < 1 ||
-      p.D > 256 || p.Hkv < 1 || p.Hq % p.Hkv != 0 ||
+      p.Hkv < 1 || p.Hq % p.Hkv != 0 || (p.D > 256 && map != nullptr) ||
       !sparse_map(&p.sm, map, fetch, bq, bk, nq, nk, width, msb, msh, fsb, fsh))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (p.D > 256) return launch_wide(p, dkv, in_dtype == 1, out_dtype == 1, st);
   return out_dtype == 0 ? launch_walk<float>(p, dkv, in_dtype == 1, st)
                         : launch_walk<__nv_bfloat16>(p, dkv, in_dtype == 1, st);
 }
@@ -112,7 +151,8 @@ int dispatch(BwdParams p, bool dkv, int in_dtype, int out_dtype, const void* map
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16. q/dout (B, Hq, Sq, D) and k/v
-// (B, Hkv, Sk, D) contiguous in in_dtype, D <= 256; lse, delta (B, Hq, Sq)
+// (B, Hkv, Sk, D) contiguous in in_dtype (D > 256: the wide bodies of
+// wide_tc.cuh, no map); lse, delta (B, Hq, Sq)
 // float32; bias float32 with element strides (or null). umfa_flash_bwd_dq
 // writes out0 = dQ (B, Hq, Sq, D); umfa_flash_bwd_dkv writes out0 = dK and
 // out1 = dV (B, Hkv, Sk, D); both in out_dtype. map (null: no walk): the
@@ -150,5 +190,10 @@ extern "C" int umfa_flash_bwd_dkv(UMFA_BWD_ARGS) {
 // them).
 extern "C" int umfa_flash_bwd_smem_bytes(int D, int dkv, int in_dtype) {
   if (in_dtype < 0 || in_dtype > 1) return 0;
+  if (D > 256) {
+    int plan[5];
+    wide_plan(D, dkv ? 2 : 1, in_dtype, plan);
+    return plan[4];
+  }
   return dense_smem_bytes(D, dkv, in_dtype);
 }

@@ -22,7 +22,7 @@
 //
 // What this design does about it: one body, `dbias_tc_kernel`, with the
 // product policy a template parameter (mma_policy.cuh), so both input types
-// run on the tensor cores at every head dim up to 256.
+// run on the tensor cores at every head dim.
 //   * One block of 8 warps owns a 64-query output tile of one (bias batch,
 //     bias head), 128 keys wide for bf16 and 64 for fp32, each warp 16
 //     queries x 64 keys (bf16) or 32 keys (fp32: the split operands and a
@@ -34,8 +34,9 @@
 //     32-column chunks of Q, dO, K and V copied by cp.async straight into
 //     padded tiles (LSE and δ with the last chunk), one chunk ahead into
 //     the other of two buffers, one barrier a chunk: a chunk's width bounds
-//     shared memory, so D 256 needs no wider tile (97,280 bytes for bf16,
-//     93,184 for fp32, at every head dim).
+//     shared memory, so no head dim needs a wider tile (97,280 bytes for
+//     bf16, 93,184 for fp32, at every head dim; above 256 the depth loop
+//     only grows, and the fp32 chunks keep their 4-step chains).
 //   * bf16 (`Bf16Mma`: mma.sync m16n8k16 bf16 -> fp32 with the fragment
 //     code of bwd_tc.cuh): bf16(q·scale) (flash_bwd.py:52) is formed on the
 //     A fragments in registers, so nothing is converted in shared memory;
@@ -364,7 +365,7 @@ cudaError_t launch_tc(const DbiasParams& p, cudaStream_t stream) {
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16. q/dout (B, Hq, Sq, D) and k/v
-// (B, Hkv, Sk, D) contiguous in in_dtype, D <= 256; lse, delta (B, Hq, Sq)
+// (B, Hkv, Sk, D) contiguous in in_dtype, any D >= 1; lse, delta (B, Hq, Sq)
 // float32; bias float32 with element strides, 0 along the dimensions
 // dbias sums over; dbias float32 (Bb, Hb, Sq, Sk) contiguous, Bb in {1, B},
 // Hb in {1, Hq}. Returns the cudaError_t of the launch.
@@ -374,7 +375,7 @@ extern "C" int umfa_flash_dbias(const void* q, const void* k, const void* v, con
                                 int Bb, int Hb, long long bsb, long long bsh, long long bsq,
                                 long long bsk, float scale, int left, int right, int in_dtype,
                                 void* stream) {
-  if (in_dtype < 0 || in_dtype > 1 || D < 1 || D > 256 || Hkv < 1 || Hq % Hkv != 0 ||
+  if (in_dtype < 0 || in_dtype > 1 || D < 1 || Hkv < 1 || Hq % Hkv != 0 ||
       !(Bb == 1 || Bb == B) || !(Hb == 1 || Hb == Hq) || bias == nullptr ||
       (Bb < B && bsb != 0) || (Hb < Hq && bsh != 0))
     return cudaErrorInvalidValue;
@@ -389,6 +390,6 @@ extern "C" int umfa_flash_dbias(const void* q, const void* k, const void* v, con
 // Dynamic shared memory of the kernel for head dim D on bf16 (bf16 = 1) or
 // fp32 inputs, in bytes (0 if it does not take D).
 extern "C" int umfa_flash_dbias_smem_bytes(int D, int bf16) {
-  if (D < 1 || D > 256) return 0;
+  if (D < 1) return 0;
   return bf16 ? DbiasTile<Bf16Mma>::SMEM : DbiasTile<Tf32x3Mma>::SMEM;
 }

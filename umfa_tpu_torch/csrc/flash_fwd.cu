@@ -12,7 +12,9 @@
 //     the fp32 gate of 2e-5), D <= 256 (at 256, 8 warps on 128 query rows
 //     and 16-key tiles: fwd_tc.cuh `FwdTile`).
 // Head dims are zero-padded in shared memory to the template width (64,
-// 128, 256).
+// 128, 256). Above 256 the wide bodies of wide_tc.cuh run instead (two
+// launches: the row-max pass, then the column slices; dense walk only: a
+// map or RoPE tables are refused there).
 //
 // What bounds it on this card: at the serving prefill (B8 Hq16 Hkv8, 4032
 // causal queries against 4096 keys, D 64) the work is 4·D flops per visible
@@ -77,6 +79,7 @@
 //     with one more barrier a step. In bf16 the tables are as many bytes
 //     as the K and V tiles they rotate; the pass sits between two barriers.
 #include "fwd_tc.cuh"
+#include "wide_tc.cuh"
 
 using namespace umfa;
 
@@ -103,10 +106,11 @@ cudaError_t launch_walk(const FwdParams& p, bool bf16, cudaStream_t stream) {
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16. q/k/v contiguous (B, H, S, D),
-// D <= 256; bfloat16 inputs run the tensor-core body in bf16, float32
-// inputs in 3xTF32. out (B, Hq, Sq, D) in out_dtype; lse (B, Hq, Sq)
-// float32. map (null: no walk): the block-sparse map (Bm, Hm, nq, nk) int32
+// dtype codes: 0 = float32, 1 = bfloat16. q/k/v contiguous (B, H, S, D);
+// bfloat16 inputs run the tensor-core body in bf16, float32 inputs in
+// 3xTF32. At D > 256 the wide forward runs (two launches) and needs
+// `scratch`, (B, Hq, Sq) float32 for the row max; no map, no RoPE there.
+// out (B, Hq, Sq, D) in out_dtype; lse (B, Hq, Sq) float32. map (null: no walk): the block-sparse map (Bm, Hm, nq, nk) int32
 // of block_q x block_k tiles and fetch, its compacted key-tile table
 // fetch_kv (Bm, Hm, nq, width), with the element strides of their batch
 // and head (0 = broadcast). rope_cos/rope_sin (null: no RoPE): the
@@ -119,9 +123,41 @@ extern "C" int umfa_flash_fwd(const void* q, const void* k, const void* v, const
                               int out_dtype, const void* map, const void* fetch, int block_q,
                               int block_k, int nq, int nk, int width, long long msb,
                               long long msh, long long fsb, long long fsh,
-                              const void* rope_cos, const void* rope_sin, void* stream) {
+                              const void* rope_cos, const void* rope_sin, void* scratch,
+                              void* stream) {
   SparseMap sm;
-  if (D < 1 || D > 256 || Hkv < 1 || Hq % Hkv != 0 || in_dtype < 0 || in_dtype > 1 ||
+  if (D > 256) {  // the wide forward: dense walk only
+    if (Hkv < 1 || Hq % Hkv != 0 || in_dtype < 0 || in_dtype > 1 || out_dtype < 0 ||
+        out_dtype > 1 || map != nullptr || rope_cos != nullptr || rope_sin != nullptr ||
+        scratch == nullptr)
+      return cudaErrorInvalidValue;
+    WideParams w{};
+    w.q = q;
+    w.k = k;
+    w.v = v;
+    w.lse = static_cast<float*>(lse);
+    w.bias = static_cast<const float*>(bias);
+    w.mrow = static_cast<float*>(scratch);
+    w.out0 = out;
+    w.B = B;
+    w.Hq = Hq;
+    w.Hkv = Hkv;
+    w.Sq = Sq;
+    w.Sk = Sk;
+    w.D = D;
+    w.bsb = bsb;
+    w.bsh = bsh;
+    w.bsq = bsq;
+    w.bsk = bsk;
+    w.scale = scale;
+    w.left = left;
+    w.right = right;
+    w.vec = wide_vec(D, in_dtype == 1 ? 2 : 4, {q, k, v});
+    w.out_bf16 = out_dtype == 1;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    return in_dtype == 1 ? launch_fwd_wide<Bf16Mma>(w, st) : launch_fwd_wide<Tf32x3Mma>(w, st);
+  }
+  if (D < 1 || Hkv < 1 || Hq % Hkv != 0 || in_dtype < 0 || in_dtype > 1 ||
       out_dtype < 0 || out_dtype > 1 ||
       !sparse_map(&sm, map, fetch, block_q, block_k, nq, nk, width, msb, msh, fsb, fsh))
     return cudaErrorInvalidValue;
@@ -165,7 +201,12 @@ extern "C" int umfa_flash_fwd(const void* q, const void* k, const void* v, const
 // Dynamic shared memory of the kernel that umfa_flash_fwd launches for
 // head dim D and input dtype `in_dtype`, in bytes (0 if none takes D).
 extern "C" int umfa_flash_fwd_smem_bytes(int D, int in_dtype) {
-  if (D < 1 || D > 256) return 0;
+  if (D < 1) return 0;
+  if (D > 256) {  // the column-slice pass (the row-max pass takes less)
+    int plan[5];
+    wide_plan(D, 0, in_dtype == 1, plan);
+    return plan[4];
+  }
   if (in_dtype == 1)
     return D <= 64    ? FwdTile<64, Bf16Mma, false>::SMEM
            : D <= 128 ? FwdTile<128, Bf16Mma, false>::SMEM
@@ -173,4 +214,11 @@ extern "C" int umfa_flash_fwd_smem_bytes(int D, int in_dtype) {
   return D <= 64    ? FwdTile<64, Tf32x3Mma, false>::SMEM
          : D <= 128 ? FwdTile<128, Tf32x3Mma, false>::SMEM
                     : FwdTile<256, Tf32x3Mma, false>::SMEM;
+}
+
+// The plan of the wide body `kind` (0: forward, 1: dQ, 2: dK/dV) at head
+// dim D on bf16 (bf16 = 1) or fp32 inputs: out[0..4] = depth chunk,
+// chunks, slice width, slices, dynamic shared memory in bytes.
+extern "C" void umfa_flash_wide_plan(int D, int kind, int bf16, int* out) {
+  wide_plan(D, kind, bf16, out);
 }

@@ -1,14 +1,17 @@
 """Dense flash-attention backward (port of umfa_tpu/ops/flash_bwd.py).
 
 `flash_attention_backward` launches the CUDA kernels `csrc/flash_bwd.cu`
-(dQ, then dK/dV) on CUDA tensors, all on the tensor cores, head_dim <= 256:
-bf16 inputs as bf16 products; fp32 inputs (and fp16, computed as fp32) as
-3xTF32 products (each fp32 operand split into two TF32 parts, three
-products each, as accurate as fp32 FMAs in another order: relerr ~1e-7 to
-1e-6 against the plain version, not bit-equal).
-`flash_attention_bias_grad` launches `csrc/flash_dbias.cu`, on the tensor
-cores for every input type, head_dim <= 256: bf16 products for bf16
-inputs, 3xTF32 for fp32 (and fp16, computed as fp32).
+(dQ, then dK/dV: one launch each) on CUDA tensors, all on the tensor cores,
+at any head_dim (above 256 the wide bodies of `csrc/wide_tc.cuh`, the
+scores built up through the depth in chunks, one block per column slice,
+as `umfa_flash_wide_plan` reports): bf16 inputs as bf16 products; fp32
+inputs (and fp16, computed as fp32) as 3xTF32 products (each fp32 operand split
+into two TF32 parts, three products each, as accurate as fp32 FMAs in
+another order: relerr ~1e-7 to 1e-6 against the plain version, not
+bit-equal).
+`flash_attention_bias_grad` launches `csrc/flash_dbias.cu` (one launch),
+on the tensor cores for every input type and head_dim: bf16 products for
+bf16 inputs, 3xTF32 for fp32 (and fp16, computed as fp32).
 On CPU tensors each runs its `*_plain` twin, the same arithmetic in plain
 PyTorch. There is no fallback between the two: a CUDA tensor the kernels
 do not take raises.
@@ -52,6 +55,7 @@ from umfa_tpu_torch.ops.flash_fwd import (
     _prepare as _prepare_operands,
     bias_strides,
     make_walk,
+    refuse_wide,
     visible_mask,
     walk_args,
     walked_keys,
@@ -255,9 +259,8 @@ def _check_device(p: _Prepared, name: str) -> None:
     if p.q.device.type != "cuda" or any(t.device != p.q.device for t in tensors):
         raise ValueError(f"{name} kernel needs every operand on one CUDA device, "
                          f"got {sorted({str(t.device) for t in tensors})}")
-    d = p.q.shape[3]
-    if d > 256:
-        raise ValueError(f"{name} kernel takes head_dim <= 256, got {d}")
+    if p.walk is not None:
+        refuse_wide(f"the block-sparse walk of {name}", p.q.shape[3])
 
 
 def _launch(p: _Prepared, store_dtype: torch.dtype):

@@ -1,11 +1,14 @@
 """Dense flash-attention forward with LSE (port of umfa_tpu/ops/flash_fwd.py).
 
 `flash_attention_forward` launches a CUDA kernel of `csrc/flash_fwd.cu` on
-CUDA tensors (the tensor-core body of `csrc/fwd_tc.cuh`, head_dim <= 256:
-bf16 inputs in bf16, fp32 and fp16 inputs in 3xTF32) and runs
+CUDA tensors (bf16 inputs in bf16, fp32 and fp16 inputs in 3xTF32): the
+tensor-core body of `csrc/fwd_tc.cuh` at head_dim <= 256 (one launch), the
+wide bodies of `csrc/wide_tc.cuh` above it (two launches: a row-max pass,
+then one block per column slice). It runs
 `flash_attention_forward_plain`, the same arithmetic in plain PyTorch, on
 CPU tensors. There is no fallback between them: a CUDA tensor the kernel
-does not take raises.
+does not take raises (at head_dim > 256: a block-sparse map or RoPE
+tables, ROADMAP.md fault 2).
 
 Semantics (the reference's, flash_fwd.py:41-175 and :469-737):
   * causal and window are top-left aligned when Sq != Sk: key j is visible
@@ -28,7 +31,6 @@ Semantics (the reference's, flash_fwd.py:41-175 and :469-737):
     those keys. On the card the kernel walks the compacted table
     `fetch_ids` and reads the bias only where a tile is not FULL, so a
     bias given with a map must be 0 on its FULL tiles (a BlockMask's is).
-Not ported yet: in-kernel RoPE.
 """
 
 from __future__ import annotations
@@ -52,7 +54,21 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # and the table's batch and head (0 = broadcast).
 WALK_ARGTYPES = (_P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L)
 _ARGTYPES = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _L, _L,
-             ctypes.c_float, _I, _I, _I, _I, *WALK_ARGTYPES, _P, _P, _P)
+             ctypes.c_float, _I, _I, _I, _I, *WALK_ARGTYPES, _P, _P, _P, _P)
+
+# The widest head_dim of the D <= 256 instantiations. Above it rows 1-4
+# (flash_fwd, flash_bwd_dq, flash_bwd_dkv, flash_dbias) run the wide bodies
+# (csrc/wide_tc.cuh; dbias's own body walks any depth); every other kernel,
+# and the walked and RoPE instantiations, refuse (`refuse_wide`).
+WIDE_D = 256
+
+
+def refuse_wide(kernel: str, d: int) -> None:
+    """Raise, before any launch, for a head_dim above WIDE_D in a kernel
+    that takes no wider one yet."""
+    if d > WIDE_D:
+        raise ValueError(f"{kernel} takes head_dim <= {WIDE_D}, got {d} (ROADMAP.md fault 2: "
+                         "only the dense flash_fwd, flash_bwd and flash_dbias take wider heads)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -327,7 +343,8 @@ def flash_attention_forward(
     rotated (rotate-half) inside the kernel (the module docstring).
 
     Returns (out (B, Hq, Sq, D) in out_dtype (default q.dtype),
-    lse (B, Hq, Sq) float32)."""
+    lse (B, Hq, Sq) float32). On CUDA tensors one `flash_fwd` launch, two
+    at head_dim > 256 (the row-max pass, then the column slices)."""
     return _forward(q, k, v, bias, causal, window, scale, out_dtype,
                     make_walk(block_map, fetch_ids, None, block_q, block_k),
                     make_rope(rope_cos, rope_sin))
@@ -406,8 +423,10 @@ def _launch(p: _Prepared):
             raise ValueError(f"flash_fwd kernel needs a contiguous {name}")
     b, hq, sq, d = q.shape
     _, hkv, sk, _ = k.shape
-    if d > 256:
-        raise ValueError(f"flash_fwd kernels take head_dim <= 256, got {d}")
+    if p.rope is not None:
+        refuse_wide("the ROPE instantiation of flash_fwd", d)
+    if p.walk is not None:
+        refuse_wide("the block-sparse walk of flash_fwd", d)
     if p.rope is not None and any(t.device != q.device for t in p.rope):
         raise ValueError(f"the RoPE tables lie on {p.rope[0].device}, q on {q.device}")
     walk = walk_args(p.walk, "fetch_kv", q.device)
@@ -415,6 +434,8 @@ def _launch(p: _Prepared):
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
+    # The wide forward's row max, between its two launches.
+    scratch = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) if d > WIDE_D else None
     fn = _kernels.function("flash_fwd", "umfa_flash_fwd", _ARGTYPES)
     bsb, bsh, bsq, bsk = bias_strides(p.bias)
     with torch.cuda.device(q.device):
@@ -426,9 +447,10 @@ def _launch(p: _Prepared):
             p.scale, p.left, p.right,
             _DTYPE_CODE[q.dtype], _DTYPE_CODE[p.out_dtype], *walk,
             *((None, None) if p.rope is None else (p.rope[0].data_ptr(), p.rope[1].data_ptr())),
+            None if scratch is None else scratch.data_ptr(),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
-    _kernels.check("flash_fwd", err)
+    _kernels.check("flash_fwd", err, n=2 if d > WIDE_D else 1)
     if p.rope is not None:  # the ROPE instantiation: also counted on its own
         _kernels.launches["flash_fwd/rope"] += 1
     return out, lse

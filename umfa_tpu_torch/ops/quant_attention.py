@@ -74,6 +74,7 @@ from umfa_tpu_torch.ops.flash_fwd import (
     BlockSizes,
     _choose_block,
     make_walk,
+    refuse_wide,
     visible_mask,
     walk_args,
     walked_keys,
@@ -369,8 +370,7 @@ def _launch(p: _Prepared):
     b, hq, sq, _ = p.q.shape
     _, hkv, sk, _ = p.k.shape
     d = p.d
-    if d > 256:
-        raise ValueError(f"quant_attn_fwd kernel takes head_dim <= 256, got {d}")
+    refuse_wide("the quant_attn_fwd kernel", d)
     walk = walk_args(p.walk, "fetch_kv", dev)
     if p.pv_group and p.walk is not None and p.pv_group < sk and p.walk.block_k % 32:
         # The walk's tiles start at each map tile's first key; a 32-key step

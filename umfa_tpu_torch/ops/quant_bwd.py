@@ -52,6 +52,7 @@ from umfa_tpu_torch.ops.flash_fwd import (
     broadcast_bias,
     fold_mask,
     make_walk,
+    refuse_wide,
     visible_mask,
     walk_args,
     walked_keys,
@@ -283,8 +284,7 @@ def _launch(p: _Prepared, store_dtype: torch.dtype):
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError(f"quant_bwd kernels need every operand on one CUDA device, "
                          f"got {sorted({str(t.device) for t in tensors})}")
-    if d > 256:
-        raise ValueError(f"quant_bwd kernels take head_dim <= 256, got {d}")
+    refuse_wide("the quant_bwd kernels", d)
     return (_launch_dq(p, store_dtype), *_launch_dkv(p, store_dtype))
 
 

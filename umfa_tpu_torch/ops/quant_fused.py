@@ -24,6 +24,7 @@ import torch
 
 from umfa_tpu_torch import _kernels
 from umfa_tpu_torch.engine.config import Precision, QuantMode, QuantStrategy
+from umfa_tpu_torch.ops.flash_fwd import refuse_wide
 from umfa_tpu_torch.ops.hadamard import hadamard_matrix
 from umfa_tpu_torch.ops.quant import QuantizedTensor, _qmax, pack_int4
 
@@ -115,8 +116,7 @@ def _launch(x, mean, precision, hadamard) -> QuantizedTensor:
     if dev.type != "cuda" or (mean is not None and mean.device != dev):
         raise ValueError(f"quant_rows kernel needs x and mean on one CUDA device, got {dev}")
     b, h, s, d = x.shape
-    if d > 256:
-        raise ValueError(f"quant_rows kernel takes head_dim <= 256, got {d}")
+    refuse_wide("the quant_rows kernel", d)
     if x.dtype == torch.float16:
         x32 = x.float()  # fp16 is storage-only: read as fp32
     else:

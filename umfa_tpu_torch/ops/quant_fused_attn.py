@@ -91,6 +91,7 @@ from umfa_tpu_torch.ops.flash_fwd import (
     broadcast_bias,
     fold_mask,
     make_walk,
+    refuse_wide,
     visible_mask,
     walk_args,
     walked_keys,
@@ -701,8 +702,7 @@ def _launch(p: _Prepared, p_codes: Optional[torch.Tensor] = None):
         raise ValueError(f"bias on {p.bias.device}, q on {dev}")
     b, hq, sq, d = p.q.shape
     _, hkv, sk, _ = p.k.shape
-    if d > 256:
-        raise ValueError(f"fused_qattn kernel takes head_dim <= 256, got {d}")
+    refuse_wide("the fused_qattn kernel", d)
     walk = walk_args(p.walk, "fetch_kv", dev)
     if (p.pv_chunk and p.pv_chunk % (32 if d > 128 else 64)
             and not (p.walk is not None and p.pv_chunk == p.walk.block_k)):

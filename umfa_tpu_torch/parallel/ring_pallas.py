@@ -61,7 +61,7 @@ from umfa_tpu_torch import _kernels
 from umfa_tpu_torch.engine.config import ring_bwd_route
 from umfa_tpu_torch.ops.attention import flash_attention
 from umfa_tpu_torch.ops.flash_bwd import flash_attention_backward
-from umfa_tpu_torch.ops.flash_fwd import DEFAULT_MASK_VALUE, _DTYPE_CODE
+from umfa_tpu_torch.ops.flash_fwd import DEFAULT_MASK_VALUE, _DTYPE_CODE, refuse_wide
 from umfa_tpu_torch.parallel.ring import _global_positions
 from umfa_tpu_torch.parallel.transport import SelfLoop
 from umfa_tpu_torch.utils.device import default_device
@@ -74,8 +74,6 @@ _FWD_ARGTYPES = (_P,) * 5 + (_I,) * 6 + (ctypes.c_float,) + (_I,) * 6 + (_P,)
 # q, k, v, dout, lse, delta, out0, out1; B, Hq, Hkv, S, D; scale; left,
 # right, q_lo, k_hi, first, dtype; stream.
 _BWD_ARGTYPES = (_P,) * 8 + (_I,) * 5 + (ctypes.c_float,) + (_I,) * 6 + (_P,)
-# The largest head_dim the kernels take, fp32 and bf16.
-_MAX_D = 256
 
 
 @dataclasses.dataclass(frozen=True)
@@ -293,8 +291,9 @@ def _check_launch(kernel: str, tensors, q: torch.Tensor, k: torch.Tensor, c: _St
         raise ValueError(f"{kernel} kernel takes float32 or bfloat16 q/k/v, got {q.dtype}/{k.dtype}")
     b, hq, s_loc, d = q.shape
     hkv = k.shape[1]
-    if not 1 <= d <= _MAX_D:
-        raise ValueError(f"{kernel} kernel takes head_dim <= {_MAX_D}, got {d}")
+    if d < 1:
+        raise ValueError(f"{kernel} kernel takes head_dim >= 1, got {d}")
+    refuse_wide(f"the {kernel} kernel", d)
     if hkv < 1 or hq % hkv:
         raise ValueError(f"q heads {hq} must be a multiple of kv heads {hkv}")
     if s_loc < 1 or (c.zigzag and s_loc % 2):

@@ -42,6 +42,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from umfa_tpu_torch import _kernels
+from umfa_tpu_torch.ops.flash_fwd import refuse_wide
 
 DEFAULT_MASK_VALUE = -1e30
 
@@ -167,8 +168,7 @@ def _launch(p: _Prepared) -> torch.Tensor:
                              f"got {name} on {t.device} (q on {dev})")
     b, hkv, gtq, d = p.q.shape
     s_max = p.k.shape[2]
-    if d > 256:
-        raise ValueError(f"flash_decode kernel takes head_dim <= 256, got {d}")
+    refuse_wide("the flash_decode kernel", d)
     if p.tq > 16:
         raise ValueError(f"flash_decode kernel takes Tq <= 16 new queries, got {p.tq}")
     q = p.q.contiguous()

@@ -1,6 +1,6 @@
 """Time the attention forwards of a source tree on the card.
 
-    python umfa_tpu_torch/utils/fwd_timing.py [--tree DIR] [--label NAME] (--fp32 | --ring | --bf16 | --rope | --bias)
+    python umfa_tpu_torch/utils/fwd_timing.py [--tree DIR] [--label NAME] (--fp32 | --ring | --bf16 | --rope | --bias | --wide)
 
 Imports `umfa_tpu_torch` from DIR (default: the tree this file is in), so
 another tree, such as a parent commit unpacked with `git archive`, can be
@@ -44,6 +44,19 @@ such row, up to 32, read against the float64 LSE of the plain version's
 rounding points: `utils/testing.lse_check`), its
 flop (4·D a visible pair) and bound (q, k, v, out, LSE and the bias once);
 then the same call without the bias.
+
+--wide: `flash_fwd` at head dims above 256 (the wide body, two launches a
+call) at `chip_smoke.py` phase 19's shapes (WIDE_SHAPE, the FLUX VAE
+mid-block B1 H1 S16384 D512 non-causal, and the widest of WIDE_GQA, B1 Hq4
+Hkv2 S1024 D1024 causal; this file's, whatever --tree), bf16 and fp32, each with its relerr and worst LSE
+error against the plain version and each kernel's device ms by
+torch.profiler (the row-max pass and the column slices); then the fp32
+highest-accuracy case of tests/test_torch_kernels_cuda.py (B2 H4 S1024
+causal, q ~ N(0, 3), its inputs from seeds 0-3, seed 0 the test's) at D 256
+and 512: the rows whose LSE is past 1e-5 from the plain version's, and
+both sides' distance from the float64 LSE and out of the same rounding
+points (`utils/testing.lse_f64`'s arithmetic on every row). Phase 19 times
+the wide backward.
 
 Prints one JSON line per timing, then the card's name and power limit as
 nvidia-smi gives them. Needs a CUDA device.
@@ -291,6 +304,100 @@ def _time_bias(emit, stats):
     del q, k, v, bias
     torch.cuda.empty_cache()
 
+# Head dims above 256 (`chip_smoke.py` phase 19 and --wide). The FLUX VAE
+# decoder's mid-block attention: one head as wide as its 512 channels over
+# the 128 x 128 latent of a 1024 x 1024 image (diffusers `Decoder`,
+# src/diffusers/models/autoencoders/vae.py: UNetMidBlock2D(
+# attention_head_dim=block_out_channels[-1]), block_out_channels
+# [128, 256, 512, 512]), non-causal, through F.scaled_dot_product_attention.
+WIDE_SHAPE = (1, 1, 16384, 512)  # B, H, S, D
+WIDE_BIAS_SHAPE = (1, 2, 2048, 512)  # the bias_grad case, a (1, H, S, S) fp32 bias
+WIDE_GQA = ((300, 1024), 1, 4, 2, 1024)  # head dims; B, Hq, Hkv, S, causal
+
+
+def _kernels_ms(fn, reps=3):
+    """Each CUDA kernel's device ms a call of fn(), by torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.device_time_total / reps / 1e3 for e in prof.key_averages()
+            if e.device_time_total > 0}
+
+
+def _f64(q, k, v, causal):
+    """The plain forward's out and LSE with its rounding points (Q·scale
+    rounded to q's dtype; P kept unrounded, as at D >= 128) and every sum
+    in float64; Hq == Hkv."""
+    import torch
+
+    qs = (q.float() * q.shape[-1] ** -0.5).to(q.dtype).double()
+    s = qs @ k.double().transpose(-1, -2)
+    if causal:
+        keep = torch.ones(s.shape[-2:], dtype=torch.bool, device=s.device).tril()
+        s = s.masked_fill(~keep, float("-inf"))
+    lse = torch.logsumexp(s, dim=-1)
+    return torch.exp(s - lse[..., None]) @ v.double(), lse
+
+
+def _time_wide(emit, stats):
+    import torch
+
+    from umfa_tpu_torch.ops.flash_fwd import flash_attention_forward, flash_attention_forward_plain
+    from umfa_tpu_torch.utils.testing import rel_err
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(0)
+    b, h, s, d = WIDE_SHAPE
+    dims, gb, ghq, ghkv, gs = WIDE_GQA
+    shapes = {"vae_mid_block": (b, h, h, s, d, False),
+              f"causal_gqa_d{max(dims)}": (gb, ghq, ghkv, gs, max(dims), True)}
+    for name, (b, hq, hkv, s, d, causal) in shapes.items():
+        for dt in ("bfloat16", "float32"):
+            q, k, v = (torch.randn(shape, generator=gen).to(dev, getattr(torch, dt))
+                       for shape in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d)))
+
+            def run(q=q, k=k, v=v):
+                return flash_attention_forward(q, k, v, causal=causal)
+
+            out, lse = run()
+            want, want_lse = flash_attention_forward_plain(q, k, v, causal=causal)
+            err = dict(relerr=rel_err(out, want),
+                       max_abs_lse=float((lse - want_lse).abs().max()))
+            del out, lse, want, want_lse
+            torch.cuda.empty_cache()
+            emit(kernel="flash_fwd", case=name, dtype=dt, **err,
+                 shape=f"B{b} Hq{hq} Hkv{hkv} S{s} D{d} {'causal' if causal else 'non-causal'}",
+                 **stats(run), kernels_ms=_kernels_ms(run))
+            del q, k, v
+            torch.cuda.empty_cache()
+    tol = 1e-5
+    for d in (256, 512):
+        for seed in range(4):
+            g = torch.Generator().manual_seed(seed)
+            q, k, v = (torch.randn((2, 4, 1024, d), generator=g) for _ in range(3))
+            q, k, v = (q * 3.0).to(dev), k.to(dev), v.to(dev)
+            out, lse = flash_attention_forward(q, k, v, causal=True)
+            want, want_lse = flash_attention_forward_plain(q, k, v, causal=True)
+            o64, l64 = _f64(q, k, v, True)
+            kern, plain = (lse.double() - l64).abs(), (want_lse.double() - l64).abs()
+            emit(kernel="flash_fwd", case="fp32_highest_accuracy", dtype="float32",
+                 shape=f"B2 H4 S1024 D{d} causal, q ~ N(0, 3)", seed=seed,
+                 lse_rows_over_tol_vs_plain=int(((lse - want_lse).abs() > tol).sum()),
+                 max_abs_lse_vs_plain=float((lse - want_lse).abs().max()),
+                 kernel_max_abs_lse_from_f64=float(kern.max()),
+                 plain_max_abs_lse_from_f64=float(plain.max()),
+                 kernel_lse_rows_over_tol_from_f64=int((kern > tol).sum()),
+                 plain_lse_rows_over_tol_from_f64=int((plain > tol).sum()),
+                 relerr_out_vs_plain=rel_err(out, want),
+                 kernel_relerr_out_from_f64=rel_err(out.double(), o64),
+                 plain_relerr_out_from_f64=rel_err(want.double(), o64))
+            del q, k, v, out, lse, want, want_lse, o64, l64, kern, plain
+            torch.cuda.empty_cache()
+
 
 def main(argv=None) -> int:
     here = os.path.dirname(os.path.abspath(__file__))
@@ -304,6 +411,8 @@ def main(argv=None) -> int:
     mode.add_argument("--rope", action="store_true", help="flash_fwd with in-kernel RoPE")
     mode.add_argument("--bias", action="store_true",
                       help="flash_fwd on the MLA indexer's call, with and without its bias")
+    mode.add_argument("--wide", action="store_true",
+                      help="flash_fwd at head dims above 256, and its fp32 LSE from float64")
     args = ap.parse_args(argv)
     tree = os.path.abspath(args.tree)
     if sys.path and os.path.abspath(sys.path[0]) == here:
@@ -328,7 +437,7 @@ def main(argv=None) -> int:
         print(json.dumps({"tree": args.label, **kw}), flush=True)
 
     (_time_ring if args.ring else _time_bf16 if args.bf16 else _time_rope if args.rope
-     else _time_bias if args.bias else _time_fp32)(emit, _stats)
+     else _time_bias if args.bias else _time_wide if args.wide else _time_fp32)(emit, _stats)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True,
                          timeout=60).stdout.strip().splitlines()[0], flush=True)
